@@ -1,0 +1,88 @@
+"""K1 wrapper: fused 3×3 conv + bias + ReLU + 2×2 max-pool (+ side score),
+and SuperPoint's fused stage-1 stem (port of ops/conv_stem_pallas.py).
+
+``conv3x3_relu_pool`` launches ``csrc/conv_stem.cu`` for CUDA tensors and
+runs :func:`conv3x3_relu_pool_plain` for CPU tensors; nothing else picks
+the path. Layout is NHWC at the public boundary.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from rspl_slam_tpu_torch.ops import cuda_build
+
+__all__ = ["conv3x3_relu_pool", "conv3x3_relu_pool_plain", "conv1a",
+           "superpoint_stem"]
+
+launches = 0  # SuperPoint-mode launches (no side output)
+side_launches = 0  # side-output-mode launches (RCF stage 1)
+
+
+def conv3x3_relu_pool_plain(x, w, b, side_w=None):
+    """Plain PyTorch version. x (B, H, W, C) NHWC; w (3, 3, C, C_out) HWIO;
+    b (C_out,). Weights round to x's dtype (the TPU kernel casts them to
+    bf16); the conv accumulates, adds the bias and applies ReLU in f32.
+    Returns pooled (B, H/2, W/2, C_out) in x's dtype and, with ``side_w``,
+    the full-resolution f32 side score (B, H, W)."""
+    xf = x.float().permute(0, 3, 1, 2)
+    wf = w.to(x.dtype).float().permute(3, 2, 0, 1)
+    y = torch.relu(F.conv2d(xf, wf, padding=1) + b.float()[None, :, None, None])
+    out = F.max_pool2d(y, 2).permute(0, 2, 3, 1).to(x.dtype).contiguous()
+    if side_w is None:
+        return out
+    side = torch.einsum("bchw,c->bhw", y, side_w.float())
+    return out, side
+
+
+def conv3x3_relu_pool(x, w, b, side_w=None):
+    """ReLU(conv3×3(x) + b) with the whole 2×2 max-pool fused, SAME zero
+    padding; optional full-resolution side score Σ_c side_w[c]·ReLU(·)[c].
+
+    CUDA tensors launch K1 (bf16 x, C = C_out = 64, even H and W) or raise;
+    CPU tensors take the plain version."""
+    global launches, side_launches
+    if x.device.type == "cpu":
+        return conv3x3_relu_pool_plain(x, w, b, side_w)
+    B, H, W, C = x.shape
+    if C != 64 or tuple(w.shape) != (3, 3, 64, 64) or H % 2 or W % 2:
+        raise ValueError(f"conv_stem kernel takes (B, H, W, 64) with even H, W "
+                         f"and (3, 3, 64, 64) weights; got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    cuda_build.require_cuda(x, "x", torch.bfloat16)
+    wk = w.to(torch.bfloat16).float().reshape(9, 64, 64).contiguous()
+    bk = b.float().contiguous()
+    cuda_build.require_cuda(wk, "w", torch.float32)
+    cuda_build.require_cuda(bk, "b", torch.float32, (64,))
+    out = torch.empty((B, H // 2, W // 2, 64), dtype=torch.bfloat16, device=x.device)
+    side = None
+    swk = None
+    if side_w is not None:
+        swk = side_w.float().contiguous()
+        cuda_build.require_cuda(swk, "side_w", torch.float32, (64,))
+        side = torch.empty((B, H, W), dtype=torch.float32, device=x.device)
+    cuda_build.launch("conv_stem", "conv_stem_launch", x, wk, bk, swk, out, side,
+                      B, H, W, cuda_build.stream_of(x))
+    if side is None:
+        launches += 1
+        return out
+    side_launches += 1
+    return out, side
+
+
+def conv1a(images, w, b, dtype):
+    """SuperPoint conv1a (c_in = 1) + ReLU in plain torch, NHWC out —
+    the JAX package computes it outside Pallas too. Operands round to
+    ``dtype``; accumulation, bias and ReLU in f32; output in ``dtype``."""
+    x = images.to(dtype).float()[:, None]
+    wf = w.to(dtype).float().permute(3, 2, 0, 1)
+    y = torch.relu(F.conv2d(x, wf, padding=1) + b.float()[None, :, None, None])
+    return y.to(dtype).permute(0, 2, 3, 1).contiguous()
+
+
+def superpoint_stem(w1a, b1a, w1b, b1b, images, dtype=torch.bfloat16):
+    """Fused SuperPoint stage-1 stem: conv1a, then conv1b + the first
+    max-pool through K1. images (B, H, W) in [0, 1] → (B, H/2, W/2, 64)
+    NHWC in ``dtype``."""
+    return conv3x3_relu_pool(conv1a(images, w1a, b1a, dtype), w1b, b1b)
