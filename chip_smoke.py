@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --profile  # every phase + a torch.profiler breakdown
+    python3 chip_smoke.py --kernels  # device, build, kernel phases, summary
 
 Phases (one JSON line each):
   1. the card's name and power limit; build every kernel library from
@@ -16,6 +17,8 @@ Phases (one JSON line each):
      no lines, no BA), with launch counters reset just before and read just
      after; checks initialization, inliers, finite poses and ATE;
   4. the {"kernels": [...]} summary; last line {"ok": true, "device": ...}.
+     With --kernels, phase 3 is skipped and the summary's launch counts
+     are null.
 
 Any failure raises and exits non-zero. The script imports nothing of JAX
 or of the JAX package.
@@ -34,10 +37,12 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, f32 without
-# tensor cores, HBM3 bandwidth
+# tensor cores, HBM3 bandwidth; the SFU's exponentials: 16 per SM per clock
+# on 132 SMs at the 1.98 GHz boost clock
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_SFU = 132 * 16 * 1.98e9
 
 # end-to-end gates (see PERF.md for where the ATE bound comes from)
 E2E_FRAMES = 30
@@ -49,10 +54,22 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(flops: float, nbytes: float, peak_ops: float):
-    t_ops = flops / peak_ops * 1e3
+def bound_ms(flops: float, nbytes: float, peak_ops: float, sfu_ops: float = 0.0):
+    """The least time of the work (ms) and what sets it: the bytes at the
+    HBM rate, or the operations at their unit's peak (FMA-class work at
+    ``peak_ops``; exponentials at the SFU rate), whichever is largest."""
+    t_ops = max(flops / peak_ops, sfu_ops / PEAK_SFU) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rates(line: dict) -> dict:
+    """Achieved rate and bound fraction (bound_ms / ms) of a kernel line."""
+    out = {"tflops": line["flops"] / line["ms"] * 1e-9,
+           "bound_fraction": line["bound_ms"] / line["ms"]}
+    if "elements" in line:
+        out["elements_per_s"] = line["elements"] / line["ms"] * 1e3
+    return out
 
 
 def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -130,7 +147,8 @@ def check_conv_stem(side: bool):
     w = torch.randn((3, 3, C, C), generator=g, device=dev) * (2.0 / (9 * C)) ** 0.5
     b = torch.randn((C,), generator=g, device=dev) * 0.1
     sw = torch.randn((C,), generator=g, device=dev) * 0.1 if side else None
-    got = cs.conv3x3_relu_pool(x, w, b, sw)
+    wp = cs.pack_weights(w)  # once per weight tensor, as SuperPoint caches it
+    got = cs.conv3x3_relu_pool(x, wp, b, sw)
     ref = cs.conv3x3_relu_pool_plain(x, w, b, sw)
     torch.cuda.synchronize()
     rtol, atol = 2.0 ** -7, 1e-3  # one bf16 rounding of near-equal f32 sums
@@ -141,7 +159,7 @@ def check_conv_stem(side: bool):
         ok, err = ok and okS, max(err, errS)
     else:
         ok, err = _allclose_report("conv_stem", got, ref, rtol, atol)
-    kernel_ms = time_ms(lambda: cs.conv3x3_relu_pool(x, w, b, sw))
+    kernel_ms = time_ms(lambda: cs.conv3x3_relu_pool(x, wp, b, sw))
     plain_ms = time_ms(lambda: cs.conv3x3_relu_pool_plain(x, w, b, sw))
     xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory = channels_last
     wc = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
@@ -149,7 +167,7 @@ def check_conv_stem(side: bool):
     bb = b.to(torch.bfloat16)
     library_ms = time_ms(lambda: F.conv2d(xc, wc, bb, padding=1))
     flops = 2.0 * B * H * W * C * 9 * C + (2.0 * B * H * W * C if side else 0.0)
-    nbytes = (x.numel() * 2 + 9 * C * C * 4 + C * 4 + B * (H // 2) * (W // 2) * C * 2
+    nbytes = (x.numel() * 2 + 9 * C * C * 2 + C * 4 + B * (H // 2) * (W // 2) * C * 2
               + ((C * 4 + B * H * W * 4) if side else 0))
     bms, by = bound_ms(flops, nbytes, PEAK_BF16)
     line = {"phase": "kernel", "name": "conv_stem_side" if side else "conv_stem",
@@ -159,6 +177,7 @@ def check_conv_stem(side: bool):
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "F.conv2d bf16 channels_last (conv only)",
             "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes}
+    line.update(rates(line))
     emit(line)
     if not ok:
         raise AssertionError(f"conv_stem{'_side' if side else ''} disagrees: {err}")
@@ -214,47 +233,82 @@ def check_superglue_layer():
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call computes a whole GNN layer",
             "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes}
+    line.update(rates(line))
     emit(line)
     if not ok:
         raise AssertionError(f"superglue_layer disagrees: {errs}")
     return line
 
 
-def check_sinkhorn():
+def _sinkhorn_case(gen, M, N, valid0, valid1, matcher: bool, iters: int = 100,
+                   plain_n: int = 5):
+    """K3 against the plain sweeps on one (1, M+1, N+1) problem: random
+    scores ×3 with dustbin 1.0, or the matcher's own scale (2000·cos of
+    unit descriptors, half of them matched across the sets, dustbin 1980,
+    as descriptor_matcher_params sets SuperGlue up)."""
     import torch
+    import torch.nn.functional as F
 
     from rspl_slam_tpu_torch.ops import sinkhorn as sk
     from rspl_slam_tpu_torch.ops import sinkhorn_cuda as skc
 
     dev = "cuda"
-    gen = torch.Generator(device=dev).manual_seed(3)
-    B, M, N, iters = 1, 400, 400, 100
-    scores = torch.randn((B, M, N), generator=gen, device=dev) * 3.0
-    m0 = torch.arange(M, device=dev)[None] < 371
-    m1 = torch.arange(N, device=dev)[None] < 352
-    Z0, mu, nu, norm = sk.build_problem(scores, m0, m1, 1.0)
+    if matcher:
+        d0 = F.normalize(torch.randn((1, M, 256), generator=gen, device=dev), dim=-1)
+        d1 = F.normalize(torch.randn((1, N, 256), generator=gen, device=dev), dim=-1)
+        k = min(M, N) // 2
+        perm = torch.randperm(N, generator=gen, device=dev)[:k]
+        d1[:, perm] = F.normalize(
+            d0[:, :k] + 0.1 * torch.randn((1, k, 256), generator=gen, device=dev), dim=-1)
+        scores, bin_score = 2000.0 * d0 @ d1.transpose(1, 2), 1980.0
+    else:
+        scores, bin_score = torch.randn((1, M, N), generator=gen, device=dev) * 3.0, 1.0
+    m0 = torch.arange(M, device=dev)[None] < valid0
+    m1 = torch.arange(N, device=dev)[None] < valid1
+    Z0, mu, nu, norm = sk.build_problem(scores, m0, m1, bin_score)
     got = skc.sinkhorn_iterations(Z0, mu, nu, iters) - norm[:, None, None]
     ref = sk.sinkhorn_iterations_plain(Z0, mu, nu, iters) - norm[:, None, None]
     torch.cuda.synchronize()
-    mv = torch.cat([m0, torch.ones((B, 1), dtype=torch.bool, device=dev)], 1)
-    nv = torch.cat([m1, torch.ones((B, 1), dtype=torch.bool, device=dev)], 1)
-    sel = mv[:, :, None] & nv[:, None, :]
+    one = torch.ones((1, 1), dtype=torch.bool, device=dev)
+    sel = torch.cat([m0, one], 1)[:, :, None] & torch.cat([m1, one], 1)[:, None, :]
     ok, err = _allclose_report("sinkhorn", got, ref, 0.0, 1e-3, sel)
     kernel_ms = time_ms(lambda: skc.sinkhorn_iterations(Z0, mu, nu, iters))
-    plain_ms = time_ms(lambda: sk.sinkhorn_iterations_plain(Z0, mu, nu, iters), n=5)
-    elems = B * (M + 1) * (N + 1)
-    flops = 4.0 * 2 * iters * elems
-    nbytes = 4.0 * (2 * elems + B * (M + 1) + B * (N + 1))
-    bms, by = bound_ms(flops, nbytes, PEAK_F32)
-    line = {"phase": "kernel", "name": "sinkhorn", "shape": [B, M + 1, N + 1],
-            "iters": iters, "ok": ok, "max_abs_err": err,
+    plain_ms = time_ms(lambda: sk.sinkhorn_iterations_plain(Z0, mu, nu, iters), n=plain_n)
+    elems = (M + 1) * (N + 1)
+    sweeps = 2 * iters * elems  # one exponential per element per sweep
+    flops = 4.0 * sweeps
+    nbytes = 4.0 * (2 * elems + (M + 1) + (N + 1))
+    bms, by = bound_ms(flops, nbytes, PEAK_F32, sfu_ops=sweeps)
+    plan = skc.cluster_plan(M + 1, N + 1)
+    line = {"phase": "kernel", "name": "sinkhorn", "shape": [1, M + 1, N + 1],
+            "iters": iters, "scores": "matcher 2000*cos, bin 1980" if matcher
+            else "randn*3, bin 1", "valid": [valid0, valid1],
+            "cluster_plan": plan._asdict(), "ok": ok, "max_abs_err": err,
             "tolerance": "max |k-p| < 1e-3 on valid rows, columns and dustbins",
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call runs Sinkhorn",
-            "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes}
+            "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes,
+            "elements": float(sweeps)}
+    line.update(rates(line))
     emit(line)
     if not ok:
-        raise AssertionError(f"sinkhorn disagrees: {err}")
+        raise AssertionError(f"sinkhorn disagrees at {line['shape']} "
+                             f"({line['scores']}): {err}")
+    return line
+
+
+def check_sinkhorn():
+    """K3 at the main path's shape (the timed line), and at OIVIO's K = 600
+    and the matcher's score scale (checks listed in the summary)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    line = _sinkhorn_case(gen, 400, 400, 371, 352, matcher=False)
+    line["checks"] = [
+        {k: c[k] for k in ("shape", "scores", "valid", "max_abs_err", "ms",
+                           "bound_ms", "bound_fraction")}
+        for c in (_sinkhorn_case(gen, 600, 600, 577, 541, matcher=False, plain_n=2),
+                  _sinkhorn_case(gen, 400, 400, 200, 337, matcher=True, plain_n=2))]
     return line
 
 
@@ -375,8 +429,17 @@ def phase_profile(cfg, fe, frames, n_warm: int = 3, n_prof: int = 3):
           "host_calls_per_frame": {k: v / n_prof for k, v in host.items()},
           "top_device_ms_per_frame": [
               [e.key[:60], e.self_device_time_total / 1e3 / n_prof, e.count // n_prof]
-              for e in dev[:15]]})
+              for e in dev[:15]],
+          "kernel_device_ms_per_frame": {
+              name: sum(e.self_device_time_total for e in ka
+                        if any(f in e.key for f in fns)) / 1e3 / n_prof
+              for name, fns in PROFILE_NAMES.items()}})
 
+
+# each port kernel's CUDA function name, as the profiler lists it
+PROFILE_NAMES = {"conv_stem": ("conv3x3_relu_pool_kernel",),
+                 "superglue_layer": ("qkv_kernel", "attn_kernel", "mlp_kernel"),
+                 "sinkhorn": ("sinkhorn_cluster_kernel",)}
 
 SOURCES = {
     "conv_stem": ("rspl_slam_tpu_torch/csrc/conv_stem.cu",
@@ -386,19 +449,25 @@ SOURCES = {
     "sinkhorn": ("rspl_slam_tpu_torch/csrc/sinkhorn.cu",
                  "rspl_slam_tpu/ops/sinkhorn_pallas.py:61"),
 }
-KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "tflops", "bound_fraction")
 
 
 def phase_summary(lines, launches):
+    """``launches`` is None with --kernels (the main path did not run)."""
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-             "launches": launches[name], **{key: lines[name][key] for key in KEYS}}
+             "launches": launches and launches[name],
+             **{key: lines[name][key] for key in KEYS}}
         if name == "conv_stem":  # the same kernel in RCF's side-output mode
             side = lines["conv_stem_side"]
-            k["side_mode"] = {"launches": launches["conv_stem_side"],
+            k["side_mode"] = {"launches": launches and launches["conv_stem_side"],
                               "shape": side["shape"],
                               **{key: side[key] for key in KEYS}}
+        if name == "sinkhorn":
+            k["elements_per_s"] = lines[name]["elements_per_s"]
+            k["checks"] = lines[name]["checks"]
         kernels.append(k)
     emit({"kernels": kernels})
 
@@ -416,9 +485,11 @@ def main(argv) -> int:
     lines["conv_stem_side"] = check_conv_stem(side=True)
     lines["superglue_layer"] = check_superglue_layer()
     lines["sinkhorn"] = check_sinkhorn()
-    e2e, launches, run = phase_end_to_end()
-    if "--profile" in argv:
-        phase_profile(*run)
+    launches = None
+    if "--kernels" not in argv:
+        _, launches, run = phase_end_to_end()
+        if "--profile" in argv:
+            phase_profile(*run)
     phase_summary(lines, launches)
     import torch
 

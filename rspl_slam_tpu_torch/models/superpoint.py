@@ -59,8 +59,9 @@ def init_params(seed: int = 0) -> dict:
 
 
 class SuperPoint(nn.Module):
-    """Holds the weights as buffers: 3×3 convs in HWIO (the JAX layout, which
-    is also K1's) and OIHW for ``F.conv2d``; 1×1 heads as (cin, cout)."""
+    """Holds the weights as buffers: 3×3 convs in HWIO (the JAX layout and
+    the plain stem's; K1 takes conv1b packed, see ``_stem_w``) and OIHW for
+    ``F.conv2d``; 1×1 heads as (cin, cout)."""
 
     def __init__(self, params: dict):
         super().__init__()
@@ -86,6 +87,17 @@ class SuperPoint(nn.Module):
             self._cast[key] = (wc, getattr(self, f"{name}_b").to(dtype))
         return self._cast[key]
 
+    def _stem_w(self):
+        """conv1b's weights as K1 takes them: packed once on the card
+        (``conv_stem_cuda.pack_weights``), HWIO on the CPU."""
+        w = self.conv1b_hwio
+        if not w.is_cuda:
+            return w
+        key = ("conv1b", "k1", w.device)
+        if key not in self._cast:
+            self._cast[key] = conv_stem_cuda.pack_weights(w)
+        return self._cast[key]
+
     def _conv(self, x, name, dtype):
         w, b = self._wb(name, dtype)
         return torch.relu(F.conv2d(x, w, b, padding=1))
@@ -99,7 +111,7 @@ class SuperPoint(nn.Module):
         """images (B, H, W) in [0, 1] → (probs (B, H/8, W/8, 64) f32 with
         channel c = 8·dy + dx, desc (B, 256, H/8, W/8) f32 L2-normalized)."""
         x = conv_stem_cuda.superpoint_stem(
-            self.conv1a_hwio, self.conv1a_b, self.conv1b_hwio, self.conv1b_b,
+            self.conv1a_hwio, self.conv1a_b, self._stem_w(), self.conv1b_b,
             images, dtype)  # (B, H/2, W/2, 64) NHWC
         x = x.permute(0, 3, 1, 2)  # NCHW view (channels-last memory)
         for a, b in (("conv2a", "conv2b"), ("conv3a", "conv3b")):

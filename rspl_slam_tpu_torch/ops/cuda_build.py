@@ -35,7 +35,7 @@ FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 SIGNATURES = {
     "conv_stem": {"conv_stem_launch": "pppppp" + "iii" + "p"},
     "superglue_layer": {"superglue_layer_launch": "p" * 15 + "iii" + "p"},
-    "sinkhorn": {"sinkhorn_launch": "pppp" + "iiii" + "p"},
+    "sinkhorn": {"sinkhorn_launch": "pppp" + "iiii" + "iii" + "p"},
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 

@@ -17,17 +17,20 @@ from rspl_slam_tpu_torch.ops import attention_cuda, conv_stem_cuda, sinkhorn, si
 pytestmark = pytest.mark.cuda
 
 
-@pytest.mark.parametrize("H,W", [(36, 50), (30, 44)])  # ragged 16×16 tiles
+# ragged 16×16 tiles in both directions, and RCF's ×0.5 side-mode shape
+@pytest.mark.parametrize("H,W", [(36, 50), (30, 44), (240, 376)])
 def test_conv_stem_kernel_matches_plain(cuda_device, H, W):  # noqa: F811
-    """K1 vs its plain version: one bf16 rounding of near-equal f32 sums;
-    the side score in f32 to rtol 1e-4."""
+    """K1 (weights packed once) vs its plain version (HWIO weights): one
+    bf16 rounding of near-equal f32 sums; the side score in f32 to rtol
+    1e-4."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.rand((2, H, W, 64), generator=g, device=cuda_device).to(torch.bfloat16)
     w = torch.randn((3, 3, 64, 64), generator=g, device=cuda_device) * 0.06
     b = torch.randn((64,), generator=g, device=cuda_device) * 0.1
     sw = torch.randn((64,), generator=g, device=cuda_device)
-    got = conv_stem_cuda.conv3x3_relu_pool(x, w, b)
-    got_s, side = conv_stem_cuda.conv3x3_relu_pool(x, w, b, sw)
+    wp = conv_stem_cuda.pack_weights(w)
+    got = conv_stem_cuda.conv3x3_relu_pool(x, wp, b)
+    got_s, side = conv_stem_cuda.conv3x3_relu_pool(x, wp, b, sw)
     ref, side_ref = conv_stem_cuda.conv3x3_relu_pool_plain(x, w, b, sw)
     torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
     assert torch.equal(got, got_s)
@@ -75,12 +78,43 @@ def test_sinkhorn_kernel_matches_plain(cuda_device):  # noqa: F811
     assert (got - ref).abs()[sel].max() < 1e-3
 
 
+@pytest.mark.parametrize("B,M,N", [(1, 400, 400), (1, 600, 600), (2, 70, 61), (1, 4, 9)],
+                         ids=["superglue", "oivio", "batch2", "rows-below-cluster"])
+def test_sinkhorn_cluster_kernel_shapes(cuda_device, B, M, N):  # noqa: F811
+    """K3's cluster at the shipped sizes (K = 400, OIVIO's 600), two
+    clusters at once, and M1 = 5 rows over a cluster of 8 (empty bands):
+    max error < 1e-3 on valid rows, columns and dustbins."""
+    g = torch.Generator(device=cuda_device).manual_seed(M)
+    S = torch.randn((B, M, N), generator=g, device=cuda_device) * 3
+    v0 = torch.tensor([[M - M // 7]] * B, device=cuda_device)
+    v1 = torch.tensor([[N]] * B, device=cuda_device)
+    v0[-1] = M
+    v1[0] = N - N // 5
+    m0 = torch.arange(M, device=cuda_device)[None] < v0
+    m1 = torch.arange(N, device=cuda_device)[None] < v1
+    Z0, mu, nu, _ = sinkhorn.build_problem(S, m0, m1, 1.0)
+    got = sinkhorn_cuda.sinkhorn_iterations(Z0, mu, nu, 100)
+    ref = sinkhorn.sinkhorn_iterations_plain(Z0, mu, nu, 100)
+    one = torch.ones((B, 1), dtype=torch.bool, device=cuda_device)
+    sel = torch.cat([m0, one], 1)[:, :, None] & torch.cat([m1, one], 1)[:, None, :]
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs()[sel].max() < 1e-3
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda_device):  # noqa: F811
     """A CUDA tensor the kernel cannot take raises; nothing falls back."""
     x = torch.zeros((1, 8, 8, 64), device=cuda_device)  # f32, not bf16
     w = torch.zeros((3, 3, 64, 64), device=cuda_device)
     with pytest.raises(ValueError):
-        conv_stem_cuda.conv3x3_relu_pool(x, w, torch.zeros(64, device=cuda_device))
+        conv_stem_cuda.conv3x3_relu_pool(x, conv_stem_cuda.pack_weights(w),
+                                         torch.zeros(64, device=cuda_device))
+    with pytest.raises(ValueError):  # HWIO weights: K1 takes them packed
+        conv_stem_cuda.conv3x3_relu_pool(x.to(torch.bfloat16), w,
+                                         torch.zeros(64, device=cuda_device))
+    Z0 = torch.zeros((1, 1401, 1401), device=cuda_device)  # beyond a cluster of 16
+    with pytest.raises(ValueError, match="does not fit a cluster"):
+        sinkhorn_cuda.sinkhorn_iterations(Z0, torch.zeros((1, 1401), device=cuda_device),
+                                          torch.zeros((1, 1401), device=cuda_device), 10)
     layer = attention_cuda.pack_layer(_layer(np.random.default_rng(0), 256), cuda_device)
     with pytest.raises(ValueError):
         attention_cuda.superglue_layer(torch.zeros((2, 5, 256), device=cuda_device),
