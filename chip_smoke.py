@@ -11,11 +11,13 @@ Phases (one JSON line each):
   2. per kernel, at the main path's shapes: the kernel against its plain
      PyTorch version on the same inputs (tolerance in the line), and CUDA
      event timings of the kernel, the plain version and, where one PyTorch
-     call computes the same function, that call (a yardstick only);
+     call computes the same function, that call (a yardstick only); K1 also
+     in its side-output mode, K2 in its bf16 (main path) and f32 modes;
   3. end to end: the port's SLAMSystem + NeuralFrontend on rendered stereo
-     frames at 752×480 (K = 400, 18 GNN layers, 100 Sinkhorn iterations,
-     no lines, no BA), with launch counters reset just before and read just
-     after; checks initialization, inliers, finite poses and ATE;
+     frames at 752×480 (K = 400, 18 GNN layers at bf16, 100 Sinkhorn
+     iterations, no lines, no BA), with launch counters reset just before
+     and read just after; checks initialization, inliers, finite poses and
+     ATE;
   4. the {"kernels": [...]} summary; last line {"ok": true, "device": ...}.
      With --kernels, phase 3 is skipped and the summary's launch counts
      are null.
@@ -86,6 +88,22 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def host_ms(fn, n: int = 20) -> float:
+    """Host time (ms) to issue one call without waiting for the device.
+    Where it nears :func:`time_ms` of the same calls, that event time is
+    the host's issue rate, not the kernel's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e3
 
 
 def phase_device():
@@ -201,42 +219,82 @@ def _random_layer(gen, C, dev):
     return layer
 
 
-def check_superglue_layer():
+def _layer_case(ac, gen, layer, K, valid, compute_dtype, rtol, atol):
+    """K2 against its plain version at (2, K, 256), self and cross, with
+    ``valid`` keys in the second set: (ok, [max error self, cross], x,
+    masks, scratch)."""
+    import torch
+
+    dev = "cuda"
+    x = torch.randn((2, K, 256), generator=gen, device=dev)
+    masks = torch.arange(K, device=dev)[None] < torch.tensor([[K], [valid]], device=dev)
+    scratch = ac.layer_scratch(x, masks, compute_dtype)
+    errs, ok = [], True
+    for cross in (False, True):
+        got = ac.superglue_layer(x, masks, layer, cross, compute_dtype=compute_dtype,
+                                 scratch=scratch)
+        ref = ac.superglue_layer_plain(x, masks, layer, cross, compute_dtype=compute_dtype)
+        torch.cuda.synchronize()
+        o, e = _allclose_report("superglue_layer", got, ref, rtol, atol)
+        ok &= o
+        errs.append(e)
+    return ok, errs, x, masks, scratch
+
+
+def check_superglue_layer(bf16: bool):
+    """K2 in its bf16 or f32 mode at the main path's (2, 400, 256), timed;
+    the bf16 mode also at ragged K = 48, 301 and OIVIO's 600 (listed in
+    ``checks``)."""
     import torch
 
     from rspl_slam_tpu_torch.ops import attention_cuda as ac
 
     dev = "cuda"
+    compute_dtype = torch.bfloat16 if bf16 else torch.float32
     gen = torch.Generator(device=dev).manual_seed(2)
     n2, K, C = 2, 400, 256
     layer = ac.pack_layer(_random_layer(gen, C, dev), dev)
-    x = torch.randn((n2, K, C), generator=gen, device=dev)
-    masks = torch.arange(K, device=dev)[None] < torch.tensor([[K], [331]], device=dev)
-    rtol, atol = 1e-3, 1e-3
-    errs, ok = [], True
-    for cross in (False, True):
-        got = ac.superglue_layer(x, masks, layer, cross)
-        ref = ac.superglue_layer_plain(x, masks, layer, cross)
-        torch.cuda.synchronize()
-        o, e = _allclose_report("superglue_layer", got, ref, rtol, atol)
-        ok &= o
-        errs.append(e)
-    kernel_ms = time_ms(lambda: ac.superglue_layer(x, masks, layer, True))
-    plain_ms = time_ms(lambda: ac.superglue_layer_plain(x, masks, layer, True))
+    if bf16:  # one bf16 intermediate on the other side of a rounding boundary
+        rtol, atol = 2.0 ** -8, 4e-3
+        tol = "|k-p| <= 2^-8|p| + 4e-3 (bf16 operands; another f32 summation order)"
+    else:
+        rtol, atol = 1e-3, 1e-3
+        tol = "rtol 1e-3, atol 1e-3 (f32, other summation order)"
+    ok, errs, x, masks, scratch = _layer_case(ac, gen, layer, K, 331, compute_dtype, rtol, atol)
+    checks = []
+    if bf16:
+        for k, valid in ((48, 40), (301, 250), (600, 577)):
+            o, e, *_ = _layer_case(ac, gen, layer, k, valid, compute_dtype, rtol, atol)
+            ok &= o
+            checks.append({"shape": [2, k, C], "valid": [k, valid], "ok": o,
+                           "max_abs_err_self_cross": e})
+    def kernel():
+        return ac.superglue_layer(x, masks, layer, True, compute_dtype=compute_dtype,
+                                  scratch=scratch)
+
+    kernel_ms = time_ms(kernel)
+    wrapper_host_ms = host_ms(kernel)  # K2's two launches are short: see host_ms
+    plain_ms = time_ms(lambda: ac.superglue_layer_plain(x, masks, layer, True,
+                                                        compute_dtype=compute_dtype))
     n = n2 * K
     flops = 2.0 * n * (C * 3 * C + K * C + K * C + C * C + 2 * C * 2 * C + 2 * C * C)
-    nbytes = 4.0 * (2 * x.numel() + n + sum(int(v.numel()) for v in layer.values()))
-    bms, by = bound_ms(flops, nbytes, PEAK_F32)
-    line = {"phase": "kernel", "name": "superglue_layer", "shape": [n2, K, C],
+    # x in and out, the mask, and once each layer tensor this mode's kernels read
+    nbytes = 4.0 * (2 * x.numel() + n) + sum(
+        layer[k].numel() * layer[k].element_size() for k in ac.LAYER_KEYS[compute_dtype])
+    bms, by = bound_ms(flops, nbytes, PEAK_BF16 if bf16 else PEAK_F32)
+    line = {"phase": "kernel", "name": "superglue_layer" if bf16 else "superglue_layer_f32",
+            "compute_dtype": str(compute_dtype).replace("torch.", ""),
+            "shape": [n2, K, C], "valid": [K, 331],
             "ok": ok, "max_abs_err": max(errs), "max_abs_err_self_cross": errs,
-            "tolerance": "rtol 1e-3, atol 1e-3 (f32, other summation order)",
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            "tolerance": tol, "checks": checks,
+            "ms": kernel_ms, "host_ms": wrapper_host_ms, "plain_ms": plain_ms,
+            "library_ms": None,
             "library": "none: no single PyTorch call computes a whole GNN layer",
             "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes}
     line.update(rates(line))
     emit(line)
     if not ok:
-        raise AssertionError(f"superglue_layer disagrees: {errs}")
+        raise AssertionError(f"{line['name']} disagrees: {errs}, {checks}")
     return line
 
 
@@ -318,6 +376,7 @@ def _counters():
     return {"conv_stem": conv_stem_cuda.launches,
             "conv_stem_side": conv_stem_cuda.side_launches,
             "superglue_layer": attention_cuda.launches,
+            "superglue_layer_f32": attention_cuda.f32_launches,
             "sinkhorn": sinkhorn_cuda.launches}
 
 
@@ -325,7 +384,7 @@ def _reset_counters():
     from rspl_slam_tpu_torch.ops import attention_cuda, conv_stem_cuda, sinkhorn_cuda
 
     conv_stem_cuda.launches = conv_stem_cuda.side_launches = 0
-    attention_cuda.launches = 0
+    attention_cuda.launches = attention_cuda.f32_launches = 0
     sinkhorn_cuda.launches = 0
 
 
@@ -438,7 +497,8 @@ def phase_profile(cfg, fe, frames, n_warm: int = 3, n_prof: int = 3):
 
 # each port kernel's CUDA function name, as the profiler lists it
 PROFILE_NAMES = {"conv_stem": ("conv3x3_relu_pool_kernel",),
-                 "superglue_layer": ("qkv_kernel", "attn_kernel", "mlp_kernel"),
+                 "superglue_layer": ("qkv_bf16_kernel", "layer_bf16_kernel"),
+                 "superglue_layer_f32": ("qkv_kernel", "attn_kernel", "mlp_kernel"),
                  "sinkhorn": ("sinkhorn_cluster_kernel",)}
 
 SOURCES = {
@@ -449,6 +509,9 @@ SOURCES = {
     "sinkhorn": ("rspl_slam_tpu_torch/csrc/sinkhorn.cu",
                  "rspl_slam_tpu/ops/sinkhorn_pallas.py:61"),
 }
+# K1's side-output mode (RCF) and K2's f32 mode, listed under the main line
+OTHER_MODES = {"conv_stem": ("side_mode", "conv_stem_side"),
+               "superglue_layer": ("f32_mode", "superglue_layer_f32")}
 KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "tflops", "bound_fraction")
 
@@ -460,13 +523,14 @@ def phase_summary(lines, launches):
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
              "launches": launches and launches[name],
              **{key: lines[name][key] for key in KEYS}}
-        if name == "conv_stem":  # the same kernel in RCF's side-output mode
-            side = lines["conv_stem_side"]
-            k["side_mode"] = {"launches": launches and launches["conv_stem_side"],
-                              "shape": side["shape"],
-                              **{key: side[key] for key in KEYS}}
+        if name in OTHER_MODES:  # the same kernel in its other mode
+            mode, line_name = OTHER_MODES[name]
+            other = lines[line_name]
+            k[mode] = {"launches": launches and launches[line_name],
+                       "shape": other["shape"], **{key: other[key] for key in KEYS}}
         if name == "sinkhorn":
             k["elements_per_s"] = lines[name]["elements_per_s"]
+        if lines[name].get("checks"):
             k["checks"] = lines[name]["checks"]
         kernels.append(k)
     emit({"kernels": kernels})
@@ -483,7 +547,8 @@ def main(argv) -> int:
     lines = {}
     lines["conv_stem"] = check_conv_stem(side=False)
     lines["conv_stem_side"] = check_conv_stem(side=True)
-    lines["superglue_layer"] = check_superglue_layer()
+    lines["superglue_layer"] = check_superglue_layer(bf16=True)
+    lines["superglue_layer_f32"] = check_superglue_layer(bf16=False)
     lines["sinkhorn"] = check_sinkhorn()
     launches = None
     if "--kernels" not in argv:

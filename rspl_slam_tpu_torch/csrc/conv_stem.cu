@@ -68,14 +68,6 @@ constexpr int HALO_BYTES = HALO * HALO * C * 2;      // 41,472 B (TMA box)
 constexpr int SMEM_HALO = 41 * 1024;                  // buffer stride, 1 KB aligned
 constexpr int SMEM = 1024 + SMEM_W + 2 * SMEM_HALO + 16;  // + alignment, 2 mbarriers
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
 }
@@ -104,12 +96,6 @@ __device__ __forceinline__ void tma_halo(uint32_t dst, const CUtensorMap* map, u
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(x0), "r"(y0), "r"(b), "r"(bar)
       : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 // wgmma B operand descriptor: K-major, no swizzle. Core matrices of 8 rows

@@ -10,15 +10,48 @@
 //   out     = x + h W2 + b2
 // A self layer attends within each set; a cross layer reads the other half
 // of the stack as source (set s <-> set (s + B) mod 2B) with its mask, as
-// models/superglue.py:292-304 does. Everything is f32, as in the TPU kernel.
+// models/superglue.py:292-304 does. C = 256, 4 heads of 64.
 //
-// What bounds it on the H100: at K = S = 400, C = 256 one launch of the
-// three covers 2 x 400 rows: 1.38 GFLOP in f32 (20.5 us at the 67 TFLOP/s
-// non-tensor peak) against ~4.3 MB of weights and activations (1.3 us), so
-// f32 arithmetic bounds it.
+// Two modes, chosen by the wrapper's compute_dtype (ops/attention_cuda.py):
 //
-// Design: one CTA per set (the TPU design) would leave 130 of 132 SMs idle,
-// so the layer is three launches that each spread over the card:
+// bf16 (the main path; the JAX package's default compute_dtype). Every
+// matmul operand rounds to bf16 where models/superglue.py rounds it (x for
+// q/k/v; q and k for the logits; the normalized probabilities and v; the
+// message for the merge; concat[x, msg] for the first MLP weight; h for the
+// second) and every product accumulates in f32 on the tensor cores
+// (mma.sync.m16n8k16 bf16 -> f32). Biases, the 1/sqrt(dh) scale (after the
+// product), the -1e9 mask, the two-pass softmax, BN, ReLU and the residual
+// stay f32. qkv is stored in bf16: JAX rounds q, k and v to bf16 before
+// their only use, so that is exact under this contract.
+//   What bounds it: 1.377 GFLOP per layer at K = S = 400 is 1.39 us at the
+//   989 TFLOP/s bf16 peak, against ~2.95 MB of bf16 weights and f32 x in and
+//   out (0.88 us), so operations bound it. At 800 rows the GEMMs are thin
+//   (M = 800), so what limits it is latency and spreading the rows over
+//   enough SMs.
+//   Design, two launches:
+//   1. qkv_bf16_kernel: QKV = bf16(bf16(X) Wqkv + bqkv) over all 2B*K rows,
+//      a 32-row x 128-column tile per CTA (150 CTAs at 800 rows).
+//   2. layer_bf16_kernel: the rest of the layer, one cluster of 4 CTAs per
+//      (set, 32-query tile): CTA h runs head h's attention (Q, K, V of the
+//      head in shared memory, the whole logit row in shared memory, softmax
+//      in two passes with the normalized probabilities rounded to bf16 in
+//      place; no online rescaling, which would round unnormalized values)
+//      and then the h-th column slice of the merge (64), the first MLP
+//      weight (128) and the second (64). After each step every CTA writes
+//      its slice, rounded to bf16, into all four CTAs' shared tiles through
+//      distributed shared memory, and one cluster barrier makes the full
+//      row tile visible to each (104 CTAs at K = 400).
+//   Weights are packed once by the wrapper (pack_mma_b) in the B operand's
+//   register order, so each lane fetches a 16-byte fragment (two n8 tiles)
+//   per k-step straight from L2 with 8 k-steps in flight; A operands come
+//   from shared memory by ldmatrix (row strides an odd number of 16-byte
+//   units, so the 8 rows of a phase hit distinct bank groups).
+//   Ragged K: query rows past K are zero and never stored; keys past K get
+//   -inf logits (no weight; masked keys keep -1e9 as in JAX, so a fully
+//   masked source still gives the uniform softmax) and zero values.
+//
+// f32 (compute_dtype=float32; the Pallas kernel's function). Plain FMA in
+// three launches:
 //   1. qkv_kernel: the QKV projection over all 2B*K rows, 16 rows per CTA;
 //      each thread owns 3 output columns x 16 rows and streams the weight
 //      rows (coalesced, L2 resident) against the row tile held in shared
@@ -30,10 +63,17 @@
 //   3. mlp_kernel: merge + the split first MLP weight + folded BN/ReLU + the
 //      second MLP weight + residual, 16 rows per CTA with every intermediate
 //      row in shared memory (80 KB, dynamic).
-// Plain FMA throughout; a tensor-core (TF32/bf16 wgmma) redesign is queued.
+//   The same 1.38 GFLOP bound it at the 67 TFLOP/s non-tensor f32 peak
+//   (20.5 us).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+// ------------------------------------------------------------------ f32 mode
 
 constexpr int NT = 256;  // threads per CTA; also the model width C
 constexpr int R = 16;    // rows per CTA (kernels 1 and 3), queries per CTA (kernel 2)
@@ -243,9 +283,342 @@ mlp_kernel(const float* __restrict__ X, const float* __restrict__ MSG,
   }
 }
 
+// ----------------------------------------------------------------- bf16 mode
+
+constexpr int BR = 32;          // rows per QKV tile and query rows per cluster: two m16 tiles
+constexpr int HEADS = 4;        // cluster size: CTA h owns head h and the h-th column slices
+constexpr int LDX = C + 8;      // bf16 row stride of 256-wide tiles (528 B = 33 x 16 B)
+constexpr int LDH = 2 * C + 8;  // 512-wide tiles (1040 B = 65 x 16 B)
+constexpr int LDK = DH + 8;     // Q, K, V rows of one head (144 B = 9 x 16 B)
+constexpr int kSmemLimit = 232448;  // shared memory one H100 CTA may use
+constexpr int kErrSmem = -3;        // K too large for the bf16 kernel's shared memory
+static_assert(DH == 64, "the logit scale below is 1/sqrt(64)");
+constexpr float kInvSqrtDh = 0.125f;  // exact: JAX divides the product by sqrt(64) = 8
+
+// Dynamic shared memory of layer_bf16_kernel (ops/attention_cuda.bf16_smem_bytes
+// mirrors it): the message tile, then one region that holds the attention
+// buffers (Q, K or V, logits, source mask over SP = K rounded up to 16 keys)
+// and later the two MLP tiles.
+inline int layer_bf16_smem(int K) {
+  const int sp = (K + 15) & ~15;
+  const int attn = BR * LDK * 2 + sp * LDK * 2 + BR * (sp + 4) * 4 + sp * 4;
+  const int mlp = 2 * BR * LDH * 2;
+  return BR * LDX * 2 + (attn > mlp ? attn : mlp);
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// 16-byte copy to shared memory; zero fill (src not read) when !valid
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// d += a (16 x 16 bf16, row major) * b (16 x 8 bf16, column major), f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// acc[mt][tile] += A x B for this warp's n16 column block: A is MT m16 tiles
+// at sA (row stride lda, bf16, KSTEPS*16 deep), B the block's packed fragments
+// Bp[ks * 32 + lane] (ops/attention_cuda.pack_mma_b), PF k-steps of B in
+// flight from L2.
+template <int MT, int KSTEPS>
+__device__ __forceinline__ void warp_gemm(float (&acc)[MT][2][4], const __nv_bfloat16* sA,
+                                          int lda, const uint4* __restrict__ Bp) {
+  constexpr int PF = KSTEPS < 8 ? KSTEPS : 8;
+  const int lane = threadIdx.x & 31;
+  uint4 b[PF];
+#pragma unroll
+  for (int i = 0; i < PF; ++i) b[i] = __ldg(Bp + i * 32 + lane);
+  const uint32_t a0 = smem_addr(sA + (lane & 15) * lda + (lane >> 4) * 8);
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const uint4 bb = b[ks % PF];
+    if (ks + PF < KSTEPS) b[ks % PF] = __ldg(Bp + (ks + PF) * 32 + lane);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a0 + (mt * 16 * lda + ks * 16) * 2);
+      mma_bf16(acc[mt][0], a, bb.x, bb.y);
+      mma_bf16(acc[mt][1], a, bb.z, bb.w);
+    }
+  }
+}
+
+// fn(row, col, v0, v1) for each pair of adjacent columns a lane holds in acc,
+// relative to the warp's tile: row = 16 mt + g (+ 8), col = 8 tile + 2 t
+template <int MT, typename F>
+__device__ __forceinline__ void for_each_pair(const float (&acc)[MT][2][4], F&& fn) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        fn(16 * mt + (lane >> 2) + 8 * half, 8 * tile + 2 * (lane & 3), acc[mt][tile][2 * half],
+           acc[mt][tile][2 * half + 1]);
+}
+
+// one bf16 pair to the same shared-memory address of every CTA in the cluster
+__device__ __forceinline__ void cluster_store(cg::cluster_group& cluster,
+                                              __nv_bfloat16* p, float v0, float v1) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+#pragma unroll
+  for (int q = 0; q < HEADS; ++q)
+    *cluster.map_shared_rank(reinterpret_cast<__nv_bfloat162*>(p), q) = v;
+}
+
+// rows [row0, row0 + BR) x C of X (f32) into a bf16 tile, zero beyond nrows
+__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* sA, int lda,
+                                               const float* __restrict__ X, int row0,
+                                               int nrows) {
+  for (int i = threadIdx.x; i < BR * C / 4; i += NT) {
+    const int r = i / (C / 4), c4 = i % (C / 4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < nrows)
+      v = __ldg(reinterpret_cast<const float4*>(X + (size_t)(row0 + r) * C) + c4);
+    auto* d = reinterpret_cast<__nv_bfloat162*>(sA + r * lda + 4 * c4);
+    d[0] = __floats2bfloat162_rn(v.x, v.y);
+    d[1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+}
+
+// (acc + bias) * bn_scale + bn_shift, ReLU: as two rounded f32 operations, as JAX
+__device__ __forceinline__ float bn_relu(float v, float s, float t) {
+  return fmaxf(__fadd_rn(__fmul_rn(v, s), t), 0.f);
+}
+
+// QKV = bf16(bf16(X) Wqkv + bqkv): a 32-row x 128-column tile per CTA, one
+// n16 column block per warp
+__global__ void __launch_bounds__(NT)
+qkv_bf16_kernel(const float* __restrict__ X, const uint4* __restrict__ Wqkv,
+                const float* __restrict__ bqkv, __nv_bfloat16* __restrict__ QKV, int nrows) {
+  __shared__ __align__(16) __nv_bfloat16 sA[BR * LDX];
+  const int row0 = blockIdx.y * BR;
+  load_rows_bf16(sA, LDX, X, row0, nrows);
+  __syncthreads();
+  const int nb = blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
+  float acc[2][2][4] = {};
+  warp_gemm<2, C / 16>(acc, sA, LDX, Wqkv + (size_t)nb * (C / 16) * 32);
+  for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+    const int row = row0 + r, col = 16 * nb + c;
+    if (row < nrows)
+      *reinterpret_cast<__nv_bfloat162*>(QKV + (size_t)row * 3 * C + col) =
+          __floats2bfloat162_rn(v0 + bqkv[col], v1 + bqkv[col + 1]);
+  });
+}
+
+// The rest of the layer for one (set, 32-query tile), by a cluster of 4 CTAs;
+// CTA h runs head h's attention, then column slice h of the merge, the first
+// and the second MLP weight (see the notes at the top).
+__global__ void __cluster_dims__(HEADS, 1, 1) __launch_bounds__(NT, 1)
+layer_bf16_kernel(const float* __restrict__ X, const __nv_bfloat16* __restrict__ QKV,
+                  const float* __restrict__ mask, const uint4* __restrict__ Wm,
+                  const float* __restrict__ bm, const uint4* __restrict__ W1,
+                  const float* __restrict__ b1, const float* __restrict__ s1,
+                  const float* __restrict__ t1, const uint4* __restrict__ W2,
+                  const float* __restrict__ b2, float* __restrict__ OUT, int nsets, int K,
+                  int cross) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int h = (int)cluster.block_rank();
+  const int q0 = blockIdx.y * BR, set = blockIdx.z;
+  const int src = cross ? (set + nsets / 2) % nsets : set;
+  const int SP = (K + 15) & ~15;  // keys padded to the MMA depth
+  const int LS = SP + 4;          // logit row stride (f32): an odd number of 16-B units
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  auto* sMsg = reinterpret_cast<__nv_bfloat16*>(smem);  // BR x LDX, written by every CTA
+  unsigned char* region = smem + BR * LDX * 2;
+  auto* sQ = reinterpret_cast<__nv_bfloat16*>(region);  // BR x LDK
+  auto* sKV = sQ + BR * LDK;                             // SP x LDK: K, then V
+  auto* sL = reinterpret_cast<float*>(sKV + SP * LDK);   // BR x LS logits, then bf16 P
+  float* sMask = sL + BR * LS;                           // SP
+  auto* sXM = reinterpret_cast<__nv_bfloat16*>(region);  // BR x LDH: [x | merged msg]
+  auto* sH = sXM + BR * LDH;                             // BR x LDH: MLP hidden
+
+  // Q of head h for the query tile, K of head h for the source set (zero
+  // beyond K), the source mask
+  const __nv_bfloat16* q_rows = QKV + (size_t)set * K * 3 * C + h * DH;
+  const __nv_bfloat16* s_rows = QKV + (size_t)src * K * 3 * C + h * DH;
+  for (int i = tid; i < BR * 8; i += NT) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    const bool ok = q0 + r < K;
+    cp_async16_zfill(smem_addr(sQ + r * LDK + c), q_rows + (size_t)(ok ? q0 + r : 0) * 3 * C + c,
+                     ok);
+  }
+  for (int i = tid; i < SP * 8; i += NT) {
+    const int s = i >> 3, c = (i & 7) * 8;
+    const bool ok = s < K;
+    cp_async16_zfill(smem_addr(sKV + s * LDK + c), s_rows + (size_t)(ok ? s : 0) * 3 * C + C + c,
+                     ok);
+  }
+  for (int s = tid; s < SP; s += NT) sMask[s] = s < K ? mask[(size_t)src * K + s] : 0.f;
+  cp_async_wait_all();
+  // every CTA of the cluster is running before any writes to another's
+  // shared memory; the copies above are visible to the whole CTA
+  cluster.sync();
+
+  {  // logits = (q k^T) / sqrt(dh); -1e9 on masked keys, -inf on padding keys
+    uint32_t qa[2][DH / 16][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int ks = 0; ks < DH / 16; ++ks)
+        ldmatrix_x4(qa[mt][ks],
+                    smem_addr(sQ + (16 * mt + (lane & 15)) * LDK + 16 * ks + (lane >> 4) * 8));
+    // B fragments of keys 16 j.. (two n8 tiles) straight from K's rows
+    const uint32_t kb0 =
+        smem_addr(sKV + ((lane & 7) + ((lane >> 4) << 3)) * LDK + ((lane >> 3) & 1) * 8);
+    for (int j = warp; j < SP / 16; j += NT / 32) {
+      float acc[2][2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < DH / 16; ++ks) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, kb0 + (16 * j * LDK + 16 * ks) * 2);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][0], qa[mt][ks], kb[0], kb[1]);
+          mma_bf16(acc[mt][1], qa[mt][ks], kb[2], kb[3]);
+        }
+      }
+      for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+        const int s = 16 * j + c;
+        sL[r * LS + s] = s < K ? (sMask[s] > 0.f ? v0 * kInvSqrtDh : -1e9f) : -INFINITY;
+        sL[r * LS + s + 1] =
+            s + 1 < K ? (sMask[s + 1] > 0.f ? v1 * kInvSqrtDh : -1e9f) : -INFINITY;
+      });
+    }
+  }
+  __syncthreads();  // logits complete; K is no longer read
+
+  // V of head h into K's buffer, landing while the softmax runs
+  for (int i = tid; i < SP * 8; i += NT) {
+    const int s = i >> 3, c = (i & 7) * 8;
+    const bool ok = s < K;
+    cp_async16_zfill(smem_addr(sKV + s * LDK + c),
+                     s_rows + (size_t)(ok ? s : 0) * 3 * C + 2 * C + c, ok);
+  }
+  // softmax, one warp per logit row: max, sum of exp, then the normalized
+  // probabilities rounded to bf16, written in place over the row's first half
+  for (int r = warp; r < BR; r += NT / 32) {
+    float* row = sL + r * LS;
+    float m = -INFINITY;
+    for (int s = lane; s < SP; s += 32) m = fmaxf(m, row[s]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int s = lane; s < SP; s += 32) sum += expf(row[s] - m);
+    sum = warp_sum(sum);
+    auto* prow = reinterpret_cast<__nv_bfloat16*>(row);
+    for (int s0 = 0; s0 < SP; s0 += 32) {
+      const int s = s0 + lane;
+      const float p = s < SP ? expf(row[s] - m) / sum : 0.f;
+      __syncwarp();  // bf16 slot s overlays f32 slot s / 2, read in this step or before
+      if (s < SP) prow[s] = __float2bfloat16(p);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // V landed; every probability row is written
+
+  {  // msg_h = P V: rows 16 mt.., columns 16 nb.. of the head, into every CTA's message tile
+    const int mt = warp >> 2, nb = warp & 3;
+    const auto* P = reinterpret_cast<const __nv_bfloat16*>(sL);  // row stride 2 LS
+    const uint32_t pa = smem_addr(P + (16 * mt + (lane & 15)) * 2 * LS + (lane >> 4) * 8);
+    const uint32_t vb0 =
+        smem_addr(sKV + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDK + 16 * nb + (lane >> 4) * 8);
+    float acc[1][2][4] = {};
+    for (int ks = 0; ks < SP / 16; ++ks) {
+      uint32_t a[4], vb[4];
+      ldmatrix_x4(a, pa + ks * 16 * 2);
+      ldmatrix_x4_trans(vb, vb0 + ks * 16 * LDK * 2);
+      mma_bf16(acc[0][0], a, vb[0], vb[1]);
+      mma_bf16(acc[0][1], a, vb[2], vb[3]);
+    }
+    for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+      cluster_store(cluster, sMsg + (16 * mt + r) * LDX + h * DH + 16 * nb + c, v0, v1);
+    });
+  }
+  __syncthreads();  // this CTA is done with P and V: the region takes the MLP tiles
+  load_rows_bf16(sXM, LDH, X + (size_t)set * K * C, q0, K);
+  cluster.sync();  // all four heads' messages are in every CTA's sMsg
+
+  {  // merged msg = msg Wm + bm, columns [64 h, 64 h + 64), into every [x | msg] tile
+    const int mt = warp >> 2, nb = 4 * h + (warp & 3);
+    float acc[1][2][4] = {};
+    warp_gemm<1, C / 16>(acc, sMsg + 16 * mt * LDX, LDX, Wm + (size_t)nb * (C / 16) * 32);
+    for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+      const int col = 16 * nb + c;
+      cluster_store(cluster, sXM + (16 * mt + r) * LDH + C + col, v0 + bm[col],
+                    v1 + bm[col + 1]);
+    });
+  }
+  cluster.sync();
+
+  {  // hidden = ReLU((concat[x, msg] W1 + b1) * s1 + t1), columns [128 h, 128 h + 128)
+    const int nb = 8 * h + warp;
+    float acc[2][2][4] = {};
+    warp_gemm<2, 2 * C / 16>(acc, sXM, LDH, W1 + (size_t)nb * (2 * C / 16) * 32);
+    for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+      const int col = 16 * nb + c;
+      cluster_store(cluster, sH + r * LDH + col, bn_relu(v0 + b1[col], s1[col], t1[col]),
+                    bn_relu(v1 + b1[col + 1], s1[col + 1], t1[col + 1]));
+    });
+  }
+  cluster.sync();
+
+  {  // out = x + (hidden W2 + b2), columns [64 h, 64 h + 64)
+    const int mt = warp >> 2, nb = 4 * h + (warp & 3);
+    float acc[1][2][4] = {};
+    warp_gemm<1, 2 * C / 16>(acc, sH + 16 * mt * LDH, LDH, W2 + (size_t)nb * (2 * C / 16) * 32);
+    for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+      const int q = q0 + 16 * mt + r, col = 16 * nb + c;
+      if (q < K) {
+        const size_t o = ((size_t)set * K + q) * C + col;
+        const float2 xv = *reinterpret_cast<const float2*>(X + o);
+        *reinterpret_cast<float2*>(OUT + o) =
+            make_float2(xv.x + (v0 + b2[col]), xv.y + (v1 + b2[col + 1]));
+      }
+    });
+  }
+  // no CTA reads another's shared memory after the last cluster barrier
+}
+
+std::atomic<int> attn_smem_limits[kMaxDevices];
+std::atomic<int> mlp_smem_limits[kMaxDevices];
+std::atomic<int> layer_bf16_smem_limits[kMaxDevices];
+
 }  // namespace
 
 RSPL_EXPORT const char* superglue_layer_error_string(int code) {
+  if (code == kErrSmem)
+    return "K too large for the bf16 layer kernel's shared memory (ops/attention_cuda.MAX_K_BF16)";
   return cudaGetErrorString((cudaError_t)code);
 }
 
@@ -270,8 +643,7 @@ RSPL_EXPORT int superglue_layer_launch(const void* x, const void* mask, const vo
   RSPL_RETURN_IF_ERROR(cudaGetLastError());
 
   const int attn_smem = (R * DH + CH * KS + R * K) * (int)sizeof(float);
-  RSPL_RETURN_IF_ERROR(cudaFuncSetAttribute(
-      attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, attn_smem));
+  RSPL_RETURN_IF_ERROR(reserve_dynamic_smem((const void*)attn_kernel, attn_smem_limits, attn_smem));
   const dim3 agrid((K + R - 1) / R, C / DH, nsets);
   attn_kernel<<<agrid, NT, attn_smem, st>>>(static_cast<const float*>(qkv),
                                             static_cast<const float*>(mask),
@@ -279,8 +651,7 @@ RSPL_EXPORT int superglue_layer_launch(const void* x, const void* mask, const vo
   RSPL_RETURN_IF_ERROR(cudaGetLastError());
 
   const int mlp_smem = (3 * R * C + R * 2 * C) * (int)sizeof(float);
-  RSPL_RETURN_IF_ERROR(cudaFuncSetAttribute(
-      mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, mlp_smem));
+  RSPL_RETURN_IF_ERROR(reserve_dynamic_smem((const void*)mlp_kernel, mlp_smem_limits, mlp_smem));
   mlp_kernel<<<row_blocks, NT, mlp_smem, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(msg),
       static_cast<const float*>(wm), static_cast<const float*>(bm),
@@ -288,5 +659,35 @@ RSPL_EXPORT int superglue_layer_launch(const void* x, const void* mask, const vo
       static_cast<const float*>(s1), static_cast<const float*>(t1),
       static_cast<const float*>(w2), static_cast<const float*>(b2),
       static_cast<float*>(out), nrows);
+  return (int)cudaGetLastError();
+}
+
+// bf16 mode. x (nsets, K, 256) f32; mask (nsets, K) f32 (1 valid, 0 padded);
+// wqkv (256 x 768), wm (256 x 256), w1 (512 x 512), w2 (512 x 256) packed by
+// ops/attention_cuda.pack_mma_b (bf16); bqkv, bm, b1, s1, t1, b2 f32; scratch
+// qkv (nsets*K, 768) bf16; out (nsets, K, 256) f32. Two launches.
+RSPL_EXPORT int superglue_layer_bf16_launch(const void* x, const void* mask, const void* wqkv,
+                                            const void* bqkv, const void* wm, const void* bm,
+                                            const void* w1, const void* b1, const void* s1,
+                                            const void* t1, const void* w2, const void* b2,
+                                            void* qkv, void* out, int nsets, int K, int cross,
+                                            void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int smem = layer_bf16_smem(K);
+  if (smem > kSmemLimit) return kErrSmem;
+  RSPL_RETURN_IF_ERROR(
+      reserve_dynamic_smem((const void*)layer_bf16_kernel, layer_bf16_smem_limits, smem));
+  const int nrows = nsets * K;
+  const auto* xf = static_cast<const float*>(x);
+  auto* qkv_b = static_cast<__nv_bfloat16*>(qkv);
+  qkv_bf16_kernel<<<dim3(3 * C / 128, (nrows + BR - 1) / BR), NT, 0, st>>>(
+      xf, static_cast<const uint4*>(wqkv), static_cast<const float*>(bqkv), qkv_b, nrows);
+  RSPL_RETURN_IF_ERROR(cudaGetLastError());
+  layer_bf16_kernel<<<dim3(HEADS, (K + BR - 1) / BR, nsets), NT, smem, st>>>(
+      xf, qkv_b, static_cast<const float*>(mask), static_cast<const uint4*>(wm),
+      static_cast<const float*>(bm), static_cast<const uint4*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(s1),
+      static_cast<const float*>(t1), static_cast<const uint4*>(w2),
+      static_cast<const float*>(b2), static_cast<float*>(out), nsets, K, cross);
   return (int)cudaGetLastError();
 }

@@ -153,7 +153,8 @@ class NeuralFrontend:
         if self.matcher == "cosine":
             return cosine_mutual_match(d0, v0, d1, v1)
         return superglue.match_pair(self.sg, xy0, sc0, d0, v0, xy1, sc1, d1, v1,
-                                    self.cfg.superglue).indices0
+                                    self.cfg.superglue,
+                                    compute_dtype=self.compute_dtype).indices0
 
     def _match_indices(self, xy0, sc0, d0, v0, xy1, sc1, d1, v1) -> np.ndarray:
         """:meth:`match_indices` with the result on the host."""

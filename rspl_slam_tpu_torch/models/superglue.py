@@ -6,8 +6,13 @@ projection → similarity / √C → masked log-Sinkhorn → mutual-max decode.
 Every GNN layer goes through K2 (ops/attention_cuda.py) and the Sinkhorn
 iterations through K3 (ops/sinkhorn_cuda.py); the encoder, the final
 projection, the similarity product and building Z0 stay plain torch, as
-they stay XLA in the JAX package. Everything runs in f32 (the TPU kernels'
-type).
+they stay XLA in the JAX package.
+
+``compute_dtype`` is the JAX package's contract: under bf16 (its default)
+every matmul operand rounds to bf16 where ``match_pair`` there rounds it
+(encoder, q/k/v/merge, logits, probabilities and values, the MLP, the
+final projection, the similarity) and every product sums in f32; biases,
+BN, softmax, residuals and Sinkhorn stay f32. float32 rounds nowhere.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch.nn as nn
 
 from rspl_slam_tpu_torch.config import SuperGlueConfig
 from rspl_slam_tpu_torch.ops import attention_cuda, sinkhorn_cuda
+from rspl_slam_tpu_torch.ops.attention_cuda import round_operand
 from rspl_slam_tpu_torch.ops.matching import mutual_match_decode, normalize_keypoints
 
 __all__ = ["init_params", "SuperGlue", "MatchResult", "match_pair"]
@@ -91,10 +97,10 @@ class SuperGlue(nn.Module):
         self.bin_score = t(params["bin_score"])
 
 
-def _apply_mlp(mlp, x):
+def _apply_mlp(mlp, x, compute_dtype=torch.float32):
     """Linear → folded BN → ReLU chain; the last layer is linear."""
     for i, layer in enumerate(mlp):
-        x = x @ layer["w"] + layer["b"]
+        x = round_operand(x, compute_dtype) @ round_operand(layer["w"], compute_dtype) + layer["b"]
         if i < len(mlp) - 1:
             x = torch.relu(x * layer["bn_scale"] + layer["bn_shift"])
     return x
@@ -111,8 +117,10 @@ class MatchResult:
 @torch.no_grad()
 def match_pair(sg: SuperGlue, xy0, score0, desc0, mask0, xy1, score1, desc1,
                mask1, cfg: SuperGlueConfig | None = None,
-               sinkhorn_iters: int | None = None) -> MatchResult:
-    """SuperGlue matching of batched padded keypoint sets of equal size."""
+               sinkhorn_iters: int | None = None,
+               compute_dtype=torch.float32) -> MatchResult:
+    """SuperGlue matching of batched padded keypoint sets of equal size,
+    at ``compute_dtype`` (bfloat16 or float32; see the module notes)."""
     cfg = cfg or sg.cfg
     B, M, _ = desc0.shape
     N = desc1.shape[1]
@@ -124,13 +132,16 @@ def match_pair(sg: SuperGlue, xy0, score0, desc0, mask0, xy1, score1, desc1,
                       score0[..., None]], -1)
     enc1 = torch.cat([normalize_keypoints(xy1, cfg.image_width, cfg.image_height),
                       score1[..., None]], -1)
+    dt = compute_dtype
     x = (torch.cat([desc0, desc1], 0).float()
-         + _apply_mlp(sg.kenc, torch.cat([enc0, enc1], 0).float())).contiguous()
+         + _apply_mlp(sg.kenc, torch.cat([enc0, enc1], 0).float(), dt)).contiguous()
     masks = torch.cat([mask0, mask1], 0)
+    scratch = attention_cuda.layer_scratch(x, masks, dt)  # shared by every layer
     for li, layer in enumerate(sg.gnn):
         x = attention_cuda.superglue_layer(x, masks, layer, cross=li % 2 == 1,
-                                           num_heads=cfg.num_heads)
-    md = x @ sg.final_w + sg.final_b
+                                           num_heads=cfg.num_heads, compute_dtype=dt,
+                                           scratch=scratch)
+    md = round_operand(round_operand(x, dt) @ round_operand(sg.final_w, dt) + sg.final_b, dt)
     sim = torch.einsum("bmc,bnc->bmn", md[:B], md[B:]) / math.sqrt(cfg.descriptor_dim)
     iters = cfg.sinkhorn_iterations if sinkhorn_iters is None else sinkhorn_iters
     Z = sinkhorn_cuda.log_optimal_transport_masked(sim, mask0, mask1, sg.bin_score, iters)

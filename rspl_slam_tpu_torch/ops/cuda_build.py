@@ -28,13 +28,15 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("conv_stem", "superglue_layer", "sinkhorn")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+SMEM_LIMIT = 232_448  # bytes of shared memory one H100 CTA may use
 FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v", ARCH]
 
 # C signatures: "p" = pointer / stream (c_void_p), "i" = c_int
 SIGNATURES = {
     "conv_stem": {"conv_stem_launch": "pppppp" + "iii" + "p"},
-    "superglue_layer": {"superglue_layer_launch": "p" * 15 + "iii" + "p"},
+    "superglue_layer": {"superglue_layer_launch": "p" * 15 + "iii" + "p",
+                        "superglue_layer_bf16_launch": "p" * 14 + "iii" + "p"},
     "sinkhorn": {"sinkhorn_launch": "pppp" + "iiii" + "iii" + "p"},
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int}

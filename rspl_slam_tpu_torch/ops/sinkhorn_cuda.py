@@ -22,7 +22,6 @@ __all__ = ["ClusterPlan", "cluster_plan", "sinkhorn_iterations",
 
 launches = 0
 
-SMEM_LIMIT = 232_448  # bytes of shared memory one H100 CTA may use
 PORTABLE_CLUSTER = 8  # the largest cluster every Hopper launch may take
 MAX_CLUSTER = 16  # with cudaFuncAttributeNonPortableClusterSizeAllowed
 
@@ -41,11 +40,11 @@ def cluster_plan(M1: int, N1: int) -> ClusterPlan:
     for c in (PORTABLE_CLUSTER, MAX_CLUSTER):
         rows = -(-M1 // c)
         floats = rows * N1 + N1 + 2 * rows + 4 * N1
-        if 4 * floats <= SMEM_LIMIT:
+        if 4 * floats <= cuda_build.SMEM_LIMIT:
             return ClusterPlan(c, rows, 4 * floats)
     raise ValueError(
         f"sinkhorn kernel: Z0 of {M1}×{N1} does not fit a cluster of "
-        f"{MAX_CLUSTER} CTAs with {SMEM_LIMIT} B of shared memory each")
+        f"{MAX_CLUSTER} CTAs with {cuda_build.SMEM_LIMIT} B of shared memory each")
 
 
 def sinkhorn_iterations(Z0, log_mu, log_nu, iters: int):

@@ -62,6 +62,54 @@ def test_superglue_layer_kernel_matches_plain(cuda_device, cross):  # noqa: F811
     torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-3)
 
 
+# the main path's K = 400 (331 valid keys), ragged K and OIVIO's K = 600
+@pytest.mark.parametrize("K,valid", [(400, 331), (48, 40), (301, 250), (600, 577)])
+@pytest.mark.parametrize("cross", [False, True])
+def test_superglue_layer_bf16_kernel_matches_plain(cuda_device, K, valid, cross):  # noqa: F811
+    """K2's tensor-core mode vs its plain version at bf16: |k - p| <=
+    2^-8|p| + 4e-3, since an intermediate can round to the other side of a
+    bf16 boundary after another f32 summation order."""
+    layer = attention_cuda.pack_layer(_layer(np.random.default_rng(2)), cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(K)
+    x = torch.randn((2, K, 256), generator=g, device=cuda_device)
+    masks = torch.arange(K, device=cuda_device)[None] < torch.tensor(
+        [[K], [valid]], device=cuda_device)
+    got = attention_cuda.superglue_layer(x, masks, layer, cross, compute_dtype=torch.bfloat16)
+    ref = attention_cuda.superglue_layer_plain(x, masks, layer, cross,
+                                               compute_dtype=torch.bfloat16)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=2 ** -8, atol=4e-3)
+
+
+def test_superglue_layer_bf16_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
+    """Shapes, types and scratch the bf16 kernel cannot take raise."""
+    layer = attention_cuda.pack_layer(_layer(np.random.default_rng(0)), cuda_device)
+    bf16 = torch.bfloat16
+
+    def run(x, n2=2, **kw):
+        m = torch.ones((n2, x.shape[1]), dtype=torch.bool, device=cuda_device)
+        return attention_cuda.superglue_layer(x, m, layer, True, **kw)
+
+    x = torch.zeros((2, 8, 256), device=cuda_device)
+    with pytest.raises(ValueError):  # 8 heads
+        run(x, compute_dtype=bf16, num_heads=8)
+    with pytest.raises(ValueError):  # C = 128
+        run(torch.zeros((2, 8, 128), device=cuda_device), compute_dtype=bf16)
+    with pytest.raises(ValueError):  # an odd number of sets
+        run(torch.zeros((3, 8, 256), device=cuda_device), n2=3, compute_dtype=bf16)
+    with pytest.raises(ValueError, match="exceeds"):  # beyond the shared memory
+        k = attention_cuda.MAX_K_BF16 + 16
+        run(torch.zeros((2, k, 256), device=cuda_device), compute_dtype=bf16)
+    with pytest.raises(ValueError):  # x in bf16 (the residual stream is f32)
+        run(x.to(bf16), compute_dtype=bf16)
+    with pytest.raises(ValueError):  # float16 is no mode of the kernel
+        run(x, compute_dtype=torch.float16)
+    with pytest.raises(ValueError):  # an f32 mode scratch at bf16
+        masks = torch.ones((2, 8), dtype=torch.bool, device=cuda_device)
+        run(x, compute_dtype=bf16,
+            scratch=attention_cuda.layer_scratch(x, masks, torch.float32))
+
+
 def test_sinkhorn_kernel_matches_plain(cuda_device):  # noqa: F811
     """K3 vs the plain sweeps: max error < 1e-3 on valid rows, columns and
     dustbins (fast exponentials and another summation order)."""

@@ -1,12 +1,13 @@
-"""The pure-Python parts of the port's K1 and K3 kernels, on the CPU.
+"""The pure-Python parts of the port's K1, K2 and K3 kernels, on the CPU.
 
 K3 (csrc/sinkhorn.cu) splits Z0 into row bands over a thread-block
 cluster: ``cluster_plan`` sizes it, and each column sweep merges per-band
 (max, sum) partials. K1 (csrc/conv_stem.cu) takes its weights packed once
-by ``pack_weights``. The CUDA kernels themselves run only on the card
-(tests/test_torch_cuda.py); these tests hold the plan, the merge rule and
-the packing against the plain versions, which tests/test_torch_kernels.py
-holds against the JAX package.
+by ``pack_weights``. K2's bf16 mode (csrc/superglue_layer.cu) holds a
+whole logit row per query in shared memory, which bounds its K. The CUDA
+kernels themselves run only on the card (tests/test_torch_cuda.py); these
+tests hold the plan, the merge rule and the packing against the plain
+versions, which tests/test_torch_kernels.py holds against the JAX package.
 """
 
 import math
@@ -15,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from rspl_slam_tpu_torch.ops import conv_stem_cuda, sinkhorn, sinkhorn_cuda
+from rspl_slam_tpu_torch.ops import (attention_cuda, conv_stem_cuda, cuda_build, sinkhorn,
+                                     sinkhorn_cuda)
 
 
 @pytest.mark.parametrize("K", [300, 400, 500, 600])
@@ -26,8 +28,19 @@ def test_cluster_plan_is_portable_for_shipped_sizes(K):
     M1 = N1 = K + 1
     plan = sinkhorn_cuda.cluster_plan(M1, N1)
     assert plan.cluster <= sinkhorn_cuda.PORTABLE_CLUSTER
-    assert plan.smem <= sinkhorn_cuda.SMEM_LIMIT
+    assert plan.smem <= cuda_build.SMEM_LIMIT
     assert plan.rows == math.ceil(M1 / plan.cluster)
+
+
+def test_superglue_bf16_layer_takes_every_shipped_size():
+    """K2's bf16 kernel keeps the whole logit row of 32 queries, K and V of
+    one head and the MLP tiles in one CTA's shared memory: every shipped
+    keypoint budget (K ≤ 600) fits, the largest K that fits is a multiple
+    of 16, and the next one does not."""
+    k = attention_cuda.MAX_K_BF16
+    assert 600 <= k and k % 16 == 0
+    assert attention_cuda.bf16_smem_bytes(600) <= cuda_build.SMEM_LIMIT
+    assert attention_cuda.bf16_smem_bytes(k + 1) > cuda_build.SMEM_LIMIT
 
 
 def test_cluster_plan_grows_then_refuses():

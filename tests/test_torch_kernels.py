@@ -159,6 +159,49 @@ def test_superglue_layer_matches_jax(cross):
         np.testing.assert_allclose(out[s], np.asarray(fused), atol=2e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("cross", [False, True])
+def test_superglue_layer_bf16_matches_jax(cross):
+    """The K2 wrapper's CPU path at bf16 vs ``_attention`` + ``_apply_mlp``
+    at jnp.bfloat16, per set, K = 48 with masked keys: atol 4e-3 on values
+    of magnitude ~4. Both round the same operands to bf16 and sum in f32,
+    but an intermediate can round to the other side of a bf16 boundary
+    because its f32 sum was taken in another order (2.7e-3 measured; the
+    f32 layer reads 7.6e-3 to 8.2e-3 against the same reference)."""
+    params = _layer_params()
+    layer = params["gnn"][1 if cross else 0]
+    rng = np.random.default_rng(1)
+    K, C = 48, 256
+    xs = [rng.standard_normal((K, C)).astype(np.float32) for _ in range(2)]
+    masks = [np.arange(K) < 40, np.arange(K) < 45]
+    out = attention_cuda.superglue_layer(
+        torch.from_numpy(np.stack(xs)), torch.from_numpy(np.stack(masks)),
+        attention_cuda.pack_layer(layer, "cpu"), cross, compute_dtype=torch.bfloat16).numpy()
+    for s in range(2):
+        src = 1 - s if cross else s
+        x, sx, sm = jnp.asarray(xs[s]), jnp.asarray(xs[src]), jnp.asarray(masks[src])
+        msg = _attention(layer, x[None], sx[None], sm[None], 4, jnp.bfloat16)
+        ref = (x[None] + _apply_mlp(layer["mlp"], jnp.concatenate([x[None], msg], -1),
+                                    jnp.bfloat16))[0]
+        assert np.abs(np.asarray(ref)).max() > 3.0
+        np.testing.assert_allclose(out[s], np.asarray(ref), atol=4e-3, rtol=0)
+
+
+def test_pack_layer_bf16_unpacks_to_jax_weights():
+    """pack_layer's tensor-core packing holds exactly the JAX weights
+    rounded to bf16 (jnp astype), each element once."""
+    layer = _layer_params()["gnn"][1]
+    p = attention_cuda.pack_layer(layer, "cpu")
+    m0, m1 = layer["mlp"]
+    want = {"wqkv": np.concatenate([layer[n]["w"] for n in "qkv"], 1),
+            "wm": layer["merge"]["w"], "w1": m0["w"], "w2": m1["w"]}
+    for name, w in want.items():
+        packed = p[f"{name}_mma"]
+        assert packed.dtype == torch.bfloat16 and packed.numel() == w.size
+        assert packed.shape == (w.shape[1] // 16, w.shape[0] // 16, 32, 8)
+        ref = np.asarray(jnp.asarray(w).astype(jnp.bfloat16).astype(jnp.float32))
+        np.testing.assert_array_equal(attention_cuda.unpack_mma_b(packed).float().numpy(), ref)
+
+
 def test_sinkhorn_matches_xla_and_pallas():
     """Plain sweeps (through the K3 wrapper's CPU path) vs the XLA and the
     interpreted Pallas Sinkhorn: max error < 1e-4 on valid rows, columns

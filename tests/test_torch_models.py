@@ -60,11 +60,11 @@ def _match_inputs(K=64, C=256, seed=0):
     return xy0, s0, d0, m0, xy1, s1, d1.astype(np.float32), m1
 
 
-def test_match_pair_matches_jax():
-    """2 GNN layers, 20 Sinkhorn iterations, f32 on both sides: equal
-    indices0 (and a close log plan). Random weights, with the residual
-    updates scaled down and a near-identity final projection so that the
-    descriptors still decide and the decode has matches to agree on."""
+def _match_params():
+    """2-layer SuperGlue weights for the matcher parity tests: random, with
+    the residual updates scaled down and a near-identity final projection
+    so that the descriptors still decide and the decode has matches to
+    agree on."""
     cfg = JSGC(num_gnn_layers=2)
     params = np_tree(jsg.init_params(jax.random.PRNGKey(1), cfg))
     rng = np.random.default_rng(4)
@@ -74,6 +74,18 @@ def test_match_pair_matches_jax():
     params["final_proj"]["w"] = (12.0 * np.eye(256) + 0.05 * rng.standard_normal(
         (256, 256))).astype(np.float32)
     params["bin_score"] = np.asarray(3.0, np.float32)
+    return cfg, params
+
+
+def _valid_plan(Z, args):
+    """The log plan on valid rows and columns (dustbins dropped)."""
+    return np.asarray(Z)[:, :-1, :-1][:, args[3][0]][:, :, args[7][0]]
+
+
+def test_match_pair_matches_jax():
+    """2 GNN layers, 20 Sinkhorn iterations, f32 on both sides: equal
+    indices0 (and a log plan within 1e-3)."""
+    cfg, params = _match_params()
     args = _match_inputs()
     rj = jsg.match_pair(params, *[jnp.asarray(a) for a in args], cfg, jnp.float32,
                         sinkhorn_iters=20)
@@ -83,9 +95,56 @@ def test_match_pair_matches_jax():
     i0 = rt.indices0.numpy()
     np.testing.assert_array_equal(i0, np.asarray(rj.indices0))
     assert (i0 >= 0).sum() > 10
-    np.testing.assert_allclose(rt.log_plan.numpy()[:, :-1, :-1][:, args[3][0]][:, :, args[7][0]],
-                               np.asarray(rj.log_plan)[:, :-1, :-1][:, args[3][0]][:, :, args[7][0]],
-                               atol=1e-3)
+    np.testing.assert_allclose(_valid_plan(rt.log_plan.numpy(), args),
+                               _valid_plan(rj.log_plan, args), atol=1e-3)
+
+
+def test_match_pair_bf16_matches_jax():
+    """The JAX package's default compute_dtype: both sides at bf16, same
+    inputs and weights as the f32 test. Equal indices0 and a log plan
+    within 3e-3: both round the same operands to bf16 and sum in f32, so
+    only an intermediate that rounds to the other side of a bf16 boundary
+    after another f32 summation order separates them (1.2e-3 measured on
+    the CPU). A port that ignores the dtype and stays f32 reads 1.2e-2."""
+    cfg, params = _match_params()
+    args = _match_inputs()
+    rj = jsg.match_pair(params, *[jnp.asarray(a) for a in args], cfg, jnp.bfloat16,
+                        sinkhorn_iters=20)
+    tcfg = SuperGlueConfig(num_gnn_layers=2)
+    sg = weights.superglue_from_numpy(params, tcfg, "cpu")
+    rt = tsg.match_pair(sg, *[torch.from_numpy(a) for a in args], tcfg, sinkhorn_iters=20,
+                        compute_dtype=torch.bfloat16)
+    i0 = rt.indices0.numpy()
+    np.testing.assert_array_equal(i0, np.asarray(rj.indices0))
+    assert (i0 >= 0).sum() > 10
+    np.testing.assert_allclose(_valid_plan(rt.log_plan.numpy(), args),
+                               _valid_plan(rj.log_plan, args), atol=3e-3)
+
+
+def test_frontend_matches_at_its_compute_dtype(monkeypatch):
+    """NeuralFrontend.match_indices (which the fused tracker calls too)
+    hands the frontend's compute_dtype to match_pair: at bf16 it returns
+    exactly match_pair's bf16 indices."""
+    from test_torch_common import small_system_cfg
+
+    from rspl_slam_tpu_torch.frontend.frontends import NeuralFrontend
+
+    cfg = small_system_cfg(width=752, height=480)
+    _, params = _match_params()
+    fe = NeuralFrontend(cfg, sg_params=params, compute_dtype=torch.bfloat16, device="cpu")
+    args = [torch.from_numpy(a) for a in _match_inputs()]
+    seen = []
+    match_pair = tsg.match_pair
+
+    def spy(*a, **kw):
+        seen.append(kw.get("compute_dtype"))
+        return match_pair(*a, **kw)
+
+    monkeypatch.setattr(tsg, "match_pair", spy)
+    got = fe.match_indices(*args)
+    assert seen == [torch.bfloat16]
+    ref = match_pair(fe.sg, *args, cfg.superglue, compute_dtype=torch.bfloat16).indices0
+    assert torch.equal(got, ref) and (ref >= 0).sum() > 10
 
 
 def test_descriptor_matcher_weights_keep_descriptors():
