@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --profile  # every phase + a torch.profiler breakdown
+                                     # of the lines path
     python3 chip_smoke.py --kernels  # device, build, kernel phases, summary
 
 Phases (one JSON line each):
@@ -13,14 +14,20 @@ Phases (one JSON line each):
      event timings of the kernel, the plain version and, where one PyTorch
      call computes the same function, that call (a yardstick only); K1 also
      in its side-output mode, K2 in its bf16 (main path) and f32 modes;
-  3. end to end: the port's SLAMSystem + NeuralFrontend on rendered stereo
-     frames at 752×480 (K = 400, 18 GNN layers at bf16, 100 Sinkhorn
-     iterations, no lines, no BA), with launch counters reset just before
-     and read just after; checks initialization, inliers, finite poses and
-     ATE;
-  4. the {"kernels": [...]} summary; last line {"ok": true, "device": ...}.
-     With --kernels, phase 3 is skipped and the summary's launch counts
-     are null.
+  3. end to end, two paths, each with the launch counters reset just
+     before and read just after: ``end_to_end_lines``, the default
+     ``SystemConfig()`` main path (752×480, K = 400, 18 GNN layers at bf16,
+     100 Sinkhorn iterations, RCF at ×0.5 through K1's side mode + the
+     Hough detector on both eyes, keyframe maplines; no BA) on a scene with
+     12 dark segments and the hand-set edge weights; then ``end_to_end``,
+     the point-only path (``use_lines=False``). Each checks
+     initialization, inliers, finite poses and ATE; the lines path also
+     lines per frame, maplines with endpoints and one K1 side-mode launch
+     per frame;
+  4. the {"kernels": [...]} summary (launches from the lines path, the
+     default main path; each path's counts in ``launches_by_path``); last
+     line {"ok": true, "device": ...}. With --kernels, phase 3 is skipped
+     and the summary's launch counts are null.
 
 Any failure raises and exits non-zero. The script imports nothing of JAX
 or of the JAX package.
@@ -28,6 +35,7 @@ or of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -46,7 +54,9 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_SFU = 132 * 16 * 1.98e9
 
-# end-to-end gates (see PERF.md for where the ATE bound comes from)
+# end-to-end gates (see PERF.md for where the ATE bound comes from: the JAX
+# package's ATE on each path's scene at 376×240 on the CPU, with margin:
+# points 0.2229 m, lines scene 0.2123 m)
 E2E_FRAMES = 30
 E2E_MIN_INLIERS = 20
 E2E_ATE_BOUND = 0.35
@@ -178,6 +188,7 @@ def check_conv_stem(side: bool):
     else:
         ok, err = _allclose_report("conv_stem", got, ref, rtol, atol)
     kernel_ms = time_ms(lambda: cs.conv3x3_relu_pool(x, wp, b, sw))
+    wrapper_host_ms = host_ms(lambda: cs.conv3x3_relu_pool(x, wp, b, sw))
     plain_ms = time_ms(lambda: cs.conv3x3_relu_pool_plain(x, w, b, sw))
     xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory = channels_last
     wc = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
@@ -192,8 +203,8 @@ def check_conv_stem(side: bool):
             "shape": [B, H, W, C], "ok": ok, "max_abs_err": err,
             "tolerance": "|k-p| <= 2^-7|p| + 1e-3 (bf16 out)"
             + ("; side rtol 1e-4, atol 1e-4*max|side|" if side else ""),
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "F.conv2d bf16 channels_last (conv only)",
+            "ms": kernel_ms, "host_ms": wrapper_host_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "F.conv2d bf16 channels_last (conv only)",
             "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes}
     line.update(rates(line))
     emit(line)
@@ -388,20 +399,22 @@ def _reset_counters():
     sinkhorn_cuda.launches = 0
 
 
-def phase_end_to_end():
-    """The port's SLAMSystem + NeuralFrontend on rendered EuRoC-size frames."""
+def phase_end_to_end(lines: bool):
+    """The port's SLAMSystem + NeuralFrontend on rendered EuRoC-size frames:
+    the default main path (lines on) or the point-only path."""
     import torch
 
     from rspl_slam_tpu_torch.config import SystemConfig
     from rspl_slam_tpu_torch.evaluation import absolute_trajectory_error, synthetic
     from rspl_slam_tpu_torch.frontend.frontends import NeuralFrontend
-    from rspl_slam_tpu_torch.models import superglue, superpoint
+    from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
     from rspl_slam_tpu_torch.slam import INIT_POSE, SLAMSystem
 
-    cfg = SystemConfig(use_lines=False)  # 752×480, K = 400, 18 layers, 100 iters
+    # 752×480, K = 400, 18 layers, 100 iterations; lines: RCF ×0.5, 128 lines
+    cfg = SystemConfig(use_lines=lines)
     cam = cfg.camera
     t0 = time.perf_counter()
-    scene = synthetic.make_scene(num_points=600, num_lines=0, seed=1,
+    scene = synthetic.make_scene(num_points=600, num_lines=12 if lines else 0, seed=1,
                                  extent=(6.0, 4.0, 6.0), on_line_frac=0.0)
     traj = synthetic.make_trajectory(E2E_FRAMES, step=0.05)
     frames = [synthetic.render_images(scene, cam, traj[i], seed=i)
@@ -409,17 +422,23 @@ def phase_end_to_end():
     render_s = time.perf_counter() - t0
     sp = superpoint.init_params(0)
     sg = superglue.descriptor_matcher_params(cfg.superglue, 0, 2000.0, 1980.0)
-    fe = NeuralFrontend(cfg, sp_params=sp, sg_params=sg)  # the card, bf16 convs
+    rp = rcf.edge_detector_params() if lines else None
+    fe = NeuralFrontend(cfg, sp_params=sp, sg_params=sg, rcf_params=rp)  # the card, bf16
     warm = SLAMSystem(cfg, fe, enable_ba=False)  # first-call set-up, not timed
     for i in range(2):
         warm.add_frame(i, 0.05 * i, *frames[i])
     torch.cuda.synchronize()
+    fe.timings.clear()
 
     slam = SLAMSystem(cfg, fe, enable_ba=False)
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
     t0 = time.perf_counter()
-    recs = [slam.add_frame(i, 0.05 * i, *frames[i]) for i in range(E2E_FRAMES)]
+    recs, lines_per_frame = [], []
+    for i in range(E2E_FRAMES):
+        recs.append(slam.add_frame(i, 0.05 * i, *frames[i]))
+        if lines:
+            lines_per_frame.append(int(slam._last_feats.line_valid.sum()))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counters()
@@ -430,30 +449,54 @@ def phase_end_to_end():
     ate = absolute_trajectory_error(ts, est[:, :3, 3], ts, gt[:, :3, 3])["rmse"]
     inliers = [int(r.num_inliers) for r in recs[1:]]
     tracked = sum(n > E2E_MIN_INLIERS for n in inliers)
-    med = {k: float(np.median(v)) * 1e3 for k, v in slam.timings.items()}
-    line = {"phase": "end_to_end", "frames": E2E_FRAMES, "image": [cam.image_width,
+    bound = E2E_ATE_BOUND
+    timings = {**slam.timings, **fe.timings}
+    med = {k: float(np.median(v)) * 1e3 for k, v in timings.items()}
+    name = "end_to_end_lines" if lines else "end_to_end"
+    line = {"phase": name, "frames": E2E_FRAMES, "image": [cam.image_width,
             cam.image_height], "max_keypoints": cfg.superpoint.max_keypoints,
             "gnn_layers": cfg.superglue.num_gnn_layers,
             "sinkhorn_iters": cfg.superglue.sinkhorn_iterations,
+            "use_lines": lines,
             "initialized": slam.initialized, "keyframes": int(slam.map.n_kf),
             "inliers": inliers, "frames_over_min_inliers": tracked,
-            "ate_rmse_m": float(ate), "ate_bound_m": E2E_ATE_BOUND,
+            "ate_rmse_m": float(ate), "ate_bound_m": bound,
             "frames_per_s": E2E_FRAMES / wall, "wall_s": wall,
             "stage_median_ms": med, "render_s": render_s,
             "max_memory_allocated_MB": torch.cuda.max_memory_allocated() / 2**20,
             "launches": launches}
+    if lines:
+        m = slam.map
+        line.update({
+            "stage_note": "rcf_hough: device ms of RCF + Hough (CUDA events); "
+                          "lines_host: merge + assign + stereo match, host ms; "
+                          "both inside extract",
+            "lines_per_frame": lines_per_frame,
+            "lines_per_frame_median": float(np.median(lines_per_frame)),
+            "maplines": int(m.n_ln),
+            "maplines_with_endpoints": int(m.ln_has_endpoints[: m.n_ln].sum())})
     emit(line)
     if not slam.initialized:
-        raise AssertionError("end to end: the map did not initialize")
+        raise AssertionError(f"{name}: the map did not initialize")
     if tracked < 0.8 * len(inliers):
-        raise AssertionError(f"end to end: too few tracked frames: {inliers}")
+        raise AssertionError(f"{name}: too few tracked frames: {inliers}")
     if not np.isfinite(est).all():
-        raise AssertionError("end to end: non-finite pose")
-    if not ate < E2E_ATE_BOUND:
-        raise AssertionError(f"end to end: ATE {ate} over the bound {E2E_ATE_BOUND}")
-    for name in ("conv_stem", "superglue_layer", "sinkhorn"):
-        if launches[name] <= 0:
-            raise AssertionError(f"end to end: kernel {name} never launched")
+        raise AssertionError(f"{name}: non-finite pose")
+    if not ate < bound:
+        raise AssertionError(f"{name}: ATE {ate} over the bound {bound}")
+    for k in ("conv_stem", "superglue_layer", "sinkhorn"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{name}: kernel {k} never launched")
+    if lines:
+        if not line["lines_per_frame_median"] > 0:
+            raise AssertionError(f"{name}: no lines detected: {lines_per_frame}")
+        if not line["maplines_with_endpoints"] > 0:
+            raise AssertionError(f"{name}: no mapline was triangulated")
+        if launches["conv_stem_side"] != E2E_FRAMES:
+            raise AssertionError(f"{name}: K1 side mode launched "
+                                 f"{launches['conv_stem_side']} times in {E2E_FRAMES} frames")
+    elif launches["conv_stem_side"]:
+        raise AssertionError(f"{name}: K1 side mode launched without lines")
     return line, launches, (cfg, fe, frames)
 
 
@@ -478,6 +521,8 @@ def phase_profile(cfg, fe, frames, n_warm: int = 3, n_prof: int = 3):
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
     dev = sorted(ka, key=lambda e: -e.self_device_time_total)
+    if fe.use_lines:
+        _lines_breakdown(fe, frames[n_warm])
     device_ms = sum(e.self_device_time_total for e in ka) / 1e3
     host = {e.key: e.count for e in ka
             if e.key in ("cudaMemcpyAsync", "cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -495,8 +540,32 @@ def phase_profile(cfg, fe, frames, n_warm: int = 3, n_prof: int = 3):
               for name, fns in PROFILE_NAMES.items()}})
 
 
+def _lines_breakdown(fe, pair):
+    """The lines path's pieces on one frame, each the frontend's own step:
+    CUDA-event ms (and host issue ms) of the RCF edge maps of the pair and
+    of the Hough detector on them, host ms of the merge."""
+    import torch
+
+    img = torch.from_numpy(np.stack(pair)).to(fe.device)
+    edges = fe._edge_maps(img)
+    segs, valid = fe._detect_lines(edges)
+    sv = torch.cat([segs, valid[..., None].float()], -1).cpu().numpy()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        merged = fe._merge_stack(sv)
+    host_merge = (time.perf_counter() - t0) / 10 * 1e3
+    emit({"phase": "lines_breakdown", "image": list(img.shape),
+          "rcf_ms": time_ms(lambda: fe._edge_maps(img)),
+          "rcf_host_ms": host_ms(lambda: fe._edge_maps(img)),
+          "detect_ms": time_ms(lambda: fe._detect_lines(edges)),
+          "detect_host_ms": host_ms(lambda: fe._detect_lines(edges)),
+          "host_merge_ms": host_merge, "segments": int(valid.sum()),
+          "merged": [len(m) for m in merged]})
+
+
 # each port kernel's CUDA function name, as the profiler lists it
-PROFILE_NAMES = {"conv_stem": ("conv3x3_relu_pool_kernel",),
+PROFILE_NAMES = {"conv_stem": ("conv3x3_relu_pool_kernel<false>",),
+                 "conv_stem_side": ("conv3x3_relu_pool_kernel<true>",),
                  "superglue_layer": ("qkv_bf16_kernel", "layer_bf16_kernel"),
                  "superglue_layer_f32": ("qkv_kernel", "attn_kernel", "mlp_kernel"),
                  "sinkhorn": ("sinkhorn_cluster_kernel",)}
@@ -516,17 +585,22 @@ KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "tflops", "bound_fraction")
 
 
-def phase_summary(lines, launches):
-    """``launches`` is None with --kernels (the main path did not run)."""
+def phase_summary(lines, by_path):
+    """``by_path`` maps each end-to-end path to its launch counts, the
+    default main path (``end_to_end_lines``) first; empty with --kernels
+    (no path ran: launch counts null)."""
+    launches = by_path.get("end_to_end_lines")
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
              "launches": launches and launches[name],
+             "launches_by_path": {p: c[name] for p, c in by_path.items()},
              **{key: lines[name][key] for key in KEYS}}
         if name in OTHER_MODES:  # the same kernel in its other mode
             mode, line_name = OTHER_MODES[name]
             other = lines[line_name]
             k[mode] = {"launches": launches and launches[line_name],
+                       "launches_by_path": {p: c[line_name] for p, c in by_path.items()},
                        "shape": other["shape"], **{key: other[key] for key in KEYS}}
         if name == "sinkhorn":
             k["elements_per_s"] = lines[name]["elements_per_s"]
@@ -542,6 +616,8 @@ def main(argv) -> int:
               "script", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    import torch
+
     phase_device()
     phase_build()
     lines = {}
@@ -550,14 +626,16 @@ def main(argv) -> int:
     lines["superglue_layer"] = check_superglue_layer(bf16=True)
     lines["superglue_layer_f32"] = check_superglue_layer(bf16=False)
     lines["sinkhorn"] = check_sinkhorn()
-    launches = None
+    by_path = {}
     if "--kernels" not in argv:
-        _, launches, run = phase_end_to_end()
+        _, by_path["end_to_end_lines"], run = phase_end_to_end(lines=True)
         if "--profile" in argv:
             phase_profile(*run)
-    phase_summary(lines, launches)
-    import torch
-
+        del run  # the lines path's frontend: the point path's peak memory is its own
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, by_path["end_to_end"], _ = phase_end_to_end(lines=False)
+    phase_summary(lines, by_path)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

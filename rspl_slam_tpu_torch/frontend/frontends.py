@@ -3,21 +3,27 @@
 
 One ``extract_pair`` uploads the stereo pair as 8-bit when lossless,
 converts and rectifies it on the device, runs SuperPoint on the B = 2 pair
-and the left↔right matcher there, and brings every host-bound result back
-in ONE copy; the disparity gate runs on the host. The frame's (xy, score,
-desc, valid) stay on the device in ``FrameFeatures.dev`` for tracking.
+and the left↔right matcher there and, with lines on, RCF on the pair and
+the Hough detector on both edge maps, and brings every host-bound result
+back in ONE copy. The disparity gate and the line merge, point assignment
+and stereo line matching run on the host. The frame's (xy, score, desc,
+valid) stay on the device in ``FrameFeatures.dev`` for tracking.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from rspl_slam_tpu_torch.camera import build_rectify_maps, remap_bilinear
 from rspl_slam_tpu_torch.config import SystemConfig
-from rspl_slam_tpu_torch.models import superglue, superpoint
-from rspl_slam_tpu_torch.models.weights import (load_params, superglue_from_numpy,
-                                                superpoint_from_numpy)
+from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
+from rspl_slam_tpu_torch.models.weights import (load_params, rcf_from_numpy,
+                                                superglue_from_numpy, superpoint_from_numpy)
+from rspl_slam_tpu_torch.ops import lines as lops
 from rspl_slam_tpu_torch.ops.matching import cosine_mutual_match
 
 __all__ = ["FrameFeatures", "NeuralFrontend", "resolve_device"]
@@ -28,7 +34,13 @@ class FrameFeatures:
 
     xy (K, 2) · score (K,) · desc (K, D) · valid (K,) · meas (K, 3)
     [uL, vL, uR (−1 = mono)] · depth (K,); ``dev`` holds the device copies
-    of (xy, score, desc, valid). Line fields stay None in this slice.
+    of (xy, score, desc, valid).
+
+    Line fields (None with lines off): lines (L, 4) left segments
+    [x1, y1, x2, y2] · line_valid (L,) · lines_right (L, 4) the stereo-
+    matched right segment · line_has_right (L,) · line_members (L, K)
+    keypoints on each line; line_tracks (L,) is stamped with the mapline of
+    each line when the frame becomes a keyframe.
     """
 
     def __init__(self, xy=None, score=None, desc=None, valid=None, meas=None,
@@ -42,7 +54,11 @@ class FrameFeatures:
         self.image = image
         self.dev = dev
         self.lines = None
+        self.line_valid = None
+        self.lines_right = None
+        self.line_has_right = None
         self.line_members = None
+        self.line_tracks = None
         self.pending_right = None
 
 
@@ -75,6 +91,42 @@ def _host_to_u8(img: np.ndarray) -> np.ndarray:
     return np.asarray(img, np.float32)
 
 
+def _downsample_max(edges: torch.Tensor, ds: int) -> torch.Tensor:
+    """(B, H, W) edge maps → (B, H // ds, W // ds) by max-pooling (keeps
+    thin ridges that averaging would wash out)."""
+    return F.max_pool2d(edges[:, None], ds)[:, 0]
+
+
+def _downsample_mean(images: torch.Tensor, ds: int) -> torch.Tensor:
+    """(B, H, W) images → (B, H // ds, W // ds) by area averaging, the
+    reference's ×1/ds resize before line detection."""
+    return F.avg_pool2d(images[:, None], ds)[:, 0]
+
+
+def _mark(device: torch.device):
+    """A mark in the device's timeline: a CUDA event on the card, the host
+    clock on the CPU (where the work is synchronous)."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def _elapsed_s(a, b) -> float:
+    """Seconds between two :func:`_mark` marks; on the card, once the
+    device has passed ``b``."""
+    return a.elapsed_time(b) / 1e3 if isinstance(a, torch.cuda.Event) else b - a
+
+
+def _pad_lines(segs: np.ndarray, max_lines: int):
+    out = np.zeros((max_lines, 4), np.float32)
+    n = min(len(segs), max_lines)
+    if n:
+        out[:n] = segs[:n]
+    return out, np.arange(max_lines) < n
+
+
 def _stereo_associate(cfg: SystemConfig, xyL, xyR, validL, validR, i0):
     """Left-right matches → per-left-keypoint uR/depth through the disparity
     gate min_x_diff < uL−uR < max_x_diff, |vL−vR| ≤ max_y_diff."""
@@ -93,9 +145,11 @@ class NeuralFrontend:
     """Production frontend: SuperPoint + SuperGlue (or the cosine
     mutual-NN matcher) on one device.
 
-    ``sp_params`` / ``sg_params``: parameter pytrees in the JAX layout
-    (numpy or array-like leaves), or None for the config's ``.npz`` weight
-    files or a seeded random init. ``device`` defaults to the card.
+    ``sp_params`` / ``sg_params`` / ``rcf_params``: parameter pytrees in
+    the JAX layout (numpy or array-like leaves), or None for the config's
+    ``.npz`` weight files or a seeded random init (random RCF weights see
+    no edges: ``models.rcf.edge_detector_params`` makes test weights that
+    do). ``device`` defaults to the card.
     """
 
     def __init__(self, cfg: SystemConfig, sp_params=None, sg_params=None,
@@ -106,10 +160,6 @@ class NeuralFrontend:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_lines = cfg.use_lines if use_lines is None else use_lines
-        if self.use_lines or rcf_params is not None:
-            raise NotImplementedError(
-                "use_lines=True: RCF + Hough lines are not ported yet "
-                "(ROADMAP.md, remaining slice 1)")
         lazy = cfg.pipeline.lazy_right_extraction if lazy_right is None else lazy_right
         if lazy:
             raise NotImplementedError(
@@ -145,6 +195,14 @@ class NeuralFrontend:
                          else superglue.init_params(cfg.superglue, seed + 1))
         self.sp = superpoint_from_numpy(sp_params, self.device)
         self.sg = superglue_from_numpy(sg_params, cfg.superglue, self.device)
+        self.timings: dict[str, list] = {}  # rcf_hough (device), lines_host
+        self.rcf = None
+        if self.use_lines:
+            ld = cfg.line_detector
+            if rcf_params is None:
+                rcf_params = (load_params(ld.rcf_weights_path) if ld.rcf_weights_path
+                              else rcf.init_params(seed + 1))
+            self.rcf = rcf_from_numpy(rcf_params, self.device)
 
     # ------------------------------------------------------------- matching
     def match_indices(self, xy0, sc0, d0, v0, xy1, sc1, d1, v1) -> torch.Tensor:
@@ -175,7 +233,56 @@ class NeuralFrontend:
         b = [t[None] for t in self.device_features(fB)]
         return self._match_indices(*a, *b)[0].astype(np.int64)
 
+    def _t(self, name: str, seconds: float):
+        self.timings.setdefault(name, []).append(seconds)
+
     # ----------------------------------------------------------- extraction
+    def _edge_maps(self, img: torch.Tensor) -> torch.Tensor:
+        """RCF edge maps of the rectified (B, H, W) stack at the detection
+        scale, on the device. RCF runs at ×1/downsample on the downsampled
+        image where the config asks for it and the size allows; otherwise at
+        full size, with the edge map max-pooled down to the detection
+        scale."""
+        ld = self.cfg.line_detector
+        ds = max(1, int(ld.downsample))
+        _, H, W = img.shape
+        if ds > 1 and ld.rcf_at_detection_scale and H % (4 * ds) == 0 \
+                and W % (4 * ds) == 0:
+            return rcf.edge_map(self.rcf, _downsample_mean(img, ds), self.compute_dtype)
+        edges = rcf.edge_map(self.rcf, img, self.compute_dtype)
+        return _downsample_max(edges, ds) if ds > 1 else edges
+
+    def _detect_lines(self, edges: torch.Tensor):
+        """Hough segments of each (B, h, w) edge map, on the device: (segs
+        (B, S, 4) at the detection scale, valid (B, S))."""
+        ld = self.cfg.line_detector
+        segs, valid, _ = lops.detect_line_segments(
+            edges, min_length=float(ld.length_threshold),
+            inlier_dist=float(ld.distance_threshold), max_segments=int(ld.max_lines))
+        return segs, valid
+
+    def _extract_lines(self, img: torch.Tensor):
+        """:meth:`_edge_maps` → :meth:`_detect_lines` for the (B, H, W)
+        stack."""
+        return self._detect_lines(self._edge_maps(img))
+
+    def _host_merge(self, segs: np.ndarray) -> np.ndarray:
+        """The two-pass merge/filter host stage: 30 px filter → merge →
+        60 px filter."""
+        ld = self.cfg.line_detector
+        if ld.do_merge:
+            segs = lops.filter_short_lines(segs, 30.0)
+            if len(segs):
+                segs = lops.merge_lines(segs, ld.angle_thr, ld.distance_thr, ld.ep_thr)
+            segs = lops.filter_short_lines(segs, 60.0)
+        return segs
+
+    def _merge_stack(self, sv: np.ndarray) -> list:
+        """(B, S, 5) host rows [segment at the detection scale; valid] →
+        each image's merged segments at full scale."""
+        ds = max(1, int(self.cfg.line_detector.downsample))
+        return [self._host_merge(np.ascontiguousarray(e[e[:, 4] > 0.5, :4]) * ds) for e in sv]
+
     @torch.no_grad()
     def extract_pair(self, img_l: np.ndarray, img_r: np.ndarray) -> FrameFeatures:
         imgs = np.stack([_host_to_u8(img_l), _host_to_u8(img_r)])
@@ -192,19 +299,58 @@ class NeuralFrontend:
             feats.xy[1], feats.valid[1][:, None].to(f32), i0[:, None].to(f32),
             feats.desc[0].to(f32),
         ], -1)
-        buf = packed.cpu().numpy()  # the one device→host copy of the frame
-        xyL = np.ascontiguousarray(buf[:, 0:2])
-        validL = buf[:, 3] > 0.5
-        xyR = np.ascontiguousarray(buf[:, 4:6])
-        validR = buf[:, 6] > 0.5
-        i0 = buf[:, 7].astype(np.int64)
+        K = packed.shape[0]
+        parts = [packed.reshape(-1)]
+        if self.use_lines:
+            span = [_mark(self.device)]
+            segs, valid = self._extract_lines(img)  # both eyes in one call
+            parts += [torch.cat([segs, valid[..., None].to(f32)], -1).reshape(-1)]
+            span.append(_mark(self.device))
+        buf = torch.cat(parts).cpu().numpy()  # the one device→host copy of the frame
+        fk = buf[: packed.numel()].reshape(K, -1)
+        xyL = np.ascontiguousarray(fk[:, 0:2])
+        validL = fk[:, 3] > 0.5
+        xyR = np.ascontiguousarray(fk[:, 4:6])
+        validR = fk[:, 6] > 0.5
+        i0 = fk[:, 7].astype(np.int64)
         uR, depth = _stereo_associate(self.cfg, xyL, xyR, validL, validR, i0)
         ff = FrameFeatures(
-            xy=xyL, score=np.ascontiguousarray(buf[:, 2]),
-            desc=np.ascontiguousarray(buf[:, 8:]), valid=validL,
+            xy=xyL, score=np.ascontiguousarray(fk[:, 2]),
+            desc=np.ascontiguousarray(fk[:, 8:]), valid=validL,
             meas=np.concatenate([xyL, uR[:, None]], -1), depth=depth,
             dev=(feats.xy[0], feats.score[0], feats.desc[0].to(f32), feats.valid[0]),
         )
+        if self.use_lines:
+            t0 = time.perf_counter()
+            segs_pair = self._merge_stack(buf[packed.numel():].reshape(2, -1, 5))
+            self._attach_lines(ff, xyR, validR, i0, uR, segs_pair)
+            self._t("rcf_hough", _elapsed_s(*span))
+            self._t("lines_host", time.perf_counter() - t0)
         if self.keep_images:
             ff.image = img[0].cpu().numpy()
+        return ff
+
+    def _attach_lines(self, ff: FrameFeatures, xyR, validR, i0, uR, segs_pair):
+        """Pad the merged left segments, assign keypoints to them, and match
+        them to the right segments through the gated stereo point matches."""
+        segs_l, segs_r = segs_pair
+        LN = self.cfg.line_detector.max_lines
+        lines, line_valid = _pad_lines(segs_l, LN)
+        members = np.zeros((LN, len(ff.xy)), bool)
+        nl = int(line_valid.sum())
+        if nl:
+            members[:nl] = lops.assign_points_to_lines(lines[:nl], ff.xy, ff.valid)
+        lines_right = np.zeros((LN, 4), np.float32)
+        has_right = np.zeros(LN, bool)
+        if nl and len(segs_r):
+            members_r = lops.assign_points_to_lines(segs_r, xyR, validR)
+            lm = lops.match_lines(members[:nl], members_r, np.where(uR >= 0, i0, -1))
+            hit = np.nonzero(lm >= 0)[0]
+            lines_right[hit] = segs_r[lm[hit]]
+            has_right[hit] = True
+        ff.lines = lines
+        ff.line_valid = line_valid
+        ff.lines_right = lines_right
+        ff.line_has_right = has_right
+        ff.line_members = members
         return ff

@@ -1,7 +1,9 @@
-"""Multi-view point triangulation (port of geometry/triangulation.py
-``triangulate_point_multiview``), batched over landmarks.
+"""Multi-view point triangulation and the robust 3D line fit (port of
+geometry/triangulation.py ``triangulate_point_multiview`` and
+``fit_line3d_to_points``), batched over landmarks.
 
-The line fits of the JAX module belong to the lines slice (ROADMAP).
+``triangulate_line_endpoints`` serves local BA only and comes with it
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -9,9 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rspl_slam_tpu_torch.geometry import plucker
 from rspl_slam_tpu_torch.geometry.linalg import eigvalsh3, solve3
 
-__all__ = ["triangulate_point_multiview", "COS_MIN_PARALLAX"]
+__all__ = ["triangulate_point_multiview", "fit_line3d_to_points", "COS_MIN_PARALLAX"]
 
 # minimum accepted parallax between some pair of observing rays: 0.5°
 COS_MIN_PARALLAX = float(np.cos(np.deg2rad(0.5)))
@@ -49,3 +52,46 @@ def triangulate_point_multiview(Twc: torch.Tensor, uv_norm: torch.Tensor,
     ok_cheir = torch.where(mask, p_cam_z > 0, torch.ones_like(mask)).all(-1)
     ok = (mask.sum(-1) >= 2) & ok_rank & ok_parallax & ok_cheir
     return x, ok
+
+
+def fit_line3d_to_points(pts: torch.Tensor, mask: torch.Tensor,
+                         inlier_dist: float = 0.05, min_inliers: int = 3):
+    """Robust 3D line fit, batched: deterministic pair-hypothesis RANSAC
+    (every pair of well-separated candidates proposes a line; the largest
+    consensus within ``inlier_dist`` wins), then the PCA fit of the
+    consensus set, with endpoints at its extreme projections.
+
+    pts (..., P, 3), mask (..., P) bool. Returns (plucker (..., 6),
+    endpoints (..., 2, 3), ok (...,)). The direction's sign is the
+    eigenvector's, which is arbitrary: p1/p2 and the Plücker sign may
+    flip against another solver.
+    """
+    P = pts.shape[-2]
+    d = pts[..., None, :, :] - pts[..., :, None, :]  # d[i, j] = p_j − p_i
+    dn = torch.linalg.norm(d, dim=-1, keepdim=True)
+    d = d / dn.clamp_min(1e-9)
+    pair_ok = mask[..., :, None] & mask[..., None, :] & (dn[..., 0] > 0.2)
+    # distance of every point k to line (i, j): ‖r − ⟨r, d⟩d‖, r = p_k − p_i
+    r = pts[..., None, None, :, :] - pts[..., :, None, None, :]
+    proj = (r * d[..., :, :, None, :]).sum(-1)
+    dist = torch.linalg.norm(r - proj[..., None] * d[..., :, :, None, :], dim=-1)
+    inl = (dist < inlier_dist) & mask[..., None, None, :]
+    counts = (inl.sum(-1) * pair_ok).flatten(-2)  # (..., P·P)
+    best = counts.argmax(-1)  # the first maximum, as jnp.argmax
+    have_pair = counts.gather(-1, best[..., None])[..., 0] > 0
+    idx = best[..., None, None].expand(*best.shape, 1, P)
+    consensus = inl.flatten(-3, -2).gather(-2, idx)[..., 0, :] & mask & have_pair[..., None]
+    w = consensus.to(pts.dtype)
+    cnt = w.sum(-1).clamp_min(1.0)
+    c = (pts * w[..., None]).sum(-2) / cnt[..., None]
+    X = (pts - c[..., None, :]) * w[..., None]
+    _, evecs = torch.linalg.eigh(X.transpose(-1, -2) @ X)
+    dirn = evecs[..., :, 2]
+    t = ((pts - c[..., None, :]) * dirn[..., None, :]).sum(-1)
+    big = torch.full_like(t, 1e9)
+    tmin = torch.where(consensus, t, big).amin(-1)
+    tmax = torch.where(consensus, t, -big).amax(-1)
+    p1 = c + tmin[..., None] * dirn
+    p2 = c + tmax[..., None] * dirn
+    ok = (consensus.sum(-1) >= min_inliers) & (tmax - tmin > 1e-3)
+    return plucker.from_endpoints(p1, p2), torch.stack([p1, p2], -2), ok

@@ -1,10 +1,12 @@
 """Weight bridge: the JAX package's parameter pytrees (nested dicts and
 lists of numpy arrays, in the layouts of ``superpoint.init_params`` and
-``superglue.init_params`` there) → the port's modules on a device.
+``superglue.init_params`` and ``rcf.init_params`` there) → the port's
+modules on a device.
 
 ``load_npz_pytree`` reads the flattened ``.npz`` pytree that the JAX CLI's
 ``convert-weights`` writes, with numpy alone. Conv weights arrive HWIO and
-are laid out for ``F.conv2d`` and K1 by the SuperPoint module; SuperGlue's
+are laid out for ``F.conv2d`` and K1 by the SuperPoint and RCF modules
+(RCF also folds each side branch into its stage score); SuperGlue's
 head permutation is already absorbed in the pytree, so the bridge copies it
 as it is.
 """
@@ -16,7 +18,7 @@ import numpy as np
 from rspl_slam_tpu_torch.config import SuperGlueConfig
 
 __all__ = ["load_npz_pytree", "to_numpy_tree", "superpoint_from_numpy",
-           "superglue_from_numpy"]
+           "superglue_from_numpy", "rcf_from_numpy"]
 
 
 def load_npz_pytree(path: str):
@@ -62,6 +64,12 @@ def superglue_from_numpy(params, cfg: SuperGlueConfig | None = None, device="cud
     from rspl_slam_tpu_torch.models.superglue import SuperGlue
 
     return SuperGlue(to_numpy_tree(params), cfg or SuperGlueConfig(), device)
+
+
+def rcf_from_numpy(params, device="cuda"):
+    from rspl_slam_tpu_torch.models.rcf import RCF
+
+    return RCF(to_numpy_tree(params)).to(device)
 
 
 def load_params(path: str):

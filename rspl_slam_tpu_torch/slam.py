@@ -1,15 +1,17 @@
-"""Top-level SLAM system (port of slam.py: the point main path).
+"""Top-level SLAM system (port of slam.py: the main path without BA).
 
-Per-frame flow, as in the JAX package: eager stereo extraction → (first
-frame) map initialization → fused tracking against the reference keyframe
-(temporal SuperGlue + map association + PnP-RANSAC + pose-only LM on the
-device) with the promote-last-frame fallback → keyframe policy → keyframe
-insertion on the host map store with batched multi-view triangulation on
-the device. Host bookkeeping stays numpy f64 where the JAX package has it.
+Per-frame flow, as in the JAX package: eager stereo extraction (points and,
+with lines on, RCF + Hough segments) → (first frame) map initialization →
+fused tracking against the reference keyframe (temporal SuperGlue + map
+association + PnP-RANSAC + pose-only LM on the device) with the
+promote-last-frame fallback → keyframe policy → keyframe insertion on the
+host map store with batched multi-view point triangulation, temporal line
+matching, mapline bookkeeping and batched 3D line fits on the device. Host
+bookkeeping stays numpy f64 where the JAX package has it.
 
-Not ported in this slice, and raising ``NotImplementedError`` rather than
-degrading: lines (RCF + Hough), local BA, loop closure and relocalization,
-and the lazy-right schedule (ROADMAP.md).
+Not ported yet, and raising ``NotImplementedError`` rather than degrading:
+local BA, loop closure and relocalization, and the lazy-right schedule
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from rspl_slam_tpu_torch.config import SystemConfig
 from rspl_slam_tpu_torch.datasets import write_tum_trajectory
 from rspl_slam_tpu_torch.frontend.frontends import FrameFeatures
 from rspl_slam_tpu_torch.geometry import se3, triangulation
+from rspl_slam_tpu_torch.ops import lines as lops
 
 __all__ = ["SLAMSystem", "INIT_POSE", "FrameRecord"]
 
@@ -45,6 +48,17 @@ class FrameRecord:
     num_inliers: int = 0
 
 
+def _members_to_lists(members: np.ndarray, width: int = 32) -> np.ndarray:
+    """(L, K) bool membership → (L, width) int32 keypoint index lists."""
+    out = np.full((members.shape[0], width), -1, np.int32)
+    rank = members.cumsum(1) - 1  # per-row rank of each member
+    li, ki = np.nonzero(members)
+    r = rank[li, ki]
+    m = r < width
+    out[li[m], r[m]] = ki[m]
+    return out
+
+
 def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
@@ -58,8 +72,6 @@ class SLAMSystem:
                  fused_tracking: bool | None = None):
         if enable_ba:
             _unported("enable_ba=True (local bundle adjustment)", "remaining slice 2")
-        if cfg.use_lines if enable_lines is None else enable_lines:
-            _unported("use_lines=True (RCF + Hough lines)", "remaining slice 1")
         if enable_loop_closure or enable_relocalization or global_ba_on_loop:
             _unported("loop closure / relocalization", "remaining slice 5")
         if cfg.pipeline.lazy_right_extraction or getattr(frontend, "lazy_right", False):
@@ -74,7 +86,7 @@ class SLAMSystem:
         self.frontend = frontend
         self.device = frontend.device
         self.enable_ba = False
-        self.enable_lines = False
+        self.enable_lines = cfg.use_lines if enable_lines is None else enable_lines
         self._fused = None
         cam = cfg.camera
         self.K = CameraIntrinsics(cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
@@ -134,11 +146,14 @@ class SLAMSystem:
             return FrameRecord(index, t, INIT_POSE.copy())
         Twc = INIT_POSE.copy()
         kf = self.map.add_keyframe(index, t, Twc, feats.meas, feats.valid,
-                                   feats.desc, feats.score, fixed=True)
+                                   feats.desc, feats.score, fixed=True,
+                                   **self._line_args(feats))
         idx = np.nonzero(stereo_ok)[0]
         pw = self._back_project(feats, idx, Twc)
         pts = self.map.new_mappoints_batch(pw, feats.desc[idx])
         self.map.add_point_obs_batch(pts, kf, idx)
+        if self._has_lines(feats):
+            self._process_keyframe_lines(kf, feats, np.full(len(feats.xy), -1))
         self.initialized = True
         self._ref_kf = kf
         self._ref_feats = feats
@@ -288,7 +303,7 @@ class SLAMSystem:
         t0 = time.perf_counter()
         self.flush_ba()
         kf = self.map.add_keyframe(index, t, Twc, feats.meas, feats.valid,
-                                   feats.desc, feats.score)
+                                   feats.desc, feats.score, **self._line_args(feats))
         ref_tracks = self.map.kf_track[self._ref_kf]
         K_cap = len(i0)
         valid = np.asarray(feats.valid, bool)
@@ -321,6 +336,9 @@ class SLAMSystem:
                 status=map_store.PT_UNTRIANGULATED)
             self.map.add_point_obs_batch(new_pts, kf, idx)
         self._triangulate_pending_points(kf)
+        if self._has_lines(feats):
+            self._process_keyframe_lines(kf, feats, i0)
+            feats.line_tracks = self.map.kf_line_track[kf].copy()
         self.map.update_covisibility(kf)
         self._t("kf_insert", t0)
         self._ref_kf = kf
@@ -359,6 +377,102 @@ class SLAMSystem:
         self.map.pt_pos[sel] = pts[ok]
         self.map.pt_status[sel] = map_store.PT_GOOD
         self.map.update_mappoint_descriptors(sel)
+
+    # ----------------------------------------------------------------- lines
+    def _has_lines(self, feats: FrameFeatures) -> bool:
+        return self.enable_lines and feats.lines is not None
+
+    def _line_args(self, feats: FrameFeatures) -> dict:
+        """The frame's 2D lines as ``MapStore.add_keyframe`` takes them."""
+        if not self._has_lines(feats):
+            return {}
+        return dict(lines=feats.lines, lines_right=feats.lines_right,
+                    line_valid=feats.line_valid, line_has_right=feats.line_has_right,
+                    line_points=_members_to_lists(feats.line_members))
+
+    def _process_keyframe_lines(self, kf: int, feats: FrameFeatures, i0: np.ndarray):
+        """Line landmarks at keyframe insertion: temporal line matching
+        against the reference keyframe through the point-vote matrix,
+        mapline creation or extension, and the 3D fits of this keyframe's
+        maplines from their on-line mappoints."""
+        nl = int(feats.line_valid.sum())
+        if nl == 0:
+            return
+        line_match = np.full(nl, -1, np.int64)
+        ref = self._ref_feats
+        if self._ref_kf >= 0 and ref is not None and ref.line_members is not None:
+            line_match = lops.match_lines(feats.line_members[:nl],
+                                          ref.line_members[: int(ref.line_valid.sum())], i0)
+        for li in range(nl):
+            ln = -1
+            if line_match[li] >= 0:
+                cand = self.map.kf_line_track[self._ref_kf, line_match[li]]
+                if cand >= 0 and self.map.ln_valid[cand]:
+                    ln = int(cand)
+            if ln < 0:
+                if self.map.lines_remaining == 0:
+                    continue  # capacity saturated (see _cap_new_landmarks)
+                ln = self.map.new_mapline()
+            self.map.add_line_obs(ln, kf, li)
+        self._triangulate_keyframe_maplines(kf, nl)
+
+    def _mapline_support(self, ln: int):
+        """Unique GOOD mappoints on all of mapline ``ln``'s observed 2D
+        lines, with their multi-view repeat counts."""
+        m = self.map
+        n = m.ln_obs_n[ln]
+        kfs = m.ln_obs_kf[ln, :n]
+        lis = m.ln_obs_idx[ln, :n]
+        ok = kfs >= 0
+        kfs, lis = kfs[ok], lis[ok]
+        ks = m.kf_line_points[kfs, lis]  # (n, 32) keypoint slots
+        pts = m.kf_track[kfs[:, None], np.maximum(ks, 0)]
+        flat = pts[(ks >= 0) & (pts >= 0)]
+        flat = flat[m.pt_status[flat] == map_store.PT_GOOD]
+        return np.unique(flat, return_counts=True)
+
+    def _gather_mapline_points(self, ln: int) -> np.ndarray:
+        """Mappoint positions supporting a mapline; points seen on the line
+        from ≥ 2 viewpoints are preferred (accidental projective members
+        differ between viewpoints, true on-line points repeat)."""
+        uniq, counts = self._mapline_support(ln)
+        multi = uniq[counts >= 2]
+        return self.map.pt_pos[multi if len(multi) >= 3 else uniq]
+
+    @torch.no_grad()
+    def _triangulate_keyframe_maplines(self, kf: int, nl: int, P: int = 32):
+        """(Re)fit the 3D line of every mapline the keyframe's first ``nl``
+        lines observe, from ≥ 3 supporting mappoints and ≥ 2 observations:
+        one batched fit on the device, one download of [plücker; endpoints;
+        ok]."""
+        lns, arr, count = [], [], []
+        for li in range(nl):
+            ln = self.map.kf_line_track[kf, li]
+            if ln < 0:
+                continue
+            pts = self._gather_mapline_points(ln)[:P]
+            # a single observation is projectively ambiguous
+            if len(pts) < 3 or self.map.ln_obs_n[ln] < 2:
+                continue
+            a = np.zeros((P, 3))
+            a[: len(pts)] = pts
+            lns.append(int(ln))
+            arr.append(a)
+            count.append(len(pts))
+        if not lns:
+            return
+        n = len(lns)
+        mask = np.arange(P)[None] < np.asarray(count)[:, None]
+        dev = self.device
+        L, eps, ok = triangulation.fit_line3d_to_points(
+            torch.as_tensor(np.stack(arr), dtype=torch.float32, device=dev),
+            torch.as_tensor(mask, device=dev))
+        buf = torch.cat([L.reshape(-1), eps.reshape(-1), ok.to(torch.float32)]).cpu().numpy()
+        ok = buf[12 * n:] > 0.5
+        sel = np.asarray(lns)[ok]
+        self.map.ln_plucker[sel] = buf[: 6 * n].reshape(n, 6)[ok]
+        self.map.ln_endpoints[sel] = buf[6 * n: 12 * n].reshape(n, 2, 3)[ok]
+        self.map.ln_has_endpoints[sel] = True
 
     def _t(self, name, t0):
         self.timings.setdefault(name, []).append(time.perf_counter() - t0)

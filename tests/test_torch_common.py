@@ -9,6 +9,7 @@ runs several xdist workers.
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -56,17 +57,44 @@ def small_system_cfg(width=320, height=240, layers=2, max_keypoints=400):
                                       image_height=height, num_gnn_layers=layers))
 
 
-def rendered_sequence(cfg, n, seed=1, step=0.05):
-    """``n`` rendered stereo pairs of a blob scene along a forward
-    trajectory, with the ground-truth world poses."""
+def rendered_sequence(cfg, n, seed=1, step=0.05, num_lines=0):
+    """``n`` rendered stereo pairs of a blob scene (with ``num_lines`` dark
+    segments) along a forward trajectory, with the ground-truth world
+    poses."""
     from rspl_slam_tpu_torch.evaluation import synthetic
 
-    scene = synthetic.make_scene(num_points=600, num_lines=0, seed=seed,
+    scene = synthetic.make_scene(num_points=600, num_lines=num_lines, seed=seed,
                                  extent=(6.0, 4.0, 6.0), on_line_frac=0.0)
     traj = synthetic.make_trajectory(n, step=step)
     frames = [synthetic.render_images(scene, cfg.camera, traj[i], seed=i)
               for i in range(n)]
     return frames, traj
+
+
+def segment_set_distance(a, b):
+    """For each segment [x1, y1, x2, y2] of ``a``, the max endpoint distance
+    to its nearest segment of ``b``, endpoints in either order (inf when
+    ``b`` is empty)."""
+    if len(b) == 0:
+        return np.full(len(a), np.inf)
+    same = np.abs(a[:, None] - b[None]).max(-1)
+    flip = np.abs(a[:, None] - b[None][..., [2, 3, 0, 1]]).max(-1)
+    return np.minimum(same, flip).min(1)
+
+
+def edge_weights():
+    """The hand-set RCF edge weights at width 0.125: the full-width
+    weights' logits (stage 1 keeps its 8 difference channels) at a CPU
+    test's cost."""
+    from rspl_slam_tpu_torch.models import rcf
+
+    return rcf.edge_detector_params(width_mult=0.125)
+
+
+def report(test: str, **measured):
+    """Print what a parity test measured as one JSON line; ``pytest -s``
+    shows them (PERF.md records the worst deviations)."""
+    print(json.dumps({"measured": test, **measured}))
 
 
 def matcher_weights(cfg):

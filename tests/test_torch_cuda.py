@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+paths that run them, on the card.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one. The file imports neither JAX nor the JAX package, so it also runs
@@ -191,3 +192,109 @@ def test_slam_slice_runs_on_the_card(cuda_device):  # noqa: F811
     assert after[2] - before[2] == 3 + 2
     slam._promote_last_frame_to_keyframe()
     assert slam.map.n_kf == 2 and np.isfinite(slam.map.kf_pose[:2]).all()
+
+
+def test_rcf_k1_recipe_on_the_card_matches_the_generic_recipe(cuda_device):  # noqa: F811
+    """RCF at the main path's ×0.5 shape (2, 240, 376), bf16, the hand-set
+    edge weights: the default recipe on the card (stage 1 through K1's side
+    mode, one launch) against the generic conv recipe on the card, at the
+    CPU test's bound for these weights: |Δ| < 0.08·(|generic| + 1) on the
+    logits, 0.02 on the edge map."""
+    from rspl_slam_tpu_torch.models import rcf
+    from rspl_slam_tpu_torch.models.weights import rcf_from_numpy
+
+    m = rcf_from_numpy(rcf.edge_detector_params(), cuda_device)
+    (pair,), _ = rendered_sequence(small_system_cfg(752, 480), 1, num_lines=12)
+    img = torch.from_numpy(np.stack(pair)).to(cuda_device)
+    img = torch.nn.functional.avg_pool2d(img[:, None], 2)[:, 0]
+    before = conv_stem_cuda.side_launches
+    got = rcf.edge_logits(m, img)
+    assert conv_stem_cuda.side_launches == before + 1
+    ref = rcf.edge_logits(m, img, use_pallas_stem=False)
+    assert conv_stem_cuda.side_launches == before + 1
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() / (ref.abs() + 1.0)).max() < 0.08
+    assert (torch.sigmoid(got) - torch.sigmoid(ref)).abs().max() < 0.02
+    assert 0.01 < float((torch.sigmoid(got) > 0.25).float().mean()) < 0.6
+
+
+def test_rcf_stem_on_the_card_launches_k1_or_raises(cuda_device):  # noqa: F811
+    """A CUDA tensor's default stage 1 is K1 wherever K1's own limits hold:
+    a bf16 image with H ≡ 2 (mod 4) launches K1's side mode exactly once
+    and agrees with the generic recipe at the bound above; f32 and an odd
+    H raise without a launch."""
+    from rspl_slam_tpu_torch.models import rcf
+    from rspl_slam_tpu_torch.models.weights import rcf_from_numpy
+
+    m = rcf_from_numpy(rcf.edge_detector_params(), cuda_device)
+    img = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (2, 42, 70))
+                           .astype(np.float32)).to(cuda_device)
+    before = conv_stem_cuda.side_launches
+    got = rcf.edge_logits(m, img)
+    assert conv_stem_cuda.side_launches == before + 1
+    ref = rcf.edge_logits(m, img, use_pallas_stem=False)
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() / (ref.abs() + 1.0)).max() < 0.08
+    with pytest.raises(ValueError):
+        rcf.edge_logits(m, img, torch.float32)
+    with pytest.raises(ValueError):
+        rcf.edge_logits(m, img[:, :41])
+    assert conv_stem_cuda.side_launches == before + 1
+
+
+def _tie_map(seed, H=240, W=376):
+    rng = np.random.default_rng(seed)
+    e = np.zeros((H, W), np.float32)
+    e[rng.uniform(size=(H, W)) < 0.05] = 1.0
+    e[60, 20:300] = 1.0
+    e[20:200, 120] = 1.0
+    return e
+
+
+def test_line_detector_on_the_card_matches_the_cpu(cuda_device):  # noqa: F811
+    """The Hough detector on the card against the same code on the CPU, on
+    the pair batched as the main path batches it: the same number of
+    segments, each within one projection bin (sums in another order can
+    move a refined line's inlier one bin)."""
+    from rspl_slam_tpu_torch.ops import lines
+
+    e = np.stack([_tie_map(0), _tie_map(1)])
+    kw = dict(max_segments=128, min_length=10.0, inlier_dist=1.414213562)
+    ref = lines.detect_line_segments(torch.from_numpy(e), **kw)
+    got = lines.detect_line_segments(torch.from_numpy(e).to(cuda_device), **kw)
+    tol = 2 * np.hypot(240, 376) / 256 + 1e-3
+    for b in range(2):
+        a = got[0][b][got[1][b]].cpu().numpy()
+        r = ref[0][b][ref[1][b]].numpy()
+        assert len(a) == len(r) > 10
+        for x, y in ((a, r), (r, a)):
+            d = np.minimum(np.abs(x[:, None] - y[None]).max(-1),
+                           np.abs(x[:, None] - y[None][..., [2, 3, 0, 1]]).max(-1)).min(1)
+            assert d.max() <= tol
+
+
+def test_slam_slice_with_lines_runs_on_the_card(cuda_device):  # noqa: F811
+    """The slice with lines on the card at 320×240 (2 GNN layers): K1's
+    side mode launches once per frame, every frame carries lines, and the
+    map gains maplines."""
+    import dataclasses
+
+    from rspl_slam_tpu_torch.frontend.frontends import NeuralFrontend
+    from rspl_slam_tpu_torch.models import rcf
+    from rspl_slam_tpu_torch.slam import SLAMSystem
+
+    cfg = small_system_cfg()
+    cfg = dataclasses.replace(cfg, use_lines=True, keyframe=dataclasses.replace(
+        cfg.keyframe, max_num_match=400))
+    frames, _ = rendered_sequence(cfg, 4, num_lines=12)
+    sp, sg = matcher_weights(cfg)
+    slam = SLAMSystem(cfg, NeuralFrontend(cfg, sp_params=sp, sg_params=sg,
+                                          rcf_params=rcf.edge_detector_params(),
+                                          device=cuda_device), enable_ba=False)
+    before = conv_stem_cuda.side_launches
+    for i, f in enumerate(frames):
+        slam.add_frame(i, 0.05 * i, *f)
+        assert slam._last_feats.line_valid.sum() > 10
+    assert conv_stem_cuda.side_launches - before == len(frames)
+    assert slam.initialized and slam.map.n_ln > 0
+    assert slam.map.ln_has_endpoints[: slam.map.n_ln].any()

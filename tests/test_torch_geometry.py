@@ -16,6 +16,7 @@ from rspl_slam_tpu.backend import pnp as jpnp
 from rspl_slam_tpu.backend import pose_solver as jps
 from rspl_slam_tpu.backend.residuals import CameraIntrinsics as JK
 from rspl_slam_tpu.geometry import linalg as jlin
+from rspl_slam_tpu.geometry import plucker as jplk
 from rspl_slam_tpu.geometry import se3 as jse3
 from rspl_slam_tpu.geometry import triangulation as jtri
 from rspl_slam_tpu_torch import camera as tcam
@@ -24,6 +25,7 @@ from rspl_slam_tpu_torch.backend import pnp as tpnp
 from rspl_slam_tpu_torch.backend import pose_solver as tps
 from rspl_slam_tpu_torch.backend.residuals import CameraIntrinsics as TK
 from rspl_slam_tpu_torch.geometry import linalg as tlin
+from rspl_slam_tpu_torch.geometry import plucker as tplk
 from rspl_slam_tpu_torch.geometry import se3 as tse3
 from rspl_slam_tpu_torch.geometry import triangulation as ttri
 
@@ -188,3 +190,70 @@ def test_pnp_ransac_outcome_matches_jax():
         assert np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)) < 0.01
     agree = (rt.inlier.numpy() == np.asarray(rj.inlier)).mean()
     assert agree >= 0.95, agree
+
+
+def _lines(rng, n):
+    p = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    q = (p + rng.normal(0, 1.5, (n, 3))).astype(np.float32)
+    return p, q
+
+
+@pytest.mark.parametrize("name", ["from_endpoints", "normalize", "transform",
+                                  "project_to_image", "point_line_dist_2d",
+                                  "orthonormal_from_plucker", "plucker_from_orthonormal",
+                                  "orthonormal_update"])
+def test_plucker_matches_jax(name):
+    """Every Plücker function on the same batched inputs, to 1e-5 of the
+    values' scale (f32 closed forms in another order)."""
+    rng = np.random.default_rng(3)
+    p, q = _lines(rng, 32)
+    L = _j(jplk.from_endpoints, p, q)
+    U, W = (np.asarray(a) for a in jplk.orthonormal_from_plucker(jnp.asarray(L)))
+    args = {"from_endpoints": (p, q), "normalize": (L,),
+            "transform": (_random_poses(rng, 32), L),
+            "project_to_image": (L,),
+            "point_line_dist_2d": (rng.normal(0, 1, (32, 3)).astype(np.float32),
+                                   rng.uniform(0, 300, (32, 2)).astype(np.float32)),
+            "orthonormal_from_plucker": (L,), "plucker_from_orthonormal": (U, W),
+            "orthonormal_update": (L, rng.normal(0, 0.1, (32, 4)).astype(np.float32))}[name]
+    jf, tf = getattr(jplk, name), getattr(tplk, name)
+    if name == "project_to_image":
+        jf = lambda L: jplk.project_to_image(L, 400.0, 410.0, 320.0, 240.0)  # noqa: E731
+        tf = lambda L: tplk.project_to_image(L, 400.0, 410.0, 320.0, 240.0)  # noqa: E731
+    ref = jf(*[jnp.asarray(a) for a in args])
+    got = tf(*[torch.from_numpy(np.array(a)) for a in args])
+    ref, got = (ref, got) if isinstance(ref, tuple) else ((ref,), (got,))
+    for r, g in zip(ref, got):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g.numpy(), r, atol=ATOL * max(1.0, np.abs(r).max()))
+
+
+def test_fit_line3d_to_points_matches_jax():
+    """Batched port vs the vmapped JAX fit on noisy on-line points with
+    outliers, padding and degenerate sets: the same acceptance, the same
+    consensus, and endpoints / Plücker lines equal up to the eigenvector's
+    sign (p1 ↔ p2, L ↔ −L) within 1e-4 of the scene's scale."""
+    rng = np.random.default_rng(4)
+    B, P = 48, 32
+    p, q = _lines(rng, B)
+    t = rng.uniform(0, 1, (B, P, 1))
+    pts = p[:, None] + t * (q - p)[:, None] + rng.normal(0, 0.005, (B, P, 3))
+    out = rng.uniform(size=(B, P)) < 0.2
+    pts[out] += rng.normal(0, 0.5, (out.sum(), 3))
+    n = rng.integers(2, P + 1, B)
+    n[:3] = (0, 1, 2)  # too few points
+    mask = np.arange(P)[None] < n[:, None]
+    pts = np.where(mask[..., None], pts, 0.0).astype(np.float32)
+    pts[3, :] = pts[3, :1]  # all points coincide: no well-separated pair
+    Lj, Ej, okj = (np.asarray(a) for a in jax.jit(jax.vmap(jtri.fit_line3d_to_points))(
+        jnp.asarray(pts), jnp.asarray(mask)))
+    Lt, Et, okt = (a.numpy() for a in ttri.fit_line3d_to_points(
+        torch.from_numpy(pts), torch.from_numpy(mask)))
+    np.testing.assert_array_equal(okt, okj)
+    assert okj.sum() > 30 and not okj[:4].any()
+    tol = 1e-4 * np.abs(pts).max()
+    same = np.abs(Et - Ej).max((1, 2))
+    flip = np.abs(Et - Ej[:, ::-1]).max((1, 2))
+    assert (np.minimum(same, flip)[okj] < tol).all()
+    dl = np.minimum(np.abs(Lt - Lj).max(1), np.abs(Lt + Lj).max(1))
+    assert (dl[okj] < tol * np.abs(Lj).max()).all()

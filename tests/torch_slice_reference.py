@@ -2,12 +2,14 @@
 the CPU, on the scene and weights ``chip_smoke.py`` drives on the card,
 and print one JSON line with what they agree on.
 
-    JAX_PLATFORMS=cpu python tests/torch_slice_reference.py [--width 376 --height 240]
+    JAX_PLATFORMS=cpu python tests/torch_slice_reference.py [--width 376 --height 240] [--lines]
 
 Both run f32 at the given size (multiples of 8) with the EuRoC
 intrinsics scaled by width/752, K = 400, 18 GNN layers, 100 Sinkhorn
-iterations, lines and BA off, 30 frames. The JAX run's ATE, with margin, is the end-to-end ATE
-bound of ``chip_smoke.py``. The line also reports how far the random
+iterations, BA off, 30 frames; lines off, or with ``--lines`` on, on the
+scene of ``chip_smoke.py``'s lines phase (12 dark segments) with
+``models.rcf.edge_detector_params`` as RCF weights. The JAX run's ATE, with
+margin, is the matching end-to-end ATE bound of ``chip_smoke.py``. The line also reports how far the random
 SuperPoint's keypoints sit from the rendered blobs and how many temporal
 matches do not move between frames, which bounds what the ATE can show.
 """
@@ -32,6 +34,7 @@ def main() -> int:
     ap.add_argument("--width", type=int, default=376)
     ap.add_argument("--height", type=int, default=240)
     ap.add_argument("--frames", type=int, default=30)
+    ap.add_argument("--lines", action="store_true")
     args = ap.parse_args()
 
     import jax
@@ -43,15 +46,21 @@ def main() -> int:
     from rspl_slam_tpu.slam import SLAMSystem as JSLAM
     from rspl_slam_tpu_torch.evaluation import absolute_trajectory_error, synthetic
     from rspl_slam_tpu_torch.frontend.frontends import NeuralFrontend as TFE
+    from rspl_slam_tpu_torch.models import rcf
     from rspl_slam_tpu_torch.slam import INIT_POSE, SLAMSystem
 
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(4)
     cfg = small_system_cfg(width=args.width, height=args.height, layers=18)
-    frames, traj = rendered_sequence(cfg, args.frames)
+    num_lines = 12 if args.lines else 0
+    cfg = dataclasses.replace(cfg, use_lines=args.lines)
+    frames, traj = rendered_sequence(cfg, args.frames, num_lines=num_lines)
     sp, sg = matcher_weights(cfg)
-    tfe = TFE(cfg, sp_params=sp, sg_params=sg, compute_dtype=torch.float32, device="cpu")
-    jfe = JFE(to_jax_cfg(cfg), sp_params=sp, sg_params=sg, compute_dtype=jnp.float32)
+    rp = rcf.edge_detector_params() if args.lines else None
+    tfe = TFE(cfg, sp_params=sp, sg_params=sg, rcf_params=rp, compute_dtype=torch.float32,
+              device="cpu")
+    jfe = JFE(to_jax_cfg(cfg), sp_params=sp, sg_params=sg, rcf_params=rp,
+              compute_dtype=jnp.float32)
     runs = {"torch": SLAMSystem(cfg, tfe, enable_ba=False),
             "jax": JSLAM(to_jax_cfg(cfg), jfe, enable_ba=False)}
     ts = np.arange(args.frames) * 0.05
@@ -68,11 +77,17 @@ def main() -> int:
             "ate_rmse_m": float(absolute_trajectory_error(
                 ts, est[:, :3, 3], ts, gt[:, :3, 3])["rmse"]),
         }
+        if args.lines:
+            m = slam.map
+            out[name].update(
+                lines_per_keyframe=m.kf_line_valid[: m.n_kf].sum(1).tolist(),
+                maplines=int(m.n_ln),
+                maplines_with_endpoints=int(m.ln_has_endpoints[: m.n_ln].sum()))
     out["same_inliers_frames"] = int(sum(
         a == b for a, b in zip(out["torch"]["inliers"], out["jax"]["inliers"])))
 
     # where the random SuperPoint's keypoints sit, and how temporal matches move
-    scene = synthetic.make_scene(num_points=600, num_lines=0, seed=1,
+    scene = synthetic.make_scene(num_points=600, num_lines=num_lines, seed=1,
                                  extent=(6.0, 4.0, 6.0), on_line_frac=0.0)
     f0, f3 = tfe.extract_pair(*frames[0]), tfe.extract_pair(*frames[3])
     i0 = tfe.match(f3, f0)
