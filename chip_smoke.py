@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --profile  # every phase + a torch.profiler breakdown
-                                     # of the lines path
+                                     # of the lines path and launches per BA window
     python3 chip_smoke.py --kernels  # device, build, kernel phases, summary
 
 Phases (one JSON line each):
@@ -14,20 +14,30 @@ Phases (one JSON line each):
      event timings of the kernel, the plain version and, where one PyTorch
      call computes the same function, that call (a yardstick only); K1 also
      in its side-output mode, K2 in its bf16 (main path) and f32 modes;
-  3. end to end, two paths, each with the launch counters reset just
-     before and read just after: ``end_to_end_lines``, the default
-     ``SystemConfig()`` main path (752×480, K = 400, 18 GNN layers at bf16,
-     100 Sinkhorn iterations, RCF at ×0.5 through K1's side mode + the
-     Hough detector on both eyes, keyframe maplines; no BA) on a scene with
-     12 dark segments and the hand-set edge weights; then ``end_to_end``,
-     the point-only path (``use_lines=False``). Each checks
-     initialization, inliers, finite poses and ATE; the lines path also
-     lines per frame, maplines with endpoints and one K1 side-mode launch
-     per frame;
-  4. the {"kernels": [...]} summary (launches from the lines path, the
-     default main path; each path's counts in ``launches_by_path``); last
-     line {"ok": true, "device": ...}. With --kernels, phase 3 is skipped
-     and the summary's launch counts are null.
+  3. ``local_ba_check``: local BA (``backend/local_ba.optimize_local_map``,
+     no kernel of its own) on the card against the same function on CPU
+     tensors, on the captured divergence window and on a synthetic window
+     at the default capacities, the card's run under
+     ``torch.cuda.set_sync_debug_mode("error")``; CUDA-event and host-issue
+     ms per window;
+  4. end to end, three paths, each with the launch counters reset just
+     before and read just after: ``end_to_end_ba``, the true default
+     ``SLAMSystem(SystemConfig(), fe)`` (752×480, K = 400, 18 GNN layers at
+     bf16, 100 Sinkhorn iterations, RCF at ×0.5 through K1's side mode +
+     the Hough detector on both eyes, keyframe maplines, async local BA
+     with point and line terms after every keyframe) on a scene with 12
+     dark segments and the hand-set edge weights; ``end_to_end_lines``, the
+     same with ``enable_ba=False``; then ``end_to_end``, the point-only
+     path (``use_lines=False``, BA off). Each checks initialization,
+     inliers, finite poses and ATE; the lines paths also lines per frame,
+     maplines with endpoints and one K1 side-mode launch per frame; the BA
+     path also solved windows, line constraints in BA, and a finite map
+     after the last ``flush_ba()``;
+  5. the {"kernels": [...]} summary (launches from the BA path, the
+     default main path; each path's counts in ``launches_by_path``, each
+     path's ATE in ``ate_by_path``); last line {"ok": true, "device": ...}.
+     With --kernels, phases 3-4 are skipped and the summary's launch
+     counts are null.
 
 Any failure raises and exits non-zero. The script imports nothing of JAX
 or of the JAX package.
@@ -56,7 +66,7 @@ PEAK_SFU = 132 * 16 * 1.98e9
 
 # end-to-end gates (see PERF.md for where the ATE bound comes from: the JAX
 # package's ATE on each path's scene at 376×240 on the CPU, with margin:
-# points 0.2229 m, lines scene 0.2123 m)
+# points 0.2229 m, lines scene 0.2123 m, lines scene with BA 0.2123 m)
 E2E_FRAMES = 30
 E2E_MIN_INLIERS = 20
 E2E_ATE_BOUND = 0.35
@@ -399,9 +409,98 @@ def _reset_counters():
     sinkhorn_cuda.launches = 0
 
 
-def phase_end_to_end(lines: bool):
+def phase_local_ba_check(profile: bool):
+    """Local BA on the card against the same function on CPU tensors: the
+    captured f32 divergence window (tests/fixtures/ba_divergence_case.npz)
+    and a synthetic window at the default capacities (F = 10, P = 1536,
+    L = 128, Cp = 6144, Cl = 512; 4 views per landmark, mono and stereo
+    mixed, 0.3 px noise, 5% outliers; numpy seed 0). The card's solve runs
+    under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+    CUDA-event ms and host-issue ms per window; with ``profile``, the
+    kernel launches of one window."""
+    import torch
+
+    from rspl_slam_tpu_torch.backend import local_ba
+    from rspl_slam_tpu_torch.backend.residuals import CameraIntrinsics
+    from rspl_slam_tpu_torch.config import CameraConfig
+    from rspl_slam_tpu_torch.evaluation import synthetic
+
+    cam = CameraConfig()
+    K = CameraIntrinsics(cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+    fixture = dict(np.load(os.path.join(ROOT, "tests", "fixtures", "ba_divergence_case.npz")))
+    synth, gt = synthetic.make_ba_window(cam, seed=0)
+    out = []
+    for name, prob_np in (("fixture", fixture), ("synthetic", synth)):
+        prob = local_ba.BAProblem(**prob_np)
+        t0 = time.perf_counter()
+        cpu = local_ba.fetch_result(local_ba.optimize_local_map(
+            K, local_ba.upload_problem(prob, "cpu")))
+        cpu_s = time.perf_counter() - t0
+        dev = local_ba.upload_problem(prob, "cuda")
+        local_ba.optimize_local_map(K, dev)  # first call: library handles, not timed
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = local_ba.optimize_local_map(K, local_ba.upload_problem(prob, "cuda"))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        gpu = local_ba.fetch_result(res)
+
+        def solve():
+            return local_ba.optimize_local_map(K, dev)
+
+        rows = len(gpu.p_inlier) + len(gpu.l_inlier)
+        flips = int((gpu.p_inlier != cpu.p_inlier).sum() + (gpu.l_inlier != cpu.l_inlier).sum())
+        cost_rel = abs(float(gpu.cost) - float(cpu.cost)) / float(cpu.cost)
+        line = {"phase": "local_ba_check", "window": name,
+                "shape": {"F": len(gpu.Tcw), "P": len(gpu.points), "L": len(gpu.lines),
+                          "Cp": len(gpu.p_inlier), "Cl": len(gpu.l_inlier)},
+                "valid_rows": [int(prob_np["p_valid"].sum()), int(prob_np["l_valid"].sum())],
+                "cost": [float(gpu.cost), float(cpu.cost)], "cost_rel_err": cost_rel,
+                "inliers": [int(gpu.p_inlier.sum()), int(cpu.p_inlier.sum())],
+                "line_inliers": [int(gpu.l_inlier.sum()), int(cpu.l_inlier.sum())],
+                "inlier_flips": flips,
+                "pose_max_diff_m": float(np.abs(gpu.Tcw - cpu.Tcw)[:, :3, 3].max()),
+                "tolerance": "finite; cost rel <= 0.25 (5 restarted quadratic LM "
+                             "iterations accept steps by f32 sums); inlier flags differ "
+                             "on <= max(2, 1%) of rows; poses <= 3e-2 m apart",
+                "sync_free": True, "ms": time_ms(solve, n=5, warmup=1),
+                "host_ms": host_ms(solve, n=5), "cpu_s": cpu_s}
+        if name == "fixture":
+            line["jax_assertions"] = "cost < 2000, inliers > 600"
+        else:
+            line["gt_pose_max_err_m"] = float(np.abs(gpu.Tcw - gt["Tcw"])[:, :3, 3].max())
+            line["gt_point_median_err_m"] = float(np.median(
+                np.linalg.norm(gpu.points - gt["points"], axis=-1)))
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as torch_profile
+
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                solve()
+                torch.cuda.synchronize()
+            ka = prof.key_averages()
+            line["launches_per_window"] = sum(
+                e.count for e in ka if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+            line["device_ms_profiler"] = sum(e.self_device_time_total for e in ka) / 1e3
+        emit(line)
+        ok = (np.isfinite(gpu.Tcw).all() and np.isfinite(gpu.points).all()
+              and np.isfinite(gpu.lines).all() and np.isfinite(float(gpu.cost))
+              and cost_rel <= 0.25 and flips <= max(2, 0.01 * rows)
+              and line["pose_max_diff_m"] < 3e-2)
+        if name == "fixture":
+            ok = ok and float(gpu.cost) < 2000.0 and int(gpu.p_inlier.sum()) > 600
+        else:
+            ok = ok and line["gt_pose_max_err_m"] < 0.01
+        if not ok:
+            raise AssertionError(f"local_ba_check ({name}) failed: {line}")
+        out.append(line)
+    return out
+
+
+def phase_end_to_end(lines: bool, ba: bool = False):
     """The port's SLAMSystem + NeuralFrontend on rendered EuRoC-size frames:
-    the default main path (lines on) or the point-only path."""
+    the true default (lines on, async local BA: ``SLAMSystem(cfg, fe)``),
+    the same with BA off, or the point-only path with BA off."""
     import torch
 
     from rspl_slam_tpu_torch.config import SystemConfig
@@ -424,13 +523,18 @@ def phase_end_to_end(lines: bool):
     sg = superglue.descriptor_matcher_params(cfg.superglue, 0, 2000.0, 1980.0)
     rp = rcf.edge_detector_params() if lines else None
     fe = NeuralFrontend(cfg, sp_params=sp, sg_params=sg, rcf_params=rp)  # the card, bf16
-    warm = SLAMSystem(cfg, fe, enable_ba=False)  # first-call set-up, not timed
+
+    def system():
+        return SLAMSystem(cfg, fe) if ba else SLAMSystem(cfg, fe, enable_ba=False)
+
+    warm = system()  # first-call set-up, not timed
     for i in range(2):
         warm.add_frame(i, 0.05 * i, *frames[i])
+    warm.flush_ba()
     torch.cuda.synchronize()
     fe.timings.clear()
 
-    slam = SLAMSystem(cfg, fe, enable_ba=False)
+    slam = system()
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
     t0 = time.perf_counter()
@@ -442,6 +546,7 @@ def phase_end_to_end(lines: bool):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counters()
+    slam.flush_ba()  # the last window (after the timed frames)
 
     est = np.stack([r.Twc for r in recs])
     ts = np.arange(E2E_FRAMES) * 0.05
@@ -452,13 +557,14 @@ def phase_end_to_end(lines: bool):
     bound = E2E_ATE_BOUND
     timings = {**slam.timings, **fe.timings}
     med = {k: float(np.median(v)) * 1e3 for k, v in timings.items()}
-    name = "end_to_end_lines" if lines else "end_to_end"
+    name = "end_to_end_ba" if ba else "end_to_end_lines" if lines else "end_to_end"
+    m = slam.map
     line = {"phase": name, "frames": E2E_FRAMES, "image": [cam.image_width,
             cam.image_height], "max_keypoints": cfg.superpoint.max_keypoints,
             "gnn_layers": cfg.superglue.num_gnn_layers,
             "sinkhorn_iters": cfg.superglue.sinkhorn_iterations,
-            "use_lines": lines,
-            "initialized": slam.initialized, "keyframes": int(slam.map.n_kf),
+            "use_lines": lines, "enable_ba": ba,
+            "initialized": slam.initialized, "keyframes": int(m.n_kf),
             "inliers": inliers, "frames_over_min_inliers": tracked,
             "ate_rmse_m": float(ate), "ate_bound_m": bound,
             "frames_per_s": E2E_FRAMES / wall, "wall_s": wall,
@@ -466,15 +572,26 @@ def phase_end_to_end(lines: bool):
             "max_memory_allocated_MB": torch.cuda.max_memory_allocated() / 2**20,
             "launches": launches}
     if lines:
-        m = slam.map
         line.update({
             "stage_note": "rcf_hough: device ms of RCF + Hough (CUDA events); "
                           "lines_host: merge + assign + stereo match, host ms; "
-                          "both inside extract",
+                          "both inside extract"
+                          + ("; local_ba: host ms to gather, upload and issue a window "
+                             "(async); ba_device: CUDA-event ms of its solve on the side "
+                             "stream; ba_apply: host ms of the flush" if ba else ""),
             "lines_per_frame": lines_per_frame,
             "lines_per_frame_median": float(np.median(lines_per_frame)),
             "maplines": int(m.n_ln),
             "maplines_with_endpoints": int(m.ln_has_endpoints[: m.n_ln].sum())})
+    if ba:
+        kf_t, kf_pose = m.keyframe_trajectory()
+        line.update({
+            "ba_windows": len(slam.ba_windows),
+            "ba_windows_with_lines": sum(w["ncl"] > 0 for w in slam.ba_windows),
+            "ba_point_constraints": [w["ncp"] for w in slam.ba_windows],
+            "ba_line_constraints": [w["ncl"] for w in slam.ba_windows],
+            "keyframe_ate_rmse_m": float(absolute_trajectory_error(
+                kf_t, kf_pose[:, :3, 3], ts, gt[:, :3, 3])["rmse"]) if len(kf_t) > 2 else None})
     emit(line)
     if not slam.initialized:
         raise AssertionError(f"{name}: the map did not initialize")
@@ -497,6 +614,17 @@ def phase_end_to_end(lines: bool):
                                  f"{launches['conv_stem_side']} times in {E2E_FRAMES} frames")
     elif launches["conv_stem_side"]:
         raise AssertionError(f"{name}: K1 side mode launched without lines")
+    if ba:
+        if line["ba_windows"] < 1:
+            raise AssertionError(f"{name}: no BA window was solved")
+        if line["ba_windows_with_lines"] < 1:
+            raise AssertionError(f"{name}: no BA window had line constraints")
+        if slam._pending_ba is not None:
+            raise AssertionError(f"{name}: a BA window is still in flight after flush_ba")
+        good = m.pt_status[: m.n_pt] == 2
+        if not (np.isfinite(m.kf_pose[: m.n_kf]).all()
+                and np.isfinite(m.pt_pos[: m.n_pt][good]).all()):
+            raise AssertionError(f"{name}: non-finite keyframe pose or mappoint after BA")
     return line, launches, (cfg, fe, frames)
 
 
@@ -585,11 +713,11 @@ KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "tflops", "bound_fraction")
 
 
-def phase_summary(lines, by_path):
+def phase_summary(lines, by_path, ate_by_path):
     """``by_path`` maps each end-to-end path to its launch counts, the
-    default main path (``end_to_end_lines``) first; empty with --kernels
-    (no path ran: launch counts null)."""
-    launches = by_path.get("end_to_end_lines")
+    default main path (``end_to_end_ba``) first; empty with --kernels
+    (no path ran: launch counts null). ``ate_by_path``: each path's ATE."""
+    launches = by_path.get("end_to_end_ba")
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -607,7 +735,7 @@ def phase_summary(lines, by_path):
         if lines[name].get("checks"):
             k["checks"] = lines[name]["checks"]
         kernels.append(k)
-    emit({"kernels": kernels})
+    emit({"kernels": kernels, "ate_by_path": ate_by_path})
 
 
 def main(argv) -> int:
@@ -626,16 +754,20 @@ def main(argv) -> int:
     lines["superglue_layer"] = check_superglue_layer(bf16=True)
     lines["superglue_layer_f32"] = check_superglue_layer(bf16=False)
     lines["sinkhorn"] = check_sinkhorn()
-    by_path = {}
+    by_path, ate_by_path = {}, {}
     if "--kernels" not in argv:
-        _, by_path["end_to_end_lines"], run = phase_end_to_end(lines=True)
-        if "--profile" in argv:
-            phase_profile(*run)
-        del run  # the lines path's frontend: the point path's peak memory is its own
-        gc.collect()
-        torch.cuda.empty_cache()
-        _, by_path["end_to_end"], _ = phase_end_to_end(lines=False)
-    phase_summary(lines, by_path)
+        phase_local_ba_check("--profile" in argv)
+        for name, kw in (("end_to_end_ba", dict(lines=True, ba=True)),
+                         ("end_to_end_lines", dict(lines=True)),
+                         ("end_to_end", dict(lines=False))):
+            line, by_path[name], run = phase_end_to_end(**kw)
+            ate_by_path[name] = line["ate_rmse_m"]
+            if name == "end_to_end_lines" and "--profile" in argv:
+                phase_profile(*run)
+            del run  # each path's frontend: the next path's peak memory is its own
+            gc.collect()
+            torch.cuda.empty_cache()
+    phase_summary(lines, by_path, ate_by_path)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

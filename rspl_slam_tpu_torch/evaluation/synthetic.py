@@ -24,7 +24,7 @@ import numpy as np
 from rspl_slam_tpu_torch.config import CameraConfig
 
 __all__ = ["SyntheticScene", "make_scene", "make_trajectory", "observe_points",
-           "render_images"]
+           "render_images", "make_ba_window"]
 
 
 @dataclass
@@ -208,3 +208,83 @@ def render_images(
         img = img + rng.standard_normal((H, W)).astype(np.float32) * noise
         out.append(np.clip(img, 0.0, 1.0))
     return out[0], out[1]
+
+
+def make_ba_window(cam: CameraConfig, frames: int = 10, points: int = 1536,
+                   lines: int = 128, views: int = 4, noise_px: float = 0.3,
+                   outlier_frac: float = 0.05, seed: int = 0):
+    """A full local-BA window with ground truth, as numpy arrays in the
+    fields of ``backend.local_ba.BAProblem``: ``frames`` cameras in steps
+    of (0.2, 0.1, 0.15) m (the first fixed), ``points`` points and
+    ``lines`` 3D segments 3-9 m ahead, each seen from ``views`` distinct
+    frames with mono and stereo rows mixed, ``noise_px`` pixel noise and
+    ``outlier_frac`` of the observations displaced (points by 40-90 px,
+    left line endpoints by 20-40 px). The
+    initial state is the truth perturbed (poses ~1 cm and 0.01 rad,
+    points 5 cm, line endpoints 2 cm). Capacities equal the counts
+    (Cp = views · points, Cl = views · lines): every row is valid.
+
+    Returns (problem dict, {"Tcw", "points", "lines"} ground truth)."""
+    rng = np.random.default_rng(seed)
+    Twc = np.tile(np.eye(4), (frames, 1, 1))
+    Twc[:, :3, 3] = np.arange(frames)[:, None] * np.array([0.2, 0.1, 0.15])
+    Tcw_gt = np.linalg.inv(Twc)
+
+    def project(f, X):  # (n,) frames, (n, 3) world → (n, 3) [u, v, uR]
+        Xc = np.einsum("nij,nj->ni", Tcw_gt[f, :3, :3], X) + Tcw_gt[f, :3, 3]
+        u = cam.fx * Xc[:, 0] / Xc[:, 2] + cam.cx
+        v = cam.fy * Xc[:, 1] / Xc[:, 2] + cam.cy
+        return np.stack([u, v, u - cam.bf / Xc[:, 2]], -1)
+
+    def observers(n):  # each landmark's `views` distinct frames, ascending
+        return np.sort(np.argsort(rng.uniform(size=(n, frames)), 1)[:, :views], 1).ravel()
+
+    pts_gt = rng.uniform([-3, -2, 3], [3, 2, 9], (points, 3))
+    p_point = np.repeat(np.arange(points), views)
+    p_pose = observers(points)
+    p_meas = project(p_pose, pts_gt[p_point]) + rng.normal(0, noise_px, (len(p_pose), 3))
+    bad = rng.uniform(size=len(p_pose)) < outlier_frac
+    p_meas[bad, :2] += rng.uniform(40, 90, (bad.sum(), 2)) * np.sign(
+        rng.standard_normal((bad.sum(), 2)))
+    p_stereo = rng.uniform(size=len(p_pose)) < 0.5
+
+    a = rng.uniform([-2, -1.5, 4], [2, 1.5, 8], (lines, 3))
+    d = rng.standard_normal((lines, 3))
+    b = a + d / np.linalg.norm(d, axis=1, keepdims=True) * rng.uniform(1, 2, (lines, 1))
+    l_line = np.repeat(np.arange(lines), views)
+    l_pose = observers(lines)
+    ends = [project(l_pose, e[l_line]) for e in (a, b)]
+    ends = [e + rng.normal(0, noise_px, e.shape) for e in ends]
+    l_eps = np.stack([e[:, :2] for e in ends], 1)
+    l_eps_r = np.stack([e[:, [2, 1]] for e in ends], 1)
+    bad = rng.uniform(size=len(l_pose)) < outlier_frac
+    l_eps[bad] += rng.uniform(20, 40, (bad.sum(), 1, 2))
+    l_stereo = rng.uniform(size=len(l_pose)) < 0.5
+
+    def plucker(p, q):
+        return np.concatenate([np.cross(p, q), q - p], -1)
+
+    Tcw0 = Tcw_gt.copy()
+    for f in range(1, frames):
+        Tcw0[f] = _exp_se3(rng.normal(0, 0.01, 6)) @ Tcw_gt[f]
+    problem = dict(
+        Tcw=Tcw0, pose_fixed=np.arange(frames) == 0,
+        points=pts_gt + rng.normal(0, 0.05, pts_gt.shape),
+        lines=plucker(a + rng.normal(0, 0.02, a.shape), b + rng.normal(0, 0.02, b.shape)),
+        p_pose=p_pose.astype(np.int32), p_point=p_point.astype(np.int32), p_meas=p_meas,
+        p_stereo=p_stereo, p_valid=np.ones(len(p_pose), bool),
+        l_pose=l_pose.astype(np.int32), l_line=l_line.astype(np.int32), l_eps=l_eps,
+        l_eps_r=l_eps_r, l_stereo=l_stereo, l_valid=np.ones(len(l_pose), bool))
+    return problem, {"Tcw": Tcw_gt, "points": pts_gt, "lines": plucker(a, b)}
+
+
+def _exp_se3(xi: np.ndarray) -> np.ndarray:
+    """SE(3) exponential of [ω, v] (numpy f64, ‖ω‖ > 0)."""
+    w, v = xi[:3], xi[3:]
+    th = np.linalg.norm(w)
+    W = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    A, B, C = np.sin(th) / th, (1 - np.cos(th)) / th**2, (th - np.sin(th)) / th**3
+    T = np.eye(4)
+    T[:3, :3] = np.eye(3) + A * W + B * W @ W
+    T[:3, 3] = (np.eye(3) + B * W + C * W @ W) @ v
+    return T

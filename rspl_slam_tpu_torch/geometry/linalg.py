@@ -1,10 +1,12 @@
 """Closed-form small-matrix linear algebra (port of geometry/linalg.py).
 
-``inv3``/``solve3`` are the adjugate forms and ``eigvalsh3`` the Cardano
-solution, as in the JAX package. ``solve_spd`` uses ``cholesky_ex`` +
-``cholesky_solve``: the ``_ex`` form reports failure in a tensor instead of
-raising, so a solve inside the tracking loop never synchronizes the host
-with the device.
+``inv3``/``solve3`` are the adjugate forms, ``inv4_spd`` the 2×2 block
+inverse and ``eigvalsh3`` the Cardano solution, as in the JAX package.
+``solve_spd`` uses ``cholesky_ex`` + ``cholesky_solve``: the ``_ex`` form
+reports failure in a tensor instead of raising, so a solve inside the
+tracking or BA loop never synchronizes the host with the device. Where the
+factorization fails the solution is NaN, as the JAX package's NaN-filled
+Cholesky factor makes it: the solvers' accept tests reject such a step.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import math
 
 import torch
 
-__all__ = ["inv3", "solve3", "solve_spd", "eigvalsh3"]
+__all__ = ["inv3", "inv4_spd", "solve3", "solve_spd", "eigvalsh3"]
 
 
 def inv3(A: torch.Tensor) -> torch.Tensor:
@@ -44,6 +46,28 @@ def solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (inv3(A) @ b[..., None])[..., 0]
 
 
+def _inv2(M: torch.Tensor) -> torch.Tensor:
+    a, b = M[..., 0, 0], M[..., 0, 1]
+    c, d = M[..., 1, 0], M[..., 1, 1]
+    det = a * d - b * c
+    adj = torch.stack([torch.stack([d, -b], -1), torch.stack([-c, a], -1)], -2)
+    return adj / det[..., None, None]
+
+
+def inv4_spd(A: torch.Tensor) -> torch.Tensor:
+    """Batched inverse of symmetric positive-definite (..., 4, 4) matrices
+    by 2×2 block inversion (Schur complement) with closed-form 2×2s. Not
+    valid for indefinite matrices."""
+    P, Q = A[..., :2, :2], A[..., :2, 2:]
+    R, S = A[..., 2:, :2], A[..., 2:, 2:]
+    Pi = _inv2(P)
+    Mi = _inv2(S - R @ Pi @ Q)
+    PiQ = Pi @ Q
+    top = torch.cat([Pi + PiQ @ Mi @ R @ Pi, -PiQ @ Mi], -1)
+    bot = torch.cat([-Mi @ R @ Pi, Mi], -1)
+    return torch.cat([top, bot], -2)
+
+
 def eigvalsh3(A: torch.Tensor) -> torch.Tensor:
     """Ascending eigenvalues of symmetric (..., 3, 3) matrices (Cardano)."""
     a00, a11, a22 = A[..., 0, 0], A[..., 1, 1], A[..., 2, 2]
@@ -68,8 +92,10 @@ def eigvalsh3(A: torch.Tensor) -> torch.Tensor:
 
 
 def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b for SPD A (batched); ``b`` is (..., N) or (..., N, K)."""
-    L, _ = torch.linalg.cholesky_ex(A)
+    """Solve A x = b for SPD A (batched); ``b`` is (..., N) or (..., N, K).
+    A system whose Cholesky factorization fails gets an all-NaN solution."""
+    L, info = torch.linalg.cholesky_ex(A)
     vec = b.dim() == A.dim() - 1
     x = torch.cholesky_solve(b[..., None] if vec else b, L)
+    x = torch.where((info > 0)[..., None, None], torch.nan, x)
     return x[..., 0] if vec else x

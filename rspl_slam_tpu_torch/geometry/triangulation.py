@@ -1,9 +1,6 @@
-"""Multi-view point triangulation and the robust 3D line fit (port of
-geometry/triangulation.py ``triangulate_point_multiview`` and
-``fit_line3d_to_points``), batched over landmarks.
-
-``triangulate_line_endpoints`` serves local BA only and comes with it
-(ROADMAP).
+"""Multi-view point triangulation, the robust 3D line fit and the
+endpoint refresh of an optimized line (port of geometry/triangulation.py),
+batched over landmarks.
 """
 
 from __future__ import annotations
@@ -14,7 +11,8 @@ import torch
 from rspl_slam_tpu_torch.geometry import plucker
 from rspl_slam_tpu_torch.geometry.linalg import eigvalsh3, solve3
 
-__all__ = ["triangulate_point_multiview", "fit_line3d_to_points", "COS_MIN_PARALLAX"]
+__all__ = ["triangulate_point_multiview", "fit_line3d_to_points",
+           "triangulate_line_endpoints", "COS_MIN_PARALLAX"]
 
 # minimum accepted parallax between some pair of observing rays: 0.5°
 COS_MIN_PARALLAX = float(np.cos(np.deg2rad(0.5)))
@@ -95,3 +93,21 @@ def fit_line3d_to_points(pts: torch.Tensor, mask: torch.Tensor,
     p2 = c + tmax[..., None] * dirn
     ok = (consensus.sum(-1) >= min_inliers) & (tmax - tmin > 1e-3)
     return plucker.from_endpoints(p1, p2), torch.stack([p1, p2], -2), ok
+
+
+def triangulate_line_endpoints(L_world: torch.Tensor, anchor_pts: torch.Tensor,
+                               mask: torch.Tensor):
+    """Cartesian endpoints of (optimized) infinite Plücker lines (..., 6):
+    the extreme projections onto each line of its supporting mappoints
+    (..., P, 3) under ``mask`` (..., P). Returns (endpoints (..., 2, 3),
+    ok (...,): at least two supporting points)."""
+    n, d = L_world[..., :3], L_world[..., 3:]
+    dn = d / torch.linalg.norm(d, dim=-1, keepdim=True).clamp_min(1e-12)
+    # closest point of the line to the origin: p0 = d × n / ‖d‖²
+    p0 = torch.linalg.cross(d, n) / (d * d).sum(-1, keepdim=True).clamp_min(1e-12)
+    proj = ((anchor_pts - p0[..., None, :]) * dn[..., None, :]).sum(-1)
+    big = torch.full_like(proj, 1e9)
+    tmin = torch.where(mask, proj, big).amin(-1)
+    tmax = torch.where(mask, proj, -big).amax(-1)
+    eps = torch.stack([p0 + tmin[..., None] * dn, p0 + tmax[..., None] * dn], -2)
+    return eps, mask.sum(-1) >= 2

@@ -1,4 +1,4 @@
-"""Top-level SLAM system (port of slam.py: the main path without BA).
+"""Top-level SLAM system (port of slam.py: the main path).
 
 Per-frame flow, as in the JAX package: eager stereo extraction (points and,
 with lines on, RCF + Hough segments) → (first frame) map initialization →
@@ -6,12 +6,21 @@ fused tracking against the reference keyframe (temporal SuperGlue + map
 association + PnP-RANSAC + pose-only LM on the device) with the
 promote-last-frame fallback → keyframe policy → keyframe insertion on the
 host map store with batched multi-view point triangulation, temporal line
-matching, mapline bookkeeping and batched 3D line fits on the device. Host
+matching, mapline bookkeeping and batched 3D line fits on the device →
+local BA of the keyframe's covisibility window (points and lines). Host
 bookkeeping stays numpy f64 where the JAX package has it.
 
+Local BA runs after every keyframe insertion once the map holds two
+keyframes. With ``async_ba`` (the default) the window's solve is issued on
+a side CUDA stream, its packed result copied into pinned host memory
+behind an event, and applied at the next :meth:`SLAMSystem.flush_ba` (the
+next keyframe insertion, or a trajectory save): tracking goes on against
+the map as it was, as the JAX package's async mode does. On CPU tensors
+the solve runs at dispatch and is applied at the flush, so the map passes
+through the same states. ``async_ba=False`` solves and applies at once.
+
 Not ported yet, and raising ``NotImplementedError`` rather than degrading:
-local BA, loop closure and relocalization, and the lazy-right schedule
-(ROADMAP.md).
+loop closure and relocalization, and the lazy-right schedule (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from rspl_slam_tpu_torch.backend import map_store, pnp, pose_solver
+from rspl_slam_tpu_torch.backend import local_ba, map_store, pnp, pose_solver
 from rspl_slam_tpu_torch.backend.residuals import CameraIntrinsics
 from rspl_slam_tpu_torch.config import SystemConfig
 from rspl_slam_tpu_torch.datasets import write_tum_trajectory
@@ -70,8 +79,6 @@ class SLAMSystem:
                  enable_relocalization: bool | None = None,
                  reloc_after: int = 3, global_ba_on_loop: bool = False,
                  fused_tracking: bool | None = None):
-        if enable_ba:
-            _unported("enable_ba=True (local bundle adjustment)", "remaining slice 2")
         if enable_loop_closure or enable_relocalization or global_ba_on_loop:
             _unported("loop closure / relocalization", "remaining slice 5")
         if cfg.pipeline.lazy_right_extraction or getattr(frontend, "lazy_right", False):
@@ -85,7 +92,10 @@ class SLAMSystem:
         self.cfg = cfg
         self.frontend = frontend
         self.device = frontend.device
-        self.enable_ba = False
+        self.enable_ba = enable_ba
+        self._pending_ba = None  # in-flight async local BA
+        self._ba_stream = None  # the side stream of async BA on a card
+        self.ba_windows: list[dict] = []  # per solved window: frames, constraints
         self.enable_lines = cfg.use_lines if enable_lines is None else enable_lines
         self._fused = None
         cam = cfg.camera
@@ -136,7 +146,25 @@ class SLAMSystem:
         write_tum_trajectory(path, times, poses)
 
     def flush_ba(self):
-        """No-op: local BA is not part of this slice."""
+        """Apply an in-flight async BA result, if any: wait for its event,
+        unpack the one packed copy, scatter it into the map and refresh the
+        window's line endpoints. Called before the next window gather and
+        before trajectory saves; a no-op otherwise. Tracking's anchor pose
+        is deliberately left alone: tracking has moved past the solved
+        window's centre."""
+        if self._pending_ba is None:
+            return
+        result, start, done, mapping = self._pending_ba
+        self._pending_ba = None
+        t0 = time.perf_counter()
+        if done is not None:
+            done.synchronize()
+            self.timings.setdefault("ba_device", []).append(start.elapsed_time(done) / 1e3)
+            host, dims = result
+            result = local_ba.unpack_result(host.numpy(), dims)
+        self.map.scatter_ba_result(result, mapping)
+        self._refresh_line_endpoints(mapping["lns"])
+        self._t("ba_apply", t0)
 
     # ----------------------------------------------------------------- init
     def _init_map(self, index: int, t: float, feats: FrameFeatures) -> FrameRecord:
@@ -341,6 +369,15 @@ class SLAMSystem:
             feats.line_tracks = self.map.kf_line_track[kf].copy()
         self.map.update_covisibility(kf)
         self._t("kf_insert", t0)
+        if self.enable_ba and self.map.n_kf >= 2:
+            t0 = time.perf_counter()
+            # (any in-flight solve was settled at the top of this method,
+            # before the map mutated)
+            if self.cfg.pipeline.async_ba:
+                self._dispatch_local_ba(kf)
+            else:
+                self._run_local_ba(kf)
+            self._t("local_ba", t0)
         self._ref_kf = kf
         self._ref_feats = feats
         return kf
@@ -377,6 +414,103 @@ class SLAMSystem:
         self.map.pt_pos[sel] = pts[ok]
         self.map.pt_status[sel] = map_store.PT_GOOD
         self.map.update_mappoint_descriptors(sel)
+
+    # ------------------------------------------------------------ local BA
+    def gather_ba_problem(self, center_kf: int):
+        """The BA window around ``center_kf`` as (BAProblem of numpy arrays,
+        mapping), or (None, None) when under-constrained."""
+        p = self.cfg.pipeline
+        o = self.cfg.optimization
+        self.flush_ba()  # settle any in-flight window before gathering
+        problem_np, mapping = self.map.gather_ba_window(
+            center_kf, max_frames=o.max_window_keyframes, max_points=p.ba_max_points,
+            max_lines_w=p.ba_max_lines, cp_capacity=p.ba_max_points * 4,
+            cl_capacity=p.ba_max_lines * 4)
+        if mapping["ncp"] < 30:
+            return None, None
+        return local_ba.BAProblem(**problem_np), mapping
+
+    def apply_ba_result(self, result, mapping, center_kf: int):
+        """Scatter a solved window into the map (one packed copy of a device
+        result) and re-anchor tracking on the optimized centre keyframe."""
+        self.map.scatter_ba_result(local_ba.fetch_result(result), mapping)
+        self._refresh_line_endpoints(mapping["lns"])
+        self._last_Twc = self.map.kf_pose[center_kf].copy()
+
+    def _optimize(self, prob, mapping):
+        """Upload a gathered window and issue its solve on the current
+        stream (no host synchronization)."""
+        o = self.cfg.optimization
+        b = o.backend
+        self.ba_windows.append({"frames": len(mapping["frames"]), "ncp": int(mapping["ncp"]),
+                                "ncl": int(mapping["ncl"])})
+        return local_ba.optimize_local_map(
+            self.K, local_ba.upload_problem(prob, self.device),
+            chi2_mono=b.mono_point, chi2_stereo=b.stereo_point,
+            chi2_mono_line=b.mono_line, chi2_stereo_line=b.stereo_line,
+            iters1=o.ba_iters_phase1, iters2=o.ba_iters_phase2)
+
+    def _run_local_ba(self, center_kf: int):
+        prob, mapping = self.gather_ba_problem(center_kf)
+        if prob is not None:
+            self.apply_ba_result(self._optimize(prob, mapping), mapping, center_kf)
+
+    def _dispatch_local_ba(self, center_kf: int):
+        """Async mode. On a card: the upload, the solve and the packed copy
+        into pinned host memory are issued on a side stream, which first
+        waits for the current stream, and an event is recorded behind them;
+        :meth:`flush_ba` waits for it. Every tensor of the solve is
+        allocated on the side stream, so the caching allocator hands its
+        memory to nothing else before that stream's work is done. On the
+        CPU the solve runs now and is applied at the flush."""
+        prob, mapping = self.gather_ba_problem(center_kf)
+        if prob is None:
+            return
+        if self.device.type != "cuda":
+            self._pending_ba = (local_ba.fetch_result(self._optimize(prob, mapping)),
+                                None, None, mapping)
+            return
+        if self._ba_stream is None:
+            self._ba_stream = torch.cuda.Stream(self.device)
+        side = self._ba_stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            start = torch.cuda.Event(enable_timing=True)
+            done = torch.cuda.Event(enable_timing=True)
+            start.record(side)
+            host = local_ba.fetch_result_async(self._optimize(prob, mapping))
+            done.record(side)
+        self._pending_ba = (host, start, done, mapping)
+
+    @torch.no_grad()
+    def _refresh_line_endpoints(self, lns: np.ndarray):
+        """After BA, refresh the cartesian endpoints of the window's
+        maplines from their supporting mappoints: one batched device call,
+        one download of [endpoints; ok]."""
+        P = 32
+        keep, arrs, count = [], [], []
+        for ln in lns:
+            uniq, _ = self._mapline_support(ln)
+            if len(uniq) < 2:
+                continue
+            pts = self.map.pt_pos[uniq][:P]
+            a = np.zeros((P, 3))
+            a[: len(pts)] = pts
+            keep.append(int(ln))
+            arrs.append(a)
+            count.append(len(pts))
+        if not keep:
+            return
+        n = len(keep)
+        mask = np.arange(P)[None] < np.asarray(count)[:, None]
+        dev = self.device
+        eps, ok = triangulation.triangulate_line_endpoints(
+            torch.as_tensor(self.map.ln_plucker[keep], dtype=torch.float32, device=dev),
+            torch.as_tensor(np.stack(arrs), dtype=torch.float32, device=dev),
+            torch.as_tensor(mask, device=dev))
+        buf = torch.cat([eps.reshape(-1), ok.to(torch.float32)]).cpu().numpy()
+        ok = buf[6 * n:] > 0.5
+        self.map.ln_endpoints[np.asarray(keep)[ok]] = buf[: 6 * n].reshape(n, 2, 3)[ok]
 
     # ----------------------------------------------------------------- lines
     def _has_lines(self, feats: FrameFeatures) -> bool:

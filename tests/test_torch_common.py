@@ -106,6 +106,33 @@ def matcher_weights(cfg):
             superglue.descriptor_matcher_params(cfg.superglue, 0, 2000.0, 1980.0))
 
 
+def frontend_pair(cfg, rcf_params=None):
+    """(JAX, port) eager frontends on the same config and weights, both f32,
+    the port's on the CPU."""
+    import jax.numpy as jnp
+
+    from rspl_slam_tpu.frontend.frontends import NeuralFrontend as JFE
+    from rspl_slam_tpu_torch.frontend.frontends import NeuralFrontend as TFE
+
+    sp, sg = matcher_weights(cfg)
+    jfe = JFE(to_jax_cfg(cfg), sp_params=sp, sg_params=sg, rcf_params=rcf_params,
+              compute_dtype=jnp.float32)
+    tfe = TFE(cfg, sp_params=sp, sg_params=sg, rcf_params=rcf_params,
+              compute_dtype=torch.float32, device="cpu")
+    return jfe, tfe
+
+
+def lines_cfg(at_detection_scale=True, **keyframe):
+    """``small_system_cfg`` with lines on, RCF at detection scale or not,
+    and keyframe policy overrides."""
+    cfg = small_system_cfg()
+    return dataclasses.replace(
+        cfg, use_lines=True,
+        line_detector=dataclasses.replace(cfg.line_detector,
+                                          rcf_at_detection_scale=at_detection_scale),
+        keyframe=dataclasses.replace(cfg.keyframe, **keyframe))
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; skips where torch sees none (decided at run

@@ -8,14 +8,12 @@ import os
 import subprocess
 import sys
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_common import (edge_weights, matcher_weights, rendered_sequence, report,
-                               segment_set_distance, small_system_cfg, to_jax_cfg)
+from test_torch_common import (edge_weights, frontend_pair, lines_cfg, rendered_sequence,
+                               report, segment_set_distance, small_system_cfg, to_jax_cfg)
 
-from rspl_slam_tpu.frontend.frontends import NeuralFrontend as JFE
 from rspl_slam_tpu.slam import SLAMSystem as JSLAM
 from rspl_slam_tpu.slam import _members_to_lists as j_members_to_lists
 from rspl_slam_tpu_torch.config import SystemConfig
@@ -27,31 +25,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "rspl_slam_tpu_torch")
 
 
-def _frontends(cfg, rcf_params=None):
-    sp, sg = matcher_weights(cfg)
-    jfe = JFE(to_jax_cfg(cfg), sp_params=sp, sg_params=sg, rcf_params=rcf_params,
-              compute_dtype=jnp.float32)
-    tfe = TFE(cfg, sp_params=sp, sg_params=sg, rcf_params=rcf_params,
-              compute_dtype=torch.float32, device="cpu")
-    return jfe, tfe
-
-
-def _lines_cfg(at_detection_scale=True, **keyframe):
-    cfg = small_system_cfg()
-    return dataclasses.replace(
-        cfg, use_lines=True,
-        line_detector=dataclasses.replace(cfg.line_detector,
-                                          rcf_at_detection_scale=at_detection_scale),
-        keyframe=dataclasses.replace(cfg.keyframe, **keyframe))
-
-
 def test_extract_pair_matches_jax():
     """One rendered 320×240 pair through both eager frontends (f32, the
     descriptor-matcher SuperGlue with 2 layers): the same keypoints, the
     same stereo associations, uR and depth to 1e-3."""
     cfg = small_system_cfg()
     frames, _ = rendered_sequence(cfg, 1)
-    jfe, tfe = _frontends(cfg)
+    jfe, tfe = frontend_pair(cfg)
     fj = jfe.extract_pair(*frames[0])
     ft = tfe.extract_pair(*frames[0])
     np.testing.assert_array_equal(ft.valid, fj.valid)
@@ -75,7 +55,7 @@ def test_slam_slice_matches_jax(tmp_path):
     cfg = dataclasses.replace(cfg, keyframe=dataclasses.replace(cfg.keyframe,
                                                                 max_num_match=400))
     frames, _ = rendered_sequence(cfg, 6)
-    jfe, tfe = _frontends(cfg)
+    jfe, tfe = frontend_pair(cfg)
     js = JSLAM(to_jax_cfg(cfg), jfe, enable_ba=False)
     ts = SLAMSystem(cfg, tfe, enable_ba=False)
     for i, (il, ir) in enumerate(frames):
@@ -110,7 +90,7 @@ def test_promote_last_frame_matches_jax():
     does not) with the same landmark bookkeeping."""
     cfg = small_system_cfg()
     frames, _ = rendered_sequence(cfg, 3)
-    jfe, tfe = _frontends(cfg)
+    jfe, tfe = frontend_pair(cfg)
     js = JSLAM(to_jax_cfg(cfg), jfe, enable_ba=False)
     ts = SLAMSystem(cfg, tfe, enable_ba=False)
     for i, (il, ir) in enumerate(frames):
@@ -138,9 +118,9 @@ def test_extract_pair_lines_unpack_the_one_copy():
     are held against its ``_extract_lines`` in tests/test_torch_lines.py.)"""
     from rspl_slam_tpu_torch.ops import lines as tl
 
-    cfg = _lines_cfg()
+    cfg = lines_cfg()
     (pair,), _ = rendered_sequence(cfg, 1, num_lines=12)
-    _, tfe = _frontends(cfg, edge_weights())
+    _, tfe = frontend_pair(cfg, edge_weights())
     ff = tfe.extract_pair(*pair)
     segs, valid = tfe._extract_lines(torch.from_numpy(np.stack(pair)))
     ref = tfe._host_merge(segs[0][valid[0]].numpy() * 2)
@@ -160,7 +140,7 @@ def test_attach_lines_matches_jax():
     from rspl_slam_tpu.frontend.frontends import FrameFeatures as JFF
     from rspl_slam_tpu_torch.frontend.frontends import FrameFeatures as TFF
 
-    jfe, tfe = _frontends(_lines_cfg(), edge_weights())
+    jfe, tfe = frontend_pair(lines_cfg(), edge_weights())
     rng = np.random.default_rng(5)
     segs_l = rng.uniform(0, 300, (40, 4)).astype(np.float32)
     segs_r = segs_l - np.array([8, 0, 8, 0], np.float32)
@@ -211,9 +191,9 @@ def test_slam_slice_with_lines_matches_jax():
     the merge then keep or join it differently); mapline counts, and those
     with endpoints, within 5%; 90% of the fitted maplines have a
     counterpart within 1 cm (endpoints up to order)."""
-    cfg = _lines_cfg(at_detection_scale=False, max_num_match=400)
+    cfg = lines_cfg(at_detection_scale=False, max_num_match=400)
     frames, _ = rendered_sequence(cfg, 4, num_lines=12)
-    jfe, tfe = _frontends(cfg, edge_weights())
+    jfe, tfe = frontend_pair(cfg, edge_weights())
     js = JSLAM(to_jax_cfg(cfg), jfe, enable_ba=False)
     ts = SLAMSystem(cfg, tfe, enable_ba=False)
     for i, (il, ir) in enumerate(frames):
@@ -305,16 +285,13 @@ def test_default_device_is_the_card(monkeypatch):
     assert SLAMSystem(cfg, fe, enable_ba=False).device.type == "cpu"
 
 
-@pytest.mark.parametrize("what", ["enable_ba", "lazy_right",
-                                  "match_outlier_rejection", "loop_closure"])
+@pytest.mark.parametrize("what", ["lazy_right", "match_outlier_rejection", "loop_closure"])
 def test_unported_configurations_raise(what):
     cfg = small_system_cfg()
     fe = TFE(cfg, device="cpu")
     pipe = cfg.pipeline
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "enable_ba":
-            SLAMSystem(cfg, fe)
-        elif what == "lazy_right":
+        if what == "lazy_right":
             TFE(dataclasses.replace(cfg, pipeline=dataclasses.replace(
                 pipe, lazy_right_extraction=True)), device="cpu")
         elif what == "match_outlier_rejection":

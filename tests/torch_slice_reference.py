@@ -2,16 +2,22 @@
 the CPU, on the scene and weights ``chip_smoke.py`` drives on the card,
 and print one JSON line with what they agree on.
 
-    JAX_PLATFORMS=cpu python tests/torch_slice_reference.py [--width 376 --height 240] [--lines]
+    JAX_PLATFORMS=cpu python tests/torch_slice_reference.py [--width 376 --height 240] \
+        [--lines] [--ba]
 
 Both run f32 at the given size (multiples of 8) with the EuRoC
 intrinsics scaled by width/752, K = 400, 18 GNN layers, 100 Sinkhorn
-iterations, BA off, 30 frames; lines off, or with ``--lines`` on, on the
+iterations, 30 frames; lines off, or with ``--lines`` on, on the
 scene of ``chip_smoke.py``'s lines phase (12 dark segments) with
-``models.rcf.edge_detector_params`` as RCF weights. The JAX run's ATE, with
-margin, is the matching end-to-end ATE bound of ``chip_smoke.py``. The line also reports how far the random
-SuperPoint's keypoints sit from the rendered blobs and how many temporal
-matches do not move between frames, which bounds what the ATE can show.
+``models.rcf.edge_detector_params`` as RCF weights; BA off, or with
+``--ba`` the default local BA (async, after every keyframe). With lines and
+BA on both run RCF at full size (``rcf_at_detection_scale=False``): the
+JAX package's default eager path misreads its segments (ROADMAP.md §3),
+which BA would turn into pose errors. The JAX run's ATE, with margin, is
+the matching end-to-end ATE bound of ``chip_smoke.py``. The line also
+reports how far the random SuperPoint's keypoints sit from the rendered
+blobs and how many temporal matches do not move between frames, which
+bounds what the ATE can show.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ def main() -> int:
     ap.add_argument("--height", type=int, default=240)
     ap.add_argument("--frames", type=int, default=30)
     ap.add_argument("--lines", action="store_true")
+    ap.add_argument("--ba", action="store_true")
     args = ap.parse_args()
 
     import jax
@@ -54,6 +61,9 @@ def main() -> int:
     cfg = small_system_cfg(width=args.width, height=args.height, layers=18)
     num_lines = 12 if args.lines else 0
     cfg = dataclasses.replace(cfg, use_lines=args.lines)
+    if args.ba and args.lines:
+        cfg = dataclasses.replace(cfg, line_detector=dataclasses.replace(
+            cfg.line_detector, rcf_at_detection_scale=False))
     frames, traj = rendered_sequence(cfg, args.frames, num_lines=num_lines)
     sp, sg = matcher_weights(cfg)
     rp = rcf.edge_detector_params() if args.lines else None
@@ -61,21 +71,26 @@ def main() -> int:
               device="cpu")
     jfe = JFE(to_jax_cfg(cfg), sp_params=sp, sg_params=sg, rcf_params=rp,
               compute_dtype=jnp.float32)
-    runs = {"torch": SLAMSystem(cfg, tfe, enable_ba=False),
-            "jax": JSLAM(to_jax_cfg(cfg), jfe, enable_ba=False)}
+    runs = {"torch": SLAMSystem(cfg, tfe, enable_ba=args.ba),
+            "jax": JSLAM(to_jax_cfg(cfg), jfe, enable_ba=args.ba)}
     ts = np.arange(args.frames) * 0.05
     gt = np.einsum("ij,njk->nik", INIT_POSE, traj)
     out = {"image": [cfg.camera.image_width, cfg.camera.image_height],
-           "frames": args.frames}
+           "frames": args.frames, "ba": args.ba}
     for name, slam in runs.items():
         recs = [slam.add_frame(i, ts[i], *frames[i]) for i in range(args.frames)]
+        slam.flush_ba()
         est = np.stack([r.Twc for r in recs])
+        kf_times, kf_poses = slam.map.keyframe_trajectory()
         out[name] = {
             "initialized": bool(slam.initialized),
             "keyframes": int(slam.map.n_kf),
             "inliers": [int(r.num_inliers) for r in recs],
             "ate_rmse_m": float(absolute_trajectory_error(
                 ts, est[:, :3, 3], ts, gt[:, :3, 3])["rmse"]),
+            "keyframe_ate_rmse_m": float(absolute_trajectory_error(
+                kf_times, kf_poses[:, :3, 3], ts, gt[:, :3, 3])["rmse"])
+            if len(kf_times) > 2 else None,
         }
         if args.lines:
             m = slam.map
