@@ -20,7 +20,7 @@ Phases (one JSON line each):
      at the default capacities, the card's run under
      ``torch.cuda.set_sync_debug_mode("error")``; CUDA-event and host-issue
      ms per window;
-  4. end to end, three paths, each with the launch counters reset just
+  4. end to end, four paths, each with the launch counters reset just
      before and read just after: ``end_to_end_ba``, the true default
      ``SLAMSystem(SystemConfig(), fe)`` (752×480, K = 400, 18 GNN layers at
      bf16, 100 Sinkhorn iterations, RCF at ×0.5 through K1's side mode +
@@ -32,7 +32,18 @@ Phases (one JSON line each):
      inliers, finite poses and ATE; the lines paths also lines per frame,
      maplines with endpoints and one K1 side-mode launch per frame; the BA
      path also solved windows, line constraints in BA, and a finite map
-     after the last ``flush_ba()``;
+     after the last ``flush_ba()``; ``end_to_end_ba`` runs twice and its
+     ATE must repeat bit for bit (``ba_repeat``); then
+     ``end_to_end_lazy``, the production loop as the JAX package's
+     ``bench.py:measured_pipeline`` drives it: ``PipelinedRunner`` over
+     ``SLAMSystem(SystemConfig(pipeline=PipelineConfig(
+     lazy_right_extraction=True)), fe)`` (lines, async BA, the combined
+     frame step) on the same frames quantized to 8 bits, gated also on the
+     stereo completions (one per initialization attempt and per keyframe,
+     no tracked-only frame downloading its descriptors), K1 launches in
+     both modes = frames + completions, and fewer K3 launches than the BA
+     path; the same frames through serial ``add_frame`` calls, then the
+     runner once more, give the serial frames/s beside the runner's;
   5. the {"kernels": [...]} summary (launches from the BA path, the
      default main path; each path's counts in ``launches_by_path``, each
      path's ATE in ``ate_by_path``); last line {"ok": true, "device": ...}.
@@ -66,10 +77,12 @@ PEAK_SFU = 132 * 16 * 1.98e9
 
 # end-to-end gates (see PERF.md for where the ATE bound comes from: the JAX
 # package's ATE on each path's scene at 376×240 on the CPU, with margin:
-# points 0.2229 m, lines scene 0.2123 m, lines scene with BA 0.2123 m)
+# points 0.2229 m, lines scene 0.2123 m, lines scene with BA 0.2123 m,
+# the lazy production loop 0.2046 m)
 E2E_FRAMES = 30
 E2E_MIN_INLIERS = 20
 E2E_ATE_BOUND = 0.35
+E2E_ATE_BOUND_LAZY = 0.35
 
 
 def emit(obj) -> None:
@@ -171,16 +184,17 @@ def _allclose_report(name, got, ref, rtol, atol, sel=None):
     return ok, max_err
 
 
-def check_conv_stem(side: bool):
+def _conv_case(B, H, W, side: bool, seed: int):
+    """K1 against its plain version on (B, H, W, 64) bf16 (with the side
+    score in side mode), timed: the kernel line's fields."""
     import torch
     import torch.nn.functional as F
 
     from rspl_slam_tpu_torch.ops import conv_stem_cuda as cs
 
     dev = "cuda"
-    g = torch.Generator(device=dev).manual_seed(1 if side else 0)
-    # SuperPoint conv1b: (2, 480, 752, 64); RCF conv1_2 at ×0.5: (2, 240, 376, 64)
-    B, H, W, C = (2, 240, 376, 64) if side else (2, 480, 752, 64)
+    C = 64
+    g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.rand((B, H, W, C), generator=g, device=dev).to(torch.bfloat16)
     w = torch.randn((3, 3, C, C), generator=g, device=dev) * (2.0 / (9 * C)) ** 0.5
     b = torch.randn((C,), generator=g, device=dev) * 0.1
@@ -209,17 +223,32 @@ def check_conv_stem(side: bool):
     nbytes = (x.numel() * 2 + 9 * C * C * 2 + C * 4 + B * (H // 2) * (W // 2) * C * 2
               + ((C * 4 + B * H * W * 4) if side else 0))
     bms, by = bound_ms(flops, nbytes, PEAK_BF16)
+    line = {"shape": [B, H, W, C], "ok": ok, "max_abs_err": err,
+            "ms": kernel_ms, "host_ms": wrapper_host_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            "flops": flops, "bytes": nbytes}
+    line.update(rates(line))
+    return line
+
+
+def check_conv_stem(side: bool):
+    """K1 at the eager path's B = 2 (the timed line) and at the lazy path's
+    B = 1 (one eye per launch; listed in ``checks``)."""
+    # SuperPoint conv1b: (B, 480, 752, 64); RCF conv1_2 at ×0.5: (B, 240, 376, 64)
+    H, W = (240, 376) if side else (480, 752)
+    seed = 1 if side else 0
     line = {"phase": "kernel", "name": "conv_stem_side" if side else "conv_stem",
-            "shape": [B, H, W, C], "ok": ok, "max_abs_err": err,
+            **_conv_case(2, H, W, side, seed),
             "tolerance": "|k-p| <= 2^-7|p| + 1e-3 (bf16 out)"
             + ("; side rtol 1e-4, atol 1e-4*max|side|" if side else ""),
-            "ms": kernel_ms, "host_ms": wrapper_host_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library": "F.conv2d bf16 channels_last (conv only)",
-            "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes}
-    line.update(rates(line))
+            "library": "F.conv2d bf16 channels_last (conv only)"}
+    one = _conv_case(1, H, W, side, seed + 10)
+    line["checks"] = [{k: one[k] for k in ("shape", "ok", "max_abs_err", "ms", "plain_ms",
+                                           "library_ms", "bound_ms", "bound_fraction")}]
     emit(line)
-    if not ok:
-        raise AssertionError(f"conv_stem{'_side' if side else ''} disagrees: {err}")
+    if not (line["ok"] and one["ok"]):
+        raise AssertionError(f"conv_stem{'_side' if side else ''} disagrees: "
+                             f"{line['max_abs_err']}, B = 1: {one['max_abs_err']}")
     return line
 
 
@@ -497,32 +526,70 @@ def phase_local_ba_check(profile: bool):
     return out
 
 
-def phase_end_to_end(lines: bool, ba: bool = False):
+def _scene(cfg, lines: bool):
+    """The end-to-end scene's 30 rendered stereo pairs (with 12 dark
+    segments on the lines paths), the ground-truth trajectory, and the
+    render time."""
+    from rspl_slam_tpu_torch.evaluation import synthetic
+
+    t0 = time.perf_counter()
+    scene = synthetic.make_scene(num_points=600, num_lines=12 if lines else 0, seed=1,
+                                 extent=(6.0, 4.0, 6.0), on_line_frac=0.0)
+    traj = synthetic.make_trajectory(E2E_FRAMES, step=0.05)
+    frames = [synthetic.render_images(scene, cfg.camera, traj[i], seed=i)
+              for i in range(E2E_FRAMES)]
+    return frames, traj, time.perf_counter() - t0
+
+
+def _frontend(cfg, lines: bool):
+    """The card's NeuralFrontend (bf16) with the end-to-end weights: random
+    SuperPoint (seed 0), the descriptor-matcher SuperGlue and, with lines,
+    the hand-set RCF edge weights."""
+    from rspl_slam_tpu_torch.frontend.frontends import NeuralFrontend
+    from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
+
+    sp = superpoint.init_params(0)
+    sg = superglue.descriptor_matcher_params(cfg.superglue, 0, 2000.0, 1980.0)
+    rp = rcf.edge_detector_params() if lines else None
+    return NeuralFrontend(cfg, sp_params=sp, sg_params=sg, rcf_params=rp)
+
+
+def _ate(recs, traj):
+    from rspl_slam_tpu_torch.evaluation import absolute_trajectory_error
+    from rspl_slam_tpu_torch.slam import INIT_POSE
+
+    est = np.stack([r.Twc for r in recs])
+    ts = np.arange(len(recs)) * 0.05
+    gt = np.einsum("ij,njk->nik", INIT_POSE, traj)
+    return float(absolute_trajectory_error(ts, est[:, :3, 3], ts, gt[:, :3, 3])["rmse"])
+
+
+def _keyframe_ate(m, traj):
+    from rspl_slam_tpu_torch.evaluation import absolute_trajectory_error
+    from rspl_slam_tpu_torch.slam import INIT_POSE
+
+    kf_t, kf_pose = m.keyframe_trajectory()
+    if len(kf_t) <= 2:
+        return None
+    ts = np.arange(len(traj)) * 0.05
+    gt = np.einsum("ij,njk->nik", INIT_POSE, traj)
+    return float(absolute_trajectory_error(kf_t, kf_pose[:, :3, 3], ts, gt[:, :3, 3])["rmse"])
+
+
+def phase_end_to_end(lines: bool, ba: bool = False, name: str | None = None):
     """The port's SLAMSystem + NeuralFrontend on rendered EuRoC-size frames:
     the true default (lines on, async local BA: ``SLAMSystem(cfg, fe)``),
     the same with BA off, or the point-only path with BA off."""
     import torch
 
     from rspl_slam_tpu_torch.config import SystemConfig
-    from rspl_slam_tpu_torch.evaluation import absolute_trajectory_error, synthetic
-    from rspl_slam_tpu_torch.frontend.frontends import NeuralFrontend
-    from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
-    from rspl_slam_tpu_torch.slam import INIT_POSE, SLAMSystem
+    from rspl_slam_tpu_torch.slam import SLAMSystem
 
     # 752×480, K = 400, 18 layers, 100 iterations; lines: RCF ×0.5, 128 lines
     cfg = SystemConfig(use_lines=lines)
     cam = cfg.camera
-    t0 = time.perf_counter()
-    scene = synthetic.make_scene(num_points=600, num_lines=12 if lines else 0, seed=1,
-                                 extent=(6.0, 4.0, 6.0), on_line_frac=0.0)
-    traj = synthetic.make_trajectory(E2E_FRAMES, step=0.05)
-    frames = [synthetic.render_images(scene, cam, traj[i], seed=i)
-              for i in range(E2E_FRAMES)]
-    render_s = time.perf_counter() - t0
-    sp = superpoint.init_params(0)
-    sg = superglue.descriptor_matcher_params(cfg.superglue, 0, 2000.0, 1980.0)
-    rp = rcf.edge_detector_params() if lines else None
-    fe = NeuralFrontend(cfg, sp_params=sp, sg_params=sg, rcf_params=rp)  # the card, bf16
+    frames, traj, render_s = _scene(cfg, lines)
+    fe = _frontend(cfg, lines)  # the card, bf16
 
     def system():
         return SLAMSystem(cfg, fe) if ba else SLAMSystem(cfg, fe, enable_ba=False)
@@ -549,15 +616,13 @@ def phase_end_to_end(lines: bool, ba: bool = False):
     slam.flush_ba()  # the last window (after the timed frames)
 
     est = np.stack([r.Twc for r in recs])
-    ts = np.arange(E2E_FRAMES) * 0.05
-    gt = np.einsum("ij,njk->nik", INIT_POSE, traj)
-    ate = absolute_trajectory_error(ts, est[:, :3, 3], ts, gt[:, :3, 3])["rmse"]
+    ate = _ate(recs, traj)
     inliers = [int(r.num_inliers) for r in recs[1:]]
     tracked = sum(n > E2E_MIN_INLIERS for n in inliers)
     bound = E2E_ATE_BOUND
     timings = {**slam.timings, **fe.timings}
     med = {k: float(np.median(v)) * 1e3 for k, v in timings.items()}
-    name = "end_to_end_ba" if ba else "end_to_end_lines" if lines else "end_to_end"
+    name = name or ("end_to_end_ba" if ba else "end_to_end_lines" if lines else "end_to_end")
     m = slam.map
     line = {"phase": name, "frames": E2E_FRAMES, "image": [cam.image_width,
             cam.image_height], "max_keypoints": cfg.superpoint.max_keypoints,
@@ -584,14 +649,12 @@ def phase_end_to_end(lines: bool, ba: bool = False):
             "maplines": int(m.n_ln),
             "maplines_with_endpoints": int(m.ln_has_endpoints[: m.n_ln].sum())})
     if ba:
-        kf_t, kf_pose = m.keyframe_trajectory()
         line.update({
             "ba_windows": len(slam.ba_windows),
             "ba_windows_with_lines": sum(w["ncl"] > 0 for w in slam.ba_windows),
             "ba_point_constraints": [w["ncp"] for w in slam.ba_windows],
             "ba_line_constraints": [w["ncl"] for w in slam.ba_windows],
-            "keyframe_ate_rmse_m": float(absolute_trajectory_error(
-                kf_t, kf_pose[:, :3, 3], ts, gt[:, :3, 3])["rmse"]) if len(kf_t) > 2 else None})
+            "keyframe_ate_rmse_m": _keyframe_ate(m, traj)})
     emit(line)
     if not slam.initialized:
         raise AssertionError(f"{name}: the map did not initialize")
@@ -626,6 +689,152 @@ def phase_end_to_end(lines: bool, ba: bool = False):
                 and np.isfinite(m.pt_pos[: m.n_pt][good]).all()):
             raise AssertionError(f"{name}: non-finite keyframe pose or mappoint after BA")
     return line, launches, (cfg, fe, frames)
+
+
+class _StereoFrames:
+    """The frames as the runner's dataset: an indexable of StereoFrame."""
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, i):
+        from rspl_slam_tpu_torch.datasets import StereoFrame
+
+        return StereoFrame(i, 0.05 * i, *self.frames[i])
+
+
+def phase_end_to_end_lazy(k3_ba: int):
+    """The production loop: ``PipelinedRunner`` over the lazy-right
+    ``SLAMSystem`` (lines, async BA, the combined frame step) on the BA
+    path's 30 frames quantized to 8 bits as the JAX package's
+    ``bench.py:measured_pipeline`` quantizes its renders; then the same
+    frames through serial ``add_frame`` calls, and through the runner once
+    more (frames/s only, bracketing the serial pass). ``k3_ba``: K3's launches on
+    the BA path, which the lazy loop must undercut."""
+    import torch
+
+    from rspl_slam_tpu_torch.config import PipelineConfig, SystemConfig
+    from rspl_slam_tpu_torch.pipeline import PipelinedRunner
+    from rspl_slam_tpu_torch.slam import SLAMSystem
+
+    cfg = SystemConfig(pipeline=PipelineConfig(lazy_right_extraction=True))
+    cam = cfg.camera
+    frames, traj, render_s = _scene(cfg, True)
+    frames = [tuple((np.clip(im, 0, 1) * 255).astype(np.uint8) for im in f) for f in frames]
+    fe = _frontend(cfg, True)
+    warm = SLAMSystem(cfg, fe)  # first-call set-up, not timed
+    PipelinedRunner(warm, _StereoFrames(frames[:2])).run()
+    warm.flush_ba()
+    torch.cuda.synchronize()
+
+    slam = SLAMSystem(cfg, fe)
+    torch.cuda.reset_peak_memory_stats()
+    c0, d0 = fe.stereo_completions, fe.desc_downloads
+    _reset_counters()
+    t0 = time.perf_counter()
+    recs = PipelinedRunner(slam, _StereoFrames(frames)).run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counters()
+    completions, downloads = fe.stereo_completions - c0, fe.desc_downloads - d0
+    slam.flush_ba()  # the last window (after the timed frames)
+
+    serial = SLAMSystem(cfg, fe)
+    t0 = time.perf_counter()
+    recs_s = [serial.add_frame(i, 0.05 * i, *f) for i, f in enumerate(frames)]
+    torch.cuda.synchronize()
+    serial_wall = time.perf_counter() - t0
+    serial.flush_ba()
+    again = SLAMSystem(cfg, fe)  # the runner once more, after the serial pass
+    t0 = time.perf_counter()
+    PipelinedRunner(again, _StereoFrames(frames)).run()
+    torch.cuda.synchronize()
+    again_wall = time.perf_counter() - t0
+    again.flush_ba()
+
+    m = slam.map
+    est = np.stack([r.Twc for r in recs])
+    ate = _ate(recs, traj)
+    init = next((i + 1 for i, r in enumerate(recs) if r.is_keyframe), len(recs))
+    inliers = [int(r.num_inliers) for r in recs[init:]]
+    tracked = sum(n > E2E_MIN_INLIERS for n in inliers)
+    lines_per_kf = m.kf_line_valid[: m.n_kf].sum(1).tolist()
+    med = {k: float(np.median(v)) * 1e3 for k, v in slam.timings.items()}
+    line = {"phase": "end_to_end_lazy", "frames": E2E_FRAMES,
+            "image": [cam.image_width, cam.image_height], "upload": "uint8",
+            "max_keypoints": cfg.superpoint.max_keypoints,
+            "gnn_layers": cfg.superglue.num_gnn_layers,
+            "sinkhorn_iters": cfg.superglue.sinkhorn_iterations,
+            "initialized": slam.initialized, "init_attempts": init,
+            "keyframes": int(m.n_kf), "inliers": inliers,
+            "frames_over_min_inliers": tracked, "ate_rmse_m": ate,
+            "ate_bound_m": E2E_ATE_BOUND_LAZY, "keyframe_ate_rmse_m": _keyframe_ate(m, traj),
+            "frames_per_s": E2E_FRAMES / wall, "wall_s": wall,
+            "serial_frames_per_s": E2E_FRAMES / serial_wall, "serial_wall_s": serial_wall,
+            "runner_again_frames_per_s": E2E_FRAMES / again_wall,
+            "serial_ate_rmse_m": _ate(recs_s, traj),
+            "serial_keyframes_same": [r.is_keyframe for r in recs]
+            == [r.is_keyframe for r in recs_s],
+            "stage_median_ms": med, "render_s": render_s,
+            "stage_note": "frame_combined: host ms of the combined step (extract + track, "
+                          "one copy down); track_fused: frames the extract thread extracted "
+                          "before the map initialized; complete_stereo: host ms of a "
+                          "keyframe's right eye (inside kf_insert after initialization); "
+                          "local_ba / ba_device / ba_apply as on the BA path",
+            "stereo_completions": completions, "desc_downloads": downloads,
+            "lines_per_keyframe": lines_per_kf, "maplines": int(m.n_ln),
+            "maplines_with_endpoints": int(m.ln_has_endpoints[: m.n_ln].sum()),
+            "ba_windows": len(slam.ba_windows),
+            "ba_windows_with_lines": sum(w["ncl"] > 0 for w in slam.ba_windows),
+            "max_memory_allocated_MB": torch.cuda.max_memory_allocated() / 2**20,
+            "launches": launches}
+    emit(line)
+    if not slam.initialized:
+        raise AssertionError("end_to_end_lazy: the map did not initialize")
+    if tracked < 0.8 * len(inliers):
+        raise AssertionError(f"end_to_end_lazy: too few tracked frames: {inliers}")
+    if not np.isfinite(est).all():
+        raise AssertionError("end_to_end_lazy: non-finite pose")
+    if not ate < E2E_ATE_BOUND_LAZY:
+        raise AssertionError(f"end_to_end_lazy: ATE {ate} over the bound {E2E_ATE_BOUND_LAZY}")
+    if not (min(lines_per_kf) > 0 and line["maplines_with_endpoints"] > 0):
+        raise AssertionError(f"end_to_end_lazy: lines per keyframe {lines_per_kf}, "
+                             f"{line['maplines_with_endpoints']} maplines with endpoints")
+    if line["ba_windows"] < 1:
+        raise AssertionError("end_to_end_lazy: no BA window was solved")
+    good = m.pt_status[: m.n_pt] == 2
+    if slam._pending_ba is not None or not (np.isfinite(m.kf_pose[: m.n_kf]).all()
+                                            and np.isfinite(m.pt_pos[: m.n_pt][good]).all()):
+        raise AssertionError("end_to_end_lazy: non-finite map after flush_ba")
+    if not completions == init + m.n_kf - 1 == downloads:
+        raise AssertionError(f"end_to_end_lazy: {completions} stereo completions and "
+                             f"{downloads} descriptor downloads for {init} initialization "
+                             f"attempts and {m.n_kf} keyframes")
+    for k in ("conv_stem", "conv_stem_side"):
+        if launches[k] != E2E_FRAMES + completions:
+            raise AssertionError(f"end_to_end_lazy: {k} launched {launches[k]} times for "
+                                 f"{E2E_FRAMES} frames and {completions} completions")
+    if not 0 < launches["sinkhorn"] < k3_ba or launches["superglue_layer"] <= 0:
+        raise AssertionError(f"end_to_end_lazy: K3 {launches['sinkhorn']} launches "
+                             f"(BA path {k3_ba}), K2 {launches['superglue_layer']}")
+    return line, launches
+
+
+def phase_ba_repeat(a: dict, b: dict):
+    """The BA path run twice on the same frames: the trajectory's ATE, the
+    keyframes' after the last flush and the inlier counts repeat bit for
+    bit (local BA's fixed-order sums)."""
+    keys = ("ate_rmse_m", "keyframe_ate_rmse_m", "inliers", "keyframes",
+            "ba_point_constraints")
+    same = {k: a[k] == b[k] for k in keys}
+    emit({"phase": "ba_repeat", "ate_rmse_m": [a["ate_rmse_m"], b["ate_rmse_m"]],
+          "keyframe_ate_rmse_m": [a["keyframe_ate_rmse_m"], b["keyframe_ate_rmse_m"]],
+          "same": same})
+    if not all(same.values()):
+        raise AssertionError(f"end_to_end_ba does not repeat: {same}")
 
 
 def phase_profile(cfg, fe, frames, n_warm: int = 3, n_prof: int = 3):
@@ -730,6 +939,8 @@ def phase_summary(lines, by_path, ate_by_path):
             k[mode] = {"launches": launches and launches[line_name],
                        "launches_by_path": {p: c[line_name] for p, c in by_path.items()},
                        "shape": other["shape"], **{key: other[key] for key in KEYS}}
+            if other.get("checks"):
+                k[mode]["checks"] = other["checks"]
         if name == "sinkhorn":
             k["elements_per_s"] = lines[name]["elements_per_s"]
         if lines[name].get("checks"):
@@ -757,16 +968,26 @@ def main(argv) -> int:
     by_path, ate_by_path = {}, {}
     if "--kernels" not in argv:
         phase_local_ba_check("--profile" in argv)
+        repeat = None
         for name, kw in (("end_to_end_ba", dict(lines=True, ba=True)),
+                         ("end_to_end_ba_repeat", dict(lines=True, ba=True)),
                          ("end_to_end_lines", dict(lines=True)),
                          ("end_to_end", dict(lines=False))):
-            line, by_path[name], run = phase_end_to_end(**kw)
-            ate_by_path[name] = line["ate_rmse_m"]
+            line, counts, run = phase_end_to_end(name=name, **kw)
+            if name == "end_to_end_ba_repeat":
+                phase_ba_repeat(repeat, line)
+            else:
+                by_path[name] = counts
+                ate_by_path[name] = line["ate_rmse_m"]
+                repeat = line
             if name == "end_to_end_lines" and "--profile" in argv:
                 phase_profile(*run)
             del run  # each path's frontend: the next path's peak memory is its own
             gc.collect()
             torch.cuda.empty_cache()
+        line, by_path["end_to_end_lazy"] = phase_end_to_end_lazy(
+            by_path["end_to_end_ba"]["sinkhorn"])
+        ate_by_path["end_to_end_lazy"] = line["ate_rmse_m"]
     phase_summary(lines, by_path, ate_by_path)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

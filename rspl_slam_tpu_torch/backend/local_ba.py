@@ -18,11 +18,18 @@ LocalmapOptimization, g2o_optimization.cc:21-252):
 
 Where the design differs from the JAX package:
 
-- every per-constraint sum is an ``index_add_`` scatter where JAX runs a
-  one-hot matmul (Hopper has native f32 atomics); the W tensors (P, F, 6, 3)
-  and (L, F, 6, 4) are scattered over the flat index landmark·F + pose.
-  ``index_add_`` on CUDA adds in no fixed order, so two runs may differ in
-  the last bits: tests hold results to tolerances, not bits;
+- every per-constraint sum is a gather of each segment's rows followed by
+  a sum over them in f64, rounded once to f32, in an order fixed per
+  window, where JAX runs a one-hot matmul (f64 accumulation lands on
+  JAX's f32 path where f32 sums in another order left it; PERF.md §6):
+  a window's constraint indices do not change between iterations,
+  so ``upload_problem`` lays each index vector out once on the host
+  (:class:`SegmentPlan`: per segment its valid rows in ascending order,
+  padded with a zero row) and rides it on the problem's one copy. The W
+  tensors (P, F, 6, 3) and (L, F, 6, 4) are summed over the flat index
+  landmark·F + pose. Invalid rows (weight 0) are left out of the sums. So
+  the same window gives the same bits on every run, on the card as on
+  the CPU (an ``index_add_`` adds CUDA atomics in no fixed order);
 - the line Jacobians are analytic (the derivative of the orthonormal chart
   and of the left pose perturbation at zero) where JAX runs ``jacfwd``;
 - nothing in the LM loop synchronizes the host: accept/reject, λ and the
@@ -46,8 +53,21 @@ from rspl_slam_tpu_torch.backend.residuals import CameraIntrinsics
 from rspl_slam_tpu_torch.geometry import linalg as glin
 from rspl_slam_tpu_torch.geometry import plucker, se3
 
-__all__ = ["BAProblem", "BAResult", "optimize_local_map", "upload_problem",
-           "fetch_result", "fetch_result_async", "unpack_result"]
+__all__ = ["BAProblem", "BAResult", "SegmentPlan", "optimize_local_map", "upload_problem",
+           "segment_plan", "fetch_result", "fetch_result_async", "unpack_result"]
+
+
+class SegmentPlan(NamedTuple):
+    """Each segment sum's rows, fixed for a window: row s of a table lists
+    the constraint rows of segment s in ascending order, padded with the
+    constraint count (the index of an appended zero row)."""
+
+    p_pose: torch.Tensor  # (F, M) point constraints of each pose
+    l_pose: torch.Tensor  # (F, M) line constraints of each pose
+    p_point: torch.Tensor  # (P, M) constraints of each point
+    l_line: torch.Tensor  # (L, M) constraints of each line
+    p_cross: torch.Tensor  # (P·F, M) point constraints of each (point, pose)
+    l_cross: torch.Tensor  # (L·F, M) line constraints of each (line, pose)
 
 
 class BAProblem(NamedTuple):
@@ -69,6 +89,10 @@ class BAProblem(NamedTuple):
     l_eps_r: torch.Tensor  # (Cl, 2, 2) observed right endpoints
     l_stereo: torch.Tensor  # (Cl,) bool
     l_valid: torch.Tensor  # (Cl,) bool
+    plan: SegmentPlan | None = None  # set by upload_problem
+
+
+_N_FIELDS = 15  # the problem's arrays (every field but ``plan``)
 
 
 class BAResult(NamedTuple):
@@ -83,15 +107,46 @@ class BAResult(NamedTuple):
 _LINE_INFO = 0.1  # line information scale (g2o_optimization.cc:138, 162)
 
 
+def _rows_by_segment(idx: np.ndarray, keep: np.ndarray, n: int) -> np.ndarray:
+    """(n, M) table of the kept rows of each segment of ``idx``, ascending
+    (a stable sort), padded with ``len(idx)``."""
+    rows = np.nonzero(keep)[0]
+    seg = idx[rows]
+    order = np.argsort(seg, kind="stable")
+    rows, seg = rows[order], seg[order]
+    counts = np.bincount(seg, minlength=n)
+    starts = np.cumsum(counts) - counts
+    table = np.full((n, max(int(counts.max(initial=0)), 1)), len(idx), np.int64)
+    table[seg, np.arange(len(rows)) - starts[seg]] = rows
+    return table
+
+
+def segment_plan(prob) -> SegmentPlan:
+    """The :class:`SegmentPlan` of a problem of numpy arrays (on the
+    host)."""
+    F, P, L = len(prob.Tcw), len(prob.points), len(prob.lines)
+    pv, lv = np.asarray(prob.p_valid, bool), np.asarray(prob.l_valid, bool)
+    pp, px = np.asarray(prob.p_pose, np.int64), np.asarray(prob.p_point, np.int64)
+    lp, ll = np.asarray(prob.l_pose, np.int64), np.asarray(prob.l_line, np.int64)
+    return SegmentPlan(
+        p_pose=_rows_by_segment(pp, pv, F), l_pose=_rows_by_segment(lp, lv, F),
+        p_point=_rows_by_segment(px, pv, P), l_line=_rows_by_segment(ll, lv, L),
+        p_cross=_rows_by_segment(px * F + pp, pv, P * F),
+        l_cross=_rows_by_segment(ll * F + lp, lv, L * F))
+
+
 def upload_problem(prob, device) -> BAProblem:
     """A BAProblem of numpy arrays → tensors on ``device`` (floats f32,
-    indices int64, flags bool) through ONE host→device copy: every field is
-    packed into one f32 buffer (indices below 2^24 are exact in f32); on a
-    CUDA device the buffer is pinned and copied ``non_blocking`` on the
-    current stream, so the upload never waits for the device."""
-    arrs = [np.asarray(a) for a in prob]
-    if max(len(arrs[0]), len(arrs[2]), len(arrs[3])) >= 1 << 24:
+    indices int64, flags bool) with its :class:`SegmentPlan`, through ONE
+    host→device copy: every field and the plan are packed into one f32
+    buffer (indices below 2^24 are exact in f32); on a CUDA device the
+    buffer is pinned and copied ``non_blocking`` on the current stream, so
+    the upload never waits for the device."""
+    arrs = [np.asarray(a) for a in tuple(prob)[:_N_FIELDS]]
+    plan = segment_plan(BAProblem(*arrs))
+    if max(len(a) for a in arrs) >= 1 << 24:
         raise ValueError("BA window slots must stay below 2^24 (f32-packed indices)")
+    arrs += list(plan)
     buf = torch.from_numpy(np.concatenate([a.astype(np.float32).ravel() for a in arrs]))
     device = torch.device(device)
     buf = (buf.pin_memory().to(device, non_blocking=True) if device.type == "cuda"
@@ -105,12 +160,15 @@ def upload_problem(prob, device) -> BAProblem:
         elif np.issubdtype(a.dtype, np.integer):
             t = t.long()
         out.append(t)
-    return BAProblem(*out)
+    return BAProblem(*out[:_N_FIELDS], plan=SegmentPlan(*out[_N_FIELDS:]))
 
 
-def _segment_sum(idx, n: int, terms):
-    """Σ of ``terms`` rows into ``n`` segments by ``idx`` (index_add_)."""
-    return terms.new_zeros((n,) + terms.shape[1:]).index_add_(0, idx, terms)
+def _segment_sum(rows, terms):
+    """Σ of ``terms`` rows into segments by a :class:`SegmentPlan` table:
+    each segment's rows gathered, then summed over in f64 in a fixed order
+    and rounded once to the terms' type."""
+    padded = torch.cat([terms, terms.new_zeros((1,) + terms.shape[1:])])
+    return padded[rows].sum(1, dtype=torch.float64).to(terms.dtype)
 
 
 def _point_terms(K, Tcw_all, points, prob: BAProblem):
@@ -206,6 +264,14 @@ def _finite_or_zero(inv):
     return torch.where(torch.isfinite(inv), inv, 0.0)
 
 
+def _device_plan(prob):
+    """The plan of a problem built without :func:`upload_problem`, on its
+    device (its indices go down to the host once)."""
+    host = BAProblem(*[t.cpu().numpy() for t in tuple(prob)[:_N_FIELDS]])
+    return SegmentPlan(*[torch.as_tensor(t, device=prob.Tcw.device)
+                         for t in segment_plan(host)])
+
+
 def _block_diagonal(blocks):
     """(F, 6, 6) blocks → the (F, 6, F, 6) block-diagonal matrix."""
     F = blocks.shape[0]
@@ -230,24 +296,23 @@ def _build_and_solve(K, Tcw, points, lines, prob, p_active, l_active,
     delta_l = torch.where(prob.l_stereo, d_sl, d_l)
     wl, chi2_l = _robust_weights(rl, _LINE_INFO, delta_l if use_huber else 1e9, l_active)
 
-    # --- assemble blocks (index_add_ scatters over the constraints) --------
+    # --- assemble blocks (fixed-order segment sums over the constraints) ---
+    plan = prob.plan
     JpW_p = Jp_p * wp[:, None, None]
     JpW_l = Jp_l * wl[:, None, None]
-    Hpp = (_segment_sum(prob.p_pose, F, JpW_p.mT @ Jp_p)
-           + _segment_sum(prob.l_pose, F, JpW_l.mT @ Jp_l))
-    gp = (_segment_sum(prob.p_pose, F, (JpW_p.mT @ rp[..., None])[..., 0])
-          + _segment_sum(prob.l_pose, F, (JpW_l.mT @ rl[..., None])[..., 0]))
+    Hpp = (_segment_sum(plan.p_pose, JpW_p.mT @ Jp_p)
+           + _segment_sum(plan.l_pose, JpW_l.mT @ Jp_l))
+    gp = (_segment_sum(plan.p_pose, (JpW_p.mT @ rp[..., None])[..., 0])
+          + _segment_sum(plan.l_pose, (JpW_l.mT @ rl[..., None])[..., 0]))
     JxW = Jx * wp[:, None, None]
-    Hxx = _segment_sum(prob.p_point, P, JxW.mT @ Jx)
-    gx = _segment_sum(prob.p_point, P, (JxW.mT @ rp[..., None])[..., 0])
+    Hxx = _segment_sum(plan.p_point, JxW.mT @ Jx)
+    gx = _segment_sum(plan.p_point, (JxW.mT @ rp[..., None])[..., 0])
     JlW = Jl * wl[:, None, None]
-    Hll = _segment_sum(prob.l_line, L, JlW.mT @ Jl)
-    gl = _segment_sum(prob.l_line, L, (JlW.mT @ rl[..., None])[..., 0])
+    Hll = _segment_sum(plan.l_line, JlW.mT @ Jl)
+    gl = _segment_sum(plan.l_line, (JlW.mT @ rl[..., None])[..., 0])
     # cross terms: W tensors (landmark, pose, 6, dl) over landmark·F + pose
-    Wx = _segment_sum(prob.p_point * F + prob.p_pose, P * F,
-                      JpW_p.mT @ Jx).view(P, F, 6, 3)
-    Wl = _segment_sum(prob.l_line * F + prob.l_pose, L * F,
-                      JpW_l.mT @ Jl).view(L, F, 6, 4)
+    Wx = _segment_sum(plan.p_cross, JpW_p.mT @ Jx).view(P, F, 6, 3)
+    Wl = _segment_sum(plan.l_cross, JpW_l.mT @ Jl).view(L, F, 6, 4)
 
     # --- damp landmark blocks and invert (closed-form 3×3 / 4×4) -----------
     Hxx_inv = _finite_or_zero(glin.inv3(_damped(Hxx, lam)))
@@ -361,6 +426,8 @@ def optimize_local_map(K: CameraIntrinsics, prob: BAProblem,
     if axis_name is not None:
         raise NotImplementedError(
             "distributed BA (axis_name) is not ported yet (ROADMAP.md, §1 item 6)")
+    if prob.plan is None:
+        prob = prob._replace(plan=_device_plan(prob))
     deltas = tuple(math.sqrt(c) for c in (chi2_mono, chi2_stereo, chi2_mono_line,
                                           chi2_stereo_line))
     thr_p = torch.where(prob.p_stereo, chi2_stereo, chi2_mono)

@@ -1,15 +1,25 @@
-"""Trajectory output (port of ``datasets.write_tum_trajectory``)."""
+"""Dataset records and trajectory output (port of ``datasets.StereoFrame``
+and ``datasets.write_tum_trajectory``)."""
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from rspl_slam_tpu_torch.geometry import se3
 
-__all__ = ["write_tum_trajectory"]
+__all__ = ["StereoFrame", "write_tum_trajectory"]
+
+
+@dataclass
+class StereoFrame:
+    index: int
+    time: float
+    image_left: np.ndarray  # (H, W) float32 in [0, 1] or uint8
+    image_right: np.ndarray
 
 
 def write_tum_trajectory(path: str, times, poses) -> None:

@@ -1,13 +1,23 @@
 """Neural frontend (port of frontend/frontends.py: ``FrameFeatures``,
-``NeuralFrontend`` on the eager both-eyes schedule).
+``NeuralFrontend`` on the eager both-eyes schedule and on the lazy-right
+schedule).
 
-One ``extract_pair`` uploads the stereo pair as 8-bit when lossless,
+Eager: one ``extract_pair`` uploads the stereo pair as 8-bit when lossless,
 converts and rectifies it on the device, runs SuperPoint on the B = 2 pair
 and the left↔right matcher there and, with lines on, RCF on the pair and
 the Hough detector on both edge maps, and brings every host-bound result
 back in ONE copy. The disparity gate and the line merge, point assignment
 and stereo line matching run on the host. The frame's (xy, score, desc,
 valid) stay on the device in ``FrameFeatures.dev`` for tracking.
+
+Lazy right (``lazy_right_extraction``, the reference's own schedule):
+``extract_pair`` runs SuperPoint at B = 1 and, with lines on, RCF + Hough on
+the LEFT image only, and packs the host-bound results into one device
+buffer that nothing copies down until the host first reads a numpy field
+(a keyframe, or the promote fallback). The raw right image waits on the
+host in ``pending_right`` until :meth:`NeuralFrontend.complete_stereo`
+runs the right eye and the stereo match when the frame becomes a keyframe.
+Tracked frames are all-mono.
 """
 
 from __future__ import annotations
@@ -28,6 +38,9 @@ from rspl_slam_tpu_torch.ops.matching import cosine_mutual_match
 
 __all__ = ["FrameFeatures", "NeuralFrontend", "resolve_device"]
 
+_LAZY_FIELDS = ("xy", "score", "desc", "valid", "meas", "depth", "lines",
+                "line_valid", "lines_right", "line_has_right", "line_members")
+
 
 class FrameFeatures:
     """Left-image features + stereo association for one frame (host numpy).
@@ -41,25 +54,73 @@ class FrameFeatures:
     matched right segment · line_has_right (L,) · line_members (L, K)
     keypoints on each line; line_tracks (L,) is stamped with the mapline of
     each line when the frame becomes a keyframe.
+
+    Deferred fields: a frame built with ``packed`` (a device tensor) and
+    ``unpack`` (its host parser) copies nothing down until a numpy field
+    that is still None is first read; then ONE copy fills every field the
+    parser returns. ``pending_right`` holds the raw 8-bit right image of a
+    lazy frame until its stereo completion; ``desc_f16`` marks host
+    descriptors that come from an f16 device handle (the combined frame
+    step's), rounded as the JAX package rounds them.
     """
 
     def __init__(self, xy=None, score=None, desc=None, valid=None, meas=None,
-                 depth=None, image=None, dev=None):
-        self.xy = xy
-        self.score = score
-        self.desc = desc
-        self.valid = valid
-        self.meas = meas
-        self.depth = depth
+                 depth=None, lines=None, line_valid=None, lines_right=None,
+                 line_has_right=None, line_members=None, image=None, dev=None,
+                 pending_right=None, packed=None, unpack=None):
+        self._np = {"xy": xy, "score": score, "desc": desc, "valid": valid,
+                    "meas": meas, "depth": depth, "lines": lines,
+                    "line_valid": line_valid, "lines_right": lines_right,
+                    "line_has_right": line_has_right, "line_members": line_members}
+        self._packed = packed
+        self._unpack = unpack
         self.image = image
         self.dev = dev
-        self.lines = None
-        self.line_valid = None
-        self.lines_right = None
-        self.line_has_right = None
-        self.line_members = None
+        self.pending_right = pending_right
         self.line_tracks = None
-        self.pending_right = None
+        self.desc_f16 = False
+
+    def _materialize(self):
+        if self._packed is not None:
+            buf = self._packed.cpu().numpy()  # the one device→host copy
+            self._packed = None
+            self._np.update(self._unpack(buf))
+            self._unpack = None
+
+    def __getattr__(self, name):
+        # only reached for names not found normally: the fields live in _np
+        np_store = object.__getattribute__(self, "_np")
+        if name in np_store:
+            if np_store[name] is None and object.__getattribute__(self, "_packed") is not None:
+                self._materialize()
+            return np_store[name]
+        raise AttributeError(name)
+
+    def __setattr__(self, name, value):
+        if name in _LAZY_FIELDS:
+            self._np[name] = value
+        else:
+            object.__setattr__(self, name, value)
+
+    @property
+    def is_materialized(self) -> bool:
+        return self._packed is None
+
+    def device_tensors(self) -> list:
+        """Every device tensor the frame holds (``dev`` and a deferred
+        buffer), for a consumer on another stream to mark as in use."""
+        out = list(self.dev or ())
+        if torch.is_tensor(self._packed):
+            out.append(self._packed)
+        return out
+
+    def stereo_ur(self):
+        """The uR column without forcing the download: None for a frame
+        still awaiting its stereo completion (all mono by construction)."""
+        if self._np["meas"] is None and self._packed is not None \
+                and self.pending_right is not None:
+            return None
+        return self.meas[:, 2]
 
 
 def resolve_device(device) -> torch.device:
@@ -160,18 +221,17 @@ class NeuralFrontend:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_lines = cfg.use_lines if use_lines is None else use_lines
-        lazy = cfg.pipeline.lazy_right_extraction if lazy_right is None else lazy_right
-        if lazy:
-            raise NotImplementedError(
-                "lazy_right_extraction=True: the lazy-right schedule is not "
-                "ported yet (ROADMAP.md, remaining slice 3)")
         if cfg.pipeline.match_outlier_rejection:
             raise NotImplementedError(
                 "match_outlier_rejection: the epipolar RANSAC filter is not "
                 "ported yet (ROADMAP.md, modules to port)")
         if matcher not in ("superglue", "cosine"):
             raise ValueError(f"matcher must be 'superglue' or 'cosine', got {matcher!r}")
-        self.lazy_right = False
+        self.lazy_right = cfg.pipeline.lazy_right_extraction if lazy_right is None else lazy_right
+        # the lazy schedule's transfer contract, counted: right eyes run by
+        # complete_stereo, and frames whose descriptors came to the host
+        self.stereo_completions = 0
+        self.desc_downloads = 0
         self.matcher = matcher
         self.keep_images = keep_images
         self.compute_dtype = compute_dtype
@@ -227,10 +287,17 @@ class NeuralFrontend:
                   t(ff.valid).bool())
         return ff.dev
 
+    def _host_equal_features(self, ff: FrameFeatures):
+        """:meth:`device_features` with the descriptors the frame's host
+        fields hold: f16-rounded where they come from an f16 handle (the
+        JAX package matches host fields here)."""
+        xy, sc, d, v = self.device_features(ff)
+        return xy, sc, (d.half().float() if ff.desc_f16 else d), v
+
     def match(self, fA: FrameFeatures, fB: FrameFeatures) -> np.ndarray:
         """Temporal matching A→B: indices0 (K,) into B or −1 (host)."""
-        a = [t[None] for t in self.device_features(fA)]
-        b = [t[None] for t in self.device_features(fB)]
+        a = [t[None] for t in self._host_equal_features(fA)]
+        b = [t[None] for t in self._host_equal_features(fB)]
         return self._match_indices(*a, *b)[0].astype(np.int64)
 
     def _t(self, name: str, seconds: float):
@@ -283,12 +350,19 @@ class NeuralFrontend:
         ds = max(1, int(self.cfg.line_detector.downsample))
         return [self._host_merge(np.ascontiguousarray(e[e[:, 4] > 0.5, :4]) * ds) for e in sv]
 
-    @torch.no_grad()
-    def extract_pair(self, img_l: np.ndarray, img_r: np.ndarray) -> FrameFeatures:
-        imgs = np.stack([_host_to_u8(img_l), _host_to_u8(img_r)])
+    def _upload(self, imgs: np.ndarray, eyes: slice) -> torch.Tensor:
+        """(B, H, W) host images (8-bit when lossless) → rectified f32 [0, 1]
+        on the device, with the rectify maps of ``eyes``."""
         img = _to_unit_float(torch.from_numpy(imgs).to(self.device))
         if self._rect_maps is not None:
-            img = remap_bilinear(img, self._rect_maps)
+            img = remap_bilinear(img, self._rect_maps[eyes])
+        return img
+
+    @torch.no_grad()
+    def extract_pair(self, img_l: np.ndarray, img_r: np.ndarray) -> FrameFeatures:
+        if self.lazy_right:
+            return self._extract_left_lazy(img_l, img_r)
+        img = self._upload(np.stack([_host_to_u8(img_l), _host_to_u8(img_r)]), slice(0, 2))
         feats = superpoint.extract(self.sp, img, self.cfg.superpoint, self.compute_dtype)
         i0 = self.match_indices(
             feats.xy[:1], feats.score[:1], feats.desc[:1], feats.valid[:1],
@@ -328,6 +402,135 @@ class NeuralFrontend:
             self._t("lines_host", time.perf_counter() - t0)
         if self.keep_images:
             ff.image = img[0].cpu().numpy()
+        return ff
+
+    # ------------------------------------------------------- lazy right eye
+    @torch.no_grad()
+    def lazy_extract(self, img_l: np.ndarray):
+        """Left-eye extraction of the lazy schedule, on the device: the
+        8-bit upload and rectification, SuperPoint at B = 1 and, with lines
+        on, RCF + Hough. Returns (features, packed, rectified image):
+        ``packed`` holds every host-bound result in one f32 buffer, rows
+        [xy, score, valid, desc] and then, with lines on, rows [x1, y1, x2,
+        y2, valid]."""
+        img = self._upload(_host_to_u8(img_l)[None], slice(0, 1))
+        feats = superpoint.extract(self.sp, img, self.cfg.superpoint, self.compute_dtype)
+        f32 = torch.float32
+        parts = [torch.cat([feats.xy[0], feats.score[0][:, None],
+                            feats.valid[0][:, None].to(f32), feats.desc[0].to(f32)],
+                           -1).reshape(-1)]
+        if self.use_lines:
+            segs, valid = self._extract_lines(img)
+            parts.append(torch.cat([segs[0], valid[0][:, None].to(f32)], -1).reshape(-1))
+        return feats, torch.cat(parts), img
+
+    def _lazy_unpack(self, with_desc: bool = True):
+        """Host parser of a :meth:`lazy_extract` buffer: keypoint rows
+        [xy, score, valid(, desc)], then the segment rows, merged, padded
+        and assigned keypoints here. ``with_desc=False`` parses the combined
+        frame step's small buffer, whose rows leave the descriptors on the
+        device."""
+        K = self.cfg.superpoint.max_keypoints
+        D = self.cfg.superglue.descriptor_dim
+        LN = int(self.cfg.line_detector.max_lines)
+
+        def unpack(buf):
+            row = 4 + (D if with_desc else 0)
+            fk = buf[: K * row].reshape(K, row)
+            xy = np.ascontiguousarray(fk[:, :2])
+            valid = fk[:, 3] > 0.5
+            out = dict(xy=xy, score=np.ascontiguousarray(fk[:, 2]), valid=valid,
+                       meas=np.concatenate([xy, np.full((K, 1), -1.0, np.float32)], -1),
+                       depth=np.zeros(K, np.float32))
+            if with_desc:
+                out["desc"] = np.ascontiguousarray(fk[:, 4:])
+                self.desc_downloads += 1
+            if self.use_lines:
+                sv = buf[K * row: K * row + 5 * LN].reshape(1, LN, 5)
+                lines, line_valid = _pad_lines(self._merge_stack(sv)[0], LN)
+                members = np.zeros((LN, K), bool)
+                nl = int(line_valid.sum())
+                if nl:
+                    members[:nl] = lops.assign_points_to_lines(lines[:nl], xy, valid)
+                out.update(lines=lines, line_valid=line_valid,
+                           lines_right=np.zeros((LN, 4), np.float32),
+                           line_has_right=np.zeros(LN, bool), line_members=members)
+            return out
+
+        return unpack
+
+    def _extract_left_lazy(self, img_l: np.ndarray, img_r: np.ndarray) -> FrameFeatures:
+        """The lazy schedule's per-frame extraction: the left eye on the
+        device (:meth:`lazy_extract`), its buffer left there until the host
+        reads a field, the raw right image held on the host as 8-bit."""
+        feats, packed, img = self.lazy_extract(img_l)
+        ff = FrameFeatures(pending_right=_host_to_u8(img_r),
+                           dev=(feats.xy[0], feats.score[0], feats.desc[0].float(),
+                                feats.valid[0]),
+                           packed=packed, unpack=self._lazy_unpack())
+        if self.keep_images:
+            ff.image = img[0].cpu().numpy()
+        return ff
+
+    @torch.no_grad()
+    def complete_stereo(self, ff: FrameFeatures) -> FrameFeatures:
+        """Finish a lazily extracted frame when it becomes a keyframe: one
+        chain on the device (upload and rectify the right image, SuperPoint
+        at B = 1, the left↔right match against ``ff.dev``, with lines on
+        RCF + Hough on the right eye and, for a frame whose descriptors are
+        still a device handle, the left descriptors as f16) and ONE copy
+        down; then the disparity gate, the right-segment merge and the
+        stereo line match on the host. Mutates ``ff`` and returns it; a
+        frame without a pending right image is returned as it is."""
+        if ff.pending_right is None:
+            return ff
+        K = self.cfg.superpoint.max_keypoints
+        LN = int(self.cfg.line_detector.max_lines)
+        img = self._upload(np.asarray(ff.pending_right)[None], slice(1, 2))
+        featsR = superpoint.extract(self.sp, img, self.cfg.superpoint, self.compute_dtype)
+        q = self.device_features(ff)
+        i0 = self.match_indices(*[t[None] for t in q], featsR.xy, featsR.score,
+                                featsR.desc, featsR.valid)[0]
+        f32 = torch.float32
+        parts = [featsR.xy[0].reshape(-1), featsR.valid[0].to(f32), i0.to(f32)]
+        if self.use_lines:
+            segs, valid = self._extract_lines(img)
+            parts.append(torch.cat([segs[0], valid[0][:, None].to(f32)], -1).reshape(-1))
+        # a combined-step frame (host xy, device descriptors): its left
+        # descriptors ride this copy as f16 pairs in f32 words
+        want_desc = (ff._np["desc"] is None and ff._packed is not None
+                     and ff._np["xy"] is not None)
+        if want_desc:
+            parts.append(q[2].half().reshape(-1).view(f32))
+        buf = torch.cat(parts).cpu().numpy()  # the one device→host copy
+        self.stereo_completions += 1
+        xyR = np.ascontiguousarray(buf[: 2 * K].reshape(K, 2))
+        validR = buf[2 * K: 3 * K] > 0.5
+        i0 = buf[3 * K: 4 * K].astype(np.int64)
+        end = 4 * K
+        segs_r = None
+        if self.use_lines:
+            segs_r = self._merge_stack(buf[end: end + 5 * LN].reshape(1, LN, 5))[0]
+            end += 5 * LN
+        if want_desc:
+            D = q[2].shape[-1]
+            d16 = np.ascontiguousarray(buf[end: end + K * D // 2]).view(np.float16)
+            ff.desc = d16.astype(np.float32).reshape(K, D)
+            ff._packed = None  # the f16 handle is no longer needed
+            ff._unpack = None
+            self.desc_downloads += 1
+        uR, depth = _stereo_associate(self.cfg, ff.xy, xyR, ff.valid, validR, i0)
+        ff.meas[:, 2] = uR
+        ff.depth = depth
+        if self.use_lines and ff.lines is not None:
+            nl = int(ff.line_valid.sum())
+            if nl and len(segs_r):
+                members_r = lops.assign_points_to_lines(segs_r, xyR, validR)
+                lm = lops.match_lines(ff.line_members[:nl], members_r, np.where(uR >= 0, i0, -1))
+                hit = np.nonzero(lm >= 0)[0]
+                ff.lines_right[hit] = segs_r[lm[hit]]
+                ff.line_has_right[hit] = True
+        ff.pending_right = None
         return ff
 
     def _attach_lines(self, ff: FrameFeatures, xyR, validR, i0, uR, segs_pair):

@@ -5,8 +5,10 @@ host state and ONE packed device→host copy of every result.
 
 The query features stay on the device from extraction
 (``FrameFeatures.dev``); the reference keyframe's are cached by identity.
-The RANSAC draws come from a ``torch.Generator`` reseeded per frame, as the
-JAX tracker derives a PRNG key per frame.
+A lazy frame still awaiting its stereo completion is tracked all-mono
+without copying its features down. The RANSAC draws come from a
+``torch.Generator`` reseeded per frame with the caller's seed, as the JAX
+tracker derives a PRNG key per frame.
 """
 
 from __future__ import annotations
@@ -68,29 +70,37 @@ class FusedTracker:
         self.chi2 = (float(chi2_mono), float(chi2_stereo))
         self._ref_obj = None  # strong ref: identity stays valid while held
         self._ref_dev = None
-        self._seed = 0
         self._gen = torch.Generator(device=self.device)
 
-    def track(self, feats, ref_feats, ref_pos: np.ndarray, ref_good: np.ndarray,
-              Twc_last: np.ndarray):
-        """Returns host (i0, Twc, n_inliers, inlier)."""
+    def ref_features(self, ref_feats):
+        """The reference keyframe's device features, cached by identity."""
         if self._ref_obj is not ref_feats:
             self._ref_dev = self.frontend.device_features(ref_feats)
             self._ref_obj = ref_feats
+        return self._ref_dev
+
+    def generator(self, seed: int) -> torch.Generator:
+        """The RANSAC generator, reseeded for one frame."""
+        self._gen.manual_seed(seed)
+        return self._gen
+
+    def track(self, feats, ref_feats, ref_pos: np.ndarray, ref_good: np.ndarray,
+              Twc_last: np.ndarray, seed: int):
+        """Returns host (i0, Twc, n_inliers, inlier)."""
+        r = self.ref_features(ref_feats)
         q = self.frontend.device_features(feats)
         Kp = int(q[0].shape[0])
-        self._seed = (self._seed + 1) % (1 << 22)
-        self._gen.manual_seed(self._seed)
         host = np.empty(5 * Kp + 16, np.float32)
-        host[:Kp] = feats.meas[:, 2]
+        ur = feats.stereo_ur()
+        host[:Kp] = -1.0 if ur is None else ur
         host[Kp: 4 * Kp] = np.asarray(ref_pos, np.float32).reshape(-1)
         host[4 * Kp: 5 * Kp] = ref_good
         host[5 * Kp:] = np.asarray(Twc_last, np.float32).reshape(-1)
         h = torch.from_numpy(host).to(self.device)  # the one upload
         packed = fused_track_core(
-            self.frontend.match_indices, self.K, *q, *self._ref_dev,
+            self.frontend.match_indices, self.K, *q, *r,
             h[:Kp], h[Kp: 4 * Kp].reshape(Kp, 3), h[4 * Kp: 5 * Kp] > 0.5,
-            h[5 * Kp:].reshape(4, 4), self._gen, *self.chi2)
+            h[5 * Kp:].reshape(4, 4), self.generator(seed), *self.chi2)
         buf = packed.cpu().numpy()  # the one download
         i0 = buf[:Kp].astype(np.int64)
         inlier = buf[Kp: 2 * Kp] > 0.5

@@ -204,11 +204,13 @@ def superglue_layer(x, masks, layer: dict, cross: bool, num_heads: int = 4,
         cuda_build.launch("superglue_layer", "superglue_layer_bf16_launch", x,
                           scratch["mask"], *(layer[k] for k in keys), scratch["qkv"], out,
                           n2, K, int(bool(cross)), cuda_build.stream_of(x))
-        launches += 1
+        with cuda_build.count_lock:
+            launches += 1
     else:
         cuda_build.require_cuda(scratch["msg"], "msg scratch", torch.float32, (n2 * K, C))
         cuda_build.launch("superglue_layer", "superglue_layer_launch", x, scratch["mask"],
                           *(layer[k] for k in keys), scratch["qkv"], scratch["msg"], out,
                           n2, K, int(bool(cross)), cuda_build.stream_of(x))
-        f32_launches += 1
+        with cuda_build.count_lock:
+            f32_launches += 1
     return out

@@ -84,11 +84,12 @@ def conv3x3_relu_pool(x, w, b, side_w=None):
         side = torch.empty((B, H, W), dtype=torch.float32, device=x.device)
     cuda_build.launch("conv_stem", "conv_stem_launch", x, w, bk, swk, out, side,
                       B, H, W, cuda_build.stream_of(x))
-    if side is None:
-        launches += 1
-        return out
-    side_launches += 1
-    return out, side
+    with cuda_build.count_lock:
+        if side is None:
+            launches += 1
+        else:
+            side_launches += 1
+    return out if side is None else (out, side)
 
 
 def conv1a(images, w, b, dtype):

@@ -43,6 +43,9 @@ _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# the wrappers' launch counters are read-modify-writes from every thread
+# that launches (PipelinedRunner's extract and tracking threads)
+count_lock = threading.Lock()
 build_log: dict[str, str] = {}  # name -> nvcc output (incl. -Xptxas -v)
 
 

@@ -60,7 +60,8 @@ def sinkhorn_iterations(Z0, log_mu, log_nu, iters: int):
     out = torch.empty_like(Z0)
     cuda_build.launch("sinkhorn", "sinkhorn_launch", Z0, log_mu, log_nu, out,
                       B, M1, N1, int(iters), *plan, cuda_build.stream_of(Z0))
-    launches += 1
+    with cuda_build.count_lock:
+        launches += 1
     return out
 
 

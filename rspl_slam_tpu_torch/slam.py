@@ -1,6 +1,7 @@
-"""Top-level SLAM system (port of slam.py: the main path).
+"""Top-level SLAM system (port of slam.py: the main path and the lazy-right
+schedule).
 
-Per-frame flow, as in the JAX package: eager stereo extraction (points and,
+Per-frame flow, as in the JAX package: stereo extraction (points and,
 with lines on, RCF + Hough segments) → (first frame) map initialization →
 fused tracking against the reference keyframe (temporal SuperGlue + map
 association + PnP-RANSAC + pose-only LM on the device) with the
@@ -19,12 +20,23 @@ the map as it was, as the JAX package's async mode does. On CPU tensors
 the solve runs at dispatch and is applied at the flush, so the map passes
 through the same states. ``async_ba=False`` solves and applies at once.
 
+With ``lazy_right_extraction`` (the reference's own schedule) a frame's right
+eye waits on the host until the frame initializes the map or becomes a
+keyframe (``NeuralFrontend.complete_stereo``, called at the top of
+:meth:`SLAMSystem._init_map` and, after the BA flush, of
+:meth:`SLAMSystem._insert_keyframe`); tracked frames are all-mono. Once the
+map is initialized, :meth:`SLAMSystem.add_frame` runs extraction and
+tracking as one chain (``frame_step.CombinedTracker``) where
+:meth:`SLAMSystem.wants_images` says so; ``pipeline.PipelinedRunner``
+consults the same method.
+
 Not ported yet, and raising ``NotImplementedError`` rather than degrading:
-loop closure and relocalization, and the lazy-right schedule (ROADMAP.md).
+loop closure and relocalization (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 
@@ -73,6 +85,11 @@ def _unported(what: str, item: str):
 
 
 class SLAMSystem:
+    # wants_images() runs on the PipelinedRunner's extract thread while
+    # add_frame* runs on the tracking thread: the CombinedTracker is built
+    # once under this lock (class-level, so a SLAMSystem stays deep-copyable)
+    _combined_lock = threading.Lock()
+
     def __init__(self, cfg: SystemConfig, frontend, enable_ba: bool = True,
                  enable_lines: bool | None = None,
                  enable_loop_closure: bool = False,
@@ -81,8 +98,6 @@ class SLAMSystem:
                  fused_tracking: bool | None = None):
         if enable_loop_closure or enable_relocalization or global_ba_on_loop:
             _unported("loop closure / relocalization", "remaining slice 5")
-        if cfg.pipeline.lazy_right_extraction or getattr(frontend, "lazy_right", False):
-            _unported("lazy_right_extraction=True", "remaining slice 3")
         if cfg.pipeline.match_outlier_rejection:
             _unported("match_outlier_rejection", "modules to port")
         if cfg.pipeline.track_local_map:
@@ -98,6 +113,8 @@ class SLAMSystem:
         self.ba_windows: list[dict] = []  # per solved window: frames, constraints
         self.enable_lines = cfg.use_lines if enable_lines is None else enable_lines
         self._fused = None
+        self._combined = None  # the lazy schedule's frame_step.CombinedTracker
+        self._track_seed = 0  # RANSAC seed of the next tracked frame, on either route
         cam = cfg.camera
         self.K = CameraIntrinsics(cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
         self.map = map_store.MapStore(
@@ -121,16 +138,57 @@ class SLAMSystem:
 
     # ------------------------------------------------------------------ api
     def add_frame(self, index: int, t: float, img_l, img_r) -> FrameRecord:
+        if self.wants_images():
+            return self._add_frame_combined(index, t, img_l, img_r)
         t0 = time.perf_counter()
         feats = self.frontend.extract_pair(img_l, img_r)
         self._t("extract", t0)
         return self.add_frame_features(index, t, feats)
+
+    def wants_images(self) -> bool:
+        """True where the combined frame step applies (an initialized map,
+        ``combined_frame_step``, a lazy-right frontend the step supports):
+        raw images should reach :meth:`add_frame` rather than go through a
+        separate extraction stage."""
+        if not (self.initialized and self.cfg.pipeline.combined_frame_step
+                and getattr(self.frontend, "lazy_right", False)):
+            return False
+        if self._combined is None:
+            with self._combined_lock:
+                if self._combined is None:
+                    from rspl_slam_tpu_torch.frame_step import CombinedTracker
+
+                    tcfg = self.cfg.optimization.tracking
+                    self._combined = CombinedTracker(self.frontend, self.K,
+                                                     tcfg.mono_point, tcfg.stereo_point)
+        return self._combined.supported()
+
+    def _next_seed(self) -> int:
+        self._track_seed = (self._track_seed + 1) % (1 << 22)
+        return self._track_seed
+
+    def _add_frame_combined(self, index: int, t: float, img_l, img_r) -> FrameRecord:
+        """Extraction + tracking as one chain (``CombinedTracker``), then the
+        tracking policy."""
+        t0 = time.perf_counter()
+        ref_pos, ref_good = self._ref_landmarks()
+        ff, i0, Twc, n_inl, inlier = self._combined.step(
+            img_l, img_r, self._ref_feats, ref_pos, ref_good, self._last_Twc,
+            self._next_seed())
+        if np.linalg.norm(Twc[:3, 3] - self._last_Twc[:3, 3]) > 0.5:
+            Twc = self._last_Twc.copy()
+        self._t("frame_combined", t0)
+        return self._record(index, t, ff, self._track(
+            index, t, ff, i0=i0, fused_pose=(Twc, n_inl, inlier)))
 
     def add_frame_features(self, index: int, t: float, feats) -> FrameRecord:
         if not self.initialized:
             rec = self._init_map(index, t, feats)
         else:
             rec = self._track(index, t, feats)
+        return self._record(index, t, feats, rec)
+
+    def _record(self, index: int, t: float, feats, rec: FrameRecord) -> FrameRecord:
         self.records.append(rec)
         self._last_feats = feats
         self._last_frame_meta = (index, t, rec.Twc)
@@ -168,6 +226,8 @@ class SLAMSystem:
 
     # ----------------------------------------------------------------- init
     def _init_map(self, index: int, t: float, feats: FrameFeatures) -> FrameRecord:
+        # initialization needs the stereo gates: a lazy frame completes here
+        feats = self._complete_stereo(feats)
         n_kpts = int(feats.valid.sum())
         stereo_ok = feats.valid & (feats.depth > 0)
         if n_kpts < 150 or int(stereo_ok.sum()) < 100:
@@ -214,15 +274,17 @@ class SLAMSystem:
                                        tcfg.mono_point, tcfg.stereo_point)
         ref_pos, ref_good = self._ref_landmarks()
         i0, Twc, n_inl, inlier = self._fused.track(
-            feats, self._ref_feats, ref_pos, ref_good, self._last_Twc)
+            feats, self._ref_feats, ref_pos, ref_good, self._last_Twc, self._next_seed())
         if np.linalg.norm(Twc[:3, 3] - self._last_Twc[:3, 3]) > 0.5:
             Twc = self._last_Twc.copy()
         return i0, (Twc, n_inl, inlier)
 
-    def _track(self, index: int, t: float, feats: FrameFeatures) -> FrameRecord:
-        t0 = time.perf_counter()
-        i0, fused_pose = self._fused_track(feats)
-        self._t("track_fused", t0)
+    def _track(self, index: int, t: float, feats: FrameFeatures, i0=None,
+               fused_pose=None) -> FrameRecord:
+        if fused_pose is None:
+            t0 = time.perf_counter()
+            i0, fused_pose = self._fused_track(feats)
+            self._t("track_fused", t0)
         num_match = int((i0 >= 0).sum())
         # fallback: weak association with the ref keyframe → promote the
         # previous frame to keyframe and re-anchor (never a frame that
@@ -253,6 +315,16 @@ class SLAMSystem:
             rec.is_keyframe = True
             rec.kf_slot = kf
         return rec
+
+    def _complete_stereo(self, feats: FrameFeatures) -> FrameFeatures:
+        """A lazy frame's right eye and stereo association, where it is
+        still pending (``NeuralFrontend.complete_stereo``)."""
+        if feats.pending_right is None:
+            return feats
+        t0 = time.perf_counter()
+        feats = self.frontend.complete_stereo(feats)
+        self._t("complete_stereo", t0)
+        return feats
 
     def _cap_new_landmarks(self, idx: np.ndarray) -> np.ndarray:
         room = self.map.points_remaining
@@ -330,6 +402,8 @@ class SLAMSystem:
                          i0: np.ndarray, inlier_row: np.ndarray) -> int:
         t0 = time.perf_counter()
         self.flush_ba()
+        # a lazy frame's right eye runs now, where the reference runs it
+        feats = self._complete_stereo(feats)
         kf = self.map.add_keyframe(index, t, Twc, feats.meas, feats.valid,
                                    feats.desc, feats.score, **self._line_args(feats))
         ref_tracks = self.map.kf_track[self._ref_kf]

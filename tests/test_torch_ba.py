@@ -300,6 +300,39 @@ def test_full_size_window_matches_jax():
     assert abs(float(rt.cost) - float(rj.cost)) <= 0.25 * float(rj.cost)
 
 
+def test_segment_sums_follow_the_window_plan():
+    """The fixed-order segment sums: ``upload_problem``'s plan lists each
+    segment's valid rows in ascending order (the W tensors' flat index
+    landmark·F + pose included); a sum over it equals an f64 scatter of the
+    valid rows rounded to f32 (rel 1e-6), leaves invalid rows out, and a
+    problem built without ``upload_problem`` solves to the same bits."""
+    from rspl_slam_tpu_torch.config import CameraConfig
+    from rspl_slam_tpu_torch.evaluation import synthetic
+
+    prob, _ = synthetic.make_ba_window(CameraConfig(), frames=5, points=64, lines=8, seed=1)
+    p = tlb.BAProblem(**prob)
+    pt = tlb.upload_problem(p, "cpu")
+    F, P = len(prob["Tcw"]), len(prob["points"])
+    valid = prob["p_valid"]
+    for table, idx, n in ((pt.plan.p_pose, prob["p_pose"], F),
+                          (pt.plan.p_point, prob["p_point"], P),
+                          (pt.plan.p_cross, prob["p_point"] * F + prob["p_pose"], P * F)):
+        rows = table.numpy()
+        for s_ in range(n):
+            got = rows[s_][rows[s_] < len(idx)]
+            np.testing.assert_array_equal(got, np.nonzero(valid & (idx == s_))[0])
+        terms = np.random.default_rng(0).standard_normal((len(idx), 6, 3)).astype(np.float32)
+        ref = np.zeros((n, 6, 3))
+        np.add.at(ref, idx[valid], terms[valid].astype(np.float64))
+        got = tlb._segment_sum(table, torch.from_numpy(terms)).numpy()
+        np.testing.assert_allclose(got, ref.astype(np.float32), rtol=1e-6, atol=1e-6)
+    args = dict(iters1=3, iters2=2)
+    a = tlb.fetch_result(tlb.optimize_local_map(K, pt, **args))
+    b = tlb.fetch_result(tlb.optimize_local_map(K, pt._replace(plan=None), **args))
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
 def test_cheirality_collapse_costs_more():
     """Throwing every point 100 m behind the cameras costs more than the
     sane state (the cheirality pricing), with the same numbers as JAX's

@@ -38,6 +38,26 @@ def test_conv_stem_kernel_matches_plain(cuda_device, H, W):  # noqa: F811
     torch.testing.assert_close(side, side_ref, rtol=1e-4, atol=1e-4)
 
 
+# the lazy schedule's B = 1: SuperPoint conv1b of one eye at 752×480, and
+# RCF's stage 1 of one eye at ×0.5
+@pytest.mark.parametrize("H,W", [(480, 752), (240, 376)])
+def test_conv_stem_kernel_one_image_matches_plain(cuda_device, H, W):  # noqa: F811
+    """K1 at B = 1 against its plain version, both modes, at the bounds of
+    the B = 2 test."""
+    g = torch.Generator(device=cuda_device).manual_seed(H)
+    x = torch.rand((1, H, W, 64), generator=g, device=cuda_device).to(torch.bfloat16)
+    w = torch.randn((3, 3, 64, 64), generator=g, device=cuda_device) * 0.06
+    b = torch.randn((64,), generator=g, device=cuda_device) * 0.1
+    sw = torch.randn((64,), generator=g, device=cuda_device)
+    wp = conv_stem_cuda.pack_weights(w)
+    got = conv_stem_cuda.conv3x3_relu_pool(x, wp, b)
+    got_s, side = conv_stem_cuda.conv3x3_relu_pool(x, wp, b, sw)
+    ref, side_ref = conv_stem_cuda.conv3x3_relu_pool_plain(x, w, b, sw)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+    assert torch.equal(got, got_s)
+    torch.testing.assert_close(side, side_ref, rtol=1e-4, atol=1e-4)
+
+
 def _layer(rng, C=256):
     def lin(cin, cout):
         return {"w": (rng.standard_normal((cin, cout)) / np.sqrt(cin)).astype(np.float32),
@@ -433,3 +453,97 @@ def test_async_ba_on_the_card_matches_the_cpu_order(cuda_device):  # noqa: F811
     d = np.linalg.norm(g.pt_pos[: c.n_pt][good] - c.pt_pos[: c.n_pt][good], axis=-1)
     assert np.quantile(d, 0.99) < 0.01
     assert np.abs(g.pt_obs_n[: c.n_pt] - c.pt_obs_n[: c.n_pt]).sum() <= 2
+
+
+def test_local_ba_on_the_card_repeats_bit_for_bit(cuda_device):  # noqa: F811
+    """``optimize_local_map`` twice on the same full-capacity window
+    (``make_ba_window``, seed 0): every output equal bit for bit (fixed-order
+    segment sums, no atomics)."""
+    from rspl_slam_tpu_torch.backend import local_ba
+    from rspl_slam_tpu_torch.config import CameraConfig
+    from rspl_slam_tpu_torch.evaluation import synthetic
+
+    prob = local_ba.BAProblem(**synthetic.make_ba_window(CameraConfig(), seed=0)[0])
+    K = _intrinsics()
+    a, b = (local_ba.fetch_result(local_ba.optimize_local_map(
+        K, local_ba.upload_problem(prob, cuda_device))) for _ in range(2))
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+def _lazy_system(cuda_device, n_frames):  # noqa: F811
+    """A lazy-right system on the card (lines, async BA, 320×240, 2 GNN
+    layers, bf16) and its rendered 8-bit frames."""
+    import dataclasses
+
+    from rspl_slam_tpu_torch.frontend.frontends import NeuralFrontend
+    from rspl_slam_tpu_torch.models import rcf
+    from rspl_slam_tpu_torch.slam import SLAMSystem
+
+    cfg = small_system_cfg()
+    cfg = dataclasses.replace(
+        cfg, use_lines=True,
+        pipeline=dataclasses.replace(cfg.pipeline, lazy_right_extraction=True),
+        keyframe=dataclasses.replace(cfg.keyframe, max_num_match=180))
+    frames, _ = rendered_sequence(cfg, n_frames, num_lines=12)
+    frames = [tuple((np.clip(im, 0, 1) * 255).astype(np.uint8) for im in f) for f in frames]
+    sp, sg = matcher_weights(cfg)
+    fe = NeuralFrontend(cfg, sp_params=sp, sg_params=sg, rcf_params=rcf.edge_detector_params(),
+                        device=cuda_device)
+    return cfg, frames, lambda: SLAMSystem(cfg, fe)
+
+
+def test_lazy_slice_runs_on_the_card(cuda_device):  # noqa: F811
+    """The lazy slice on the card (6 frames): it initializes and tracks
+    through the combined step; one stereo completion per initialization
+    attempt and per keyframe, each bringing the frame's descriptors down
+    once; K1 and its side mode launch once per frame and once per
+    completion, K3 once per match (the tracked frames' temporal matches and
+    the completions' stereo matches), K2 once per GNN layer of each."""
+    cfg, frames, system = _lazy_system(cuda_device, 6)
+    slam = system()
+    fe = slam.frontend
+    before = (conv_stem_cuda.launches, conv_stem_cuda.side_launches, attention_cuda.launches,
+              sinkhorn_cuda.launches, fe.stereo_completions, fe.desc_downloads)
+    recs = [slam.add_frame(i, 0.05 * i, *f) for i, f in enumerate(frames)]
+    slam.flush_ba()
+    k1, k1s, k2, k3, done, down = (a - b for a, b in zip(
+        (conv_stem_cuda.launches, conv_stem_cuda.side_launches, attention_cuda.launches,
+         sinkhorn_cuda.launches, fe.stereo_completions, fe.desc_downloads), before))
+    init = next(i for i, r in enumerate(recs) if r.is_keyframe) + 1
+    assert slam.initialized and min(r.num_inliers for r in recs[init:]) > 20
+    assert "frame_combined" in slam.timings and slam.map.n_kf >= 2
+    assert done == init + slam.map.n_kf - 1 == down
+    assert k1 == k1s == len(frames) + done
+    matches = len(frames) - init + done
+    assert k3 == matches and k2 == cfg.superglue.num_gnn_layers * matches
+    assert np.isfinite(np.stack([r.Twc for r in recs])).all()
+
+
+def test_runner_on_the_card_matches_serial_calls(cuda_device):  # noqa: F811
+    """The PipelinedRunner on the card (the extract thread on its own
+    stream, each frame's event waited on by the tracking thread) makes the
+    serial loop's keyframe decisions and inlier counts."""
+    from rspl_slam_tpu_torch.datasets import StereoFrame
+    from rspl_slam_tpu_torch.pipeline import PipelinedRunner
+
+    _, frames, system = _lazy_system(cuda_device, 8)
+    serial = system()
+    recs_s = [serial.add_frame(i, 0.05 * i, *f) for i, f in enumerate(frames)]
+
+    class Frames:
+        def __len__(self):
+            return len(frames)
+
+        def __getitem__(self, i):
+            return StereoFrame(i, 0.05 * i, *frames[i])
+
+    piped = system()
+    recs_p = PipelinedRunner(piped, Frames()).run()
+    piped.flush_ba()
+    serial.flush_ba()
+    assert [r.is_keyframe for r in recs_p] == [r.is_keyframe for r in recs_s]
+    assert [r.num_inliers for r in recs_p] == [r.num_inliers for r in recs_s]
+    assert sum(r.is_keyframe for r in recs_s) >= 2
+    np.testing.assert_allclose(np.stack([r.Twc for r in recs_p]),
+                               np.stack([r.Twc for r in recs_s]), atol=1e-5)

@@ -285,16 +285,13 @@ def test_default_device_is_the_card(monkeypatch):
     assert SLAMSystem(cfg, fe, enable_ba=False).device.type == "cpu"
 
 
-@pytest.mark.parametrize("what", ["lazy_right", "match_outlier_rejection", "loop_closure"])
+@pytest.mark.parametrize("what", ["match_outlier_rejection", "loop_closure"])
 def test_unported_configurations_raise(what):
     cfg = small_system_cfg()
     fe = TFE(cfg, device="cpu")
     pipe = cfg.pipeline
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "lazy_right":
-            TFE(dataclasses.replace(cfg, pipeline=dataclasses.replace(
-                pipe, lazy_right_extraction=True)), device="cpu")
-        elif what == "match_outlier_rejection":
+        if what == "match_outlier_rejection":
             SLAMSystem(dataclasses.replace(cfg, pipeline=dataclasses.replace(
                 pipe, match_outlier_rejection=True)), fe, enable_ba=False)
         else:

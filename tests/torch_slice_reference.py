@@ -3,7 +3,7 @@ the CPU, on the scene and weights ``chip_smoke.py`` drives on the card,
 and print one JSON line with what they agree on.
 
     JAX_PLATFORMS=cpu python tests/torch_slice_reference.py [--width 376 --height 240] \
-        [--lines] [--ba]
+        [--lines] [--ba] [--lazy]
 
 Both run f32 at the given size (multiples of 8) with the EuRoC
 intrinsics scaled by width/752, K = 400, 18 GNN layers, 100 Sinkhorn
@@ -13,7 +13,10 @@ scene of ``chip_smoke.py``'s lines phase (12 dark segments) with
 ``--ba`` the default local BA (async, after every keyframe). With lines and
 BA on both run RCF at full size (``rcf_at_detection_scale=False``): the
 JAX package's default eager path misreads its segments (ROADMAP.md §3),
-which BA would turn into pose errors. The JAX run's ATE, with margin, is
+which BA would turn into pose errors. ``--lazy`` runs the lazy-right
+production path of ``chip_smoke.py``'s ``end_to_end_lazy`` phase: lines and
+BA on, RCF at the detection scale (the route of the combined frame step),
+the frames quantized to 8 bits. The JAX run's ATE, with margin, is
 the matching end-to-end ATE bound of ``chip_smoke.py``. The line also
 reports how far the random SuperPoint's keypoints sit from the rendered
 blobs and how many temporal matches do not move between frames, which
@@ -42,7 +45,10 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=30)
     ap.add_argument("--lines", action="store_true")
     ap.add_argument("--ba", action="store_true")
+    ap.add_argument("--lazy", action="store_true")
     args = ap.parse_args()
+    if args.lazy:
+        args.lines = args.ba = True
 
     import jax
     import jax.numpy as jnp
@@ -61,10 +67,16 @@ def main() -> int:
     cfg = small_system_cfg(width=args.width, height=args.height, layers=18)
     num_lines = 12 if args.lines else 0
     cfg = dataclasses.replace(cfg, use_lines=args.lines)
-    if args.ba and args.lines:
+    if args.lazy:
+        cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+            cfg.pipeline, lazy_right_extraction=True))
+    elif args.ba and args.lines:
         cfg = dataclasses.replace(cfg, line_detector=dataclasses.replace(
             cfg.line_detector, rcf_at_detection_scale=False))
     frames, traj = rendered_sequence(cfg, args.frames, num_lines=num_lines)
+    if args.lazy:
+        frames = [tuple((np.clip(im, 0, 1) * 255).astype(np.uint8) for im in f)
+                  for f in frames]
     sp, sg = matcher_weights(cfg)
     rp = rcf.edge_detector_params() if args.lines else None
     tfe = TFE(cfg, sp_params=sp, sg_params=sg, rcf_params=rp, compute_dtype=torch.float32,
@@ -76,7 +88,7 @@ def main() -> int:
     ts = np.arange(args.frames) * 0.05
     gt = np.einsum("ij,njk->nik", INIT_POSE, traj)
     out = {"image": [cfg.camera.image_width, cfg.camera.image_height],
-           "frames": args.frames, "ba": args.ba}
+           "frames": args.frames, "ba": args.ba, "lazy": args.lazy}
     for name, slam in runs.items():
         recs = [slam.add_frame(i, ts[i], *frames[i]) for i in range(args.frames)]
         slam.flush_ba()
@@ -104,6 +116,7 @@ def main() -> int:
     # where the random SuperPoint's keypoints sit, and how temporal matches move
     scene = synthetic.make_scene(num_points=600, num_lines=num_lines, seed=1,
                                  extent=(6.0, 4.0, 6.0), on_line_frac=0.0)
+    tfe.lazy_right = False  # the eager pair gives every field at once
     f0, f3 = tfe.extract_pair(*frames[0]), tfe.extract_pair(*frames[3])
     i0 = tfe.match(f3, f0)
     m = np.nonzero(i0 >= 0)[0]
