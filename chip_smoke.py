@@ -44,11 +44,30 @@ Phases (one JSON line each):
      both modes = frames + completions, and fewer K3 launches than the BA
      path; the same frames through serial ``add_frame`` calls, then the
      runner once more, give the serial frames/s beside the runner's;
-  5. the {"kernels": [...]} summary (launches from the BA path, the
-     default main path; each path's counts in ``launches_by_path``, each
-     path's ATE in ``ate_by_path``); last line {"ok": true, "device": ...}.
-     With --kernels, phases 3-4 are skipped and the summary's launch
-     counts are null.
+  5. the command line, as a user types it, in a subprocess that cannot
+     import PyYAML, PIL or matplotlib (stub packages that raise on import
+     come first on its path, as on a card machine without them):
+     ``cli_run``, ``python -m rspl_slam_tpu_torch.cli run --config
+     configs/euroc.yaml`` (the default main path: lines, async BA) on the
+     BA path's 30 frames quantized to 8 bits and written as a raw-EuRoC
+     PNG tree, with the smoke's weights as ``.npz`` and an OpenCV-layout
+     camera file (identity R, zero D: the remap runs); gated on the exit,
+     30 frames, the decoded frames equal to the written ones, the ATE,
+     the trajectory file equal to an in-process ``PipelinedRunner`` run's,
+     the map reloading and ``resume_from_map`` tracking 5 more frames,
+     the visualization PNGs decoding, and the CLI's printed kernel launch
+     counts (equal to the in-process run's); ``cli_synth``, ``synth
+     --frames 100`` (the unfused tracking path) under an ATE bound from
+     the JAX CLI's own run; ``cli_convert``, ``convert-weights`` of
+     public-layout state dicts against the direct loaders. The PNG
+     reader's compiled row unfilter (host code, no kernel) is held against
+     the numpy one bit for bit in ``png_unfilter`` after the kernel
+     checks, in every mode;
+  6. the {"kernels": [...]} summary (launches from the BA path, the
+     default main path; each path's counts in ``launches_by_path``, the
+     CLI's as ``cli_run``; each path's ATE in ``ate_by_path``); last line
+     {"ok": true, "device": ...}. With --kernels, phases 3-5 are skipped
+     and the summary's launch counts are null.
 
 Any failure raises and exits non-zero. The script imports nothing of JAX
 or of the JAX package.
@@ -56,9 +75,12 @@ or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -421,13 +443,9 @@ def check_sinkhorn():
 
 
 def _counters():
-    from rspl_slam_tpu_torch.ops import attention_cuda, conv_stem_cuda, sinkhorn_cuda
+    from rspl_slam_tpu_torch.ops import cuda_build
 
-    return {"conv_stem": conv_stem_cuda.launches,
-            "conv_stem_side": conv_stem_cuda.side_launches,
-            "superglue_layer": attention_cuda.launches,
-            "superglue_layer_f32": attention_cuda.f32_launches,
-            "sinkhorn": sinkhorn_cuda.launches}
+    return cuda_build.launch_counts()
 
 
 def _reset_counters():
@@ -837,6 +855,394 @@ def phase_ba_repeat(a: dict, b: dict):
         raise AssertionError(f"end_to_end_ba does not repeat: {same}")
 
 
+# ---------------------------------------------------------------- the CLI
+WORK = os.path.join(ROOT, "_smoke_work")  # git-ignored; removed at the end
+CLI_ATE_BOUND = E2E_ATE_BOUND
+# cli_synth's bound: the JAX CLI's own `synth --frames 100` ATE (all frames)
+# on the CPU, 0.00554 m (tests/torch_slice_reference.py --synth; the port's
+# CLI on the CPU gives the same), times 2
+SYNTH_FRAMES = 100
+SYNTH_JAX_ATE = 0.00554
+SYNTH_ATE_BOUND = 2 * SYNTH_JAX_ATE
+
+
+# imported by the JAX package's IO, absent from a bare card machine: the
+# CLI subprocess runs with each of them made to fail on import
+HIDDEN_MODULES = ("yaml", "PIL", "matplotlib")
+
+
+def _hidden_modules_dir() -> str:
+    """A directory of stub packages whose import raises ImportError, put
+    first on the CLI subprocess's path: the port then runs as on a machine
+    without PyYAML, PIL or matplotlib, whatever this one has."""
+    d = os.path.join(WORK, "hidden_modules")
+    for name in HIDDEN_MODULES:
+        os.makedirs(os.path.join(d, name), exist_ok=True)
+        with open(os.path.join(d, name, "__init__.py"), "w") as f:
+            f.write(f"raise ImportError('{name} is hidden from the CLI by chip_smoke.py')\n")
+    return d
+
+
+def _cli(*argv, timeout: int = 600) -> str:
+    """``python -m rspl_slam_tpu_torch.cli`` in a subprocess from the
+    checkout's root, as a user runs it, with PyYAML, PIL and matplotlib
+    hidden; raises on a non-zero exit."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([_hidden_modules_dir(), ROOT])}
+    res = subprocess.run([sys.executable, "-m", "rspl_slam_tpu_torch.cli", *argv], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=timeout)
+    if res.returncode != 0:
+        raise AssertionError(f"cli {argv[0]} exited {res.returncode}:\n"
+                             f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+    return res.stdout
+
+
+def _camera_yaml(path, cam):
+    """The camera as an OpenCV-layout calibration file: the rectified
+    intrinsics as K and P (the right P with -bf), identity R, zero D, each
+    matrix wrapped over several lines, so the rectification maps are built
+    (and the remap runs on the card) and the wrapped matrices go through
+    the PyYAML-free parser."""
+    def mat(name, rows, cols, vals):
+        body = ",\n         ".join(", ".join(repr(float(v)) for v in vals[r * cols:(r + 1) * cols])
+                                   for r in range(rows))
+        return (f"{name}: !!opencv-matrix\n  rows: {rows}\n  cols: {cols}\n  dt: d\n"
+                f"  data: [{body}]\n")
+
+    K = [cam.fx, 0, cam.cx, 0, cam.fy, cam.cy, 0, 0, 1]
+    text = (f"%YAML:1.0\nimage_width: {cam.image_width}\nimage_height: {cam.image_height}\n"
+            f"bf: {cam.bf!r}\ndepth_lower_thr: {cam.depth_lower_thr!r}\n"
+            f"depth_upper_thr: {cam.depth_upper_thr!r}\nmax_y_diff: {cam.max_y_diff!r}\n"
+            f"distortion_type: {cam.distortion_type}\n")
+    for side, tx in (("LEFT", 0.0), ("RIGHT", -cam.bf)):
+        text += (mat(f"{side}.D", 1, 5, [0.0] * 5) + mat(f"{side}.K", 3, 3, K)
+                 + mat(f"{side}.R", 3, 3, [1, 0, 0, 0, 1, 0, 0, 0, 1])
+                 + mat(f"{side}.P", 3, 4, [cam.fx, 0, cam.cx, tx, 0, cam.fy, cam.cy, 0,
+                                           0, 0, 1, 0]))
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def _write_tree(root, frames_u8, gt):
+    """A raw-EuRoC tree: mav0/cam{0,1}/data/<ns>.png (the port's PNG
+    writer, filters chosen per row), cam0/data.csv and the ground-truth
+    csv."""
+    from rspl_slam_tpu_torch import png
+
+    seq = os.path.join(root, "mav0")
+    names = [1_403_636_579_763_555_584 + i * 50_000_000 for i in range(len(frames_u8))]
+    for ns, pair in zip(names, frames_u8):
+        for cam, im in zip(("cam0", "cam1"), pair):
+            png.write_png(os.path.join(seq, cam, "data", f"{ns}.png"), im)
+    with open(os.path.join(seq, "cam0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],filename\n")
+        f.writelines(f"{ns},{ns}.png\n" for ns in names)
+    os.makedirs(os.path.join(seq, "state_groundtruth_estimate0"))
+    with open(os.path.join(seq, "state_groundtruth_estimate0", "data.csv"), "w") as f:
+        f.write("#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m]\n")
+        f.writelines(f"{ns},{float(T[0, 3])!r},{float(T[1, 3])!r},{float(T[2, 3])!r}\n"
+                     for ns, T in zip(names, gt))
+
+
+def phase_png_unfilter():
+    """The compiled host unfilter (csrc/png_unfilter.cu) against the numpy
+    one, bit for bit, on 752×480 gray and RGB images written with each of
+    the five filters and with the per-row choice."""
+    from rspl_slam_tpu_torch import png
+
+    rng = np.random.default_rng(0)
+    os.makedirs(WORK, exist_ok=True)
+    cases, ms = 0, {}
+    for ch in (1, 3):
+        img = rng.integers(0, 256, (480, 752, ch), dtype=np.uint8)
+        img[100:200] = np.linspace(0, 255, 752, dtype=np.uint8)[None, :, None]
+        for ft in png.FILTERS + (None,):
+            path = os.path.join(WORK, f"unfilter_{ch}_{ft}.png")
+            png.write_png(path, img, ft)
+            with open(path, "rb") as f:
+                data = f.read()
+            t0 = time.perf_counter()
+            a = png.read_png(data, compiled=True)
+            t1 = time.perf_counter()
+            b = png.read_png(data, compiled=False)
+            t2 = time.perf_counter()
+            if not (np.array_equal(a, b) and np.array_equal(a.reshape(img.shape), img)):
+                raise AssertionError(f"png_unfilter: compiled and numpy disagree ({ch}, {ft})")
+            ms[f"{ch}ch_{ft}"] = [(t1 - t0) * 1e3, (t2 - t1) * 1e3]
+            cases += 1
+    emit({"phase": "png_unfilter", "cases": cases, "bit_exact": True,
+          "decode_ms_compiled_numpy": ms})
+
+
+def _decode_ms_per_pair(root, compiled: bool, n: int) -> float:
+    from rspl_slam_tpu_torch.datasets import open_dataset
+
+    ds = open_dataset(root, compiled=compiled)
+    t0 = time.perf_counter()
+    for i in range(n):
+        ds[i]
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_cli_run():
+    """The user's command on the card: ``python -m rspl_slam_tpu_torch.cli
+    run --config configs/euroc.yaml`` (the default main path: lines, async
+    BA; the algorithm section equals ``SystemConfig()``) on the BA path's
+    30 frames quantized to 8 bits and written as a raw-EuRoC tree, with the
+    smoke's weights as ``.npz`` and an OpenCV camera file, in a subprocess.
+    Gated on its exit, the frame count, the decoded frames, the ATE, the
+    trajectory against an in-process ``PipelinedRunner`` run, the saved
+    map (reload and resume), the visualization PNGs and the kernels."""
+    import torch
+
+    from rspl_slam_tpu_torch import config, png
+    from rspl_slam_tpu_torch.backend.map_store import MapStore
+    from rspl_slam_tpu_torch.config import SystemConfig, load_system_config
+    from rspl_slam_tpu_torch.datasets import open_dataset
+    from rspl_slam_tpu_torch.frontend.frontends import NeuralFrontend
+    from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
+    from rspl_slam_tpu_torch.models.weights import save_npz_pytree
+    from rspl_slam_tpu_torch.pipeline import PipelinedRunner
+    from rspl_slam_tpu_torch.slam import INIT_POSE, SLAMSystem
+
+    euroc = os.path.join(ROOT, "configs", "euroc.yaml")
+    if load_system_config(euroc, None) != SystemConfig():
+        raise AssertionError("cli_run: configs/euroc.yaml's algorithm section is not SystemConfig()")
+    cfg0 = SystemConfig()
+    frames, traj, render_s = _scene(cfg0, True)
+    frames_u8 = [tuple((np.clip(im, 0, 1) * 255).astype(np.uint8) for im in f) for f in frames]
+    work = os.path.join(WORK, "cli_run")
+    shutil.rmtree(work, ignore_errors=True)
+    tree = os.path.join(work, "MH_smoke")
+    t0 = time.perf_counter()
+    _write_tree(tree, frames_u8, np.einsum("ij,njk->nik", INIT_POSE, traj))
+    write_s = time.perf_counter() - t0
+    cam_yaml = os.path.join(work, "camera.yaml")
+    _camera_yaml(cam_yaml, cfg0.camera)
+    w = {"sp": superpoint.init_params(0),
+         "sg": superglue.descriptor_matcher_params(cfg0.superglue, 0, 2000.0, 1980.0),
+         "rcf": rcf.edge_detector_params()}
+    for k, params in w.items():
+        save_npz_pytree(os.path.join(work, f"{k}.npz"), params)
+    p = {k: os.path.join(work, k) for k in ("traj.txt", "map.npz", "map_text", "viz",
+                                              "inproc.txt")}
+    t0 = time.perf_counter()
+    out = _cli("run", "--dataroot", tree, "--config", euroc, "--camera-config", cam_yaml,
+               "--sp-weights", os.path.join(work, "sp.npz"),
+               "--sg-weights", os.path.join(work, "sg.npz"),
+               "--rcf-weights", os.path.join(work, "rcf.npz"), "--gt", tree,
+               "--traj-path", p["traj.txt"], "--save-map", p["map.npz"],
+               "--save-map-text", p["map_text"], "--viz-dir", p["viz"])
+    cli_wall = time.perf_counter() - t0
+    processed = re.search(r"^processed (\d+) frames in ([0-9.]+)s \(([0-9.]+) fps\)$", out, re.M)
+    ate = json.loads(re.search(r"^ATE: (.*)$", out, re.M).group(1))
+    launches = json.loads(re.search(r"^kernel launches: (.*)$", out, re.M).group(1))
+
+    # the same config, weights and decoded frames through PipelinedRunner here
+    cfg = load_system_config(euroc, cam_yaml)
+    cfg = dataclasses.replace(
+        cfg, superpoint=dataclasses.replace(cfg.superpoint, weights_path=os.path.join(work, "sp.npz")),
+        superglue=dataclasses.replace(cfg.superglue, weights_path=os.path.join(work, "sg.npz")),
+        line_detector=dataclasses.replace(cfg.line_detector,
+                                          rcf_weights_path=os.path.join(work, "rcf.npz")))
+    fe = NeuralFrontend(cfg)
+    ds = open_dataset(tree, compiled=True)
+    decoded_equal = all(
+        np.array_equal(ds[i].image_left, frames_u8[i][0].astype(np.float32) / 255.0)
+        and np.array_equal(ds[i].image_right, frames_u8[i][1].astype(np.float32) / 255.0)
+        for i in range(len(frames_u8)))
+    slam = SLAMSystem(cfg, fe)
+    _reset_counters()
+    t0 = time.perf_counter()
+    PipelinedRunner(slam, ds, queue_depth=cfg.pipeline.queue_depth).run()
+    torch.cuda.synchronize()
+    inproc_wall = time.perf_counter() - t0
+    inproc_launches = _counters()
+    slam.save_trajectory(p["inproc.txt"])
+    with open(p["traj.txt"]) as f, open(p["inproc.txt"]) as g:
+        cli_traj, inproc_traj = f.read(), g.read()
+
+    # the repaired YAML subset parser against PyYAML where this host has it
+    # (the CLI above parsed both files without it)
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
+    mini_equal = None
+    if yaml is not None:
+        mini_equal = all(
+            config._mini_yaml(f) == yaml.safe_load(config._strip_opencv(open(f).read()))
+            for f in (euroc, cam_yaml))
+    host_has = {}
+    for name in HIDDEN_MODULES:
+        try:
+            __import__(name)
+            host_has[name] = True
+        except ImportError:
+            host_has[name] = False
+
+    stored = MapStore.load(p["map.npz"])
+    resumed = SLAMSystem(cfg, fe)
+    resumed.resume_from_map(p["map.npz"])
+    recs = [resumed.add_frame(i, 10.0 + 0.05 * i, *frames_u8[E2E_FRAMES - 5 + i])
+            for i in range(5)]
+    resumed.flush_ba()
+    resume_inliers = [int(r.num_inliers) for r in recs]
+    viz_png = sorted(f for f in os.listdir(p["viz"]) if f.endswith(".png"))
+    for f in viz_png:
+        with open(os.path.join(p["viz"], f), "rb") as fh:
+            png.read_png(fh.read(), compiled=True)
+    line = {"phase": "cli_run", "frames": int(processed.group(1)) if processed else None,
+            "image": [cfg.camera.image_width, cfg.camera.image_height],
+            "max_keypoints": cfg.superpoint.max_keypoints,
+            "gnn_layers": cfg.superglue.num_gnn_layers,
+            "sinkhorn_iters": cfg.superglue.sinkhorn_iterations, "use_lines": cfg.use_lines,
+            "async_ba": cfg.pipeline.async_ba, "rectify_maps": fe._rect_maps is not None,
+            "cli_fps_printed": float(processed.group(3)) if processed else None,
+            "cli_wall_s": cli_wall, "inproc_frames_per_s": E2E_FRAMES / inproc_wall,
+            "keyframe_ate_rmse_m": ate["rmse"], "ate_n": ate["n"], "ate_bound_m": CLI_ATE_BOUND,
+            "decoded_equal": decoded_equal,
+            "trajectory_equal_inproc": cli_traj == inproc_traj,
+            "keyframes": len(cli_traj.splitlines()),
+            "map_keyframes": int(stored.n_kf), "map_points": int(stored.n_pt),
+            "map_lines": int(stored.n_ln), "resume_inliers": resume_inliers,
+            "viz_pngs": len(viz_png), "hidden_from_cli": list(HIDDEN_MODULES),
+            "host_has": host_has, "mini_yaml_equals_pyyaml": mini_equal,
+            "launches": launches,
+            "inproc_launches": inproc_launches,
+            "decode_ms_per_pair_compiled": _decode_ms_per_pair(tree, True, E2E_FRAMES),
+            "decode_ms_per_pair_numpy": _decode_ms_per_pair(tree, False, 5),
+            "render_s": render_s, "tree_write_s": write_s}
+    emit(line)
+    if not processed or int(processed.group(1)) != E2E_FRAMES:
+        raise AssertionError(f"cli_run: expected {E2E_FRAMES} frames processed:\n{out}")
+    if not decoded_equal:
+        raise AssertionError("cli_run: the decoded PNG frames differ from the written arrays")
+    if not ate["rmse"] < CLI_ATE_BOUND or ate["n"] < 3:
+        raise AssertionError(f"cli_run: ATE {ate} over the bound {CLI_ATE_BOUND}")
+    if cli_traj != inproc_traj:
+        raise AssertionError("cli_run: the CLI's trajectory differs from the in-process "
+                             f"runner's:\n{cli_traj}\n---\n{inproc_traj}")
+    if stored.n_kf != len(cli_traj.splitlines()) or stored.n_pt <= 0:
+        raise AssertionError(f"cli_run: the saved map holds {stored.n_kf} keyframes")
+    if min(resume_inliers) <= E2E_MIN_INLIERS or not np.isfinite(
+            np.stack([r.Twc for r in recs])).all():
+        raise AssertionError(f"cli_run: resume_from_map then tracked {resume_inliers}")
+    if mini_equal is False:
+        raise AssertionError("cli_run: the YAML subset parser disagrees with PyYAML")
+    if "trajectory.png" not in viz_png or not any(f.startswith("frame_") for f in viz_png):
+        raise AssertionError(f"cli_run: visualization PNGs missing: {viz_png}")
+    for k in ("conv_stem", "conv_stem_side", "superglue_layer", "sinkhorn"):
+        if launches[k] <= 0:
+            raise AssertionError(f"cli_run: kernel {k} never launched")
+    if launches != inproc_launches:
+        raise AssertionError(f"cli_run: launches {launches} against {inproc_launches} in process")
+    return line, launches
+
+
+def phase_cli_synth():
+    """``synth --frames 100`` on the card: the oracle frontend on the
+    unfused tracking path (host matching, PnP and pose-only LM on the
+    card, lines, local BA)."""
+    out = _cli("synth", "--frames", str(SYNTH_FRAMES))
+    ate = json.loads(re.search(r"^ATE: (.*)$", out, re.M).group(1))
+    m = re.search(r"^keyframes=(\d+) mappoints=(\d+) maplines=(\d+)$", out, re.M)
+    fps = re.search(r"^\d+ frames in ([0-9.]+)s \(([0-9.]+) fps\)$", out, re.M)
+    line = {"phase": "cli_synth", "frames": SYNTH_FRAMES, "ate_rmse_m": ate["rmse"],
+            "ate_n": ate["n"], "ate_bound_m": SYNTH_ATE_BOUND,
+            "jax_cpu_ate_rmse_m": SYNTH_JAX_ATE, "keyframes": int(m.group(1)),
+            "mappoints": int(m.group(2)), "maplines": int(m.group(3)),
+            "fps_printed": float(fps.group(2))}
+    emit(line)
+    if ate["n"] != SYNTH_FRAMES or not ate["rmse"] < SYNTH_ATE_BOUND:
+        raise AssertionError(f"cli_synth: ATE {ate} over the bound {SYNTH_ATE_BOUND}")
+    if line["keyframes"] < 2 or line["maplines"] <= 0:
+        raise AssertionError(f"cli_synth: {m.group(0)}")
+
+
+def _public_state_dicts():
+    """Random state dicts in the public checkpoint layouts (key names,
+    OIHW and Conv1d shapes, BatchNorm statistics) of the three models at
+    their full sizes."""
+    import torch
+
+    from rspl_slam_tpu_torch.config import SuperGlueConfig
+    from rspl_slam_tpu_torch.models import rcf, superpoint
+
+    g = torch.Generator().manual_seed(0)
+
+    def t(*shape, scale=0.1):
+        return torch.randn(*shape, generator=g) * scale
+
+    sp = {}
+    for name, cin, cout, k in superpoint.LAYERS:
+        sp[f"{name}.weight"], sp[f"{name}.bias"] = t(cout, cin, k, k), t(cout)
+    cfg = SuperGlueConfig()
+    d = cfg.descriptor_dim
+    sg = {"bin_score": torch.tensor(1.0)}
+
+    def conv1d(prefix, cin, cout):
+        sg[f"{prefix}.weight"], sg[f"{prefix}.bias"] = t(cout, cin, 1), t(cout)
+
+    def bn(prefix, ch):
+        sg[f"{prefix}.weight"], sg[f"{prefix}.bias"] = 1.0 + t(ch), t(ch)
+        sg[f"{prefix}.running_mean"] = t(ch)
+        sg[f"{prefix}.running_var"] = 0.5 + torch.rand(ch, generator=g)
+        sg[f"{prefix}.num_batches_tracked"] = torch.tensor(1000)
+
+    chans = [3, *cfg.keypoint_encoder, d]
+    for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
+        conv1d(f"kenc.encoder.{3 * i}", cin, cout)
+        if i < len(chans) - 2:
+            bn(f"kenc.encoder.{3 * i + 1}", cout)
+    for li in range(cfg.num_gnn_layers):
+        base = f"gnn.layers.{li}"
+        for j in range(3):
+            conv1d(f"{base}.attn.proj.{j}", d, d)
+        conv1d(f"{base}.attn.merge", d, d)
+        conv1d(f"{base}.mlp.0", 2 * d, 2 * d)
+        bn(f"{base}.mlp.1", 2 * d)
+        conv1d(f"{base}.mlp.3", 2 * d, d)
+    conv1d("final_proj", d, d)
+    rc = {}
+    for si, (_, convs) in enumerate(rcf.STAGES, start=1):
+        for i, (cin, cout) in enumerate(convs):
+            rc[f"module.conv{si}_{i + 1}.weight"] = t(cout, cin, 3, 3)
+            rc[f"module.conv{si}_{i + 1}.bias"] = t(cout)
+            rc[f"module.conv{si}_{i + 1}_down.weight"] = t(rcf.SIDE_CH, cout, 1, 1)
+            rc[f"module.conv{si}_{i + 1}_down.bias"] = t(rcf.SIDE_CH)
+        rc[f"module.score_dsn{si}.weight"] = t(1, rcf.SIDE_CH, 1, 1)
+        rc[f"module.score_dsn{si}.bias"] = t(1)
+    rc["module.score_final.weight"], rc["module.score_final.bias"] = t(1, 5, 1, 1), t(1)
+    return {"superpoint": sp, "superglue": sg, "rcf": {"epoch": 30, "state_dict": rc}}
+
+
+def phase_cli_convert():
+    """``convert-weights`` of each model's public-layout state dict (written
+    with ``torch.save``) equals the direct ``.pth`` loader, array for
+    array."""
+    import torch
+
+    from rspl_slam_tpu_torch import cli
+    from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
+    from rspl_slam_tpu_torch.models.weights import flatten_pytree
+
+    loaders = {"superpoint": superpoint.load_torch_weights,
+               "superglue": superglue.load_torch_weights, "rcf": rcf.load_torch_weights}
+    os.makedirs(WORK, exist_ok=True)
+    arrays = {}
+    for model, sd in _public_state_dicts().items():
+        pth, npz = os.path.join(WORK, f"{model}.pth"), os.path.join(WORK, f"{model}.npz")
+        torch.save(sd, pth)
+        cli.main(["convert-weights", "--model", model, "--input", pth, "--output", npz])
+        direct = flatten_pytree(loaders[model](pth))
+        with np.load(npz) as z:
+            if sorted(z.files) != sorted(direct) or not all(
+                    np.array_equal(z[k], direct[k]) for k in z.files):
+                raise AssertionError(f"cli_convert: {model} differs from the direct loader")
+        arrays[model] = len(direct)
+    emit({"phase": "cli_convert", "arrays": arrays, "equal": True})
+
+
 def phase_profile(cfg, fe, frames, n_warm: int = 3, n_prof: int = 3):
     """torch.profiler over a few tracked frames of a fresh run: device time
     by operator, the host↔device copies and synchronizations, and the
@@ -965,6 +1371,7 @@ def main(argv) -> int:
     lines["superglue_layer"] = check_superglue_layer(bf16=True)
     lines["superglue_layer_f32"] = check_superglue_layer(bf16=False)
     lines["sinkhorn"] = check_sinkhorn()
+    phase_png_unfilter()
     by_path, ate_by_path = {}, {}
     if "--kernels" not in argv:
         phase_local_ba_check("--profile" in argv)
@@ -988,6 +1395,13 @@ def main(argv) -> int:
         line, by_path["end_to_end_lazy"] = phase_end_to_end_lazy(
             by_path["end_to_end_ba"]["sinkhorn"])
         ate_by_path["end_to_end_lazy"] = line["ate_rmse_m"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        line, by_path["cli_run"] = phase_cli_run()
+        ate_by_path["cli_run"] = line["keyframe_ate_rmse_m"]
+        phase_cli_synth()
+        phase_cli_convert()
+    shutil.rmtree(WORK, ignore_errors=True)
     phase_summary(lines, by_path, ate_by_path)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -248,78 +248,136 @@ class SystemConfig:
 # ---------------------------------------------------------------------------
 
 
+def _strip_opencv(text: str) -> str:
+    """OpenCV YAML directives (%YAML:1.0) and ``!!opencv-matrix`` tags choke
+    strict loaders: strip them to plain maps."""
+    text = re.sub(r"^%YAML:.*$", "", text, flags=re.M)
+    return text.replace("!!opencv-matrix", "")
+
+
 def _load_yaml(path: str) -> dict:
-    """Parse YAML. Uses PyYAML if present; falls back to a small parser able
-    to handle the reference's config subset (flat nested maps + the OpenCV
-    ``!!opencv-matrix`` blocks in camera files)."""
+    """Parse YAML. Uses PyYAML if present; falls back to :func:`_mini_yaml`,
+    which reads the subset the repo's config files use."""
     try:
         import yaml  # type: ignore
-
-        with open(path) as f:
-            text = f.read()
-        # OpenCV YAML directives (%YAML:1.0) and !!opencv-matrix tags choke
-        # strict loaders — strip them to plain maps.
-        text = re.sub(r"^%YAML:.*$", "", text, flags=re.M)
-        text = text.replace("!!opencv-matrix", "")
-        return yaml.safe_load(text) or {}
-    except ModuleNotFoundError:
+    except ImportError:
         return _mini_yaml(path)
+    with open(path) as f:
+        return yaml.safe_load(_strip_opencv(f.read())) or {}
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a ``#`` comment: one at the start or after whitespace, outside
+    quotes (YAML's rule)."""
+    quote = None
+    for i, c in enumerate(line):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in "'\"":
+            quote = c
+        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _flow_items(body: str) -> list:
+    """The items of a flat flow sequence's body (between the brackets)."""
+    return [_scalar(x) for x in body.split(",") if x.strip()]
 
 
 def _mini_yaml(path: str) -> dict:
-    """Tiny indentation-based YAML subset parser (maps, scalars, inline
-    lists, block lists of scalars)."""
+    """Indentation-based parser of the YAML subset the config files use,
+    for machines without PyYAML: nested block maps, scalars resolved as
+    PyYAML resolves them (YAML 1.1), flow sequences ``[a, b, ...]`` that
+    may wrap over several lines (the OpenCV matrix blocks), block
+    sequences of scalars, comments, ``%YAML`` directives and
+    ``!!opencv-matrix`` tags. It returns what ``yaml.safe_load`` returns
+    on the stripped text of those files."""
+    with open(path) as f:
+        lines = _strip_opencv(f.read()).splitlines()
     root: dict[str, Any] = {}
     stack: list[tuple[int, Any]] = [(-1, root)]
-    last_key: list[str | None] = [None]
-    with open(path) as f:
-        for raw in f:
-            line = raw.split("#", 1)[0].rstrip()
-            if not line.strip() or line.strip().startswith("%"):
-                continue
-            indent = len(line) - len(line.lstrip())
-            stripped = line.strip()
-            while stack and indent <= stack[-1][0]:
-                stack.pop()
-            parent = stack[-1][1]
-            if stripped.startswith("- "):
-                val = _scalar(stripped[2:])
-                key = last_key[0]
-                if isinstance(parent, dict) and key is not None:
-                    parent.setdefault(key, [])
-                    if isinstance(parent[key], list):
-                        parent[key].append(val)
-                continue
-            if ":" in stripped:
-                key, _, rest = stripped.partition(":")
-                key = key.strip().strip('"')
-                rest = rest.strip().replace("!!opencv-matrix", "").strip()
-                if not rest:
-                    child: dict = {}
+    last_key: str | None = None
+    i = 0
+    while i < len(lines):
+        line = _strip_comment(lines[i]).rstrip()
+        i += 1
+        stripped = line.strip()
+        if not stripped or stripped.startswith("%"):
+            continue
+        indent = len(line) - len(line.lstrip())
+        while indent <= stack[-1][0]:
+            stack.pop()
+        parent = stack[-1][1]
+        if stripped.startswith("-") and stripped[1:2] in ("", " "):
+            if isinstance(parent, dict) and last_key is not None:
+                if parent.get(last_key) is None:
+                    parent[last_key] = []
+                parent[last_key].append(_scalar(stripped[1:]))
+            continue
+        if ":" not in stripped:
+            raise ValueError(f"{path}:{i}: unsupported YAML line {stripped!r}")
+        key, _, rest = stripped.partition(":")
+        key = _scalar(key)
+        rest = rest.strip()
+        last_key = key
+        if rest.startswith("["):
+            # a flow sequence, possibly wrapped over the following lines
+            while "]" not in rest:
+                if i >= len(lines):
+                    raise ValueError(f"{path}: unterminated flow sequence at {key!r}")
+                rest += " " + _strip_comment(lines[i]).strip()
+                i += 1
+            parent[key] = _flow_items(rest[1:rest.index("]")])
+        elif rest:
+            parent[key] = _scalar(rest)
+        else:
+            # a nested map or a block sequence follows (None if neither)
+            parent[key] = None
+            child: dict = {}
+            j = i
+            while j < len(lines) and not _strip_comment(lines[j]).strip():
+                j += 1
+            if j < len(lines):
+                nxt = _strip_comment(lines[j])
+                nind = len(nxt) - len(nxt.lstrip())
+                if nind > indent and not nxt.strip().startswith("- "):
                     parent[key] = child
                     stack.append((indent, child))
-                    last_key[0] = key
-                elif rest.startswith("["):
-                    parent[key] = [
-                        _scalar(x) for x in rest.strip("[]").split(",") if x.strip()
-                    ]
-                    last_key[0] = key
-                else:
-                    parent[key] = _scalar(rest)
-                    last_key[0] = key
     return root
 
 
+_FLOAT = re.compile(r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+                      |\.[0-9_]+(?:[eE][-+][0-9]+)?
+                      |[-+]?\.(?:inf|Inf|INF)
+                      |\.(?:nan|NaN|NAN))$""", re.X)
+_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
+_BOOL = {**dict.fromkeys(("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"),
+                         True),
+         **dict.fromkeys(("no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"),
+                         False)}
+
+
 def _scalar(s: str):
-    s = s.strip().strip('"').strip("'")
-    try:
-        return int(s)
-    except ValueError:
-        pass
-    try:
-        return float(s)
-    except ValueError:
-        pass
+    """A plain or quoted scalar, typed by YAML 1.1's rules as PyYAML applies
+    them: ``1e-5`` (no dot) stays a string, ``1.0e-05`` is a float."""
+    s = s.strip()
+    if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
+        return s[1:-1]
+    if s in ("", "~", "null", "Null", "NULL"):
+        return None
+    if s in _BOOL:
+        return _BOOL[s]
+    if _INT.match(s):
+        return int(s.replace("_", ""))
+    if _FLOAT.match(s):
+        t = s.replace("_", "").lower()
+        if t.endswith("inf"):
+            return float("-inf") if t.startswith("-") else float("inf")
+        if t.endswith("nan"):
+            return float("nan")
+        return float(t)
     return s
 
 

@@ -18,6 +18,11 @@ buffer that nothing copies down until the host first reads a numpy field
 host in ``pending_right`` until :meth:`NeuralFrontend.complete_stereo`
 runs the right eye and the stereo match when the frame becomes a keyframe.
 Tracked frames are all-mono.
+
+``OracleFrontend`` observes a synthetic scene with known ground truth
+(``cli synth`` and the tests): exact projections plus noise, on the JAX
+package's numpy random stream, so one seed gives both packages the same
+observations.
 """
 
 from __future__ import annotations
@@ -30,13 +35,14 @@ import torch.nn.functional as F
 
 from rspl_slam_tpu_torch.camera import build_rectify_maps, remap_bilinear
 from rspl_slam_tpu_torch.config import SystemConfig
+from rspl_slam_tpu_torch.evaluation import synthetic as synth
 from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
 from rspl_slam_tpu_torch.models.weights import (load_params, rcf_from_numpy,
                                                 superglue_from_numpy, superpoint_from_numpy)
 from rspl_slam_tpu_torch.ops import lines as lops
 from rspl_slam_tpu_torch.ops.matching import cosine_mutual_match
 
-__all__ = ["FrameFeatures", "NeuralFrontend", "resolve_device"]
+__all__ = ["FrameFeatures", "NeuralFrontend", "OracleFrontend", "resolve_device"]
 
 _LAZY_FIELDS = ("xy", "score", "desc", "valid", "meas", "depth", "lines",
                 "line_valid", "lines_right", "line_has_right", "line_members")
@@ -180,6 +186,27 @@ def _elapsed_s(a, b) -> float:
     return a.elapsed_time(b) / 1e3 if isinstance(a, torch.cuda.Event) else b - a
 
 
+def _clip_segment(p0, p1, W, H):
+    """Liang-Barsky clip of a segment to the image rectangle. Returns
+    (q0, q1) or None if fully outside."""
+    d = p1 - p0
+    t0, t1 = 0.0, 1.0
+    for p, q in ((-d[0], p0[0]), (d[0], W - 1 - p0[0]),
+                 (-d[1], p0[1]), (d[1], H - 1 - p0[1])):
+        if abs(p) < 1e-12:
+            if q < 0:
+                return None
+            continue
+        r = q / p
+        if p < 0:
+            t0 = max(t0, r)
+        else:
+            t1 = min(t1, r)
+        if t0 > t1:
+            return None
+    return p0 + t0 * d, p0 + t1 * d
+
+
 def _pad_lines(segs: np.ndarray, max_lines: int):
     out = np.zeros((max_lines, 4), np.float32)
     n = min(len(segs), max_lines)
@@ -246,11 +273,11 @@ class NeuralFrontend:
             if ml is not None and mr is not None:
                 self._rect_maps = torch.from_numpy(np.stack([ml, mr])).to(self.device)
         if sp_params is None:
-            sp_params = (load_params(cfg.superpoint.weights_path)
+            sp_params = (load_params(cfg.superpoint.weights_path, "superpoint")
                          if cfg.superpoint.weights_path
                          else superpoint.init_params(seed))
         if sg_params is None:
-            sg_params = (load_params(cfg.superglue.weights_path)
+            sg_params = (load_params(cfg.superglue.weights_path, "superglue", cfg.superglue)
                          if cfg.superglue.weights_path
                          else superglue.init_params(cfg.superglue, seed + 1))
         self.sp = superpoint_from_numpy(sp_params, self.device)
@@ -260,7 +287,7 @@ class NeuralFrontend:
         if self.use_lines:
             ld = cfg.line_detector
             if rcf_params is None:
-                rcf_params = (load_params(ld.rcf_weights_path) if ld.rcf_weights_path
+                rcf_params = (load_params(ld.rcf_weights_path, "rcf") if ld.rcf_weights_path
                               else rcf.init_params(seed + 1))
             self.rcf = rcf_from_numpy(rcf_params, self.device)
 
@@ -557,3 +584,135 @@ class NeuralFrontend:
         ff.line_has_right = has_right
         ff.line_members = members
         return ff
+
+
+class OracleFrontend:
+    """Synthetic-scene frontend with known ground truth.
+
+    Keypoints are exact projections of scene landmarks (+ noise and
+    outliers); descriptors are the scene's per-landmark unit vectors, so
+    mutual-NN cosine matching is exact. Draws follow the JAX package's
+    numpy stream call for call. It has no ``matcher``, so ``SLAMSystem``
+    tracks it on the unfused path (host matching, then PnP and pose-only LM
+    on ``device``)."""
+
+    def __init__(self, cfg: SystemConfig, scene: synth.SyntheticScene,
+                 noise_px: float = 0.3, outlier_frac: float = 0.0,
+                 desc_noise: float = 0.02, seed: int = 0,
+                 use_lines: bool | None = None, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.use_lines = cfg.use_lines if use_lines is None else use_lines
+        self.scene = scene
+        self.noise_px = noise_px
+        self.outlier_frac = outlier_frac
+        self.desc_noise = desc_noise
+        self.rng = np.random.default_rng(seed)
+        self._frame_idx = 0
+        self.poses = None  # (N, 4, 4) ground-truth trajectory, set by the caller
+
+    def observe(self, Twc: np.ndarray) -> FrameFeatures:
+        cfg = self.cfg
+        K = cfg.superpoint.max_keypoints
+        obs = synth.observe_points(self.scene, cfg.camera, Twc, noise_px=self.noise_px,
+                                   outlier_frac=self.outlier_frac,
+                                   seed=int(self.rng.integers(1 << 31)))
+        vis = np.nonzero(obs["visible"])[0]
+        self.rng.shuffle(vis)
+        vis = vis[:K]
+        n = len(vis)
+        D = self.scene.descriptors.shape[1]
+        xy = np.zeros((K, 2), np.float32)
+        meas = np.full((K, 3), -1.0, np.float32)
+        depth = np.zeros(K, np.float32)
+        desc = np.zeros((K, D), np.float32)
+        valid = np.zeros(K, bool)
+        xy[:n] = obs["uv_left"][vis]
+        meas[:n, :2] = obs["uv_left"][vis]
+        meas[:n, 2] = obs["uv_right"][vis, 0]
+        depth[:n] = obs["depth"][vis]
+        d = (self.scene.descriptors[vis]
+             + self.rng.standard_normal((n, D)).astype(np.float32) * self.desc_noise)
+        desc[:n] = d / np.linalg.norm(d, axis=1, keepdims=True)
+        valid[:n] = True
+        ff = FrameFeatures(xy=xy, score=valid.astype(np.float32) * 0.9, desc=desc,
+                           valid=valid, meas=meas, depth=depth)
+        ff.landmark_ids = np.full(K, -1, np.int64)
+        ff.landmark_ids[:n] = vis
+        if self.use_lines and len(self.scene.lines):
+            self._add_oracle_lines(ff, Twc)
+        return ff
+
+    def _add_oracle_lines(self, ff: FrameFeatures, Twc: np.ndarray):
+        """Project the scene's 3D segments into both cameras, clip them to
+        the image, and attach them with point membership and right
+        segments."""
+        cam = self.cfg.camera
+        LN = self.cfg.line_detector.max_lines
+        H, W = cam.image_height, cam.image_width
+        Tcw = np.linalg.inv(Twc)
+        segs_l, segs_r, ids = [], [], []
+        for li, seg in enumerate(self.scene.lines):
+            Pc = seg @ Tcw[:3, :3].T + Tcw[:3, 3]
+            if (Pc[:, 2] < cam.depth_lower_thr).any():
+                continue
+            u = cam.fx * Pc[:, 0] / Pc[:, 2] + cam.cx
+            v = cam.fy * Pc[:, 1] / Pc[:, 2] + cam.cy
+            ur = u - cam.bf / Pc[:, 2]
+            cl = _clip_segment(np.array([u[0], v[0]]), np.array([u[1], v[1]]), W, H)
+            cr = _clip_segment(np.array([ur[0], v[0]]), np.array([ur[1], v[1]]), W, H)
+            if cl is None or np.linalg.norm(cl[1] - cl[0]) < 20:
+                continue
+            segs_l.append(np.concatenate(cl) + self.rng.standard_normal(4) * self.noise_px)
+            if cr is not None and np.linalg.norm(cr[1] - cr[0]) >= 20:
+                segs_r.append(np.concatenate(cr) + self.rng.standard_normal(4) * self.noise_px)
+            else:
+                segs_r.append(None)
+            ids.append(li)
+        lines = np.zeros((LN, 4), np.float32)
+        line_valid = np.zeros(LN, bool)
+        lines_right = np.zeros((LN, 4), np.float32)
+        has_right = np.zeros(LN, bool)
+        members = np.zeros((LN, len(ff.xy)), bool)
+        line_ids = np.full(LN, -1, np.int64)
+        n = min(len(segs_l), LN)
+        for i in range(n):
+            lines[i] = segs_l[i]
+            line_valid[i] = True
+            line_ids[i] = ids[i]
+            if segs_r[i] is not None:
+                lines_right[i] = segs_r[i]
+                has_right[i] = True
+        if n:
+            members[:n] = lops.assign_points_to_lines(lines[:n], ff.xy, ff.valid)
+        ff.lines = lines
+        ff.line_valid = line_valid
+        ff.lines_right = lines_right
+        ff.line_has_right = has_right
+        ff.line_members = members
+        ff.line_ids = line_ids
+
+    def extract_pair(self, img_l, img_r) -> FrameFeatures:
+        """The images are ignored: the pose comes from ``poses`` by call
+        order."""
+        if self.poses is None:
+            raise RuntimeError("OracleFrontend.poses must be set")
+        ff = self.observe(self.poses[self._frame_idx])
+        self._frame_idx += 1
+        return ff
+
+    def complete_stereo(self, ff: FrameFeatures) -> FrameFeatures:
+        """Oracle features always carry full stereo."""
+        return ff
+
+    def match(self, fA: FrameFeatures, fB: FrameFeatures) -> np.ndarray:
+        """Mutual-NN cosine matching on the host (exact for oracle
+        descriptors)."""
+        sim = fA.desc @ fB.desc.T
+        sim[~fA.valid] = -2.0
+        sim[:, ~fB.valid] = -2.0
+        a2b = sim.argmax(1)
+        b2a = sim.argmax(0)
+        rows = np.arange(len(a2b))
+        ok = fA.valid & fB.valid[a2b] & (b2a[a2b] == rows) & (sim[rows, a2b] > 0.7)
+        return np.where(ok, a2b, -1).astype(np.int64)

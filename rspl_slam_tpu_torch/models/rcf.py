@@ -32,7 +32,8 @@ import torch.nn.functional as F
 
 from rspl_slam_tpu_torch.ops import conv_stem_cuda
 
-__all__ = ["init_params", "edge_detector_params", "RCF", "edge_logits", "edge_map"]
+__all__ = ["init_params", "edge_detector_params", "load_torch_weights", "RCF",
+           "edge_logits", "edge_map"]
 
 # (stage, convs): VGG16 channel layout
 STAGES = [
@@ -103,6 +104,28 @@ def edge_detector_params(width_mult: float = 1.0) -> dict:
     p["fuse"]["b"][0] = -6.0
     return p
 
+
+
+def load_torch_weights(path: str) -> dict:
+    """The public RCF checkpoint (conv1_1..conv5_3, ``*_down``,
+    ``score_dsn*``, ``score_final``; a ``module.`` prefix and a nested
+    ``state_dict`` accepted) → the JAX pytree layout as numpy."""
+    from rspl_slam_tpu_torch.models.superpoint import _state_dict
+
+    sd = {k.replace("module.", ""): v for k, v in _state_dict(path).items()}
+
+    def conv(prefix):
+        return {"w": np.ascontiguousarray(np.transpose(sd[f"{prefix}.weight"], (2, 3, 1, 0))),
+                "b": sd[f"{prefix}.bias"]}
+
+    params = {}
+    for si, (sname, convs) in enumerate(STAGES, start=1):
+        for i in range(len(convs)):
+            params[f"{sname}_{i + 1}"] = conv(f"conv{si}_{i + 1}")
+            params[f"{sname}_{i + 1}_down"] = conv(f"conv{si}_{i + 1}_down")
+        params[f"{sname}_score"] = conv(f"score_dsn{si}")
+    params["fuse"] = conv("score_final")
+    return params
 
 class RCF(nn.Module):
     """Holds the weights as buffers: trunk convs OIHW for ``F.conv2d`` (stage

@@ -28,7 +28,8 @@ from rspl_slam_tpu_torch.ops import attention_cuda, sinkhorn_cuda
 from rspl_slam_tpu_torch.ops.attention_cuda import round_operand
 from rspl_slam_tpu_torch.ops.matching import mutual_match_decode, normalize_keypoints
 
-__all__ = ["init_params", "SuperGlue", "MatchResult", "match_pair"]
+__all__ = ["init_params", "load_torch_weights", "SuperGlue", "MatchResult",
+           "match_pair"]
 
 
 def init_params(cfg: SuperGlueConfig, seed: int = 0) -> dict:
@@ -78,6 +79,66 @@ def descriptor_matcher_params(cfg: SuperGlueConfig, seed: int = 0,
     p["bin_score"] = np.asarray(bin_score, np.float32)
     return p
 
+
+
+def load_torch_weights(path: str, cfg: SuperGlueConfig | None = None) -> dict:
+    """The public ``superglue_{indoor,outdoor}.pth`` → the JAX pytree layout
+    as numpy. Conv1d(k=1) weights (cout, cin, 1) become (cin, cout);
+    BatchNorm running statistics fold into scale and shift,
+    y = γ·(x−μ)/√(σ²+ε) + β. The public model splits channels head_dim-major
+    (``view(B, head_dim, heads, N)``), the pytree heads-major: q/k/v output
+    channels and merge input channels are permuted at load time, as the
+    JAX loader does."""
+    from rspl_slam_tpu_torch.models.superpoint import _state_dict
+
+    cfg = cfg or SuperGlueConfig()
+    sd = _state_dict(path)
+
+    def lin(prefix):
+        w = sd[f"{prefix}.weight"]
+        return {"w": np.ascontiguousarray(w.reshape(w.shape[0], w.shape[1]).T),
+                "b": sd[f"{prefix}.bias"]}
+
+    d = cfg.descriptor_dim
+    head_perm = np.arange(d).reshape(d // cfg.num_heads, cfg.num_heads).T.ravel()
+
+    def lin_qkv(prefix):
+        p = lin(prefix)
+        return {"w": p["w"][:, head_perm], "b": p["b"][head_perm]}
+
+    def lin_merge(prefix):
+        p = lin(prefix)
+        return {"w": p["w"][head_perm, :], "b": p["b"]}
+
+    def with_bn(p, prefix=None, eps=1e-5):
+        if prefix is None:
+            p["bn_scale"], p["bn_shift"] = np.ones_like(p["b"]), np.zeros_like(p["b"])
+        else:
+            scale = sd[f"{prefix}.weight"] / np.sqrt(sd[f"{prefix}.running_var"] + eps)
+            p["bn_scale"] = scale
+            p["bn_shift"] = sd[f"{prefix}.bias"] - sd[f"{prefix}.running_mean"] * scale
+        return p
+
+    # kenc.encoder: Sequential[Conv1d, BN, ReLU, ..., Conv1d]
+    kenc, seq = [], 0
+    n_mlp = len(cfg.keypoint_encoder) + 1
+    for i in range(n_mlp):
+        layer = lin(f"kenc.encoder.{seq}")
+        if i < n_mlp - 1:
+            kenc.append(with_bn(layer, f"kenc.encoder.{seq + 1}"))
+            seq += 3  # Conv1d + BN + ReLU
+        else:
+            kenc.append(with_bn(layer))
+    gnn = []
+    for li in range(cfg.num_gnn_layers):
+        base = f"gnn.layers.{li}"
+        gnn.append({"q": lin_qkv(f"{base}.attn.proj.0"), "k": lin_qkv(f"{base}.attn.proj.1"),
+                    "v": lin_qkv(f"{base}.attn.proj.2"),
+                    "merge": lin_merge(f"{base}.attn.merge"),
+                    "mlp": [with_bn(lin(f"{base}.mlp.0"), f"{base}.mlp.1"),
+                            with_bn(lin(f"{base}.mlp.3"))]})
+    return {"kenc": kenc, "gnn": gnn, "final_proj": lin("final_proj"),
+            "bin_score": np.asarray(float(sd["bin_score"]), np.float32)}
 
 class SuperGlue(nn.Module):
     """Weights on one device: the keypoint encoder, the GNN layers packed

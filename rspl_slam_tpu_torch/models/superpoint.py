@@ -26,7 +26,8 @@ from rspl_slam_tpu_torch.ops import conv_stem_cuda
 from rspl_slam_tpu_torch.ops.keypoints import (sample_descriptors, simple_nms_cell,
                                                top_k_keypoints_cell)
 
-__all__ = ["LAYERS", "init_params", "SuperPoint", "Features", "extract"]
+__all__ = ["LAYERS", "init_params", "load_torch_weights", "SuperPoint", "Features",
+           "extract"]
 
 LAYERS = [
     # name, in_ch, out_ch, kernel
@@ -57,6 +58,24 @@ def init_params(seed: int = 0) -> dict:
         for name, cin, cout, k in LAYERS
     }
 
+
+
+def _state_dict(path: str) -> dict:
+    """A checkpoint's tensors as numpy: a state dict, or one nested under
+    ``state_dict``; ``weights_only`` loading (no pickled code runs)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k: v.numpy() if torch.is_tensor(v) else v for k, v in sd.items()}
+
+
+def load_torch_weights(path: str) -> dict:
+    """The public SuperPoint ``.pth`` (OIHW convs) → the JAX pytree layout
+    (HWIO) as numpy."""
+    sd = _state_dict(path)
+    return {name: {"w": np.ascontiguousarray(np.transpose(sd[f"{name}.weight"], (2, 3, 1, 0))),
+                   "b": sd[f"{name}.bias"]}
+            for name, _, _, _ in LAYERS}
 
 class SuperPoint(nn.Module):
     """Holds the weights as buffers: 3×3 convs in HWIO (the JAX layout and

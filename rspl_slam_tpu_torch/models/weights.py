@@ -3,12 +3,14 @@ lists of numpy arrays, in the layouts of ``superpoint.init_params`` and
 ``superglue.init_params`` and ``rcf.init_params`` there) → the port's
 modules on a device.
 
-``load_npz_pytree`` reads the flattened ``.npz`` pytree that the JAX CLI's
-``convert-weights`` writes, with numpy alone. Conv weights arrive HWIO and
-are laid out for ``F.conv2d`` and K1 by the SuperPoint and RCF modules
-(RCF also folds each side branch into its stage score); SuperGlue's
-head permutation is already absorbed in the pytree, so the bridge copies it
-as it is.
+``load_npz_pytree`` reads the flattened ``.npz`` pytree that either
+package's ``convert-weights`` writes (``save_npz_pytree``), with numpy
+alone; ``load_weights`` / ``load_params`` also read the public ``.pth``
+checkpoints through each model's ``load_torch_weights``. Conv weights
+arrive HWIO and are laid out for ``F.conv2d`` and K1 by the SuperPoint
+and RCF modules (RCF also folds each side branch into its stage score);
+SuperGlue's head permutation is already absorbed in the pytree, so the
+bridge copies it as it is.
 """
 
 from __future__ import annotations
@@ -17,8 +19,35 @@ import numpy as np
 
 from rspl_slam_tpu_torch.config import SuperGlueConfig
 
-__all__ = ["load_npz_pytree", "to_numpy_tree", "superpoint_from_numpy",
+__all__ = ["flatten_pytree", "save_npz_pytree", "load_npz_pytree", "load_weights",
+           "load_params", "to_numpy_tree", "superpoint_from_numpy",
            "superglue_from_numpy", "rcf_from_numpy"]
+
+
+def flatten_pytree(params) -> dict:
+    """Nested dict/list pytree → {"a/b/0/w": ndarray} flat dict."""
+    flat = {}
+
+    def rec(prefix, obj):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                rec(f"{prefix}/{k}" if prefix else k, v)
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                rec(f"{prefix}/{i}", v)
+        else:
+            flat[prefix] = np.asarray(obj)
+
+    rec("", params)
+    return flat
+
+
+def save_npz_pytree(path: str, params) -> int:
+    """Write a pytree as a flattened, compressed ``.npz``; returns the
+    number of arrays."""
+    flat = flatten_pytree(params)
+    np.savez_compressed(path, **flat)
+    return len(flat)
 
 
 def load_npz_pytree(path: str):
@@ -72,10 +101,22 @@ def rcf_from_numpy(params, device="cuda"):
     return RCF(to_numpy_tree(params)).to(device)
 
 
-def load_params(path: str):
-    """Parameters from a weight file: ``.npz`` pytrees only in this port."""
-    if not str(path).endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: only .npz pytrees load in the port; the .pth loaders are "
-            "queued in ROADMAP.md (modules to port)")
-    return load_npz_pytree(path)
+def load_weights(path: str, torch_loader, *args):
+    """Dispatch on extension: ``.npz`` → numpy pytree, else
+    ``torch_loader(path, *args)``."""
+    if str(path).endswith(".npz"):
+        return load_npz_pytree(path)
+    return torch_loader(path, *args)
+
+
+def load_params(path: str, model: str, cfg: SuperGlueConfig | None = None):
+    """Parameters of ``model`` ("superpoint", "superglue" or "rcf") from a
+    ``.npz`` pytree or a public ``.pth`` checkpoint (``cfg``: SuperGlue's
+    layout, for its head permutation)."""
+    from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
+
+    if model == "superglue":
+        return load_weights(path, superglue.load_torch_weights, cfg)
+    loader = {"superpoint": superpoint.load_torch_weights,
+              "rcf": rcf.load_torch_weights}[model]
+    return load_weights(path, loader)

@@ -6,6 +6,10 @@ PyTorch headers, so a build takes seconds. Libraries land in
 ``rspl_slam_tpu_torch/_build/`` (git-ignored), keyed by a hash of the
 sources and flags, at first use. :func:`build_all` starts one ``nvcc`` per
 source at once. Nothing here runs at import time.
+
+``png_unfilter`` is host code only (the PNG reader's row unfilter,
+``png.unfilter_compiled``): it rides the same build and ``ctypes``
+interface but is no kernel and replaces no TPU kernel.
 """
 
 from __future__ import annotations
@@ -21,12 +25,14 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "build_all", "library", "launch", "stream_of"]
+__all__ = ["KERNELS", "SOURCES", "build_all", "library", "launch", "stream_of",
+           "launch_counts"]
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("conv_stem", "superglue_layer", "sinkhorn")
+KERNELS = ("conv_stem", "superglue_layer", "sinkhorn")
+SOURCES = KERNELS + ("png_unfilter",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 CTA may use
 FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -38,6 +44,7 @@ SIGNATURES = {
     "superglue_layer": {"superglue_layer_launch": "p" * 15 + "iii" + "p",
                         "superglue_layer_bf16_launch": "p" * 14 + "iii" + "p"},
     "sinkhorn": {"sinkhorn_launch": "pppp" + "iiii" + "iii" + "p"},
+    "png_unfilter": {"png_unfilter": "pp" + "iii"},
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 
@@ -150,3 +157,15 @@ def require_cuda(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None):
         raise ValueError(f"{what}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def launch_counts() -> dict[str, int]:
+    """Each kernel wrapper's launch counter (K1 and K2 per mode): a wrapper
+    adds one where it launches its kernel and nowhere else."""
+    from rspl_slam_tpu_torch.ops import attention_cuda, conv_stem_cuda, sinkhorn_cuda
+
+    return {"conv_stem": conv_stem_cuda.launches,
+            "conv_stem_side": conv_stem_cuda.side_launches,
+            "superglue_layer": attention_cuda.launches,
+            "superglue_layer_f32": attention_cuda.f32_launches,
+            "sinkhorn": sinkhorn_cuda.launches}

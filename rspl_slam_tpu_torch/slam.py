@@ -30,6 +30,14 @@ tracking as one chain (``frame_step.CombinedTracker``) where
 :meth:`SLAMSystem.wants_images` says so; ``pipeline.PipelinedRunner``
 consults the same method.
 
+Tracking is fused (match, association, PnP and pose-only LM as one device
+chain) for a frontend whose ``matcher`` is SuperGlue or cosine, as in the
+JAX package; other frontends (``OracleFrontend``) take the unfused path:
+``frontend.match`` on the host, then :meth:`SLAMSystem._pose_optimize`.
+:meth:`SLAMSystem.save_map` and :meth:`SLAMSystem.resume_from_map` write and
+resume a map checkpoint; :meth:`SLAMSystem.cull_redundant_keyframes` bounds
+the map on an endless feed.
+
 Not ported yet, and raising ``NotImplementedError`` rather than degrading:
 loop closure and relocalization (ROADMAP.md).
 """
@@ -102,12 +110,14 @@ class SLAMSystem:
             _unported("match_outlier_rejection", "modules to port")
         if cfg.pipeline.track_local_map:
             _unported("track_local_map (search by projection)", "modules to port")
-        if fused_tracking is False:
-            _unported("the unfused tracking path", "modules to port")
         self.cfg = cfg
         self.frontend = frontend
         self.device = frontend.device
         self.enable_ba = enable_ba
+        # fused tracking for frontends with a device-side matcher
+        if fused_tracking is None:
+            fused_tracking = getattr(frontend, "matcher", None) in ("superglue", "cosine")
+        self._fused_enabled = fused_tracking
         self._pending_ba = None  # in-flight async local BA
         self._ba_stream = None  # the side stream of async BA on a card
         self.ba_windows: list[dict] = []  # per solved window: frames, constraints
@@ -133,6 +143,7 @@ class SLAMSystem:
         self._last_frame_meta = None  # (frame_id, time, Twc)
         self._last_track_ok = True
         self._lost_count = 0
+        self._index_offset = 0  # shifts caller frame ids after a resume
         self._capacity_warned = False
         self.timings: dict[str, list] = {}
 
@@ -150,7 +161,8 @@ class SLAMSystem:
         ``combined_frame_step``, a lazy-right frontend the step supports):
         raw images should reach :meth:`add_frame` rather than go through a
         separate extraction stage."""
-        if not (self.initialized and self.cfg.pipeline.combined_frame_step
+        if not (self.initialized and self._fused_enabled
+                and self.cfg.pipeline.combined_frame_step
                 and getattr(self.frontend, "lazy_right", False)):
             return False
         if self._combined is None:
@@ -171,6 +183,7 @@ class SLAMSystem:
         """Extraction + tracking as one chain (``CombinedTracker``), then the
         tracking policy."""
         t0 = time.perf_counter()
+        index = index + self._index_offset
         ref_pos, ref_good = self._ref_landmarks()
         ff, i0, Twc, n_inl, inlier = self._combined.step(
             img_l, img_r, self._ref_feats, ref_pos, ref_good, self._last_Twc,
@@ -182,6 +195,7 @@ class SLAMSystem:
             index, t, ff, i0=i0, fused_pose=(Twc, n_inl, inlier)))
 
     def add_frame_features(self, index: int, t: float, feats) -> FrameRecord:
+        index = index + self._index_offset
         if not self.initialized:
             rec = self._init_map(index, t, feats)
         else:
@@ -202,6 +216,63 @@ class SLAMSystem:
             times = np.asarray([r.time for r in self.records])
             poses = np.stack([r.Twc for r in self.records])
         write_tum_trajectory(path, times, poses)
+
+    def save_map(self, path: str):
+        self.flush_ba()
+        self.map.save(path)
+
+    def resume_from_map(self, path: str):
+        """Load a saved map checkpoint and resume tracking against it. The
+        tracking anchor becomes the last stored keyframe, its features
+        rebuilt from the map arrays; caller frame indices are shifted past
+        the stored ones, so drivers may restart at 0."""
+        self._pending_ba = None  # any in-flight solve targets the old map
+        self.map = map_store.MapStore.load(path, self.cfg.pipeline)
+        if self.map.K != self.cfg.superpoint.max_keypoints:
+            raise ValueError(
+                f"checkpoint keypoint capacity K={self.map.K} != configured "
+                f"max_keypoints={self.cfg.superpoint.max_keypoints}; resume "
+                f"with the config the map was built under")
+        self.initialized = self.map.n_kf > 0
+        self.records = []
+        if self.initialized:
+            self._ref_kf = self.map.n_kf - 1
+            self._ref_feats = self._features_from_keyframe(self._ref_kf)
+            self._last_Twc = self.map.kf_pose[self._ref_kf].copy()
+            self._last_feats = None
+            self._last_frame_meta = None
+            self._last_track_ok = True
+            self._lost_count = 0
+            self._index_offset = int(self.map.kf_frame_id[: self.map.n_kf].max()) + 1
+
+    def _features_from_keyframe(self, kf: int) -> FrameFeatures:
+        """A matching-sufficient FrameFeatures view of a stored keyframe
+        (xy, score, desc, valid, meas, depth from the map arrays)."""
+        m = self.map
+        meas = m.kf_meas[kf].copy()
+        uR = meas[:, 2]
+        depth = np.where(uR > 0, self.K.bf / np.maximum(meas[:, 0] - uR, 1e-6),
+                         0.0).astype(np.float32)
+        return FrameFeatures(xy=meas[:, :2].copy(), score=m.kf_score[kf].astype(np.float32),
+                             desc=m.kf_desc[kf].astype(np.float32),
+                             valid=m.kf_kpt_valid[kf].copy(), meas=meas, depth=depth)
+
+    def cull_redundant_keyframes(self, min_other_obs: int = 3, ratio: float = 0.9,
+                                 keep_recent: int = 3) -> int:
+        """Remove keyframes whose GOOD landmarks are ≥ ``ratio`` covered by
+        ≥ ``min_other_obs`` other keyframes; never the gauge frames, the
+        tracking anchor or the ``keep_recent`` newest. Returns the number
+        culled."""
+        self.flush_ba()
+        m = self.map
+        if m.n_kf < keep_recent + 2:
+            return 0
+        protect = {self._ref_kf} | set(range(max(0, m.n_kf - keep_recent), m.n_kf))
+        victims = m.find_redundant_keyframes(min_other_obs=min_other_obs, ratio=ratio,
+                                             protect=protect)
+        for k in victims:
+            m.cull_keyframe(int(k))
+        return len(victims)
 
     def flush_ba(self):
         """Apply an in-flight async BA result, if any: wait for its event,
@@ -281,10 +352,13 @@ class SLAMSystem:
 
     def _track(self, index: int, t: float, feats: FrameFeatures, i0=None,
                fused_pose=None) -> FrameRecord:
-        if fused_pose is None:
-            t0 = time.perf_counter()
+        t0 = time.perf_counter()
+        if fused_pose is None and i0 is None and self._fused_enabled:
             i0, fused_pose = self._fused_track(feats)
             self._t("track_fused", t0)
+        elif i0 is None:
+            i0 = self.frontend.match(feats, self._ref_feats)
+            self._t("match", t0)
         num_match = int((i0 >= 0).sum())
         # fallback: weak association with the ref keyframe → promote the
         # previous frame to keyframe and re-anchor (never a frame that

@@ -547,3 +547,24 @@ def test_runner_on_the_card_matches_serial_calls(cuda_device):  # noqa: F811
     assert sum(r.is_keyframe for r in recs_s) >= 2
     np.testing.assert_allclose(np.stack([r.Twc for r in recs_p]),
                                np.stack([r.Twc for r in recs_s]), atol=1e-5)
+
+
+@pytest.mark.parametrize("bpp", [1, 3])
+def test_png_unfilter_compiled_matches_numpy(cuda_device, bpp):  # noqa: F811
+    """The PNG reader's compiled row unfilter (host code of
+    ``csrc/png_unfilter.cu``, built with nvcc like the kernels) equals the
+    numpy one bit for bit on every filter and a per-row mix; the dataset
+    path of a card run uses it."""
+    from rspl_slam_tpu_torch import png
+
+    rng = np.random.default_rng(bpp)
+    img = rng.integers(0, 256, (31, 47 * bpp), dtype=np.uint8)
+    cand = png._filtered(img, bpp)
+    for choice in [np.full(31, f) for f in range(5)] + [np.arange(31) % 5]:
+        raw = np.concatenate([choice.astype(np.uint8)[:, None],
+                              cand[choice, np.arange(31)]], 1).tobytes()
+        got = png.unfilter_compiled(raw, 31, 47 * bpp, bpp)
+        np.testing.assert_array_equal(got, png.unfilter_numpy(raw, 31, 47 * bpp, bpp))
+        np.testing.assert_array_equal(got, img)
+    with pytest.raises(RuntimeError, match="invalid PNG filter type"):
+        png.unfilter_compiled(b"\x07" + bytes(47 * bpp), 1, 47 * bpp, bpp)

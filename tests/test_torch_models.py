@@ -187,8 +187,14 @@ def test_weight_bridge_npz_roundtrip(tmp_path):
                                       SuperGlueConfig(num_gnn_layers=2), "cpu")
     wqkv = np.concatenate([np.asarray(sgp["gnn"][1][n]["w"]) for n in "qkv"], 1)
     np.testing.assert_array_equal(sg.gnn[1]["wqkv"].numpy(), wqkv)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        weights.load_params(str(tmp_path / "sp.pth"))
+    # a public-layout .pth (OIHW convs) loads through the same entry point
+    torch.save({f"{n}.{k}": torch.from_numpy(
+        np.ascontiguousarray(np.transpose(np.asarray(p["w"]), (3, 2, 0, 1))) if k == "weight"
+        else np.array(p["b"])) for n, p in params.items() for k in ("weight", "bias")},
+        str(tmp_path / "sp.pth"))
+    from_pth = weights.load_params(str(tmp_path / "sp.pth"), "superpoint")
+    for name in params:
+        np.testing.assert_array_equal(from_pth[name]["w"], np.asarray(params[name]["w"]))
 
 
 def test_unported_matcher_shapes_raise():

@@ -4,6 +4,7 @@ and print one JSON line with what they agree on.
 
     JAX_PLATFORMS=cpu python tests/torch_slice_reference.py [--width 376 --height 240] \
         [--lines] [--ba] [--lazy]
+    JAX_PLATFORMS=cpu python tests/torch_slice_reference.py --synth [--frames 100]
 
 Both run f32 at the given size (multiples of 8) with the EuRoC
 intrinsics scaled by width/752, K = 400, 18 GNN layers, 100 Sinkhorn
@@ -21,6 +22,11 @@ the matching end-to-end ATE bound of ``chip_smoke.py``. The line also
 reports how far the random SuperPoint's keypoints sit from the rendered
 blobs and how many temporal matches do not move between frames, which
 bounds what the ATE can show.
+
+``--synth`` instead runs both command lines' ``synth`` (the oracle
+frontend on the unfused tracking path, lines on) on the CPU and prints
+their ATE lines: the JAX one, with margin, is ``chip_smoke.py``'s
+``cli_synth`` bound.
 """
 
 from __future__ import annotations
@@ -46,7 +52,10 @@ def main() -> int:
     ap.add_argument("--lines", action="store_true")
     ap.add_argument("--ba", action="store_true")
     ap.add_argument("--lazy", action="store_true")
+    ap.add_argument("--synth", action="store_true")
     args = ap.parse_args()
+    if args.synth:
+        return synth_reference(args.frames)
     if args.lazy:
         args.lines = args.ba = True
 
@@ -126,6 +135,30 @@ def main() -> int:
     out["matched_kpt_to_blob_px_median"] = float(np.median(d.min(1)))
     out["static_match_share_frame0_to_3"] = float(
         (np.linalg.norm(f3.xy[m] - f0.xy[i0[m]], axis=-1) < 0.5).mean())
+    print(json.dumps(out))
+    return 0
+
+
+def synth_reference(frames: int) -> int:
+    """Both CLIs' ``synth --frames N`` (seed 0) on the CPU, one JSON line."""
+    import contextlib
+    import io
+    import re
+
+    import jax
+
+    from rspl_slam_tpu import cli as jcli
+    from rspl_slam_tpu_torch import cli as tcli
+
+    jax.config.update("jax_platforms", "cpu")
+    out = {"frames": frames}
+    for name, cli, extra in (("torch", tcli, ["--device", "cpu"]), ("jax", jcli, [])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["synth", "--frames", str(frames), *extra])
+        text = buf.getvalue()
+        out[name] = {"ate": json.loads(re.search(r"^ATE: (.*)$", text, re.M).group(1)),
+                     "map": re.search(r"^keyframes=.*$", text, re.M).group(0)}
     print(json.dumps(out))
     return 0
 
