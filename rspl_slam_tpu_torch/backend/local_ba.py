@@ -54,7 +54,8 @@ from rspl_slam_tpu_torch.geometry import linalg as glin
 from rspl_slam_tpu_torch.geometry import plucker, se3
 
 __all__ = ["BAProblem", "BAResult", "SegmentPlan", "optimize_local_map", "upload_problem",
-           "segment_plan", "fetch_result", "fetch_result_async", "unpack_result"]
+           "segment_plan", "fetch_result", "fetch_result_async", "unpack_result",
+           "robust_objective"]
 
 
 class SegmentPlan(NamedTuple):
@@ -450,6 +451,20 @@ def optimize_local_map(K: CameraIntrinsics, prob: BAProblem,
     return BAResult(Tcw=Tcw, points=points, lines=lines,
                     p_inlier=prob.p_valid & (chi2_p <= thr_p) & (z > 1e-6),
                     l_inlier=prob.l_valid & (chi2_l <= thr_l), cost=cost)
+
+
+@torch.no_grad()
+def robust_objective(K: CameraIntrinsics, prob: BAProblem, result: BAResult | None = None,
+                     chi2_mono: float = 50.0, chi2_stereo: float = 75.0,
+                     chi2_mono_line: float = 50.0, chi2_stereo_line: float = 75.0):
+    """Phase 1's objective (Huber, every valid constraint, cheirality
+    violations at the gate) at the problem's own state or, with
+    ``result``, at the solved one: a 0-d tensor, no host synchronization."""
+    deltas = tuple(math.sqrt(c) for c in (chi2_mono, chi2_stereo, chi2_mono_line,
+                                          chi2_stereo_line))
+    state = prob if result is None else result
+    return _total_cost(K, state.Tcw, state.points, state.lines, prob, prob.p_valid,
+                       prob.l_valid, deltas, True)[0]
 
 
 def _pack_result(r: BAResult) -> torch.Tensor:

@@ -15,10 +15,12 @@ device, the card by default; without one visible the run raises. ``run``
 feeds ``PipelinedRunner`` from the dataset, with rectification on the
 device inside the frontend; ``--no-native`` is accepted for compatibility
 (the port has no native prefetcher). Images decode through ``png.py``,
-configs parse without PyYAML, plots draw without matplotlib. Options whose
-modules are not ported yet (``--loop-closure``, ``--pose-graph``,
-``--global-ba``, ``--track-local-map``, ``pretrain``) raise
-``NotImplementedError`` naming their ROADMAP.md item.
+configs parse without PyYAML, plots draw without matplotlib. The global
+layer runs as in the JAX package: ``--loop-closure`` (``run``, ``serve``)
+detects loops and relocalizes, ``--track-local-map`` re-associates by
+projection at keyframes, and ``--pose-graph`` / ``--global-ba`` refine the
+map at the end of a run. ``pretrain`` is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP.md item.
 
 Usage: ``python -m rspl_slam_tpu_torch.cli <command> [args]``.
 """
@@ -35,20 +37,6 @@ import time
 
 import numpy as np
 
-_UNPORTED = {  # option → its ROADMAP.md §1 item
-    "loop_closure": ("--loop-closure", "item 5"),
-    "pose_graph": ("--pose-graph", "item 5"),
-    "global_ba": ("--global-ba", "item 5"),
-    "track_local_map": ("--track-local-map", "item 5"),
-}
-
-
-def _check_ported(args):
-    for attr, (flag, item) in _UNPORTED.items():
-        if getattr(args, attr, False):
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md §1, {item})")
-
-
 def _device(args):
     from rspl_slam_tpu_torch.frontend.frontends import resolve_device
 
@@ -60,7 +48,6 @@ def _build_slam(args, use_lines=None, rectify=True):
     from rspl_slam_tpu_torch.frontend.frontends import NeuralFrontend
     from rspl_slam_tpu_torch.slam import SLAMSystem
 
-    _check_ported(args)
     cfg = load_system_config(args.config, args.camera_config)
     if use_lines is not None:
         cfg = dataclasses.replace(cfg, use_lines=use_lines)
@@ -74,13 +61,16 @@ def _build_slam(args, use_lines=None, rectify=True):
     if getattr(args, "rcf_weights", None):
         cfg = dataclasses.replace(cfg, line_detector=dataclasses.replace(
             cfg.line_detector, rcf_weights_path=args.rcf_weights))
+    if getattr(args, "track_local_map", False):
+        cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+            cfg.pipeline, track_local_map=True))
     if getattr(args, "sync_ba", False):
         cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
             cfg.pipeline, async_ba=False))
     fe = NeuralFrontend(cfg, matcher=getattr(args, "matcher", "superglue"),
                         rectify=rectify, lazy_right=getattr(args, "lazy_right", None),
                         device=_device(args))
-    slam = SLAMSystem(cfg, fe)
+    slam = SLAMSystem(cfg, fe, enable_loop_closure=getattr(args, "loop_closure", False))
     resume = getattr(args, "resume_map", None)
     if resume:
         slam.resume_from_map(resume)
@@ -138,10 +128,28 @@ def cmd_run(args):
 
 
 def _finish_run(slam, args, publisher):
-    """Shared epilogue of run and serve: trajectory, ATE, map and
-    visualization dumps, timings."""
+    """Shared epilogue of run and serve: the optional global backends,
+    trajectory, ATE, map and visualization dumps, timings."""
     if publisher is not None:
         publisher.close()
+    if slam.loop_constraints:
+        print(f"loop closures accepted: {len(slam.loop_constraints)}")
+    if getattr(args, "pose_graph", False):
+        cost = slam.run_pose_graph()
+        if cost is not None:
+            print(f"pose graph: optimized {slam.map.n_kf} keyframes "
+                  f"(final cost {cost:.3e})")
+        else:
+            print("pose graph: skipped — no verified loop constraints "
+                  "(the covisibility/odometry graph is already at its "
+                  "optimum; enable --loop-closure to supply measurements)")
+    if getattr(args, "global_ba", False):
+        cost = slam.run_global_ba()
+        if cost is not None:
+            print(f"global BA: refined {slam.map.n_kf} keyframes jointly "
+                  f"(final cost {cost:.3e})")
+        else:
+            print("global BA: skipped (map too small)")
     slam.save_trajectory(args.traj_path)
     print(f"trajectory → {args.traj_path}")
     if getattr(args, "gt", None):
@@ -456,7 +464,9 @@ def main(argv=None):
                     help="block tracking on every local BA (default overlaps the "
                          "solve with the following frames)")
     pr.add_argument("--track-local-map", dest="track_local_map", action="store_true",
-                    help="not ported yet (ROADMAP.md §1, item 5)")
+                    help="recover missed landmark associations by projecting the "
+                         "covisible local map into each new keyframe "
+                         "(search_by_projection)")
     pr.add_argument("--gt", default=None,
                     help="ground truth (TUM file, EuRoC csv, or sequence dir) — "
                          "prints keyframe ATE after the run")
@@ -471,11 +481,15 @@ def main(argv=None):
     pr.add_argument("--lazy-right", dest="lazy_right", action="store_const", const=True,
                     default=None, help="extract right-image features only at keyframes")
     pr.add_argument("--pose-graph", dest="pose_graph", action="store_true",
-                    help="not ported yet (ROADMAP.md §1, item 5)")
+                    help="run global pose-graph optimization at the end; needs loop "
+                         "constraints — see --loop-closure")
     pr.add_argument("--global-ba", dest="global_ba", action="store_true",
-                    help="not ported yet (ROADMAP.md §1, item 5)")
+                    help="run full-map bundle adjustment at the end (all keyframes "
+                         "and landmarks jointly)")
     pr.add_argument("--loop-closure", dest="loop_closure", action="store_true",
-                    help="not ported yet (ROADMAP.md §1, item 5)")
+                    help="detect loop closures (place recognition + geometric "
+                         "verification) and correct the trajectory via the global "
+                         "pose graph; relocalize a lost track")
     pr.add_argument("-v", "--verbose", action="store_true")
     _add_device(pr)
     pr.set_defaults(fn=cmd_run)
@@ -497,7 +511,7 @@ def main(argv=None):
     pl.add_argument("--lazy-right", dest="lazy_right", action="store_const", const=True,
                     default=None)
     pl.add_argument("--loop-closure", dest="loop_closure", action="store_true",
-                    help="not ported yet (ROADMAP.md §1, item 5)")
+                    help="detect loop closures and relocalize a lost track")
     pl.add_argument("--cull-every", dest="cull_every", type=int, default=0,
                     help="life-long mode: cull redundant keyframes every N keyframe "
                          "insertions (0 = never)")

@@ -23,8 +23,8 @@ import numpy as np
 
 from rspl_slam_tpu_torch.config import CameraConfig
 
-__all__ = ["SyntheticScene", "make_scene", "make_trajectory", "observe_points",
-           "render_images", "make_ba_window"]
+__all__ = ["SyntheticScene", "make_scene", "make_trajectory", "make_ring_scene",
+           "make_loop_trajectory", "observe_points", "render_images", "make_ba_window"]
 
 
 @dataclass
@@ -95,6 +95,53 @@ def make_trajectory(n: int = 60, step: float = 0.06, yaw_rate: float = 0.004,
         poses[i] = T
         pos = pos + R @ np.array([0.0, 0.0, step])
         yaw += yaw_rate
+    return poses
+
+
+def make_ring_scene(num_points: int = 2000, num_lines: int = 24, path_radius: float = 3.0,
+                    inner: float = 1.5, outer=(5.0, 9.0), height=(-2.0, 2.0),
+                    desc_dim: int = 256, seed: int = 0) -> SyntheticScene:
+    """A place to drive a loop in: points (and dark segments) around the
+    vertical axis through (``path_radius``, 0, 0), the centre of
+    :func:`make_loop_trajectory`'s circle, in an outer wall
+    (``outer`` radii) and an inner pillar (radius < ``inner``), over
+    ``height`` in y. Every view along the circle sees new structure, and
+    the start's view returns only when the circle closes."""
+    rng = np.random.default_rng(seed)
+    n_in = num_points // 5
+    r = np.concatenate([np.sqrt(rng.uniform(0.0, inner ** 2, n_in)),
+                        np.sqrt(rng.uniform(outer[0] ** 2, outer[1] ** 2, num_points - n_in))])
+    th = rng.uniform(0.0, 2 * np.pi, num_points)
+    pts = np.stack([path_radius + r * np.cos(th), rng.uniform(*height, num_points),
+                    r * np.sin(th)], -1)
+    lines = np.zeros((num_lines, 2, 3))
+    if num_lines:
+        rl = rng.uniform(*outer, num_lines)
+        tl = rng.uniform(0.0, 2 * np.pi, num_lines)
+        starts = np.stack([path_radius + rl * np.cos(tl), rng.uniform(*height, num_lines),
+                           rl * np.sin(tl)], -1)
+        dirs = rng.standard_normal((num_lines, 3))
+        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+        lines = np.stack([starts, starts + dirs * rng.uniform(1.5, 3.5, (num_lines, 1))], 1)
+    desc = rng.standard_normal((num_points, desc_dim)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    return SyntheticScene(points=pts, descriptors=desc, lines=lines)
+
+
+def make_loop_trajectory(n: int, per_lap: int, radius: float = 3.0,
+                         bob: float = 0.01) -> np.ndarray:
+    """(n, 4, 4) world-from-camera poses driving a circle of ``radius``
+    counter-clockwise seen from above, ``per_lap`` frames per lap, looking
+    along the path: frame 0 at the origin facing +z, frame ``per_lap``
+    back on it (a loop), with a vertical bob."""
+    poses = np.zeros((n, 4, 4))
+    for i in range(n):
+        yaw = 2 * np.pi * i / per_lap
+        c, s = np.cos(yaw), np.sin(yaw)
+        T = np.eye(4)
+        T[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+        T[:3, 3] = [radius * (1 - c), bob * np.sin(i * 0.4), radius * s]
+        poses[i] = T
     return poses
 
 

@@ -46,9 +46,11 @@ class CombinedTracker:
         """The JAX package's rule, kept so that the same frames take the same
         route in both packages: a lazy-right frontend, and with lines on RCF
         at the detection scale (downsample > 1) on an image whose sides are
-        multiples of 4·downsample. (K1 itself needs only even sides.)"""
+        multiples of 4·downsample, and no epipolar filter (which the JAX
+        package runs on its host match path). (K1 itself needs only even
+        sides.)"""
         fe = self.fe
-        if not fe.lazy_right:
+        if not fe.lazy_right or fe._orej:
             return False
         ld = fe.cfg.line_detector
         ds = max(1, int(ld.downsample))

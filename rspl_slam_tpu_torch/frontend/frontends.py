@@ -19,6 +19,10 @@ host in ``pending_right`` until :meth:`NeuralFrontend.complete_stereo`
 runs the right eye and the stereo match when the frame becomes a keyframe.
 Tracked frames are all-mono.
 
+With ``match_outlier_rejection`` every match, stereo and temporal, goes
+through the epipolar RANSAC filter (``ops.matching.
+fundamental_ransac_inliers``) inside :meth:`NeuralFrontend.match_indices`.
+
 ``OracleFrontend`` observes a synthetic scene with known ground truth
 (``cli synth`` and the tests): exact projections plus noise, on the JAX
 package's numpy random stream, so one seed gives both packages the same
@@ -40,7 +44,8 @@ from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
 from rspl_slam_tpu_torch.models.weights import (load_params, rcf_from_numpy,
                                                 superglue_from_numpy, superpoint_from_numpy)
 from rspl_slam_tpu_torch.ops import lines as lops
-from rspl_slam_tpu_torch.ops.matching import cosine_mutual_match
+from rspl_slam_tpu_torch.ops.matching import (cosine_mutual_match, fundamental_ransac_inliers,
+                                             sample_hypotheses)
 
 __all__ = ["FrameFeatures", "NeuralFrontend", "OracleFrontend", "resolve_device"]
 
@@ -248,10 +253,12 @@ class NeuralFrontend:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_lines = cfg.use_lines if use_lines is None else use_lines
-        if cfg.pipeline.match_outlier_rejection:
-            raise NotImplementedError(
-                "match_outlier_rejection: the epipolar RANSAC filter is not "
-                "ported yet (ROADMAP.md, modules to port)")
+        # the optional epipolar filter on every match (point_matching.cc:35-45),
+        # its hypotheses drawn from a generator on the device, seeded as the
+        # JAX package seeds its key (seed + 7)
+        self._orej = bool(cfg.pipeline.match_outlier_rejection)
+        self._orej_gen = torch.Generator(device=self.device)
+        self._orej_gen.manual_seed(seed + 7)
         if matcher not in ("superglue", "cosine"):
             raise ValueError(f"matcher must be 'superglue' or 'cosine', got {matcher!r}")
         self.lazy_right = cfg.pipeline.lazy_right_extraction if lazy_right is None else lazy_right
@@ -296,10 +303,28 @@ class NeuralFrontend:
         """Batched matching of (B, K, ·) device tensors → indices0 (B, K)
         int32 on the device."""
         if self.matcher == "cosine":
-            return cosine_mutual_match(d0, v0, d1, v1)
-        return superglue.match_pair(self.sg, xy0, sc0, d0, v0, xy1, sc1, d1, v1,
-                                    self.cfg.superglue,
-                                    compute_dtype=self.compute_dtype).indices0
+            i0 = cosine_mutual_match(d0, v0, d1, v1)
+        else:
+            i0 = superglue.match_pair(self.sg, xy0, sc0, d0, v0, xy1, sc1, d1, v1,
+                                      self.cfg.superglue,
+                                      compute_dtype=self.compute_dtype).indices0
+        return self._reject_epipolar(xy0, xy1, i0) if self._orej else i0
+
+    def _reject_epipolar(self, xy0, xy1, i0) -> torch.Tensor:
+        """``match_outlier_rejection``: each match of the batch through
+        ``fundamental_ransac_inliers``; rejected rows become −1."""
+        out = []
+        for b in range(i0.shape[0]):
+            matched = i0[b] >= 0
+            ok = fundamental_ransac_inliers(xy0[b], xy1[b][i0[b].long().clamp_min(0)], matched,
+                                            hypotheses=self._orej_hypotheses(matched))
+            out.append(torch.where(ok, i0[b], -1))
+        return torch.stack(out)
+
+    def _orej_hypotheses(self, matched: torch.Tensor) -> torch.Tensor:
+        """One epipolar RANSAC call's (128, 8) hypotheses from the
+        frontend's generator."""
+        return sample_hypotheses(matched, self._orej_gen)
 
     def _match_indices(self, xy0, sc0, d0, v0, xy1, sc1, d1, v1) -> np.ndarray:
         """:meth:`match_indices` with the result on the host."""

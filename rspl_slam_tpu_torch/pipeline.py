@@ -66,7 +66,7 @@ class PipelinedRunner:
         self.slam = slam
         self.dataset = dataset
         self.on_record = on_record
-        self._device = torch.device(getattr(slam.frontend, "device", "cpu"))
+        self._device = slam.device
         self._img_q: queue.Queue = queue.Queue(maxsize=queue_depth)
         self._feat_q: queue.Queue = queue.Queue(maxsize=feature_depth)
         self._extract_thread = threading.Thread(target=self._extract_loop, daemon=True)

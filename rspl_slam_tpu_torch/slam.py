@@ -38,8 +38,19 @@ JAX package; other frontends (``OracleFrontend``) take the unfused path:
 resume a map checkpoint; :meth:`SLAMSystem.cull_redundant_keyframes` bounds
 the map on an endless feed.
 
-Not ported yet, and raising ``NotImplementedError`` rather than degrading:
-loop closure and relocalization (ROADMAP.md).
+The global layer (the JAX package's extensions over the reference):
+with ``enable_loop_closure`` each inserted keyframe is tested against the
+keyframe database (``backend/loop_closure.LoopDetector``, host numpy); an
+accepted loop runs :meth:`SLAMSystem.run_pose_graph` (and, with
+``global_ba_on_loop``, :meth:`SLAMSystem.run_global_ba`) at once. With
+relocalization (on with loop closure by default) a track lost for
+``reloc_after`` frames is re-anchored on the keyframe the same database
+verifies. ``track_local_map`` re-associates a new keyframe's unmatched
+keypoints with landmarks of the covisible local map by projection
+(``MapStore.search_by_projection``) before fresh landmarks are spawned.
+The pose graph (``backend/pose_graph.py``) and global BA (the local-BA
+solver over every keyframe, point and line) run on the device without a
+host synchronization inside their LM loops.
 """
 
 from __future__ import annotations
@@ -51,7 +62,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from rspl_slam_tpu_torch.backend import local_ba, map_store, pnp, pose_solver
+from rspl_slam_tpu_torch.backend import local_ba, map_store, pnp, pose_graph, pose_solver
+from rspl_slam_tpu_torch.backend.loop_closure import LoopDetector
 from rspl_slam_tpu_torch.backend.residuals import CameraIntrinsics
 from rspl_slam_tpu_torch.config import SystemConfig
 from rspl_slam_tpu_torch.datasets import write_tum_trajectory
@@ -88,10 +100,6 @@ def _members_to_lists(members: np.ndarray, width: int = 32) -> np.ndarray:
     return out
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
-
-
 class SLAMSystem:
     # wants_images() runs on the PipelinedRunner's extract thread while
     # add_frame* runs on the tracking thread: the CombinedTracker is built
@@ -104,29 +112,40 @@ class SLAMSystem:
                  enable_relocalization: bool | None = None,
                  reloc_after: int = 3, global_ba_on_loop: bool = False,
                  fused_tracking: bool | None = None):
-        if enable_loop_closure or enable_relocalization or global_ba_on_loop:
-            _unported("loop closure / relocalization", "remaining slice 5")
-        if cfg.pipeline.match_outlier_rejection:
-            _unported("match_outlier_rejection", "modules to port")
-        if cfg.pipeline.track_local_map:
-            _unported("track_local_map (search by projection)", "modules to port")
         self.cfg = cfg
         self.frontend = frontend
         self.device = frontend.device
         self.enable_ba = enable_ba
-        # fused tracking for frontends with a device-side matcher
+        # fused tracking for frontends with a device-side matcher; the
+        # epipolar filter takes the unfused match path, as in the JAX package
         if fused_tracking is None:
-            fused_tracking = getattr(frontend, "matcher", None) in ("superglue", "cosine")
+            fused_tracking = (getattr(frontend, "matcher", None) in ("superglue", "cosine")
+                              and not cfg.pipeline.match_outlier_rejection)
         self._fused_enabled = fused_tracking
         self._pending_ba = None  # in-flight async local BA
         self._ba_stream = None  # the side stream of async BA on a card
         self.ba_windows: list[dict] = []  # per solved window: frames, constraints
+        self.pose_graph_solves: list[dict] = []  # per solve: its initial and final cost
         self.enable_lines = cfg.use_lines if enable_lines is None else enable_lines
         self._fused = None
         self._combined = None  # the lazy schedule's frame_step.CombinedTracker
         self._track_seed = 0  # RANSAC seed of the next tracked frame, on either route
         cam = cfg.camera
         self.K = CameraIntrinsics(cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+        # loop closure: place recognition + geometric verification feeding
+        # measured constraints into the pose graph; relocalization queries
+        # the same database after ``reloc_after`` lost frames
+        self.loop_detector = None
+        self.loop_constraints: list = []
+        if enable_relocalization is None:
+            enable_relocalization = enable_loop_closure
+        self.enable_relocalization = enable_relocalization
+        self.reloc_after = reloc_after
+        self.reloc_count = 0
+        if enable_loop_closure or enable_relocalization:
+            self.loop_detector = LoopDetector(bf=cam.bf)
+        self._loop_closure_on = enable_loop_closure
+        self._global_ba_on_loop = global_ba_on_loop
         self.map = map_store.MapStore(
             cfg.superpoint.max_keypoints, cfg.line_detector.max_lines,
             cfg.pipeline, desc_dim=cfg.superglue.descriptor_dim,
@@ -235,6 +254,9 @@ class SLAMSystem:
                 f"with the config the map was built under")
         self.initialized = self.map.n_kf > 0
         self.records = []
+        self.loop_constraints = []
+        if self.loop_detector is not None:
+            self.loop_detector._gdesc = []  # derived: rebuilt from the map lazily
         if self.initialized:
             self._ref_kf = self.map.n_kf - 1
             self._ref_feats = self._features_from_keyframe(self._ref_kf)
@@ -360,6 +382,23 @@ class SLAMSystem:
             i0 = self.frontend.match(feats, self._ref_feats)
             self._t("match", t0)
         num_match = int((i0 >= 0).sum())
+        # relocalization: after ``reloc_after`` frames without a pose fix,
+        # query the keyframe database with the frame's raw features and
+        # re-anchor tracking on the verified keyframe
+        if (self.enable_relocalization and self._lost_count >= self.reloc_after
+                and num_match < self.cfg.keyframe.min_num_match):
+            t0 = time.perf_counter()
+            r = self.loop_detector.relocalize(self.map, feats.desc, feats.valid, feats.meas)
+            if r is not None:
+                c, Twc_r, _ = r
+                self._ref_kf = int(c)
+                self._ref_feats = self._features_from_keyframe(int(c))
+                self._last_Twc = np.asarray(Twc_r)
+                self.reloc_count += 1
+                i0 = self.frontend.match(feats, self._ref_feats)
+                num_match = int((i0 >= 0).sum())
+                fused_pose = None  # re-anchored: redo the pose solve
+            self._t("reloc", t0)
         # fallback: weak association with the ref keyframe → promote the
         # previous frame to keyframe and re-anchor (never a frame that
         # already IS the reference keyframe)
@@ -489,10 +528,24 @@ class SLAMSystem:
         inl_ok = (np.ones(K_cap, bool) if len(inlier_row) == 0
                   else (np.asarray(inlier_row, bool) | (j < 0)))
         extend_good = valid & (pt >= 0) & (status == map_store.PT_GOOD) & inl_ok
-        new_stereo = valid & ~extend_good & (feats.depth > 0)
-        extend_pend = (valid & ~extend_good & ~new_stereo & (pt >= 0)
+        # track_local_map: before fresh landmarks are spawned, re-associate
+        # unmatched keypoints with GOOD landmarks of the covisible local map
+        # (search by projection ≙ the reference's never-called TrackLocalMap)
+        rec_pt = np.full(K_cap, -1, np.int64)
+        if self.cfg.pipeline.track_local_map:
+            for p_, k_ in self._associate_local_map(kf, np.where(extend_good, pt, -1)):
+                if valid[k_] and not extend_good[k_] and rec_pt[k_] < 0:
+                    rec_pt[k_] = p_
+        recovered = rec_pt >= 0
+        new_stereo = valid & ~extend_good & ~recovered & (feats.depth > 0)
+        extend_pend = (valid & ~extend_good & ~recovered & ~new_stereo & (pt >= 0)
                        & (status == map_store.PT_UNTRIANGULATED))
-        new_mono = valid & ~extend_good & ~new_stereo & ~extend_pend
+        new_mono = valid & ~extend_good & ~recovered & ~new_stereo & ~extend_pend
+        idx = np.nonzero(recovered)[0]
+        if len(idx):
+            _, first = np.unique(rec_pt[idx], return_index=True)
+            idx = idx[np.sort(first)]
+            self.map.add_point_obs_batch(rec_pt[idx], kf, idx)
         # extend existing mappoints; several keypoints on one landmark keep
         # the first
         idx = np.nonzero(extend_good | extend_pend)[0]
@@ -526,9 +579,38 @@ class SLAMSystem:
             else:
                 self._run_local_ba(kf)
             self._t("local_ba", t0)
+        if self._loop_closure_on:
+            t0 = time.perf_counter()
+            lc = self.loop_detector.detect(self.map, kf)
+            self._t("loop_detect", t0)
+            if lc is not None:
+                self.loop_constraints.append(lc)
+                # a verified loop is acted on at once: the pose graph
+                # corrects the trajectory and re-anchors the landmarks
+                self.run_pose_graph()
+                if self._global_ba_on_loop:
+                    self.run_global_ba()
         self._ref_kf = kf
         self._ref_feats = feats
         return kf
+
+    def _associate_local_map(self, kf: int, matched_pts: np.ndarray) -> list:
+        """Candidate (pt, kpt) re-associations for keyframe ``kf``: GOOD
+        mappoints of the current local map (the reference keyframe and its
+        covisible neighbours; ``kf`` has no covisibility yet) projected into
+        ``kf`` and matched by descriptor (``MapStore.search_by_projection``).
+        ``matched_pts`` (landmark per keypoint slot, −1 = none) excludes the
+        landmarks the temporal match resolved."""
+        m = self.map
+        anchor = self._ref_kf
+        neigh = np.unique(np.concatenate(
+            [[anchor], m.neighbor_keyframes(anchor, max_n=9)])).astype(int)
+        seen = m.kf_track[neigh]
+        cand = np.unique(seen[seen >= 0])
+        cand = cand[~np.isin(cand, matched_pts[matched_pts >= 0])]
+        if len(cand) == 0:
+            return []
+        return m.search_by_projection(kf, cand)
 
     @torch.no_grad()
     def _triangulate_pending_points(self, kf: int):
@@ -755,6 +837,95 @@ class SLAMSystem:
         self.map.ln_plucker[sel] = buf[: 6 * n].reshape(n, 6)[ok]
         self.map.ln_endpoints[sel] = buf[6 * n: 12 * n].reshape(n, 2, 3)[ok]
         self.map.ln_has_endpoints[sel] = True
+
+    # ---------------------------------------------------------- global layer
+    def global_ba_problem(self, min_keyframes: int = 3):
+        """The full-map BA problem (every live keyframe, GOOD point and line,
+        constraints from the complete back-pointer tables, ``full_obs``, so
+        observations evicted from the MAX_OBS rings count) as (BAProblem of
+        numpy arrays, mapping), capacities rounded up to powers of two; or
+        (None, None) when the map is too small."""
+        self.flush_ba()
+        m = self.map
+        if m.n_kf < min_keyframes:
+            return None, None
+        frames = np.nonzero(m.kf_valid[: m.n_kf])[0]
+
+        def pow2(n, lo):
+            return max(lo, 1 << int(np.ceil(np.log2(max(n, 1)))))
+
+        good = m.pt_status[: m.n_pt] == map_store.PT_GOOD
+        tr = m.kf_track[frames]
+        n_obs = int((m.pt_status[tr[tr >= 0]] == map_store.PT_GOOD).sum())
+        n_lobs = int((m.kf_line_track[frames] >= 0).sum())
+        problem_np, mapping = m.gather_ba_window(
+            int(frames[-1]), pow2(len(frames), 4), pow2(int(good.sum()), 64),
+            pow2(max(m.n_ln, 1), 8), pow2(n_obs, 128), pow2(max(n_lobs, 1), 32),
+            frames=frames, full_obs=True)
+        if mapping["ncp"] < 30:
+            return None, None
+        return local_ba.BAProblem(**problem_np), mapping
+
+    def run_global_ba(self, mesh=None, min_keyframes: int = 3, iters1: int | None = None,
+                      iters2: int | None = None):
+        """Full-map bundle adjustment: every keyframe, point and line refined
+        jointly by the local-BA solver (two-phase Huber/chi² LM) on the
+        device, over :meth:`global_ba_problem`. Returns the final cost, or
+        None when the map is too small. ``mesh`` (the JAX package's
+        constraint-sharded solve over a device mesh) is not ported and
+        raises."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "run_global_ba(mesh=...): BA sharded over a device mesh is not ported yet "
+                "(ROADMAP.md, §1 item 6)")
+        self.flush_ba()
+        t0 = time.perf_counter()
+        prob, mapping = self.global_ba_problem(min_keyframes)
+        if prob is None:
+            return None
+        o = self.cfg.optimization
+        b = o.backend
+        res = local_ba.optimize_local_map(
+            self.K, local_ba.upload_problem(prob, self.device),
+            iters1=o.ba_iters_phase1 if iters1 is None else iters1,
+            iters2=o.ba_iters_phase2 if iters2 is None else iters2,
+            chi2_mono=b.mono_point, chi2_stereo=b.stereo_point,
+            chi2_mono_line=b.mono_line, chi2_stereo_line=b.stereo_line)
+        host = local_ba.fetch_result(res)
+        self.apply_ba_result(host, mapping, int(mapping["frames"][-1]))
+        self._t("global_ba", t0)
+        return float(host.cost)
+
+    def run_pose_graph(self, min_weight: int = 10, iters: int = 20,
+                       require_loops: bool = True):
+        """Global pose-graph optimization over all keyframes: relative-pose
+        constraints from covisibility and odometry plus the measured loop
+        constraints, solved on the device (``backend/pose_graph.py``), then
+        the landmarks rigidly re-anchored to their keyframes' corrected
+        poses. Without loop constraints the graph is at its optimum already,
+        so the solve is skipped (``require_loops``). Returns the final cost
+        or None; ``pose_graph_solves`` records the initial cost beside it."""
+        self.flush_ba()
+        m = self.map
+        if m.n_kf < 3:
+            return None
+        if require_loops and not self.loop_constraints:
+            return None
+        t0 = time.perf_counter()
+        prob = pose_graph.relative_constraints_from_covisibility(
+            m.kf_pose, np.maximum(m.covis, m.covis.T), m.n_kf, min_weight=min_weight,
+            loops=self.loop_constraints, device=self.device)
+        res = pose_graph.optimize_pose_graph(prob, iters=iters)
+        buf = torch.cat([res.Tcw.reshape(-1), res.initial_cost.reshape(1),
+                         res.cost.reshape(1)]).cpu().numpy()  # one f32 copy down
+        m.apply_pose_corrections(np.linalg.inv(buf[:-2].reshape(-1, 4, 4)))
+        self._last_Twc = m.kf_pose[m.n_kf - 1].copy()
+        self._t("pose_graph", t0)
+        self.pose_graph_solves.append({"keyframes": int(m.n_kf),
+                                       "constraints": int(prob.c_valid.sum()),
+                                       "loops": len(self.loop_constraints),
+                                       "initial_cost": float(buf[-2]), "cost": float(buf[-1])})
+        return float(buf[-1])
 
     def _t(self, name, t0):
         self.timings.setdefault(name, []).append(time.perf_counter() - t0)

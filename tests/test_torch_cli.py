@@ -377,13 +377,46 @@ def test_serve_stops_when_idle(tree, tmp_path):
     assert time.perf_counter() - t0 < 30
 
 
-@pytest.mark.parametrize("argv", [
-    ["run", "--dataroot", ".", "--device", "cpu", "--loop-closure"],
-    ["run", "--dataroot", ".", "--device", "cpu", "--pose-graph"],
-    ["run", "--dataroot", ".", "--device", "cpu", "--global-ba"],
-    ["run", "--dataroot", ".", "--device", "cpu", "--track-local-map"],
-    ["pretrain", "--model", "rcf"],
-], ids=["loop-closure", "pose-graph", "global-ba", "track-local-map", "pretrain"])
+_EPILOGUE = re.compile(r"^(loop closures accepted|pose graph|global BA):.*$", re.M)
+
+
+@pytest.mark.parametrize("flag", ["loop-closure", "pose-graph", "global-ba", "track-local-map"])
+def test_global_options_match_jax(flag, tree, capsys):
+    """``run --<flag>`` (SuperGlue, lines off) in both CLIs on the tiny
+    tree: the same epilogue lines (no loop in 8 frames, so ``--pose-graph``
+    prints the same "skipped" line in both; ``--global-ba`` refines the
+    same keyframes, its final cost within 1%), the same keyframes, and
+    keyframe positions within the module's SuperGlue tolerance."""
+    root, _, _ = tree
+    res = {}
+    for pkg, cli, extra in (("port", tcli, ["--device", "cpu"]), ("jax", jcli, ["--no-native"])):
+        traj = f"{root}/{pkg}_{flag}.txt"
+        capsys.readouterr()
+        cli.main(["run", "--dataroot", f"{root}/seqs/MH_tiny",
+                  *_args(root, "--matcher", "superglue", "--no-lines", "--traj-path", traj,
+                         f"--{flag}", *extra)])
+        res[pkg] = (capsys.readouterr().out, np.loadtxt(traj, ndmin=2))
+    (out_t, a), (out_j, b) = res["port"], res["jax"]
+    ep_t = [m.group(0) for m in _EPILOGUE.finditer(out_t)]
+    ep_j = [m.group(0) for m in _EPILOGUE.finditer(out_j)]
+    with capsys.disabled():
+        report(f"cli_{flag}", epilogue=[ep_t, ep_j], keyframes=len(a),
+               keyframe_pos_max_m=float(np.abs(a[:, 1:4] - b[:, 1:4]).max()))
+    assert len(ep_t) == len(ep_j) == (flag in ("pose-graph", "global-ba"))
+    for lt, lj in zip(ep_t, ep_j):
+        if lt.startswith("global BA: refined"):
+            got = [re.match(r"global BA: refined (\d+) keyframes jointly \(final cost (\S+)\)$",
+                            x).groups() for x in (lt, lj)]
+            assert got[0][0] == got[1][0]
+            np.testing.assert_allclose(float(got[0][1]), float(got[1][1]), rtol=1e-2)
+        else:
+            assert lt == lj
+    assert len(a) == len(b) >= 3
+    np.testing.assert_array_equal(a[:, 0], b[:, 0])
+    np.testing.assert_allclose(a[:, 1:4], b[:, 1:4], atol=POS_TOL["superglue"])
+
+
+@pytest.mark.parametrize("argv", [["pretrain", "--model", "rcf"]], ids=["pretrain"])
 def test_unported_options_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(argv)

@@ -568,3 +568,171 @@ def test_png_unfilter_compiled_matches_numpy(cuda_device, bpp):  # noqa: F811
         np.testing.assert_array_equal(got, img)
     with pytest.raises(RuntimeError, match="invalid PNG filter type"):
         png.unfilter_compiled(b"\x07" + bytes(47 * bpp), 1, 47 * bpp, bpp)
+
+
+def _drifted_graph(F=24, seed=1):
+    """A circular chain with accumulating drift, odometry and covisibility
+    edges and one loop measured from the true poses."""
+    from rspl_slam_tpu_torch.backend.loop_closure import LoopConstraint
+    from rspl_slam_tpu_torch.evaluation.synthetic import _exp_se3
+
+    rng = np.random.default_rng(seed)
+    gt = []
+    for f in range(F):
+        a = np.pi * f / F
+        T = np.eye(4)
+        T[:3, :3] = [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]]
+        T[:3, 3] = [5 * np.cos(a), 5 * np.sin(a), 0]
+        gt.append(T)
+    est = [gt[0]]
+    for f in range(1, F):
+        est.append(est[-1] @ np.linalg.inv(gt[f - 1]) @ gt[f]
+                   @ _exp_se3(np.concatenate([rng.normal(0, 0.02, 3), rng.normal(0, 0.05, 3)])))
+    covis = np.zeros((F, F))
+    for a in range(F - 2):
+        covis[a, a + 2] = 15
+    loop = LoopConstraint(0, F - 1, np.linalg.inv(gt[0]) @ gt[F - 1], 50.0, 50, 0.95)
+    return np.stack(est), covis, [loop]
+
+
+def test_pose_graph_on_the_card_matches_the_cpu_and_repeats(cuda_device):  # noqa: F811
+    """The pose-graph LM on the card against the same solve on CPU tensors
+    (f32: poses within 1e-4, costs within 1e-4 relative), twice on the card
+    with the same bits (fixed-order segment sums, no atomics), and no host
+    synchronization inside the solve."""
+    from rspl_slam_tpu_torch.backend import pose_graph
+
+    est, covis, loops = _drifted_graph()
+    F = len(est)
+    cpu = pose_graph.optimize_pose_graph(pose_graph.relative_constraints_from_covisibility(
+        est, covis, F, loops=loops, device="cpu"))
+    runs = []
+    for _ in range(2):
+        prob = pose_graph.relative_constraints_from_covisibility(est, covis, F, loops=loops,
+                                                                 device=cuda_device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = pose_graph.optimize_pose_graph(prob)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        runs.append((res.Tcw.cpu(), res.cost.cpu()))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    torch.testing.assert_close(runs[0][0], cpu.Tcw, rtol=0, atol=1e-4)
+    torch.testing.assert_close(runs[0][1], cpu.cost, rtol=1e-4, atol=1e-7)
+    assert float(runs[0][1]) < float(cpu.initial_cost)
+
+
+def test_epipolar_filter_on_the_card_rejects_planted_outliers(cuda_device):  # noqa: F811
+    """``fundamental_ransac_inliers`` on CUDA tensors (hypotheses from a
+    generator on the card): 30 scrambled matches of 120 between two views
+    of a known relative pose; < 15% of the scrambles kept, > 90% of the
+    rest, nothing unmatched kept."""
+    from rspl_slam_tpu_torch.ops.matching import fundamental_ransac_inliers
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform([-3, -2, 3], [3, 2, 9], (120, 3))
+    a = 0.1
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+
+    def project(Xc):
+        return np.stack([400 * Xc[:, 0] / Xc[:, 2] + 320, 400 * Xc[:, 1] / Xc[:, 2] + 240], -1)
+
+    p0 = project(X) + rng.standard_normal((120, 2)) * 0.3
+    p1 = project(X @ R.T + [0.4, 0.05, 0.1]) + rng.standard_normal((120, 2)) * 0.3
+    bad = np.arange(90, 120)
+    p1[bad] = p1[rng.permutation(bad)] + rng.uniform(20, 80, (30, 2))
+    matched = np.ones(120, bool)
+    matched[::11] = False
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    t = lambda x: torch.as_tensor(x, device=cuda_device)  # noqa: E731
+    ok = fundamental_ransac_inliers(t(p0.astype(np.float32)), t(p1.astype(np.float32)),
+                                    t(matched), g).cpu().numpy()
+    good = np.setdiff1d(np.nonzero(matched)[0], bad)
+    assert ok[bad].mean() < 0.15 and ok[good].mean() > 0.9 and not ok[~matched].any()
+
+
+def test_global_ba_on_the_card_matches_the_cpu(cuda_device):  # noqa: F811
+    """``run_global_ba``'s problem (an oracle map, BA off, perturbed) solved
+    on the card and on CPU tensors: costs within 1e-3 relative, poses within
+    1e-3 m, the same bits on a second card solve."""
+    from rspl_slam_tpu_torch.backend import local_ba
+    from rspl_slam_tpu_torch.config import PipelineConfig, SuperPointConfig, SystemConfig
+    from rspl_slam_tpu_torch.evaluation import synthetic
+    from rspl_slam_tpu_torch.frontend.frontends import OracleFrontend
+    from rspl_slam_tpu_torch.slam import SLAMSystem
+
+    cfg = SystemConfig(superpoint=SuperPointConfig(max_keypoints=256),
+                       pipeline=PipelineConfig(ba_max_points=512, ba_max_lines=16),
+                       use_lines=False)
+    scene = synthetic.make_scene(num_points=900, seed=2, num_lines=0, extent=(10.0, 6.0, 16.0))
+    fe = OracleFrontend(cfg, scene, noise_px=0.6, seed=2, device="cpu")
+    fe.poses = synthetic.make_trajectory(35, step=0.05, yaw_rate=0.003)
+    slam = SLAMSystem(cfg, fe, enable_ba=False)
+    for i in range(35):
+        slam.add_frame(i, i * 0.05, None, None)
+    rng = np.random.default_rng(0)
+    m = slam.map
+    for k in range(1, m.n_kf):
+        m.kf_pose[k][:3, 3] += rng.standard_normal(3) * 0.01
+    prob, _ = slam.global_ba_problem()
+    cpu = local_ba.fetch_result(local_ba.optimize_local_map(
+        slam.K, local_ba.upload_problem(prob, "cpu")))
+    card = [local_ba.fetch_result(local_ba.optimize_local_map(
+        slam.K, local_ba.upload_problem(prob, cuda_device))) for _ in range(2)]
+    assert np.array_equal(card[0].Tcw, card[1].Tcw) and card[0].cost == card[1].cost
+    assert abs(float(card[0].cost) - float(cpu.cost)) <= 1e-3 * float(cpu.cost)
+    assert np.abs(card[0].Tcw - cpu.Tcw)[:, :3, 3].max() < 1e-3
+
+
+def test_neural_relocalization_on_the_card_matches_the_cpu(cuda_device, tmp_path):  # noqa: F811
+    """Relocalization's re-anchoring route with the neural frontend, as
+    ``SLAMSystem._track`` runs it, on the card and on the CPU from the same
+    saved map and the same host features of one frame (320×240, 2 GNN
+    layers, f32):
+    the keyframe database query, the verified keyframe's stored features,
+    the re-match through K2 and K3, the PnP + LM pose solve. The same
+    keyframe, ≥ 95% of the matches equal, poses within 1e-3 m, more than
+    20 inliers; K2 (its f32 mode) and K3 launched on the card only."""
+    from rspl_slam_tpu_torch.frontend.frontends import FrameFeatures, NeuralFrontend
+    from rspl_slam_tpu_torch.slam import SLAMSystem
+
+    cfg = small_system_cfg()
+    frames, _ = rendered_sequence(cfg, 6)
+    sp, sg = matcher_weights(cfg)
+
+    def system(dev):
+        return SLAMSystem(cfg, NeuralFrontend(cfg, sp_params=sp, sg_params=sg,
+                                              compute_dtype=torch.float32, device=dev),
+                          enable_ba=False, enable_relocalization=True)
+
+    mapper = system("cpu")
+    for i, f in enumerate(frames):
+        mapper.add_frame(i, 0.05 * i, *f)
+    path = str(tmp_path / "map.npz")
+    mapper.save_map(path)
+    f = mapper.frontend.extract_pair(*frames[1])
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("card", cuda_device)):
+        # the frame's host fields alone: each frontend caches its own device copies
+        feats = FrameFeatures(xy=f.xy, score=f.score, desc=f.desc, valid=f.valid, meas=f.meas,
+                              depth=f.depth)
+        slam = system(dev)
+        slam.resume_from_map(path)
+        before = (attention_cuda.f32_launches, sinkhorn_cuda.launches)
+        r = slam.loop_detector.relocalize(slam.map, feats.desc, feats.valid, feats.meas)
+        assert r is not None
+        c, Twc_r, _ = r
+        slam._ref_kf = int(c)
+        slam._ref_feats = slam._features_from_keyframe(int(c))
+        slam._last_Twc = np.asarray(Twc_r)
+        i0 = slam.frontend.match(feats, slam._ref_feats)
+        Twc, n_inl, _ = slam._pose_optimize(feats, i0)
+        out[name] = (int(c), i0, np.asarray(Twc), n_inl,
+                     (attention_cuda.f32_launches - before[0],
+                      sinkhorn_cuda.launches - before[1]))
+    (c0, i0, T0, n0, l0), (c1, i1, T1, n1, l1) = out["cpu"], out["card"]
+    assert c0 == c1 and (i0 == i1).mean() >= 0.95
+    assert n0 > 20 and n1 > 20
+    assert np.abs(T1[:3, 3] - T0[:3, 3]).max() < 1e-3
+    assert l0 == (0, 0) and min(l1) > 0

@@ -42,6 +42,7 @@ class _StubSLAM:
 
     def __init__(self):
         self.frontend = _StubFrontend()
+        self.device = self.frontend.device
 
     def add_frame_features(self, index, t, feats):
         return (index, t, feats)
@@ -157,3 +158,18 @@ def test_on_record_called_once_per_frame():
 def test_run_needs_a_dataset():
     with pytest.raises(ValueError, match="dataset"):
         PipelinedRunner(_StubSLAM()).run()
+
+
+def test_runner_takes_the_systems_device():
+    """The runner's device is the SLAM system's, which the system takes
+    from its frontend: a frontend without ``device`` fails when the system
+    is built, and no entry point falls back to the CPU for it."""
+
+    class _NoDevice:
+        matcher = "superglue"
+
+    with pytest.raises(AttributeError, match="device"):
+        SLAMSystem(small_system_cfg(), _NoDevice())
+    slam = _StubSLAM()
+    slam.device = torch.device("meta")  # not the frontend's: the runner reads the system's
+    assert PipelinedRunner(slam)._device == torch.device("meta")

@@ -1,6 +1,6 @@
 """The port's frontend and SLAM slice (points, and points + lines) against
 the JAX package, plus the port's ground rules: no JAX import, the card as
-default device, unported configurations raise."""
+default device; and the global layer's options run."""
 
 import ast
 import dataclasses
@@ -286,13 +286,35 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("what", ["match_outlier_rejection", "loop_closure"])
-def test_unported_configurations_raise(what):
+def test_global_configurations_run(what):
+    """The global layer's options, which raised before they were ported,
+    run on the CPU: 4 rendered frames through the port and the JAX package
+    (every tracked frame a keyframe, BA off) with the epipolar filter (the
+    port fed JAX's hypothesis draws; tracking takes the unfused route) or
+    with loop closure on (relocalization follows it; the detector tests
+    every keyframe and finds no loop in so short a run): the same
+    keyframes, positions within 1 mm."""
+    from test_torch_global import _JaxDraws
+
     cfg = small_system_cfg()
-    fe = TFE(cfg, device="cpu")
-    pipe = cfg.pipeline
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "match_outlier_rejection":
-            SLAMSystem(dataclasses.replace(cfg, pipeline=dataclasses.replace(
-                pipe, match_outlier_rejection=True)), fe, enable_ba=False)
-        else:
-            SLAMSystem(cfg, fe, enable_ba=False, enable_loop_closure=True)
+    cfg = dataclasses.replace(cfg, keyframe=dataclasses.replace(cfg.keyframe, max_num_match=400),
+                              pipeline=dataclasses.replace(
+                                  cfg.pipeline,
+                                  match_outlier_rejection=what == "match_outlier_rejection"))
+    frames, _ = rendered_sequence(cfg, 4)
+    jfe, tfe = frontend_pair(cfg)
+    kw = dict(enable_ba=False, enable_loop_closure=what == "loop_closure")
+    js, ts = JSLAM(to_jax_cfg(cfg), jfe, **kw), SLAMSystem(cfg, tfe, **kw)
+    if what == "match_outlier_rejection":
+        tfe._orej_hypotheses = _JaxDraws()
+    for i, f in enumerate(frames):
+        assert ts.add_frame(i, 0.05 * i, *f).is_keyframe == js.add_frame(i, 0.05 * i, *f).is_keyframe
+    n = js.map.n_kf
+    assert ts.map.n_kf == n >= 3
+    np.testing.assert_allclose(ts.map.kf_pose[:n, :3, 3], js.map.kf_pose[:n, :3, 3], atol=1e-3)
+    assert ts.enable_relocalization == js.enable_relocalization == (what == "loop_closure")
+    if what == "loop_closure":
+        assert len(ts.timings["loop_detect"]) == len(js.timings["loop_detect"]) == n - 1
+        assert ts.loop_constraints == js.loop_constraints == []
+    else:  # the unfused route, as in the JAX package
+        assert "match" in ts.timings and "track_fused" not in ts.timings
