@@ -4,6 +4,8 @@
     python3 chip_smoke.py --profile  # every phase + a torch.profiler breakdown
                                      # of the lines path and launches per BA window
     python3 chip_smoke.py --kernels  # device, build, kernel phases, summary
+    python3 chip_smoke.py --training # device, build, kernels, end_to_end_ba,
+                                     # the training phases (6 below), summary
 
 Phases (one JSON line each):
   1. the card's name and power limit; build every kernel library from
@@ -91,11 +93,44 @@ Phases (one JSON line each):
      reader's compiled row unfilter (host code, no kernel) is held against
      the numpy one bit for bit in ``png_unfilter`` after the kernel
      checks, in every mode;
-  6. the {"kernels": [...]} summary (launches from the BA path, the
+  6. training (``training/``: plain-PyTorch forwards with autograd, the
+     kernels inference-only), each phase with its card name, power limit,
+     ms per step (host data apart from the device step) and peak memory:
+     ``train_superpoint``, the JAX package's slow-test recipe (160×120,
+     120 Adam steps, batch 2, lr 1e-3), gated on the loss falling, recall
+     @2 px rising by more than 0.08 and the median localization error
+     falling (bf16 extraction through K1), then K1 on the trained conv1b
+     against its plain version; ``train_rcf``, full width at 240×376, 40
+     steps, gated on the loss falling, the trained weights through K1's
+     side mode (against its plain version; beside the generic recipe);
+     ``train_superglue`` (a) JAX's tier-1 overfit (2 layers, 10
+     iterations, K = 16, 60 steps) gated on the loss under 0.3× its start,
+     ``matching_accuracy`` through K2's f32 mode and K3 over 0.9 and
+     equal to the plain version's, and the kernels' log plan within 1e-3
+     of the plain forward's, (b) ``SuperGlueConfig()`` (18 layers, 100
+     iterations) at K = 400, batch 8, 10 steps, gated on a finite falling
+     loss, the bf16 decode (K2 bf16 + K3) equal to the plain forward's on
+     ≥ 99% of rows, and on values: the kernels' log plan, and each of the
+     18 layers through K2 at (16, 400, 256) on the plain forward's own
+     input, within 2× the plain version's own spread (the same plain
+     function on the CPU), the Sinkhorn through K3 at (8, 401, 401) within
+     its kernel line's 1e-3; ``superglue_bank``, ``make_shift_pair_bank``
+     on the card (8 shifted pairs of 240×376 crops of the BA path's
+     frames, bf16 extraction through K1 at (8, 240, 376)) gated on its
+     labels equal to a CPU bank's by keypoint position on ≥ 95% of rows;
+     ``cli_pretrain``, ``pretrain --model superpoint|rcf|superglue --steps
+     20`` in three parallel subprocesses without PyYAML/PIL/matplotlib,
+     each ``.npz`` loaded and run once on the card; ``end_to_end_trained``,
+     the BA path with the trained SuperPoint, gated on finite poses; ATE,
+     inliers, the keypoints' 8-px grid share and the descriptors' cosines
+     measured beside the random weights'. Peak memory is each phase's
+     own: the most allocated above what was alive at its start;
+  7. the {"kernels": [...]} summary (launches from the BA path, the
      default main path; each path's counts in ``launches_by_path``, the
-     CLI's as ``cli_run``; each path's ATE in ``ate_by_path``); last line
-     {"ok": true, "device": ...}. With --kernels, phases 3-5 are skipped
-     and the summary's launch counts are null.
+     CLI's as ``cli_run``, the training phases' under their names; each
+     path's ATE in ``ate_by_path``); last line {"ok": true, "device":
+     ...}. With --kernels, phases 3-6 are skipped and the summary's launch
+     counts are null; --training runs ``end_to_end_ba`` and phase 6 alone.
 
 Any failure raises and exits non-zero. The script imports nothing of JAX
 or of the JAX package.
@@ -133,6 +168,9 @@ E2E_FRAMES = 30
 E2E_MIN_INLIERS = 20
 E2E_ATE_BOUND = 0.35
 E2E_ATE_BOUND_LAZY = 0.35
+
+
+CARD = None  # the nvidia-smi name and power limit, which the training phases repeat
 
 
 def emit(obj) -> None:
@@ -199,6 +237,8 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     # f32 stays f32: the port states its TF32 use explicitly
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -572,29 +612,30 @@ def phase_local_ba_check(profile: bool):
     return out
 
 
-def _scene(cfg, lines: bool):
-    """The end-to-end scene's 30 rendered stereo pairs (with 12 dark
-    segments on the lines paths), the ground-truth trajectory, and the
-    render time."""
+def _scene(cfg, lines: bool, n: int = E2E_FRAMES):
+    """The end-to-end scene's first ``n`` (30) rendered stereo pairs (with
+    12 dark segments on the lines paths), the ground-truth trajectory, and
+    the render time."""
     from rspl_slam_tpu_torch.evaluation import synthetic
 
     t0 = time.perf_counter()
     scene = synthetic.make_scene(num_points=600, num_lines=12 if lines else 0, seed=1,
                                  extent=(6.0, 4.0, 6.0), on_line_frac=0.0)
     traj = synthetic.make_trajectory(E2E_FRAMES, step=0.05)
-    frames = [synthetic.render_images(scene, cfg.camera, traj[i], seed=i)
-              for i in range(E2E_FRAMES)]
+    frames = [synthetic.render_images(scene, cfg.camera, traj[i], seed=i) for i in range(n)]
     return frames, traj, time.perf_counter() - t0
 
 
-def _frontend(cfg, lines: bool):
+def _frontend(cfg, lines: bool, sp_params=None):
     """The card's NeuralFrontend (bf16) with the end-to-end weights: random
-    SuperPoint (seed 0), the descriptor-matcher SuperGlue and, with lines,
-    the hand-set RCF edge weights."""
+    SuperPoint (seed 0) unless ``sp_params`` is given, the
+    descriptor-matcher SuperGlue (set for random SuperPoint's nearly
+    parallel descriptors: similarity 2000·cos against a dustbin of 1980)
+    and, with lines, the hand-set RCF edge weights."""
     from rspl_slam_tpu_torch.frontend.frontends import NeuralFrontend
     from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
 
-    sp = superpoint.init_params(0)
+    sp = superpoint.init_params(0) if sp_params is None else sp_params
     sg = superglue.descriptor_matcher_params(cfg.superglue, 0, 2000.0, 1980.0)
     rp = rcf.edge_detector_params() if lines else None
     return NeuralFrontend(cfg, sp_params=sp, sg_params=sg, rcf_params=rp)
@@ -622,10 +663,13 @@ def _keyframe_ate(m, traj):
     return float(absolute_trajectory_error(kf_t, kf_pose[:, :3, 3], ts, gt[:, :3, 3])["rmse"])
 
 
-def phase_end_to_end(lines: bool, ba: bool = False, name: str | None = None):
+def phase_end_to_end(lines: bool, ba: bool = False, name: str | None = None,
+                     sp_params=None):
     """The port's SLAMSystem + NeuralFrontend on rendered EuRoC-size frames:
     the true default (lines on, async local BA: ``SLAMSystem(cfg, fe)``),
-    the same with BA off, or the point-only path with BA off."""
+    the same with BA off, or the point-only path with BA off. With
+    ``sp_params`` (trained SuperPoint weights) only finite poses are gated;
+    the rest is measured."""
     import torch
 
     from rspl_slam_tpu_torch.config import SystemConfig
@@ -635,7 +679,7 @@ def phase_end_to_end(lines: bool, ba: bool = False, name: str | None = None):
     cfg = SystemConfig(use_lines=lines)
     cam = cfg.camera
     frames, traj, render_s = _scene(cfg, lines)
-    fe = _frontend(cfg, lines)  # the card, bf16
+    fe = _frontend(cfg, lines, sp_params)  # the card, bf16
 
     def system():
         return SLAMSystem(cfg, fe) if ba else SLAMSystem(cfg, fe, enable_ba=False)
@@ -702,6 +746,10 @@ def phase_end_to_end(lines: bool, ba: bool = False, name: str | None = None):
             "ba_line_constraints": [w["ncl"] for w in slam.ba_windows],
             "keyframe_ate_rmse_m": _keyframe_ate(m, traj)})
     emit(line)
+    if sp_params is not None:
+        if not np.isfinite(est).all():
+            raise AssertionError(f"{name}: non-finite pose")
+        return line, launches, (cfg, fe, frames)
     if not slam.initialized:
         raise AssertionError(f"{name}: the map did not initialize")
     if tracked < 0.8 * len(inliers):
@@ -1834,6 +1882,600 @@ def phase_cli_convert():
     emit({"phase": "cli_convert", "arrays": arrays, "equal": True})
 
 
+# training: the three trainers on the card, then their weights on the
+# kernels (each phase's counters reset just before its own path and read
+# just after; the kernel-vs-plain checks on trained weights come after)
+TRAIN_SP_CAM = dict(image_width=160, image_height=120, fx=120.0, fy=120.0, cx=80.0,
+                    cy=60.0, bf=12.0)
+TRAIN_SP_STEPS = 120
+TRAIN_SP_RECALL_GAIN = 0.08  # JAX's slow test: recall@2 px rises by more than this
+TRAIN_RCF_STEPS = 40
+TRAIN_RCF_HW = (240, 376)  # RCF's ×0.5 detection size of 752×480
+TRAIN_SG_BIG_STEPS = 10
+TRAIN_SG_DECODE_SHARE = 0.99
+TRAIN_SG_F32_ATOL = 1e-3  # the f32 log plan, kernels vs plain (the card test's bound)
+# bf16, 18 layers: the kernels may part from the plain forward by at most this
+# many times the plain forward's own spread (the same function on the CPU:
+# the same bf16 rounding points, another f32 summation order)
+TRAIN_SG_BF16_SPREAD = 2.0
+K3_ATOL = 1e-3  # K3's kernel line
+BANK_PAIRS = 8
+BANK_LABEL_SHARE = 0.95  # labels equal by keypoint position (bf16 ties reorder rows)
+PRETRAIN_STEPS = 20
+
+
+def _train_report(stats: dict) -> dict:
+    """Median host-data and device-step ms of a ``train`` run's stats (the
+    first step, with its one-time set-up, apart)."""
+    return {"steps": len(stats["step_ms"]),
+            "data_ms_median": float(np.median(stats["data_ms"][1:])),
+            "step_ms_median": float(np.median(stats["step_ms"][1:])),
+            "step_ms_first": stats["step_ms"][0] + stats["data_ms"][0],
+            "host_share": float(np.sum(stats["data_ms"][1:])
+                                / (np.sum(stats["data_ms"][1:]) + np.sum(stats["step_ms"][1:])))}
+
+
+def _peak_start() -> int:
+    """Reset the card's peak-memory counter; returns the bytes allocated
+    now (tensors earlier phases keep alive), the phase's baseline."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_mb(base: int) -> dict:
+    """The phase's own peak: the most allocated since :func:`_peak_start`
+    above its baseline (MB), and the baseline."""
+    import torch
+
+    return {"peak_MB": (torch.cuda.max_memory_allocated() - base) / 2**20,
+            "baseline_MB": base / 2**20}
+
+
+def _grid_share(xy, valid) -> float:
+    """Share of valid keypoints at their 8×8 cell's most common offset."""
+    off = np.round(xy[valid]).astype(np.int64) % 8
+    counts = np.bincount(off[:, 1] * 8 + off[:, 0], minlength=64)
+    return float(counts.max() / max(counts.sum(), 1))
+
+
+def _stem_check(w_a, b_a, w_b, b_b, images, side_w=None):
+    """K1 on trained weights against its plain version on the same inputs
+    (conv1a / conv1_1 as c_in = 1 first): the kernel line's tolerance,
+    bf16 out rtol 2^-7 + atol 1e-3, side score rtol 1e-4 + 1e-4·max."""
+    import torch
+
+    from rspl_slam_tpu_torch.ops import conv_stem_cuda as cs
+
+    with torch.no_grad():
+        x = cs.conv1a(images, w_a, b_a, torch.bfloat16)
+        wk = cs.pack_weights(w_b) if w_b.is_cuda else w_b  # K1's layout on the card
+        got = cs.conv3x3_relu_pool(x, wk, b_b, side_w)
+        ref = cs.conv3x3_relu_pool_plain(x, w_b, b_b, side_w)
+        torch.cuda.synchronize()
+    if side_w is None:
+        return _allclose_report("k1", got, ref, 2.0 ** -7, 1e-3)
+    ok, err = _allclose_report("k1", got[0], ref[0], 2.0 ** -7, 1e-3)
+    ok_s, err_s = _allclose_report("k1 side", got[1], ref[1], 1e-4,
+                                   1e-4 * float(ref[1].abs().max()))
+    return ok and ok_s, max(err, err_s)
+
+
+def phase_train_superpoint():
+    """The JAX package's slow SuperPoint test on the card: 120 Adam steps
+    (lr 1e-3, batch 2, seed 0) on rendered 160×120 scenes from a random
+    init; gated on the loss falling, recall@2 px against the rendered
+    keypoints rising by more than 0.08 and the median localization error
+    falling (bf16 extraction through K1 before and after), then the trained
+    conv1b through K1 against its plain version."""
+    import torch
+
+    from rspl_slam_tpu_torch.config import CameraConfig, SuperPointConfig
+    from rspl_slam_tpu_torch.evaluation import synthetic
+    from rspl_slam_tpu_torch.models import superpoint
+    from rspl_slam_tpu_torch.models.weights import superpoint_from_numpy
+    from rspl_slam_tpu_torch.training import superpoint_train
+
+    cam = CameraConfig(**TRAIN_SP_CAM)
+    cfg = SuperPointConfig(max_keypoints=100, keypoint_threshold=1e-4)
+    imgs, gts = [], []
+    for s in (11, 12, 13):
+        scene = synthetic.make_scene(num_points=120, num_lines=0, seed=s, extent=(4.0, 3.0, 4.0))
+        imgs.append(synthetic.render_images(scene, cam, np.eye(4), seed=s)[0])
+        obs = synthetic.observe_points(scene, cam, np.eye(4))
+        gts.append(obs["uv_left"][obs["visible"]])
+    images = torch.as_tensor(np.stack(imgs)).cuda()
+
+    def localization(params):
+        f = superpoint.extract(superpoint_from_numpy(params), images, cfg)  # bf16: K1
+        recalls, errs = [], []
+        for b, gt in enumerate(gts):
+            xy = f.xy[b][f.valid[b]].cpu().numpy()
+            d = np.linalg.norm(gt[:, None] - xy[None], axis=-1).min(1)
+            recalls.append(float((d < 2.0).mean()))
+            errs.append(float(np.median(d)))
+        return float(np.mean(recalls)), float(np.mean(errs))
+
+    p0 = superpoint.init_params(0)
+    base = _peak_start()
+    _reset_counters()
+    r0, e0 = localization(p0)
+    stats = {}
+    t0 = time.perf_counter()
+    trained = superpoint_train.train(cam, steps=TRAIN_SP_STEPS, batch=2, lr=1e-3, seed=0,
+                                     params=p0, verbose=False, device="cuda", stats=stats)
+    wall = time.perf_counter() - t0
+    r1, e1 = localization(trained)
+    torch.cuda.synchronize()
+    launches = _counters()
+    peak = _peak_mb(base)
+    t = {k: torch.as_tensor(v).cuda() for k, v in (
+        ("w1a", trained["conv1a"]["w"]), ("b1a", trained["conv1a"]["b"]),
+        ("w1b", trained["conv1b"]["w"]), ("b1b", trained["conv1b"]["b"]))}
+    k1_ok, k1_err = _stem_check(t["w1a"], t["b1a"], t["w1b"], t["b1b"], images)
+    hist = stats["loss"]
+    line = {"phase": "train_superpoint", "card": CARD,
+            "image": [cam.image_width, cam.image_height],
+            "batch": 2, "lr": 1e-3, "wall_s": wall, **_train_report(stats),
+            "loss_first": hist[0], "loss_last": hist[-1],
+            "loss_first10_mean": float(np.mean(hist[:10])),
+            "loss_last10_mean": float(np.mean(hist[-10:])),
+            "recall_2px": [r0, r1], "median_err_px": [e0, e1],
+            **peak, "launches": launches,
+            "k1_trained_ok": k1_ok, "k1_trained_max_abs_err": k1_err}
+    emit(line)
+    if not np.isfinite(hist).all() or not np.mean(hist[-10:]) < np.mean(hist[:10]):
+        raise AssertionError(f"train_superpoint: the loss did not fall: {hist[:3]} … {hist[-3:]}")
+    if not r1 > r0 + TRAIN_SP_RECALL_GAIN:
+        raise AssertionError(f"train_superpoint: recall@2px {r0} → {r1}")
+    if not e1 < e0:
+        raise AssertionError(f"train_superpoint: median error {e0} → {e1}")
+    if launches["conv_stem"] != 2:
+        raise AssertionError(f"train_superpoint: K1 launched {launches['conv_stem']} times")
+    if not k1_ok:
+        raise AssertionError(f"train_superpoint: K1 on the trained weights disagrees: {k1_err}")
+    return line, launches, trained
+
+
+def phase_train_rcf():
+    """RCF at full width on rendered polygon scenes at 240×376 (the ×0.5
+    detection size of 752×480): 40 Adam steps, batch 2, lr 3e-4; gated on
+    the loss falling; then the trained weights' ``edge_logits`` on the card
+    (stage 1 through K1's side mode, counted) beside the generic recipe
+    (measured), and stage 1 through K1 against its plain version (gated)."""
+    import torch
+
+    from rspl_slam_tpu_torch.models import rcf
+    from rspl_slam_tpu_torch.models.weights import rcf_from_numpy
+    from rspl_slam_tpu_torch.training import rcf_train
+
+    H, W = TRAIN_RCF_HW
+    stats = {}
+    base = _peak_start()
+    _reset_counters()
+    t0 = time.perf_counter()
+    trained, hist = rcf_train.train(steps=TRAIN_RCF_STEPS, batch=2, hw=(H, W), width_mult=1.0,
+                                    lr=3e-4, seed=0, params=rcf.init_params(0, 1.0),
+                                    verbose=False, device="cuda", stats=stats)
+    wall = time.perf_counter() - t0
+    peak = _peak_mb(base)
+    imgs, gts = rcf_train.make_batch(H, W, 2, 12345, "cuda")
+    m = rcf_from_numpy(trained)
+    got = rcf.edge_logits(m, imgs)  # bf16, K1 side mode
+    torch.cuda.synchronize()
+    launches = _counters()
+    ref = rcf.edge_logits(m, imgs, use_pallas_stem=False)
+    dev = float(((got - ref).abs() / (ref.abs() + 1.0)).max())
+    edge_f1 = {}
+    for name, logit in (("k1", got), ("generic", ref)):
+        pred = torch.sigmoid(logit) > 0.5
+        tp = float((pred & gts).sum())
+        edge_f1[name] = 2 * tp / max(float(pred.sum() + gts.sum()), 1.0)
+    t = {k: torch.as_tensor(v).cuda() for k, v in (
+        ("w11", trained["conv1_1"]["w"]), ("b11", trained["conv1_1"]["b"]),
+        ("w12", trained["conv1_2"]["w"]), ("b12", trained["conv1_2"]["b"]))}
+    side = m.conv1_2_side
+    k1_ok, k1_err = _stem_check(t["w11"].sum(2, keepdim=True), t["b11"], t["w12"], t["b12"],
+                                imgs * 255.0, side)
+    line = {"phase": "train_rcf", "card": CARD, "image": [W, H], "width_mult": 1.0,
+            "batch": 2, "lr": 3e-4,
+            "wall_s": wall, **_train_report(stats), "loss_first": hist[0],
+            "loss_last": hist[-1], "loss_first5_mean": float(np.mean(hist[:5])),
+            "loss_last5_mean": float(np.mean(hist[-5:])),
+            **peak, "launches": launches,
+            "k1_vs_generic_max_rel": dev, "edge_f1_at_0.5": edge_f1,
+            "k1_trained_ok": k1_ok, "k1_trained_max_abs_err": k1_err}
+    emit(line)
+    if not np.isfinite(hist).all() or not np.mean(hist[-5:]) < np.mean(hist[:5]):
+        raise AssertionError(f"train_rcf: the loss did not fall: {hist[:3]} … {hist[-3:]}")
+    if launches["conv_stem_side"] != 1 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"train_rcf: K1 side mode launches {launches['conv_stem_side']}")
+    if not k1_ok:
+        raise AssertionError(f"train_rcf: K1 side mode on the trained weights disagrees: {k1_err}")
+    return line, launches
+
+
+def _plan_sel(v0, v1):
+    """The log plan's valid entries: valid rows and columns and the dustbins."""
+    import torch
+
+    one = torch.ones((v0.shape[0], 1), dtype=torch.bool, device=v0.device)
+    return torch.cat([v0, one], 1)[:, :, None] & torch.cat([v1, one], 1)[:, None, :]
+
+
+def _decoded(params, batch, cfg, dtype):
+    """The inference ``match_pair`` (the kernels) and the plain forward
+    (``log_plan`` + decode) on the same batch: indices0 and log plan of
+    each, kernels first."""
+    import torch
+
+    from rspl_slam_tpu_torch.models import superglue
+    from rspl_slam_tpu_torch.models.weights import superglue_from_numpy, to_tensor_tree
+    from rspl_slam_tpu_torch.ops.matching import mutual_match_decode
+    from rspl_slam_tpu_torch.training import superglue_train
+
+    arrays = batch[:8]
+    res = superglue.match_pair(superglue_from_numpy(params, cfg, "cuda"), *arrays, cfg,
+                               compute_dtype=dtype)
+    with torch.no_grad():
+        z = superglue_train.log_plan(to_tensor_tree(params, "cuda"), *arrays, cfg, dtype)
+        ref = mutual_match_decode(z, arrays[3], arrays[7], cfg.match_threshold)[0]
+    return res.indices0, ref, res.log_plan, z
+
+
+def _kernels_on_plain_inputs(params, arrays, cfg):
+    """``match_pair``'s kernels at bf16, each on the plain forward's own
+    input: every GNN layer through K2 against ``superglue_layer_plain`` on
+    the same x (the plain output goes on) and against the same plain layer
+    on the CPU (its own spread), then the Sinkhorn iterations through K3
+    against the plain sweeps on the same problem (the kernel line's 1e-3).
+    Returns (per layer [K2 vs plain, CPU plain vs plain] max |error| over
+    valid rows, K3's max |error| on valid entries)."""
+    import torch
+
+    from rspl_slam_tpu_torch.models.superglue import _apply_mlp
+    from rspl_slam_tpu_torch.models.weights import superglue_from_numpy
+    from rspl_slam_tpu_torch.ops import attention_cuda as ac
+    from rspl_slam_tpu_torch.ops import sinkhorn as sk
+    from rspl_slam_tpu_torch.ops import sinkhorn_cuda as skc
+    from rspl_slam_tpu_torch.ops.matching import normalize_keypoints
+
+    dt = torch.bfloat16
+    sg = superglue_from_numpy(params, cfg, "cuda")
+    xy0, sc0, d0, v0, xy1, sc1, d1, v1 = arrays
+    B = d0.shape[0]
+    with torch.no_grad():  # models/superglue.match_pair, one piece at a time
+        enc = torch.cat([torch.cat([normalize_keypoints(xy, cfg.image_width, cfg.image_height),
+                                    sc[..., None]], -1) for xy, sc in ((xy0, sc0), (xy1, sc1))])
+        x = (torch.cat([d0, d1], 0) + _apply_mlp(sg.kenc, enc, dt)).contiguous()
+        masks = torch.cat([v0, v1], 0)
+        scratch = ac.layer_scratch(x, masks, dt)
+        layer_errs = []
+        for li, layer in enumerate(sg.gnn):
+            kw = dict(cross=li % 2 == 1, num_heads=cfg.num_heads, compute_dtype=dt)
+            got = ac.superglue_layer(x, masks, layer, scratch=scratch, **kw)
+            cpu = ac.superglue_layer_plain(x.cpu(), masks.cpu(),
+                                           {k: v.cpu() for k, v in layer.items()}, **kw)
+            x = ac.superglue_layer_plain(x, masks, layer, **kw)
+            layer_errs.append([float((got - x).abs()[masks].max()),
+                               float((cpu - x.cpu()).abs()[masks.cpu()].max())])
+        r = ac.round_operand
+        md = r(r(x, dt) @ r(sg.final_w, dt) + sg.final_b, dt)
+        sim = torch.einsum("bmc,bnc->bmn", md[:B], md[B:]) / cfg.descriptor_dim ** 0.5
+        Z0, mu, nu, norm = sk.build_problem(sim, v0, v1, sg.bin_score)
+        got = skc.sinkhorn_iterations(Z0, mu, nu, cfg.sinkhorn_iterations)
+        ref = sk.sinkhorn_iterations_plain(Z0, mu, nu, cfg.sinkhorn_iterations)
+        torch.cuda.synchronize()
+    _, k3_err = _allclose_report("sinkhorn", got, ref, 0.0, K3_ATOL, _plan_sel(v0, v1))
+    return layer_errs, k3_err
+
+
+def phase_train_superglue():
+    """(a) JAX's tier-1 overfit on the card: 2 layers, 10 iterations, K =
+    16, one fixed batch of 2, 60 steps; gated on the final loss under 0.3×
+    the first, ``matching_accuracy`` (K2 f32 + K3) over 0.9 and equal to
+    the plain version's, and the kernels' f32 log plan within 1e-3 of the
+    plain forward's on valid entries. (b) ``SuperGlueConfig()`` at 752×480
+    (18 layers, 100 iterations), K = 400, batch 8, 10 steps; gated on a
+    finite loss that falls, the bf16 decode (K2 bf16 + K3) of a fresh
+    batch of 8 equal to the plain forward's on ≥ 99% of valid rows (after
+    10 steps nothing may decode, so values are gated too): the kernels'
+    log plan, and each layer through K2 on the plain forward's own input,
+    within 2× the plain version's own spread (the same plain function on
+    the CPU: bf16 rounding at the same points, another f32 summation
+    order, whose flipped roundings the 18 layers carry on), and K3 on the
+    plain forward's Sinkhorn problem within its kernel line's 1e-3. The
+    plain forward's bf16-vs-f32 gap is reported beside them."""
+    import torch
+
+    from rspl_slam_tpu_torch.config import SuperGlueConfig
+    from rspl_slam_tpu_torch.models.weights import to_tensor_tree
+    from rspl_slam_tpu_torch.training import superglue_train
+
+    # (a)
+    cfg = SuperGlueConfig(image_width=160, image_height=120, num_gnn_layers=2,
+                          sinkhorn_iterations=10)
+    fixed = superglue_train.make_batch(np.random.default_rng(0), 2, 16, cfg, "cuda")
+    stats = {}
+    base = _peak_start()
+    _reset_counters()
+    params, hist = superglue_train.train(cfg, steps=60, batch=2, K=16, lr=1e-3,
+                                         verbose=False, batch_fn=lambda *a: fixed,
+                                         device="cuda", stats=stats)
+    acc = superglue_train.matching_accuracy(params, fixed, cfg)
+    torch.cuda.synchronize()
+    launches_a = _counters()
+    peak_a = _peak_mb(base)
+    acc_plain = superglue_train.plain_accuracy(params, fixed, cfg)
+    _, _, z_k, z_p = _decoded(params, fixed, cfg, torch.float32)
+    sel = _plan_sel(fixed[3], fixed[7])
+    z_ok, z_err = _allclose_report("log_plan", z_k, z_p, 0.0, TRAIN_SG_F32_ATOL, sel)
+    line_a = {"phase": "train_superglue", "card": CARD, "part": "a", "layers": 2,
+              "iters": 10, "K": 16,
+              "batch": 2, **_train_report(stats), "loss_first": hist[0],
+              "loss_last": hist[-1], "accuracy": acc, "accuracy_plain": acc_plain,
+              "log_plan_max_abs_err": z_err, "log_plan_tolerance": TRAIN_SG_F32_ATOL,
+              **peak_a, "launches": launches_a}
+    emit(line_a)
+    if not hist[-1] < 0.3 * hist[0]:
+        raise AssertionError(f"train_superglue (a): loss {hist[0]} → {hist[-1]}")
+    if not (acc > 0.9 and acc == acc_plain):
+        raise AssertionError(f"train_superglue (a): accuracy {acc}, plain {acc_plain}")
+    if not z_ok:
+        raise AssertionError(f"train_superglue (a): f32 log plan off by {z_err}")
+    if launches_a["superglue_layer_f32"] != 2 or launches_a["sinkhorn"] != 1:
+        raise AssertionError(f"train_superglue (a): launches {launches_a}")
+
+    # (b)
+    cfg = SuperGlueConfig()
+    stats = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = _peak_start()
+    _reset_counters()
+    params, hist = superglue_train.train(cfg, steps=TRAIN_SG_BIG_STEPS, batch=8, K=400,
+                                         lr=1e-3, seed=0, verbose=False, device="cuda",
+                                         stats=stats)
+    peak_b = _peak_mb(base)
+    batch = superglue_train.make_batch(np.random.default_rng(1), 8, 400, cfg, "cuda")
+    got, ref, z_k, z_p = _decoded(params, batch, cfg, torch.bfloat16)
+    torch.cuda.synchronize()
+    launches_b = _counters()
+    valid = batch[3]
+    share = float((got == ref)[valid].float().mean())
+    sel = _plan_sel(batch[3], batch[7])
+    z_err = float((z_k - z_p).abs()[sel].max())
+    with torch.no_grad():
+        z_f32 = superglue_train.log_plan(to_tensor_tree(params, "cuda"), *batch[:8], cfg)
+        z_cpu = superglue_train.log_plan(to_tensor_tree(params, "cpu"),
+                                         *(a.cpu() for a in batch[:8]), cfg, torch.bfloat16)
+    bf16_gap = float((z_p - z_f32).abs()[sel].max())
+    spread = float((z_cpu - z_p.cpu()).abs()[sel.cpu()].max())
+    layer_errs, k3_err = _kernels_on_plain_inputs(params, batch[:8], cfg)
+    layers_ok = all(k <= TRAIN_SG_BF16_SPREAD * c for k, c in layer_errs)
+    gt = batch[-1]
+    real = (gt >= 0) & (gt < 400)
+    acc_b = float((got.long() == gt)[real].float().mean())
+    line_b = {"phase": "train_superglue", "card": CARD, "part": "b", "layers": cfg.num_gnn_layers,
+              "iters": cfg.sinkhorn_iterations, "K": 400, "batch": 8,
+              "image": [cfg.image_width, cfg.image_height], **_train_report(stats),
+              "loss": hist, "decode_equal_share": share,
+              "decoded_matches": int((got >= 0).sum()), "accuracy_bf16": acc_b,
+              "accuracy_plain_bf16": float((ref.long() == gt)[real].float().mean()),
+              "log_plan_max_abs_err": z_err, "log_plan_cpu_plain_spread": spread,
+              "plain_bf16_vs_f32_max_abs_diff": bf16_gap,
+              "k2_layer_max_abs_err_vs_cpu_spread": layer_errs, "k3_max_abs_err": k3_err,
+              "tolerance": f"log plan and each layer (16, 400, 256): |kernel - plain| <= "
+                           f"{TRAIN_SG_BF16_SPREAD}x |plain on the CPU - plain| (max over "
+                           f"valid entries); K3 (8, 401, 401) {K3_ATOL}",
+              **peak_b, "launches": launches_b}
+    emit(line_b)
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+        raise AssertionError(f"train_superglue (b): loss {hist}")
+    if not share >= TRAIN_SG_DECODE_SHARE:
+        raise AssertionError(f"train_superglue (b): decodes equal on {share} of rows")
+    if not (z_err <= TRAIN_SG_BF16_SPREAD * spread and layers_ok and k3_err <= K3_ATOL):
+        raise AssertionError(f"train_superglue (b): log plan off by {z_err} (the plain "
+                             f"version's spread {spread}); K2 layers [kernel, spread] "
+                             f"{layer_errs}; K3 {k3_err}")
+    if launches_b["superglue_layer"] != cfg.num_gnn_layers or launches_b["sinkhorn"] != 1:
+        raise AssertionError(f"train_superglue (b): launches {launches_b}")
+    counts = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    return [line_a, line_b], counts
+
+
+def _labels_by_position(problem):
+    """A bank problem's labels keyed by keypoint position: row i of view A
+    → its match's position in view B, "dustbin" or "invalid"."""
+    xy0, _, _, _, xy1, _, _, _, gt0 = problem
+    K = len(gt0)
+    return {tuple(np.round(xy0[i], 2)): "dustbin" if g == K else "invalid" if g < 0
+            else tuple(np.round(xy1[g], 2)) for i, g in enumerate(gt0)}
+
+
+def phase_superglue_bank():
+    """``make_shift_pair_bank`` on the card, the self-labelled pairs the
+    JAX bench distils its matcher from: 8 shifted pairs of 240×376 crops of
+    the BA path's first left frames, random SuperPoint (seed 0) at bf16
+    with K = 256 (K1 at (8, 240, 376), one launch per 8 crops); gated on
+    the labels equal to the same bank built on the CPU by keypoint position
+    on ≥ 95% of rows (bf16 score ties reorder rows), matched descriptors
+    agreeing and two K1 launches; then K1 at the bank's shape against its
+    plain version (gated, kernel line's tolerance) and timed beside it."""
+    import torch
+
+    from rspl_slam_tpu_torch.config import SuperPointConfig, SystemConfig
+    from rspl_slam_tpu_torch.models import superpoint
+    from rspl_slam_tpu_torch.ops import conv_stem_cuda as cs
+    from rspl_slam_tpu_torch.training import superglue_train
+
+    frames, _, _ = _scene(SystemConfig(), lines=True, n=4)
+    images = [f[0] for f in frames]
+    sp = superpoint.init_params(0)
+    sp_cfg = SuperPointConfig(max_keypoints=256, keypoint_threshold=1e-4)
+    kw = dict(n_pairs=BANK_PAIRS, K=256, crop_hw=(240, 376))
+    _reset_counters()
+    t0 = time.perf_counter()
+    bank = superglue_train.make_shift_pair_bank(images, sp, sp_cfg,
+                                                rng=np.random.default_rng(5), device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counters()
+    ref = superglue_train.make_shift_pair_bank(images, sp, sp_cfg,
+                                               rng=np.random.default_rng(5), device="cpu", **kw)
+    same = rows = matched = 0
+    sims = []
+    for got, want in zip(bank, ref):
+        xy0, sc0, d0, v0, xy1, sc1, d1, v1, gt0 = got
+        m = (gt0 >= 0) & (gt0 < len(gt0))
+        matched += int(m.sum())
+        sims.extend(np.einsum("ij,ij->i", d0[m], d1[gt0[m]]).tolist())
+        mine, theirs = _labels_by_position(got), _labels_by_position(want)
+        same += sum(theirs.get(k) == v for k, v in mine.items())
+        rows += len(gt0)
+    crops = torch.as_tensor(np.stack([f[e][:240, :376] for f in frames for e in (0, 1)])).cuda()
+    t = {k: torch.as_tensor(v).cuda() for k, v in (
+        ("w1a", sp["conv1a"]["w"]), ("b1a", sp["conv1a"]["b"]),
+        ("w1b", sp["conv1b"]["w"]), ("b1b", sp["conv1b"]["b"]))}
+    k1_ok, k1_err = _stem_check(t["w1a"], t["b1a"], t["w1b"], t["b1b"], crops)
+    with torch.no_grad():
+        x = cs.conv1a(crops, t["w1a"], t["b1a"], torch.bfloat16)
+        wk = cs.pack_weights(t["w1b"])
+        k1_ms = time_ms(lambda: cs.conv3x3_relu_pool(x, wk, t["b1b"]))
+        plain_ms = time_ms(lambda: cs.conv3x3_relu_pool_plain(x, t["w1b"], t["b1b"]), n=5)
+    line = {"phase": "superglue_bank", "card": CARD, "pairs": BANK_PAIRS,
+            "crop": [376, 240], "K": 256, "wall_s": wall, "rows": rows, "matched": matched,
+            "labels_equal_cpu_share": same / rows,
+            "matched_desc_cosine_mean": float(np.mean(sims)) if sims else None,
+            "k1_input_shape": list(x.shape), "k1_ms": k1_ms, "k1_plain_ms": plain_ms,
+            "k1_ok": k1_ok, "k1_max_abs_err": k1_err, "launches": launches}
+    emit(line)
+    if not (matched >= 20 and np.mean(sims) > 0.9):
+        raise AssertionError(f"superglue_bank: {matched} matches, cosine {line}")
+    if not same >= BANK_LABEL_SHARE * rows:
+        raise AssertionError(f"superglue_bank: labels equal the CPU's on {same} of {rows} rows")
+    if launches["conv_stem"] != 2 * BANK_PAIRS // 8:
+        raise AssertionError(f"superglue_bank: K1 launched {launches['conv_stem']} times")
+    if not k1_ok:
+        raise AssertionError(f"superglue_bank: K1 at the bank's shape disagrees: {k1_err}")
+    return line, launches
+
+
+def phase_cli_pretrain():
+    """``python -m rspl_slam_tpu_torch.cli pretrain --model M --steps 20``
+    for the three models, in parallel subprocesses without PyYAML, PIL or
+    matplotlib, otherwise the JAX CLI's defaults; gated on each exit and
+    printed line, and on each ``.npz`` loading through
+    ``models.weights.load_params`` and running one frame of its module on
+    the card: SuperPoint ``extract`` of a 752×480 pair (K1), RCF
+    ``edge_logits`` at 240×376 (the default width 0.25 has 16 stem
+    channels, which K1 does not take, so the generic recipe), SuperGlue
+    ``match_pair`` at bf16 on a K = 64 problem (K2, K3)."""
+    import torch
+
+    from rspl_slam_tpu_torch.config import SuperGlueConfig, SuperPointConfig, SystemConfig
+    from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
+    from rspl_slam_tpu_torch.models.weights import (load_params, rcf_from_numpy,
+                                                    superglue_from_numpy, superpoint_from_numpy)
+    from rspl_slam_tpu_torch.training import superglue_train
+
+    os.makedirs(WORK, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([_hidden_modules_dir(), ROOT])}
+    out = {m: os.path.join(WORK, f"pretrain_{m}.npz") for m in ("superpoint", "rcf", "superglue")}
+    t0 = time.perf_counter()
+    procs = {m: subprocess.Popen([sys.executable, "-m", "rspl_slam_tpu_torch.cli", "pretrain",
+                                  "--model", m, "--steps", str(PRETRAIN_STEPS), "--output", p],
+                                 cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for m, p in out.items()}
+    results = {m: p.communicate(timeout=600) + (p.returncode,) for m, p in procs.items()}
+    wall = time.perf_counter() - t0
+    for m, (stdout, stderr, rc) in results.items():
+        if rc != 0 or f"trained {m} → {out[m]}" not in stdout:
+            raise AssertionError(f"cli_pretrain {m} exited {rc}:\n{stdout[-3000:]}\n"
+                                 f"{stderr[-3000:]}")
+    _reset_counters()
+    frames, _, _ = _scene(SystemConfig(), lines=True, n=1)  # the BA path's first pair
+    pair = torch.as_tensor(np.stack(frames[0])).cuda()
+    sp = superpoint_from_numpy(load_params(out["superpoint"], "superpoint"))
+    f = superpoint.extract(sp, pair, SuperPointConfig())
+    rp = load_params(out["rcf"], "rcf")
+    half = torch.nn.functional.avg_pool2d(pair[:, None], 2)[:, 0]
+    logits = rcf.edge_logits(rcf_from_numpy(rp), half, use_pallas_stem=False)
+    cfg = SuperGlueConfig(image_width=320, image_height=240, num_gnn_layers=4,
+                          sinkhorn_iterations=20)
+    prob = superglue_train.make_batch(np.random.default_rng(7), 1, 64, cfg, "cuda")
+    res = superglue.match_pair(superglue_from_numpy(load_params(out["superglue"], "superglue"),
+                                                    cfg), *prob[:8], cfg,
+                               compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = _counters()
+    line = {"phase": "cli_pretrain", "card": CARD, "steps": PRETRAIN_STEPS, "wall_s": wall,
+            "last_loss_lines": {m: [ln for ln in r[0].splitlines() if ln.startswith("step")][-1:]
+                                for m, r in results.items()},
+            "keypoints": int(f.valid.sum()), "rcf_stem_channels": int(rp["conv1_1"]["w"].shape[3]),
+            "rcf_logits_finite": bool(torch.isfinite(logits).all()),
+            "matches": int((res.indices0 >= 0).sum()), "launches": launches}
+    emit(line)
+    if not (line["keypoints"] > 0 and line["rcf_logits_finite"]
+            and bool(torch.isfinite(res.log_plan).all())):
+        raise AssertionError(f"cli_pretrain: a trained model did not run: {line}")
+    if not (launches["conv_stem"] == 1 and launches["superglue_layer"] == 4
+            and launches["sinkhorn"] == 1):
+        raise AssertionError(f"cli_pretrain: launches {launches}")
+    return line, launches
+
+
+def _descriptor_cosines(f) -> dict:
+    """Median cosine of the left↔right mutual nearest neighbours of a
+    stereo pair's descriptors, and of all left↔right pairs."""
+    import torch
+
+    d0, d1 = f.desc[0][f.valid[0]].float(), f.desc[1][f.valid[1]].float()
+    cos = d0 @ d1.T
+    best0, best1 = cos.argmax(1), cos.argmax(0)
+    mutual = best1[best0] == torch.arange(len(d0), device=cos.device)
+    return {"mutual_nn": float(cos.max(1).values[mutual].median()),
+            "all_pairs": float(cos.median()), "mutual_count": int(mutual.sum())}
+
+
+def phase_end_to_end_trained(sp_params, random_line):
+    """The BA path's 30 frames with the SuperPoint ``train_superpoint``
+    made, all else as ``end_to_end_ba`` (its matcher weights too: set for
+    random SuperPoint's nearly parallel descriptors). Gated on finite poses
+    only; measured: ATE, inliers, the share of keypoints at their cell's
+    most common offset and the descriptors' cosines, beside the random
+    weights' on the same frames."""
+    import torch
+
+    from rspl_slam_tpu_torch.models import superpoint
+    from rspl_slam_tpu_torch.models.weights import superpoint_from_numpy
+
+    line, counts, (cfg, fe, frames) = phase_end_to_end(lines=True, ba=True,
+                                                       name="end_to_end_trained",
+                                                       sp_params=sp_params)
+    del fe
+    pairs = torch.as_tensor(np.stack([np.stack(f) for f in frames[:5]])).cuda().flatten(0, 1)
+    share, cosines = {}, {}
+    for name, p in (("random", superpoint.init_params(0)), ("trained", sp_params)):
+        f = superpoint.extract(superpoint_from_numpy(p), pairs, cfg.superpoint)
+        share[name] = _grid_share(f.xy.cpu().numpy().reshape(-1, 2),
+                                  f.valid.cpu().numpy().reshape(-1))
+        cosines[name] = _descriptor_cosines(f)
+    emit({"phase": "end_to_end_trained_vs_random", "card": CARD,
+          "ate_rmse_m": {"random": random_line["ate_rmse_m"], "trained": line["ate_rmse_m"]},
+          "initialized": {"random": random_line["initialized"],
+                          "trained": line["initialized"]},
+          "inliers_median": {"random": float(np.median(random_line["inliers"])),
+                             "trained": float(np.median(line["inliers"]))},
+          "keyframe_ate_rmse_m": {"random": random_line.get("keyframe_ate_rmse_m"),
+                                  "trained": line.get("keyframe_ate_rmse_m")},
+          "grid_share": share, "descriptor_cosine_frame0": cosines,
+          "frames_for_grid_share": 10})
+    return line, counts
+
+
 def phase_profile(cfg, fe, frames, n_warm: int = 3, n_prof: int = 3):
     """torch.profiler over a few tracked frames of a fresh run: device time
     by operator, the host↔device copies and synchronizations, and the
@@ -1946,6 +2588,24 @@ def phase_summary(lines, by_path, ate_by_path):
     emit({"kernels": kernels, "ate_by_path": ate_by_path})
 
 
+def phase_training(by_path, ate_by_path, ba_line):
+    """Phase 6: the trainers, ``pretrain`` and the trained SuperPoint on the
+    BA path (``ba_line``: the random weights' run of it)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, by_path["train_superpoint"], sp_trained = phase_train_superpoint()
+    _, by_path["train_rcf"] = phase_train_rcf()
+    _, by_path["train_superglue"] = phase_train_superglue()
+    _, by_path["superglue_bank"] = phase_superglue_bank()
+    _, by_path["cli_pretrain"] = phase_cli_pretrain()
+    gc.collect()
+    torch.cuda.empty_cache()
+    line, by_path["end_to_end_trained"] = phase_end_to_end_trained(sp_trained, ba_line)
+    ate_by_path["end_to_end_trained"] = line["ate_rmse_m"]
+
+
 def main(argv) -> int:
     if not os.path.isdir(os.path.join(ROOT, "rspl_slam_tpu_torch")):
         print("chip_smoke: the rspl_slam_tpu_torch package is not beside this "
@@ -1964,7 +2624,12 @@ def main(argv) -> int:
     lines["sinkhorn"] = check_sinkhorn()
     phase_png_unfilter()
     by_path, ate_by_path = {}, {}
-    if "--kernels" not in argv:
+    if "--training" in argv:
+        ba_line, by_path["end_to_end_ba"], run = phase_end_to_end(lines=True, ba=True)
+        ate_by_path["end_to_end_ba"] = ba_line["ate_rmse_m"]
+        del run
+        phase_training(by_path, ate_by_path, ba_line)
+    elif "--kernels" not in argv:
         phase_local_ba_check("--profile" in argv)
         repeat = None
         for name, kw in (("end_to_end_ba", dict(lines=True, ba=True)),
@@ -1978,6 +2643,8 @@ def main(argv) -> int:
                 by_path[name] = counts
                 ate_by_path[name] = line["ate_rmse_m"]
                 repeat = line
+            if name == "end_to_end_ba":
+                ba_line = line
             if name == "end_to_end_lines" and "--profile" in argv:
                 phase_profile(*run)
             del run  # each path's frontend: the next path's peak memory is its own
@@ -2001,6 +2668,7 @@ def main(argv) -> int:
         _, by_path["cli_global"] = phase_cli_global(ctx)
         phase_cli_synth()
         phase_cli_convert()
+        phase_training(by_path, ate_by_path, ba_line)
     shutil.rmtree(WORK, ignore_errors=True)
     phase_summary(lines, by_path, ate_by_path)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,9 +8,11 @@ package's arguments and printed lines:
 - ``eval``: ATE of an estimate against a ground-truth TUM file;
 - ``synth``: a synthetic sequence with known ground truth (``OracleFrontend``
   on the unfused tracking path);
+- ``pretrain``: synthetic training of SuperPoint, RCF or SuperGlue
+  (``training/``) → an ``.npz`` pytree that both packages load;
 - ``convert-weights``: public ``.pth`` checkpoints → ``.npz`` pytrees.
 
-``--device`` (``run``, ``serve``, ``batch``, ``synth``) picks the torch
+``--device`` (``run``, ``serve``, ``batch``, ``synth``, ``pretrain``) picks the torch
 device, the card by default; without one visible the run raises. ``run``
 feeds ``PipelinedRunner`` from the dataset, with rectification on the
 device inside the frontend; ``--no-native`` is accepted for compatibility
@@ -19,8 +21,7 @@ configs parse without PyYAML, plots draw without matplotlib. The global
 layer runs as in the JAX package: ``--loop-closure`` (``run``, ``serve``)
 detects loops and relocalizes, ``--track-local-map`` re-associates by
 projection at keyframes, and ``--pose-graph`` / ``--global-ba`` refine the
-map at the end of a run. ``pretrain`` is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP.md item.
+map at the end of a run.
 
 Usage: ``python -m rspl_slam_tpu_torch.cli <command> [args]``.
 """
@@ -415,7 +416,30 @@ def cmd_synth(args):
 
 
 def cmd_pretrain(args):
-    raise NotImplementedError("pretrain is not ported yet (ROADMAP.md §1, item 7)")
+    """Synthetic pretraining of one of the three networks (``training/``),
+    with the JAX CLI's recipes; the trained pytree is written as ``.npz``."""
+    from rspl_slam_tpu_torch.models.weights import save_npz_pytree
+
+    dev = _device(args)
+    common = dict(steps=args.steps, batch=args.batch, lr=args.lr, seed=args.seed, device=dev)
+    if args.model == "superpoint":
+        from rspl_slam_tpu_torch.training import superpoint_train
+
+        params = superpoint_train.train(**common)
+    elif args.model == "rcf":
+        from rspl_slam_tpu_torch.training import rcf_train
+
+        params, _ = rcf_train.train(**common)
+    else:
+        from rspl_slam_tpu_torch.config import SuperGlueConfig
+        from rspl_slam_tpu_torch.training import superglue_train
+
+        cfg = SuperGlueConfig(image_width=320, image_height=240,
+                              num_gnn_layers=args.gnn_layers,
+                              sinkhorn_iterations=args.sinkhorn_iters)
+        params, _ = superglue_train.train(cfg, K=args.keypoints, **common)
+    save_npz_pytree(args.output, params)
+    print(f"trained {args.model} → {args.output}")
 
 
 def cmd_convert_weights(args):
@@ -548,15 +572,21 @@ def main(argv=None):
     _add_device(ps)
     ps.set_defaults(fn=cmd_synth)
 
-    pt = sub.add_parser("pretrain", help="not ported yet (ROADMAP.md §1, item 7)")
+    pt = sub.add_parser("pretrain", help="train SuperPoint / RCF / SuperGlue on synthetic data")
     pt.add_argument("--model", choices=["superpoint", "rcf", "superglue"],
                     default="superpoint")
-    for flag, typ, default in (("--steps", int, 300), ("--batch", int, 4),
-                               ("--lr", float, 1e-3), ("--gnn-layers", int, 4),
-                               ("--sinkhorn-iters", int, 20), ("--keypoints", int, 64),
-                               ("--seed", int, 0)):
-        pt.add_argument(flag, type=typ, default=default)
+    pt.add_argument("--steps", type=int, default=300)
+    pt.add_argument("--batch", type=int, default=4)
+    pt.add_argument("--lr", type=float, default=1e-3)
+    pt.add_argument("--gnn-layers", dest="gnn_layers", type=int, default=4,
+                    help="superglue only: GNN depth to train")
+    pt.add_argument("--sinkhorn-iters", dest="sinkhorn_iters", type=int, default=20,
+                    help="superglue only")
+    pt.add_argument("--keypoints", type=int, default=64,
+                    help="superglue only: keypoints per synthetic problem")
+    pt.add_argument("--seed", type=int, default=0)
     pt.add_argument("--output", default="superpoint_synth.npz")
+    _add_device(pt)
     pt.set_defaults(fn=cmd_pretrain)
 
     pc = sub.add_parser("convert-weights", help="torch .pth → .npz pytree")

@@ -11,17 +11,23 @@ arrive HWIO and are laid out for ``F.conv2d`` and K1 by the SuperPoint
 and RCF modules (RCF also folds each side branch into its stage score);
 SuperGlue's head permutation is already absorbed in the pytree, so the
 bridge copies it as it is.
+
+The trainers (``training/``) hold the same pytree as f32 leaf tensors
+(``to_tensor_tree``, ``tree_leaves``) and hand it back as numpy
+(``to_numpy_tree``), which every loader above and ``save_npz_pytree``
+take.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from rspl_slam_tpu_torch.config import SuperGlueConfig
 
 __all__ = ["flatten_pytree", "save_npz_pytree", "load_npz_pytree", "load_weights",
-           "load_params", "to_numpy_tree", "superpoint_from_numpy",
-           "superglue_from_numpy", "rcf_from_numpy"]
+           "load_params", "to_numpy_tree", "to_tensor_tree", "tree_leaves",
+           "superpoint_from_numpy", "superglue_from_numpy", "rcf_from_numpy"]
 
 
 def flatten_pytree(params) -> dict:
@@ -74,13 +80,35 @@ def load_npz_pytree(path: str):
 
 
 def to_numpy_tree(tree):
-    """Any array-like leaves (numpy, or arrays exposing ``__array__``) →
-    numpy, keeping the dict/list structure."""
+    """Any array-like leaves (numpy, torch tensors on any device, or arrays
+    exposing ``__array__``) → numpy, keeping the dict/list structure."""
     if isinstance(tree, dict):
         return {k: to_numpy_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [to_numpy_tree(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
     return np.asarray(tree)
+
+
+def to_tensor_tree(tree, device, requires_grad: bool = False):
+    """The same structure with every leaf a new f32 tensor on ``device``
+    (a leaf of autograd's graph with ``requires_grad``)."""
+    if isinstance(tree, dict):
+        return {k: to_tensor_tree(v, device, requires_grad) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_tensor_tree(v, device, requires_grad) for v in tree]
+    t = torch.tensor(to_numpy_tree(tree), dtype=torch.float32, device=device)
+    return t.requires_grad_(requires_grad)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in :func:`flatten_pytree`'s order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
 
 
 def superpoint_from_numpy(params, device="cuda"):

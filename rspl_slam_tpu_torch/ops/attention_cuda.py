@@ -179,6 +179,7 @@ def superglue_layer(x, masks, layer: dict, cross: bool, num_heads: int = 4,
     global launches, f32_launches
     if x.device.type == "cpu":
         return superglue_layer_plain(x, masks, layer, cross, num_heads, compute_dtype)
+    cuda_build.refuse_grad("superglue_layer", x, *layer.values())
     n2, K, C = x.shape
     if C != 256 or num_heads != 4 or n2 % 2:
         raise ValueError(f"superglue_layer kernel takes (2B, K, 256) with 4 heads; "

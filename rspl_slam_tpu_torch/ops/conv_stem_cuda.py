@@ -62,6 +62,7 @@ def conv3x3_relu_pool(x, w, b, side_w=None):
     global launches, side_launches
     if x.device.type == "cpu":
         return conv3x3_relu_pool_plain(x, w, b, side_w)
+    cuda_build.refuse_grad("conv3x3_relu_pool", x, w, b, side_w)
     B, H, W, C = x.shape
     if C != 64 or H % 2 or W % 2:
         raise ValueError(f"conv_stem kernel takes (B, H, W, 64) with even H, W; "
@@ -95,7 +96,10 @@ def conv3x3_relu_pool(x, w, b, side_w=None):
 def conv1a(images, w, b, dtype):
     """SuperPoint conv1a (c_in = 1) + ReLU in plain torch, NHWC out —
     the JAX package computes it outside Pallas too. Operands round to
-    ``dtype``; accumulation, bias and ReLU in f32; output in ``dtype``."""
+    ``dtype``; accumulation, bias and ReLU in f32; output in ``dtype``.
+    It opens the K1 stem, so on the card it refuses grad as K1 does."""
+    if images.is_cuda:
+        cuda_build.refuse_grad("conv1a", images, w, b)
     x = images.to(dtype).float()[:, None]
     wf = w.to(dtype).float().permute(3, 2, 0, 1)
     y = torch.relu(F.conv2d(x, wf, padding=1) + b.float()[None, :, None, None])

@@ -26,7 +26,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["KERNELS", "SOURCES", "build_all", "library", "launch", "stream_of",
-           "launch_counts"]
+           "launch_counts", "refuse_grad"]
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -157,6 +157,18 @@ def require_cuda(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None):
         raise ValueError(f"{what}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would need a kernel's backward: grad mode on and
+    any of ``tensors`` requiring grad. The kernels are inference-only, as
+    the Pallas kernels they replace have no VJP; a kernel's output would
+    carry no ``grad_fn`` and a training step would drop the gradient
+    silently. Trainers run their own plain forwards (``training/``)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward; call it under "
+                           "torch.no_grad() or on tensors that do not require grad")
 
 
 def launch_counts() -> dict[str, int]:

@@ -52,6 +52,7 @@ def sinkhorn_iterations(Z0, log_mu, log_nu, iters: int):
     global launches
     if Z0.device.type == "cpu":
         return sinkhorn_iterations_plain(Z0, log_mu, log_nu, iters)
+    cuda_build.refuse_grad("sinkhorn_iterations", Z0, log_mu, log_nu)
     B, M1, N1 = Z0.shape
     plan = cluster_plan(M1, N1)
     cuda_build.require_cuda(Z0, "Z0", torch.float32)

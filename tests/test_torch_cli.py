@@ -418,8 +418,46 @@ def test_global_options_match_jax(flag, tree, capsys):
 
 @pytest.mark.parametrize("argv", [["pretrain", "--model", "rcf"]], ids=["pretrain"])
 def test_unported_options_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``pretrain`` was the CLI's one unported command; it is ported now
+    and, like every entry point, asks for the card by default: where none
+    is visible it raises (no NotImplementedError, no silent CPU run)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(argv)
+
+
+PRETRAIN_ARGS = {"superpoint": ["--steps", "2", "--batch", "1"],
+                 "rcf": ["--steps", "3"],
+                 "superglue": ["--steps", "3", "--batch", "2"]}
+
+
+@pytest.mark.parametrize("model", ["superpoint", "rcf", "superglue"])
+def test_pretrain_matches_in_process_train(model, tmp_path, capsys):
+    """``pretrain --device cpu`` exits cleanly, prints the JAX CLI's line,
+    and writes the parameters an in-process ``train`` with the same recipe
+    gives (bit for bit: the same CPU computation)."""
+    from rspl_slam_tpu_torch.models.weights import flatten_pytree, load_params
+    from rspl_slam_tpu_torch.training import rcf_train, superglue_train, superpoint_train
+
+    out = str(tmp_path / f"{model}.npz")
+    tcli.main(["pretrain", "--model", model, *PRETRAIN_ARGS[model], "--output", out,
+               "--device", "cpu"])
+    assert f"trained {model} → {out}" in capsys.readouterr().out
+    cpu = torch.device("cpu")
+    if model == "superpoint":
+        ref = superpoint_train.train(steps=2, batch=1, verbose=False, device=cpu)
+    elif model == "rcf":
+        ref, _ = rcf_train.train(steps=3, batch=4, lr=1e-3, verbose=False, device=cpu)
+    else:
+        cfg = tconfig.SuperGlueConfig(image_width=320, image_height=240, num_gnn_layers=4,
+                                      sinkhorn_iterations=20)
+        ref, _ = superglue_train.train(cfg, steps=3, batch=2, K=64, verbose=False, device=cpu)
+    got = flatten_pytree(load_params(out, model))
+    ref = flatten_pytree(ref)
+    assert got.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
 
 
 def test_default_device_is_the_card(tree):

@@ -736,3 +736,163 @@ def test_neural_relocalization_on_the_card_matches_the_cpu(cuda_device, tmp_path
     assert n0 > 20 and n1 > 20
     assert np.abs(T1[:3, 3] - T0[:3, 3]).max() < 1e-3
     assert l0 == (0, 0) and min(l1) > 0
+
+
+# ----------------------------------------------------------------- training
+
+
+def test_kernel_wrappers_refuse_grad(cuda_device):  # noqa: F811
+    """The kernels have no backward: each wrapper raises on CUDA inputs that
+    require grad while grad mode is on (an output without ``grad_fn`` would
+    drop the gradient silently), and runs the same call under no_grad."""
+    from rspl_slam_tpu_torch.ops import sinkhorn as plain_sinkhorn
+
+    g = torch.Generator().manual_seed(0)
+    w = (0.05 * torch.randn(3, 3, 64, 64, generator=g)).to(cuda_device)
+    x = torch.rand(1, 16, 16, 64, generator=g).to(cuda_device, torch.bfloat16)
+    b = torch.zeros(64, device=cuda_device, requires_grad=True)
+    images = torch.rand(1, 16, 16, generator=g).to(cuda_device)
+    w1a = torch.randn(3, 3, 1, 64, generator=g).to(cuda_device).requires_grad_()
+    layer = attention_cuda.pack_layer(_layer(np.random.default_rng(0)), cuda_device)
+    layer["bm"].requires_grad_()
+    xs = torch.randn(2, 16, 256, generator=g).to(cuda_device)
+    masks = torch.ones(2, 16, dtype=torch.bool, device=cuda_device)
+    sim = torch.randn(1, 16, 16, generator=g).to(cuda_device)
+    Z0, mu, nu, _ = plain_sinkhorn.build_problem(sim, masks[:1], masks[:1],
+                                                 torch.tensor(1.0, device=cuda_device))
+    calls = {"conv3x3_relu_pool": lambda: conv_stem_cuda.conv3x3_relu_pool(
+                 x, conv_stem_cuda.pack_weights(w), b),
+             "conv1a": lambda: conv_stem_cuda.conv1a(images, w1a, b, torch.bfloat16),
+             "superglue_layer": lambda: attention_cuda.superglue_layer(xs, masks, layer, False),
+             "sinkhorn_iterations": lambda: sinkhorn_cuda.sinkhorn_iterations(
+                 Z0.requires_grad_(), mu, nu, 10)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("model", ["superpoint", "rcf", "superglue"])
+def test_training_step_on_the_card_matches_the_cpu(cuda_device, model):  # noqa: F811
+    """One training step on the card against the CPU from the same
+    parameters and batch (TF32 off, as inside the trainers): the loss
+    within 1e-5 relative and each leaf's gradient within 1e-3 of that
+    leaf's largest |g| on the CPU (the key bias of an attention layer,
+    whose exact gradient is 0, under 1e-6 of the largest |g| of all
+    leaves). 1e-3, not the 1e-4 the CPU holds against JAX: cuDNN picks its
+    own f32 algorithms and summation orders for the weight gradients
+    (measured on an H100: 1.9e-4 and 4.3e-4 in two runs on SuperPoint's
+    conv1a, a c_in = 1 kernel summed over every pixel; 1.2e-5 RCF, 8.9e-5
+    SuperGlue). Then
+    ``train(steps=1)`` on the card: its loss is that loss, and it moves
+    every element by at most lr, up to the parameter's own f32 spacing
+    (Adam's first step is lr·g/(|g| + eps)). The trainers leave the TF32
+    switches as they found them. Parameters after a step are not compared
+    element by element: an element whose gradient is rounding noise may
+    land 2·lr apart."""
+    from rspl_slam_tpu_torch.config import CameraConfig, SuperGlueConfig
+    from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
+    from rspl_slam_tpu_torch.models.weights import flatten_pytree, to_tensor_tree, tree_leaves
+    from rspl_slam_tpu_torch.training import rcf_train, superglue_train, superpoint_train
+    from rspl_slam_tpu_torch.training.loop import no_tf32
+
+    cam = CameraConfig(image_width=96, image_height=64, fx=80.0, fy=80.0, cx=48.0, cy=32.0,
+                       bf=8.0)
+    sg_cfg = SuperGlueConfig(image_width=160, image_height=120, num_gnn_layers=2,
+                             sinkhorn_iterations=10)
+    if model == "superpoint":
+        params, lr = superpoint.init_params(0), 1e-3
+        batch = lambda d: superpoint_train.make_batch(cam, 2, 0, d)  # noqa: E731
+        loss = lambda p, b: superpoint_train.loss_fn(p, *b)  # noqa: E731
+        train = lambda d: superpoint_train.train(  # noqa: E731
+            cam, steps=1, batch=2, params=params, verbose=False, device=d, stats=stats)
+    elif model == "rcf":
+        params, lr = rcf.init_params(0, 0.125), 3e-4
+        batch = lambda d: rcf_train.make_batch(48, 64, 2, 0, d)  # noqa: E731
+        loss = lambda p, b: rcf_train.loss_fn(p, *b)  # noqa: E731
+        train = lambda d: rcf_train.train(  # noqa: E731
+            steps=1, batch=2, hw=(48, 64), params=params, verbose=False, device=d, stats=stats)
+    else:
+        params, lr = superglue.init_params(sg_cfg, 0), 1e-3
+        batch = lambda d: superglue_train.make_batch(  # noqa: E731
+            np.random.default_rng(0), 2, 16, sg_cfg, d)
+        loss = lambda p, b: superglue_train.loss_fn(p, b, sg_cfg)  # noqa: E731
+        train = lambda d: superglue_train.train(  # noqa: E731
+            sg_cfg, steps=1, batch=2, K=16, params=params, verbose=False, device=d, stats=stats)
+    names = list(flatten_pytree(params))
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        tree = to_tensor_tree(params, dev, requires_grad=True)
+        with no_tf32():
+            ell = loss(tree, batch(dev))
+            ell.backward()
+        out[dev.type] = (float(ell.detach()), {
+            k: np.zeros(v.shape, np.float32) if v.grad is None else v.grad.cpu().numpy()
+            for k, v in zip(names, tree_leaves(tree))})
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    scale = max(float(np.abs(g).max()) for g in gc.values())
+    worst = 0.0
+    for k in names:
+        top = float(np.abs(gc[k]).max())
+        err = float(np.abs(gg[k] - gc[k]).max())
+        if k.endswith("/k/b"):
+            assert max(top, float(np.abs(gg[k]).max())) <= 1e-6 * scale, k
+        elif top == 0.0:
+            assert err == 0.0, k
+        else:
+            worst = max(worst, err / top)
+            assert err <= 1e-3 * top, (k, err / top)
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    print({"measured": f"card_step_{model}", "loss_rel": abs(lg - lc) / abs(lc),
+           "grad_worst_rel_to_leaf_max": worst})
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        stats = {}
+        res = train(cuda_device)
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (
+            True, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    trained = flatten_pytree(res if model == "superpoint" else res[0])
+    hist = stats.get("loss") or res[1]
+    assert abs(hist[0] - lg) <= 1e-5 * abs(lg), (hist[0], lg)
+    p0 = flatten_pytree(params)
+    for k in names:
+        step = np.abs(trained[k] - p0[k])
+        assert (step <= lr * (1 + 1e-6) + np.spacing(np.abs(p0[k]) + lr)).all(), k
+
+
+@pytest.mark.parametrize("K", [16, 64])
+def test_matching_accuracy_on_the_card_matches_the_plain_version(cuda_device, K):  # noqa: F811
+    """``matching_accuracy`` through K2 (f32 mode) and K3 at the training
+    sizes (K = 16 and 64: Sinkhorn's 17×17 and 65×65 problems, 2B = 4 sets)
+    equals the plain version's (``plain_accuracy``, the same forward without
+    the kernels) after a short overfit on the card; the log plans agree
+    within 1e-3."""
+    from rspl_slam_tpu_torch.config import SuperGlueConfig
+    from rspl_slam_tpu_torch.models import superglue
+    from rspl_slam_tpu_torch.models.weights import superglue_from_numpy
+    from rspl_slam_tpu_torch.training import superglue_train
+
+    cfg = SuperGlueConfig(image_width=160, image_height=120, num_gnn_layers=2,
+                          sinkhorn_iterations=10)
+    fixed = superglue_train.make_batch(np.random.default_rng(0), 2, K, cfg, cuda_device)
+    params, hist = superglue_train.train(cfg, steps=60, batch=2, K=K, verbose=False,
+                                         batch_fn=lambda *a: fixed, device=cuda_device)
+    assert hist[-1] < hist[0]
+    before = (attention_cuda.f32_launches, sinkhorn_cuda.launches)
+    acc = superglue_train.matching_accuracy(params, fixed, cfg)
+    assert (attention_cuda.f32_launches - before[0], sinkhorn_cuda.launches - before[1]) == (
+        2, 1)
+    assert acc == superglue_train.plain_accuracy(params, fixed, cfg)
+    assert acc > 0.5, acc
+    with torch.no_grad():
+        z = superglue.match_pair(superglue_from_numpy(params, cfg, cuda_device), *fixed[:8],
+                                 cfg, compute_dtype=torch.float32).log_plan
+        ref = superglue_train.log_plan(
+            superglue_train.to_tensor_tree(params, cuda_device), *fixed[:8], cfg)
+    assert float((z - ref).abs().max()) < 1e-3

@@ -178,3 +178,95 @@ def test_load_params_dispatch(ext, tmp_path):
         path = str(tmp_path / "sp.npz")
         weights.save_npz_pytree(path, direct)
     assert_trees_equal(weights.load_params(path, "superpoint"), direct)
+
+
+# trained trees across the packages: a few CPU steps of each package's
+# trainer at a small size, written by its own writer, read by the other
+# package's loader, and run through both packages' inference at f32
+TRAIN_CAM = dict(image_width=96, image_height=64, fx=80.0, fy=80.0, cx=48.0, cy=32.0, bf=8.0)
+
+
+def _frame(h=120, w=160):
+    """One rendered 160×120 frame (blobs) both packages extract from."""
+    from rspl_slam_tpu_torch.config import CameraConfig
+    from rspl_slam_tpu_torch.evaluation import synthetic
+
+    cam = CameraConfig(image_width=w, image_height=h, fx=120.0, fy=120.0, cx=80.0, cy=60.0,
+                       bf=12.0)
+    scene = synthetic.make_scene(num_points=150, num_lines=0, seed=3, extent=(4.0, 3.0, 4.0))
+    return synthetic.render_images(scene, cam, np.eye(4), seed=3)[0]
+
+
+def _assert_same_keypoints(jax_params, port_params):
+    import jax.numpy as jnp
+
+    from rspl_slam_tpu.config import SuperPointConfig as JSPC
+    from rspl_slam_tpu_torch.config import SuperPointConfig
+
+    img = _frame()
+    fj = jsp.extract(jax_params, jnp.asarray(img[None]),
+                     JSPC(max_keypoints=64, keypoint_threshold=1e-4), jnp.float32)
+    ft = superpoint.extract(weights.superpoint_from_numpy(port_params, "cpu"),
+                            torch.as_tensor(img[None]),
+                            SuperPointConfig(max_keypoints=64, keypoint_threshold=1e-4),
+                            torch.float32)
+    np.testing.assert_array_equal(np.asarray(fj.valid), ft.valid.numpy())
+    assert ft.valid.sum() > 10
+    np.testing.assert_allclose(np.asarray(fj.xy), ft.xy.numpy(), atol=1e-4)
+    np.testing.assert_allclose(np.asarray(fj.desc), ft.desc.numpy(), atol=1e-4)
+
+
+def test_port_trained_superpoint_loads_into_jax(tmp_path):
+    """The port's trained SuperPoint, written as ``pretrain`` writes it
+    (``save_npz_pytree``), loads through the JAX package's
+    ``superpoint_train.load_params`` and gives the port's keypoints through
+    JAX's ``extract`` (f32; positions within 1e-4 px)."""
+    from rspl_slam_tpu.training import superpoint_train as JT
+    from rspl_slam_tpu_torch.config import CameraConfig
+    from rspl_slam_tpu_torch.training import superpoint_train as T
+
+    trained = T.train(CameraConfig(**TRAIN_CAM), steps=2, batch=1, seed=0,
+                      params=superpoint.init_params(0), verbose=False, device="cpu")
+    path = str(tmp_path / "sp.npz")
+    weights.save_npz_pytree(path, trained)
+    loaded = JT.load_params(path)
+    assert_trees_equal(weights.to_numpy_tree(loaded), trained)
+    _assert_same_keypoints(loaded, weights.load_params(path, "superpoint"))
+
+
+@pytest.mark.parametrize("model", ["superpoint", "superglue"])
+def test_jax_trained_tree_loads_into_port(model, tmp_path):
+    """A JAX-trained tree written by the JAX CLI's writer
+    (``save_npz_pytree``) loads through the port's ``load_params`` and runs
+    the port's inference as it runs JAX's (f32: SuperPoint keypoints within
+    1e-4 px; SuperGlue log plans within 1e-4)."""
+    path = str(tmp_path / f"{model}.npz")
+    if model == "superpoint":
+        from rspl_slam_tpu.config import CameraConfig as JCam
+        from rspl_slam_tpu.training import superpoint_train as JT
+
+        trained = JT.train(JCam(**TRAIN_CAM), steps=2, batch=1, seed=0, verbose=False)
+        jweights.save_npz_pytree(path, trained)
+        loaded = weights.load_params(path, "superpoint")
+        assert_trees_equal(loaded, weights.to_numpy_tree(trained))
+        _assert_same_keypoints(trained, loaded)
+        return
+    import jax.numpy as jnp
+
+    from rspl_slam_tpu.training import superglue_train as JG
+    from rspl_slam_tpu_torch.config import SuperGlueConfig
+    from rspl_slam_tpu_torch.training import superglue_train as G
+
+    cfg = dict(image_width=160, image_height=120, num_gnn_layers=2, sinkhorn_iterations=10)
+    trained, _ = JG.train(JSGC(**cfg), steps=3, batch=2, K=16, verbose=False)
+    jweights.save_npz_pytree(path, trained)
+    loaded = weights.load_params(path, "superglue")
+    assert_trees_equal(loaded, weights.to_numpy_tree(trained))
+    batch = G.make_batch_numpy(np.random.default_rng(4), 2, 16, SuperGlueConfig(**cfg))
+    zj = jsg.match_pair(trained, *map(jnp.asarray, batch[:8]), JSGC(**cfg),
+                        jnp.float32).log_plan
+    tb = G.make_batch(np.random.default_rng(4), 2, 16, SuperGlueConfig(**cfg), "cpu")
+    zt = superglue.match_pair(weights.superglue_from_numpy(loaded, SuperGlueConfig(**cfg),
+                                                           "cpu"), *tb[:8],
+                              compute_dtype=torch.float32).log_plan
+    np.testing.assert_allclose(np.asarray(zj), zt.numpy(), atol=1e-4)
