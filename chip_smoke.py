@@ -6,6 +6,9 @@
     python3 chip_smoke.py --kernels  # device, build, kernel phases, summary
     python3 chip_smoke.py --training # device, build, kernels, end_to_end_ba,
                                      # the training phases (6 below), summary
+    python3 chip_smoke.py --parallel # device, build, kernels, end_to_end_loop
+                                     # (dist_ba's map), the parallel/ phases
+                                     # (4b below), summary
 
 Phases (one JSON line each):
   1. the card's name and power limit; build every kernel library from
@@ -71,6 +74,38 @@ Phases (one JSON line each):
      (the unfused tracking route), gated as that path, then the filter
      alone on planted outliers (``planted_matches``): every outlier
      rejected, the inliers kept at the JAX package's rate;
+  4b. ``parallel/``: ``kernels_at_batch_n`` (every mode but --kernels,
+     after the kernel checks) holds each kernel against its plain version
+     at the multi-sequence path's batch N = 4: K1 over the 2N images of a
+     step (8, 480, 752, 64), K2 bf16 on N stacked stereo problems (8, 400,
+     256), K3 at (4, 401, 401); ``multi_sequence``, ``MultiSequenceSLAM``
+     over 4 rendered sequences (scene seeds 1-4, yaw rates 0.002·(s + 1),
+     24 uint8 frames each) at the main path's widths with lines and
+     batched BA, gated on the batched features against serial
+     ``extract_pair`` at step 0 (keypoints paired by position: ≥ 99% found,
+     scores within 1e-3, stereo flags and uR within 1e-3 px on ≥ 95%;
+     cuDNN rounds some of SuperPoint's convolutions differently at batch 8
+     than at 2, so near-tied keypoints change rank: each stage fed one
+     input at both batch sizes, K1's outputs must be equal bit for bit,
+     every stage's difference on the line), one K1 launch over
+     the 2N images and N side-mode launches per batched extraction, K2 and
+     K3 launches per batched match equal to one single match's, every
+     sequence's initialization, inliers and ATE (< 0.35 m), and a batched
+     BA solve of ≥ 2 windows; ``batched_ba``, the sequences' last windows
+     solved batched and one by one (positions within 1e-4 m, inlier flags
+     equal on ≥ 99%; ms and launches of both); ``dist_ba``, 2 ranks of
+     this script (``--dist-ba-rank``) on the one card over gloo running
+     the landmark-sharded solve and ``run_global_ba(mesh=)`` on the loop
+     path's map (63 keyframes, saved by ``end_to_end_loop`` before its
+     closing passes) and the sharded solve on the first sequence's map,
+     against the single-process solve: results on the card; the small
+     map's Tcw within 1e-3, points 1e-2; on the loop map the first step's
+     summed system in f64 within 1e-9 relative, runs and ranks bit for
+     bit, floats per LM step = ``expected_collective_floats``, the robust
+     objective falling, ``run_global_ba(mesh=)`` equal to the sharded
+     solve (the full schedule's distance from the single solve measured
+     beside the single solve's own spread: f32 rounding on that map is of
+     the order of S's entries);
   5. the command line, as a user types it, in a subprocess that cannot
      import PyYAML, PIL or matplotlib (stub packages that raise on import
      come first on its path, as on a card machine without them):
@@ -130,7 +165,9 @@ Phases (one JSON line each):
      CLI's as ``cli_run``, the training phases' under their names; each
      path's ATE in ``ate_by_path``); last line {"ok": true, "device":
      ...}. With --kernels, phases 3-6 are skipped and the summary's launch
-     counts are null; --training runs ``end_to_end_ba`` and phase 6 alone.
+     counts are null; --training runs ``end_to_end_ba`` and phase 6 alone;
+     --parallel runs ``end_to_end_loop`` and phase 4b (the summary's
+     launches are then ``multi_sequence``'s).
 
 Any failure raises and exits non-zero. The script imports nothing of JAX
 or of the JAX package.
@@ -359,15 +396,16 @@ def _random_layer(gen, C, dev):
     return layer
 
 
-def _layer_case(ac, gen, layer, K, valid, compute_dtype, rtol, atol):
-    """K2 against its plain version at (2, K, 256), self and cross, with
-    ``valid`` keys in the second set: (ok, [max error self, cross], x,
-    masks, scratch)."""
+def _layer_case(ac, gen, layer, K, valid, compute_dtype, rtol, atol, n2: int = 2):
+    """K2 against its plain version at (n2, K, 256) (n2 / 2 stacked
+    problems), self and cross, with ``valid`` keys in each problem's second
+    set: (ok, [max error self, cross], x, masks, scratch)."""
     import torch
 
     dev = "cuda"
-    x = torch.randn((2, K, 256), generator=gen, device=dev)
-    masks = torch.arange(K, device=dev)[None] < torch.tensor([[K], [valid]], device=dev)
+    x = torch.randn((n2, K, 256), generator=gen, device=dev)
+    masks = torch.arange(K, device=dev)[None] < torch.tensor([[K], [valid]] * (n2 // 2),
+                                                             device=dev)
     scratch = ac.layer_scratch(x, masks, compute_dtype)
     errs, ok = [], True
     for cross in (False, True):
@@ -379,6 +417,20 @@ def _layer_case(ac, gen, layer, K, valid, compute_dtype, rtol, atol):
         ok &= o
         errs.append(e)
     return ok, errs, x, masks, scratch
+
+
+def _layer_bound(ac, layer, x, compute_dtype):
+    """(flops, bytes, bound ms, bound by) of one K2 layer on x (n2, K, C)."""
+    import torch
+
+    n2, K, C = x.shape
+    n = n2 * K
+    flops = 2.0 * n * (C * 3 * C + K * C + K * C + C * C + 2 * C * 2 * C + 2 * C * C)
+    # x in and out, the mask, and once each layer tensor this mode's kernels read
+    nbytes = 4.0 * (2 * x.numel() + n) + sum(
+        layer[k].numel() * layer[k].element_size() for k in ac.LAYER_KEYS[compute_dtype])
+    peak = PEAK_BF16 if compute_dtype == torch.bfloat16 else PEAK_F32
+    return (flops, nbytes) + bound_ms(flops, nbytes, peak)
 
 
 def check_superglue_layer(bf16: bool):
@@ -416,12 +468,7 @@ def check_superglue_layer(bf16: bool):
     wrapper_host_ms = host_ms(kernel)  # K2's two launches are short: see host_ms
     plain_ms = time_ms(lambda: ac.superglue_layer_plain(x, masks, layer, True,
                                                         compute_dtype=compute_dtype))
-    n = n2 * K
-    flops = 2.0 * n * (C * 3 * C + K * C + K * C + C * C + 2 * C * 2 * C + 2 * C * C)
-    # x in and out, the mask, and once each layer tensor this mode's kernels read
-    nbytes = 4.0 * (2 * x.numel() + n) + sum(
-        layer[k].numel() * layer[k].element_size() for k in ac.LAYER_KEYS[compute_dtype])
-    bms, by = bound_ms(flops, nbytes, PEAK_BF16 if bf16 else PEAK_F32)
+    flops, nbytes, bms, by = _layer_bound(ac, layer, x, compute_dtype)
     line = {"phase": "kernel", "name": "superglue_layer" if bf16 else "superglue_layer_f32",
             "compute_dtype": str(compute_dtype).replace("torch.", ""),
             "shape": [n2, K, C], "valid": [K, 331],
@@ -439,9 +486,9 @@ def check_superglue_layer(bf16: bool):
 
 
 def _sinkhorn_case(gen, M, N, valid0, valid1, matcher: bool, iters: int = 100,
-                   plain_n: int = 5):
-    """K3 against the plain sweeps on one (1, M+1, N+1) problem: random
-    scores ×3 with dustbin 1.0, or the matcher's own scale (2000·cos of
+                   plain_n: int = 5, B: int = 1):
+    """K3 against the plain sweeps on B (M+1, N+1) problems: random scores
+    ×3 with dustbin 1.0, or (B = 1) the matcher's own scale (2000·cos of
     unit descriptors, half of them matched across the sets, dustbin 1980,
     as descriptor_matcher_params sets SuperGlue up)."""
     import torch
@@ -460,25 +507,25 @@ def _sinkhorn_case(gen, M, N, valid0, valid1, matcher: bool, iters: int = 100,
             d0[:, :k] + 0.1 * torch.randn((1, k, 256), generator=gen, device=dev), dim=-1)
         scores, bin_score = 2000.0 * d0 @ d1.transpose(1, 2), 1980.0
     else:
-        scores, bin_score = torch.randn((1, M, N), generator=gen, device=dev) * 3.0, 1.0
-    m0 = torch.arange(M, device=dev)[None] < valid0
-    m1 = torch.arange(N, device=dev)[None] < valid1
+        scores, bin_score = torch.randn((B, M, N), generator=gen, device=dev) * 3.0, 1.0
+    m0 = (torch.arange(M, device=dev)[None] < valid0).expand(B, M)
+    m1 = (torch.arange(N, device=dev)[None] < valid1).expand(B, N)
     Z0, mu, nu, norm = sk.build_problem(scores, m0, m1, bin_score)
     got = skc.sinkhorn_iterations(Z0, mu, nu, iters) - norm[:, None, None]
     ref = sk.sinkhorn_iterations_plain(Z0, mu, nu, iters) - norm[:, None, None]
     torch.cuda.synchronize()
-    one = torch.ones((1, 1), dtype=torch.bool, device=dev)
+    one = torch.ones((B, 1), dtype=torch.bool, device=dev)
     sel = torch.cat([m0, one], 1)[:, :, None] & torch.cat([m1, one], 1)[:, None, :]
     ok, err = _allclose_report("sinkhorn", got, ref, 0.0, 1e-3, sel)
     kernel_ms = time_ms(lambda: skc.sinkhorn_iterations(Z0, mu, nu, iters))
     plain_ms = time_ms(lambda: sk.sinkhorn_iterations_plain(Z0, mu, nu, iters), n=plain_n)
-    elems = (M + 1) * (N + 1)
+    elems = B * (M + 1) * (N + 1)
     sweeps = 2 * iters * elems  # one exponential per element per sweep
     flops = 4.0 * sweeps
-    nbytes = 4.0 * (2 * elems + (M + 1) + (N + 1))
+    nbytes = 4.0 * (2 * elems + B * ((M + 1) + (N + 1)))
     bms, by = bound_ms(flops, nbytes, PEAK_F32, sfu_ops=sweeps)
     plan = skc.cluster_plan(M + 1, N + 1)
-    line = {"phase": "kernel", "name": "sinkhorn", "shape": [1, M + 1, N + 1],
+    line = {"phase": "kernel", "name": "sinkhorn", "shape": [B, M + 1, N + 1],
             "iters": iters, "scores": "matcher 2000*cos, bin 1980" if matcher
             else "randn*3, bin 1", "valid": [valid0, valid1],
             "cluster_plan": plan._asdict(), "ok": ok, "max_abs_err": err,
@@ -1162,6 +1209,7 @@ def phase_end_to_end_loop():
     ate_before = kf_ate(m)
     during = list(slam.pose_graph_solves)
     snapshot, last_twc = copy.deepcopy(m), slam._last_Twc.copy()
+    save_compact_map(m, DIST_MAP)  # dist_ba's map: as mapping left it
     # the closing passes, as `cli run --pose-graph --global-ba` runs them;
     # global BA's problem is also solved here, to read the robust objective
     # before and after the same solve
@@ -1424,8 +1472,633 @@ def phase_epipolar():
     return line, launches
 
 
+# ------------------------------------------------------------- parallel/
+# multi_sequence: 4 sequences in lockstep at the main path's widths, their
+# scenes ``synthetic.make_scene`` seeds 1-4 (seed 1 is the BA path's scene)
+# with 12 dark segments each, their yaw rates JAX's multi-sequence test's
+# (0.002·(s + 1)), frames quantized to 8 bits
+MS_SEQUENCES = 4
+MS_FRAMES = 24
+# batched against serial extraction at step 0, keypoints paired by position
+MS_MEAS_ATOL_PX = 1e-3
+MS_POSITION_SHARE = 0.99
+MS_SCORE_ATOL = 1e-3
+MS_STEREO_SHARE = 0.95
+BATCHED_BA_POSE_ATOL_M = 1e-4
+BATCHED_BA_INLIER_SHARE = 0.99
+DIST_RANKS = 2
+# JAX's sharded-solve tolerances (tests/test_parallel.py), held on the
+# small map's full schedule; the loop map's gates: see phase_dist_ba
+DIST_TCW_ATOL = 1e-3
+DIST_POINTS_ATOL = 1e-2
+DIST_SYSTEM_RTOL = 1e-9  # the summed S, g̃ and cost in f64 against the single solve's
+DIST_NUDGE = 1e-7  # the relative nudge of the start that measures the single solve's spread
+DIST_TIMEOUT_S = 300
+
+
+def _ms_cfg():
+    """The default SystemConfig with the map store cut to 64 keyframes,
+    16384 points and 1024 lines (a default-capacity map checkpoint holds
+    ~1 GB of arrays; ``dist_ba`` saves one): the map logic is
+    capacity-agnostic."""
+    from rspl_slam_tpu_torch.config import SystemConfig
+
+    cfg = SystemConfig()
+    return dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, max_map_keyframes=64, max_map_points=16384, max_map_lines=1024))
+
+
+def _ms_sequences(cfg):
+    """The sequences' 8-bit frames and ground-truth trajectories."""
+    from rspl_slam_tpu_torch.evaluation import synthetic
+
+    seqs, trajs = [], []
+    for s in range(MS_SEQUENCES):
+        scene = synthetic.make_scene(num_points=600, num_lines=12, seed=1 + s,
+                                     extent=(6.0, 4.0, 6.0), on_line_frac=0.0)
+        traj = synthetic.make_trajectory(MS_FRAMES, step=0.05, yaw_rate=0.002 * (s + 1))
+        seqs.append([tuple((np.clip(im, 0, 1) * 255).astype(np.uint8)
+                           for im in synthetic.render_images(scene, cfg.camera, traj[i], seed=i))
+                     for i in range(MS_FRAMES)])
+        trajs.append(traj)
+    return seqs, trajs
+
+
+def _ms_frontends(cfg):
+    """One frontend per sequence with the end-to-end weights (random
+    SuperPoint seed 0, shared as one module; the descriptor-matcher
+    SuperGlue; the hand-set RCF edge weights)."""
+    from rspl_slam_tpu_torch.frontend.frontends import NeuralFrontend
+    from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
+
+    sg = superglue.descriptor_matcher_params(cfg.superglue, 0, 2000.0, 1980.0)
+    rp = rcf.edge_detector_params()
+    fe0 = NeuralFrontend(cfg, sp_params=superpoint.init_params(0), sg_params=sg, rcf_params=rp)
+    return [fe0] + [NeuralFrontend(cfg, sp_params=fe0.sp, sg_params=sg, rcf_params=rp)
+                    for _ in range(MS_SEQUENCES - 1)]
+
+
+def _launch_deltas(fn, log):
+    """``fn`` with the launch counters' change over each call appended to
+    ``log`` (counters move on the host at launch: no synchronization)."""
+    def wrapped(*a, **k):
+        c0 = _counters()
+        out = fn(*a, **k)
+        c1 = _counters()
+        log.append({key: c1[key] - c0[key] for key in c0})
+        return out
+    return wrapped
+
+
+def _step0_agreement(batched, serial) -> dict:
+    """Batched against serial features of one step, keypoints paired by
+    position (SuperPoint's cuDNN convolutions round differently at batch 8
+    than at 2, so near-tied keypoints change rank, and a few change place):
+    per sequence the share of the serial keypoints found at the same
+    position, the largest score difference there, the share whose stereo
+    flag (uR > 0) agrees, and the share of the pairs stereo in both whose
+    uR agrees within ``MS_MEAS_ATOL_PX``."""
+    out = {"position_share": [], "score_max_diff": [], "stereo_flag_share": [],
+           "ur_share": [], "stereo_matches": []}
+    for b, s in zip(batched, serial):
+        at = {tuple(x): i for i, x in enumerate(b.xy[b.valid])}
+        bi = np.nonzero(b.valid)[0]
+        pairs = [(bi[at[tuple(x)]], j) for j, x in zip(np.nonzero(s.valid)[0], s.xy[s.valid])
+                 if tuple(x) in at]
+        ib, js = (np.asarray(v, np.int64) for v in zip(*pairs)) if pairs else (
+            np.zeros(0, np.int64), np.zeros(0, np.int64))
+        ub, us = b.meas[ib, 2], s.meas[js, 2]
+        both = (ub > 0) & (us > 0)
+        out["position_share"].append(len(pairs) / max(int(s.valid.sum()), 1))
+        out["score_max_diff"].append(float(np.abs(b.score[ib] - s.score[js]).max(initial=0.0)))
+        out["stereo_flag_share"].append(float(((ub > 0) == (us > 0)).mean()) if len(ib) else 0.0)
+        out["ur_share"].append(float((np.abs(ub - us)[both] <= MS_MEAS_ATOL_PX).mean())
+                               if both.any() else 0.0)
+        out["stereo_matches"].append(int((b.depth > 0).sum()))
+    return out
+
+
+def _superpoint_batch_invariance(sp, pairs, dtype) -> dict:
+    """SuperPoint's stages on the card at batch 2N against batch 2, each
+    stage fed one input at both sizes: the step's 2N images in one call,
+    and each sequence's stereo pair alone, as ``extract_pair`` runs it. Per
+    stage, the largest difference between the two outputs (0.0: equal bit
+    for bit). K1 computes every image alone, so its stage must be 0.0; the
+    ``F.conv2d`` stages (cuDNN) and the heads' matmuls pick their
+    algorithms by shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from rspl_slam_tpu_torch.frontend.frontends import _to_unit_float
+    from rspl_slam_tpu_torch.ops import conv_stem_cuda as cs
+
+    def conv(name, pool=False):
+        def fn(t):
+            y = sp._conv(t, name, dtype)
+            return F.max_pool2d(y, 2) if pool else y
+        return fn
+
+    chain = [("conv1a (F.conv2d)", lambda t: cs.conv1a(t, sp.conv1a_hwio, sp.conv1a_b, dtype)),
+             ("K1 conv1b + pool", lambda t: cs.conv3x3_relu_pool(t, sp._stem_w(), sp.conv1b_b)),
+             ("conv2a (F.conv2d)", lambda t: sp._conv(t.permute(0, 3, 1, 2), "conv2a", dtype)),
+             ("conv2b (F.conv2d) + pool", conv("conv2b", True)),
+             ("conv3a (F.conv2d)", conv("conv3a")),
+             ("conv3b (F.conv2d) + pool", conv("conv3b", True)),
+             ("conv4a (F.conv2d)", conv("conv4a")), ("conv4b (F.conv2d)", conv("conv4b"))]
+    heads = [("convPa (F.conv2d) + convPb (matmul)",
+              lambda t: sp._head(sp._conv(t, "convPa", dtype), "convPb", dtype)),
+             ("convDa (F.conv2d) + convDb (matmul)",
+              lambda t: sp._head(sp._conv(t, "convDa", dtype), "convDb", dtype))]
+    x = _to_unit_float(torch.from_numpy(np.stack([im for p in pairs for im in p])).cuda())
+    out = {}
+
+    def probe(name, fn, t):
+        y = fn(t)
+        y2 = torch.cat([fn(t[2 * s: 2 * s + 2]) for s in range(len(pairs))])
+        out[name] = float((y.float() - y2.float()).abs().max())
+        return y
+
+    with torch.no_grad():
+        for name, fn in chain:
+            x = probe(name, fn, x)  # the next stage's input: the batch-2N output
+        for name, fn in heads:
+            probe(name, fn, x)
+    return out
+
+
+def phase_multi_sequence(ba_line):
+    """``MultiSequenceSLAM`` over 4 sequences at the main path's widths (K =
+    400, 18 layers at bf16, lines, batched BA), the counters reset just
+    before the timed run. Gated: at step 0 the batched features agree with
+    each frontend's serial ``extract_pair`` on the card
+    (:func:`_step0_agreement`: ≥ 99% of the keypoints at the same position,
+    their scores within 1e-3, stereo flags and uR within 1e-3 px on ≥ 95%),
+    and K1 is batch-invariant (:func:`_superpoint_batch_invariance`: the
+    pairing is loose because cuDNN's convolutions are not);
+    every batched extraction launches K1 once over the 2N
+    images and its side mode N times, and every batched match (stereo and
+    temporal) launches K2 and K3 as often as one single match; every
+    sequence initializes, passes the inlier gate and the ATE bound; at least
+    one batched BA solve of ≥ 2 windows. Measured: aggregate frames/s beside
+    the BA path's, stage medians."""
+    import torch
+
+    from rspl_slam_tpu_torch.parallel.multi_sequence import MultiSequenceSLAM
+
+    cfg = _ms_cfg()
+    t0 = time.perf_counter()
+    seqs, trajs = _ms_sequences(cfg)
+    render_s = time.perf_counter() - t0
+    fes = _ms_frontends(cfg)
+    # step 0: batched against serial, and one single match's launches
+    pairs0 = [seqs[s][0] for s in range(MS_SEQUENCES)]
+    warm = MultiSequenceSLAM(cfg, fes)  # first-call set-up, not timed
+    for i in range(2):
+        warm.step([(i, 0.05 * i, *seqs[s][i]) for s in range(MS_SEQUENCES)])
+    del warm
+    single = []
+    serial = [_launch_deltas(fe.extract_pair, single)(*pairs0[s]) for s, fe in enumerate(fes)]
+    batch_log = []
+    batched = _launch_deltas(fes[0].extract_pairs_batched, batch_log)(pairs0, fes)
+    step0 = _step0_agreement(batched, serial)
+    invariance = _superpoint_batch_invariance(fes[0].sp, pairs0, fes[0].compute_dtype)
+    one = single[0]
+    torch.cuda.synchronize()
+
+    msq = MultiSequenceSLAM(cfg, fes)
+    extract_log, match_log = [], []
+    fes[0].extract_pairs_batched = _launch_deltas(fes[0].extract_pairs_batched, extract_log)
+    fes[0].match_batched = _launch_deltas(fes[0].match_batched, match_log)
+    _reset_counters()
+    t0 = time.perf_counter()
+    for i in range(MS_FRAMES):
+        msq.step([(i, 0.05 * i, *seqs[s][i]) for s in range(MS_SEQUENCES)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counters()
+    del fes[0].extract_pairs_batched, fes[0].match_batched  # the instance wrappers
+
+    per_seq = []
+    for slam, traj in zip(msq.slams, trajs):
+        inl = [int(r.num_inliers) for r in slam.records[1:]]
+        per_seq.append({"initialized": slam.initialized, "keyframes": int(slam.map.n_kf),
+                        "ate_rmse_m": _ate(slam.records, traj),
+                        "keyframe_ate_rmse_m": _keyframe_ate(slam.map, traj),
+                        "frames_over_min_inliers": sum(n > E2E_MIN_INLIERS for n in inl),
+                        "inliers_min": min(inl), "maplines": int(slam.map.n_ln)})
+    timings = dict(msq.timings)
+    for slam in msq.slams:
+        for k, v in slam.timings.items():
+            timings.setdefault(k, []).extend(v)
+    stage_keys = ("superglue_layer", "sinkhorn")
+    bad_extract = [d for d in extract_log
+                   if d["conv_stem"] != 1 or d["conv_stem_side"] != MS_SEQUENCES
+                   or any(d[k] != one[k] for k in stage_keys)]
+    bad_match = [d for d in match_log if any(d[k] != one[k] for k in stage_keys)]
+    agg = MS_SEQUENCES * MS_FRAMES / wall
+    line = {"phase": "multi_sequence", "sequences": MS_SEQUENCES, "frames": MS_FRAMES,
+            "image": [cfg.camera.image_width, cfg.camera.image_height],
+            "max_keypoints": cfg.superpoint.max_keypoints,
+            "gnn_layers": cfg.superglue.num_gnn_layers, "use_lines": cfg.use_lines,
+            "yaw_rates": [0.002 * (s + 1) for s in range(MS_SEQUENCES)],
+            "step0": {**step0, "gates": {"position_share": MS_POSITION_SHARE,
+                                         "score_atol": MS_SCORE_ATOL,
+                                         "stereo_flag_share": MS_STEREO_SHARE,
+                                         "ur_share": MS_STEREO_SHARE,
+                                         "ur_atol_px": MS_MEAS_ATOL_PX}},
+            "superpoint_batch_2n_vs_2_max_diff": invariance,
+            "single_match_launches": one, "batched_extract_calls": len(extract_log),
+            "batched_match_calls": len(match_log),
+            "extract_launches_first": extract_log[0] if extract_log else None,
+            "match_launches_first": match_log[0] if match_log else None,
+            "extract_calls_off": bad_extract, "match_calls_off": bad_match,
+            "ba_solves": msq.ba_solves, "sequences_detail": per_seq,
+            "aggregate_frames_per_s": agg, "wall_s": wall,
+            "end_to_end_ba_frames_per_s": ba_line["frames_per_s"] if ba_line else None,
+            "stage_median_ms": {k: float(np.median(v)) * 1e3 for k, v in timings.items()},
+            "stage_note": "extract / match / track / ba: host ms per step of "
+                          "MultiSequenceSLAM's stages (extract and match end in their "
+                          "one copy down); pose_opt, kf_insert: per sequence and frame",
+            "render_s": render_s, "ate_bound_m": E2E_ATE_BOUND, "launches": launches}
+    emit(line)
+    fails = []
+    if not (min(step0["position_share"]) >= MS_POSITION_SHARE
+            and max(step0["score_max_diff"]) <= MS_SCORE_ATOL
+            and min(step0["stereo_flag_share"]) >= MS_STEREO_SHARE
+            and min(step0["ur_share"]) >= MS_STEREO_SHARE):
+        fails.append(f"step 0 batched against serial: {step0}")
+    if invariance["K1 conv1b + pool"] != 0.0:
+        fails.append(f"K1 is not batch-invariant: {invariance}")
+    if bad_extract or bad_match or len(extract_log) != MS_FRAMES:
+        fails.append(f"launches per batched call: extract {bad_extract}, match {bad_match}")
+    for s, d in enumerate(per_seq):
+        if not d["initialized"] or d["frames_over_min_inliers"] < 0.8 * (MS_FRAMES - 1):
+            fails.append(f"sequence {s} did not initialize or track: {d}")
+        if not d["ate_rmse_m"] < E2E_ATE_BOUND:
+            fails.append(f"sequence {s}: ATE {d['ate_rmse_m']} over {E2E_ATE_BOUND}")
+    if not msq.ba_solves or max(msq.ba_solves) < 2:
+        fails.append(f"no batched BA solve of >= 2 windows: {msq.ba_solves}")
+    if fails:
+        raise AssertionError("multi_sequence: " + "; ".join(fails))
+    return line, launches, msq
+
+
+def _ba_kw(cfg) -> dict:
+    o, b = cfg.optimization, cfg.optimization.backend
+    return dict(chi2_mono=b.mono_point, chi2_stereo=b.stereo_point,
+                chi2_mono_line=b.mono_line, chi2_stereo_line=b.stereo_line,
+                iters1=o.ba_iters_phase1, iters2=o.ba_iters_phase2)
+
+
+def phase_batched_ba(msq):
+    """Each sequence's last window (4 windows of one capacity, captured on
+    the multi-sequence BA path) solved in one batched solve and one by one
+    on the card. Gated: camera positions within 1e-4 m of the single solves
+    and the inlier flags equal on ≥ 99% of the valid constraints. Measured:
+    CUDA-event ms and launches (torch.profiler) of the batched solve against
+    the 4 single solves together."""
+    import torch
+
+    from rspl_slam_tpu_torch.backend import local_ba
+    from rspl_slam_tpu_torch.parallel import dist_ba
+
+    K, kw, dev = msq.slams[0].K, _ba_kw(msq.cfg), msq.slams[0].device
+    probs, maps = [], []
+    for slam in msq.slams:
+        prob, mapping = slam.gather_ba_problem(int(slam.map.n_kf) - 1)
+        if prob is not None:
+            probs.append(prob)
+            maps.append(mapping)
+
+    def batched():
+        return dist_ba.batched_windows_ba(K, probs, device=dev, **kw)
+
+    def singles():
+        return [local_ba.optimize_local_map(K, local_ba.upload_problem(p, dev), **kw)
+                for p in probs]
+
+    got = dist_ba.fetch_windows(batched())
+    ref = [local_ba.fetch_result(r) for r in singles()]
+    pos = lambda T: np.linalg.inv(T.astype(np.float64))[:, :3, 3]  # noqa: E731
+    pose_diff = max(float(np.abs(pos(g.Tcw[: len(m["frames"])])
+                                 - pos(r.Tcw[: len(m["frames"])])).max())
+                    for g, r, m in zip(got, ref, maps))
+    agree = [float((g.p_inlier[: m["ncp"]] == r.p_inlier[: m["ncp"]]).mean())
+             for g, r, m in zip(got, ref, maps)]
+    ms_b = time_ms(batched, n=3, warmup=1)
+    ms_s = time_ms(singles, n=3, warmup=1)
+    counts = {}
+    for name, fn in (("batched", batched), ("singles", singles)):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts[name] = _count_launches(prof)
+    line = {"phase": "batched_ba", "windows": len(probs),
+            "frames": [len(m["frames"]) for m in maps], "ncp": [int(m["ncp"]) for m in maps],
+            "ncl": [int(m["ncl"]) for m in maps],
+            "capacity": {"F": int(probs[0].Tcw.shape[0]), "P": int(probs[0].points.shape[0]),
+                         "L": int(probs[0].lines.shape[0]), "Cp": int(len(probs[0].p_valid)),
+                         "Cl": int(len(probs[0].l_valid))},
+            "pose_max_diff_m": pose_diff, "pose_atol_m": BATCHED_BA_POSE_ATOL_M,
+            "inlier_agreement": agree, "inlier_share_min": BATCHED_BA_INLIER_SHARE,
+            "costs_batched": [float(g.cost) for g in got],
+            "costs_single": [float(r.cost) for r in ref],
+            "ms_batched": ms_b, "ms_singles_sum": ms_s,
+            "launches_batched": counts["batched"], "launches_singles_sum": counts["singles"]}
+    emit(line)
+    if len(probs) < 2 or not pose_diff <= BATCHED_BA_POSE_ATOL_M or \
+            min(agree) < BATCHED_BA_INLIER_SHARE:
+        raise AssertionError(f"batched_ba: {line}")
+    return line
+
+
+def _dist_system(cfg):
+    """A SLAMSystem to load ``dist_ba``'s map into (its frontend unused)."""
+    from rspl_slam_tpu_torch.evaluation import synthetic
+    from rspl_slam_tpu_torch.frontend.frontends import OracleFrontend
+    from rspl_slam_tpu_torch.slam import SLAMSystem
+
+    scene = synthetic.make_scene(num_points=8, num_lines=0)
+    return SLAMSystem(cfg, OracleFrontend(cfg, scene, device="cuda"), enable_ba=False)
+
+
+def _dist_rank(argv) -> int:
+    """One rank of ``dist_ba`` (``chip_smoke.py --dist-ba-rank <rank> <world>
+    <port> <work dir>``): joins the process group on localhost, runs the
+    sharded solve of ``problem.npz`` twice (``dist_ba.collective_traffic``)
+    and its first reduced camera system, the sharded solve of
+    ``small.npz``, then ``run_global_ba(mesh=)`` on ``map.npz``, and writes
+    ``rank<r>.npz`` with the devices its results lie on."""
+    rank, world, port, work = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 2
+    from rspl_slam_tpu_torch.backend import local_ba
+    from rspl_slam_tpu_torch.backend.local_ba import BAProblem
+    from rspl_slam_tpu_torch.parallel import dist_ba, multihost
+
+    backend = multihost.initialize(f"tcp://localhost:{port}", world, rank, device="cuda",
+                                   timeout_s=DIST_TIMEOUT_S)
+    mesh = multihost.global_mesh(device="cuda")
+    cfg = _ms_cfg()
+    prob, small = ([z[f] for f in BAProblem._fields[:15]] for z in (
+        np.load(os.path.join(work, name)) for name in ("problem.npz", "small.npz")))
+    prob, small = BAProblem(*prob), BAProblem(*small)
+    slam = _dist_system(cfg)
+    kw = _ba_kw(cfg)
+    runs, ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = dist_ba.collective_traffic(slam.K, prob, mesh, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        runs.append(t)
+    chi2 = {k: kw[k] for k in ("chi2_mono", "chi2_stereo", "chi2_mono_line", "chi2_stereo_line")}
+    S, g, c = local_ba.reduced_camera_system(slam.K, prob, mesh, **chi2)
+    S64, g64, c64 = local_ba.reduced_camera_system(slam.K, prob, mesh, torch.float64, **chi2)
+    sm = dist_ba.sharded_constraints_ba(slam.K, small, mesh, **kw)
+    slam.resume_from_map(os.path.join(work, "map.npz"))
+    g_cost = slam.run_global_ba(mesh=mesh)
+    results = [t["result"] for t in runs] + [sm, (S, g, c, S64, g64, c64)]
+    out = {"backend": backend, "mesh_device": str(mesh.device), "ms": ms,
+           "result_devices": sorted({str(x.device) for r in results for x in r}),
+           **{k: v.cpu().numpy() for k, v in (("S", S), ("g", g), ("c", c), ("S64", S64),
+                                              ("g64", g64), ("c64", c64))},
+           "small_Tcw": sm.Tcw.cpu().numpy(), "small_points": sm.points.cpu().numpy(),
+           "floats_per_step": runs[0]["floats_per_step"], "lm_steps": runs[0]["lm_steps"],
+           "floats_total": runs[0]["floats_total"], "g_cost": g_cost,
+           "g_kf_pose": slam.map.kf_pose[: slam.map.n_kf]}
+    for i, t in enumerate(runs):
+        r = t["result"]
+        out.update({f"run{i}_{k}": getattr(r, k).cpu().numpy()
+                    for k in ("Tcw", "points", "lines", "p_inlier", "l_inlier", "cost")})
+    np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def save_compact_map(m, path) -> None:
+    """Save map ``m`` with its capacities cut to the powers of two above
+    what it holds, or kept where it is full (a default-capacity checkpoint
+    holds ~1 GB of arrays, nearly all empty): every array sliced to the
+    smaller store's shape."""
+    from rspl_slam_tpu_torch.backend.map_store import MapStore
+
+    def cap(n, full):  # the power of two above n, at most the capacity
+        return min(1 << int(n).bit_length(), full)
+
+    small = MapStore(m.K, m.LN, dataclasses.replace(
+        m.cfg, max_map_keyframes=cap(m.n_kf, len(m.kf_valid)),
+        max_map_points=cap(m.n_pt, len(m.pt_status)),
+        max_map_lines=cap(m.n_ln, len(m.ln_valid))), desc_dim=m.pt_desc.shape[1])
+    for k, v in vars(m).items():
+        if isinstance(v, np.ndarray):
+            dst = getattr(small, k)
+            dst[...] = v[tuple(slice(0, n) for n in dst.shape)]
+        elif k != "cfg":
+            setattr(small, k, v)
+    small.save(path)
+
+
+def phase_dist_ba(small):
+    """The landmark-sharded solve in 2 ranks on the one card (processes of
+    this script, ``_dist_rank``; the backend named on the line) on two
+    global BA problems, against the single-process solve of the same
+    problem, run first, alone on the card: ``small``, the first sequence's
+    map of ``multi_sequence`` (3 keyframes), and the loop path's map
+    (:data:`DIST_MAP`, saved by that path, BA on, before its closing
+    passes: the largest map of the smoke; the BA path's holds 5
+    keyframes), on which ``run_global_ba(mesh=)`` runs too.
+
+    Gated: every rank's results on the card; ``small``'s full schedule
+    within JAX's sharded-solve tolerances of the single solve's (Tcw 1e-3,
+    points 1e-2). On the loop map: the first LM step's summed reduced
+    camera system S, g̃ and cost (``local_ba.reduced_camera_system``),
+    assembled in f64, within 1e-9 (relative to the largest entry) of the
+    single solve's, which proves the same function; the full schedule's two
+    runs and the two ranks equal bit for bit, each LM step passing
+    ``expected_collective_floats`` floats, its robust objective no higher
+    than at the start, and ``run_global_ba(mesh=)``'s cost equal to it bit
+    for bit (the same problem). The loop map's full schedule is not held to
+    the single solve's poses: there the f32 system carries rounding errors
+    of the order of its largest entries (S in f32 against S in f64 is on
+    the line, for the single solve and the sharded one), and the LM's
+    accept decisions and the chi² gate carry any change of summation order
+    into the poses; its distance is measured beside the single solve's own
+    under a 1e-7 nudge of its start."""
+    import torch
+
+    from rspl_slam_tpu_torch.backend import local_ba
+    from rspl_slam_tpu_torch.parallel import dist_ba
+
+    work = os.path.dirname(DIST_MAP)
+    cfg = _ms_cfg()
+    slam = _dist_system(cfg)
+    slam.resume_from_map(DIST_MAP)
+    prob, mapping = slam.global_ba_problem()
+    for name, p in (("problem.npz", prob), ("small.npz", small)):
+        np.savez(os.path.join(work, name),
+                 **{f: np.asarray(getattr(p, f)) for f in local_ba.BAProblem._fields[:15]})
+    kw = _ba_kw(cfg)
+    chi2 = {k: kw[k] for k in ("chi2_mono", "chi2_stereo", "chi2_mono_line", "chi2_stereo_line")}
+
+    def single(p=prob):
+        return local_ba.fetch_result(local_ba.optimize_local_map(
+            slam.K, local_ba.upload_problem(p, slam.device), **kw))
+
+    single_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ref = single()
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+    nudged = single(prob._replace(points=(prob.points * (1 + DIST_NUDGE)).astype(np.float32)))
+    small_ref = single(small)
+    prob_dev = local_ba.upload_problem(prob, slam.device)
+    S1, g1, c1 = local_ba.reduced_camera_system(slam.K, prob_dev, **chi2)
+    S64, g64, c64 = local_ba.reduced_camera_system(slam.K, prob_dev, None, torch.float64,
+                                                   **chi2)
+    g_cost = slam.run_global_ba()
+    port = _free_port()
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                               "--dist-ba-rank", str(r), str(DIST_RANKS), str(port), work],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(DIST_RANKS)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=DIST_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"dist_ba: a rank exited {p.returncode}:\n{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in range(DIST_RANKS)]
+    r0 = ranks[0]
+    F, P, L = (int(prob.Tcw.shape[0]), int(prob.points.shape[0]), int(prob.lines.shape[0]))
+    fields = ("Tcw", "points", "lines", "p_inlier", "l_inlier", "cost")
+    repeat = all(np.array_equal(r[f"run0_{k}"], r[f"run1_{k}"]) for r in ranks for k in fields)
+    ranks_equal = all(np.array_equal(r[k], r0[k]) for r in ranks[1:] for k in r0 if k != "ms")
+    devices = sorted({str(d) for r in ranks for d in r["result_devices"]})
+    sharded = local_ba.BAResult(**{k: torch.as_tensor(r0[f"run0_{k}"], device=slam.device)
+                                   for k in fields})
+    objective = {k: float(local_ba.robust_objective(slam.K, prob_dev, r, **chi2))
+                 for k, r in (("start", None), ("sharded", sharded))}
+    err = lambda a, b: float(np.abs(np.asarray(a, np.float64) - b).max())  # noqa: E731
+    S1, g1, c1, S64, g64, c64 = (x.cpu().double().numpy() for x in (S1, g1, c1, S64, g64, c64))
+    S_max, g_max = float(np.abs(S64).max()), float(np.abs(g64).max())
+    system = {"f64": {"S_rel": err(r0["S64"], S64) / S_max, "g_rel": err(r0["g64"], g64) / g_max,
+                      "cost_rel": err(r0["c64"], c64) / abs(float(c64))},
+              "f32": {"S_sharded_vs_single": err(r0["S"], S1), "S_single_vs_f64": err(S1, S64),
+                      "S_sharded_vs_f64": err(r0["S"], S64),
+                      "g_sharded_vs_single": err(r0["g"], g1), "g_single_vs_f64": err(g1, g64),
+                      "cost": [float(r0["c"]), float(c1)]},
+              "S_max": S_max, "g_max": g_max}
+
+    def dist(a, b):  # full-schedule distance of result b from a
+        return {"tcw": float(np.abs(a.Tcw - b["Tcw"]).max()),
+                "points": float(np.abs(a.points - b["points"]).max()),
+                "cost": [float(b["cost"]), float(a.cost)],
+                "inlier_agreement": float((a.p_inlier == b["p_inlier"]).mean())}
+
+    line = {"phase": "dist_ba", "ranks": DIST_RANKS, "backend": str(r0["backend"]),
+            "mesh_devices": [str(r["mesh_device"]) for r in ranks],
+            "result_devices": devices,
+            "small": {"F": int(small.Tcw.shape[0]), "P": int(small.points.shape[0]),
+                      "L": int(small.lines.shape[0]),
+                      "tcw_max_diff": float(np.abs(r0["small_Tcw"] - small_ref.Tcw).max()),
+                      "points_max_diff": float(np.abs(r0["small_points"]
+                                                      - small_ref.points).max())},
+            "map": {"source": "end_to_end_loop, before its closing passes",
+                    "keyframes": int(slam.map.n_kf), "mappoints": int(slam.map.n_pt),
+                    "maplines": int(slam.map.n_ln)},
+            "problem": {"F": F, "P": P, "L": L, "Cp": int(len(prob.p_valid)),
+                        "Cl": int(len(prob.l_valid)), "frames": len(mapping["frames"]),
+                        "ncp": int(mapping["ncp"]), "ncl": int(mapping["ncl"])},
+            "first_system": system, "system_rtol": DIST_SYSTEM_RTOL,
+            "full_sharded_vs_single": dist(ref, {k: r0[f"run0_{k}"] for k in fields}),
+            "full_single_nudged_vs_single": dist(ref, nudged._asdict()),
+            "nudge": DIST_NUDGE, "robust_objective": objective,
+            "global_ba_cost": {"mesh": float(r0["g_cost"]), "single": g_cost},
+            "repeat_bit_for_bit": repeat, "ranks_bit_for_bit": ranks_equal,
+            "floats_per_step": int(r0["floats_per_step"]),
+            "bytes_per_step": 8 * int(r0["floats_per_step"]),
+            "expected_floats_per_step": dist_ba.expected_collective_floats(F),
+            "jax_psum_floats_per_step": F * 42 + P * (12 + 18 * F) + L * (20 + 24 * F) + 1,
+            "lm_steps": int(r0["lm_steps"]), "floats_total": int(r0["floats_total"]),
+            "sharded_ms": [float(x) for x in r0["ms"]], "single_ms": single_ms,
+            "tolerance": f"small: Tcw {DIST_TCW_ATOL}, points {DIST_POINTS_ATOL}; loop map: "
+                         f"S, g̃, cost in f64 within {DIST_SYSTEM_RTOL} relative"}
+    emit(line)
+    if not (all(d.startswith("cuda") for d in devices)
+            and all(str(r["mesh_device"]).startswith("cuda") for r in ranks)
+            and line["small"]["tcw_max_diff"] <= DIST_TCW_ATOL
+            and line["small"]["points_max_diff"] <= DIST_POINTS_ATOL
+            and max(system["f64"].values()) <= DIST_SYSTEM_RTOL
+            and repeat and ranks_equal
+            and line["floats_per_step"] == line["expected_floats_per_step"]
+            and objective["sharded"] <= objective["start"]
+            and float(r0["g_cost"]) == float(r0["run0_cost"])):
+        raise AssertionError(f"dist_ba: {line}")
+    return line
+
+
+def phase_batch_kernels(lines):
+    """Each kernel against its plain version at the multi-sequence path's
+    batch (N = 4): K1 over the 2N images of a step (8, 480, 752, 64), K2
+    bf16 on the N stacked stereo problems (8, 400, 256), K3 at (4, 401,
+    401); each listed in its kernel line's ``checks``."""
+    import torch
+
+    from rspl_slam_tpu_torch.ops import attention_cuda as ac
+
+    n = MS_SEQUENCES
+    k1 = _conv_case(2 * n, 480, 752, False, 20)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    layer = ac.pack_layer(_random_layer(gen, 256, "cuda"), "cuda")
+    ok2, errs, x, masks, scratch = _layer_case(ac, gen, layer, 400, 331, torch.bfloat16,
+                                               2.0 ** -8, 4e-3, n2=2 * n)
+    k2_ms = time_ms(lambda: ac.superglue_layer(x, masks, layer, True,
+                                               compute_dtype=torch.bfloat16, scratch=scratch))
+    k2_plain = time_ms(lambda: ac.superglue_layer_plain(x, masks, layer, True,
+                                                        compute_dtype=torch.bfloat16))
+    _, _, k2_bound, k2_by = _layer_bound(ac, layer, x, torch.bfloat16)
+    k3 = _sinkhorn_case(gen, 400, 400, 371, 352, matcher=False, plain_n=2, B=n)
+    checks = {
+        "conv_stem": {k: k1[k] for k in ("shape", "ok", "max_abs_err", "ms", "plain_ms",
+                                         "library_ms", "bound_ms", "bound_fraction")},
+        "superglue_layer": {"shape": [2 * n, 400, 256], "valid": [400, 331], "ok": ok2,
+                            "max_abs_err_self_cross": errs, "ms": k2_ms,
+                            "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by},
+        "sinkhorn": {k: k3[k] for k in ("shape", "ok", "max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_fraction")}}
+    emit({"phase": "kernels_at_batch_n", "sequences": n, **checks})
+    for name, c in checks.items():
+        lines[name].setdefault("checks", []).append({"batch_n": n, **c})
+    if not (k1["ok"] and ok2 and k3["ok"]):
+        raise AssertionError(f"kernels_at_batch_n disagree: {checks}")
+
+
 # ---------------------------------------------------------------- the CLI
 WORK = os.path.join(ROOT, "_smoke_work")  # git-ignored; removed at the end
+DIST_MAP = os.path.join(WORK, "dist_ba", "map.npz")  # the loop path's map, for dist_ba
 CLI_ATE_BOUND = E2E_ATE_BOUND
 # cli_synth's bound: the JAX CLI's own `synth --frames 100` ATE (all frames)
 # on the CPU, 0.00554 m (tests/torch_slice_reference.py --synth; the port's
@@ -2565,7 +3238,7 @@ def phase_summary(lines, by_path, ate_by_path):
     """``by_path`` maps each end-to-end path to its launch counts, the
     default main path (``end_to_end_ba``) first; empty with --kernels
     (no path ran: launch counts null). ``ate_by_path``: each path's ATE."""
-    launches = by_path.get("end_to_end_ba")
+    launches = by_path.get("end_to_end_ba", by_path.get("multi_sequence"))
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -2606,11 +3279,31 @@ def phase_training(by_path, ate_by_path, ba_line):
     ate_by_path["end_to_end_trained"] = line["ate_rmse_m"]
 
 
+def phase_parallel(by_path, ate_by_path, ba_line):
+    """The ``parallel/`` phases: ``multi_sequence`` (launch counters reset
+    just before), then ``batched_ba`` on what it mapped and ``dist_ba`` on
+    the loop path's map."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    line, by_path["multi_sequence"], msq = phase_multi_sequence(ba_line)
+    ate_by_path["multi_sequence"] = [d["ate_rmse_m"] for d in line["sequences_detail"]]
+    phase_batched_ba(msq)
+    small, _ = msq.slams[0].global_ba_problem()
+    del msq  # the frontends' networks: the next phase's memory is its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dist_ba(small)
+
+
 def main(argv) -> int:
     if not os.path.isdir(os.path.join(ROOT, "rspl_slam_tpu_torch")):
         print("chip_smoke: the rspl_slam_tpu_torch package is not beside this "
               "script", file=sys.stderr)
         return 2
+    if argv[:1] == ["--dist-ba-rank"]:
+        return _dist_rank(argv[1:])
     sys.path.insert(0, ROOT)
     import torch
 
@@ -2624,7 +3317,13 @@ def main(argv) -> int:
     lines["sinkhorn"] = check_sinkhorn()
     phase_png_unfilter()
     by_path, ate_by_path = {}, {}
-    if "--training" in argv:
+    if "--kernels" not in argv:
+        phase_batch_kernels(lines)
+    if "--parallel" in argv:
+        _, by_path["end_to_end_loop"], frames, _ = phase_end_to_end_loop()  # dist_ba's map
+        del frames
+        phase_parallel(by_path, ate_by_path, None)
+    elif "--training" in argv:
         ba_line, by_path["end_to_end_ba"], run = phase_end_to_end(lines=True, ba=True)
         ate_by_path["end_to_end_ba"] = ba_line["ate_rmse_m"]
         del run
@@ -2661,8 +3360,7 @@ def main(argv) -> int:
         del frames
         line, by_path["epipolar"] = phase_epipolar()
         ate_by_path["epipolar"] = line["ate_rmse_m"]
-        gc.collect()
-        torch.cuda.empty_cache()
+        phase_parallel(by_path, ate_by_path, ba_line)
         line, by_path["cli_run"], ctx = phase_cli_run()
         ate_by_path["cli_run"] = line["keyframe_ate_rmse_m"]
         _, by_path["cli_global"] = phase_cli_global(ctx)

@@ -37,7 +37,17 @@ Where the design differs from the JAX package:
   up in one host→device copy (``upload_problem``) and the result comes back
   in one (``fetch_result``, or ``fetch_result_async`` into pinned memory).
 
-Distributed BA (``axis_name``) is not ported (ROADMAP.md §1 item 6).
+Distributed BA (``axis_name``: a ``parallel.mesh.Mesh``) shards the
+problem BY LANDMARK, where the JAX package shards
+its constraints by index: each rank holds every pose, its own points and
+lines (:func:`landmark_partition`, balanced on constraint counts) and the
+constraints on them, so the landmark blocks (Hxx, gx, Wx, Hll, gl, Wl), their
+inverses and the back-substitution stay on the rank. Per LM step only the
+rank's part of the reduced camera system S (F·6 × F·6), of g̃ (F·6) and of
+the cost cross ranks, summed in f64 in rank order (``Mesh.sum_f64``), and
+the candidate's cost; damping is linear in H, so each rank damps its own
+Hpp part and the 1e-8·I is added once after the sum. One all-gather at the
+end puts the points, lines and inlier flags back in the problem's order.
 """
 
 from __future__ import annotations
@@ -55,7 +65,8 @@ from rspl_slam_tpu_torch.geometry import plucker, se3
 
 __all__ = ["BAProblem", "BAResult", "SegmentPlan", "optimize_local_map", "upload_problem",
            "segment_plan", "fetch_result", "fetch_result_async", "unpack_result",
-           "robust_objective"]
+           "robust_objective", "landmark_partition", "upload_arrays",
+           "reduced_camera_system"]
 
 
 class SegmentPlan(NamedTuple):
@@ -139,15 +150,21 @@ def segment_plan(prob) -> SegmentPlan:
 def upload_problem(prob, device) -> BAProblem:
     """A BAProblem of numpy arrays → tensors on ``device`` (floats f32,
     indices int64, flags bool) with its :class:`SegmentPlan`, through ONE
-    host→device copy: every field and the plan are packed into one f32
-    buffer (indices below 2^24 are exact in f32); on a CUDA device the
-    buffer is pinned and copied ``non_blocking`` on the current stream, so
-    the upload never waits for the device."""
+    host→device copy (:func:`upload_arrays`)."""
     arrs = [np.asarray(a) for a in tuple(prob)[:_N_FIELDS]]
     plan = segment_plan(BAProblem(*arrs))
-    if max(len(a) for a in arrs) >= 1 << 24:
+    out = upload_arrays(arrs + list(plan), device)
+    return BAProblem(*out[:_N_FIELDS], plan=SegmentPlan(*out[_N_FIELDS:]))
+
+
+def upload_arrays(arrs, device) -> list[torch.Tensor]:
+    """Numpy arrays → tensors on ``device`` (floats f32, indices int64,
+    flags bool) through ONE host→device copy: every array is packed into
+    one f32 buffer (indices below 2^24 are exact in f32); on a CUDA device
+    the buffer is pinned and copied ``non_blocking`` on the current stream,
+    so the upload never waits for the device."""
+    if max(max(a.shape, default=0) for a in arrs) >= 1 << 24:
         raise ValueError("BA window slots must stay below 2^24 (f32-packed indices)")
-    arrs += list(plan)
     buf = torch.from_numpy(np.concatenate([a.astype(np.float32).ravel() for a in arrs]))
     device = torch.device(device)
     buf = (buf.pin_memory().to(device, non_blocking=True) if device.type == "cuda"
@@ -161,7 +178,7 @@ def upload_problem(prob, device) -> BAProblem:
         elif np.issubdtype(a.dtype, np.integer):
             t = t.long()
         out.append(t)
-    return BAProblem(*out[:_N_FIELDS], plan=SegmentPlan(*out[_N_FIELDS:]))
+    return out
 
 
 def _segment_sum(rows, terms):
@@ -268,9 +285,8 @@ def _finite_or_zero(inv):
 def _device_plan(prob):
     """The plan of a problem built without :func:`upload_problem`, on its
     device (its indices go down to the host once)."""
-    host = BAProblem(*[t.cpu().numpy() for t in tuple(prob)[:_N_FIELDS]])
     return SegmentPlan(*[torch.as_tensor(t, device=prob.Tcw.device)
-                         for t in segment_plan(host)])
+                         for t in segment_plan(_host_problem(prob))])
 
 
 def _block_diagonal(blocks):
@@ -280,10 +296,43 @@ def _block_diagonal(blocks):
     return blocks[:, :, None, :] * eye[:, None, :, None]
 
 
+def _all_sum(mesh, tag, x):
+    """``x`` summed over the mesh's ranks (itself without a mesh)."""
+    return x if mesh is None else mesh.sum_f64(tag, x)[0]
+
+
 def _build_and_solve(K, Tcw, points, lines, prob, p_active, l_active,
-                     use_huber, deltas, lam):
+                     use_huber, deltas, lam, mesh=None):
     """One LM step: assemble the Schur-reduced camera system, solve it and
-    back-substitute. Returns (dp (F, 6), dx (P, 3), dl (L, 4), cost)."""
+    back-substitute. Returns (dp (F, 6), dx (P, 3), dl (L, 4), cost).
+    With ``mesh``, ``prob`` holds this rank's landmarks: its parts of S, g̃
+    and the cost are summed over the ranks before the solve."""
+    S, gtilde, cost, back = _reduced_system(K, Tcw, points, lines, prob, p_active, l_active,
+                                            use_huber, deltas, lam, mesh)
+    F, dtype = Tcw.shape[0], Tcw.dtype
+    Hxx_inv, Hll_inv, Wx, Wl, gx, gl = back
+
+    # --- fixed poses: identity rows/cols, zero rhs --------------------------
+    free = (~prob.pose_fixed).to(dtype)
+    S = S * (free[:, None, None, None] * free[None, None, :, None])
+    S = S + _block_diagonal((1.0 - free)[:, None, None]
+                            * torch.eye(6, dtype=dtype, device=S.device))
+    gtilde = gtilde * free[:, None]
+    dp = -glin.solve_spd(S.reshape(F * 6, F * 6), gtilde.reshape(F * 6)).reshape(F, 6)
+    dp = dp * free[:, None]
+
+    # --- back-substitute landmarks: δx = −Hxx⁻¹ (gx + Wxᵀ δp) ---------------
+    dx = -(Hxx_inv @ (gx + torch.einsum("pfij,fi->pj", Wx, dp))[..., None])[..., 0]
+    dl = -(Hll_inv @ (gl + torch.einsum("lfij,fi->lj", Wl, dp))[..., None])[..., 0]
+    return dp, dx, dl, cost
+
+
+def _reduced_system(K, Tcw, points, lines, prob, p_active, l_active, use_huber, deltas,
+                    lam, mesh=None):
+    """The damped Schur-reduced camera system of one LM step, before the
+    fixed poses are pinned: (S (F, 6, F, 6), g̃ (F, 6), cost, the landmark
+    blocks back-substitution needs). With ``mesh``, S, g̃ and the cost are
+    the sums over the ranks."""
     F, P, L = Tcw.shape[0], points.shape[0], lines.shape[0]
     dtype = Tcw.dtype
     d_p, d_sp, d_l, d_sl = deltas
@@ -323,29 +372,22 @@ def _build_and_solve(K, Tcw, points, lines, prob, p_active, l_active,
     # S = Hpp_blockdiag − Σ_x Wx Hxx⁻¹ Wxᵀ − Σ_l Wl Hll⁻¹ Wlᵀ  (F, 6, F, 6)
     WxD = Wx @ Hxx_inv[:, None]
     WlD = Wl @ Hll_inv[:, None]
-    S = (_block_diagonal(_damped(Hpp, lam))
+    if mesh is None:
+        Hpp_d = _damped(Hpp, lam)
+    else:  # λ·diag is linear in H: each rank damps its part, 1e-8·I comes once
+        Hpp_d = Hpp + torch.diag_embed(lam * torch.diagonal(Hpp, dim1=-2, dim2=-1))
+    S = (_block_diagonal(Hpp_d)
          - torch.einsum("pfik,pgjk->figj", WxD, Wx)
          - torch.einsum("lfik,lgjk->figj", WlD, Wl))
     # reduced gradient: g̃p = gp − Wx Hxx⁻¹ gx − Wl Hll⁻¹ gl
     gtilde = (gp - torch.einsum("pfik,pk->fi", WxD, gx)
               - torch.einsum("lfik,lk->fi", WlD, gl))
-
-    # --- fixed poses: identity rows/cols, zero rhs --------------------------
-    free = (~prob.pose_fixed).to(dtype)
-    S = S * (free[:, None, None, None] * free[None, None, :, None])
-    S = S + _block_diagonal((1.0 - free)[:, None, None]
-                            * torch.eye(6, dtype=dtype, device=S.device))
-    gtilde = gtilde * free[:, None]
-    dp = -glin.solve_spd(S.reshape(F * 6, F * 6), gtilde.reshape(F * 6)).reshape(F, 6)
-    dp = dp * free[:, None]
-
-    # --- back-substitute landmarks: δx = −Hxx⁻¹ (gx + Wxᵀ δp) ---------------
-    dx = -(Hxx_inv @ (gx + torch.einsum("pfij,fi->pj", Wx, dp))[..., None])[..., 0]
-    dl = -(Hll_inv @ (gl + torch.einsum("lfij,fi->lj", Wl, dp))[..., None])[..., 0]
-
     cost = ((_huber_rho(chi2_p, delta_p) * p_ok).sum()
             + (_huber_rho(chi2_l, delta_l) * l_active).sum())
-    return dp, dx, dl, cost
+    if mesh is not None:
+        S, gtilde, cost = mesh.sum_f64("assembly", S, gtilde, cost)
+        S = S + _block_diagonal(1e-8 * torch.eye(6, dtype=dtype, device=S.device).expand(F, 6, 6))
+    return S, gtilde, cost, (Hxx_inv, Hll_inv, Wx, Wl, gx, gl)
 
 
 def _huber_rho(chi2, delta):
@@ -382,15 +424,16 @@ def _total_cost(K, Tcw, points, lines, prob, p_active, l_active, deltas, use_hub
     return cost, chi2_p, chi2_l, z
 
 
-def _lm_phase(K, state, prob, p_active, l_active, deltas, use_huber, iters):
+def _lm_phase(K, state, prob, p_active, l_active, deltas, use_huber, iters, mesh=None):
     Tcw, points, lines, lam = state
     # cost of the incoming state, carried across iterations so each LM step
     # evaluates the objective once (at the candidate)
     cost, *_ = _total_cost(K, Tcw, points, lines, prob, p_active, l_active,
                            deltas, use_huber)
+    cost = _all_sum(mesh, "cost", cost)
     for _ in range(iters):
         dp, dx, dl, _ = _build_and_solve(K, Tcw, points, lines, prob, p_active,
-                                         l_active, use_huber, deltas, lam)
+                                         l_active, use_huber, deltas, lam, mesh)
         # f32 trust region: a near-singular Schur solve can emit a huge (or
         # non-finite) step whose candidate still masks to a finite cost;
         # clamp steps to generous physical bounds and never accept a
@@ -403,6 +446,11 @@ def _lm_phase(K, state, prob, p_active, l_active, deltas, use_huber, iters):
         lines_new = plucker.orthonormal_update(lines, dl)
         cost_new, *_ = _total_cost(K, Tcw_new, points_new, lines_new, prob, p_active,
                                    l_active, deltas, use_huber)
+        if mesh is not None:
+            # a rank whose landmark step is not finite makes the summed
+            # candidate cost NaN, so every rank rejects the step
+            ok = torch.isfinite(torch.cat([dx.reshape(-1), dl.reshape(-1)])).all()
+            cost_new = _all_sum(mesh, "candidate", torch.where(ok, cost_new, torch.nan))
         finite = torch.isfinite(torch.cat([cost_new[None], dp.reshape(-1),
                                            dx.reshape(-1), dl.reshape(-1)])).all()
         accept = (cost_new < cost) & finite
@@ -419,24 +467,45 @@ def optimize_local_map(K: CameraIntrinsics, prob: BAProblem,
                        chi2_mono: float = 50.0, chi2_stereo: float = 75.0,
                        chi2_mono_line: float = 50.0, chi2_stereo_line: float = 75.0,
                        iters1: int = 10, iters2: int = 5,
-                       axis_name: str | None = None) -> BAResult:
+                       axis_name=None) -> BAResult:
     """Full local BA with the reference's 10 → gate → 5 schedule, on the
     device of ``prob``'s tensors, queued without a host synchronization.
-    ``axis_name`` (the JAX package's constraint-sharded distributed BA) is
-    not ported and raises."""
+
+    ``axis_name`` (a ``parallel.mesh.Mesh``) solves the same problem
+    sharded by landmark over the mesh's ranks (module docstring): every
+    rank passes the whole problem (numpy or tensors) and gets the whole
+    result on the mesh's device; its indices and values go to the host
+    once for :func:`landmark_partition`. A mesh of one process solves
+    there, unsharded. Anything else, a name such as ``"data"`` included,
+    raises ValueError: a process group's mesh is ``make_mesh()`` after
+    ``parallel.multihost.initialize``."""
+    chi2 = (chi2_mono, chi2_stereo, chi2_mono_line, chi2_stereo_line)
     if axis_name is not None:
-        raise NotImplementedError(
-            "distributed BA (axis_name) is not ported yet (ROADMAP.md, §1 item 6)")
+        from rspl_slam_tpu_torch.parallel.mesh import Mesh
+
+        if not isinstance(axis_name, Mesh):
+            raise ValueError(
+                f"axis_name takes a rspl_slam_tpu_torch.parallel.mesh.Mesh (make_mesh() "
+                f"after parallel.multihost.initialize()), got {axis_name!r}")
+        if axis_name.distributed:
+            return _solve_sharded(K, prob, axis_name, chi2, iters1, iters2)
+        if not torch.is_tensor(prob.Tcw):
+            prob = upload_problem(prob, axis_name.device)
     if prob.plan is None:
         prob = prob._replace(plan=_device_plan(prob))
-    deltas = tuple(math.sqrt(c) for c in (chi2_mono, chi2_stereo, chi2_mono_line,
-                                          chi2_stereo_line))
+    return _solve(K, prob, chi2, iters1, iters2)
+
+
+def _solve(K, prob, chi2, iters1, iters2, mesh=None) -> BAResult:
+    """The two-phase schedule; with ``mesh``, on this rank's landmarks."""
+    chi2_mono, chi2_stereo, chi2_mono_line, chi2_stereo_line = chi2
+    deltas = tuple(math.sqrt(c) for c in chi2)
     thr_p = torch.where(prob.p_stereo, chi2_stereo, chi2_mono)
     thr_l = torch.where(prob.l_stereo, chi2_stereo_line, chi2_mono_line)
     lam0 = torch.full((), 1e-4, dtype=prob.Tcw.dtype, device=prob.Tcw.device)
     # phase 1: robust kernels on, all valid constraints active
     Tcw, points, lines = _lm_phase(K, (prob.Tcw, prob.points, prob.lines, lam0), prob,
-                                   prob.p_valid, prob.l_valid, deltas, True, iters1)
+                                   prob.p_valid, prob.l_valid, deltas, True, iters1, mesh)
     # gate (chi² + positive depth), kernels dropped
     _, chi2_p, chi2_l, z = _total_cost(K, Tcw, points, lines, prob, prob.p_valid,
                                        prob.l_valid, deltas, False)
@@ -444,13 +513,134 @@ def optimize_local_map(K: CameraIntrinsics, prob: BAProblem,
     l_active = prob.l_valid & (chi2_l <= thr_l)
     # phase 2: plain quadratic on inliers
     Tcw, points, lines = _lm_phase(K, (Tcw, points, lines, lam0), prob, p_active,
-                                   l_active, deltas, False, iters2)
+                                   l_active, deltas, False, iters2, mesh)
     # final inlier flags
     cost, chi2_p, chi2_l, z = _total_cost(K, Tcw, points, lines, prob, p_active,
                                           l_active, deltas, False)
     return BAResult(Tcw=Tcw, points=points, lines=lines,
                     p_inlier=prob.p_valid & (chi2_p <= thr_p) & (z > 1e-6),
-                    l_inlier=prob.l_valid & (chi2_l <= thr_l), cost=cost)
+                    l_inlier=prob.l_valid & (chi2_l <= thr_l),
+                    cost=_all_sum(mesh, "cost", cost))
+
+
+@torch.no_grad()
+def reduced_camera_system(K: CameraIntrinsics, prob: BAProblem, mesh=None, dtype=None,
+                          chi2_mono: float = 50.0, chi2_stereo: float = 75.0,
+                          chi2_mono_line: float = 50.0, chi2_stereo_line: float = 75.0):
+    """The first LM step's damped reduced camera system at ``prob``'s own
+    state (Huber on every valid constraint, λ = 1e-4), fixed poses not yet
+    pinned: (S (F·6, F·6), g̃ (F·6,), cost), assembled in ``dtype`` (default
+    the problem's). With a distributed ``mesh`` (``prob`` numpy or tensors,
+    the same on every rank) each rank assembles the part of its landmarks,
+    as the sharded solve does, and every rank gets the sums on the mesh's
+    device: what the sharded and the single solve agree on up to summation
+    order, before the LM's accept decisions and the chi² gate can carry a
+    rounding difference further."""
+    deltas = tuple(math.sqrt(c) for c in (chi2_mono, chi2_stereo, chi2_mono_line,
+                                          chi2_stereo_line))
+    if mesh is not None and not mesh.distributed:
+        mesh = None
+    if mesh is not None:
+        host = _host_problem(prob)
+        pts, lns = landmark_partition(host, mesh.size)[mesh.rank]
+        prob = upload_problem(_shard_problem(host, pts, lns)[0], mesh.device)
+    elif prob.plan is None:
+        prob = prob._replace(plan=_device_plan(prob))
+    if dtype is not None:
+        prob = prob._replace(**{f: v.to(dtype) for f, v in zip(BAProblem._fields, prob)
+                                if torch.is_tensor(v) and v.is_floating_point()})
+    lam = torch.full((), 1e-4, dtype=prob.Tcw.dtype, device=prob.Tcw.device)
+    S, gtilde, cost, _ = _reduced_system(K, prob.Tcw, prob.points, prob.lines, prob,
+                                         prob.p_valid, prob.l_valid, True, deltas, lam, mesh)
+    F = prob.Tcw.shape[0]
+    return S.reshape(F * 6, F * 6), gtilde.reshape(F * 6), cost
+
+
+def _host_problem(prob) -> BAProblem:
+    """A problem's fields as numpy arrays (one copy each from a device)."""
+    return BAProblem(*[a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+                       for a in tuple(prob)[:_N_FIELDS]])
+
+
+def landmark_partition(prob, world: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Each rank's (point slots, line slots), ascending: every landmark goes
+    whole to one rank, the landmarks taken by falling count of valid
+    constraints, each to the rank with the fewest constraints so far (the
+    lowest rank on a tie). The same problem gives every rank the same
+    partition."""
+    prob = _host_problem(prob)
+    P, L = len(prob.points), len(prob.lines)
+    counts = np.concatenate([
+        np.bincount(np.asarray(prob.p_point, np.int64)[np.asarray(prob.p_valid, bool)],
+                    minlength=P),
+        np.bincount(np.asarray(prob.l_line, np.int64)[np.asarray(prob.l_valid, bool)],
+                    minlength=L)])
+    load = np.zeros(world, np.int64)
+    owner = np.empty(P + L, np.int64)
+    for i in np.argsort(-counts, kind="stable"):
+        r = int(np.argmin(load))
+        owner[i] = r
+        load[r] += counts[i]
+    return [(np.nonzero(owner[:P] == r)[0], np.nonzero(owner[P:] == r)[0])
+            for r in range(world)]
+
+
+def _shard_problem(prob, points: np.ndarray, lines: np.ndarray):
+    """The sub-problem of the landmark slots ``points`` / ``lines``: every
+    pose, those landmarks renumbered in the given order, and the
+    constraints on them (invalid rows with the landmark they point at), in
+    their original order. Returns (BAProblem of numpy arrays, point rows,
+    line rows)."""
+    prob = _host_problem(prob)
+    pmap = np.full(len(prob.points), -1, np.int64)
+    pmap[points] = np.arange(len(points))
+    lmap = np.full(len(prob.lines), -1, np.int64)
+    lmap[lines] = np.arange(len(lines))
+    p_idx = pmap[np.asarray(prob.p_point, np.int64)]
+    l_idx = lmap[np.asarray(prob.l_line, np.int64)]
+    p_rows, l_rows = np.nonzero(p_idx >= 0)[0], np.nonzero(l_idx >= 0)[0]
+    sub = prob._replace(
+        points=prob.points[points], lines=prob.lines[lines],
+        p_pose=prob.p_pose[p_rows], p_point=p_idx[p_rows], p_meas=prob.p_meas[p_rows],
+        p_stereo=prob.p_stereo[p_rows], p_valid=prob.p_valid[p_rows],
+        l_pose=prob.l_pose[l_rows], l_line=l_idx[l_rows], l_eps=prob.l_eps[l_rows],
+        l_eps_r=prob.l_eps_r[l_rows], l_stereo=prob.l_stereo[l_rows],
+        l_valid=prob.l_valid[l_rows])
+    return sub, p_rows, l_rows
+
+
+def _solve_sharded(K, prob, mesh, chi2, iters1, iters2) -> BAResult:
+    """This rank's landmarks solved against every rank's (S, g̃ and the
+    costs summed over the mesh), then one all-gather of the packed points,
+    lines and inlier flags, scattered back into the problem's order, on
+    the mesh's device."""
+    host = _host_problem(prob)
+    device = mesh.device
+    slots = landmark_partition(host, mesh.size)
+    parts = [_shard_problem(host, pts, lns) for pts, lns in slots]
+    res = _solve(K, upload_problem(parts[mesh.rank][0], device), chi2, iters1, iters2, mesh)
+    dt = res.points.dtype
+    packed = torch.cat([res.points.reshape(-1), res.lines.reshape(-1).to(dt),
+                        res.p_inlier.to(dt), res.l_inlier.to(dt)])
+    sizes = [3 * len(s.points) + 6 * len(s.lines) + len(pr) + len(lr) for s, pr, lr in parts]
+    width = max(sizes)
+    packed = torch.cat([packed, packed.new_zeros(width - packed.numel())])
+    gathered = mesh.all_gather(packed)
+    P, L = len(host.points), len(host.lines)
+    points = torch.empty((P, 3), dtype=res.points.dtype, device=device)
+    lines = torch.empty((L, 6), dtype=res.lines.dtype, device=device)
+    p_inl = torch.empty(len(host.p_valid), dtype=torch.bool, device=device)
+    l_inl = torch.empty(len(host.l_valid), dtype=torch.bool, device=device)
+    for (_, p_rows, l_rows), (pts, lns), buf in zip(parts, slots, gathered):
+        p_n, l_n = len(pts), len(lns)
+        o = np.cumsum([0, 3 * p_n, 6 * l_n, len(p_rows), len(l_rows)])
+        idx = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        points[idx(pts)] = buf[o[0]: o[1]].view(p_n, 3).to(points.dtype)
+        lines[idx(lns)] = buf[o[1]: o[2]].view(l_n, 6).to(lines.dtype)
+        p_inl[idx(p_rows)] = buf[o[2]: o[3]] > 0.5
+        l_inl[idx(l_rows)] = buf[o[3]: o[4]] > 0.5
+    return BAResult(Tcw=res.Tcw, points=points, lines=lines, p_inlier=p_inl,
+                    l_inlier=l_inl, cost=res.cost)
 
 
 @torch.no_grad()

@@ -242,7 +242,9 @@ class NeuralFrontend:
     the JAX layout (numpy or array-like leaves), or None for the config's
     ``.npz`` weight files or a seeded random init (random RCF weights see
     no edges: ``models.rcf.edge_detector_params`` makes test weights that
-    do). ``device`` defaults to the card.
+    do). ``sp_params`` may also be another frontend's ``sp`` module, which
+    the two then share (``parallel.multi_sequence`` batches the extraction
+    of frontends that share it). ``device`` defaults to the card.
     """
 
     def __init__(self, cfg: SystemConfig, sp_params=None, sg_params=None,
@@ -279,15 +281,18 @@ class NeuralFrontend:
             mr = build_rectify_maps(cfg.camera, "right")
             if ml is not None and mr is not None:
                 self._rect_maps = torch.from_numpy(np.stack([ml, mr])).to(self.device)
-        if sp_params is None:
-            sp_params = (load_params(cfg.superpoint.weights_path, "superpoint")
-                         if cfg.superpoint.weights_path
-                         else superpoint.init_params(seed))
+        if isinstance(sp_params, superpoint.SuperPoint):
+            self.sp = sp_params
+        else:
+            if sp_params is None:
+                sp_params = (load_params(cfg.superpoint.weights_path, "superpoint")
+                             if cfg.superpoint.weights_path
+                             else superpoint.init_params(seed))
+            self.sp = superpoint_from_numpy(sp_params, self.device)
         if sg_params is None:
             sg_params = (load_params(cfg.superglue.weights_path, "superglue", cfg.superglue)
                          if cfg.superglue.weights_path
                          else superglue.init_params(cfg.superglue, seed + 1))
-        self.sp = superpoint_from_numpy(sp_params, self.device)
         self.sg = superglue_from_numpy(sg_params, cfg.superglue, self.device)
         self.timings: dict[str, list] = {}  # rcf_hough (device), lines_host
         self.rcf = None
@@ -410,6 +415,24 @@ class NeuralFrontend:
             img = remap_bilinear(img, self._rect_maps[eyes])
         return img
 
+    def _eager_features(self, fk: np.ndarray, feats, li: int):
+        """One frame's host rows [xyL, score, validL, xyR, validR, i0, desc]
+        (K, 8 + D) → (FrameFeatures with the disparity gate applied and the
+        device handles of image ``li`` of ``feats``, xyR, validR, i0, uR)."""
+        xyL = np.ascontiguousarray(fk[:, 0:2])
+        validL = fk[:, 3] > 0.5
+        xyR = np.ascontiguousarray(fk[:, 4:6])
+        validR = fk[:, 6] > 0.5
+        i0 = fk[:, 7].astype(np.int64)
+        uR, depth = _stereo_associate(self.cfg, xyL, xyR, validL, validR, i0)
+        ff = FrameFeatures(
+            xy=xyL, score=np.ascontiguousarray(fk[:, 2]),
+            desc=np.ascontiguousarray(fk[:, 8:]), valid=validL,
+            meas=np.concatenate([xyL, uR[:, None]], -1), depth=depth,
+            dev=(feats.xy[li], feats.score[li], feats.desc[li].to(torch.float32),
+                 feats.valid[li]))
+        return ff, xyR, validR, i0, uR
+
     @torch.no_grad()
     def extract_pair(self, img_l: np.ndarray, img_r: np.ndarray) -> FrameFeatures:
         if self.lazy_right:
@@ -433,19 +456,8 @@ class NeuralFrontend:
             parts += [torch.cat([segs, valid[..., None].to(f32)], -1).reshape(-1)]
             span.append(_mark(self.device))
         buf = torch.cat(parts).cpu().numpy()  # the one device→host copy of the frame
-        fk = buf[: packed.numel()].reshape(K, -1)
-        xyL = np.ascontiguousarray(fk[:, 0:2])
-        validL = fk[:, 3] > 0.5
-        xyR = np.ascontiguousarray(fk[:, 4:6])
-        validR = fk[:, 6] > 0.5
-        i0 = fk[:, 7].astype(np.int64)
-        uR, depth = _stereo_associate(self.cfg, xyL, xyR, validL, validR, i0)
-        ff = FrameFeatures(
-            xy=xyL, score=np.ascontiguousarray(fk[:, 2]),
-            desc=np.ascontiguousarray(fk[:, 8:]), valid=validL,
-            meas=np.concatenate([xyL, uR[:, None]], -1), depth=depth,
-            dev=(feats.xy[0], feats.score[0], feats.desc[0].to(f32), feats.valid[0]),
-        )
+        ff, xyR, validR, i0, uR = self._eager_features(buf[: packed.numel()].reshape(K, -1),
+                                                       feats, 0)
         if self.use_lines:
             t0 = time.perf_counter()
             segs_pair = self._merge_stack(buf[packed.numel():].reshape(2, -1, 5))
@@ -584,6 +596,74 @@ class NeuralFrontend:
                 ff.line_has_right[hit] = True
         ff.pending_right = None
         return ff
+
+    # ----------------------------------------------------- multi-sequence batch
+    @torch.no_grad()
+    def extract_pairs_batched(self, pairs, frontends) -> list:
+        """Eager extraction for N sequences that share this frontend's
+        networks: ONE upload of all 2N images (each frontend's rectify maps
+        concatenated, identity where it has none), ONE SuperPoint call (K1
+        once over the 2N images), ONE matcher call over the N stereo
+        problems, and ONE device→host copy of every host-bound result. The
+        disparity gate runs per sequence on the host; lines stay per
+        sequence (each line-enabled frontend's RCF + Hough on its rectified
+        pair, then ``_attach_lines``). ``pairs``: N (img_l, img_r);
+        ``frontends``: the per-sequence NeuralFrontends. Returns N
+        FrameFeatures."""
+        N = len(pairs)
+        host = np.stack([_host_to_u8(im) for p in pairs for im in p])  # (2N, H, W)
+        img = _to_unit_float(torch.from_numpy(host).to(self.device))
+        if any(fe._rect_maps is not None for fe in frontends):
+            H, W = img.shape[-2:]
+            ident = None
+            maps = []
+            for fe in frontends:
+                if fe._rect_maps is None and ident is None:
+                    ys, xs = torch.meshgrid(
+                        torch.arange(H, dtype=torch.float32, device=self.device),
+                        torch.arange(W, dtype=torch.float32, device=self.device),
+                        indexing="ij")
+                    ident = torch.stack([xs, ys], -1)[None].expand(2, H, W, 2)
+                maps.append(fe._rect_maps if fe._rect_maps is not None else ident)
+            img = remap_bilinear(img, torch.cat(maps))
+        feats = superpoint.extract(self.sp, img, self.cfg.superpoint, self.compute_dtype)
+        left, right = slice(0, 2 * N, 2), slice(1, 2 * N, 2)
+        i0 = self.match_indices(feats.xy[left], feats.score[left], feats.desc[left],
+                                feats.valid[left], feats.xy[right], feats.score[right],
+                                feats.desc[right], feats.valid[right])  # (N, K)
+        f32 = torch.float32
+        packed = torch.cat([
+            feats.xy[left], feats.score[left][..., None], feats.valid[left][..., None].to(f32),
+            feats.xy[right], feats.valid[right][..., None].to(f32), i0[..., None].to(f32),
+            feats.desc[left].to(f32)], -1)  # (N, K, 8 + D)
+        parts = [packed.reshape(-1)]
+        with_lines = [s for s, fe in enumerate(frontends) if fe.use_lines]
+        for s in with_lines:
+            segs, valid = frontends[s]._extract_lines(img[2 * s: 2 * s + 2])
+            parts.append(torch.cat([segs, valid[..., None].to(f32)], -1).reshape(-1))
+        buf = torch.cat(parts).cpu().numpy()  # the one device→host copy of the step
+        fk_all = buf[: packed.numel()].reshape(packed.shape)
+        seg_rows = buf[packed.numel():].reshape(len(with_lines), 2, -1, 5) if with_lines else None
+        out = []
+        for s, fe in enumerate(frontends):
+            ff, xyR, validR, i0s, uR = self._eager_features(fk_all[s], feats, 2 * s)
+            if fe.use_lines:
+                segs_pair = fe._merge_stack(seg_rows[with_lines.index(s)])
+                fe._attach_lines(ff, xyR, validR, i0s, uR, segs_pair)
+            if fe.keep_images:
+                ff.image = img[2 * s].cpu().numpy()
+            out.append(ff)
+        return out
+
+    @torch.no_grad()
+    def match_batched(self, pairs) -> list:
+        """Temporal matching of N (fA, fB) frame pairs in ONE matcher call
+        and one copy down: indices0 (K,) into each fB, or −1."""
+        a = [self._host_equal_features(fa) for fa, _ in pairs]
+        b = [self._host_equal_features(fb) for _, fb in pairs]
+        stack = lambda fs: [torch.stack(t) for t in zip(*fs)]  # noqa: E731
+        i0 = self._match_indices(*stack(a), *stack(b)).astype(np.int64)
+        return list(i0)
 
     def _attach_lines(self, ff: FrameFeatures, xyR, validR, i0, uR, segs_pair):
         """Pad the merged left segments, assign keypoints to them, and match

@@ -213,12 +213,17 @@ class SLAMSystem:
         return self._record(index, t, ff, self._track(
             index, t, ff, i0=i0, fused_pose=(Twc, n_inl, inlier)))
 
-    def add_frame_features(self, index: int, t: float, feats) -> FrameRecord:
+    def add_frame_features(self, index: int, t: float, feats,
+                           i0: np.ndarray | None = None) -> FrameRecord:
+        """Tracking on features extracted elsewhere. ``i0`` optionally
+        supplies the temporal matches against the current reference
+        keyframe (multi-sequence batched matching); tracking then takes the
+        unfused pose solve, as in the JAX package."""
         index = index + self._index_offset
         if not self.initialized:
             rec = self._init_map(index, t, feats)
         else:
-            rec = self._track(index, t, feats)
+            rec = self._track(index, t, feats, i0)
         return self._record(index, t, feats, rec)
 
     def _record(self, index: int, t: float, feats, rec: FrameRecord) -> FrameRecord:
@@ -871,13 +876,18 @@ class SLAMSystem:
         """Full-map bundle adjustment: every keyframe, point and line refined
         jointly by the local-BA solver (two-phase Huber/chi² LM) on the
         device, over :meth:`global_ba_problem`. Returns the final cost, or
-        None when the map is too small. ``mesh`` (the JAX package's
-        constraint-sharded solve over a device mesh) is not ported and
-        raises."""
+        None when the map is too small. With ``mesh`` (a
+        ``parallel.mesh.Mesh``) the problem is solved sharded by landmark
+        over the mesh's ranks (``parallel.dist_ba.sharded_constraints_ba``,
+        on the mesh's device): every rank holds the same map, calls this
+        and applies the same result. Any other ``mesh`` raises TypeError."""
         if mesh is not None:
-            raise NotImplementedError(
-                "run_global_ba(mesh=...): BA sharded over a device mesh is not ported yet "
-                "(ROADMAP.md, §1 item 6)")
+            from rspl_slam_tpu_torch.parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"run_global_ba(mesh=...) takes a "
+                                f"rspl_slam_tpu_torch.parallel.mesh.Mesh, got "
+                                f"{type(mesh).__name__}")
         self.flush_ba()
         t0 = time.perf_counter()
         prob, mapping = self.global_ba_problem(min_keyframes)
@@ -885,12 +895,17 @@ class SLAMSystem:
             return None
         o = self.cfg.optimization
         b = o.backend
-        res = local_ba.optimize_local_map(
-            self.K, local_ba.upload_problem(prob, self.device),
-            iters1=o.ba_iters_phase1 if iters1 is None else iters1,
-            iters2=o.ba_iters_phase2 if iters2 is None else iters2,
-            chi2_mono=b.mono_point, chi2_stereo=b.stereo_point,
-            chi2_mono_line=b.mono_line, chi2_stereo_line=b.stereo_line)
+        kw = dict(iters1=o.ba_iters_phase1 if iters1 is None else iters1,
+                  iters2=o.ba_iters_phase2 if iters2 is None else iters2,
+                  chi2_mono=b.mono_point, chi2_stereo=b.stereo_point,
+                  chi2_mono_line=b.mono_line, chi2_stereo_line=b.stereo_line)
+        if mesh is None:
+            res = local_ba.optimize_local_map(self.K, local_ba.upload_problem(prob, self.device),
+                                              **kw)
+        else:
+            from rspl_slam_tpu_torch.parallel import dist_ba
+
+            res = dist_ba.sharded_constraints_ba(self.K, prob, mesh, **kw)
         host = local_ba.fetch_result(res)
         self.apply_ba_result(host, mapping, int(mapping["frames"][-1]))
         self._t("global_ba", t0)

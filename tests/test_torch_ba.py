@@ -353,8 +353,11 @@ def test_cheirality_collapse_costs_more():
 
 
 def test_result_round_trip_and_distributed_ba_raises():
-    """``fetch_result`` unpacks its one packed copy field by field; passing
-    ``axis_name`` (distributed BA) raises, naming the ROADMAP item."""
+    """``fetch_result`` unpacks its one packed copy field by field; an
+    ``axis_name`` that is not a ``parallel.mesh.Mesh`` (an unknown axis
+    name, or ``"data"`` with no process group behind it; distributed BA:
+    ``tests/test_torch_parallel.py``) raises a ValueError that says what it
+    takes."""
     prob, *_ = jba.build_problem(0)
     pt = tlb.upload_problem(_np_problem(prob), "cpu")
     assert pt.p_pose.dtype == torch.int64 and pt.p_valid.dtype == torch.bool
@@ -366,8 +369,11 @@ def test_result_round_trip_and_distributed_ba_raises():
     np.testing.assert_array_equal(h.lines, pt.lines.numpy())
     np.testing.assert_array_equal(h.l_inlier, pt.l_stereo.numpy())
     assert float(h.cost) == 3.5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=r"takes a rspl_slam_tpu_torch\.parallel\.mesh"
+                                         r"\.Mesh.*got 'x'"):
         tlb.optimize_local_map(K, pt, axis_name="x")
+    with pytest.raises(ValueError, match=r"multihost\.initialize\(\)\), got 'data'"):
+        tlb.optimize_local_map(K, pt, axis_name="data")
 
 
 def test_default_system_builds_with_ba():

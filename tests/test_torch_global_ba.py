@@ -84,8 +84,9 @@ def test_global_ba_matches_jax(perturbed_pair):
 
 
 def test_too_small_map_and_mesh():
-    """A one-frame map gives None (as in the JAX package); ``mesh=`` raises
-    naming ROADMAP.md §1 item 6, whatever the map."""
+    """A one-frame map gives None (as in the JAX package); a ``mesh=`` that
+    is not the port's ``parallel.mesh.Mesh`` raises TypeError, whatever the
+    map (the sharded solve itself: ``tests/test_torch_parallel.py``)."""
     cfg = _cfg(use_lines=False)
     scene = synthetic.make_scene(num_points=900, seed=2, num_lines=0, extent=(10.0, 6.0, 16.0))
     fe = OracleFrontend(cfg, scene, noise_px=0.6, seed=2, device="cpu")
@@ -93,7 +94,7 @@ def test_too_small_map_and_mesh():
     slam = SLAMSystem(cfg, fe, enable_ba=False)
     slam.add_frame(0, 0.0, None, None)
     assert slam.run_global_ba() is None
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, §1 item 6"):
+    with pytest.raises(TypeError, match=r"parallel\.mesh\.Mesh, got object"):
         slam.run_global_ba(mesh=object())
 
 
