@@ -9,11 +9,15 @@
     python3 chip_smoke.py --parallel # device, build, kernels, end_to_end_loop
                                      # (dist_ba's map), the parallel/ phases
                                      # (4b below), summary
+    python3 chip_smoke.py --native   # device, build, kernels, end_to_end_lines,
+                                     # merge_ab, cli_run, native, cli_photo,
+                                     # summary
 
 Phases (one JSON line each):
-  1. the card's name and power limit; build every kernel library from
-     rspl_slam_tpu_torch/csrc/ with nvcc (one process per source, in
-     parallel) and report the build time;
+  1. the card's name and power limit; build every library from
+     rspl_slam_tpu_torch/csrc/, the kernels with nvcc and the native
+     runtime with the host compiler (one process per source, in parallel)
+     and report the build times;
   2. per kernel, at the main path's shapes: the kernel against its plain
      PyTorch version on the same inputs (tolerance in the line), and CUDA
      event timings of the kernel, the plain version and, where one PyTorch
@@ -113,12 +117,24 @@ Phases (one JSON line each):
      configs/euroc.yaml`` (the default main path: lines, async BA) on the
      BA path's 30 frames quantized to 8 bits and written as a raw-EuRoC
      PNG tree, with the smoke's weights as ``.npz`` and an OpenCV-layout
-     camera file (identity R, zero D: the remap runs); gated on the exit,
-     30 frames, the decoded frames equal to the written ones, the ATE,
-     the trajectory file equal to an in-process ``PipelinedRunner`` run's,
-     the map reloading and ``resume_from_map`` tracking 5 more frames,
-     the visualization PNGs decoding, and the CLI's printed kernel launch
-     counts (equal to the in-process run's); ``cli_global``, ``run
+     camera file (identity R, zero D: the remap runs), by default (the
+     native prefetcher decodes and rectifies on C++ threads) and with
+     ``--no-native`` (``EurocDataset``, the remap on the card); gated on
+     each exit, 30 frames, the ATE, each route's trajectory file and
+     launch counts equal to an in-process run of the same route
+     (``NativeStereoLoader`` feeding ``PipelinedRunner``; the runner over
+     the dataset), the two routes within ``NATIVE_ROUTE_POS_TOL``, the
+     decoded frames equal to the written ones, the map reloading and
+     ``resume_from_map`` tracking 5 more frames and the visualization PNGs
+     decoding; ``native``, the native runtime: its host build time, decode
+     ms per pair of the loader (2 threads) against ``EurocDataset`` on that
+     tree (frames equal), ``merge_lines`` ms per frame compiled against
+     numpy on the lines path's own pre-merge segments (equal shapes,
+     within 1e-9), and ``real_photo.jpg`` decoded to the pinned
+     ``REAL_PHOTO_L_SHA256``; ``cli_photo``, the JAX CLI's real-photo case
+     (10 stereo crops of the photograph, cosine matcher, no lines) through
+     ``cli run`` here, gated as JAX gates it (n ≥ 3, rmse < 0.3 m);
+     ``cli_global``, ``run
      --loop-closure --pose-graph --global-ba --track-local-map`` on the
      same tree: the JAX CLI's epilogue lines and the trajectory equal to
      an in-process run with the same options; ``cli_synth``, ``synth
@@ -167,7 +183,10 @@ Phases (one JSON line each):
      ...}. With --kernels, phases 3-6 are skipped and the summary's launch
      counts are null; --training runs ``end_to_end_ba`` and phase 6 alone;
      --parallel runs ``end_to_end_loop`` and phase 4b (the summary's
-     launches are then ``multi_sequence``'s).
+     launches are then ``multi_sequence``'s); --native runs
+     ``end_to_end_lines``, ``merge_ab`` (the lines path with the numpy
+     merge in place of the compiled one, in turns) and ``cli_run``,
+     ``native`` and ``cli_photo`` (launch counts null in the summary).
 
 Any failure raises and exits non-zero. The script imports nothing of JAX
 or of the JAX package.
@@ -205,6 +224,13 @@ E2E_FRAMES = 30
 E2E_MIN_INLIERS = 20
 E2E_ATE_BOUND = 0.35
 E2E_ATE_BOUND_LAZY = 0.35
+
+# sha256 of tests/fixtures/real_photo.jpg's 8-bit luma as PIL's
+# Image.open(p).convert("L") gives it, (600, 512) uint8: the card's machine
+# has no PIL, so the port's decode there is held to this pinned hash
+# (tests/test_torch_native.py pins the same value and checks it against PIL)
+REAL_PHOTO_L_SHA256 = "d6dc0d4bd9642ce0a87f5d9bcc25d30a934174aaadcec069e026a87da6604a10"
+PHOTO = os.path.join(ROOT, "tests", "fixtures", "real_photo.jpg")
 
 
 CARD = None  # the nvidia-smi name and power limit, which the training phases repeat
@@ -295,7 +321,8 @@ def phase_build():
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln or "smem" in ln]
              for n, log in cuda_build.build_log.items()}
-    emit({"phase": "build", "build_s": res["build_s"], "ptxas": ptxas})
+    emit({"phase": "build", "build_s": res["build_s"],
+          "build_seconds": dict(cuda_build.build_seconds), "ptxas": ptxas})
 
 
 def _allclose_report(name, got, ref, rtol, atol, sel=None):
@@ -711,15 +738,21 @@ def _keyframe_ate(m, traj):
 
 
 def phase_end_to_end(lines: bool, ba: bool = False, name: str | None = None,
-                     sp_params=None):
+                     sp_params=None, record_merge: list | None = None,
+                     numpy_merge: bool = False):
     """The port's SLAMSystem + NeuralFrontend on rendered EuRoC-size frames:
     the true default (lines on, async local BA: ``SLAMSystem(cfg, fe)``),
     the same with BA off, or the point-only path with BA off. With
     ``sp_params`` (trained SuperPoint weights) only finite poses are gated;
-    the rest is measured."""
+    the rest is measured. ``record_merge``: a list that collects every
+    ``ops/lines.merge_lines`` input of the timed frames (segments and
+    thresholds), for the ``native`` phase; ``numpy_merge``: the lines path
+    with the numpy merge (``force_numpy=True``) in place of the compiled
+    one, for ``merge_ab``."""
     import torch
 
     from rspl_slam_tpu_torch.config import SystemConfig
+    from rspl_slam_tpu_torch.ops import lines as lops
     from rspl_slam_tpu_torch.slam import SLAMSystem
 
     # 752×480, K = 400, 18 layers, 100 iterations; lines: RCF ×0.5, 128 lines
@@ -743,10 +776,21 @@ def phase_end_to_end(lines: bool, ba: bool = False, name: str | None = None,
     _reset_counters()
     t0 = time.perf_counter()
     recs, lines_per_frame = [], []
-    for i in range(E2E_FRAMES):
-        recs.append(slam.add_frame(i, 0.05 * i, *frames[i]))
-        if lines:
-            lines_per_frame.append(int(slam._last_feats.line_valid.sum()))
+    merge = lops.merge_lines
+    if record_merge is not None or numpy_merge:
+        def patched(segs, *args):
+            if record_merge is not None:
+                record_merge.append((np.array(segs), args))
+            return merge(segs, *args, force_numpy=numpy_merge)
+
+        lops.merge_lines = patched
+    try:
+        for i in range(E2E_FRAMES):
+            recs.append(slam.add_frame(i, 0.05 * i, *frames[i]))
+            if lines:
+                lines_per_frame.append(int(slam._last_feats.line_valid.sum()))
+    finally:
+        lops.merge_lines = merge
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counters()
@@ -2100,6 +2144,16 @@ def phase_batch_kernels(lines):
 WORK = os.path.join(ROOT, "_smoke_work")  # git-ignored; removed at the end
 DIST_MAP = os.path.join(WORK, "dist_ba", "map.npz")  # the loop path's map, for dist_ba
 CLI_ATE_BOUND = E2E_ATE_BOUND
+# the native route (host remap in f32 of float frames) against --no-native
+# (the same remap on the card after the 8-bit upload): the largest keyframe
+# position difference allowed, with the same keyframes. The two routes'
+# frames differ by up to one f32 ulp (5.96e-8 on each of the 30 frames on
+# an H100: PyTorch's CUDA division by a scalar multiplies by its
+# reciprocal, the host divides), which a top-k or RANSAC decision can
+# carry into the poses; 1 mm is what the CPU parity tests allow two
+# implementations on the same frames (tests/test_torch_slam.py). Measured
+# on the H100: equal trajectories.
+NATIVE_ROUTE_POS_TOL = 1e-3
 # cli_synth's bound: the JAX CLI's own `synth --frames 100` ATE (all frames)
 # on the CPU, 0.00554 m (tests/torch_slice_reference.py --synth; the port's
 # CLI on the CPU gives the same), times 2
@@ -2225,18 +2279,67 @@ def _decode_ms_per_pair(root, compiled: bool, n: int) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
+def _native_fed(slam, tree, cfg):
+    """The CLI's default route in process: ``native.NativeStereoLoader``
+    (C++ decode threads, rectifying with both eyes' maps) feeding
+    ``PipelinedRunner.feed`` / ``run_manual``; ``slam``'s frontend must
+    not rectify again (``rectify=False``)."""
+    import threading
+
+    from rspl_slam_tpu_torch import native
+    from rspl_slam_tpu_torch.camera import build_rectify_maps
+    from rspl_slam_tpu_torch.datasets import open_dataset
+    from rspl_slam_tpu_torch.pipeline import PipelinedRunner
+
+    ds = open_dataset(tree)
+    cam = cfg.camera
+    runner = PipelinedRunner(slam, queue_depth=cfg.pipeline.queue_depth)
+    with native.NativeStereoLoader(*ds.file_lists(), cam.image_height, cam.image_width,
+                                   map_l=build_rectify_maps(cam, "left"),
+                                   map_r=build_rectify_maps(cam, "right"),
+                                   depth=cfg.pipeline.queue_depth) as loader:
+        def feeder():
+            try:
+                for i, il, ir in loader:
+                    runner.feed(i, ds.timestamp(i), il, ir)
+            finally:
+                runner.close_input()
+
+        th = threading.Thread(target=feeder, daemon=True)
+        th.start()
+        records = runner.run_manual()
+        th.join()
+    return records
+
+
+def _traj_distance(a: str, b: str) -> dict:
+    """Two TUM trajectory texts: whether their keyframe times agree and the
+    largest position difference (m) where they do."""
+    ra = np.array([[float(v) for v in ln.split()] for ln in a.splitlines()]).reshape(-1, 8)
+    rb = np.array([[float(v) for v in ln.split()] for ln in b.splitlines()]).reshape(-1, 8)
+    same_times = ra.shape == rb.shape and np.array_equal(ra[:, 0], rb[:, 0])
+    return {"keyframes": [len(ra), len(rb)], "same_keyframes": bool(same_times),
+            "max_position_diff_m": float(np.abs(ra[:, 1:4] - rb[:, 1:4]).max())
+            if same_times and len(ra) else None}
+
+
 def phase_cli_run():
     """The user's command on the card: ``python -m rspl_slam_tpu_torch.cli
     run --config configs/euroc.yaml`` (the default main path: lines, async
     BA; the algorithm section equals ``SystemConfig()``) on the BA path's
     30 frames quantized to 8 bits and written as a raw-EuRoC tree, with the
-    smoke's weights as ``.npz`` and an OpenCV camera file, in a subprocess.
-    Gated on its exit, the frame count, the decoded frames, the ATE, the
-    trajectory against an in-process ``PipelinedRunner`` run, the saved
-    map (reload and resume), the visualization PNGs and the kernels."""
+    smoke's weights as ``.npz`` and an OpenCV camera file, in a subprocess:
+    once by default (the native prefetcher decodes and rectifies on C++
+    threads) and once with ``--no-native`` (``EurocDataset``, rectification
+    on the card). Each is gated on its exit, the frame count, the ATE and
+    its trajectory and launches equal to an in-process run of the same
+    route (``_native_fed``; ``PipelinedRunner`` over the dataset); the two
+    routes' frames and trajectories are held to each other
+    (``NATIVE_ROUTE_POS_TOL``); then the decoded frames, the saved map
+    (reload and resume), the visualization PNGs and the kernels."""
     import torch
 
-    from rspl_slam_tpu_torch import config, png
+    from rspl_slam_tpu_torch import config, native, png
     from rspl_slam_tpu_torch.backend.map_store import MapStore
     from rspl_slam_tpu_torch.config import SystemConfig, load_system_config
     from rspl_slam_tpu_torch.datasets import open_dataset
@@ -2265,27 +2368,50 @@ def phase_cli_run():
          "rcf": rcf.edge_detector_params()}
     for k, params in w.items():
         save_npz_pytree(os.path.join(work, f"{k}.npz"), params)
-    p = {k: os.path.join(work, k) for k in ("traj.txt", "map.npz", "map_text", "viz",
-                                              "inproc.txt")}
-    t0 = time.perf_counter()
-    out = _cli("run", "--dataroot", tree, "--config", euroc, "--camera-config", cam_yaml,
-               "--sp-weights", os.path.join(work, "sp.npz"),
-               "--sg-weights", os.path.join(work, "sg.npz"),
-               "--rcf-weights", os.path.join(work, "rcf.npz"), "--gt", tree,
-               "--traj-path", p["traj.txt"], "--save-map", p["map.npz"],
-               "--save-map-text", p["map_text"], "--viz-dir", p["viz"])
-    cli_wall = time.perf_counter() - t0
-    processed = re.search(r"^processed (\d+) frames in ([0-9.]+)s \(([0-9.]+) fps\)$", out, re.M)
-    ate = json.loads(re.search(r"^ATE: (.*)$", out, re.M).group(1))
-    launches = json.loads(re.search(r"^kernel launches: (.*)$", out, re.M).group(1))
+    p = {k: os.path.join(work, k) for k in ("traj.txt", "traj_no_native.txt", "traj_again.txt",
+                                              "map.npz",
+                                              "map_text", "viz", "inproc.txt",
+                                              "inproc_native.txt")}
+    common = ("--dataroot", tree, "--config", euroc, "--camera-config", cam_yaml,
+              "--sp-weights", os.path.join(work, "sp.npz"),
+              "--sg-weights", os.path.join(work, "sg.npz"),
+              "--rcf-weights", os.path.join(work, "rcf.npz"), "--gt", tree)
+    # the first subprocess on the card pays one-time costs the later ones do
+    # not: the native route runs again last, so its frames/s are read warm
+    runs = {}
+    for route, extra in (("native", ("--traj-path", p["traj.txt"], "--save-map", p["map.npz"],
+                                     "--save-map-text", p["map_text"], "--viz-dir", p["viz"])),
+                         ("no_native", ("--traj-path", p["traj_no_native.txt"], "--no-native")),
+                         ("native_again", ("--traj-path", p["traj_again.txt"],))):
+        t0 = time.perf_counter()
+        out = _cli("run", *common, *extra)
+        wall = time.perf_counter() - t0
+        processed = re.search(r"^processed (\d+) frames in ([0-9.]+)s \(([0-9.]+) fps\)$", out,
+                              re.M)
+        runs[route] = {
+            "out": out, "wall": wall, "processed": processed,
+            "native_line": "using native prefetcher + rectification" in out.splitlines(),
+            "ate": json.loads(re.search(r"^ATE: (.*)$", out, re.M).group(1)),
+            "launches": json.loads(re.search(r"^kernel launches: (.*)$", out, re.M).group(1))}
 
-    # the same config, weights and decoded frames through PipelinedRunner here
+    # the same config, weights and files through each route here
     cfg = load_system_config(euroc, cam_yaml)
     cfg = dataclasses.replace(
         cfg, superpoint=dataclasses.replace(cfg.superpoint, weights_path=os.path.join(work, "sp.npz")),
         superglue=dataclasses.replace(cfg.superglue, weights_path=os.path.join(work, "sg.npz")),
         line_detector=dataclasses.replace(cfg.line_detector,
                                           rcf_weights_path=os.path.join(work, "rcf.npz")))
+    fe_native = NeuralFrontend(cfg, rectify=False)
+    slam = SLAMSystem(cfg, fe_native)
+    _reset_counters()
+    t0 = time.perf_counter()
+    _native_fed(slam, tree, cfg)
+    torch.cuda.synchronize()
+    inproc_native_wall = time.perf_counter() - t0
+    inproc_native_launches = _counters()
+    slam.save_trajectory(p["inproc_native.txt"])
+    del slam, fe_native
+
     fe = NeuralFrontend(cfg)
     ds = open_dataset(tree, compiled=True)
     decoded_equal = all(
@@ -2300,8 +2426,26 @@ def phase_cli_run():
     inproc_wall = time.perf_counter() - t0
     inproc_launches = _counters()
     slam.save_trajectory(p["inproc.txt"])
-    with open(p["traj.txt"]) as f, open(p["inproc.txt"]) as g:
-        cli_traj, inproc_traj = f.read(), g.read()
+    text = {}
+    for k in ("traj.txt", "traj_no_native.txt", "traj_again.txt", "inproc.txt",
+              "inproc_native.txt"):
+        with open(p[k]) as f:
+            text[k] = f.read()
+
+    # the two routes' frames: the loader's host rectification against the
+    # frontend's on the card (this camera file's maps lie off the identity
+    # by up to 3e-14 px on one column per eye, so both remaps interpolate)
+    cam = cfg.camera
+    with native.NativeStereoLoader(*ds.file_lists(), cam.image_height, cam.image_width,
+                                   map_l=fe._rect_maps[0].cpu().numpy(),
+                                   map_r=fe._rect_maps[1].cpu().numpy()) as loader:
+        frame_diff, frames_differing = 0.0, 0
+        for i, il, ir in loader:
+            dev = fe._upload(np.stack(frames_u8[i]), slice(0, 2)).cpu().numpy()
+            d = np.abs(np.stack([il, ir]) - dev)
+            frame_diff = max(frame_diff, float(d.max()))
+            frames_differing += int((d > 0).any())
+    route_dist = _traj_distance(text["traj.txt"], text["traj_no_native.txt"])
 
     # the repaired YAML subset parser against PyYAML where this host has it
     # (the CLI above parsed both files without it)
@@ -2333,38 +2477,76 @@ def phase_cli_run():
     for f in viz_png:
         with open(os.path.join(p["viz"], f), "rb") as fh:
             png.read_png(fh.read(), compiled=True)
-    line = {"phase": "cli_run", "frames": int(processed.group(1)) if processed else None,
+    nat, nn, again = runs["native"], runs["no_native"], runs["native_again"]
+    launches = nat["launches"]
+    line = {"phase": "cli_run", "frames": int(nat["processed"].group(1)) if nat["processed"] else None,
             "image": [cfg.camera.image_width, cfg.camera.image_height],
             "max_keypoints": cfg.superpoint.max_keypoints,
             "gnn_layers": cfg.superglue.num_gnn_layers,
             "sinkhorn_iters": cfg.superglue.sinkhorn_iterations, "use_lines": cfg.use_lines,
             "async_ba": cfg.pipeline.async_ba, "rectify_maps": fe._rect_maps is not None,
-            "cli_fps_printed": float(processed.group(3)) if processed else None,
-            "cli_wall_s": cli_wall, "inproc_frames_per_s": E2E_FRAMES / inproc_wall,
-            "keyframe_ate_rmse_m": ate["rmse"], "ate_n": ate["n"], "ate_bound_m": CLI_ATE_BOUND,
+            "card": CARD,
+            "native_prefetcher_printed": nat["native_line"],
+            "cli_fps_printed": float(nat["processed"].group(3)) if nat["processed"] else None,
+            "cli_fps_printed_no_native": float(nn["processed"].group(3))
+            if nn["processed"] else None,
+            "cli_fps_printed_native_again": float(again["processed"].group(3))
+            if again["processed"] else None,
+            "cli_wall_s": nat["wall"], "cli_wall_s_no_native": nn["wall"],
+            "cli_wall_s_native_again": again["wall"],
+            "inproc_frames_per_s": E2E_FRAMES / inproc_wall,
+            "inproc_native_frames_per_s": E2E_FRAMES / inproc_native_wall,
+            "keyframe_ate_rmse_m": nat["ate"]["rmse"], "ate_n": nat["ate"]["n"],
+            "keyframe_ate_rmse_m_no_native": nn["ate"]["rmse"], "ate_bound_m": CLI_ATE_BOUND,
             "decoded_equal": decoded_equal,
-            "trajectory_equal_inproc": cli_traj == inproc_traj,
-            "keyframes": len(cli_traj.splitlines()),
+            "trajectory_equal_inproc_native": text["traj.txt"] == text["inproc_native.txt"],
+            "trajectory_equal_inproc_no_native": text["traj_no_native.txt"] == text["inproc.txt"],
+            "trajectory_equal_routes": text["traj.txt"] == text["traj_no_native.txt"],
+            "trajectory_equal_native_again": text["traj.txt"] == text["traj_again.txt"],
+            "routes": route_dist, "route_pos_tol_m": NATIVE_ROUTE_POS_TOL,
+            "route_frame_max_abs_diff": frame_diff,
+            "route_frames_differing": frames_differing,
+            "keyframes": len(text["traj.txt"].splitlines()),
             "map_keyframes": int(stored.n_kf), "map_points": int(stored.n_pt),
             "map_lines": int(stored.n_ln), "resume_inliers": resume_inliers,
             "viz_pngs": len(viz_png), "hidden_from_cli": list(HIDDEN_MODULES),
             "host_has": host_has, "mini_yaml_equals_pyyaml": mini_equal,
-            "launches": launches,
+            "launches": launches, "launches_no_native": nn["launches"],
+            "inproc_native_launches": inproc_native_launches,
             "inproc_launches": inproc_launches,
             "decode_ms_per_pair_compiled": _decode_ms_per_pair(tree, True, E2E_FRAMES),
             "decode_ms_per_pair_numpy": _decode_ms_per_pair(tree, False, 5),
             "render_s": render_s, "tree_write_s": write_s}
     emit(line)
-    if not processed or int(processed.group(1)) != E2E_FRAMES:
-        raise AssertionError(f"cli_run: expected {E2E_FRAMES} frames processed:\n{out}")
+    for route, r in runs.items():
+        if not r["processed"] or int(r["processed"].group(1)) != E2E_FRAMES:
+            raise AssertionError(f"cli_run ({route}): expected {E2E_FRAMES} frames "
+                                 f"processed:\n{r['out']}")
+        if not r["ate"]["rmse"] < CLI_ATE_BOUND or r["ate"]["n"] < 3:
+            raise AssertionError(f"cli_run ({route}): ATE {r['ate']} over the bound "
+                                 f"{CLI_ATE_BOUND}")
+        for k in ("conv_stem", "conv_stem_side", "superglue_layer", "sinkhorn"):
+            if r["launches"][k] <= 0:
+                raise AssertionError(f"cli_run ({route}): kernel {k} never launched")
+    if text["traj.txt"] != text["traj_again.txt"] or again["launches"] != launches:
+        raise AssertionError("cli_run: the native route did not repeat its trajectory and "
+                             "launches")
+    if not nat["native_line"] or nn["native_line"] or not again["native_line"]:
+        raise AssertionError("cli_run: the default run must use the native prefetcher and "
+                             "--no-native must not")
     if not decoded_equal:
         raise AssertionError("cli_run: the decoded PNG frames differ from the written arrays")
-    if not ate["rmse"] < CLI_ATE_BOUND or ate["n"] < 3:
-        raise AssertionError(f"cli_run: ATE {ate} over the bound {CLI_ATE_BOUND}")
-    if cli_traj != inproc_traj:
+    if text["traj.txt"] != text["inproc_native.txt"]:
         raise AssertionError("cli_run: the CLI's trajectory differs from the in-process "
-                             f"runner's:\n{cli_traj}\n---\n{inproc_traj}")
-    if stored.n_kf != len(cli_traj.splitlines()) or stored.n_pt <= 0:
+                             f"native-fed runner's:\n{text['traj.txt']}\n---\n"
+                             f"{text['inproc_native.txt']}")
+    if text["traj_no_native.txt"] != text["inproc.txt"]:
+        raise AssertionError("cli_run: the --no-native trajectory differs from the in-process "
+                             f"runner's:\n{text['traj_no_native.txt']}\n---\n{text['inproc.txt']}")
+    if not (route_dist["same_keyframes"]
+            and route_dist["max_position_diff_m"] <= NATIVE_ROUTE_POS_TOL):
+        raise AssertionError(f"cli_run: the native and --no-native routes part: {route_dist}")
+    if stored.n_kf != len(text["traj.txt"].splitlines()) or stored.n_pt <= 0:
         raise AssertionError(f"cli_run: the saved map holds {stored.n_kf} keyframes")
     if min(resume_inliers) <= E2E_MIN_INLIERS or not np.isfinite(
             np.stack([r.Twc for r in recs])).all():
@@ -2373,13 +2555,207 @@ def phase_cli_run():
         raise AssertionError("cli_run: the YAML subset parser disagrees with PyYAML")
     if "trajectory.png" not in viz_png or not any(f.startswith("frame_") for f in viz_png):
         raise AssertionError(f"cli_run: visualization PNGs missing: {viz_png}")
-    for k in ("conv_stem", "conv_stem_side", "superglue_layer", "sinkhorn"):
-        if launches[k] <= 0:
-            raise AssertionError(f"cli_run: kernel {k} never launched")
-    if launches != inproc_launches:
-        raise AssertionError(f"cli_run: launches {launches} against {inproc_launches} in process")
+    if launches != inproc_native_launches:
+        raise AssertionError(f"cli_run: launches {launches} against {inproc_native_launches} "
+                             "in process (native route)")
+    if nn["launches"] != inproc_launches:
+        raise AssertionError(f"cli_run: --no-native launches {nn['launches']} against "
+                             f"{inproc_launches} in process")
     return line, launches, {"work": work, "tree": tree, "euroc": euroc, "cam_yaml": cam_yaml,
                             "cfg": cfg}
+
+
+def phase_native(tree, merge_inputs):
+    """The native runtime (``native.py``, host C++): its build time; decode
+    ms per pair over cli_run's 752×480 PNG tree, ``NativeStereoLoader``
+    with 2 threads against ``EurocDataset(compiled=True)`` in turns (loader,
+    dataset, dataset, loader), the loader's frames equal to the dataset's;
+    ``merge_lines`` ms per frame, the compiled merge against the numpy one
+    on the lines path's own pre-merge segments (``merge_inputs``), equal
+    shapes and within 1e-9; ``real_photo.jpg`` decoded here hashing to
+    ``REAL_PHOTO_L_SHA256``."""
+    import hashlib
+
+    from rspl_slam_tpu_torch import native, png
+    from rspl_slam_tpu_torch.datasets import open_dataset
+    from rspl_slam_tpu_torch.ops import cuda_build
+    from rspl_slam_tpu_torch.ops import lines as lops
+
+    ds = open_dataset(tree, compiled=True)
+    n = len(ds)
+    H, W = ds[0].image_left.shape
+
+    def dataset_pass():
+        t0 = time.perf_counter()
+        got = [ds[i] for i in range(n)]
+        return (time.perf_counter() - t0) / n * 1e3, [(f.image_left, f.image_right) for f in got]
+
+    def loader_pass():
+        t0 = time.perf_counter()
+        with native.NativeStereoLoader(*ds.file_lists(), H, W, threads=2) as loader:
+            got = [(il, ir) for _, il, ir in loader]
+        return (time.perf_counter() - t0) / n * 1e3, got
+
+    ms = {"loader": [], "dataset": []}
+    for name, fn in (("loader", loader_pass), ("dataset", dataset_pass),
+                     ("dataset", dataset_pass), ("loader", loader_pass)):
+        t, got = fn()
+        ms[name].append(t)
+        if name == "loader":
+            loader_frames = got
+        else:
+            dataset_frames = got
+    frames_equal = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                       for a, b in zip(loader_frames, dataset_frames))
+
+    results = {}
+    for mode, force in (("compiled", False), ("numpy", True), ("compiled_2", False),
+                        ("numpy_2", True)):
+        t0 = time.perf_counter()
+        results[mode] = [lops.merge_lines(segs, *args, force_numpy=force)
+                         for segs, args in merge_inputs]
+        results[mode + "_ms"] = (time.perf_counter() - t0) * 1e3
+    frames_merged = len(merge_inputs) / 2  # one merge per eye
+    merge_shapes_equal = all(a.shape == b.shape
+                             for a, b in zip(results["compiled"], results["numpy"]))
+    merge_max_diff = max((float(np.abs(a - b).max()) for a, b in
+                          zip(results["compiled"], results["numpy"]) if a.shape == b.shape
+                          and a.size), default=0.0)
+    merge_bit_equal = sum(np.array_equal(a, b)
+                          for a, b in zip(results["compiled"], results["numpy"]))
+
+    photo = png.read_gray(PHOTO)
+    photo_sha = hashlib.sha256(np.ascontiguousarray(photo).tobytes()).hexdigest()
+    photo_float_equal = np.array_equal(native.decode_gray(PHOTO, *photo.shape),
+                                       photo.astype(np.float32) / 255.0)
+    line = {"phase": "native", "card": CARD,
+            "host_build_s": cuda_build.build_seconds.get("native_runtime"),
+            "image": [W, H], "pairs": n,
+            "decode_ms_per_pair_loader_2_threads": ms["loader"],
+            "decode_ms_per_pair_dataset_compiled": ms["dataset"],
+            "loader_frames_equal_dataset": frames_equal,
+            "merge_calls": len(merge_inputs), "merge_frames": frames_merged,
+            "merge_segments_per_call_median": float(np.median([len(s) for s, _ in merge_inputs]))
+            if merge_inputs else 0.0,
+            "merge_ms_per_frame_compiled": [results[k] / frames_merged
+                                            for k in ("compiled_ms", "compiled_2_ms")],
+            "merge_ms_per_frame_numpy": [results[k] / frames_merged
+                                         for k in ("numpy_ms", "numpy_2_ms")],
+            "merge_shapes_equal": merge_shapes_equal, "merge_max_abs_diff": merge_max_diff,
+            "merge_bit_equal_calls": int(merge_bit_equal),
+            "photo_shape": list(photo.shape), "photo_sha256": photo_sha,
+            "photo_sha256_pinned": REAL_PHOTO_L_SHA256,
+            "photo_float_equal_u8_over_255": photo_float_equal}
+    emit(line)
+    if not frames_equal:
+        raise AssertionError("native: the loader's frames differ from EurocDataset's")
+    if not merge_inputs:
+        raise AssertionError("native: the lines path handed merge_lines no segments")
+    if not merge_shapes_equal or merge_max_diff > 1e-9:
+        raise AssertionError(f"native: compiled merge_lines against numpy: shapes equal "
+                             f"{merge_shapes_equal}, max diff {merge_max_diff}")
+    if photo_sha != REAL_PHOTO_L_SHA256 or photo.shape != (600, 512) or not photo_float_equal:
+        raise AssertionError(f"native: real_photo.jpg decoded to {photo_sha}, "
+                             f"not {REAL_PHOTO_L_SHA256}")
+    return line
+
+
+def phase_merge_ab(compiled_line):
+    """The lines path (``end_to_end_lines``) with the numpy merge, twice,
+    then with the compiled one again, after ``compiled_line``'s run: the
+    merge's share of the path's frames/s and ``lines_host`` within one
+    call (compiled, numpy, numpy, compiled)."""
+    import torch
+
+    runs = {"compiled": [compiled_line]}
+    for name, numpy_merge in (("numpy", True), ("numpy", True), ("compiled", False)):
+        line, _, run = phase_end_to_end(lines=True, name=f"end_to_end_lines_{name}_merge",
+                                        numpy_merge=numpy_merge)
+        runs.setdefault(name, []).append(line)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "merge_ab", "card": CARD, "order": "compiled, numpy, numpy, compiled",
+          **{f"frames_per_s_{k}": [ln["frames_per_s"] for ln in v] for k, v in runs.items()},
+          **{f"lines_host_ms_{k}": [ln["stage_median_ms"]["lines_host"] for ln in v]
+             for k, v in runs.items()},
+          **{f"ate_rmse_m_{k}": [ln["ate_rmse_m"] for ln in v] for k, v in runs.items()}})
+
+
+def _crop(photo, oy: float, ox: float, H: int, W: int) -> np.ndarray:
+    """Sub-pixel bilinear crop of the photo: the camera of the JAX package's
+    plane-scene tests (``tests/test_real_image.py:crop``)."""
+    ys = np.arange(H, dtype=np.float64) + oy
+    xs = np.arange(W, dtype=np.float64) + ox
+    y0 = np.floor(ys).astype(int)
+    x0 = np.floor(xs).astype(int)
+    fy = (ys - y0)[:, None]
+    fx = (xs - x0)[None, :]
+    y0 = np.clip(y0, 0, photo.shape[0] - 2)
+    x0 = np.clip(x0, 0, photo.shape[1] - 2)
+    p00, p01 = photo[np.ix_(y0, x0)], photo[np.ix_(y0, x0 + 1)]
+    p10, p11 = photo[np.ix_(y0 + 1, x0)], photo[np.ix_(y0 + 1, x0 + 1)]
+    return ((1 - fy) * (1 - fx) * p00 + (1 - fy) * fx * p01
+            + fy * (1 - fx) * p10 + fy * fx * p11).astype(np.float32)
+
+
+def phase_cli_photo():
+    """The repo's photograph through ``cli run`` on the card, as the JAX
+    package's one-command CLI case (``tests/test_real_image.py::
+    TestRealImageCLI``) drives it: 10 stereo crops of a fronto-parallel
+    plane at Z = 3 m (376×240, bf/Z = 16 px) along 0.6 m of x, written as
+    8-bit PNGs, ``--matcher cosine --no-lines`` with random SuperPoint, the
+    native prefetcher; gated as that case gates it (ATE n ≥ 3, rmse <
+    0.3 m)."""
+    from rspl_slam_tpu_torch import png
+    from rspl_slam_tpu_torch.datasets import write_tum_trajectory
+    from rspl_slam_tpu_torch.slam import INIT_POSE
+
+    photo = png.read_gray(PHOTO).astype(np.float32) / 255.0
+    fx, cx, cy, bf, Z, N = 300.0, 188.0, 120.0, 48.0, 3.0, 10
+    disp = bf / Z
+    work = os.path.join(WORK, "cli_photo")
+    shutil.rmtree(work, ignore_errors=True)
+    seq = os.path.join(work, "seq")
+    dx_m = np.linspace(0, 0.6, N)
+    times = 1400000000 * 10**9 + np.arange(N, dtype=np.int64) * 50000000
+    gt = np.tile(np.eye(4), (N, 1, 1))
+    gt[:, 0, 3] = dx_m
+    for i in range(N):
+        ox = 40.0 + fx * dx_m[i] / Z
+        for sub, oxe in (("cam0", ox), ("cam1", ox + disp)):
+            img = _crop(photo, 100.0, oxe, 240, 376)
+            png.write_png(os.path.join(seq, sub, "data", f"{int(times[i])}.png"),
+                          (img * 255).astype(np.uint8))
+    gt_file = os.path.join(work, "gt.tum")
+    write_tum_trajectory(gt_file, times * 1e-9, np.einsum("ij,njk->nik", INIT_POSE, gt))
+    cfg_file = os.path.join(work, "cfg.yaml")
+    with open(cfg_file, "w") as f:
+        f.write("superpoint:\n  max_keypoints: 300\n  keypoint_threshold: 0.0001\n"
+                "keyframe:\n  max_distance: 0.15\n"
+                f"image_width: 376\nimage_height: 240\nbf: {bf}\ndepth_upper_thr: 20.0\n"
+                f"LEFT.P:\n  data: [{fx}, 0, {cx}, 0, 0, {fx}, {cy}, 0, 0, 0, 1, 0]\n")
+    t0 = time.perf_counter()
+    out = _cli("run", "--dataroot", seq, "--config", cfg_file, "--camera-config", cfg_file,
+               "--matcher", "cosine", "--no-lines", "--traj-path",
+               os.path.join(work, "est.tum"), "--gt", gt_file)
+    wall = time.perf_counter() - t0
+    ate = json.loads(re.search(r"^ATE: (.*)$", out, re.M).group(1))
+    launches = json.loads(re.search(r"^kernel launches: (.*)$", out, re.M).group(1))
+    processed = re.search(r"^processed (\d+) frames in ([0-9.]+)s \(([0-9.]+) fps\)$", out, re.M)
+    line = {"phase": "cli_photo", "frames": N, "image": [376, 240],
+            "native_prefetcher_printed": "using native prefetcher" in out.splitlines(),
+            "ate": ate, "ate_bound_m": 0.3, "cli_wall_s": wall,
+            "cli_fps_printed": float(processed.group(3)) if processed else None,
+            "launches": launches}
+    emit(line)
+    if ate["n"] < 3 or not ate["rmse"] < 0.3:
+        raise AssertionError(f"cli_photo: ATE {ate} (JAX's case: n ≥ 3, rmse < 0.3 m)")
+    if not line["native_prefetcher_printed"]:
+        raise AssertionError("cli_photo: the run did not use the native prefetcher")
+    if launches["conv_stem"] <= 0:
+        raise AssertionError("cli_photo: K1 never launched")
+    return line, launches
 
 
 def phase_cli_synth():
@@ -2407,14 +2783,11 @@ def phase_cli_global(ctx):
     --config configs/euroc.yaml`` on cli_run's tree, in the same kind of
     subprocess (PyYAML, PIL, matplotlib hidden): exit 0, the JAX CLI's
     epilogue lines, and the trajectory file equal to an in-process run with
-    the same options (runner, then ``run_pose_graph`` and
+    the same options (the native-fed runner, then ``run_pose_graph`` and
     ``run_global_ba``)."""
     import torch
 
-    from rspl_slam_tpu_torch.config import load_system_config
-    from rspl_slam_tpu_torch.datasets import open_dataset
     from rspl_slam_tpu_torch.frontend.frontends import NeuralFrontend
-    from rspl_slam_tpu_torch.pipeline import PipelinedRunner
     from rspl_slam_tpu_torch.slam import SLAMSystem
 
     work, tree, euroc, cam_yaml = ctx["work"], ctx["tree"], ctx["euroc"], ctx["cam_yaml"]
@@ -2432,10 +2805,9 @@ def phase_cli_global(ctx):
     cfg = ctx["cfg"]
     cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(cfg.pipeline,
                                                                 track_local_map=True))
-    slam = SLAMSystem(cfg, NeuralFrontend(cfg), enable_loop_closure=True)
+    slam = SLAMSystem(cfg, NeuralFrontend(cfg, rectify=False), enable_loop_closure=True)
     _reset_counters()
-    PipelinedRunner(slam, open_dataset(tree, compiled=True),
-                    queue_depth=cfg.pipeline.queue_depth).run()
+    _native_fed(slam, tree, cfg)  # the CLI's default route
     pg = slam.run_pose_graph()
     gba = slam.run_global_ba()
     torch.cuda.synchronize()
@@ -3319,7 +3691,20 @@ def main(argv) -> int:
     by_path, ate_by_path = {}, {}
     if "--kernels" not in argv:
         phase_batch_kernels(lines)
-    if "--parallel" in argv:
+    if "--native" in argv:
+        merge_inputs = []
+        line, by_path["end_to_end_lines"], run = phase_end_to_end(
+            lines=True, name="end_to_end_lines", record_merge=merge_inputs)
+        ate_by_path["end_to_end_lines"] = line["ate_rmse_m"]
+        del run
+        phase_merge_ab(line)
+        gc.collect()
+        torch.cuda.empty_cache()
+        line, by_path["cli_run"], ctx = phase_cli_run()
+        ate_by_path["cli_run"] = line["keyframe_ate_rmse_m"]
+        phase_native(ctx["tree"], merge_inputs)
+        _, by_path["cli_photo"] = phase_cli_photo()
+    elif "--parallel" in argv:
         _, by_path["end_to_end_loop"], frames, _ = phase_end_to_end_loop()  # dist_ba's map
         del frames
         phase_parallel(by_path, ate_by_path, None)
@@ -3330,10 +3715,10 @@ def main(argv) -> int:
         phase_training(by_path, ate_by_path, ba_line)
     elif "--kernels" not in argv:
         phase_local_ba_check("--profile" in argv)
-        repeat = None
+        repeat, merge_inputs = None, []
         for name, kw in (("end_to_end_ba", dict(lines=True, ba=True)),
                          ("end_to_end_ba_repeat", dict(lines=True, ba=True)),
-                         ("end_to_end_lines", dict(lines=True)),
+                         ("end_to_end_lines", dict(lines=True, record_merge=merge_inputs)),
                          ("end_to_end", dict(lines=False))):
             line, counts, run = phase_end_to_end(name=name, **kw)
             if name == "end_to_end_ba_repeat":
@@ -3363,6 +3748,8 @@ def main(argv) -> int:
         phase_parallel(by_path, ate_by_path, ba_line)
         line, by_path["cli_run"], ctx = phase_cli_run()
         ate_by_path["cli_run"] = line["keyframe_ate_rmse_m"]
+        phase_native(ctx["tree"], merge_inputs)
+        _, by_path["cli_photo"] = phase_cli_photo()
         _, by_path["cli_global"] = phase_cli_global(ctx)
         phase_cli_synth()
         phase_cli_convert()

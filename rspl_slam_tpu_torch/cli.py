@@ -14,9 +14,12 @@ package's arguments and printed lines:
 
 ``--device`` (``run``, ``serve``, ``batch``, ``synth``, ``pretrain``) picks the torch
 device, the card by default; without one visible the run raises. ``run``
-feeds ``PipelinedRunner`` from the dataset, with rectification on the
-device inside the frontend; ``--no-native`` is accepted for compatibility
-(the port has no native prefetcher). Images decode through ``png.py``,
+decodes and rectifies frames on the C++ threads of
+``native.NativeStereoLoader`` (host code built at first use) and feeds
+them to ``PipelinedRunner``; ``--no-native`` reads the dataset through
+``EurocDataset`` instead and rectifies on the device inside the frontend.
+Both routes decode to PIL's ``convert("L")``, so frames never depend on
+``--no-native``. Images decode through ``png.py`` and ``native.py``,
 configs parse without PyYAML, plots draw without matplotlib. The global
 layer runs as in the JAX package: ``--loop-closure`` (``run``, ``serve``)
 detects loops and relocalizes, ``--track-local-map`` re-associates by
@@ -91,11 +94,16 @@ def _publisher(args, slam):
 
 
 def cmd_run(args):
+    from rspl_slam_tpu_torch import native
+    from rspl_slam_tpu_torch.camera import build_rectify_maps
     from rspl_slam_tpu_torch.datasets import open_dataset
     from rspl_slam_tpu_torch.pipeline import PipelinedRunner
 
-    slam, cfg = _build_slam(args, use_lines=not args.no_lines)
-    # the card's runs unfilter PNG rows in the compiled host loop
+    use_native = not args.no_native
+    # the native prefetcher rectifies in its decode threads; the dataset
+    # route rectifies on the device inside the frontend
+    slam, cfg = _build_slam(args, use_lines=not args.no_lines, rectify=not use_native)
+    # the card's dataset route unfilters PNG rows in the compiled host loop
     ds = open_dataset(args.dataroot, compiled=slam.device.type == "cuda")
     n = len(ds) if args.max_frames <= 0 else min(len(ds), args.max_frames)
     print(f"dataset: {args.dataroot} ({n} frames)")
@@ -105,24 +113,63 @@ def cmd_run(args):
         if args.verbose and rec.frame_id % 50 == 0:
             print(f"frame {rec.frame_id}: kf={rec.is_keyframe} inliers={rec.num_inliers}")
 
-    t0 = time.perf_counter()
-    if args.serial:
-        # strictly serial loop (debugging / timing splits)
-        for i in range(n):
-            fr = ds[i]
-            rec = slam.add_frame(fr.index, fr.time, fr.image_left, fr.image_right)
-            if publisher is not None:
-                publisher(rec, slam._last_feats)
-            _report(rec)
-    else:
-        # prefetch ∥ extract ∥ track
-        def on_record(rec, feats):
-            if publisher is not None:
-                publisher(rec, feats)
-            _report(rec)
+    def on_record(rec, feats):
+        if publisher is not None:
+            publisher(rec, feats)
+        _report(rec)
 
-        PipelinedRunner(slam, ds, queue_depth=cfg.pipeline.queue_depth,
-                        on_record=on_record).run(max_frames=n)
+    loader = None
+    if use_native:
+        lefts, rights = ds.file_lists()
+        map_l = build_rectify_maps(cfg.camera, "left")
+        map_r = build_rectify_maps(cfg.camera, "right")
+        if map_l is None or map_r is None:  # as the frontend: both eyes or neither
+            map_l = map_r = None
+        loader = native.NativeStereoLoader(lefts[:n], rights[:n], cfg.camera.image_height,
+                                           cfg.camera.image_width, map_l=map_l, map_r=map_r,
+                                           depth=cfg.pipeline.queue_depth)
+        print("using native prefetcher" + (" + rectification" if map_l is not None else ""))
+
+    t0 = time.perf_counter()
+    try:
+        if args.serial:
+            # strictly serial loop (debugging / timing splits)
+            if loader is not None:
+                frames = ((i, ds.timestamp(i), il, ir) for i, il, ir in loader)
+            else:
+                frames = ((fr.index, fr.time, fr.image_left, fr.image_right)
+                          for fr in (ds[i] for i in range(n)))
+            for i, t, il, ir in frames:
+                rec = slam.add_frame(i, t, il, ir)
+                on_record(rec, slam._last_feats)
+        elif loader is None:
+            # prefetch ∥ extract ∥ track
+            PipelinedRunner(slam, ds, queue_depth=cfg.pipeline.queue_depth,
+                            on_record=on_record).run(max_frames=n)
+        else:
+            # the native decode threads are the prefetch stage
+            runner = PipelinedRunner(slam, queue_depth=cfg.pipeline.queue_depth,
+                                     on_record=on_record)
+            failed = []
+
+            def feeder():
+                try:
+                    for i, il, ir in loader:
+                        runner.feed(i, ds.timestamp(i), il, ir)
+                except Exception as e:  # surfaces after the runner drains
+                    failed.append(e)
+                finally:
+                    runner.close_input()
+
+            th = threading.Thread(target=feeder, daemon=True)
+            th.start()
+            runner.run_manual()
+            th.join()
+            if failed:
+                raise failed[0]
+    finally:
+        if loader is not None:
+            loader.close()
     wall = time.perf_counter() - t0
     print(f"processed {n} frames in {wall:.1f}s ({n / wall:.1f} fps)")
     _finish_run(slam, args, publisher)
@@ -481,7 +528,8 @@ def main(argv=None):
     pr.add_argument("--serial", action="store_true",
                     help="disable the pipelined runner (strictly serial loop)")
     pr.add_argument("--no-native", dest="no_native", action="store_true",
-                    help="accepted for compatibility: the port has no native prefetcher")
+                    help="read frames through the dataset reader and rectify on the "
+                         "device, not on the native prefetcher's C++ decode threads")
     pr.add_argument("--overlay-stride", dest="overlay_stride", type=int, default=1,
                     help="dump a feature overlay every Nth frame")
     pr.add_argument("--sync-ba", dest="sync_ba", action="store_true",

@@ -1,11 +1,13 @@
 """Dataset readers and trajectory IO (port of datasets.py).
 
 The EuRoC-layout stereo reader and the TUM trajectory reader and writer.
-Images decode through the port's own PNG/PGM reader (``png.py``), not PIL:
-gray float32 in [0, 1], as the JAX package's reader returns them. With
-``compiled=True`` (the CLI sets it when the run's device is the card) the
-PNG row unfilter runs in the host C++ loop of ``csrc/png_unfilter.cu``;
-otherwise in numpy.
+Images decode through the port's own reader (``png.py``: PNG, JPEG, PGM),
+not PIL: gray float32 in [0, 1], as the JAX package's reader returns them.
+With ``compiled=True`` (the CLI sets it when the run's device is the card)
+the 8-bit PNG row unfilter runs in the host C++ loop of
+``csrc/png_unfilter.cu``; otherwise in numpy. ``cli run``'s default route
+reads the same files through ``native.NativeStereoLoader`` instead, with
+equal frames.
 """
 
 from __future__ import annotations

@@ -163,6 +163,18 @@ def _host_to_u8(img: np.ndarray) -> np.ndarray:
     return np.asarray(img, np.float32)
 
 
+def _host_stack(imgs) -> np.ndarray:
+    """Host images → one (B, H, W) array for one upload: 8-bit where every
+    image repacks losslessly, else float32 with the 8-bit ones as k/255
+    (a plain ``np.stack`` of 8-bit and float images would read 8-bit
+    levels as [0, 255] floats)."""
+    packed = [_host_to_u8(im) for im in imgs]
+    if all(p.dtype == np.uint8 for p in packed):
+        return np.stack(packed)
+    return np.stack([p.astype(np.float32) / np.float32(255.0) if p.dtype == np.uint8 else p
+                     for p in packed])
+
+
 def _downsample_max(edges: torch.Tensor, ds: int) -> torch.Tensor:
     """(B, H, W) edge maps → (B, H // ds, W // ds) by max-pooling (keeps
     thin ridges that averaging would wash out)."""
@@ -437,7 +449,7 @@ class NeuralFrontend:
     def extract_pair(self, img_l: np.ndarray, img_r: np.ndarray) -> FrameFeatures:
         if self.lazy_right:
             return self._extract_left_lazy(img_l, img_r)
-        img = self._upload(np.stack([_host_to_u8(img_l), _host_to_u8(img_r)]), slice(0, 2))
+        img = self._upload(_host_stack([img_l, img_r]), slice(0, 2))
         feats = superpoint.extract(self.sp, img, self.cfg.superpoint, self.compute_dtype)
         i0 = self.match_indices(
             feats.xy[:1], feats.score[:1], feats.desc[:1], feats.valid[:1],
@@ -611,7 +623,7 @@ class NeuralFrontend:
         ``frontends``: the per-sequence NeuralFrontends. Returns N
         FrameFeatures."""
         N = len(pairs)
-        host = np.stack([_host_to_u8(im) for p in pairs for im in p])  # (2N, H, W)
+        host = _host_stack([im for p in pairs for im in p])  # (2N, H, W)
         img = _to_unit_float(torch.from_numpy(host).to(self.device))
         if any(fe._rect_maps is not None for fe in frontends):
             H, W = img.shape[-2:]

@@ -1,0 +1,187 @@
+"""The port's native runtime (port of native.py): ctypes bindings of
+``csrc/native_runtime.cpp``, host C++ built by ``ops/cuda_build`` with the
+host compiler at first use into ``rspl_slam_tpu_torch/_build/``.
+
+- :func:`decode_gray`: a PNG, baseline JPEG or binary PGM file → (H, W)
+  float32 in [0, 1], the 8-bit gray of PIL's ``Image.open(p).convert("L")``
+  divided by 255 as ``datasets.EurocDataset`` divides it;
+- :func:`decode_u8`: the same decode of an encoded image in memory, 8-bit;
+- :func:`remap_bilinear`: ``camera.remap_bilinear``'s border clamp on the
+  host;
+- :func:`merge_lines`: the reference's MergeLines (``ops/lines.merge_lines``
+  calls it);
+- :class:`NativeStereoLoader`: decode threads that read, decode and
+  optionally rectify stereo pairs ahead of the consumer, in order.
+
+There is no fallback: where the library cannot be built, every entry point
+raises. Progressive, arithmetic-coded, 12-bit, lossless, CMYK and RGB
+(Adobe transform 0) JPEGs raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import weakref
+
+import numpy as np
+
+__all__ = ["build", "available", "decode_gray", "decode_u8", "image_size",
+           "remap_bilinear", "merge_lines", "NativeStereoLoader"]
+
+_NAME = "native_runtime"
+_UNSUPPORTED = 3  # csrc/native_runtime.cpp: kUnsupported
+
+
+def _lib():
+    from rspl_slam_tpu_torch.ops import cuda_build
+
+    return cuda_build.library(_NAME)
+
+
+def build() -> bool:
+    """Build (or find) the library; raises where the compiler fails."""
+    _lib()
+    return True
+
+
+def available() -> bool:
+    """True where the library builds and loads. The port's callers do not
+    test this: they call and let a build failure raise."""
+    try:
+        _lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def _raise(rc: int, what: str):
+    msg = _lib().native_runtime_error_string(rc).decode()
+    if rc == _UNSUPPORTED:
+        raise NotImplementedError(f"{what}: {msg} (ROADMAP.md §1, item 4b: progressive, "
+                                  "arithmetic-coded, 12-bit, lossless, CMYK and RGB JPEGs "
+                                  "are not decoded)")
+    raise IOError(f"native decode failed ({msg}): {what}")
+
+
+def image_size(data: bytes) -> tuple[int, int]:
+    """(H, W) of an encoded image in memory, from its header."""
+    buf = np.frombuffer(data, np.uint8)
+    hw = np.zeros(2, np.int32)
+    rc = _lib().native_image_size(buf.ctypes.data, len(buf), hw.ctypes.data)
+    if rc:
+        _raise(rc, "image header")
+    return int(hw[0]), int(hw[1])
+
+
+def decode_u8(data: bytes, what: str = "image") -> np.ndarray:
+    """An encoded PNG, JPEG or PGM in memory → (H, W) uint8 gray."""
+    H, W = image_size(data)
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty((H, W), np.uint8)
+    rc = _lib().native_decode_u8(buf.ctypes.data, len(buf), out.ctypes.data, H, W)
+    if rc:
+        _raise(rc, what)
+    return out
+
+
+def decode_gray(path: str, H: int, W: int) -> np.ndarray:
+    """Decode an image file to (H, W) float32 in [0, 1]; IOError when it
+    cannot be read or has another size."""
+    out = np.empty((H, W), np.float32)
+    rc = _lib().native_decode_file(str(path).encode(), out.ctypes.data, H, W)
+    if rc:
+        _raise(rc, str(path))
+    return out
+
+
+def remap_bilinear(src: np.ndarray, map_xy: np.ndarray) -> np.ndarray:
+    """(H, W) float32 image, (H, W, 2) source (x, y) per output pixel →
+    the bilinear remap with ``camera.remap_bilinear``'s border clamp."""
+    src = np.ascontiguousarray(src, np.float32)
+    H, W = src.shape
+    map_xy = np.ascontiguousarray(map_xy, np.float32)
+    if map_xy.shape != (H, W, 2):
+        raise ValueError(f"map of shape {map_xy.shape} for an image of {(H, W)}")
+    dst = np.empty_like(src)
+    rc = _lib().native_remap_bilinear(src.ctypes.data, H, W, map_xy.ctypes.data,
+                                      dst.ctypes.data)
+    if rc:
+        raise ValueError(f"remap of a {H}×{W} image: the clamp needs 2×2 pixels")
+    return dst
+
+
+def merge_lines(segs: np.ndarray, angle_thr: float, distance_thr: float,
+                ep_thr: float) -> np.ndarray:
+    """MergeLines in C++: (N, 4) segments → the merged (M, 4) float64."""
+    S = np.ascontiguousarray(segs, np.float64).reshape(-1, 4)
+    out = np.empty_like(S)
+    m = _lib().native_merge_lines(S.ctypes.data, len(S), angle_thr, distance_thr, ep_thr,
+                                  out.ctypes.data)
+    return out[:m]
+
+
+class NativeStereoLoader:
+    """Ordered stereo prefetcher over explicit file lists: ``threads`` C++
+    workers decode (and, given ``map_l`` and ``map_r``, rectify) pairs into
+    a reorder buffer of ``depth`` frames; iteration yields ``(index, left,
+    right)`` in order, (H, W) float32 in [0, 1]. A frame that fails to
+    decode or has another size raises IOError at its turn. :meth:`close`
+    (or dropping the loader, or interpreter exit) stops and joins the
+    workers."""
+
+    def __init__(self, left_paths, right_paths, H, W, map_l=None, map_r=None,
+                 depth=3, threads=2):
+        if len(left_paths) != len(right_paths):
+            raise ValueError("left and right path lists differ in length")
+        if (map_l is None) != (map_r is None):
+            raise ValueError("rectification needs both maps")
+        lib = _lib()
+        self.H, self.W = int(H), int(W)
+        self.n = len(left_paths)
+        self._lp = (ctypes.c_char_p * self.n)(*[str(p).encode() for p in left_paths])
+        self._rp = (ctypes.c_char_p * self.n)(*[str(p).encode() for p in right_paths])
+        maps = []
+        for m in (map_l, map_r):
+            if m is not None:
+                m = np.ascontiguousarray(m, np.float32)
+                if m.shape != (self.H, self.W, 2):
+                    raise ValueError(f"rectify map of shape {m.shape} for {(self.H, self.W)}")
+            maps.append(m)  # the C++ side copies them
+        handle = ctypes.c_void_p()
+        rc = lib.native_loader_create(
+            ctypes.addressof(self._lp), ctypes.addressof(self._rp), self.n, self.H, self.W,
+            None if maps[0] is None else maps[0].ctypes.data,
+            None if maps[1] is None else maps[1].ctypes.data,
+            int(depth), int(threads), ctypes.addressof(handle))
+        if rc:
+            raise ValueError(f"native loader: {lib.native_runtime_error_string(rc).decode()}")
+        self._h = handle.value
+        self._next = 0
+        self._close = weakref.finalize(self, lib.native_loader_destroy, self._h)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if not self._close.alive:
+            raise StopIteration
+        left = np.empty((self.H, self.W), np.float32)
+        right = np.empty((self.H, self.W), np.float32)
+        rc = _lib().native_loader_next(self._h, left.ctypes.data, right.ctypes.data)
+        if rc == -1:
+            raise StopIteration
+        i, self._next = self._next, self._next + 1
+        if rc == -2:
+            raise IOError(f"native loader: frame {i} failed to decode or is not "
+                          f"{self.H}×{self.W} ({self._lp[i].decode()}, "
+                          f"{self._rp[i].decode()})")
+        return rc, left, right
+
+    def close(self) -> None:
+        self._close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -1,20 +1,29 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its host C++.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds. Libraries land in
 ``rspl_slam_tpu_torch/_build/`` (git-ignored), keyed by a hash of the
-sources and flags, at first use. :func:`build_all` starts one ``nvcc`` per
+sources and flags, at first use. :func:`build_all` starts one compiler per
 source at once. Nothing here runs at import time.
 
 ``png_unfilter`` is host code only (the PNG reader's row unfilter,
 ``png.unfilter_compiled``): it rides the same build and ``ctypes``
 interface but is no kernel and replaces no TPU kernel.
+
+``HOST_SOURCES`` (``csrc/<name>.cpp``, the native runtime of ``native.py``)
+have no device code and build with the host C++ compiler (``$CXX``, else
+``c++``, else ``g++``), linking nothing but ``-pthread``, so they build
+wherever the CPU tests run. Their hash also covers the compiler and its
+version: a library built on one machine is not loaded on another.
+``-ffp-contract=off`` keeps every product and sum rounded on its own, so
+results do not depend on the host's FMA units.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,11 +41,13 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 KERNELS = ("conv_stem", "superglue_layer", "sinkhorn")
-SOURCES = KERNELS + ("png_unfilter",)
+HOST_SOURCES = ("native_runtime",)
+SOURCES = KERNELS + ("png_unfilter",) + HOST_SOURCES
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 CTA may use
 FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v", ARCH]
+HOST_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-pthread", "-ffp-contract=off"]
 
 # C signatures: "p" = pointer / stream (c_void_p), "i" = c_int
 SIGNATURES = {
@@ -45,15 +56,26 @@ SIGNATURES = {
                         "superglue_layer_bf16_launch": "p" * 14 + "iii" + "p"},
     "sinkhorn": {"sinkhorn_launch": "pppp" + "iiii" + "iii" + "p"},
     "png_unfilter": {"png_unfilter": "pp" + "iii"},
+    "native_runtime": {"native_merge_lines": "pi" + "ddd" + "p",
+                       "native_remap_bilinear": "pii" + "pp",
+                       "native_decode_u8": "plp" + "ii",
+                       "native_image_size": "plp",
+                       "native_decode_file": "sp" + "ii",
+                       "native_loader_create": "ppiiippiip",
+                       "native_loader_next": "ppp",
+                       "native_loader_destroy": "p"},
 }
-_CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+# "p" pointer / stream, "i" int, "l" int64, "d" double, "s" C string (bytes)
+_CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_int64,
+          "d": ctypes.c_double, "s": ctypes.c_char_p}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 # the wrappers' launch counters are read-modify-writes from every thread
 # that launches (PipelinedRunner's extract and tracking threads)
 count_lock = threading.Lock()
-build_log: dict[str, str] = {}  # name -> nvcc output (incl. -Xptxas -v)
+build_log: dict[str, str] = {}  # name -> compiler output (nvcc's incl. -Xptxas -v)
+build_seconds: dict[str, float] = {}  # name -> wall time of its compiler process
 
 
 def _nvcc() -> str:
@@ -70,11 +92,41 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def _cxx() -> str:
+    """The host C++ compiler: ``$CXX``, else ``c++``, else ``g++``."""
+    for c in (os.environ.get("CXX"), "c++", "g++"):
+        path = c and shutil.which(c)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler found: set CXX (or install c++/g++)")
+
+
+@functools.lru_cache(maxsize=None)
+def _compiler_id(cxx: str) -> bytes:
+    return cxx.encode() + subprocess.run([cxx, "--version"], capture_output=True,
+                                         check=True).stdout
+
+
+def _source(name: str) -> Path:
+    return CSRC / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
+def _command(name: str, out: Path) -> list[str]:
+    if name in HOST_SOURCES:
+        return [_cxx(), *HOST_FLAGS, "-o", str(out), str(_source(name))]
+    return [_nvcc(), *FLAGS, f"-I{CSRC}", "-o", str(out), str(_source(name))]
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256()
-    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
-        h.update(p.read_bytes())
-    h.update(" ".join(FLAGS).encode())
+    if name in HOST_SOURCES:
+        h.update(_source(name).read_bytes())
+        h.update(" ".join(HOST_FLAGS).encode())
+        h.update(_compiler_id(_cxx()))
+    else:
+        for p in sorted(CSRC.glob("*.cuh")) + [_source(name)]:
+            h.update(p.read_bytes())
+        h.update(" ".join(FLAGS).encode())
     return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -84,37 +136,52 @@ def _start(name: str):
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *FLAGS, f"-I{CSRC}", "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, tmp, out
+    proc = subprocess.Popen(_command(name, tmp), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out, time.perf_counter()
 
 
 def _finish(name: str, started) -> None:
     if started is None:
         return
-    proc, tmp, out = started
+    proc, tmp, out, t0 = started
     log, _ = proc.communicate()
+    build_seconds[name] = time.perf_counter() - t0
     build_log[name] = log
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-    os.replace(tmp, out)
+        raise RuntimeError(f"{Path(proc.args[0]).name} failed for "
+                           f"csrc/{_source(name).name}:\n{log}")
+    os.replace(tmp, out)  # atomic: concurrent builds each rename a whole library
 
 
 def build_all(names=SOURCES) -> dict[str, float]:
-    """Compile every kernel library not yet built, one ``nvcc`` per source
-    running in parallel. Returns the wall time (s) and per-library logs
-    land in :data:`build_log`."""
+    """Compile every library not yet built, one compiler per source running
+    in parallel. Returns the wall time (s); each library's own compile time
+    lands in :data:`build_seconds` and its log in :data:`build_log`."""
     t0 = time.perf_counter()
     with _lock:
         started = {n: _start(n) for n in names}
-        for n, s in started.items():
-            _finish(n, s)
+        errors = []
+
+        def finish(n):
+            try:
+                _finish(n, started[n])
+            except RuntimeError as e:
+                errors.append(e)
+
+        waiters = [threading.Thread(target=finish, args=(n,)) for n in started]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
+        if errors:
+            raise errors[0]
     return {"build_s": time.perf_counter() - t0}
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name`` (built on first use)."""
+    """The loaded library ``name`` (built on first use; a failed build
+    raises)."""
     lib = _libs.get(name)
     if lib is None:
         with _lock:

@@ -14,7 +14,9 @@ order.
 
 The host stages are numpy copies of the JAX package's: ``merge_lines``
 (MergeLines + MergeTwoLines), ``filter_short_lines``,
-``assign_points_to_lines`` and ``match_lines``.
+``assign_points_to_lines`` and ``match_lines``. ``merge_lines`` runs the
+C++ copy of ``native.merge_lines`` on every device (host code); its numpy
+body stays as the plain version (``force_numpy=True``).
 """
 
 from __future__ import annotations
@@ -214,7 +216,8 @@ def _merge_two_lines_vec(a: np.ndarray, b: np.ndarray,
 
 
 def merge_lines(segs: np.ndarray, angle_thr: float = 0.1,
-                distance_thr: float = 15.0, ep_thr: float = 30.0) -> np.ndarray:
+                distance_thr: float = 15.0, ep_thr: float = 30.0,
+                force_numpy: bool = False) -> np.ndarray:
     """The reference's MergeLines, (N, 4) → (M, 4) float64:
 
     1. pairwise neighbours: principal-angle difference ≤ ``angle_thr``,
@@ -224,12 +227,19 @@ def merge_lines(segs: np.ndarray, angle_thr: float = 0.1,
     2. connected components (union-find);
     3. components > 2 re-split into longest-first seeds + their direct
        neighbours (in angle order);
-    4. a sequential pairwise merge fold within each sub-cluster."""
+    4. a sequential pairwise merge fold within each sub-cluster.
+
+    The C++ merge of ``native.py`` runs unless ``force_numpy``; it raises
+    where the library cannot be built."""
     N = len(segs)
     if N == 0:
         return segs
     if N == 1:
         return np.asarray(segs, np.float64).reshape(1, 4)
+    if not force_numpy:
+        from rspl_slam_tpu_torch import native
+
+        return native.merge_lines(segs, angle_thr, distance_thr, ep_thr)
     S = np.asarray(segs, np.float64)
     dx = S[:, 2] - S[:, 0]
     dy = S[:, 3] - S[:, 1]

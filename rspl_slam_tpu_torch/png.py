@@ -1,17 +1,20 @@
-"""PNG and PGM images with zlib and numpy: the port's stand-in for PIL.
+"""PNG, JPEG and PGM images without PIL: the port's stand-in for PIL.
 
 :func:`read_gray` returns what ``PIL.Image.open(p).convert("L")`` returns,
-as (H, W) uint8, for 8-bit PNGs in gray, gray + alpha, RGB and RGBA (every
-row filter) and for binary PGM (P5, maxval 255). RGB becomes gray with
-PIL's fixed-point luma, ``(R·19595 + G·38470 + B·7471 + 0x8000) >> 16``;
-alpha is dropped, as PIL drops it. Interlaced, palette and 16-bit PNGs and
-JPEG raise ``NotImplementedError`` (ROADMAP.md §1, item 4b).
+as (H, W) uint8, for PNG (every colour type, bit depth and interlace),
+baseline JPEG and binary PGM (P5, maxval 255). RGB becomes gray with PIL's
+fixed-point luma, ``(R·19595 + G·38470 + B·7471 + 0x8000) >> 16``; alpha
+and tRNS are dropped, as PIL drops them.
 
-Undoing the row filters is the decode's one sequential step: Avg and
-Paeth read the pixel to the left. :func:`unfilter_numpy` does it in numpy
-and Python (Sub and Up vectorized); :func:`unfilter_compiled` calls the
-host C++ loop of ``csrc/png_unfilter.cu``, built by ``ops/cuda_build`` at
-first use. The two agree bit for bit.
+8-bit non-interlaced PNGs in gray, gray + alpha, RGB and RGBA (what the
+EuRoC-class datasets hold) decode here with zlib and numpy, undoing the
+row filters in numpy and Python (:func:`unfilter_numpy`, Sub and Up
+vectorized) or, with ``compiled``, in the host C++ loop of
+``csrc/png_unfilter.cu`` (:func:`unfilter_compiled`, built by
+``ops/cuda_build`` at first use); the two agree bit for bit. Every other
+PNG (palette, 1/2/4/16-bit, Adam7) and JPEG decode in the host C++ of
+``native.py`` (``csrc/native_runtime.cpp``); progressive, arithmetic-coded,
+12-bit, lossless, CMYK and RGB JPEGs raise ``NotImplementedError``.
 
 :func:`write_png` writes 8-bit PNGs with one fixed filter or, by default,
 the filter per row that minimizes the sum of the filtered bytes read as
@@ -36,8 +39,8 @@ FILTERS = ("none", "sub", "up", "avg", "paeth")
 
 
 def _unsupported(what: str):
-    raise NotImplementedError(f"{what} is not read by the port's image reader "
-                              "(ROADMAP.md §1, item 4b)")
+    raise NotImplementedError(f"{what} is not read by read_png; read_gray decodes it "
+                              "through native.decode_u8")
 
 
 # ------------------------------------------------------------------ filters
@@ -104,6 +107,13 @@ def unfilter_compiled(raw: bytes, height: int, stride: int, bpp: int) -> np.ndar
 
 
 # ----------------------------------------------------------------- reading
+def _plain_png(data: bytes) -> bool:
+    """An 8-bit non-interlaced PNG that is not a palette image
+    (:func:`read_png` decodes it)."""
+    _, _, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", data[16:29])
+    return depth == 8 and ctype in _SAMPLES and not interlace
+
+
 def read_png(data: bytes, compiled: bool = False) -> np.ndarray:
     """8-bit non-interlaced PNG bytes → (H, W, samples) uint8 (1 gray,
     2 gray + alpha, 3 RGB, 4 RGBA). ``compiled``: undo the filters with the
@@ -169,23 +179,26 @@ def _read_pgm(data: bytes) -> np.ndarray:
         pos = end
     W, H, maxval = fields
     if maxval != 255:
-        _unsupported(f"a PGM with maxval {maxval}")
+        raise NotImplementedError(f"a PGM with maxval {maxval} is not read (maxval 255 only)")
     pos += 1  # the one whitespace byte before the samples
     return np.frombuffer(data, np.uint8, W * H, pos).reshape(H, W).copy()
 
 
 def read_gray(path: str, compiled: bool = False) -> np.ndarray:
     """An image file → (H, W) uint8 gray, equal to PIL's
-    ``Image.open(path).convert("L")`` on the files this module reads."""
+    ``Image.open(path).convert("L")`` on the files this module reads.
+    ``compiled``: the row-unfilter route of 8-bit PNGs (see the module)."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] == _SIG:
+    if data[:8] == _SIG and len(data) >= 29 and _plain_png(data):
         return to_luma(read_png(data, compiled))
     if data[:2] == b"P5":
         return _read_pgm(data)
-    if data[:3] == b"\xff\xd8\xff":
-        _unsupported("JPEG")
-    raise ValueError(f"{path}: not a PNG or binary PGM file")
+    if data[:8] == _SIG or data[:3] == b"\xff\xd8\xff":
+        from rspl_slam_tpu_torch import native
+
+        return native.decode_u8(data, path)
+    raise ValueError(f"{path}: not a PNG, JPEG or binary PGM file")
 
 
 # ----------------------------------------------------------------- writing

@@ -93,19 +93,23 @@ def _random_segments(rng, n):
 
 @pytest.mark.parametrize("seed", range(4))
 def test_merge_and_filter_match_jax(seed):
-    """``merge_lines`` equals JAX's numpy body (``force_numpy=True``)
-    exactly, and the two-pass filter around it. The row-wise pair merge, on
-    every neighbouring pair: JAX's row-wise merge exactly, and its scalar
-    ``merge_two_lines`` to 1e-12 (libm's atan/cos against numpy's differ in
-    the last bit)."""
+    """``merge_lines``'s numpy body (``force_numpy=True``) equals JAX's
+    exactly, and the two-pass filter around it; the default C++ merge
+    (``native.merge_lines``) gives the same shape within 1e-9 (libm's
+    atan/cos/hypot against numpy's may differ in the last bit). The
+    row-wise pair merge, on every neighbouring pair: JAX's row-wise merge
+    exactly, and its scalar ``merge_two_lines`` to 1e-12."""
     rng = np.random.default_rng(seed)
     segs = _random_segments(rng, 40 + 20 * seed).astype(np.float32)
     for thr in (30.0, 60.0):
         np.testing.assert_array_equal(tl.filter_short_lines(segs, thr),
                                       jl.filter_short_lines(segs, thr))
     for args in ((0.1, 15.0, 30.0), (0.12, 6.0, 25.0)):
-        np.testing.assert_array_equal(tl.merge_lines(segs, *args),
-                                      jl.merge_lines(segs, *args, force_numpy=True))
+        ref = jl.merge_lines(segs, *args, force_numpy=True)
+        np.testing.assert_array_equal(tl.merge_lines(segs, *args, force_numpy=True), ref)
+        got = tl.merge_lines(segs, *args)
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-9)
     a, b = segs[:-1].astype(np.float64), segs[1:].astype(np.float64)
     on = np.ones(len(a), bool)
     pairs = tl._merge_two_lines_vec(a, b, on)
