@@ -12,6 +12,8 @@
     python3 chip_smoke.py --native   # device, build, kernels, end_to_end_lines,
                                      # merge_ab, cli_run, native, cli_photo,
                                      # summary
+    python3 chip_smoke.py --unequal  # device, build, kernels, unequal (4c
+                                     # below), summary
 
 Phases (one JSON line each):
   1. the card's name and power limit; build every library from
@@ -22,7 +24,10 @@ Phases (one JSON line each):
      PyTorch version on the same inputs (tolerance in the line), and CUDA
      event timings of the kernel, the plain version and, where one PyTorch
      call computes the same function, that call (a yardstick only); K1 also
-     in its side-output mode, K2 in its bf16 (main path) and f32 modes;
+     in its side-output mode, K2 in its bf16 (main path) and f32 modes, and
+     K2's two-set variant (SuperGlue with M != N: 400 keypoints over 300
+     and 300 over 400) in both modes; K3 also on the rectangular plans
+     (401, 301) and (301, 401);
   3. ``local_ba_check``: local BA (``backend/local_ba.optimize_local_map``,
      no kernel of its own) on the card against the same function on CPU
      tensors, on the captured divergence window and on a synthetic window
@@ -110,6 +115,11 @@ Phases (one JSON line each):
      solve (the full schedule's distance from the single solve measured
      beside the single solve's own spread: f32 rounding on that map is of
      the order of S's entries);
+  4c. ``unequal`` (after ``end_to_end_lazy``): SuperPoint's pixel-space
+     path (``extract`` at ``nms_radius`` 2 and 10, K1 on the pair) and
+     ``match_pair`` with M != N at ``SuperGlueConfig()`` (K2's two-set
+     variant and K3 on the (M+1, N+1) plan), gated as ``phase_unequal``
+     says;
   5. the command line, as a user types it, in a subprocess that cannot
      import PyYAML, PIL or matplotlib (stub packages that raise on import
      come first on its path, as on a card machine without them):
@@ -180,9 +190,10 @@ Phases (one JSON line each):
      default main path; each path's counts in ``launches_by_path``, the
      CLI's as ``cli_run``, the training phases' under their names; each
      path's ATE in ``ate_by_path``); last line {"ok": true, "device":
-     ...}. With --kernels, phases 3-6 are skipped and the summary's launch
-     counts are null; --training runs ``end_to_end_ba`` and phase 6 alone;
-     --parallel runs ``end_to_end_loop`` and phase 4b (the summary's
+     ...}. K2's two-set variant takes its launches from ``unequal``.
+     With --kernels, phases 3-6 are skipped and the summary's launch
+     counts are null; --unequal runs ``unequal`` alone; --training runs
+     ``end_to_end_ba`` and phase 6 alone; --parallel runs ``end_to_end_loop`` and phase 4b (the summary's
      launches are then ``multi_sequence``'s); --native runs
      ``end_to_end_lines``, ``merge_ab`` (the lines path with the numpy
      merge in place of the compiled one, in turns) and ``cli_run``,
@@ -570,17 +581,102 @@ def _sinkhorn_case(gen, M, N, valid0, valid1, matcher: bool, iters: int = 100,
 
 
 def check_sinkhorn():
-    """K3 at the main path's shape (the timed line), and at OIVIO's K = 600
-    and the matcher's score scale (checks listed in the summary)."""
+    """K3 at the main path's shape (the timed line), and at OIVIO's K = 600,
+    the matcher's score scale and the rectangular plans of M != N, 400 × 300
+    and 300 × 400 (checks listed in the summary)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     line = _sinkhorn_case(gen, 400, 400, 371, 352, matcher=False)
     line["checks"] = [
-        {k: c[k] for k in ("shape", "scores", "valid", "max_abs_err", "ms",
+        {k: c[k] for k in ("shape", "scores", "valid", "max_abs_err", "ms", "plain_ms",
                            "bound_ms", "bound_fraction")}
         for c in (_sinkhorn_case(gen, 600, 600, 577, 541, matcher=False, plain_n=2),
-                  _sinkhorn_case(gen, 400, 400, 200, 337, matcher=True, plain_n=2))]
+                  _sinkhorn_case(gen, 400, 400, 200, 337, matcher=True, plain_n=2),
+                  # SuperGlue with M != N: the rectangular (M+1, N+1) plans
+                  _sinkhorn_case(gen, 400, 300, 371, 262, matcher=False, plain_n=2),
+                  _sinkhorn_case(gen, 300, 400, 262, 371, matcher=False, plain_n=2))]
+    return line
+
+
+def _two_set_bound(ac, layer, B, M, N, compute_dtype):
+    """(flops, bytes, bound ms, bound by) of one two-set K2 layer: B sets of
+    M queries over sources of N (x and the source in, the output out, the
+    source mask, each layer tensor of the mode once)."""
+    import torch
+
+    C = 256
+    flops = 2.0 * B * (M * C * C + N * C * 2 * C + 2 * M * N * C + M * C * C
+                       + M * 2 * C * 2 * C + M * 2 * C * C)
+    nbytes = 4.0 * (2 * B * M * C + B * N * C + B * N) + sum(
+        layer[k].numel() * layer[k].element_size() for k in ac.LAYER_KEYS[compute_dtype])
+    peak = PEAK_BF16 if compute_dtype == torch.bfloat16 else PEAK_F32
+    return (flops, nbytes) + bound_ms(flops, nbytes, peak)
+
+
+def check_superglue_layer_two_set(bf16: bool):
+    """K2's two-set variant (a query set over a source set of another
+    length: SuperGlue's path for M != N) in its bf16 or f32 mode against
+    its plain version, each set over the other (the source partly masked)
+    and over itself: 400 keypoints over 300 (the line) and 300 over 400
+    (in ``checks``), both timed over the other set; the bf16 mode also at a
+    ragged 24 over 17."""
+    import torch
+
+    from rspl_slam_tpu_torch.ops import attention_cuda as ac
+
+    dev = "cuda"
+    dt = torch.bfloat16 if bf16 else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(12)
+    layer = ac.pack_layer(_random_layer(gen, 256, dev), dev)
+    if bf16:
+        rtol, atol = K2_BF16_TOL
+        tol = "|k-p| <= 2^-8|p| + 4e-3 (bf16 operands; another f32 summation order)"
+    else:
+        rtol, atol = 1e-3, 1e-3
+        tol = "rtol 1e-3, atol 1e-3 (f32, other summation order)"
+
+    def case(M, N, timed=True):
+        x = torch.randn((1, M, 256), generator=gen, device=dev)
+        src = torch.randn((1, N, 256), generator=gen, device=dev)
+        m_src = torch.arange(N, device=dev)[None] < N - N // 5
+        m_x = torch.arange(M, device=dev)[None] < M - M // 7
+        errs, ok = [], True
+        for s, m in ((src, m_src), (x, m_x)):
+            got = ac.superglue_layer_two_set(x, s, m, layer, compute_dtype=dt)
+            ref = ac.superglue_layer_two_set_plain(x, s, m, layer, compute_dtype=dt)
+            torch.cuda.synchronize()
+            o, e = _allclose_report("superglue_layer_two_set", got, ref, rtol, atol)
+            ok &= o
+            errs.append(e)
+        out = {"shape": [1, M, N], "valid_source": N - N // 5, "ok": ok,
+               "max_abs_err": max(errs), "max_abs_err_other_self": errs}
+        if timed:
+            scratch = (ac.layer_scratch(x, None, dt), ac.layer_scratch(src, m_src, dt))
+            flops, nbytes, bms, by = _two_set_bound(ac, layer, 1, M, N, dt)
+            out.update({
+                "ms": time_ms(lambda: ac.superglue_layer_two_set(
+                    x, src, m_src, layer, compute_dtype=dt, scratch=scratch)),
+                "host_ms": host_ms(lambda: ac.superglue_layer_two_set(
+                    x, src, m_src, layer, compute_dtype=dt, scratch=scratch)),
+                "plain_ms": time_ms(lambda: ac.superglue_layer_two_set_plain(
+                    x, src, m_src, layer, compute_dtype=dt)),
+                "library_ms": None, "bound_ms": bms, "bound_by": by, "flops": flops,
+                "bytes": nbytes})
+            out.update(rates(out))
+        return out
+
+    main = case(400, 300)
+    checks = [case(300, 400)] + ([case(24, 17, timed=False)] if bf16 else [])
+    ok = main["ok"] and all(c["ok"] for c in checks)
+    line = {"phase": "kernel",
+            "name": "superglue_layer_two_set" if bf16 else "superglue_layer_two_set_f32",
+            "compute_dtype": str(dt).replace("torch.", ""), **main, "ok": ok,
+            "tolerance": tol, "checks": checks,
+            "library": "none: no single PyTorch call computes a whole GNN layer"}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"{line['name']} disagrees: {main}, {checks}")
     return line
 
 
@@ -595,6 +691,7 @@ def _reset_counters():
 
     conv_stem_cuda.launches = conv_stem_cuda.side_launches = 0
     attention_cuda.launches = attention_cuda.f32_launches = 0
+    attention_cuda.two_set_launches = attention_cuda.two_set_f32_launches = 0
     sinkhorn_cuda.launches = 0
 
 
@@ -1060,6 +1157,274 @@ RELOC_REANCHOR_BOUND = 0.204  # m, the neural re-anchoring route's error
 EPI_ATE_BOUND = 0.36  # m
 EPI_JAX_KEPT = (1.0, 1.0, 1.0, 1.0, 1.0)  # JAX's kept inlier share per planted set
 EPI_KEPT_MARGIN = 0.02
+
+
+UNEQUAL_RADII = (2, 10)  # nms_radius outside 3..8: SuperPoint's pixel-space path
+UNEQUAL_SETS = ((400, 300), (300, 400))  # SuperGlue's M != N shapes
+UNEQUAL_MIN_KEYPOINTS = 100  # valid keypoints per image at radius 2
+# K2's bf16 kernel lines: |k - p| <= 2^-8 |p| + 4e-3 (one bf16 intermediate
+# on the other side of a rounding boundary after another f32 summation order)
+K2_BF16_TOL = (2.0 ** -8, 4e-3)
+UNEQUAL_TOLERANCE = (
+    "bf16 log plan: |kernel - plain| <= 2x |plain on the CPU - plain| (max over valid "
+    "entries); each layer on the plain forward's input: max |kernel - plain| <= max |plain "
+    "bf16 - plain f32| over valid rows (the kernel nearer its plain version than the bf16 "
+    "contract is to f32); K3 1e-3; f32 log plan: the larger of 2x its spread and 1e-3")
+
+
+def _sets_equal(xy_a, sc_a, v_a, xy_b, sc_b, v_b) -> bool:
+    """Two keypoint selections hold the same valid keypoints with equal
+    scores (as sets: topk may order exactly-equal scores otherwise)."""
+    def keyed(xy, sc, v):
+        return {tuple(p): float(c) for p, c in zip(xy[v].tolist(), sc[v].tolist())}
+
+    return all(keyed(xy_a[b], sc_a[b], v_a[b]) == keyed(xy_b[b], sc_b[b], v_b[b])
+               for b in range(xy_a.shape[0]))
+
+
+def _layers_on_plain_inputs(sg, arrays, cfg):
+    """``match_pair``'s GNN at bf16 one layer at a time, on the plain
+    forward's own inputs: each layer through its kernel (K2's two-set
+    variant, each set over its source, where M != N; the stacked K2 where M
+    == N) against its plain version on the same input (the plain output
+    goes on), beside the same plain layer on the CPU (its own spread) and
+    at f32 (what the bf16 contract itself changes); then K3 on the plain
+    forward's (M+1, N+1) Sinkhorn problem against the plain sweeps.
+    Returns (per layer [kernel vs plain, CPU plain vs plain, plain bf16 vs
+    plain f32] max |difference| over valid query rows, K3's max |error| on
+    valid entries, the first cross layer's inputs, the Sinkhorn problem)."""
+    import torch
+
+    from rspl_slam_tpu_torch.models.superglue import _apply_mlp, _final_proj
+    from rspl_slam_tpu_torch.ops import attention_cuda as ac
+    from rspl_slam_tpu_torch.ops import sinkhorn as sk
+    from rspl_slam_tpu_torch.ops import sinkhorn_cuda as skc
+    from rspl_slam_tpu_torch.ops.matching import normalize_keypoints
+
+    dt = torch.bfloat16
+    xy0, sc0, d0, v0, xy1, sc1, d1, v1 = arrays
+    B, M = d0.shape[:2]
+
+    def encoded(xy, sc, d):
+        enc = torch.cat([normalize_keypoints(xy, cfg.image_width, cfg.image_height),
+                         sc[..., None]], -1)
+        return (d + _apply_mlp(sg.kenc, enc, dt)).contiguous()
+
+    def diffs(got, ref, cpu, ref32, v):
+        return [float((got - ref).abs()[v].max()), float((cpu - ref.cpu()).abs()[v.cpu()].max()),
+                float((ref - ref32).abs()[v].max())]
+
+    with torch.no_grad():
+        x0, x1 = encoded(xy0, sc0, d0), encoded(xy1, sc1, d1)
+        errs, cross_in = [], None
+        for li, layer in enumerate(sg.gnn):
+            cross = li % 2 == 1
+            if cross and cross_in is None:
+                cross_in = (x0, x1)
+            lay_cpu = {k: v.cpu() for k, v in layer.items()}
+
+            def run(lay, x, src, m, d, kernel=False):  # src None: the stacked layer
+                if src is None:
+                    f = ac.superglue_layer if kernel else ac.superglue_layer_plain
+                    return f(x, m, lay, cross, compute_dtype=d)
+                f = ac.superglue_layer_two_set if kernel else ac.superglue_layer_two_set_plain
+                return f(x, src, m, lay, compute_dtype=d)
+
+            if M == d1.shape[1]:  # stacked, as match_pair runs equal sets
+                m = torch.cat([v0, v1])
+                calls = [(torch.cat([x0, x1]).contiguous(), None, m, m)]
+            else:
+                calls = [(x0, x1 if cross else x0, v1 if cross else v0, v0),
+                         (x1, x0 if cross else x1, v0 if cross else v1, v1)]
+            err, outs = [0.0, 0.0, 0.0], []
+            for x, src, m, v in calls:
+                ref = run(layer, x, src, m, dt)
+                cpu = run(lay_cpu, x.cpu(), None if src is None else src.cpu(), m.cpu(), dt)
+                e = diffs(run(layer, x, src, m, dt, kernel=True), ref, cpu,
+                          run(layer, x, src, m, torch.float32), v)
+                err = [max(a, b) for a, b in zip(err, e)]
+                outs.append(ref)
+            x0, x1 = outs if len(outs) == 2 else (outs[0][:B], outs[0][B:])
+            errs.append(err)
+        sim = torch.einsum("bmc,bnc->bmn", _final_proj(sg, x0, dt),
+                           _final_proj(sg, x1, dt)) / cfg.descriptor_dim ** 0.5
+        Z0, mu, nu, _ = sk.build_problem(sim, v0, v1, sg.bin_score)
+        got = skc.sinkhorn_iterations(Z0, mu, nu, cfg.sinkhorn_iterations)
+        ref = sk.sinkhorn_iterations_plain(Z0, mu, nu, cfg.sinkhorn_iterations)
+        torch.cuda.synchronize()
+    _, k3_err = _allclose_report("sinkhorn", got, ref, 0.0, K3_ATOL, _plan_sel(v0, v1))
+    return errs, k3_err, cross_in, (Z0, mu, nu)
+
+
+def phase_unequal():
+    """What the port runs beside the main path at full width, each path
+    with the launch counters reset just before and read just after:
+    (1) SuperPoint's pixel-space path, ``extract`` at ``nms_radius`` 2 and
+    10 (bf16, random weights, seed 0) on the end-to-end scene's first
+    752×480 pair: gated on one K1 launch per extraction, finite output,
+    ≥ 100 valid keypoints per image at radius 2 and the NMS + top-K on the
+    card equal to the plain versions on the CPU, on the card's own
+    ``dense_heads`` map (same keypoints and scores), the descriptors
+    sampled there within 1e-5 of the plain sampling on the CPU; (2) ``match_pair`` with ``SuperGlueConfig()`` (18
+    layers, 100 iterations, random weights, seed 0) on the radius-2
+    features cut to M = 400 against N = 300 and M = 300 against N = 400:
+    gated at bf16 on 36 launches of K2's two-set variant and one of K3 on
+    the (M+1, N+1) plan per match (the stacked K2 none), a finite log plan
+    of that shape within 2× the plain version's own spread (the same plain
+    function on the CPU) of the plain forward's, each layer through the
+    variant on the plain forward's own input nearer its plain version than
+    the plain version at bf16 is to the same at f32, K3 on the plain
+    forward's problem within its kernel line's 1e-3; then the variant's f32
+    mode
+    through ``match_pair`` (36 f32 launches) within 2× the f32 plain
+    spread, or 1e-3 where that is smaller. Each match line has the
+    variant's CUDA-event ms on the first cross layer's inputs and K3's on
+    the plan, beside their bounds. (3) The control: the stacked K2 at M = N
+    = 400 on the same features, held by the same per-layer rule."""
+    import torch
+
+    from rspl_slam_tpu_torch.config import SuperGlueConfig, SystemConfig
+    from rspl_slam_tpu_torch.models import superglue, superpoint
+    from rspl_slam_tpu_torch.models.weights import (superglue_from_numpy, superpoint_from_numpy,
+                                                    to_tensor_tree)
+    from rspl_slam_tpu_torch.ops import attention_cuda as ac
+    from rspl_slam_tpu_torch.ops import keypoints as kp
+    from rspl_slam_tpu_torch.ops import sinkhorn_cuda as skc
+    from rspl_slam_tpu_torch.ops.matching import mutual_match_decode
+    from rspl_slam_tpu_torch.training import superglue_train
+
+    cfg = SystemConfig()
+    frames, _, _ = _scene(cfg, lines=False, n=1)
+    imgs = torch.from_numpy(np.stack(frames[0])).to("cuda")
+    sp = superpoint_from_numpy(superpoint.init_params(0), "cuda")
+    counts_all, feats, sp_lines = {}, {}, []
+    for r in UNEQUAL_RADII:
+        spc = dataclasses.replace(cfg.superpoint, nms_radius=r)
+        _reset_counters()
+        f = superpoint.extract(sp, imgs, spc, torch.bfloat16)
+        torch.cuda.synchronize()
+        counts = _counters()
+        feats[r] = f
+        with torch.no_grad():
+            scores, desc = superpoint.dense_heads(sp, imgs, torch.bfloat16)
+            card = kp.top_k_keypoints(kp.simple_nms(scores, r), spc.max_keypoints,
+                                      spc.keypoint_threshold, spc.remove_borders)
+            plain = kp.top_k_keypoints(kp.simple_nms(scores.cpu(), r), spc.max_keypoints,
+                                       spc.keypoint_threshold, spc.remove_borders)
+            d_card = kp.sample_descriptors(card[0], desc, 8)
+            d_plain = kp.sample_descriptors(card[0].cpu(), desc.cpu(), 8)
+        nms_equal = _sets_equal(*(t.cpu() for t in card), *plain)
+        v = card[2].cpu()
+        desc_err = float((d_card.cpu()[v] - d_plain[v]).abs().max())
+        same = f.valid.cpu() & card[2].cpu() & (f.xy.cpu() == card[0].cpu()).all(-1)
+        n_valid = f.valid.sum(1).tolist()
+        finite = all(bool(torch.isfinite(t).all()) for t in (f.xy, f.score, f.desc))
+        line = {"phase": "unequal", "part": "superpoint", "card": CARD, "nms_radius": r,
+                "image": list(imgs.shape), "valid_keypoints": n_valid,
+                "nms_topk_equal_plain": nms_equal, "desc_max_abs_err": desc_err,
+                "extract_equal_share": float(same.sum()) / max(1, int(f.valid.sum())),
+                "ms": time_ms(lambda: superpoint.extract(sp, imgs, spc, torch.bfloat16), n=5),
+                "launches": counts}
+        emit(line)
+        sp_lines.append(line)
+        if not (finite and counts["conv_stem"] == 1 and nms_equal and desc_err <= 1e-5):
+            raise AssertionError(f"unequal: extract at nms_radius {r}: {line}")
+        if r == UNEQUAL_RADII[0] and min(n_valid) < UNEQUAL_MIN_KEYPOINTS:
+            raise AssertionError(f"unequal: {n_valid} keypoints at nms_radius {r}")
+        counts_all = {k: counts_all.get(k, 0) + c for k, c in counts.items()}
+
+    sgc = SuperGlueConfig()
+    params = superglue.init_params(sgc, 0)
+    sg = superglue_from_numpy(params, sgc, "cuda")
+    f = feats[UNEQUAL_RADII[0]]
+    tree, tree_cpu = to_tensor_tree(params, "cuda"), to_tensor_tree(params, "cpu")
+    match_lines = []
+    for M, N in UNEQUAL_SETS:
+        arrays = tuple(t[0:1, :M].contiguous() for t in (f.xy, f.score, f.desc, f.valid)) + \
+            tuple(t[1:2, :N].contiguous() for t in (f.xy, f.score, f.desc, f.valid))
+        v0, v1 = arrays[3], arrays[7]
+        sel = _plan_sel(v0, v1)
+        out = {}
+        for dt in (torch.bfloat16, torch.float32):
+            _reset_counters()
+            res = superglue.match_pair(sg, *arrays, sgc, compute_dtype=dt)
+            torch.cuda.synchronize()
+            counts = _counters()
+            with torch.no_grad():
+                z_p = superglue_train.log_plan(tree, *arrays, sgc, dt)
+                z_cpu = superglue_train.log_plan(tree_cpu, *(a.cpu() for a in arrays), sgc, dt)
+                ref = mutual_match_decode(z_p, v0, v1, sgc.match_threshold)[0]
+            out[dt] = {"counts": counts, "res": res, "z_p": z_p,
+                       "err": float((res.log_plan - z_p).abs()[sel].max()),
+                       "spread": float((z_cpu - z_p.cpu()).abs()[sel.cpu()].max()),
+                       "decode_equal_share": float((res.indices0 == ref)[v0].float().mean()),
+                       "ms": time_ms(lambda: superglue.match_pair(sg, *arrays, sgc,
+                                                                  compute_dtype=dt), n=5)}
+            counts_all = {k: counts_all.get(k, 0) + c for k, c in counts.items()}
+        bf, f32 = out[torch.bfloat16], out[torch.float32]
+        layer_errs, k3_err, (x0, x1), (Z0, mu, nu) = _layers_on_plain_inputs(sg, arrays, sgc)
+        layers_ok = all(k <= g for k, _, g in layer_errs)
+        bf16_gap = float((bf["z_p"] - f32["z_p"]).abs()[sel].max())
+        layer = sg.gnn[1]
+        k2_flops, k2_bytes, k2_bms, k2_by = _two_set_bound(ac, layer, 1, M, N, torch.bfloat16)
+        scratch = (ac.layer_scratch(x0, None, torch.bfloat16),
+                   ac.layer_scratch(x1, v1, torch.bfloat16))
+        k2_ms = time_ms(lambda: ac.superglue_layer_two_set(
+            x0, x1, v1, layer, compute_dtype=torch.bfloat16, scratch=scratch))
+        sweeps = 2 * sgc.sinkhorn_iterations * (M + 1) * (N + 1)
+        k3_bms, k3_by = bound_ms(4.0 * sweeps, 4.0 * (2 * (M + 1) * (N + 1) + M + N + 2),
+                                 PEAK_F32, sfu_ops=sweeps)
+        res = bf["res"]
+        f32_tol = max(TRAIN_SG_BF16_SPREAD * f32["spread"], TRAIN_SG_F32_ATOL)
+        line = {"phase": "unequal", "part": "match_pair", "card": CARD, "M": M, "N": N,
+                "valid": [int(v0.sum()), int(v1.sum())], "layers": sgc.num_gnn_layers,
+                "iters": sgc.sinkhorn_iterations, "log_plan_shape": list(res.log_plan.shape),
+                "match_ms_bf16": bf["ms"], "match_ms_f32": f32["ms"],
+                "launches_bf16": bf["counts"], "launches_f32": f32["counts"],
+                "decoded_matches": int((res.indices0 >= 0).sum()),
+                "decode_equal_share_bf16": bf["decode_equal_share"],
+                "decode_equal_share_f32": f32["decode_equal_share"],
+                "log_plan_max_abs_err_bf16": bf["err"], "log_plan_cpu_plain_spread_bf16":
+                bf["spread"], "log_plan_max_abs_err_f32": f32["err"],
+                "log_plan_cpu_plain_spread_f32": f32["spread"], "f32_tolerance": f32_tol,
+                "plain_bf16_vs_f32_max_abs_diff": bf16_gap,
+                "k2_layer_max_abs_diff_kernel_cpu_spread_bf16_vs_f32": layer_errs,
+                "k3_max_abs_err": k3_err,
+                "k2_two_set_ms": k2_ms, "k2_two_set_bound_ms": k2_bms, "k2_two_set_bound_by":
+                k2_by, "k3_ms": time_ms(lambda: skc.sinkhorn_iterations(
+                    Z0, mu, nu, sgc.sinkhorn_iterations)),
+                "k3_bound_ms": k3_bms, "k3_bound_by": k3_by,
+                "k2_layers_ok": layers_ok, "tolerance": UNEQUAL_TOLERANCE}
+        emit(line)
+        match_lines.append(line)
+        n_layers = 2 * sgc.num_gnn_layers
+        launches_ok = (bf["counts"]["superglue_layer_two_set"] == n_layers
+                       and f32["counts"]["superglue_layer_two_set_f32"] == n_layers
+                       and bf["counts"]["sinkhorn"] == f32["counts"]["sinkhorn"] == 1
+                       and bf["counts"]["superglue_layer"] == 0
+                       and f32["counts"]["superglue_layer_f32"] == 0)
+        values_ok = (tuple(res.log_plan.shape) == (1, M + 1, N + 1)
+                     and bool(torch.isfinite(res.log_plan).all())
+                     and bf["err"] <= TRAIN_SG_BF16_SPREAD * bf["spread"]
+                     and layers_ok and k3_err <= K3_ATOL and f32["err"] <= f32_tol)
+        if not (launches_ok and values_ok):
+            raise AssertionError(f"unequal: match_pair {M} against {N}: {line}")
+
+    # the control: the stacked K2 on the same features at M = N = 400, held
+    # by the same per-layer rule (random weights grow the residual stream
+    # to |x| ~ 8 by the last layer, past what the kernel lines' N(0, 1)
+    # inputs and their elementwise tolerance assume, for both kernels)
+    arrays = tuple(t[b:b + 1].contiguous() for b in (0, 1)
+                   for t in (f.xy, f.score, f.desc, f.valid))
+    layer_errs, k3_err, _, _ = _layers_on_plain_inputs(sg, arrays, sgc)
+    control = {"phase": "unequal", "part": "stacked_control", "card": CARD, "M": 400, "N": 400,
+               "k2_layer_max_abs_diff_kernel_cpu_spread_bf16_vs_f32": layer_errs,
+               "k2_layers_ok": all(k <= g for k, _, g in layer_errs), "k3_max_abs_err": k3_err,
+               "tolerance": UNEQUAL_TOLERANCE}
+    emit(control)
+    if not (control["k2_layers_ok"] and k3_err <= K3_ATOL):
+        raise AssertionError(f"unequal: the stacked control: {control}")
+    return sp_lines + match_lines + [control], counts_all
 
 
 def loop_sequence():
@@ -3596,12 +3961,20 @@ SOURCES = {
                   "rspl_slam_tpu/ops/conv_stem_pallas.py:126"),
     "superglue_layer": ("rspl_slam_tpu_torch/csrc/superglue_layer.cu",
                         "rspl_slam_tpu/ops/attention_pallas.py:93"),
+    # K2's two-set variant (M != N), which the Pallas kernel's caller left
+    # to XLA (models/superglue.py:311-336)
+    "superglue_layer_two_set": ("rspl_slam_tpu_torch/csrc/superglue_layer.cu",
+                                "rspl_slam_tpu/ops/attention_pallas.py:93"),
     "sinkhorn": ("rspl_slam_tpu_torch/csrc/sinkhorn.cu",
                  "rspl_slam_tpu/ops/sinkhorn_pallas.py:61"),
 }
-# K1's side-output mode (RCF) and K2's f32 mode, listed under the main line
+# K1's side-output mode (RCF) and K2's f32 modes, listed under the main line
 OTHER_MODES = {"conv_stem": ("side_mode", "conv_stem_side"),
-               "superglue_layer": ("f32_mode", "superglue_layer_f32")}
+               "superglue_layer": ("f32_mode", "superglue_layer_f32"),
+               "superglue_layer_two_set": ("f32_mode", "superglue_layer_two_set_f32")}
+# the path whose run gives a kernel's ``launches`` where it is not the
+# default main path's
+KERNEL_PATHS = {"superglue_layer_two_set": "unequal"}
 KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "tflops", "bound_fraction")
 
@@ -3609,10 +3982,12 @@ KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
 def phase_summary(lines, by_path, ate_by_path):
     """``by_path`` maps each end-to-end path to its launch counts, the
     default main path (``end_to_end_ba``) first; empty with --kernels
-    (no path ran: launch counts null). ``ate_by_path``: each path's ATE."""
-    launches = by_path.get("end_to_end_ba", by_path.get("multi_sequence"))
+    (no path ran: launch counts null). A kernel of ``KERNEL_PATHS`` takes
+    its ``launches`` from its own path. ``ate_by_path``: each path's ATE."""
+    main_launches = by_path.get("end_to_end_ba", by_path.get("multi_sequence"))
     kernels = []
     for name, (src, tpu) in SOURCES.items():
+        launches = by_path.get(KERNEL_PATHS[name]) if name in KERNEL_PATHS else main_launches
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
              "launches": launches and launches[name],
              "launches_by_path": {p: c[name] for p, c in by_path.items()},
@@ -3686,12 +4061,16 @@ def main(argv) -> int:
     lines["conv_stem_side"] = check_conv_stem(side=True)
     lines["superglue_layer"] = check_superglue_layer(bf16=True)
     lines["superglue_layer_f32"] = check_superglue_layer(bf16=False)
+    lines["superglue_layer_two_set"] = check_superglue_layer_two_set(bf16=True)
+    lines["superglue_layer_two_set_f32"] = check_superglue_layer_two_set(bf16=False)
     lines["sinkhorn"] = check_sinkhorn()
     phase_png_unfilter()
     by_path, ate_by_path = {}, {}
-    if "--kernels" not in argv:
+    if "--kernels" not in argv and "--unequal" not in argv:
         phase_batch_kernels(lines)
-    if "--native" in argv:
+    if "--unequal" in argv:
+        _, by_path["unequal"] = phase_unequal()
+    elif "--native" in argv:
         merge_inputs = []
         line, by_path["end_to_end_lines"], run = phase_end_to_end(
             lines=True, name="end_to_end_lines", record_merge=merge_inputs)
@@ -3737,6 +4116,9 @@ def main(argv) -> int:
         line, by_path["end_to_end_lazy"] = phase_end_to_end_lazy(
             by_path["end_to_end_ba"]["sinkhorn"])
         ate_by_path["end_to_end_lazy"] = line["ate_rmse_m"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, by_path["unequal"] = phase_unequal()
         gc.collect()
         torch.cuda.empty_cache()
         line, by_path["end_to_end_loop"], frames, gt = phase_end_to_end_loop()

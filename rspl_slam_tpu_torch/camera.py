@@ -1,6 +1,8 @@
-"""Rectified stereo camera helpers (port of camera.py): the host numpy
-rectification-map builder (a copy — the JAX module imports jax) and the
-bilinear remap on torch tensors with the JAX border clamp."""
+"""Rectified stereo camera helpers (port of camera.py): projection,
+back-projection and the stereo gates on torch tensors over a
+:class:`CameraConfig`, the rectification maps built on the host in numpy
+(a copy — the JAX module imports jax) and the bilinear remap with the JAX
+border clamp."""
 
 from __future__ import annotations
 
@@ -9,7 +11,50 @@ import torch
 
 from rspl_slam_tpu_torch.config import CameraConfig
 
-__all__ = ["build_rectify_maps", "remap_bilinear"]
+__all__ = [
+    "project", "back_project", "stereo_project", "back_project_stereo",
+    "disparity_to_depth", "stereo_gate", "build_rectify_maps", "remap_bilinear",
+]
+
+
+def project(cfg: CameraConfig, p_cam: torch.Tensor) -> torch.Tensor:
+    """(..., 3) camera-frame points → (..., 2) pixels (camera.h:42-49)."""
+    z = p_cam[..., 2]
+    u = cfg.fx * p_cam[..., 0] / z + cfg.cx
+    v = cfg.fy * p_cam[..., 1] / z + cfg.cy
+    return torch.stack([u, v], -1)
+
+
+def back_project(cfg: CameraConfig, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Pixels + depth → camera-frame 3D (camera.h:51-58)."""
+    x = (uv[..., 0] - cfg.cx) / cfg.fx * depth
+    y = (uv[..., 1] - cfg.cy) / cfg.fy * depth
+    return torch.stack([x, y, depth], -1)
+
+
+def stereo_project(cfg: CameraConfig, p_cam: torch.Tensor) -> torch.Tensor:
+    """(..., 3) → (..., 3) [uL, vL, uR] with uR = uL − bf/z (camera.h:60-70)."""
+    z = p_cam[..., 2]
+    u = cfg.fx * p_cam[..., 0] / z + cfg.cx
+    v = cfg.fy * p_cam[..., 1] / z + cfg.cy
+    return torch.stack([u, v, u - cfg.bf / z], -1)
+
+
+def disparity_to_depth(cfg: CameraConfig, disparity: torch.Tensor) -> torch.Tensor:
+    """depth = bf / (uL − uR) (camera.cc:157-162), the disparity held ≥ 1e-6."""
+    return cfg.bf / disparity.clamp_min(1e-6)
+
+
+def back_project_stereo(cfg: CameraConfig, uvL: torch.Tensor, uR: torch.Tensor) -> torch.Tensor:
+    return back_project(cfg, uvL, disparity_to_depth(cfg, uvL[..., 0] - uR))
+
+
+def stereo_gate(cfg: CameraConfig, uvL: torch.Tensor, uvR: torch.Tensor) -> torch.Tensor:
+    """Valid-stereo-association mask: min_x_diff < uL−uR < max_x_diff and
+    |vL−vR| ≤ max_y_diff (frame.cc:157-167)."""
+    dx = uvL[..., 0] - uvR[..., 0]
+    dy = (uvL[..., 1] - uvR[..., 1]).abs()
+    return (dx > cfg.min_x_diff) & (dx < cfg.max_x_diff) & (dy <= cfg.max_y_diff)
 
 
 def _distort_radtan(x, y, D):

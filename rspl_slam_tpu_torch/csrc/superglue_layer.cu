@@ -12,6 +12,14 @@
 // of the stack as source (set s <-> set (s + B) mod 2B) with its mask, as
 // models/superglue.py:292-304 does. C = 256, 4 heads of 64.
 //
+// Two-set variant (superglue_layer_two_set*_launch): the query set X (B, M)
+// attends over a source set S (B, N) of another length under S's mask, the
+// unstacked path that models/superglue.py:311-336 takes when M != N. The
+// same kernels run it with the query and source lengths as two runtime
+// parameters and the Q columns projected from X's rows into X's scratch,
+// the K and V columns from S's rows into S's scratch, so a layer's two
+// calls (X0 over S0, X1 over S1) project each set's Q, K and V once.
+//
 // Two modes, chosen by the wrapper's compute_dtype (ops/attention_cuda.py):
 //
 // bf16 (the main path; the JAX package's default compute_dtype). Every
@@ -122,6 +130,9 @@ __device__ __forceinline__ void load_rows(float* sX, const float* __restrict__ X
   }
 }
 
+// columns [C0 * C, (C0 + NC) * C) of X [Wq | Wk | Wv] + b: all three (0, 3),
+// Q alone (0, 1) or K and V (1, 2)
+template <int C0, int NC>
 __global__ void __launch_bounds__(NT)
 qkv_kernel(const float* __restrict__ X, const float* __restrict__ Wqkv,
            const float* __restrict__ bqkv, float* __restrict__ QKV, int nrows) {
@@ -129,15 +140,15 @@ qkv_kernel(const float* __restrict__ X, const float* __restrict__ Wqkv,
   const int row0 = blockIdx.x * R;
   load_rows(sX, X, row0, nrows);
   __syncthreads();
-  float acc[R][3];
+  float acc[R][NC];
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int c = 0; c < 3; ++c) acc[r][c] = 0.f;
-  const int n0 = threadIdx.x;
-  rowtile_mac<3>(acc, sX, C, C, Wqkv, 3 * C, n0);
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+  const int n0 = C0 * NT + threadIdx.x;
+  rowtile_mac<NC>(acc, sX, C, C, Wqkv, 3 * C, n0);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
+  for (int c = 0; c < NC; ++c) {
     const float bb = bqkv[n0 + c * NT];
 #pragma unroll
     for (int r = 0; r < R; ++r)
@@ -145,9 +156,12 @@ qkv_kernel(const float* __restrict__ X, const float* __restrict__ Wqkv,
   }
 }
 
+// query rows from QX (Kq per set), keys and values from QS (K per set, set
+// (set + shift) mod nsets), the source mask (nsets, K)
 __global__ void __launch_bounds__(NT)
-attn_kernel(const float* __restrict__ QKV, const float* __restrict__ mask,
-            float* __restrict__ MSG, int nsets, int K, int cross) {
+attn_kernel(const float* __restrict__ QX, const float* __restrict__ QS,
+            const float* __restrict__ mask, float* __restrict__ MSG, int nsets, int Kq, int K,
+            int shift) {
   extern __shared__ __align__(16) float sm[];
   float* sQ = sm;              // R x DH
   float* sKV = sQ + R * DH;    // CH x KS
@@ -157,14 +171,14 @@ attn_kernel(const float* __restrict__ QKV, const float* __restrict__ mask,
   const int q0 = blockIdx.x * R;
   const int h = blockIdx.y;
   const int set = blockIdx.z;
-  const int src = cross ? (set + nsets / 2) % nsets : set;
+  const int src = (set + shift) % nsets;
   const float* msk = mask + (size_t)src * K;
   const float scale = rsqrtf((float)DH);
   const int r = tid >> 4, l16 = tid & 15;
 
   for (int i = tid; i < R * DH; i += NT) {
     const int rr = i / DH, d = i % DH;
-    sQ[i] = (q0 + rr < K) ? QKV[(size_t)(set * K + q0 + rr) * 3 * C + h * DH + d] : 0.f;
+    sQ[i] = (q0 + rr < Kq) ? QX[(size_t)(set * Kq + q0 + rr) * 3 * C + h * DH + d] : 0.f;
   }
 
   for (int s0 = 0; s0 < K; s0 += CH) {
@@ -172,7 +186,7 @@ attn_kernel(const float* __restrict__ QKV, const float* __restrict__ mask,
     for (int i = tid; i < CH * DH; i += NT) {
       const int s = i / DH, d = i % DH;
       sKV[s * KS + d] =
-          (s0 + s < K) ? QKV[(size_t)(src * K + s0 + s) * 3 * C + C + h * DH + d] : 0.f;
+          (s0 + s < K) ? QS[(size_t)(src * K + s0 + s) * 3 * C + C + h * DH + d] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -210,7 +224,7 @@ attn_kernel(const float* __restrict__ QKV, const float* __restrict__ mask,
     for (int i = tid; i < CH * DH; i += NT) {
       const int s = i / DH, d = i % DH;
       sKV[s * KS + d] =
-          (s0 + s < K) ? QKV[(size_t)(src * K + s0 + s) * 3 * C + 2 * C + h * DH + d] : 0.f;
+          (s0 + s < K) ? QS[(size_t)(src * K + s0 + s) * 3 * C + 2 * C + h * DH + d] : 0.f;
     }
     __syncthreads();
     const int n = min(CH, K - s0);
@@ -220,10 +234,10 @@ attn_kernel(const float* __restrict__ QKV, const float* __restrict__ mask,
       for (int j = 0; j < DH / 16; ++j) acc[j] = fmaf(p, sKV[s * KS + l16 + 16 * j], acc[j]);
     }
   }
-  if (q0 + r < K) {
+  if (q0 + r < Kq) {
 #pragma unroll
     for (int j = 0; j < DH / 16; ++j)
-      MSG[(size_t)(set * K + q0 + r) * C + h * DH + l16 + 16 * j] = acc[j];
+      MSG[(size_t)(set * Kq + q0 + r) * C + h * DH + l16 + 16 * j] = acc[j];
   }
 }
 
@@ -416,13 +430,19 @@ __device__ __forceinline__ float bn_relu(float v, float s, float t) {
 }
 
 // QKV = bf16(bf16(X) Wqkv + bqkv): a 32-row x 128-column tile per CTA, one
-// n16 column block per warp
+// n16 column block per warp. Column tiles 0-1 (Q) take X's rows into QX,
+// tiles 2-5 (K, V) S's rows into QS; the stacked layer passes X = S.
 __global__ void __launch_bounds__(NT)
-qkv_bf16_kernel(const float* __restrict__ X, const uint4* __restrict__ Wqkv,
-                const float* __restrict__ bqkv, __nv_bfloat16* __restrict__ QKV, int nrows) {
+qkv_bf16_kernel(const float* __restrict__ X, int nrows_x, const float* __restrict__ S,
+                int nrows_s, const uint4* __restrict__ Wqkv, const float* __restrict__ bqkv,
+                __nv_bfloat16* __restrict__ QX, __nv_bfloat16* __restrict__ QS) {
   __shared__ __align__(16) __nv_bfloat16 sA[BR * LDX];
+  const bool q_cols = blockIdx.x < C / 128;
+  const int nrows = q_cols ? nrows_x : nrows_s;
+  __nv_bfloat16* QKV = q_cols ? QX : QS;
   const int row0 = blockIdx.y * BR;
-  load_rows_bf16(sA, LDX, X, row0, nrows);
+  if (row0 >= nrows) return;  // the shorter set's row tiles past its end
+  load_rows_bf16(sA, LDX, q_cols ? X : S, row0, nrows);
   __syncthreads();
   const int nb = blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
   float acc[2][2][4] = {};
@@ -437,20 +457,22 @@ qkv_bf16_kernel(const float* __restrict__ X, const uint4* __restrict__ Wqkv,
 
 // The rest of the layer for one (set, 32-query tile), by a cluster of 4 CTAs;
 // CTA h runs head h's attention, then column slice h of the merge, the first
-// and the second MLP weight (see the notes at the top).
+// and the second MLP weight (see the notes at the top). Queries: Kq rows per
+// set of X and QX; keys and values: K rows per set of QS, of set (set +
+// shift) mod nsets, under its mask (nsets, K).
 __global__ void __cluster_dims__(HEADS, 1, 1) __launch_bounds__(NT, 1)
-layer_bf16_kernel(const float* __restrict__ X, const __nv_bfloat16* __restrict__ QKV,
-                  const float* __restrict__ mask, const uint4* __restrict__ Wm,
-                  const float* __restrict__ bm, const uint4* __restrict__ W1,
-                  const float* __restrict__ b1, const float* __restrict__ s1,
-                  const float* __restrict__ t1, const uint4* __restrict__ W2,
-                  const float* __restrict__ b2, float* __restrict__ OUT, int nsets, int K,
-                  int cross) {
+layer_bf16_kernel(const float* __restrict__ X, const __nv_bfloat16* __restrict__ QX,
+                  const __nv_bfloat16* __restrict__ QS, const float* __restrict__ mask,
+                  const uint4* __restrict__ Wm, const float* __restrict__ bm,
+                  const uint4* __restrict__ W1, const float* __restrict__ b1,
+                  const float* __restrict__ s1, const float* __restrict__ t1,
+                  const uint4* __restrict__ W2, const float* __restrict__ b2,
+                  float* __restrict__ OUT, int nsets, int Kq, int K, int shift) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int h = (int)cluster.block_rank();
   const int q0 = blockIdx.y * BR, set = blockIdx.z;
-  const int src = cross ? (set + nsets / 2) % nsets : set;
+  const int src = (set + shift) % nsets;
   const int SP = (K + 15) & ~15;  // keys padded to the MMA depth
   const int LS = SP + 4;          // logit row stride (f32): an odd number of 16-B units
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -466,11 +488,11 @@ layer_bf16_kernel(const float* __restrict__ X, const __nv_bfloat16* __restrict__
 
   // Q of head h for the query tile, K of head h for the source set (zero
   // beyond K), the source mask
-  const __nv_bfloat16* q_rows = QKV + (size_t)set * K * 3 * C + h * DH;
-  const __nv_bfloat16* s_rows = QKV + (size_t)src * K * 3 * C + h * DH;
+  const __nv_bfloat16* q_rows = QX + (size_t)set * Kq * 3 * C + h * DH;
+  const __nv_bfloat16* s_rows = QS + (size_t)src * K * 3 * C + h * DH;
   for (int i = tid; i < BR * 8; i += NT) {
     const int r = i >> 3, c = (i & 7) * 8;
-    const bool ok = q0 + r < K;
+    const bool ok = q0 + r < Kq;
     cp_async16_zfill(smem_addr(sQ + r * LDK + c), q_rows + (size_t)(ok ? q0 + r : 0) * 3 * C + c,
                      ok);
   }
@@ -566,7 +588,7 @@ layer_bf16_kernel(const float* __restrict__ X, const __nv_bfloat16* __restrict__
     });
   }
   __syncthreads();  // this CTA is done with P and V: the region takes the MLP tiles
-  load_rows_bf16(sXM, LDH, X + (size_t)set * K * C, q0, K);
+  load_rows_bf16(sXM, LDH, X + (size_t)set * Kq * C, q0, Kq);
   cluster.sync();  // all four heads' messages are in every CTA's sMsg
 
   {  // merged msg = msg Wm + bm, columns [64 h, 64 h + 64), into every [x | msg] tile
@@ -599,8 +621,8 @@ layer_bf16_kernel(const float* __restrict__ X, const __nv_bfloat16* __restrict__
     warp_gemm<1, 2 * C / 16>(acc, sH + 16 * mt * LDH, LDH, W2 + (size_t)nb * (2 * C / 16) * 32);
     for_each_pair(acc, [&](int r, int c, float v0, float v1) {
       const int q = q0 + 16 * mt + r, col = 16 * nb + c;
-      if (q < K) {
-        const size_t o = ((size_t)set * K + q) * C + col;
+      if (q < Kq) {
+        const size_t o = ((size_t)set * Kq + q) * C + col;
         const float2 xv = *reinterpret_cast<const float2*>(X + o);
         *reinterpret_cast<float2*>(OUT + o) =
             make_float2(xv.x + (v0 + b2[col]), xv.y + (v1 + b2[col + 1]));
@@ -622,6 +644,57 @@ RSPL_EXPORT const char* superglue_layer_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+namespace {
+
+// the f32 mode's attention and MLP launches, after the QKV projection: rows
+// of X (nsets x Kq) attend over rows of QS (nsets x K) of set (set + shift)
+int f32_attend_mlp(const float* x, const float* qx, const float* qs, const float* mask,
+                   const void* wm, const void* bm, const void* w1, const void* b1,
+                   const void* s1, const void* t1, const void* w2, const void* b2, float* msg,
+                   float* out, int nsets, int Kq, int K, int shift, cudaStream_t st) {
+  const int attn_smem = (R * DH + CH * KS + R * K) * (int)sizeof(float);
+  RSPL_RETURN_IF_ERROR(reserve_dynamic_smem((const void*)attn_kernel, attn_smem_limits, attn_smem));
+  const dim3 agrid((Kq + R - 1) / R, C / DH, nsets);
+  attn_kernel<<<agrid, NT, attn_smem, st>>>(qx, qs, mask, msg, nsets, Kq, K, shift);
+  RSPL_RETURN_IF_ERROR(cudaGetLastError());
+
+  const int nrows = nsets * Kq;
+  const int mlp_smem = (3 * R * C + R * 2 * C) * (int)sizeof(float);
+  RSPL_RETURN_IF_ERROR(reserve_dynamic_smem((const void*)mlp_kernel, mlp_smem_limits, mlp_smem));
+  mlp_kernel<<<(nrows + R - 1) / R, NT, mlp_smem, st>>>(
+      x, msg, static_cast<const float*>(wm), static_cast<const float*>(bm),
+      static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(s1), static_cast<const float*>(t1),
+      static_cast<const float*>(w2), static_cast<const float*>(b2), out, nrows);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 mode's two launches: Q of X's rows (nsets x Kq) into qx, K and V of
+// S's rows (nsets x K) into qs, then the layer kernel
+int bf16_layer(const float* x, const float* src, const float* mask, const void* wqkv,
+               const void* bqkv, const void* wm, const void* bm, const void* w1, const void* b1,
+               const void* s1, const void* t1, const void* w2, const void* b2,
+               __nv_bfloat16* qx, __nv_bfloat16* qs, float* out, int nsets, int Kq, int K,
+               int shift, cudaStream_t st) {
+  const int smem = layer_bf16_smem(K);
+  if (smem > kSmemLimit) return kErrSmem;
+  RSPL_RETURN_IF_ERROR(
+      reserve_dynamic_smem((const void*)layer_bf16_kernel, layer_bf16_smem_limits, smem));
+  const int nrows = nsets * (Kq > K ? Kq : K);
+  qkv_bf16_kernel<<<dim3(3 * C / 128, (nrows + BR - 1) / BR), NT, 0, st>>>(
+      x, nsets * Kq, src, nsets * K, static_cast<const uint4*>(wqkv),
+      static_cast<const float*>(bqkv), qx, qs);
+  RSPL_RETURN_IF_ERROR(cudaGetLastError());
+  layer_bf16_kernel<<<dim3(HEADS, (Kq + BR - 1) / BR, nsets), NT, smem, st>>>(
+      x, qx, qs, mask, static_cast<const uint4*>(wm), static_cast<const float*>(bm),
+      static_cast<const uint4*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(s1), static_cast<const float*>(t1),
+      static_cast<const uint4*>(w2), static_cast<const float*>(b2), out, nsets, Kq, K, shift);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // x (nsets, K, 256) f32; mask (nsets, K) f32 (1 valid, 0 padded);
 // wqkv (256, 768) = [Wq | Wk | Wv], bqkv (768,); wm (256, 256), bm (256,);
 // w1 (512, 512), b1, s1, t1 (512,); w2 (512, 256), b2 (256,);
@@ -633,33 +706,16 @@ RSPL_EXPORT int superglue_layer_launch(const void* x, const void* mask, const vo
                                        const void* t1, const void* w2, const void* b2,
                                        void* qkv, void* msg, void* out, int nsets, int K,
                                        int cross, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+  const cudaStream_t st = (cudaStream_t)stream;
   const int nrows = nsets * K;
-  const int row_blocks = (nrows + R - 1) / R;
-  qkv_kernel<<<row_blocks, NT, 0, st>>>(static_cast<const float*>(x),
-                                         static_cast<const float*>(wqkv),
-                                         static_cast<const float*>(bqkv),
-                                         static_cast<float*>(qkv), nrows);
+  const auto* xf = static_cast<const float*>(x);
+  auto* q = static_cast<float*>(qkv);
+  qkv_kernel<0, 3><<<(nrows + R - 1) / R, NT, 0, st>>>(xf, static_cast<const float*>(wqkv),
+                                                       static_cast<const float*>(bqkv), q, nrows);
   RSPL_RETURN_IF_ERROR(cudaGetLastError());
-
-  const int attn_smem = (R * DH + CH * KS + R * K) * (int)sizeof(float);
-  RSPL_RETURN_IF_ERROR(reserve_dynamic_smem((const void*)attn_kernel, attn_smem_limits, attn_smem));
-  const dim3 agrid((K + R - 1) / R, C / DH, nsets);
-  attn_kernel<<<agrid, NT, attn_smem, st>>>(static_cast<const float*>(qkv),
-                                            static_cast<const float*>(mask),
-                                            static_cast<float*>(msg), nsets, K, cross);
-  RSPL_RETURN_IF_ERROR(cudaGetLastError());
-
-  const int mlp_smem = (3 * R * C + R * 2 * C) * (int)sizeof(float);
-  RSPL_RETURN_IF_ERROR(reserve_dynamic_smem((const void*)mlp_kernel, mlp_smem_limits, mlp_smem));
-  mlp_kernel<<<row_blocks, NT, mlp_smem, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(msg),
-      static_cast<const float*>(wm), static_cast<const float*>(bm),
-      static_cast<const float*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(s1), static_cast<const float*>(t1),
-      static_cast<const float*>(w2), static_cast<const float*>(b2),
-      static_cast<float*>(out), nrows);
-  return (int)cudaGetLastError();
+  return f32_attend_mlp(xf, q, q, static_cast<const float*>(mask), wm, bm, w1, b1, s1, t1, w2,
+                        b2, static_cast<float*>(msg), static_cast<float*>(out), nsets, K, K,
+                        cross ? nsets / 2 : 0, st);
 }
 
 // bf16 mode. x (nsets, K, 256) f32; mask (nsets, K) f32 (1 valid, 0 padded);
@@ -672,22 +728,54 @@ RSPL_EXPORT int superglue_layer_bf16_launch(const void* x, const void* mask, con
                                             const void* t1, const void* w2, const void* b2,
                                             void* qkv, void* out, int nsets, int K, int cross,
                                             void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int smem = layer_bf16_smem(K);
-  if (smem > kSmemLimit) return kErrSmem;
-  RSPL_RETURN_IF_ERROR(
-      reserve_dynamic_smem((const void*)layer_bf16_kernel, layer_bf16_smem_limits, smem));
-  const int nrows = nsets * K;
   const auto* xf = static_cast<const float*>(x);
-  auto* qkv_b = static_cast<__nv_bfloat16*>(qkv);
-  qkv_bf16_kernel<<<dim3(3 * C / 128, (nrows + BR - 1) / BR), NT, 0, st>>>(
-      xf, static_cast<const uint4*>(wqkv), static_cast<const float*>(bqkv), qkv_b, nrows);
+  auto* q = static_cast<__nv_bfloat16*>(qkv);
+  return bf16_layer(xf, xf, static_cast<const float*>(mask), wqkv, bqkv, wm, bm, w1, b1, s1, t1,
+                    w2, b2, q, q, static_cast<float*>(out), nsets, K, K, cross ? nsets / 2 : 0,
+                    (cudaStream_t)stream);
+}
+
+// Two-set variant, f32 mode: x (B, M, 256) attends over src (B, N, 256) under
+// src_mask (B, N) f32. Scratch qkv_x (B*M, 768), whose Q columns are written,
+// qkv_s (B*N, 768), whose K and V columns are written (the same buffer when
+// src is x), msg (B*M, 256); out (B, M, 256). Weights as superglue_layer_launch.
+RSPL_EXPORT int superglue_layer_two_set_launch(const void* x, const void* src,
+                                               const void* src_mask, const void* wqkv,
+                                               const void* bqkv, const void* wm, const void* bm,
+                                               const void* w1, const void* b1, const void* s1,
+                                               const void* t1, const void* w2, const void* b2,
+                                               void* qkv_x, void* qkv_s, void* msg, void* out,
+                                               int B, int M, int N, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const auto* xf = static_cast<const float*>(x);
+  const auto* w = static_cast<const float*>(wqkv);
+  const auto* bias = static_cast<const float*>(bqkv);
+  auto* qx = static_cast<float*>(qkv_x);
+  auto* qs = static_cast<float*>(qkv_s);
+  qkv_kernel<0, 1><<<(B * M + R - 1) / R, NT, 0, st>>>(xf, w, bias, qx, B * M);
   RSPL_RETURN_IF_ERROR(cudaGetLastError());
-  layer_bf16_kernel<<<dim3(HEADS, (K + BR - 1) / BR, nsets), NT, smem, st>>>(
-      xf, qkv_b, static_cast<const float*>(mask), static_cast<const uint4*>(wm),
-      static_cast<const float*>(bm), static_cast<const uint4*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(s1),
-      static_cast<const float*>(t1), static_cast<const uint4*>(w2),
-      static_cast<const float*>(b2), static_cast<float*>(out), nsets, K, cross);
-  return (int)cudaGetLastError();
+  qkv_kernel<1, 2><<<(B * N + R - 1) / R, NT, 0, st>>>(static_cast<const float*>(src), w, bias,
+                                                       qs, B * N);
+  RSPL_RETURN_IF_ERROR(cudaGetLastError());
+  return f32_attend_mlp(xf, qx, qs, static_cast<const float*>(src_mask), wm, bm, w1, b1, s1, t1,
+                        w2, b2, static_cast<float*>(msg), static_cast<float*>(out), B, M, N, 0,
+                        st);
+}
+
+// Two-set variant, bf16 mode: as superglue_layer_two_set_launch with the
+// weights packed as superglue_layer_bf16_launch takes them and bf16 scratch
+// qkv_x (B*M, 768), qkv_s (B*N, 768); no msg scratch. Two launches.
+RSPL_EXPORT int superglue_layer_two_set_bf16_launch(const void* x, const void* src,
+                                                    const void* src_mask, const void* wqkv,
+                                                    const void* bqkv, const void* wm,
+                                                    const void* bm, const void* w1,
+                                                    const void* b1, const void* s1,
+                                                    const void* t1, const void* w2,
+                                                    const void* b2, void* qkv_x, void* qkv_s,
+                                                    void* out, int B, int M, int N,
+                                                    void* stream) {
+  return bf16_layer(static_cast<const float*>(x), static_cast<const float*>(src),
+                    static_cast<const float*>(src_mask), wqkv, bqkv, wm, bm, w1, b1, s1, t1, w2,
+                    b2, static_cast<__nv_bfloat16*>(qkv_x), static_cast<__nv_bfloat16*>(qkv_s),
+                    static_cast<float*>(out), B, M, N, 0, (cudaStream_t)stream);
 }

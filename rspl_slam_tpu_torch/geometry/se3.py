@@ -9,8 +9,9 @@ from __future__ import annotations
 import torch
 
 __all__ = [
-    "hat", "exp_so3", "log_so3", "exp_se3", "log_se3", "inverse",
-    "quat_from_rot", "rot_from_quat",
+    "hat", "vee", "exp_so3", "log_so3", "exp_se3", "log_se3", "inverse",
+    "compose", "transform_points", "quat_from_rot", "rot_from_quat",
+    "rotation_angle",
 ]
 
 
@@ -23,6 +24,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
         torch.stack([wz, z, -wx], -1),
         torch.stack([-wy, wx, z], -1),
     ], -2)
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat`: (..., 3, 3) → (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], -1)
 
 
 def _homogeneous(top: torch.Tensor) -> torch.Tensor:
@@ -96,6 +102,20 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
     return _homogeneous(torch.cat([Rt, ti[..., None]], -1))
 
 
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
+
+
+def transform_points(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to points (..., N, 3) or (..., 3): a point set
+    when ``p`` has more axes than T's batch plus one, as in JAX."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    if p.ndim >= 2 and p.shape[-1] == 3 and p.ndim > T.ndim - 1:
+        return torch.einsum("...ij,...nj->...ni", R, p) + t[..., None, :]
+    return torch.einsum("...ij,...j->...i", R, p) + t
+
+
 def quat_from_rot(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix → unit quaternion (..., 4) wxyz, qw ≥ 0
     (branch-free max-pivot construction)."""
@@ -126,3 +146,10 @@ def rot_from_quat(q: torch.Tensor) -> torch.Tensor:
         torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], -1),
         torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], -1),
     ], -2)
+
+
+def rotation_angle(R: torch.Tensor) -> torch.Tensor:
+    """Rotation angle in radians of (..., 3, 3), the cosine clipped to
+    [−1, 1] (the keyframe trigger's Δangle)."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    return torch.arccos(((tr - 1.0) * 0.5).clamp(-1.0, 1.0))

@@ -1,12 +1,15 @@
-"""SuperGlue graph matcher (port of models/superglue.py, the stacked M == N
-path of ``match_pair``).
+"""SuperGlue graph matcher (port of models/superglue.py).
 
 Keypoint encoder MLP → 18 alternating self/cross GNN layers → final 1×1
 projection → similarity / √C → masked log-Sinkhorn → mutual-max decode.
 Every GNN layer goes through K2 (ops/attention_cuda.py) and the Sinkhorn
 iterations through K3 (ops/sinkhorn_cuda.py); the encoder, the final
 projection, the similarity product and building Z0 stay plain torch, as
-they stay XLA in the JAX package.
+they stay XLA in the JAX package. Sets of equal size M == N run stacked
+as one (2B, K, C) batch, one K2 launch per layer; sets of unequal size
+run unstacked as in the JAX package, two launches per layer of K2's
+two-set variant (each set over its source), and K3 on the (M+1, N+1)
+plan.
 
 ``compute_dtype`` is the JAX package's contract: under bf16 (its default)
 every matmul operand rounds to bf16 where ``match_pair`` there rounds it
@@ -167,6 +170,13 @@ def _apply_mlp(mlp, x, compute_dtype=torch.float32):
     return x
 
 
+def _final_proj(sg: SuperGlue, x, compute_dtype):
+    """The final 1×1 projection, rounded to ``compute_dtype`` as the
+    similarity's operand."""
+    r = round_operand
+    return r(r(x, compute_dtype) @ r(sg.final_w, compute_dtype) + sg.final_b, compute_dtype)
+
+
 class MatchResult:
     def __init__(self, indices0, indices1, mscores0, log_plan):
         self.indices0 = indices0  # (B, M) int32, −1 = unmatched
@@ -180,30 +190,47 @@ def match_pair(sg: SuperGlue, xy0, score0, desc0, mask0, xy1, score1, desc1,
                mask1, cfg: SuperGlueConfig | None = None,
                sinkhorn_iters: int | None = None,
                compute_dtype=torch.float32) -> MatchResult:
-    """SuperGlue matching of batched padded keypoint sets of equal size,
-    at ``compute_dtype`` (bfloat16 or float32; see the module notes)."""
+    """SuperGlue matching of batched padded keypoint sets (B, M) and
+    (B, N), at ``compute_dtype`` (bfloat16 or float32; see the module
+    notes)."""
     cfg = cfg or sg.cfg
     B, M, _ = desc0.shape
     N = desc1.shape[1]
-    if M != N:
-        raise NotImplementedError(
-            "match_pair with M != N: only the stacked equal-size path is "
-            "ported; the two-set path is queued in ROADMAP.md (modules to port)")
     enc0 = torch.cat([normalize_keypoints(xy0, cfg.image_width, cfg.image_height),
                       score0[..., None]], -1)
     enc1 = torch.cat([normalize_keypoints(xy1, cfg.image_width, cfg.image_height),
                       score1[..., None]], -1)
     dt = compute_dtype
-    x = (torch.cat([desc0, desc1], 0).float()
-         + _apply_mlp(sg.kenc, torch.cat([enc0, enc1], 0).float(), dt)).contiguous()
-    masks = torch.cat([mask0, mask1], 0)
-    scratch = attention_cuda.layer_scratch(x, masks, dt)  # shared by every layer
-    for li, layer in enumerate(sg.gnn):
-        x = attention_cuda.superglue_layer(x, masks, layer, cross=li % 2 == 1,
-                                           num_heads=cfg.num_heads, compute_dtype=dt,
-                                           scratch=scratch)
-    md = round_operand(round_operand(x, dt) @ round_operand(sg.final_w, dt) + sg.final_b, dt)
-    sim = torch.einsum("bmc,bnc->bmn", md[:B], md[B:]) / math.sqrt(cfg.descriptor_dim)
+    if M == N:
+        x = (torch.cat([desc0, desc1], 0).float()
+             + _apply_mlp(sg.kenc, torch.cat([enc0, enc1], 0).float(), dt)).contiguous()
+        masks = torch.cat([mask0, mask1], 0)
+        scratch = attention_cuda.layer_scratch(x, masks, dt)  # shared by every layer
+        for li, layer in enumerate(sg.gnn):
+            x = attention_cuda.superglue_layer(x, masks, layer, cross=li % 2 == 1,
+                                               num_heads=cfg.num_heads, compute_dtype=dt,
+                                               scratch=scratch)
+        md = _final_proj(sg, x, dt)
+        md0, md1 = md[:B], md[B:]
+    else:
+        x0 = (desc0.float() + _apply_mlp(sg.kenc, enc0.float(), dt)).contiguous()
+        x1 = (desc1.float() + _apply_mlp(sg.kenc, enc1.float(), dt)).contiguous()
+        # each set's scratch serves every layer: its Q columns where it
+        # queries, its K and V columns where it is the other's source
+        s0 = attention_cuda.layer_scratch(x0, mask0, dt)
+        s1 = attention_cuda.layer_scratch(x1, mask1, dt)
+        for li, layer in enumerate(sg.gnn):
+            cross = li % 2 == 1  # layers alternate self, cross, self, ...
+            src0, m0, ss0 = (x1, mask1, s1) if cross else (x0, mask0, s0)
+            src1, m1, ss1 = (x0, mask0, s0) if cross else (x1, mask1, s1)
+            kw = dict(num_heads=cfg.num_heads, compute_dtype=dt)
+            x0, x1 = (
+                attention_cuda.superglue_layer_two_set(x0, src0, m0, layer,
+                                                       scratch=(s0, ss0), **kw),
+                attention_cuda.superglue_layer_two_set(x1, src1, m1, layer,
+                                                       scratch=(s1, ss1), **kw))
+        md0, md1 = _final_proj(sg, x0, dt), _final_proj(sg, x1, dt)
+    sim = torch.einsum("bmc,bnc->bmn", md0, md1) / math.sqrt(cfg.descriptor_dim)
     iters = cfg.sinkhorn_iterations if sinkhorn_iters is None else sinkhorn_iters
     Z = sinkhorn_cuda.log_optimal_transport_masked(sim, mask0, mask1, sg.bin_score, iters)
     idx0, idx1, ms0 = mutual_match_decode(Z, mask0, mask1, cfg.match_threshold)

@@ -23,11 +23,12 @@ import torch.nn.functional as F
 
 from rspl_slam_tpu_torch.config import SuperPointConfig
 from rspl_slam_tpu_torch.ops import conv_stem_cuda
-from rspl_slam_tpu_torch.ops.keypoints import (sample_descriptors, simple_nms_cell,
+from rspl_slam_tpu_torch.ops.keypoints import (_cells_to_pixels, sample_descriptors,
+                                               simple_nms, simple_nms_cell, top_k_keypoints,
                                                top_k_keypoints_cell)
 
-__all__ = ["LAYERS", "init_params", "load_torch_weights", "SuperPoint", "Features",
-           "extract"]
+__all__ = ["LAYERS", "init_params", "load_torch_weights", "SuperPoint", "dense_heads",
+           "Features", "extract"]
 
 LAYERS = [
     # name, in_ch, out_ch, kernel
@@ -144,6 +145,15 @@ class SuperPoint(nn.Module):
         return probs, desc.permute(0, 3, 1, 2)
 
 
+def dense_heads(sp: SuperPoint, images: torch.Tensor, compute_dtype=torch.bfloat16):
+    """images (B, H, W) in [0, 1] → (scores (B, H, W), desc (B, 256, H/8,
+    W/8)): :meth:`SuperPoint.forward_cell` (conv1b through K1 on the card)
+    with its cell-layout probabilities pixel-shuffled to full resolution.
+    H and W are multiples of 8."""
+    probs, desc = sp.forward_cell(images, compute_dtype)
+    return _cells_to_pixels(probs), desc
+
+
 class Features:
     """Fixed-K feature bundle: xy (B, K, 2) px, score (B, K), desc (B, K, C)
     L2-normalized, valid (B, K) bool."""
@@ -158,13 +168,18 @@ class Features:
 @torch.no_grad()
 def extract(sp: SuperPoint, images: torch.Tensor, cfg: SuperPointConfig,
             compute_dtype=torch.bfloat16) -> Features:
-    """Dense heads → cell NMS → top-K → descriptor sampling, batched."""
-    if not 3 <= cfg.nms_radius <= 8:
-        raise NotImplementedError(
-            f"nms_radius={cfg.nms_radius}: only the cell path (3..8) is ported; "
-            "the pixel-space path is queued in ROADMAP.md (modules to port)")
-    probs, desc_map = sp.forward_cell(images, compute_dtype)
-    scores = simple_nms_cell(probs, cfg.nms_radius)
-    xy, sc, valid = top_k_keypoints_cell(scores, cfg.max_keypoints,
-                                         cfg.keypoint_threshold, cfg.remove_borders)
+    """Dense heads → NMS → top-K → descriptor sampling, batched. The NMS
+    and top-K run on the cell layout for ``nms_radius`` 3..8, where that
+    selection is exact (as in the JAX package), and on the full-resolution
+    score map of :func:`dense_heads` for other radii."""
+    if 3 <= cfg.nms_radius <= 8:
+        probs, desc_map = sp.forward_cell(images, compute_dtype)
+        scores = simple_nms_cell(probs, cfg.nms_radius)
+        topk = top_k_keypoints_cell
+    else:
+        scores, desc_map = dense_heads(sp, images, compute_dtype)
+        scores = simple_nms(scores, cfg.nms_radius)
+        topk = top_k_keypoints
+    xy, sc, valid = topk(scores, cfg.max_keypoints, cfg.keypoint_threshold,
+                         cfg.remove_borders)
     return Features(xy, sc, sample_descriptors(xy, desc_map, 8), valid)

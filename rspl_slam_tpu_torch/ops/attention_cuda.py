@@ -1,14 +1,19 @@
 """K2 wrapper: one whole SuperGlue GNN layer on the stacked (2B, K, C)
-layout (port of ops/attention_pallas.py). CPU tensors take
-:func:`superglue_layer_plain`; CUDA tensors launch ``csrc/superglue_layer.cu``
-or raise, in one of two modes:
+layout (port of ops/attention_pallas.py), and its two-set variant
+:func:`superglue_layer_two_set`, where a query set (B, M, C) attends over
+a source set (B, N, C) of another length (the unstacked path that
+models/superglue.py takes when M != N). CPU tensors take the plain
+versions (:func:`superglue_layer_plain`,
+:func:`superglue_layer_two_set_plain`); CUDA tensors launch
+``csrc/superglue_layer.cu`` or raise, in one of two modes:
 
 - ``compute_dtype=torch.bfloat16`` (the main path; the JAX package's
   default): every matmul operand rounds to bf16 where
   models/superglue.py rounds it, products accumulate in f32; two launches
-  on the tensor cores.
+  on the tensor cores (either variant).
 - ``compute_dtype=torch.float32``: f32 throughout, the function of the
-  Pallas kernel ``attention_layer_fused``; three FMA launches.
+  Pallas kernel ``attention_layer_fused``; three FMA launches (four for
+  the two-set variant: Q and K/V are projected apart).
 """
 
 from __future__ import annotations
@@ -20,11 +25,14 @@ import torch
 from rspl_slam_tpu_torch.ops import cuda_build
 
 __all__ = ["LAYER_KEYS", "MAX_K_BF16", "bf16_smem_bytes", "layer_scratch", "pack_layer",
-           "pack_mma_b", "round_operand", "superglue_layer", "superglue_layer_plain",
+           "pack_mma_b", "round_operand", "superglue_layer",
+           "superglue_layer_plain", "superglue_layer_two_set", "superglue_layer_two_set_plain",
            "unpack_mma_b"]
 
 launches = 0  # layers run by the bf16 kernels (the main path)
 f32_launches = 0  # layers run by the f32 kernels
+two_set_launches = 0  # two-set layers (one set over another) run by the bf16 kernels
+two_set_f32_launches = 0  # two-set layers run by the f32 kernels
 
 # the layer tensors each mode's kernels read, in the launchers' order
 LAYER_KEYS = {
@@ -36,10 +44,10 @@ ROWS = 32  # query rows per cluster of the bf16 kernel (csrc/superglue_layer.cu)
 
 
 def bf16_smem_bytes(K: int) -> int:
-    """Dynamic shared memory of the bf16 layer kernel at K keypoints: the
-    message tile, then the larger of the attention buffers (Q, K/V, logits,
-    source mask over S = K rounded up to 16) and the two MLP tiles — the
-    layout of csrc/superglue_layer.cu."""
+    """Dynamic shared memory of the bf16 layer kernel at K source keypoints:
+    the message tile, then the larger of the attention buffers (Q, K/V,
+    logits, source mask over S = K rounded up to 16) and the two MLP tiles
+    — the layout of csrc/superglue_layer.cu."""
     s = -(-K // 16) * 16
     msg = ROWS * (256 + 8) * 2
     attn = ROWS * (64 + 8) * 2 + s * (64 + 8) * 2 + ROWS * (s + 4) * 4 + s * 4
@@ -125,6 +133,26 @@ def _flip(t):
     return torch.cat([t[n:], t[:n]], 0)
 
 
+def _attend_mlp(x, xr, q, k, v, m, layer: dict, num_heads: int, r):
+    """x + MLP(concat[x, merge(attention)]) for queries q (B, M, C) over
+    keys and values k, v (B, N, C) under the source mask m (B, N); ``xr``
+    is x with its operands rounded by ``r``."""
+    B, M, C = x.shape
+    dh = C // num_heads
+    q = q.reshape(B, M, num_heads, dh)
+    k = k.reshape(B, -1, num_heads, dh)
+    v = v.reshape(B, -1, num_heads, dh)
+    logits = torch.einsum("bqhd,bshd->bhqs", r(q), r(k)) / math.sqrt(dh)
+    logits = torch.where(m[:, None, None, :], logits, -1e9)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)  # jax.nn.softmax's normalization
+    msg = torch.einsum("bhqs,bshd->bqhd", r(p), r(v)).reshape(B, M, C)
+    msg = r(msg) @ r(layer["wm"]) + layer["bm"]
+    w1 = r(layer["w1"])
+    h = torch.relu((xr @ w1[:C] + r(msg) @ w1[C:] + layer["b1"]) * layer["s1"] + layer["t1"])
+    return x + (r(h) @ r(layer["w2"]) + layer["b2"])
+
+
 def superglue_layer_plain(x, masks, layer: dict, cross: bool, num_heads: int = 4,
                           compute_dtype=torch.float32):
     """x + MLP(concat[x, merge(attention(x → source))]); the source is the
@@ -135,39 +163,67 @@ def superglue_layer_plain(x, masks, layer: dict, cross: bool, num_heads: int = 4
     def r(a):
         return round_operand(a, compute_dtype)
 
-    n2, K, C = x.shape
-    dh = C // num_heads
+    C = x.shape[-1]
     xr = r(x)
     q, k, v = (xr @ r(layer["wqkv"]) + layer["bqkv"]).split(C, dim=-1)
-    q = q.reshape(n2, K, num_heads, dh)
-    k = k.reshape(n2, K, num_heads, dh)
-    v = v.reshape(n2, K, num_heads, dh)
     m = masks
     if cross:
         k, v, m = _flip(k), _flip(v), _flip(masks)
-    logits = torch.einsum("bqhd,bshd->bhqs", r(q), r(k)) / math.sqrt(dh)
-    logits = torch.where(m[:, None, None, :], logits, -1e9)
-    e = torch.exp(logits - logits.amax(-1, keepdim=True))
-    p = e / e.sum(-1, keepdim=True)  # jax.nn.softmax's normalization
-    msg = torch.einsum("bhqs,bshd->bqhd", r(p), r(v)).reshape(n2, K, C)
-    msg = r(msg) @ r(layer["wm"]) + layer["bm"]
-    w1 = r(layer["w1"])
-    h = torch.relu((xr @ w1[:C] + r(msg) @ w1[C:] + layer["b1"]) * layer["s1"] + layer["t1"])
-    return x + (r(h) @ r(layer["w2"]) + layer["b2"])
+    return _attend_mlp(x, xr, q, k, v, m, layer, num_heads, r)
+
+
+def superglue_layer_two_set_plain(x, source, src_mask, layer: dict, num_heads: int = 4,
+                                  compute_dtype=torch.float32):
+    """x (B, M, C) + MLP(concat[x, merge(attention(x → source))]) with the
+    source (B, N, C) under ``src_mask`` (B, N): the JAX package's
+    ``_attention`` and the caller's residual MLP on unstacked sets, with
+    the operands rounded as :func:`superglue_layer_plain` rounds them."""
+    def r(a):
+        return round_operand(a, compute_dtype)
+
+    C = x.shape[-1]
+    xr = r(x)
+    w = r(layer["wqkv"])
+    q = xr @ w[:, :C] + layer["bqkv"][:C]
+    k, v = (r(source) @ w[:, C:] + layer["bqkv"][C:]).split(C, dim=-1)
+    return _attend_mlp(x, xr, q, k, v, src_mask, layer, num_heads, r)
 
 
 def layer_scratch(x, masks, compute_dtype=torch.float32):
     """What every layer of one match shares on the card: the masks as f32
-    and the kernels' scratch (QKV, and the f32 mode's message). Made once
-    per ``match_pair``; None on the CPU."""
+    (left out where ``masks`` is None) and the kernels' scratch (QKV, and
+    the f32 mode's message). Made once per ``match_pair``: for the stacked
+    (2B, K, C) x, or for each set (B, K, C) of the two-set path, whose QKV
+    rows take the set's Q columns where it queries and its K and V columns
+    where it is the source. None on the CPU."""
     if x.device.type == "cpu":
         return None
     n2, K, C = x.shape
-    s = {"mask": masks.to(torch.float32).contiguous(),
-         "qkv": torch.empty((n2 * K, 3 * C), dtype=compute_dtype, device=x.device)}
+    s = {"qkv": torch.empty((n2 * K, 3 * C), dtype=compute_dtype, device=x.device)}
+    if masks is not None:
+        s["mask"] = masks.to(torch.float32).contiguous()
     if compute_dtype == torch.float32:
         s["msg"] = torch.empty((n2 * K, C), dtype=torch.float32, device=x.device)
     return s
+
+
+def _check_layer_args(what: str, x, layer: dict, num_heads: int, compute_dtype, K: int):
+    """The checks both K2 wrappers make: C = 256 with 4 heads, a mode the
+    kernels have, source length K within the bf16 kernel's shared memory,
+    x and the mode's layer tensors on the card."""
+    C = x.shape[-1]
+    if C != 256 or num_heads != 4:
+        raise ValueError(f"{what} kernel takes C = 256 with 4 heads; "
+                         f"got {tuple(x.shape)}, {num_heads} heads")
+    if compute_dtype not in LAYER_KEYS:
+        raise ValueError(f"{what} kernel computes in float32 or bfloat16, not {compute_dtype}")
+    if compute_dtype == torch.bfloat16 and K > MAX_K_BF16:
+        raise ValueError(f"{what} bf16 kernel: K = {K} exceeds {MAX_K_BF16} "
+                         f"({cuda_build.SMEM_LIMIT} B of shared memory per CTA)")
+    cuda_build.require_cuda(x, "x", torch.float32)
+    for key in LAYER_KEYS[compute_dtype]:
+        cuda_build.require_cuda(layer[key], key, torch.bfloat16 if key.endswith("_mma")
+                                else torch.float32)
 
 
 def superglue_layer(x, masks, layer: dict, cross: bool, num_heads: int = 4,
@@ -181,25 +237,15 @@ def superglue_layer(x, masks, layer: dict, cross: bool, num_heads: int = 4,
         return superglue_layer_plain(x, masks, layer, cross, num_heads, compute_dtype)
     cuda_build.refuse_grad("superglue_layer", x, *layer.values())
     n2, K, C = x.shape
-    if C != 256 or num_heads != 4 or n2 % 2:
-        raise ValueError(f"superglue_layer kernel takes (2B, K, 256) with 4 heads; "
-                         f"got {tuple(x.shape)}, {num_heads} heads")
-    if compute_dtype not in LAYER_KEYS:
-        raise ValueError(f"superglue_layer kernel computes in float32 or bfloat16, "
-                         f"not {compute_dtype}")
+    if n2 % 2:
+        raise ValueError(f"superglue_layer kernel takes (2B, K, 256); got {tuple(x.shape)}")
+    _check_layer_args("superglue_layer", x, layer, num_heads, compute_dtype, K)
     bf16 = compute_dtype == torch.bfloat16
-    if bf16 and K > MAX_K_BF16:
-        raise ValueError(f"superglue_layer bf16 kernel: K = {K} exceeds {MAX_K_BF16} "
-                         f"({cuda_build.SMEM_LIMIT} B of shared memory per CTA)")
-    cuda_build.require_cuda(x, "x", torch.float32)
     if scratch is None:
         scratch = layer_scratch(x, masks, compute_dtype)
     cuda_build.require_cuda(scratch["mask"], "masks", torch.float32, (n2, K))
     cuda_build.require_cuda(scratch["qkv"], "qkv scratch", compute_dtype, (n2 * K, 3 * C))
     keys = LAYER_KEYS[compute_dtype]
-    for key in keys:
-        cuda_build.require_cuda(layer[key], key, torch.bfloat16 if key.endswith("_mma")
-                                else torch.float32)
     out = torch.empty_like(x)
     if bf16:
         cuda_build.launch("superglue_layer", "superglue_layer_bf16_launch", x,
@@ -214,4 +260,46 @@ def superglue_layer(x, masks, layer: dict, cross: bool, num_heads: int = 4,
                           n2, K, int(bool(cross)), cuda_build.stream_of(x))
         with cuda_build.count_lock:
             f32_launches += 1
+    return out
+
+
+def superglue_layer_two_set(x, source, src_mask, layer: dict, num_heads: int = 4,
+                            compute_dtype=torch.float32, scratch=None):
+    """One GNN layer of one set over another: x (B, M, C) f32 attends over
+    ``source`` (B, N, C) f32 under ``src_mask`` (B, N) bool; returns x +
+    MLP(concat[x, merge(attention)]). ``scratch`` is the pair (x's,
+    source's) from :func:`layer_scratch`, the source's with its mask (the
+    same dict twice when source is x; made here when None). The kernels
+    take C = 256 with 4 heads, and the bf16 mode N ≤ :data:`MAX_K_BF16`."""
+    global two_set_launches, two_set_f32_launches
+    if x.device.type == "cpu":
+        return superglue_layer_two_set_plain(x, source, src_mask, layer, num_heads,
+                                             compute_dtype)
+    cuda_build.refuse_grad("superglue_layer_two_set", x, source, *layer.values())
+    B, M, C = x.shape
+    N = source.shape[1]
+    _check_layer_args("superglue_layer_two_set", x, layer, num_heads, compute_dtype, N)
+    cuda_build.require_cuda(source, "source", torch.float32, (B, N, C))
+    if scratch is None:
+        ss = layer_scratch(source, src_mask, compute_dtype)
+        scratch = (ss if source is x else layer_scratch(x, None, compute_dtype), ss)
+    sx, ss = scratch
+    cuda_build.require_cuda(ss["mask"], "src_mask", torch.float32, (B, N))
+    cuda_build.require_cuda(sx["qkv"], "x qkv scratch", compute_dtype, (B * M, 3 * C))
+    cuda_build.require_cuda(ss["qkv"], "source qkv scratch", compute_dtype, (B * N, 3 * C))
+    keys = LAYER_KEYS[compute_dtype]
+    out = torch.empty_like(x)
+    if compute_dtype == torch.bfloat16:
+        cuda_build.launch("superglue_layer", "superglue_layer_two_set_bf16_launch", x, source,
+                          ss["mask"], *(layer[k] for k in keys), sx["qkv"], ss["qkv"], out,
+                          B, M, N, cuda_build.stream_of(x))
+        with cuda_build.count_lock:
+            two_set_launches += 1
+    else:
+        cuda_build.require_cuda(sx["msg"], "x msg scratch", torch.float32, (B * M, C))
+        cuda_build.launch("superglue_layer", "superglue_layer_two_set_launch", x, source,
+                          ss["mask"], *(layer[k] for k in keys), sx["qkv"], ss["qkv"],
+                          sx["msg"], out, B, M, N, cuda_build.stream_of(x))
+        with cuda_build.count_lock:
+            two_set_f32_launches += 1
     return out

@@ -1,5 +1,7 @@
 """Keypoint post-processing: NMS, border mask, top-K, descriptor sampling
-(port of the cell path of ops/keypoints.py), batched over images.
+(port of ops/keypoints.py: the cell path that ``extract`` takes for
+``nms_radius`` 3..8, and the pixel-space path it takes for other radii),
+batched over images.
 
 ``simple_nms_cell`` keeps the JAX signature (cell-layout (B, Hc, Wc, 64)
 in and out, channel c = 8·dy + dx) but computes the NMS in pixel space
@@ -12,12 +14,11 @@ from __future__ import annotations
 
 from functools import lru_cache
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["simple_nms", "simple_nms_cell", "cell_border_mask",
-           "top_k_keypoints_cell", "sample_descriptors"]
+__all__ = ["simple_nms", "border_mask", "top_k_keypoints", "simple_nms_cell",
+           "cell_border_mask", "top_k_keypoints_cell", "sample_descriptors"]
 
 
 def _max_pool_same(x: torch.Tensor, radius: int) -> torch.Tensor:
@@ -34,6 +35,33 @@ def simple_nms(scores: torch.Tensor, nms_radius: int = 4) -> torch.Tensor:
         new_max_mask = supp_scores == _max_pool_same(supp_scores, nms_radius)
         max_mask = max_mask | (new_max_mask & ~supp_mask)
     return torch.where(max_mask, scores, zeros)
+
+
+@lru_cache(maxsize=16)
+def border_mask(H: int, W: int, border: int, device=None) -> torch.Tensor:
+    """(H, W) mask, False within ``border`` px of the image edge
+    (super_point.cpp:168-183; a constant per shape and device)."""
+    rows = torch.arange(H)[:, None]
+    cols = torch.arange(W)[None, :]
+    m = (rows >= border) & (rows < H - border) & (cols >= border) & (cols < W - border)
+    return m.to(device)
+
+
+def top_k_keypoints(scores: torch.Tensor, k: int, threshold: float, border: int = 4):
+    """Exactly-K keypoints from (B, H, W) NMS'd scores: the border zeroed,
+    one top-K over each flattened map. Returns (xy (B, K, 2) f32 pixels,
+    score (B, K), valid (B, K)); invalid slots sit at (0, 0) with score 0.
+    Exactly-equal scores may come out in another order than ``lax.top_k``
+    gives."""
+    B, H, W = scores.shape
+    masked = torch.where(border_mask(H, W, border, scores.device), scores,
+                         torch.zeros_like(scores))
+    vals, idx = masked.reshape(B, -1).topk(k, dim=-1)
+    valid = vals > threshold
+    ys = (idx // W).to(torch.float32)
+    xs = (idx % W).to(torch.float32)
+    xy = torch.where(valid[..., None], torch.stack([xs, ys], -1), 0.0)
+    return xy, torch.where(valid, vals, 0.0), valid
 
 
 def _cells_to_pixels(probs: torch.Tensor, s: int = 8) -> torch.Tensor:
@@ -54,14 +82,10 @@ def simple_nms_cell(probs: torch.Tensor, nms_radius: int = 4) -> torch.Tensor:
 
 @lru_cache(maxsize=16)
 def cell_border_mask(Hc: int, Wc: int, border: int, s: int = 8, device=None) -> torch.Tensor:
-    """(Hc, Wc, s·s) mask, False within ``border`` px of the image edge
-    (a constant per shape and device, uploaded once)."""
-    H, W = Hc * s, Wc * s
-    rows = np.arange(H)[:, None]
-    cols = np.arange(W)[None, :]
-    m = (rows >= border) & (rows < H - border) & (cols >= border) & (cols < W - border)
-    m = m.reshape(Hc, s, Wc, s).transpose(0, 2, 1, 3).reshape(Hc, Wc, s * s)
-    return torch.from_numpy(np.ascontiguousarray(m)).to(device)
+    """(Hc, Wc, s·s) mask: :func:`border_mask` in the cell layout (a
+    constant per shape and device)."""
+    m = border_mask(Hc * s, Wc * s, border)
+    return m.reshape(Hc, s, Wc, s).permute(0, 2, 1, 3).reshape(Hc, Wc, s * s).to(device)
 
 
 def top_k_keypoints_cell(scores: torch.Tensor, k: int, threshold: float,

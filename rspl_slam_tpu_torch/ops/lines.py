@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["detect_line_segments", "merge_lines", "filter_short_lines",
+__all__ = ["detect_line_segments", "merge_two_lines", "merge_lines", "filter_short_lines",
            "assign_points_to_lines", "match_lines"]
 
 
@@ -177,6 +177,14 @@ def detect_line_segments(
 # ---------------------------------------------------------------------------
 # Merging (host)
 # ---------------------------------------------------------------------------
+
+
+def merge_two_lines(a, b) -> np.ndarray:
+    """Length-weighted merge of two segments [x1, y1, x2, y2]
+    (MergeTwoLines, line_processor.cc:98-161) → (4,) float64: one row of
+    :func:`_merge_two_lines_vec`."""
+    return _merge_two_lines_vec(np.asarray(a, np.float64)[None, :4],
+                                np.asarray(b, np.float64)[None, :4], np.ones(1, bool))[0]
 
 
 def _merge_two_lines_vec(a: np.ndarray, b: np.ndarray,

@@ -1,6 +1,6 @@
 """Match decode, keypoint normalization and epipolar match rejection (port
 of ops/matching.py: ``normalize_keypoints``, ``mutual_match_decode``,
-``cosine_mutual_match``, ``fundamental_ransac_inliers``)."""
+``match_distance``, ``cosine_mutual_match``, ``fundamental_ransac_inliers``)."""
 
 from __future__ import annotations
 
@@ -8,8 +8,8 @@ import math
 
 import torch
 
-__all__ = ["normalize_keypoints", "mutual_match_decode", "cosine_mutual_match",
-           "sample_hypotheses", "fundamental_ransac_inliers"]
+__all__ = ["normalize_keypoints", "mutual_match_decode", "match_distance",
+           "cosine_mutual_match", "sample_hypotheses", "fundamental_ransac_inliers"]
 
 
 def normalize_keypoints(xy: torch.Tensor, width: int, height: int) -> torch.Tensor:
@@ -37,6 +37,11 @@ def mutual_match_decode(Z, mask0, mask1, threshold: float = 0.2):
     indices0 = torch.where(valid0, max0, -1).to(torch.int32)
     indices1 = torch.where(valid1, max1, -1).to(torch.int32)
     return indices0, indices1, torch.where(valid0, sc0, 0.0)
+
+
+def match_distance(ms0: torch.Tensor, ms1: torch.Tensor) -> torch.Tensor:
+    """DMatch-style distance 1 − (ms0 + ms1)/2 (point_matching.cc:24-32)."""
+    return 1.0 - 0.5 * (ms0 + ms1)
 
 
 def cosine_mutual_match(desc0, mask0, desc1, mask1, min_similarity: float = 0.7,

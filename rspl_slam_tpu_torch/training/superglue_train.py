@@ -10,11 +10,12 @@ SuperGlue's: the negative log-likelihood of the ground-truth assignment
 under the Sinkhorn plan, matched rows at Z[i, j(i)], unmatched ones at
 their dustbin.
 
-The forward (:func:`log_plan`) is the stacked M == N ``match_pair`` in
-plain PyTorch over the leaves: q/k/v concatenated per layer by
-``torch.cat`` (no ``*_mma`` packing: ``attention_cuda.pack_layer`` copies
-the weights, which would cut the graph), each layer through
-``attention_cuda.superglue_layer_plain`` and the Sinkhorn through
+The forward (:func:`log_plan`) is ``match_pair`` in plain PyTorch over
+the leaves: q/k/v concatenated per layer by ``torch.cat`` (no ``*_mma``
+packing: ``attention_cuda.pack_layer`` copies the weights, which would cut
+the graph), each layer through ``attention_cuda.superglue_layer_plain``
+(M == N, stacked) or ``superglue_layer_two_set_plain`` (M != N, each set
+over its source), and the Sinkhorn through
 ``ops/sinkhorn`` (``build_problem`` keeps ``bin_score`` in the graph).
 Every JAX leaf is a trainable leaf here too; the last MLP layer's BN
 leaves take no part in the forward, get no gradient and stay unchanged,
@@ -37,7 +38,8 @@ from rspl_slam_tpu_torch.models.superglue import _apply_mlp
 from rspl_slam_tpu_torch.models.weights import (superglue_from_numpy, superpoint_from_numpy,
                                                 to_tensor_tree)
 from rspl_slam_tpu_torch.ops import sinkhorn
-from rspl_slam_tpu_torch.ops.attention_cuda import round_operand, superglue_layer_plain
+from rspl_slam_tpu_torch.ops.attention_cuda import (round_operand, superglue_layer_plain,
+                                                    superglue_layer_two_set_plain)
 from rspl_slam_tpu_torch.ops.matching import mutual_match_decode, normalize_keypoints
 from rspl_slam_tpu_torch.training.loop import train_adam
 
@@ -266,38 +268,51 @@ def _layer(layer):
 
 def log_plan(params, xy0, sc0, d0, v0, xy1, sc1, d1, v1, cfg: SuperGlueConfig,
              compute_dtype=torch.float32):
-    """The (B, K+1, K+1) log transport plan of ``match_pair`` in plain
+    """The (B, M+1, N+1) log transport plan of ``match_pair`` in plain
     PyTorch, differentiable in the leaves of ``params`` (a tensor pytree in
     the JAX layout); ``compute_dtype`` rounds the matmul operands as
-    ``match_pair`` does."""
+    ``match_pair`` does. Sets of equal size run stacked, others unstacked,
+    as ``match_pair`` runs them."""
     B, M, _ = d0.shape
-    if d1.shape[1] != M:
-        raise NotImplementedError(
-            "log_plan with M != N: only the stacked equal-size path is ported; "
-            "the two-set path is queued in ROADMAP.md (modules to port)")
     r = functools.partial(round_operand, compute_dtype=compute_dtype)
-    enc = torch.cat([torch.cat([normalize_keypoints(xy, cfg.image_width, cfg.image_height),
-                                sc[..., None]], -1) for xy, sc in ((xy0, sc0), (xy1, sc1))], 0)
-    x = torch.cat([d0, d1], 0) + _apply_mlp(params["kenc"], enc, compute_dtype)
-    masks = torch.cat([v0, v1], 0)
-    for li, layer in enumerate(params["gnn"]):
-        x = superglue_layer_plain(x, masks, _layer(layer), cross=li % 2 == 1,
-                                  num_heads=cfg.num_heads, compute_dtype=compute_dtype)
+    enc = [torch.cat([normalize_keypoints(xy, cfg.image_width, cfg.image_height),
+                      sc[..., None]], -1) for xy, sc in ((xy0, sc0), (xy1, sc1))]
     fp = params["final_proj"]
-    md = r(r(x) @ r(fp["w"]) + fp["b"])
-    sim = torch.einsum("bmc,bnc->bmn", md[:B], md[B:]) / math.sqrt(cfg.descriptor_dim)
+    if d1.shape[1] == M:
+        x = torch.cat([d0, d1], 0) + _apply_mlp(params["kenc"], torch.cat(enc, 0),
+                                                compute_dtype)
+        masks = torch.cat([v0, v1], 0)
+        for li, layer in enumerate(params["gnn"]):
+            x = superglue_layer_plain(x, masks, _layer(layer), cross=li % 2 == 1,
+                                      num_heads=cfg.num_heads, compute_dtype=compute_dtype)
+        md = r(r(x) @ r(fp["w"]) + fp["b"])
+        md0, md1 = md[:B], md[B:]
+    else:
+        x0 = d0 + _apply_mlp(params["kenc"], enc[0], compute_dtype)
+        x1 = d1 + _apply_mlp(params["kenc"], enc[1], compute_dtype)
+        for li, layer in enumerate(params["gnn"]):
+            lay = _layer(layer)
+            src0, m0 = (x1, v1) if li % 2 else (x0, v0)
+            src1, m1 = (x0, v0) if li % 2 else (x1, v1)
+            x0, x1 = [superglue_layer_two_set_plain(x, src, m, lay, cfg.num_heads,
+                                                    compute_dtype)
+                      for x, src, m in ((x0, src0, m0), (x1, src1, m1))]
+        md0, md1 = [r(r(x) @ r(fp["w"]) + fp["b"]) for x in (x0, x1)]
+    sim = torch.einsum("bmc,bnc->bmn", md0, md1) / math.sqrt(cfg.descriptor_dim)
     return sinkhorn.log_optimal_transport_masked(sim, v0, v1, params["bin_score"],
                                                  cfg.sinkhorn_iterations)
 
 
 def loss_fn(params, batch, cfg: SuperGlueConfig):
     """−mean log P(gt assignment) over valid rows (matched → Z[i, j],
-    unmatched but valid → the dustbin column Z[i, K]), f32."""
+    unmatched but valid → the dustbin column Z[i, N]), f32. gt0 (B, M)
+    holds N or more for the dustbin. (JAX's ``loss_fn`` takes column M as
+    the dustbin: the same where M == N, a keypoint's column where M < N.)"""
     *arrays, gt0 = batch
     Z = log_plan(params, *arrays, cfg)
-    K = gt0.shape[1]
-    take = torch.where(gt0 >= 0, gt0.clamp(max=K), K)
-    ll = Z[:, :K].gather(2, take[..., None])[..., 0]
+    M, N = gt0.shape[1], Z.shape[2] - 1
+    take = torch.where(gt0 >= 0, gt0.clamp(max=N), N)
+    ll = Z[:, :M].gather(2, take[..., None])[..., 0]
     w = (gt0 >= 0).float()
     return -(ll * w).sum() / w.sum().clamp_min(1.0)
 

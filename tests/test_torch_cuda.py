@@ -102,6 +102,75 @@ def test_superglue_layer_bf16_kernel_matches_plain(cuda_device, K, valid, cross)
     torch.testing.assert_close(got, ref, rtol=2 ** -8, atol=4e-3)
 
 
+# SuperGlue with M != N: 400 keypoints over 300 and 300 over 400, and a
+# ragged pair below one query tile
+@pytest.mark.parametrize("M,N", [(400, 300), (300, 400), (24, 17)])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_superglue_layer_two_set_kernel_matches_plain(cuda_device, M, N, bf16):  # noqa: F811
+    """K2's two-set variant against its plain version, a set over another
+    (partly masked) source and over itself, at the stacked kernel's
+    tolerances (f32: rtol, atol 1e-3; bf16: 2^-8|p| + 4e-3)."""
+    dt = torch.bfloat16 if bf16 else torch.float32
+    layer = attention_cuda.pack_layer(_layer(np.random.default_rng(3)), cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(M + N)
+    x = torch.randn((2, M, 256), generator=g, device=cuda_device)
+    src = torch.randn((2, N, 256), generator=g, device=cuda_device)
+    m_src = torch.arange(N, device=cuda_device)[None] < torch.tensor(
+        [[N], [N - N // 4]], device=cuda_device)
+    m_x = torch.arange(M, device=cuda_device)[None] < torch.tensor([[M - 3], [M]],
+                                                                   device=cuda_device)
+    tol = dict(rtol=2 ** -8, atol=4e-3) if bf16 else dict(rtol=1e-3, atol=1e-3)
+    for s, m in ((src, m_src), (x, m_x)):
+        got = attention_cuda.superglue_layer_two_set(x, s, m, layer, compute_dtype=dt)
+        ref = attention_cuda.superglue_layer_two_set_plain(x, s, m, layer, compute_dtype=dt)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, ref, **tol)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_two_set_layers_on_equal_sets_are_the_stacked_kernel(cuda_device, bf16):  # noqa: F811
+    """On sets of one size the two-set kernels run the stacked kernels'
+    arithmetic row for row: a set over itself equals the stacked self
+    layer, a set over the other the stacked cross layer, bit for bit."""
+    dt = torch.bfloat16 if bf16 else torch.float32
+    layer = attention_cuda.pack_layer(_layer(np.random.default_rng(4)), cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((2, 70, 256), generator=g, device=cuda_device)
+    masks = torch.arange(70, device=cuda_device)[None] < torch.tensor(
+        [[70], [53]], device=cuda_device)
+    for cross in (False, True):
+        stacked = attention_cuda.superglue_layer(x, masks, layer, cross, compute_dtype=dt)
+        for s in (0, 1):
+            o = 1 - s if cross else s
+            got = attention_cuda.superglue_layer_two_set(
+                x[s:s + 1].contiguous(), x[o:o + 1].contiguous(), masks[o:o + 1], layer,
+                compute_dtype=dt)
+            assert torch.equal(got, stacked[s:s + 1])
+
+
+def test_superglue_layer_two_set_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
+    """Shapes, types and sources the two-set kernels cannot take raise."""
+    layer = attention_cuda.pack_layer(_layer(np.random.default_rng(0)), cuda_device)
+    x = torch.zeros((1, 24, 256), device=cuda_device)
+
+    def run(src, dt=torch.bfloat16, **kw):
+        m = torch.ones(src.shape[:2], dtype=torch.bool, device=cuda_device)
+        return attention_cuda.superglue_layer_two_set(x, src, m, layer, compute_dtype=dt, **kw)
+
+    with pytest.raises(ValueError, match="exceeds"):  # a source beyond the shared memory
+        run(torch.zeros((1, attention_cuda.MAX_K_BF16 + 16, 256), device=cuda_device))
+    with pytest.raises(ValueError):  # a source of another batch
+        run(torch.zeros((2, 17, 256), device=cuda_device))
+    with pytest.raises(ValueError):  # a source of another width
+        run(torch.zeros((1, 17, 128), device=cuda_device))
+    with pytest.raises(ValueError):  # a bf16 source (the residual stream is f32)
+        run(torch.zeros((1, 17, 256), device=cuda_device, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # 8 heads
+        run(torch.zeros((1, 17, 256), device=cuda_device), num_heads=8)
+    with pytest.raises(ValueError):  # float16 is no mode of the kernels
+        run(torch.zeros((1, 17, 256), device=cuda_device), dt=torch.float16)
+
+
 def test_superglue_layer_bf16_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
     """Shapes, types and scratch the bf16 kernel cannot take raise."""
     layer = attention_cuda.pack_layer(_layer(np.random.default_rng(0)), cuda_device)
@@ -147,8 +216,10 @@ def test_sinkhorn_kernel_matches_plain(cuda_device):  # noqa: F811
     assert (got - ref).abs()[sel].max() < 1e-3
 
 
-@pytest.mark.parametrize("B,M,N", [(1, 400, 400), (1, 600, 600), (2, 70, 61), (1, 4, 9)],
-                         ids=["superglue", "oivio", "batch2", "rows-below-cluster"])
+@pytest.mark.parametrize("B,M,N", [(1, 400, 400), (1, 600, 600), (2, 70, 61), (1, 4, 9),
+                                   (1, 400, 300), (1, 300, 400)],
+                         ids=["superglue", "oivio", "batch2", "rows-below-cluster",
+                              "unequal-400-300", "unequal-300-400"])
 def test_sinkhorn_cluster_kernel_shapes(cuda_device, B, M, N):  # noqa: F811
     """K3's cluster at the shipped sizes (K = 400, OIVIO's 600), two
     clusters at once, and M1 = 5 rows over a cluster of 8 (empty bands):

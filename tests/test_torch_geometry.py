@@ -46,18 +46,70 @@ def _random_poses(rng, n):
 
 
 @pytest.mark.parametrize("name", ["exp_so3", "exp_se3", "log_so3", "log_se3",
-                                  "inverse", "quat_from_rot", "rot_from_quat"])
+                                  "inverse", "quat_from_rot", "rot_from_quat", "vee",
+                                  "rotation_angle"])
 def test_se3_matches_jax(name):
     rng = np.random.default_rng(0)
     T = _random_poses(rng, 64)
     xi = np.concatenate([rng.normal(0, 0.8, (64, 3)), rng.normal(0, 2, (64, 3))],
                         1).astype(np.float32)
     xi[:4] *= 1e-7  # the small-angle branches
+    # the identity and a half turn: rotation_angle's cosine clipped at ±1
+    R = np.concatenate([T[:, :3, :3], np.eye(3, dtype=np.float32)[None],
+                        np.diag([1.0, -1.0, -1.0]).astype(np.float32)[None] * 1.0001])
     arg = {"exp_so3": xi[:, :3], "exp_se3": xi, "log_so3": T[:, :3, :3],
            "log_se3": T, "inverse": T, "quat_from_rot": T[:, :3, :3],
-           "rot_from_quat": rng.normal(size=(64, 4)).astype(np.float32)}[name]
+           "rot_from_quat": rng.normal(size=(64, 4)).astype(np.float32),
+           "vee": rng.normal(size=(64, 3, 3)).astype(np.float32),
+           "rotation_angle": R}[name]
     np.testing.assert_allclose(_t(getattr(tse3, name), arg),
                                _j(getattr(jse3, name), arg), atol=ATOL)
+
+
+# JAX's tests/test_geometry.py cases: compose(T, inverse(T)), points of one
+# pose (10, 3), and a batch of poses each with its own point
+@pytest.mark.parametrize("case", ["compose", "transform_point_set", "transform_points_batch"])
+def test_se3_two_argument_helpers_match_jax(case):
+    rng = np.random.default_rng(2)
+    T = _random_poses(rng, 5)
+    if case == "compose":
+        args, name = (T, _j(jse3.inverse, T)), "compose"
+    elif case == "transform_point_set":
+        args, name = (T[0], rng.standard_normal((10, 3)).astype(np.float32)), "transform_points"
+    else:
+        args, name = (T, rng.standard_normal((5, 3)).astype(np.float32)), "transform_points"
+    got = _t(getattr(tse3, name), *args)
+    np.testing.assert_allclose(got, _j(getattr(jse3, name), *args), atol=ATOL)
+    if case == "compose":
+        np.testing.assert_allclose(got, np.tile(np.eye(4), (5, 1, 1)), atol=ATOL)
+
+
+# JAX's tests/test_geometry.py TestCamera cases on the EuRoC camera, with
+# random points in front of it: the round trips, and the stereo gate at 2 m
+# (valid) and 100 m (disparity below min_x_diff)
+@pytest.mark.parametrize("name", ["project", "back_project", "stereo_project",
+                                  "disparity_to_depth", "back_project_stereo", "stereo_gate"])
+def test_camera_helpers_match_jax(name):
+    rng = np.random.default_rng(5)
+    p = (rng.uniform(0.5, 5.0, (20, 3)) * np.array([0.3, 0.3, 1.0])).astype(np.float32)
+    p[:2] = [[0.1, 0.1, 2.0], [0.1, 0.1, 100.0]]
+    jc, tc = jcfg.CameraConfig(), tcfg.CameraConfig()
+    uvr = _j(lambda q: jcam.stereo_project(jc, q), p)
+    uvR = np.stack([uvr[:, 2], uvr[:, 1] + rng.uniform(-3, 3, 20)], -1).astype(np.float32)
+    disp = (uvr[:, 0] - uvr[:, 2]).astype(np.float32)
+    disp[-1] = -1.0  # held at 1e-6
+    args = {"project": (p,), "back_project": (uvr[:, :2], p[:, 2]), "stereo_project": (p,),
+            "disparity_to_depth": (disp,), "back_project_stereo": (uvr[:, :2], uvr[:, 2]),
+            "stereo_gate": (uvr[:, :2], uvR)}[name]
+    got = _t(lambda *a: getattr(tcam, name)(tc, *a), *args)
+    ref = _j(lambda *a: getattr(jcam, name)(jc, *a), *args)
+    if name == "stereo_gate":
+        np.testing.assert_array_equal(got, ref)
+        assert got[0] == (abs(uvR[0, 1] - uvr[0, 1]) <= 2.0) and not got[1]
+    else:
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
+    if name == "back_project_stereo":
+        np.testing.assert_allclose(got, p, rtol=1e-4)
 
 
 def test_linalg_matches_jax():

@@ -198,14 +198,19 @@ def test_weight_bridge_npz_roundtrip(tmp_path):
 
 
 def test_unported_matcher_shapes_raise():
+    """The shapes that raised before the two-set matcher and the pixel-space
+    NMS were ported now run: sets of 8 against 9 give a (1, 9, 10) plan,
+    and ``nms_radius`` 2 extracts (tests/test_torch_unequal.py holds both
+    against the JAX package)."""
     cfg = SuperGlueConfig(num_gnn_layers=2)
     sg = tsg.SuperGlue(tsg.init_params(cfg), cfg, "cpu")
     a = [torch.zeros(1, 8, 2), torch.zeros(1, 8), torch.zeros(1, 8, 256),
          torch.ones(1, 8, dtype=torch.bool)]
     b = [torch.zeros(1, 9, 2), torch.zeros(1, 9), torch.zeros(1, 9, 256),
          torch.ones(1, 9, dtype=torch.bool)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsg.match_pair(sg, *a, *b)
+    res = tsg.match_pair(sg, *a, *b, sinkhorn_iters=5)
+    assert res.log_plan.shape == (1, 9, 10) and torch.isfinite(res.log_plan).all()
+    assert res.indices0.shape == (1, 8) and res.indices1.shape == (1, 9)
     sp = tsp.SuperPoint(tsp.init_params(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsp.extract(sp, torch.zeros(1, 16, 16), SuperPointConfig(nms_radius=2))
+    f = tsp.extract(sp, torch.zeros(1, 16, 16), SuperPointConfig(nms_radius=2, max_keypoints=32))
+    assert f.xy.shape == (1, 32, 2) and f.desc.shape == (1, 32, 256)
