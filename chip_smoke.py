@@ -14,6 +14,8 @@
                                      # summary
     python3 chip_smoke.py --unequal  # device, build, kernels, unequal (4c
                                      # below), summary
+    python3 chip_smoke.py --configs  # device, build, kernels, configs and
+                                     # large_k (4d below), summary
 
 Phases (one JSON line each):
   1. the card's name and power limit; build every library from
@@ -27,7 +29,13 @@ Phases (one JSON line each):
      in its side-output mode, K2 in its bf16 (main path) and f32 modes, and
      K2's two-set variant (SuperGlue with M != N: 400 keypoints over 300
      and 300 over 400) in both modes; K3 also on the rectangular plans
-     (401, 301) and (301, 401);
+     (401, 301) and (301, 401); past the resident kernels' ceilings, K2's
+     streamed bf16 kernel (sources past 752 keys: K and V in chunks, online
+     softmax) at K = 1024 (timed), 768 and 2048, both bf16 kernels at 752,
+     the two-set variant with a source past the ceiling and the f32 mode at
+     1024 and 2048; K3's global-memory kernel (plans no cluster holds: one
+     cooperative launch, three grid barriers per iteration) at (1, 1025,
+     1025) (timed), 921, 2049, (1025, 1201), and both K3 kernels at 601;
   3. ``local_ba_check``: local BA (``backend/local_ba.optimize_local_map``,
      no kernel of its own) on the card against the same function on CPU
      tensors, on the captured divergence window and on a synthetic window
@@ -101,9 +109,11 @@ Phases (one JSON line each):
      K3 launches per batched match equal to one single match's, every
      sequence's initialization, inliers and ATE (< 0.35 m), and a batched
      BA solve of ≥ 2 windows; ``batched_ba``, the sequences' last windows
-     solved batched and one by one (positions within 1e-4 m, inlier flags
-     equal on ≥ 99%; ms and launches of both); ``dist_ba``, 2 ranks of
-     this script (``--dist-ba-rank``) on the one card over gloo running
+     solved batched and one by one (the first LM step's system in f64
+     within 1e-9 relative; positions within 1e-4 m in f32 on every window
+     that a 1e-7 nudge moves less than that, and in f64 on every window;
+     inlier flags equal on ≥ 99%; ms and launches of both); ``dist_ba``,
+     2 ranks of this script (``--dist-ba-rank``) on the one card over gloo running
      the landmark-sharded solve and ``run_global_ba(mesh=)`` on the loop
      path's map (63 keyframes, saved by ``end_to_end_loop`` before its
      closing passes) and the sharded solve on the first sequence's map,
@@ -120,6 +130,27 @@ Phases (one JSON line each):
      ``match_pair`` with M != N at ``SuperGlueConfig()`` (K2's two-set
      variant and K3 on the (M+1, N+1) plan), gated as ``phase_unequal``
      says;
+  4d. ``configs`` (after ``unequal``): the four other shipped
+     configurations (``CONFIGS``: OIVIO radtan 1280×720 K = 600, UMA
+     fisheye 1024×768 K = 500, RealSense 848×480 K = 500, ZED2i 960×540 K =
+     300), each from its own file (``load_system_config``), the default
+     ``SLAMSystem(cfg, fe)`` (lines, async BA) at bf16 on 30 frames of
+     ``config_scene`` (the lines scene shrunk into the camera's depth and
+     baseline range) taken through the camera's own distortion and
+     rectification (``raw_frames``, 8 bits), gated on the card's rectified
+     frames equal to the CPU's ``remap_bilinear`` (1e-6), initialization,
+     > 20 inliers on ≥ 80% of frames, finite poses, the ATE under 1.6× the
+     JAX package's at half size (``CONFIG_JAX_ATE``), one K1 launch in
+     each mode per frame, lines and maplines, and each kernel against its
+     plain version at the configuration's shapes (timed beside its bound);
+     OIVIO also through ``cli run --config configs/oivio.yaml`` on a PNG
+     tree of its raw frames, native and ``--no-native``, the two routes'
+     trajectories within ``NATIVE_ROUTE_POS_TOL``; ``large_k``:
+     ``extract`` at ``max_keypoints`` 1024 and 2048 and ``match_pair`` with
+     ``SuperGlueConfig()`` on the pair, gated on 18 streamed K2 launches and
+     one global-memory K3 launch per match, a finite log plan, each layer
+     nearer its plain version than plain bf16 is to plain f32, K3 within
+     1e-3;
   5. the command line, as a user types it, in a subprocess that cannot
      import PyYAML, PIL or matplotlib (stub packages that raise on import
      come first on its path, as on a card machine without them):
@@ -190,10 +221,12 @@ Phases (one JSON line each):
      default main path; each path's counts in ``launches_by_path``, the
      CLI's as ``cli_run``, the training phases' under their names; each
      path's ATE in ``ate_by_path``); last line {"ok": true, "device":
-     ...}. K2's two-set variant takes its launches from ``unequal``.
+     ...}. K2's two-set variant takes its launches from ``unequal``,
+     K2's streamed kernel and K3's global-memory kernel from ``large_k``.
      With --kernels, phases 3-6 are skipped and the summary's launch
      counts are null; --unequal runs ``unequal`` alone; --training runs
-     ``end_to_end_ba`` and phase 6 alone; --parallel runs ``end_to_end_loop`` and phase 4b (the summary's
+     ``end_to_end_ba`` and phase 6 alone; --configs runs 4d alone (the
+     summary's launches: ``configs``' and ``large_k``'s); --parallel runs ``end_to_end_loop`` and phase 4b (the summary's
      launches are then ``multi_sequence``'s); --native runs
      ``end_to_end_lines``, ``merge_ab`` (the lines path with the numpy
      merge in place of the compiled one, in turns) and ``cli_run``,
@@ -524,7 +557,8 @@ def check_superglue_layer(bf16: bool):
 
 
 def _sinkhorn_case(gen, M, N, valid0, valid1, matcher: bool, iters: int = 100,
-                   plain_n: int = 5, B: int = 1):
+                   plain_n: int = 5, B: int = 1, route: str | None = None,
+                   emit_line: bool = True):
     """K3 against the plain sweeps on B (M+1, N+1) problems: random scores
     ×3 with dustbin 1.0, or (B = 1) the matcher's own scale (2000·cos of
     unit descriptors, half of them matched across the sets, dustbin 1980,
@@ -549,30 +583,36 @@ def _sinkhorn_case(gen, M, N, valid0, valid1, matcher: bool, iters: int = 100,
     m0 = (torch.arange(M, device=dev)[None] < valid0).expand(B, M)
     m1 = (torch.arange(N, device=dev)[None] < valid1).expand(B, N)
     Z0, mu, nu, norm = sk.build_problem(scores, m0, m1, bin_score)
-    got = skc.sinkhorn_iterations(Z0, mu, nu, iters) - norm[:, None, None]
+    run = {None: skc.sinkhorn_iterations, "cluster": skc._launch_cluster,
+           "global": skc._launch_global}[route]
+    got = run(Z0, mu, nu, iters) - norm[:, None, None]
     ref = sk.sinkhorn_iterations_plain(Z0, mu, nu, iters) - norm[:, None, None]
     torch.cuda.synchronize()
     one = torch.ones((B, 1), dtype=torch.bool, device=dev)
     sel = torch.cat([m0, one], 1)[:, :, None] & torch.cat([m1, one], 1)[:, None, :]
     ok, err = _allclose_report("sinkhorn", got, ref, 0.0, 1e-3, sel)
-    kernel_ms = time_ms(lambda: skc.sinkhorn_iterations(Z0, mu, nu, iters))
-    plain_ms = time_ms(lambda: sk.sinkhorn_iterations_plain(Z0, mu, nu, iters), n=plain_n)
+    kernel_ms = time_ms(lambda: run(Z0, mu, nu, iters))
+    plain_ms = time_ms(lambda: sk.sinkhorn_iterations_plain(Z0, mu, nu, iters), n=plain_n,
+                       warmup=1)
     elems = B * (M + 1) * (N + 1)
     sweeps = 2 * iters * elems  # one exponential per element per sweep
     flops = 4.0 * sweeps
     nbytes = 4.0 * (2 * elems + B * ((M + 1) + (N + 1)))
     bms, by = bound_ms(flops, nbytes, PEAK_F32, sfu_ops=sweeps)
-    plan = skc.cluster_plan(M + 1, N + 1)
+    route = route or skc.sinkhorn_route(M + 1, N + 1)
+    plan = skc.cluster_plan(M + 1, N + 1) if route == "cluster" else None
     line = {"phase": "kernel", "name": "sinkhorn", "shape": [B, M + 1, N + 1],
             "iters": iters, "scores": "matcher 2000*cos, bin 1980" if matcher
             else "randn*3, bin 1", "valid": [valid0, valid1],
-            "cluster_plan": plan._asdict(), "ok": ok, "max_abs_err": err,
+            "cluster_plan": plan and plan._asdict(), "ok": ok, "max_abs_err": err,
             "tolerance": "max |k-p| < 1e-3 on valid rows, columns and dustbins",
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call runs Sinkhorn",
             "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes,
             "elements": float(sweeps)}
     line.update(rates(line))
+    if not emit_line:
+        return line
     emit(line)
     if not ok:
         raise AssertionError(f"sinkhorn disagrees at {line['shape']} "
@@ -680,6 +720,143 @@ def check_superglue_layer_two_set(bf16: bool):
     return line
 
 
+LARGE_K = (768, 1024, 2048)  # keypoint budgets past K2's resident kernel (752)
+
+
+def check_superglue_layer_streamed():
+    """K2's streamed bf16 kernel (sources past MAX_K_BF16 = 752: K and V in
+    chunks, online softmax) against its plain version at K = 1024 (the
+    timed line) and 768 and 2048 (``checks``), self and cross; at K = 752,
+    where both bf16 kernels apply, each against the plain version; the
+    two-set variant with a source past the ceiling (800 over 1024, 1024 over
+    800: the second's source is resident, its line's route says so); and the
+    f32 mode at K = 1024 and 2048, which keeps its own kernels up to
+    MAX_K_F32 (``f32_checks``)."""
+    import torch
+
+    from rspl_slam_tpu_torch.ops import attention_cuda as ac
+
+    dev, bf16, f32 = "cuda", torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(13)
+    layer = ac.pack_layer(_random_layer(gen, 256, dev), dev)
+    rtol, atol = K2_BF16_TOL
+
+    def layer_fn(route):  # the wrapper, or one bf16 attention kernel by name
+        if route is None:
+            return ac.superglue_layer
+        return lambda x, masks, layer, cross, compute_dtype, scratch=None: ac._launch_layer(
+            x, masks, layer, cross, 4, compute_dtype, scratch, route == "streamed")
+
+    def stacked(K, route=None, dt=bf16, tol=(rtol, atol)):
+        run = layer_fn(route)
+        x = torch.randn((2, K, 256), generator=gen, device=dev)
+        masks = torch.arange(K, device=dev)[None] < torch.tensor([[K], [K - K // 6]],
+                                                                 device=dev)
+        errs, ok = [], True
+        for cross in (False, True):
+            got = run(x, masks, layer, cross, compute_dtype=dt)
+            ref = ac.superglue_layer_plain(x, masks, layer, cross, compute_dtype=dt)
+            torch.cuda.synchronize()
+            o, e = _allclose_report("superglue_layer_streamed", got, ref, *tol)
+            ok &= o
+            errs.append(e)
+        out = {"shape": [2, K, 256], "route": route or ac.bf16_route(K) if dt == bf16
+               else "f32", "ok": ok, "max_abs_err": max(errs), "max_abs_err_self_cross": errs}
+        if dt == bf16:  # the kernel's time at this K beside its bound
+            sc = ac.layer_scratch(x, masks, bf16)
+            out["ms"] = time_ms(lambda: run(x, masks, layer, True, compute_dtype=bf16,
+                                            scratch=sc))
+            out["bound_ms"] = _layer_bound(ac, layer, x, bf16)[2]
+        return out, x, masks
+
+    main, x, masks = stacked(1024)
+    scratch = ac.layer_scratch(x, masks, bf16)
+
+    def kernel():
+        return ac.superglue_layer(x, masks, layer, True, compute_dtype=bf16, scratch=scratch)
+
+    flops, nbytes, bms, by = _layer_bound(ac, layer, x, bf16)
+    main.update({"ms": time_ms(kernel), "host_ms": host_ms(kernel),
+                 "plain_ms": time_ms(lambda: ac.superglue_layer_plain(
+                     x, masks, layer, True, compute_dtype=bf16)),
+                 "library_ms": None, "bound_ms": bms, "bound_by": by, "flops": flops,
+                 "bytes": nbytes})
+    main.update(rates(main))
+    checks = [stacked(768)[0], stacked(2048)[0], stacked(752, "resident")[0],
+              stacked(752, "streamed")[0]]
+    for M, N in ((800, 1024), (1024, 800)):
+        xq = torch.randn((1, M, 256), generator=gen, device=dev)
+        src = torch.randn((1, N, 256), generator=gen, device=dev)
+        m_src = torch.arange(N, device=dev)[None] < N - N // 5
+        got = ac.superglue_layer_two_set(xq, src, m_src, layer, compute_dtype=bf16)
+        ref = ac.superglue_layer_two_set_plain(xq, src, m_src, layer, compute_dtype=bf16)
+        torch.cuda.synchronize()
+        o, e = _allclose_report("superglue_layer_two_set", got, ref, rtol, atol)
+        checks.append({"shape": [1, M, N], "route": ac.bf16_route(N), "two_set": True,
+                       "ok": o, "max_abs_err": e})
+    f32_checks = []
+    for K in (1024, 2048):
+        c, xf, mf = stacked(K, dt=f32, tol=(1e-3, 1e-3))
+        flops_f, nbytes_f, bms_f, by_f = _layer_bound(ac, layer, xf, f32)
+        sf = ac.layer_scratch(xf, mf, f32)
+        c.update({"ms": time_ms(lambda: ac.superglue_layer(
+            xf, mf, layer, True, compute_dtype=f32, scratch=sf), n=5),
+            "bound_ms": bms_f, "bound_by": by_f,
+            "f32_attn_smem_bytes": ac.f32_attn_smem_bytes(K), "max_k_f32": ac.MAX_K_F32})
+        f32_checks.append(c)
+    ok = main["ok"] and all(c["ok"] for c in checks + f32_checks)
+    line = {"phase": "kernel", "name": "superglue_layer_streamed", "compute_dtype": "bfloat16",
+            **main, "ok": ok,
+            "tolerance": "|k-p| <= 2^-8|p| + 4e-3 (bf16 operands; another f32 summation "
+                         "order); f32 mode rtol 1e-3, atol 1e-3",
+            "max_k_bf16_resident": ac.MAX_K_BF16,
+            "streamed_smem_bytes": ac.bf16_streamed_smem_bytes(),
+            "checks": checks, "f32_checks": f32_checks,
+            "library": "none: no single PyTorch call computes a whole GNN layer"}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"superglue_layer_streamed disagrees: {main}, {checks}, "
+                             f"{f32_checks}")
+    return line
+
+
+def check_sinkhorn_global():
+    """K3's global-memory kernel (plans no cluster holds) against the plain
+    sweeps at K = 1024, (1, 1025, 1025) (the timed line), and at 920 (the
+    first square plan past a cluster of 16), 2048 and the rectangular (1,
+    1025, 1201) (``checks``), all of them past every cluster; and at OIVIO's
+    (1, 601, 601), which the cluster kernel takes, both kernels on one plan."""
+    import torch
+
+    from rspl_slam_tpu_torch.ops import sinkhorn as sk
+    from rspl_slam_tpu_torch.ops import sinkhorn_cuda as skc
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    def case(M, N, plain_n=2, route=None):
+        line = _sinkhorn_case(gen, M, N, M - M // 11, N - N // 13, matcher=False,
+                              plain_n=plain_n, route=route or "global", emit_line=False)
+        line["route"] = route or skc.sinkhorn_route(M + 1, N + 1)
+        return line
+
+    line = case(1024, 1024, plain_n=3)
+    keys = ("shape", "route", "valid", "ok", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_fraction")
+    checks = [case(920, 920), case(2048, 2048, plain_n=1), case(1024, 1200),
+              case(600, 600, route="global"), case(600, 600, route="cluster")]
+    for c in checks[:3]:
+        if c["route"] != "global":
+            raise AssertionError(f"sinkhorn {c['shape']}: expected the global route")
+    line.update({"name": "sinkhorn_global", "col_rows": skc.COL_ROWS,
+                 "launches_per_call": 1, "grid_barriers_per_iteration": 3,
+                 "checks": [{k: c[k] for k in keys} for c in checks]})
+    line["ok"] = line["ok"] and all(c["ok"] for c in checks)
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"sinkhorn_global disagrees: {line}")
+    return line
+
+
 def _counters():
     from rspl_slam_tpu_torch.ops import cuda_build
 
@@ -692,7 +869,8 @@ def _reset_counters():
     conv_stem_cuda.launches = conv_stem_cuda.side_launches = 0
     attention_cuda.launches = attention_cuda.f32_launches = 0
     attention_cuda.two_set_launches = attention_cuda.two_set_f32_launches = 0
-    sinkhorn_cuda.launches = 0
+    attention_cuda.streamed_launches = 0
+    sinkhorn_cuda.launches = sinkhorn_cuda.global_launches = 0
 
 
 def phase_local_ba_check(profile: bool):
@@ -795,6 +973,125 @@ def _scene(cfg, lines: bool, n: int = E2E_FRAMES):
     traj = synthetic.make_trajectory(E2E_FRAMES, step=0.05)
     frames = [synthetic.render_images(scene, cfg.camera, traj[i], seed=i) for i in range(n)]
     return frames, traj, time.perf_counter() - t0
+
+
+def scale_camera(cam, f: float):
+    """The camera at ``f`` times its size: image size, rectified
+    intrinsics, bf and the raw K and P scaled by ``f``; the distortion
+    model, its coefficients and R unchanged (they act on normalized
+    coordinates)."""
+    def scaled(m, rows):
+        if m is None:
+            return None
+        a = np.asarray(m, np.float64).reshape(rows, -1).copy()
+        a[:2] *= f
+        return tuple(a.ravel().tolist())
+
+    return dataclasses.replace(
+        cam, image_width=int(round(cam.image_width * f)),
+        image_height=int(round(cam.image_height * f)),
+        fx=cam.fx * f, fy=cam.fy * f, cx=cam.cx * f, cy=cam.cy * f, bf=cam.bf * f,
+        left_K=scaled(cam.left_K, 3), right_K=scaled(cam.right_K, 3),
+        left_P=scaled(cam.left_P, 3), right_P=scaled(cam.right_P, 3))
+
+
+def _undistort(xd, yd, D, distortion_type: int):
+    """Normalized raw coordinates → undistorted ones: the inverse of
+    camera.build_rectify_maps' distortion model (radtan by fixed-point
+    iteration, equidistant fisheye by Newton's method on θ)."""
+    D = list(np.asarray(D if D is not None else [], np.float64).ravel())
+    if distortion_type == 0:
+        k1, k2, p1, p2, k3 = (D + [0.0] * 5)[:5]
+        x, y = xd.copy(), yd.copy()
+        for _ in range(30):
+            r2 = x * x + y * y
+            radial = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 ** 3
+            dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+            dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+            x, y = (xd - dx) / radial, (yd - dy) / radial
+        return x, y
+    k1, k2, k3, k4 = (D + [0.0] * 4)[:4]
+    theta_d = np.sqrt(xd * xd + yd * yd)
+    th = theta_d.copy()
+    for _ in range(30):
+        t2 = th * th
+        f = th * (1.0 + k1 * t2 + k2 * t2 ** 2 + k3 * t2 ** 3 + k4 * t2 ** 4) - theta_d
+        df = 1.0 + 3.0 * k1 * t2 + 5.0 * k2 * t2 ** 2 + 7.0 * k3 * t2 ** 3 + 9.0 * k4 * t2 ** 4
+        th = th - f / df
+    scale = np.where(theta_d > 1e-12, np.tan(th) / np.maximum(theta_d, 1e-12), 1.0)
+    return xd * scale, yd * scale
+
+
+def raw_to_rectified_map(cam, side: str):
+    """(H, W, 2) float64: the rectified (x, y) at which each raw pixel of
+    ``side`` looks, the inverse of ``camera.build_rectify_maps``: the raw
+    pixel through K⁻¹, undistorted, rotated by R into the rectified camera
+    and projected by P. None where the camera has no raw calibration."""
+    K, D, R, P = (getattr(cam, f"{side}_{m}") for m in "KDRP")
+    if K is None or P is None:
+        return None
+    K = np.asarray(K, np.float64).reshape(3, 3)
+    R = np.asarray(R if R is not None else np.eye(3), np.float64).reshape(3, 3)
+    P = np.asarray(P, np.float64).reshape(3, 4)
+    H, W = cam.image_height, cam.image_width
+    u, v = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64))
+    x, y = _undistort((u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1], D, cam.distortion_type)
+    rays = R @ np.stack([x, y, np.ones_like(x)]).reshape(3, -1)
+    xr = P[0, 0] * rays[0] / rays[2] + P[0, 2]
+    yr = P[1, 1] * rays[1] / rays[2] + P[1, 2]
+    return np.stack([xr, yr], -1).reshape(H, W, 2)
+
+
+def _sample(img, xy):
+    """Bilinear samples of ``img`` (H, W) at ``xy`` (..., 2), the border
+    clamped."""
+    H, W = img.shape
+    x = np.clip(xy[..., 0], 0.0, W - 1.0)
+    y = np.clip(xy[..., 1], 0.0, H - 1.0)
+    x0 = np.minimum(np.floor(x).astype(np.int64), W - 2)
+    y0 = np.minimum(np.floor(y).astype(np.int64), H - 2)
+    wx, wy = x - x0, y - y0
+    return (img[y0, x0] * (1 - wy) * (1 - wx) + img[y0, x0 + 1] * (1 - wy) * wx
+            + img[y0 + 1, x0] * wy * (1 - wx) + img[y0 + 1, x0 + 1] * wy * wx)
+
+
+def raw_frames(cam, frames):
+    """Rendered rectified stereo pairs → the raw 8-bit pairs the camera
+    would have taken: each raw pixel samples the render where it looks
+    (``raw_to_rectified_map``), so rectification on the way in undoes the
+    config's own distortion and rotation."""
+    maps = [raw_to_rectified_map(cam, side) for side in ("left", "right")]
+    out = []
+    for pair in frames:
+        out.append(tuple(
+            (np.clip(im if m is None else _sample(im.astype(np.float64), m), 0, 1) * 255
+             ).round().astype(np.uint8) for im, m in zip(pair, maps)))
+    return out
+
+
+EUROC_BASELINE = 47.90639384423901 / 435.2046959714599  # m, the end-to-end scene's camera
+
+
+def config_scene(cam, n: int, num_lines: int = 12, closer: float = 1.0):
+    """The end-to-end scene (600 blobs, ``num_lines`` dark segments, seed 1)
+    and forward trajectory shrunk into what the camera can range: the box
+    spans 2-8 m, so a camera whose ``depth_upper_thr`` is under 8.9 m sees
+    it scaled by 0.9·depth_upper_thr / 8, and one with a shorter stereo
+    baseline than EuRoC's by the ratio of the baselines (random
+    SuperPoint puts its keypoints on an 8-px grid, so disparities must stay
+    near EuRoC's), the step with it; the smaller scale wins, divided by
+    ``closer`` (a run at a fraction of the camera's size keeps its
+    disparities so). Rendered rectified with ``cam``: (frames, trajectory,
+    scale)."""
+    from rspl_slam_tpu_torch.evaluation import synthetic
+
+    s = min(1.0, 0.9 * cam.depth_upper_thr / 8.0, cam.baseline / EUROC_BASELINE) / closer
+    scene = synthetic.make_scene(num_points=600, num_lines=num_lines, seed=1,
+                                 extent=(6.0 * s, 4.0 * s, 6.0 * s), depth_offset=2.0 * s,
+                                 on_line_frac=0.0)
+    traj = synthetic.make_trajectory(n, step=0.05 * s)
+    frames = [synthetic.render_images(scene, cam, traj[i], seed=i) for i in range(n)]
+    return frames, traj, s
 
 
 def _frontend(cfg, lines: bool, sp_params=None):
@@ -1425,6 +1722,312 @@ def phase_unequal():
     if not (control["k2_layers_ok"] and k3_err <= K3_ATOL):
         raise AssertionError(f"unequal: the stacked control: {control}")
     return sp_lines + match_lines + [control], counts_all
+
+
+# the four other shipped configurations, end to end at full size
+CONFIGS = (("oivio", "configs/oivio.yaml"), ("uma", "configs/uma_bumblebee_indoor.yaml"),
+           ("realsense", "configs/realsense.yaml"), ("zed2i", "configs/zed2i.yaml"))
+# the JAX package's ATE (m) on each configuration's run at half size, on the
+# CPU (tests/torch_slice_reference.py --config configs/<name>.yaml); the
+# card's run at full size is held under CONFIG_ATE_FACTOR times it
+CONFIG_JAX_ATE = {"oivio": 0.06486239829618877, "uma": 0.224040853627382,
+                  "realsense": 0.10590892742590875, "zed2i": 0.11025068756446281}
+CONFIG_ATE_FACTOR = 1.6
+RECT_ATOL = 1e-6  # the card's rectified frames against the CPU's remap_bilinear
+
+
+def _config_kernels(cfg, seed: int) -> dict:
+    """Each kernel at this configuration's shapes against its plain
+    version, timed beside its bound: K1 on SuperPoint's conv1b (2, H, W,
+    64), K1's side mode on RCF's first stage (×0.5 where H and W are
+    multiples of 8, else full size), K2 bf16 stacked (2, K, 256), K3 (1,
+    K+1, K+1)."""
+    import torch
+
+    from rspl_slam_tpu_torch.ops import attention_cuda as ac
+
+    cam, K = cfg.camera, cfg.superpoint.max_keypoints
+    H, W = cam.image_height, cam.image_width
+    half = H % 8 == 0 and W % 8 == 0 and cfg.line_detector.rcf_at_detection_scale
+    Hs, Ws = (H // 2, W // 2) if half else (H, W)
+    keys = ("shape", "ok", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    out = {"conv_stem": {k: v for k, v in _conv_case(2, H, W, False, seed).items()
+                         if k in keys},
+           "conv_stem_side": {k: v for k, v in _conv_case(2, Hs, Ws, True, seed + 1).items()
+                              if k in keys}}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    layer = ac.pack_layer(_random_layer(gen, 256, "cuda"), "cuda")
+    ok, errs, x, masks, scratch = _layer_case(ac, gen, layer, K, K - K // 9, torch.bfloat16,
+                                              *K2_BF16_TOL)
+    bms, by = _layer_bound(ac, layer, x, torch.bfloat16)[2:]
+    out["superglue_layer"] = {
+        "shape": list(x.shape), "route": ac.bf16_route(K), "ok": ok, "max_abs_err": max(errs),
+        "ms": time_ms(lambda: ac.superglue_layer(x, masks, layer, True,
+                                                 compute_dtype=torch.bfloat16,
+                                                 scratch=scratch)),
+        "plain_ms": time_ms(lambda: ac.superglue_layer_plain(
+            x, masks, layer, True, compute_dtype=torch.bfloat16)),
+        "bound_ms": bms, "bound_by": by}
+    k3 = _sinkhorn_case(gen, K, K, K - K // 11, K - K // 13, matcher=False, plain_n=2,
+                        emit_line=False)
+    out["sinkhorn"] = {k: k3[k] for k in keys}
+    return out
+
+
+def phase_config(name: str, path: str, seed: int) -> tuple[dict, dict]:
+    """One shipped configuration end to end on the card at full size: the
+    file's algorithm and camera sections (``load_system_config``), the
+    default ``SLAMSystem(cfg, fe)`` (lines, async local BA), bf16, the
+    smoke's weights, 30 frames of ``config_scene`` taken through the
+    camera's own distortion and rectification (``raw_frames``: 8-bit raw
+    pairs the frontend rectifies on the card). Gated on the first pair's
+    rectified frames equal to the CPU's ``remap_bilinear`` with the same
+    maps (``RECT_ATOL``), initialization, > 20 inliers on ≥ 80% of frames,
+    finite poses, the ATE under ``CONFIG_ATE_FACTOR`` × the JAX package's
+    at half size, one K1 launch in each mode per extraction, the resident
+    K2 and the cluster K3 (K ≤ 600) and every kernel within its tolerance
+    of its plain version at this configuration's shapes. Returns the line
+    and the counts."""
+    import torch
+
+    from rspl_slam_tpu_torch.camera import build_rectify_maps, remap_bilinear
+    from rspl_slam_tpu_torch.config import load_system_config
+    from rspl_slam_tpu_torch.frontend.frontends import _to_unit_float
+    from rspl_slam_tpu_torch.slam import SLAMSystem
+
+    full = os.path.join(ROOT, path)
+    cfg = load_system_config(full, full)
+    cam = cfg.camera
+    t0 = time.perf_counter()
+    frames, traj, scale = config_scene(cam, E2E_FRAMES)
+    raw = raw_frames(cam, frames)
+    render_s = time.perf_counter() - t0
+    fe = _frontend(cfg, lines=True)
+    pair = np.stack(raw[0])
+    maps = np.stack([build_rectify_maps(cam, "left"), build_rectify_maps(cam, "right")])
+    card = fe._upload(pair, slice(0, 2)).cpu()
+    cpu = remap_bilinear(_to_unit_float(torch.from_numpy(pair)), torch.from_numpy(maps))
+    rect_err = float((card - cpu).abs().max())
+    map_shift = float(np.abs(maps - np.stack(np.meshgrid(
+        np.arange(cam.image_width), np.arange(cam.image_height)), -1)[None]).max())
+
+    warm = SLAMSystem(cfg, fe)
+    for i in range(2):
+        warm.add_frame(i, 0.05 * i, *raw[i])
+    warm.flush_ba()
+    del warm
+    torch.cuda.synchronize()
+    fe.timings.clear()
+    slam = SLAMSystem(cfg, fe)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    recs, lines_per_frame = [], []
+    for i in range(E2E_FRAMES):
+        recs.append(slam.add_frame(i, 0.05 * i, *raw[i]))
+        lines_per_frame.append(int(slam._last_feats.line_valid.sum()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    slam.flush_ba()
+    est = np.stack([r.Twc for r in recs])
+    ate = _ate(recs, traj)
+    inliers = [int(r.num_inliers) for r in recs[1:]]
+    tracked = sum(n > E2E_MIN_INLIERS for n in inliers)
+    jax_ate = CONFIG_JAX_ATE[name]
+    bound = None if jax_ate is None else CONFIG_ATE_FACTOR * jax_ate
+    timings = {**slam.timings, **fe.timings}
+    matches = counts["sinkhorn"] + counts["sinkhorn_global"]
+    kernels = _config_kernels(cfg, seed)
+    m = slam.map
+    line = {"phase": "configs", "config": name, "file": path, "card": CARD,
+            "image": [cam.image_width, cam.image_height],
+            "distortion_type": cam.distortion_type, "rect_map_max_shift_px": map_shift,
+            "max_keypoints": cfg.superpoint.max_keypoints,
+            "keyframe": dataclasses.asdict(cfg.keyframe),
+            "chi2_tracking": dataclasses.asdict(cfg.optimization.tracking),
+            "scene_scale": scale, "frames": E2E_FRAMES, "render_s": render_s,
+            "rectified_max_abs_diff_card_cpu": rect_err, "rect_atol": RECT_ATOL,
+            "initialized": slam.initialized, "keyframes": int(m.n_kf),
+            "inliers": inliers, "frames_over_min_inliers": tracked,
+            "ate_rmse_m": ate, "jax_ate_half_size_m": jax_ate, "ate_bound_m": bound,
+            "keyframe_ate_rmse_m": _keyframe_ate(m, traj),
+            "frames_per_s": E2E_FRAMES / wall, "wall_s": wall,
+            "stage_median_ms": {k: float(np.median(v)) * 1e3 for k, v in timings.items()},
+            "max_memory_allocated_MB": peak_mb, "launches": counts,
+            "matches": matches,
+            "k2_launches_per_match": counts["superglue_layer"] / max(1, matches),
+            "k3_launches_per_match": counts["sinkhorn"] / max(1, matches),
+            "lines_per_frame_median": float(np.median(lines_per_frame)),
+            "maplines_with_endpoints": int(m.ln_has_endpoints[: m.n_ln].sum()),
+            "ba_windows": len(slam.ba_windows), "kernels": kernels}
+    emit(line)
+    fails = []
+    if not rect_err <= RECT_ATOL:
+        fails.append(f"rectified frames {rect_err} from the CPU's")
+    if not slam.initialized:
+        fails.append("no initialization")
+    if tracked < 0.8 * len(inliers):
+        fails.append(f"too few tracked frames: {inliers}")
+    if not np.isfinite(est).all():
+        fails.append("non-finite pose")
+    if bound is None or not ate < bound:
+        fails.append(f"ATE {ate} over the bound {bound}")
+    if counts["conv_stem"] != E2E_FRAMES or counts["conv_stem_side"] != E2E_FRAMES:
+        fails.append(f"K1 launches {counts['conv_stem']} / side {counts['conv_stem_side']} "
+                     f"in {E2E_FRAMES} extractions")
+    if (counts["superglue_layer"] <= 0 or counts["sinkhorn"] <= 0
+            or counts["superglue_layer_streamed"] or counts["sinkhorn_global"]):
+        fails.append(f"K2 / K3 launches {counts}")
+    if not (line["lines_per_frame_median"] > 0 and line["maplines_with_endpoints"] > 0):
+        fails.append("no lines detected or no mapline triangulated")
+    if not all(k["ok"] for k in kernels.values()):
+        fails.append(f"a kernel disagrees with its plain version: {kernels}")
+    if fails:
+        raise AssertionError(f"configs {name}: " + "; ".join(fails))
+    return line, counts, (cfg, raw, traj)
+
+
+def phase_config_cli(name: str, path: str, raw, traj) -> dict:
+    """``cli run --config <file>`` on the configuration's raw frames written
+    as a raw-EuRoC PNG tree (the file's own camera section rectifies them):
+    by default (the native loader rectifies on the host with the config's
+    maps) and with ``--no-native`` (the card rectifies). Gated on both
+    exits, 30 frames and the two routes' trajectories within
+    ``NATIVE_ROUTE_POS_TOL``."""
+    from rspl_slam_tpu_torch.config import load_system_config
+    from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
+    from rspl_slam_tpu_torch.models.weights import save_npz_pytree
+    from rspl_slam_tpu_torch.slam import INIT_POSE
+
+    full = os.path.join(ROOT, path)
+    cfg = load_system_config(full, full)
+    work = os.path.join(WORK, f"cli_{name}")
+    shutil.rmtree(work, ignore_errors=True)
+    tree = os.path.join(work, "seq")
+    _write_tree(tree, raw, np.einsum("ij,njk->nik", INIT_POSE, traj))
+    for k, params in {"sp": superpoint.init_params(0),
+                      "sg": superglue.descriptor_matcher_params(cfg.superglue, 0, 2000.0,
+                                                                1980.0),
+                      "rcf": rcf.edge_detector_params()}.items():
+        save_npz_pytree(os.path.join(work, f"{k}.npz"), params)
+    common = ("--dataroot", tree, "--config", full, "--camera-config", full,
+              "--sp-weights", os.path.join(work, "sp.npz"),
+              "--sg-weights", os.path.join(work, "sg.npz"),
+              "--rcf-weights", os.path.join(work, "rcf.npz"), "--gt", tree)
+    runs = {}
+    for route, extra in (("native", ()), ("no_native", ("--no-native",))):
+        traj_path = os.path.join(work, f"traj_{route}.txt")
+        t0 = time.perf_counter()
+        out = _cli("run", *common, "--traj-path", traj_path, *extra)
+        processed = re.search(r"^processed (\d+) frames in ([0-9.]+)s \(([0-9.]+) fps\)$", out,
+                              re.M)
+        with open(traj_path) as f:
+            text = f.read()
+        runs[route] = {"wall_s": time.perf_counter() - t0,
+                       "frames": processed and int(processed.group(1)),
+                       "printed_fps": processed and float(processed.group(3)),
+                       "native_line": "using native prefetcher + rectification"
+                       in out.splitlines(),
+                       "ate": json.loads(re.search(r"^ATE: (.*)$", out, re.M).group(1)),
+                       "launches": json.loads(re.search(r"^kernel launches: (.*)$", out,
+                                                        re.M).group(1)),
+                       "traj": text}
+    dist = _traj_distance(runs["native"]["traj"], runs["no_native"]["traj"])
+    line = {"phase": "configs_cli", "config": name, "card": CARD, "routes": dist,
+            "route_pos_tol_m": NATIVE_ROUTE_POS_TOL,
+            **{route: {k: v for k, v in r.items() if k != "traj"} for route, r in runs.items()}}
+    emit(line)
+    ok = (all(r["frames"] == len(raw) for r in runs.values())
+          and runs["native"]["native_line"] and not runs["no_native"]["native_line"]
+          and dist["same_keyframes"]
+          and dist["max_position_diff_m"] is not None
+          and dist["max_position_diff_m"] <= NATIVE_ROUTE_POS_TOL)
+    if not ok:
+        raise AssertionError(f"configs_cli {name}: {line}")
+    shutil.rmtree(work, ignore_errors=True)
+    return line
+
+
+def phase_configs():
+    """The four other shipped configurations (OIVIO, UMA fisheye, RealSense,
+    ZED2i), each through ``phase_config``; OIVIO also through ``cli run``
+    (``phase_config_cli``). Returns the launch counts summed over the four
+    runs."""
+    import torch
+
+    total = {}
+    for i, (name, path) in enumerate(CONFIGS):
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, counts, (cfg, raw, traj) = phase_config(name, path, seed=20 + i)
+        total = {k: total.get(k, 0) + c for k, c in counts.items()}
+        if name == "oivio":
+            phase_config_cli(name, path, raw, traj)
+    return total
+
+
+LARGE_K_BUDGETS = (1024, 2048)  # SuperGlue's outdoor budget and twice it
+
+
+def phase_large_k():
+    """SuperGlue past the resident kernels' ceilings, as a user gets it with
+    ``SuperPointConfig(max_keypoints=1024 or 2048)``: ``extract`` on the
+    end-to-end scene's first 752×480 pair at that budget (bf16, random
+    SuperPoint, seed 0; K1 once), then ``match_pair`` of the pair's two
+    sets with ``SuperGlueConfig()`` (18 layers, 100 iterations, random
+    weights, seed 0) at bf16, counters reset just before: gated on 18
+    launches of K2's streamed kernel and one of K3's global-memory kernel
+    (the resident K2 and the cluster K3 none), a finite log plan of shape
+    (1, K+1, K+1), each layer on the plain forward's own input nearer its
+    plain version than plain bf16 is to plain f32, and K3 on the plain
+    forward's problem within its kernel line's 1e-3."""
+    import torch
+
+    from rspl_slam_tpu_torch.config import SuperGlueConfig, SystemConfig
+    from rspl_slam_tpu_torch.models import superglue, superpoint
+    from rspl_slam_tpu_torch.models.weights import superglue_from_numpy, superpoint_from_numpy
+
+    cfg = SystemConfig()
+    frames, _, _ = _scene(cfg, lines=False, n=1)
+    imgs = torch.from_numpy(np.stack(frames[0])).to("cuda")
+    sp = superpoint_from_numpy(superpoint.init_params(0), "cuda")
+    sgc = SuperGlueConfig()
+    sg = superglue_from_numpy(superglue.init_params(sgc, 0), sgc, "cuda")
+    total, out = {}, []
+    for K in LARGE_K_BUDGETS:
+        spc = dataclasses.replace(cfg.superpoint, max_keypoints=K)
+        _reset_counters()
+        f = superpoint.extract(sp, imgs, spc, torch.bfloat16)
+        arrays = tuple(t[b:b + 1].contiguous() for b in (0, 1)
+                       for t in (f.xy, f.score, f.desc, f.valid))
+        res = superglue.match_pair(sg, *arrays, sgc, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        counts = _counters()
+        total = {k: total.get(k, 0) + c for k, c in counts.items()}
+        match_ms = time_ms(lambda: superglue.match_pair(sg, *arrays, sgc,
+                                                        compute_dtype=torch.bfloat16), n=3)
+        layer_errs, k3_err, _, _ = _layers_on_plain_inputs(sg, arrays, sgc)
+        line = {"phase": "large_k", "card": CARD, "max_keypoints": K,
+                "valid_keypoints": f.valid.sum(1).tolist(),
+                "log_plan_shape": list(res.log_plan.shape),
+                "decoded_matches": int((res.indices0 >= 0).sum()), "match_ms": match_ms,
+                "launches": counts,
+                "k2_layer_max_abs_diff_kernel_cpu_spread_bf16_vs_f32": layer_errs,
+                "k2_layers_ok": all(k <= g for k, _, g in layer_errs),
+                "k3_max_abs_err": k3_err, "tolerance": UNEQUAL_TOLERANCE}
+        emit(line)
+        out.append(line)
+        ok = (counts["conv_stem"] == 1 and counts["superglue_layer_streamed"] ==
+              sgc.num_gnn_layers and counts["sinkhorn_global"] == 1
+              and counts["superglue_layer"] == 0 and counts["sinkhorn"] == 0
+              and tuple(res.log_plan.shape) == (1, K + 1, K + 1)
+              and bool(torch.isfinite(res.log_plan).all())
+              and line["k2_layers_ok"] and k3_err <= K3_ATOL)
+        if not ok:
+            raise AssertionError(f"large_k at {K}: {line}")
+    return out, total
 
 
 def loop_sequence():
@@ -2162,16 +2765,26 @@ def _ba_kw(cfg) -> dict:
 def phase_batched_ba(msq):
     """Each sequence's last window (4 windows of one capacity, captured on
     the multi-sequence BA path) solved in one batched solve and one by one
-    on the card. Gated: camera positions within 1e-4 m of the single solves
-    and the inlier flags equal on ≥ 99% of the valid constraints. Measured:
-    CUDA-event ms and launches (torch.profiler) of the batched solve against
-    the 4 single solves together."""
+    on the card. Gated, per window: the first LM step's reduced camera
+    system (S, g̃, cost: ``local_ba.reduced_camera_system`` under the
+    batched solve's ``vmap`` over ``dist_ba.upload_windows`` and alone),
+    assembled in f64, within ``DIST_SYSTEM_RTOL`` (relative to the largest
+    entry) of the single one's; camera positions within 1e-4 m of the
+    single solve, in f32 where f32 determines the window to that (the
+    single solve of its points nudged by ``DIST_NUDGE``, 1e-7 relative,
+    moves less than 1e-4 m), and on every window with both solves run on
+    the problem's f64 copy, where no f32 rounding can move the LM's
+    accept decisions and the chi² gate; the f32 inlier flags equal on
+    ≥ 99% of the valid constraints. Measured: the nudge spreads,
+    CUDA-event ms and launches (torch.profiler) of the batched solve
+    against the 4 single solves together."""
     import torch
 
     from rspl_slam_tpu_torch.backend import local_ba
     from rspl_slam_tpu_torch.parallel import dist_ba
 
     K, kw, dev = msq.slams[0].K, _ba_kw(msq.cfg), msq.slams[0].device
+    chi2 = {k: kw[k] for k in ("chi2_mono", "chi2_stereo", "chi2_mono_line", "chi2_stereo_line")}
     probs, maps = [], []
     for slam in msq.slams:
         prob, mapping = slam.gather_ba_problem(int(slam.map.n_kf) - 1)
@@ -2186,12 +2799,41 @@ def phase_batched_ba(msq):
         return [local_ba.optimize_local_map(K, local_ba.upload_problem(p, dev), **kw)
                 for p in probs]
 
+    def f64(prob):
+        return prob._replace(**{f: v.double() for f, v in zip(prob._fields, prob)
+                                if torch.is_tensor(v) and v.is_floating_point()})
+
     got = dist_ba.fetch_windows(batched())
     ref = [local_ba.fetch_result(r) for r in singles()]
+    nudged = [local_ba.fetch_result(local_ba.optimize_local_map(
+        K, local_ba.upload_problem(p._replace(points=(np.asarray(p.points) * (1 + DIST_NUDGE))
+                                              .astype(np.float32)), dev), **kw))
+        for p in probs]
+    # the batched solve's function (batched_windows_ba's vmap) on the f64 copy
+    got64 = dist_ba.fetch_windows(torch.func.vmap(lambda p: local_ba._solve(
+        K, p, tuple(chi2.values()), kw["iters1"], kw["iters2"]))(
+            f64(dist_ba.upload_windows(probs, dev))))
+    ref64 = [local_ba.fetch_result(local_ba.optimize_local_map(
+        K, f64(local_ba.upload_problem(p, dev)), **kw)) for p in probs]
+    sys_b = torch.func.vmap(lambda p: local_ba.reduced_camera_system(
+        K, p, None, torch.float64, **chi2))(dist_ba.upload_windows(probs, dev))
+    systems = []
+    for w, p in enumerate(probs):
+        one = local_ba.reduced_camera_system(K, local_ba.upload_problem(p, dev), None,
+                                             torch.float64, **chi2)
+        rel = [float((b[w] - o).abs().max() / o.abs().max().clamp_min(1e-300))
+               for b, o in zip(sys_b, one)]
+        systems.append(dict(zip(("S_rel", "g_rel", "cost_rel"), rel)))
     pos = lambda T: np.linalg.inv(T.astype(np.float64))[:, :3, 3]  # noqa: E731
-    pose_diff = max(float(np.abs(pos(g.Tcw[: len(m["frames"])])
-                                 - pos(r.Tcw[: len(m["frames"])])).max())
-                    for g, r, m in zip(got, ref, maps))
+
+    def dist(a, b, m):
+        n = len(m["frames"])
+        return float(np.abs(pos(a.Tcw[:n]) - pos(b.Tcw[:n])).max())
+
+    pose_diffs = [dist(g, r, m) for g, r, m in zip(got, ref, maps)]
+    spreads = [dist(q, r, m) for q, r, m in zip(nudged, ref, maps)]
+    determined = [sp <= BATCHED_BA_POSE_ATOL_M for sp in spreads]
+    pose_diffs64 = [dist(g, r, m) for g, r, m in zip(got64, ref64, maps)]
     agree = [float((g.p_inlier[: m["ncp"]] == r.p_inlier[: m["ncp"]]).mean())
              for g, r, m in zip(got, ref, maps)]
     ms_b = time_ms(batched, n=3, warmup=1)
@@ -2209,15 +2851,24 @@ def phase_batched_ba(msq):
             "capacity": {"F": int(probs[0].Tcw.shape[0]), "P": int(probs[0].points.shape[0]),
                          "L": int(probs[0].lines.shape[0]), "Cp": int(len(probs[0].p_valid)),
                          "Cl": int(len(probs[0].l_valid))},
-            "pose_max_diff_m": pose_diff, "pose_atol_m": BATCHED_BA_POSE_ATOL_M,
+            "first_system_f64": systems, "system_rtol": DIST_SYSTEM_RTOL,
+            "pose_diff_m": pose_diffs, "single_nudge_spread_m": spreads,
+            "f32_determined": determined, "pose_diff_f64_m": pose_diffs64,
+            "pose_atol_m": BATCHED_BA_POSE_ATOL_M, "nudge": DIST_NUDGE,
             "inlier_agreement": agree, "inlier_share_min": BATCHED_BA_INLIER_SHARE,
             "costs_batched": [float(g.cost) for g in got],
             "costs_single": [float(r.cost) for r in ref],
+            "costs_f64_batched_single": [[float(g.cost), float(r.cost)]
+                                         for g, r in zip(got64, ref64)],
             "ms_batched": ms_b, "ms_singles_sum": ms_s,
             "launches_batched": counts["batched"], "launches_singles_sum": counts["singles"]}
     emit(line)
-    if len(probs) < 2 or not pose_diff <= BATCHED_BA_POSE_ATOL_M or \
-            min(agree) < BATCHED_BA_INLIER_SHARE:
+    ok = (len(probs) >= 2
+          and all(v <= DIST_SYSTEM_RTOL for s_ in systems for v in s_.values())
+          and all(d <= BATCHED_BA_POSE_ATOL_M for d, det in zip(pose_diffs, determined) if det)
+          and all(d <= BATCHED_BA_POSE_ATOL_M for d in pose_diffs64)
+          and min(agree) >= BATCHED_BA_INLIER_SHARE)
+    if not ok:
         raise AssertionError(f"batched_ba: {line}")
     return line
 
@@ -3952,9 +4603,11 @@ def _lines_breakdown(fe, pair):
 # each port kernel's CUDA function name, as the profiler lists it
 PROFILE_NAMES = {"conv_stem": ("conv3x3_relu_pool_kernel<false>",),
                  "conv_stem_side": ("conv3x3_relu_pool_kernel<true>",),
-                 "superglue_layer": ("qkv_bf16_kernel", "layer_bf16_kernel"),
+                 "superglue_layer": ("qkv_bf16_kernel", "layer_bf16_kernel<false>"),
                  "superglue_layer_f32": ("qkv_kernel", "attn_kernel", "mlp_kernel"),
-                 "sinkhorn": ("sinkhorn_cluster_kernel",)}
+                 "superglue_layer_streamed": ("layer_bf16_kernel<true>",),
+                 "sinkhorn": ("sinkhorn_cluster_kernel",),
+                 "sinkhorn_global": ("sinkhorn_global_kernel",)}
 
 SOURCES = {
     "conv_stem": ("rspl_slam_tpu_torch/csrc/conv_stem.cu",
@@ -3967,6 +4620,12 @@ SOURCES = {
                                 "rspl_slam_tpu/ops/attention_pallas.py:93"),
     "sinkhorn": ("rspl_slam_tpu_torch/csrc/sinkhorn.cu",
                  "rspl_slam_tpu/ops/sinkhorn_pallas.py:61"),
+    # past the resident kernels' ceilings: K2's streamed attention (source
+    # length > 752) and K3's global-memory kernel (no cluster holds Z0)
+    "superglue_layer_streamed": ("rspl_slam_tpu_torch/csrc/superglue_layer.cu",
+                                 "rspl_slam_tpu/ops/attention_pallas.py:93"),
+    "sinkhorn_global": ("rspl_slam_tpu_torch/csrc/sinkhorn.cu",
+                        "rspl_slam_tpu/ops/sinkhorn_pallas.py:61"),
 }
 # K1's side-output mode (RCF) and K2's f32 modes, listed under the main line
 OTHER_MODES = {"conv_stem": ("side_mode", "conv_stem_side"),
@@ -3974,7 +4633,8 @@ OTHER_MODES = {"conv_stem": ("side_mode", "conv_stem_side"),
                "superglue_layer_two_set": ("f32_mode", "superglue_layer_two_set_f32")}
 # the path whose run gives a kernel's ``launches`` where it is not the
 # default main path's
-KERNEL_PATHS = {"superglue_layer_two_set": "unequal"}
+KERNEL_PATHS = {"superglue_layer_two_set": "unequal", "superglue_layer_streamed": "large_k",
+                "sinkhorn_global": "large_k"}
 KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "tflops", "bound_fraction")
 
@@ -3984,7 +4644,8 @@ def phase_summary(lines, by_path, ate_by_path):
     default main path (``end_to_end_ba``) first; empty with --kernels
     (no path ran: launch counts null). A kernel of ``KERNEL_PATHS`` takes
     its ``launches`` from its own path. ``ate_by_path``: each path's ATE."""
-    main_launches = by_path.get("end_to_end_ba", by_path.get("multi_sequence"))
+    main_launches = (by_path.get("end_to_end_ba") or by_path.get("multi_sequence")
+                     or by_path.get("configs"))
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         launches = by_path.get(KERNEL_PATHS[name]) if name in KERNEL_PATHS else main_launches
@@ -4000,7 +4661,7 @@ def phase_summary(lines, by_path, ate_by_path):
                        "shape": other["shape"], **{key: other[key] for key in KEYS}}
             if other.get("checks"):
                 k[mode]["checks"] = other["checks"]
-        if name == "sinkhorn":
+        if name in ("sinkhorn", "sinkhorn_global"):
             k["elements_per_s"] = lines[name]["elements_per_s"]
         if lines[name].get("checks"):
             k["checks"] = lines[name]["checks"]
@@ -4064,12 +4725,19 @@ def main(argv) -> int:
     lines["superglue_layer_two_set"] = check_superglue_layer_two_set(bf16=True)
     lines["superglue_layer_two_set_f32"] = check_superglue_layer_two_set(bf16=False)
     lines["sinkhorn"] = check_sinkhorn()
+    lines["superglue_layer_streamed"] = check_superglue_layer_streamed()
+    lines["sinkhorn_global"] = check_sinkhorn_global()
     phase_png_unfilter()
     by_path, ate_by_path = {}, {}
-    if "--kernels" not in argv and "--unequal" not in argv:
+    if "--kernels" not in argv and "--unequal" not in argv and "--configs" not in argv:
         phase_batch_kernels(lines)
     if "--unequal" in argv:
         _, by_path["unequal"] = phase_unequal()
+    elif "--configs" in argv:
+        by_path["configs"] = phase_configs()
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, by_path["large_k"] = phase_large_k()
     elif "--native" in argv:
         merge_inputs = []
         line, by_path["end_to_end_lines"], run = phase_end_to_end(
@@ -4119,6 +4787,12 @@ def main(argv) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         _, by_path["unequal"] = phase_unequal()
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["configs"] = phase_configs()
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, by_path["large_k"] = phase_large_k()
         gc.collect()
         torch.cuda.empty_cache()
         line, by_path["end_to_end_loop"], frames, gt = phase_end_to_end_loop()

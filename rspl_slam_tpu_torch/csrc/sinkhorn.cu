@@ -45,6 +45,25 @@
 //    data-dependent branch and serial max chain made each sweep latency
 //    bound: 1.18 ms per call at K = 400 against 0.70 ms with lse_push4, on
 //    an H100 SXM at 700 W.
+//
+// Global-memory kernel (sinkhorn_global_kernel), for the plans no cluster
+// holds: Z0 of more than 16 CTAs' shared memory (M1 = N1 >= 921; SuperGlue
+// at max_keypoints 1024 or 2048). The wrapper (ops/sinkhorn_cuda.py)
+// chooses it by shape, as it chooses the cluster of 8 or 16. Z0 stays in
+// device memory, where it is L2-resident (2049^2 f32 is 16.8 MB of the 50
+// MB L2). One cooperative launch runs every sweep, with grid-wide
+// barriers between the phases of an iteration:
+//  1. u: one warp per row of every batch element (lse_push4 over 128
+//     columns per step, a 32-lane merge);
+//  2. column partials: one warp per (batch, chunk of COL_ROWS rows, 32
+//     columns), lane = column, so each row's 32 reads are one coalesced
+//     128-byte line; (max, sum) per chunk into the scratch `part`;
+//  3. v: one thread per column merges its chunks' partials by lse_merge's
+//     rule, as the cluster kernel merges its bands.
+// Three grid barriers per iteration plus one at the start: one launch per
+// match. Nothing is atomic, so a plan repeats bit for bit. The bound is the
+// cluster kernel's (the exponentials at the SFU rate); what holds it back
+// is the L2 reads (Z0 twice per iteration) and the barriers.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -201,6 +220,84 @@ int launch_cluster(const float* Z0, const float* log_mu, const float* log_nu, fl
   return (int)cudaGetLastError();
 }
 
+constexpr int GT = 512;  // threads per CTA of the global-memory kernel
+
+__device__ __forceinline__ LseState warp_lse_merge(LseState st) {  // over 32 lanes
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    LseState o{__shfl_xor_sync(0xffffffffu, st.m, off), __shfl_xor_sync(0xffffffffu, st.s, off)};
+    st = lse_merge(st, o);
+  }
+  return st;
+}
+
+// u (B, M1), v (B, N1) and part (B, nchunks, 2, N1) are the wrapper's scratch
+__global__ void __launch_bounds__(GT)
+sinkhorn_global_kernel(const float* __restrict__ Z0, const float* __restrict__ log_mu,
+                       const float* __restrict__ log_nu, float* __restrict__ out, float* u,
+                       float* v, float* part, int B, int M1, int N1, int iters, int col_rows) {
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31;
+  const int gthread = blockIdx.x * GT + threadIdx.x, nthreads = gridDim.x * GT;
+  const int gwarp = gthread >> 5, nwarps = nthreads >> 5;
+  const int nchunks = (M1 + col_rows - 1) / col_rows;
+  const int ntiles = (N1 + 31) / 32;
+  for (int i = gthread; i < B * N1; i += nthreads) v[i] = 0.f;
+  grid.sync();
+  for (int it = 0; it < iters; ++it) {
+    for (int row = gwarp; row < B * M1; row += nwarps) {
+      const float* z = Z0 + (size_t)row * N1;
+      const float* vb = v + (size_t)(row / M1) * N1;
+      LseState st{-INFINITY, 0.f};
+      int j = lane;
+      for (; j + 96 < N1; j += 128)
+        lse_push4(st, z[j] + vb[j], z[j + 32] + vb[j + 32], z[j + 64] + vb[j + 64],
+                  z[j + 96] + vb[j + 96]);
+      for (; j < N1; j += 32) lse_push(st, z[j] + vb[j]);
+      st = warp_lse_merge(st);
+      if (lane == 0) u[row] = log_mu[row] - (st.m + logf(st.s));
+    }
+    grid.sync();
+    for (int item = gwarp; item < B * nchunks * ntiles; item += nwarps) {
+      const int tile = item % ntiles, bc = item / ntiles;  // bc = b * nchunks + chunk
+      const int b = bc / nchunks, i0 = (bc % nchunks) * col_rows;
+      const int i1 = min(M1, i0 + col_rows);
+      const int j = 32 * tile + lane;
+      if (j < N1) {
+        const float* z = Z0 + (size_t)b * M1 * N1 + j;
+        const float* ub = u + (size_t)b * M1;
+        LseState st{-INFINITY, 0.f};
+        int i = i0;
+        for (; i + 3 < i1; i += 4)
+          lse_push4(st, z[(size_t)i * N1] + ub[i], z[(size_t)(i + 1) * N1] + ub[i + 1],
+                    z[(size_t)(i + 2) * N1] + ub[i + 2], z[(size_t)(i + 3) * N1] + ub[i + 3]);
+        for (; i < i1; ++i) lse_push(st, z[(size_t)i * N1] + ub[i]);
+        float* p = part + (size_t)bc * 2 * N1;
+        p[j] = st.m;
+        p[N1 + j] = st.s;
+      }
+    }
+    grid.sync();
+    for (int c = gthread; c < B * N1; c += nthreads) {
+      const int b = c / N1, j = c - b * N1;
+      const float* p = part + (size_t)b * nchunks * 2 * N1 + j;
+      float m = -INFINITY;
+      for (int q = 0; q < nchunks; ++q) m = fmaxf(m, p[(size_t)q * 2 * N1]);
+      float sum = 0.f;
+      for (int q = 0; q < nchunks; ++q)
+        sum += p[(size_t)q * 2 * N1 + N1] * expf(p[(size_t)q * 2 * N1] - m);
+      v[c] = log_nu[c] - (m + logf(sum));
+    }
+    grid.sync();
+  }
+  const size_t n = (size_t)B * M1 * N1;
+  for (size_t idx = gthread; idx < n; idx += nthreads) {
+    const size_t row = idx / N1;
+    const int j = (int)(idx - row * N1);
+    out[idx] = Z0[idx] + u[row] + v[(row / M1) * N1 + j];
+  }
+}
+
 }  // namespace
 
 RSPL_EXPORT const char* sinkhorn_error_string(int code) {
@@ -222,4 +319,33 @@ RSPL_EXPORT int sinkhorn_launch(const void* Z0, const void* log_mu, const void* 
   if (cluster == 8) return launch_cluster<8>(z, mu, nu, o, B, M1, N1, iters, rows, smem, st);
   if (cluster == 16) return launch_cluster<16>(z, mu, nu, o, B, M1, N1, iters, rows, smem, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The global-memory kernel (plans no cluster holds). Z0 (B, M1, N1), log_mu
+// (B, M1), log_nu (B, N1), out (B, M1, N1); scratch u (B, M1), v (B, N1),
+// part (B, ceil(M1 / col_rows), 2, N1): f32. One cooperative launch of as
+// many CTAs as fit the device at once.
+RSPL_EXPORT int sinkhorn_global_launch(const void* Z0, const void* log_mu, const void* log_nu,
+                                       void* out, void* u, void* v, void* part, int B, int M1,
+                                       int N1, int iters, int col_rows, void* stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  RSPL_RETURN_IF_ERROR(cudaGetDevice(&dev));
+  RSPL_RETURN_IF_ERROR(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  RSPL_RETURN_IF_ERROR(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, sinkhorn_global_kernel, GT, 0));
+  if (per_sm < 1) return kErrUnplaceable;
+  const auto* z = static_cast<const float*>(Z0);
+  const auto* mu = static_cast<const float*>(log_mu);
+  const auto* nu = static_cast<const float*>(log_nu);
+  auto* o = static_cast<float*>(out);
+  auto* uu = static_cast<float*>(u);
+  auto* vv = static_cast<float*>(v);
+  auto* pp = static_cast<float*>(part);
+  void* args[] = {(void*)&z, (void*)&mu, (void*)&nu, (void*)&o, (void*)&uu, (void*)&vv,
+                  (void*)&pp, (void*)&B, (void*)&M1, (void*)&N1, (void*)&iters,
+                  (void*)&col_rows};
+  RSPL_RETURN_IF_ERROR(cudaLaunchCooperativeKernel((const void*)sinkhorn_global_kernel,
+                                                   dim3(sms * per_sm), dim3(GT), args, 0,
+                                                   (cudaStream_t)stream));
+  return (int)cudaGetLastError();
 }

@@ -57,6 +57,18 @@
 //   Ragged K: query rows past K are zero and never stored; keys past K get
 //   -inf logits (no weight; masked keys keep -1e9 as in JAX, so a fully
 //   masked source still gives the uniform softmax) and zero values.
+//   Streamed attention (layer_bf16_kernel<true>, sources past MAX_K_BF16 =
+//   752, where the whole logit row no longer fits the CTA's shared memory;
+//   the wrapper chooses it by the source length, as cluster_plan chooses
+//   K3's cluster): the same cluster, MMAs and MLP, with K and V streamed
+//   through shared memory in chunks of CK = 128 keys, so shared memory no
+//   longer grows with K. Pass 1 computes each chunk's logits and folds
+//   them into a running (max, sum of exp) per query row (online softmax);
+//   pass 2 recomputes the chunk's logits, rounds exp(l - max) / sum to
+//   bf16 (JAX's _attend rounds the normalized probabilities, so no
+//   unnormalized value is rounded) and accumulates P V in registers over
+//   the chunks. K is read twice, V once. At K <= 752 the resident kernel
+//   runs, unchanged.
 //
 // f32 (compute_dtype=float32; the Pallas kernel's function). Plain FMA in
 // three launches:
@@ -320,6 +332,18 @@ inline int layer_bf16_smem(int K) {
   return BR * LDX * 2 + (attn > mlp ? attn : mlp);
 }
 
+// The streamed kernel's chunk of keys and its buffers: Q, a K chunk, a V
+// chunk, the chunk's f32 logits, its bf16 probabilities and source mask
+// (ops/attention_cuda.bf16_streamed_smem_bytes mirrors it); independent of K.
+constexpr int CK = 128;
+constexpr int LSC = CK + 4;  // f32 logit row stride of a chunk
+constexpr int LDP = CK + 8;  // bf16 probability row stride (272 B = 17 x 16 B)
+constexpr int layer_bf16_streamed_smem() {
+  constexpr int attn = BR * LDK * 2 + 2 * CK * LDK * 2 + BR * LSC * 4 + BR * LDP * 2 + CK * 4;
+  constexpr int mlp = 2 * BR * LDH * 2;
+  return BR * LDX * 2 + (attn > mlp ? attn : mlp);
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -455,11 +479,154 @@ qkv_bf16_kernel(const float* __restrict__ X, int nrows_x, const float* __restric
   });
 }
 
+// logits of the query tile (Q fragments qa) against the keys [c0, c0 + cw) of
+// the chunk at sK, scaled, -1e9 on masked keys (mask chunk sMaskC), -inf past
+// K: one n16 key block per warp and step, into the chunk's logit rows sLc
+__device__ __forceinline__ void chunk_logits(float* sLc, const __nv_bfloat16* sK,
+                                             const float* sMaskC, const uint32_t (&qa)[2][DH / 16][4],
+                                             int c0, int cw, int K) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t kb0 =
+      smem_addr(sK + ((lane & 7) + ((lane >> 4) << 3)) * LDK + ((lane >> 3) & 1) * 8);
+  for (int j = warp; j < cw / 16; j += NT / 32) {
+    float acc[2][2][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, kb0 + (16 * j * LDK + 16 * ks) * 2);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma_bf16(acc[mt][0], qa[mt][ks], kb[0], kb[1]);
+        mma_bf16(acc[mt][1], qa[mt][ks], kb[2], kb[3]);
+      }
+    }
+    for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+      const int s = 16 * j + c;
+      sLc[r * LSC + s] =
+          c0 + s < K ? (sMaskC[s] > 0.f ? v0 * kInvSqrtDh : -1e9f) : -INFINITY;
+      sLc[r * LSC + s + 1] =
+          c0 + s + 1 < K ? (sMaskC[s + 1] > 0.f ? v1 * kInvSqrtDh : -1e9f) : -INFINITY;
+    });
+  }
+}
+
+// K (and, with V, V) rows [c0, c0 + cw) of head h's source, zero past K,
+// and the chunk's source mask
+__device__ __forceinline__ void load_chunk(__nv_bfloat16* sK, __nv_bfloat16* sV, float* sMaskC,
+                                           const __nv_bfloat16* s_rows,
+                                           const float* __restrict__ src_mask, int c0, int cw,
+                                           int K) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < cw * 8; i += NT) {
+    const int s = i >> 3, c = (i & 7) * 8;
+    const bool ok = c0 + s < K;
+    const __nv_bfloat16* row = s_rows + (size_t)(ok ? c0 + s : 0) * 3 * C;
+    cp_async16_zfill(smem_addr(sK + s * LDK + c), row + C + c, ok);
+    if (sV != nullptr) cp_async16_zfill(smem_addr(sV + s * LDK + c), row + 2 * C + c, ok);
+  }
+  for (int s = tid; s < cw; s += NT) sMaskC[s] = c0 + s < K ? src_mask[c0 + s] : 0.f;
+}
+
+// Head h's attention of the 32-query tile over all K source keys with K and
+// V streamed in chunks of CK (see the notes at the top): acc (this warp's
+// rows 16 (warp >> 2).., head columns 16 (warp & 3)..) = P V with P the
+// normalized softmax rounded to bf16. Ends with the cluster barrier after
+// which the caller may write to the other CTAs' shared memory.
+__device__ __forceinline__ void streamed_attention(float (&acc)[1][2][4], unsigned char* region,
+                                                   const __nv_bfloat16* q_rows,
+                                                   const __nv_bfloat16* s_rows,
+                                                   const float* __restrict__ src_mask, int q0,
+                                                   int Kq, int K, cg::cluster_group& cluster) {
+  auto* sQ = reinterpret_cast<__nv_bfloat16*>(region);  // BR x LDK
+  auto* sK = sQ + BR * LDK;                             // CK x LDK
+  auto* sV = sK + CK * LDK;                             // CK x LDK
+  auto* sLc = reinterpret_cast<float*>(sV + CK * LDK);  // BR x LSC logits of a chunk
+  auto* sP = reinterpret_cast<__nv_bfloat16*>(sLc + BR * LSC);  // BR x LDP bf16 probabilities
+  auto* sMaskC = reinterpret_cast<float*>(sP + BR * LDP);       // CK
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int SP = (K + 15) & ~15;
+
+  for (int i = tid; i < BR * 8; i += NT) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    const bool ok = q0 + r < Kq;
+    cp_async16_zfill(smem_addr(sQ + r * LDK + c), q_rows + (size_t)(ok ? q0 + r : 0) * 3 * C + c,
+                     ok);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qa[2][DH / 16][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks)
+      ldmatrix_x4(qa[mt][ks],
+                  smem_addr(sQ + (16 * mt + (lane & 15)) * LDK + 16 * ks + (lane >> 4) * 8));
+
+  // pass 1: running max and sum of exp per query row; warp w owns rows w + 8 i
+  constexpr int RPW = BR / (NT / 32);
+  float rmax[RPW], rsum[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) rmax[i] = -INFINITY, rsum[i] = 0.f;
+  for (int c0 = 0; c0 < SP; c0 += CK) {
+    const int cw = min(CK, SP - c0);
+    load_chunk(sK, nullptr, sMaskC, s_rows, src_mask, c0, cw, K);
+    cp_async_wait_all();
+    __syncthreads();
+    chunk_logits(sLc, sK, sMaskC, qa, c0, cw, K);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const float* row = sLc + (warp + 8 * i) * LSC;
+      float m = -INFINITY;
+      for (int s = lane; s < cw; s += 32) m = fmaxf(m, row[s]);
+      m = fmaxf(rmax[i], warp_max(m));
+      float e = 0.f;
+      for (int s = lane; s < cw; s += 32) e += expf(row[s] - m);
+      rsum[i] = rsum[i] * expf(rmax[i] - m) + warp_sum(e);
+      rmax[i] = m;
+    }
+    __syncthreads();  // the chunk's K and logits are consumed
+  }
+
+  // pass 2: logits again, P = bf16(exp(l - max) / sum), acc += P V
+  const int mt = warp >> 2, nb = warp & 3;
+  const uint32_t pa = smem_addr(sP + (16 * mt + (lane & 15)) * LDP + (lane >> 4) * 8);
+  const uint32_t vb0 =
+      smem_addr(sV + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDK + 16 * nb + (lane >> 4) * 8);
+  for (int c0 = 0; c0 < SP; c0 += CK) {
+    const int cw = min(CK, SP - c0);
+    load_chunk(sK, sV, sMaskC, s_rows, src_mask, c0, cw, K);
+    cp_async_wait_all();
+    __syncthreads();
+    chunk_logits(sLc, sK, sMaskC, qa, c0, cw, K);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int r = warp + 8 * i;
+      for (int s = lane; s < cw; s += 32)
+        sP[r * LDP + s] = __float2bfloat16(expf(sLc[r * LSC + s] - rmax[i]) / rsum[i]);
+    }
+    __syncthreads();
+    for (int ks = 0; ks < cw / 16; ++ks) {
+      uint32_t a[4], vb[4];
+      ldmatrix_x4(a, pa + ks * 16 * 2);
+      ldmatrix_x4_trans(vb, vb0 + ks * 16 * LDK * 2);
+      mma_bf16(acc[0][0], a, vb[0], vb[1]);
+      mma_bf16(acc[0][1], a, vb[2], vb[3]);
+    }
+    __syncthreads();  // the chunk's P and V are consumed
+  }
+  // every CTA of the cluster is running before any writes to another's
+  // shared memory
+  cluster.sync();
+}
+
 // The rest of the layer for one (set, 32-query tile), by a cluster of 4 CTAs;
 // CTA h runs head h's attention, then column slice h of the merge, the first
 // and the second MLP weight (see the notes at the top). Queries: Kq rows per
 // set of X and QX; keys and values: K rows per set of QS, of set (set +
 // shift) mod nsets, under its mask (nsets, K).
+template <bool kStreamed>
 __global__ void __cluster_dims__(HEADS, 1, 1) __launch_bounds__(NT, 1)
 layer_bf16_kernel(const float* __restrict__ X, const __nv_bfloat16* __restrict__ QX,
                   const __nv_bfloat16* __restrict__ QS, const float* __restrict__ mask,
@@ -479,17 +646,26 @@ layer_bf16_kernel(const float* __restrict__ X, const __nv_bfloat16* __restrict__
 
   auto* sMsg = reinterpret_cast<__nv_bfloat16*>(smem);  // BR x LDX, written by every CTA
   unsigned char* region = smem + BR * LDX * 2;
+  auto* sXM = reinterpret_cast<__nv_bfloat16*>(region);  // BR x LDH: [x | merged msg]
+  auto* sH = sXM + BR * LDH;                             // BR x LDH: MLP hidden
+  const __nv_bfloat16* q_rows = QX + (size_t)set * Kq * 3 * C + h * DH;
+  const __nv_bfloat16* s_rows = QS + (size_t)src * K * 3 * C + h * DH;
+
+  if constexpr (kStreamed) {
+    float acc[1][2][4] = {};
+    streamed_attention(acc, region, q_rows, s_rows, mask + (size_t)src * K, q0, Kq, K, cluster);
+    const int mt = warp >> 2, nb = warp & 3;
+    for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+      cluster_store(cluster, sMsg + (16 * mt + r) * LDX + h * DH + 16 * nb + c, v0, v1);
+    });
+  } else {
   auto* sQ = reinterpret_cast<__nv_bfloat16*>(region);  // BR x LDK
   auto* sKV = sQ + BR * LDK;                             // SP x LDK: K, then V
   auto* sL = reinterpret_cast<float*>(sKV + SP * LDK);   // BR x LS logits, then bf16 P
   float* sMask = sL + BR * LS;                           // SP
-  auto* sXM = reinterpret_cast<__nv_bfloat16*>(region);  // BR x LDH: [x | merged msg]
-  auto* sH = sXM + BR * LDH;                             // BR x LDH: MLP hidden
 
   // Q of head h for the query tile, K of head h for the source set (zero
   // beyond K), the source mask
-  const __nv_bfloat16* q_rows = QX + (size_t)set * Kq * 3 * C + h * DH;
-  const __nv_bfloat16* s_rows = QS + (size_t)src * K * 3 * C + h * DH;
   for (int i = tid; i < BR * 8; i += NT) {
     const int r = i >> 3, c = (i & 7) * 8;
     const bool ok = q0 + r < Kq;
@@ -587,6 +763,7 @@ layer_bf16_kernel(const float* __restrict__ X, const __nv_bfloat16* __restrict__
       cluster_store(cluster, sMsg + (16 * mt + r) * LDX + h * DH + 16 * nb + c, v0, v1);
     });
   }
+  }
   __syncthreads();  // this CTA is done with P and V: the region takes the MLP tiles
   load_rows_bf16(sXM, LDH, X + (size_t)set * Kq * C, q0, Kq);
   cluster.sync();  // all four heads' messages are in every CTA's sMsg
@@ -635,12 +812,14 @@ layer_bf16_kernel(const float* __restrict__ X, const __nv_bfloat16* __restrict__
 std::atomic<int> attn_smem_limits[kMaxDevices];
 std::atomic<int> mlp_smem_limits[kMaxDevices];
 std::atomic<int> layer_bf16_smem_limits[kMaxDevices];
+std::atomic<int> layer_bf16_streamed_smem_limits[kMaxDevices];
 
 }  // namespace
 
 RSPL_EXPORT const char* superglue_layer_error_string(int code) {
   if (code == kErrSmem)
-    return "K too large for the bf16 layer kernel's shared memory (ops/attention_cuda.MAX_K_BF16)";
+    return "K too large for the layer kernel's shared memory (ops/attention_cuda.MAX_K_BF16, "
+           "MAX_K_F32)";
   return cudaGetErrorString((cudaError_t)code);
 }
 
@@ -653,6 +832,7 @@ int f32_attend_mlp(const float* x, const float* qx, const float* qs, const float
                    const void* s1, const void* t1, const void* w2, const void* b2, float* msg,
                    float* out, int nsets, int Kq, int K, int shift, cudaStream_t st) {
   const int attn_smem = (R * DH + CH * KS + R * K) * (int)sizeof(float);
+  if (attn_smem > kSmemLimit) return kErrSmem;
   RSPL_RETURN_IF_ERROR(reserve_dynamic_smem((const void*)attn_kernel, attn_smem_limits, attn_smem));
   const dim3 agrid((Kq + R - 1) / R, C / DH, nsets);
   attn_kernel<<<agrid, NT, attn_smem, st>>>(qx, qs, mask, msg, nsets, Kq, K, shift);
@@ -670,26 +850,39 @@ int f32_attend_mlp(const float* x, const float* qx, const float* qs, const float
 }
 
 // the bf16 mode's two launches: Q of X's rows (nsets x Kq) into qx, K and V of
-// S's rows (nsets x K) into qs, then the layer kernel
+// S's rows (nsets x K) into qs, then the layer kernel, with the whole logit
+// row resident (streamed == 0) or K and V streamed in chunks (streamed != 0)
 int bf16_layer(const float* x, const float* src, const float* mask, const void* wqkv,
                const void* bqkv, const void* wm, const void* bm, const void* w1, const void* b1,
                const void* s1, const void* t1, const void* w2, const void* b2,
                __nv_bfloat16* qx, __nv_bfloat16* qs, float* out, int nsets, int Kq, int K,
-               int shift, cudaStream_t st) {
-  const int smem = layer_bf16_smem(K);
+               int shift, int streamed, cudaStream_t st) {
+  const int smem = streamed ? layer_bf16_streamed_smem() : layer_bf16_smem(K);
   if (smem > kSmemLimit) return kErrSmem;
-  RSPL_RETURN_IF_ERROR(
-      reserve_dynamic_smem((const void*)layer_bf16_kernel, layer_bf16_smem_limits, smem));
+  const void* layer = streamed ? (const void*)layer_bf16_kernel<true>
+                               : (const void*)layer_bf16_kernel<false>;
+  RSPL_RETURN_IF_ERROR(reserve_dynamic_smem(
+      layer, streamed ? layer_bf16_streamed_smem_limits : layer_bf16_smem_limits, smem));
   const int nrows = nsets * (Kq > K ? Kq : K);
   qkv_bf16_kernel<<<dim3(3 * C / 128, (nrows + BR - 1) / BR), NT, 0, st>>>(
       x, nsets * Kq, src, nsets * K, static_cast<const uint4*>(wqkv),
       static_cast<const float*>(bqkv), qx, qs);
   RSPL_RETURN_IF_ERROR(cudaGetLastError());
-  layer_bf16_kernel<<<dim3(HEADS, (Kq + BR - 1) / BR, nsets), NT, smem, st>>>(
-      x, qx, qs, mask, static_cast<const uint4*>(wm), static_cast<const float*>(bm),
-      static_cast<const uint4*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(s1), static_cast<const float*>(t1),
-      static_cast<const uint4*>(w2), static_cast<const float*>(b2), out, nsets, Kq, K, shift);
+  const dim3 grid(HEADS, (Kq + BR - 1) / BR, nsets);
+  const auto* wm_ = static_cast<const uint4*>(wm);
+  const auto* bm_ = static_cast<const float*>(bm);
+  const auto* w1_ = static_cast<const uint4*>(w1);
+  const auto* b1_ = static_cast<const float*>(b1);
+  const auto* s1_ = static_cast<const float*>(s1);
+  const auto* t1_ = static_cast<const float*>(t1);
+  const auto* w2_ = static_cast<const uint4*>(w2);
+  const auto* b2_ = static_cast<const float*>(b2);
+  if (streamed)
+    layer_bf16_kernel<true><<<grid, NT, smem, st>>>(x, qx, qs, mask, wm_, bm_, w1_, b1_, s1_,
+                                                    t1_, w2_, b2_, out, nsets, Kq, K, shift);
+  else
+    layer_bf16_kernel<false><<<grid, NT, smem, st>>>(x, qx, qs, mask, wm_, bm_, w1_, b1_, s1_,
+                                                     t1_, w2_, b2_, out, nsets, Kq, K, shift);
   return (int)cudaGetLastError();
 }
 
@@ -721,18 +914,20 @@ RSPL_EXPORT int superglue_layer_launch(const void* x, const void* mask, const vo
 // bf16 mode. x (nsets, K, 256) f32; mask (nsets, K) f32 (1 valid, 0 padded);
 // wqkv (256 x 768), wm (256 x 256), w1 (512 x 512), w2 (512 x 256) packed by
 // ops/attention_cuda.pack_mma_b (bf16); bqkv, bm, b1, s1, t1, b2 f32; scratch
-// qkv (nsets*K, 768) bf16; out (nsets, K, 256) f32. Two launches.
+// qkv (nsets*K, 768) bf16; out (nsets, K, 256) f32. streamed != 0 takes the
+// streamed attention (any K), else the resident one (K <= MAX_K_BF16). Two
+// launches.
 RSPL_EXPORT int superglue_layer_bf16_launch(const void* x, const void* mask, const void* wqkv,
                                             const void* bqkv, const void* wm, const void* bm,
                                             const void* w1, const void* b1, const void* s1,
                                             const void* t1, const void* w2, const void* b2,
                                             void* qkv, void* out, int nsets, int K, int cross,
-                                            void* stream) {
+                                            int streamed, void* stream) {
   const auto* xf = static_cast<const float*>(x);
   auto* q = static_cast<__nv_bfloat16*>(qkv);
   return bf16_layer(xf, xf, static_cast<const float*>(mask), wqkv, bqkv, wm, bm, w1, b1, s1, t1,
                     w2, b2, q, q, static_cast<float*>(out), nsets, K, K, cross ? nsets / 2 : 0,
-                    (cudaStream_t)stream);
+                    streamed, (cudaStream_t)stream);
 }
 
 // Two-set variant, f32 mode: x (B, M, 256) attends over src (B, N, 256) under
@@ -764,7 +959,8 @@ RSPL_EXPORT int superglue_layer_two_set_launch(const void* x, const void* src,
 
 // Two-set variant, bf16 mode: as superglue_layer_two_set_launch with the
 // weights packed as superglue_layer_bf16_launch takes them and bf16 scratch
-// qkv_x (B*M, 768), qkv_s (B*N, 768); no msg scratch. Two launches.
+// qkv_x (B*M, 768), qkv_s (B*N, 768); no msg scratch; streamed as
+// superglue_layer_bf16_launch. Two launches.
 RSPL_EXPORT int superglue_layer_two_set_bf16_launch(const void* x, const void* src,
                                                     const void* src_mask, const void* wqkv,
                                                     const void* bqkv, const void* wm,
@@ -773,9 +969,9 @@ RSPL_EXPORT int superglue_layer_two_set_bf16_launch(const void* x, const void* s
                                                     const void* t1, const void* w2,
                                                     const void* b2, void* qkv_x, void* qkv_s,
                                                     void* out, int B, int M, int N,
-                                                    void* stream) {
+                                                    int streamed, void* stream) {
   return bf16_layer(static_cast<const float*>(x), static_cast<const float*>(src),
                     static_cast<const float*>(src_mask), wqkv, bqkv, wm, bm, w1, b1, s1, t1, w2,
                     b2, static_cast<__nv_bfloat16*>(qkv_x), static_cast<__nv_bfloat16*>(qkv_s),
-                    static_cast<float*>(out), B, M, N, 0, (cudaStream_t)stream);
+                    static_cast<float*>(out), B, M, N, 0, streamed, (cudaStream_t)stream);
 }

@@ -146,9 +146,13 @@ def resolve_device(device) -> torch.device:
 
 
 def _to_unit_float(img: torch.Tensor) -> torch.Tensor:
-    """uint8 [0, 255] → f32 [0, 1]; float input passes through as f32."""
+    """uint8 [0, 255] → f32 [0, 1]; float input passes through as f32. The
+    divisor is a tensor on the image's device: CUDA divides by a Python
+    scalar as a product with its reciprocal, one ulp from ``u8 / 255`` on
+    some levels, where the host's loaders (and :func:`_host_to_u8`'s
+    lossless check) divide."""
     if img.dtype == torch.uint8:
-        return img.to(torch.float32) / 255.0
+        return img.to(torch.float32) / torch.full((), 255.0, device=img.device)
     return img.to(torch.float32)
 
 

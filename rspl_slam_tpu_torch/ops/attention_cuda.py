@@ -13,7 +13,13 @@ versions (:func:`superglue_layer_plain`,
   on the tensor cores (either variant).
 - ``compute_dtype=torch.float32``: f32 throughout, the function of the
   Pallas kernel ``attention_layer_fused``; three FMA launches (four for
-  the two-set variant: Q and K/V are projected apart).
+  the two-set variant: Q and K/V are projected apart); sources up to
+  :data:`MAX_K_F32`.
+
+The bf16 mode has two attention kernels, chosen by the source length
+(:func:`bf16_route`): up to :data:`MAX_K_BF16` the whole logit row sits in
+shared memory (resident); past it, K and V stream through shared memory in
+chunks with an online softmax (streamed), for any keypoint budget.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ import torch
 
 from rspl_slam_tpu_torch.ops import cuda_build
 
-__all__ = ["LAYER_KEYS", "MAX_K_BF16", "bf16_smem_bytes", "layer_scratch", "pack_layer",
+__all__ = ["LAYER_KEYS", "MAX_K_BF16", "MAX_K_F32", "bf16_route", "bf16_smem_bytes",
+           "bf16_streamed_smem_bytes", "f32_attn_smem_bytes", "layer_scratch", "pack_layer",
            "pack_mma_b", "round_operand", "superglue_layer",
            "superglue_layer_plain", "superglue_layer_two_set", "superglue_layer_two_set_plain",
            "unpack_mma_b"]
@@ -33,6 +40,7 @@ launches = 0  # layers run by the bf16 kernels (the main path)
 f32_launches = 0  # layers run by the f32 kernels
 two_set_launches = 0  # two-set layers (one set over another) run by the bf16 kernels
 two_set_f32_launches = 0  # two-set layers run by the f32 kernels
+streamed_launches = 0  # layers (stacked or two-set) run by the streamed bf16 kernel
 
 # the layer tensors each mode's kernels read, in the launchers' order
 LAYER_KEYS = {
@@ -57,6 +65,37 @@ def bf16_smem_bytes(K: int) -> int:
 
 MAX_K_BF16 = max(k for k in range(16, 2048, 16)
                  if bf16_smem_bytes(k) <= cuda_build.SMEM_LIMIT)
+
+CHUNK = 128  # source keys per chunk of the streamed bf16 kernel
+
+
+def bf16_streamed_smem_bytes() -> int:
+    """Dynamic shared memory of the streamed bf16 layer kernel, whatever
+    the source length: the message tile, then the larger of the attention
+    buffers (Q, a K chunk, a V chunk, the chunk's f32 logits, bf16
+    probabilities and mask) and the two MLP tiles."""
+    msg = ROWS * (256 + 8) * 2
+    attn = (ROWS * (64 + 8) * 2 + 2 * CHUNK * (64 + 8) * 2 + ROWS * (CHUNK + 4) * 4
+            + ROWS * (CHUNK + 8) * 2 + CHUNK * 4)
+    mlp = 2 * ROWS * (512 + 8) * 2
+    return msg + max(attn, mlp)
+
+
+def bf16_route(K: int) -> str:
+    """The bf16 attention kernel for a source of K keys: "resident" (the
+    whole logit row in shared memory) up to :data:`MAX_K_BF16`, else
+    "streamed"."""
+    return "resident" if K <= MAX_K_BF16 else "streamed"
+
+
+def f32_attn_smem_bytes(K: int) -> int:
+    """Dynamic shared memory of the f32 mode's attention kernel at K
+    source keys: 16 query rows of Q, a 64-key chunk of K or V (row stride
+    65) and the 16 logit rows of K."""
+    return 4 * (16 * 64 + 64 * 65 + 16 * K)
+
+
+MAX_K_F32 = (cuda_build.SMEM_LIMIT // 4 - 16 * 64 - 64 * 65) // 16
 
 
 def round_operand(a, compute_dtype):
@@ -207,18 +246,24 @@ def layer_scratch(x, masks, compute_dtype=torch.float32):
     return s
 
 
-def _check_layer_args(what: str, x, layer: dict, num_heads: int, compute_dtype, K: int):
+def _check_layer_args(what: str, x, layer: dict, num_heads: int, compute_dtype, K: int,
+                      streamed: bool):
     """The checks both K2 wrappers make: C = 256 with 4 heads, a mode the
-    kernels have, source length K within the bf16 kernel's shared memory,
-    x and the mode's layer tensors on the card."""
+    kernels have, source length K within the chosen kernel's shared memory
+    (the resident bf16 kernel's :data:`MAX_K_BF16`, the f32 mode's
+    :data:`MAX_K_F32`; the streamed bf16 kernel takes any K), x and the
+    mode's layer tensors on the card."""
     C = x.shape[-1]
     if C != 256 or num_heads != 4:
         raise ValueError(f"{what} kernel takes C = 256 with 4 heads; "
                          f"got {tuple(x.shape)}, {num_heads} heads")
     if compute_dtype not in LAYER_KEYS:
         raise ValueError(f"{what} kernel computes in float32 or bfloat16, not {compute_dtype}")
-    if compute_dtype == torch.bfloat16 and K > MAX_K_BF16:
-        raise ValueError(f"{what} bf16 kernel: K = {K} exceeds {MAX_K_BF16} "
+    if compute_dtype == torch.bfloat16 and not streamed and K > MAX_K_BF16:
+        raise ValueError(f"{what} resident bf16 kernel: K = {K} exceeds {MAX_K_BF16} "
+                         f"({cuda_build.SMEM_LIMIT} B of shared memory per CTA)")
+    if compute_dtype == torch.float32 and K > MAX_K_F32:
+        raise ValueError(f"{what} f32 kernel: K = {K} exceeds {MAX_K_F32} "
                          f"({cuda_build.SMEM_LIMIT} B of shared memory per CTA)")
     cuda_build.require_cuda(x, "x", torch.float32)
     for key in LAYER_KEYS[compute_dtype]:
@@ -226,20 +271,33 @@ def _check_layer_args(what: str, x, layer: dict, num_heads: int, compute_dtype, 
                                 else torch.float32)
 
 
+def _streamed(compute_dtype, K: int) -> bool:
+    """Whether a source of K keys takes the streamed bf16 kernel."""
+    return compute_dtype == torch.bfloat16 and bf16_route(K) == "streamed"
+
+
 def superglue_layer(x, masks, layer: dict, cross: bool, num_heads: int = 4,
                     compute_dtype=torch.float32, scratch: dict | None = None):
     """One GNN layer for both sets. x (2B, K, C) f32, masks (2B, K) bool,
     ``layer`` from :func:`pack_layer`, ``scratch`` from
     :func:`layer_scratch` (made here when None). The kernels take C = 256
-    with 4 heads, and the bf16 mode K ≤ :data:`MAX_K_BF16`."""
-    global launches, f32_launches
+    with 4 heads; the bf16 mode's attention kernel is :func:`bf16_route`'s,
+    the f32 mode takes K ≤ :data:`MAX_K_F32`."""
     if x.device.type == "cpu":
         return superglue_layer_plain(x, masks, layer, cross, num_heads, compute_dtype)
+    return _launch_layer(x, masks, layer, cross, num_heads, compute_dtype, scratch,
+                         _streamed(compute_dtype, x.shape[1]))
+
+
+def _launch_layer(x, masks, layer, cross, num_heads, compute_dtype, scratch, streamed: bool):
+    """:func:`superglue_layer` on the card with the bf16 attention kernel
+    named by ``streamed`` (the card checks run both kernels at one K)."""
+    global launches, f32_launches, streamed_launches
     cuda_build.refuse_grad("superglue_layer", x, *layer.values())
     n2, K, C = x.shape
     if n2 % 2:
         raise ValueError(f"superglue_layer kernel takes (2B, K, 256); got {tuple(x.shape)}")
-    _check_layer_args("superglue_layer", x, layer, num_heads, compute_dtype, K)
+    _check_layer_args("superglue_layer", x, layer, num_heads, compute_dtype, K, streamed)
     bf16 = compute_dtype == torch.bfloat16
     if scratch is None:
         scratch = layer_scratch(x, masks, compute_dtype)
@@ -250,9 +308,12 @@ def superglue_layer(x, masks, layer: dict, cross: bool, num_heads: int = 4,
     if bf16:
         cuda_build.launch("superglue_layer", "superglue_layer_bf16_launch", x,
                           scratch["mask"], *(layer[k] for k in keys), scratch["qkv"], out,
-                          n2, K, int(bool(cross)), cuda_build.stream_of(x))
+                          n2, K, int(bool(cross)), int(streamed), cuda_build.stream_of(x))
         with cuda_build.count_lock:
-            launches += 1
+            if streamed:
+                streamed_launches += 1
+            else:
+                launches += 1
     else:
         cuda_build.require_cuda(scratch["msg"], "msg scratch", torch.float32, (n2 * K, C))
         cuda_build.launch("superglue_layer", "superglue_layer_launch", x, scratch["mask"],
@@ -270,15 +331,25 @@ def superglue_layer_two_set(x, source, src_mask, layer: dict, num_heads: int = 4
     MLP(concat[x, merge(attention)]). ``scratch`` is the pair (x's,
     source's) from :func:`layer_scratch`, the source's with its mask (the
     same dict twice when source is x; made here when None). The kernels
-    take C = 256 with 4 heads, and the bf16 mode N ≤ :data:`MAX_K_BF16`."""
-    global two_set_launches, two_set_f32_launches
+    take C = 256 with 4 heads; the bf16 mode's attention kernel follows
+    the source length N as :func:`superglue_layer`'s does."""
     if x.device.type == "cpu":
         return superglue_layer_two_set_plain(x, source, src_mask, layer, num_heads,
                                              compute_dtype)
+    return _launch_two_set(x, source, src_mask, layer, num_heads, compute_dtype, scratch,
+                           _streamed(compute_dtype, source.shape[1]))
+
+
+def _launch_two_set(x, source, src_mask, layer, num_heads, compute_dtype, scratch,
+                    streamed: bool):
+    """:func:`superglue_layer_two_set` on the card with the bf16 attention
+    kernel named by ``streamed``."""
+    global two_set_launches, two_set_f32_launches, streamed_launches
     cuda_build.refuse_grad("superglue_layer_two_set", x, source, *layer.values())
     B, M, C = x.shape
     N = source.shape[1]
-    _check_layer_args("superglue_layer_two_set", x, layer, num_heads, compute_dtype, N)
+    _check_layer_args("superglue_layer_two_set", x, layer, num_heads, compute_dtype, N,
+                      streamed)
     cuda_build.require_cuda(source, "source", torch.float32, (B, N, C))
     if scratch is None:
         ss = layer_scratch(source, src_mask, compute_dtype)
@@ -292,9 +363,12 @@ def superglue_layer_two_set(x, source, src_mask, layer: dict, num_heads: int = 4
     if compute_dtype == torch.bfloat16:
         cuda_build.launch("superglue_layer", "superglue_layer_two_set_bf16_launch", x, source,
                           ss["mask"], *(layer[k] for k in keys), sx["qkv"], ss["qkv"], out,
-                          B, M, N, cuda_build.stream_of(x))
+                          B, M, N, int(streamed), cuda_build.stream_of(x))
         with cuda_build.count_lock:
-            two_set_launches += 1
+            if streamed:
+                streamed_launches += 1
+            else:
+                two_set_launches += 1
     else:
         cuda_build.require_cuda(sx["msg"], "x msg scratch", torch.float32, (B * M, C))
         cuda_build.launch("superglue_layer", "superglue_layer_two_set_launch", x, source,

@@ -53,10 +53,11 @@ HOST_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-pthread", "-ffp-contrac
 SIGNATURES = {
     "conv_stem": {"conv_stem_launch": "pppppp" + "iii" + "p"},
     "superglue_layer": {"superglue_layer_launch": "p" * 15 + "iii" + "p",
-                        "superglue_layer_bf16_launch": "p" * 14 + "iii" + "p",
+                        "superglue_layer_bf16_launch": "p" * 14 + "iiii" + "p",
                         "superglue_layer_two_set_launch": "p" * 17 + "iii" + "p",
-                        "superglue_layer_two_set_bf16_launch": "p" * 16 + "iii" + "p"},
-    "sinkhorn": {"sinkhorn_launch": "pppp" + "iiii" + "iii" + "p"},
+                        "superglue_layer_two_set_bf16_launch": "p" * 16 + "iiii" + "p"},
+    "sinkhorn": {"sinkhorn_launch": "pppp" + "iiii" + "iii" + "p",
+                 "sinkhorn_global_launch": "ppppppp" + "iiiii" + "p"},
     "png_unfilter": {"png_unfilter": "pp" + "iii"},
     "native_runtime": {"native_merge_lines": "pi" + "ddd" + "p",
                        "native_remap_bilinear": "pii" + "pp",
@@ -242,7 +243,8 @@ def refuse_grad(what: str, *tensors) -> None:
 
 def launch_counts() -> dict[str, int]:
     """Each kernel wrapper's launch counter (K1 and K2 per mode, K2's
-    two-set variant per mode): a wrapper adds one where it launches its
+    two-set variant per mode, K2's streamed bf16 kernel, K3's cluster and
+    global-memory kernels): a wrapper adds one where it launches its
     kernel and nowhere else."""
     from rspl_slam_tpu_torch.ops import attention_cuda, conv_stem_cuda, sinkhorn_cuda
 
@@ -252,4 +254,6 @@ def launch_counts() -> dict[str, int]:
             "superglue_layer_f32": attention_cuda.f32_launches,
             "superglue_layer_two_set": attention_cuda.two_set_launches,
             "superglue_layer_two_set_f32": attention_cuda.two_set_f32_launches,
-            "sinkhorn": sinkhorn_cuda.launches}
+            "superglue_layer_streamed": attention_cuda.streamed_launches,
+            "sinkhorn": sinkhorn_cuda.launches,
+            "sinkhorn_global": sinkhorn_cuda.global_launches}

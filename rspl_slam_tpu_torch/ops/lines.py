@@ -10,7 +10,10 @@ of the JAX function is a stable descending sort here, which keeps
 maps are full of exact ties. The vote and occupancy one-hot contractions
 become ``index_add_`` / ``scatter_add_``; the votes sum bf16-rounded
 weights (as the bf16 one-hot einsum does), whose f32 sums are exact in any
-order.
+order. The rest computes what XLA's CPU backend compiles the JAX function
+to: its fused multiply-adds (``_fma``), its reciprocals of constant
+divisors (``_recip``) and its order of summation (``_xla_sum``), so a
+length or a covariance near a tie rounds as JAX's does.
 
 The host stages are numpy copies of the JAX package's: ``merge_lines``
 (MergeLines + MergeTwoLines), ``filter_short_lines``,
@@ -40,6 +43,46 @@ def _angle_table(T: int, device: torch.device):
     thetas = (np.arange(T, dtype=np.float32) * step).astype(np.float64)
     return (torch.from_numpy(np.cos(thetas).astype(np.float32)).to(device),
             torch.from_numpy(np.sin(thetas).astype(np.float32)).to(device))
+
+
+def _fma(a, b, c):
+    """a·b + c as XLA's fused multiply-add gives it (XLA contracts a
+    product and the add that consumes it): the f64 product of two f32
+    values is exact; the f64 sum rounds, and the cast to f32 rounds again.
+    That is the fused result but where the f64 sum lands exactly halfway
+    between two f32 values without the exact one doing so (a double
+    rounding; of the order of 2^-29 of random operands). A Python number
+    stands for its f32 constant."""
+    def f64(v):
+        return v.double() if torch.is_tensor(v) else float(np.float32(v))
+
+    return (a.double() * f64(b) + f64(c)).float()
+
+
+def _xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, kept as size 1, in the order XLA's CPU
+    backend takes in the JAX version the tests run (its reduction emitter's
+    windows: a detail of XLA that a later version may change): while more
+    than 32 terms remain, windows of 32 (the last one padded with 0) are
+    each summed in sequence; the rest is summed in sequence. Every partial
+    is an f32 rounding of its own, so the card's sum is the CPU's bit for
+    bit. On the card these are ~70 small launches per call (PERF.md §5)."""
+    while x.shape[-1] > 32:
+        x = F.pad(x, (0, -x.shape[-1] % 32)).unflatten(-1, (-1, 32))
+        acc = x[..., 0] + 0.0  # 0 + x0: XLA's reduction starts from +0
+        for j in range(1, 32):
+            acc = acc + x[..., j]
+        x = acc
+    acc = x[..., :1] + 0.0
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j:j + 1]
+    return acc
+
+
+def _recip(c: float) -> float:
+    """The f32 reciprocal of the f32 constant ``c``: XLA folds ``x / c``
+    into ``x * (1 / c)``."""
+    return float(np.float32(1.0) / np.float32(c))
 
 
 def _top(x: torch.Tensor, k: int):
@@ -87,7 +130,7 @@ def detect_line_segments(
     cos_t, sin_t = _angle_table(T, dev)
     diag = float(np.hypot(H, W))
     rho_scale = (R - 1) / (2.0 * diag)
-    rho_all = xs[:, None, :] * cos_t[:, None] + ys[:, None, :] * sin_t[:, None]
+    rho_all = _fma(xs[:, None, :], cos_t[:, None], ys[:, None, :] * sin_t[:, None])
     rbin = ((rho_all + diag) * rho_scale).to(torch.int64).clamp(0, R - 1)  # (B, T, E)
     cell = (torch.arange(B, device=dev)[:, None, None] * T
             + torch.arange(T, device=dev)[:, None]) * R + rbin
@@ -106,26 +149,26 @@ def detect_line_segments(
     bin_len = 2.0 * diag / NB
     c = cos_t[t_idx][..., None]  # (B, S, 1)
     s = sin_t[t_idx][..., None]
-    rho = (pidx % R).to(f32)[..., None] / rho_scale - diag
+    rho = _fma((pidx % R).to(f32)[..., None], _recip(rho_scale), -diag)
     xs, ys, w, emask = xs[:, None], ys[:, None], w[:, None], emask[:, None]
     for refine_dist in (3.0 * inlier_dist, 1.5 * inlier_dist):
-        dist = (xs * c + ys * s - rho).abs()
+        dist = (_fma(xs, c, ys * s) - rho).abs()
         inl_w = torch.where(emask & (dist < refine_dist), w, 0.0)
-        wsum = inl_w.sum(-1, keepdim=True).clamp_min(1e-6)
-        mx = (inl_w * xs).sum(-1, keepdim=True) / wsum
-        my = (inl_w * ys).sum(-1, keepdim=True) / wsum
-        cxx = (inl_w * (xs - mx) ** 2).sum(-1, keepdim=True) / wsum
-        cyy = (inl_w * (ys - my) ** 2).sum(-1, keepdim=True) / wsum
-        cxy = (inl_w * (xs - mx) * (ys - my)).sum(-1, keepdim=True) / wsum
+        # the sums stacked, three at a time: one pass of _xla_sum's adds each
+        wsum, mx, my = _xla_sum(torch.stack([inl_w, inl_w * xs, inl_w * ys]))
+        wsum = wsum.clamp_min(1e-6)
+        mx, my = mx / wsum, my / wsum
+        cxx, cyy, cxy = _xla_sum(torch.stack([inl_w * (xs - mx) ** 2, inl_w * (ys - my) ** 2,
+                                              inl_w * (xs - mx) * (ys - my)])) / wsum
         phi = 0.5 * torch.atan2(2.0 * cxy, cxx - cyy)  # principal direction
         c2, s2 = -torch.sin(phi), torch.cos(phi)  # normal = rot90(direction)
         enough = wsum > min_length * edge_threshold * 0.5
-        rho = torch.where(enough, mx * c2 + my * s2, rho)
+        rho = torch.where(enough, _fma(my, s2, mx * c2), rho)
         c = torch.where(enough, c2, c)
         s = torch.where(enough, s2, s)
-    inl = emask & ((xs * c + ys * s - rho).abs() < inlier_dist)
-    proj = -xs * s + ys * c  # position along the line, in [−diag, diag]
-    pbin = ((proj + diag) / bin_len).to(torch.int64).clamp(0, NB - 1)
+    inl = emask & ((_fma(xs, c, ys * s) - rho).abs() < inlier_dist)
+    proj = _fma(ys, c, -(xs * s))  # position along the line, in [−diag, diag]
+    pbin = ((proj + diag) * _recip(bin_len)).to(torch.int64).clamp(0, NB - 1)
     occ = torch.zeros((B, S, NB), dtype=f32, device=dev).scatter_add_(
         2, pbin, inl.to(f32).expand(B, S, E)) > 0
     # bridge small gaps with zero-fill shifts (a roll would wrap around)
@@ -143,11 +186,11 @@ def detect_line_segments(
         start_bin = end_bin - runs.gather(-1, end_bin[..., None])[..., 0] + 1
         occ = occ & ~((bins >= start_bin[..., None]) & (bins <= end_bin[..., None]))
         # trim the dilation padding back off the run ends
-        s0 = (start_bin + max_gap_bins).to(f32) * bin_len - diag
-        s1 = (end_bin - max_gap_bins).to(f32) * bin_len - diag
+        s0 = _fma((start_bin + max_gap_bins).to(f32), bin_len, -diag)
+        s1 = _fma((end_bin - max_gap_bins).to(f32), bin_len, -diag)
         # endpoints ρ·n̂ + t·d̂ with n̂ = (c, s), d̂ = (−s, c)
-        segs.append(torch.stack([rho * c - s0 * s, rho * s + s0 * c,
-                                 rho * c - s1 * s, rho * s + s1 * c], -1))
+        segs.append(torch.stack([_fma(rho, c, -(s0 * s)), _fma(rho, s, s0 * c),
+                                 _fma(rho, c, -(s1 * s)), _fma(rho, s, s1 * c)], -1))
         length = s1 - s0
         valid.append(peak_ok & (length >= min_length))
         lengths.append(length)

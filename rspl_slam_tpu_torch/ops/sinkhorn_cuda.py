@@ -4,8 +4,13 @@ torch (ops/sinkhorn.build_problem), as the TPU wrapper builds it in XLA.
 CUDA tensors launch the kernel or raise; CPU tensors take the plain
 sweeps.
 
-The kernel runs one thread-block cluster per batch element, Z0 split in
-row bands over the cluster's shared memory; :func:`cluster_plan` sizes it.
+Two kernels, chosen by shape (:func:`sinkhorn_route`): where a cluster of
+8 or 16 CTAs holds Z0 in shared memory, one thread-block cluster per batch
+element, Z0 split in row bands (:func:`cluster_plan` sizes it); past that
+(M1 = N1 ≥ 921, SuperGlue at ``max_keypoints`` 1024 or 2048), one
+cooperative launch with Z0 in device memory (L2-resident), its sweeps
+separated by grid-wide barriers (three per iteration). Either way one
+launch per call.
 """
 
 from __future__ import annotations
@@ -17,10 +22,13 @@ import torch
 from rspl_slam_tpu_torch.ops import cuda_build
 from rspl_slam_tpu_torch.ops.sinkhorn import build_problem, sinkhorn_iterations_plain
 
-__all__ = ["ClusterPlan", "cluster_plan", "sinkhorn_iterations",
+__all__ = ["ClusterPlan", "cluster_plan", "sinkhorn_route", "sinkhorn_iterations",
            "log_optimal_transport_masked"]
 
-launches = 0
+launches = 0  # calls run by the cluster kernel
+global_launches = 0  # calls run by the global-memory kernel
+
+COL_ROWS = 64  # rows per column-partial chunk of the global-memory kernel
 
 PORTABLE_CLUSTER = 8  # the largest cluster every Hopper launch may take
 MAX_CLUSTER = 16  # with cudaFuncAttributeNonPortableClusterSizeAllowed
@@ -47,22 +55,63 @@ def cluster_plan(M1: int, N1: int) -> ClusterPlan:
         f"{MAX_CLUSTER} CTAs with {cuda_build.SMEM_LIMIT} B of shared memory each")
 
 
+def sinkhorn_route(M1: int, N1: int) -> str:
+    """The kernel for a (M1, N1) Z0: "cluster" where :func:`cluster_plan`
+    finds a cluster that holds it, else "global"."""
+    try:
+        cluster_plan(M1, N1)
+    except ValueError:
+        return "global"
+    return "cluster"
+
+
 def sinkhorn_iterations(Z0, log_mu, log_nu, iters: int):
-    """Z0 (B, M1, N1), log_mu (B, M1), log_nu (B, N1) f32 → Z0 + u + v."""
-    global launches
+    """Z0 (B, M1, N1), log_mu (B, M1), log_nu (B, N1) f32 → Z0 + u + v,
+    by :func:`sinkhorn_route`'s kernel."""
     if Z0.device.type == "cpu":
         return sinkhorn_iterations_plain(Z0, log_mu, log_nu, iters)
+    M1, N1 = Z0.shape[1:]
+    if sinkhorn_route(M1, N1) == "cluster":
+        return _launch_cluster(Z0, log_mu, log_nu, iters)
+    return _launch_global(Z0, log_mu, log_nu, iters)
+
+
+def _check_args(Z0, log_mu, log_nu):
     cuda_build.refuse_grad("sinkhorn_iterations", Z0, log_mu, log_nu)
     B, M1, N1 = Z0.shape
-    plan = cluster_plan(M1, N1)
     cuda_build.require_cuda(Z0, "Z0", torch.float32)
     cuda_build.require_cuda(log_mu, "log_mu", torch.float32, (B, M1))
     cuda_build.require_cuda(log_nu, "log_nu", torch.float32, (B, N1))
+    return B, M1, N1
+
+
+def _launch_cluster(Z0, log_mu, log_nu, iters: int):
+    """The cluster kernel (the card checks run both kernels on one plan);
+    raises where no cluster holds Z0."""
+    global launches
+    B, M1, N1 = _check_args(Z0, log_mu, log_nu)
+    plan = cluster_plan(M1, N1)
     out = torch.empty_like(Z0)
     cuda_build.launch("sinkhorn", "sinkhorn_launch", Z0, log_mu, log_nu, out,
                       B, M1, N1, int(iters), *plan, cuda_build.stream_of(Z0))
     with cuda_build.count_lock:
         launches += 1
+    return out
+
+
+def _launch_global(Z0, log_mu, log_nu, iters: int):
+    """The global-memory kernel, for any (M1, N1)."""
+    global global_launches
+    B, M1, N1 = _check_args(Z0, log_mu, log_nu)
+    out = torch.empty_like(Z0)
+    nchunks = -(-M1 // COL_ROWS)
+    u = torch.empty((B, M1), dtype=torch.float32, device=Z0.device)
+    v = torch.empty((B, N1), dtype=torch.float32, device=Z0.device)
+    part = torch.empty((B, nchunks, 2, N1), dtype=torch.float32, device=Z0.device)
+    cuda_build.launch("sinkhorn", "sinkhorn_global_launch", Z0, log_mu, log_nu, out, u, v,
+                      part, B, M1, N1, int(iters), COL_ROWS, cuda_build.stream_of(Z0))
+    with cuda_build.count_lock:
+        global_launches += 1
     return out
 
 

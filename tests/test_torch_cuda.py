@@ -158,7 +158,12 @@ def test_superglue_layer_two_set_refuses_what_it_does_not_take(cuda_device):  # 
         return attention_cuda.superglue_layer_two_set(x, src, m, layer, compute_dtype=dt, **kw)
 
     with pytest.raises(ValueError, match="exceeds"):  # a source beyond the shared memory
-        run(torch.zeros((1, attention_cuda.MAX_K_BF16 + 16, 256), device=cuda_device))
+        src = torch.zeros((1, attention_cuda.MAX_K_BF16 + 16, 256), device=cuda_device)
+        m = torch.ones(src.shape[:2], dtype=torch.bool, device=cuda_device)
+        attention_cuda._launch_two_set(x, src, m, layer, 4, torch.bfloat16, None, False)
+    with pytest.raises(ValueError, match="exceeds"):  # the f32 mode's ceiling
+        run(torch.zeros((1, attention_cuda.MAX_K_F32 + 1, 256), device=cuda_device),
+            dt=torch.float32)
     with pytest.raises(ValueError):  # a source of another batch
         run(torch.zeros((2, 17, 256), device=cuda_device))
     with pytest.raises(ValueError):  # a source of another width
@@ -189,7 +194,9 @@ def test_superglue_layer_bf16_refuses_what_it_does_not_take(cuda_device):  # noq
         run(torch.zeros((3, 8, 256), device=cuda_device), n2=3, compute_dtype=bf16)
     with pytest.raises(ValueError, match="exceeds"):  # beyond the shared memory
         k = attention_cuda.MAX_K_BF16 + 16
-        run(torch.zeros((2, k, 256), device=cuda_device), compute_dtype=bf16)
+        attention_cuda._launch_layer(torch.zeros((2, k, 256), device=cuda_device),
+                                     torch.ones((2, k), dtype=torch.bool, device=cuda_device),
+                                     layer, True, 4, bf16, None, False)
     with pytest.raises(ValueError):  # x in bf16 (the residual stream is f32)
         run(x.to(bf16), compute_dtype=bf16)
     with pytest.raises(ValueError):  # float16 is no mode of the kernel
@@ -253,7 +260,10 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):  # noqa: F811
                                          torch.zeros(64, device=cuda_device))
     Z0 = torch.zeros((1, 1401, 1401), device=cuda_device)  # beyond a cluster of 16
     with pytest.raises(ValueError, match="does not fit a cluster"):
-        sinkhorn_cuda.sinkhorn_iterations(Z0, torch.zeros((1, 1401), device=cuda_device),
+        sinkhorn_cuda._launch_cluster(Z0, torch.zeros((1, 1401), device=cuda_device),
+                                      torch.zeros((1, 1401), device=cuda_device), 10)
+    with pytest.raises(ValueError):  # the global-memory kernel takes f32 only
+        sinkhorn_cuda.sinkhorn_iterations(Z0.double(), torch.zeros((1, 1401), device=cuda_device),
                                           torch.zeros((1, 1401), device=cuda_device), 10)
     layer = attention_cuda.pack_layer(_layer(np.random.default_rng(0), 256), cuda_device)
     with pytest.raises(ValueError):
@@ -967,3 +977,73 @@ def test_matching_accuracy_on_the_card_matches_the_plain_version(cuda_device, K)
         ref = superglue_train.log_plan(
             superglue_train.to_tensor_tree(params, cuda_device), *fixed[:8], cfg)
     assert float((z - ref).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("K,route", [(752, "resident"), (752, "streamed"), (768, None),
+                                     (1024, None), (2048, None)])
+def test_superglue_layer_streamed_matches_plain(cuda_device, K, route):  # noqa: F811
+    """K2's streamed bf16 kernel (K and V in chunks of 128, online softmax)
+    past the resident kernel's 752, and both kernels at 752, against the
+    plain version, self and cross, with masked keys: |k - p| <= 2^-8|p| +
+    4e-3, the bf16 kernel line's tolerance."""
+    layer = attention_cuda.pack_layer(_layer(np.random.default_rng(6)), cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(K)
+    x = torch.randn((2, K, 256), generator=g, device=cuda_device)
+    masks = torch.arange(K, device=cuda_device)[None] < torch.tensor(
+        [[K], [K - K // 6]], device=cuda_device)
+    for cross in (False, True):
+        got = (attention_cuda.superglue_layer(x, masks, layer, cross,
+                                              compute_dtype=torch.bfloat16) if route is None
+               else attention_cuda._launch_layer(x, masks, layer, cross, 4, torch.bfloat16,
+                                                 None, route == "streamed"))
+        ref = attention_cuda.superglue_layer_plain(x, masks, layer, cross,
+                                                   compute_dtype=torch.bfloat16)
+        assert ((got - ref).abs() <= 2.0 ** -8 * ref.abs() + 4e-3).all()
+
+
+@pytest.mark.parametrize("M,N", [(920, 920), (1024, 1024), (2048, 2048), (1024, 1200)])
+def test_sinkhorn_global_kernel_matches_plain(cuda_device, M, N):  # noqa: F811
+    """K3's global-memory kernel on plans no cluster holds, against the
+    plain sweeps: max error < 1e-3 on valid rows, columns and dustbins."""
+    assert sinkhorn_cuda.sinkhorn_route(M + 1, N + 1) == "global"
+    g = torch.Generator(device=cuda_device).manual_seed(M + N)
+    S = torch.randn((1, M, N), generator=g, device=cuda_device) * 3
+    m0 = torch.arange(M, device=cuda_device)[None] < M - M // 11
+    m1 = torch.arange(N, device=cuda_device)[None] < N - N // 13
+    Z0, mu, nu, _ = sinkhorn.build_problem(S, m0, m1, 1.0)
+    got = sinkhorn_cuda.sinkhorn_iterations(Z0, mu, nu, 100)
+    ref = sinkhorn.sinkhorn_iterations_plain(Z0, mu, nu, 100)
+    one = torch.ones((1, 1), dtype=torch.bool, device=cuda_device)
+    sel = torch.cat([m0, one], 1)[:, :, None] & torch.cat([m1, one], 1)[:, None, :]
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs()[sel].max() < 1e-3
+
+
+@pytest.mark.parametrize("K", [1024, 2048])
+def test_match_pair_takes_any_keypoint_budget(cuda_device, K):  # noqa: F811
+    """``match_pair`` at bf16 with K keypoints per set, past both resident
+    kernels: 18 streamed K2 launches and one global-memory K3 launch, a
+    finite log plan of shape (1, K+1, K+1)."""
+    from rspl_slam_tpu_torch.config import SuperGlueConfig
+    from rspl_slam_tpu_torch.models import superglue
+    from rspl_slam_tpu_torch.models.weights import superglue_from_numpy
+
+    cfg = SuperGlueConfig()
+    sg = superglue_from_numpy(superglue.init_params(cfg, 0), cfg, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(K)
+
+    def side():
+        xy = torch.rand((1, K, 2), generator=g, device=cuda_device) * torch.tensor(
+            [cfg.image_width, cfg.image_height], device=cuda_device)
+        desc = torch.nn.functional.normalize(
+            torch.randn((1, K, 256), generator=g, device=cuda_device), dim=-1)
+        return (xy, torch.rand((1, K), generator=g, device=cuda_device), desc,
+                torch.arange(K, device=cuda_device)[None] < K - 17)
+
+    before = (attention_cuda.streamed_launches, sinkhorn_cuda.global_launches)
+    res = superglue.match_pair(sg, *side(), *side(), cfg, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert attention_cuda.streamed_launches - before[0] == cfg.num_gnn_layers
+    assert sinkhorn_cuda.global_launches - before[1] == 1
+    assert tuple(res.log_plan.shape) == (1, K + 1, K + 1)
+    assert torch.isfinite(res.log_plan).all()

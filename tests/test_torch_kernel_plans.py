@@ -133,3 +133,108 @@ def test_plain_stem_is_unchanged_by_the_packing():
     got = conv_stem_cuda.conv3x3_relu_pool_plain(
         x, _unpack_weights(conv_stem_cuda.pack_weights(w)), b)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("K,route", [(300, "resident"), (600, "resident"), (752, "resident"),
+                                     (753, "streamed"), (1024, "streamed"), (2048, "streamed")])
+def test_superglue_bf16_route_follows_the_resident_ceiling(K, route):
+    """K2's bf16 mode keeps the resident kernel (the whole logit row in
+    shared memory) up to MAX_K_BF16 = 752 and streams K and V past it; the
+    streamed kernel's shared memory is one size for every K, and fits."""
+    assert attention_cuda.bf16_route(K) == route
+    assert attention_cuda.bf16_streamed_smem_bytes() <= cuda_build.SMEM_LIMIT
+    if route == "resident":
+        assert attention_cuda.bf16_smem_bytes(K) <= cuda_build.SMEM_LIMIT
+
+
+def test_superglue_f32_attention_ceiling():
+    """The f32 mode's attention kernel holds 16 logit rows of K in shared
+    memory: MAX_K_F32 is the largest K that fits (3308), above 2048."""
+    k = attention_cuda.MAX_K_F32
+    assert k >= 2048
+    assert attention_cuda.f32_attn_smem_bytes(k) <= cuda_build.SMEM_LIMIT
+    assert attention_cuda.f32_attn_smem_bytes(k + 1) > cuda_build.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("M1,N1,route", [(401, 401, "cluster"), (601, 601, "cluster"),
+                                         (901, 901, "cluster"), (921, 921, "global"),
+                                         (1025, 1025, "global"), (2049, 2049, "global"),
+                                         (1025, 801, "cluster"), (1025, 1201, "global")])
+def test_sinkhorn_route_takes_the_cluster_where_one_holds_z0(M1, N1, route):
+    """K3 keeps the cluster kernel wherever a cluster of 8 or 16 holds Z0
+    and takes the global-memory kernel past it (M1 = N1 = 921 is the first
+    square plan past 16 CTAs)."""
+    assert sinkhorn_cuda.sinkhorn_route(M1, N1) == route
+
+
+def _chunked_sinkhorn(Z0, log_mu, log_nu, iters, col_rows):
+    """The global-memory kernel's algorithm in torch: u by full row sweeps,
+    v by merging the (max, sum) partials of chunks of ``col_rows`` rows
+    (the last chunk short) with the kernel's rule."""
+    B, M1, N1 = Z0.shape
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    for _ in range(iters):
+        u = log_mu - torch.logsumexp(Z0 + v[:, None, :], dim=2)
+        a = Z0 + u[:, :, None]
+        parts = [a[:, i:i + col_rows] for i in range(0, M1, col_rows)]
+        ms = [p.max(dim=1).values for p in parts]
+        ss = [torch.exp(p - m[:, None, :]).sum(dim=1) for p, m in zip(parts, ms)]
+        m_all = torch.stack(ms).max(dim=0).values
+        s_all = sum(s * torch.exp(m - m_all) for m, s in zip(ms, ss))
+        v = log_nu - (m_all + torch.log(s_all))
+    return Z0 + u[:, :, None] + v[:, None, :]
+
+
+@pytest.mark.parametrize("M,col_rows", [(150, 64), (64, 64), (40, 7)],
+                         ids=["ragged-chunks", "one-chunk", "many-chunks"])
+def test_chunked_column_merge_equals_plain_sweeps(M, col_rows):
+    """Per-chunk partials merged by the global-memory kernel's rule give the
+    plain sweeps to 1e-5 on valid rows, columns and dustbins, with masked
+    rows, a short last chunk, one chunk and many."""
+    rng = np.random.default_rng(M)
+    N = 45
+    S = torch.from_numpy((3 * rng.standard_normal((2, M, N))).astype(np.float32))
+    m0 = torch.arange(M)[None] < torch.tensor([[M - M // 5], [M]])
+    m1 = torch.arange(N)[None] < torch.tensor([[N], [N - 4]])
+    Z0, mu, nu, _ = sinkhorn.build_problem(S, m0, m1, 0.7)
+    got = _chunked_sinkhorn(Z0, mu, nu, 50, col_rows)
+    ref = sinkhorn.sinkhorn_iterations_plain(Z0, mu, nu, 50)
+    one = torch.ones((2, 1), dtype=torch.bool)
+    sel = torch.cat([m0, one], 1)[:, :, None] & torch.cat([m1, one], 1)[:, None, :]
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs()[sel].max() < 1e-5
+
+
+def _streamed_probabilities(logits, chunk):
+    """The streamed K2 kernel's softmax in torch: pass 1 folds each chunk
+    of keys into a running (max, sum of exp) per row, pass 2 writes each
+    chunk's exp(l - max) / sum rounded to bf16."""
+    m = torch.full(logits.shape[:-1], -math.inf)
+    s = torch.zeros(logits.shape[:-1])
+    for c0 in range(0, logits.shape[-1], chunk):
+        lc = logits[..., c0:c0 + chunk]
+        m_new = torch.maximum(m, lc.max(-1).values)
+        s = s * torch.exp(m - m_new) + torch.exp(lc - m_new[..., None]).sum(-1)
+        m = m_new
+    return torch.cat([(torch.exp(logits[..., c0:c0 + chunk] - m[..., None]) / s[..., None])
+                      .to(torch.bfloat16) for c0 in range(0, logits.shape[-1], chunk)], -1)
+
+
+@pytest.mark.parametrize("K", [752, 1024, 1100])
+def test_streamed_softmax_rounds_what_the_resident_one_rounds(K):
+    """The online softmax of the streamed kernel gives the normalized
+    probabilities of the resident kernel's two-pass softmax before the
+    bf16 rounding, so after it they agree to one bf16 step (the running
+    sum rounds in another order), with masked keys at -1e9 and padding
+    keys at -inf; rows sum to 1 within bf16 rounding."""
+    rng = np.random.default_rng(K)
+    logits = torch.from_numpy((4 * rng.standard_normal((2, 4, 32, K))).astype(np.float32))
+    logits[..., K - K // 7:] = -1e9
+    pad = -(-K // 16) * 16
+    logits = torch.cat([logits, torch.full(logits.shape[:-1] + (pad - K,), -math.inf)], -1)
+    got = _streamed_probabilities(logits, attention_cuda.CHUNK).float()
+    ref = torch.softmax(logits, -1).to(torch.bfloat16).float()
+    assert (got - ref).abs().max() <= 2.0 ** -8 * ref.abs().max()
+    assert (got[..., K:] == 0).all()
+    assert (got.sum(-1) - 1).abs().max() < 0.02

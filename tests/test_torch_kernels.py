@@ -224,3 +224,50 @@ def test_sinkhorn_matches_xla_and_pallas():
     for ref in (Zx, Zp):
         assert np.abs(ref - Zt)[sel].max() < 1e-4
     np.testing.assert_array_equal(Zt, Zq)
+
+
+@pytest.mark.parametrize("cross", [False, True])
+def test_superglue_layer_bf16_matches_jax_past_the_resident_ceiling(cross):
+    """At K = 1024, past the resident bf16 kernel's 752 (on the card the
+    streamed kernel takes it): the K2 wrapper's CPU path at bf16 vs
+    ``_attention`` + ``_apply_mlp`` at jnp.bfloat16, as at K = 48 (atol 4e-3
+    on values of magnitude ~4, a bf16 rounding boundary crossed after
+    another f32 summation order), with masked keys in both sets."""
+    params = _layer_params()
+    layer = params["gnn"][1 if cross else 0]
+    rng = np.random.default_rng(2)
+    K, C = 1024, 256
+    assert K > attention_cuda.MAX_K_BF16 and attention_cuda.bf16_route(K) == "streamed"
+    xs = [rng.standard_normal((K, C)).astype(np.float32) for _ in range(2)]
+    masks = [np.arange(K) < 1000, np.arange(K) < 911]
+    out = attention_cuda.superglue_layer(
+        torch.from_numpy(np.stack(xs)), torch.from_numpy(np.stack(masks)),
+        attention_cuda.pack_layer(layer, "cpu"), cross, compute_dtype=torch.bfloat16).numpy()
+    for s in range(2):
+        src = 1 - s if cross else s
+        x, sx, sm = jnp.asarray(xs[s]), jnp.asarray(xs[src]), jnp.asarray(masks[src])
+        msg = _attention(layer, x[None], sx[None], sm[None], 4, jnp.bfloat16)
+        ref = (x[None] + _apply_mlp(layer["mlp"], jnp.concatenate([x[None], msg], -1),
+                                    jnp.bfloat16))[0]
+        assert np.abs(np.asarray(ref)).max() > 3.0
+        np.testing.assert_allclose(out[s], np.asarray(ref), atol=4e-3, rtol=0)
+
+
+@pytest.mark.parametrize("M,N", [(1024, 1024), (1024, 1200)])
+def test_sinkhorn_matches_xla_past_every_cluster(M, N):
+    """Plans no cluster of K3 holds (on the card the global-memory kernel
+    takes them): the plain sweeps through the K3 wrapper's CPU path vs the
+    XLA Sinkhorn at 100 iterations, max error < 1e-4 on valid rows, columns
+    and dustbins, as at the small plan."""
+    assert sinkhorn_cuda.sinkhorn_route(M + 1, N + 1) == "global"
+    rng = np.random.default_rng(3)
+    S = (3.0 * rng.standard_normal((1, M, N))).astype(np.float32)
+    m0 = np.arange(M)[None] < M - M // 11
+    m1 = np.arange(N)[None] < N - N // 13
+    Zx = np.asarray(jax_ot(jnp.asarray(S), jnp.asarray(m0), jnp.asarray(m1),
+                           jnp.asarray(1.0), 100))
+    t = torch.from_numpy
+    Zt = sinkhorn_cuda.log_optimal_transport_masked(t(S), t(m0), t(m1), 1.0, 100).numpy()
+    sel = (np.concatenate([m0, np.ones((1, 1), bool)], 1)[:, :, None]
+           & np.concatenate([m1, np.ones((1, 1), bool)], 1)[:, None, :])
+    assert np.abs(Zx - Zt)[sel].max() < 1e-4

@@ -2,12 +2,13 @@
 the host merge / filter / assign / match steps, and the frontend's line
 extraction, on the same numpy inputs.
 
-The detector is not bit-equal: XLA contracts some products into FMAs and
-sums in another order, so a refined line can put an inlier pixel into the
-neighbouring projection bin. Its outputs are held as sets: the same number
-of valid segments, each with a counterpart on the other side whose
-endpoints (in either order) lie within one projection bin, 2·hypot(H, W) /
-num_bins.
+The detector computes what XLA's CPU backend computes (its FMAs, its
+reciprocals of constants, its order of summation), but atan2, sin and cos
+are XLA's own and can differ from torch's by an ulp, so a refined line could
+put an inlier pixel into the neighbouring projection bin. Its outputs are
+held as sets: the same number of valid segments, each with a counterpart
+on the other side whose endpoints (in either order) lie within one
+projection bin, 2·hypot(H, W) / num_bins.
 """
 
 import jax.numpy as jnp

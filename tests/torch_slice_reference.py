@@ -5,6 +5,7 @@ and print one JSON line with what they agree on.
     JAX_PLATFORMS=cpu python tests/torch_slice_reference.py [--width 376 --height 240] \
         [--lines] [--ba] [--lazy]
     JAX_PLATFORMS=cpu python tests/torch_slice_reference.py --synth [--frames 100]
+    JAX_PLATFORMS=cpu python tests/torch_slice_reference.py --config configs/oivio.yaml
 
 Both run f32 at the given size (multiples of 8) with the EuRoC
 intrinsics scaled by width/752, K = 400, 18 GNN layers, 100 Sinkhorn
@@ -22,6 +23,17 @@ the matching end-to-end ATE bound of ``chip_smoke.py``. The line also
 reports how far the random SuperPoint's keypoints sit from the rendered
 blobs and how many temporal matches do not move between frames, which
 bounds what the ATE can show.
+
+``--config configs/<name>.yaml`` runs the configuration ``chip_smoke.py``'s
+``configs`` phase drives on the card, at half its size: the file's
+algorithm section (its K, keyframe and χ² settings) and its camera scaled
+by ½ with its distortion model and rectification (``chip_smoke.scale_camera``),
+lines and BA on (RCF at full size, as ``--ba --lines``), 18 GNN layers, on
+``chip_smoke.config_scene`` (the lines scene shrunk into the camera's
+depth range) rendered rectified and turned into the raw 8-bit frames the
+camera would take (``chip_smoke.raw_frames``), so both frontends rectify
+with the file's maps. The JAX run's ATE × 1.6 is that configuration's
+bound in ``chip_smoke.py`` (``CONFIG_JAX_ATE``).
 
 ``--synth`` instead runs both command lines' ``synth`` (the oracle
 frontend on the unfused tracking path, lines on) on the CPU and prints
@@ -89,6 +101,7 @@ def main() -> int:
     ap.add_argument("--epipolar", action="store_true")
     ap.add_argument("--with-port", dest="with_port", action="store_true")
     ap.add_argument("--grid", action="store_true")
+    ap.add_argument("--config", default=None)
     args = ap.parse_args()
     if args.synth:
         return synth_reference(args.frames)
@@ -96,7 +109,7 @@ def main() -> int:
         return grid_reference(args.width, args.height)
     if args.loop or args.reloc or args.epipolar:
         return global_reference(args)
-    if args.lazy:
+    if args.lazy or args.config:
         args.lines = args.ba = True
 
     import jax
@@ -114,6 +127,15 @@ def main() -> int:
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(4)
     cfg = small_system_cfg(width=args.width, height=args.height, layers=18)
+    if args.config:
+        import chip_smoke
+        from rspl_slam_tpu_torch.config import load_system_config
+
+        path = os.path.join(os.path.dirname(HERE), args.config)
+        full = load_system_config(path, path)
+        cam = chip_smoke.scale_camera(full.camera, 0.5)
+        cfg = dataclasses.replace(full, camera=cam, superglue=dataclasses.replace(
+            full.superglue, image_width=cam.image_width, image_height=cam.image_height))
     num_lines = 12 if args.lines else 0
     cfg = dataclasses.replace(cfg, use_lines=args.lines)
     if args.lazy:
@@ -122,7 +144,11 @@ def main() -> int:
     elif args.ba and args.lines:
         cfg = dataclasses.replace(cfg, line_detector=dataclasses.replace(
             cfg.line_detector, rcf_at_detection_scale=False))
-    frames, traj = rendered_sequence(cfg, args.frames, num_lines=num_lines)
+    if args.config:
+        frames, traj, scene_scale = chip_smoke.config_scene(cfg.camera, args.frames)
+        frames = chip_smoke.raw_frames(cfg.camera, frames)
+    else:
+        frames, traj = rendered_sequence(cfg, args.frames, num_lines=num_lines)
     if args.lazy:
         frames = [tuple((np.clip(im, 0, 1) * 255).astype(np.uint8) for im in f)
                   for f in frames]
@@ -138,6 +164,9 @@ def main() -> int:
     gt = np.einsum("ij,njk->nik", INIT_POSE, traj)
     out = {"image": [cfg.camera.image_width, cfg.camera.image_height],
            "frames": args.frames, "ba": args.ba, "lazy": args.lazy}
+    if args.config:
+        out.update(config=args.config, scene_scale=scene_scale,
+                   max_keypoints=cfg.superpoint.max_keypoints)
     for name, slam in runs.items():
         recs = [slam.add_frame(i, ts[i], *frames[i]) for i in range(args.frames)]
         slam.flush_ba()
@@ -162,6 +191,9 @@ def main() -> int:
     out["same_inliers_frames"] = int(sum(
         a == b for a, b in zip(out["torch"]["inliers"], out["jax"]["inliers"])))
 
+    if args.config:  # the scene and frames differ from the rest's
+        print(json.dumps(out))
+        return 0
     # where the random SuperPoint's keypoints sit, and how temporal matches move
     scene = synthetic.make_scene(num_points=600, num_lines=num_lines, seed=1,
                                  extent=(6.0, 4.0, 6.0), on_line_frac=0.0)
