@@ -30,12 +30,19 @@ Phases (one JSON line each):
      K2's two-set variant (SuperGlue with M != N: 400 keypoints over 300
      and 300 over 400) in both modes; K3 also on the rectangular plans
      (401, 301) and (301, 401); past the resident kernels' ceilings, K2's
-     streamed bf16 kernel (sources past 752 keys: K and V in chunks, online
-     softmax) at K = 1024 (timed), 768 and 2048, both bf16 kernels at 752,
-     the two-set variant with a source past the ceiling and the f32 mode at
-     1024 and 2048; K3's global-memory kernel (plans no cluster holds: one
-     cooperative launch, three grid barriers per iteration) at (1, 1025,
-     1025) (timed), 921, 2049, (1025, 1201), and both K3 kernels at 601;
+     streamed bf16 kernel (sources past 752 keys: K and V through a ring
+     of two 128-key chunks in two passes, the logits and probabilities in
+     registers, two CTAs per SM) at K = 1024 (timed), 768, ragged 1100,
+     2048 and 4096, both bf16 kernels at 400 and 752 (each timed beside
+     the other), the two-set variant with a source past the ceiling and
+     the f32 mode at 1024 and 2048; K3's global-memory kernel (plans no
+     cluster holds: one cooperative launch of persistent clusters of 8,
+     each CTA a band of Z0 in shared memory, one grid barrier and two
+     cluster barriers per iteration; the line gives its plan and the bytes
+     exchanged per iteration) at (1, 1025, 1025) (timed), 921, 2049,
+     (1025, 1201), (4, 1025, 1025) and 4097 (part of each band in device
+     memory), every plan run twice and equal bit for bit, and both K3
+     kernels at 601;
   3. ``local_ba_check``: local BA (``backend/local_ba.optimize_local_map``,
      no kernel of its own) on the card against the same function on CPU
      tensors, on the captured divergence window and on a synthetic window
@@ -259,6 +266,8 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_SFU = 132 * 16 * 1.98e9
+SM_SMEM_BYTES = 233_472  # shared memory of one H100 SM (228 KB)
+CTA_RESERVED_SMEM = 1024  # shared memory the runtime reserves per CTA
 
 # end-to-end gates (see PERF.md for where the ATE bound comes from: the JAX
 # package's ATE on each path's scene at 376×240 on the CPU, with margin:
@@ -586,6 +595,7 @@ def _sinkhorn_case(gen, M, N, valid0, valid1, matcher: bool, iters: int = 100,
     run = {None: skc.sinkhorn_iterations, "cluster": skc._launch_cluster,
            "global": skc._launch_global}[route]
     got = run(Z0, mu, nu, iters) - norm[:, None, None]
+    again = run(Z0, mu, nu, iters) - norm[:, None, None]
     ref = sk.sinkhorn_iterations_plain(Z0, mu, nu, iters) - norm[:, None, None]
     torch.cuda.synchronize()
     one = torch.ones((B, 1), dtype=torch.bool, device=dev)
@@ -605,6 +615,7 @@ def _sinkhorn_case(gen, M, N, valid0, valid1, matcher: bool, iters: int = 100,
             "iters": iters, "scores": "matcher 2000*cos, bin 1980" if matcher
             else "randn*3, bin 1", "valid": [valid0, valid1],
             "cluster_plan": plan and plan._asdict(), "ok": ok, "max_abs_err": err,
+            "repeats_bit_for_bit": bool(torch.equal(got, again)),
             "tolerance": "max |k-p| < 1e-3 on valid rows, columns and dustbins",
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call runs Sinkhorn",
@@ -720,18 +731,23 @@ def check_superglue_layer_two_set(bf16: bool):
     return line
 
 
-LARGE_K = (768, 1024, 2048)  # keypoint budgets past K2's resident kernel (752)
+LARGE_K = (768, 1024, 1100, 2048, 4096)  # sources past K2's resident kernel (752)
 
 
 def check_superglue_layer_streamed():
-    """K2's streamed bf16 kernel (sources past MAX_K_BF16 = 752: K and V in
-    chunks, online softmax) against its plain version at K = 1024 (the
-    timed line) and 768 and 2048 (``checks``), self and cross; at K = 752,
-    where both bf16 kernels apply, each against the plain version; the
-    two-set variant with a source past the ceiling (800 over 1024, 1024 over
-    800: the second's source is resident, its line's route says so); and the
-    f32 mode at K = 1024 and 2048, which keeps its own kernels up to
-    MAX_K_F32 (``f32_checks``)."""
+    """K2's streamed bf16 kernel (sources past MAX_K_BF16 = 752: K and V
+    through a ring of chunks, two passes, logits and probabilities in
+    registers) against its plain version at K = 1024 (the timed line) and
+    768, ragged 1100, 2048 and 4096 (``checks``, each timed beside its
+    bound), self and cross; at K = 400 and 752, where both bf16 kernels
+    apply, each against the plain version and timed (``checks``: the
+    streamed kernel beside the resident one, a finding for the route's
+    threshold); the two-set variant with a source past the ceiling (800
+    over 1024, 1024 over 800: the second's source is resident, its line's
+    route says so); and the f32 mode at K = 1024 and 2048, which keeps its
+    own kernels up to MAX_K_F32 (``f32_checks``). The line gives the
+    design's tiles: query rows per CTA, keys per chunk, ring stages, key
+    groups (warps per query tile), shared bytes and CTAs per SM."""
     import torch
 
     from rspl_slam_tpu_torch.ops import attention_cuda as ac
@@ -782,8 +798,8 @@ def check_superglue_layer_streamed():
                  "library_ms": None, "bound_ms": bms, "bound_by": by, "flops": flops,
                  "bytes": nbytes})
     main.update(rates(main))
-    checks = [stacked(768)[0], stacked(2048)[0], stacked(752, "resident")[0],
-              stacked(752, "streamed")[0]]
+    checks = [stacked(k)[0] for k in LARGE_K if k != 1024]
+    checks += [stacked(k, route)[0] for k in (400, 752) for route in ("resident", "streamed")]
     for M, N in ((800, 1024), (1024, 800)):
         xq = torch.randn((1, M, 256), generator=gen, device=dev)
         src = torch.randn((1, N, 256), generator=gen, device=dev)
@@ -811,6 +827,13 @@ def check_superglue_layer_streamed():
                          "order); f32 mode rtol 1e-3, atol 1e-3",
             "max_k_bf16_resident": ac.MAX_K_BF16,
             "streamed_smem_bytes": ac.bf16_streamed_smem_bytes(),
+            "streamed_design": {
+                "query_rows_per_cta": ac.ROWS, "keys_per_chunk": ac.CHUNK,
+                "ring_stages": ac.STAGES, "key_groups": ac.KEY_GROUPS,
+                "keys_per_warp_and_chunk": ac.CHUNK // ac.KEY_GROUPS,
+                "ctas_per_sm_by_smem": SM_SMEM_BYTES // (ac.bf16_streamed_smem_bytes()
+                                                         + CTA_RESERVED_SMEM),
+                "passes": "max and sum, then P V (K read twice, V once)"},
             "checks": checks, "f32_checks": f32_checks,
             "library": "none: no single PyTorch call computes a whole GNN layer"}
     emit(line)
@@ -820,12 +843,34 @@ def check_superglue_layer_streamed():
     return line
 
 
+def _global_exchange(skc, B, M1, N1):
+    """The global K3 kernel's plan for B (M1, N1) problems on this card and
+    what it exchanges per iteration: the grid-level and cluster barriers,
+    the bytes written and read through device memory (each cluster's
+    partial of (max, sum) per column, read by every cluster of its group)
+    and through distributed shared memory (each CTA reads its cluster's 8
+    band partials for its column slice and writes its slice of v into the
+    8 CTAs), summed over the groups."""
+    plan = skc.grid_plan(B, M1, N1, skc.global_clusters("cuda"))
+    cpg, C = plan.clusters_per_group, skc.GLOBAL_CLUSTER
+    return {"clusters_on_card": skc.global_clusters("cuda"), "grid_plan": plan._asdict(),
+            "ctas": plan.groups * cpg * C, "grid_barriers_per_iteration": 1,
+            "cluster_barriers_per_iteration": 2,
+            "device_bytes_written_per_iteration": plan.groups * cpg * 2 * N1 * 4,
+            "device_bytes_read_per_iteration": plan.groups * cpg * cpg * 2 * N1 * 4,
+            "dsmem_bytes_per_iteration": plan.groups * cpg * C * 3 * N1 * 4,
+            "rows_in_device_memory": plan.rows - plan.resident}
+
+
 def check_sinkhorn_global():
     """K3's global-memory kernel (plans no cluster holds) against the plain
     sweeps at K = 1024, (1, 1025, 1025) (the timed line), and at 920 (the
-    first square plan past a cluster of 16), 2048 and the rectangular (1,
-    1025, 1201) (``checks``), all of them past every cluster; and at OIVIO's
-    (1, 601, 601), which the cluster kernel takes, both kernels on one plan."""
+    first square plan past a cluster of 16), 2048, the rectangular (1,
+    1025, 1201), B = 4 at 1025² and 4097² (past shared memory: part of each
+    band stays in device memory) (``checks``), all of them past every
+    cluster, each run twice and equal bit for bit; and at OIVIO's (1, 601,
+    601), which the cluster kernel takes, both kernels on one plan. Each
+    global line gives its plan and exchange (:func:`_global_exchange`)."""
     import torch
 
     from rspl_slam_tpu_torch.ops import sinkhorn as sk
@@ -833,23 +878,27 @@ def check_sinkhorn_global():
 
     gen = torch.Generator(device="cuda").manual_seed(14)
 
-    def case(M, N, plain_n=2, route=None):
+    def case(M, N, plain_n=2, route=None, B=1):
         line = _sinkhorn_case(gen, M, N, M - M // 11, N - N // 13, matcher=False,
-                              plain_n=plain_n, route=route or "global", emit_line=False)
+                              plain_n=plain_n, route=route or "global", emit_line=False, B=B)
         line["route"] = route or skc.sinkhorn_route(M + 1, N + 1)
+        if line["route"] == "global":
+            line.update(_global_exchange(skc, B, M + 1, N + 1))
+            line["ok"] = line["ok"] and line["repeats_bit_for_bit"]
         return line
 
     line = case(1024, 1024, plain_n=3)
-    keys = ("shape", "route", "valid", "ok", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_fraction")
+    keys = ("shape", "route", "valid", "ok", "max_abs_err", "repeats_bit_for_bit", "ms",
+            "plain_ms", "bound_ms", "bound_fraction", "grid_plan",
+            "device_bytes_read_per_iteration", "rows_in_device_memory")
     checks = [case(920, 920), case(2048, 2048, plain_n=1), case(1024, 1200),
+              case(1024, 1024, plain_n=1, B=4), case(4096, 4096, plain_n=1),
               case(600, 600, route="global"), case(600, 600, route="cluster")]
-    for c in checks[:3]:
+    for c in checks[:5]:
         if c["route"] != "global":
             raise AssertionError(f"sinkhorn {c['shape']}: expected the global route")
-    line.update({"name": "sinkhorn_global", "col_rows": skc.COL_ROWS,
-                 "launches_per_call": 1, "grid_barriers_per_iteration": 3,
-                 "checks": [{k: c[k] for k in keys} for c in checks]})
+    line.update({"name": "sinkhorn_global", "launches_per_call": 1,
+                 "checks": [{k: c.get(k) for k in keys} for c in checks]})
     line["ok"] = line["ok"] and all(c["ok"] for c in checks)
     emit(line)
     if not line["ok"]:

@@ -60,15 +60,41 @@
 //   Streamed attention (layer_bf16_kernel<true>, sources past MAX_K_BF16 =
 //   752, where the whole logit row no longer fits the CTA's shared memory;
 //   the wrapper chooses it by the source length, as cluster_plan chooses
-//   K3's cluster): the same cluster, MMAs and MLP, with K and V streamed
-//   through shared memory in chunks of CK = 128 keys, so shared memory no
-//   longer grows with K. Pass 1 computes each chunk's logits and folds
-//   them into a running (max, sum of exp) per query row (online softmax);
-//   pass 2 recomputes the chunk's logits, rounds exp(l - max) / sum to
-//   bf16 (JAX's _attend rounds the normalized probabilities, so no
-//   unnormalized value is rounded) and accumulates P V in registers over
-//   the chunks. K is read twice, V once. At K <= 752 the resident kernel
-//   runs, unchanged.
+//   K3's cluster): the same cluster, QKV launch and MLP, with K and V
+//   streamed in two passes, so shared memory (97,280 B) no longer grows with
+//   K and two CTAs fit an SM. JAX's _attend rounds the *normalized*
+//   probabilities to bf16, so a row's max and sum are final before any P V
+//   (no online rescaling of rounded values). Layout (FlashAttention-2's,
+//   under that contract): warp w owns the 16 query rows of m16 tile w / 4
+//   and keys [32 (w % 4), +32) of every chunk of CK = 128 keys.
+//   - A ring of STAGES = 2 shared-memory slots, each a chunk's K rows, V
+//     rows (pass 2) and mask, filled by cp.async groups: chunk t + 1 is in
+//     flight while chunk t computes, one CTA barrier per chunk (the copy
+//     into a slot waits for every warp to leave it). The stream runs pass
+//     1's chunks, then pass 2's, without a drain between them.
+//   - Logits stay in the MMA accumulators (the resident kernel's MMAs in
+//     its order: the same bits). Pass 1 folds each chunk into a running
+//     (max, sum of exp) per row in registers, reduced over the quad by
+//     shuffles; the four key groups merge once, by lse_merge's rule,
+//     through 1 KB of shared memory.
+//   - Pass 2 packs P = bf16(exp(l - max) * (1 / sum)) from the accumulator
+//     fragments straight into the A operand of the P V MMA (the m16n8k16
+//     accumulator layout is the A layout), so no logit or probability
+//     touches shared memory. The reciprocal product (faster than the
+//     division on the card: tests/torch_kernel_phases.py --k2-variants)
+//     stays within the resident kernel's one bf16 step
+//     (tests/test_torch_kernel_plans.py). Each warp's P V over its
+//     keys (16 x 64 f32) is summed over the four key groups in a fixed
+//     order once at the end, in the drained ring; no float atomics.
+//   Bound: at K = 1024 a stacked layer is 4.8 GFLOP (0.0049 ms at 989
+//   TFLOP/s), 2.1 of them the attention, which runs QK^T in both passes
+//   (3.2 GFLOP executed); every 32-query tile of a head reads the chunks
+//   from L2, 3 x K x 128 B per CTA (K twice, V once: 101 MB per layer at
+//   1024, 403 MB at 2048). What holds it back: the passes wait on their
+//   chunks (L2), and the card holds 62 of its clusters at once, so 1024
+//   keys (2 x 32 tiles = 64 clusters) run a second wave of two
+//   (tests/torch_kernel_phases.py; PERF.md §6). At K <= 752 the resident
+//   kernel runs, unchanged.
 //
 // f32 (compute_dtype=float32; the Pallas kernel's function). Plain FMA in
 // three launches:
@@ -332,17 +358,26 @@ inline int layer_bf16_smem(int K) {
   return BR * LDX * 2 + (attn > mlp ? attn : mlp);
 }
 
-// The streamed kernel's chunk of keys and its buffers: Q, a K chunk, a V
-// chunk, the chunk's f32 logits, its bf16 probabilities and source mask
-// (ops/attention_cuda.bf16_streamed_smem_bytes mirrors it); independent of K.
-constexpr int CK = 128;
-constexpr int LSC = CK + 4;  // f32 logit row stride of a chunk
-constexpr int LDP = CK + 8;  // bf16 probability row stride (272 B = 17 x 16 B)
+// The streamed kernel's attention buffers, independent of K: K and V stream
+// through a ring of STAGES slots, each a chunk of CK keys (K rows, V rows and
+// the chunk's source mask); warp w owns the query rows of m16 tile w / KG and
+// keys [KGW (w % KG), KGW (w % KG) + KGW) of every chunk
+// (ops/attention_cuda.bf16_streamed_smem_bytes mirrors the layout).
+constexpr int CK = 128;          // keys per chunk
+constexpr int STAGES = 2;        // chunks in flight: chunk t + 1 lands while chunk t computes
+constexpr int KG = 4;            // key groups: warps per m16 query tile
+constexpr int KGW = CK / KG;     // keys per warp and chunk (32)
+constexpr int JJ = KGW / 16;     // n16 key blocks per warp and chunk (2)
+constexpr int LDO = DH + 8;      // f32 row stride of the P V partials (72: no bank conflict)
+constexpr int STAGE_BYTES = 2 * CK * LDK * 2 + CK * 4;
 constexpr int layer_bf16_streamed_smem() {
-  constexpr int attn = BR * LDK * 2 + 2 * CK * LDK * 2 + BR * LSC * 4 + BR * LDP * 2 + CK * 4;
+  constexpr int attn = BR * LDK * 2 + STAGES * STAGE_BYTES + KG * BR * 2 * 4;
   constexpr int mlp = 2 * BR * LDH * 2;
   return BR * LDX * 2 + (attn > mlp ? attn : mlp);
 }
+static_assert(KG * (BR / 16) == NT / 32, "one warp per (m16 tile, key group)");
+static_assert(KGW % 16 == 0 && JJ >= 1, "each warp takes whole n16 key blocks of a chunk");
+static_assert(2 * KG * 16 * LDO * 4 <= STAGES * STAGE_BYTES, "P V partials overlay the ring");
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -479,72 +514,112 @@ qkv_bf16_kernel(const float* __restrict__ X, int nrows_x, const float* __restric
   });
 }
 
-// logits of the query tile (Q fragments qa) against the keys [c0, c0 + cw) of
-// the chunk at sK, scaled, -1e9 on masked keys (mask chunk sMaskC), -inf past
-// K: one n16 key block per warp and step, into the chunk's logit rows sLc
-__device__ __forceinline__ void chunk_logits(float* sLc, const __nv_bfloat16* sK,
-                                             const float* sMaskC, const uint32_t (&qa)[2][DH / 16][4],
-                                             int c0, int cw, int K) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4-byte copy to shared memory; zero fill (src not read) when !valid
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+// Chunk t of the streamed attention's two passes over n chunks into ring slot
+// t % STAGES: K rows (pass 1, t < n) or K and V rows (pass 2) of keys [c0,
+// c0 + CK) of head h's source, zero past K, and the chunk's source mask; one
+// cp.async group per chunk (an empty one past the last chunk).
+__device__ __forceinline__ void issue_chunk(unsigned char* ring, int t, int n,
+                                            const __nv_bfloat16* s_rows,
+                                            const float* __restrict__ src_mask, int K) {
+  if (t < 2 * n) {
+    const bool pass2 = t >= n;
+    const int c0 = (pass2 ? t - n : t) * CK;
+    auto* sK = reinterpret_cast<__nv_bfloat16*>(ring + (t % STAGES) * STAGE_BYTES);
+    auto* sV = sK + CK * LDK;
+    auto* sM = reinterpret_cast<float*>(sV + CK * LDK);
+    for (int i = threadIdx.x; i < CK * 8; i += NT) {
+      const int s = i >> 3, c = (i & 7) * 8;
+      const bool ok = c0 + s < K;
+      const __nv_bfloat16* row = s_rows + (size_t)(ok ? c0 + s : 0) * 3 * C;
+      cp_async16_zfill(smem_addr(sK + s * LDK + c), row + C + c, ok);
+      if (pass2) cp_async16_zfill(smem_addr(sV + s * LDK + c), row + 2 * C + c, ok);
+    }
+    for (int s = threadIdx.x; s < CK; s += NT) {
+      const bool ok = c0 + s < K;
+      cp_async4_zfill(smem_addr(sM + s), src_mask + (ok ? c0 + s : 0), ok);
+    }
+  }
+  cp_async_commit();
+}
+
+// This warp's logits against keys [KGW kg, KGW kg + KGW) of the chunk at sK
+// (keys c0..): l[jj][tile][e] is query row g + 8 (e >> 1) of the warp's m16
+// tile, key 16 (JJ kg + jj) + 8 tile + 2 (lane & 3) + (e & 1) of the chunk;
+// scaled, -1e9 on masked keys, -inf past K, as the resident kernel's logits
+// (the same MMAs in the same order, so the same bits).
+__device__ __forceinline__ void warp_logits(float (&l)[JJ][2][4], const __nv_bfloat16* sK,
+                                            const float* sM, const uint32_t (&qa)[DH / 16][4],
+                                            int kg, int c0, int K) {
+  const int lane = threadIdx.x & 31;
   const uint32_t kb0 =
       smem_addr(sK + ((lane & 7) + ((lane >> 4) << 3)) * LDK + ((lane >> 3) & 1) * 8);
-  for (int j = warp; j < cw / 16; j += NT / 32) {
-    float acc[2][2][4] = {};
+#pragma unroll
+  for (int jj = 0; jj < JJ; ++jj) {
+    const int j = JJ * kg + jj;
+#pragma unroll
+    for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l[jj][tile][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < DH / 16; ++ks) {
       uint32_t kb[4];
       ldmatrix_x4(kb, kb0 + (16 * j * LDK + 16 * ks) * 2);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        mma_bf16(acc[mt][0], qa[mt][ks], kb[0], kb[1]);
-        mma_bf16(acc[mt][1], qa[mt][ks], kb[2], kb[3]);
-      }
+      mma_bf16(l[jj][0], qa[ks], kb[0], kb[1]);
+      mma_bf16(l[jj][1], qa[ks], kb[2], kb[3]);
     }
-    for_each_pair(acc, [&](int r, int c, float v0, float v1) {
-      const int s = 16 * j + c;
-      sLc[r * LSC + s] =
-          c0 + s < K ? (sMaskC[s] > 0.f ? v0 * kInvSqrtDh : -1e9f) : -INFINITY;
-      sLc[r * LSC + s + 1] =
-          c0 + s + 1 < K ? (sMaskC[s + 1] > 0.f ? v1 * kInvSqrtDh : -1e9f) : -INFINITY;
-    });
+#pragma unroll
+    for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int s = 16 * j + 8 * tile + 2 * (lane & 3) + (e & 1);
+        l[jj][tile][e] = c0 + s < K ? (sM[s] > 0.f ? l[jj][tile][e] * kInvSqrtDh : -1e9f)
+                                    : -INFINITY;
+      }
   }
 }
 
-// K (and, with V, V) rows [c0, c0 + cw) of head h's source, zero past K,
-// and the chunk's source mask
-__device__ __forceinline__ void load_chunk(__nv_bfloat16* sK, __nv_bfloat16* sV, float* sMaskC,
-                                           const __nv_bfloat16* s_rows,
-                                           const float* __restrict__ src_mask, int c0, int cw,
-                                           int K) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < cw * 8; i += NT) {
-    const int s = i >> 3, c = (i & 7) * 8;
-    const bool ok = c0 + s < K;
-    const __nv_bfloat16* row = s_rows + (size_t)(ok ? c0 + s : 0) * 3 * C;
-    cp_async16_zfill(smem_addr(sK + s * LDK + c), row + C + c, ok);
-    if (sV != nullptr) cp_async16_zfill(smem_addr(sV + s * LDK + c), row + 2 * C + c, ok);
-  }
-  for (int s = tid; s < cw; s += NT) sMaskC[s] = c0 + s < K ? src_mask[c0 + s] : 0.f;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Head h's attention of the 32-query tile over all K source keys with K and
-// V streamed in chunks of CK (see the notes at the top): acc (this warp's
-// rows 16 (warp >> 2).., head columns 16 (warp & 3)..) = P V with P the
-// normalized softmax rounded to bf16. Ends with the cluster barrier after
-// which the caller may write to the other CTAs' shared memory.
-__device__ __forceinline__ void streamed_attention(float (&acc)[1][2][4], unsigned char* region,
+// Head h's attention of the 32-query tile over all K source keys, K and V
+// streamed (see the notes at the top), written rounded to bf16 into columns
+// [64 h, 64 h + 64) of every cluster CTA's message tile sMsg. Pass 1 keeps a
+// running (max, sum of exp) per row and key group in registers; the four key
+// groups merge once, by lse_merge's rule; pass 2 packs P = bf16(exp(l - max) *
+// (1 / sum)) from the logit accumulators into the A operand of the P V MMAs. Each
+// warp's P V partial (its keys only) is summed over the key groups in a fixed
+// order. Contains the cluster barrier after which writes to the other CTAs'
+// shared memory are safe.
+__device__ __forceinline__ void streamed_attention(unsigned char* region, __nv_bfloat16* sMsg,
                                                    const __nv_bfloat16* q_rows,
                                                    const __nv_bfloat16* s_rows,
                                                    const float* __restrict__ src_mask, int q0,
-                                                   int Kq, int K, cg::cluster_group& cluster) {
+                                                   int Kq, int K, int h,
+                                                   cg::cluster_group& cluster) {
   auto* sQ = reinterpret_cast<__nv_bfloat16*>(region);  // BR x LDK
-  auto* sK = sQ + BR * LDK;                             // CK x LDK
-  auto* sV = sK + CK * LDK;                             // CK x LDK
-  auto* sLc = reinterpret_cast<float*>(sV + CK * LDK);  // BR x LSC logits of a chunk
-  auto* sP = reinterpret_cast<__nv_bfloat16*>(sLc + BR * LSC);  // BR x LDP bf16 probabilities
-  auto* sMaskC = reinterpret_cast<float*>(sP + BR * LDP);       // CK
+  unsigned char* ring = region + BR * LDK * 2;           // STAGES x (K, V, mask)
+  auto* sRed = reinterpret_cast<float2*>(ring + STAGES * STAGE_BYTES);  // KG x BR (max, sum)
+  auto* sO = reinterpret_cast<float*>(ring);  // (BR / 16) x KG x 16 x LDO, once the ring drains
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int SP = (K + 15) & ~15;
+  const int mt = warp / KG, kg = warp % KG, g = lane >> 2;
+  const int n = (K + CK - 1) / CK;
 
   for (int i = tid; i < BR * 8; i += NT) {
     const int r = i >> 3, c = (i & 7) * 8;
@@ -552,73 +627,131 @@ __device__ __forceinline__ void streamed_attention(float (&acc)[1][2][4], unsign
     cp_async16_zfill(smem_addr(sQ + r * LDK + c), q_rows + (size_t)(ok ? q0 + r : 0) * 3 * C + c,
                      ok);
   }
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qa[2][DH / 16][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks)
-      ldmatrix_x4(qa[mt][ks],
-                  smem_addr(sQ + (16 * mt + (lane & 15)) * LDK + 16 * ks + (lane >> 4) * 8));
+  for (int t = 0; t < STAGES - 1; ++t) issue_chunk(ring, t, n, s_rows, src_mask, K);
 
-  // pass 1: running max and sum of exp per query row; warp w owns rows w + 8 i
-  constexpr int RPW = BR / (NT / 32);
-  float rmax[RPW], rsum[RPW];
+  uint32_t qa[DH / 16][4];
+  // rows g, g + 8: running max and sum of exp (pass 1), then the final max
+  // and the sum's reciprocal (pass 2)
+  float rmax[2] = {-INFINITY, -INFINITY}, rsum[2] = {0.f, 0.f}, rinv[2] = {0.f, 0.f};
+  float o[DH / 16][2][4];
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) rmax[i] = -INFINITY, rsum[i] = 0.f;
-  for (int c0 = 0; c0 < SP; c0 += CK) {
-    const int cw = min(CK, SP - c0);
-    load_chunk(sK, nullptr, sMaskC, s_rows, src_mask, c0, cw, K);
-    cp_async_wait_all();
-    __syncthreads();
-    chunk_logits(sLc, sK, sMaskC, qa, c0, cw, K);
-    __syncthreads();
+  for (int nb = 0; nb < DH / 16; ++nb)
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const float* row = sLc + (warp + 8 * i) * LSC;
-      float m = -INFINITY;
-      for (int s = lane; s < cw; s += 32) m = fmaxf(m, row[s]);
-      m = fmaxf(rmax[i], warp_max(m));
-      float e = 0.f;
-      for (int s = lane; s < cw; s += 32) e += expf(row[s] - m);
-      rsum[i] = rsum[i] * expf(rmax[i] - m) + warp_sum(e);
-      rmax[i] = m;
-    }
-    __syncthreads();  // the chunk's K and logits are consumed
-  }
+    for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nb][tile][e] = 0.f;
 
-  // pass 2: logits again, P = bf16(exp(l - max) / sum), acc += P V
-  const int mt = warp >> 2, nb = warp & 3;
-  const uint32_t pa = smem_addr(sP + (16 * mt + (lane & 15)) * LDP + (lane >> 4) * 8);
-  const uint32_t vb0 =
-      smem_addr(sV + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDK + 16 * nb + (lane >> 4) * 8);
-  for (int c0 = 0; c0 < SP; c0 += CK) {
-    const int cw = min(CK, SP - c0);
-    load_chunk(sK, sV, sMaskC, s_rows, src_mask, c0, cw, K);
-    cp_async_wait_all();
-    __syncthreads();
-    chunk_logits(sLc, sK, sMaskC, qa, c0, cw, K);
-    __syncthreads();
+  for (int t = 0; t < 2 * n; ++t) {
+    cp_async_wait_group<STAGES - 2>();
+    __syncthreads();  // chunk t landed; every warp is done with chunk t - 1's slot
+    issue_chunk(ring, t + STAGES - 1, n, s_rows, src_mask, K);
+    if (t == 0) {
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int r = warp + 8 * i;
-      for (int s = lane; s < cw; s += 32)
-        sP[r * LDP + s] = __float2bfloat16(expf(sLc[r * LSC + s] - rmax[i]) / rsum[i]);
+      for (int ks = 0; ks < DH / 16; ++ks)
+        ldmatrix_x4(qa[ks],
+                    smem_addr(sQ + (16 * mt + (lane & 15)) * LDK + 16 * ks + (lane >> 4) * 8));
     }
-    __syncthreads();
-    for (int ks = 0; ks < cw / 16; ++ks) {
-      uint32_t a[4], vb[4];
-      ldmatrix_x4(a, pa + ks * 16 * 2);
-      ldmatrix_x4_trans(vb, vb0 + ks * 16 * LDK * 2);
-      mma_bf16(acc[0][0], a, vb[0], vb[1]);
-      mma_bf16(acc[0][1], a, vb[2], vb[3]);
+    if (t == n) {  // the four key groups' (max, sum) of each row, merged in order
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = 16 * mt + g + 8 * hr;
+        float m = -INFINITY;
+#pragma unroll
+        for (int q = 0; q < KG; ++q) m = fmaxf(m, sRed[q * BR + row].x);
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < KG; ++q) {
+          const float2 p = sRed[q * BR + row];
+          s += p.x == -INFINITY ? 0.f : p.y * expf(p.x - m);
+        }
+        rmax[hr] = m;
+        rinv[hr] = 1.f / s;
+      }
     }
-    __syncthreads();  // the chunk's P and V are consumed
+    const unsigned char* slot = ring + (t % STAGES) * STAGE_BYTES;
+    const auto* sK = reinterpret_cast<const __nv_bfloat16*>(slot);
+    const auto* sV = sK + CK * LDK;
+    const auto* sM = reinterpret_cast<const float*>(sV + CK * LDK);
+    float l[JJ][2][4];
+    warp_logits(l, sK, sM, qa, kg, (t < n ? t : t - n) * CK, K);
+    if (t < n) {  // pass 1: fold the chunk into the running (max, sum) of rows g, g + 8
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float cm = -INFINITY;
+#pragma unroll
+        for (int jj = 0; jj < JJ; ++jj)
+#pragma unroll
+          for (int tile = 0; tile < 2; ++tile)
+            cm = fmaxf(cm, fmaxf(l[jj][tile][2 * hr], l[jj][tile][2 * hr + 1]));
+        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 1));
+        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 2));
+        const float m = fmaxf(rmax[hr], cm);
+        const float base = m == -INFINITY ? 0.f : m;  // a slice of padding keys only
+        float e = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < JJ; ++jj)
+#pragma unroll
+          for (int tile = 0; tile < 2; ++tile)
+            e += expf(l[jj][tile][2 * hr] - base) + expf(l[jj][tile][2 * hr + 1] - base);
+        e += __shfl_xor_sync(0xffffffffu, e, 1);
+        e += __shfl_xor_sync(0xffffffffu, e, 2);
+        rsum[hr] = rsum[hr] * expf(rmax[hr] - base) + e;
+        rmax[hr] = m;
+      }
+      if (t == n - 1 && (lane & 3) == 0) {
+        sRed[kg * BR + 16 * mt + g] = make_float2(rmax[0], rsum[0]);
+        sRed[kg * BR + 16 * mt + g + 8] = make_float2(rmax[1], rsum[1]);
+      }
+    } else {  // pass 2: P = bf16(exp(l - max) * (1 / sum)) straight into the A operand of P V
+#pragma unroll
+      for (int jj = 0; jj < JJ; ++jj) {
+        uint32_t a[4];
+#pragma unroll
+        for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            a[2 * tile + hr] = pack_bf16(expf(l[jj][tile][2 * hr] - rmax[hr]) * rinv[hr],
+                                         expf(l[jj][tile][2 * hr + 1] - rmax[hr]) * rinv[hr]);
+          }
+        const uint32_t vrow = smem_addr(
+            sV + (KGW * kg + 16 * jj + (lane & 7) + ((lane >> 3) & 1) * 8) * LDK + (lane >> 4) * 8);
+#pragma unroll
+        for (int nb = 0; nb < DH / 16; ++nb) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vrow + 16 * nb * 2);
+          mma_bf16(o[nb][0], a, vb[0], vb[1]);
+          mma_bf16(o[nb][1], a, vb[2], vb[3]);
+        }
+      }
+    }
   }
-  // every CTA of the cluster is running before any writes to another's
-  // shared memory
+  cp_async_wait_group<0>();  // the empty trailing groups
+  __syncthreads();           // every warp is done with the ring: its partials take the ring's place
+  float* ow = sO + (mt * KG + kg) * 16 * LDO;
+#pragma unroll
+  for (int nb = 0; nb < DH / 16; ++nb)
+#pragma unroll
+    for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<float2*>(ow + (g + 8 * hr) * LDO + 16 * nb + 8 * tile + 2 * (lane & 3)) =
+            make_float2(o[nb][tile][2 * hr], o[nb][tile][2 * hr + 1]);
+  // the partials are visible to the CTA, and every CTA of the cluster is
+  // running before any writes to another's shared memory
   cluster.sync();
+  for (int p = tid; p < BR * DH / 2; p += NT) {
+    const int row = p / (DH / 2), col = 2 * (p % (DH / 2));
+    const float* src = sO + ((row / 16) * KG * 16 + row % 16) * LDO + col;
+    float2 acc = *reinterpret_cast<const float2*>(src);
+#pragma unroll
+    for (int q = 1; q < KG; ++q) {
+      const float2 v = *reinterpret_cast<const float2*>(src + q * 16 * LDO);
+      acc.x += v.x;
+      acc.y += v.y;
+    }
+    cluster_store(cluster, sMsg + row * LDX + h * DH + col, acc.x, acc.y);
+  }
 }
 
 // The rest of the layer for one (set, 32-query tile), by a cluster of 4 CTAs;
@@ -627,7 +760,7 @@ __device__ __forceinline__ void streamed_attention(float (&acc)[1][2][4], unsign
 // set of X and QX; keys and values: K rows per set of QS, of set (set +
 // shift) mod nsets, under its mask (nsets, K).
 template <bool kStreamed>
-__global__ void __cluster_dims__(HEADS, 1, 1) __launch_bounds__(NT, 1)
+__global__ void __cluster_dims__(HEADS, 1, 1) __launch_bounds__(NT, kStreamed ? 2 : 1)
 layer_bf16_kernel(const float* __restrict__ X, const __nv_bfloat16* __restrict__ QX,
                   const __nv_bfloat16* __restrict__ QS, const float* __restrict__ mask,
                   const uint4* __restrict__ Wm, const float* __restrict__ bm,
@@ -652,12 +785,8 @@ layer_bf16_kernel(const float* __restrict__ X, const __nv_bfloat16* __restrict__
   const __nv_bfloat16* s_rows = QS + (size_t)src * K * 3 * C + h * DH;
 
   if constexpr (kStreamed) {
-    float acc[1][2][4] = {};
-    streamed_attention(acc, region, q_rows, s_rows, mask + (size_t)src * K, q0, Kq, K, cluster);
-    const int mt = warp >> 2, nb = warp & 3;
-    for_each_pair(acc, [&](int r, int c, float v0, float v1) {
-      cluster_store(cluster, sMsg + (16 * mt + r) * LDX + h * DH + 16 * nb + c, v0, v1);
-    });
+    streamed_attention(region, sMsg, q_rows, s_rows, mask + (size_t)src * K, q0, Kq, K, h,
+                       cluster);
   } else {
   auto* sQ = reinterpret_cast<__nv_bfloat16*>(region);  // BR x LDK
   auto* sKV = sQ + BR * LDK;                             // SP x LDK: K, then V
@@ -813,6 +942,7 @@ std::atomic<int> attn_smem_limits[kMaxDevices];
 std::atomic<int> mlp_smem_limits[kMaxDevices];
 std::atomic<int> layer_bf16_smem_limits[kMaxDevices];
 std::atomic<int> layer_bf16_streamed_smem_limits[kMaxDevices];
+std::atomic<bool> streamed_carveout_set[kMaxDevices];
 
 }  // namespace
 
@@ -863,6 +993,13 @@ int bf16_layer(const float* x, const float* src, const float* mask, const void* 
                                : (const void*)layer_bf16_kernel<false>;
   RSPL_RETURN_IF_ERROR(reserve_dynamic_smem(
       layer, streamed ? layer_bf16_streamed_smem_limits : layer_bf16_smem_limits, smem));
+  if (streamed) {  // the whole shared memory to the carveout: two streamed CTAs per SM
+    int dev = 0;
+    RSPL_RETURN_IF_ERROR(cudaGetDevice(&dev));
+    if (dev >= kMaxDevices || !streamed_carveout_set[dev].exchange(true))
+      RSPL_RETURN_IF_ERROR(cudaFuncSetAttribute(
+          layer, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared));
+  }
   const int nrows = nsets * (Kq > K ? Kq : K);
   qkv_bf16_kernel<<<dim3(3 * C / 128, (nrows + BR - 1) / BR), NT, 0, st>>>(
       x, nsets * Kq, src, nsets * K, static_cast<const uint4*>(wqkv),

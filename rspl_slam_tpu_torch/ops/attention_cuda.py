@@ -18,8 +18,9 @@ versions (:func:`superglue_layer_plain`,
 
 The bf16 mode has two attention kernels, chosen by the source length
 (:func:`bf16_route`): up to :data:`MAX_K_BF16` the whole logit row sits in
-shared memory (resident); past it, K and V stream through shared memory in
-chunks with an online softmax (streamed), for any keypoint budget.
+shared memory (resident); past it, K and V stream through a ring of
+shared-memory chunks in two passes, the logits and probabilities in
+registers (streamed), for any keypoint budget.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ import torch
 
 from rspl_slam_tpu_torch.ops import cuda_build
 
-__all__ = ["LAYER_KEYS", "MAX_K_BF16", "MAX_K_F32", "bf16_route", "bf16_smem_bytes",
+__all__ = ["CHUNK", "KEY_GROUPS", "LAYER_KEYS", "MAX_K_BF16", "MAX_K_F32", "STAGES",
+           "bf16_route", "bf16_smem_bytes",
            "bf16_streamed_smem_bytes", "f32_attn_smem_bytes", "layer_scratch", "pack_layer",
            "pack_mma_b", "round_operand", "superglue_layer",
            "superglue_layer_plain", "superglue_layer_two_set", "superglue_layer_two_set_plain",
@@ -67,16 +69,19 @@ MAX_K_BF16 = max(k for k in range(16, 2048, 16)
                  if bf16_smem_bytes(k) <= cuda_build.SMEM_LIMIT)
 
 CHUNK = 128  # source keys per chunk of the streamed bf16 kernel
+STAGES = 2  # chunks in flight in its ring (the next lands while one computes)
+KEY_GROUPS = 4  # warps per m16 query tile, each on CHUNK / KEY_GROUPS keys of every chunk
 
 
 def bf16_streamed_smem_bytes() -> int:
     """Dynamic shared memory of the streamed bf16 layer kernel, whatever
     the source length: the message tile, then the larger of the attention
-    buffers (Q, a K chunk, a V chunk, the chunk's f32 logits, bf16
-    probabilities and mask) and the two MLP tiles."""
+    buffers (Q, a ring of :data:`STAGES` chunks of K rows, V rows and the
+    chunk's mask, the key groups' (max, sum) per row) and the two MLP
+    tiles — the layout of csrc/superglue_layer.cu."""
     msg = ROWS * (256 + 8) * 2
-    attn = (ROWS * (64 + 8) * 2 + 2 * CHUNK * (64 + 8) * 2 + ROWS * (CHUNK + 4) * 4
-            + ROWS * (CHUNK + 8) * 2 + CHUNK * 4)
+    stage = 2 * CHUNK * (64 + 8) * 2 + CHUNK * 4
+    attn = ROWS * (64 + 8) * 2 + STAGES * stage + KEY_GROUPS * ROWS * 2 * 4
     mlp = 2 * ROWS * (512 + 8) * 2
     return msg + max(attn, mlp)
 

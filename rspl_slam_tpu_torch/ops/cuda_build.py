@@ -57,7 +57,8 @@ SIGNATURES = {
                         "superglue_layer_two_set_launch": "p" * 17 + "iii" + "p",
                         "superglue_layer_two_set_bf16_launch": "p" * 16 + "iiii" + "p"},
     "sinkhorn": {"sinkhorn_launch": "pppp" + "iiii" + "iii" + "p",
-                 "sinkhorn_global_launch": "ppppppp" + "iiiii" + "p"},
+                 "sinkhorn_global_clusters": "p",
+                 "sinkhorn_global_launch": "pppppp" + "i" * 9 + "p"},
     "png_unfilter": {"png_unfilter": "pp" + "iii"},
     "native_runtime": {"native_merge_lines": "pi" + "ddd" + "p",
                        "native_remap_bilinear": "pii" + "pp",

@@ -979,13 +979,15 @@ def test_matching_accuracy_on_the_card_matches_the_plain_version(cuda_device, K)
     assert float((z - ref).abs().max()) < 1e-3
 
 
-@pytest.mark.parametrize("K,route", [(752, "resident"), (752, "streamed"), (768, None),
-                                     (1024, None), (2048, None)])
+@pytest.mark.parametrize("K,route", [(752, "resident"), (752, "streamed"), (400, "streamed"),
+                                     (768, None), (1024, None), (1100, None), (2048, None),
+                                     (4096, None)])
 def test_superglue_layer_streamed_matches_plain(cuda_device, K, route):  # noqa: F811
-    """K2's streamed bf16 kernel (K and V in chunks of 128, online softmax)
-    past the resident kernel's 752, and both kernels at 752, against the
-    plain version, self and cross, with masked keys: |k - p| <= 2^-8|p| +
-    4e-3, the bf16 kernel line's tolerance."""
+    """K2's streamed bf16 kernel (K and V through a ring of 128-key chunks,
+    two passes, logits and probabilities in registers) past the resident
+    kernel's 752 (ragged at 1100), both kernels at 752 and the streamed one
+    at 400, against the plain version, self and cross, with masked keys:
+    |k - p| <= 2^-8|p| + 4e-3, the bf16 kernel line's tolerance."""
     layer = attention_cuda.pack_layer(_layer(np.random.default_rng(6)), cuda_device)
     g = torch.Generator(device=cuda_device).manual_seed(K)
     x = torch.randn((2, K, 256), generator=g, device=cuda_device)
@@ -1001,29 +1003,55 @@ def test_superglue_layer_streamed_matches_plain(cuda_device, K, route):  # noqa:
         assert ((got - ref).abs() <= 2.0 ** -8 * ref.abs() + 4e-3).all()
 
 
-@pytest.mark.parametrize("M,N", [(920, 920), (1024, 1024), (2048, 2048), (1024, 1200)])
-def test_sinkhorn_global_kernel_matches_plain(cuda_device, M, N):  # noqa: F811
+@pytest.mark.parametrize("B,M,N", [(1, 920, 920), (1, 1024, 1024), (1, 2048, 2048),
+                                   (1, 1024, 1200), (4, 1024, 1024), (1, 4096, 4096)])
+def test_sinkhorn_global_kernel_matches_plain(cuda_device, B, M, N):  # noqa: F811
     """K3's global-memory kernel on plans no cluster holds, against the
-    plain sweeps: max error < 1e-3 on valid rows, columns and dustbins."""
+    plain sweeps: max error < 1e-3 on valid rows, columns and dustbins; at
+    B = 4 one group of clusters per batch element, at 4096² most of each
+    band in device memory (``grid_plan``'s overflow rows). A plan run twice
+    is equal bit for bit."""
     assert sinkhorn_cuda.sinkhorn_route(M + 1, N + 1) == "global"
-    g = torch.Generator(device=cuda_device).manual_seed(M + N)
-    S = torch.randn((1, M, N), generator=g, device=cuda_device) * 3
-    m0 = torch.arange(M, device=cuda_device)[None] < M - M // 11
-    m1 = torch.arange(N, device=cuda_device)[None] < N - N // 13
+    g = torch.Generator(device=cuda_device).manual_seed(M + N + B)
+    S = torch.randn((B, M, N), generator=g, device=cuda_device) * 3
+    m0 = (torch.arange(M, device=cuda_device)[None] < M - M // 11).expand(B, M)
+    m1 = (torch.arange(N, device=cuda_device)[None] < N - N // 13).expand(B, N)
     Z0, mu, nu, _ = sinkhorn.build_problem(S, m0, m1, 1.0)
     got = sinkhorn_cuda.sinkhorn_iterations(Z0, mu, nu, 100)
+    assert torch.equal(sinkhorn_cuda.sinkhorn_iterations(Z0, mu, nu, 100), got)
     ref = sinkhorn.sinkhorn_iterations_plain(Z0, mu, nu, 100)
-    one = torch.ones((1, 1), dtype=torch.bool, device=cuda_device)
+    one = torch.ones((B, 1), dtype=torch.bool, device=cuda_device)
     sel = torch.cat([m0, one], 1)[:, :, None] & torch.cat([m1, one], 1)[:, None, :]
     assert torch.isfinite(got).all()
     assert (got - ref).abs()[sel].max() < 1e-3
+
+
+@pytest.mark.parametrize("M,N", [(800, 1024), (1024, 800)])
+def test_superglue_layer_two_set_streamed_matches_plain(cuda_device, M, N):  # noqa: F811
+    """K2's two-set variant with a source past the resident ceiling (800
+    queries over 1024 keys: the streamed kernel) and the reverse (1024 over
+    800), against the plain version within the bf16 kernel line's
+    tolerance, with a masked source."""
+    layer = attention_cuda.pack_layer(_layer(np.random.default_rng(8)), cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(M * N)
+    x = torch.randn((1, M, 256), generator=g, device=cuda_device)
+    src = torch.randn((1, N, 256), generator=g, device=cuda_device)
+    m_src = torch.arange(N, device=cuda_device)[None] < N - N // 5
+    before = attention_cuda.streamed_launches
+    got = attention_cuda.superglue_layer_two_set(x, src, m_src, layer,
+                                                 compute_dtype=torch.bfloat16)
+    assert attention_cuda.streamed_launches - before == int(N > attention_cuda.MAX_K_BF16)
+    ref = attention_cuda.superglue_layer_two_set_plain(x, src, m_src, layer,
+                                                       compute_dtype=torch.bfloat16)
+    assert ((got - ref).abs() <= 2.0 ** -8 * ref.abs() + 4e-3).all()
 
 
 @pytest.mark.parametrize("K", [1024, 2048])
 def test_match_pair_takes_any_keypoint_budget(cuda_device, K):  # noqa: F811
     """``match_pair`` at bf16 with K keypoints per set, past both resident
     kernels: 18 streamed K2 launches and one global-memory K3 launch, a
-    finite log plan of shape (1, K+1, K+1)."""
+    finite log plan of shape (1, K+1, K+1), equal bit for bit when the
+    match runs again."""
     from rspl_slam_tpu_torch.config import SuperGlueConfig
     from rspl_slam_tpu_torch.models import superglue
     from rspl_slam_tpu_torch.models.weights import superglue_from_numpy
@@ -1040,10 +1068,13 @@ def test_match_pair_takes_any_keypoint_budget(cuda_device, K):  # noqa: F811
         return (xy, torch.rand((1, K), generator=g, device=cuda_device), desc,
                 torch.arange(K, device=cuda_device)[None] < K - 17)
 
+    sides = side() + side()
     before = (attention_cuda.streamed_launches, sinkhorn_cuda.global_launches)
-    res = superglue.match_pair(sg, *side(), *side(), cfg, compute_dtype=torch.bfloat16)
+    res = superglue.match_pair(sg, *sides, cfg, compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     assert attention_cuda.streamed_launches - before[0] == cfg.num_gnn_layers
     assert sinkhorn_cuda.global_launches - before[1] == 1
     assert tuple(res.log_plan.shape) == (1, K + 1, K + 1)
     assert torch.isfinite(res.log_plan).all()
+    again = superglue.match_pair(sg, *sides, cfg, compute_dtype=torch.bfloat16)
+    assert torch.equal(again.log_plan, res.log_plan)

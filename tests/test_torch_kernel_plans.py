@@ -2,20 +2,26 @@
 
 K3 (csrc/sinkhorn.cu) splits Z0 into row bands over a thread-block
 cluster: ``cluster_plan`` sizes it, and each column sweep merges per-band
-(max, sum) partials. K1 (csrc/conv_stem.cu) takes its weights packed once
-by ``pack_weights``. K2's bf16 mode (csrc/superglue_layer.cu) holds a
-whole logit row per query in shared memory, which bounds its K. The CUDA
-kernels themselves run only on the card (tests/test_torch_cuda.py); these
-tests hold the plan, the merge rule and the packing against the plain
-versions, which tests/test_torch_kernels.py holds against the JAX package.
+(max, sum) partials; past a cluster of 16, ``grid_plan`` spreads the bands
+over persistent clusters of 8 whose partials merge per cluster, then over
+the clusters. K1 (csrc/conv_stem.cu) takes its weights packed once by
+``pack_weights``. K2's bf16 mode (csrc/superglue_layer.cu) holds a whole
+logit row per query in shared memory, which bounds its K; past it the
+streamed kernel's softmax folds key groups of chunks. The CUDA kernels
+themselves run only on the card (tests/test_torch_cuda.py); these tests
+hold the plans, the merge orders and the packing against the plain
+versions, which tests/test_torch_kernels.py holds against the JAX package,
+and the global K3 order against JAX's Sinkhorn too.
 """
 
 import math
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from rspl_slam_tpu.ops.sinkhorn import log_optimal_transport_masked as jax_ot
 from rspl_slam_tpu_torch.ops import (attention_cuda, conv_stem_cuda, cuda_build, sinkhorn,
                                      sinkhorn_cuda)
 
@@ -167,73 +173,209 @@ def test_sinkhorn_route_takes_the_cluster_where_one_holds_z0(M1, N1, route):
     assert sinkhorn_cuda.sinkhorn_route(M1, N1) == route
 
 
-def _chunked_sinkhorn(Z0, log_mu, log_nu, iters, col_rows):
-    """The global-memory kernel's algorithm in torch: u by full row sweeps,
-    v by merging the (max, sum) partials of chunks of ``col_rows`` rows
-    (the last chunk short) with the kernel's rule."""
+# the shapes the global-memory kernel takes on the card, and cluster counts
+# an H100 may report (one CTA per SM in clusters of 8: 14-16 of 132 SMs)
+GLOBAL_SHAPES = [(1, 921, 921), (1, 1025, 1025), (1, 2049, 2049), (4, 1025, 1025),
+                 (1, 4097, 4097), (1, 1025, 1201), (2, 2049, 2049)]
+
+
+@pytest.mark.parametrize("clusters", [14, 15, 16])
+@pytest.mark.parametrize("B,M1,N1", GLOBAL_SHAPES)
+def test_grid_plan_covers_every_row_once(B, M1, N1, clusters):
+    """``grid_plan``: the groups take every batch element once, the bands of
+    a group (clusters_per_group × 8 CTAs of ``rows``) cover every row of its
+    element exactly once, shared memory stays within a CTA's limit, and the
+    rows left in device memory are the overflow: the resident rows are as
+    many as fit (one more would not), all of them where they fit."""
+    plan = sinkhorn_cuda.grid_plan(B, M1, N1, clusters)
+    C = sinkhorn_cuda.GLOBAL_CLUSTER
+    assert plan.groups * plan.clusters_per_group <= clusters
+    assert plan.clusters_per_group <= sinkhorn_cuda.MAX_GROUP_CLUSTERS
+    assert sorted(b for g in range(plan.groups) for b in range(g, B, plan.groups)) == list(range(B))
+    bands = plan.clusters_per_group * C
+    hits = np.zeros(M1, int)
+    for t in range(bands):
+        hits[t * plan.rows:min(M1, (t + 1) * plan.rows)] += 1
+    assert (hits == 1).all()
+    assert (plan.rows - 1) * bands < M1 <= plan.rows * bands  # the fewest rows that cover
+    assert plan.smem <= cuda_build.SMEM_LIMIT
+    assert 0 <= plan.resident <= plan.rows
+    if plan.resident < plan.rows:
+        assert plan.smem + 4 * (-(-N1 // 4) * 4) > cuda_build.SMEM_LIMIT
+
+
+def test_grid_plan_overflows_only_past_shared_memory():
+    """One element at 1025² and 2049² stays wholly in shared memory; B = 2 at
+    2049² and 4097² keep part of each band in device memory; a row too wide
+    for v and the partials alone is refused."""
+    resident = {shape: sinkhorn_cuda.grid_plan(*shape, 16) for shape in GLOBAL_SHAPES}
+    for shape in [(1, 1025, 1025), (1, 2049, 2049), (4, 1025, 1025)]:
+        assert resident[shape].resident == resident[shape].rows
+    for shape in [(2, 2049, 2049), (1, 4097, 4097)]:
+        assert resident[shape].resident < resident[shape].rows
+    with pytest.raises(ValueError, match="leaves no shared memory"):
+        sinkhorn_cuda.grid_plan(1, 1025, 20_000, 16)
+
+
+def _max_sum(x, dim):
+    """(max, sum of exp(x - max)) over ``dim``; (-inf, 0) where empty."""
+    if x.shape[dim] == 0:
+        shape = list(x.shape)
+        del shape[dim]
+        return torch.full(shape, -math.inf), torch.zeros(shape)
+    m = x.max(dim=dim).values
+    return m, torch.exp(x - m.unsqueeze(dim)).sum(dim=dim)
+
+
+def _grid_sinkhorn(Z0, log_mu, log_nu, iters, plan):
+    """The global-memory kernel's algorithm in torch: per batch element,
+    u from each row's max, then the sum of exp; v from the (max, sum)
+    partials of bands of ``plan.rows`` rows (empty bands give (-inf, 0)),
+    merged per cluster of 8 by the max then the sum, then over the group's
+    clusters the same way."""
     B, M1, N1 = Z0.shape
-    u = torch.zeros_like(log_mu)
-    v = torch.zeros_like(log_nu)
-    for _ in range(iters):
-        u = log_mu - torch.logsumexp(Z0 + v[:, None, :], dim=2)
-        a = Z0 + u[:, :, None]
-        parts = [a[:, i:i + col_rows] for i in range(0, M1, col_rows)]
-        ms = [p.max(dim=1).values for p in parts]
-        ss = [torch.exp(p - m[:, None, :]).sum(dim=1) for p, m in zip(parts, ms)]
-        m_all = torch.stack(ms).max(dim=0).values
-        s_all = sum(s * torch.exp(m - m_all) for m, s in zip(ms, ss))
-        v = log_nu - (m_all + torch.log(s_all))
-    return Z0 + u[:, :, None] + v[:, None, :]
+    C = sinkhorn_cuda.GLOBAL_CLUSTER
+    cpg, rows = plan.clusters_per_group, plan.rows
+    out = torch.empty_like(Z0)
+    for b in range(B):
+        z = Z0[b]
+        u = torch.zeros(M1)
+        v = torch.zeros(N1)
+        for _ in range(iters):
+            m, s = _max_sum(z + v[None, :], 1)
+            u = log_mu[b] - (m + torch.log(s))
+            a = z + u[:, None]
+            bands = [_max_sum(a[t * rows:(t + 1) * rows], 0) for t in range(cpg * C)]
+            clusters = []
+            for k in range(cpg):
+                ms = torch.stack([bands[k * C + q][0] for q in range(C)])
+                ss = torch.stack([bands[k * C + q][1] for q in range(C)])
+                m = ms.max(0).values
+                base = torch.where(m == -math.inf, torch.zeros_like(m), m)
+                clusters.append((m, (ss * torch.exp(ms - base)).sum(0)))
+            ms = torch.stack([c[0] for c in clusters])
+            ss = torch.stack([c[1] for c in clusters])
+            m = ms.max(0).values
+            v = log_nu[b] - (m + torch.log((ss * torch.exp(ms - m)).sum(0)))
+        out[b] = z + u[:, None] + v[None, :]
+    return out
 
 
-@pytest.mark.parametrize("M,col_rows", [(150, 64), (64, 64), (40, 7)],
-                         ids=["ragged-chunks", "one-chunk", "many-chunks"])
-def test_chunked_column_merge_equals_plain_sweeps(M, col_rows):
-    """Per-chunk partials merged by the global-memory kernel's rule give the
-    plain sweeps to 1e-5 on valid rows, columns and dustbins, with masked
-    rows, a short last chunk, one chunk and many."""
-    rng = np.random.default_rng(M)
-    N = 45
-    S = torch.from_numpy((3 * rng.standard_normal((2, M, N))).astype(np.float32))
-    m0 = torch.arange(M)[None] < torch.tensor([[M - M // 5], [M]])
-    m1 = torch.arange(N)[None] < torch.tensor([[N], [N - 4]])
+def _sinkhorn_inputs(seed, B, M, N):
+    """Scores ×3 with a masked tail of rows in element 0 and of columns in
+    the last element."""
+    rng = np.random.default_rng(seed)
+    S = (3 * rng.standard_normal((B, M, N))).astype(np.float32)
+    m0 = np.ones((B, M), bool)
+    m1 = np.ones((B, N), bool)
+    m0[0, M - M // 5:] = False
+    m1[-1, N - 4:] = False
+    return S, m0, m1
+
+
+# (B, M, N, clusters): bands short at the end; one cluster; four clusters
+# whose last is all empty bands; more clusters than a group takes (16); a
+# batch over groups of clusters, rectangular; more batch elements than
+# clusters (each group walks two)
+GRID_CASES = {"ragged-chunks": (2, 150, 45, 3), "one-chunk": (1, 40, 33, 1),
+              "many-chunks": (1, 70, 45, 4), "past-16-clusters": (1, 300, 50, 20),
+              "rectangular-batch": (3, 64, 81, 5), "batch-past-clusters": (4, 30, 41, 2)}
+
+
+@pytest.mark.parametrize("B,M,N,clusters", list(GRID_CASES.values()), ids=list(GRID_CASES))
+def test_chunked_column_merge_equals_plain_sweeps(B, M, N, clusters):
+    """The global-memory kernel's merge order (band partials, merged per
+    cluster of 8, then over the clusters) gives the plain sweeps to 1e-5
+    on valid rows, columns and dustbins, with masked rows, short and empty
+    bands, a cluster of empty bands, a capped group and batch elements
+    walked by one group."""
+    S, m0, m1 = (torch.from_numpy(a) for a in _sinkhorn_inputs(M, B, M, N))
     Z0, mu, nu, _ = sinkhorn.build_problem(S, m0, m1, 0.7)
-    got = _chunked_sinkhorn(Z0, mu, nu, 50, col_rows)
+    got = _grid_sinkhorn(Z0, mu, nu, 50, sinkhorn_cuda.grid_plan(B, M + 1, N + 1, clusters))
     ref = sinkhorn.sinkhorn_iterations_plain(Z0, mu, nu, 50)
-    one = torch.ones((2, 1), dtype=torch.bool)
+    one = torch.ones((B, 1), dtype=torch.bool)
     sel = torch.cat([m0, one], 1)[:, :, None] & torch.cat([m1, one], 1)[:, None, :]
     assert torch.isfinite(got).all()
     assert (got - ref).abs()[sel].max() < 1e-5
 
 
-def _streamed_probabilities(logits, chunk):
-    """The streamed K2 kernel's softmax in torch: pass 1 folds each chunk
-    of keys into a running (max, sum of exp) per row, pass 2 writes each
-    chunk's exp(l - max) / sum rounded to bf16."""
-    m = torch.full(logits.shape[:-1], -math.inf)
-    s = torch.zeros(logits.shape[:-1])
-    for c0 in range(0, logits.shape[-1], chunk):
-        lc = logits[..., c0:c0 + chunk]
-        m_new = torch.maximum(m, lc.max(-1).values)
-        s = s * torch.exp(m - m_new) + torch.exp(lc - m_new[..., None]).sum(-1)
-        m = m_new
-    return torch.cat([(torch.exp(logits[..., c0:c0 + chunk] - m[..., None]) / s[..., None])
-                      .to(torch.bfloat16) for c0 in range(0, logits.shape[-1], chunk)], -1)
+@pytest.mark.parametrize("case", ["ragged-chunks", "past-16-clusters", "batch-past-clusters"])
+def test_grid_merge_order_matches_jax_sinkhorn(case):
+    """The same merge order against JAX's ``log_optimal_transport_masked``
+    (rspl_slam_tpu/ops/sinkhorn.py) at 100 iterations: max error < 1e-4 on
+    valid rows, columns and dustbins, as the port's plain sweeps are held
+    to it (tests/test_torch_kernels.py); two batch elements over groups,
+    a capped group, more batch elements than clusters."""
+    B, M, N, clusters = GRID_CASES[case]
+    S, m0, m1 = _sinkhorn_inputs(B * M + N, B, M, N)
+    Zx = np.asarray(jax_ot(jnp.asarray(S), jnp.asarray(m0), jnp.asarray(m1),
+                           jnp.asarray(1.0), 100))
+    Z0, mu, nu, norm = sinkhorn.build_problem(torch.from_numpy(S), torch.from_numpy(m0),
+                                              torch.from_numpy(m1), 1.0)
+    plan = sinkhorn_cuda.grid_plan(B, M + 1, N + 1, clusters)
+    got = (_grid_sinkhorn(Z0, mu, nu, 100, plan) - norm[:, None, None]).numpy()
+    sel = (np.concatenate([m0, np.ones((B, 1), bool)], 1)[:, :, None]
+           & np.concatenate([m1, np.ones((B, 1), bool)], 1)[:, None, :])
+    assert np.isfinite(got).all()
+    assert np.abs(Zx - got)[sel].max() < 1e-4
+
+
+def _streamed_probabilities(logits, chunk, groups):
+    """The streamed K2 kernel's softmax in torch: key group q of every chunk
+    (keys [q w, (q + 1) w) of it, w = chunk / groups) folds each chunk into
+    a running (max, sum of exp) per row; the groups merge once, in order,
+    by lse_merge's rule; then every key's exp(l - max) times the sum's f32
+    reciprocal rounds to bf16."""
+    w = chunk // groups
+    states = []
+    for q in range(groups):
+        st = (torch.full(logits.shape[:-1], -math.inf), torch.zeros(logits.shape[:-1]))
+        for c0 in range(0, logits.shape[-1], chunk):
+            lc = logits[..., c0 + q * w:c0 + (q + 1) * w]
+            if lc.shape[-1]:
+                m = torch.maximum(st[0], lc.max(-1).values)
+                base = torch.where(m == -math.inf, torch.zeros_like(m), m)
+                st = (m, st[1] * torch.exp(st[0] - base)
+                      + torch.exp(lc - base[..., None]).sum(-1))
+        states.append(st)
+    m = torch.stack([s[0] for s in states]).max(0).values
+    s = sum(torch.where(sm == -math.inf, torch.zeros_like(ss), ss * torch.exp(sm - m))
+            for sm, ss in states)
+    return (torch.exp(logits - m[..., None]) * (1.0 / s)[..., None]).to(torch.bfloat16)
+
+
+def test_streamed_kernel_tiles_fit_two_ctas_per_sm():
+    """The streamed K2 kernel's tiles: each of a query tile's KEY_GROUPS
+    warps takes two n16 key blocks of every CHUNK-key chunk; its shared
+    memory (the mirror of csrc/superglue_layer.cu: message tile, Q, a ring
+    of STAGES chunks of K, V and mask, the groups' (max, sum)) lets two CTAs
+    share an SM (228 KB, 1 KB reserved per CTA), and the P V partials of
+    the 8 warps (16 × 64 f32 each, row stride 72) fit the drained ring."""
+    ac = attention_cuda
+    assert ac.CHUNK // ac.KEY_GROUPS == 32 and ac.KEY_GROUPS * ac.ROWS // 16 == 8
+    smem = ac.bf16_streamed_smem_bytes()
+    assert smem == 97_280
+    assert 2 * (smem + 1024) <= 233_472
+    stage = 2 * ac.CHUNK * (64 + 8) * 2 + ac.CHUNK * 4
+    assert 2 * ac.KEY_GROUPS * 16 * (64 + 8) * 4 <= ac.STAGES * stage
 
 
 @pytest.mark.parametrize("K", [752, 1024, 1100])
 def test_streamed_softmax_rounds_what_the_resident_one_rounds(K):
-    """The online softmax of the streamed kernel gives the normalized
-    probabilities of the resident kernel's two-pass softmax before the
-    bf16 rounding, so after it they agree to one bf16 step (the running
-    sum rounds in another order), with masked keys at -1e9 and padding
-    keys at -inf; rows sum to 1 within bf16 rounding."""
+    """The streamed kernel's softmax (running (max, sum) per key group over
+    chunks of 128, the four groups merged once, then a product by the sum's
+    reciprocal) gives the normalized probabilities of the resident kernel's
+    two-pass softmax (a division) before the bf16 rounding, so after it
+    they agree to one bf16 step (the sum rounds in another order, the
+    reciprocal once more), with masked keys at -1e9 and padding keys at
+    -inf; rows sum to 1 within bf16 rounding."""
     rng = np.random.default_rng(K)
     logits = torch.from_numpy((4 * rng.standard_normal((2, 4, 32, K))).astype(np.float32))
     logits[..., K - K // 7:] = -1e9
     pad = -(-K // 16) * 16
     logits = torch.cat([logits, torch.full(logits.shape[:-1] + (pad - K,), -math.inf)], -1)
-    got = _streamed_probabilities(logits, attention_cuda.CHUNK).float()
+    got = _streamed_probabilities(logits, attention_cuda.CHUNK,
+                                  attention_cuda.KEY_GROUPS).float()
     ref = torch.softmax(logits, -1).to(torch.bfloat16).float()
     assert (got - ref).abs().max() <= 2.0 ** -8 * ref.abs().max()
     assert (got[..., K:] == 0).all()
