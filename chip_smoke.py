@@ -26,8 +26,13 @@ Phases (one JSON line each):
      PyTorch version on the same inputs (tolerance in the line), and CUDA
      event timings of the kernel, the plain version and, where one PyTorch
      call computes the same function, that call (a yardstick only); K1 also
-     in its side-output mode, K2 in its bf16 (main path) and f32 modes, and
-     K2's two-set variant (SuperGlue with M != N: 400 keypoints over 300
+     in its side-output mode, K2 in its bf16 (main path) and f32 modes (the
+     f32 mode: 3xTF32 on the tensor cores, K and V streamed in 64-key
+     chunks, two launches; also at ragged K = 48 and 301; its line gives
+     both bounds, f32 FMA and 3xTF32 at the TF32 peak, the design's tiles
+     and shared bytes, a second run's bits, and the HMMA.1688.F32.TF32
+     instructions ``cuobjdump -sass`` finds in each of its two kernels,
+     gated on both holding some), and K2's two-set variant (SuperGlue with M != N: 400 keypoints over 300
      and 300 over 400) in both modes; K3 also on the rectangular plans
      (401, 301) and (301, 401); past the resident kernels' ceilings, K2's
      streamed bf16 kernel (sources past 752 keys: K and V through a ring
@@ -35,7 +40,9 @@ Phases (one JSON line each):
      registers, two CTAs per SM) at K = 1024 (timed), 768, ragged 1100,
      2048 and 4096, both bf16 kernels at 400 and 752 (each timed beside
      the other), the two-set variant with a source past the ceiling and
-     the f32 mode at 1024 and 2048; K3's global-memory kernel (plans no
+     the f32 mode at 1024, 2048, 3309 (past its old ceiling) and 4096, each
+     timed beside both bounds and run twice, equal bit for bit; K3's
+     global-memory kernel (plans no
      cluster holds: one cooperative launch of persistent clusters of 8,
      each CTA a band of Z0 in shared memory, one grid barrier and two
      cluster barriers per iteration; the line gives its plan and the bytes
@@ -264,6 +271,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # on 132 SMs at the 1.98 GHz boost clock
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12  # dense TF32 tensor cores: K2's f32 mode runs 3 TF32 products per product
 PEAK_BYTES = 3.35e12
 PEAK_SFU = 132 * 16 * 1.98e9
 SM_SMEM_BYTES = 233_472  # shared memory of one H100 SM (228 KB)
@@ -513,10 +521,46 @@ def _layer_bound(ac, layer, x, compute_dtype):
     return (flops, nbytes) + bound_ms(flops, nbytes, peak)
 
 
+def _tf32_bound_ms(flops, nbytes):
+    """The f32 mode's bound on the unit its design uses: three TF32
+    products per product (3xTF32) at the dense TF32 peak, or the bytes."""
+    return bound_ms(3.0 * flops, nbytes, PEAK_TF32)[0]
+
+
+def _f32_design(ac):
+    """The f32 layer kernel's tiles and shared memory (one size for any K)."""
+    smem = ac.f32_smem_bytes()
+    return {"products": "3xTF32: mma.sync.m16n8k8 tf32 (lo hi + hi lo + hi hi, f32 sums)",
+            "launches_per_layer": 2, "qkv_tile": [ac.ROWS, 128],
+            "query_rows_per_cluster": ac.ROWS, "keys_per_chunk": ac.F32_CHUNK,
+            "ring_stages": ac.F32_STAGES, "key_groups": ac.KEY_GROUPS,
+            "keys_per_warp_and_chunk": ac.F32_CHUNK // ac.KEY_GROUPS, "smem_bytes": smem,
+            "ctas_per_sm_by_smem": SM_SMEM_BYTES // (smem + CTA_RESERVED_SMEM),
+            "passes": "max and sum, then P V (K read twice, V once)"}
+
+
+def _tf32_sass():
+    """HMMA.1688.F32.TF32 instructions in each f32 kernel of the built K2
+    library, as ``cuobjdump -sass`` lists them."""
+    from rspl_slam_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(cuda_build._target("superglue_layer"))],
+                         capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in out.splitlines():
+        if "Function : " in ln:
+            fn = next((k for k in ("qkv_f32_kernel", "layer_f32_kernel") if k in ln), None)
+        elif fn and "HMMA.1688.F32.TF32" in ln:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
 def check_superglue_layer(bf16: bool):
     """K2 in its bf16 or f32 mode at the main path's (2, 400, 256), timed;
-    the bf16 mode also at ragged K = 48, 301 and OIVIO's 600 (listed in
-    ``checks``)."""
+    both modes also at ragged K = 48 and 301, the bf16 mode at OIVIO's 600
+    (listed in ``checks``). The f32 line adds the 3xTF32 bound, the
+    design, a second run's bits and the SASS's TF32 MMAs per kernel."""
     import torch
 
     from rspl_slam_tpu_torch.ops import attention_cuda as ac
@@ -530,16 +574,15 @@ def check_superglue_layer(bf16: bool):
         rtol, atol = 2.0 ** -8, 4e-3
         tol = "|k-p| <= 2^-8|p| + 4e-3 (bf16 operands; another f32 summation order)"
     else:
-        rtol, atol = 1e-3, 1e-3
-        tol = "rtol 1e-3, atol 1e-3 (f32, other summation order)"
+        rtol, atol = K2_F32_TOL
+        tol = K2_F32_TOL_TEXT
     ok, errs, x, masks, scratch = _layer_case(ac, gen, layer, K, 331, compute_dtype, rtol, atol)
     checks = []
-    if bf16:
-        for k, valid in ((48, 40), (301, 250), (600, 577)):
-            o, e, *_ = _layer_case(ac, gen, layer, k, valid, compute_dtype, rtol, atol)
-            ok &= o
-            checks.append({"shape": [2, k, C], "valid": [k, valid], "ok": o,
-                           "max_abs_err_self_cross": e})
+    for k, valid in ((48, 40), (301, 250)) + (((600, 577),) if bf16 else ()):
+        o, e, *_ = _layer_case(ac, gen, layer, k, valid, compute_dtype, rtol, atol)
+        ok &= o
+        checks.append({"shape": [2, k, C], "valid": [k, valid], "ok": o,
+                       "max_abs_err_self_cross": e})
     def kernel():
         return ac.superglue_layer(x, masks, layer, True, compute_dtype=compute_dtype,
                                   scratch=scratch)
@@ -558,10 +601,20 @@ def check_superglue_layer(bf16: bool):
             "library_ms": None,
             "library": "none: no single PyTorch call computes a whole GNN layer",
             "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes}
+    if not bf16:
+        first = kernel()
+        line.update({"bound_3xtf32_ms": _tf32_bound_ms(flops, nbytes),
+                     "repeats_bit_for_bit": bool(torch.equal(kernel(), first)),
+                     "design": _f32_design(ac), "sass_hmma_1688_f32_tf32": _tf32_sass()})
+        sass = line["sass_hmma_1688_f32_tf32"]
+        ok &= line["repeats_bit_for_bit"] and all(
+            sass.get(k, 0) > 0 for k in ("qkv_f32_kernel", "layer_f32_kernel"))
+        line["ok"] = ok
     line.update(rates(line))
     emit(line)
     if not ok:
-        raise AssertionError(f"{line['name']} disagrees: {errs}, {checks}")
+        raise AssertionError(f"{line['name']} disagrees: {errs}, {checks}, "
+                             f"{line.get('sass_hmma_1688_f32_tf32')}")
     return line
 
 
@@ -684,8 +737,8 @@ def check_superglue_layer_two_set(bf16: bool):
         rtol, atol = K2_BF16_TOL
         tol = "|k-p| <= 2^-8|p| + 4e-3 (bf16 operands; another f32 summation order)"
     else:
-        rtol, atol = 1e-3, 1e-3
-        tol = "rtol 1e-3, atol 1e-3 (f32, other summation order)"
+        rtol, atol = K2_F32_TOL
+        tol = K2_F32_TOL_TEXT
 
     def case(M, N, timed=True):
         x = torch.randn((1, M, 256), generator=gen, device=dev)
@@ -714,6 +767,8 @@ def check_superglue_layer_two_set(bf16: bool):
                     x, src, m_src, layer, compute_dtype=dt)),
                 "library_ms": None, "bound_ms": bms, "bound_by": by, "flops": flops,
                 "bytes": nbytes})
+            if not bf16:
+                out["bound_3xtf32_ms"] = _tf32_bound_ms(flops, nbytes)
             out.update(rates(out))
         return out
 
@@ -732,6 +787,7 @@ def check_superglue_layer_two_set(bf16: bool):
 
 
 LARGE_K = (768, 1024, 1100, 2048, 4096)  # sources past K2's resident kernel (752)
+LARGE_K_F32 = (1024, 2048, 3309, 4096)  # the f32 mode past 752, and past its old 3308
 
 
 def check_superglue_layer_streamed():
@@ -744,10 +800,12 @@ def check_superglue_layer_streamed():
     streamed kernel beside the resident one, a finding for the route's
     threshold); the two-set variant with a source past the ceiling (800
     over 1024, 1024 over 800: the second's source is resident, its line's
-    route says so); and the f32 mode at K = 1024 and 2048, which keeps its
-    own kernels up to MAX_K_F32 (``f32_checks``). The line gives the
-    design's tiles: query rows per CTA, keys per chunk, ring stages, key
-    groups (warps per query tile), shared bytes and CTAs per SM."""
+    route says so); and the f32 mode, which streams at every K, at K =
+    1024, 2048, 3309 (past its old ceiling) and 4096 (``f32_checks``, each
+    timed beside its f32 FMA and 3xTF32 bounds and run twice, equal bit for
+    bit). The line gives the design's tiles: query rows per CTA, keys per
+    chunk, ring stages, key groups (warps per query tile), shared bytes and
+    CTAs per SM."""
     import torch
 
     from rspl_slam_tpu_torch.ops import attention_cuda as ac
@@ -811,20 +869,25 @@ def check_superglue_layer_streamed():
         checks.append({"shape": [1, M, N], "route": ac.bf16_route(N), "two_set": True,
                        "ok": o, "max_abs_err": e})
     f32_checks = []
-    for K in (1024, 2048):
-        c, xf, mf = stacked(K, dt=f32, tol=(1e-3, 1e-3))
+    for K in LARGE_K_F32:
+        c, xf, mf = stacked(K, dt=f32, tol=K2_F32_TOL)
         flops_f, nbytes_f, bms_f, by_f = _layer_bound(ac, layer, xf, f32)
         sf = ac.layer_scratch(xf, mf, f32)
-        c.update({"ms": time_ms(lambda: ac.superglue_layer(
-            xf, mf, layer, True, compute_dtype=f32, scratch=sf), n=5),
-            "bound_ms": bms_f, "bound_by": by_f,
-            "f32_attn_smem_bytes": ac.f32_attn_smem_bytes(K), "max_k_f32": ac.MAX_K_F32})
+
+        def run_f32():
+            return ac.superglue_layer(xf, mf, layer, True, compute_dtype=f32, scratch=sf)
+
+        first = run_f32()
+        c.update({"ms": time_ms(run_f32, n=5), "bound_ms": bms_f, "bound_by": by_f,
+                  "bound_3xtf32_ms": _tf32_bound_ms(flops_f, nbytes_f),
+                  "repeats_bit_for_bit": bool(torch.equal(run_f32(), first))})
+        c["ok"] &= c["repeats_bit_for_bit"]
         f32_checks.append(c)
     ok = main["ok"] and all(c["ok"] for c in checks + f32_checks)
     line = {"phase": "kernel", "name": "superglue_layer_streamed", "compute_dtype": "bfloat16",
             **main, "ok": ok,
             "tolerance": "|k-p| <= 2^-8|p| + 4e-3 (bf16 operands; another f32 summation "
-                         "order); f32 mode rtol 1e-3, atol 1e-3",
+                         "order); f32 mode " + K2_F32_TOL_TEXT,
             "max_k_bf16_resident": ac.MAX_K_BF16,
             "streamed_smem_bytes": ac.bf16_streamed_smem_bytes(),
             "streamed_design": {
@@ -1511,6 +1574,12 @@ UNEQUAL_MIN_KEYPOINTS = 100  # valid keypoints per image at radius 2
 # K2's bf16 kernel lines: |k - p| <= 2^-8 |p| + 4e-3 (one bf16 intermediate
 # on the other side of a rounding boundary after another f32 summation order)
 K2_BF16_TOL = (2.0 ** -8, 4e-3)
+# K2's f32 mode against its plain version: 3xTF32 products, f32 sums in
+# another order (2.4e-6 at most measured, K = 48 to 4096); one TF32 product
+# alone is ~3e-4 of the largest entry off a GEMM of the layer
+# (tests/test_torch_kernel_plans.py), far outside it
+K2_F32_TOL = (1e-5, 1e-5)
+K2_F32_TOL_TEXT = "rtol 1e-5, atol 1e-5 (f32 accuracy, 3xTF32; another f32 summation order)"
 UNEQUAL_TOLERANCE = (
     "bf16 log plan: |kernel - plain| <= 2x |plain on the CPU - plain| (max over valid "
     "entries); each layer on the plain forward's input: max |kernel - plain| <= max |plain "
@@ -4653,7 +4722,7 @@ def _lines_breakdown(fe, pair):
 PROFILE_NAMES = {"conv_stem": ("conv3x3_relu_pool_kernel<false>",),
                  "conv_stem_side": ("conv3x3_relu_pool_kernel<true>",),
                  "superglue_layer": ("qkv_bf16_kernel", "layer_bf16_kernel<false>"),
-                 "superglue_layer_f32": ("qkv_kernel", "attn_kernel", "mlp_kernel"),
+                 "superglue_layer_f32": ("qkv_f32_kernel", "layer_f32_kernel"),
                  "superglue_layer_streamed": ("layer_bf16_kernel<true>",),
                  "sinkhorn": ("sinkhorn_cluster_kernel",),
                  "sinkhorn_global": ("sinkhorn_global_kernel",)}

@@ -96,21 +96,55 @@
 //   (tests/torch_kernel_phases.py; PERF.md §6). At K <= 752 the resident
 //   kernel runs, unchanged.
 //
-// f32 (compute_dtype=float32; the Pallas kernel's function). Plain FMA in
-// three launches:
-//   1. qkv_kernel: the QKV projection over all 2B*K rows, 16 rows per CTA;
-//      each thread owns 3 output columns x 16 rows and streams the weight
-//      rows (coalesced, L2 resident) against the row tile held in shared
-//      memory (float4 broadcast reads).
-//   2. attn_kernel: one CTA per (set, head, 16-query tile): the 16 x S
-//      logits live in shared memory, K and V stream through in 64-row
-//      chunks (row stride 65 against bank conflicts), the masked softmax
-//      reduces over 16-lane groups with shuffles.
-//   3. mlp_kernel: merge + the split first MLP weight + folded BN/ReLU + the
-//      second MLP weight + residual, 16 rows per CTA with every intermediate
-//      row in shared memory (80 KB, dynamic).
-//   The same 1.38 GFLOP bound it at the 67 TFLOP/s non-tensor f32 peak
-//   (20.5 us).
+// f32 (compute_dtype=float32; the Pallas kernel's function). Nothing rounds
+// to bf16, and every product runs on the tensor cores at f32 accuracy as
+// 3xTF32 (mma.sync.m16n8k8 tf32 -> f32): each operand splits into hi =
+// tf32(a) and lo = tf32(a - hi) (cvt.rna's rounding: to nearest, ties away;
+// ops/attention_cuda.split_tf32 mirrors it), and lo_a hi_b + hi_a lo_b +
+// hi_a hi_b accumulate in f32, so a product is off by ~2^-22 of itself
+// (lo_a lo_b is left out): f32's order, not TF32's 2^-11. QKV, Q K^T, P V,
+// the merge, W1 and W2 all run so. The design is the bf16 mode's, in f32
+// tiles, two launches in both variants:
+//   1. qkv_f32_kernel: QKV = X Wqkv + bqkv over all rows, a 32-row x
+//      128-column tile per CTA (150 CTAs at 800 rows), into f32 scratch; the
+//      two-set variant projects Q from X's rows and K, V from S's rows.
+//   2. layer_f32_kernel: one cluster of 4 CTAs per (set, 32-query tile), CTA
+//      h on head h. K and V always stream through a cp.async ring of
+//      STAGES_F32 = 2 chunks of CK_F32 = 64 keys, in two passes: pass 1 folds
+//      a running (max, sum of exp) per row and key group in registers, the
+//      four key groups merged once in order; pass 2 forms P = exp(l - max) *
+//      (1 / sum) from the logit accumulators and multiplies it into V. So
+//      shared memory (165,376 B: the message tile and the larger of the
+//      attention ring and the two MLP tiles; one CTA per SM) does not grow
+//      with K, and no keypoint budget raises. The m16n8k8 accumulator holds
+//      columns (2t, 2t + 1) of a row where the A operand wants (t, t + 4): P V
+//      takes a tile's keys in that order (V rows 2t and 2t + 1 as k slots t
+//      and t + 4), so P goes from the logit registers straight into the MMA.
+//      Merge, W1 and W2 run by column slice over the 4 CTAs, each slice
+//      written into every CTA's tile over DSMEM and one cluster barrier per
+//      step, as in the bf16 kernel but in f32. The P V partials sum over the
+//      key groups in a fixed order: no float atomics, so a shape repeats bit
+//      for bit, and the stacked and two-set launches of equal sets agree bit
+//      for bit.
+//   Weights are packed once by the wrapper (pack_tf32_b) in the B operand's
+//   register order, f32, not pre-split: a lane's 16-byte fragment per k-step
+//   feeds two n8 tiles and splits in registers (weights stay 4 bytes per
+//   element in L2). A operands come from shared memory by ldmatrix (a b16 8 x 8
+//   matrix is an 8 x 4 f32 one, laid out as the tf32 fragment wants) with row
+//   strides an odd number of 16-byte units. Each k-step's three products (3
+//   MMAs) go into a fresh fragment, added to the running sum by rounded f32
+//   adds: the tensor core's own accumulation drifts over a long chain (1.8e-5
+//   off the plain layer against 1.3e-6), and fragments of two k-steps, as
+//   close per layer, doubled the drift of an 18-layer match (PERF.md §6). The
+//   TF32 rounding is an integer add and mask, cvt.rna's bits at a lower issue
+//   cost.
+//   Bound: a stacked layer at (2, 400, 256) is 1.377 GFLOP: 20.5 us at the 67
+//   TFLOP/s f32 FMA peak; the design executes three TF32 products for each
+//   (4.13 GFLOP, plus Q K^T again in pass 2), 8.3 us at the 495 TFLOP/s dense
+//   TF32 peak (mma.sync reaches 314 TFLOP/s of it on an H100). What holds it
+//   back: the operand splits and rounded adds are about six ALU instructions
+//   per MMA, and one CTA per SM (8 warps) hides little latency; at 800 rows
+//   the GEMMs are thin, as in the bf16 mode.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -119,221 +153,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// ------------------------------------------------------------------ f32 mode
-
 constexpr int NT = 256;  // threads per CTA; also the model width C
-constexpr int R = 16;    // rows per CTA (kernels 1 and 3), queries per CTA (kernel 2)
 constexpr int C = 256;
 constexpr int DH = 64;   // head width (C / 4 heads)
-constexpr int CH = 64;   // source rows per K/V chunk
-constexpr int KS = DH + 1;
-
-// acc[r][c] += sum_k sA[r * lda + k] * W[k * ldw + n0 + c * NT], k < Kd (Kd % 4 == 0)
-template <int NC>
-__device__ __forceinline__ void rowtile_mac(float (&acc)[R][NC], const float* sA, int lda,
-                                            int Kd, const float* __restrict__ W, int ldw,
-                                            int n0) {
-#pragma unroll 1
-  for (int k = 0; k < Kd; k += 4) {
-    float wv[4][NC];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) wv[kk][c] = __ldg(W + (size_t)(k + kk) * ldw + n0 + c * NT);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(sA + r * lda + k);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        float s = acc[r][c];
-        s = fmaf(a.x, wv[0][c], s);
-        s = fmaf(a.y, wv[1][c], s);
-        s = fmaf(a.z, wv[2][c], s);
-        s = fmaf(a.w, wv[3][c], s);
-        acc[r][c] = s;
-      }
-    }
-  }
-}
-
-// load rows [row0, row0 + R) x C of X into sX (zero beyond nrows)
-__device__ __forceinline__ void load_rows(float* sX, const float* __restrict__ X, int row0,
-                                          int nrows) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < R * C / 4; i += NT) {
-    const int r = i / (C / 4), c4 = i % (C / 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < nrows) v = reinterpret_cast<const float4*>(X + (size_t)(row0 + r) * C)[c4];
-    reinterpret_cast<float4*>(sX + r * C)[c4] = v;
-  }
-}
-
-// columns [C0 * C, (C0 + NC) * C) of X [Wq | Wk | Wv] + b: all three (0, 3),
-// Q alone (0, 1) or K and V (1, 2)
-template <int C0, int NC>
-__global__ void __launch_bounds__(NT)
-qkv_kernel(const float* __restrict__ X, const float* __restrict__ Wqkv,
-           const float* __restrict__ bqkv, float* __restrict__ QKV, int nrows) {
-  __shared__ __align__(16) float sX[R * C];
-  const int row0 = blockIdx.x * R;
-  load_rows(sX, X, row0, nrows);
-  __syncthreads();
-  float acc[R][NC];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-  const int n0 = C0 * NT + threadIdx.x;
-  rowtile_mac<NC>(acc, sX, C, C, Wqkv, 3 * C, n0);
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const float bb = bqkv[n0 + c * NT];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (row0 + r < nrows) QKV[(size_t)(row0 + r) * 3 * C + n0 + c * NT] = acc[r][c] + bb;
-  }
-}
-
-// query rows from QX (Kq per set), keys and values from QS (K per set, set
-// (set + shift) mod nsets), the source mask (nsets, K)
-__global__ void __launch_bounds__(NT)
-attn_kernel(const float* __restrict__ QX, const float* __restrict__ QS,
-            const float* __restrict__ mask, float* __restrict__ MSG, int nsets, int Kq, int K,
-            int shift) {
-  extern __shared__ __align__(16) float sm[];
-  float* sQ = sm;              // R x DH
-  float* sKV = sQ + R * DH;    // CH x KS
-  float* sL = sKV + CH * KS;   // R x K logits / probabilities
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * R;
-  const int h = blockIdx.y;
-  const int set = blockIdx.z;
-  const int src = (set + shift) % nsets;
-  const float* msk = mask + (size_t)src * K;
-  const float scale = rsqrtf((float)DH);
-  const int r = tid >> 4, l16 = tid & 15;
-
-  for (int i = tid; i < R * DH; i += NT) {
-    const int rr = i / DH, d = i % DH;
-    sQ[i] = (q0 + rr < Kq) ? QX[(size_t)(set * Kq + q0 + rr) * 3 * C + h * DH + d] : 0.f;
-  }
-
-  for (int s0 = 0; s0 < K; s0 += CH) {
-    __syncthreads();  // sQ ready / previous chunk consumed
-    for (int i = tid; i < CH * DH; i += NT) {
-      const int s = i / DH, d = i % DH;
-      sKV[s * KS + d] =
-          (s0 + s < K) ? QS[(size_t)(src * K + s0 + s) * 3 * C + C + h * DH + d] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < CH / 16; ++j) {
-      const int s = l16 + 16 * j;
-      if (s0 + s < K) {
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < DH; ++d) dot = fmaf(sQ[r * DH + d], sKV[s * KS + d], dot);
-        sL[r * K + s0 + s] = (msk[s0 + s] > 0.f) ? dot * scale : -1e9f;
-      }
-    }
-  }
-  __syncthreads();
-
-  // masked softmax per query row: 16 threads per row (one half-warp)
-  float mx = -INFINITY;
-  for (int s = l16; s < K; s += 16) mx = fmaxf(mx, sL[r * K + s]);
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, 16));
-  float sum = 0.f;
-  for (int s = l16; s < K; s += 16) {
-    const float e = expf(sL[r * K + s] - mx);
-    sL[r * K + s] = e;
-    sum += e;
-  }
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off, 16);
-  const float inv = 1.f / sum;
-  for (int s = l16; s < K; s += 16) sL[r * K + s] *= inv;
-
-  float acc[DH / 16] = {0.f, 0.f, 0.f, 0.f};
-  for (int s0 = 0; s0 < K; s0 += CH) {
-    __syncthreads();  // probabilities written / previous chunk consumed
-    for (int i = tid; i < CH * DH; i += NT) {
-      const int s = i / DH, d = i % DH;
-      sKV[s * KS + d] =
-          (s0 + s < K) ? QS[(size_t)(src * K + s0 + s) * 3 * C + 2 * C + h * DH + d] : 0.f;
-    }
-    __syncthreads();
-    const int n = min(CH, K - s0);
-    for (int s = 0; s < n; ++s) {
-      const float p = sL[r * K + s0 + s];
-#pragma unroll
-      for (int j = 0; j < DH / 16; ++j) acc[j] = fmaf(p, sKV[s * KS + l16 + 16 * j], acc[j]);
-    }
-  }
-  if (q0 + r < Kq) {
-#pragma unroll
-    for (int j = 0; j < DH / 16; ++j)
-      MSG[(size_t)(set * Kq + q0 + r) * C + h * DH + l16 + 16 * j] = acc[j];
-  }
-}
-
-__global__ void __launch_bounds__(NT)
-mlp_kernel(const float* __restrict__ X, const float* __restrict__ MSG,
-           const float* __restrict__ Wm, const float* __restrict__ bm,
-           const float* __restrict__ W1, const float* __restrict__ b1,
-           const float* __restrict__ s1, const float* __restrict__ t1,
-           const float* __restrict__ W2, const float* __restrict__ b2,
-           float* __restrict__ OUT, int nrows) {
-  extern __shared__ __align__(16) float sm[];
-  float* sX = sm;            // R x C
-  float* sM = sX + R * C;    // R x C  (raw message)
-  float* sM2 = sM + R * C;   // R x C  (merged message)
-  float* sH = sM2 + R * C;   // R x 2C (hidden)
-  const int row0 = blockIdx.x * R;
-  const int n0 = threadIdx.x;
-  load_rows(sX, X, row0, nrows);
-  load_rows(sM, MSG, row0, nrows);
-  __syncthreads();
-
-  {  // merge projection
-    float acc[R][1];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r][0] = 0.f;
-    rowtile_mac<1>(acc, sM, C, C, Wm, C, n0);
-    const float bb = bm[n0];
-#pragma unroll
-    for (int r = 0; r < R; ++r) sM2[r * C + n0] = acc[r][0] + bb;
-  }
-  __syncthreads();
-  {  // first MLP layer over concat[x, msg] with the weight split in two
-    float acc[R][2];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0.f;
-    rowtile_mac<2>(acc, sX, C, C, W1, 2 * C, n0);
-    rowtile_mac<2>(acc, sM2, C, C, W1 + (size_t)C * 2 * C, 2 * C, n0);
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int n = n0 + c * NT;
-      const float bb = b1[n], sc = s1[n], sh = t1[n];
-#pragma unroll
-      for (int r = 0; r < R; ++r) sH[r * 2 * C + n] = fmaxf((acc[r][c] + bb) * sc + sh, 0.f);
-    }
-  }
-  __syncthreads();
-  {  // second MLP layer + residual
-    float acc[R][1];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r][0] = 0.f;
-    rowtile_mac<1>(acc, sH, 2 * C, 2 * C, W2, C, n0);
-    const float bb = b2[n0];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (row0 + r < nrows)
-        OUT[(size_t)(row0 + r) * C + n0] = sX[r * C + n0] + acc[r][0] + bb;
-  }
-}
 
 // ----------------------------------------------------------------- bf16 mode
 
@@ -343,7 +165,7 @@ constexpr int LDX = C + 8;      // bf16 row stride of 256-wide tiles (528 B = 33
 constexpr int LDH = 2 * C + 8;  // 512-wide tiles (1040 B = 65 x 16 B)
 constexpr int LDK = DH + 8;     // Q, K, V rows of one head (144 B = 9 x 16 B)
 constexpr int kSmemLimit = 232448;  // shared memory one H100 CTA may use
-constexpr int kErrSmem = -3;        // K too large for the bf16 kernel's shared memory
+constexpr int kErrSmem = -3;        // K too large for the resident bf16 kernel's shared memory
 static_assert(DH == 64, "the logit scale below is 1/sqrt(64)");
 constexpr float kInvSqrtDh = 0.125f;  // exact: JAX divides the product by sqrt(64) = 8
 
@@ -938,46 +760,490 @@ layer_bf16_kernel(const float* __restrict__ X, const __nv_bfloat16* __restrict__
   // no CTA reads another's shared memory after the last cluster barrier
 }
 
-std::atomic<int> attn_smem_limits[kMaxDevices];
-std::atomic<int> mlp_smem_limits[kMaxDevices];
+// ------------------------------------------------------------------ f32 mode
+
+constexpr int LDXF = C + 4;      // f32 row stride of 256-wide tiles (1040 B = 65 x 16 B)
+constexpr int LDHF = 2 * C + 4;  // 512-wide tiles (2064 B = 129 x 16 B)
+constexpr int LDKF = DH + 4;     // Q, K, V rows of one head (272 B = 17 x 16 B)
+constexpr int CK_F32 = 64;       // keys per chunk
+constexpr int STAGES_F32 = 2;    // chunks in flight: chunk t + 1 lands while chunk t computes
+constexpr int KGW_F32 = CK_F32 / KG;  // keys per warp and chunk (16)
+constexpr int JT_F32 = KGW_F32 / 8;   // n8 key tiles per warp and chunk (2)
+constexpr int STAGE_BYTES_F32 = 2 * CK_F32 * LDKF * 4 + CK_F32 * 4;
+constexpr int KF_F32 = 1;  // k-steps (or key tiles) per fresh fragment: 3 MMAs per rounded add
+
+// Dynamic shared memory of layer_f32_kernel, whatever K
+// (ops/attention_cuda.f32_smem_bytes mirrors it): the f32 message tile, then
+// one region that holds the attention buffers (Q, the ring of K, V and mask
+// chunks, the key groups' (max, sum) per row) and later the two MLP tiles.
+constexpr int layer_f32_smem() {
+  constexpr int attn = BR * LDKF * 4 + STAGES_F32 * STAGE_BYTES_F32 + KG * BR * 2 * 4;
+  constexpr int mlp = 2 * BR * LDHF * 4;
+  return BR * LDXF * 4 + (attn > mlp ? attn : mlp);
+}
+static_assert(KGW_F32 % 16 == 0, "each warp takes whole n16 blocks of keys of a chunk");
+static_assert(8 % KF_F32 == 0 && JT_F32 % KF_F32 == 0, "whole fragments per trip and chunk");
+static_assert(2 * KG * 16 * LDO * 4 <= STAGES_F32 * STAGE_BYTES_F32, "P V partials overlay the ring");
+static_assert(layer_f32_smem() <= kSmemLimit, "one f32 layer CTA fits an SM");
+
+// a rounded to tf32 (10 mantissa bits; to nearest, ties away from zero): the
+// bits of cvt.rna.tf32.f32 for every finite a, as an integer add and mask,
+// which issue faster than the conversion (tests/torch_kernel_phases.py
+// --k2-f32)
+__device__ __forceinline__ uint32_t tf32_rna(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+}
+
+// the 3xTF32 operand split a = hi + lo (ops/attention_cuda.split_tf32)
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(a);
+  lo = tf32_rna(a - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split_tf32(const uint32_t (&a)[4], uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), hi[i], lo[i]);
+}
+
+// d += a (16 x 8 tf32, row major) * b (8 x 8 tf32, column major), f32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b at f32 accuracy (3xTF32): lo_a hi_b, hi_a lo_b, then hi_a hi_b.
+// The tensor core's own f32 accumulation is not rounded to nearest, so a long
+// chain of MMAs into one accumulator drifts: d is a fresh fragment of KF_F32
+// k-steps, added to the running sum by rounded f32 adds (add_fragment), which
+// keeps a long sum as an FMA loop keeps it (tests/torch_kernel_phases.py
+// --k2-f32 measures the drift).
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void add_fragment(float (&acc)[4], const float (&d)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += d[e];
+}
+
+// acc[mt][tile] = A x B (3xTF32) for this warp's n16 column block: A is MT m16
+// tiles of f32 at sA (row stride lda, KSTEPS*8 deep), B the block's packed f32
+// fragments Bp[ks * 32 + lane] (ops/attention_cuda.pack_tf32_b), PF k-steps of
+// B in flight from L2; KF_F32 k-steps per fresh fragment, in order. The loop
+// runs PF k-steps per trip and is not unrolled further: fully unrolled, W1's 64
+// k-steps are tens of KB of straight-line code that a CTA runs once, and the
+// layer ran 15-25% slower so (tests/torch_kernel_phases.py --k2-f32).
+template <int MT, int KSTEPS>
+__device__ __forceinline__ void warp_gemm_f32(float (&acc)[MT][2][4], const float* sA, int lda,
+                                              const uint4* __restrict__ Bp) {
+  constexpr int PF = KSTEPS < 8 ? KSTEPS : 8;
+  static_assert(KSTEPS % PF == 0, "whole trips of PF k-steps");
+  const int lane = threadIdx.x & 31;
+  uint4 b[PF];
+#pragma unroll
+  for (int i = 0; i < PF; ++i) b[i] = __ldg(Bp + i * 32 + lane);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][tile][e] = 0.f;
+  const uint32_t a0 = smem_addr(sA + (lane & 15) * lda + (lane >> 4) * 4);
+#pragma unroll 1
+  for (int k0 = 0; k0 < KSTEPS; k0 += PF) {
+#pragma unroll
+    for (int f = 0; f < PF; f += KF_F32) {
+      float d[MT][2][4] = {};
+#pragma unroll
+      for (int i = f; i < f + KF_F32; ++i) {
+        const int ks = k0 + i;
+        const uint4 bb = b[i];
+        if (ks + PF < KSTEPS) b[i] = __ldg(Bp + (ks + PF) * 32 + lane);
+        uint32_t bh[4], bl[4];  // n8 tile 0's (b0, b1), then tile 1's
+        split_tf32(__uint_as_float(bb.x), bh[0], bl[0]);
+        split_tf32(__uint_as_float(bb.y), bh[1], bl[1]);
+        split_tf32(__uint_as_float(bb.z), bh[2], bl[2]);
+        split_tf32(__uint_as_float(bb.w), bh[3], bl[3]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t a[4], ah[4], al[4];
+          ldmatrix_x4(a, a0 + (mt * 16 * lda + ks * 8) * 4);
+          split_tf32(a, ah, al);
+          mma_3xtf32(d[mt][0], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma_3xtf32(d[mt][1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        add_fragment(acc[mt][0], d[mt][0]);
+        add_fragment(acc[mt][1], d[mt][1]);
+      }
+    }
+  }
+}
+
+// one f32 pair to the same shared-memory address of every CTA in the cluster
+__device__ __forceinline__ void cluster_store_f32(cg::cluster_group& cluster, float* p, float v0,
+                                                  float v1) {
+  const float2 v = make_float2(v0, v1);
+#pragma unroll
+  for (int q = 0; q < HEADS; ++q) *cluster.map_shared_rank(reinterpret_cast<float2*>(p), q) = v;
+}
+
+// rows [row0, row0 + BR) x C of X into an f32 tile, zero beyond nrows
+__device__ __forceinline__ void load_rows_f32(float* sA, int lda, const float* __restrict__ X,
+                                              int row0, int nrows) {
+  for (int i = threadIdx.x; i < BR * C / 4; i += NT) {
+    const int r = i / (C / 4), c4 = i % (C / 4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < nrows)
+      v = __ldg(reinterpret_cast<const float4*>(X + (size_t)(row0 + r) * C) + c4);
+    *reinterpret_cast<float4*>(sA + r * lda + 4 * c4) = v;
+  }
+}
+
+// QKV = X Wqkv + bqkv (3xTF32): a 32-row x 128-column tile per CTA, one n16
+// column block per warp. Column tiles 0-1 (Q) take X's rows into QX, tiles
+// 2-5 (K, V) S's rows into QS; the stacked layer passes X = S.
+__global__ void __launch_bounds__(NT)
+qkv_f32_kernel(const float* __restrict__ X, int nrows_x, const float* __restrict__ S,
+               int nrows_s, const uint4* __restrict__ Wqkv, const float* __restrict__ bqkv,
+               float* __restrict__ QX, float* __restrict__ QS) {
+  __shared__ __align__(16) float sA[BR * LDXF];
+  const bool q_cols = blockIdx.x < C / 128;
+  const int nrows = q_cols ? nrows_x : nrows_s;
+  float* QKV = q_cols ? QX : QS;
+  const int row0 = blockIdx.y * BR;
+  if (row0 >= nrows) return;  // the shorter set's row tiles past its end
+  load_rows_f32(sA, LDXF, q_cols ? X : S, row0, nrows);
+  __syncthreads();
+  const int nb = blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
+  float acc[2][2][4];
+  warp_gemm_f32<2, C / 8>(acc, sA, LDXF, Wqkv + (size_t)nb * (C / 8) * 32);
+  for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+    const int row = row0 + r, col = 16 * nb + c;
+    if (row < nrows)
+      *reinterpret_cast<float2*>(QKV + (size_t)row * 3 * C + col) =
+          make_float2(v0 + bqkv[col], v1 + bqkv[col + 1]);
+  });
+}
+
+// Chunk t of the f32 attention's two passes over n chunks into ring slot t %
+// STAGES_F32: K rows (pass 1, t < n) or K and V rows (pass 2) of keys [c0, c0
+// + CK_F32) of head h's source, zero past K, and the chunk's source mask; one
+// cp.async group per chunk (an empty one past the last chunk).
+__device__ __forceinline__ void issue_chunk_f32(unsigned char* ring, int t, int n,
+                                                const float* s_rows,
+                                                const float* __restrict__ src_mask, int K) {
+  if (t < 2 * n) {
+    const bool pass2 = t >= n;
+    const int c0 = (pass2 ? t - n : t) * CK_F32;
+    auto* sK = reinterpret_cast<float*>(ring + (t % STAGES_F32) * STAGE_BYTES_F32);
+    float* sV = sK + CK_F32 * LDKF;
+    float* sM = sV + CK_F32 * LDKF;
+    for (int i = threadIdx.x; i < CK_F32 * (DH / 4); i += NT) {
+      const int s = i >> 4, c = (i & 15) * 4;
+      const bool ok = c0 + s < K;
+      const float* row = s_rows + (size_t)(ok ? c0 + s : 0) * 3 * C;
+      cp_async16_zfill(smem_addr(sK + s * LDKF + c), row + C + c, ok);
+      if (pass2) cp_async16_zfill(smem_addr(sV + s * LDKF + c), row + 2 * C + c, ok);
+    }
+    for (int s = threadIdx.x; s < CK_F32; s += NT) {
+      const bool ok = c0 + s < K;
+      cp_async4_zfill(smem_addr(sM + s), src_mask + (ok ? c0 + s : 0), ok);
+    }
+  }
+  cp_async_commit();
+}
+
+// This warp's logits against keys [KGW_F32 kg, KGW_F32 (kg + 1)) of the chunk at
+// sK (keys c0..): l[tile][e] is query row g + 8 (e >> 1) of the warp's m16
+// tile, key KGW_F32 kg + 8 tile + 2 (lane & 3) + (e & 1) of the chunk; scaled,
+// -1e9 on masked keys, -inf past K. K's B fragments come by ldmatrix from its
+// rows (keys g, dimensions t and t + 4), two n8 tiles per ldmatrix. Both
+// passes compute the same bits.
+__device__ __forceinline__ void warp_logits_f32(float (&l)[JT_F32][4], const float* sK,
+                                                const float* sM,
+                                                const uint32_t (&qh)[DH / 8][4],
+                                                const uint32_t (&ql)[DH / 8][4], int kg, int c0,
+                                                int K) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t kb0 = smem_addr(
+      sK + (KGW_F32 * kg + (lane & 7) + ((lane >> 4) << 3)) * LDKF + ((lane >> 3) & 1) * 4);
+  float acc[JT_F32][4] = {};
+#pragma unroll
+  for (int f = 0; f < DH / 8; f += KF_F32) {
+    float d[JT_F32][4] = {};
+#pragma unroll
+    for (int ks = f; ks < f + KF_F32; ++ks)
+#pragma unroll
+      for (int jj = 0; jj < JT_F32 / 2; ++jj) {  // n16 blocks of keys
+        uint32_t kb[4], kh[4], kl[4];
+        ldmatrix_x4(kb, kb0 + (16 * jj * LDKF + ks * 8) * 4);
+        split_tf32(kb, kh, kl);
+        mma_3xtf32(d[2 * jj], qh[ks], ql[ks], kh[0], kh[1], kl[0], kl[1]);
+        mma_3xtf32(d[2 * jj + 1], qh[ks], ql[ks], kh[2], kh[3], kl[2], kl[3]);
+      }
+#pragma unroll
+    for (int tile = 0; tile < JT_F32; ++tile) add_fragment(acc[tile], d[tile]);
+  }
+#pragma unroll
+  for (int tile = 0; tile < JT_F32; ++tile)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int s = KGW_F32 * kg + 8 * tile + 2 * (lane & 3) + (e & 1);
+      l[tile][e] = c0 + s < K ? (sM[s] > 0.f ? acc[tile][e] * kInvSqrtDh : -1e9f) : -INFINITY;
+    }
+}
+
+// Head h's f32 attention of the 32-query tile over all K source keys, K and V
+// streamed (see the notes at the top), written into columns [64 h, 64 h + 64)
+// of every cluster CTA's message tile sMsg. Warp w owns the query rows of m16
+// tile w / KG and keys [KGW_F32 (w % KG), +KGW_F32) of every chunk. Contains the cluster
+// barrier after which writes to the other CTAs' shared memory are safe.
+__device__ __forceinline__ void attention_f32(unsigned char* region, float* sMsg,
+                                              const float* q_rows, const float* s_rows,
+                                              const float* __restrict__ src_mask, int q0,
+                                              int Kq, int K, int h, cg::cluster_group& cluster) {
+  auto* sQ = reinterpret_cast<float*>(region);  // BR x LDKF
+  unsigned char* ring = region + BR * LDKF * 4;  // STAGES_F32 x (K, V, mask)
+  auto* sRed = reinterpret_cast<float2*>(ring + STAGES_F32 * STAGE_BYTES_F32);  // KG x BR
+  auto* sO = reinterpret_cast<float*>(ring);  // (BR / 16) x KG x 16 x LDO, once the ring drains
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int mt = warp / KG, kg = warp % KG, g = lane >> 2, tq = lane & 3;
+  const int n = (K + CK_F32 - 1) / CK_F32;
+
+  for (int i = tid; i < BR * (DH / 4); i += NT) {
+    const int r = i >> 4, c = (i & 15) * 4;
+    const bool ok = q0 + r < Kq;
+    cp_async16_zfill(smem_addr(sQ + r * LDKF + c), q_rows + (size_t)(ok ? q0 + r : 0) * 3 * C + c,
+                     ok);
+  }
+#pragma unroll
+  for (int t = 0; t < STAGES_F32 - 1; ++t) issue_chunk_f32(ring, t, n, s_rows, src_mask, K);
+
+  uint32_t qh[DH / 8][4], ql[DH / 8][4];  // the warp's Q rows, split once
+  // rows g, g + 8: running max and sum of exp (pass 1), then the final max
+  // and the sum's reciprocal (pass 2)
+  float rmax[2] = {-INFINITY, -INFINITY}, rsum[2] = {0.f, 0.f}, rinv[2] = {0.f, 0.f};
+  float o[DH / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < DH / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nb][e] = 0.f;
+
+  for (int t = 0; t < 2 * n; ++t) {
+    cp_async_wait_group<STAGES_F32 - 2>();
+    __syncthreads();  // chunk t landed; every warp is done with chunk t - 1's slot
+    issue_chunk_f32(ring, t + STAGES_F32 - 1, n, s_rows, src_mask, K);
+    if (t == 0) {
+#pragma unroll
+      for (int ks = 0; ks < DH / 8; ++ks) {
+        uint32_t a[4];
+        ldmatrix_x4(a, smem_addr(sQ + (16 * mt + (lane & 15)) * LDKF + 8 * ks + (lane >> 4) * 4));
+        split_tf32(a, qh[ks], ql[ks]);
+      }
+    }
+    if (t == n) {  // the four key groups' (max, sum) of each row, merged in order
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = 16 * mt + g + 8 * hr;
+        float m = -INFINITY;
+#pragma unroll
+        for (int q = 0; q < KG; ++q) m = fmaxf(m, sRed[q * BR + row].x);
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < KG; ++q) {
+          const float2 p = sRed[q * BR + row];
+          s += p.x == -INFINITY ? 0.f : p.y * expf(p.x - m);
+        }
+        rmax[hr] = m;
+        rinv[hr] = 1.f / s;
+      }
+    }
+    const unsigned char* slot = ring + (t % STAGES_F32) * STAGE_BYTES_F32;
+    const auto* sK = reinterpret_cast<const float*>(slot);
+    const float* sV = sK + CK_F32 * LDKF;
+    const float* sM = sV + CK_F32 * LDKF;
+    float l[JT_F32][4];
+    warp_logits_f32(l, sK, sM, qh, ql, kg, (t < n ? t : t - n) * CK_F32, K);
+    if (t < n) {  // pass 1: fold the chunk into the running (max, sum) of rows g, g + 8
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float cm = -INFINITY;
+#pragma unroll
+        for (int tile = 0; tile < JT_F32; ++tile)
+          cm = fmaxf(cm, fmaxf(l[tile][2 * hr], l[tile][2 * hr + 1]));
+        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 1));
+        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 2));
+        const float m = fmaxf(rmax[hr], cm);
+        const float base = m == -INFINITY ? 0.f : m;  // a slice of padding keys only
+        float e = 0.f;
+#pragma unroll
+        for (int tile = 0; tile < JT_F32; ++tile)
+          e += expf(l[tile][2 * hr] - base) + expf(l[tile][2 * hr + 1] - base);
+        e += __shfl_xor_sync(0xffffffffu, e, 1);
+        e += __shfl_xor_sync(0xffffffffu, e, 2);
+        rsum[hr] = rsum[hr] * expf(rmax[hr] - base) + e;
+        rmax[hr] = m;
+      }
+      if (t == n - 1 && tq == 0) {
+        sRed[kg * BR + 16 * mt + g] = make_float2(rmax[0], rsum[0]);
+        sRed[kg * BR + 16 * mt + g + 8] = make_float2(rmax[1], rsum[1]);
+      }
+    } else {  // pass 2: P = exp(l - max) * (1 / sum) straight from the logits into P V
+      uint32_t ah[JT_F32][4], al[JT_F32][4];
+#pragma unroll
+      for (int tile = 0; tile < JT_F32; ++tile) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[e] = expf(l[tile][e] - rmax[e >> 1]) * rinv[e >> 1];
+        // k slot tq <-> key 2 tq, slot tq + 4 <-> key 2 tq + 1: the A fragment
+        // (rows g, g + 8) is the accumulator's column pair, reordered
+        const uint32_t pa[4] = {__float_as_uint(p[0]), __float_as_uint(p[2]),
+                                __float_as_uint(p[1]), __float_as_uint(p[3])};
+        split_tf32(pa, ah[tile], al[tile]);
+      }
+#pragma unroll
+      for (int f = 0; f < JT_F32; f += KF_F32)
+#pragma unroll
+        for (int nb = 0; nb < DH / 8; ++nb) {
+          float d[4] = {};
+#pragma unroll
+          for (int tile = f; tile < f + KF_F32; ++tile) {
+            const float* vrow = sV + (KGW_F32 * kg + 8 * tile + 2 * tq) * LDKF + g + 8 * nb;
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(vrow[0], bh0, bl0);
+            split_tf32(vrow[LDKF], bh1, bl1);
+            mma_3xtf32(d, ah[tile], al[tile], bh0, bh1, bl0, bl1);
+          }
+          add_fragment(o[nb], d);
+        }
+    }
+  }
+  cp_async_wait_group<0>();  // the empty trailing groups
+  __syncthreads();           // every warp is done with the ring: its partials take the ring's place
+  float* ow = sO + (mt * KG + kg) * 16 * LDO;
+#pragma unroll
+  for (int nb = 0; nb < DH / 8; ++nb)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      *reinterpret_cast<float2*>(ow + (g + 8 * hr) * LDO + 8 * nb + 2 * tq) =
+          make_float2(o[nb][2 * hr], o[nb][2 * hr + 1]);
+  // the partials are visible to the CTA, and every CTA of the cluster is
+  // running before any writes to another's shared memory
+  cluster.sync();
+  for (int p = tid; p < BR * DH / 2; p += NT) {
+    const int row = p / (DH / 2), col = 2 * (p % (DH / 2));
+    const float* src = sO + ((row / 16) * KG * 16 + row % 16) * LDO + col;
+    float2 acc = *reinterpret_cast<const float2*>(src);
+#pragma unroll
+    for (int q = 1; q < KG; ++q) {
+      const float2 v = *reinterpret_cast<const float2*>(src + q * 16 * LDO);
+      acc.x += v.x;
+      acc.y += v.y;
+    }
+    cluster_store_f32(cluster, sMsg + row * LDXF + h * DH + col, acc.x, acc.y);
+  }
+}
+
+// The rest of the f32 layer for one (set, 32-query tile), by a cluster of 4
+// CTAs; CTA h runs head h's attention, then column slice h of the merge, the
+// first and the second MLP weight, every product 3xTF32 (see the notes at the
+// top). Queries: Kq rows per set of X and QX; keys and values: K rows per set
+// of QS, of set (set + shift) mod nsets, under its mask (nsets, K).
+__global__ void __cluster_dims__(HEADS, 1, 1) __launch_bounds__(NT, 1)
+layer_f32_kernel(const float* __restrict__ X, const float* __restrict__ QX,
+                 const float* __restrict__ QS, const float* __restrict__ mask,
+                 const uint4* __restrict__ Wm, const float* __restrict__ bm,
+                 const uint4* __restrict__ W1, const float* __restrict__ b1,
+                 const float* __restrict__ s1, const float* __restrict__ t1,
+                 const uint4* __restrict__ W2, const float* __restrict__ b2,
+                 float* __restrict__ OUT, int nsets, int Kq, int K, int shift) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int h = (int)cluster.block_rank();
+  const int q0 = blockIdx.y * BR, set = blockIdx.z;
+  const int src = (set + shift) % nsets;
+  const int warp = threadIdx.x >> 5;
+
+  auto* sMsg = reinterpret_cast<float*>(smem);  // BR x LDXF, written by every CTA
+  unsigned char* region = smem + BR * LDXF * 4;
+  auto* sXM = reinterpret_cast<float*>(region);  // BR x LDHF: [x | merged msg]
+  float* sH = sXM + BR * LDHF;                   // BR x LDHF: MLP hidden
+
+  attention_f32(region, sMsg, QX + (size_t)set * Kq * 3 * C + h * DH,
+                QS + (size_t)src * K * 3 * C + h * DH, mask + (size_t)src * K, q0, Kq, K, h,
+                cluster);
+  __syncthreads();  // this CTA is done with the ring: the region takes the MLP tiles
+  load_rows_f32(sXM, LDHF, X + (size_t)set * Kq * C, q0, Kq);
+  cluster.sync();  // all four heads' messages are in every CTA's sMsg
+
+  {  // merged msg = msg Wm + bm, columns [64 h, 64 h + 64), into every [x | msg] tile
+    const int mt = warp >> 2, nb = 4 * h + (warp & 3);
+    float acc[1][2][4];
+    warp_gemm_f32<1, C / 8>(acc, sMsg + 16 * mt * LDXF, LDXF, Wm + (size_t)nb * (C / 8) * 32);
+    for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+      const int col = 16 * nb + c;
+      cluster_store_f32(cluster, sXM + (16 * mt + r) * LDHF + C + col, v0 + bm[col],
+                        v1 + bm[col + 1]);
+    });
+  }
+  cluster.sync();
+
+  {  // hidden = ReLU((concat[x, msg] W1 + b1) * s1 + t1), columns [128 h, 128 h + 128)
+    const int nb = 8 * h + warp;
+    float acc[2][2][4];
+    warp_gemm_f32<2, 2 * C / 8>(acc, sXM, LDHF, W1 + (size_t)nb * (2 * C / 8) * 32);
+    for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+      const int col = 16 * nb + c;
+      cluster_store_f32(cluster, sH + r * LDHF + col, bn_relu(v0 + b1[col], s1[col], t1[col]),
+                        bn_relu(v1 + b1[col + 1], s1[col + 1], t1[col + 1]));
+    });
+  }
+  cluster.sync();
+
+  {  // out = x + (hidden W2 + b2), columns [64 h, 64 h + 64)
+    const int mt = warp >> 2, nb = 4 * h + (warp & 3);
+    float acc[1][2][4];
+    warp_gemm_f32<1, 2 * C / 8>(acc, sH + 16 * mt * LDHF, LDHF,
+                                W2 + (size_t)nb * (2 * C / 8) * 32);
+    for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+      const int q = q0 + 16 * mt + r, col = 16 * nb + c;
+      if (q < Kq) {
+        const size_t o = ((size_t)set * Kq + q) * C + col;
+        const float2 xv = *reinterpret_cast<const float2*>(X + o);
+        *reinterpret_cast<float2*>(OUT + o) =
+            make_float2(xv.x + (v0 + b2[col]), xv.y + (v1 + b2[col + 1]));
+      }
+    });
+  }
+  // no CTA reads another's shared memory after the last cluster barrier
+}
+
 std::atomic<int> layer_bf16_smem_limits[kMaxDevices];
 std::atomic<int> layer_bf16_streamed_smem_limits[kMaxDevices];
 std::atomic<bool> streamed_carveout_set[kMaxDevices];
+std::atomic<int> layer_f32_smem_limits[kMaxDevices];
 
 }  // namespace
 
 RSPL_EXPORT const char* superglue_layer_error_string(int code) {
   if (code == kErrSmem)
-    return "K too large for the layer kernel's shared memory (ops/attention_cuda.MAX_K_BF16, "
-           "MAX_K_F32)";
+    return "K too large for the resident bf16 kernel's shared memory "
+           "(ops/attention_cuda.MAX_K_BF16)";
   return cudaGetErrorString((cudaError_t)code);
 }
 
 namespace {
-
-// the f32 mode's attention and MLP launches, after the QKV projection: rows
-// of X (nsets x Kq) attend over rows of QS (nsets x K) of set (set + shift)
-int f32_attend_mlp(const float* x, const float* qx, const float* qs, const float* mask,
-                   const void* wm, const void* bm, const void* w1, const void* b1,
-                   const void* s1, const void* t1, const void* w2, const void* b2, float* msg,
-                   float* out, int nsets, int Kq, int K, int shift, cudaStream_t st) {
-  const int attn_smem = (R * DH + CH * KS + R * K) * (int)sizeof(float);
-  if (attn_smem > kSmemLimit) return kErrSmem;
-  RSPL_RETURN_IF_ERROR(reserve_dynamic_smem((const void*)attn_kernel, attn_smem_limits, attn_smem));
-  const dim3 agrid((Kq + R - 1) / R, C / DH, nsets);
-  attn_kernel<<<agrid, NT, attn_smem, st>>>(qx, qs, mask, msg, nsets, Kq, K, shift);
-  RSPL_RETURN_IF_ERROR(cudaGetLastError());
-
-  const int nrows = nsets * Kq;
-  const int mlp_smem = (3 * R * C + R * 2 * C) * (int)sizeof(float);
-  RSPL_RETURN_IF_ERROR(reserve_dynamic_smem((const void*)mlp_kernel, mlp_smem_limits, mlp_smem));
-  mlp_kernel<<<(nrows + R - 1) / R, NT, mlp_smem, st>>>(
-      x, msg, static_cast<const float*>(wm), static_cast<const float*>(bm),
-      static_cast<const float*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(s1), static_cast<const float*>(t1),
-      static_cast<const float*>(w2), static_cast<const float*>(b2), out, nrows);
-  return (int)cudaGetLastError();
-}
 
 // the bf16 mode's two launches: Q of X's rows (nsets x Kq) into qx, K and V of
 // S's rows (nsets x K) into qs, then the layer kernel, with the whole logit
@@ -1023,29 +1289,47 @@ int bf16_layer(const float* x, const float* src, const float* mask, const void* 
   return (int)cudaGetLastError();
 }
 
+// the f32 mode's two launches: Q of X's rows (nsets x Kq) into qx, K and V of
+// S's rows (nsets x K) into qs, then the layer kernel, any K
+int f32_layer(const float* x, const float* src, const float* mask, const void* wqkv,
+              const void* bqkv, const void* wm, const void* bm, const void* w1, const void* b1,
+              const void* s1, const void* t1, const void* w2, const void* b2, float* qx,
+              float* qs, float* out, int nsets, int Kq, int K, int shift, cudaStream_t st) {
+  constexpr int smem = layer_f32_smem();
+  RSPL_RETURN_IF_ERROR(
+      reserve_dynamic_smem((const void*)layer_f32_kernel, layer_f32_smem_limits, smem));
+  const int nrows = nsets * (Kq > K ? Kq : K);
+  qkv_f32_kernel<<<dim3(3 * C / 128, (nrows + BR - 1) / BR), NT, 0, st>>>(
+      x, nsets * Kq, src, nsets * K, static_cast<const uint4*>(wqkv),
+      static_cast<const float*>(bqkv), qx, qs);
+  RSPL_RETURN_IF_ERROR(cudaGetLastError());
+  layer_f32_kernel<<<dim3(HEADS, (Kq + BR - 1) / BR, nsets), NT, smem, st>>>(
+      x, qx, qs, mask, static_cast<const uint4*>(wm), static_cast<const float*>(bm),
+      static_cast<const uint4*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(s1), static_cast<const float*>(t1),
+      static_cast<const uint4*>(w2), static_cast<const float*>(b2), out, nsets, Kq, K, shift);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// x (nsets, K, 256) f32; mask (nsets, K) f32 (1 valid, 0 padded);
-// wqkv (256, 768) = [Wq | Wk | Wv], bqkv (768,); wm (256, 256), bm (256,);
-// w1 (512, 512), b1, s1, t1 (512,); w2 (512, 256), b2 (256,);
-// scratch qkv (nsets*K, 768) and msg (nsets*K, 256); out (nsets, K, 256).
-// 4 heads of 64. cross != 0 attends to the other half of the stack.
+// f32 mode. x (nsets, K, 256) f32; mask (nsets, K) f32 (1 valid, 0 padded);
+// wqkv (256 x 768) = [Wq | Wk | Wv], wm (256 x 256), w1 (512 x 512), w2 (512 x
+// 256) packed by ops/attention_cuda.pack_tf32_b (f32); bqkv (768,), bm (256,),
+// b1, s1, t1 (512,), b2 (256,) f32; scratch qkv (nsets*K, 768) f32; out
+// (nsets, K, 256). 4 heads of 64. cross != 0 attends to the other half of
+// the stack. Two launches, any K.
 RSPL_EXPORT int superglue_layer_launch(const void* x, const void* mask, const void* wqkv,
                                        const void* bqkv, const void* wm, const void* bm,
                                        const void* w1, const void* b1, const void* s1,
                                        const void* t1, const void* w2, const void* b2,
-                                       void* qkv, void* msg, void* out, int nsets, int K,
-                                       int cross, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int nrows = nsets * K;
+                                       void* qkv, void* out, int nsets, int K, int cross,
+                                       void* stream) {
   const auto* xf = static_cast<const float*>(x);
   auto* q = static_cast<float*>(qkv);
-  qkv_kernel<0, 3><<<(nrows + R - 1) / R, NT, 0, st>>>(xf, static_cast<const float*>(wqkv),
-                                                       static_cast<const float*>(bqkv), q, nrows);
-  RSPL_RETURN_IF_ERROR(cudaGetLastError());
-  return f32_attend_mlp(xf, q, q, static_cast<const float*>(mask), wm, bm, w1, b1, s1, t1, w2,
-                        b2, static_cast<float*>(msg), static_cast<float*>(out), nsets, K, K,
-                        cross ? nsets / 2 : 0, st);
+  return f32_layer(xf, xf, static_cast<const float*>(mask), wqkv, bqkv, wm, bm, w1, b1, s1, t1,
+                   w2, b2, q, q, static_cast<float*>(out), nsets, K, K, cross ? nsets / 2 : 0,
+                   (cudaStream_t)stream);
 }
 
 // bf16 mode. x (nsets, K, 256) f32; mask (nsets, K) f32 (1 valid, 0 padded);
@@ -1068,35 +1352,26 @@ RSPL_EXPORT int superglue_layer_bf16_launch(const void* x, const void* mask, con
 }
 
 // Two-set variant, f32 mode: x (B, M, 256) attends over src (B, N, 256) under
-// src_mask (B, N) f32. Scratch qkv_x (B*M, 768), whose Q columns are written,
-// qkv_s (B*N, 768), whose K and V columns are written (the same buffer when
-// src is x), msg (B*M, 256); out (B, M, 256). Weights as superglue_layer_launch.
+// src_mask (B, N) f32. Scratch qkv_x (B*M, 768) f32, whose Q columns are
+// written, qkv_s (B*N, 768) f32, whose K and V columns are written (the same
+// buffer when src is x); out (B, M, 256). Weights as superglue_layer_launch.
+// Two launches, any N.
 RSPL_EXPORT int superglue_layer_two_set_launch(const void* x, const void* src,
                                                const void* src_mask, const void* wqkv,
                                                const void* bqkv, const void* wm, const void* bm,
                                                const void* w1, const void* b1, const void* s1,
                                                const void* t1, const void* w2, const void* b2,
-                                               void* qkv_x, void* qkv_s, void* msg, void* out,
-                                               int B, int M, int N, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const auto* xf = static_cast<const float*>(x);
-  const auto* w = static_cast<const float*>(wqkv);
-  const auto* bias = static_cast<const float*>(bqkv);
-  auto* qx = static_cast<float*>(qkv_x);
-  auto* qs = static_cast<float*>(qkv_s);
-  qkv_kernel<0, 1><<<(B * M + R - 1) / R, NT, 0, st>>>(xf, w, bias, qx, B * M);
-  RSPL_RETURN_IF_ERROR(cudaGetLastError());
-  qkv_kernel<1, 2><<<(B * N + R - 1) / R, NT, 0, st>>>(static_cast<const float*>(src), w, bias,
-                                                       qs, B * N);
-  RSPL_RETURN_IF_ERROR(cudaGetLastError());
-  return f32_attend_mlp(xf, qx, qs, static_cast<const float*>(src_mask), wm, bm, w1, b1, s1, t1,
-                        w2, b2, static_cast<float*>(msg), static_cast<float*>(out), B, M, N, 0,
-                        st);
+                                               void* qkv_x, void* qkv_s, void* out, int B, int M,
+                                               int N, void* stream) {
+  return f32_layer(static_cast<const float*>(x), static_cast<const float*>(src),
+                   static_cast<const float*>(src_mask), wqkv, bqkv, wm, bm, w1, b1, s1, t1, w2,
+                   b2, static_cast<float*>(qkv_x), static_cast<float*>(qkv_s),
+                   static_cast<float*>(out), B, M, N, 0, (cudaStream_t)stream);
 }
 
 // Two-set variant, bf16 mode: as superglue_layer_two_set_launch with the
 // weights packed as superglue_layer_bf16_launch takes them and bf16 scratch
-// qkv_x (B*M, 768), qkv_s (B*N, 768); no msg scratch; streamed as
+// qkv_x (B*M, 768), qkv_s (B*N, 768); streamed as
 // superglue_layer_bf16_launch. Two launches.
 RSPL_EXPORT int superglue_layer_two_set_bf16_launch(const void* x, const void* src,
                                                     const void* src_mask, const void* wqkv,

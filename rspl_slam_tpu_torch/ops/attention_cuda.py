@@ -12,9 +12,11 @@ versions (:func:`superglue_layer_plain`,
   models/superglue.py rounds it, products accumulate in f32; two launches
   on the tensor cores (either variant).
 - ``compute_dtype=torch.float32``: f32 throughout, the function of the
-  Pallas kernel ``attention_layer_fused``; three FMA launches (four for
-  the two-set variant: Q and K/V are projected apart); sources up to
-  :data:`MAX_K_F32`.
+  Pallas kernel ``attention_layer_fused``; every product on the tensor
+  cores as 3xTF32 (each operand split into two TF32 halves by
+  :func:`split_tf32`, three products summed in f32), two launches in
+  either variant, K and V streamed through a ring of
+  :data:`F32_CHUNK`-key chunks: any source length.
 
 The bf16 mode has two attention kernels, chosen by the source length
 (:func:`bf16_route`): up to :data:`MAX_K_BF16` the whole logit row sits in
@@ -31,12 +33,12 @@ import torch
 
 from rspl_slam_tpu_torch.ops import cuda_build
 
-__all__ = ["CHUNK", "KEY_GROUPS", "LAYER_KEYS", "MAX_K_BF16", "MAX_K_F32", "STAGES",
-           "bf16_route", "bf16_smem_bytes",
-           "bf16_streamed_smem_bytes", "f32_attn_smem_bytes", "layer_scratch", "pack_layer",
-           "pack_mma_b", "round_operand", "superglue_layer",
-           "superglue_layer_plain", "superglue_layer_two_set", "superglue_layer_two_set_plain",
-           "unpack_mma_b"]
+__all__ = ["CHUNK", "F32_CHUNK", "F32_STAGES", "KEY_GROUPS", "LAYER_KEYS", "MAX_K_BF16",
+           "STAGES", "bf16_route", "bf16_smem_bytes", "bf16_streamed_smem_bytes",
+           "f32_smem_bytes", "layer_scratch", "pack_layer", "pack_mma_b", "pack_tf32_b",
+           "round_operand", "split_tf32", "superglue_layer", "superglue_layer_plain",
+           "superglue_layer_two_set", "superglue_layer_two_set_plain", "unpack_mma_b",
+           "unpack_tf32_b"]
 
 launches = 0  # layers run by the bf16 kernels (the main path)
 f32_launches = 0  # layers run by the f32 kernels
@@ -46,11 +48,12 @@ streamed_launches = 0  # layers (stacked or two-set) run by the streamed bf16 ke
 
 # the layer tensors each mode's kernels read, in the launchers' order
 LAYER_KEYS = {
-    torch.float32: ("wqkv", "bqkv", "wm", "bm", "w1", "b1", "s1", "t1", "w2", "b2"),
+    torch.float32: ("wqkv_tf32", "bqkv", "wm_tf32", "bm", "w1_tf32", "b1", "s1", "t1",
+                    "w2_tf32", "b2"),
     torch.bfloat16: ("wqkv_mma", "bqkv", "wm_mma", "bm", "w1_mma", "b1", "s1", "t1",
                      "w2_mma", "b2"),
 }
-ROWS = 32  # query rows per cluster of the bf16 kernel (csrc/superglue_layer.cu)
+ROWS = 32  # query rows per cluster of either mode's layer kernel (csrc/superglue_layer.cu)
 
 
 def bf16_smem_bytes(K: int) -> int:
@@ -93,14 +96,37 @@ def bf16_route(K: int) -> str:
     return "resident" if K <= MAX_K_BF16 else "streamed"
 
 
-def f32_attn_smem_bytes(K: int) -> int:
-    """Dynamic shared memory of the f32 mode's attention kernel at K
-    source keys: 16 query rows of Q, a 64-key chunk of K or V (row stride
-    65) and the 16 logit rows of K."""
-    return 4 * (16 * 64 + 64 * 65 + 16 * K)
+F32_CHUNK = 64  # source keys per chunk of the f32 layer kernel
+F32_STAGES = 2  # chunks in flight in its ring
 
 
-MAX_K_F32 = (cuda_build.SMEM_LIMIT // 4 - 16 * 64 - 64 * 65) // 16
+def f32_smem_bytes() -> int:
+    """Dynamic shared memory of the f32 layer kernel, whatever the source
+    length: the f32 message tile (row stride 260), then the larger of the
+    attention buffers (Q rows of the head, stride 68; a ring of
+    :data:`F32_STAGES` chunks of K rows, V rows and the chunk's mask; the
+    key groups' (max, sum) per row) and the two 512-wide MLP tiles (stride
+    516) — the layout of csrc/superglue_layer.cu."""
+    msg = ROWS * (256 + 4) * 4
+    stage = 2 * F32_CHUNK * (64 + 4) * 4 + F32_CHUNK * 4
+    attn = ROWS * (64 + 4) * 4 + F32_STAGES * stage + KEY_GROUPS * ROWS * 2 * 4
+    mlp = 2 * ROWS * (512 + 4) * 4
+    return msg + max(attn, mlp)
+
+
+def split_tf32(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of f32 ``a`` as the f32 kernels split an operand for 3xTF32:
+    hi = tf32(a), lo = tf32(a - hi), each rounded to 10 mantissa bits to
+    nearest with ties away from zero (``cvt.rna.tf32.f32``), as f32 values.
+    hi + lo is within 2^-22 of a, relative; the kernels sum lo·hi + hi·lo +
+    hi·hi in f32."""
+    def rna(x):
+        bits = x.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    a = a.float()
+    hi = rna(a)
+    return hi, rna(a - hi)
 
 
 def round_operand(a, compute_dtype):
@@ -147,13 +173,51 @@ def unpack_mma_b(p: torch.Tensor) -> torch.Tensor:
     return w
 
 
+def _tf32_b_index(Kd: int, N: int, device):
+    """(k, n) of every element of :func:`pack_tf32_b`'s layout, each of
+    shape (N/16, Kd/8, 32, 4)."""
+    lane = torch.arange(32, device=device)
+    e = torch.arange(4, device=device)
+    g, t = lane // 4, lane % 4
+    kk = t[:, None] + 4 * (e % 2)[None]  # (32, 4)
+    nn = g[:, None] + 8 * (e // 2)[None]
+    shape = (N // 16, Kd // 8, 32, 4)
+    k = 8 * torch.arange(Kd // 8, device=device)[None, :, None, None] + kk
+    n = 16 * torch.arange(N // 16, device=device)[:, None, None, None] + nn
+    return k.expand(shape), n.expand(shape)
+
+
+def pack_tf32_b(w: torch.Tensor) -> torch.Tensor:
+    """A (Kd, N) weight (``x @ w``) → f32 in the register order of
+    ``mma.sync.m16n8k8``'s tf32 B operand: (N/16, Kd/8, 32 lanes, 4). Lane
+    4g + t of n16 block j, k-step s holds (k, n) = (8s + t, 16j + g), (8s +
+    t + 4, 16j + g), (8s + t, 16j + 8 + g), (8s + t + 4, 16j + 8 + g): one
+    16-byte load per lane and k-step feeds two n8 tiles. The values stay
+    f32; the kernels split them for 3xTF32 in registers."""
+    Kd, N = w.shape
+    if Kd % 8 or N % 16:
+        raise ValueError(f"pack_tf32_b takes Kd % 8 == 0 and N % 16 == 0, got {tuple(w.shape)}")
+    k, n = _tf32_b_index(Kd, N, w.device)
+    return w.float()[k, n].contiguous()
+
+
+def unpack_tf32_b(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_tf32_b`: the (Kd, N) f32 weight."""
+    Kd, N = 8 * p.shape[1], 16 * p.shape[0]
+    k, n = _tf32_b_index(Kd, N, p.device)
+    w = torch.empty((Kd, N), dtype=p.dtype, device=p.device)
+    w[k, n] = p
+    return w
+
+
 def pack_layer(layer: dict, device) -> dict:
     """JAX-layout layer params (q/k/v/merge {w (C, C), b}, mlp [{w, b,
     bn_scale, bn_shift}] × 2) → contiguous tensors on ``device``: f32
     wqkv = [Wq | Wk | Wv] (C, 3C), the merge, the (2C, 2C) first MLP weight
     (rows [:C] act on x, [C:] on the message) and the second, with their
-    biases and folded BN; and each weight once more in bf16, packed by
-    :func:`pack_mma_b` for the tensor-core kernel (``*_mma``)."""
+    biases and folded BN; and each weight twice more in the kernels'
+    register orders: bf16 by :func:`pack_mma_b` for the bf16 mode
+    (``*_mma``), f32 by :func:`pack_tf32_b` for the f32 mode (``*_tf32``)."""
     def t(a):
         return torch.as_tensor(a, dtype=torch.float32).to(device).contiguous()
 
@@ -169,6 +233,7 @@ def pack_layer(layer: dict, device) -> dict:
     }
     for w in ("wqkv", "wm", "w1", "w2"):
         p[f"{w}_mma"] = pack_mma_b(p[w])
+        p[f"{w}_tf32"] = pack_tf32_b(p[w])
     return p
 
 
@@ -235,8 +300,8 @@ def superglue_layer_two_set_plain(x, source, src_mask, layer: dict, num_heads: i
 
 def layer_scratch(x, masks, compute_dtype=torch.float32):
     """What every layer of one match shares on the card: the masks as f32
-    (left out where ``masks`` is None) and the kernels' scratch (QKV, and
-    the f32 mode's message). Made once per ``match_pair``: for the stacked
+    (left out where ``masks`` is None) and the kernels' QKV scratch in the
+    mode's dtype. Made once per ``match_pair``: for the stacked
     (2B, K, C) x, or for each set (B, K, C) of the two-set path, whose QKV
     rows take the set's Q columns where it queries and its K and V columns
     where it is the source. None on the CPU."""
@@ -246,8 +311,6 @@ def layer_scratch(x, masks, compute_dtype=torch.float32):
     s = {"qkv": torch.empty((n2 * K, 3 * C), dtype=compute_dtype, device=x.device)}
     if masks is not None:
         s["mask"] = masks.to(torch.float32).contiguous()
-    if compute_dtype == torch.float32:
-        s["msg"] = torch.empty((n2 * K, C), dtype=torch.float32, device=x.device)
     return s
 
 
@@ -255,9 +318,9 @@ def _check_layer_args(what: str, x, layer: dict, num_heads: int, compute_dtype, 
                       streamed: bool):
     """The checks both K2 wrappers make: C = 256 with 4 heads, a mode the
     kernels have, source length K within the chosen kernel's shared memory
-    (the resident bf16 kernel's :data:`MAX_K_BF16`, the f32 mode's
-    :data:`MAX_K_F32`; the streamed bf16 kernel takes any K), x and the
-    mode's layer tensors on the card."""
+    (the resident bf16 kernel's :data:`MAX_K_BF16`; the streamed bf16
+    kernel and the f32 kernel take any K), x and the mode's layer tensors
+    on the card."""
     C = x.shape[-1]
     if C != 256 or num_heads != 4:
         raise ValueError(f"{what} kernel takes C = 256 with 4 heads; "
@@ -266,9 +329,6 @@ def _check_layer_args(what: str, x, layer: dict, num_heads: int, compute_dtype, 
         raise ValueError(f"{what} kernel computes in float32 or bfloat16, not {compute_dtype}")
     if compute_dtype == torch.bfloat16 and not streamed and K > MAX_K_BF16:
         raise ValueError(f"{what} resident bf16 kernel: K = {K} exceeds {MAX_K_BF16} "
-                         f"({cuda_build.SMEM_LIMIT} B of shared memory per CTA)")
-    if compute_dtype == torch.float32 and K > MAX_K_F32:
-        raise ValueError(f"{what} f32 kernel: K = {K} exceeds {MAX_K_F32} "
                          f"({cuda_build.SMEM_LIMIT} B of shared memory per CTA)")
     cuda_build.require_cuda(x, "x", torch.float32)
     for key in LAYER_KEYS[compute_dtype]:
@@ -287,7 +347,7 @@ def superglue_layer(x, masks, layer: dict, cross: bool, num_heads: int = 4,
     ``layer`` from :func:`pack_layer`, ``scratch`` from
     :func:`layer_scratch` (made here when None). The kernels take C = 256
     with 4 heads; the bf16 mode's attention kernel is :func:`bf16_route`'s,
-    the f32 mode takes K ≤ :data:`MAX_K_F32`."""
+    the f32 mode takes any K."""
     if x.device.type == "cpu":
         return superglue_layer_plain(x, masks, layer, cross, num_heads, compute_dtype)
     return _launch_layer(x, masks, layer, cross, num_heads, compute_dtype, scratch,
@@ -320,9 +380,8 @@ def _launch_layer(x, masks, layer, cross, num_heads, compute_dtype, scratch, str
             else:
                 launches += 1
     else:
-        cuda_build.require_cuda(scratch["msg"], "msg scratch", torch.float32, (n2 * K, C))
         cuda_build.launch("superglue_layer", "superglue_layer_launch", x, scratch["mask"],
-                          *(layer[k] for k in keys), scratch["qkv"], scratch["msg"], out,
+                          *(layer[k] for k in keys), scratch["qkv"], out,
                           n2, K, int(bool(cross)), cuda_build.stream_of(x))
         with cuda_build.count_lock:
             f32_launches += 1
@@ -375,10 +434,9 @@ def _launch_two_set(x, source, src_mask, layer, num_heads, compute_dtype, scratc
             else:
                 two_set_launches += 1
     else:
-        cuda_build.require_cuda(sx["msg"], "x msg scratch", torch.float32, (B * M, C))
         cuda_build.launch("superglue_layer", "superglue_layer_two_set_launch", x, source,
                           ss["mask"], *(layer[k] for k in keys), sx["qkv"], ss["qkv"],
-                          sx["msg"], out, B, M, N, cuda_build.stream_of(x))
+                          out, B, M, N, cuda_build.stream_of(x))
         with cuda_build.count_lock:
             two_set_f32_launches += 1
     return out

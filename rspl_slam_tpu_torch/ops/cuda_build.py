@@ -52,9 +52,9 @@ HOST_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-pthread", "-ffp-contrac
 # C signatures: "p" = pointer / stream (c_void_p), "i" = c_int
 SIGNATURES = {
     "conv_stem": {"conv_stem_launch": "pppppp" + "iii" + "p"},
-    "superglue_layer": {"superglue_layer_launch": "p" * 15 + "iii" + "p",
+    "superglue_layer": {"superglue_layer_launch": "p" * 14 + "iii" + "p",
                         "superglue_layer_bf16_launch": "p" * 14 + "iiii" + "p",
-                        "superglue_layer_two_set_launch": "p" * 17 + "iii" + "p",
+                        "superglue_layer_two_set_launch": "p" * 16 + "iii" + "p",
                         "superglue_layer_two_set_bf16_launch": "p" * 16 + "iiii" + "p"},
     "sinkhorn": {"sinkhorn_launch": "pppp" + "iiii" + "iii" + "p",
                  "sinkhorn_global_clusters": "p",

@@ -148,6 +148,37 @@ def test_two_set_layers_on_equal_sets_are_the_stacked_kernel(cuda_device, bf16):
             assert torch.equal(got, stacked[s:s + 1])
 
 
+# past the f32 mode's old 3308-key ceiling and at a ragged K: stacked (M ==
+# N, self and cross) and two-set, a source past the old ceiling either way
+@pytest.mark.parametrize("M,N", [(3309, 3309), (4096, 4096), (1100, 1100), (800, 4096),
+                                 (4096, 3309)])
+def test_superglue_layer_f32_takes_any_k(cuda_device, M, N):  # noqa: F811
+    """K2's f32 mode (3xTF32 on the tensor cores, K and V streamed in 64-key
+    chunks) against its plain version, with masked keys, at the f32 kernel
+    line's rtol, atol 1e-5 (f32 accuracy: one TF32 product alone would miss
+    it); a second run equal bit for bit."""
+    layer = attention_cuda.pack_layer(_layer(np.random.default_rng(9)), cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(M + 7 * N)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    if M == N:
+        x = torch.randn((2, M, 256), generator=g, device=cuda_device)
+        masks = torch.arange(M, device=cuda_device)[None] < torch.tensor(
+            [[M], [M - M // 6]], device=cuda_device)
+        for cross in (False, True):
+            got = attention_cuda.superglue_layer(x, masks, layer, cross)
+            assert torch.equal(attention_cuda.superglue_layer(x, masks, layer, cross), got)
+            ref = attention_cuda.superglue_layer_plain(x, masks, layer, cross)
+            torch.testing.assert_close(got, ref, **tol)
+    else:
+        x = torch.randn((1, M, 256), generator=g, device=cuda_device)
+        src = torch.randn((1, N, 256), generator=g, device=cuda_device)
+        m_src = torch.arange(N, device=cuda_device)[None] < N - N // 5
+        got = attention_cuda.superglue_layer_two_set(x, src, m_src, layer)
+        assert torch.equal(attention_cuda.superglue_layer_two_set(x, src, m_src, layer), got)
+        ref = attention_cuda.superglue_layer_two_set_plain(x, src, m_src, layer)
+        torch.testing.assert_close(got, ref, **tol)
+
+
 def test_superglue_layer_two_set_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
     """Shapes, types and sources the two-set kernels cannot take raise."""
     layer = attention_cuda.pack_layer(_layer(np.random.default_rng(0)), cuda_device)
@@ -161,9 +192,6 @@ def test_superglue_layer_two_set_refuses_what_it_does_not_take(cuda_device):  # 
         src = torch.zeros((1, attention_cuda.MAX_K_BF16 + 16, 256), device=cuda_device)
         m = torch.ones(src.shape[:2], dtype=torch.bool, device=cuda_device)
         attention_cuda._launch_two_set(x, src, m, layer, 4, torch.bfloat16, None, False)
-    with pytest.raises(ValueError, match="exceeds"):  # the f32 mode's ceiling
-        run(torch.zeros((1, attention_cuda.MAX_K_F32 + 1, 256), device=cuda_device),
-            dt=torch.float32)
     with pytest.raises(ValueError):  # a source of another batch
         run(torch.zeros((2, 17, 256), device=cuda_device))
     with pytest.raises(ValueError):  # a source of another width

@@ -7,7 +7,9 @@ over persistent clusters of 8 whose partials merge per cluster, then over
 the clusters. K1 (csrc/conv_stem.cu) takes its weights packed once by
 ``pack_weights``. K2's bf16 mode (csrc/superglue_layer.cu) holds a whole
 logit row per query in shared memory, which bounds its K; past it the
-streamed kernel's softmax folds key groups of chunks. The CUDA kernels
+streamed kernel's softmax folds key groups of chunks. K2's f32 mode always
+streams, and multiplies on the tensor cores as 3xTF32 (``split_tf32``).
+The CUDA kernels
 themselves run only on the card (tests/test_torch_cuda.py); these tests
 hold the plans, the merge orders and the packing against the plain
 versions, which tests/test_torch_kernels.py holds against the JAX package,
@@ -153,13 +155,109 @@ def test_superglue_bf16_route_follows_the_resident_ceiling(K, route):
         assert attention_cuda.bf16_smem_bytes(K) <= cuda_build.SMEM_LIMIT
 
 
-def test_superglue_f32_attention_ceiling():
-    """The f32 mode's attention kernel holds 16 logit rows of K in shared
-    memory: MAX_K_F32 is the largest K that fits (3308), above 2048."""
-    k = attention_cuda.MAX_K_F32
-    assert k >= 2048
-    assert attention_cuda.f32_attn_smem_bytes(k) <= cuda_build.SMEM_LIMIT
-    assert attention_cuda.f32_attn_smem_bytes(k + 1) > cuda_build.SMEM_LIMIT
+def test_superglue_f32_layer_plan_takes_any_k():
+    """K2's f32 layer kernel streams K and V through a ring of F32_CHUNK-key
+    chunks, so its shared memory (the mirror of csrc/superglue_layer.cu:
+    the f32 message tile, then the larger of Q, the ring of K, V and mask
+    chunks and the key groups' (max, sum), and the two 512-wide MLP tiles)
+    is one size whatever K: 165,376 B, within a CTA's limit (one CTA per
+    SM); the 8 warps' P V partials (16 × 64 f32 each, row stride 72) fit
+    the drained ring, and each warp takes one n16 block of every chunk."""
+    ac = attention_cuda
+    assert ac.F32_CHUNK // ac.KEY_GROUPS == 16 and ac.KEY_GROUPS * ac.ROWS // 16 == 8
+    smem = ac.f32_smem_bytes()
+    assert smem == 165_376
+    assert smem <= cuda_build.SMEM_LIMIT and 2 * (smem + 1024) > 233_472
+    stage = 2 * ac.F32_CHUNK * (64 + 4) * 4 + ac.F32_CHUNK * 4
+    assert 2 * ac.KEY_GROUPS * 16 * (64 + 8) * 4 <= ac.F32_STAGES * stage
+
+
+def test_split_tf32_halves_hold_the_value():
+    """The kernels' 3xTF32 split (cvt.rna twice): hi and lo are TF32 values
+    (the low 13 bits clear), hi is a rounded to nearest with ties away from
+    zero, and hi + lo lies within 2^-21 of a, relative, over 10 decades."""
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy((rng.standard_normal(200_000)
+                          * 10.0 ** rng.uniform(-5, 5, 200_000)).astype(np.float32))
+    hi, lo = attention_cuda.split_tf32(a)
+    for h in (hi, lo):
+        assert h.dtype == torch.float32 and not (h.view(torch.int32) & 0x1FFF).any()
+    rel = (hi.double() + lo.double() - a.double()).abs() / a.double().abs()
+    assert rel.max() <= 2.0 ** -21
+    assert ((hi.double() - a.double()).abs() <= 2.0 ** -11 * a.double().abs()).all()
+    tie = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11])
+    assert attention_cuda.split_tf32(tie)[0].tolist() == [1 + 2 ** -10, -(1 + 2 ** -10),
+                                                          1 + 2 ** -9]
+
+
+# the f32 layer's GEMM shapes: QKV over 800 rows, and W1 over a 32-row tile
+@pytest.mark.parametrize("M,Kd,N", [(800, 256, 768), (32, 512, 512)])
+def test_3xtf32_products_hold_f32_accuracy(M, Kd, N):
+    """lo·hi + hi·lo + hi·hi of the split operands, summed in f32, lies
+    within 1e-5 of the f64 product (relative to its largest entry), as a
+    plain f32 product does; one TF32 product (hi·hi) does not: 3xTF32 is
+    what keeps the f32 mode at f32 accuracy on the tensor cores."""
+    rng = np.random.default_rng(M + N)
+    a = torch.from_numpy(rng.standard_normal((M, Kd)).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal((Kd, N)) / np.sqrt(Kd)).astype(np.float32))
+    ref = a.double() @ b.double()
+    ah, al = attention_cuda.split_tf32(a)
+    bh, bl = attention_cuda.split_tf32(b)
+    scale = float(ref.abs().max())
+
+    def err(c):
+        return float((c.double() - ref).abs().max()) / scale
+
+    assert err((al @ bh + ah @ bl) + ah @ bh) <= 1e-5
+    assert err(a @ b) <= 1e-5
+    assert err(ah @ bh) > 1e-5
+
+
+def _streamed_f32_probabilities(logits, chunk, groups):
+    """The f32 layer kernel's softmax in torch: key group q of every chunk
+    (keys [q w, (q + 1) w) of it, w = chunk / groups) folds each chunk into
+    a running (max, sum of exp) per row; the groups merge once, in order,
+    by lse_merge's rule; then every key's exp(l - max) times the sum's f32
+    reciprocal, in f32 (no rounding)."""
+    w = chunk // groups
+    states = []
+    for q in range(groups):
+        st = (torch.full(logits.shape[:-1], -math.inf), torch.zeros(logits.shape[:-1]))
+        for c0 in range(0, logits.shape[-1], chunk):
+            lc = logits[..., c0 + q * w:c0 + (q + 1) * w]
+            m = torch.maximum(st[0], lc.max(-1).values)
+            base = torch.where(m == -math.inf, torch.zeros_like(m), m)
+            st = (m, st[1] * torch.exp(st[0] - base) + torch.exp(lc - base[..., None]).sum(-1))
+        states.append(st)
+    m = torch.stack([s[0] for s in states]).max(0).values
+    s = sum(torch.where(sm == -math.inf, torch.zeros_like(ss), ss * torch.exp(sm - m))
+            for sm, ss in states)
+    return torch.exp(logits - m[..., None]) * (1.0 / s)[..., None]
+
+
+@pytest.mark.parametrize("K", [400, 1024, 3309, 4096])
+def test_streamed_f32_softmax_matches_the_division(K):
+    """The f32 kernel's softmax (running (max, sum) per key group over
+    chunks of F32_CHUNK keys, the four groups merged once, then a product
+    by the sum's reciprocal) against the plain softmax's division, at the
+    main path's K, past the old 3308-key ceiling and at 4096, with masked
+    keys at -1e9 and the chunk's padding keys at -inf: each probability
+    within 2e-6 of the plain one, relative (16 f32 steps: the sum of up to
+    4096 terms rounds in another order, the reciprocal once more; 7.5e-7
+    measured), padding exactly 0, rows summing to 1."""
+    rng = np.random.default_rng(K)
+    logits = torch.from_numpy((4 * rng.standard_normal((2, 4, 32, K))).astype(np.float32))
+    logits[..., K - K // 7:] = -1e9
+    pad = -(-K // attention_cuda.F32_CHUNK) * attention_cuda.F32_CHUNK
+    logits = torch.cat([logits, torch.full(logits.shape[:-1] + (pad - K,), -math.inf)], -1)
+    got = _streamed_f32_probabilities(logits, attention_cuda.F32_CHUNK,
+                                      attention_cuda.KEY_GROUPS)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    ref = e / e.sum(-1, keepdim=True)  # superglue_layer_plain's softmax
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() <= 2e-6 * ref).all()
+    assert (got[..., K:] == 0).all()
+    assert (got.sum(-1) - 1).abs().max() < 1e-5
 
 
 @pytest.mark.parametrize("M1,N1,route", [(401, 401, "cluster"), (601, 601, "cluster"),

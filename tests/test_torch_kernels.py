@@ -253,6 +253,54 @@ def test_superglue_layer_bf16_matches_jax_past_the_resident_ceiling(cross):
         np.testing.assert_allclose(out[s], np.asarray(ref), atol=4e-3, rtol=0)
 
 
+@pytest.mark.parametrize("cross", [False, True])
+def test_superglue_layer_f32_matches_jax_at_1024_keys(cross):
+    """At K = 1024 (on the card the f32 kernel streams K and V in 64-key
+    chunks, as at every K): the K2 wrapper's CPU path at f32 vs
+    ``_attention`` + ``_apply_mlp`` at jnp.float32, per set, with masked
+    keys in both sets: atol 2e-4 / rtol 1e-4 as at K = 48 (f32 everywhere,
+    only summation order differs)."""
+    params = _layer_params()
+    layer = params["gnn"][1 if cross else 0]
+    rng = np.random.default_rng(4)
+    K, C = 1024, 256
+    xs = [rng.standard_normal((K, C)).astype(np.float32) for _ in range(2)]
+    masks = [np.arange(K) < 1000, np.arange(K) < 911]
+    out = attention_cuda.superglue_layer(
+        torch.from_numpy(np.stack(xs)), torch.from_numpy(np.stack(masks)),
+        attention_cuda.pack_layer(layer, "cpu"), cross).numpy()
+    for s in range(2):
+        src = 1 - s if cross else s
+        x, sx, sm = jnp.asarray(xs[s]), jnp.asarray(xs[src]), jnp.asarray(masks[src])
+        msg = _attention(layer, x[None], sx[None], sm[None], 4, jnp.float32)
+        ref = (x[None] + _apply_mlp(layer["mlp"], jnp.concatenate([x[None], msg], -1),
+                                    jnp.float32))[0]
+        np.testing.assert_allclose(out[s], np.asarray(ref), atol=2e-4, rtol=1e-4)
+
+
+def test_pack_layer_tf32_holds_jax_weights_in_fragment_order():
+    """pack_layer's f32 packing for the 3xTF32 kernels holds exactly the
+    JAX weights (no rounding), each element once, lane 4g + t of n16 block
+    j and k-step s holding (8s + t, 16j + g), (8s + t + 4, 16j + g), (8s +
+    t, 16j + 8 + g), (8s + t + 4, 16j + 8 + g): the m16n8k8 B fragments of
+    the block's two n8 tiles."""
+    layer = _layer_params()["gnn"][0]
+    p = attention_cuda.pack_layer(layer, "cpu")
+    m0, m1 = layer["mlp"]
+    want = {"wqkv": np.concatenate([layer[n]["w"] for n in "qkv"], 1),
+            "wm": layer["merge"]["w"], "w1": m0["w"], "w2": m1["w"]}
+    for name, w in want.items():
+        packed = p[f"{name}_tf32"]
+        assert packed.dtype == torch.float32 and packed.numel() == w.size
+        assert packed.shape == (w.shape[1] // 16, w.shape[0] // 8, 32, 4)
+        np.testing.assert_array_equal(attention_cuda.unpack_tf32_b(packed).numpy(), w)
+        j, s, g, t = 1, 3, 5, 2
+        np.testing.assert_array_equal(
+            packed[j, s, 4 * g + t].numpy(),
+            [w[8 * s + t, 16 * j + g], w[8 * s + t + 4, 16 * j + g],
+             w[8 * s + t, 16 * j + 8 + g], w[8 * s + t + 4, 16 * j + 8 + g]])
+
+
 @pytest.mark.parametrize("M,N", [(1024, 1024), (1024, 1200)])
 def test_sinkhorn_matches_xla_past_every_cluster(M, N):
     """Plans no cluster of K3 holds (on the card the global-memory kernel

@@ -1,8 +1,10 @@
-"""Where the two kernels past SuperGlue's resident ceilings spend their time,
-on the card (not a test; needs one CUDA card, imports no JAX).
+"""Where the kernels past SuperGlue's resident ceilings, and K2's f32 mode,
+spend their time, on the card (not a test; needs one CUDA card, imports no
+JAX).
 
     python tests/torch_kernel_phases.py            # K3 global and K2 streamed phases
     python tests/torch_kernel_phases.py --k2-variants  # also K2 ring / division variants
+    python tests/torch_kernel_phases.py --k2-f32   # K2's f32 layer kernel alone
 
 Each part builds a copy of a kernel source from ``rspl_slam_tpu_torch/csrc``
 with ``clock64`` stamps on thread 0 of the first CTA (the phases end at CTA,
@@ -11,7 +13,21 @@ of its own under ``_smoke_work/phases/`` (git-ignored), and calls it through
 the port's wrappers (``cuda_build._libs`` points at the copy for the call).
 It prints one JSON line per shape: the kernel's CUDA-event ms with stamps on,
 the per-phase cycles (K3: per iteration; K2: per CTA), the card's name and
-power limit. ``--k2-variants`` times K2's streamed kernel with other ring
+power limit. ``--k2-f32`` stamps K2's f32 layer kernel (3xTF32, K and V
+streamed) on CTA 0 at (2, 400, 256) and (2, 1024, 256): pass 1, pass 2,
+the exchange of the heads' messages, the merge, MLP 1 and MLP 2, in
+cycles; and times it in turns beside six variants, each held to the plain
+f32 version and to an f64 one (the layer and the QKV scratch), and each
+run through ``match_pair`` at f32 (18 layers; its log plan against the
+plain forward's): "chain"
+(every product's MMAs accumulate in the running sum itself, no rounded
+add), "kf2" (fragments of two k-steps, 6 MMAs per rounded add, where the
+kernel takes one), "stages3" (a ring of three chunks), "unrolled" (the
+GEMMs' k-loops unrolled whole), "ck128" (chunks of 128 keys, 32 per warp)
+and "cvt_rna" (the TF32 rounding by the conversion instruction in place
+of the kernel's integer add and mask);
+first it prints the card's rate of independent mma.sync.m16n8k8 TF32 MMAs
+and the latency of a dependent chain of them. ``--k2-variants`` times K2's streamed kernel with other ring
 depths and chunk widths and with a true division in place of the
 reciprocal product, in turns (A, B, ..., B, A), checked against the plain
 version; and reports how many of its clusters the card holds at once.
@@ -86,6 +102,46 @@ K2_MARKS = [
 ]
 K2_PHASES = ["pass_1", "pass_2", "combine", "message_sync", "merge", "mlp_1", "mlp_2"]
 
+# K2's f32 layer kernel: its lines come after F32_SECTION in the source (the
+# bf16 kernels before it share some of them)
+F32_SECTION = "// ------------------------------------------------------------------ f32 mode\n"
+K2_F32_MARKS = [
+    ("  attention_f32(region, sMsg, QX + (size_t)set * Kq * 3 * C + h * DH,\n", "STAMP(0);\n",
+     "before"),
+    ("    if (t == n) {  // the four key groups' (max, sum) of each row, merged in order\n",
+     "if (t == n) STAMP(1);\n", "before"),
+    ("  cp_async_wait_group<0>();  // the empty trailing groups\n", "STAMP(2);\n", "before"),
+    ("  cluster.sync();  // all four heads' messages are in every CTA's sMsg\n", "STAMP(3);\n",
+     "after"),
+    ("  {  // hidden = ReLU((concat[x, msg] W1 + b1) * s1 + t1), columns [128 h, 128 h + 128)\n",
+     "STAMP(4);\n", "before"),
+    ("  {  // out = x + (hidden W2 + b2), columns [64 h, 64 h + 64)\n", "STAMP(5);\n", "before"),
+    ("  // no CTA reads another's shared memory after the last cluster barrier\n",
+     "STAMP(6);\n", "before"),
+]
+K2_F32_PHASES = ["pass_1", "pass_2", "exchange", "merge", "mlp_1", "mlp_2"]
+K2_F32_VARIANTS = {
+    "chain": [("      float d[MT][2][4] = {};\n", "      auto& d = acc;\n"),
+              ("""        add_fragment(acc[mt][0], d[mt][0]);
+        add_fragment(acc[mt][1], d[mt][1]);
+""", ""),
+              ("    float d[JT_F32][4] = {};\n", "    auto& d = acc;\n"),
+              ("    for (int tile = 0; tile < JT_F32; ++tile) add_fragment(acc[tile], d[tile]);\n",
+               ""),
+              ("          float d[4] = {};\n", "          auto& d = o[nb];\n"),
+              ("          add_fragment(o[nb], d);\n", "")],
+    "kf2": [("constexpr int KF_F32 = 1;", "constexpr int KF_F32 = 2;")],
+    "stages3": [("constexpr int STAGES_F32 = 2;", "constexpr int STAGES_F32 = 3;")],
+    "unrolled": [("#pragma unroll 1\n  for (int k0 = 0; k0 < KSTEPS; k0 += PF) {",
+                  "#pragma unroll\n  for (int k0 = 0; k0 < KSTEPS; k0 += PF) {")],
+    "ck128": [("constexpr int CK_F32 = 64; ", "constexpr int CK_F32 = 128;")],
+    "cvt_rna": [("""  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+""", """  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(a));
+  return r;
+""")],
+}
+
 # K2's occupancy: clusters of its streamed kernel the card holds at once
 K2_OCCUPANCY = '''
 RSPL_EXPORT int streamed_clusters(int smem, void* out) {
@@ -103,6 +159,38 @@ RSPL_EXPORT int streamed_clusters(int smem, void* out) {
 }
 '''
 
+# the card's mma.sync.m16n8k8 TF32 rate (8 independent accumulators per
+# warp, 16 warps per SM) and the latency of one dependent chain
+K2_F32_PROBE = '''
+__global__ void mma_tf32_rate_kernel(int iters, float* out) {
+  float acc[8][4] = {};
+  const uint32_t a[4] = {0x3f800000u, 0x3f000000u, 0x3e800000u, 0x3f800000u};
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mma_tf32(acc[j], a, 0x3f800000u, 0x3e000000u);
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
+  if (s == 1.2345f) out[0] = s;
+}
+__global__ void mma_tf32_chain_kernel(int iters, float* out, long long* cycles) {
+  float acc[4] = {};
+  const uint32_t a[4] = {0x3f800000u, 0x3f000000u, 0x3e800000u, 0x3f800000u};
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) mma_tf32(acc, a, 0x3f800000u, 0x3e000000u);
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) { cycles[0] = t1 - t0; out[1] = acc[0]; }
+}
+RSPL_EXPORT int mma_tf32_rate(int ctas, int iters, void* out) {
+  mma_tf32_rate_kernel<<<ctas, NT>>>(iters, (float*)out);
+  return (int)cudaGetLastError();
+}
+RSPL_EXPORT int mma_tf32_chain(int iters, void* out, void* cycles) {
+  mma_tf32_chain_kernel<<<1, 32>>>(iters, (float*)out, (long long*)cycles);
+  return (int)cudaGetLastError();
+}
+'''
+
 
 def _card():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -110,11 +198,15 @@ def _card():
     return out.stdout.strip()
 
 
-def _stamped(src: str, marks) -> str:
+def _stamped(src: str, marks, section: str | None = None) -> str:
+    """``src`` with each mark's stamp before or after its line (the first
+    one after ``section`` where given)."""
+    head, tail = ("", src) if section is None else src.split(section, 1)
     for line, stamp, where in marks:
-        if line not in src:
+        if line not in tail:
             raise SystemExit(f"torch_kernel_phases: the source no longer has {line!r}")
-        src = src.replace(line, line + stamp if where == "after" else stamp + line, 1)
+        tail = tail.replace(line, line + stamp if where == "after" else stamp + line, 1)
+    src = tail if section is None else head + section + tail
     return src.replace('#include "common.cuh"\n', STAMP_HEADER, 1) + STAMP_EXPORTS
 
 
@@ -314,6 +406,143 @@ def k2_phases(card: str, variants: bool):
         cuda_build._libs["superglue_layer"] = real
 
 
+def k2_f32_phases(card: str):
+    """K2's f32 layer kernel on stacked (2, K, 256) cross layers: the cycles
+    of each phase on CTA 0, and the event ms with and without stamps."""
+    import torch
+
+    from rspl_slam_tpu_torch.ops import attention_cuda as ac
+    from rspl_slam_tpu_torch.ops import cuda_build
+
+    src = open(os.path.join(cuda_build.CSRC, "superglue_layer.cu")).read()
+    sources = {"layer_f32_phases": _stamped(src, K2_F32_MARKS, F32_SECTION),
+               "layer": src + K2_F32_PROBE}
+    for name, subs in K2_F32_VARIANTS.items():
+        text = src
+        for a, b in subs:
+            if a not in text:
+                raise SystemExit(f"torch_kernel_phases: the source no longer has {a!r}")
+            text = text.replace(a, b)
+        sources[name] = text
+    libs = _build(sources)
+    for lib, _ in libs.values():
+        _bind(lib, "superglue_layer")
+    real = cuda_build.library("superglue_layer")
+    probe = libs["layer"][0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.zeros(2, device="cuda")
+    cyc = torch.zeros(1, dtype=torch.int64, device="cuda")
+    iters = 4096
+    rate_ms = _event_ms(lambda: probe.mma_tf32_rate(ctypes.c_int(2 * sms), ctypes.c_int(iters),
+                                                    ctypes.c_void_p(out.data_ptr())), 5)
+    probe.mma_tf32_chain(ctypes.c_int(iters), ctypes.c_void_p(out.data_ptr()),
+                         ctypes.c_void_p(cyc.data_ptr()))
+    torch.cuda.synchronize()
+    mmas = 2 * sms * 8 * iters * 8  # CTAs x warps x iterations x accumulators
+    print(json.dumps({"probe": "mma.sync.m16n8k8 tf32", "card": card, "sms": sms,
+                      "tflops": mmas * 2048 / rate_ms * 1e-9,
+                      "issue_cycles_per_mma_per_sm_partition_at_1.98GHz":
+                          rate_ms * 1e-3 * 1.98e9 / (mmas / (4 * sms)),
+                      "dependent_chain_cycles_per_mma": int(cyc.item()) / iters}), flush=True)
+    layer = ac.pack_layer(_random_layer(), "cuda")
+
+    def f64(lay):
+        return {k: v.double() for k, v in lay.items() if not k.endswith(("_mma", "_tf32"))}
+
+    layer64 = f64(layer)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    f32 = torch.float32
+    try:
+        for K in (400, 1024):
+            x = torch.randn((2, K, 256), generator=gen, device="cuda")
+            masks = torch.arange(K, device="cuda")[None] < torch.tensor(
+                [[K], [K - K // 6]], device="cuda")
+            sc = ac.layer_scratch(x, masks, f32)
+            ref = ac.superglue_layer_plain(x, masks, layer, True, compute_dtype=f32)
+            # f32 mode rounds no operand, so on f64 tensors the plain version is f64
+            ref64 = ac.superglue_layer_plain(x.double(), masks, layer64, True, compute_dtype=f32)
+            qkv64 = x.double().reshape(-1, 256) @ layer64["wqkv"] + layer64["bqkv"]
+
+            def run():
+                return ac.superglue_layer(x, masks, layer, True, compute_dtype=f32, scratch=sc)
+
+            lib = libs["layer_f32_phases"][0]
+            cuda_build._libs["superglue_layer"] = lib
+            lib.phase_zero()
+            run()
+            torch.cuda.synchronize()
+            cycles = _phases(lib, K2_F32_PHASES)
+            stamped_ms = _event_ms(run, 20)
+            names = ["layer"] + list(K2_F32_VARIANTS)
+            variants = {n: {"ms": []} for n in names}
+            for order in (names, names[::-1]):
+                for n in order:
+                    cuda_build._libs["superglue_layer"] = libs[n][0]
+                    got = run()
+                    torch.cuda.synchronize()
+                    variants[n].update({
+                        "max_abs_err": float((got - ref).abs().max()),
+                        "max_abs_err_vs_f64": float((got.double() - ref64).abs().max()),
+                        "qkv_max_abs_err_vs_f64": float((sc["qkv"].double() - qkv64).abs().max())})
+                    variants[n]["ms"].append(_event_ms(run, 20))
+            print(json.dumps({
+                "kernel": "superglue_layer_f32", "card": card, "shape": [2, K, 256],
+                "clusters": 2 * -(-K // ac.ROWS), "cycles_cta0": cycles,
+                "total_cycles_cta0": sum(cycles.values()), "stamped_ms": stamped_ms,
+                "plain_max_abs_err_vs_f64": float((ref.double() - ref64).abs().max()),
+                "variants": variants}), flush=True)
+        print(json.dumps({"kernel": "superglue_layer_f32", "card": card,
+                          **_match_drift(libs, ["layer"] + list(K2_F32_VARIANTS))}), flush=True)
+    finally:
+        cuda_build._libs["superglue_layer"] = real
+
+
+def _match_drift(libs, names) -> dict:
+    """``match_pair`` at f32 through each variant of K2 (``SuperGlueConfig()``:
+    18 layers, random weights, seed 0; random keypoints and unit
+    descriptors, 400 against 400 (the stacked kernel) and 400 against 300
+    (the two-set variant)): the max |difference| of the log plan from the
+    plain forward's (``superglue_train.log_plan``, on the card) over valid
+    entries, beside that plain forward's own spread (the same on the CPU).
+    Errors of the layers grow through the 18 layers and the Sinkhorn."""
+    import torch
+    import torch.nn.functional as F
+
+    from rspl_slam_tpu_torch.config import SuperGlueConfig
+    from rspl_slam_tpu_torch.models import superglue
+    from rspl_slam_tpu_torch.models.weights import superglue_from_numpy, to_tensor_tree
+    from rspl_slam_tpu_torch.ops import cuda_build
+    from rspl_slam_tpu_torch.training import superglue_train
+
+    cfg, f32 = SuperGlueConfig(), torch.float32
+    params = superglue.init_params(cfg, 0)
+    sg = superglue_from_numpy(params, cfg, "cuda")
+    tree, tree_cpu = to_tensor_tree(params, "cuda"), to_tensor_tree(params, "cpu")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def side(n):
+        xy = torch.rand((1, n, 2), generator=gen, device="cuda") * torch.tensor(
+            [cfg.image_width, cfg.image_height], device="cuda")
+        desc = F.normalize(torch.randn((1, n, 256), generator=gen, device="cuda"), dim=-1)
+        return (xy, torch.rand((1, n), generator=gen, device="cuda"), desc,
+                torch.arange(n, device="cuda")[None] < n - n // 9)
+
+    out = {"match_f32_log_plan_max_abs_err": {n: {} for n in names}, "plain_spread": {}}
+    for pair, arrays in (("400x400", side(400) + side(400)), ("400x300", side(400) + side(300))):
+        one = torch.ones((1, 1), dtype=torch.bool, device="cuda")
+        sel = (torch.cat([arrays[3], one], 1)[:, :, None]
+               & torch.cat([arrays[7], one], 1)[:, None, :])
+        with torch.no_grad():
+            ref = superglue_train.log_plan(tree, *arrays, cfg, f32)
+            cpu = superglue_train.log_plan(tree_cpu, *(a.cpu() for a in arrays), cfg, f32)
+        out["plain_spread"][pair] = float((cpu - ref.cpu()).abs()[sel.cpu()].max())
+        for n in names:
+            cuda_build._libs["superglue_layer"] = libs[n][0]
+            got = superglue.match_pair(sg, *arrays, cfg, compute_dtype=f32).log_plan
+            out["match_f32_log_plan_max_abs_err"][n][pair] = float((got - ref).abs()[sel].max())
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -322,6 +551,9 @@ def main(argv) -> int:
         return 2
     card = _card()
     print(card, flush=True)
+    if "--k2-f32" in argv:
+        k2_f32_phases(card)
+        return 0
     k3_phases(card)
     k2_phases(card, "--k2-variants" in argv)
     return 0
