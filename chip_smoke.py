@@ -10,8 +10,8 @@
                                      # (dist_ba's map), the parallel/ phases
                                      # (4b below), summary
     python3 chip_smoke.py --native   # device, build, kernels, end_to_end_lines,
-                                     # merge_ab, cli_run, native, cli_photo,
-                                     # summary
+                                     # merge_ab, cli_run, native, image_kinds,
+                                     # cli_photo, summary
     python3 chip_smoke.py --unequal  # device, build, kernels, unequal (4c
                                      # below), summary
     python3 chip_smoke.py --configs  # device, build, kernels, configs and
@@ -186,7 +186,16 @@ Phases (one JSON line each):
      tree (frames equal), ``merge_lines`` ms per frame compiled against
      numpy on the lines path's own pre-merge segments (equal shapes,
      within 1e-9), and ``real_photo.jpg`` decoded to the pinned
-     ``REAL_PHOTO_L_SHA256``; ``cli_photo``, the JAX CLI's real-photo case
+     ``REAL_PHOTO_L_SHA256``; ``image_kinds``, every JPEG and netpbm kind
+     the JAX package reads through PIL: the committed fixtures of
+     ``tests/fixtures/image_kinds`` on three decode routes against PIL's
+     pinned hashes (the kinds PIL refuses raising ``NotImplementedError``),
+     ``cli_run``'s tree as 16-bit P5 (native route) and plain P2
+     (``--no-native``), trajectories and launches equal to its PNG runs,
+     and a committed 752×480 progressive stereo sequence through ``cli
+     run`` and ``cli serve``, equal to PNG copies of its pixels, with K1
+     (both modes), K2 and K3 launched; decode ms per pair of each kind;
+     ``cli_photo``, the JAX CLI's real-photo case
      (10 stereo crops of the photograph, cosine matcher, no lines) through
      ``cli run`` here, gated as JAX gates it (n ≥ 3, rmse < 0.3 m);
      ``cli_global``, ``run
@@ -244,7 +253,8 @@ Phases (one JSON line each):
      launches are then ``multi_sequence``'s); --native runs
      ``end_to_end_lines``, ``merge_ab`` (the lines path with the numpy
      merge in place of the compiled one, in turns) and ``cli_run``,
-     ``native`` and ``cli_photo`` (launch counts null in the summary).
+     ``native``, ``image_kinds`` and ``cli_photo`` (launch counts null in
+     the summary).
 
 Any failure raises and exits non-zero. The script imports nothing of JAX
 or of the JAX package.
@@ -3317,13 +3327,31 @@ def _cli(*argv, timeout: int = 600) -> str:
     """``python -m rspl_slam_tpu_torch.cli`` in a subprocess from the
     checkout's root, as a user runs it, with PyYAML, PIL and matplotlib
     hidden; raises on a non-zero exit."""
+    return _cli_concurrent(argv, timeout=timeout)[0]
+
+
+def _cli_concurrent(*argvs, timeout: int = 600) -> list:
+    """``_cli`` of several argument lists at once, each its own process on
+    the one card; their outputs in order. Raises on a non-zero exit (or a
+    timeout) and kills what still runs when it raises."""
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([_hidden_modules_dir(), ROOT])}
-    res = subprocess.run([sys.executable, "-m", "rspl_slam_tpu_torch.cli", *argv], cwd=ROOT,
-                         env=env, capture_output=True, text=True, timeout=timeout)
-    if res.returncode != 0:
-        raise AssertionError(f"cli {argv[0]} exited {res.returncode}:\n"
-                             f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
-    return res.stdout
+    procs = [subprocess.Popen([sys.executable, "-m", "rspl_slam_tpu_torch.cli", *a], cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for a in argvs]
+    outs = []
+    try:
+        for argv, proc in zip(argvs, procs):
+            out, err = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                raise AssertionError(f"cli {argv[0]} exited {proc.returncode}:\n"
+                                     f"{out[-4000:]}\n{err[-4000:]}")
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
 
 
 def _camera_yaml(path, cam):
@@ -3792,6 +3820,283 @@ def phase_native(tree, merge_inputs):
         raise AssertionError(f"native: real_photo.jpg decoded to {photo_sha}, "
                              f"not {REAL_PHOTO_L_SHA256}")
     return line
+
+
+IMAGE_KINDS = os.path.join(ROOT, "tests", "fixtures", "image_kinds")
+IMAGE_KINDS_SEQ = "seq_prog"  # the 752×480 progressive stereo sequence
+IMAGE_KINDS_SEQ_FRAMES = 6
+IMAGE_KINDS_BASELINE = "seq_baseline"  # its first pair as baseline JPEGs
+DECODE_TIMING_PAIRS = 10  # pairs of each PGM / PNG tree in the decode timing
+# the sequence's keyframe trigger: fewer matches than this (every frame,
+# at 400 keypoints) makes a keyframe
+IMAGE_KINDS_ALL_KEYFRAMES = 1000
+
+
+def _u8_sha256(u8) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(u8).tobytes()).hexdigest()
+
+
+def _write_pgm(path, img, kind: str) -> None:
+    """(H, W) uint8 as a 16-bit binary PGM (P5, maxval 65535, the same
+    sample values: PIL reads them in mode "I" and ``convert("L")`` keeps
+    every value up to 255) or as a plain one (P2, maxval 255, a comment in
+    the header, fixed-width samples, one image row per line)."""
+    H, W = img.shape
+    if kind == "P5":
+        data = b"P5\n%d %d\n65535\n" % (W, H) + img.astype(">u2").tobytes()
+    else:
+        v = img.astype(np.int64)
+        text = np.full((H, W, 4), ord(" "), np.uint8)
+        text[..., 0] = np.where(v >= 100, 48 + v // 100, 32)
+        text[..., 1] = np.where(v >= 10, 48 + v // 10 % 10, 32)
+        text[..., 2] = 48 + v % 10
+        text[:, -1, 3] = ord("\n")
+        data = b"P2\n# plain graymap\n%d %d\n255\n" % (W, H) + text.tobytes()
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def _rewrite_tree(src_root, outputs) -> None:
+    """A raw-EuRoC tree's frames rewritten: ``outputs`` maps each new
+    tree's root to (extension, ``write``), ``write(path, u8)`` writing a
+    file of the frame the port decodes (each frame read once);
+    ``cam0/data.csv`` renamed to match, the ground truth copied."""
+    from rspl_slam_tpu_torch import png
+
+    src = os.path.join(src_root, "mav0")
+    for cam in ("cam0", "cam1"):
+        for dst_root in outputs:
+            os.makedirs(os.path.join(dst_root, "mav0", cam, "data"))
+        for name in sorted(os.listdir(os.path.join(src, cam, "data"))):
+            u8 = png.read_gray(os.path.join(src, cam, "data", name))
+            for dst_root, (ext, write) in outputs.items():
+                stem = os.path.splitext(name)[0]
+                write(os.path.join(dst_root, "mav0", cam, "data", stem + ext), u8)
+    with open(os.path.join(src, "cam0", "data.csv")) as f:
+        rows = f.read()
+    for dst_root, (ext, _) in outputs.items():
+        dst = os.path.join(dst_root, "mav0")
+        with open(os.path.join(dst, "cam0", "data.csv"), "w") as f:
+            f.write(re.sub(r"\.(png|jpg)$", ext, rows, flags=re.M))
+        shutil.copytree(os.path.join(src, "state_groundtruth_estimate0"),
+                        os.path.join(dst, "state_groundtruth_estimate0"))
+
+
+def _cli_result(out: str) -> dict:
+    processed = re.search(r"^(?:processed|served) (\d+) frames", out, re.M)
+    return {"frames": int(processed.group(1)) if processed else None,
+            "launches": json.loads(re.search(r"^kernel launches: (.*)$", out, re.M).group(1))}
+
+
+def _decode_pair_ms(pairs, n_rep: int) -> float:
+    """Mean ms to decode one stereo pair of files with ``native.decode_gray``
+    (read, decode, u8 / 255) over ``pairs`` × ``n_rep``."""
+    from rspl_slam_tpu_torch import native
+
+    t0 = time.perf_counter()
+    for _ in range(n_rep):
+        for lp, rp, (H, W) in pairs:
+            native.decode_gray(lp, H, W)
+            native.decode_gray(rp, H, W)
+    return (time.perf_counter() - t0) / (n_rep * len(pairs)) * 1e3
+
+
+def phase_image_kinds(ctx, cli_line):
+    """Every JPEG and netpbm kind the JAX package reads through PIL, on the
+    card's machine (no PIL there) and through the CLI at full width:
+
+    (a) each committed fixture of ``tests/fixtures/image_kinds`` (its
+    manifest pins PIL's sha256 of each readable file) through
+    ``png.read_gray``, ``native.decode_u8`` and a ``NativeStereoLoader``,
+    each hashing to the pinned value; each kind PIL refuses raising
+    ``NotImplementedError`` on all three routes;
+    (b) ``cli_run``'s 752×480 30-frame PNG tree rewritten as 16-bit P5 and
+    as plain P2: ``cli run`` on the P5 tree by the native route and on the
+    P2 tree with ``--no-native``, each trajectory and launch count equal to
+    ``cli_run``'s PNG run of the same route (PIL reads the same pixels from
+    all three, so any difference is a decode fault);
+    (c) the committed 752×480 progressive stereo sequence (6 pairs written
+    by PIL from the port's renderer, with its ground truth): ``cli run``
+    (native) on it and on PNG copies of its decoded pixels, trajectories
+    and launches equal, K1 (both modes), K2 and K3 launched; then ``cli
+    serve`` on a watch directory holding those ``.jpg`` frames and the stop
+    file, its trajectory equal to the run's (each part's CLI processes run
+    at once on the card; no camera file: no remap, so
+    the serve route's frames are the native route's; the algorithm file
+    holds the weight paths, which ``serve`` takes from it, and makes every
+    frame a keyframe, so the trajectories compared hold every pose);
+    then decode ms per 752×480 pair, progressive against baseline JPEG and
+    16-bit P5 against 8-bit PNG, in turns."""
+    from rspl_slam_tpu_torch import native, png
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(IMAGE_KINDS, "manifest.json")) as f:
+        manifest = json.load(f)["files"]
+    hashes_ok, refused_ok, bad = 0, 0, []
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(IMAGE_KINDS, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        if entry.get("refused"):
+            raised = 0
+
+            def through_loader():
+                with native.NativeStereoLoader([path], [path], 48, 64) as loader:
+                    next(loader)
+
+            routes = (lambda: png.read_gray(path), lambda: native.decode_u8(data, path),
+                      through_loader)
+            for call in routes:
+                try:
+                    call()
+                except NotImplementedError:
+                    raised += 1
+            if raised == len(routes):
+                refused_ok += 1
+            else:
+                bad.append(f"{name}: refused on {raised} of {len(routes)} routes")
+            continue
+        H, W = native.image_size(data)
+        with native.NativeStereoLoader([path], [path], H, W) as loader:
+            (_, left, right), = list(loader)
+        got = {"read_gray": png.read_gray(path), "decode_u8": native.decode_u8(data, path),
+               "loader_left": np.round(left * 255).astype(np.uint8),
+               "loader_right": np.round(right * 255).astype(np.uint8)}
+        wrong = [k for k, v in got.items() if _u8_sha256(v) != entry["sha256"]]
+        if wrong:
+            bad.append(f"{name}: {wrong} differ from PIL's pinned hash")
+        else:
+            hashes_ok += 1
+
+    work = os.path.join(WORK, "image_kinds")
+    shutil.rmtree(work, ignore_errors=True)
+    cw = ctx["work"]
+    weights = ("--sp-weights", os.path.join(cw, "sp.npz"), "--sg-weights",
+               os.path.join(cw, "sg.npz"), "--rcf-weights", os.path.join(cw, "rcf.npz"))
+    # (b) the PGM trees against cli_run's PNG runs of the same route; each
+    # part's CLI processes run at once (each repeats its trajectory bit for
+    # bit whatever runs beside it: cli_run's native_again gate)
+    trees = {kind: os.path.join(work, f"tree_{kind}") for kind in ("P5", "P2")}
+    t0 = time.perf_counter()
+    _rewrite_tree(ctx["tree"], {trees[k]: (".pgm", lambda p, u8, k=k: _write_pgm(p, u8, k))
+                                for k in trees})
+    pgm_write_s = time.perf_counter() - t0
+    routes = {"P5": (), "P2": ("--no-native",)}
+    t0 = time.perf_counter()
+    outs = _cli_concurrent(*[("run", "--dataroot", trees[k], "--config", ctx["euroc"],
+                              "--camera-config", ctx["cam_yaml"], *weights, "--gt", trees[k],
+                              "--traj-path", os.path.join(work, f"traj_{k}.txt"), *routes[k])
+                             for k in trees])
+    pgm_wall = time.perf_counter() - t0
+    pgm = {}
+    for kind, out in zip(trees, outs):
+        with open(os.path.join(work, f"traj_{kind}.txt")) as f:
+            text = f.read()
+        with open(os.path.join(cw, "traj_no_native.txt" if routes[kind] else "traj.txt")) as f:
+            ref = f.read()
+        ref_launches = cli_line["launches_no_native" if routes[kind] else "launches"]
+        pgm[kind] = {"route": "no_native" if routes[kind] else "native", **_cli_result(out),
+                     "trajectory_equal_png": text == ref, "keyframes": len(text.splitlines())}
+        pgm[kind]["launches_equal_png"] = pgm[kind]["launches"] == ref_launches
+
+    # (c) the progressive sequence, its PNG copies, and serve
+    seq = os.path.join(IMAGE_KINDS, IMAGE_KINDS_SEQ)
+    copies = os.path.join(work, "seq_png")
+    _rewrite_tree(seq, {copies: (".png", png.write_png)})
+    # serve takes its weights from the algorithm file only: this one is
+    # SystemConfig() (= configs/euroc.yaml) with the smoke's weights, and
+    # every tracked frame a keyframe, so the trajectory files hold every
+    # pose
+    seq_yaml = os.path.join(work, "sequence.yaml")
+    with open(seq_yaml, "w") as f:
+        f.write(f"superpoint:\n  weights_path: {weights[1]}\nsuperglue:\n  weights_path: "
+                f"{weights[3]}\nline_detector:\n  rcf_weights_path: {weights[5]}\n"
+                f"keyframe:\n  max_num_match: {IMAGE_KINDS_ALL_KEYFRAMES}\n")
+    watch = os.path.join(work, "serve")
+    for cam in ("cam0", "cam1"):
+        shutil.copytree(os.path.join(seq, "mav0", cam, "data"), os.path.join(watch, cam, "data"))
+    open(os.path.join(watch, "stop"), "w").close()
+    traj = {k: os.path.join(work, f"traj_seq_{k}.txt") for k in ("jpeg", "png_copies", "serve")}
+    t0 = time.perf_counter()
+    outs = _cli_concurrent(
+        *[("run", "--dataroot", root, "--config", seq_yaml, "--gt", root, "--traj-path", traj[k])
+          for k, root in (("jpeg", seq), ("png_copies", copies))],
+        ("serve", "--watch-dir", watch, "--config", seq_yaml, "--traj-path", traj["serve"],
+         "--idle-timeout", "120"))
+    seq_wall = time.perf_counter() - t0
+    runs = {}
+    for k, out in zip(traj, outs):
+        with open(traj[k]) as f:
+            ate = re.search(r"^ATE: (.*)$", out, re.M)
+            runs[k] = {**_cli_result(out), "text": f.read(),
+                       "ate": json.loads(ate.group(1)) if ate else None}
+
+    # decode ms per 752×480 pair, in turns
+    base = os.path.join(IMAGE_KINDS, IMAGE_KINDS_BASELINE)
+
+    def with_size(lp, rp):
+        with open(lp, "rb") as f:
+            return lp, rp, native.image_size(f.read())
+
+    def tree_pairs(root, n):
+        names = sorted(os.listdir(os.path.join(root, "mav0", "cam0", "data")))
+        return [with_size(os.path.join(root, "mav0", "cam0", "data", nm),
+                          os.path.join(root, "mav0", "cam1", "data", nm)) for nm in names[:n]]
+
+    prog_pair = tree_pairs(seq, 1)
+    base_pair = [with_size(os.path.join(base, "cam0.jpg"), os.path.join(base, "cam1.jpg"))]
+
+    timing = {"progressive_jpeg": [], "baseline_jpeg": [], "p5_16bit": [], "png_8bit": []}
+    sets = {"progressive_jpeg": prog_pair, "baseline_jpeg": base_pair,
+            "p5_16bit": tree_pairs(os.path.join(work, "tree_P5"), DECODE_TIMING_PAIRS),
+            "png_8bit": tree_pairs(ctx["tree"], DECODE_TIMING_PAIRS)}
+    for a, b in (("progressive_jpeg", "baseline_jpeg"), ("p5_16bit", "png_8bit")):
+        for k in (a, b, b, a):
+            timing[k].append(_decode_pair_ms(sets[k], 20 if len(sets[k]) == 1 else 2))
+
+    jl = runs["jpeg"]["launches"]
+    line = {"phase": "image_kinds", "card": CARD, "fixtures": len(manifest),
+            "fixtures_hash_equal_pil": hashes_ok, "refused_raise": refused_ok,
+            "fixture_faults": bad, "pgm_trees": pgm, "pgm_trees_write_s": pgm_write_s,
+            "pgm_cli_wall_s": pgm_wall,
+            "sequence": {"frames": runs["jpeg"]["frames"], "image": [752, 480],
+                         "keyframes": len(runs["jpeg"]["text"].splitlines()),
+                         "ate": runs["jpeg"]["ate"], "launches": jl,
+                         "trajectory_equal_png_copies":
+                             runs["jpeg"]["text"] == runs["png_copies"]["text"],
+                         "launches_equal_png_copies":
+                             jl == runs["png_copies"]["launches"],
+                         "serve_frames": runs["serve"]["frames"],
+                         "serve_trajectory_equal_run": runs["serve"]["text"] == runs["jpeg"]["text"],
+                         "serve_launches": runs["serve"]["launches"], "cli_wall_s": seq_wall},
+            "decode_ms_per_pair": timing,
+            "decode_order": "progressive, baseline, baseline, progressive; P5, PNG, PNG, P5",
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    if bad or hashes_ok + refused_ok != len(manifest):
+        raise AssertionError(f"image_kinds: fixtures off PIL's pinned hashes: {bad}")
+    for kind, r in pgm.items():
+        if r["frames"] != E2E_FRAMES or not r["trajectory_equal_png"] or not r["launches_equal_png"]:
+            raise AssertionError(f"image_kinds: the {kind} tree's {r['route']} run differs from "
+                                 f"cli_run's PNG run: {r}")
+    seq_line = line["sequence"]
+    if runs["jpeg"]["frames"] != IMAGE_KINDS_SEQ_FRAMES \
+            or not seq_line["trajectory_equal_png_copies"] \
+            or not seq_line["launches_equal_png_copies"]:
+        raise AssertionError(f"image_kinds: the progressive sequence's run differs from its PNG "
+                             f"copies': {seq_line}")
+    if seq_line["keyframes"] < 3:
+        raise AssertionError(f"image_kinds: the sequence made {seq_line['keyframes']} keyframes")
+    for k in ("conv_stem", "conv_stem_side", "superglue_layer", "sinkhorn"):
+        if jl[k] <= 0:
+            raise AssertionError(f"image_kinds: kernel {k} never launched on the sequence")
+    if runs["serve"]["frames"] != IMAGE_KINDS_SEQ_FRAMES \
+            or not seq_line["serve_trajectory_equal_run"]:
+        raise AssertionError(f"image_kinds: serve gave another trajectory:\n"
+                             f"{runs['serve']['text']}\n---\n{runs['jpeg']['text']}")
+    return line, jl
 
 
 def phase_merge_ab(compiled_line):
@@ -4868,6 +5173,7 @@ def main(argv) -> int:
         line, by_path["cli_run"], ctx = phase_cli_run()
         ate_by_path["cli_run"] = line["keyframe_ate_rmse_m"]
         phase_native(ctx["tree"], merge_inputs)
+        _, by_path["image_kinds"] = phase_image_kinds(ctx, line)
         _, by_path["cli_photo"] = phase_cli_photo()
     elif "--parallel" in argv:
         _, by_path["end_to_end_loop"], frames, _ = phase_end_to_end_loop()  # dist_ba's map
@@ -4923,6 +5229,7 @@ def main(argv) -> int:
         line, by_path["cli_run"], ctx = phase_cli_run()
         ate_by_path["cli_run"] = line["keyframe_ate_rmse_m"]
         phase_native(ctx["tree"], merge_inputs)
+        _, by_path["image_kinds"] = phase_image_kinds(ctx, line)
         _, by_path["cli_photo"] = phase_cli_photo()
         _, by_path["cli_global"] = phase_cli_global(ctx)
         phase_cli_synth()

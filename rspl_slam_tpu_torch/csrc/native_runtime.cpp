@@ -6,8 +6,9 @@
 //      the bilinear remap with the border clamp of camera.remap_bilinear;
 //   B. PNG: an RFC 1950/1951 inflate, every colour type and bit depth,
 //      Adam7;
-//   C. baseline JPEG: Huffman decoding, libjpeg's integer "islow" IDCT,
-//      its fancy chroma upsampling and YCbCr→RGB tables;
+//   C. JPEG as libjpeg-turbo decodes it for PIL: sequential, progressive
+//      and lossless, Huffman or arithmetic coded, gray, YCbCr, RGB, CMYK
+//      and YCCK, any integral sampling; netpbm P1-P6 as PIL reads them;
 //   D. an ordered stereo prefetcher: decode threads, a bounded reorder
 //      buffer, optional rectification.
 //
@@ -34,7 +35,14 @@
 
 namespace {
 
-enum Err { kOk = 0, kIO = 1, kCorrupt = 2, kUnsupported = 3, kSize = 4 };
+enum Err {
+  kOk = 0, kIO = 1, kCorrupt = 2, kSize = 4,
+  // image kinds refused, every code from kPrecision on (native_runtime_is_refused;
+  // native.py raises NotImplementedError); PIL refuses them too, but for
+  // kPnmKind (PFM and Pillow's own netpbm variants)
+  kPrecision = 5, kHierarchical = 6, kDNL = 7, kFractional = 8, kLosslessColour = 9,
+  kArithLossless = 10, kComponents = 11, kMcuSize = 12, kPnmKind = 13
+};
 
 bool read_file(const char* path, std::vector<uint8_t>& buf) {
   FILE* f = std::fopen(path, "rb");
@@ -647,10 +655,16 @@ int decode_png(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, i
 }
 
 // ========================================================= C. JPEG
-// Baseline and extended sequential Huffman JPEG, 8-bit, 1 or 3 components,
-// sampling factors up to 2, restart intervals. Decoded as libjpeg-turbo
-// decodes it for PIL: islow IDCT (jidctint.c), fancy upsampling
-// (jdsample.c), YCbCr→RGB (jdcolor.c); then PIL's luma.
+// Every JPEG that libjpeg-turbo decodes for PIL (8-bit samples), decoded as
+// it decodes it: sequential and progressive Huffman (jdhuff.c, jdphuff.c),
+// sequential and progressive arithmetic coding (jdarith.c), lossless
+// (jdlossls.c, jddiffct.c, jdlhuff.c); 1, 3 or 4 components, any integral
+// sampling ratio, restarts. DCT data fills libjpeg's coefficient buffer,
+// then block smoothing where a progressive file leaves its first
+// coefficients coarse (jdcoefct.c), the islow IDCT (jidctint.c),
+// upsampling (jdsample.c), colour conversion (jdcolor.c); then PIL's own
+// conversions: RGB luma, Adobe CMYK read inverted ("CMYK;I") and CMYK → RGB.
+// The kinds PIL refuses are refused here too, each with its own code.
 
 const uint8_t kZigzag[64 + 16] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
@@ -689,7 +703,46 @@ struct JHuff {
   }
 };
 
-struct JBits {
+// jstdhuff.c's tables (ITU T.81 K.3), which libjpeg-turbo installs for a
+// Huffman table 0 or 1 that no DHT defined (motion-JPEG frames): counts of
+// codes of each length, then the symbols
+const uint8_t kStdCounts[4][16] = {
+    {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},      // DC 0
+    {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0},      // DC 1
+    {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125},    // AC 0
+    {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119}};   // AC 1
+const uint8_t kStdDcSymbols[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kStdAcSymbols[2][162] = {
+    {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
+     0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
+     0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
+     0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+     0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
+     0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+     0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
+     0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+     0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
+     0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
+     0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+    {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
+     0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
+     0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
+     0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+     0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
+     0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+     0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
+     0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+     0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
+     0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
+     0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
+
+// steps over the next RSTn marker from pos (bytes before it are dropped)
+inline size_t skip_restart_marker(const uint8_t* d, size_t n, size_t pos) {
+  while (pos + 1 < n && !(d[pos] == 0xFF && d[pos + 1] >= 0xD0 && d[pos + 1] <= 0xD7)) ++pos;
+  return pos + 1 < n ? pos + 2 : pos;
+}
+
+struct JBits {  // Huffman-coded data
   const uint8_t* d;
   size_t n, pos;
   uint64_t buf = 0;
@@ -747,20 +800,115 @@ struct JBits {
     buf = 0;
     cnt = 0;
     marker = false;
-    while (pos + 1 < n && !(d[pos] == 0xFF && d[pos + 1] >= 0xD0 && d[pos + 1] <= 0xD7)) ++pos;
-    if (pos + 1 < n) pos += 2;
+    pos = skip_restart_marker(d, n, pos);
   }
 };
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
+// jaricom.c's jpeg_aritab, ITU T.81 Table D.2 packed as
+// (Qe << 16) | (Next_Index_MPS << 8) | (Switch_MPS << 7) | Next_Index_LPS;
+// entry 113 is the fixed 0.5 estimate of sign and refinement bits
+const uint32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+struct JArith {  // the QM decoder of jdarith.c (ITU T.81 Annex D)
+  const uint8_t* d;
+  size_t n, pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // reads two bytes into C before the first decision
+  bool marker = false;  // reached a marker: zero data from here on
+
+  int byte() {
+    if (marker || pos >= n) {
+      marker = true;
+      return 0;
+    }
+    if (d[pos] != 0xFF) return d[pos++];
+    size_t p = pos + 1;
+    while (p < n && d[p] == 0xFF) ++p;  // fill bytes
+    if (p < n && d[p] == 0) {
+      pos = p + 1;
+      return 0xFF;  // a stuffed zero
+    }
+    marker = true;
+    return 0;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;  // two initial bytes read: A = 0x10000 below
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    const uint32_t e = kAritab[sv & 0x7F];
+    const int nl = e & 0xFF, nm = (e >> 8) & 0xFF;
+    const int64_t qe = e >> 16;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional exchange: the MPS
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {  // conditional exchange: the LPS
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  void restart() {
+    pos = skip_restart_marker(d, n, pos);
+    c = a = 0;
+    ct = -16;
+    marker = false;
+  }
+};
+
 struct JComp {
   int id = 0, h = 1, v = 1, tq = 0;
-  int bw = 0, bh = 0;  // allocated blocks per row / column
+  int bw = 0, bh = 0;  // allocated blocks (samples when lossless) per row / column
   int width_in_blocks = 0, height_in_blocks = 0;
   int dw = 0, dh = 0;  // downsampled width / height
-  std::vector<int16_t> coef;  // 64 per block, natural order
-  int dc_pred = 0, td = 0, ta = 0;
+  std::vector<int16_t> coef;  // DCT: 64 per block, natural order
+  std::vector<int32_t> diff;  // lossless: one difference per sample
+  std::vector<uint8_t> first_row;  // lossless: rows predicted as the first row
+  int coef_bits[64];  // progressive: the Al each coefficient was last coded at, −1: never
+  uint16_t q[64];     // the quantization table latched at the component's first scan
+  bool latched = false;
+  int dc_pred = 0, td = 0, ta = 0, dc_context = 0;
+  int predictor = 1, point_transform = 0;  // lossless: its scan's Ss and Al
 };
 
 // jidctint.c's jpeg_idct_islow, with its descale and range limit
@@ -883,9 +1031,12 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) 
 
 // jdsample.c's upsamplers onto a full-size plane of W × H. Context rows
 // above the first row and below the last real row repeat those rows
-// (jdmainct.c); the first and last columns repeat likewise.
+// (jdmainct.c); the first and last columns repeat likewise. ``fancy``:
+// libjpeg's do_fancy (off in lossless mode, where blocks are one sample);
+// every other integral ratio replicates (h2v1_upsample, h2v2_upsample,
+// int_upsample).
 void upsample(const JComp& c, const uint8_t* src, int sstride, int hr, int vr, int W, int H,
-              std::vector<uint8_t>& dst) {
+              bool fancy, std::vector<uint8_t>& dst) {
   dst.assign((size_t)W * H, 0);
   const int cw = c.dw, chh = c.dh;
   auto at = [&](int y, int x) -> int {
@@ -893,7 +1044,7 @@ void upsample(const JComp& c, const uint8_t* src, int sstride, int hr, int vr, i
     x = std::min(std::max(x, 0), cw - 1);
     return src[(size_t)y * sstride + x];
   };
-  const bool fancy_h = cw > 2;
+  const bool fancy_h = fancy && cw > 2;
   for (int oy = 0; oy < H; ++oy) {
     uint8_t* o = dst.data() + (size_t)oy * W;
     const int cy = oy / vr;
@@ -904,7 +1055,7 @@ void upsample(const JComp& c, const uint8_t* src, int sstride, int hr, int vr, i
         const int cx = ox >> 1, t = at(cy, cx) * 3;
         o[ox] = (uint8_t)(ox & 1 ? (t + at(cy, cx + 1) + 2) >> 2 : (t + at(cy, cx - 1) + 1) >> 2);
       }
-    } else if (hr == 1 && vr == 2) {  // h1v2_fancy_upsample
+    } else if (hr == 1 && vr == 2 && fancy) {  // h1v2_fancy_upsample
       const int far = oy & 1 ? cy + 1 : cy - 1, bias = oy & 1 ? 2 : 1;
       for (int ox = 0; ox < W; ++ox) o[ox] = (uint8_t)((at(cy, ox) * 3 + at(far, ox) + bias) >> 2);
     } else if (hr == 2 && vr == 2 && fancy_h) {  // h2v2_fancy_upsample
@@ -914,11 +1065,128 @@ void upsample(const JComp& c, const uint8_t* src, int sstride, int hr, int vr, i
         const int cx = ox >> 1, t = colsum(cx) * 3;
         o[ox] = (uint8_t)(ox & 1 ? (t + colsum(cx + 1) + 7) >> 4 : (t + colsum(cx - 1) + 8) >> 4);
       }
-    } else {  // box replication (h2v1_upsample, h2v2_upsample)
+    } else {  // box replication
       for (int ox = 0; ox < W; ++ox) o[ox] = (uint8_t)at(cy, ox / hr);
     }
   }
 }
+
+// jdcoefct.c's decompress_smooth_data (libjpeg-turbo 2.1 and later): a
+// progressive component whose first AC coefficients (zigzag 1-9) are not
+// all known to full precision gets estimates of the zero ones from the
+// 5×5 neighbourhood of DC values, and its DC too when no AC coefficient
+// was ever sent. Columns past the component's blocks repeat the edge;
+// rows follow jdcoefct.c's numbering (``rows``).
+struct Smoother {
+  const JComp& c;
+  int vs, total_imcu_rows;
+  bool change_dc;
+  const int* bits;  // coef_bits[0..9] of the component
+  int64_t Q00 = 0, Q01 = 0, Q10 = 0, Q20 = 0, Q11 = 0, Q02 = 0, Q03 = 0, Q12 = 0, Q21 = 0,
+          Q30 = 0;
+
+  int dc(int by, int bx) const {  // a DC of the component's own block grid, edge repeated
+    bx = std::min(std::max(bx, 0), c.width_in_blocks - 1);
+    return c.coef[((size_t)by * c.bw + bx) * 64];
+  }
+  static int estimate(int64_t num, int64_t q, int al) {
+    int pred;
+    if (num >= 0) {
+      pred = (int)(((q << 7) + num) / (q << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    } else {
+      pred = (int)(((q << 7) - num) / (q << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      pred = -pred;
+    }
+    return pred;
+  }
+  // the block rows that stand for rows −2..+2 of image block row ``row``.
+  // jdcoefct.c numbers the rows as if every iMCU row held as many block
+  // rows as the current one (``block_rows``, fewer in the last iMCU row),
+  // so a row below the component's last (an MCU's padding) can be a
+  // neighbour, and the last iMCU row's neighbours above can repeat.
+  void rows(int row, int r[5]) const {
+    const int imcu = row / vs, b = row % vs;
+    int block_rows = vs;
+    if (imcu == total_imcu_rows - 1) {
+      block_rows = c.height_in_blocks % vs;
+      if (block_rows == 0) block_rows = vs;
+    }
+    const int image_row = imcu * block_rows + b, image_rows = block_rows * total_imcu_rows;
+    r[2] = row;
+    r[1] = image_row > 0 ? row - 1 : row;
+    r[0] = image_row > 1 ? row - 2 : r[1];
+    r[3] = image_row < image_rows - 1 ? row + 1 : row;
+    r[4] = image_row < image_rows - 2 ? row + 2 : r[3];
+  }
+  void block(int by, int bx, int16_t* w) const {
+    int r[5];
+    rows(by, r);
+    int DC[26];  // DC01..DC25, row-major over rows −2..+2 and columns −2..+2
+    for (int i = 0; i < 5; ++i)
+      for (int j = 0; j < 5; ++j) DC[1 + 5 * i + j] = dc(r[i], bx - 2 + j);
+    const int DC01 = DC[1], DC02 = DC[2], DC03 = DC[3], DC04 = DC[4], DC05 = DC[5];
+    const int DC06 = DC[6], DC07 = DC[7], DC08 = DC[8], DC09 = DC[9], DC10 = DC[10];
+    const int DC11 = DC[11], DC12 = DC[12], DC13 = DC[13], DC14 = DC[14], DC15 = DC[15];
+    const int DC16 = DC[16], DC17 = DC[17], DC18 = DC[18], DC19 = DC[19], DC20 = DC[20];
+    const int DC21 = DC[21], DC22 = DC[22], DC23 = DC[23], DC24 = DC[24], DC25 = DC[25];
+    int al;
+    if ((al = bits[1]) != 0 && w[1] == 0) {  // AC01
+      const int64_t num = Q00 * (change_dc
+          ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 + 3 * DC10 -
+             3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 -
+             13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25)
+          : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15));
+      w[1] = (int16_t)estimate(num, Q01, al);
+    }
+    if ((al = bits[2]) != 0 && w[8] == 0) {  // AC10
+      const int64_t num = Q00 * (change_dc
+          ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 + 38 * DC08 +
+             13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+             3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+          : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23));
+      w[8] = (int16_t)estimate(num, Q10, al);
+    }
+    if ((al = bits[3]) != 0 && w[16] == 0) {  // AC20
+      const int64_t num = Q00 * (change_dc
+          ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 - 5 * DC14 +
+             2 * DC17 + 7 * DC18 + 2 * DC19 + DC23)
+          : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23));
+      w[16] = (int16_t)estimate(num, Q20, al);
+    }
+    if ((al = bits[4]) != 0 && w[9] == 0) {  // AC11
+      const int64_t num = Q00 * (change_dc
+          ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 - DC25)
+          : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 + DC04 - DC06 +
+             10 * DC07 - 10 * DC09));
+      w[9] = (int16_t)estimate(num, Q11, al);
+    }
+    if ((al = bits[5]) != 0 && w[2] == 0) {  // AC02
+      const int64_t num = Q00 * (change_dc
+          ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 + 7 * DC14 + DC15 +
+             2 * DC17 - 5 * DC18 + 2 * DC19)
+          : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15));
+      w[2] = (int16_t)estimate(num, Q02, al);
+    }
+    if (change_dc) {
+      if ((al = bits[6]) != 0 && w[3] == 0)  // AC03
+        w[3] = (int16_t)estimate(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19), Q03, al);
+      if ((al = bits[7]) != 0 && w[10] == 0)  // AC12
+        w[10] = (int16_t)estimate(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19), Q12, al);
+      if ((al = bits[8]) != 0 && w[17] == 0)  // AC21
+        w[17] = (int16_t)estimate(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19), Q21, al);
+      if ((al = bits[9]) != 0 && w[24] == 0)  // AC30
+        w[24] = (int16_t)estimate(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19), Q30, al);
+      const int64_t num = Q00 *
+          (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 + 6 * DC07 +
+           42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 -
+           8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 - 2 * DC21 -
+           6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25);
+      w[0] = (int16_t)estimate(num, Q00, 0);
+    }
+  }
+};
 
 struct JpegDecoder {
   const uint8_t* d;
@@ -927,27 +1195,39 @@ struct JpegDecoder {
   uint16_t qt[4][64];  // natural order
   bool qt_present[4] = {false, false, false, false};
   JHuff dc[4], ac[4];
+  uint8_t arith_L[16], arith_U[16], arith_K[16];  // DAC conditioning
   std::vector<JComp> comps;
   int W = 0, H = 0, hmax = 1, vmax = 1, restart_interval = 0;
-  int mcux = 0, mcuy = 0;
-  bool frame = false, adobe = false;
+  int mcux = 0, mcuy = 0, precision = 8;
+  bool frame = false, progressive = false, arith = false, lossless = false;
+  bool jfif = false, adobe = false;
   int adobe_transform = -1;
+  // the arithmetic decoder's statistics (jdarith.c)
+  uint8_t dc_stats[16][64], ac_stats[16][256], fixed_bin = 113;
 
   int u16(size_t p) const { return (d[p] << 8) | d[p + 1]; }
 
   int read_frame(size_t p, int len, int marker) {
-    if (marker != 0xC0 && marker != 0xC1) return kUnsupported;
+    // SOF5-7 and SOF13-15: hierarchical (differential) frames
+    if ((marker >= 0xC5 && marker <= 0xC7) || marker >= 0xCD) return kHierarchical;
     if (len < 8) return kCorrupt;
-    if (d[p] != 8) return kUnsupported;  // 12-bit
+    precision = d[p];
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arith = marker >= 0xC9;
+    lossless = marker == 0xC3 || marker == 0xCB;
     H = u16(p + 1);
     W = u16(p + 3);
     const int nc = d[p + 5];
-    if (H == 0) return kUnsupported;  // height from a DNL marker
-    if (W == 0) return kCorrupt;
-    if (nc == 4) return kUnsupported;  // CMYK / YCCK
-    if (nc != 1 && nc != 3) return kCorrupt;
     if (len < 8 + 3 * nc) return kCorrupt;
+    // PIL's JpegImagePlugin refuses these at its own SOF: precision
+    // other than 8 bits, and other component counts than 1, 3 or 4
+    if (precision != 8) return kPrecision;
+    if (nc != 1 && nc != 3 && nc != 4) return kComponents;
+    if (H == 0) return kDNL;  // libjpeg-turbo: "Empty JPEG image (DNL not supported)"
+    if (W == 0) return kCorrupt;
+    if (lossless && arith) return kArithLossless;
     comps.assign(nc, JComp());
+    hmax = vmax = 1;
     for (int i = 0; i < nc; ++i) {
       JComp& c = comps[i];
       c.id = d[p + 6 + 3 * i];
@@ -957,23 +1237,27 @@ struct JpegDecoder {
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) return kCorrupt;
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
+      for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
     }
-    if (nc == 1) {  // one component: never subsampled against itself
-      comps[0].h = comps[0].v = hmax = vmax = 1;
-    }
-    for (JComp& c : comps) {
-      if (hmax % c.h || vmax % c.v || hmax / c.h > 2 || vmax / c.v > 2) return kUnsupported;
-    }
-    mcux = (W + 8 * hmax - 1) / (8 * hmax);
-    mcuy = (H + 8 * vmax - 1) / (8 * vmax);
+    for (JComp& c : comps)
+      if (hmax % c.h || vmax % c.v) return kFractional;  // jdsample.c refuses it
+    const int unit = lossless ? 1 : 8;
+    mcux = (W + unit * hmax - 1) / (unit * hmax);
+    mcuy = (H + unit * vmax - 1) / (unit * vmax);
     for (JComp& c : comps) {
       c.dw = (int)(((int64_t)W * c.h + hmax - 1) / hmax);
       c.dh = (int)(((int64_t)H * c.v + vmax - 1) / vmax);
-      c.width_in_blocks = (c.dw + 7) / 8;
-      c.height_in_blocks = (c.dh + 7) / 8;
+      c.width_in_blocks = (c.dw + unit - 1) / unit;
+      c.height_in_blocks = (c.dh + unit - 1) / unit;
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
-      c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+      if (lossless) {
+        c.diff.assign((size_t)c.bw * c.bh, 0);
+        c.first_row.assign(c.bh, 0);
+        c.first_row[0] = 1;
+      } else {
+        c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+      }
     }
     frame = true;
     return kOk;
@@ -1008,7 +1292,25 @@ struct JpegDecoder {
     return kOk;
   }
 
-  int decode_block(JBits& bits, JComp& c, int16_t* blk) {
+  int read_dac(size_t p, int len) {
+    const size_t end = p + len - 2;
+    for (size_t q = p; q + 2 <= end; q += 2) {
+      const int index = d[q], val = d[q + 1];
+      if (index >= 32) return kCorrupt;
+      if (index >= 16) {
+        if (val < 1 || val > 63) return kCorrupt;
+        arith_K[index - 16] = (uint8_t)val;
+      } else {
+        arith_L[index] = (uint8_t)(val & 15);
+        arith_U[index] = (uint8_t)(val >> 4);
+        if (arith_L[index] > arith_U[index]) return kCorrupt;
+      }
+    }
+    return kOk;
+  }
+
+  // ---------------------------------------------------- Huffman, sequential
+  int huff_block(JBits& bits, JComp& c, int16_t* blk) {
     const int s = bits.decode(dc[c.td]);
     if (s < 0 || s > 16) return kCorrupt;
     const int diff = s ? extend(bits.get(s), s) : 0;
@@ -1031,6 +1333,169 @@ struct JpegDecoder {
     return kOk;
   }
 
+  // --------------------------------------------------- Huffman, progressive
+  int eobrun = 0;
+
+  int huff_dc_first(JBits& bits, JComp& c, int16_t* blk, int al) {
+    const int s = bits.decode(dc[c.td]);
+    if (s < 0 || s > 16) return kCorrupt;
+    c.dc_pred = (int)((unsigned)c.dc_pred + (unsigned)(s ? extend(bits.get(s), s) : 0));
+    blk[0] = (int16_t)((unsigned)c.dc_pred << al);
+    return kOk;
+  }
+  int huff_ac_first(JBits& bits, JComp& c, int16_t* blk, int ss, int se, int al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return kOk;
+    }
+    const JHuff& t = ac[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      const int rs = bits.decode(t);
+      if (rs < 0) return kCorrupt;
+      int r = rs >> 4;
+      const int s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kZigzag[k]] = (int16_t)((unsigned)extend(bits.get(s), s) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += bits.get(r);
+        --eobrun;
+        break;
+      }
+    }
+    return kOk;
+  }
+  int huff_ac_refine(JBits& bits, JComp& c, int16_t* blk, int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    const JHuff& t = ac[c.ta];
+    int k = ss;
+    auto correct = [&](int16_t* coef) {
+      if (bits.get(1) && (*coef & p1) == 0) *coef = (int16_t)(*coef >= 0 ? *coef + p1 : *coef + m1);
+    };
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        const int rs = bits.decode(t);
+        if (rs < 0) return kCorrupt;
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = bits.get(1) ? p1 : m1;  // a newly nonzero coefficient's sign
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += bits.get(r);
+          break;  // the rest of this band is the first block of the run
+        }
+        do {
+          int16_t* coef = blk + kZigzag[k];
+          if (*coef != 0) {
+            correct(coef);
+          } else {
+            if (--r < 0) break;  // the zero coefficient that takes the new value
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kZigzag[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t* coef = blk + kZigzag[k];
+        if (*coef != 0) correct(coef);
+      }
+      --eobrun;
+    }
+    return kOk;
+  }
+
+  // ------------------------------------------------------------ arithmetic
+  void arith_dc(JArith& ar, JComp& c, int& last) {
+    uint8_t* base = dc_stats[c.td];
+    uint8_t* st = base + c.dc_context;
+    if (ar.decode(st) == 0) {
+      c.dc_context = 0;
+      return;
+    }
+    const int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m = ar.decode(st);
+    if (m != 0) {
+      st = base + 20;
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) return;  // a corrupt magnitude: libjpeg stops the scan
+        ++st;
+      }
+    }
+    if (m < (int)((1L << arith_L[c.td]) >> 1)) c.dc_context = 0;
+    else if (m > (int)((1L << arith_U[c.td]) >> 1)) c.dc_context = 12 + sign * 4;
+    else c.dc_context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    last = (last + v) & 0xffff;
+  }
+  // one nonzero AC value's sign, magnitude category and bits (st: its S0 + 2)
+  int arith_ac_value(JArith& ar, uint8_t* st, uint8_t* base, int k, int tbl) {
+    const int sign = ar.decode(&fixed_bin);
+    int m = ar.decode(st);
+    if (m != 0 && ar.decode(st)) {
+      m <<= 1;
+      st = base + (k <= arith_K[tbl] ? 189 : 217);
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) return 0;
+        ++st;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+  }
+  void arith_ac_first(JArith& ar, JComp& c, int16_t* blk, int ss, int se, int al) {
+    uint8_t* base = ac_stats[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = base + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) return;  // a corrupt spectral overflow
+      }
+      const int v = arith_ac_value(ar, st + 2, base, k, c.ta);
+      blk[kZigzag[k]] = (int16_t)((unsigned)v << al);
+    }
+  }
+  void arith_ac_refine(JArith& ar, JComp& c, int16_t* blk, int ss, int se, int al) {
+    uint8_t* base = ac_stats[c.ta];
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int kex = se;  // the previous stage's end of block
+    for (; kex > 0; --kex)
+      if (blk[kZigzag[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = base + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = blk + kZigzag[k];
+        if (*coef) {
+          if (ar.decode(st + 2)) *coef = (int16_t)(*coef < 0 ? *coef + m1 : *coef + p1);
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          *coef = (int16_t)(ar.decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) return;
+      }
+    }
+  }
+
+  // ------------------------------------------------------------------ scans
   int read_scan(size_t p, int len, size_t& next) {
     if (!frame) return kCorrupt;
     const int ns = d[p];
@@ -1042,27 +1507,97 @@ struct JpegDecoder {
       for (JComp& k : comps)
         if (k.id == id) c = &k;
       if (!c) return kCorrupt;
+      for (JComp* o : sc)
+        if (o == c) return kCorrupt;
       c->td = d[p + 2 + 2 * i] >> 4;
       c->ta = d[p + 2 + 2 * i] & 15;
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].present || !ac[c->ta].present) return kCorrupt;
-      if (!qt_present[c->tq]) return kCorrupt;
       sc.push_back(c);
     }
     const size_t q = p + 1 + 2 * ns;
-    if (d[q] != 0 || d[q + 1] != 63 || d[q + 2] != 0) return kUnsupported;  // not sequential
-    for (JComp* c : sc) c->dc_pred = 0;
-    JBits bits{d, n, p + len - 2};
-    // one component: one block per MCU over its own block grid
+    const int ss = d[q], se = d[q + 1], ah = d[q + 2] >> 4, al = d[q + 2] & 15;
+    const bool dc_band = ss == 0;
+    if (lossless) {  // Ss: the predictor, Al: the point transform
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= precision) return kCorrupt;
+    } else if (progressive) {  // jdphuff.c / jdarith.c's progression checks
+      if (dc_band ? se != 0 : (ss > se || se > 63 || ns != 1)) return kCorrupt;
+      if (ah != 0 && al != ah - 1) return kCorrupt;
+      if (al > 13) return kCorrupt;
+    }
+    const bool dc_scan = !progressive || (dc_band && ah == 0);
+    const bool ac_scan = !progressive || !dc_band;
+    for (JComp* c : sc) {
+      if (arith) {
+        if (c->td > 15 || c->ta > 15) return kCorrupt;
+      } else {
+        if (c->td > 3 || c->ta > 3) return kCorrupt;
+        // an undefined table 0 or 1 is the standard one (jdhuff.c)
+        if (!dc[c->td].present && c->td < 2) dc[c->td].build(kStdCounts[c->td], kStdDcSymbols, 12);
+        if (!ac[c->ta].present && c->ta < 2)
+          ac[c->ta].build(kStdCounts[2 + c->ta], kStdAcSymbols[c->ta], 162);
+        if ((dc_scan || lossless) && !dc[c->td].present) return kCorrupt;
+        if (ac_scan && !lossless && !ac[c->ta].present) return kCorrupt;
+      }
+      if (!lossless && !c->latched) {  // jdinput.c's latch_quant_tables
+        if (!qt_present[c->tq]) return kCorrupt;
+        std::memcpy(c->q, qt[c->tq], sizeof(c->q));
+        c->latched = true;
+      }
+      if (progressive)
+        for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+      else if (!lossless)
+        for (int k = 0; k < 64; ++k) c->coef_bits[k] = 0;
+    }
+    // the MCU: one data unit of the component when it is alone, else h × v of each
     const bool single = ns == 1;
+    if (!single) {
+      int blocks = 0;
+      for (JComp* c : sc) blocks += c->h * c->v;
+      if (blocks > 10) return kMcuSize;  // libjpeg: "Sampling factors too large"
+    }
     const int mx = single ? sc[0]->width_in_blocks : mcux;
     const int my = single ? sc[0]->height_in_blocks : mcuy;
-    int todo = restart_interval;
+    if (lossless && restart_interval && restart_interval % mx) return kCorrupt;
+
+    for (JComp* c : sc) {
+      c->dc_pred = 0;
+      c->dc_context = 0;
+    }
+    eobrun = 0;
+    if (arith) {
+      for (JComp* c : sc) {
+        if (dc_scan) std::memset(dc_stats[c->td], 0, 64);
+        if (ac_scan) std::memset(ac_stats[c->ta], 0, 256);
+      }
+    }
+    JBits bits{d, n, p + len - 2};
+    JArith ar{d, n, p + len - 2};
+    int todo = restart_interval, rc = kOk;
     for (int y = 0; y < my; ++y) {
       for (int x = 0; x < mx; ++x) {
         if (restart_interval) {
           if (todo == 0) {
-            bits.restart();
-            for (JComp* c : sc) c->dc_pred = 0;
+            if (arith) {
+              ar.restart();
+              for (JComp* c : sc) {
+                if (dc_scan) std::memset(dc_stats[c->td], 0, 64);
+                if (ac_scan) std::memset(ac_stats[c->ta], 0, 256);
+              }
+            } else {
+              bits.restart();
+            }
+            for (JComp* c : sc) {
+              c->dc_pred = 0;
+              c->dc_context = 0;
+            }
+            eobrun = 0;
+            if (lossless) {  // the next sample rows predict as the first row
+              for (JComp* c : sc) {
+                const int vs = single ? 1 : c->v;
+                // jddiffct.c resets the predictor of the iMCU row being read
+                const int row = y * vs;
+                c->first_row[(size_t)(row / c->v) * c->v] = 1;
+              }
+            }
             todo = restart_interval;
           }
           --todo;
@@ -1072,24 +1607,112 @@ struct JpegDecoder {
           for (int by = 0; by < nv; ++by) {
             for (int bx = 0; bx < nh; ++bx) {
               const int row = y * nv + by, col = x * nh + bx;
+              if (lossless) {
+                const int s = bits.decode(dc[c->td]);
+                if (s < 0 || s > 16) return kCorrupt;
+                c->diff[(size_t)row * c->bw + col] =
+                    s == 16 ? 32768 : s ? extend(bits.get(s), s) : 0;
+                continue;
+              }
               int16_t* blk = c->coef.data() + ((size_t)row * c->bw + col) * 64;
-              const int rc = decode_block(bits, *c, blk);
+              if (arith) {
+                if (dc_scan) {
+                  arith_dc(ar, *c, c->dc_pred);
+                  blk[0] = (int16_t)((unsigned)c->dc_pred << (progressive ? al : 0));
+                } else if (dc_band) {
+                  if (ar.decode(&fixed_bin)) blk[0] = (int16_t)(blk[0] | (1 << al));
+                }
+                if (!progressive) arith_ac_first(ar, *c, blk, 1, 63, 0);
+                else if (!dc_band && ah == 0) arith_ac_first(ar, *c, blk, ss, se, al);
+                else if (!dc_band) arith_ac_refine(ar, *c, blk, ss, se, al);
+              } else if (!progressive) {
+                rc = huff_block(bits, *c, blk);
+              } else if (dc_band) {
+                if (ah == 0) rc = huff_dc_first(bits, *c, blk, al);
+                else if (bits.get(1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+              } else if (ah == 0) {
+                rc = huff_ac_first(bits, *c, blk, ss, se, al);
+              } else {
+                rc = huff_ac_refine(bits, *c, blk, ss, se, al);
+              }
               if (rc) return rc;
             }
           }
         }
       }
     }
+    if (lossless)
+      for (JComp* c : sc) c->predictor = ss, c->point_transform = al;
     // the next marker follows the entropy-coded data
-    size_t e = bits.pos;
-    while (e + 1 < n && !(d[e] == 0xFF && d[e + 1] != 0x00 && !(d[e + 1] >= 0xD0 && d[e + 1] <= 0xD7)))
+    size_t e = std::max(bits.pos, ar.pos);
+    while (e + 1 < n && !(d[e] == 0xFF && d[e + 1] != 0x00 && d[e + 1] != 0xFF &&
+                          !(d[e + 1] >= 0xD0 && d[e + 1] <= 0xD7)))
       ++e;
     next = e;
     return kOk;
   }
+  // jdlossls.c's undifferencing and jddiffct.c's scaling of one component
+  void undifference(const JComp& c, std::vector<uint8_t>& plane) const {
+    const int w = c.width_in_blocks;
+    std::vector<int> prev(w), cur(w);
+    plane.assign((size_t)c.bw * c.bh, 0);
+    const int init = 1 << (precision - c.point_transform - 1);
+    for (int y = 0; y < c.height_in_blocks; ++y) {
+      const int32_t* df = c.diff.data() + (size_t)y * c.bw;
+      if (c.first_row[y]) {
+        int ra = (df[0] + init) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < w; ++x) cur[x] = ra = (df[x] + ra) & 0xFFFF;
+      } else {
+        int rb = prev[0];
+        int ra = (df[0] + rb) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < w; ++x) {
+          const int rc = rb;
+          rb = prev[x];
+          int pr;
+          switch (c.predictor) {
+            case 1: pr = ra; break;
+            case 2: pr = rb; break;
+            case 3: pr = rc; break;
+            case 4: pr = ra + rb - rc; break;
+            case 5: pr = ra + ((rb - rc) >> 1); break;
+            case 6: pr = rb + ((ra - rc) >> 1); break;
+            default: pr = (ra + rb) >> 1; break;
+          }
+          cur[x] = ra = (df[x] + pr) & 0xFFFF;
+        }
+      }
+      uint8_t* o = plane.data() + (size_t)y * c.bw;
+      for (int x = 0; x < w; ++x) o[x] = (uint8_t)(cur[x] << c.point_transform);
+      std::swap(prev, cur);
+    }
+  }
+
+  // smoothing_ok (jdcoefct.c): a progressive file whose components all have
+  // some DC and nonzero quantizers at the first ten zigzag positions, and
+  // one of whose first nine AC coefficients is not known to full precision
+  bool smoothing_ok() const {
+    if (!progressive) return false;
+    bool useful = false;
+    for (const JComp& c : comps) {
+      if (!c.latched) return false;
+      for (int k = 0; k < 10; ++k)
+        if (c.q[kZigzag[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
+  }
 
   int decode(std::vector<uint8_t>& gray) {
     if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) return kCorrupt;
+    for (int i = 0; i < 16; ++i) {
+      arith_L[i] = 0;
+      arith_U[i] = 1;
+      arith_K[i] = 5;
+    }
     pos = 2;
     bool scanned = false;
     while (true) {
@@ -1111,24 +1734,21 @@ struct JpegDecoder {
       } else if (m == 0xDD) {
         if (len < 4) return kCorrupt;
         restart_interval = u16(body);
-      } else if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
+      } else if (m == 0xCC) {
+        rc = read_dac(body, len);
+      } else if (m == 0xDE) {
+        return kHierarchical;  // DHP: libjpeg-turbo has no hierarchical mode
+      } else if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8) {
         if (frame) return kCorrupt;
         rc = read_frame(body, len, m);
-      } else if (m == 0xCC) {
-        return kUnsupported;  // arithmetic-coding conditioning
+      } else if (m == 0xE0) {
+        if (len >= 16 && !std::memcmp(d + body, "JFIF\0", 5)) jfif = true;
       } else if (m == 0xEE) {
         if (len >= 14 && !std::memcmp(d + body, "Adobe", 5)) {
           adobe = true;
           adobe_transform = d[body + 11];
         }
       } else if (m == 0xDA) {
-        if (frame && comps.size() == 3) {
-          // libjpeg's colour space: an Adobe transform of 0 or the ids
-          // 'R', 'G', 'B' mean RGB, which is not decoded here
-          const bool rgb = adobe ? adobe_transform == 0
-                                 : (comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B');
-          if (rgb) return kUnsupported;
-        }
         size_t next = 0;
         rc = read_scan(body, len, next);
         if (rc) return rc;
@@ -1140,23 +1760,64 @@ struct JpegDecoder {
       pos += len;
     }
     if (!frame || !scanned) return kCorrupt;
-    // IDCT every block onto its component's plane, upsample, convert
-    std::vector<std::vector<uint8_t>> full(comps.size());
-    for (size_t ci = 0; ci < comps.size(); ++ci) {
-      JComp& c = comps[ci];
-      const int stride = c.bw * 8;
-      std::vector<uint8_t> plane((size_t)stride * c.bh * 8);
-      for (int by = 0; by < c.bh; ++by)
-        for (int bx = 0; bx < c.bw; ++bx)
-          idct_islow(c.coef.data() + ((size_t)by * c.bw + bx) * 64, qt[c.tq],
-                     plane.data() + (size_t)by * 8 * stride + bx * 8, stride);
-      upsample(c, plane.data(), stride, hmax / c.h, vmax / c.v, W, H, full[ci]);
+
+    // the colour space libjpeg-turbo assumes (jdapimin.c default_decompress_parms)
+    const size_t nc = comps.size();
+    enum { kGray, kYCbCr, kRGB, kCMYK, kYCCK } space = kGray;
+    if (nc == 3) {
+      const bool rgb_ids = comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B';
+      if (jfif) space = kYCbCr;
+      else if (adobe) space = adobe_transform == 0 ? kRGB : kYCbCr;
+      else if (rgb_ids || lossless) space = kRGB;  // lossless: "or RGB (lossless)"
+      else space = kYCbCr;
+    } else if (nc == 4) {
+      space = adobe && adobe_transform != 0 ? kYCCK : kCMYK;
     }
-    if (comps.size() == 1) {
+    // lossless mode converts no colour
+    if (lossless && (space == kYCbCr || space == kYCCK)) return kLosslessColour;
+
+    std::vector<std::vector<uint8_t>> full(nc);
+    const bool smooth = smoothing_ok();
+    for (size_t ci = 0; ci < nc; ++ci) {
+      JComp& c = comps[ci];
+      std::vector<uint8_t> plane;
+      int stride;
+      if (lossless) {
+        stride = c.bw;
+        undifference(c, plane);
+      } else {
+        stride = c.bw * 8;
+        plane.assign((size_t)stride * c.bh * 8, 0);
+        Smoother sm{c, c.v, mcuy, false, c.coef_bits};
+        if (smooth) {
+          const int* b = c.coef_bits;
+          sm.change_dc = true;
+          for (int k = 1; k < 10; ++k)
+            if (b[k] != -1) sm.change_dc = false;
+          const uint16_t* q = c.q;
+          sm.Q00 = q[0], sm.Q01 = q[1], sm.Q10 = q[8], sm.Q20 = q[16], sm.Q11 = q[9];
+          sm.Q02 = q[2], sm.Q03 = q[3], sm.Q12 = q[10], sm.Q21 = q[17], sm.Q30 = q[24];
+        }
+        int16_t work[64];
+        for (int by = 0; by < c.bh; ++by)
+          for (int bx = 0; bx < c.bw; ++bx) {
+            const int16_t* blk = c.coef.data() + ((size_t)by * c.bw + bx) * 64;
+            if (smooth && by < c.height_in_blocks && bx < c.width_in_blocks) {
+              std::memcpy(work, blk, sizeof(work));
+              sm.block(by, bx, work);
+              blk = work;
+            }
+            idct_islow(blk, c.q, plane.data() + (size_t)by * 8 * stride + bx * 8, stride);
+          }
+      }
+      upsample(c, plane.data(), stride, hmax / c.h, vmax / c.v, W, H, !lossless, full[ci]);
+    }
+    const size_t npx = (size_t)W * H;
+    if (nc == 1) {
       gray.swap(full[0]);
       return kOk;
     }
-    // jdcolor.c's build_ycc_rgb_table and ycc_rgb_convert
+    // jdcolor.c's build_ycc_rgb_table
     int cr_r[256], cb_b[256];
     int64_t cr_g[256], cb_g[256];
     for (int i = 0; i < 256; ++i) {
@@ -1167,43 +1828,220 @@ struct JpegDecoder {
       cb_g[i] = -22554 * x + 32768;
     }
     auto clamp = [](int v) { return v < 0 ? 0 : v > 255 ? 255 : v; };
-    gray.assign((size_t)W * H, 0);
-    const uint8_t *Y = full[0].data(), *Cb = full[1].data(), *Cr = full[2].data();
-    for (size_t i = 0; i < (size_t)W * H; ++i) {
-      const int y = Y[i], cb = Cb[i], cr = Cr[i];
-      const int r = clamp(y + cr_r[cr]);
-      const int g = clamp(y + (int)((cb_g[cb] + cr_g[cr]) >> 16));
-      const int b = clamp(y + cb_b[cb]);
-      gray[i] = pil_luma(r, g, b);
+    auto ycc_rgb = [&](int y, int cb, int cr, int& r, int& g, int& b) {
+      r = clamp(y + cr_r[cr]);
+      g = clamp(y + (int)((cb_g[cb] + cr_g[cr]) >> 16));
+      b = clamp(y + cb_b[cb]);
+    };
+    gray.assign(npx, 0);
+    const uint8_t *P0 = full[0].data(), *P1 = full[1].data(), *P2 = full[2].data();
+    if (nc == 3) {
+      for (size_t i = 0; i < npx; ++i) {
+        int r = P0[i], g = P1[i], b = P2[i];
+        if (space == kYCbCr) ycc_rgb(P0[i], P1[i], P2[i], r, g, b);
+        gray[i] = pil_luma(r, g, b);
+      }
+      return kOk;
+    }
+    // four components: libjpeg's CMYK (YCCK converted: 255 − RGB, K as is),
+    // PIL's "CMYK;I" inversion, then its cmyk2rgb (MULDIV255) and luma
+    const uint8_t* P3 = full[3].data();
+    auto muldiv255 = [](int a, int b) {
+      const int t = a * b + 128;
+      return ((t >> 8) + t) >> 8;
+    };
+    for (size_t i = 0; i < npx; ++i) {
+      int cc, mm, yy;
+      if (space == kYCCK) {
+        ycc_rgb(P0[i], P1[i], P2[i], cc, mm, yy);  // 255 − (255 − x) after the inversion
+      } else {
+        cc = 255 - P0[i];
+        mm = 255 - P1[i];
+        yy = 255 - P2[i];
+      }
+      const int nk = P3[i];  // 255 − K, K = 255 − the file's sample
+      gray[i] = pil_luma(clamp(nk - muldiv255(cc, nk)), clamp(nk - muldiv255(mm, nk)),
+                         clamp(nk - muldiv255(yy, nk)));
     }
     return kOk;
   }
 };
 
-// ========================================================== PGM (P5)
+// ================================================= netpbm (P1-P6)
+// As PIL's PpmImagePlugin reads it, then convert("L"): binary P4/P5/P6 and
+// plain P1/P2/P3; P5 at maxval 255 raw, 65535 big-endian raw (mode "I"),
+// any other maxval scaled as round(v / maxval · 255) (or · 65535 in mode
+// "I", maxval > 255), rounded half to even, then clipped at 255; RGB
+// through PIL's luma; bitmaps 1 = black.
 
-int decode_pgm(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, int& h) {
-  size_t p = 2;
-  int fields[3];
-  for (int f = 0; f < 3; ++f) {
-    while (p < n && (std::isspace(d[p]) || d[p] == '#')) {
-      if (d[p] == '#')
-        while (p < n && d[p] != '\n') ++p;
-      else
-        ++p;
+inline bool pnm_space(int c) {
+  return c == ' ' || c == '\t' || c == '\n' || c == '\v' || c == '\f' || c == '\r';
+}
+
+// Python's int() of an ASCII token: an optional sign, digits, single
+// underscores between digits
+bool py_int(const std::string& t, int64_t& v) {
+  size_t i = 0;
+  bool neg = false;
+  if (i < t.size() && (t[i] == '+' || t[i] == '-')) neg = t[i++] == '-';
+  if (i >= t.size() || !std::isdigit((unsigned char)t[i])) return false;
+  v = 0;
+  for (; i < t.size(); ++i) {
+    if (t[i] == '_') {
+      if (i + 1 >= t.size() || !std::isdigit((unsigned char)t[i + 1])) return false;
+      continue;
     }
-    if (p >= n || !std::isdigit(d[p])) return kCorrupt;
-    int64_t v = 0;
-    while (p < n && std::isdigit(d[p]) && v < (1 << 30)) v = v * 10 + (d[p++] - '0');
-    fields[f] = (int)v;
+    if (!std::isdigit((unsigned char)t[i])) return false;
+    v = v * 10 + (t[i] - '0');
   }
-  w = fields[0];
-  h = fields[1];
-  if (fields[2] != 255) return kUnsupported;
-  ++p;  // the one whitespace byte before the samples
-  if (w <= 0 || h <= 0 || p + (size_t)w * h > n) return kCorrupt;
-  gray.assign(d + p, d + p + (size_t)w * h);
+  if (neg) v = -v;
+  return true;
+}
+
+// PpmImageFile._read_token: whitespace before a token is skipped, a '#'
+// drops the rest of its line (up to CR or LF, consumed) and the token goes
+// on; a token ends at whitespace (consumed); more than 10 bytes is an error
+int pnm_token(const uint8_t* d, size_t n, size_t& pos, int64_t& v) {
+  std::string tok;
+  while (tok.size() <= 10) {
+    if (pos >= n) break;
+    const int c = d[pos++];
+    if (pnm_space(c)) {
+      if (tok.empty()) continue;
+      break;
+    }
+    if (c == '#') {
+      while (pos < n) {
+        const int x = d[pos++];
+        if (x == '\r' || x == '\n') break;
+      }
+      continue;
+    }
+    tok.push_back((char)c);
+  }
+  if (tok.empty() || tok.size() > 10 || !py_int(tok, v)) return kCorrupt;
   return kOk;
+}
+
+struct PnmHeader {
+  int kind = 0;  // 1..6
+  int64_t w = 0, h = 0, maxval = 1;
+  size_t data = 0;  // offset of the first sample
+};
+
+int pnm_header(const uint8_t* d, size_t n, PnmHeader& hd) {
+  std::string magic;  // _read_magic: up to 6 bytes, ended by whitespace (consumed)
+  size_t pos = 0;
+  while (magic.size() < 6 && pos < n) {
+    const int c = d[pos++];
+    if (pnm_space(c)) break;
+    magic.push_back((char)c);
+  }
+  if (magic.size() == 2 && magic[0] == 'P' && magic[1] >= '1' && magic[1] <= '6') {
+    hd.kind = magic[1] - '0';
+  } else if (magic == "Pf" || magic == "P0CMYK" || magic == "PyP" || magic == "PyRGBA" ||
+             magic == "PyCMYK") {
+    return kPnmKind;
+  } else {
+    return kCorrupt;
+  }
+  int rc;
+  if ((rc = pnm_token(d, n, pos, hd.w)) || (rc = pnm_token(d, n, pos, hd.h))) return rc;
+  if (hd.w <= 0 || hd.h <= 0 || hd.w > (1 << 24) || hd.h > (1 << 24)) return kCorrupt;
+  if (hd.kind != 1 && hd.kind != 4) {
+    if ((rc = pnm_token(d, n, pos, hd.maxval))) return rc;
+    if (hd.maxval <= 0 || hd.maxval >= 65536) return kCorrupt;
+  }
+  hd.data = pos;
+  return kOk;
+}
+
+// the plain kinds' body with PpmPlainDecoder's comment removal: '#' up to
+// and including the first CR or LF is deleted wherever it stands
+void pnm_strip_comments(const uint8_t* d, size_t n, size_t pos, std::vector<uint8_t>& out) {
+  out.clear();
+  out.reserve(n - pos);
+  while (pos < n) {
+    if (d[pos] == '#') {
+      while (pos < n && d[pos] != '\n' && d[pos] != '\r') ++pos;
+      ++pos;  // the line end goes too
+      continue;
+    }
+    out.push_back(d[pos++]);
+  }
+}
+
+int decode_pnm(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, int& h) {
+  PnmHeader hd;
+  int rc = pnm_header(d, n, hd);
+  if (rc) return rc;
+  w = (int)hd.w;
+  h = (int)hd.h;
+  const size_t npx = (size_t)w * h;
+  const int bands = (hd.kind == 3 || hd.kind == 6) ? 3 : 1;
+  const int64_t maxval = hd.maxval;
+  const bool mode_i = bands == 1 && maxval > 255 && hd.kind != 1 && hd.kind != 4;
+  const double out_max = mode_i ? 65535.0 : 255.0;
+  // min(out_max, round(v / maxval · out_max)), then mode "I"'s clip at 255
+  auto scale = [&](int64_t v) -> int {
+    return (int)std::min(255.0, std::min(out_max, std::nearbyint((double)v / maxval * out_max)));
+  };
+  const uint8_t* p = d + hd.data;
+  const size_t avail = n - hd.data;
+  if (hd.kind == 4) {  // "1;I": rows of ceil(w / 8) bytes, MSB first, 1 = black
+    const size_t row = ((size_t)w + 7) / 8;
+    if (avail < row * h) return kCorrupt;
+    gray.resize(npx);
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x)
+        gray[(size_t)y * w + x] = (p[y * row + x / 8] >> (7 - x % 8)) & 1 ? 0 : 255;
+    return kOk;
+  }
+  std::vector<int> s(npx * bands);
+  if (hd.kind == 5 || hd.kind == 6) {
+    const int bytes = maxval < 256 ? 1 : 2;
+    if (avail < npx * bands * bytes) return kCorrupt;
+    // the raw decoder at maxval 255 (and 65535 gray), else PpmDecoder,
+    // which scales and raises on no sample past maxval
+    const bool raw = maxval == 255 || (maxval == 65535 && bands == 1);
+    for (size_t i = 0; i < npx * bands; ++i) {
+      const int64_t v = bytes == 1 ? p[i] : (p[2 * i] << 8) | p[2 * i + 1];
+      s[i] = raw ? (int)std::min<int64_t>(v, 255) : scale(v);
+    }
+  } else {
+    std::vector<uint8_t> body;
+    pnm_strip_comments(d, n, hd.data, body);
+    size_t i = 0, q = 0;
+    const size_t want = npx * bands;
+    if (hd.kind == 1) {  // every non-space byte is a token, '0' or '1'
+      for (; q < body.size() && i < want; ++q) {
+        if (pnm_space(body[q])) continue;
+        if (body[q] != '0' && body[q] != '1') return kCorrupt;
+        s[i++] = body[q] == '1' ? 0 : 255;
+      }
+    } else {
+      while (i < want) {
+        while (q < body.size() && pnm_space(body[q])) ++q;
+        if (q >= body.size()) break;
+        const size_t start = q;
+        while (q < body.size() && !pnm_space(body[q])) ++q;
+        if (q - start > 10) return kCorrupt;
+        int64_t v;
+        if (!py_int(std::string(body.begin() + start, body.begin() + q), v)) return kCorrupt;
+        if (v < 0 || v > maxval) return kCorrupt;  // PIL raises on both
+        s[i++] = scale(v);
+      }
+    }
+    if (i < want) return kCorrupt;  // "not enough image data"
+  }
+  gray.resize(npx);
+  for (size_t i = 0; i < npx; ++i)
+    gray[i] = bands == 1 ? (uint8_t)s[i] : pil_luma(s[3 * i], s[3 * i + 1], s[3 * i + 2]);
+  return kOk;
+}
+
+inline bool is_pnm(const uint8_t* d, size_t n) {
+  return n >= 2 && d[0] == 'P' && std::strchr("0123456fy", d[1]) && d[1] != 0;
 }
 
 int decode_any(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, int& h) {
@@ -1215,7 +2053,7 @@ int decode_any(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, i
     h = j.H;
     return rc;
   }
-  if (n >= 2 && d[0] == 'P' && d[1] == '5') return decode_pgm(d, n, gray, w, h);
+  if (is_pnm(d, n)) return decode_pnm(d, n, gray, w, h);
   return kCorrupt;
 }
 
@@ -1247,9 +2085,11 @@ int probe_size(const uint8_t* d, size_t n, int& w, int& h) {
     }
     return kCorrupt;
   }
-  if (n >= 2 && d[0] == 'P' && d[1] == '5') {
-    std::vector<uint8_t> gray;
-    const int rc = decode_pgm(d, n, gray, w, h);
+  if (is_pnm(d, n)) {
+    PnmHeader hd;
+    const int rc = pnm_header(d, n, hd);
+    w = (int)hd.w;
+    h = (int)hd.h;
     return rc;
   }
   return kCorrupt;
@@ -1277,7 +2117,7 @@ int decode_path_float(const char* path, int H, int W, std::vector<float>& out) {
 
 struct Frame {
   int index = -1;
-  bool ok = false;
+  int rc = kOk;
   std::vector<float> left, right;
 };
 
@@ -1303,9 +2143,9 @@ struct Loader {
       if (idx >= (int)lefts.size()) return;
       Frame fr;
       fr.index = idx;
-      fr.ok = decode_path_float(lefts[idx].c_str(), H, W, fr.left) == kOk &&
-              decode_path_float(rights[idx].c_str(), H, W, fr.right) == kOk;
-      if (fr.ok && rectify) {
+      fr.rc = decode_path_float(lefts[idx].c_str(), H, W, fr.left);
+      if (fr.rc == kOk) fr.rc = decode_path_float(rights[idx].c_str(), H, W, fr.right);
+      if (fr.rc == kOk && rectify) {
         tmp = fr.left;
         remap_bilinear(tmp.data(), H, W, map_l.data(), fr.left.data());
         tmp = fr.right;
@@ -1332,11 +2172,40 @@ const char* native_runtime_error_string(int code) {
   switch (code) {
     case kIO: return "cannot read the file";
     case kCorrupt: return "corrupt or unrecognized image data";
-    case kUnsupported: return "an image kind the decoder does not read";
     case kSize: return "the image size differs from the expected size";
+    case kPrecision:
+      return "a JPEG whose samples are not 8-bit (12- or 16-bit): PIL does not read it either "
+             "(JpegImagePlugin: \"cannot handle N-bit layers\")";
+    case kHierarchical:
+      return "a hierarchical JPEG (DHP, SOF5-7, SOF13-15): PIL does not read it either "
+             "(libjpeg-turbo has no hierarchical mode)";
+    case kDNL:
+      return "a JPEG whose height comes from a DNL marker: PIL does not read it either "
+             "(libjpeg-turbo: \"Empty JPEG image (DNL not supported)\")";
+    case kFractional:
+      return "a JPEG with fractional sampling ratios: PIL does not read it either "
+             "(libjpeg-turbo: \"Fractional sampling not implemented yet\")";
+    case kLosslessColour:
+      return "a lossless JPEG in a YCbCr or YCCK colour space: PIL does not read it either "
+             "(libjpeg-turbo converts no colour in lossless mode)";
+    case kArithLossless:
+      return "an arithmetic-coded lossless JPEG (SOF11): PIL does not read it either "
+             "(libjpeg-turbo codes lossless data with Huffman tables only)";
+    case kComponents:
+      return "a JPEG of other than 1, 3 or 4 components: PIL does not read it either "
+             "(JpegImagePlugin: \"cannot handle N-layer images\")";
+    case kMcuSize:
+      return "a JPEG scan of more than 10 blocks per MCU: PIL does not read it either "
+             "(libjpeg-turbo: \"Sampling factors too large for interleaved scan\")";
+    case kPnmKind:
+      return "a netpbm kind other than P1-P6 (PFM, Pillow's own P0CMYK and Py kinds): "
+             "not read";
     default: return "unknown error";
   }
 }
+
+// 1 where code names an image kind the decoder refuses, else 0
+int native_runtime_is_refused(int code) { return code >= kPrecision; }
 
 // segs (n, 4) f64 row-major; out (n, 4). Returns the merged count.
 int native_merge_lines(const double* segs, int n, double angle_thr, double distance_thr,
@@ -1396,8 +2265,8 @@ int native_loader_create(const char** left_paths, const char** right_paths, int 
   return kOk;
 }
 
-// Blocks for the next frame in order: its index, −1 at the end, −2 when it
-// failed to decode or had another size.
+// Blocks for the next frame in order: its index, −1 at the end, −100 − the
+// error code when it failed to decode or had another size.
 int native_loader_next(void* handle, float* out_left, float* out_right) {
   auto* L = static_cast<Loader*>(handle);
   std::unique_lock<std::mutex> lk(L->mu);
@@ -1409,7 +2278,7 @@ int native_loader_next(void* handle, float* out_left, float* out_right) {
   L->next_to_emit++;
   L->cv_space.notify_all();
   lk.unlock();
-  if (!fr.ok) return -2;
+  if (fr.rc != kOk) return -100 - fr.rc;
   const size_t sz = (size_t)L->H * L->W;
   std::memcpy(out_left, fr.left.data(), sz * sizeof(float));
   std::memcpy(out_right, fr.right.data(), sz * sizeof(float));

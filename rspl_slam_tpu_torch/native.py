@@ -2,9 +2,9 @@
 ``csrc/native_runtime.cpp``, host C++ built by ``ops/cuda_build`` with the
 host compiler at first use into ``rspl_slam_tpu_torch/_build/``.
 
-- :func:`decode_gray`: a PNG, baseline JPEG or binary PGM file → (H, W)
-  float32 in [0, 1], the 8-bit gray of PIL's ``Image.open(p).convert("L")``
-  divided by 255 as ``datasets.EurocDataset`` divides it;
+- :func:`decode_gray`: a PNG, JPEG or netpbm file → (H, W) float32 in
+  [0, 1], the 8-bit gray of PIL's ``Image.open(p).convert("L")`` divided
+  by 255 as ``datasets.EurocDataset`` divides it;
 - :func:`decode_u8`: the same decode of an encoded image in memory, 8-bit;
 - :func:`remap_bilinear`: ``camera.remap_bilinear``'s border clamp on the
   host;
@@ -13,9 +13,16 @@ host compiler at first use into ``rspl_slam_tpu_torch/_build/``.
 - :class:`NativeStereoLoader`: decode threads that read, decode and
   optionally rectify stereo pairs ahead of the consumer, in order.
 
+The decoder reads every kind PIL reads from these formats: PNG of every
+colour type, bit depth and interlace; JPEG sequential, progressive
+(with libjpeg-turbo's block smoothing) and lossless, Huffman or
+arithmetic coded, gray, YCbCr, RGB, CMYK and YCCK at any integral
+sampling; netpbm P1-P6 at any maxval. The JPEG and netpbm kinds PIL
+refuses (12-bit, hierarchical, a DNL height, fractional sampling,
+lossless YCbCr) raise ``NotImplementedError`` naming the kind.
+
 There is no fallback: where the library cannot be built, every entry point
-raises. Progressive, arithmetic-coded, 12-bit, lossless, CMYK and RGB
-(Adobe transform 0) JPEGs raise ``NotImplementedError``.
+raises.
 """
 
 from __future__ import annotations
@@ -29,7 +36,6 @@ __all__ = ["build", "available", "decode_gray", "decode_u8", "image_size",
            "remap_bilinear", "merge_lines", "NativeStereoLoader"]
 
 _NAME = "native_runtime"
-_UNSUPPORTED = 3  # csrc/native_runtime.cpp: kUnsupported
 
 
 def _lib():
@@ -55,11 +61,10 @@ def available() -> bool:
 
 
 def _raise(rc: int, what: str):
-    msg = _lib().native_runtime_error_string(rc).decode()
-    if rc == _UNSUPPORTED:
-        raise NotImplementedError(f"{what}: {msg} (ROADMAP.md §1, item 4b: progressive, "
-                                  "arithmetic-coded, 12-bit, lossless, CMYK and RGB JPEGs "
-                                  "are not decoded)")
+    lib = _lib()
+    msg = lib.native_runtime_error_string(rc).decode()
+    if lib.native_runtime_is_refused(rc):
+        raise NotImplementedError(f"{what}: {msg}")
     raise IOError(f"native decode failed ({msg}): {what}")
 
 
@@ -74,7 +79,7 @@ def image_size(data: bytes) -> tuple[int, int]:
 
 
 def decode_u8(data: bytes, what: str = "image") -> np.ndarray:
-    """An encoded PNG, JPEG or PGM in memory → (H, W) uint8 gray."""
+    """An encoded PNG, JPEG or netpbm image in memory → (H, W) uint8 gray."""
     H, W = image_size(data)
     buf = np.frombuffer(data, np.uint8)
     out = np.empty((H, W), np.uint8)
@@ -125,7 +130,8 @@ class NativeStereoLoader:
     workers decode (and, given ``map_l`` and ``map_r``, rectify) pairs into
     a reorder buffer of ``depth`` frames; iteration yields ``(index, left,
     right)`` in order, (H, W) float32 in [0, 1]. A frame that fails to
-    decode or has another size raises IOError at its turn. :meth:`close`
+    decode or has another size raises IOError at its turn, one of a kind
+    the decoder refuses NotImplementedError. :meth:`close`
     (or dropping the loader, or interpreter exit) stops and joins the
     workers."""
 
@@ -171,10 +177,12 @@ class NativeStereoLoader:
         if rc == -1:
             raise StopIteration
         i, self._next = self._next, self._next + 1
-        if rc == -2:
-            raise IOError(f"native loader: frame {i} failed to decode or is not "
-                          f"{self.H}×{self.W} ({self._lp[i].decode()}, "
-                          f"{self._rp[i].decode()})")
+        if rc <= -100:
+            what = f"native loader: frame {i} ({self._lp[i].decode()}, {self._rp[i].decode()})"
+            if _lib().native_runtime_is_refused(-100 - rc):
+                _raise(-100 - rc, what)
+            raise IOError(f"{what} failed to decode or is not {self.H}×{self.W}: "
+                          f"{_lib().native_runtime_error_string(-100 - rc).decode()}")
         return rc, left, right
 
     def close(self) -> None:

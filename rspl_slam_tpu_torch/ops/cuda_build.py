@@ -67,7 +67,8 @@ SIGNATURES = {
                        "native_decode_file": "sp" + "ii",
                        "native_loader_create": "ppiiippiip",
                        "native_loader_next": "ppp",
-                       "native_loader_destroy": "p"},
+                       "native_loader_destroy": "p",
+                       "native_runtime_is_refused": "i"},
 }
 # "p" pointer / stream, "i" int, "l" int64, "d" double, "s" C string (bytes)
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_int64,

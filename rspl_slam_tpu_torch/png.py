@@ -1,10 +1,12 @@
-"""PNG, JPEG and PGM images without PIL: the port's stand-in for PIL.
+"""PNG, JPEG and netpbm images without PIL: the port's stand-in for PIL.
 
 :func:`read_gray` returns what ``PIL.Image.open(p).convert("L")`` returns,
 as (H, W) uint8, for PNG (every colour type, bit depth and interlace),
-baseline JPEG and binary PGM (P5, maxval 255). RGB becomes gray with PIL's
-fixed-point luma, ``(R·19595 + G·38470 + B·7471 + 0x8000) >> 16``; alpha
-and tRNS are dropped, as PIL drops them.
+JPEG (every kind libjpeg-turbo decodes for PIL: sequential, progressive
+and lossless, Huffman or arithmetic coded, gray, YCbCr, RGB, CMYK, YCCK)
+and netpbm P1-P6 at any maxval. RGB becomes gray with PIL's fixed-point
+luma, ``(R·19595 + G·38470 + B·7471 + 0x8000) >> 16``; alpha and tRNS are
+dropped, as PIL drops them.
 
 8-bit non-interlaced PNGs in gray, gray + alpha, RGB and RGBA (what the
 EuRoC-class datasets hold) decode here with zlib and numpy, undoing the
@@ -12,9 +14,12 @@ row filters in numpy and Python (:func:`unfilter_numpy`, Sub and Up
 vectorized) or, with ``compiled``, in the host C++ loop of
 ``csrc/png_unfilter.cu`` (:func:`unfilter_compiled`, built by
 ``ops/cuda_build`` at first use); the two agree bit for bit. Every other
-PNG (palette, 1/2/4/16-bit, Adam7) and JPEG decode in the host C++ of
-``native.py`` (``csrc/native_runtime.cpp``); progressive, arithmetic-coded,
-12-bit, lossless, CMYK and RGB JPEGs raise ``NotImplementedError``.
+PNG (palette, 1/2/4/16-bit, Adam7), JPEG and netpbm (by PIL's content
+test, whatever the extension) decode in the host C++ of ``native.py``
+(``csrc/native_runtime.cpp``). The kinds PIL refuses (12-bit,
+hierarchical and DNL JPEGs, fractional sampling, lossless YCbCr) and the
+netpbm kinds the port does not read (PFM and Pillow's own variants) raise
+``NotImplementedError`` naming the kind.
 
 :func:`write_png` writes 8-bit PNGs with one fixed filter or, by default,
 the filter per row that minimizes the sum of the filtered bytes read as
@@ -163,27 +168,6 @@ def to_luma(pixels: np.ndarray) -> np.ndarray:
     return (y >> 16).astype(np.uint8)
 
 
-def _read_pgm(data: bytes) -> np.ndarray:
-    """Binary PGM (P5, maxval 255) → (H, W) uint8."""
-    fields, pos = [], 2
-    while len(fields) < 3:
-        while data[pos:pos + 1].isspace():
-            pos += 1
-        if data[pos:pos + 1] == b"#":
-            pos = data.index(b"\n", pos) + 1
-            continue
-        end = pos
-        while end < len(data) and not data[end:end + 1].isspace():
-            end += 1
-        fields.append(int(data[pos:end]))
-        pos = end
-    W, H, maxval = fields
-    if maxval != 255:
-        raise NotImplementedError(f"a PGM with maxval {maxval} is not read (maxval 255 only)")
-    pos += 1  # the one whitespace byte before the samples
-    return np.frombuffer(data, np.uint8, W * H, pos).reshape(H, W).copy()
-
-
 def read_gray(path: str, compiled: bool = False) -> np.ndarray:
     """An image file → (H, W) uint8 gray, equal to PIL's
     ``Image.open(path).convert("L")`` on the files this module reads.
@@ -192,13 +176,12 @@ def read_gray(path: str, compiled: bool = False) -> np.ndarray:
         data = f.read()
     if data[:8] == _SIG and len(data) >= 29 and _plain_png(data):
         return to_luma(read_png(data, compiled))
-    if data[:2] == b"P5":
-        return _read_pgm(data)
-    if data[:8] == _SIG or data[:3] == b"\xff\xd8\xff":
+    netpbm = data[:1] == b"P" and data[1:2] and data[1:2] in b"0123456fy"  # PIL's test
+    if netpbm or data[:8] == _SIG or data[:3] == b"\xff\xd8\xff":
         from rspl_slam_tpu_torch import native
 
         return native.decode_u8(data, path)
-    raise ValueError(f"{path}: not a PNG, JPEG or binary PGM file")
+    raise ValueError(f"{path}: not a PNG, JPEG or netpbm file")
 
 
 # ----------------------------------------------------------------- writing

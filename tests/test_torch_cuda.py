@@ -1106,3 +1106,34 @@ def test_match_pair_takes_any_keypoint_budget(cuda_device, K):  # noqa: F811
     assert torch.isfinite(res.log_plan).all()
     again = superglue.match_pair(sg, *sides, cfg, compute_dtype=torch.bfloat16)
     assert torch.equal(again.log_plan, res.log_plan)
+
+
+def test_loader_threads_decode_every_image_kind_to_its_pinned_hash(cuda_device):  # noqa: F811
+    """On the card's machine, where PIL is absent: ``NativeStereoLoader``'s
+    decode threads read every readable fixture of ``tests/fixtures/
+    image_kinds`` (progressive, arithmetic-coded, lossless, CMYK, YCCK,
+    RGB, 4:1:1 JPEG; netpbm P1-P6) to the PIL sha256 its manifest pins, and
+    refuse the kinds PIL refuses with ``NotImplementedError``."""
+    import hashlib
+    import json
+    import os
+
+    from rspl_slam_tpu_torch import native
+
+    root = os.path.join(os.path.dirname(__file__), "fixtures", "image_kinds")
+    with open(os.path.join(root, "manifest.json")) as f:
+        files = json.load(f)["files"]
+    for name, entry in sorted(files.items()):
+        path = os.path.join(root, name)
+        if entry.get("refused"):
+            with native.NativeStereoLoader([path], [path], 48, 64, threads=2) as loader:
+                with pytest.raises(NotImplementedError):
+                    next(loader)
+            continue
+        with open(path, "rb") as f:
+            H, W = native.image_size(f.read())
+        with native.NativeStereoLoader([path] * 3, [path] * 3, H, W, threads=3) as loader:
+            for _, left, right in loader:
+                for img in (left, right):
+                    u8 = np.round(img * 255).astype(np.uint8)
+                    assert hashlib.sha256(u8.tobytes()).hexdigest() == entry["sha256"], name

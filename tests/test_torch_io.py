@@ -110,10 +110,11 @@ def test_luma_and_pgm_equal_pil(tmp_path):
 
 
 def test_png_unsupported_kinds_raise(tmp_path):
-    """Palette, 16-bit and interlaced PNGs and baseline JPEG, which raised
-    before the native decoder, now read as PIL reads them; a progressive
-    JPEG still raises and names ROADMAP (tests/test_torch_native.py holds
-    every kind bit for bit)."""
+    """Palette, 16-bit and interlaced PNGs, baseline and progressive JPEGs,
+    which raised before the native decoder, now read as PIL reads them; a
+    12-bit JPEG, which PIL refuses too, raises NotImplementedError naming
+    the kind (tests/test_torch_image_kinds.py holds every kind bit for
+    bit)."""
     Image = pytest.importorskip("PIL.Image")
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (8, 8), dtype=np.uint8)
@@ -123,13 +124,14 @@ def test_png_unsupported_kinds_raise(tmp_path):
     for name, im in cases.items():
         im.save(str(tmp_path / name))
     Image.fromarray(img).save(str(tmp_path / "inter.png"), interlace=1)
-    for name in ("pal.png", "i16.png", "jpg.jpg", "inter.png"):
+    Image.fromarray(img).save(str(tmp_path / "prog.jpg"), progressive=True)
+    for name in ("pal.png", "i16.png", "jpg.jpg", "inter.png", "prog.jpg"):
         p = str(tmp_path / name)
         np.testing.assert_array_equal(png.read_gray(p), np.asarray(Image.open(p).convert("L")),
                                       err_msg=name)
-    Image.fromarray(img).save(str(tmp_path / "prog.jpg"), progressive=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        png.read_gray(str(tmp_path / "prog.jpg"))
+    twelve = os.path.join(os.path.dirname(__file__), "fixtures", "image_kinds", "jpeg_12bit.jpg")
+    with pytest.raises(NotImplementedError, match="not 8-bit"):
+        png.read_gray(twelve)
 
 
 @pytest.mark.parametrize("bpp", [1, 3])

@@ -271,14 +271,22 @@ class TestDecode:
         np.testing.assert_array_equal(got, ref)
 
     def test_unsupported_jpeg_raises(self, tmp_path):
-        """A progressive JPEG raises NotImplementedError naming ROADMAP, in
-        both readers; no other reader takes over."""
+        """A progressive JPEG, which raised before, reads as PIL reads it on
+        both routes; a 12-bit and a DNL-height JPEG, which PIL refuses too,
+        raise NotImplementedError naming the kind, and no other reader takes
+        over (tests/test_torch_image_kinds.py holds every kind)."""
         p = str(tmp_path / "prog.jpg")
-        Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(p, progressive=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            png.read_gray(p)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            native.decode_gray(p, 16, 16)
+        img = np.random.default_rng(0).integers(0, 256, (16, 16, 3), dtype=np.uint8)
+        Image.fromarray(img).save(p, progressive=True)
+        ref = _pil_gray(p)
+        np.testing.assert_array_equal(png.read_gray(p), ref)
+        np.testing.assert_array_equal(native.decode_gray(p, 16, 16), ref.astype(np.float32) / 255)
+        for name, word in (("jpeg_12bit.jpg", "not 8-bit"), ("jpeg_dnl.jpg", "DNL")):
+            q = os.path.join(os.path.dirname(__file__), "fixtures", "image_kinds", name)
+            with pytest.raises(NotImplementedError, match=word):
+                png.read_gray(q)
+            with pytest.raises(NotImplementedError, match=word):
+                native.decode_gray(q, 48, 64)
 
     def test_wrong_size_fails(self, png_dir):
         p, _ = png_dir[0]

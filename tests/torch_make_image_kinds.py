@@ -1,0 +1,1235 @@
+"""Writes ``tests/fixtures/image_kinds/``: one small file of every JPEG and
+netpbm kind that PIL's ``Image.open(p).convert("L")`` reads (or refuses),
+the full-width progressive stereo sequence, and ``manifest.json`` (each
+file's kind and the sha256 of PIL's ``convert("L")`` pixels).
+
+PIL writes the kinds it can write (progressive, CMYK, RGB, baseline). The
+kinds it cannot write come from the small encoder in this file:
+
+- sequential and progressive Huffman JPEG with any scan script (including
+  scripts that stop short of full refinement), any component count and any
+  integral or fractional sampling factors, restart intervals, DNL;
+- arithmetic-coded JPEG (SOF9, SOF10; the QM coder of ITU T.81 Annex D);
+- lossless JPEG (SOF3, Huffman; predictors 1-7, point transform);
+- netpbm P1-P6 at any maxval.
+
+The tests (``tests/test_torch_image_kinds.py``) import this module for
+its encoder; it is not collected by pytest. Everything is deterministic
+from ``--seed``.
+
+    python tests/torch_make_image_kinds.py [--out DIR] [--seed N]
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import io
+import json
+import os
+import struct
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(HERE, "fixtures", "image_kinds")
+
+# natural-order index of each zigzag position
+ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+                   12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+                   35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+                   58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+
+# ITU T.81 Annex K.1's example tables (natural order), luminance and chrominance
+_Q_LUMA = np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+                    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+                    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+                    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_Q_CHROMA = np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+                      24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+                     + [99] * 32)
+
+
+def quant_table(quality: int, chroma: bool = False) -> np.ndarray:
+    """libjpeg's quality scaling of the Annex K tables (natural order)."""
+    base = _Q_CHROMA if chroma else _Q_LUMA
+    scale = 5000 // quality if quality < 50 else 200 - quality * 2
+    return np.clip((base * scale + 50) // 100, 1, 255).astype(np.int64)
+
+
+def _dct_matrix() -> np.ndarray:
+    c = np.zeros((8, 8))
+    for u in range(8):
+        for x in range(8):
+            c[u, x] = np.sqrt((1 if u == 0 else 2) / 8) * np.cos((2 * x + 1) * u * np.pi / 16)
+    return c
+
+
+_C = _dct_matrix()
+
+
+def block_coefficients(plane: np.ndarray, q: np.ndarray, bw: int, bh: int,
+                       level: int = 128) -> np.ndarray:
+    """(bh, bw, 64) quantized DCT coefficients (natural order) of ``plane``
+    padded to ``bw`` × ``bh`` blocks by repeating its last row and column."""
+    h, w = plane.shape
+    p = np.pad(plane.astype(np.float64) - level, ((0, bh * 8 - h), (0, bw * 8 - w)), mode="edge")
+    blocks = p.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+    f = np.einsum("ux,abxy,vy->abuv", _C, blocks, _C)
+    return np.round(f.reshape(bh, bw, 64) / q.reshape(64)).astype(np.int64)
+
+
+# ------------------------------------------------------------------ Huffman
+def optimal_table(freq) -> tuple[list, list]:
+    """(BITS[16], HUFFVAL) of a length-limited Huffman code for ``freq``
+    (256 counts), as ITU T.81 Annex K.2 builds it (no code of all ones)."""
+    freq = [int(f) for f in freq] + [1]
+    if sum(freq[:256]) == 0:
+        freq[0] = 1
+    codesize, others = [0] * 257, [-1] * 257
+    while True:
+        c1, v = -1, None
+        for i in range(257):
+            if freq[i] and (v is None or freq[i] <= v):
+                v, c1 = freq[i], i
+        c2, v = -1, None
+        for i in range(257):
+            if freq[i] and (v is None or freq[i] <= v) and i != c1:
+                v, c2 = freq[i], i
+        if c2 < 0:
+            break
+        freq[c1] += freq[c2]
+        freq[c2] = 0
+        codesize[c1] += 1
+        while others[c1] >= 0:
+            c1 = others[c1]
+            codesize[c1] += 1
+        others[c1] = c2
+        codesize[c2] += 1
+        while others[c2] >= 0:
+            c2 = others[c2]
+            codesize[c2] += 1
+    bits = [0] * 40
+    for i in range(257):
+        if codesize[i]:
+            bits[codesize[i]] += 1
+    for i in range(39, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1  # drop the reserved symbol 256
+    vals = [s for n in range(1, 40) for s in range(256) if codesize[s] == n]
+    return bits[1:17], vals
+
+
+def canonical_codes(bits, vals) -> dict:
+    """symbol → (code, length)."""
+    codes, code, k = {}, 0, 0
+    for n in range(1, 17):
+        for _ in range(bits[n - 1]):
+            codes[vals[k]] = (code, n)
+            code += 1
+            k += 1
+        code <<= 1
+    return codes
+
+
+class BitWriter:
+    """Entropy-coded bytes: MSB first, 0xFF followed by a stuffed 0x00,
+    padded with one bits at a flush."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.acc = 0
+        self.n = 0
+
+    def put(self, value: int, nbits: int):
+        for i in range(nbits - 1, -1, -1):
+            self.acc = (self.acc << 1) | ((value >> i) & 1)
+            self.n += 1
+            if self.n == 8:
+                self.out.append(self.acc)
+                if self.acc == 0xFF:
+                    self.out.append(0)
+                self.acc = self.n = 0
+
+    def flush(self):
+        if self.n:
+            self.put((1 << (8 - self.n)) - 1, 8 - self.n)
+
+    def marker(self, code: int):
+        self.flush()
+        self.out += bytes([0xFF, code])
+
+
+def bit_length(v: int) -> int:
+    return int(v).bit_length()
+
+
+def magnitude(v: int) -> tuple[int, int]:
+    """(category, extra bits) of a signed value (JPEG's EXTEND inverse)."""
+    s = bit_length(abs(v))
+    return s, (v if v >= 0 else v + (1 << s) - 1) & ((1 << s) - 1)
+
+
+# ------------------------------------------------------------------- frames
+class Component:
+    def __init__(self, cid: int, h: int, v: int, tq: int, plane: np.ndarray):
+        self.id, self.h, self.v, self.tq = cid, h, v, tq
+        self.plane = np.asarray(plane)  # full-resolution samples, subsampled below
+
+
+class Frame:
+    """A JPEG frame: components (with sampling factors), their planes
+    subsampled by box averaging, the MCU grid, and per-component blocks.
+    ``lossless``: data units are single samples, not 8×8 blocks."""
+
+    def __init__(self, comps, width: int, height: int, lossless: bool = False):
+        self.comps, self.W, self.H, self.lossless = comps, width, height, lossless
+        self.hmax = max(c.h for c in comps)
+        self.vmax = max(c.v for c in comps)
+        unit = 1 if lossless else 8
+        self.mcux = -(-width // (unit * (self.hmax if len(comps) > 1 else 1)))
+        self.mcuy = -(-height // (unit * (self.vmax if len(comps) > 1 else 1)))
+        for c in comps:
+            h_, v_ = (c.h, c.v) if len(comps) > 1 else (1, 1)
+            hm, vm = (self.hmax, self.vmax) if len(comps) > 1 else (1, 1)
+            c.dw = -(-width * h_ // hm)
+            c.dh = -(-height * v_ // vm)
+            c.wb = -(-c.dw // unit)  # width in blocks (own grid)
+            c.hb = -(-c.dh // unit)
+            c.bw = self.mcux * h_  # allocated (MCU grid)
+            c.bh = self.mcuy * v_
+            c.sub = _subsample(c.plane, c.dw, c.dh, width, height)
+
+
+def _subsample(plane, dw, dh, W, H):
+    """``plane`` (H, W) averaged down to (dh, dw) boxes (rounded)."""
+    plane = np.asarray(plane, np.float64)
+    if (dh, dw) == plane.shape:
+        return plane
+    fy, fx = -(-H // dh), -(-W // dw)
+    p = np.pad(plane, ((0, dh * fy - H), (0, dw * fx - W)), mode="edge")
+    return np.round(p.reshape(dh, fy, dw, fx).mean((1, 3)))
+
+
+def mcu_blocks(frame: Frame, comps):
+    """The scan's MCUs in order: each a list of (component, row, col)."""
+    if len(comps) == 1:
+        c = comps[0]
+        return [[(c, y, x)] for y in range(c.hb) for x in range(c.wb)]
+    out = []
+    for my in range(frame.mcuy):
+        for mx in range(frame.mcux):
+            out.append([(c, my * c.v + by, mx * c.h + bx) for c in comps
+                        for by in range(c.v) for bx in range(c.h)])
+    return out
+
+
+# ------------------------------------------------------ Huffman scan events
+# A Huffman scan is written as a list of events: ("s", table, symbol),
+# ("b", value, nbits) and ("r",) for a restart; the tables are then built
+# from the symbols' counts and the events serialized.
+
+def _dc_events(ev, table, diff):
+    s, extra = magnitude(diff)
+    ev.append(("s", table, s))
+    if s:
+        ev.append(("b", extra, s))
+
+
+def seq_scan_events(frame, comps, coefs, restart: int):
+    ev, pred = [], {}
+    for i, mcu in enumerate(mcu_blocks(frame, comps)):
+        if restart and i and i % restart == 0:
+            ev.append(("r",))
+            pred = {}
+        for c, y, x in mcu:
+            blk = coefs[c.id][y, x]
+            _dc_events(ev, ("dc", c.td), int(blk[0]) - pred.get(c.id, 0))
+            pred[c.id] = int(blk[0])
+            zz = blk[ZIGZAG]
+            r = 0
+            last = max([k for k in range(1, 64) if zz[k]], default=0)
+            for k in range(1, last + 1):
+                if zz[k] == 0:
+                    r += 1
+                    continue
+                while r > 15:
+                    ev.append(("s", ("ac", c.ta), 0xF0))
+                    r -= 16
+                s, extra = magnitude(int(zz[k]))
+                ev.append(("s", ("ac", c.ta), (r << 4) | s))
+                ev.append(("b", extra, s))
+                r = 0
+            if last < 63:
+                ev.append(("s", ("ac", c.ta), 0x00))
+    return ev
+
+
+def _ishift(v: int, al: int) -> int:
+    return v >> al  # arithmetic shift (floor), as IRIGHT_SHIFT
+
+
+def prog_scan_events(frame, comps, coefs, ss, se, ah, al, restart: int):
+    """One progressive Huffman scan as libjpeg's jcphuff.c codes it."""
+    ev = []
+    if ss == 0:  # DC scans, interleaved or not
+        pred = {}
+        for i, mcu in enumerate(mcu_blocks(frame, comps)):
+            if restart and i and i % restart == 0:
+                ev.append(("r",))
+                pred = {}
+            for c, y, x in mcu:
+                v = int(coefs[c.id][y, x, 0])
+                if ah == 0:
+                    t = _ishift(v, al)
+                    _dc_events(ev, ("dc", c.td), t - pred.get(c.id, 0))
+                    pred[c.id] = t
+                else:
+                    ev.append(("b", (v >> al) & 1, 1))
+        return ev
+    c = comps[0]
+    table = ("ac", c.ta)
+    state = {"eobrun": 0, "be": []}  # pending EOB run and its correction bits
+
+    def emit_eobrun():
+        if state["eobrun"]:
+            n = bit_length(state["eobrun"]) - 1
+            ev.append(("s", table, n << 4))
+            if n:
+                ev.append(("b", state["eobrun"] & ((1 << n) - 1), n))
+            state["eobrun"] = 0
+        for b in state["be"]:
+            ev.append(("b", b, 1))
+        state["be"] = []
+
+    for i, mcu in enumerate(mcu_blocks(frame, comps)):
+        if restart and i and i % restart == 0:
+            emit_eobrun()
+            ev.append(("r",))
+        (_, y, x), = mcu
+        zz = coefs[c.id][y, x][ZIGZAG]
+        if ah == 0:  # AC first
+            r = 0
+            for k in range(ss, se + 1):
+                v = int(zz[k])
+                t = abs(v) >> al
+                if t == 0:
+                    r += 1
+                    continue
+                emit_eobrun()
+                while r > 15:
+                    ev.append(("s", table, 0xF0))
+                    r -= 16
+                s = bit_length(t)
+                extra = t if v >= 0 else (~t) & ((1 << s) - 1)
+                ev.append(("s", table, (r << 4) | s))
+                ev.append(("b", extra, s))
+                r = 0
+            if r > 0:
+                state["eobrun"] += 1
+                if state["eobrun"] == 0x7FFF:
+                    emit_eobrun()
+        else:  # AC refinement
+            absv = [abs(int(zz[k])) >> al for k in range(64)]
+            eob = max([k for k in range(ss, se + 1) if absv[k] == 1], default=0)
+            r, br = 0, []
+            for k in range(ss, se + 1):
+                t = absv[k]
+                if t == 0:
+                    r += 1
+                    continue
+                while r > 15 and k <= eob:
+                    emit_eobrun()
+                    ev.append(("s", table, 0xF0))
+                    r -= 16
+                    for b in br:
+                        ev.append(("b", b, 1))
+                    br = []
+                if t > 1:
+                    br.append(t & 1)
+                    continue
+                emit_eobrun()
+                ev.append(("s", table, (r << 4) | 1))
+                ev.append(("b", 1 if int(zz[k]) >= 0 else 0, 1))
+                for b in br:
+                    ev.append(("b", b, 1))
+                br, r = [], 0
+            if r > 0 or br:
+                state["eobrun"] += 1
+                state["be"] += br
+                if state["eobrun"] == 0x7FFF or len(state["be"]) > 937:
+                    emit_eobrun()
+    emit_eobrun()
+    return ev
+
+
+def lossless_scan_events(frame, comps, samples, predictor: int, pt: int, restart: int,
+                         precision: int = 8):
+    """A lossless Huffman scan: each sample's difference from its predictor
+    (ITU T.81 Annex H), rows after a restart predicted as the first row."""
+    ev = []
+    mcus = mcu_blocks(frame, comps)
+    per_row = frame.mcux if len(comps) > 1 else comps[0].wb
+    if restart and restart % per_row:
+        raise ValueError("a lossless restart interval must hold whole MCU rows")
+    # the row of each component at which the last restart happened
+    first_rows = {c.id: {0} for c in comps}
+    rows_per_mcu_row = {c.id: (c.v if len(comps) > 1 else 1) for c in comps}
+    if restart:
+        for c in comps:
+            step = restart // per_row * rows_per_mcu_row[c.id]
+            first_rows[c.id] = set(range(0, c.bh, step))
+    init = 1 << (precision - pt - 1)
+    shifted = {c.id: samples[c.id] >> pt for c in comps}
+    for i, mcu in enumerate(mcus):
+        if restart and i and i % restart == 0:
+            ev.append(("r",))
+        for c, y, x in mcu:
+            s = shifted[c.id]
+            if y >= c.dh or x >= c.dw:
+                diff = 0  # padding of the MCU grid: read and dropped
+            else:
+                cur = int(s[y, x])
+                if y in first_rows[c.id]:
+                    pred = init if x == 0 else int(s[y, x - 1])
+                elif x == 0:
+                    pred = int(s[y - 1, x])
+                else:
+                    ra, rb, rc = int(s[y, x - 1]), int(s[y - 1, x]), int(s[y - 1, x - 1])
+                    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor]
+                diff = (cur - pred) & 0xFFFF
+                if diff >= 0x8000:
+                    diff -= 0x10000
+            if diff == -32768:
+                ev.append(("s", ("dc", c.td), 16))
+            else:
+                _dc_events(ev, ("dc", c.td), diff)
+    return ev
+
+
+def serialize_huffman(ev, tables=None):
+    """(DHT segment, entropy-coded bytes with RST markers) of an event list."""
+    if tables is None:
+        freq = {}
+        for e in ev:
+            if e[0] == "s":
+                freq.setdefault(e[1], np.zeros(256, np.int64))[e[2]] += 1
+        tables = {k: optimal_table(f) for k, f in freq.items()}
+    codes = {k: canonical_codes(*t) for k, t in tables.items()}
+    w, rst = BitWriter(), 0
+    for e in ev:
+        if e[0] == "s":
+            code, n = codes[e[1]][e[2]]
+            w.put(code, n)
+        elif e[0] == "b":
+            w.put(e[1], e[2])
+        else:
+            w.marker(0xD0 + rst)
+            rst = (rst + 1) & 7
+    w.flush()
+    body = b""
+    for (cls, th), (bits, vals) in sorted(tables.items()):
+        body += bytes([(0 if cls == "dc" else 1) << 4 | th]) + bytes(bits) + bytes(vals)
+    return (segment(0xC4, body) if tables else b""), bytes(w.out)
+
+
+# --------------------------------------------------------- arithmetic coding
+# ITU T.81 Table D.2 as libjpeg's jaricom.c holds it: (Qe, Next_Index_LPS,
+# Next_Index_MPS, Switch_MPS); entry 113 is the fixed 0.5 estimate.
+QE_TABLE = [
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080b, 18, 4, 0),
+    (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0), (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1), (0x3f25, 36, 16, 0),
+    (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0), (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0cef, 43, 21, 0), (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01b1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0), (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0), (0x2ef1, 67, 40, 0),
+    (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0), (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0), (0x04de, 50, 52, 0),
+    (0x040f, 50, 53, 0), (0x0363, 51, 54, 0), (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0),
+    (0x01f8, 54, 57, 0), (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0), (0x008f, 61, 32, 0),
+    (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0), (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0),
+    (0x2fe8, 83, 69, 0), (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0), (0x119c, 74, 76, 0),
+    (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0), (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0), (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0), (0x3c3d, 104, 100, 0),
+    (0x375e, 99, 93, 0), (0x5231, 105, 102, 0), (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415e, 103, 99, 0), (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0)]
+
+
+class ArithEncoder:
+    """The QM coder's encoder as libjpeg's jcarith.c runs it (Annex D)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.reset()
+
+    def reset(self):
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _emit(self, b):
+        self.out.append(b & 0xFF)
+
+    def _flush_pending(self, byte):
+        """Output the buffered byte and stacked 0xFFs (no carry)."""
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            while self.zc:
+                self._emit(0)
+                self.zc -= 1
+            self._emit(self.buffer)
+        if self.sc:
+            while self.zc:
+                self._emit(0)
+                self.zc -= 1
+            while self.sc:
+                self._emit(0xFF)
+                self._emit(0)
+                self.sc -= 1
+        self.buffer = byte
+
+    def _carry(self, byte):
+        if self.buffer >= 0:
+            while self.zc:
+                self._emit(0)
+                self.zc -= 1
+            self._emit(self.buffer + 1)
+            if self.buffer + 1 == 0xFF:
+                self._emit(0)
+        self.zc += self.sc
+        self.sc = 0
+        self.buffer = byte
+
+    def encode(self, st: list, i: int, val: int):
+        sv = st[i]
+        qe, nl, nm, sw = QE_TABLE[sv & 0x7F]
+        nl |= sw << 7
+        self.a -= qe
+        if val != (sv >> 7):
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) + nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    self._carry(temp & 0xFF)
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._flush_pending(temp & 0xFF)
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self):
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                while self.zc:
+                    self._emit(0)
+                    self.zc -= 1
+                self._emit(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self._emit(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            self._flush_pending(-1)
+        if self.c & 0x7FFF800:
+            while self.zc:
+                self._emit(0)
+                self.zc -= 1
+            self._emit(self.c >> 19)
+            if ((self.c >> 19) & 0xFF) == 0xFF:
+                self._emit(0)
+            if self.c & 0x7F800:
+                self._emit(self.c >> 11)
+                if ((self.c >> 11) & 0xFF) == 0xFF:
+                    self._emit(0)
+        self.reset()
+
+
+FIXED = [113]  # the fixed-probability bin of sign bits and DC refinement
+
+
+class ArithScan:
+    """Statistics of one scan (reset at each restart) and its coding of
+    DC differences and AC coefficients (jcarith.c)."""
+
+    def __init__(self, enc, dc_l=0, dc_u=1, ac_k=5):
+        self.enc, self.L, self.U, self.K = enc, dc_l, dc_u, ac_k
+        self.reset()
+
+    def reset(self):
+        self.dc_stats, self.ac_stats, self.ctx, self.last = {}, {}, {}, {}
+
+    def _dc(self, tbl):
+        return self.dc_stats.setdefault(tbl, [0] * 64)
+
+    def _ac(self, tbl):
+        return self.ac_stats.setdefault(tbl, [0] * 256)
+
+    def dc(self, tbl, cid, value):
+        e, st = self.enc, self._dc(tbl)
+        s0 = self.ctx.get(cid, 0)
+        v = value - self.last.get(cid, 0)
+        if v == 0:
+            e.encode(st, s0, 0)
+            self.ctx[cid] = 0
+            return
+        self.last[cid] = value
+        e.encode(st, s0, 1)
+        if v > 0:
+            e.encode(st, s0 + 1, 0)
+            i = s0 + 2
+            self.ctx[cid] = 4
+        else:
+            v = -v
+            e.encode(st, s0 + 1, 1)
+            i = s0 + 3
+            self.ctx[cid] = 8
+        m = 0
+        v -= 1
+        if v:
+            e.encode(st, i, 1)
+            m = 1
+            v2 = v
+            i = 20
+            v2 >>= 1
+            while v2:
+                e.encode(st, i, 1)
+                m <<= 1
+                i += 1
+                v2 >>= 1
+        e.encode(st, i, 0)
+        if m < (1 << self.L) >> 1:
+            self.ctx[cid] = 0
+        elif m > (1 << self.U) >> 1:
+            self.ctx[cid] += 8
+        i += 14
+        m >>= 1
+        while m:
+            e.encode(st, i, 1 if m & v else 0)
+            m >>= 1
+
+    def _magnitude(self, st, i, k, v):
+        e = self.enc
+        m = 0
+        v -= 1
+        if v:
+            e.encode(st, i, 1)
+            m = 1
+            v2 = v >> 1
+            if v2:
+                e.encode(st, i, 1)
+                m <<= 1
+                i = 189 if k <= self.K else 217
+                v2 >>= 1
+                while v2:
+                    e.encode(st, i, 1)
+                    m <<= 1
+                    i += 1
+                    v2 >>= 1
+        e.encode(st, i, 0)
+        i += 14
+        m >>= 1
+        while m:
+            e.encode(st, i, 1 if m & v else 0)
+            m >>= 1
+
+    def ac_first(self, tbl, zz, ss, se, al):
+        """Sequential (ss=1, se=63, al=0) or progressive first AC scan."""
+        e, st = self.enc, self._ac(tbl)
+        vals = [(abs(int(zz[k])) >> al) * (1 if zz[k] >= 0 else -1) for k in range(64)]
+        ke = 0
+        for k in range(se, 0, -1):
+            if vals[k]:
+                ke = k
+                break
+        k = ss
+        while k <= ke:
+            i = 3 * (k - 1)
+            e.encode(st, i, 0)
+            while vals[k] == 0:
+                e.encode(st, i + 1, 0)
+                i += 3
+                k += 1
+            e.encode(st, i + 1, 1)
+            v = vals[k]
+            e.encode(FIXED, 0, 0 if v > 0 else 1)
+            self._magnitude(st, i + 2, k, abs(v))
+            k += 1
+        if k <= se:
+            e.encode(st, 3 * (k - 1), 1)
+
+    def ac_refine(self, tbl, zz, ss, se, ah, al):
+        e, st = self.enc, self._ac(tbl)
+        absal = [abs(int(zz[k])) >> al for k in range(64)]
+        absah = [abs(int(zz[k])) >> ah for k in range(64)]
+        ke = 0
+        for k in range(se, 0, -1):
+            if absal[k]:
+                ke = k
+                break
+        kex = 0
+        for k in range(ke, 0, -1):
+            if absah[k]:
+                kex = k
+                break
+        k = ss
+        while k <= ke:
+            i = 3 * (k - 1)
+            if k > kex:
+                e.encode(st, i, 0)
+            while True:
+                v = absal[k]
+                if v:
+                    if v >> 1:
+                        e.encode(st, i + 2, v & 1)
+                    else:
+                        e.encode(st, i + 1, 1)
+                        e.encode(FIXED, 0, 0 if zz[k] >= 0 else 1)
+                    break
+                e.encode(st, i + 1, 0)
+                i += 3
+                k += 1
+            k += 1
+        if k <= se:
+            e.encode(st, 3 * (k - 1), 1)
+
+
+def arith_scan_bytes(frame, comps, coefs, ss, se, ah, al, restart, progressive, dac=None):
+    """The entropy-coded bytes (with RST markers) of one arithmetic scan."""
+    enc = ArithEncoder()
+    dac = dac or {}
+    sc = ArithScan(enc, *dac.get("dc", (0, 1)), dac.get("k", 5))
+    out, rst = bytearray(), 0
+    for i, mcu in enumerate(mcu_blocks(frame, comps)):
+        if restart and i and i % restart == 0:
+            enc.finish()
+            out += enc.out + bytes([0xFF, 0xD0 + rst])
+            enc.out = bytearray()
+            rst = (rst + 1) & 7
+            sc.reset()
+        for c, y, x in mcu:
+            blk = coefs[c.id][y, x]
+            zz = blk[ZIGZAG]
+            if not progressive:
+                sc.dc(c.td, c.id, int(blk[0]))
+                sc.ac_first(c.ta, zz, 1, 63, 0)
+            elif ss == 0 and ah == 0:
+                sc.dc(c.td, c.id, _ishift(int(blk[0]), al))
+            elif ss == 0:
+                enc.encode(FIXED, 0, (int(blk[0]) >> al) & 1)
+            elif ah == 0:
+                sc.ac_first(c.ta, zz, ss, se, al)
+            else:
+                sc.ac_refine(c.ta, zz, ss, se, ah, al)
+    enc.finish()
+    return bytes(out + enc.out)
+
+
+# ---------------------------------------------------------------- the file
+def segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+JFIF = segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+
+
+def adobe(transform: int) -> bytes:
+    return segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, transform))
+
+
+def dqt(tables: dict) -> bytes:
+    body = b""
+    for t, q in sorted(tables.items()):
+        q = np.asarray(q)[ZIGZAG]
+        if q.max() > 255:
+            body += bytes([0x10 | t]) + b"".join(struct.pack(">H", int(v)) for v in q)
+        else:
+            body += bytes([t]) + bytes(int(v) for v in q)
+    return segment(0xDB, body)
+
+
+def sof(marker: int, precision: int, width: int, height: int, comps) -> bytes:
+    body = struct.pack(">BHHB", precision, height, width, len(comps))
+    for c in comps:
+        body += bytes([c.id, (c.h << 4) | c.v, c.tq])
+    return segment(marker, body)
+
+
+def sos(comps, ss, se, ah, al) -> bytes:
+    body = bytes([len(comps)])
+    for c in comps:
+        body += bytes([c.id, (c.td << 4) | c.ta])
+    return segment(0xDA, body + bytes([ss, se, (ah << 4) | al]))
+
+
+def encode_jpeg(planes, sampling=None, ids=None, quality: int = 75, qtables=None,
+                mode: str = "sequential", arith: bool = False, scans=None,
+                restart: int = 0, markers: bytes = JFIF, predictor: int = 1, pt: int = 0,
+                precision: int = 8, sof_marker: int | None = None, dnl: bool = False,
+                dac=None, prefix: bytes = b"") -> bytes:
+    """A JPEG of ``planes`` (full-resolution (H, W) arrays, one per
+    component; subsampled by ``sampling`` [(h, v), ...] box averages).
+
+    ``mode``: "sequential", "progressive" (``scans``: [(component indices,
+    Ss, Se, Ah, Al), ...]) or "lossless" (``predictor``, ``pt``, or per
+    scan in ``scans`` as (component indices, predictor, 0, 0, pt));
+    ``arith``: arithmetic coding (``dac``: {"dc": (L, U), "k": K} writes a
+    DAC marker); ``restart``: MCUs per restart interval; ``markers``: the
+    APPn segments after SOI; ``sof_marker`` overrides the SOF code;
+    ``dnl``: height 0 in the frame header and a DNL marker after the first
+    scan; ``prefix``: segments written before the frame (DHP)."""
+    planes = [np.asarray(p) for p in planes]
+    H, W = planes[0].shape
+    n = len(planes)
+    sampling = sampling or [(1, 1)] * n
+    ids = ids or list(range(1, n + 1))
+    comps = [Component(ids[i], sampling[i][0], sampling[i][1],
+                       0 if i == 0 or n == 4 else 1, planes[i]) for i in range(n)]
+    for i, c in enumerate(comps):
+        c.td = c.ta = 0 if (i == 0 or n == 4) else 1
+    lossless = mode == "lossless"
+    frame = Frame(comps, W, H, lossless)
+    if qtables is None:
+        qtables = {0: quant_table(quality)}
+        if n == 3:
+            qtables[1] = quant_table(quality, chroma=True)
+    coefs, samples = {}, {}
+    for c in comps:
+        if lossless:
+            s = np.clip(np.round(c.sub), 0, (1 << precision) - 1).astype(np.int64)
+            samples[c.id] = np.pad(s, ((0, c.bh - c.dh), (0, c.bw - c.dw)), mode="edge")
+        else:
+            coefs[c.id] = block_coefficients(c.sub, qtables[c.tq], c.bw, c.bh,
+                                             level=1 << (precision - 1))
+    if sof_marker is None:
+        sof_marker = {("sequential", False): 0xC1 if precision > 8 else 0xC0,
+                      ("progressive", False): 0xC2, ("lossless", False): 0xC3,
+                      ("sequential", True): 0xC9, ("progressive", True): 0xCA,
+                      ("lossless", True): 0xCB}[(mode, arith)]
+    out = b"\xff\xd8" + markers + prefix
+    if not lossless:
+        out += dqt(qtables)
+    out += sof(sof_marker, precision, W, 0 if dnl else H, comps)
+    if arith and dac:
+        body = b""
+        for t in sorted({c.td for c in comps}):
+            L, U = dac.get("dc", (0, 1))
+            body += bytes([t, (U << 4) | L])
+        for t in sorted({c.ta for c in comps}):
+            body += bytes([0x10 | t, dac.get("k", 5)])
+        out += segment(0xCC, body)
+    if restart:
+        out += segment(0xDD, struct.pack(">H", restart))
+    if mode == "sequential":
+        scans = [(list(range(n)), 0, 63, 0, 0)]
+    elif lossless and scans is None:
+        scans = [(list(range(n)), predictor, 0, 0, pt)]
+    elif scans is None:
+        scans = default_progression(n)
+    for k, (idx, ss, se, ah, al) in enumerate(scans):
+        sc = [comps[i] for i in idx]
+        if lossless:  # (components, predictor, -, -, point transform)
+            header = sos(sc, ss, 0, 0, al)
+        else:
+            header = sos(sc, ss, se, ah, al)
+        if arith:
+            data = arith_scan_bytes(frame, sc, coefs, ss, se, ah, al, restart,
+                                    mode == "progressive", dac)
+            out += header + data
+        else:
+            if lossless:
+                ev = lossless_scan_events(frame, sc, samples, ss, al, restart, precision)
+            elif mode == "sequential":
+                ev = seq_scan_events(frame, sc, coefs, restart)
+            else:
+                ev = prog_scan_events(frame, sc, coefs, ss, se, ah, al, restart)
+            dht, data = serialize_huffman(ev)
+            out += dht + header + data
+        if dnl and k == 0:
+            out += segment(0xDC, struct.pack(">H", H))
+    return out + b"\xff\xd9"
+
+
+def default_progression(n: int) -> list:
+    """libjpeg's jpeg_simple_progression script for 1 or 3 components (and
+    the same shape for 4): every coefficient refined to Al = 0."""
+    allc = list(range(n))
+    if n == 3:
+        return [(allc, 0, 0, 0, 1), ([0], 1, 5, 0, 2), ([2], 1, 63, 0, 1), ([1], 1, 63, 0, 1),
+                ([0], 6, 63, 0, 2), ([0], 1, 63, 2, 1), (allc, 0, 0, 1, 0),
+                ([2], 1, 63, 1, 0), ([1], 1, 63, 1, 0), ([0], 1, 63, 1, 0)]
+    s = [(allc, 0, 0, 0, 1)]
+    for c in allc:
+        s += [([c], 1, 5, 0, 2), ([c], 6, 63, 0, 2), ([c], 1, 63, 2, 1)]
+    s += [(allc, 0, 0, 1, 0)]
+    s += [([c], 1, 63, 1, 0) for c in allc]
+    return s
+
+
+def random_scan_script(rng, n: int, complete: bool = True) -> list:
+    """A random progressive script that the spectral-selection and
+    successive-approximation rules allow: DC first (interleaved or per
+    component), then per component random bands at random Al, refined
+    down one bit per scan; ``complete=False`` may stop short of Al = 0 and
+    leave bands unsent."""
+    scans = []
+    dc_al = int(rng.integers(0, 3))
+    if n > 1 and rng.random() < 0.5:
+        scans.append((list(range(n)), 0, 0, 0, dc_al))
+    else:
+        scans += [([c], 0, 0, 0, dc_al) for c in range(n)]
+    pending = []
+    for c in range(n):
+        cuts = sorted(set(int(x) for x in rng.integers(2, 63, int(rng.integers(0, 4)))))
+        edges = [1] + cuts + [64]
+        for lo, hi in zip(edges[:-1], edges[1:]):
+            if not complete and rng.random() < 0.2:
+                continue
+            al = int(rng.integers(0, 4))
+            scans.append(([c], lo, hi - 1, 0, al))
+            stop = int(rng.integers(0, al + 1)) if not complete else 0
+            pending += [([c], lo, hi - 1, a + 1, a) for a in range(al - 1, stop - 1, -1)]
+    # the bands' refinement runs in a random order, each run in Ah order
+    bands = {}
+    for s in pending:
+        bands.setdefault((s[0][0], s[1]), []).append(s)
+    runs = list(bands.values())
+    for i in rng.permutation(len(runs)):
+        scans += runs[i]
+    dc_stop = 0 if complete else int(rng.integers(0, dc_al + 1))
+    for a in range(dc_al - 1, dc_stop - 1, -1):
+        scans.append((list(range(n)), 0, 0, a + 1, a))
+    return scans
+
+
+# ------------------------------------------------------------------ netpbm
+def encode_pnm(kind: str, img: np.ndarray, maxval: int = 255, comment: bytes = b"",
+               line: int = 12) -> bytes:
+    """P1-P6 bytes of ``img`` (samples already in 0..maxval; P1/P4 take
+    0/1 with 1 black). Plain kinds wrap ``line`` samples per line and put
+    ``comment`` lines in the header and the body."""
+    img = np.asarray(img)
+    H, W = img.shape[:2]
+    head = kind.encode() + b"\n" + (b"# " + comment + b"\n" if comment else b"")
+    head += b"%d %d\n" % (W, H)
+    if kind in ("P1", "P4"):
+        if kind == "P4":
+            rows = np.packbits(img.astype(np.uint8), axis=1)
+            return head + rows.tobytes()
+        flat = img.reshape(-1)
+        body = b"\n".join(b"".join(b"%d" % v for v in flat[i:i + line])
+                          for i in range(0, len(flat), line))
+        return head + body + b"\n"
+    head += b"%d\n" % maxval
+    if kind in ("P5", "P6"):
+        dt = ">u2" if maxval > 255 else np.uint8
+        return head + np.ascontiguousarray(img, dt).tobytes()
+    flat = img.reshape(-1)
+    lines = [b" ".join(b"%d" % v for v in flat[i:i + line]) for i in range(0, len(flat), line)]
+    if comment:
+        lines.insert(len(lines) // 2, b"# " + comment)
+    return head + b"\n".join(lines) + b"\n"
+
+
+# ------------------------------------------------------------------ content
+def scene(H: int, W: int, seed: int, channels: int = 1) -> np.ndarray:
+    """Smooth shapes, an edge and mild noise: image-like content that
+    exercises every coefficient. (H, W) or (H, W, channels) uint8."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:H, 0:W].astype(np.float64)
+    out = []
+    for ch in range(channels):
+        a = rng.uniform(0.02, 0.25, 4)
+        img = (128 + 60 * np.sin(a[0] * x + a[1] * y + ch) + 40 * np.cos(a[2] * x * y / 8 + a[3] * y)
+               + 70 * ((x - W * rng.uniform(0.2, 0.8)) * rng.uniform(-1, 1) + y - H / 2 > 0)
+               - 35 + rng.normal(0, 6, (H, W)))
+        out.append(np.clip(np.round(img), 0, 255).astype(np.uint8))
+    return out[0] if channels == 1 else np.stack(out, -1)
+
+
+def pil_sha256(path_or_bytes) -> str:
+    from PIL import Image
+
+    src = io.BytesIO(path_or_bytes) if isinstance(path_or_bytes, bytes) else path_or_bytes
+    with Image.open(src) as im:
+        arr = np.asarray(im.convert("L"))
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+# ------------------------------------------------------------------ fixtures
+W_SMALL, H_SMALL = 64, 48
+# kinds PIL refuses, with the reason the port gives
+REFUSED = ("jpeg_12bit", "jpeg_hierarchical", "jpeg_dnl", "jpeg_fractional_sampling")
+
+
+def small_files(seed: int) -> dict:
+    """name → (bytes, kind) of every small fixture."""
+    from PIL import Image
+
+    H, W = H_SMALL, W_SMALL
+    g = scene(H, W, seed)
+    rgb = scene(H, W, seed + 1, 3)
+    cmyk = scene(H, W, seed + 2, 4)
+    files = {}
+
+    def pil(name, kind, im, **kw):
+        buf = io.BytesIO()
+        im.save(buf, "JPEG", **kw)
+        files[name] = (buf.getvalue(), kind)
+
+    # PIL's own writer
+    pil("prog_gray.jpg", "progressive gray (PIL)", Image.fromarray(g), progressive=True,
+        quality=80)
+    pil("prog_420.jpg", "progressive YCbCr 4:2:0 (PIL)", Image.fromarray(rgb), progressive=True,
+        quality=80, subsampling=2)
+    pil("prog_444.jpg", "progressive YCbCr 4:4:4 (PIL)", Image.fromarray(rgb), progressive=True,
+        quality=90, subsampling=0)
+    pil("cmyk.jpg", "CMYK baseline (PIL, Adobe transform 0)", Image.fromarray(cmyk, "CMYK"),
+        quality=85)
+    pil("cmyk_prog.jpg", "CMYK progressive (PIL)", Image.fromarray(cmyk, "CMYK"),
+        quality=85, progressive=True)
+    pil("rgb_pil.jpg", "RGB baseline (PIL keep_rgb: ids R G B, Adobe transform 0)",
+        Image.fromarray(rgb), quality=85, keep_rgb=True)
+    data = io.BytesIO()
+    Image.fromarray(rgb).save(data, "JPEG", quality=80)
+    files["baseline_no_dht.jpg"] = (strip_dht(data.getvalue()),
+                                    "baseline YCbCr without DHT (motion JPEG: standard tables)")
+    # this file's encoder
+    rgbp = [rgb[..., i] for i in range(3)]
+    ycc = list(np.moveaxis(_rgb_to_ycc(rgb), -1, 0))
+    enc = {
+        "prog_restart.jpg": ("progressive YCbCr 4:2:0 with restarts (DRI 3)",
+                             dict(planes=ycc, sampling=[(2, 2), (1, 1), (1, 1)],
+                                  mode="progressive", restart=3)),
+        "prog_partial.jpg": ("progressive stopped short of full refinement (block smoothing)",
+                             dict(planes=[g], mode="progressive",
+                                  scans=[([0], 0, 0, 0, 1), ([0], 1, 5, 0, 2),
+                                         ([0], 6, 20, 0, 1), ([0], 1, 5, 2, 1)])),
+        "prog_partial_420.jpg": ("progressive 4:2:0, AC never sent (block smoothing with DC)",
+                                 dict(planes=ycc, sampling=[(2, 2), (1, 1), (1, 1)],
+                                      mode="progressive",
+                                      scans=[([0, 1, 2], 0, 0, 0, 0), ([0], 1, 9, 0, 3)])),
+        "arith_seq.jpg": ("arithmetic sequential YCbCr 4:2:0 (SOF9)",
+                          dict(planes=ycc, sampling=[(2, 2), (1, 1), (1, 1)], arith=True)),
+        "arith_seq_restart.jpg": ("arithmetic sequential gray, restarts and DAC (SOF9)",
+                                  dict(planes=[g], arith=True, restart=5,
+                                       dac={"dc": (1, 4), "k": 3})),
+        "arith_prog.jpg": ("arithmetic progressive YCbCr 4:2:0 (SOF10)",
+                           dict(planes=ycc, sampling=[(2, 2), (1, 1), (1, 1)], arith=True,
+                                mode="progressive")),
+        "lossless_gray_p1.jpg": ("lossless gray, predictor 1 (SOF3)",
+                                 dict(planes=[g], mode="lossless", predictor=1)),
+        "lossless_gray_p7.jpg": ("lossless gray, predictor 7, point transform 2, restarts",
+                                 dict(planes=[g], mode="lossless", predictor=7, pt=2,
+                                      restart=2 * W)),
+        "lossless_rgb_p1.jpg": ("lossless 3-component RGB, predictor 1 (SOF3)",
+                                dict(planes=rgbp, mode="lossless", predictor=1, markers=b"")),
+        "lossless_rgb_p7.jpg": ("lossless 3-component RGB, predictor 7 (SOF3)",
+                                dict(planes=rgbp, mode="lossless", predictor=7, markers=b"")),
+        "ycck.jpg": ("YCCK (Adobe transform 2)",
+                     dict(planes=list(np.moveaxis(_cmyk_to_ycck(cmyk), -1, 0)),
+                          markers=adobe(2))),
+        "rgb_adobe.jpg": ("RGB (Adobe transform 0, ids 1 2 3)",
+                          dict(planes=rgbp, markers=adobe(0))),
+        "rgb_ids.jpg": ("RGB (ids R G B, no marker)",
+                        dict(planes=rgbp, ids=[82, 71, 66], markers=b"")),
+        "ycc_411.jpg": ("YCbCr 4:1:1 (h = 4)",
+                        dict(planes=ycc, sampling=[(4, 1), (1, 1), (1, 1)])),
+        "jpeg_12bit.jpg": ("12-bit sequential (PIL refuses)",
+                           dict(planes=[g.astype(np.int64) * 16], precision=12,
+                                qtables={0: quant_table(75) * 16})),
+        "jpeg_hierarchical.jpg": ("hierarchical (DHP, SOF5; PIL refuses)",
+                                  dict(planes=[g], sof_marker=0xC5,
+                                       prefix=segment(0xDE, struct.pack(">BHHB", 8, H, W, 1)
+                                                      + bytes([1, 0x11, 0])))),
+        "jpeg_dnl.jpg": ("height from a DNL marker (PIL refuses)", dict(planes=[g], dnl=True)),
+        "jpeg_fractional_sampling.jpg": ("fractional sampling 3:2:1 (PIL refuses)",
+                                         dict(planes=ycc, sampling=[(3, 1), (2, 1), (1, 1)])),
+    }
+    for name, (kind, kw) in enc.items():
+        files[name] = (encode_jpeg(**kw), kind)
+    # netpbm
+    rng = np.random.default_rng(seed + 7)
+    for maxval in (1, 15, 100, 254, 256, 1023, 65535):
+        img = np.minimum(np.round(g.astype(np.float64) / 255 * maxval), maxval).astype(np.int64)
+        if maxval > 255:  # values around the clip at 255 as well
+            img[: H // 2] = rng.integers(0, min(maxval, 600) + 1, (H // 2, W))
+        files[f"p5_max{maxval}.pgm"] = (encode_pnm("P5", img, maxval),
+                                        f"P5 binary graymap, maxval {maxval}")
+    files["p2.pgm"] = (encode_pnm("P2", np.round(g / 255 * 1000).astype(np.int64), 1000,
+                                  comment=b"plain graymap"), "P2 plain graymap, maxval 1000")
+    files["p2_max15.pgm"] = (encode_pnm("P2", g >> 4, 15, comment=b"maxval 15"),
+                             "P2 plain graymap, maxval 15")
+    files["p6.ppm"] = (encode_pnm("P6", rgb, 255), "P6 binary pixmap")
+    files["p6_max1000.ppm"] = (encode_pnm("P6", np.round(rgb / 255 * 1000).astype(np.int64),
+                                          1000), "P6 binary pixmap, maxval 1000")
+    files["p3.ppm"] = (encode_pnm("P3", rgb >> 2, 63, comment=b"plain pixmap"),
+                       "P3 plain pixmap, maxval 63")
+    bits = (g > 128).astype(np.int64)
+    files["p4.pbm"] = (encode_pnm("P4", bits[:, :61]), "P4 binary bitmap (61 columns)")
+    files["p1.pbm"] = (encode_pnm("P1", bits), "P1 plain bitmap")
+    return files
+
+
+def strip_dht(data: bytes) -> bytes:
+    """A JPEG's bytes without its DHT segments (as motion-JPEG frames come:
+    decoders use the standard tables of ITU T.81 K.3)."""
+    out, p = bytearray(data[:2]), 2
+    while p < len(data):
+        m = data[p + 1]
+        if m == 0xDA:
+            return bytes(out + data[p:])
+        n = struct.unpack(">H", data[p + 2:p + 4])[0]
+        if m != 0xC4:
+            out += data[p:p + 2 + n]
+        p += 2 + n
+    return bytes(out)
+
+
+def _rgb_to_ycc(rgb):
+    r, g, b = (rgb[..., i].astype(np.float64) for i in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+    return np.clip(np.round(np.stack([y, cb, cr], -1)), 0, 255)
+
+
+def _cmyk_to_ycck(cmyk):
+    """The inverse of libjpeg's YCCK → CMYK under PIL's inversion of
+    Adobe CMYK: the file's first three components are YCbCr of PIL's
+    (C, M, Y) read as RGB, the fourth is 255 - K."""
+    ycc = _rgb_to_ycc(cmyk[..., :3].astype(np.float64))
+    return np.concatenate([ycc, 255 - cmyk[..., 3:].astype(np.float64)], -1)
+
+
+SEQ_FRAMES = 6
+SEQ_DIR = "seq_prog"
+BASELINE_DIR = "seq_baseline"  # the sequence's first pair as baseline JPEGs (decode timing)
+SEQ_NS0 = 1_403_636_579_763_555_584
+
+
+def sequence_files() -> dict:
+    """The full-width progressive stereo sequence as a raw-EuRoC tree: the
+    first ``SEQ_FRAMES`` pairs of the smoke's lines scene (the port's
+    renderer, EuRoC's 752×480 camera) written by PIL as progressive JPEGs,
+    ``cam0/data.csv`` and the ground truth (``INIT_POSE`` times the
+    rendered camera poses, as ``chip_smoke._write_tree`` writes it); and
+    the first pair again as baseline JPEGs under ``BASELINE_DIR``."""
+    from PIL import Image
+
+    sys.path.insert(0, os.path.dirname(HERE))
+    from rspl_slam_tpu_torch.config import SystemConfig
+    from rspl_slam_tpu_torch.evaluation import synthetic
+    from rspl_slam_tpu_torch.slam import INIT_POSE
+
+    cam = SystemConfig().camera
+    world = synthetic.make_scene(num_points=600, num_lines=12, seed=1, extent=(6.0, 4.0, 6.0),
+                                 on_line_frac=0.0)
+    traj = synthetic.make_trajectory(30, step=0.05)[:SEQ_FRAMES]
+    names = [SEQ_NS0 + i * 50_000_000 for i in range(SEQ_FRAMES)]
+    seq = f"{SEQ_DIR}/mav0"
+    files = {}
+    for i, ns in enumerate(names):
+        pair = synthetic.render_images(world, cam, traj[i], seed=i)
+        for cam_dir, im in zip(("cam0", "cam1"), pair):
+            u8 = Image.fromarray((np.clip(im, 0, 1) * 255).astype(np.uint8))
+            buf = io.BytesIO()
+            u8.save(buf, "JPEG", quality=85, progressive=True)
+            files[f"{seq}/{cam_dir}/data/{ns}.jpg"] = (buf.getvalue(),
+                                                        "progressive gray (PIL), 752×480")
+            if i == 0:
+                buf = io.BytesIO()
+                u8.save(buf, "JPEG", quality=85)
+                files[f"{BASELINE_DIR}/{cam_dir}.jpg"] = (buf.getvalue(),
+                                                           "baseline gray (PIL), 752×480")
+    gt = np.einsum("ij,njk->nik", INIT_POSE, traj)
+    text = {f"{seq}/cam0/data.csv": "#timestamp [ns],filename\n"
+            + "".join(f"{ns},{ns}.jpg\n" for ns in names),
+            f"{seq}/state_groundtruth_estimate0/data.csv":
+            "#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m]\n"
+            + "".join(f"{ns},{float(T[0, 3])!r},{float(T[1, 3])!r},{float(T[2, 3])!r}\n"
+                      for ns, T in zip(names, gt))}
+    return files, text
+
+
+def write_all(out: str, seed: int) -> dict:
+    files = small_files(seed)
+    seq, text = sequence_files()
+    files.update(seq)
+    manifest = {"seed": seed, "files": {}}
+    for name, (data, kind) in sorted(files.items()):
+        path = os.path.join(out, name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
+        entry = {"kind": kind}
+        if os.path.splitext(os.path.basename(name))[0] in REFUSED:
+            entry["refused"] = True
+        else:
+            entry["sha256"] = pil_sha256(path)
+        manifest["files"][name] = entry
+    for name, body in text.items():
+        os.makedirs(os.path.dirname(os.path.join(out, name)), exist_ok=True)
+        with open(os.path.join(out, name), "w") as f:
+            f.write(body)
+    with open(os.path.join(out, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.write("\n")
+    return manifest
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    m = write_all(args.out, args.seed)
+    print(f"wrote {len(m['files'])} files to {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
