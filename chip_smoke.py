@@ -186,15 +186,17 @@ Phases (one JSON line each):
      tree (frames equal), ``merge_lines`` ms per frame compiled against
      numpy on the lines path's own pre-merge segments (equal shapes,
      within 1e-9), and ``real_photo.jpg`` decoded to the pinned
-     ``REAL_PHOTO_L_SHA256``; ``image_kinds``, every JPEG and netpbm kind
-     the JAX package reads through PIL: the committed fixtures of
-     ``tests/fixtures/image_kinds`` on three decode routes against PIL's
-     pinned hashes (the kinds PIL refuses raising ``NotImplementedError``),
-     ``cli_run``'s tree as 16-bit P5 (native route) and plain P2
-     (``--no-native``), trajectories and launches equal to its PNG runs,
-     and a committed 752×480 progressive stereo sequence through ``cli
-     run`` and ``cli serve``, equal to PNG copies of its pixels, with K1
-     (both modes), K2 and K3 launched; decode ms per pair of each kind;
+     ``REAL_PHOTO_L_SHA256``; ``image_kinds``, every JPEG, netpbm, PFM,
+     TIFF and BMP kind the JAX package reads through PIL: the committed
+     fixtures of ``tests/fixtures/image_kinds`` on three decode routes
+     against PIL's pinned hashes (the kinds PIL refuses, and those the port
+     does not read yet, raising ``NotImplementedError``), ``cli_run``'s
+     tree as 16-bit P5 and 16-bit LZW TIFF (native route) and as plain P2
+     and 8-bit BMP (``--no-native``), trajectories and launches equal to
+     its PNG runs, and a committed 752×480 progressive stereo sequence
+     through ``cli run`` and ``cli serve``, equal to PNG copies of its
+     pixels, with K1 (both modes), K2 and K3 launched; decode ms per pair
+     of each kind;
      ``cli_photo``, the JAX CLI's real-photo case
      (10 stereo crops of the photograph, cosine matcher, no lines) through
      ``cli run`` here, gated as JAX gates it (n ≥ 3, rmse < 0.3 m);
@@ -3826,7 +3828,7 @@ IMAGE_KINDS = os.path.join(ROOT, "tests", "fixtures", "image_kinds")
 IMAGE_KINDS_SEQ = "seq_prog"  # the 752×480 progressive stereo sequence
 IMAGE_KINDS_SEQ_FRAMES = 6
 IMAGE_KINDS_BASELINE = "seq_baseline"  # its first pair as baseline JPEGs
-DECODE_TIMING_PAIRS = 10  # pairs of each PGM / PNG tree in the decode timing
+DECODE_TIMING_PAIRS = 10  # pairs of each PGM / PNG / TIFF / BMP tree in the decode timing
 # the sequence's keyframe trigger: fewer matches than this (every frame,
 # at 400 keypoints) makes a keyframe
 IMAGE_KINDS_ALL_KEYFRAMES = 1000
@@ -3856,6 +3858,42 @@ def _write_pgm(path, img, kind: str) -> None:
         data = b"P2\n# plain graymap\n%d %d\n255\n" % (W, H) + text.tobytes()
     with open(path, "wb") as f:
         f.write(data)
+
+
+def _image_kinds_encoders():
+    """``tests/torch_make_image_kinds.py``, the fixtures' TIFF and BMP
+    encoders (numpy only: no PIL on the card's machine)."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_make_image_kinds
+
+    return torch_make_image_kinds
+
+
+# the TIFF kinds of image_kinds: (bits, compression, predictor) of a frame
+TIFF_KINDS = {"tiff_16bit_lzw_pred2": (16, 5, 2), "tiff_raw": (8, 1, 1),
+              "tiff_lzw_pred2": (8, 5, 2), "tiff_deflate": (8, 8, 1)}
+
+
+def _write_tiff(job) -> None:
+    """One frame as a TIFF of ``TIFF_KINDS[kind]`` in 16-row strips (the
+    LZW encoder is Python: image_kinds runs these in a process pool)."""
+    path, kind, u8 = job
+    bits, compression, predictor = TIFF_KINDS[kind]
+    data = _image_kinds_encoders().encode_tiff(u8.astype(np.int64), bits=bits,
+                                               compression=compression, predictor=predictor,
+                                               rows_per_strip=16)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def _write_bmp(path, u8) -> None:
+    """(H, W) uint8 as a bottom-up 8-bit BMP with a grey-ramp palette (PIL
+    reads it as mode L, the bytes as grey levels)."""
+    ramp = np.stack([np.arange(256)] * 3, 1)
+    with open(path, "wb") as f:
+        f.write(_image_kinds_encoders().encode_bmp(u8, 8, palette=ramp))
 
 
 def _rewrite_tree(src_root, outputs) -> None:
@@ -3904,19 +3942,24 @@ def _decode_pair_ms(pairs, n_rep: int) -> float:
 
 
 def phase_image_kinds(ctx, cli_line):
-    """Every JPEG and netpbm kind the JAX package reads through PIL, on the
-    card's machine (no PIL there) and through the CLI at full width:
+    """Every JPEG, netpbm, PFM, TIFF and BMP kind the JAX package reads
+    through PIL, on the card's machine (no PIL there) and through the CLI at
+    full width:
 
     (a) each committed fixture of ``tests/fixtures/image_kinds`` (its
     manifest pins PIL's sha256 of each readable file) through
     ``png.read_gray``, ``native.decode_u8`` and a ``NativeStereoLoader``,
-    each hashing to the pinned value; each kind PIL refuses raising
+    each hashing to the pinned value; each kind PIL refuses, and each kind
+    or format PIL reads that the port does not yet, raising
     ``NotImplementedError`` on all three routes;
-    (b) ``cli_run``'s 752×480 30-frame PNG tree rewritten as 16-bit P5 and
-    as plain P2: ``cli run`` on the P5 tree by the native route and on the
-    P2 tree with ``--no-native``, each trajectory and launch count equal to
-    ``cli_run``'s PNG run of the same route (PIL reads the same pixels from
-    all three, so any difference is a decode fault);
+    (b) ``cli_run``'s 752×480 30-frame PNG tree rewritten as 16-bit P5, as
+    plain P2, as 16-bit LZW TIFF with predictor 2 (in a process pool: the
+    encoder is Python) and as bottom-up 8-bit BMP: ``cli run`` on the P5
+    and TIFF trees by the native route and on the P2 and BMP trees with
+    ``--no-native``, the four processes at once, each trajectory and launch
+    count equal to ``cli_run``'s PNG run of the same route (every value is
+    at most 255, so PIL reads the same pixels from all of them: any
+    difference is a decode fault);
     (c) the committed 752×480 progressive stereo sequence (6 pairs written
     by PIL from the port's renderer, with its ground truth): ``cli run``
     (native) on it and on PNG copies of its decoded pixels, trajectories
@@ -3927,8 +3970,13 @@ def phase_image_kinds(ctx, cli_line):
     the serve route's frames are the native route's; the algorithm file
     holds the weight paths, which ``serve`` takes from it, and makes every
     frame a keyframe, so the trajectories compared hold every pose);
-    then decode ms per 752×480 pair, progressive against baseline JPEG and
-    16-bit P5 against 8-bit PNG, in turns."""
+    then decode ms per 752×480 pair, progressive against baseline JPEG,
+    16-bit P5 against 8-bit PNG, and TIFF (uncompressed, LZW with predictor
+    2, Deflate, 16-bit LZW with predictor 2) and 8-bit BMP against 8-bit
+    PNG, in turns."""
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing
+
     from rspl_slam_tpu_torch import native, png
 
     t_phase = time.perf_counter()
@@ -3975,31 +4023,58 @@ def phase_image_kinds(ctx, cli_line):
     cw = ctx["work"]
     weights = ("--sp-weights", os.path.join(cw, "sp.npz"), "--sg-weights",
                os.path.join(cw, "sg.npz"), "--rcf-weights", os.path.join(cw, "rcf.npz"))
-    # (b) the PGM trees against cli_run's PNG runs of the same route; each
-    # part's CLI processes run at once (each repeats its trajectory bit for
-    # bit whatever runs beside it: cli_run's native_again gate)
-    trees = {kind: os.path.join(work, f"tree_{kind}") for kind in ("P5", "P2")}
+    # (b) the PGM, TIFF and BMP trees against cli_run's PNG runs of the same
+    # route; each part's CLI processes run at once (each repeats its
+    # trajectory bit for bit whatever runs beside it: cli_run's native_again
+    # gate)
+    trees = {kind: os.path.join(work, f"tree_{kind}")
+             for kind in ("P5", "P2", "TIFF16", "BMP8")}
+    # the other TIFF kinds: the first pairs only, for the decode timing
+    timing_trees = {k: os.path.join(work, f"timing_{k}") for k in TIFF_KINDS
+                    if k != "tiff_16bit_lzw_pred2"}
+    names = sorted(os.listdir(os.path.join(ctx["tree"], "mav0", "cam0", "data")))
+    timing_stems = {os.path.splitext(nm)[0] for nm in names[:DECODE_TIMING_PAIRS]}
+    for root in timing_trees.values():
+        for cam in ("cam0", "cam1"):
+            os.makedirs(os.path.join(root, "mav0", cam, "data"))
     t0 = time.perf_counter()
-    _rewrite_tree(ctx["tree"], {trees[k]: (".pgm", lambda p, u8, k=k: _write_pgm(p, u8, k))
-                                for k in trees})
-    pgm_write_s = time.perf_counter() - t0
-    routes = {"P5": (), "P2": ("--no-native",)}
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        tiff_jobs = []
+
+        def write_tiffs(path, u8):  # in the pool, while this process writes the rest
+            tiff_jobs.append(pool.submit(_write_tiff, (path, "tiff_16bit_lzw_pred2", u8)))
+            stem, cam = os.path.splitext(os.path.basename(path))[0], path.split(os.sep)[-3]
+            if stem in timing_stems:
+                for k, root in timing_trees.items():
+                    tiff_jobs.append(pool.submit(_write_tiff, (
+                        os.path.join(root, "mav0", cam, "data", stem + ".tif"), k, u8)))
+
+        _rewrite_tree(ctx["tree"], {
+            **{trees[k]: (".pgm", lambda p, u8, k=k: _write_pgm(p, u8, k))
+               for k in ("P5", "P2")},
+            trees["TIFF16"]: (".tif", write_tiffs), trees["BMP8"]: (".bmp", _write_bmp)})
+        for job in tiff_jobs:
+            job.result()
+    trees_write_s = time.perf_counter() - t0
+    routes = {"P5": (), "P2": ("--no-native",), "TIFF16": (), "BMP8": ("--no-native",)}
     t0 = time.perf_counter()
     outs = _cli_concurrent(*[("run", "--dataroot", trees[k], "--config", ctx["euroc"],
                               "--camera-config", ctx["cam_yaml"], *weights, "--gt", trees[k],
                               "--traj-path", os.path.join(work, f"traj_{k}.txt"), *routes[k])
                              for k in trees])
-    pgm_wall = time.perf_counter() - t0
-    pgm = {}
+    trees_wall = time.perf_counter() - t0
+    tree_runs = {}
     for kind, out in zip(trees, outs):
         with open(os.path.join(work, f"traj_{kind}.txt")) as f:
             text = f.read()
         with open(os.path.join(cw, "traj_no_native.txt" if routes[kind] else "traj.txt")) as f:
             ref = f.read()
         ref_launches = cli_line["launches_no_native" if routes[kind] else "launches"]
-        pgm[kind] = {"route": "no_native" if routes[kind] else "native", **_cli_result(out),
-                     "trajectory_equal_png": text == ref, "keyframes": len(text.splitlines())}
-        pgm[kind]["launches_equal_png"] = pgm[kind]["launches"] == ref_launches
+        tree_runs[kind] = {"route": "no_native" if routes[kind] else "native",
+                           **_cli_result(out), "trajectory_equal_png": text == ref,
+                           "keyframes": len(text.splitlines())}
+        tree_runs[kind]["launches_equal_png"] = tree_runs[kind]["launches"] == ref_launches
 
     # (c) the progressive sequence, its PNG copies, and serve
     seq = os.path.join(IMAGE_KINDS, IMAGE_KINDS_SEQ)
@@ -4055,12 +4130,20 @@ def phase_image_kinds(ctx, cli_line):
     for a, b in (("progressive_jpeg", "baseline_jpeg"), ("p5_16bit", "png_8bit")):
         for k in (a, b, b, a):
             timing[k].append(_decode_pair_ms(sets[k], 20 if len(sets[k]) == 1 else 2))
+    # TIFF and BMP against 8-bit PNG: the order forward, then back
+    tb_sets = {"png_8bit": sets["png_8bit"],
+               **{k: tree_pairs(root, DECODE_TIMING_PAIRS) for k, root in timing_trees.items()},
+               "tiff_16bit_lzw_pred2": tree_pairs(trees["TIFF16"], DECODE_TIMING_PAIRS),
+               "bmp_8bit": tree_pairs(trees["BMP8"], DECODE_TIMING_PAIRS)}
+    tb_timing = {k: [] for k in tb_sets}
+    for k in list(tb_sets) + list(tb_sets)[::-1]:
+        tb_timing[k].append(_decode_pair_ms(tb_sets[k], 2))
 
     jl = runs["jpeg"]["launches"]
     line = {"phase": "image_kinds", "card": CARD, "fixtures": len(manifest),
             "fixtures_hash_equal_pil": hashes_ok, "refused_raise": refused_ok,
-            "fixture_faults": bad, "pgm_trees": pgm, "pgm_trees_write_s": pgm_write_s,
-            "pgm_cli_wall_s": pgm_wall,
+            "fixture_faults": bad, "trees": tree_runs, "trees_write_s": trees_write_s,
+            "trees_cli_wall_s": trees_wall,
             "sequence": {"frames": runs["jpeg"]["frames"], "image": [752, 480],
                          "keyframes": len(runs["jpeg"]["text"].splitlines()),
                          "ate": runs["jpeg"]["ate"], "launches": jl,
@@ -4073,11 +4156,13 @@ def phase_image_kinds(ctx, cli_line):
                          "serve_launches": runs["serve"]["launches"], "cli_wall_s": seq_wall},
             "decode_ms_per_pair": timing,
             "decode_order": "progressive, baseline, baseline, progressive; P5, PNG, PNG, P5",
+            "decode_ms_per_pair_tiff_bmp": tb_timing,
+            "decode_order_tiff_bmp": ", ".join(tb_sets) + ", then back",
             "seconds": time.perf_counter() - t_phase}
     emit(line)
     if bad or hashes_ok + refused_ok != len(manifest):
         raise AssertionError(f"image_kinds: fixtures off PIL's pinned hashes: {bad}")
-    for kind, r in pgm.items():
+    for kind, r in tree_runs.items():
         if r["frames"] != E2E_FRAMES or not r["trajectory_equal_png"] or not r["launches_equal_png"]:
             raise AssertionError(f"image_kinds: the {kind} tree's {r['route']} run differs from "
                                  f"cli_run's PNG run: {r}")

@@ -260,7 +260,11 @@ def cmd_serve(args):
     Producers should write-then-rename so a listed file is complete. Stops
     when a file named ``stop`` appears in watch-dir or after
     ``--idle-timeout`` seconds without a new pair, then saves the
-    trajectory as ``run`` does."""
+    trajectory as ``run`` does.
+
+    Only ``.png``, ``.jpg``, ``.jpeg`` and ``.pgm`` names are taken, the
+    JAX package's filter (its ``cli.py``), so half-written temporaries are
+    skipped: TIFF, BMP and PFM frames, which ``run`` reads, are not served."""
     from rspl_slam_tpu_torch.datasets import _load_gray
     from rspl_slam_tpu_torch.pipeline import PipelinedRunner
 

@@ -8,9 +8,16 @@
 //      Adam7;
 //   C. JPEG as libjpeg-turbo decodes it for PIL: sequential, progressive
 //      and lossless, Huffman or arithmetic coded, gray, YCbCr, RGB, CMYK
-//      and YCCK, any integral sampling; netpbm P1-P6 as PIL reads them;
+//      and YCCK, any integral sampling; netpbm P1-P6 and PFM as PIL reads
+//      them; TIFF and BMP (native_tiff.h, native_bmp.h, over PIL's image
+//      model in native_pil.h);
 //   D. an ordered stereo prefetcher: decode threads, a bounded reorder
 //      buffer, optional rectification.
+//
+// Formats are told apart by content, as PIL's Image.open tells them, never
+// by the file name. A file of a format PIL identifies by a fixed signature
+// and this reader does not read (GIF, WebP, JPEG 2000, ICO, CUR, QOI, PSD,
+// DDS, SGI, Sun raster, PCX, AVIF) is refused with a code naming it.
 //
 // Every decoder returns the 8-bit gray that PIL's Image.open(p).convert("L")
 // returns: RGB through PIL's luma (R·19595 + G·38470 + B·7471 + 0x8000) >> 16,
@@ -27,6 +34,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <exception>
 #include <map>
 #include <mutex>
 #include <string>
@@ -36,12 +44,19 @@
 namespace {
 
 enum Err {
-  kOk = 0, kIO = 1, kCorrupt = 2, kSize = 4,
-  // image kinds refused, every code from kPrecision on (native_runtime_is_refused;
-  // native.py raises NotImplementedError); PIL refuses them too, but for
-  // kPnmKind (PFM and Pillow's own netpbm variants)
+  kOk = 0, kIO = 1, kCorrupt = 2, kUnknown = 3, kSize = 4,
+  // image kinds refused, every code from kPrecision on (native_runtime_error_kind;
+  // native.py raises NotImplementedError). PIL refuses the JPEG ones, kTiffMode,
+  // kTiffLab, kTiffRawMode and the BMP ones too; it reads the rest, which the
+  // port does not yet
   kPrecision = 5, kHierarchical = 6, kDNL = 7, kFractional = 8, kLosslessColour = 9,
-  kArithLossless = 10, kComponents = 11, kMcuSize = 12, kPnmKind = 13
+  kArithLossless = 10, kComponents = 11, kMcuSize = 12, kPnmKind = 13,
+  kTiffJpeg = 14, kTiffCcitt = 15, kTiffLzma = 16, kTiffZstd = 17, kTiffWebp = 18,
+  kTiffSgiLog = 19, kTiffThunderScan = 20, kTiffYCbCr = 21, kTiffMode = 22, kTiffLab = 23,
+  kTiffRawMode = 24, kBmpHeader = 25, kBmpDepth = 26, kBmpCompression = 27,
+  kBmpBitfields = 28, kBmpPalette = 29, kBmpRle = 30,
+  kGif = 31, kWebp = 32, kJpeg2000 = 33, kIco = 34, kCur = 35, kQoi = 36, kPsd = 37,
+  kDds = 38, kSgi = 39, kSun = 40, kPcx = 41, kAvif = 42
 };
 
 bool read_file(const char* path, std::vector<uint8_t>& buf) {
@@ -58,6 +73,18 @@ bool read_file(const char* path, std::vector<uint8_t>& buf) {
 
 inline uint8_t pil_luma(int r, int g, int b) {
   return (uint8_t)((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16);
+}
+
+// PIL's CMYK → L: its cmyk2rgb (MULDIV255 of each ink by 255 − K), then luma
+inline uint8_t pil_cmyk_luma(int c, int m, int y, int k) {
+  auto muldiv255 = [](int a, int b) {
+    const int t = a * b + 128;
+    return ((t >> 8) + t) >> 8;
+  };
+  auto clamp = [](int v) { return v < 0 ? 0 : v > 255 ? 255 : v; };
+  const int nk = 255 - k;
+  return pil_luma(clamp(nk - muldiv255(c, nk)), clamp(nk - muldiv255(m, nk)),
+                  clamp(nk - muldiv255(y, nk)));
 }
 
 inline uint32_t be32(const uint8_t* p) {
@@ -1846,10 +1873,6 @@ struct JpegDecoder {
     // four components: libjpeg's CMYK (YCCK converted: 255 − RGB, K as is),
     // PIL's "CMYK;I" inversion, then its cmyk2rgb (MULDIV255) and luma
     const uint8_t* P3 = full[3].data();
-    auto muldiv255 = [](int a, int b) {
-      const int t = a * b + 128;
-      return ((t >> 8) + t) >> 8;
-    };
     for (size_t i = 0; i < npx; ++i) {
       int cc, mm, yy;
       if (space == kYCCK) {
@@ -1859,20 +1882,28 @@ struct JpegDecoder {
         mm = 255 - P1[i];
         yy = 255 - P2[i];
       }
-      const int nk = P3[i];  // 255 − K, K = 255 − the file's sample
-      gray[i] = pil_luma(clamp(nk - muldiv255(cc, nk)), clamp(nk - muldiv255(mm, nk)),
-                         clamp(nk - muldiv255(yy, nk)));
+      gray[i] = pil_cmyk_luma(cc, mm, yy, 255 - P3[i]);  // K = 255 − the file's sample
     }
     return kOk;
   }
 };
 
-// ================================================= netpbm (P1-P6)
+// ===================================== PIL's image model, TIFF and BMP
+
+#include "native_pil.h"
+#include "native_tiff.h"
+#include "native_bmp.h"
+
+// ================================================ netpbm (P1-P6, Pf)
 // As PIL's PpmImagePlugin reads it, then convert("L"): binary P4/P5/P6 and
 // plain P1/P2/P3; P5 at maxval 255 raw, 65535 big-endian raw (mode "I"),
 // any other maxval scaled as round(v / maxval · 255) (or · 65535 in mode
 // "I", maxval > 255), rounded half to even, then clipped at 255; RGB
-// through PIL's luma; bitmaps 1 = black.
+// through PIL's luma; bitmaps 1 = black. PFM gray ("Pf", mode "F"): the
+// scale's sign gives the byte order (negative: little-endian), rows run
+// bottom to top, and each float goes to L truncated toward zero and
+// clamped; a scale of zero or not finite is refused as PIL refuses it.
+// Colour PFM ("PF") is not identified by PIL.
 
 inline bool pnm_space(int c) {
   return c == ' ' || c == '\t' || c == '\n' || c == '\v' || c == '\f' || c == '\r';
@@ -1898,11 +1929,50 @@ bool py_int(const std::string& t, int64_t& v) {
   return true;
 }
 
+// Python's float() of an ASCII token in its finite decimal forms: a sign,
+// digits with single underscores between them, a point, an exponent (the
+// infinities and NaN are refused, as PIL refuses a scale that is not finite)
+bool py_float(const std::string& t, double& v) {
+  std::string clean;
+  size_t i = 0;
+  auto digits = [&](bool& any) {
+    any = false;
+    while (i < t.size()) {
+      if (std::isdigit((unsigned char)t[i])) {
+        clean.push_back(t[i++]);
+        any = true;
+      } else if (t[i] == '_' && any && i + 1 < t.size() && std::isdigit((unsigned char)t[i + 1])) {
+        ++i;
+      } else {
+        break;
+      }
+    }
+  };
+  if (i < t.size() && (t[i] == '+' || t[i] == '-')) clean.push_back(t[i++]);
+  bool int_part, frac_part = false;
+  digits(int_part);
+  if (i < t.size() && t[i] == '.') {
+    clean.push_back(t[i++]);
+    digits(frac_part);
+  }
+  if (!int_part && !frac_part) return false;
+  if (i < t.size() && (t[i] == 'e' || t[i] == 'E')) {
+    clean.push_back(t[i++]);
+    if (i < t.size() && (t[i] == '+' || t[i] == '-')) clean.push_back(t[i++]);
+    bool exp_part;
+    digits(exp_part);
+    if (!exp_part) return false;
+  }
+  if (i != t.size()) return false;
+  v = std::strtod(clean.c_str(), nullptr);
+  return true;
+}
+
 // PpmImageFile._read_token: whitespace before a token is skipped, a '#'
 // drops the rest of its line (up to CR or LF, consumed) and the token goes
 // on; a token ends at whitespace (consumed); more than 10 bytes is an error
-int pnm_token(const uint8_t* d, size_t n, size_t& pos, int64_t& v) {
-  std::string tok;
+int pnm_raw_token(const uint8_t* d, size_t n, size_t& pos, std::string& tok) {
+  tok.clear();
   while (tok.size() <= 10) {
     if (pos >= n) break;
     const int c = d[pos++];
@@ -1919,13 +1989,21 @@ int pnm_token(const uint8_t* d, size_t n, size_t& pos, int64_t& v) {
     }
     tok.push_back((char)c);
   }
-  if (tok.empty() || tok.size() > 10 || !py_int(tok, v)) return kCorrupt;
+  if (tok.empty() || tok.size() > 10) return kCorrupt;
   return kOk;
 }
 
+int pnm_token(const uint8_t* d, size_t n, size_t& pos, int64_t& v) {
+  std::string tok;
+  const int rc = pnm_raw_token(d, n, pos, tok);
+  if (rc) return rc;
+  return py_int(tok, v) ? kOk : kCorrupt;
+}
+
 struct PnmHeader {
-  int kind = 0;  // 1..6
+  int kind = 0;  // 1..6, 7 for Pf
   int64_t w = 0, h = 0, maxval = 1;
+  double scale = 0.0;  // Pf
   size_t data = 0;  // offset of the first sample
 };
 
@@ -1939,8 +2017,9 @@ int pnm_header(const uint8_t* d, size_t n, PnmHeader& hd) {
   }
   if (magic.size() == 2 && magic[0] == 'P' && magic[1] >= '1' && magic[1] <= '6') {
     hd.kind = magic[1] - '0';
-  } else if (magic == "Pf" || magic == "P0CMYK" || magic == "PyP" || magic == "PyRGBA" ||
-             magic == "PyCMYK") {
+  } else if (magic == "Pf") {
+    hd.kind = 7;
+  } else if (magic == "P0CMYK" || magic == "PyP" || magic == "PyRGBA" || magic == "PyCMYK") {
     return kPnmKind;
   } else {
     return kCorrupt;
@@ -1948,7 +2027,12 @@ int pnm_header(const uint8_t* d, size_t n, PnmHeader& hd) {
   int rc;
   if ((rc = pnm_token(d, n, pos, hd.w)) || (rc = pnm_token(d, n, pos, hd.h))) return rc;
   if (hd.w <= 0 || hd.h <= 0 || hd.w > (1 << 24) || hd.h > (1 << 24)) return kCorrupt;
-  if (hd.kind != 1 && hd.kind != 4) {
+  if (hd.kind == 7) {
+    std::string tok;
+    if ((rc = pnm_raw_token(d, n, pos, tok))) return rc;
+    if (!py_float(tok, hd.scale) || hd.scale == 0.0 || !std::isfinite(hd.scale))
+      return kCorrupt;  // "scale must be finite and non-zero"
+  } else if (hd.kind != 1 && hd.kind != 4) {
     if ((rc = pnm_token(d, n, pos, hd.maxval))) return rc;
     if (hd.maxval <= 0 || hd.maxval >= 65536) return kCorrupt;
   }
@@ -1988,6 +2072,14 @@ int decode_pnm(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, i
   };
   const uint8_t* p = d + hd.data;
   const size_t avail = n - hd.data;
+  if (hd.kind == 7) {  // "F;32F" (scale < 0) or "F;32BF", raw, bottom to top
+    PilImage im;
+    im.alloc(kModeF, w, h);
+    const UnpackerDef* u = find_unpacker(kModeF, hd.scale < 0 ? "F;32F" : "F;32BF");
+    const int rc2 = raw_decode(d, n, hd.data, im, 0, 0, w, h, *u, 0, -1);
+    if (rc2) return rc2;
+    return pil_to_gray(im, gray);
+  }
   if (hd.kind == 4) {  // "1;I": rows of ceil(w / 8) bytes, MSB first, 1 = black
     const size_t row = ((size_t)w + 7) / 8;
     if (avail < row * h) return kCorrupt;
@@ -2044,7 +2136,36 @@ inline bool is_pnm(const uint8_t* d, size_t n) {
   return n >= 2 && d[0] == 'P' && std::strchr("0123456fy", d[1]) && d[1] != 0;
 }
 
-int decode_any(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, int& h) {
+// The formats PIL identifies by a fixed signature (each plugin's _accept)
+// that this reader does not read: the code refusing each, else kOk
+int unported_format(const uint8_t* d, size_t n) {
+  auto starts = [&](const char* sig, size_t k) { return n >= k && !std::memcmp(d, sig, k); };
+  if (starts("GIF87a", 6) || starts("GIF89a", 6)) return kGif;
+  if (starts("RIFF", 4) && n >= 16 && !std::memcmp(d + 8, "WEBP", 4) &&
+      (!std::memcmp(d + 12, "VP8 ", 4) || !std::memcmp(d + 12, "VP8X", 4) ||
+       !std::memcmp(d + 12, "VP8L", 4)))
+    return kWebp;
+  if (starts("\xff\x4f\xff\x51", 4) || starts("\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", 12))
+    return kJpeg2000;
+  if (starts("\0\0\1\0", 4)) return kIco;
+  if (starts("\0\0\2\0", 4)) return kCur;
+  if (starts("qoif", 4)) return kQoi;
+  if (starts("8BPS", 4)) return kPsd;
+  if (starts("DDS ", 4)) return kDds;
+  if (n >= 2 && (d[0] << 8 | d[1]) == 474) return kSgi;
+  if (starts("\x59\xa6\x6a\x95", 4)) return kSun;
+  if (n >= 2 && d[0] == 10 && (d[1] == 0 || d[1] == 2 || d[1] == 3 || d[1] == 5)) return kPcx;
+  if (n >= 12 && !std::memcmp(d + 4, "ftyp", 4) &&
+      (!std::memcmp(d + 8, "avif", 4) || !std::memcmp(d + 8, "avis", 4) ||
+       !std::memcmp(d + 8, "mif1", 4) || !std::memcmp(d + 8, "msf1", 4)))
+    return kAvif;
+  return kOk;
+}
+
+inline bool is_bmp(const uint8_t* d, size_t n) { return n >= 2 && d[0] == 'B' && d[1] == 'M'; }
+
+int decode_by_signature(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w,
+                        int& h) {
   if (n >= 8 && !std::memcmp(d, kPngSig, 8)) return decode_png(d, n, gray, w, h);
   if (n >= 3 && d[0] == 0xFF && d[1] == 0xD8 && d[2] == 0xFF) {
     JpegDecoder j(d, n);
@@ -2054,10 +2175,23 @@ int decode_any(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, i
     return rc;
   }
   if (is_pnm(d, n)) return decode_pnm(d, n, gray, w, h);
-  return kCorrupt;
+  if (is_bmp(d, n)) return decode_bmp(d, n, gray, w, h);
+  if (is_tiff(d, n)) return decode_tiff(d, n, gray, w, h);
+  const int rc = unported_format(d, n);
+  return rc ? rc : kUnknown;
 }
 
-int probe_size(const uint8_t* d, size_t n, int& w, int& h) {
+// no exception leaves the library: a header that asks for more memory than
+// there is fails as corrupt data
+int decode_any(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, int& h) {
+  try {
+    return decode_by_signature(d, n, gray, w, h);
+  } catch (const std::exception&) {
+    return kCorrupt;
+  }
+}
+
+int probe_by_signature(const uint8_t* d, size_t n, int& w, int& h) {
   if (n >= 8 && !std::memcmp(d, kPngSig, 8)) {
     PngHeader hd;
     const int rc = png_header(d, n, hd);
@@ -2092,7 +2226,30 @@ int probe_size(const uint8_t* d, size_t n, int& w, int& h) {
     h = (int)hd.h;
     return rc;
   }
-  return kCorrupt;
+  if (is_bmp(d, n)) {
+    BmpInfo b;
+    const int rc = bmp_header(d, n, b);
+    w = (int)b.w;
+    h = (int)b.h;
+    return rc;
+  }
+  if (is_tiff(d, n)) {
+    TiffInfo t;
+    const int rc = tiff_setup(d, n, t);
+    w = t.w;
+    h = t.h;
+    return rc;
+  }
+  const int rc = unported_format(d, n);
+  return rc ? rc : kUnknown;
+}
+
+int probe_size(const uint8_t* d, size_t n, int& w, int& h) {
+  try {
+    return probe_by_signature(d, n, w, h);
+  } catch (const std::exception&) {
+    return kCorrupt;
+  }
 }
 
 int decode_path(const char* path, std::vector<uint8_t>& gray, int& w, int& h) {
@@ -2198,14 +2355,82 @@ const char* native_runtime_error_string(int code) {
       return "a JPEG scan of more than 10 blocks per MCU: PIL does not read it either "
              "(libjpeg-turbo: \"Sampling factors too large for interleaved scan\")";
     case kPnmKind:
-      return "a netpbm kind other than P1-P6 (PFM, Pillow's own P0CMYK and Py kinds): "
+      return "a netpbm kind other than P1-P6 and Pf (Pillow's own P0CMYK and Py kinds): "
              "not read";
+    case kUnknown:
+      return "not a PNG, JPEG, netpbm, TIFF or BMP file (nor a format PIL identifies by "
+             "a signature)";
+    case kTiffJpeg:
+      return "a TIFF with JPEG compression (6, 7): PIL reads it through libtiff; not read";
+    case kTiffCcitt:
+      return "a TIFF with CCITT compression (2, 3, 4, 32771): PIL reads it through libtiff; "
+             "not read";
+    case kTiffLzma:
+      return "a TIFF with LZMA compression (34925): PIL reads it through libtiff; not read";
+    case kTiffZstd:
+      return "a TIFF with ZSTD compression (50000): PIL reads it through libtiff; not read";
+    case kTiffWebp:
+      return "a TIFF with WebP compression (50001): PIL reads it through libtiff; not read";
+    case kTiffSgiLog:
+      return "a TIFF with SGILog compression (34676, 34677): PIL reads it through libtiff; "
+             "not read";
+    case kTiffThunderScan:
+      return "a TIFF with ThunderScan compression (32809): PIL reads it through libtiff; not read";
+    case kTiffYCbCr:
+      return "a compressed YCbCr TIFF: PIL reads it through libtiff's TIFFRGBAImage; not read";
+    case kTiffMode:
+      return "a TIFF whose (byte order, photometric, sample format, fill order, bits, extra "
+             "samples) PIL's OPEN_INFO maps to no mode: PIL does not read it either "
+             "(TiffImagePlugin: \"unknown pixel mode\")";
+    case kTiffLab:
+      return "a CIELAB TIFF: PIL opens it as mode LAB but does not convert it to L either "
+             "(\"conversion from LAB to RGB not supported\")";
+    case kTiffRawMode:
+      return "a TIFF whose layout asks PIL for a raw mode it lacks (uncompressed separate "
+             "planes of LA, PA, RGBX or RGBa; fill order 2 at 8-bit min-is-white or palette), "
+             "which PIL does not read either (\"unknown raw mode for given image mode\"), or a "
+             "compressed palette TIFF with an extra sample on separate planes, which PIL reads "
+             "past the end of its tile buffer: not read";
+    case kBmpHeader:
+      return "a BMP whose header size is not 12, 40, 52, 56, 64, 108 or 124: PIL does not "
+             "read it either (\"Unsupported BMP header type\")";
+    case kBmpDepth:
+      return "a BMP of a pixel depth other than 1, 4, 8, 16, 24 or 32 bits: PIL does not "
+             "read it either (\"Unsupported BMP pixel depth\")";
+    case kBmpCompression:
+      return "a BMP with JPEG (4), PNG (5) or another unknown compression: PIL does not read "
+             "it either (\"Unsupported BMP compression\")";
+    case kBmpBitfields:
+      return "a BMP whose BITFIELDS masks PIL maps to no layout: PIL does not read it either "
+             "(\"Unsupported BMP bitfields layout\")";
+    case kBmpPalette:
+      return "a BMP palette of more than 256 colours: PIL does not read it either "
+             "(\"Unsupported BMP Palette size\", \"invalid palette size\")";
+    case kBmpRle:
+      return "an RLE BMP above 8 bits or with a black-and-white palette: PIL does not read it "
+             "either (\"unknown raw mode\")";
+    case kGif: return "a GIF image: PIL reads it; not read yet";
+    case kWebp: return "a WebP image: PIL reads it; not read yet";
+    case kJpeg2000: return "a JPEG 2000 image (codestream or JP2): PIL reads it; not read yet";
+    case kIco: return "an ICO (Windows icon) image: PIL reads it; not read yet";
+    case kCur: return "a CUR (Windows cursor) image: PIL reads it; not read yet";
+    case kQoi: return "a QOI image: PIL reads it; not read yet";
+    case kPsd: return "a PSD (Photoshop) image: PIL reads it; not read yet";
+    case kDds: return "a DDS (DirectDraw surface) image: PIL reads it; not read yet";
+    case kSgi: return "an SGI image: PIL reads it; not read yet";
+    case kSun: return "a Sun raster image: PIL reads it; not read yet";
+    case kPcx: return "a PCX image: PIL reads it; not read yet";
+    case kAvif: return "an AVIF image: PIL reads it; not read yet";
     default: return "unknown error";
   }
 }
 
-// 1 where code names an image kind the decoder refuses, else 0
-int native_runtime_is_refused(int code) { return code >= kPrecision; }
+// the Python exception an error code raises (native.py): 1 NotImplementedError
+// for an image kind the decoder refuses, 2 ValueError for a file of no known
+// signature, 0 IOError for the rest
+int native_runtime_error_kind(int code) {
+  return code >= kPrecision ? 1 : code == kUnknown ? 2 : 0;
+}
 
 // segs (n, 4) f64 row-major; out (n, 4). Returns the merged count.
 int native_merge_lines(const double* segs, int n, double angle_thr, double distance_thr,

@@ -2,9 +2,10 @@
 ``csrc/native_runtime.cpp``, host C++ built by ``ops/cuda_build`` with the
 host compiler at first use into ``rspl_slam_tpu_torch/_build/``.
 
-- :func:`decode_gray`: a PNG, JPEG or netpbm file → (H, W) float32 in
-  [0, 1], the 8-bit gray of PIL's ``Image.open(p).convert("L")`` divided
-  by 255 as ``datasets.EurocDataset`` divides it;
+- :func:`decode_gray`: a PNG, JPEG, netpbm, TIFF or BMP file → (H, W)
+  float32 in [0, 1], the 8-bit gray of PIL's
+  ``Image.open(p).convert("L")`` divided by 255 as
+  ``datasets.EurocDataset`` divides it;
 - :func:`decode_u8`: the same decode of an encoded image in memory, 8-bit;
 - :func:`remap_bilinear`: ``camera.remap_bilinear``'s border clamp on the
   host;
@@ -13,13 +14,31 @@ host compiler at first use into ``rspl_slam_tpu_torch/_build/``.
 - :class:`NativeStereoLoader`: decode threads that read, decode and
   optionally rectify stereo pairs ahead of the consumer, in order.
 
-The decoder reads every kind PIL reads from these formats: PNG of every
-colour type, bit depth and interlace; JPEG sequential, progressive
-(with libjpeg-turbo's block smoothing) and lossless, Huffman or
-arithmetic coded, gray, YCbCr, RGB, CMYK and YCCK at any integral
-sampling; netpbm P1-P6 at any maxval. The JPEG and netpbm kinds PIL
-refuses (12-bit, hierarchical, a DNL height, fractional sampling,
-lossless YCbCr) raise ``NotImplementedError`` naming the kind.
+The decoder tells formats apart by content, as PIL does, and reads every
+kind PIL reads from these formats: PNG of every colour type, bit depth
+and interlace; JPEG sequential, progressive (with libjpeg-turbo's block
+smoothing) and lossless, Huffman or arithmetic coded, gray, YCbCr, RGB,
+CMYK and YCCK at any integral sampling; netpbm P1-P6 at any maxval and
+gray PFM ("Pf"); TIFF (``csrc/native_tiff.h``: classic and BigTIFF, both
+byte orders, strips and tiles, planar 1 and 2, fill order 2, no
+compression, PackBits, LZW and Deflate with predictors 2 and 3, every
+mode PIL's ``OPEN_INFO`` maps: bilevel, 2-/4-/8-bit gray, 12-, 16- and
+32-bit integers, 32-bit float, palette, LA, RGB(A/X/a) at 8 and 16 bits,
+CMYK, uncompressed YCbCr, with PIL's own byte-order and planar quirks,
+flipped or rotated by the Orientation tag, or with none by the XMP
+packet, as PIL's ``ImageOps.exif_transpose`` does after decoding);
+BMP (``csrc/native_bmp.h``: every header size, 1-32 bits, RLE4, RLE8,
+BITFIELDS, top-down rows). Kinds PIL refuses (12-bit, hierarchical, DNL
+and fractional-sampling JPEG, lossless YCbCr; TIFF modes missing from
+``OPEN_INFO``, CIELAB; BMP headers, depths, compressions, masks and
+palettes PIL rejects) and kinds PIL reads that the port does not yet
+(TIFF's JPEG, CCITT, LZMA, ZSTD, WebP, SGILog and ThunderScan
+compressions and compressed YCbCr; GIF, WebP, JPEG 2000, ICO, CUR, QOI,
+PSD, DDS, SGI, Sun raster, PCX, AVIF files; Pillow's P0CMYK and Py netpbm
+kinds) raise ``NotImplementedError`` naming the kind or format. A file
+with no signature raises ``ValueError``, and a file that fails to decode
+``IOError``, on every route: the library's ``native_runtime_error_kind``
+decides.
 
 There is no fallback: where the library cannot be built, every entry point
 raises.
@@ -61,26 +80,32 @@ def available() -> bool:
 
 
 def _raise(rc: int, what: str):
+    """Raise the exception the library's ``native_runtime_error_kind``
+    names for error code ``rc``."""
     lib = _lib()
     msg = lib.native_runtime_error_string(rc).decode()
-    if lib.native_runtime_is_refused(rc):
+    kind = lib.native_runtime_error_kind(rc)
+    if kind == 1:
         raise NotImplementedError(f"{what}: {msg}")
+    if kind == 2:
+        raise ValueError(f"{what}: {msg}")
     raise IOError(f"native decode failed ({msg}): {what}")
 
 
-def image_size(data: bytes) -> tuple[int, int]:
+def image_size(data: bytes, what: str = "image header") -> tuple[int, int]:
     """(H, W) of an encoded image in memory, from its header."""
     buf = np.frombuffer(data, np.uint8)
     hw = np.zeros(2, np.int32)
     rc = _lib().native_image_size(buf.ctypes.data, len(buf), hw.ctypes.data)
     if rc:
-        _raise(rc, "image header")
+        _raise(rc, what)
     return int(hw[0]), int(hw[1])
 
 
 def decode_u8(data: bytes, what: str = "image") -> np.ndarray:
-    """An encoded PNG, JPEG or netpbm image in memory → (H, W) uint8 gray."""
-    H, W = image_size(data)
+    """An encoded image in memory (any format :func:`decode_gray` reads) →
+    (H, W) uint8 gray."""
+    H, W = image_size(data, what)
     buf = np.frombuffer(data, np.uint8)
     out = np.empty((H, W), np.uint8)
     rc = _lib().native_decode_u8(buf.ctypes.data, len(buf), out.ctypes.data, H, W)
@@ -131,7 +156,8 @@ class NativeStereoLoader:
     a reorder buffer of ``depth`` frames; iteration yields ``(index, left,
     right)`` in order, (H, W) float32 in [0, 1]. A frame that fails to
     decode or has another size raises IOError at its turn, one of a kind
-    the decoder refuses NotImplementedError. :meth:`close`
+    the decoder refuses NotImplementedError, one of no known signature
+    ValueError, as :func:`decode_u8` does. :meth:`close`
     (or dropping the loader, or interpreter exit) stops and joins the
     workers."""
 
@@ -178,11 +204,8 @@ class NativeStereoLoader:
             raise StopIteration
         i, self._next = self._next, self._next + 1
         if rc <= -100:
-            what = f"native loader: frame {i} ({self._lp[i].decode()}, {self._rp[i].decode()})"
-            if _lib().native_runtime_is_refused(-100 - rc):
-                _raise(-100 - rc, what)
-            raise IOError(f"{what} failed to decode or is not {self.H}×{self.W}: "
-                          f"{_lib().native_runtime_error_string(-100 - rc).decode()}")
+            _raise(-100 - rc, f"native loader: frame {i} ({self._lp[i].decode()}, "
+                              f"{self._rp[i].decode()}), {self.H}×{self.W}")
         return rc, left, right
 
     def close(self) -> None:

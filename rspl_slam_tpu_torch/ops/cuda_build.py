@@ -11,11 +11,13 @@ source at once. Nothing here runs at import time.
 ``png.unfilter_compiled``): it rides the same build and ``ctypes``
 interface but is no kernel and replaces no TPU kernel.
 
-``HOST_SOURCES`` (``csrc/<name>.cpp``, the native runtime of ``native.py``)
-have no device code and build with the host C++ compiler (``$CXX``, else
-``c++``, else ``g++``), linking nothing but ``-pthread``, so they build
-wherever the CPU tests run. Their hash also covers the compiler and its
-version: a library built on one machine is not loaded on another.
+``HOST_SOURCES`` (``csrc/<name>.cpp``, the native runtime of ``native.py``,
+with the ``csrc/*.h`` headers it includes: the TIFF, BMP and PIL-model
+decoders) have no device code and build with the host C++ compiler
+(``$CXX``, else ``c++``, else ``g++``), linking nothing but ``-pthread``, so
+they build wherever the CPU tests run. Their hash also covers the headers,
+the compiler and its version: a library built on one machine is not loaded
+on another.
 ``-ffp-contract=off`` keeps every product and sum rounded on its own, so
 results do not depend on the host's FMA units.
 """
@@ -68,7 +70,7 @@ SIGNATURES = {
                        "native_loader_create": "ppiiippiip",
                        "native_loader_next": "ppp",
                        "native_loader_destroy": "p",
-                       "native_runtime_is_refused": "i"},
+                       "native_runtime_error_kind": "i"},
 }
 # "p" pointer / stream, "i" int, "l" int64, "d" double, "s" C string (bytes)
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_int64,
@@ -125,7 +127,8 @@ def _command(name: str, out: Path) -> list[str]:
 def _target(name: str) -> Path:
     h = hashlib.sha256()
     if name in HOST_SOURCES:
-        h.update(_source(name).read_bytes())
+        for p in sorted(CSRC.glob("*.h")) + [_source(name)]:
+            h.update(p.read_bytes())
         h.update(" ".join(HOST_FLAGS).encode())
         h.update(_compiler_id(_cxx()))
     else:

@@ -1,12 +1,15 @@
-"""PNG, JPEG and netpbm images without PIL: the port's stand-in for PIL.
+"""Images without PIL: the port's stand-in for PIL.
 
 :func:`read_gray` returns what ``PIL.Image.open(p).convert("L")`` returns,
 as (H, W) uint8, for PNG (every colour type, bit depth and interlace),
 JPEG (every kind libjpeg-turbo decodes for PIL: sequential, progressive
-and lossless, Huffman or arithmetic coded, gray, YCbCr, RGB, CMYK, YCCK)
-and netpbm P1-P6 at any maxval. RGB becomes gray with PIL's fixed-point
-luma, ``(R·19595 + G·38470 + B·7471 + 0x8000) >> 16``; alpha and tRNS are
-dropped, as PIL drops them.
+and lossless, Huffman or arithmetic coded, gray, YCbCr, RGB, CMYK, YCCK),
+netpbm P1-P6 at any maxval and gray PFM, TIFF (every mode of PIL's
+``OPEN_INFO``, uncompressed, PackBits, LZW or Deflate, with PIL's quirks,
+transposed by its Orientation tag as PIL transposes it)
+and BMP (every header, depth, RLE and BITFIELDS kind PIL reads). RGB
+becomes gray with PIL's fixed-point luma, ``(R·19595 + G·38470 + B·7471 +
+0x8000) >> 16``; alpha and tRNS are dropped, as PIL drops them.
 
 8-bit non-interlaced PNGs in gray, gray + alpha, RGB and RGBA (what the
 EuRoC-class datasets hold) decode here with zlib and numpy, undoing the
@@ -14,12 +17,18 @@ row filters in numpy and Python (:func:`unfilter_numpy`, Sub and Up
 vectorized) or, with ``compiled``, in the host C++ loop of
 ``csrc/png_unfilter.cu`` (:func:`unfilter_compiled`, built by
 ``ops/cuda_build`` at first use); the two agree bit for bit. Every other
-PNG (palette, 1/2/4/16-bit, Adam7), JPEG and netpbm (by PIL's content
-test, whatever the extension) decode in the host C++ of ``native.py``
-(``csrc/native_runtime.cpp``). The kinds PIL refuses (12-bit,
-hierarchical and DNL JPEGs, fractional sampling, lossless YCbCr) and the
-netpbm kinds the port does not read (PFM and Pillow's own variants) raise
-``NotImplementedError`` naming the kind.
+file goes to the host C++ of ``native.py`` (``csrc/native_runtime.cpp``,
+``native_tiff.h``, ``native_bmp.h``), which tells the format by content,
+as PIL does, whatever the extension: every other PNG (palette,
+1/2/4/16-bit, Adam7), JPEG, netpbm, PFM, TIFF and BMP. The kinds PIL
+refuses (12-bit, hierarchical and DNL JPEGs, fractional sampling,
+lossless YCbCr; TIFF modes missing from ``OPEN_INFO``, CIELAB; the BMP
+headers, depths, compressions, masks and palettes PIL rejects) and the
+kinds PIL reads that the port does not yet (TIFF's JPEG, CCITT, LZMA,
+ZSTD, WebP, SGILog and ThunderScan compressions and compressed YCbCr;
+GIF, WebP, JPEG 2000, ICO, CUR, QOI, PSD, DDS, SGI, Sun raster, PCX and
+AVIF files; Pillow's own netpbm variants) raise ``NotImplementedError``
+naming the kind or format; a file of no known signature ``ValueError``.
 
 :func:`write_png` writes 8-bit PNGs with one fixed filter or, by default,
 the filter per row that minimizes the sum of the filtered bytes read as
@@ -176,12 +185,10 @@ def read_gray(path: str, compiled: bool = False) -> np.ndarray:
         data = f.read()
     if data[:8] == _SIG and len(data) >= 29 and _plain_png(data):
         return to_luma(read_png(data, compiled))
-    netpbm = data[:1] == b"P" and data[1:2] and data[1:2] in b"0123456fy"  # PIL's test
-    if netpbm or data[:8] == _SIG or data[:3] == b"\xff\xd8\xff":
-        from rspl_slam_tpu_torch import native
+    from rspl_slam_tpu_torch import native
 
-        return native.decode_u8(data, path)
-    raise ValueError(f"{path}: not a PNG, JPEG or netpbm file")
+    # the C++ tells the format by its signature (ValueError for none)
+    return native.decode_u8(data, path)
 
 
 # ----------------------------------------------------------------- writing

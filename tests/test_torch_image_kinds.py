@@ -1,20 +1,27 @@
-"""Every JPEG and netpbm kind that the JAX package's reader takes (PIL's
-``Image.open(p).convert("L")``, ``rspl_slam_tpu.datasets._load_gray``)
-through every CPU route of the port's reader: ``png.read_gray``,
-``native.decode_u8`` / ``decode_gray`` and the ``NativeStereoLoader``
-threads, bit for bit; and the kinds PIL refuses raising
-``NotImplementedError`` on every route, naming the kind.
+"""Every JPEG, netpbm, PFM, TIFF and BMP kind that the JAX package's reader
+takes (PIL's ``Image.open(p).convert("L")``,
+``rspl_slam_tpu.datasets._load_gray``) through every CPU route of the
+port's reader: ``png.read_gray``, ``native.decode_u8`` / ``decode_gray``
+and the ``NativeStereoLoader`` threads, bit for bit; the kinds PIL
+refuses raising ``NotImplementedError`` on every route, naming the kind;
+and the kinds and formats PIL reads that the port does not yet raising
+``NotImplementedError`` naming them.
 
 The fixtures are ``tests/fixtures/image_kinds/`` (written by
-``tests/torch_make_image_kinds.py``, whose encoder these tests also use
+``tests/torch_make_image_kinds.py``, whose encoders these tests also use
 for random files): progressive (PIL's and partially refined ones, which
 libjpeg-turbo smooths), arithmetic-coded, lossless, CMYK, YCCK, RGB,
 4:1:1, netpbm P1-P6 at several maxvals, the refused 12-bit,
-hierarchical, DNL and fractional-sampling files, and a 752×480
-progressive stereo sequence. ``manifest.json`` pins each readable file's
-PIL sha256.
+hierarchical, DNL and fractional-sampling files; TIFF (PIL's writer and
+the encoder: tiles, planes, predictors, big-endian, BigTIFF, fill order
+2, every sample kind, orientations 2-8 by tag and by XMP), BMP (RLE, BITFIELDS, OS/2, top-down), PFM; GIF,
+WebP, JPEG 2000, ICO, CUR, QOI, PSD, DDS, SGI, Sun raster, PCX, AVIF and
+P0CMYK files the port refuses; and a 752×480 progressive stereo
+sequence. ``manifest.json`` pins each readable file's PIL sha256 and
+each refused file's refusal word.
 """
 
+import contextlib
 import hashlib
 import io
 import json
@@ -26,7 +33,7 @@ import pytest
 import torch_make_image_kinds as mk
 from hypothesis import given, settings
 from hypothesis import strategies as st
-from PIL import Image
+from PIL import Image, TiffImagePlugin
 from test_torch_common import rendered_sequence, small_system_cfg
 
 from rspl_slam_tpu import datasets as jdatasets
@@ -42,10 +49,8 @@ with open(os.path.join(DIR, "manifest.json")) as _f:
     MANIFEST = json.load(_f)["files"]
 SEQ = sorted(n for n in MANIFEST if n.startswith(mk.SEQ_DIR + "/"))
 READ = sorted(n for n, e in MANIFEST.items() if "sha256" in e and n not in SEQ)
-REFUSED = sorted(n for n, e in MANIFEST.items() if e.get("refused"))
-# the words the port's refusal names each refused fixture by
-REFUSAL_WORDS = {"jpeg_12bit.jpg": "not 8-bit", "jpeg_hierarchical.jpg": "hierarchical",
-                 "jpeg_dnl.jpg": "DNL", "jpeg_fractional_sampling.jpg": "fractional sampling"}
+REFUSED = sorted(n for n, e in MANIFEST.items() if e.get("refused") and not e.get("pil_reads"))
+UNPORTED = sorted(n for n, e in MANIFEST.items() if e.get("pil_reads"))
 
 
 def _sha(u8: np.ndarray) -> str:
@@ -117,8 +122,11 @@ def test_refused_kind_raises_in_pil_and_the_port(name):
         data = f.read()
     with pytest.raises(Exception):
         jdatasets._load_gray(path)
+    _raises_on_every_route(path, data, MANIFEST[name]["refusal"])
+
+
+def _raises_on_every_route(path, data, word):
     H, W = mk.H_SMALL, mk.W_SMALL  # the size a caller expects (a DNL file's header says 0)
-    word = REFUSAL_WORDS[name]
     for call in (lambda: png.read_gray(path), lambda: native.decode_u8(data, path),
                  lambda: native.decode_gray(path, H, W)):
         with pytest.raises(NotImplementedError, match=word):
@@ -128,18 +136,37 @@ def test_refused_kind_raises_in_pil_and_the_port(name):
             next(loader)
 
 
+@pytest.mark.parametrize("name", UNPORTED)
+def test_unported_kind_raises_in_the_port_alone(name):
+    """A kind or format PIL reads that the port does not read yet (TIFF's
+    libtiff-only compressions and compressed YCbCr; GIF, WebP, JPEG 2000,
+    ICO, CUR, QOI, PSD, DDS, SGI, Sun raster, PCX, AVIF; Pillow's P0CMYK):
+    PIL (JAX's reader) reads it, and every route of the port raises
+    ``NotImplementedError`` naming the kind or format."""
+    path = os.path.join(DIR, name)
+    with open(path, "rb") as f:
+        data = f.read()
+    assert jdatasets._load_gray(path).ndim == 2
+    _raises_on_every_route(path, data, MANIFEST[name]["refusal"])
+
+
 def test_refusals_name_the_format_they_refuse(tmp_path):
     """No netpbm refusal speaks of JPEG and no JPEG refusal of netpbm: a
-    PFM file (which PIL reads, the port does not) names netpbm; a 16-bit
-    P5 at maxval 1023 reads (it raised as a refused JPEG kind before); a
-    lossless JPEG that declares YCbCr (JFIF) raises in PIL and names
-    lossless in the port."""
-    pfm = tmp_path / "f.pfm"
-    pfm.write_bytes(b"Pf\n3 2\n-1.0\n" + np.zeros(6, "<f4").tobytes())
-    for call in (lambda: png.read_gray(str(pfm)), lambda: native.decode_gray(str(pfm), 2, 3)):
+    P0CMYK file (which PIL reads, the port does not) names netpbm, and a
+    PFM file, which the port now reads, equals PIL; a 16-bit P5 at maxval
+    1023 reads (it raised as a refused JPEG kind before); a lossless JPEG
+    that declares YCbCr (JFIF) raises in PIL and names lossless in the
+    port."""
+    cmyk = tmp_path / "f.pnm"
+    cmyk.write_bytes(b"P0CMYK\n3 2\n255\n" + bytes(range(24)))
+    assert np.asarray(Image.open(cmyk).convert("L")).shape == (2, 3)
+    for call in (lambda: png.read_gray(str(cmyk)), lambda: native.decode_gray(str(cmyk), 2, 3)):
         with pytest.raises(NotImplementedError, match="netpbm") as e:
             call()
         assert "JPEG" not in str(e.value)
+    pfm = tmp_path / "f.pfm"
+    pfm.write_bytes(b"Pf\n3 2\n-1.0\n" + np.arange(6, dtype="<f4").tobytes() * 40)
+    np.testing.assert_array_equal(png.read_gray(str(pfm)), np.asarray(Image.open(pfm).convert("L")))
     p5 = tmp_path / "p5.pgm"
     p5.write_bytes(mk.encode_pnm("P5", np.arange(6).reshape(2, 3) * 200, 1023))
     np.testing.assert_array_equal(png.read_gray(str(p5)), np.asarray(Image.open(p5).convert("L")))
@@ -227,8 +254,274 @@ def test_random_pnm_maxvals_match_pil(tmp_path_factory, maxval, kind, seed):
     np.testing.assert_array_equal(native.decode_u8(data), ref)
 
 
+# ------------------------------------------------------------ TIFF, BMP, PFM
+TIFF_KEYS = sorted(TiffImagePlugin.OPEN_INFO, key=repr)
+
+
+def _tiff_samples(rng, bits, sf, S, H, W):
+    if sf == 3:
+        img = rng.normal(120, 150, (H, W, S)).astype(np.float32)
+        img[rng.random((H, W, S)) < 0.05] = np.nan
+        return img
+    if sf == 2:
+        return rng.integers(-(1 << (bits - 1)), 1 << (bits - 1), (H, W, S))
+    top = (1 << bits) if bits < 63 else 1 << 62
+    return rng.integers(0, top if rng.random() < 0.5 else min(top, 600), (H, W, S))
+
+
+def _agrees_with_pil(data, refusal=None):
+    """The port's decode of ``data`` equals PIL's; where PIL raises, the
+    port raises; ``refusal``: where PIL reads the file, the port refuses
+    it, naming the kind."""
+    try:
+        ref = _pil(data)
+    except Exception:
+        ref = None
+    if refusal is not None and ref is not None:
+        with pytest.raises(NotImplementedError, match=refusal):
+            native.decode_u8(data)
+    elif ref is None:
+        with pytest.raises((ValueError, OSError, NotImplementedError)):
+            native.decode_u8(data)
+    else:
+        np.testing.assert_array_equal(native.decode_u8(data), ref)
+
+
+@pytest.mark.parametrize("order", ["<", ">"])
+@pytest.mark.parametrize("layout", ["strips", "tiles"])
+@pytest.mark.parametrize("planar", [1, 2])
+@pytest.mark.parametrize("predictor", [1, 2, 3])
+@pytest.mark.parametrize("compression", [1, 5, 8, 32946, 32773])
+def test_random_tiffs_match_pil(compression, predictor, planar, layout, order):
+    """Random TIFFs of three kinds of PIL's OPEN_INFO (its bits, sample
+    format, photometric, extra samples, fill order) in this byte order,
+    compression, predictor, planar configuration and layout, at random
+    sizes, strip heights, tile sizes, orientations (none or 1-8) and
+    BigTIFF or not: the port equals
+    PIL where PIL reads, raises where PIL raises, and refuses, naming it,
+    what PIL reads through libtiff's RGBA interface (compressed YCbCr) or
+    past its own buffer (a compressed palette with an extra plane)."""
+    rng = np.random.default_rng([compression, predictor, planar, layout == "tiles", order == ">"])
+    keys = [k for k in TIFF_KEYS if k[0] == (b"II" if order == "<" else b"MM")]
+    for i in rng.choice(len(keys), 3, replace=False):
+        _, photo, sf, fill, bps, extra = keys[i]
+        H, W = int(rng.integers(1, 40)), int(rng.integers(1, 40))
+        img = _tiff_samples(rng, bps[0], sf[0], len(bps), H, W)
+        data = mk.encode_tiff(
+            img, bits=bps[0], photometric=photo, sample_format=sf[0], extra=extra,
+            compression=compression, predictor=predictor, planar=planar, order=order,
+            tile=((int(rng.choice([16, 32])), int(rng.choice([16, 32])))
+                  if layout == "tiles" else None),
+            rows_per_strip=int(rng.integers(1, H + 3)), bigtiff=bool(rng.random() < 0.3),
+            fill_order=fill,
+            colormap=rng.integers(0, 65536, (1 << bps[0], 3)) if photo == 3 else None,
+            orientation=int(rng.integers(0, 9)) or None)
+        refusal = None
+        if compression != 1 and photo == 6:
+            refusal = "YCbCr"
+        elif compression != 1 and photo == 3 and planar == 2 and extra == (0,):
+            refusal = "separate planes"
+        _agrees_with_pil(data, refusal)
+
+
+XMP6 = list(b'<x:xmpmeta><rdf:Description tiff:Orientation="6"/></x:xmpmeta>')
+# (tag, type, values) entries of the Orientation tag (274) and the XMP
+# packet (700), as PIL 12.1 reads them (probed): a number transposes; a
+# rational or float that is a whole number counts as it; a BYTE,
+# UNDEFINED or ASCII value, a type PIL does not know (17) and a number
+# outside 2-8 do not; with no tag an XMP packet stored as bytes gives its
+# first tiff:Orientation digit, and one stored as a non-empty string or
+# number makes PIL raise
+ORIENTATION_TAGS = {
+    **{f"short {v}": [(274, 3, [v])] for v in range(10)},
+    "long 6": [(274, 4, [6])], "sshort 7": [(274, 8, [7])], "sshort -2": [(274, 8, [-2])],
+    "slong 8": [(274, 9, [8])], "sbyte 5": [(274, 6, [5])], "ifd 2": [(274, 13, [2])],
+    "long8 3": [(274, 16, [3])], "slong8 6": [(274, 17, [6])],
+    "byte 6": [(274, 1, [6])], "undefined 6": [(274, 7, [6])], "ascii 6": [(274, 2, [54, 0])],
+    "rational 12/2": [(274, 5, [12, 2])], "rational 13/2": [(274, 5, [13, 2])],
+    "rational 6/0": [(274, 5, [6, 0])], "srational -12/-2": [(274, 10, [-12, -2])],
+    "float 7.0": [(274, 11, [7.0])], "double 6.0": [(274, 12, [6.0])],
+    "double 6.5": [(274, 12, [6.5])], "two values 6 3": [(274, 3, [6, 3])],
+    "xmp bytes 6": [(700, 1, XMP6)], "xmp undefined 6": [(700, 7, XMP6)],
+    "xmp element 3": [(700, 1, list(b"<tiff:Orientation>3</tiff:Orientation>"))],
+    "xmp second match 4": [(700, 1, list(b'tiff:Orientation>x tiff:Orientation="4"'))],
+    "xmp no digit": [(700, 1, list(b'tiff:Orientation="'))],
+    "xmp text": [(700, 2, XMP6 + [0])], "xmp text empty": [(700, 2, [0])],
+    "xmp number 5": [(700, 3, [5])], "xmp number 0": [(700, 3, [0])],
+    "xmp 6 and tag 3": [(274, 3, [3]), (700, 1, XMP6)],
+    "xmp 6 and ascii tag": [(274, 2, [54, 0]), (700, 1, XMP6)],
+    "xmp 6 and slong8 tag": [(274, 17, [6]), (700, 1, XMP6)],
+}
+
+
+@pytest.mark.parametrize("layout", ["uncompressed strips", "LZW tiles"])
+@pytest.mark.parametrize("case", sorted(ORIENTATION_TAGS))
+def test_tiff_orientation_as_pil_reads_it(case, layout):
+    """PIL flips or rotates a TIFF after decoding it (``load_end``'s
+    ``ImageOps.exif_transpose``) by the Orientation tag, or with no tag by
+    its XMP packet: the port, on a 5×7 image (so a swap of width and
+    height shows), equals it on PIL's own route and on libtiff's, and
+    raises where it raises."""
+    img = np.random.default_rng(7).integers(0, 256, (5, 7))
+    kw = {"compression": 5, "tile": (16, 16)} if layout == "LZW tiles" else {}
+    _agrees_with_pil(mk.encode_tiff(img, tags=ORIENTATION_TAGS[case], **kw))
+
+
+BMP_MASKS = {16: [(0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F), (0xF000, 0x7E0, 0x1F)],
+             24: [(0xFF0000, 0xFF00, 0xFF), (0xFF, 0xFF00, 0xFF0000)],
+             32: [(0xFF0000, 0xFF00, 0xFF, 0), (0xFF000000, 0xFF0000, 0xFF00, 0),
+                  (0xFF000000, 0xFF00, 0xFF, 0), (0xFF000000, 0xFF0000, 0xFF00, 0xFF),
+                  (0xFF, 0xFF00, 0xFF0000, 0xFF000000), (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+                  (0xFF000000, 0xFF00, 0xFF, 0xFF0000), (0, 0, 0, 0), (0xFF, 0xFF00, 0xFF0000, 0)]}
+BMP_CASES = [(bits, comp, header, top) for bits in (1, 2, 4, 8, 16, 24, 32)
+             for comp in ("raw", "rle", "bitfields") for header in (12, 40, 56, 124)
+             for top in (False, True) if header != 12 or (comp == "raw" and not top)]
+
+
+@pytest.mark.parametrize("bits,compression,header,top_down", BMP_CASES)
+def test_random_bmps_match_pil(bits, compression, header, top_down):
+    """Random BMPs of each depth, compression, header size and row order
+    (palettes grey or not, short or not, indices past them; RLE with
+    deltas, absolute runs and early ends; every BITFIELDS mask PIL maps and
+    some it does not): the port equals PIL, or raises where PIL raises."""
+    rng = np.random.default_rng([bits, ["raw", "rle", "bitfields"].index(compression), header,
+                                 top_down])
+    for _ in range(2):
+        H, W = int(rng.integers(1, 30)), int(rng.integers(1, 30))
+        kw = dict(header=header, top_down=top_down)
+        if bits <= 8:
+            k = (1 << bits) if rng.random() < 0.6 else int(rng.integers(1, (1 << bits) + 1))
+            px = rng.integers(0, 1 << bits, (H, W))
+            grey = rng.random() < 0.3
+            kw["palette"] = (np.stack([np.arange(k) * (255 if k == 2 else 1)] * 3, 1) if grey
+                             else rng.integers(0, 256, (k, 3)))
+            if header != 12 and rng.random() < 0.3:
+                kw["colors"] = k
+        elif bits == 16:
+            px = rng.integers(0, 65536, (H, W))
+        else:
+            px = rng.integers(0, 256, (H, W, bits // 8))
+        if compression == "rle":
+            rle4 = bits == 4 if rng.random() < 0.8 else bits != 4
+            kw["compression"] = 2 if rle4 else 1
+            kw["rle"] = mk.rle_encode(
+                (px if top_down else px[::-1]) if px.ndim == 2 else px[..., 0],
+                rle4, stop_early=int(rng.integers(0, H)) if rng.random() < 0.15 else None,
+                delta_at=(int(rng.integers(0, H)), int(rng.integers(0, 3)), int(rng.integers(0, 2)))
+                if rng.random() < 0.3 else None)
+        elif compression == "bitfields":
+            kw["compression"] = 3
+            masks = BMP_MASKS.get(bits, [(0xFF0000, 0xFF00, 0xFF)])
+            kw["masks"] = masks[int(rng.integers(len(masks)))]
+        _agrees_with_pil(mk.encode_bmp(px, bits, **kw))
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("scale", [-1.0, 1.0, -0.25, 3.5])
+def test_random_pfms_match_pil(scale, seed):
+    """Gray PFMs in both byte orders (the scale's sign), rows bottom to
+    top, values past both ends of L and NaNs: the port equals PIL."""
+    rng = np.random.default_rng(seed)
+    img = rng.normal(100, 150, (int(rng.integers(1, 30)), int(rng.integers(1, 30))))
+    img[rng.random(img.shape) < 0.05] = np.nan
+    _agrees_with_pil(mk.encode_pfm(img, scale))
+
+
+def test_pil_boundaries_of_i16_and_f_to_l(tmp_path):
+    """PIL's conversions to L as probed on PIL 12.1: 16-bit gray clips at
+    255 (0, 100, 255, 256, 1000, 65535 → 0, 100, 255, 255, 255, 255) in
+    either byte order, raw or LZW; float truncates toward zero and clamps
+    (-1, 0.6, 1.5, 254.5, 255.5, 300 → 0, 0, 1, 254, 255, 255), through
+    TIFF and PFM; the port gives the same values, and so does PIL."""
+    i16 = np.array([[0, 100, 255, 256, 1000, 65535]])
+    f = np.array([[-1, 0.6, 1.5, 254.5, 255.5, 300]], np.float32)
+    files = [(mk.encode_tiff(i16, bits=16, order=o, compression=c), [0, 100, 255, 255, 255, 255])
+             for o in "<>" for c in (1, 5)]
+    files += [(mk.encode_tiff(f, bits=32, sample_format=3, order=o), [0, 0, 1, 254, 255, 255])
+              for o in "<>"]
+    files += [(mk.encode_pfm(f, sc), [0, 0, 1, 254, 255, 255]) for sc in (-1.0, 1.0)]
+    for i, (data, want) in enumerate(files):
+        path = tmp_path / f"b{i}"
+        path.write_bytes(data)
+        assert png.read_gray(str(path)).tolist() == [want]
+        assert _pil(data).tolist() == [want]
+
+
+UNPORTED_SIGNATURES = {
+    "GIF": b"GIF89a", "WebP": b"RIFF\0\0\0\0WEBPVP8L", "JPEG 2000": b"\xff\x4f\xff\x51",
+    "JPEG 2000 (JP2)": b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", "ICO": b"\0\0\1\0",
+    "CUR": b"\0\0\2\0", "QOI": b"qoif", "PSD": b"8BPS", "DDS": b"DDS ", "SGI": b"\x01\xda",
+    "Sun raster": b"\x59\xa6\x6a\x95", "PCX": b"\x0a\x05", "AVIF": b"\0\0\0\x1cftypavif"}
+
+
+@pytest.mark.parametrize("fmt", sorted(UNPORTED_SIGNATURES))
+def test_unported_format_raises_naming_it(fmt):
+    """A file that starts with the signature PIL identifies a format by, of
+    a format the port does not read yet, raises ``NotImplementedError``
+    naming that format on ``decode_u8`` and ``image_size``; a file of no
+    known signature keeps its ``ValueError``."""
+    data = UNPORTED_SIGNATURES[fmt] + bytes(64)
+    word = fmt.split(" (")[0]
+    with pytest.raises(NotImplementedError, match=word):
+        native.decode_u8(data)
+    with pytest.raises(NotImplementedError, match=word):
+        native.image_size(data)
+    with pytest.raises(ValueError, match="not a PNG, JPEG, netpbm, TIFF or BMP"):
+        native.decode_u8(b"hello" + bytes(64))
+
+
+TIFF_UNPORTED = {2: "CCITT", 3: "CCITT", 4: "CCITT", 32771: "CCITT", 6: "JPEG", 7: "JPEG",
+                 34925: "LZMA", 50000: "ZSTD", 50001: "WebP", 34676: "SGILog", 34677: "SGILog",
+                 32809: "ThunderScan"}
+
+
+@pytest.mark.parametrize("compression", sorted(TIFF_UNPORTED))
+def test_tiff_compression_libtiff_reads_raises_naming_it(compression):
+    """Each compression PIL reads through libtiff and the port does not
+    raises ``NotImplementedError`` naming the compression (an 8-bit gray
+    TIFF that declares it; old-style JPEG, 6, is YCbCr to PIL)."""
+    g = mk.scene(16, 16, compression)
+    data = mk.encode_tiff(np.dstack([g] * 3) if compression == 6 else g,
+                          photometric=6 if compression == 6 else 1, tags=[(259, 3, [compression])])
+    with pytest.raises(NotImplementedError, match=TIFF_UNPORTED[compression]):
+        native.decode_u8(data)
+
+
+def pil_luma_of(rgb):
+    r, g, b = (int(v) for v in rgb)
+    return (r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16
+
+
+def test_rle_rows_cut_short_fill_as_pil_and_early_ends_raise(tmp_path):
+    """PIL's RLE decoder, as probed: rows an end-of-line cuts short and the
+    pixels a delta skips read as index 0 (the palette's first entry, not
+    black), a delta's offsets come from the two bytes after its own two;
+    codes that end before the last row raise in PIL ("not enough image
+    data") and in the port."""
+    rng = np.random.default_rng(5)
+    idx = rng.integers(1, 16, (6, 10))
+    pal = rng.integers(0, 256, (16, 3))
+    rows = [r[: 3 + i] for i, r in enumerate(idx[::-1])]  # each row ended early by an EOL
+    data = mk.encode_bmp(idx, 8, compression=1, palette=pal,
+                         rle=mk.rle_encode(rows, False, delta_at=(2, 2, 1)))
+    ref = _pil(data)
+    assert (ref == pil_luma_of(pal[0])).any()
+    np.testing.assert_array_equal(native.decode_u8(data), ref)
+    short = mk.encode_bmp(idx, 8, compression=1, palette=pal,
+                          rle=mk.rle_encode(idx[::-1], False, stop_early=3))
+    path = tmp_path / "short.bmp"
+    path.write_bytes(short)
+    with pytest.raises(ValueError, match="not enough image data"):
+        _pil(short)
+    with pytest.raises(OSError):
+        png.read_gray(str(path))
+
+
 MIXED = ("prog_gray.jpg", "arith_prog.jpg", "lossless_rgb_p7.jpg", "cmyk_prog.jpg", "ycck.jpg",
-         "ycc_411.jpg", "p5_max1023.pgm", "p2.pgm", "p6_max1000.ppm", "p1.pbm")
+         "ycc_411.jpg", "p5_max1023.pgm", "p2.pgm", "p6_max1000.ppm", "p1.pbm",
+         "tiff_raw_gray.tif", "tiff_lzw_pred2_16bit.tif", "tiff_be_16bit_tiles.tif",
+         "tiff_float_pred3.tif", "tiff_bigtiff_lzw.tif", "tiff_palette4.tif", "bmp_gray8.bmp",
+         "bmp_pal8.bmp", "bmp_rle8.bmp", "bmp_rle4.bmp", "bmp_1bit.bmp", "pfm_le.pfm")
 
 
 def test_datasets_agree_on_a_tree_of_mixed_kinds(tmp_path):
@@ -251,10 +544,16 @@ def test_datasets_agree_on_a_tree_of_mixed_kinds(tmp_path):
                 np.testing.assert_array_equal(fr, jds[i].image_right)
 
 
+WRITERS = {".tif": lambda u8: mk.encode_tiff(u8.astype(np.int64), bits=16, compression=5,
+                                             predictor=2, rows_per_strip=16),
+           ".bmp": lambda u8: mk.encode_bmp(u8, 8, palette=np.stack([np.arange(256)] * 3, 1))}
+
+
 def _cli_tree(root, frames, gt, ext):
     """A raw-EuRoC tree of ``frames`` under ``root``: progressive JPEGs
-    written by PIL (``ext`` ".jpg") or PNG copies of PIL's decode of them
-    (".png")."""
+    written by PIL (``ext`` ".jpg"), PNG copies of PIL's decode of them
+    (".png"), or those pixels as 16-bit LZW TIFFs with predictor 2 (".tif")
+    or bottom-up 8-bit grey-palette BMPs (".bmp")."""
     seq = os.path.join(root, "mav0")
     names = [1_403_636_579_763_555_584 + i * 50_000_000 for i in range(len(frames))]
     for ns, pair in zip(names, frames):
@@ -267,6 +566,9 @@ def _cli_tree(root, frames, gt, ext):
             if ext == ".jpg":
                 with open(path, "wb") as f:
                     f.write(buf.getvalue())
+            elif ext in WRITERS:
+                with open(path, "wb") as f:
+                    f.write(WRITERS[ext](_pil(buf.getvalue())))
             else:
                 png.write_png(path, _pil(buf.getvalue()))
     with open(os.path.join(seq, "cam0", "data.csv"), "w") as f:
@@ -277,11 +579,7 @@ def _cli_tree(root, frames, gt, ext):
         f.writelines(f"{ns},{T[0, 3]!r},{T[1, 3]!r},{T[2, 3]!r}\n" for ns, T in zip(names, gt))
 
 
-def test_cli_run_on_progressive_jpegs_equals_its_png_copies(tmp_path, capsys):
-    """``cli run --device cpu`` (the native prefetcher; the cosine matcher,
-    lines off, to keep it short) on a 6-frame 320×240 tree of progressive
-    JPEGs and on PNG copies of their pixels: the same trajectory, text for
-    text."""
+def _cli_inputs(tmp_path):
     cfg = small_system_cfg()
     frames, traj = rendered_sequence(cfg, 6)
     gt = np.einsum("ij,njk->nik", INIT_POSE, traj)
@@ -296,17 +594,50 @@ def test_cli_run_on_progressive_jpegs_equals_its_png_copies(tmp_path, capsys):
         f"bf: {cam.bf!r}\nLEFT.P: !!opencv-matrix\n  rows: 3\n  cols: 4\n  dt: d\n"
         f"  data: [{', '.join(repr(float(v)) for v in P)}]\n")
     save_npz_pytree(str(tmp_path / "sp.npz"), superpoint.init_params(0))
-    text = {}
-    for ext in (".jpg", ".png"):
-        root = str(tmp_path / ext[1:])
-        _cli_tree(root, frames, gt, ext)
-        traj_path = str(tmp_path / f"traj{ext}.txt")
+    return frames, gt
+
+
+def _cli_run(tmp_path, frames, gt, ext, *extra):
+    root = str(tmp_path / ext[1:])
+    _cli_tree(root, frames, gt, ext)
+    traj_path = str(tmp_path / f"traj{ext}{len(extra)}.txt")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
         tcli.main(["run", "--dataroot", root, "--config", str(tmp_path / "algo.yaml"),
                    "--camera-config", str(tmp_path / "cam.yaml"),
                    "--sp-weights", str(tmp_path / "sp.npz"), "--matcher", "cosine",
-                   "--no-lines", "--device", "cpu",
-                   "--traj-path", traj_path])
-        assert "processed 6 frames" in capsys.readouterr().out
-        with open(traj_path) as f:
-            text[ext] = f.read()
-    assert text[".jpg"] and text[".jpg"] == text[".png"]
+                   "--no-lines", "--device", "cpu", "--traj-path", traj_path, *extra])
+    assert "processed 6 frames" in out.getvalue()
+    with open(traj_path) as f:
+        return f.read()
+
+
+@pytest.fixture(scope="module")
+def cli_png(tmp_path_factory):
+    """``cli run --device cpu`` (the native prefetcher; the cosine matcher,
+    lines off, to keep it short) on a 6-frame 320×240 PNG tree, run once
+    for the CLI tests below: (their directory, frames, ground truth, the
+    trajectory's text)."""
+    tmp_path = tmp_path_factory.mktemp("cli")
+    frames, gt = _cli_inputs(tmp_path)
+    text = _cli_run(tmp_path, frames, gt, ".png")
+    assert text
+    return tmp_path, frames, gt, text
+
+
+def test_cli_run_on_progressive_jpegs_equals_its_png_copies(cli_png):
+    """``cli run`` on progressive JPEGs of the PNG tree's pixels: the same
+    trajectory, text for text."""
+    tmp_path, frames, gt, png_text = cli_png
+    assert _cli_run(tmp_path, frames, gt, ".jpg") == png_text
+
+
+def test_cli_run_on_tiff_and_bmp_trees_equals_png(cli_png):
+    """The same pixels as 16-bit LZW TIFFs with predictor 2 through
+    ``cli run`` (the native prefetcher) and as bottom-up 8-bit BMPs through
+    ``cli run --no-native`` (``EurocDataset``): each trajectory equals the
+    PNG tree's, text for text (no camera distortion: both routes feed the
+    same frames)."""
+    tmp_path, frames, gt, png_text = cli_png
+    assert _cli_run(tmp_path, frames, gt, ".tif") == png_text
+    assert _cli_run(tmp_path, frames, gt, ".bmp", "--no-native") == png_text

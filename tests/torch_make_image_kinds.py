@@ -1,17 +1,28 @@
-"""Writes ``tests/fixtures/image_kinds/``: one small file of every JPEG and
-netpbm kind that PIL's ``Image.open(p).convert("L")`` reads (or refuses),
-the full-width progressive stereo sequence, and ``manifest.json`` (each
-file's kind and the sha256 of PIL's ``convert("L")`` pixels).
+"""Writes ``tests/fixtures/image_kinds/``: one small file of every JPEG,
+netpbm, TIFF, BMP and PFM kind that PIL's ``Image.open(p).convert("L")``
+reads (or refuses), one file of each format PIL reads by a signature that
+the port does not read yet, the full-width progressive stereo sequence,
+and ``manifest.json`` (each file's kind and the sha256 of PIL's
+``convert("L")`` pixels; for a refused file the word its refusal names it
+by, and ``pil_reads`` where PIL reads what the port refuses).
 
-PIL writes the kinds it can write (progressive, CMYK, RGB, baseline). The
-kinds it cannot write come from the small encoder in this file:
+PIL writes the kinds it can write (progressive, CMYK, RGB, baseline JPEG;
+TIFF uncompressed, PackBits, LZW, Deflate and the libtiff compressions;
+BMP 1, L, P, RGB, RGBA; GIF, WebP, JPEG 2000, ICO, QOI, DDS, SGI, PCX,
+AVIF). The kinds it cannot write come from the small encoders in this
+file:
 
 - sequential and progressive Huffman JPEG with any scan script (including
   scripts that stop short of full refinement), any component count and any
   integral or fractional sampling factors, restart intervals, DNL;
 - arithmetic-coded JPEG (SOF9, SOF10; the QM coder of ITU T.81 Annex D);
 - lossless JPEG (SOF3, Huffman; predictors 1-7, point transform);
-- netpbm P1-P6 at any maxval.
+- netpbm P1-P6 at any maxval, PFM in both byte orders;
+- TIFF of any bits, photometric and sample format, strips or tiles,
+  chunky or planar, either byte order, classic or BigTIFF, fill order 2,
+  uncompressed, PackBits, LZW or Deflate, predictors 2 and 3;
+- BMP of every header size and depth, RLE4 and RLE8 (deltas, early ends),
+  BITFIELDS, top-down rows; CUR, PSD and Sun raster by hand.
 
 The tests (``tests/test_torch_image_kinds.py``) import this module for
 its encoder; it is not collected by pytest. Everything is deterministic
@@ -29,6 +40,7 @@ import json
 import os
 import struct
 import sys
+import zlib
 
 import numpy as np
 
@@ -974,6 +986,368 @@ def encode_pnm(kind: str, img: np.ndarray, maxval: int = 255, comment: bytes = b
     return head + b"\n".join(lines) + b"\n"
 
 
+# ------------------------------------------------------------------ TIFF
+# struct codes of the TIFF types (2, ASCII, is written as bytes; 5 and 10,
+# the rationals, as numerator and denominator)
+TIFF_TYPES = {1: "B", 3: "H", 4: "I", 5: "I", 6: "b", 7: "B", 8: "h", 9: "i", 10: "i",
+              11: "f", 12: "d", 13: "I", 16: "Q", 17: "q"}
+
+
+def packbits(row: bytes) -> bytes:
+    """PackBits (TIFF compression 32773) of one row: runs of 2-128 equal
+    bytes as (257 - n, byte), the rest as literals of at most 128."""
+    out, i, n = bytearray(), 0, len(row)
+    while i < n:
+        j = i
+        while j + 1 < n and row[j + 1] == row[i] and j + 1 - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([257 - (j - i + 1), row[i]])
+            i = j + 1
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 1 < n and row[j] == row[j + 1]):
+            j += 1
+        out += bytes([j - i - 1]) + row[i:j]
+        i = j
+    return bytes(out)
+
+
+def lzw(data: bytes) -> bytes:
+    """TIFF LZW (compression 5): MSB-first codes of 9-12 bits, Clear 256 and
+    EOI 257, the width growing as the next free code reaches 512, 1024,
+    2048 (the decoder, one entry behind, switches one code early); a Clear
+    before the table passes 4093 entries."""
+    out = bytearray()
+    table, width, nxt = {}, 9, 258
+    acc, nacc = 256, 9  # Clear first
+    w = -1
+    for b in data:
+        if w < 0:
+            w = b
+            continue
+        key = (w << 8) | b
+        c = table.get(key)
+        if c is not None:
+            w = c
+            continue
+        acc = (acc << width) | w
+        nacc += width
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 255)
+        acc &= (1 << nacc) - 1
+        table[key] = nxt
+        nxt += 1
+        if nxt == 1 << width and width < 12:
+            width += 1
+        if nxt >= 4094:
+            acc = (acc << width) | 256
+            nacc += width
+            table, width, nxt = {}, 9, 258
+        w = b
+    if w >= 0:
+        acc = (acc << width) | w
+        nacc += width
+        nxt += 1
+        if nxt == 1 << width and width < 12:
+            width += 1
+    acc = (acc << width) | 257  # EOI
+    nacc += width
+    while nacc >= 8:
+        nacc -= 8
+        out.append((acc >> nacc) & 255)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 255)
+    return bytes(out)
+
+
+_REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+def _pack_samples(block: np.ndarray, bits: int, sf: int, order: str) -> list:
+    """(rows, cols, s) samples → one byte string per row."""
+    rows = block.reshape(block.shape[0], -1)
+    if bits in (1, 2, 4):
+        out = []
+        for r in rows:
+            v = r.astype(np.uint8) & ((1 << bits) - 1)
+            per = 8 // bits
+            v = np.pad(v, (0, -len(v) % per)).reshape(-1, per)
+            shifts = np.arange(per - 1, -1, -1) * bits
+            out.append(((v << shifts).sum(1)).astype(np.uint8).tobytes())
+        return out
+    if bits == 12:
+        out = []
+        for r in rows:
+            v = np.pad(r.astype(np.int64) & 0xFFF, (0, len(r) % 2))
+            a, b = v[0::2], v[1::2]
+            out.append(np.stack([a >> 4, ((a & 15) << 4) | (b >> 8), b & 255], 1)
+                       .astype(np.uint8).tobytes()[: (len(r) * 12 + 7) // 8])
+        return out
+    kind = {1: "u", 2: "i", 3: "f"}[sf]
+    dt = np.dtype(f"{order}{kind}{bits // 8}")
+    if kind != "f":
+        if bits < 64:
+            rows = rows.astype(np.int64) & ((1 << bits) - 1)
+        return [r.astype(np.dtype(f"{order}u{bits // 8}")).tobytes() for r in rows]
+    return [r.astype(dt).tobytes() for r in rows]
+
+
+def _predict(block: np.ndarray, bits: int, sf: int, predictor: int):
+    """Horizontal differencing (predictor 2) of integer samples, in place
+    of each sample's left neighbour of the same component."""
+    if predictor != 2:
+        return block
+    if bits == 64:
+        b = np.asarray(block).astype(np.int64).view(np.uint64)
+        d = b.copy()
+        d[:, 1:] = b[:, 1:] - b[:, :-1]
+        return d
+    b = np.asarray(block).astype(np.int64)
+    d = b.copy()
+    d[:, 1:] = b[:, 1:] - b[:, :-1]
+    return d % (1 << bits)
+
+
+def _fp_predict(rows: list, bits: int, stride: int) -> list:
+    """Floating-point predictor (3) of rows of big-endian float bytes:
+    bytes regrouped most significant first, then differenced by
+    ``stride`` bytes."""
+    out = []
+    nb = bits // 8
+    for r in rows:
+        v = np.frombuffer(r, np.uint8).reshape(-1, nb)
+        planes = np.ascontiguousarray(v.T).reshape(-1).astype(np.int64)
+        d = planes.copy()
+        d[stride:] = planes[stride:] - planes[:-stride]
+        out.append((d % 256).astype(np.uint8).tobytes())
+    return out
+
+
+def encode_tiff(img, bits: int = 8, photometric: int = 1, sample_format: int = 1,
+                extra=(), compression: int = 1, predictor: int = 1, planar: int = 1,
+                tile=None, rows_per_strip=None, order: str = "<", bigtiff: bool = False,
+                fill_order: int = 1, colormap=None, level: int = 6, orientation=None,
+                tags=(), pad: int = 0) -> bytes:
+    """A one-IFD TIFF of ``img`` ((H, W) or (H, W, S) sample values at
+    ``bits``): strips of ``rows_per_strip`` rows or ``tile`` (w, h) tiles,
+    ``planar`` 1 (chunky) or 2 (one plane per sample), ``order`` "<"
+    (II) or ">" (MM), classic or BigTIFF, compression 1, 5 (LZW), 8 /
+    32946 (Deflate) or 32773 (PackBits), predictor 2 (integer) or 3
+    (floating point), fill order 2 (every stored byte bit-reversed),
+    ``orientation`` the Orientation tag (274) if given. ``tags``: extra
+    (tag, type, values) entries, a rational as its numerator and
+    denominator; ``pad``: zero bytes between the image data and the IFD."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    H, W, S = img.shape
+    planes = [img] if planar == 1 else [img[..., i:i + 1] for i in range(S)]
+    if tile:
+        tw, th = tile
+        grid = [(x, y, tw, th) for y in range(0, H, th) for x in range(0, W, tw)]
+    else:
+        rps = rows_per_strip or H
+        grid = [(0, y, W, rps) for y in range(0, H, rps)]
+    segments = []
+    for plane in planes:
+        for x, y, w, h in grid:
+            rows_here = h if tile else min(h, H - y)
+            blk = np.zeros((rows_here, w, plane.shape[2]), plane.dtype)
+            src = plane[y:y + rows_here, x:x + w]
+            blk[:src.shape[0], :src.shape[1]] = src
+            sf = sample_format
+            if sf == 3 and predictor == 2:  # differences of the floats' bit patterns
+                blk, sf = blk.astype(f"<f{bits // 8}").view(f"<u{bits // 8}"), 1
+            blk = _predict(blk, bits, sf, predictor)
+            if sf == 3 and predictor == 3:
+                rows = _fp_predict(_pack_samples(blk, bits, 3, ">"), bits, plane.shape[2])
+            else:
+                rows = _pack_samples(blk, bits, sf, order)
+            if compression == 32773:
+                data = b"".join(packbits(r) for r in rows)
+            elif compression == 5:
+                data = lzw(b"".join(rows))
+            elif compression in (8, 32946):
+                data = zlib.compress(b"".join(rows), level)
+            else:
+                data = b"".join(rows)
+            if fill_order == 2:
+                data = data.translate(_REVERSED)
+            segments.append(data)
+    entries = [(256, 4, [W]), (257, 4, [H]), (258, 3, [bits] * S), (259, 3, [compression]),
+               (262, 3, [photometric]), (277, 3, [S]), (284, 3, [planar])]
+    if fill_order != 1:
+        entries.append((266, 3, [fill_order]))
+    if predictor != 1:
+        entries.append((317, 3, [predictor]))
+    if colormap is not None:
+        entries.append((320, 3, [int(v) for v in np.asarray(colormap).T.reshape(-1)]))
+    if extra:
+        entries.append((338, 3, list(extra)))
+    if orientation is not None:
+        entries.append((274, 3, [orientation]))
+    if sample_format != 1:
+        entries.append((339, 3, [sample_format] * S))
+    off_type = 16 if bigtiff else 4
+    if tile:
+        entries += [(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, off_type, None),
+                    (325, off_type, [len(s) for s in segments])]
+    else:
+        entries += [(273, off_type, None), (278, 4, [rows_per_strip or H]),
+                    (279, off_type, [len(s) for s in segments])]
+    entries += list(tags)
+    entries.sort(key=lambda e: e[0])
+    e = order
+    head = (b"II" if order == "<" else b"MM") + struct.pack(f"{e}H", 43 if bigtiff else 42)
+    head += struct.pack(f"{e}HHQ", 8, 0, 0) if bigtiff else struct.pack(f"{e}I", 0)
+    data_at = len(head)
+    offsets, pos = [], data_at
+    for s in segments:
+        offsets.append(pos)
+        pos += len(s) + (len(s) & 1)
+    body = b"".join(s + b"\0" * (len(s) & 1) for s in segments) + bytes(pad)
+    pos += pad
+    ifd_at = pos
+    n = len(entries)
+    ent_size, inline = (20, 8) if bigtiff else (12, 4)
+    tail_at = ifd_at + (8 if bigtiff else 2) + n * ent_size + (8 if bigtiff else 4)
+    ifd, tail = bytearray(), bytearray()
+    ifd += struct.pack(f"{e}Q" if bigtiff else f"{e}H", n)
+    for tag, typ, vals in entries:
+        if vals is None:
+            vals = offsets
+        if typ == 2:
+            raw = bytes(vals)
+        else:
+            raw = struct.pack(f"{e}{len(vals)}{TIFF_TYPES[typ]}", *vals)
+        count = len(vals) // 2 if typ in (5, 10) else len(vals)
+        if len(raw) <= inline:
+            val = raw + b"\0" * (inline - len(raw))
+        else:
+            val = struct.pack(f"{e}Q" if bigtiff else f"{e}I", tail_at + len(tail))
+            tail += raw + b"\0" * (len(raw) & 1)
+        ifd += struct.pack(f"{e}HHQ" if bigtiff else f"{e}HHI", tag, typ, count) + val
+    ifd += b"\0" * (8 if bigtiff else 4)
+    head = bytearray(head)
+    if bigtiff:
+        head[8:16] = struct.pack(f"{e}Q", ifd_at)
+    else:
+        head[4:8] = struct.pack(f"{e}I", ifd_at)
+    return bytes(head) + body + bytes(ifd) + bytes(tail)
+
+
+# ------------------------------------------------------------------- BMP
+def rle_encode(rows, rle4: bool, stop_early=None, delta_at=None) -> bytes:
+    """RLE8 / RLE4 pixel data of index ``rows`` in stored order: runs of
+    equal indices encoded, stretches of 3 or more without a repeat in
+    absolute mode (word-aligned), an end-of-line after each row and an
+    end-of-bitmap at the end (after ``stop_early`` rows, if given).
+    ``delta_at``: (row, dx, dy) puts a delta escape before that row."""
+    out = bytearray()
+    for ri, row in enumerate(rows):
+        if stop_early is not None and ri == stop_early:
+            break
+        if delta_at is not None and delta_at[0] == ri:
+            out += bytes([0, 2, delta_at[1], delta_at[2]])
+        row = [int(v) & (15 if rle4 else 255) for v in row]
+        i, n = 0, len(row)
+        while i < n:
+            j = i + 1
+            while j < n and j - i < 255 and row[j] == row[i]:
+                j += 1
+            if j - i >= 2 or n - i < 3:
+                out += bytes([j - i, row[i] * 17 if rle4 else row[i]])
+                i = j
+                continue
+            j = i + 1
+            while j < n and j - i < 255 and row[j] != row[j - 1]:
+                j += 1
+            if j < n and row[j] == row[j - 1]:
+                j -= 1
+            if j - i < 3:
+                out += bytes([1, row[i] * 17 if rle4 else row[i]])
+                i += 1
+                continue
+            lit = row[i:j]
+            if rle4:
+                lit = lit + [0] * (len(lit) % 2)
+                data = bytes((lit[k] << 4) | lit[k + 1] for k in range(0, len(lit), 2))
+            else:
+                data = bytes(lit)
+            out += bytes([0, j - i]) + data + b"\0" * (len(data) & 1)
+            i = j
+        out += b"\0\0"
+    out += b"\0\1"
+    return bytes(out)
+
+
+def encode_bmp(pixels, bits: int, header: int = 40, compression: int = 0, palette=None,
+               masks=None, top_down: bool = False, colors=None, pad_palette: bool = True,
+               rle=None, data_offset=None) -> bytes:
+    """A BMP of ``pixels``: (H, W) palette indices (bits ≤ 8), (H, W)
+    16-bit words (bits 16), or (H, W, 3|4) RGB(A) (24, 32), written
+    bottom-up unless ``top_down``. ``header``: 12 (OS/2 1.x), 40, 52, 56,
+    64 (OS/2 2.x), 108, 124. ``palette``: (N, 3) RGB; ``masks``: the
+    BITFIELDS masks (R, G, B[, A]); ``rle``: the pixel data bytes for
+    compression 1 or 2 (:func:`rle_encode`)."""
+    pixels = np.asarray(pixels)
+    H, W = pixels.shape[:2]
+    rows = pixels[::-1] if not top_down else pixels
+    if rle is not None:
+        data = rle
+    else:
+        stride = ((W * bits + 31) >> 3) & ~3
+        out = bytearray()
+        for r in rows:
+            if bits <= 8:
+                v = r.astype(np.uint8)
+                per = 8 // bits
+                v = np.pad(v, (0, -len(v) % per)).reshape(-1, per)
+                raw = ((v << (np.arange(per - 1, -1, -1) * bits)).sum(1)).astype(np.uint8).tobytes()
+            elif bits == 16:
+                raw = r.astype("<u2").tobytes()
+            elif bits == 24:
+                raw = r[:, 2::-1].astype(np.uint8).tobytes()
+            else:  # 32: B, G, R and the fourth sample (or 0)
+                fourth = r[:, 3:] if r.shape[1] > 3 else np.zeros((W, 1), r.dtype)
+                raw = np.concatenate([r[:, 2::-1], fourth], 1).astype(np.uint8).tobytes()
+            out += raw + b"\0" * (stride - len(raw))
+        data = bytes(out)
+    pal = b""
+    if palette is not None:
+        pal = b"".join(bytes([b, g, r]) + (b"\0" if header != 12 else b"")
+                       for r, g, b in np.asarray(palette, np.int64))
+    height = -H if top_down else H
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, W, H, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, W, height, 1, bits, compression, len(data),
+                           2835, 2835, colors if colors is not None else
+                           (0 if palette is None else len(palette)), 0)
+        if header >= 52 and masks is not None:
+            k = 4 if header >= 56 else 3
+            info += struct.pack(f"<{k}I", *(list(masks) + [0] * (4 - len(masks)))[:k])
+        info = info + b"\0" * (header - len(info))
+        if header == 40 and masks is not None:
+            info += struct.pack("<3I", *masks[:3])
+    offset = 14 + len(info) + len(pal) if data_offset is None else data_offset
+    size = offset + len(data)
+    return b"BM" + struct.pack("<IHHI", size, 0, 0, offset) + info + pal + data
+
+
+# ------------------------------------------------------------------- PFM
+def encode_pfm(img, scale: float = -1.0) -> bytes:
+    """A gray PFM ("Pf") of float ``img``: little-endian for a negative
+    scale, big-endian for a positive one, rows bottom to top."""
+    img = np.asarray(img, np.float32)
+    H, W = img.shape
+    dt = "<f4" if scale < 0 else ">f4"
+    return b"Pf\n%d %d\n%s\n" % (W, H, repr(float(scale)).encode()) + \
+        img[::-1].astype(dt).tobytes()
+
+
 # ------------------------------------------------------------------ content
 def scene(H: int, W: int, seed: int, channels: int = 1) -> np.ndarray:
     """Smooth shapes, an edge and mild noise: image-like content that
@@ -1001,8 +1375,10 @@ def pil_sha256(path_or_bytes) -> str:
 
 # ------------------------------------------------------------------ fixtures
 W_SMALL, H_SMALL = 64, 48
-# kinds PIL refuses, with the reason the port gives
-REFUSED = ("jpeg_12bit", "jpeg_hierarchical", "jpeg_dnl", "jpeg_fractional_sampling")
+# the word each refused fixture's refusal names it by; "pil_reads": PIL
+# reads the file, the port refuses it (a kind or format not ported yet)
+REFUSED = {"jpeg_12bit": "not 8-bit", "jpeg_hierarchical": "hierarchical", "jpeg_dnl": "DNL",
+           "jpeg_fractional_sampling": "fractional sampling"}
 
 
 def small_files(seed: int) -> dict:
@@ -1111,7 +1487,237 @@ def small_files(seed: int) -> dict:
     bits = (g > 128).astype(np.int64)
     files["p4.pbm"] = (encode_pnm("P4", bits[:, :61]), "P4 binary bitmap (61 columns)")
     files["p1.pbm"] = (encode_pnm("P1", bits), "P1 plain bitmap")
+    files.update(tiff_bmp_pfm_files(seed))
+    files.update(unported_files(seed))
     return files
+
+
+def _pil_save(im, fmt: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def tiff_bmp_pfm_files(seed: int) -> dict:
+    """name → (bytes, kind[, manifest extras]) of the TIFF, BMP and PFM
+    fixtures: PIL's writer where it writes the kind, this file's encoders
+    for the rest; the kinds PIL refuses carry their refusal word."""
+    from PIL import Image
+
+    H, W = H_SMALL, W_SMALL
+    g = scene(H, W, seed + 20)
+    rgb = scene(H, W, seed + 21, 3)
+    cmyk = scene(H, W, seed + 22, 4)
+    h2, w2 = H // 2, W // 2  # the heavier kinds at a quarter of the pixels
+    g2, rgb2 = g[:h2, :w2], rgb[:h2, :w2]
+    rng = np.random.default_rng(seed + 23)
+    g16 = g.astype(np.int64) * 3 + rng.integers(0, 200, (H, W))  # past 255: the clip
+    f32 = (g.astype(np.float32) * 1.3 - 20.5)
+    f32[::7, ::5] = np.nan
+    pal16 = rng.integers(0, 65536, (16, 3))
+    refused = lambda word: {"refused": True, "refusal": word}  # noqa: E731
+    unported = lambda word: {"refused": True, "refusal": word, "pil_reads": True}  # noqa: E731
+    files = {
+        # TIFF: PIL's writer
+        "tiff_raw_gray.tif": (_pil_save(Image.fromarray(g), "TIFF"),
+                              "TIFF 8-bit gray, uncompressed (PIL)"),
+        "tiff_packbits_gray.tif": (_pil_save(Image.fromarray(g), "TIFF", compression="packbits"),
+                                   "TIFF 8-bit gray, PackBits (PIL)"),
+        "tiff_lzw_rgb.tif": (_pil_save(Image.fromarray(rgb2), "TIFF", compression="tiff_lzw"),
+                             "TIFF RGB, LZW (PIL)"),
+        "tiff_deflate_rgba.tif": (_pil_save(Image.fromarray(np.dstack([rgb2, g2])), "TIFF",
+                                            compression="tiff_adobe_deflate"),
+                                  "TIFF RGBA, Deflate (PIL)"),
+        # TIFF: this file's encoder
+        "tiff_lzw_pred2_16bit.tif": (encode_tiff(g16, bits=16, compression=5, predictor=2,
+                                                 rows_per_strip=8),
+                                     "TIFF 16-bit gray, LZW, horizontal predictor, 8-row strips"),
+        "tiff_be_16bit_tiles.tif": (encode_tiff(g16, bits=16, compression=32946, order=">",
+                                                tile=(16, 32)),
+                                    "TIFF 16-bit gray, big-endian, 16×32 tiles, Deflate"),
+        "tiff_planar_rgb16.tif": (encode_tiff(rgb2.astype(np.int64) * 257, bits=16,
+                                              photometric=2, compression=5, planar=2,
+                                              predictor=2, rows_per_strip=5),
+                                  "TIFF RGB 16-bit, separate planes, LZW, predictor 2"),
+        "tiff_float_pred3.tif": (encode_tiff(f32, bits=32, sample_format=3, compression=8,
+                                             predictor=3, rows_per_strip=16),
+                                 "TIFF 32-bit float with NaNs, Deflate, floating-point "
+                                 "predictor"),
+        "tiff_bigtiff_lzw.tif": (encode_tiff(g, compression=5, bigtiff=True, rows_per_strip=12),
+                                 "BigTIFF 8-bit gray, LZW"),
+        "tiff_fill2_bilevel.tif": (encode_tiff(g > 128, bits=1, fill_order=2),
+                                   "TIFF bilevel, fill order 2, uncompressed"),
+        "tiff_fill2_lzw_gray.tif": (encode_tiff(g, compression=5, fill_order=2),
+                                    "TIFF 8-bit gray, fill order 2, LZW"),
+        "tiff_palette4.tif": (encode_tiff(g >> 4, bits=4, photometric=3, colormap=pal16,
+                                          compression=32773, rows_per_strip=10),
+                              "TIFF 4-bit palette, PackBits"),
+        "tiff_2bit_miniswhite.tif": (encode_tiff(g >> 6, bits=2, photometric=0),
+                                     "TIFF 2-bit gray, min-is-white, uncompressed"),
+        "tiff_12bit.tif": (encode_tiff(g16 * 4 % 4096, bits=12, rows_per_strip=7),
+                           "TIFF 12-bit gray, uncompressed"),
+        "tiff_s16_be_lzw.tif": (encode_tiff(g16 - 300, bits=16, sample_format=2,
+                                            compression=5, order=">"),
+                                "TIFF signed 16-bit, big-endian, LZW (PIL reads libtiff's "
+                                "swapped samples swapped)"),
+        "tiff_i32_raw.tif": (encode_tiff(g16[:h2, :w2] * 70000 - 5000, bits=32,
+                                         sample_format=2),
+                             "TIFF signed 32-bit, uncompressed"),
+        "tiff_cmyk16_be.tif": (encode_tiff(cmyk[:h2, :w2].astype(np.int64) * 257, bits=16,
+                                           photometric=5, order=">"),
+                               "TIFF CMYK 16-bit, big-endian, uncompressed"),
+        "tiff_ycbcr_raw.tif": (encode_tiff(rgb2, photometric=6, pad=h2 * w2),
+                               "TIFF YCbCr, uncompressed (PIL reads 4 bytes per pixel)"),
+        "tiff_rgba_assoc_planar.tif": (encode_tiff(np.dstack([rgb2, g2]), photometric=2,
+                                                   extra=(1,), compression=8, planar=2,
+                                                   tile=(16, 16)),
+                                       "TIFF RGBA premultiplied, separate planes, tiles, "
+                                       "Deflate"),
+        # Orientation: PIL flips or rotates the decoded image (non-square, so
+        # a swap of width and height shows)
+        "tiff_orient2.tif": (encode_tiff(g2, orientation=2), "TIFF Orientation 2, uncompressed"),
+        "tiff_orient3.tif": (encode_tiff(g2, compression=5, orientation=3),
+                             "TIFF Orientation 3, LZW"),
+        "tiff_orient4.tif": (encode_tiff(rgb2, photometric=2, compression=8, tile=(16, 16),
+                                         orientation=4),
+                             "TIFF Orientation 4, RGB, Deflate tiles"),
+        "tiff_orient5.tif": (encode_tiff(g2, rows_per_strip=5, orientation=5),
+                             "TIFF Orientation 5, uncompressed strips"),
+        "tiff_orient6.tif": (encode_tiff(g16[:h2, :w2], bits=16, compression=5, predictor=2,
+                                         orientation=6),
+                             "TIFF Orientation 6, 16-bit, LZW, predictor 2"),
+        "tiff_orient7.tif": (encode_tiff(g2, compression=32773, order=">", orientation=7),
+                             "TIFF Orientation 7, big-endian, PackBits"),
+        "tiff_orient8.tif": (encode_tiff(rgb2, photometric=2, planar=2, orientation=8),
+                             "TIFF Orientation 8, RGB, separate planes, uncompressed"),
+        "tiff_xmp_orient6.tif": (encode_tiff(g2, tags=[(700, 1, list(
+            b'<x:xmpmeta><rdf:Description tiff:Orientation="6"/></x:xmpmeta>'))]),
+            "TIFF with no Orientation tag, XMP tiff:Orientation 6"),
+        "tiff_la_packbits.tif": (encode_tiff(np.dstack([g, 255 - g]), extra=(2,),
+                                             compression=32773),
+                                 "TIFF gray + alpha, PackBits"),
+        # TIFF kinds PIL refuses
+        "tiff_float64.tif": (encode_tiff(f32[:h2, :w2].astype(np.float64), bits=64,
+                                         sample_format=3),
+                             "TIFF 64-bit float (PIL: unknown pixel mode)",
+                             refused("unknown pixel mode")),
+        "tiff_lab.tif": (encode_tiff(rgb2, photometric=8),
+                         "TIFF CIELAB (PIL cannot convert LAB to L)", refused("CIELAB")),
+        # TIFF kinds PIL reads through libtiff, not ported
+        "tiff_jpeg.tif": (_pil_save(Image.fromarray(rgb2), "TIFF", compression="jpeg"),
+                          "TIFF JPEG compression (PIL, libtiff)", unported("JPEG compression")),
+        "tiff_ccitt_g4.tif": (_pil_save(Image.fromarray(g > 128), "TIFF", compression="group4"),
+                              "TIFF CCITT group 4 (PIL, libtiff)", unported("CCITT")),
+        "tiff_lzma.tif": (_pil_save(Image.fromarray(g2), "TIFF", compression="lzma"),
+                          "TIFF LZMA (PIL, libtiff)", unported("LZMA")),
+        "tiff_zstd.tif": (_pil_save(Image.fromarray(g2), "TIFF", compression="zstd"),
+                          "TIFF ZSTD (PIL, libtiff)", unported("ZSTD")),
+        "tiff_ycbcr_lzw.tif": (encode_tiff(rgb2, photometric=6, compression=5),
+                               "TIFF YCbCr, LZW (PIL: libtiff's RGBA interface)",
+                               unported("compressed YCbCr")),
+        # BMP: PIL's writer
+        "bmp_1bit.bmp": (_pil_save(Image.fromarray(g > 128), "BMP"), "BMP 1-bit (PIL)"),
+        "bmp_gray8.bmp": (_pil_save(Image.fromarray(g), "BMP"), "BMP 8-bit grey palette (PIL)"),
+        "bmp_pal8.bmp": (_pil_save(Image.fromarray(rgb).quantize(40), "BMP"),
+                         "BMP 8-bit colour palette (PIL)"),
+        "bmp_rgb24.bmp": (_pil_save(Image.fromarray(rgb2), "BMP"), "BMP 24-bit (PIL)"),
+        "bmp_rgba32.bmp": (_pil_save(Image.fromarray(np.dstack([rgb2, g2])), "BMP"),
+                           "BMP 32-bit BGRA (PIL)"),
+    }
+    # BMP: this file's encoder
+    pal = rng.integers(0, 256, (16, 3))
+    idx4 = (g >> 4).astype(np.int64)
+    rows8 = (g >> 2)[::-1]
+    files["bmp_rle8.bmp"] = (encode_bmp(g >> 2, 8, compression=1,
+                                        palette=np.stack([np.arange(64) * 4] * 3, 1)[:, ::-1] ^ 7,
+                                        rle=rle_encode(rows8, False, delta_at=(5, 3, 1))),
+                             "BMP RLE8 with a delta (PIL's reading of it)")
+    files["bmp_rle4.bmp"] = (encode_bmp(idx4, 4, compression=2, palette=pal,
+                                        rle=rle_encode(idx4[::-1], True)),
+                             "BMP RLE4")
+    w565 = (rng.integers(0, 65536, (h2, w2))).astype(np.int64)
+    w565[0, :4] = (0xF800, 0x07E0, 0x001F, 0xFFFF)
+    files["bmp_565.bmp"] = (encode_bmp(w565, 16, compression=3, masks=(0xF800, 0x7E0, 0x1F)),
+                            "BMP 16-bit 5-6-5 BITFIELDS")
+    files["bmp_555.bmp"] = (encode_bmp(w565, 16), "BMP 16-bit 5-5-5")
+    files["bmp_os2_8bit.bmp"] = (encode_bmp(g >> 3, 8, header=12,
+                                            palette=rng.integers(0, 256, (32, 3))),
+                                 "BMP OS/2 1.x header, 8-bit palette")
+    files["bmp_topdown_24.bmp"] = (encode_bmp(rgb2, 24, header=124, top_down=True),
+                                   "BMP v5 header, 24-bit, top-down rows")
+    files["bmp_v4_abgr32.bmp"] = (encode_bmp(np.dstack([rgb2, g2]), 32, header=108,
+                                             compression=3,
+                                             masks=(0xFF000000, 0xFF0000, 0xFF00, 0xFF)),
+                                  "BMP v4 header, 32-bit ABGR BITFIELDS")
+    files["bmp_4bit.bmp"] = (encode_bmp(idx4, 4, palette=pal), "BMP 4-bit palette")
+    # BMP kinds PIL refuses
+    files["bmp_2bit.bmp"] = (encode_bmp(g >> 6, 2, palette=pal[:4]),
+                             "BMP 2-bit (PIL: unsupported depth)", refused("pixel depth"))
+    files["bmp_jpeg.bmp"] = (encode_bmp(rgb2, 24, compression=4),
+                             "BMP with JPEG compression (PIL refuses)", refused("compression"))
+    files["bmp_bitfields.bmp"] = (encode_bmp(w565, 16, compression=3,
+                                             masks=(0xF000, 0x7E0, 0x1F)),
+                                  "BMP 16-bit with masks PIL does not map",
+                                  refused("bitfields"))
+    files["bmp_header20.bmp"] = (b"BM" + struct.pack("<IHHI", 0, 0, 0, 34)
+                                 + struct.pack("<IHHHHHHHH", 20, w2, h2, 1, 24, 0, 0, 0, 0)
+                                 + bytes(w2 * h2 * 3 + h2 * 4),
+                                 "BMP with a 20-byte header (PIL refuses)", refused("header"))
+    files["bmp_palette300.bmp"] = (encode_bmp(g, 8, palette=rng.integers(0, 256, (300, 3))),
+                                   "BMP with 300 palette entries (PIL refuses)",
+                                   refused("palette"))
+    files["bmp_rle8_bilevel.bmp"] = (encode_bmp(g > 128, 8, compression=1,
+                                                palette=[[0, 0, 0], [255, 255, 255]],
+                                                rle=rle_encode((g > 128)[::-1], False)),
+                                     "BMP RLE8 with a black-and-white palette (PIL refuses)",
+                                     refused("RLE"))
+    # PFM
+    files["pfm_le.pfm"] = (encode_pfm(f32, -1.0), "PFM gray, little-endian")
+    files["pfm_be.pfm"] = (encode_pfm(f32[:h2, :w2] * 2, 0.5), "PFM gray, big-endian")
+    return files
+
+
+def unported_files(seed: int) -> dict:
+    """One small file of each format PIL identifies by a signature and the
+    port does not read yet, PIL's writer where it has one; each refused
+    naming its format."""
+    from PIL import Image
+
+    h, w = 24, 32
+    g = scene(h, w, seed + 30)
+    rgb = scene(h, w, seed + 31, 3)
+    im, imc = Image.fromarray(g), Image.fromarray(rgb)
+
+    def un(word):
+        return {"refused": True, "refusal": word, "pil_reads": True}
+
+    cur_px = np.dstack([rgb[:16, :16, ::-1], np.full((16, 16, 1), 255, np.uint8)])[::-1]
+    cur = (struct.pack("<HHH", 0, 2, 1) + struct.pack("<BBBBHHII", 16, 16, 0, 0, 1, 1,
+                                                      40 + 16 * 16 * 4 + 16 * 4, 22)
+           + struct.pack("<IiiHHIIiiII", 40, 16, 32, 1, 32, 0, 0, 0, 0, 0, 0)
+           + cur_px.tobytes() + bytes(16 * 4))
+    psd = (b"8BPS" + struct.pack(">H6xHIIHH", 1, 1, h, w, 8, 1) + struct.pack(">III", 0, 0, 0)
+           + struct.pack(">H", 0) + g.tobytes())
+    sun = struct.pack(">8I", 0x59A66A95, w, h, 8, w * h, 1, 0, 0) + g.tobytes()
+    return {
+        "gif.gif": (_pil_save(im, "GIF"), "GIF (PIL)", un("GIF")),
+        "webp.webp": (_pil_save(imc, "WEBP", lossless=True), "WebP lossless (PIL)", un("WebP")),
+        "jp2.jp2": (_pil_save(im, "JPEG2000"), "JPEG 2000, JP2 box (PIL)", un("JPEG 2000")),
+        "j2k.j2k": (_pil_save(im, "JPEG2000", no_jp2=True), "JPEG 2000 codestream (PIL)",
+                    un("JPEG 2000")),
+        "ico.ico": (_pil_save(imc, "ICO", sizes=[(16, 16)]), "ICO (PIL)", un("ICO")),
+        "cur.cur": (cur, "CUR, 16×16 32-bit", un("CUR")),
+        "qoi.qoi": (_pil_save(imc, "QOI"), "QOI (PIL)", un("QOI")),
+        "psd.psd": (psd, "PSD, 8-bit grayscale, raw", un("PSD")),
+        "dds.dds": (_pil_save(imc, "DDS"), "DDS (PIL)", un("DDS")),
+        "sgi.sgi": (_pil_save(im, "SGI"), "SGI (PIL)", un("SGI")),
+        "sun.ras": (sun, "Sun raster, 8-bit", un("Sun raster")),
+        "pcx.pcx": (_pil_save(im, "PCX"), "PCX (PIL)", un("PCX")),
+        "avif.avif": (_pil_save(imc, "AVIF"), "AVIF (PIL)", un("AVIF")),
+        "p0cmyk.pnm": (b"P0CMYK\n%d %d\n255\n" % (w, h)
+                       + np.dstack([rgb, g]).astype(np.uint8).tobytes(),
+                       "netpbm P0CMYK (Pillow's own kind)", un("netpbm")),
+    }
 
 
 def strip_dht(data: bytes) -> bytes:
@@ -1200,15 +1806,16 @@ def write_all(out: str, seed: int) -> dict:
     seq, text = sequence_files()
     files.update(seq)
     manifest = {"seed": seed, "files": {}}
-    for name, (data, kind) in sorted(files.items()):
+    for name, (data, kind, *extra) in sorted(files.items()):
         path = os.path.join(out, name)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "wb") as f:
             f.write(data)
-        entry = {"kind": kind}
-        if os.path.splitext(os.path.basename(name))[0] in REFUSED:
-            entry["refused"] = True
-        else:
+        entry = {"kind": kind, **(extra[0] if extra else {})}
+        stem = os.path.splitext(os.path.basename(name))[0]
+        if stem in REFUSED:
+            entry.update(refused=True, refusal=REFUSED[stem])
+        if not entry.get("refused"):
             entry["sha256"] = pil_sha256(path)
         manifest["files"][name] = entry
     for name, body in text.items():
