@@ -187,12 +187,13 @@ Phases (one JSON line each):
      numpy on the lines path's own pre-merge segments (equal shapes,
      within 1e-9), and ``real_photo.jpg`` decoded to the pinned
      ``REAL_PHOTO_L_SHA256``; ``image_kinds``, every JPEG, netpbm, PFM,
-     TIFF and BMP kind the JAX package reads through PIL: the committed
-     fixtures of ``tests/fixtures/image_kinds`` on three decode routes
-     against PIL's pinned hashes (the kinds PIL refuses, and those the port
-     does not read yet, raising ``NotImplementedError``), ``cli_run``'s
-     tree as 16-bit P5 and 16-bit LZW TIFF (native route) and as plain P2
-     and 8-bit BMP (``--no-native``), trajectories and launches equal to
+     TIFF, BMP, GIF and WebP kind the JAX package reads through PIL: the
+     committed fixtures of ``tests/fixtures/image_kinds`` on three decode
+     routes against PIL's pinned hashes (the kinds PIL refuses, and those
+     the port does not read yet, raising ``NotImplementedError``; a lossy
+     752×480 WebP pair among them), ``cli_run``'s tree as 16-bit P5,
+     16-bit LZW TIFF and gray GIF (native route) and as plain P2, 8-bit BMP
+     and VP8L WebP (``--no-native``), trajectories and launches equal to
      its PNG runs, and a committed 752×480 progressive stereo sequence
      through ``cli run`` and ``cli serve``, equal to PNG copies of its
      pixels, with K1 (both modes), K2 and K3 launched; decode ms per pair
@@ -3828,6 +3829,7 @@ IMAGE_KINDS = os.path.join(ROOT, "tests", "fixtures", "image_kinds")
 IMAGE_KINDS_SEQ = "seq_prog"  # the 752×480 progressive stereo sequence
 IMAGE_KINDS_SEQ_FRAMES = 6
 IMAGE_KINDS_BASELINE = "seq_baseline"  # its first pair as baseline JPEGs
+IMAGE_KINDS_WEBP = "seq_webp"  # its first pair as lossy WebPs at quality 90
 DECODE_TIMING_PAIRS = 10  # pairs of each PGM / PNG / TIFF / BMP tree in the decode timing
 # the sequence's keyframe trigger: fewer matches than this (every frame,
 # at 400 keypoints) makes a keyframe
@@ -3888,6 +3890,19 @@ def _write_tiff(job) -> None:
         f.write(data)
 
 
+def _write_gif_or_vp8l(job) -> None:
+    """One frame as a GIF with an identity palette (PIL reads it as mode L,
+    the indices as grey levels) or as a lossless WebP from the fixtures'
+    VP8L writer (subtract green, Huffman-coded green); the encoders are
+    Python: image_kinds runs these in a process pool."""
+    path, u8 = job
+    mk = _image_kinds_encoders()
+    data = (mk.encode_gif(u8, palette=np.stack([np.arange(256)] * 3, 1))
+            if path.endswith(".gif") else mk.encode_vp8l_gray(u8))
+    with open(path, "wb") as f:
+        f.write(data)
+
+
 def _write_bmp(path, u8) -> None:
     """(H, W) uint8 as a bottom-up 8-bit BMP with a grey-ramp palette (PIL
     reads it as mode L, the bytes as grey levels)."""
@@ -3942,21 +3957,23 @@ def _decode_pair_ms(pairs, n_rep: int) -> float:
 
 
 def phase_image_kinds(ctx, cli_line):
-    """Every JPEG, netpbm, PFM, TIFF and BMP kind the JAX package reads
-    through PIL, on the card's machine (no PIL there) and through the CLI at
-    full width:
+    """Every JPEG, netpbm, PFM, TIFF, BMP, GIF and WebP kind the JAX package
+    reads through PIL, on the card's machine (no PIL there) and through the
+    CLI at full width:
 
     (a) each committed fixture of ``tests/fixtures/image_kinds`` (its
     manifest pins PIL's sha256 of each readable file) through
     ``png.read_gray``, ``native.decode_u8`` and a ``NativeStereoLoader``,
     each hashing to the pinned value; each kind PIL refuses, and each kind
     or format PIL reads that the port does not yet, raising
-    ``NotImplementedError`` on all three routes;
+    ``NotImplementedError`` on all three routes; the GIF and WebP fixtures
+    (a lossy 752×480 pair among them) hash like the rest;
     (b) ``cli_run``'s 752×480 30-frame PNG tree rewritten as 16-bit P5, as
-    plain P2, as 16-bit LZW TIFF with predictor 2 (in a process pool: the
-    encoder is Python) and as bottom-up 8-bit BMP: ``cli run`` on the P5
-    and TIFF trees by the native route and on the P2 and BMP trees with
-    ``--no-native``, the four processes at once, each trajectory and launch
+    plain P2, as 16-bit LZW TIFF with predictor 2 and as gray GIF with an
+    identity palette (in a process pool: both LZW encoders are Python), as
+    bottom-up 8-bit BMP and as VP8L WebP: ``cli run`` on the P5, TIFF and
+    GIF trees by the native route and on the P2, BMP and VP8L trees with
+    ``--no-native``, the six processes at once, each trajectory and launch
     count equal to ``cli_run``'s PNG run of the same route (every value is
     at most 255, so PIL reads the same pixels from all of them: any
     difference is a decode fault);
@@ -3972,8 +3989,9 @@ def phase_image_kinds(ctx, cli_line):
     frame a keyframe, so the trajectories compared hold every pose);
     then decode ms per 752×480 pair, progressive against baseline JPEG,
     16-bit P5 against 8-bit PNG, and TIFF (uncompressed, LZW with predictor
-    2, Deflate, 16-bit LZW with predictor 2) and 8-bit BMP against 8-bit
-    PNG, in turns."""
+    2, Deflate, 16-bit LZW with predictor 2), 8-bit BMP, GIF, VP8L WebP and
+    the committed lossy WebP pair (quality 90) against 8-bit PNG, in
+    turns."""
     from concurrent.futures import ProcessPoolExecutor
     import multiprocessing
 
@@ -4028,7 +4046,7 @@ def phase_image_kinds(ctx, cli_line):
     # trajectory bit for bit whatever runs beside it: cli_run's native_again
     # gate)
     trees = {kind: os.path.join(work, f"tree_{kind}")
-             for kind in ("P5", "P2", "TIFF16", "BMP8")}
+             for kind in ("P5", "P2", "TIFF16", "BMP8", "GIF", "VP8L")}
     # the other TIFF kinds: the first pairs only, for the decode timing
     timing_trees = {k: os.path.join(work, f"timing_{k}") for k in TIFF_KINDS
                     if k != "tiff_16bit_lzw_pred2"}
@@ -4042,6 +4060,9 @@ def phase_image_kinds(ctx, cli_line):
                              mp_context=multiprocessing.get_context("spawn")) as pool:
         tiff_jobs = []
 
+        def write_gif_or_vp8l(path, u8):
+            tiff_jobs.append(pool.submit(_write_gif_or_vp8l, (path, u8)))
+
         def write_tiffs(path, u8):  # in the pool, while this process writes the rest
             tiff_jobs.append(pool.submit(_write_tiff, (path, "tiff_16bit_lzw_pred2", u8)))
             stem, cam = os.path.splitext(os.path.basename(path))[0], path.split(os.sep)[-3]
@@ -4053,11 +4074,13 @@ def phase_image_kinds(ctx, cli_line):
         _rewrite_tree(ctx["tree"], {
             **{trees[k]: (".pgm", lambda p, u8, k=k: _write_pgm(p, u8, k))
                for k in ("P5", "P2")},
-            trees["TIFF16"]: (".tif", write_tiffs), trees["BMP8"]: (".bmp", _write_bmp)})
+            trees["TIFF16"]: (".tif", write_tiffs), trees["BMP8"]: (".bmp", _write_bmp),
+            trees["GIF"]: (".gif", write_gif_or_vp8l), trees["VP8L"]: (".webp", write_gif_or_vp8l)})
         for job in tiff_jobs:
             job.result()
     trees_write_s = time.perf_counter() - t0
-    routes = {"P5": (), "P2": ("--no-native",), "TIFF16": (), "BMP8": ("--no-native",)}
+    routes = {"P5": (), "P2": ("--no-native",), "TIFF16": (), "BMP8": ("--no-native",),
+              "GIF": (), "VP8L": ("--no-native",)}
     t0 = time.perf_counter()
     outs = _cli_concurrent(*[("run", "--dataroot", trees[k], "--config", ctx["euroc"],
                               "--camera-config", ctx["cam_yaml"], *weights, "--gt", trees[k],
@@ -4130,14 +4153,19 @@ def phase_image_kinds(ctx, cli_line):
     for a, b in (("progressive_jpeg", "baseline_jpeg"), ("p5_16bit", "png_8bit")):
         for k in (a, b, b, a):
             timing[k].append(_decode_pair_ms(sets[k], 20 if len(sets[k]) == 1 else 2))
-    # TIFF and BMP against 8-bit PNG: the order forward, then back
+    # TIFF, BMP, GIF and WebP against 8-bit PNG: the order forward, then back
     tb_sets = {"png_8bit": sets["png_8bit"],
                **{k: tree_pairs(root, DECODE_TIMING_PAIRS) for k, root in timing_trees.items()},
                "tiff_16bit_lzw_pred2": tree_pairs(trees["TIFF16"], DECODE_TIMING_PAIRS),
-               "bmp_8bit": tree_pairs(trees["BMP8"], DECODE_TIMING_PAIRS)}
+               "bmp_8bit": tree_pairs(trees["BMP8"], DECODE_TIMING_PAIRS),
+               "gif": tree_pairs(trees["GIF"], DECODE_TIMING_PAIRS),
+               "webp_vp8l": tree_pairs(trees["VP8L"], DECODE_TIMING_PAIRS),
+               "webp_lossy_q90": [with_size(os.path.join(IMAGE_KINDS, IMAGE_KINDS_WEBP, "cam0.webp"),
+                                            os.path.join(IMAGE_KINDS, IMAGE_KINDS_WEBP,
+                                                         "cam1.webp"))]}
     tb_timing = {k: [] for k in tb_sets}
     for k in list(tb_sets) + list(tb_sets)[::-1]:
-        tb_timing[k].append(_decode_pair_ms(tb_sets[k], 2))
+        tb_timing[k].append(_decode_pair_ms(tb_sets[k], 20 if len(tb_sets[k]) == 1 else 2))
 
     jl = runs["jpeg"]["launches"]
     line = {"phase": "image_kinds", "card": CARD, "fixtures": len(manifest),
@@ -4156,8 +4184,8 @@ def phase_image_kinds(ctx, cli_line):
                          "serve_launches": runs["serve"]["launches"], "cli_wall_s": seq_wall},
             "decode_ms_per_pair": timing,
             "decode_order": "progressive, baseline, baseline, progressive; P5, PNG, PNG, P5",
-            "decode_ms_per_pair_tiff_bmp": tb_timing,
-            "decode_order_tiff_bmp": ", ".join(tb_sets) + ", then back",
+            "decode_ms_per_pair_vs_png": tb_timing,
+            "decode_order_vs_png": ", ".join(tb_sets) + ", then back",
             "seconds": time.perf_counter() - t_phase}
     emit(line)
     if bad or hashes_ok + refused_ok != len(manifest):

@@ -264,7 +264,8 @@ def cmd_serve(args):
 
     Only ``.png``, ``.jpg``, ``.jpeg`` and ``.pgm`` names are taken, the
     JAX package's filter (its ``cli.py``), so half-written temporaries are
-    skipped: TIFF, BMP and PFM frames, which ``run`` reads, are not served."""
+    skipped: TIFF, BMP, PFM, GIF and WebP frames, which ``run`` reads, are
+    not served."""
     from rspl_slam_tpu_torch.datasets import _load_gray
     from rspl_slam_tpu_torch.pipeline import PipelinedRunner
 

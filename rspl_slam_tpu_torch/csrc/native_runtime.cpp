@@ -10,14 +10,16 @@
 //      and lossless, Huffman or arithmetic coded, gray, YCbCr, RGB, CMYK
 //      and YCCK, any integral sampling; netpbm P1-P6 and PFM as PIL reads
 //      them; TIFF and BMP (native_tiff.h, native_bmp.h, over PIL's image
-//      model in native_pil.h);
+//      model in native_pil.h); GIF's frame 0 (native_gif.h); WebP, lossless
+//      and lossy, with alpha, frame 0 of an animation (native_webp.h,
+//      native_vp8.h);
 //   D. an ordered stereo prefetcher: decode threads, a bounded reorder
 //      buffer, optional rectification.
 //
 // Formats are told apart by content, as PIL's Image.open tells them, never
 // by the file name. A file of a format PIL identifies by a fixed signature
-// and this reader does not read (GIF, WebP, JPEG 2000, ICO, CUR, QOI, PSD,
-// DDS, SGI, Sun raster, PCX, AVIF) is refused with a code naming it.
+// and this reader does not read (JPEG 2000, ICO, CUR, QOI, PSD, DDS, SGI,
+// Sun raster, PCX, AVIF) is refused with a code naming it.
 //
 // Every decoder returns the 8-bit gray that PIL's Image.open(p).convert("L")
 // returns: RGB through PIL's luma (R·19595 + G·38470 + B·7471 + 0x8000) >> 16,
@@ -36,6 +38,7 @@
 #include <cstring>
 #include <exception>
 #include <map>
+#include <memory>
 #include <mutex>
 #include <string>
 #include <thread>
@@ -47,16 +50,18 @@ enum Err {
   kOk = 0, kIO = 1, kCorrupt = 2, kUnknown = 3, kSize = 4,
   // image kinds refused, every code from kPrecision on (native_runtime_error_kind;
   // native.py raises NotImplementedError). PIL refuses the JPEG ones, kTiffMode,
-  // kTiffLab, kTiffRawMode and the BMP ones too; it reads the rest, which the
-  // port does not yet
+  // kTiffLab, kTiffRawMode, the BMP, GIF and WebP ones too; it reads the rest,
+  // which the port does not yet. 31 and 32 named GIF and WebP before they were
+  // read.
   kPrecision = 5, kHierarchical = 6, kDNL = 7, kFractional = 8, kLosslessColour = 9,
   kArithLossless = 10, kComponents = 11, kMcuSize = 12, kPnmKind = 13,
   kTiffJpeg = 14, kTiffCcitt = 15, kTiffLzma = 16, kTiffZstd = 17, kTiffWebp = 18,
   kTiffSgiLog = 19, kTiffThunderScan = 20, kTiffYCbCr = 21, kTiffMode = 22, kTiffLab = 23,
   kTiffRawMode = 24, kBmpHeader = 25, kBmpDepth = 26, kBmpCompression = 27,
   kBmpBitfields = 28, kBmpPalette = 29, kBmpRle = 30,
-  kGif = 31, kWebp = 32, kJpeg2000 = 33, kIco = 34, kCur = 35, kQoi = 36, kPsd = 37,
-  kDds = 38, kSgi = 39, kSun = 40, kPcx = 41, kAvif = 42
+  kJpeg2000 = 33, kIco = 34, kCur = 35, kQoi = 36, kPsd = 37,
+  kDds = 38, kSgi = 39, kSun = 40, kPcx = 41, kAvif = 42,
+  kGifCodeSize = 43, kWebpVp8Frame = 44, kWebpVp8lVersion = 45, kWebpAlpha = 46
 };
 
 bool read_file(const char* path, std::vector<uint8_t>& buf) {
@@ -1893,6 +1898,9 @@ struct JpegDecoder {
 #include "native_pil.h"
 #include "native_tiff.h"
 #include "native_bmp.h"
+#include "native_gif.h"
+#include "native_vp8.h"
+#include "native_webp.h"
 
 // ================================================ netpbm (P1-P6, Pf)
 // As PIL's PpmImagePlugin reads it, then convert("L"): binary P4/P5/P6 and
@@ -2140,11 +2148,6 @@ inline bool is_pnm(const uint8_t* d, size_t n) {
 // that this reader does not read: the code refusing each, else kOk
 int unported_format(const uint8_t* d, size_t n) {
   auto starts = [&](const char* sig, size_t k) { return n >= k && !std::memcmp(d, sig, k); };
-  if (starts("GIF87a", 6) || starts("GIF89a", 6)) return kGif;
-  if (starts("RIFF", 4) && n >= 16 && !std::memcmp(d + 8, "WEBP", 4) &&
-      (!std::memcmp(d + 12, "VP8 ", 4) || !std::memcmp(d + 12, "VP8X", 4) ||
-       !std::memcmp(d + 12, "VP8L", 4)))
-    return kWebp;
   if (starts("\xff\x4f\xff\x51", 4) || starts("\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", 12))
     return kJpeg2000;
   if (starts("\0\0\1\0", 4)) return kIco;
@@ -2177,6 +2180,8 @@ int decode_by_signature(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, 
   if (is_pnm(d, n)) return decode_pnm(d, n, gray, w, h);
   if (is_bmp(d, n)) return decode_bmp(d, n, gray, w, h);
   if (is_tiff(d, n)) return decode_tiff(d, n, gray, w, h);
+  if (is_gif(d, n)) return decode_gif(d, n, gray, w, h);
+  if (is_webp(d, n)) return decode_webp(d, n, gray, w, h);
   const int rc = unported_format(d, n);
   return rc ? rc : kUnknown;
 }
@@ -2238,6 +2243,20 @@ int probe_by_signature(const uint8_t* d, size_t n, int& w, int& h) {
     const int rc = tiff_setup(d, n, t);
     w = t.w;
     h = t.h;
+    return rc;
+  }
+  if (is_gif(d, n)) {  // the screen grown to frame 0's extent
+    GifInfo g;
+    const int rc = gif_setup(d, n, g);
+    w = g.w;
+    h = g.h;
+    return rc;
+  }
+  if (is_webp(d, n)) {  // the demuxer's canvas
+    WebpInfo info;
+    const int rc = webp_setup(d, n, info);
+    w = info.canvas_w;
+    h = info.canvas_h;
     return rc;
   }
   const int rc = unported_format(d, n);
@@ -2358,8 +2377,8 @@ const char* native_runtime_error_string(int code) {
       return "a netpbm kind other than P1-P6 and Pf (Pillow's own P0CMYK and Py kinds): "
              "not read";
     case kUnknown:
-      return "not a PNG, JPEG, netpbm, TIFF or BMP file (nor a format PIL identifies by "
-             "a signature)";
+      return "not a PNG, JPEG, netpbm, TIFF, BMP, GIF or WebP file (nor a format PIL "
+             "identifies by a signature)";
     case kTiffJpeg:
       return "a TIFF with JPEG compression (6, 7): PIL reads it through libtiff; not read";
     case kTiffCcitt:
@@ -2409,8 +2428,20 @@ const char* native_runtime_error_string(int code) {
     case kBmpRle:
       return "an RLE BMP above 8 bits or with a black-and-white palette: PIL does not read it "
              "either (\"unknown raw mode\")";
-    case kGif: return "a GIF image: PIL reads it; not read yet";
-    case kWebp: return "a WebP image: PIL reads it; not read yet";
+    case kGifCodeSize:
+      return "a GIF whose LZW minimum code size is above 12: PIL does not read it either "
+             "(\"codec configuration error when reading image file\")";
+    case kWebpVp8Frame:
+      return "a WebP whose VP8 frame is not a displayable key frame of profile 0-3: PIL does "
+             "not read it either (libwebp's VP8GetInfo refuses it: \"could not create decoder "
+             "object\")";
+    case kWebpVp8lVersion:
+      return "a WebP whose VP8L header has a version other than 0: PIL does not read it "
+             "either (libwebp's VP8LGetInfo refuses it: \"could not create decoder object\")";
+    case kWebpAlpha:
+      return "a WebP whose ALPH chunk names a compression method above 1, a pre-processing "
+             "above 1 or sets its reserved bits: PIL does not read it either (libwebp's "
+             "ALPHInit refuses it: \"failed to read next frame\")";
     case kJpeg2000: return "a JPEG 2000 image (codestream or JP2): PIL reads it; not read yet";
     case kIco: return "an ICO (Windows icon) image: PIL reads it; not read yet";
     case kCur: return "a CUR (Windows cursor) image: PIL reads it; not read yet";

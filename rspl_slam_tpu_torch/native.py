@@ -2,7 +2,7 @@
 ``csrc/native_runtime.cpp``, host C++ built by ``ops/cuda_build`` with the
 host compiler at first use into ``rspl_slam_tpu_torch/_build/``.
 
-- :func:`decode_gray`: a PNG, JPEG, netpbm, TIFF or BMP file → (H, W)
+- :func:`decode_gray`: a PNG, JPEG, netpbm, TIFF, BMP, GIF or WebP file → (H, W)
   float32 in [0, 1], the 8-bit gray of PIL's
   ``Image.open(p).convert("L")`` divided by 255 as
   ``datasets.EurocDataset`` divides it;
@@ -28,14 +28,19 @@ CMYK, uncompressed YCbCr, with PIL's own byte-order and planar quirks,
 flipped or rotated by the Orientation tag, or with none by the XMP
 packet, as PIL's ``ImageOps.exif_transpose`` does after decoding);
 BMP (``csrc/native_bmp.h``: every header size, 1-32 bits, RLE4, RLE8,
-BITFIELDS, top-down rows). Kinds PIL refuses (12-bit, hierarchical, DNL
-and fractional-sampling JPEG, lossless YCbCr; TIFF modes missing from
+BITFIELDS, top-down rows); GIF frame 0 (``csrc/native_gif.h``, Pillow's
+LZW decoder as ``ImageFile.load`` feeds it); WebP as libwebp 1.6.0
+decodes it for PIL (``csrc/native_webp.h``: the demuxer, VP8L, ALPH,
+frame 0 of an animation; ``native_vp8.h``: lossy VP8 and libwebp's fancy
+upsampler). Kinds PIL refuses (12-bit, hierarchical, DNL and
+fractional-sampling JPEG, lossless YCbCr; TIFF modes missing from
 ``OPEN_INFO``, CIELAB; BMP headers, depths, compressions, masks and
-palettes PIL rejects) and kinds PIL reads that the port does not yet
-(TIFF's JPEG, CCITT, LZMA, ZSTD, WebP, SGILog and ThunderScan
-compressions and compressed YCbCr; GIF, WebP, JPEG 2000, ICO, CUR, QOI,
-PSD, DDS, SGI, Sun raster, PCX, AVIF files; Pillow's P0CMYK and Py netpbm
-kinds) raise ``NotImplementedError`` naming the kind or format. A file
+palettes PIL rejects; GIF code sizes above 12; WebP VP8 frames that are
+not displayable key frames, VP8L versions other than 0, ALPH chunks
+libwebp rejects) and kinds PIL reads that the port does not yet (TIFF's
+JPEG, CCITT, LZMA, ZSTD, WebP, SGILog and ThunderScan compressions and
+compressed YCbCr; JPEG 2000, ICO, CUR, QOI, PSD, DDS, SGI, Sun raster,
+PCX, AVIF files; Pillow's P0CMYK and Py netpbm kinds) raise ``NotImplementedError`` naming the kind or format. A file
 with no signature raises ``ValueError``, and a file that fails to decode
 ``IOError``, on every route: the library's ``native_runtime_error_kind``
 decides.

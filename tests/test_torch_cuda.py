@@ -1112,7 +1112,8 @@ def test_loader_threads_decode_every_image_kind_to_its_pinned_hash(cuda_device):
     """On the card's machine, where PIL is absent: ``NativeStereoLoader``'s
     decode threads read every readable fixture of ``tests/fixtures/
     image_kinds`` (progressive, arithmetic-coded, lossless, CMYK, YCCK,
-    RGB, 4:1:1 JPEG; netpbm P1-P6, PFM; TIFF, BMP) to the PIL sha256 its
+    RGB, 4:1:1 JPEG; netpbm P1-P6, PFM; TIFF, BMP; GIF; WebP lossless, lossy,
+    with alpha, animated) to the PIL sha256 its
     manifest pins, and refuse the kinds PIL refuses, and those the port
     does not read yet, with ``NotImplementedError``."""
     import hashlib

@@ -1,5 +1,5 @@
-"""Every JPEG, netpbm, PFM, TIFF and BMP kind that the JAX package's reader
-takes (PIL's ``Image.open(p).convert("L")``,
+"""Every JPEG, netpbm, PFM, TIFF, BMP, GIF and WebP kind that the JAX
+package's reader takes (PIL's ``Image.open(p).convert("L")``,
 ``rspl_slam_tpu.datasets._load_gray``) through every CPU route of the
 port's reader: ``png.read_gray``, ``native.decode_u8`` / ``decode_gray``
 and the ``NativeStereoLoader`` threads, bit for bit; the kinds PIL
@@ -14,10 +14,13 @@ libjpeg-turbo smooths), arithmetic-coded, lossless, CMYK, YCCK, RGB,
 4:1:1, netpbm P1-P6 at several maxvals, the refused 12-bit,
 hierarchical, DNL and fractional-sampling files; TIFF (PIL's writer and
 the encoder: tiles, planes, predictors, big-endian, BigTIFF, fill order
-2, every sample kind, orientations 2-8 by tag and by XMP), BMP (RLE, BITFIELDS, OS/2, top-down), PFM; GIF,
-WebP, JPEG 2000, ICO, CUR, QOI, PSD, DDS, SGI, Sun raster, PCX, AVIF and
-P0CMYK files the port refuses; and a 752×480 progressive stereo
-sequence. ``manifest.json`` pins each readable file's PIL sha256 and
+2, every sample kind, orientations 2-8 by tag and by XMP), BMP (RLE, BITFIELDS, OS/2, top-down), PFM;
+GIF (identity palettes, frame 0 past or inside the screen, interlaced,
+animated) and WebP (lossless, lossy, alpha, animated, libwebp's own
+options) with the kinds of both that PIL refuses; JPEG 2000, ICO, CUR,
+QOI, PSD, DDS, SGI, Sun raster, PCX, AVIF and P0CMYK files the port
+refuses; a 752×480 progressive stereo sequence and a lossy WebP pair of
+its first frames. Random GIFs and WebPs are in ``test_torch_gif_webp.py``. ``manifest.json`` pins each readable file's PIL sha256 and
 each refused file's refusal word.
 """
 
@@ -139,8 +142,8 @@ def _raises_on_every_route(path, data, word):
 @pytest.mark.parametrize("name", UNPORTED)
 def test_unported_kind_raises_in_the_port_alone(name):
     """A kind or format PIL reads that the port does not read yet (TIFF's
-    libtiff-only compressions and compressed YCbCr; GIF, WebP, JPEG 2000,
-    ICO, CUR, QOI, PSD, DDS, SGI, Sun raster, PCX, AVIF; Pillow's P0CMYK):
+    libtiff-only compressions and compressed YCbCr; JPEG 2000, ICO, CUR,
+    QOI, PSD, DDS, SGI, Sun raster, PCX, AVIF; Pillow's P0CMYK):
     PIL (JAX's reader) reads it, and every route of the port raises
     ``NotImplementedError`` naming the kind or format."""
     path = os.path.join(DIR, name)
@@ -156,7 +159,9 @@ def test_refusals_name_the_format_they_refuse(tmp_path):
     PFM file, which the port now reads, equals PIL; a 16-bit P5 at maxval
     1023 reads (it raised as a refused JPEG kind before); a lossless JPEG
     that declares YCbCr (JFIF) raises in PIL and names lossless in the
-    port."""
+    port; the GIF and WebP kinds PIL refuses (an LZW code size of 13, a
+    hidden VP8 frame, VP8L version 2, ALPH reserved bits) raise in PIL and
+    name their format and kind in the port."""
     cmyk = tmp_path / "f.pnm"
     cmyk.write_bytes(b"P0CMYK\n3 2\n255\n" + bytes(range(24)))
     assert np.asarray(Image.open(cmyk).convert("L")).shape == (2, 3)
@@ -177,6 +182,24 @@ def test_refusals_name_the_format_they_refuse(tmp_path):
     with pytest.raises(NotImplementedError, match="lossless") as e:
         native.decode_u8(lj)
     assert "netpbm" not in str(e.value)
+    # the GIF and WebP kinds PIL refuses: each code's message names its format
+    # and its kind, and no other format
+    idx = np.arange(48).reshape(6, 8) % 16
+    lossy = bytearray(mk._pil_save(Image.fromarray(mk.scene(16, 16, 1, 3)), "WEBP", quality=50))
+    lossy[20] &= ~16  # the frame tag's show bit cleared: a hidden frame
+    vp8l = bytearray(mk._pil_save(Image.fromarray(mk.scene(16, 16, 2, 3)), "WEBP", lossless=True))
+    vp8l[24] |= 0x40  # VP8L version 2
+    alph = bytearray(mk._pil_save(Image.fromarray(mk.scene(16, 16, 3, 4), "RGBA"), "WEBP", quality=50))
+    alph[alph.index(b"ALPH") + 8] |= 0xC0  # the ALPH header's reserved bits
+    for data, fmt, kind in ((mk.encode_gif(idx, code_size=13), "GIF", "LZW minimum code size"),
+                            (bytes(lossy), "WebP", "VP8 frame"), (bytes(vp8l), "WebP", "VP8L header"),
+                            (bytes(alph), "WebP", "ALPH chunk")):
+        with pytest.raises(OSError):
+            _pil(data)
+        with pytest.raises(NotImplementedError, match=kind) as e:
+            native.decode_u8(data)
+        others = {"GIF", "WebP", "JPEG", "netpbm", "TIFF", "BMP"} - {fmt}
+        assert fmt in str(e.value) and not any(o in str(e.value) for o in others)
 
 
 def test_cmyk_to_gray_is_pils_on_every_byte_value():
@@ -448,7 +471,7 @@ def test_pil_boundaries_of_i16_and_f_to_l(tmp_path):
 
 
 UNPORTED_SIGNATURES = {
-    "GIF": b"GIF89a", "WebP": b"RIFF\0\0\0\0WEBPVP8L", "JPEG 2000": b"\xff\x4f\xff\x51",
+    "JPEG 2000": b"\xff\x4f\xff\x51",
     "JPEG 2000 (JP2)": b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", "ICO": b"\0\0\1\0",
     "CUR": b"\0\0\2\0", "QOI": b"qoif", "PSD": b"8BPS", "DDS": b"DDS ", "SGI": b"\x01\xda",
     "Sun raster": b"\x59\xa6\x6a\x95", "PCX": b"\x0a\x05", "AVIF": b"\0\0\0\x1cftypavif"}
@@ -466,7 +489,7 @@ def test_unported_format_raises_naming_it(fmt):
         native.decode_u8(data)
     with pytest.raises(NotImplementedError, match=word):
         native.image_size(data)
-    with pytest.raises(ValueError, match="not a PNG, JPEG, netpbm, TIFF or BMP"):
+    with pytest.raises(ValueError, match="not a PNG, JPEG, netpbm, TIFF, BMP, GIF or WebP"):
         native.decode_u8(b"hello" + bytes(64))
 
 
@@ -521,7 +544,9 @@ MIXED = ("prog_gray.jpg", "arith_prog.jpg", "lossless_rgb_p7.jpg", "cmyk_prog.jp
          "ycc_411.jpg", "p5_max1023.pgm", "p2.pgm", "p6_max1000.ppm", "p1.pbm",
          "tiff_raw_gray.tif", "tiff_lzw_pred2_16bit.tif", "tiff_be_16bit_tiles.tif",
          "tiff_float_pred3.tif", "tiff_bigtiff_lzw.tif", "tiff_palette4.tif", "bmp_gray8.bmp",
-         "bmp_pal8.bmp", "bmp_rle8.bmp", "bmp_rle4.bmp", "bmp_1bit.bmp", "pfm_le.pfm")
+         "bmp_pal8.bmp", "bmp_rle8.bmp", "bmp_rle4.bmp", "bmp_1bit.bmp", "gif_quantized.gif",
+         "gif_identity_local.gif", "gif_interlaced.gif", "webp.webp", "webp_lossy_alpha.webp",
+         "webp_animated.webp", "webp_lossy.webp", "pfm_le.pfm")
 
 
 def test_datasets_agree_on_a_tree_of_mixed_kinds(tmp_path):
@@ -546,14 +571,17 @@ def test_datasets_agree_on_a_tree_of_mixed_kinds(tmp_path):
 
 WRITERS = {".tif": lambda u8: mk.encode_tiff(u8.astype(np.int64), bits=16, compression=5,
                                              predictor=2, rows_per_strip=16),
-           ".bmp": lambda u8: mk.encode_bmp(u8, 8, palette=np.stack([np.arange(256)] * 3, 1))}
+           ".bmp": lambda u8: mk.encode_bmp(u8, 8, palette=np.stack([np.arange(256)] * 3, 1)),
+           ".webp": lambda u8: mk._pil_save(Image.fromarray(u8), "WEBP", quality=80)}
 
 
-def _cli_tree(root, frames, gt, ext):
+def _cli_tree(root, frames, gt, ext, via=None):
     """A raw-EuRoC tree of ``frames`` under ``root``: progressive JPEGs
     written by PIL (``ext`` ".jpg"), PNG copies of PIL's decode of them
-    (".png"), or those pixels as 16-bit LZW TIFFs with predictor 2 (".tif")
-    or bottom-up 8-bit grey-palette BMPs (".bmp")."""
+    (".png"), or those pixels as 16-bit LZW TIFFs with predictor 2 (".tif"),
+    bottom-up 8-bit grey-palette BMPs (".bmp") or lossy WebPs at quality 80
+    (".webp"); with ``via`` (one of those writers), the pixels PIL decodes
+    from that writer's file instead."""
     seq = os.path.join(root, "mav0")
     names = [1_403_636_579_763_555_584 + i * 50_000_000 for i in range(len(frames))]
     for ns, pair in zip(names, frames):
@@ -566,11 +594,14 @@ def _cli_tree(root, frames, gt, ext):
             if ext == ".jpg":
                 with open(path, "wb") as f:
                     f.write(buf.getvalue())
-            elif ext in WRITERS:
+            pixels = _pil(buf.getvalue())
+            if via is not None:
+                pixels = _pil(WRITERS[via](pixels))
+            if ext in WRITERS:
                 with open(path, "wb") as f:
-                    f.write(WRITERS[ext](_pil(buf.getvalue())))
-            else:
-                png.write_png(path, _pil(buf.getvalue()))
+                    f.write(WRITERS[ext](pixels))
+            elif ext == ".png":
+                png.write_png(path, pixels)
     with open(os.path.join(seq, "cam0", "data.csv"), "w") as f:
         f.write("#timestamp [ns],filename\n")
         f.writelines(f"{ns},{ns}{ext}\n" for ns in names)
@@ -597,10 +628,10 @@ def _cli_inputs(tmp_path):
     return frames, gt
 
 
-def _cli_run(tmp_path, frames, gt, ext, *extra):
-    root = str(tmp_path / ext[1:])
-    _cli_tree(root, frames, gt, ext)
-    traj_path = str(tmp_path / f"traj{ext}{len(extra)}.txt")
+def _cli_run(tmp_path, frames, gt, ext, *extra, via=None):
+    root = str(tmp_path / (ext[1:] + (via or "")))
+    _cli_tree(root, frames, gt, ext, via)
+    traj_path = str(tmp_path / f"traj{ext}{via or ''}{len(extra)}.txt")
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         tcli.main(["run", "--dataroot", root, "--config", str(tmp_path / "algo.yaml"),
@@ -641,3 +672,13 @@ def test_cli_run_on_tiff_and_bmp_trees_equals_png(cli_png):
     tmp_path, frames, gt, png_text = cli_png
     assert _cli_run(tmp_path, frames, gt, ".tif") == png_text
     assert _cli_run(tmp_path, frames, gt, ".bmp", "--no-native") == png_text
+
+
+def test_cli_run_on_a_lossy_webp_tree_equals_its_png_copies(cli_png):
+    """The PNG tree's pixels as lossy WebPs (quality 80) through ``cli run
+    --no-native`` (``EurocDataset``): the trajectory equals that of a PNG
+    tree of PIL's decode of the same WebPs through the native prefetcher,
+    text for text."""
+    tmp_path, frames, gt, _ = cli_png
+    webp_text = _cli_run(tmp_path, frames, gt, ".webp", "--no-native")
+    assert webp_text == _cli_run(tmp_path, frames, gt, ".png", via=".webp")

@@ -1,16 +1,16 @@
 """Writes ``tests/fixtures/image_kinds/``: one small file of every JPEG,
-netpbm, TIFF, BMP and PFM kind that PIL's ``Image.open(p).convert("L")``
-reads (or refuses), one file of each format PIL reads by a signature that
-the port does not read yet, the full-width progressive stereo sequence,
-and ``manifest.json`` (each file's kind and the sha256 of PIL's
+netpbm, TIFF, BMP, PFM, GIF and WebP kind that PIL's
+``Image.open(p).convert("L")`` reads (or refuses), one file of each format
+PIL reads by a signature that the port does not read yet, the full-width
+progressive stereo sequence, and ``manifest.json`` (each file's kind and the sha256 of PIL's
 ``convert("L")`` pixels; for a refused file the word its refusal names it
 by, and ``pil_reads`` where PIL reads what the port refuses).
 
 PIL writes the kinds it can write (progressive, CMYK, RGB, baseline JPEG;
 TIFF uncompressed, PackBits, LZW, Deflate and the libtiff compressions;
-BMP 1, L, P, RGB, RGBA; GIF, WebP, JPEG 2000, ICO, QOI, DDS, SGI, PCX,
-AVIF). The kinds it cannot write come from the small encoders in this
-file:
+BMP 1, L, P, RGB, RGBA; GIF; WebP lossless, lossy, with alpha, animated;
+JPEG 2000, ICO, QOI, DDS, SGI, PCX, AVIF). The kinds it cannot write come
+from the small encoders in this file:
 
 - sequential and progressive Huffman JPEG with any scan script (including
   scripts that stop short of full refinement), any component count and any
@@ -22,7 +22,15 @@ file:
   chunky or planar, either byte order, classic or BigTIFF, fill order 2,
   uncompressed, PackBits, LZW or Deflate, predictors 2 and 3;
 - BMP of every header size and depth, RLE4 and RLE8 (deltas, early ends),
-  BITFIELDS, top-down rows; CUR, PSD and Sun raster by hand.
+  BITFIELDS, top-down rows; CUR, PSD and Sun raster by hand;
+- GIF with identity palettes (global, local), a local palette over a
+  global one, frame 0 past the screen or inside it, LZW code sizes 2-13,
+  no End code, early End codes, cut streams, blocks before the image;
+- WebP: a numpy-only VP8L writer of gray frames, animations assembled
+  from still files with frame 0 at an offset, and libwebp's own encoder
+  through ctypes (Pillow's bundled library) for the VP8 options PIL's
+  ``save`` does not reach: the simple filter, sharpness, token
+  partitions, one segment, raw alpha.
 
 The tests (``tests/test_torch_image_kinds.py``) import this module for
 its encoder; it is not collected by pytest. Everything is deterministic
@@ -1381,6 +1389,387 @@ REFUSED = {"jpeg_12bit": "not 8-bit", "jpeg_hierarchical": "hierarchical", "jpeg
            "jpeg_fractional_sampling": "fractional sampling"}
 
 
+# ------------------------------------------------------------------- GIF
+def gif_lzw(indices, code_size: int, end_code: bool = True, end_after=None) -> bytes:
+    """GIF's LZW of ``indices`` at the initial ``code_size``: LSB-first
+    codes, a Clear first, the code width growing as the decoder's table
+    reaches 2**width - 1 (it adds its entry one code behind the encoder),
+    a Clear when the table holds 4096 entries, then the End code unless
+    ``end_code`` is false; an early End code after ``end_after`` codes
+    when given (the stream goes on after it). Returns the bytes before
+    sub-blocking."""
+    clear, end = 1 << code_size, (1 << code_size) + 1
+    out = bytearray()
+    acc = nacc = 0
+    state = {"width": code_size + 1, "emitted": 0}
+
+    def put(code):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += state["width"]
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+
+    def emit(code):
+        put(code)
+        state["total"] = state.get("total", 0) + 1
+        if state["total"] == end_after:
+            put(end)  # an End code changes no decoder state
+        state["emitted"] += 1
+        added = clear + state["emitted"]  # the decoder's entry after this code
+        if code != clear and state["emitted"] >= 2 and added < 4096 and \
+                added == (1 << state["width"]) - 1 and state["width"] < 12:
+            state["width"] += 1
+
+    def reset():
+        emit(clear)
+        state.update(width=code_size + 1, emitted=0)
+        return {}, clear + 2
+
+    table, nxt = reset()
+    flat = [int(v) for v in np.asarray(indices).ravel()]
+    w = flat[0] if flat else None
+    for b in flat[1:]:
+        c = table.get((w, b))
+        if c is not None:
+            w = c
+            continue
+        emit(w)
+        if nxt < 4096:
+            table[(w, b)] = nxt
+            nxt += 1
+        else:
+            table, nxt = reset()
+        w = b
+    if w is not None:
+        emit(w)
+    if end_code:
+        put(end)
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def sub_blocks(data: bytes, size: int = 255) -> bytes:
+    return b"".join(bytes([len(data[i:i + size])]) + data[i:i + size]
+                    for i in range(0, len(data), size)) + b"\0"
+
+
+def gif_palette_bytes(palette) -> tuple[bytes, int]:
+    """An (N, 3) palette padded with black to a power of two ≥ 2: its
+    bytes and the 3-bit size field."""
+    pal = np.asarray(palette, np.uint8).reshape(-1, 3)
+    bits = max(1, int(np.ceil(np.log2(max(len(pal), 2)))))
+    pal = np.concatenate([pal, np.zeros((2 ** bits - len(pal), 3), np.uint8)])
+    return pal.tobytes(), bits - 1
+
+
+def encode_gif(indices, screen=None, offset=(0, 0), palette=None, local_palette=None,
+               transparency=None, interlace: bool = False, code_size=None,
+               end_code: bool = True, end_after=None, cut=None, extensions=(), frames=(),
+               version: bytes = b"GIF89a", stray: bytes = b"") -> bytes:
+    """A GIF whose frame 0 holds the (h, w) palette ``indices`` at
+    ``offset`` on a screen of ``screen`` (w, h) (default: the frame's
+    extent), with a global ``palette`` and/or a ``local_palette`` ((N, 3)
+    each, or None), a graphic control extension when ``transparency`` is
+    an index, rows in the four-pass order when ``interlace``, the initial
+    LZW ``code_size`` (default: the smallest that holds the indices, at
+    least 2), no End code unless ``end_code``, an early End code after
+    ``end_after`` codes (:func:`gif_lzw`), the file cut after ``cut``
+    bytes of frame 0's sub-blocks (no trailer) when given; ``extensions``
+    ((label, payload) pairs) and ``stray`` bytes come before frame 0, and
+    ``frames`` ((indices, offset) pairs) after it."""
+    idx = np.asarray(indices)
+    h, w = idx.shape
+    x0, y0 = offset
+    sw, sh = screen if screen is not None else (x0 + w, y0 + h)
+    if code_size is None:
+        code_size = max(2, int(idx.max()).bit_length() if idx.size else 2)
+    out = bytearray(version + struct.pack("<HH", sw, sh))
+    if palette is not None:
+        pal, bits = gif_palette_bytes(palette)
+        out += bytes([0x80 | 0x70 | bits, 0, 0]) + pal
+    else:
+        out += bytes([0x70, 0, 0])
+    for label, payload in extensions:  # a payload, or a list of sub-blocks
+        blocks = payload if isinstance(payload, list) else [payload]
+        out += b"!" + bytes([label]) + b"".join(sub_blocks(p)[:-1] for p in blocks) + b"\0"
+    out += stray
+    if transparency is not None:
+        out += b"!\xf9\x04" + bytes([1]) + struct.pack("<H", 0) + bytes([transparency, 0])
+
+    def image(idx, x0, y0, lp, il, ea=None):
+        h, w = idx.shape
+        flags = 0x40 if il else 0
+        lpb = b""
+        if lp is not None:
+            lpb, bits = gif_palette_bytes(lp)
+            flags |= 0x80 | bits
+        rows = idx
+        if il:
+            order = [r for start, step in ((0, 8), (4, 8), (2, 4), (1, 2))
+                     for r in range(start, h, step)]
+            rows = idx[order]
+        return (b"," + struct.pack("<HHHH", x0, y0, w, h) + bytes([flags]) + lpb
+                + bytes([code_size]), gif_lzw(rows, code_size, end_code, ea))
+
+    head, lzw_bytes = image(idx, x0, y0, local_palette, interlace, end_after)
+    body = sub_blocks(lzw_bytes)
+    if cut is not None:
+        return bytes(out + head + body[:cut])
+    out += head + body
+    for f_idx, (fx, fy) in frames:
+        h2, data = image(np.asarray(f_idx), fx, fy, None, False)
+        out += h2 + sub_blocks(data)
+    return bytes(out + b";")
+
+
+# ------------------------------------------------------------------ WebP
+def riff_chunk(tag: bytes, payload: bytes) -> bytes:
+    return tag + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
+
+
+def riff_webp(chunks: bytes) -> bytes:
+    return b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WEBP" + chunks
+
+
+def webp_chunks(data: bytes) -> list:
+    """(tag, payload) of each chunk of a WebP file after its RIFF header."""
+    out, p = [], 12
+    while p + 8 <= len(data):
+        tag, n = data[p:p + 4], struct.unpack("<I", data[p + 4:p + 8])[0]
+        out.append((tag, data[p + 8:p + 8 + n]))
+        p += 8 + n + (n & 1)
+    return out
+
+
+def webp_animation(canvas, frames, flags: int = 0x02, background: int = 0) -> bytes:
+    """An animated WebP of ``canvas`` (w, h) whose ``frames`` are (still
+    WebP file, x, y) triples: each file's ALPH / VP8 / VP8L chunks in an
+    ANMF at the (even) offset, no blending, no disposal."""
+    w, h = canvas
+    body = riff_chunk(b"VP8X", bytes([flags, 0, 0, 0]) + struct.pack("<I", w - 1)[:3]
+                      + struct.pack("<I", h - 1)[:3])
+    body += riff_chunk(b"ANIM", struct.pack("<IH", background, 0))
+    for data, x, y in frames:
+        inner = [(t, p) for t, p in webp_chunks(data) if t in (b"ALPH", b"VP8 ", b"VP8L")]
+        with_size = [p for t, p in inner if t != b"ALPH"][0]
+        fw, fh = webp_size(with_size, inner[-1][0])
+        hdr = b"".join(struct.pack("<I", v)[:3] for v in (x // 2, y // 2, fw - 1, fh - 1, 100))
+        body += riff_chunk(b"ANMF", hdr + bytes([0x02]) + b"".join(riff_chunk(t, p) for t, p in inner))
+    return riff_webp(body)
+
+
+def webp_size(payload: bytes, tag: bytes) -> tuple[int, int]:
+    if tag == b"VP8L":
+        v = int.from_bytes(payload[1:5], "little")
+        return (v & 0x3FFF) + 1, ((v >> 14) & 0x3FFF) + 1
+    return (int.from_bytes(payload[6:8], "little") & 0x3FFF,
+            int.from_bytes(payload[8:10], "little") & 0x3FFF)
+
+
+def _reverse_bits(code, length):
+    code, length = np.asarray(code, np.int64), np.asarray(length, np.int64)
+    out = np.zeros_like(code)
+    for i in range(15):
+        out |= ((code >> i) & 1) << np.maximum(length - 1 - i, 0) * (i < length)
+    return np.where(length > 0, out, 0)
+
+
+class _Bits:
+    """LSB-first bit packing (VP8L's order) of (value, bits) fields,
+    packed at the end with numpy."""
+
+    def __init__(self):
+        self.values, self.bits = [], []
+
+    def put(self, value: int, bits: int):
+        self.put_many(np.array([value]), np.array([bits]))
+
+    def code(self, code: int, length: int):  # a prefix code, its first bit its MSB
+        self.put(int(_reverse_bits(code, length)), length)
+
+    def put_many(self, values, bits):
+        self.values.append(np.asarray(values, np.int64) & ((1 << np.asarray(bits, np.int64)) - 1))
+        self.bits.append(np.asarray(bits, np.int64))
+
+    def bytes(self) -> bytes:
+        v, n = np.concatenate(self.values), np.concatenate(self.bits)
+        start = np.repeat(np.cumsum(n) - n, n)
+        j = np.arange(int(n.sum())) - start
+        bit = (np.repeat(v, n) >> j) & 1
+        return np.packbits(bit.astype(np.uint8), bitorder="little").tobytes()
+
+
+def huffman_lengths(freq, limit: int) -> list:
+    """Huffman code lengths of ``freq`` no longer than ``limit`` (the
+    counts halved until they fit); an alphabet of one used symbol gets
+    length 1 for it alone."""
+    import heapq
+
+    freq = [int(f) for f in freq]
+    while True:
+        used = [i for i, f in enumerate(freq) if f > 0]
+        lengths = [0] * len(freq)
+        if len(used) <= 1:
+            for i in used:
+                lengths[i] = 1
+            return lengths
+        heap = [(freq[i], k, [i]) for k, i in enumerate(used)]
+        heapq.heapify(heap)
+        k = len(heap)
+        while len(heap) > 1:
+            f1, _, s1 = heapq.heappop(heap)
+            f2, _, s2 = heapq.heappop(heap)
+            for i in s1 + s2:
+                lengths[i] += 1
+            heapq.heappush(heap, (f1 + f2, k, s1 + s2))
+            k += 1
+        if max(lengths) <= limit:
+            return lengths
+        freq = [(f + 1) >> 1 if f else 0 for f in freq]
+
+
+def canonical(lengths) -> list:
+    """Canonical prefix codes of ``lengths``, by (length, symbol)."""
+    codes, code = [0] * len(lengths), 0
+    for ln in range(1, 16):
+        for s, L in enumerate(lengths):
+            if L == ln:
+                codes[s] = code
+                code += 1
+        code <<= 1
+    return codes
+
+
+_VP8L_CL_ORDER = [17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15]
+
+
+def _vp8l_code(bw: _Bits, lengths):
+    """A normal (length-coded) VP8L prefix code of ``lengths``."""
+    cl = huffman_lengths(np.bincount(lengths, minlength=19), 7)
+    if sum(1 for v in cl if v) == 1:  # one code length used: a two-entry code
+        cl[next(i for i, v in enumerate(cl) if v == 0 and i != lengths[0])] = 1
+    clc = canonical(cl)
+    bw.put(0, 1)
+    bw.put(19 - 4, 4)
+    for s in _VP8L_CL_ORDER:
+        bw.put(cl[s], 3)
+    bw.put(0, 1)  # max_symbol = the alphabet
+    for L in lengths:
+        bw.code(clc[L], cl[L])
+
+
+def encode_vp8l_gray(gray) -> bytes:
+    """A lossless WebP of 8-bit gray pixels: the subtract-green transform
+    (red and blue become 0), one Huffman group, green coded with Huffman
+    lengths from its histogram, red, blue, alpha and distance single-symbol
+    codes; no LZ77, no colour cache. numpy only."""
+    g = np.asarray(gray, np.uint8)
+    H, W = g.shape
+    bw = _Bits()
+    bw.put(0x2F, 8)
+    bw.put(W - 1, 14)
+    bw.put(H - 1, 14)
+    bw.put(0, 1)
+    bw.put(0, 3)
+    bw.put(1, 1)
+    bw.put(2, 2)  # subtract green
+    bw.put(0, 1)  # no more transforms
+    bw.put(0, 1)  # no colour cache
+    bw.put(0, 1)  # no meta prefix codes
+    freq = np.bincount(g.ravel(), minlength=256)
+    lengths = huffman_lengths(list(freq) + [0] * 24, 15)
+    if sum(1 for v in lengths if v) == 1:  # a flat image: a simple one-symbol code
+        bw.put(1, 1), bw.put(0, 1), bw.put(1, 1), bw.put(int(g.flat[0]), 8)
+        codes = lengths = [0] * 280
+    else:
+        _vp8l_code(bw, lengths)
+        codes = canonical(lengths)
+    for symbol in (0, 0, 255, 0):  # red, blue, alpha, distance
+        bw.put(1, 1), bw.put(0, 1), bw.put(1, 1), bw.put(symbol, 8)
+    rev = _reverse_bits(codes[:256], lengths[:256])
+    bw.put_many(rev[g.ravel()], np.asarray(lengths[:256])[g.ravel()])
+    return riff_webp(riff_chunk(b"VP8L", bw.bytes()))
+
+
+def libwebp():
+    """Pillow's bundled libwebp through ctypes (its encoder's every
+    option), or None where this Pillow bundles none."""
+    import ctypes
+    import glob
+
+    import PIL
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+    found = {k: glob.glob(os.path.join(libs, f"lib{k}-*.so*")) for k in ("sharpyuv", "webp")}
+    if not found["webp"]:
+        return None
+    for path in found["sharpyuv"]:
+        ctypes.CDLL(path, mode=ctypes.RTLD_GLOBAL)
+    return ctypes.CDLL(found["webp"][0])
+
+
+def libwebp_encode(lib, rgb, **config) -> bytes:
+    """A WebP of (H, W, 3) RGB or (H, W, 4) RGBA ``rgb`` through libwebp's
+    WebPEncode with the WebPConfig fields given (e.g. filter_type 0 for the
+    simple filter, filter_sharpness, partitions (which libwebp honours at
+    method ≤ 2 or with low_memory), segments, filter_strength,
+    alpha_compression 0 for raw alpha, alpha_filtering)."""
+    import ctypes
+
+    c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    fields = ["lossless", "quality", "method", "image_hint", "target_size", "target_PSNR",
+              "segments", "sns_strength", "filter_strength", "filter_sharpness", "filter_type",
+              "autofilter", "alpha_compression", "alpha_filtering", "alpha_quality", "pass",
+              "show_compressed", "preprocessing", "partitions", "partition_limit",
+              "emulate_jpeg_size", "thread_level", "low_memory", "near_lossless", "exact",
+              "use_delta_palette", "use_sharp_yuv", "qmin", "qmax"]
+
+    class Config(ctypes.Structure):
+        _fields_ = [(f, c_float if f in ("quality", "target_PSNR") else c_int) for f in fields]
+
+    class Picture(ctypes.Structure):
+        _fields_ = [("use_argb", c_int), ("colorspace", c_int), ("width", c_int),
+                    ("height", c_int), ("y", c_ptr), ("u", c_ptr), ("v", c_ptr),
+                    ("y_stride", c_int), ("uv_stride", c_int), ("a", c_ptr), ("a_stride", c_int),
+                    ("pad1", ctypes.c_uint32 * 2), ("argb", c_ptr), ("argb_stride", c_int),
+                    ("pad2", ctypes.c_uint32 * 3), ("writer", c_ptr), ("custom_ptr", c_ptr),
+                    ("extra_info_type", c_int), ("extra_info", c_ptr), ("stats", c_ptr),
+                    ("error_code", c_int), ("progress_hook", c_ptr), ("user_data", c_ptr),
+                    ("pad3", ctypes.c_uint32 * 3), ("pad4", c_ptr), ("pad5", c_ptr),
+                    ("pad6", ctypes.c_uint32 * 8), ("memory_", c_ptr), ("memory_argb_", c_ptr),
+                    ("pad7", c_ptr * 2)]
+
+    class Writer(ctypes.Structure):
+        _fields_ = [("mem", c_ptr), ("size", ctypes.c_size_t), ("max_size", ctypes.c_size_t),
+                    ("pad", ctypes.c_uint32)]
+
+    abi = 0x020F
+    cfg, pic, out = Config(), Picture(), Writer()
+    assert lib.WebPConfigInitInternal(ctypes.byref(cfg), 0, c_float(75.0), abi)
+    for k, v in config.items():
+        setattr(cfg, k, v)
+    assert lib.WebPValidateConfig(ctypes.byref(cfg)), config
+    assert lib.WebPPictureInitInternal(ctypes.byref(pic), abi)
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    pic.height, pic.width = rgb.shape[:2]
+    channels = rgb.shape[2]
+    importer = lib.WebPPictureImportRGBA if channels == 4 else lib.WebPPictureImportRGB
+    assert importer(ctypes.byref(pic), rgb.ctypes.data_as(c_ptr), rgb.shape[1] * channels)
+    lib.WebPMemoryWriterInit(ctypes.byref(out))
+    pic.writer = ctypes.cast(lib.WebPMemoryWrite, c_ptr).value
+    pic.custom_ptr = ctypes.addressof(out)
+    try:
+        assert lib.WebPEncode(ctypes.byref(cfg), ctypes.byref(pic)), pic.error_code
+        return ctypes.string_at(out.mem, out.size)
+    finally:
+        lib.WebPPictureFree(ctypes.byref(pic))
+        lib.WebPMemoryWriterClear(ctypes.byref(out))
+
+
 def small_files(seed: int) -> dict:
     """name → (bytes, kind) of every small fixture."""
     from PIL import Image
@@ -1488,6 +1877,7 @@ def small_files(seed: int) -> dict:
     files["p4.pbm"] = (encode_pnm("P4", bits[:, :61]), "P4 binary bitmap (61 columns)")
     files["p1.pbm"] = (encode_pnm("P1", bits), "P1 plain bitmap")
     files.update(tiff_bmp_pfm_files(seed))
+    files.update(gif_webp_files(seed))
     files.update(unported_files(seed))
     return files
 
@@ -1677,6 +2067,123 @@ def tiff_bmp_pfm_files(seed: int) -> dict:
     return files
 
 
+def gif_webp_files(seed: int) -> dict:
+    """name → (bytes, kind[, manifest extras]) of the GIF and WebP
+    fixtures: PIL's writer, this file's GIF encoder for the kinds PIL never
+    writes, libwebp's own encoder for the VP8 options PIL cannot reach
+    (where this Pillow bundles libwebp), hand-built animations and the
+    kinds PIL refuses."""
+    from PIL import Image
+
+    h, w = H_SMALL, W_SMALL
+    g = scene(h, w, seed + 40)
+    rgb = scene(h, w, seed + 41, 3)
+    rgba = np.dstack([rgb, scene(h, w, seed + 42)])
+    im, imc, ima = Image.fromarray(g), Image.fromarray(rgb), Image.fromarray(rgba, "RGBA")
+    rng = np.random.default_rng(seed + 43)
+    idx = rng.integers(0, 16, (h, w))
+    pal = rng.integers(0, 256, (16, 3))
+    ident = np.stack([np.arange(16)] * 3, 1)
+    frames = [Image.fromarray(scene(h, w, seed + 44 + k, 3)) for k in range(3)]
+
+    def refused(data, kind, word):
+        return data, kind, {"refused": True, "refusal": word}
+
+    files = {
+        "gif.gif": (_pil_save(im, "GIF"), "GIF (PIL), gray"),
+        "gif_quantized.gif": (_pil_save(imc.quantize(200), "GIF"), "GIF (PIL), 200 colours"),
+        "gif_interlaced.gif": (_pil_save(imc.quantize(7), "GIF", interlace=True),
+                               "GIF (PIL), interlaced, 7 colours"),
+        "gif_transparent.gif": (_pil_save(imc.quantize(3), "GIF", transparency=1),
+                                "GIF (PIL), transparency index, 3 colours"),
+        "gif_animated.gif": (_pil_save(frames[0].quantize(64), "GIF", save_all=True,
+                                       append_images=[f.quantize(64) for f in frames[1:]]),
+                             "GIF (PIL), animated: frame 0"),
+        "gif_identity_global.gif": (encode_gif(idx, palette=ident), "GIF, identity global palette (L)"),
+        "gif_identity_local.gif": (encode_gif(idx, palette=pal, local_palette=ident),
+                                   "GIF, identity local palette over a global one (L)"),
+        "gif_local_palette.gif": (encode_gif(idx, palette=ident, local_palette=pal[::-1]),
+                                  "GIF, a local palette over an identity global one"),
+        "gif_offset_fill.gif": (encode_gif(idx[:9, :11], screen=(w, h), offset=(5, 7), palette=pal,
+                                           transparency=3),
+                                "GIF, frame 0 inside the screen, transparency fill"),
+        "gif_past_screen.gif": (encode_gif(idx, screen=(20, 10), offset=(6, 4), palette=pal,
+                                           interlace=True),
+                                "GIF, frame 0 past the screen, interlaced"),
+        "gif_code2_no_end.gif": (encode_gif(idx % 4, palette=pal[:4], code_size=2, end_code=False),
+                                 "GIF, code size 2, no End code"),
+        "gif_code8_short_palette.gif": (encode_gif(idx, palette=pal[:4], code_size=8),
+                                        "GIF, code size 8, indices past a 4-entry palette"),
+        "gif_extensions.gif": (encode_gif(idx, palette=pal, stray=b"\x07",
+                                          extensions=[(254, [b"comment", b"more"]),
+                                                      (255, [b"NETSCAPE2.0", b"\x01\x00\x00"]),
+                                                      (1, b"plain text")]),
+                               "GIF, blocks before the image: comment, NETSCAPE, plain text, a stray byte"),
+        "gif_code13.gif": refused(encode_gif(idx, palette=pal, code_size=13),
+                                  "GIF, LZW code size 13", "LZW minimum code size"),
+        "webp.webp": (_pil_save(imc, "WEBP", lossless=True), "WebP lossless (PIL)"),
+        "webp_lossless_alpha.webp": (_pil_save(ima, "WEBP", lossless=True, exact=True),
+                                     "WebP lossless RGBA, exact (PIL)"),
+        "webp_lossy.webp": (_pil_save(imc, "WEBP", quality=90), "WebP lossy, quality 90 (PIL)"),
+        "webp_lossy_gray_q0.webp": (_pil_save(im, "WEBP", quality=0, method=0),
+                                    "WebP lossy gray, quality 0, method 0 (PIL)"),
+        "webp_lossy_odd.webp": (_pil_save(Image.fromarray(scene(23, 37, seed + 47, 3)), "WEBP",
+                                          quality=60, method=6),
+                                "WebP lossy 37×23, method 6 (PIL)"),
+        "webp_lossy_alpha.webp": (_pil_save(ima, "WEBP", quality=75, alpha_quality=50),
+                                  "WebP lossy + ALPH (VP8L alpha), alpha quality 50 (PIL)"),
+        "webp_animated.webp": (_pil_save(frames[0], "WEBP", save_all=True,
+                                         append_images=frames[1:], quality=80),
+                               "WebP animated (PIL): frame 0"),
+        "webp_anim_offset.webp": (webp_animation((w + 10, h + 8), [
+            (_pil_save(imc, "WEBP", lossless=True), 6, 4),
+            (_pil_save(frames[1], "WEBP", quality=70), 0, 0)]),
+            "WebP animated, frame 0 (VP8L) at (6, 4) on a larger canvas"),
+        "webp_anim_offset_alpha.webp": (webp_animation((w + 4, h + 2), [
+            (_pil_save(ima, "WEBP", quality=70), 2, 2)], flags=0x12),
+            "WebP animated, frame 0 lossy + ALPH at (2, 2)"),
+        "webp_vp8l_writer.webp": (encode_vp8l_gray(g), "WebP VP8L gray (this file's writer)"),
+    }
+    # two single-bit flips PIL reads (found by flipping every bit of these
+    # files): a VP8 coefficient past an encoder's range, which libwebp's
+    # 16-bit SIMD transform wraps; a VP8L alpha plane read past its end,
+    # which libwebp's 8-bit alpha path accepts once every pixel is decoded
+    wrap = bytearray(_pil_save(Image.fromarray(scene(90, 120, 3, 3)), "WEBP", quality=40))
+    wrap[53] ^= 1 << 1
+    files["webp_coefficient_wrap.webp"] = (bytes(wrap), "WebP lossy, a coefficient past the "
+                                           "encoder's range (one bit flipped)")
+    past = bytearray(_pil_save(Image.fromarray(np.dstack([scene(60, 80, 7, 3), scene(60, 80, 8)]),
+                                               "RGBA"), "WEBP", quality=60, alpha_quality=30))
+    past[104] ^= 1 << 2
+    files["webp_alpha_past_end.webp"] = (bytes(past), "WebP lossy + ALPH read past its end "
+                                         "(one bit flipped)")
+    lossy = bytearray(files["webp_lossy.webp"][0])
+    lossy[20] |= 1  # the frame tag's key-frame bit: an inter frame
+    files["webp_interframe.webp"] = refused(bytes(lossy), "WebP VP8 inter frame", "VP8 frame")
+    lossless = bytearray(files["webp.webp"][0])
+    lossless[24] |= 0x20  # the VP8L version field
+    files["webp_vp8l_version1.webp"] = refused(bytes(lossless), "WebP VP8L version 1",
+                                               "VP8L header")
+    alpha = bytearray(files["webp_lossy_alpha.webp"][0])
+    alpha[alpha.index(b"ALPH") + 8] = 2  # compression method 2
+    files["webp_alph_method2.webp"] = refused(bytes(alpha), "WebP ALPH method 2", "ALPH chunk")
+    lib = libwebp()
+    if lib is not None:
+        for name, kind, cfg in (
+                ("webp_simple_filter", "simple loop filter, sharpness 3",
+                 dict(filter_type=0, filter_strength=80, filter_sharpness=3)),
+                ("webp_partitions8", "8 token partitions, sharpness 7",
+                 dict(partitions=3, low_memory=1, filter_sharpness=7)),
+                ("webp_one_segment_no_filter", "one segment, filter strength 0",
+                 dict(segments=1, filter_strength=0)),
+                ("webp_raw_alpha", "raw ALPH, gradient filter",
+                 dict(alpha_compression=0, alpha_filtering=2))):
+            files[name + ".webp"] = (libwebp_encode(lib, rgba if "alpha" in name else rgb,
+                                                    quality=70.0, **cfg),
+                                     f"WebP lossy (libwebp), {kind}")
+    return files
+
+
 def unported_files(seed: int) -> dict:
     """One small file of each format PIL identifies by a signature and the
     port does not read yet, PIL's writer where it has one; each refused
@@ -1700,8 +2207,6 @@ def unported_files(seed: int) -> dict:
            + struct.pack(">H", 0) + g.tobytes())
     sun = struct.pack(">8I", 0x59A66A95, w, h, 8, w * h, 1, 0, 0) + g.tobytes()
     return {
-        "gif.gif": (_pil_save(im, "GIF"), "GIF (PIL)", un("GIF")),
-        "webp.webp": (_pil_save(imc, "WEBP", lossless=True), "WebP lossless (PIL)", un("WebP")),
         "jp2.jp2": (_pil_save(im, "JPEG2000"), "JPEG 2000, JP2 box (PIL)", un("JPEG 2000")),
         "j2k.j2k": (_pil_save(im, "JPEG2000", no_jp2=True), "JPEG 2000 codestream (PIL)",
                     un("JPEG 2000")),
@@ -1754,6 +2259,7 @@ def _cmyk_to_ycck(cmyk):
 SEQ_FRAMES = 6
 SEQ_DIR = "seq_prog"
 BASELINE_DIR = "seq_baseline"  # the sequence's first pair as baseline JPEGs (decode timing)
+WEBP_DIR = "seq_webp"  # the sequence's first pair as lossy WebPs, quality 90 (decode timing)
 SEQ_NS0 = 1_403_636_579_763_555_584
 
 
@@ -1763,7 +2269,8 @@ def sequence_files() -> dict:
     renderer, EuRoC's 752×480 camera) written by PIL as progressive JPEGs,
     ``cam0/data.csv`` and the ground truth (``INIT_POSE`` times the
     rendered camera poses, as ``chip_smoke._write_tree`` writes it); and
-    the first pair again as baseline JPEGs under ``BASELINE_DIR``."""
+    the first pair again as baseline JPEGs under ``BASELINE_DIR`` and as
+    lossy WebPs at quality 90 under ``WEBP_DIR``."""
     from PIL import Image
 
     sys.path.insert(0, os.path.dirname(HERE))
@@ -1791,6 +2298,10 @@ def sequence_files() -> dict:
                 u8.save(buf, "JPEG", quality=85)
                 files[f"{BASELINE_DIR}/{cam_dir}.jpg"] = (buf.getvalue(),
                                                            "baseline gray (PIL), 752×480")
+                buf = io.BytesIO()
+                u8.save(buf, "WEBP", quality=90)
+                files[f"{WEBP_DIR}/{cam_dir}.webp"] = (buf.getvalue(),
+                                                        "lossy gray, quality 90 (PIL), 752×480")
     gt = np.einsum("ij,njk->nik", INIT_POSE, traj)
     text = {f"{seq}/cam0/data.csv": "#timestamp [ns],filename\n"
             + "".join(f"{ns},{ns}.jpg\n" for ns in names),
