@@ -3890,6 +3890,48 @@ def _write_tiff(job) -> None:
         f.write(data)
 
 
+# pairs of the timing-only TIFF codecs (YCbCr LZW, old-style JPEG) that
+# image_kinds writes; its (d) writes whole JPEG-in-TIFF and Group 4 trees
+TIFF_CODEC_TIMING_PAIRS = 4
+
+
+def _write_tiff_codec(job) -> None:
+    """One frame as a TIFF of a libtiff codec (the encoders are Python:
+    image_kinds runs these in a process pool), and, where ``png_path`` is
+    given, the pixels PIL decodes from it as an 8-bit PNG there:
+
+    - "jpeg_ycc420": YCbCr 4:2:0 new-style JPEG, 16-row strips, one
+      JPEGTables stream of the quantization and Huffman tables (PNG: the
+      port's decode of it; the fixture ``tiff_jpeg_ycc420.tif`` of this
+      layout pins PIL's hash);
+    - "ccitt_g4": the frame dithered as PIL's ``convert("1")`` dithers it,
+      as one Group 4 strip (PNG: the dithered pixels, which PIL reads
+      back);
+    - "ycbcr22_lzw": YCbCr 2×2 under LZW, 16-row strips (libtiff's RGBA
+      interface);
+    - "ojpeg22": old-style JPEG 4:2:0 from JPEGQ/DC/ACTables, 16-row strips
+      of one restart interval each."""
+    from rspl_slam_tpu_torch import png
+
+    path, kind, u8, png_path = job
+    mk = _image_kinds_encoders()
+    ycc = mk.rgb_to_ycbcr(np.dstack([u8] * 3))
+    if kind == "jpeg_ycc420":
+        data = mk.encode_tiff_jpeg(ycc, 6, (2, 2), "all", rows_per_strip=16)
+    elif kind == "ccitt_g4":
+        bits = mk.pil_dither(u8)
+        data = mk.encode_tiff_fax(bits, 4, 1)
+    elif kind == "ycbcr22_lzw":
+        data = mk.encode_tiff_ycbcr(ycc, 2, 2, 5, rows_per_strip=16)
+    else:
+        data = mk.encode_tiff_ojpeg(ycc, 2, 2, rows_per_strip=16)
+    with open(path, "wb") as f:
+        f.write(data)
+    if png_path is not None:
+        png.write_png(png_path, np.where(bits, 255, 0).astype(np.uint8) if kind == "ccitt_g4"
+                      else png.read_gray(path))
+
+
 def _write_gif_or_vp8l(job) -> None:
     """One frame as a GIF with an identity palette (PIL reads it as mode L,
     the indices as grey levels) or as a lossless WebP from the fixtures'
@@ -3987,9 +4029,18 @@ def phase_image_kinds(ctx, cli_line):
     the serve route's frames are the native route's; the algorithm file
     holds the weight paths, which ``serve`` takes from it, and makes every
     frame a keyframe, so the trajectories compared hold every pose);
+    (d) the frames as YCbCr 4:2:0 JPEG-in-TIFF (16-row strips, one
+    JPEGTables stream) through ``cli run`` (native), and dithered as PIL's
+    ``convert("1")`` dithers them as Group 4 TIFF through ``cli run
+    --no-native``, each against a PNG tree of the pixels PIL decodes from
+    them (the dithered pixels; the port's decode of the JPEG-in-TIFFs,
+    whose layout the fixture ``tiff_jpeg_ycc420.tif`` ties to PIL's hash)
+    on the same route, trajectories, keyframes and launches equal (the
+    four runs beside (c)'s);
     then decode ms per 752×480 pair, progressive against baseline JPEG,
     16-bit P5 against 8-bit PNG, and TIFF (uncompressed, LZW with predictor
-    2, Deflate, 16-bit LZW with predictor 2), 8-bit BMP, GIF, VP8L WebP and
+    2, Deflate, 16-bit LZW with predictor 2, the JPEG-in-TIFF and Group 4
+    trees, YCbCr 2×2 LZW and old-style JPEG), 8-bit BMP, GIF, VP8L WebP and
     the committed lossy WebP pair (quality 90) against 8-bit PNG, in
     turns."""
     from concurrent.futures import ProcessPoolExecutor
@@ -4047,18 +4098,25 @@ def phase_image_kinds(ctx, cli_line):
     # gate)
     trees = {kind: os.path.join(work, f"tree_{kind}")
              for kind in ("P5", "P2", "TIFF16", "BMP8", "GIF", "VP8L")}
+    # (d) the libtiff codecs' trees and their PNG copies, and the first
+    # pairs of the timing-only codecs
+    codec_trees = {k: os.path.join(work, f"tree_{k}")
+                   for k in ("jpeg_ycc420", "jpeg_ycc420_png", "ccitt_g4", "ccitt_g4_png")}
+    codec_timing = {k: os.path.join(work, f"timing_{k}") for k in ("ycbcr22_lzw", "ojpeg22")}
     # the other TIFF kinds: the first pairs only, for the decode timing
     timing_trees = {k: os.path.join(work, f"timing_{k}") for k in TIFF_KINDS
                     if k != "tiff_16bit_lzw_pred2"}
     names = sorted(os.listdir(os.path.join(ctx["tree"], "mav0", "cam0", "data")))
     timing_stems = {os.path.splitext(nm)[0] for nm in names[:DECODE_TIMING_PAIRS]}
-    for root in timing_trees.values():
+    codec_stems = {os.path.splitext(nm)[0] for nm in names[:TIFF_CODEC_TIMING_PAIRS]}
+    for root in (*timing_trees.values(), *codec_timing.values()):
         for cam in ("cam0", "cam1"):
             os.makedirs(os.path.join(root, "mav0", cam, "data"))
     t0 = time.perf_counter()
+    # the pool writes (d)'s trees while (b)'s CLI processes run
     with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
                              mp_context=multiprocessing.get_context("spawn")) as pool:
-        tiff_jobs = []
+        tiff_jobs, codec_args = [], []
 
         def write_gif_or_vp8l(path, u8):
             tiff_jobs.append(pool.submit(_write_gif_or_vp8l, (path, u8)))
@@ -4070,34 +4128,69 @@ def phase_image_kinds(ctx, cli_line):
                 for k, root in timing_trees.items():
                     tiff_jobs.append(pool.submit(_write_tiff, (
                         os.path.join(root, "mav0", cam, "data", stem + ".tif"), k, u8)))
+            # (d)'s jobs go in after every other one, to run beside (b)'s CLI
+            for k in ("jpeg_ycc420", "ccitt_g4"):
+                copy = os.path.join(codec_trees[k + "_png"], "mav0", cam, "data", stem + ".png")
+                codec_args.append((os.path.join(codec_trees[k], "mav0", cam, "data",
+                                                stem + ".tif"), k, u8, copy))
+            if stem in codec_stems:
+                for k, root in codec_timing.items():
+                    codec_args.append((os.path.join(root, "mav0", cam, "data", stem + ".tif"),
+                                       k, u8, None))
+
+        def written_in_the_pool(path, u8):
+            pass
 
         _rewrite_tree(ctx["tree"], {
             **{trees[k]: (".pgm", lambda p, u8, k=k: _write_pgm(p, u8, k))
                for k in ("P5", "P2")},
             trees["TIFF16"]: (".tif", write_tiffs), trees["BMP8"]: (".bmp", _write_bmp),
-            trees["GIF"]: (".gif", write_gif_or_vp8l), trees["VP8L"]: (".webp", write_gif_or_vp8l)})
+            trees["GIF"]: (".gif", write_gif_or_vp8l), trees["VP8L"]: (".webp", write_gif_or_vp8l),
+            **{root: (".png" if k.endswith("_png") else ".tif", written_in_the_pool)
+               for k, root in codec_trees.items()}})
+        codec_jobs = [pool.submit(_write_tiff_codec, a) for a in codec_args]
+        del codec_args
         for job in tiff_jobs:
             job.result()
-    trees_write_s = time.perf_counter() - t0
-    routes = {"P5": (), "P2": ("--no-native",), "TIFF16": (), "BMP8": ("--no-native",),
-              "GIF": (), "VP8L": ("--no-native",)}
-    t0 = time.perf_counter()
-    outs = _cli_concurrent(*[("run", "--dataroot", trees[k], "--config", ctx["euroc"],
-                              "--camera-config", ctx["cam_yaml"], *weights, "--gt", trees[k],
-                              "--traj-path", os.path.join(work, f"traj_{k}.txt"), *routes[k])
-                             for k in trees])
-    trees_wall = time.perf_counter() - t0
-    tree_runs = {}
-    for kind, out in zip(trees, outs):
-        with open(os.path.join(work, f"traj_{kind}.txt")) as f:
-            text = f.read()
-        with open(os.path.join(cw, "traj_no_native.txt" if routes[kind] else "traj.txt")) as f:
-            ref = f.read()
-        ref_launches = cli_line["launches_no_native" if routes[kind] else "launches"]
-        tree_runs[kind] = {"route": "no_native" if routes[kind] else "native",
-                           **_cli_result(out), "trajectory_equal_png": text == ref,
-                           "keyframes": len(text.splitlines())}
-        tree_runs[kind]["launches_equal_png"] = tree_runs[kind]["launches"] == ref_launches
+        trees_write_s = time.perf_counter() - t0
+        routes = {"P5": (), "P2": ("--no-native",), "TIFF16": (), "BMP8": ("--no-native",),
+                  "GIF": (), "VP8L": ("--no-native",)}
+        t0 = time.perf_counter()
+        outs = _cli_concurrent(*[("run", "--dataroot", trees[k], "--config", ctx["euroc"],
+                                  "--camera-config", ctx["cam_yaml"], *weights, "--gt", trees[k],
+                                  "--traj-path", os.path.join(work, f"traj_{k}.txt"), *routes[k])
+                                 for k in trees])
+        trees_wall = time.perf_counter() - t0
+        tree_runs = {}
+        for kind, out in zip(trees, outs):
+            with open(os.path.join(work, f"traj_{kind}.txt")) as f:
+                text = f.read()
+            with open(os.path.join(cw, "traj_no_native.txt" if routes[kind] else "traj.txt")) as f:
+                ref = f.read()
+            ref_launches = cli_line["launches_no_native" if routes[kind] else "launches"]
+            tree_runs[kind] = {"route": "no_native" if routes[kind] else "native",
+                               **_cli_result(out), "trajectory_equal_png": text == ref,
+                               "keyframes": len(text.splitlines())}
+            tree_runs[kind]["launches_equal_png"] = tree_runs[kind]["launches"] == ref_launches
+
+        t0 = time.perf_counter()
+        for job in codec_jobs:
+            job.result()
+        codec_write_wait_s = time.perf_counter() - t0
+    # (d)'s frames: each TIFF's decode against its PNG copy (for Group 4
+    # the dithered pixels PIL reads back; for JPEG the port's decode,
+    # written by another process)
+    codec_frames_equal = {}
+    for k in ("jpeg_ycc420", "ccitt_g4"):
+        same = 0
+        for cam in ("cam0", "cam1"):
+            data_dir = os.path.join(codec_trees[k], "mav0", cam, "data")
+            for nm in sorted(os.listdir(data_dir)):
+                copy = os.path.join(codec_trees[k + "_png"], "mav0", cam, "data",
+                                    os.path.splitext(nm)[0] + ".png")
+                same += bool(np.array_equal(png.read_gray(os.path.join(data_dir, nm)),
+                                            png.read_gray(copy)))
+        codec_frames_equal[k] = same
 
     # (c) the progressive sequence, its PNG copies, and serve
     seq = os.path.join(IMAGE_KINDS, IMAGE_KINDS_SEQ)
@@ -4117,12 +4210,17 @@ def phase_image_kinds(ctx, cli_line):
         shutil.copytree(os.path.join(seq, "mav0", cam, "data"), os.path.join(watch, cam, "data"))
     open(os.path.join(watch, "stop"), "w").close()
     traj = {k: os.path.join(work, f"traj_seq_{k}.txt") for k in ("jpeg", "png_copies", "serve")}
+    codec_routes = {"jpeg_ycc420": (), "jpeg_ycc420_png": (), "ccitt_g4": ("--no-native",),
+                    "ccitt_g4_png": ("--no-native",)}
     t0 = time.perf_counter()
     outs = _cli_concurrent(
         *[("run", "--dataroot", root, "--config", seq_yaml, "--gt", root, "--traj-path", traj[k])
           for k, root in (("jpeg", seq), ("png_copies", copies))],
         ("serve", "--watch-dir", watch, "--config", seq_yaml, "--traj-path", traj["serve"],
-         "--idle-timeout", "120"))
+         "--idle-timeout", "120"),
+        *[("run", "--dataroot", codec_trees[k], "--config", ctx["euroc"], "--camera-config",
+           ctx["cam_yaml"], *weights, "--gt", codec_trees[k], "--traj-path",
+           os.path.join(work, f"traj_{k}.txt"), *codec_routes[k]) for k in codec_routes])
     seq_wall = time.perf_counter() - t0
     runs = {}
     for k, out in zip(traj, outs):
@@ -4130,6 +4228,21 @@ def phase_image_kinds(ctx, cli_line):
             ate = re.search(r"^ATE: (.*)$", out, re.M)
             runs[k] = {**_cli_result(out), "text": f.read(),
                        "ate": json.loads(ate.group(1)) if ate else None}
+    codec_runs = {}
+    for k, out in zip(codec_routes, outs[len(traj):]):
+        with open(os.path.join(work, f"traj_{k}.txt")) as f:
+            codec_runs[k] = {**_cli_result(out), "text": f.read()}
+    codec_line = {}
+    for k in ("jpeg_ycc420", "ccitt_g4"):
+        r, c = codec_runs[k], codec_runs[k + "_png"]
+        codec_line[k] = {"route": "no_native" if codec_routes[k] else "native",
+                         "frames": r["frames"], "keyframes": len(r["text"].splitlines()),
+                         "frames_decoded_equal_png_copies": codec_frames_equal[k],
+                         "launches": r["launches"],
+                         "trajectory_equal_png_copies": r["text"] == c["text"],
+                         "keyframes_equal_png_copies":
+                             len(r["text"].splitlines()) == len(c["text"].splitlines()),
+                         "launches_equal_png_copies": r["launches"] == c["launches"]}
 
     # decode ms per 752×480 pair, in turns
     base = os.path.join(IMAGE_KINDS, IMAGE_KINDS_BASELINE)
@@ -4162,7 +4275,11 @@ def phase_image_kinds(ctx, cli_line):
                "webp_vp8l": tree_pairs(trees["VP8L"], DECODE_TIMING_PAIRS),
                "webp_lossy_q90": [with_size(os.path.join(IMAGE_KINDS, IMAGE_KINDS_WEBP, "cam0.webp"),
                                             os.path.join(IMAGE_KINDS, IMAGE_KINDS_WEBP,
-                                                         "cam1.webp"))]}
+                                                         "cam1.webp"))],
+               "tiff_jpeg_ycc420": tree_pairs(codec_trees["jpeg_ycc420"], DECODE_TIMING_PAIRS),
+               "tiff_ccitt_g4": tree_pairs(codec_trees["ccitt_g4"], DECODE_TIMING_PAIRS),
+               **{f"tiff_{k}": tree_pairs(root, TIFF_CODEC_TIMING_PAIRS)
+                  for k, root in codec_timing.items()}}
     tb_timing = {k: [] for k in tb_sets}
     for k in list(tb_sets) + list(tb_sets)[::-1]:
         tb_timing[k].append(_decode_pair_ms(tb_sets[k], 20 if len(tb_sets[k]) == 1 else 2))
@@ -4171,7 +4288,8 @@ def phase_image_kinds(ctx, cli_line):
     line = {"phase": "image_kinds", "card": CARD, "fixtures": len(manifest),
             "fixtures_hash_equal_pil": hashes_ok, "refused_raise": refused_ok,
             "fixture_faults": bad, "trees": tree_runs, "trees_write_s": trees_write_s,
-            "trees_cli_wall_s": trees_wall,
+            "trees_cli_wall_s": trees_wall, "libtiff_codec_trees": codec_line,
+            "libtiff_codec_write_wait_s": codec_write_wait_s,
             "sequence": {"frames": runs["jpeg"]["frames"], "image": [752, 480],
                          "keyframes": len(runs["jpeg"]["text"].splitlines()),
                          "ate": runs["jpeg"]["ate"], "launches": jl,
@@ -4194,6 +4312,15 @@ def phase_image_kinds(ctx, cli_line):
         if r["frames"] != E2E_FRAMES or not r["trajectory_equal_png"] or not r["launches_equal_png"]:
             raise AssertionError(f"image_kinds: the {kind} tree's {r['route']} run differs from "
                                  f"cli_run's PNG run: {r}")
+    for kind, r in codec_line.items():
+        if r["frames"] != E2E_FRAMES or r["frames_decoded_equal_png_copies"] != 2 * E2E_FRAMES \
+                or not r["trajectory_equal_png_copies"] \
+                or not r["keyframes_equal_png_copies"] or not r["launches_equal_png_copies"]:
+            raise AssertionError(f"image_kinds: the {kind} tree's {r['route']} run differs from "
+                                 f"its PNG copies': {r}")
+        for k in ("conv_stem", "conv_stem_side", "superglue_layer", "sinkhorn"):
+            if r["launches"][k] <= 0:
+                raise AssertionError(f"image_kinds: kernel {k} never launched on the {kind} tree")
     seq_line = line["sequence"]
     if runs["jpeg"]["frames"] != IMAGE_KINDS_SEQ_FRAMES \
             or not seq_line["trajectory_equal_png_copies"] \

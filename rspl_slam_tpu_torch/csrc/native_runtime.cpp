@@ -55,8 +55,8 @@ enum Err {
   // read.
   kPrecision = 5, kHierarchical = 6, kDNL = 7, kFractional = 8, kLosslessColour = 9,
   kArithLossless = 10, kComponents = 11, kMcuSize = 12, kPnmKind = 13,
-  kTiffJpeg = 14, kTiffCcitt = 15, kTiffLzma = 16, kTiffZstd = 17, kTiffWebp = 18,
-  kTiffSgiLog = 19, kTiffThunderScan = 20, kTiffYCbCr = 21, kTiffMode = 22, kTiffLab = 23,
+  kTiffJpeg = 14, kTiffOjpeg = 15, kTiffLzma = 16, kTiffZstd = 17, kTiffWebp = 18,
+  kTiffSgiLog = 19, kTiffThunderScan = 20, kTiffMode = 22, kTiffLab = 23,
   kTiffRawMode = 24, kBmpHeader = 25, kBmpDepth = 26, kBmpCompression = 27,
   kBmpBitfields = 28, kBmpPalette = 29, kBmpRle = 30,
   kJpeg2000 = 33, kIco = 34, kCur = 35, kQoi = 36, kPsd = 37,
@@ -708,6 +708,10 @@ const uint8_t kZigzag[64 + 16] = {
 
 struct JHuff {
   bool present = false;
+  // jdhuff.c's jpeg_make_d_derived_tbl refuses the table when a scan uses
+  // it: a code of all ones, or more codes of a length than it holds
+  bool bogus = false;
+  int nvals = 0;
   uint8_t vals[256];
   int32_t maxcode[18];  // largest code of each length, -1 if none
   int32_t valptr[17];   // index of its first symbol minus its first code
@@ -715,22 +719,32 @@ struct JHuff {
 
   bool build(const uint8_t* counts, const uint8_t* v, int nv) {
     std::memcpy(vals, v, nv);
+    nvals = nv;
     std::memset(fast, 0, sizeof(fast));
+    bogus = false;
     int code = 0, k = 0;
     for (int l = 1; l <= 16; ++l) {
       valptr[l] = k - code;
       for (int i = 0; i < counts[l - 1]; ++i, ++code, ++k) {
-        if (l <= 9) {
+        if (l <= 9 && code < (1 << l)) {
           const int sh = 9 - l;
           for (int f = code << sh; f < ((code + 1) << sh); ++f) fast[f] = (uint16_t)((l << 8) | vals[k]);
         }
       }
       maxcode[l] = counts[l - 1] ? code - 1 : -1;
       if (code > (1 << l)) return false;
+      if (counts[l - 1] && code >= (1 << l)) bogus = true;
       code <<= 1;
     }
     maxcode[17] = 0x7fffffff;
     present = true;
+    return true;
+  }
+  // the table as a DC table of a lossy (lossless) scan: symbols 0-15 (0-16)
+  bool dc_ok(bool lossless) const {
+    if (bogus) return false;
+    for (int i = 0; i < nvals; ++i)
+      if (vals[i] > (lossless ? 16 : 15)) return false;
     return true;
   }
 };
@@ -1220,6 +1234,32 @@ struct Smoother {
   }
 };
 
+// jdcolor.c's build_ycc_rgb_table and ycc_rgb_convert
+struct YccTable {
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  YccTable() {
+    for (int i = 0; i < 256; ++i) {
+      const int64_t x = i - 128;
+      cr_r[i] = (int)((91881 * x + 32768) >> 16);
+      cb_b[i] = (int)((116130 * x + 32768) >> 16);
+      cr_g[i] = -46802 * x;
+      cb_g[i] = -22554 * x + 32768;
+    }
+  }
+  static int clamp(int v) { return v < 0 ? 0 : v > 255 ? 255 : v; }
+  void rgb(int y, int cb, int cr, int& r, int& g, int& b) const {
+    r = clamp(y + cr_r[cr]);
+    g = clamp(y + (int)((cb_g[cb] + cr_g[cr]) >> 16));
+    b = clamp(y + cb_b[cb]);
+  }
+};
+
+const YccTable& ycc_table() {
+  static const YccTable table;
+  return table;
+}
+
 struct JpegDecoder {
   const uint8_t* d;
   size_t n, pos = 0;
@@ -1236,6 +1276,9 @@ struct JpegDecoder {
   int adobe_transform = -1;
   // the arithmetic decoder's statistics (jdarith.c)
   uint8_t dc_stats[16][64], ac_stats[16][256], fixed_bin = 113;
+  // a strip or tile of a TIFF (libtiff's JPEG codecs): any 1-4 components,
+  // the colour space the caller's, a wrong precision libtiff's error
+  bool tiff = false;
 
   int u16(size_t p) const { return (d[p] << 8) | d[p + 1]; }
 
@@ -1253,8 +1296,10 @@ struct JpegDecoder {
     if (len < 8 + 3 * nc) return kCorrupt;
     // PIL's JpegImagePlugin refuses these at its own SOF: precision
     // other than 8 bits, and other component counts than 1, 3 or 4
-    if (precision != 8) return kPrecision;
-    if (nc != 1 && nc != 3 && nc != 4) return kComponents;
+    // (libtiff: "Improper JPEG data precision", "component count")
+    if (precision != 8) return tiff ? kCorrupt : kPrecision;
+    if (tiff ? (nc < 1 || nc > 4) : (nc != 1 && nc != 3 && nc != 4))
+      return tiff ? kCorrupt : kComponents;
     if (H == 0) return kDNL;  // libjpeg-turbo: "Empty JPEG image (DNL not supported)"
     if (W == 0) return kCorrupt;
     if (lossless && arith) return kArithLossless;
@@ -1566,8 +1611,9 @@ struct JpegDecoder {
         if (!dc[c->td].present && c->td < 2) dc[c->td].build(kStdCounts[c->td], kStdDcSymbols, 12);
         if (!ac[c->ta].present && c->ta < 2)
           ac[c->ta].build(kStdCounts[2 + c->ta], kStdAcSymbols[c->ta], 162);
-        if ((dc_scan || lossless) && !dc[c->td].present) return kCorrupt;
-        if (ac_scan && !lossless && !ac[c->ta].present) return kCorrupt;
+        if ((dc_scan || lossless) && !(dc[c->td].present && dc[c->td].dc_ok(lossless)))
+          return kCorrupt;  // "Bogus Huffman table definition"
+        if (ac_scan && !lossless && !(ac[c->ta].present && !ac[c->ta].bogus)) return kCorrupt;
       }
       if (!lossless && !c->latched) {  // jdinput.c's latch_quant_tables
         if (!qt_present[c->tq]) return kCorrupt;
@@ -1738,7 +1784,50 @@ struct JpegDecoder {
     return useful;
   }
 
+  // the DQT and DHT segments of an abbreviated tables-only stream (TIFF's
+  // JPEGTables, libjpeg's jpeg_read_header(FALSE)): they stay for the
+  // stream decoded next, whose own segments replace them
+  int load_tables(const uint8_t* t, size_t tn) {
+    if (tn < 4 || t[0] != 0xFF || t[1] != 0xD8) return kCorrupt;
+    JpegDecoder tab(t, tn);
+    size_t p = 2;
+    while (true) {
+      while (p < tn && t[p] != 0xFF) ++p;
+      while (p < tn && t[p] == 0xFF) ++p;
+      if (p >= tn) return kCorrupt;  // no EOI: "Bogus JPEGTables field"
+      const int m = t[p++];
+      if (m == 0xD9) break;
+      if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
+      if ((m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) || m == 0xDA)
+        return kCorrupt;  // a frame or scan: not tables only
+      if (p + 2 > tn) return kCorrupt;
+      const int len = (t[p] << 8) | t[p + 1];
+      if (len < 2 || p + len > tn) return kCorrupt;
+      int rc = kOk;
+      if (m == 0xC4) rc = tab.read_dht(p + 2, len);
+      else if (m == 0xDB) rc = tab.read_dqt(p + 2, len);
+      if (rc) return rc;
+      p += len;
+    }
+    for (int i = 0; i < 4; ++i) {
+      if (tab.qt_present[i]) {
+        std::memcpy(qt[i], tab.qt[i], sizeof(qt[i]));
+        qt_present[i] = true;
+      }
+      if (tab.dc[i].present) dc[i] = tab.dc[i];
+      if (tab.ac[i].present) ac[i] = tab.ac[i];
+    }
+    return kOk;
+  }
+
   int decode(std::vector<uint8_t>& gray) {
+    int rc = parse();
+    if (rc) return rc;
+    return to_gray(gray);
+  }
+
+  // the markers and scans: every component's coefficients (or differences)
+  int parse() {
     if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) return kCorrupt;
     for (int i = 0; i < 16; ++i) {
       arith_L[i] = 0;
@@ -1792,7 +1881,65 @@ struct JpegDecoder {
       pos += len;
     }
     if (!frame || !scanned) return kCorrupt;
+    return kOk;
+  }
 
+  // each component's samples at its own resolution (libjpeg's raw data):
+  // the IDCT of every allocated block (smoothed where libjpeg-turbo
+  // smooths), stride[ci] samples a row; lossless: the undifferenced samples
+  void component_planes(std::vector<std::vector<uint8_t>>& planes, std::vector<int>& strides) {
+    const size_t nc = comps.size();
+    planes.assign(nc, {});
+    strides.assign(nc, 0);
+    const bool smooth = smoothing_ok();
+    for (size_t ci = 0; ci < nc; ++ci) {
+      JComp& c = comps[ci];
+      std::vector<uint8_t>& plane = planes[ci];
+      if (lossless) {
+        strides[ci] = c.bw;
+        undifference(c, plane);
+        continue;
+      }
+      const int stride = strides[ci] = c.bw * 8;
+      plane.assign((size_t)stride * c.bh * 8, 0);
+      Smoother sm{c, c.v, mcuy, false, c.coef_bits};
+      if (smooth) {
+        const int* b = c.coef_bits;
+        sm.change_dc = true;
+        for (int k = 1; k < 10; ++k)
+          if (b[k] != -1) sm.change_dc = false;
+        const uint16_t* q = c.q;
+        sm.Q00 = q[0], sm.Q01 = q[1], sm.Q10 = q[8], sm.Q20 = q[16], sm.Q11 = q[9];
+        sm.Q02 = q[2], sm.Q03 = q[3], sm.Q12 = q[10], sm.Q21 = q[17], sm.Q30 = q[24];
+      }
+      int16_t work[64];
+      for (int by = 0; by < c.bh; ++by)
+        for (int bx = 0; bx < c.bw; ++bx) {
+          const int16_t* blk = c.coef.data() + ((size_t)by * c.bw + bx) * 64;
+          if (smooth && by < c.height_in_blocks && bx < c.width_in_blocks) {
+            std::memcpy(work, blk, sizeof(work));
+            sm.block(by, bx, work);
+            blk = work;
+          }
+          idct_islow(blk, c.q, plane.data() + (size_t)by * 8 * stride + bx * 8, stride);
+        }
+    }
+  }
+
+  // every component upsampled to W × H as jdsample.c does it
+  void full_planes(std::vector<std::vector<uint8_t>>& full) {
+    std::vector<std::vector<uint8_t>> planes;
+    std::vector<int> strides;
+    component_planes(planes, strides);
+    full.assign(comps.size(), {});
+    for (size_t ci = 0; ci < comps.size(); ++ci) {
+      const JComp& c = comps[ci];
+      upsample(c, planes[ci].data(), strides[ci], hmax / c.h, vmax / c.v, W, H, !lossless,
+               full[ci]);
+    }
+  }
+
+  int to_gray(std::vector<uint8_t>& gray) {
     // the colour space libjpeg-turbo assumes (jdapimin.c default_decompress_parms)
     const size_t nc = comps.size();
     enum { kGray, kYCbCr, kRGB, kCMYK, kYCCK } space = kGray;
@@ -1808,63 +1955,15 @@ struct JpegDecoder {
     // lossless mode converts no colour
     if (lossless && (space == kYCbCr || space == kYCCK)) return kLosslessColour;
 
-    std::vector<std::vector<uint8_t>> full(nc);
-    const bool smooth = smoothing_ok();
-    for (size_t ci = 0; ci < nc; ++ci) {
-      JComp& c = comps[ci];
-      std::vector<uint8_t> plane;
-      int stride;
-      if (lossless) {
-        stride = c.bw;
-        undifference(c, plane);
-      } else {
-        stride = c.bw * 8;
-        plane.assign((size_t)stride * c.bh * 8, 0);
-        Smoother sm{c, c.v, mcuy, false, c.coef_bits};
-        if (smooth) {
-          const int* b = c.coef_bits;
-          sm.change_dc = true;
-          for (int k = 1; k < 10; ++k)
-            if (b[k] != -1) sm.change_dc = false;
-          const uint16_t* q = c.q;
-          sm.Q00 = q[0], sm.Q01 = q[1], sm.Q10 = q[8], sm.Q20 = q[16], sm.Q11 = q[9];
-          sm.Q02 = q[2], sm.Q03 = q[3], sm.Q12 = q[10], sm.Q21 = q[17], sm.Q30 = q[24];
-        }
-        int16_t work[64];
-        for (int by = 0; by < c.bh; ++by)
-          for (int bx = 0; bx < c.bw; ++bx) {
-            const int16_t* blk = c.coef.data() + ((size_t)by * c.bw + bx) * 64;
-            if (smooth && by < c.height_in_blocks && bx < c.width_in_blocks) {
-              std::memcpy(work, blk, sizeof(work));
-              sm.block(by, bx, work);
-              blk = work;
-            }
-            idct_islow(blk, c.q, plane.data() + (size_t)by * 8 * stride + bx * 8, stride);
-          }
-      }
-      upsample(c, plane.data(), stride, hmax / c.h, vmax / c.v, W, H, !lossless, full[ci]);
-    }
+    std::vector<std::vector<uint8_t>> full;
+    full_planes(full);
     const size_t npx = (size_t)W * H;
     if (nc == 1) {
       gray.swap(full[0]);
       return kOk;
     }
-    // jdcolor.c's build_ycc_rgb_table
-    int cr_r[256], cb_b[256];
-    int64_t cr_g[256], cb_g[256];
-    for (int i = 0; i < 256; ++i) {
-      const int64_t x = i - 128;
-      cr_r[i] = (int)((91881 * x + 32768) >> 16);
-      cb_b[i] = (int)((116130 * x + 32768) >> 16);
-      cr_g[i] = -46802 * x;
-      cb_g[i] = -22554 * x + 32768;
-    }
-    auto clamp = [](int v) { return v < 0 ? 0 : v > 255 ? 255 : v; };
-    auto ycc_rgb = [&](int y, int cb, int cr, int& r, int& g, int& b) {
-      r = clamp(y + cr_r[cr]);
-      g = clamp(y + (int)((cb_g[cb] + cr_g[cr]) >> 16));
-      b = clamp(y + cb_b[cb]);
-    };
+    const YccTable& ycc = ycc_table();
+    auto ycc_rgb = [&](int y, int cb, int cr, int& r, int& g, int& b) { ycc.rgb(y, cb, cr, r, g, b); };
     gray.assign(npx, 0);
     const uint8_t *P0 = full[0].data(), *P1 = full[1].data(), *P2 = full[2].data();
     if (nc == 3) {
@@ -2380,10 +2479,17 @@ const char* native_runtime_error_string(int code) {
       return "not a PNG, JPEG, netpbm, TIFF, BMP, GIF or WebP file (nor a format PIL "
              "identifies by a signature)";
     case kTiffJpeg:
-      return "a TIFF with JPEG compression (6, 7): PIL reads it through libtiff; not read";
-    case kTiffCcitt:
-      return "a TIFF with CCITT compression (2, 3, 4, 32771): PIL reads it through libtiff; "
-             "not read";
+      return "a TIFF with new-style JPEG compression (7) of 12-bit samples, or whose JPEG "
+             "strip or tile is smaller than the TIFF says (libtiff leaves the rest of Pillow's "
+             "strip buffer as the previous strip left it): PIL reads it through libtiff; not "
+             "read";
+    case kTiffOjpeg:
+      return "a TIFF with old-style JPEG compression (6) in tiles, on separate planes, in a "
+             "big-endian file of several strips (libtiff's OJPEG reads them out of order), of "
+             "several strips whose restart interval is not one strip's MCUs, of a frame other "
+             "than SOF0/SOF1, or of sampling factors "
+             "TIFF cannot state (libtiff's OJPEG then upsamples inside libjpeg): PIL reads it "
+             "through libtiff; not read";
     case kTiffLzma:
       return "a TIFF with LZMA compression (34925): PIL reads it through libtiff; not read";
     case kTiffZstd:
@@ -2395,8 +2501,6 @@ const char* native_runtime_error_string(int code) {
              "not read";
     case kTiffThunderScan:
       return "a TIFF with ThunderScan compression (32809): PIL reads it through libtiff; not read";
-    case kTiffYCbCr:
-      return "a compressed YCbCr TIFF: PIL reads it through libtiff's TIFFRGBAImage; not read";
     case kTiffMode:
       return "a TIFF whose (byte order, photometric, sample format, fill order, bits, extra "
              "samples) PIL's OPEN_INFO maps to no mode: PIL does not read it either "

@@ -10,7 +10,8 @@
 //     rawmode the one character rawmode[layer]), reading from each offset on
 //     whatever the byte counts say, fill order 2 by the "R" rawmodes, the
 //     predictor ignored;
-//   - PackBits, LZW and Deflate: what libtiff hands Pillow's TiffDecode.c:
+//   - PackBits, LZW, Deflate, JPEG and CCITT: what libtiff hands Pillow's
+//     TiffDecode.c (YCbCr: TiffDecode.c's _decodeAsRGBA, below):
 //     the stored bytes bit-reversed under fill order 2, decompressed,
 //     16/32/64-bit samples of a big-endian file swapped to the (little-endian)
 //     host's order, the predictor undone (2 horizontal, 3 floating point:
@@ -31,15 +32,19 @@
 // PIL reads it as a number, or by an XMP packet's tiff:Orientation where the
 // tag is absent.
 //
-// Refused with a code that names the kind: JPEG, CCITT, LZMA, ZSTD, WebP,
-// SGILog and ThunderScan compression (PIL reads them through libtiff),
-// compressed YCbCr (libtiff's TIFFRGBAImage converts it), CIELAB (PIL's
-// convert("L") raises), unknown pixel modes and unknown raw modes (PIL
-// raises on both), and compressed palette images with an extra sample on
-// separate planes.
+// libtiff's own codecs, as it hands their output to Pillow: new-style JPEG
+// (native_tiff_jpeg.h), CCITT (native_fax3.h), and compressed YCbCr and
+// old-style JPEG through TIFFRGBAImage (native_tiff_ycbcr.h).
+//
+// Refused with a code that names the kind: LZMA, ZSTD, WebP, SGILog and
+// ThunderScan compression (PIL reads them through libtiff), the JPEG
+// layouts named in those headers, CIELAB (PIL's convert("L") raises),
+// unknown pixel modes and unknown raw modes (PIL raises on both), and
+// compressed palette images with an extra sample on separate planes.
 //
 // Included by native_runtime.cpp inside its anonymous namespace, after
-// native_pil.h: it uses zlib_inflate and the Err codes.
+// native_pil.h and the JPEG decoder: it uses zlib_inflate, JpegDecoder and
+// the Err codes.
 
 struct OpenInfo {
   char order;  // 'I' or 'M'
@@ -197,7 +202,16 @@ enum TiffTag {
   kTagSpp = 277, kTagRowsPerStrip = 278, kTagStripBytes = 279, kTagPlanar = 284,
   kTagPredictor = 317, kTagColorMap = 320, kTagTileWidth = 322, kTagTileLength = 323,
   kTagTileOffsets = 324, kTagTileBytes = 325, kTagExtra = 338, kTagSampleFormat = 339,
-  kTagXmp = 700
+  kTagXmp = 700, kTagT4Options = 292, kTagT6Options = 293, kTagJpegTables = 347,
+  kTagJif = 513, kTagJifLength = 514, kTagJpegRestart = 515, kTagJpegQTables = 519,
+  kTagJpegDcTables = 520, kTagJpegAcTables = 521, kTagYccCoefficients = 529,
+  kTagYccSubsampling = 530, kTagRefBlackWhite = 532
+};
+
+// one IFD entry as stored: its type, count and where its value lies in the file
+struct TiffEntry {
+  int type = 0;
+  uint64_t count = 0, off = 0;
 };
 
 struct TiffIfd {
@@ -210,6 +224,7 @@ struct TiffIfd {
   // PIL reads as other than bytes (its bytes pattern then raises)
   int orientation = -1, xmp_orientation = -1;
   bool xmp_text = false;
+  std::map<int, TiffEntry> entries;  // every entry PIL keeps, by tag (last wins)
   bool has(int t) const { return tags.count(t) > 0; }
   uint64_t get(int t, uint64_t dflt) const {
     auto it = tags.find(t);
@@ -228,6 +243,17 @@ inline bool is_tiff(const uint8_t* d, size_t n) {
   for (const char* p : prefixes)
     if (!std::memcmp(d, p, 4)) return true;
   return false;
+}
+
+// bytes per value of a TIFF field type PIL knows (0: a type it skips)
+inline int tiff_type_size(int type) {
+  switch (type) {
+    case 1: case 2: case 6: case 7: return 1;
+    case 3: case 8: return 2;
+    case 4: case 9: case 11: case 13: return 4;
+    case 5: case 10: case 12: case 16: return 8;
+    default: return 0;
+  }
 }
 
 inline uint64_t tiff_uint(const uint8_t* p, int size, bool le) {
@@ -306,14 +332,8 @@ int tiff_read_ifd(const uint8_t* d, size_t n, TiffIfd& ifd) {
     const int tag = (int)tiff_uint(e, 2, ifd.le), type = (int)tiff_uint(e + 2, 2, ifd.le);
     const uint64_t cnt = tiff_uint(e + 4, ifd.big ? 8 : 4, ifd.le);
     const uint8_t* val = e + (ifd.big ? 12 : 8);
-    int unit;
-    switch (type) {
-      case 1: case 2: case 6: case 7: unit = 1; break;
-      case 3: case 8: unit = 2; break;
-      case 4: case 9: case 11: case 13: unit = 4; break;
-      case 5: case 10: case 12: case 16: unit = 8; break;
-      default: continue;  // unsupported type: ignored
-    }
+    const int unit = tiff_type_size(type);
+    if (!unit) continue;  // unsupported type: ignored
     if (cnt == 0 || cnt > (uint64_t)1 << 40) continue;
     const uint64_t size = cnt * unit;
     const uint8_t* src = val;
@@ -322,6 +342,7 @@ int tiff_read_ifd(const uint8_t* d, size_t n, TiffIfd& ifd) {
       if (off > n || n - off < size) continue;  // "Possibly corrupt EXIF data": skipped
       src = d + off;
     }
+    ifd.entries[tag] = TiffEntry{type, cnt, (uint64_t)(src - d)};
     if (tag == kTagOrientation) {
       const int64_t v = tiff_whole_number(src, type, ifd.le);
       ifd.orientation = v >= 2 && v <= 8 ? (int)v : 0;
@@ -543,15 +564,38 @@ void fp_acc(uint8_t* row, size_t bytes, int bits, int stride, std::vector<uint8_
     for (int b = 0; b < bps; ++b) row[bps * c + b] = tmp[(size_t)(bps - b - 1) * wc + c];
 }
 
+#include "native_fax3.h"
+#include "native_tiff_jpeg.h"
+
+// what libtiff's codecs know of the segment they decode
+struct TiffSeg {
+  int w = 0, h = 0;       // its width and height in pixels
+  bool last = false;      // a strip that ends the image
+  bool separate = false;  // one plane of PlanarConfiguration 2
+  bool tile = false;      // a tile (libtiff reads it with TIFFReadEncodedTile)
+  bool raw = false;       // the predictor left undone (libtiff's own refusal)
+  FaxCodec* fax = nullptr;  // libtiff's CCITT codec state, kept across segments
+};
+
 // one strip or tile of the libtiff route → rows × row_bytes native bytes
 int tiff_segment(const uint8_t* d, size_t n, const TiffInfo& t, uint64_t off, uint64_t count,
                  size_t rows, size_t row_bytes, int samples_per_row_pixel, int bits,
-                 std::vector<uint8_t>& out) {
+                 std::vector<uint8_t>& out, const TiffSeg& sg) {
   if (off > n || n - off < count) return kCorrupt;
+  if (t.compression == 7)  // libtiff's JPEG codec reverses no bits
+    return tiff_jpeg_segment(d, n, t, d + off, (size_t)count, sg.w, sg.h, sg.last, sg.separate,
+                             rows, row_bytes, out);
   std::vector<uint8_t> src(d + off, d + off + count);
   if (t.fill == 2)
     for (auto& b : src) b = bitflip(b);
   const size_t expect = rows * row_bytes;
+  if (is_ccitt(t.compression)) {
+    const int rc = fax_decode(src.data(), src.size(), t.compression, fax_options(t), sg.w, rows,
+                              out, (off & 1) != 0, *sg.fax);
+    // TIFFReadEncodedTile takes the decoder's -1 for success (it tests for
+    // non-zero), TIFFReadEncodedStrip does not
+    return sg.tile ? kOk : rc;
+  }
   bool ok;
   if (t.compression == 32773) {
     ok = packbits_decode(src.data(), src.size(), out, expect);
@@ -562,7 +606,7 @@ int tiff_segment(const uint8_t* d, size_t n, const TiffInfo& t, uint64_t off, ui
     if (ok) out.resize(expect);
   }
   if (!ok) return kCorrupt;
-  const int predictor = (t.compression == 32773) ? 1 : (int)t.ifd.get(kTagPredictor, 1);
+  const int predictor = (t.compression == 32773 || sg.raw) ? 1 : (int)t.ifd.get(kTagPredictor, 1);
   const bool swab = !t.ifd.le && (bits == 16 || bits == 32 || bits == 64) && predictor != 3;
   if (swab) {
     const int bb = bits / 8;
@@ -666,7 +710,9 @@ int decode_tiff_codec(const uint8_t* d, size_t n, const TiffInfo& t, PilImage& i
     if (!key) return kTiffMode;
   }
   std::string raw = key->raw;
-  if (raw == "I;16") raw = "I;16N";
+  // new-style JPEG YCbCr on one plane: libjpeg converts it to RGB
+  if (t.photo == 6 && t.compression == 7 && t.planar == 1) raw = "RGB";
+  else if (raw == "I;16") raw = "I;16N";
   else if (raw.size() > 4 && (raw.compare(raw.size() - 4, 4, ";16B") == 0 ||
                               raw.compare(raw.size() - 4, 4, ";16L") == 0))
     raw.back() = 'N';
@@ -707,13 +753,23 @@ int decode_tiff_codec(const uint8_t* d, size_t n, const TiffInfo& t, PilImage& i
     return kCorrupt;
   const size_t row_bytes = ((size_t)sw * spp_plane * bits + 7) / 8;
   if (!separate && (size_t)u->bits * sw > row_bytes * 8) return kCorrupt;
+  // Pillow's strip or tile buffer: what a segment's decoder leaves unwritten
+  // reads as the previous segment left it
   std::vector<std::vector<uint8_t>> seg(planes);
+  FaxCodec fax;
   for (int64_t s = 0; s < per_plane; ++s) {
     const int x0 = (int)((s % across) * sw), y0 = (int)((s / across) * sh);
     const size_t rows = tiled ? (size_t)sh : (size_t)std::min<int64_t>(sh, t.ysize - y0);
+    TiffSeg sg;
+    sg.w = (int)sw;
+    sg.h = (int)rows;
+    sg.last = !tiled && y0 + (int64_t)rows >= t.ysize;
+    sg.separate = t.planar == 2;
+    sg.tile = tiled;
+    sg.fax = &fax;
     for (int p = 0; p < planes; ++p) {
       const int rc = tiff_segment(d, n, t, offs[p * per_plane + s], counts[p * per_plane + s],
-                                  rows, row_bytes, spp_plane, bits, seg[p]);
+                                  rows, row_bytes, spp_plane, bits, seg[p], sg);
       if (rc) return rc;
     }
     const int xs = (int)std::min<int64_t>(sw, t.xsize - x0);
@@ -745,6 +801,8 @@ int decode_tiff_codec(const uint8_t* d, size_t n, const TiffInfo& t, PilImage& i
   }
   return kOk;
 }
+
+#include "native_tiff_ycbcr.h"
 
 // ImageOps.exif_transpose's Image.transpose: 2 FLIP_LEFT_RIGHT, 3 ROTATE_180,
 // 4 FLIP_TOP_BOTTOM, 5 TRANSPOSE, 6 ROTATE_270, 7 TRANSVERSE, 8 ROTATE_90
@@ -782,22 +840,31 @@ int decode_tiff(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, 
   if (t.mode == kModeLAB) return kTiffLab;
   switch (t.compression) {
     case 1: case 5: case 8: case 32946: case 32773: break;
-    case 6: case 7: return kTiffJpeg;
-    case 2: case 3: case 4: case 32771: return kTiffCcitt;
+    case 2: case 3: case 4: case 32771: case 6: case 7: break;
     case 34925: return kTiffLzma;
     case 50000: return kTiffZstd;
     case 50001: return kTiffWebp;
     case 34676: case 34677: return kTiffSgiLog;
     default: return kTiffThunderScan;  // 32809
   }
-  if (t.photo == 6 && t.compression != 1) return kTiffYCbCr;
+  // libtiff's codecs: JPEG of 8-bit samples (12-bit gray has a mode in PIL,
+  // whose libtiff hands it 16-bit words), CCITT of 1-bit ones
+  for (uint64_t b : t.bps) {
+    if (t.compression == 7 && b != 8) return b == 12 ? kTiffJpeg : kCorrupt;
+    if (is_ccitt(t.compression) && b != 1) return kCorrupt;  // "Bits/sample must be 1"
+  }
   if (t.xmp_fails) return kCorrupt;  // "cannot use a bytes pattern on a string-like object"
   PilImage im;
   im.alloc(t.mode, t.xsize, t.ysize);  // the stored size (PIL's _tile_size)
   if (t.mode == kModeP || t.mode == kModePA) {
     if ((rc = tiff_palette(t, im))) return rc;
   }
-  rc = t.compression == 1 ? decode_tiff_raw(d, n, t, im) : decode_tiff_codec(d, n, t, im);
+  // TiffDecode.c reads YCbCr through TIFFRGBAImage, but lets libjpeg convert
+  // new-style JPEG on one plane
+  const bool rgba = t.photo == 6 && t.compression != 1 && !(t.compression == 7 && t.planar == 1);
+  if (t.compression == 1) rc = decode_tiff_raw(d, n, t, im);
+  else if (rgba) rc = decode_tiff_rgba(d, n, t, im);
+  else rc = decode_tiff_codec(d, n, t, im);
   if (rc) return rc;
   tiff_orient(im, t.orientation);
   return pil_to_gray(im, gray);

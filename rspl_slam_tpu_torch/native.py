@@ -24,7 +24,11 @@ byte orders, strips and tiles, planar 1 and 2, fill order 2, no
 compression, PackBits, LZW and Deflate with predictors 2 and 3, every
 mode PIL's ``OPEN_INFO`` maps: bilevel, 2-/4-/8-bit gray, 12-, 16- and
 32-bit integers, 32-bit float, palette, LA, RGB(A/X/a) at 8 and 16 bits,
-CMYK, uncompressed YCbCr, with PIL's own byte-order and planar quirks,
+CMYK, YCbCr, with PIL's own byte-order and planar quirks; and what
+libtiff hands PIL from its own codecs: new-style JPEG with JPEGTables
+(``native_tiff_jpeg.h``), compressed YCbCr through ``TIFFRGBAImage`` and
+old-style JPEG (``native_tiff_ycbcr.h``), CCITT MH, Group 3, Group 4 and
+RLEW with libtiff's recoveries from bad data (``native_fax3.h``);
 flipped or rotated by the Orientation tag, or with none by the XMP
 packet, as PIL's ``ImageOps.exif_transpose`` does after decoding);
 BMP (``csrc/native_bmp.h``: every header size, 1-32 bits, RLE4, RLE8,
@@ -38,12 +42,15 @@ fractional-sampling JPEG, lossless YCbCr; TIFF modes missing from
 palettes PIL rejects; GIF code sizes above 12; WebP VP8 frames that are
 not displayable key frames, VP8L versions other than 0, ALPH chunks
 libwebp rejects) and kinds PIL reads that the port does not yet (TIFF's
-JPEG, CCITT, LZMA, ZSTD, WebP, SGILog and ThunderScan compressions and
-compressed YCbCr; JPEG 2000, ICO, CUR, QOI, PSD, DDS, SGI, Sun raster,
-PCX, AVIF files; Pillow's P0CMYK and Py netpbm kinds) raise ``NotImplementedError`` naming the kind or format. A file
-with no signature raises ``ValueError``, and a file that fails to decode
-``IOError``, on every route: the library's ``native_runtime_error_kind``
-decides.
+LZMA, ZSTD, WebP, SGILog and ThunderScan compressions, 12-bit and
+short-stream new-style JPEG, old-style JPEG in tiles, on separate planes,
+in big-endian strips or with restart intervals off the strips; JPEG
+2000, ICO, CUR, QOI, PSD, DDS, SGI, Sun raster, PCX, AVIF files;
+Pillow's P0CMYK and Py netpbm kinds) raise ``NotImplementedError``
+naming the kind or format. A file with no signature raises
+``ValueError``, and a file that fails to decode (libtiff's own failures
+included) ``IOError``, on every route: the library's
+``native_runtime_error_kind`` decides.
 
 There is no fallback: where the library cannot be built, every entry point
 raises.

@@ -16,7 +16,7 @@ import torch
 
 from rspl_slam_tpu_torch.models.weights import to_numpy_tree, to_tensor_tree, tree_leaves
 
-__all__ = ["no_tf32", "train_adam"]
+__all__ = ["deterministic", "no_tf32", "train_adam"]
 
 
 @contextlib.contextmanager
@@ -29,6 +29,26 @@ def no_tf32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Every step gives the same bits in every run on the same card:
+    cuDNN's deterministic convolution
+    algorithms (its default backward ones add with atomics) and PyTorch's
+    deterministic implementations (``gather``'s backward then adds without
+    atomics); an op that has none raises. The previous settings come back
+    on exit."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
 
 
 def train_adam(params, loss_fn, next_batch, steps: int, lr: float, device,

@@ -975,6 +975,32 @@ def test_training_step_on_the_card_matches_the_cpu(cuda_device, model):  # noqa:
         assert (step <= lr * (1 + 1e-6) + np.spacing(np.abs(p0[k]) + lr)).all(), k
 
 
+def test_superpoint_training_repeats_bit_for_bit_on_the_card(cuda_device):  # noqa: F811
+    """Two ``superpoint_train.train`` runs from one seed on the card give the
+    same loss history and the same trained leaves, bit for bit: the steps
+    run under ``loop.deterministic`` (without it cuDNN's backward
+    convolutions and ``gather``'s backward add with atomics, and the
+    chip_smoke recipe's recall after 120 steps ranged from 0.13 to 0.40)."""
+    from rspl_slam_tpu_torch.config import CameraConfig
+    from rspl_slam_tpu_torch.models import superpoint
+    from rspl_slam_tpu_torch.models.weights import flatten_pytree
+    from rspl_slam_tpu_torch.training import superpoint_train
+
+    cam = CameraConfig(image_width=160, image_height=120, fx=120.0, fy=120.0, cx=80.0,
+                       cy=60.0, bf=12.0)
+    runs = []
+    for _ in range(2):
+        stats = {}
+        trained = superpoint_train.train(cam, steps=10, batch=2, lr=1e-3, seed=0,
+                                         params=superpoint.init_params(0), verbose=False,
+                                         device=cuda_device, stats=stats)
+        runs.append((stats["loss"], flatten_pytree(trained)))
+    (h0, t0), (h1, t1) = runs
+    assert h0 == h1
+    for k in t0:
+        np.testing.assert_array_equal(t0[k], t1[k], err_msg=k)
+
+
 @pytest.mark.parametrize("K", [16, 64])
 def test_matching_accuracy_on_the_card_matches_the_plain_version(cuda_device, K):  # noqa: F811
     """``matching_accuracy`` through K2 (f32 mode) and K3 at the training
@@ -1112,7 +1138,8 @@ def test_loader_threads_decode_every_image_kind_to_its_pinned_hash(cuda_device):
     """On the card's machine, where PIL is absent: ``NativeStereoLoader``'s
     decode threads read every readable fixture of ``tests/fixtures/
     image_kinds`` (progressive, arithmetic-coded, lossless, CMYK, YCCK,
-    RGB, 4:1:1 JPEG; netpbm P1-P6, PFM; TIFF, BMP; GIF; WebP lossless, lossy,
+    RGB, 4:1:1 JPEG; netpbm P1-P6, PFM; TIFF with libtiff's JPEG, CCITT and
+    YCbCr codecs among them, BMP; GIF; WebP lossless, lossy,
     with alpha, animated) to the PIL sha256 its
     manifest pins, and refuse the kinds PIL refuses, and those the port
     does not read yet, with ``NotImplementedError``."""

@@ -14,13 +14,16 @@ libjpeg-turbo smooths), arithmetic-coded, lossless, CMYK, YCCK, RGB,
 4:1:1, netpbm P1-P6 at several maxvals, the refused 12-bit,
 hierarchical, DNL and fractional-sampling files; TIFF (PIL's writer and
 the encoder: tiles, planes, predictors, big-endian, BigTIFF, fill order
-2, every sample kind, orientations 2-8 by tag and by XMP), BMP (RLE, BITFIELDS, OS/2, top-down), PFM;
+2, every sample kind, orientations 2-8 by tag and by XMP; new- and
+old-style JPEG, compressed YCbCr, CCITT with libtiff's recoveries, and
+the JPEG layouts the port refuses), BMP (RLE, BITFIELDS, OS/2, top-down), PFM;
 GIF (identity palettes, frame 0 past or inside the screen, interlaced,
 animated) and WebP (lossless, lossy, alpha, animated, libwebp's own
 options) with the kinds of both that PIL refuses; JPEG 2000, ICO, CUR,
 QOI, PSD, DDS, SGI, Sun raster, PCX, AVIF and P0CMYK files the port
 refuses; a 752×480 progressive stereo sequence and a lossy WebP pair of
-its first frames. Random GIFs and WebPs are in ``test_torch_gif_webp.py``. ``manifest.json`` pins each readable file's PIL sha256 and
+its first frames. Random GIFs and WebPs are in ``test_torch_gif_webp.py``,
+random TIFFs of libtiff's codecs in ``test_torch_tiff_codecs.py``. ``manifest.json`` pins each readable file's PIL sha256 and
 each refused file's refusal word.
 """
 
@@ -142,8 +145,10 @@ def _raises_on_every_route(path, data, word):
 @pytest.mark.parametrize("name", UNPORTED)
 def test_unported_kind_raises_in_the_port_alone(name):
     """A kind or format PIL reads that the port does not read yet (TIFF's
-    libtiff-only compressions and compressed YCbCr; JPEG 2000, ICO, CUR,
-    QOI, PSD, DDS, SGI, Sun raster, PCX, AVIF; Pillow's P0CMYK):
+    LZMA and ZSTD compressions, 12-bit and short-stream new-style JPEG,
+    old-style JPEG of big-endian strips or odd restart intervals; JPEG
+    2000, ICO, CUR, QOI, PSD, DDS, SGI, Sun raster, PCX, AVIF; Pillow's
+    P0CMYK):
     PIL (JAX's reader) reads it, and every route of the port raises
     ``NotImplementedError`` naming the kind or format."""
     path = os.path.join(DIR, name)
@@ -321,9 +326,10 @@ def test_random_tiffs_match_pil(compression, predictor, planar, layout, order):
     compression, predictor, planar configuration and layout, at random
     sizes, strip heights, tile sizes, orientations (none or 1-8) and
     BigTIFF or not: the port equals
-    PIL where PIL reads, raises where PIL raises, and refuses, naming it,
-    what PIL reads through libtiff's RGBA interface (compressed YCbCr) or
-    past its own buffer (a compressed palette with an extra plane)."""
+    PIL where PIL reads (compressed YCbCr through libtiff's RGBA interface
+    too, its missing subsampling tag read as 2 × 2), raises where PIL
+    raises, and refuses, naming it, what PIL reads past its own buffer (a
+    compressed palette with an extra plane)."""
     rng = np.random.default_rng([compression, predictor, planar, layout == "tiles", order == ">"])
     keys = [k for k in TIFF_KEYS if k[0] == (b"II" if order == "<" else b"MM")]
     for i in rng.choice(len(keys), 3, replace=False):
@@ -340,9 +346,7 @@ def test_random_tiffs_match_pil(compression, predictor, planar, layout, order):
             colormap=rng.integers(0, 65536, (1 << bps[0], 3)) if photo == 3 else None,
             orientation=int(rng.integers(0, 9)) or None)
         refusal = None
-        if compression != 1 and photo == 6:
-            refusal = "YCbCr"
-        elif compression != 1 and photo == 3 and planar == 2 and extra == (0,):
+        if compression != 1 and photo == 3 and planar == 2 and extra == (0,):
             refusal = "separate planes"
         _agrees_with_pil(data, refusal)
 
@@ -493,8 +497,7 @@ def test_unported_format_raises_naming_it(fmt):
         native.decode_u8(b"hello" + bytes(64))
 
 
-TIFF_UNPORTED = {2: "CCITT", 3: "CCITT", 4: "CCITT", 32771: "CCITT", 6: "JPEG", 7: "JPEG",
-                 34925: "LZMA", 50000: "ZSTD", 50001: "WebP", 34676: "SGILog", 34677: "SGILog",
+TIFF_UNPORTED = {34925: "LZMA", 50000: "ZSTD", 50001: "WebP", 34676: "SGILog", 34677: "SGILog",
                  32809: "ThunderScan"}
 
 
@@ -504,10 +507,31 @@ def test_tiff_compression_libtiff_reads_raises_naming_it(compression):
     raises ``NotImplementedError`` naming the compression (an 8-bit gray
     TIFF that declares it; old-style JPEG, 6, is YCbCr to PIL)."""
     g = mk.scene(16, 16, compression)
-    data = mk.encode_tiff(np.dstack([g] * 3) if compression == 6 else g,
-                          photometric=6 if compression == 6 else 1, tags=[(259, 3, [compression])])
+    data = mk.encode_tiff(g, tags=[(259, 3, [compression])])
     with pytest.raises(NotImplementedError, match=TIFF_UNPORTED[compression]):
         native.decode_u8(data)
+
+
+# a file of each compression the port reads as libtiff decodes it for PIL
+TIFF_LIBTIFF_READ = {
+    2: lambda g, ycc: mk.encode_tiff_fax(g > 128, 2, 1),
+    3: lambda g, ycc: mk.encode_tiff_fax(g > 128, 3, 0, 5, rows_per_strip=8),
+    4: lambda g, ycc: mk.encode_tiff_fax(g > 128, 4, 1),
+    32771: lambda g, ycc: mk.encode_tiff_fax(g > 128, 32771, 0),
+    6: lambda g, ycc: mk.encode_tiff_ojpeg(ycc, 2, 2),
+    7: lambda g, ycc: mk.encode_tiff_jpeg(ycc, 6, (2, 2), "all", rows_per_strip=16),
+}
+
+
+@pytest.mark.parametrize("compression", sorted(TIFF_LIBTIFF_READ))
+def test_tiff_compression_libtiff_reads_reads_as_pil(compression):
+    """Each compression PIL reads through libtiff that the port reads
+    (CCITT MH, Group 3, Group 4, RLEW; old- and new-style JPEG) gives
+    PIL's bytes (a 16×16 file of it; ``tests/test_torch_tiff_codecs.py``
+    has the random ones)."""
+    rgb = mk.scene(16, 16, compression, 3)
+    data = TIFF_LIBTIFF_READ[compression](rgb[..., 0], mk.rgb_to_ycbcr(rgb))
+    np.testing.assert_array_equal(native.decode_u8(data), _pil(data))
 
 
 def pil_luma_of(rgb):
@@ -571,6 +595,8 @@ def test_datasets_agree_on_a_tree_of_mixed_kinds(tmp_path):
 
 WRITERS = {".tif": lambda u8: mk.encode_tiff(u8.astype(np.int64), bits=16, compression=5,
                                              predictor=2, rows_per_strip=16),
+           ".tiff": lambda u8: mk.encode_tiff_jpeg(mk.rgb_to_ycbcr(np.dstack([u8] * 3)), 6, (2, 2),
+                                                   "all", rows_per_strip=16),
            ".bmp": lambda u8: mk.encode_bmp(u8, 8, palette=np.stack([np.arange(256)] * 3, 1)),
            ".webp": lambda u8: mk._pil_save(Image.fromarray(u8), "WEBP", quality=80)}
 
@@ -579,6 +605,7 @@ def _cli_tree(root, frames, gt, ext, via=None):
     """A raw-EuRoC tree of ``frames`` under ``root``: progressive JPEGs
     written by PIL (``ext`` ".jpg"), PNG copies of PIL's decode of them
     (".png"), or those pixels as 16-bit LZW TIFFs with predictor 2 (".tif"),
+    YCbCr 4:2:0 JPEG-in-TIFFs with shared JPEGTables (".tiff"),
     bottom-up 8-bit grey-palette BMPs (".bmp") or lossy WebPs at quality 80
     (".webp"); with ``via`` (one of those writers), the pixels PIL decodes
     from that writer's file instead."""
@@ -682,3 +709,13 @@ def test_cli_run_on_a_lossy_webp_tree_equals_its_png_copies(cli_png):
     tmp_path, frames, gt, _ = cli_png
     webp_text = _cli_run(tmp_path, frames, gt, ".webp", "--no-native")
     assert webp_text == _cli_run(tmp_path, frames, gt, ".png", via=".webp")
+
+
+def test_cli_run_on_a_jpeg_in_tiff_tree_equals_its_png_copies(cli_png):
+    """The PNG tree's pixels as YCbCr 4:2:0 JPEG-in-TIFFs (16-row strips,
+    one JPEGTables stream) through ``cli run`` (the native prefetcher):
+    the trajectory equals that of a PNG tree of PIL's decode of the same
+    TIFFs, text for text."""
+    tmp_path, frames, gt, _ = cli_png
+    assert _cli_run(tmp_path, frames, gt, ".tiff") == _cli_run(tmp_path, frames, gt, ".png",
+                                                              via=".tiff")

@@ -311,6 +311,33 @@ def test_loss_decreases():
     assert l1 < l0, (l0, l1)
 
 
+def test_deterministic_sets_and_restores_the_switches():
+    """``loop.deterministic`` turns on PyTorch's deterministic algorithms and
+    cuDNN's, and gives back what it found, also when its body raises; the
+    SuperPoint trainer runs inside it and leaves the switches as it found
+    them."""
+    from rspl_slam_tpu_torch.training.loop import deterministic
+
+    def switches():
+        return (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled(),
+                torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+
+    before = switches()
+    torch.backends.cudnn.benchmark = True
+    try:
+        with pytest.raises(ValueError):
+            with deterministic():
+                assert switches() == (True, False, True, False)
+                raise ValueError
+        assert switches() == before[:3] + (True,)
+    finally:
+        torch.backends.cudnn.benchmark = before[3]
+    T.train(CameraConfig(**CAM), steps=1, batch=1, params=superpoint.init_params(0),
+            verbose=False, device=CPU)
+    assert switches() == before
+
+
 def test_params_roundtrip(tmp_path):
     params = superpoint.init_params(1)
     p = str(tmp_path / "sp.npz")

@@ -7,7 +7,8 @@ progressive stereo sequence, and ``manifest.json`` (each file's kind and the sha
 by, and ``pil_reads`` where PIL reads what the port refuses).
 
 PIL writes the kinds it can write (progressive, CMYK, RGB, baseline JPEG;
-TIFF uncompressed, PackBits, LZW, Deflate and the libtiff compressions;
+TIFF uncompressed, PackBits, LZW, Deflate and the libtiff compressions,
+JPEG and CCITT among them;
 BMP 1, L, P, RGB, RGBA; GIF; WebP lossless, lossy, with alpha, animated;
 JPEG 2000, ICO, QOI, DDS, SGI, PCX, AVIF). The kinds it cannot write come
 from the small encoders in this file:
@@ -20,7 +21,12 @@ from the small encoders in this file:
 - netpbm P1-P6 at any maxval, PFM in both byte orders;
 - TIFF of any bits, photometric and sample format, strips or tiles,
   chunky or planar, either byte order, classic or BigTIFF, fill order 2,
-  uncompressed, PackBits, LZW or Deflate, predictors 2 and 3;
+  uncompressed, PackBits, LZW or Deflate, predictors 2 and 3; around
+  ``encode_jpeg``: new-style JPEG strips and tiles with JPEGTables, and
+  old-style JPEG (tables tags or an interchange stream, one restart
+  interval a strip); subsampled YCbCr blocks; CCITT Modified Huffman,
+  RLEW, Group 3 1D/2D with EOLs and fill bits, and Group 4; PIL's
+  Floyd-Steinberg dither of ``convert("1")``;
 - BMP of every header size and depth, RLE4 and RLE8 (deltas, early ends),
   BITFIELDS, top-down rows; CUR, PSD and Sun raster by hand;
 - GIF with identity palettes (global, local), a local palette over a
@@ -42,6 +48,7 @@ from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import bisect
 import hashlib
 import io
 import json
@@ -829,7 +836,7 @@ def encode_jpeg(planes, sampling=None, ids=None, quality: int = 75, qtables=None
                 mode: str = "sequential", arith: bool = False, scans=None,
                 restart: int = 0, markers: bytes = JFIF, predictor: int = 1, pt: int = 0,
                 precision: int = 8, sof_marker: int | None = None, dnl: bool = False,
-                dac=None, prefix: bytes = b"") -> bytes:
+                dac=None, prefix: bytes = b"", huffman=None) -> bytes:
     """A JPEG of ``planes`` (full-resolution (H, W) arrays, one per
     component; subsampled by ``sampling`` [(h, v), ...] box averages).
 
@@ -840,7 +847,9 @@ def encode_jpeg(planes, sampling=None, ids=None, quality: int = 75, qtables=None
     DAC marker); ``restart``: MCUs per restart interval; ``markers``: the
     APPn segments after SOI; ``sof_marker`` overrides the SOF code;
     ``dnl``: height 0 in the frame header and a DNL marker after the first
-    scan; ``prefix``: segments written before the frame (DHP)."""
+    scan; ``prefix``: segments written before the frame (DHP);
+    ``huffman``: the Huffman tables {("dc" | "ac", id): (bits, vals)} every
+    scan codes with (default: each scan's optimal ones)."""
     planes = [np.asarray(p) for p in planes]
     H, W = planes[0].shape
     n = len(planes)
@@ -906,7 +915,7 @@ def encode_jpeg(planes, sampling=None, ids=None, quality: int = 75, qtables=None
                 ev = seq_scan_events(frame, sc, coefs, restart)
             else:
                 ev = prog_scan_events(frame, sc, coefs, ss, se, ah, al, restart)
-            dht, data = serialize_huffman(ev)
+            dht, data = serialize_huffman(ev, huffman)
             out += dht + header + data
         if dnl and k == 0:
             out += segment(0xDC, struct.pack(">H", H))
@@ -1137,7 +1146,7 @@ def encode_tiff(img, bits: int = 8, photometric: int = 1, sample_format: int = 1
                 extra=(), compression: int = 1, predictor: int = 1, planar: int = 1,
                 tile=None, rows_per_strip=None, order: str = "<", bigtiff: bool = False,
                 fill_order: int = 1, colormap=None, level: int = 6, orientation=None,
-                tags=(), pad: int = 0) -> bytes:
+                tags=(), pad: int = 0, codec=None, prefix: bytes = b"") -> bytes:
     """A one-IFD TIFF of ``img`` ((H, W) or (H, W, S) sample values at
     ``bits``): strips of ``rows_per_strip`` rows or ``tile`` (w, h) tiles,
     ``planar`` 1 (chunky) or 2 (one plane per sample), ``order`` "<"
@@ -1146,7 +1155,12 @@ def encode_tiff(img, bits: int = 8, photometric: int = 1, sample_format: int = 1
     (floating point), fill order 2 (every stored byte bit-reversed),
     ``orientation`` the Orientation tag (274) if given. ``tags``: extra
     (tag, type, values) entries, a rational as its numerator and
-    denominator; ``pad``: zero bytes between the image data and the IFD."""
+    denominator; ``pad``: zero bytes between the image data and the IFD.
+    ``codec(block)``: the stored bytes of one strip or tile (its samples,
+    (rows, cols, s)) in place of the packing and compression above;
+    ``prefix``: bytes written at offset 8 (16 in BigTIFF),
+    before the image data (an odd length puts every segment at an odd
+    offset)."""
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
@@ -1165,6 +1179,12 @@ def encode_tiff(img, bits: int = 8, photometric: int = 1, sample_format: int = 1
             blk = np.zeros((rows_here, w, plane.shape[2]), plane.dtype)
             src = plane[y:y + rows_here, x:x + w]
             blk[:src.shape[0], :src.shape[1]] = src
+            if codec is not None:
+                data = codec(blk)
+                if fill_order == 2:
+                    data = data.translate(_REVERSED)
+                segments.append(data)
+                continue
             sf = sample_format
             if sf == 3 and predictor == 2:  # differences of the floats' bit patterns
                 blk, sf = blk.astype(f"<f{bits // 8}").view(f"<u{bits // 8}"), 1
@@ -1210,6 +1230,7 @@ def encode_tiff(img, bits: int = 8, photometric: int = 1, sample_format: int = 1
     e = order
     head = (b"II" if order == "<" else b"MM") + struct.pack(f"{e}H", 43 if bigtiff else 42)
     head += struct.pack(f"{e}HHQ", 8, 0, 0) if bigtiff else struct.pack(f"{e}I", 0)
+    head += prefix
     data_at = len(head)
     offsets, pos = [], data_at
     for s in segments:
@@ -1244,6 +1265,418 @@ def encode_tiff(img, bits: int = 8, photometric: int = 1, sample_format: int = 1
     else:
         head[4:8] = struct.pack(f"{e}I", ifd_at)
     return bytes(head) + body + bytes(ifd) + bytes(tail)
+
+
+# ------------------------------------------------ TIFF's libtiff-only codecs
+def jpeg_parts(stream: bytes) -> tuple[list, bytes]:
+    """A JPEG's marker segments before its entropy data, [(marker, segment
+    bytes)], and the bytes after its SOS header (entropy data, RST markers,
+    EOI)."""
+    segs, p = [], 2
+    while True:
+        m = stream[p + 1]
+        n = struct.unpack(">H", stream[p + 2:p + 4])[0]
+        segs.append((m, stream[p:p + 2 + n]))
+        p += 2 + n
+        if m == 0xDA:
+            return segs, stream[p:]
+
+
+def split_restarts(entropy: bytes) -> list:
+    """Entropy data cut at its RSTn markers (dropped), EOI dropped."""
+    out, cur, i = [], bytearray(), 0
+    while i < len(entropy):
+        b = entropy[i]
+        if b == 0xFF and i + 1 < len(entropy) and entropy[i + 1] != 0:
+            if 0xD0 <= entropy[i + 1] <= 0xD7:
+                out.append(bytes(cur))
+                cur = bytearray()
+                i += 2
+                continue
+            break  # EOI
+        cur.append(b)
+        if b == 0xFF:
+            cur.append(entropy[i + 1])
+            i += 1
+        i += 1
+    out.append(bytes(cur))
+    return out
+
+
+# every symbol coded: one table for every strip of a TIFF (JPEGTables)
+UNIVERSAL_HUFFMAN = {(c, t): optimal_table(np.ones(256, np.int64) if c == "ac"
+                                           else (np.arange(256) < 16).astype(np.int64))
+                     for c in ("dc", "ac") for t in (0, 1)}
+
+
+def rgb_to_ycbcr(rgb) -> np.ndarray:
+    """uint8 YCbCr of RGB (JFIF's matrix, rounded)."""
+    return _rgb_to_ycc(np.asarray(rgb)).astype(np.uint8)
+
+
+def encode_tiff_jpeg(img, photometric: int = 6, sampling=(2, 2), tables: str = "all",
+                     quality: int = 75, restart: int = 0, planar: int = 1, **kw) -> bytes:
+    """A new-style JPEG TIFF (compression 7) of ``img`` ((H, W) or (H, W, S)
+    sample values as stored: YCbCr for photometric 6, subsampled by
+    ``sampling`` in each strip or tile's stream; the other photometrics'
+    components as they are, which libtiff does not convert). ``tables``:
+    "none" (each stream whole), "dqt" (JPEGTables holds the quantization
+    tables, each stream its own Huffman tables) or "all" (JPEGTables holds
+    both, a Huffman table of every symbol; the streams hold neither).
+    ``restart``: MCUs per restart interval; ``kw``: ``encode_tiff``'s
+    layout arguments."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    S = img.shape[2]
+    ycc = photometric == 6 and planar == 1
+    samp = [tuple(sampling)] + [(1, 1)] * (S - 1) if ycc else None
+    qt = {0: quant_table(quality)}
+    if S > 1 and planar == 1:
+        qt[1] = quant_table(quality, chroma=True)
+    huffman = UNIVERSAL_HUFFMAN if tables == "all" else None
+    shared, done = {}, []
+
+    def codec(blk):
+        if codec.replay:  # the second pass (with JPEGTables) takes the first's streams
+            return done[len(done) - codec.replay.pop()]
+        planes = [blk[..., i] for i in range(blk.shape[2])]
+        q = qt if len(planes) > 1 else {0: qt[0]}
+        stream = encode_jpeg(planes, sampling=samp if len(planes) > 1 else None, qtables=q,
+                             restart=restart, markers=b"", huffman=huffman)
+        segs, rest = jpeg_parts(stream)
+        drop = {"none": (), "dqt": (0xDB,), "all": (0xDB, 0xC4)}[tables]
+        for m, seg in segs:
+            if m in drop:
+                shared.setdefault((m, seg), None)
+        done.append(b"\xff\xd8" + b"".join(seg for m, seg in segs if m not in drop) + rest)
+        return done[-1]
+
+    tags = list(kw.pop("tags", ()))
+    if ycc:
+        tags.append((530, 3, list(sampling)))
+    codec.replay = []
+    data = encode_tiff(img, bits=8, photometric=photometric, compression=7, planar=planar,
+                       codec=codec, tags=tags, **kw)
+    if tables == "none":
+        return data
+    jt = b"\xff\xd8" + b"".join(seg for _, seg in sorted(shared, key=lambda k: -k[0]))
+    codec.replay = list(range(1, len(done) + 1))
+    return encode_tiff(img, bits=8, photometric=photometric, compression=7, planar=planar,
+                       codec=codec, tags=tags + [(347, 7, list(jt + b"\xff\xd9"))], **kw)
+
+
+def _subsample_box(plane, hs: int, vs: int) -> np.ndarray:
+    """Means of hs × vs boxes (clipped at the edges), rounded."""
+    H, W = plane.shape
+    out = np.zeros((-(-H // vs), -(-W // hs)))
+    for by in range(out.shape[0]):
+        for bx in range(out.shape[1]):
+            out[by, bx] = plane[by * vs:(by + 1) * vs, bx * hs:(bx + 1) * hs].mean()
+    return np.round(out).astype(np.int64)
+
+
+def ycbcr_blocks(blk, hs: int, vs: int) -> bytes:
+    """A strip or tile of YCbCr samples (rows, cols, 3) as TIFF stores it
+    subsampled: per block row, ceil(cols / hs) blocks of hs × vs luma
+    samples (edge-replicated past the segment), then the box means of Cb
+    and Cr."""
+    rows, cols = blk.shape[:2]
+    br, bc = -(-rows // vs), -(-cols // hs)
+    y = np.pad(blk[..., 0], ((0, br * vs - rows), (0, bc * hs - cols)), mode="edge")
+    cb, cr = (_subsample_box(blk[..., i].astype(np.float64), hs, vs) for i in (1, 2))
+    out = np.zeros((br, bc, hs * vs + 2), np.uint8)
+    out[..., :hs * vs] = y.reshape(br, vs, bc, hs).transpose(0, 2, 1, 3).reshape(br, bc, -1)
+    out[..., -2], out[..., -1] = cb, cr
+    return out.tobytes()
+
+
+def encode_tiff_ycbcr(ycc, hs: int = 2, vs: int = 2, compression: int = 5,
+                      predictor: int = 1, **kw) -> bytes:
+    """A YCbCr TIFF (photometric 6) of ``ycc`` (H, W, 3) stored subsampled
+    by (``hs``, ``vs``) and compressed with LZW, Deflate or PackBits;
+    ``predictor`` 2 differences each TIFFScanlineSize chunk of the packed
+    blocks (a block row over ``vs``) three bytes apart, as libtiff undoes
+    it; ``kw``: ``encode_tiff``'s layout arguments and tags (YCbCrPositioning,
+    ReferenceBlackWhite, YCbCrCoefficients)."""
+    tags = list(kw.pop("tags", ())) + [(530, 3, [hs, vs])]
+    level = kw.pop("level", 6)
+    fill_order = kw.pop("fill_order", 1)
+
+    def codec(blk):
+        raw = np.frombuffer(ycbcr_blocks(blk, hs, vs), np.uint8).astype(np.int64)
+        if predictor == 2:
+            chunk = -(-blk.shape[1] // hs) * (hs * vs + 2) // vs
+            rows = raw.reshape(-1, chunk)
+            d = rows.copy()
+            d[:, 3:] = rows[:, 3:] - rows[:, :-3]
+            raw = (d % 256).reshape(-1)
+        raw = raw.astype(np.uint8).tobytes()
+        if compression == 5:
+            return lzw(raw)
+        if compression in (8, 32946):
+            return zlib.compress(raw, level)
+        return packbits(raw)
+
+    return encode_tiff(ycc, photometric=6, compression=compression, predictor=predictor,
+                       codec=codec, tags=tags, fill_order=fill_order, **kw)
+
+
+def _dht_tables(stream: bytes) -> tuple[dict, dict]:
+    """A JPEG's quantization tables {id: 64 bytes, zigzag order} and
+    Huffman tables {(class, id): 16 counts + symbols}."""
+    q, h = {}, {}
+    for m, seg in jpeg_parts(stream)[0]:
+        body, p = seg[4:], 0
+        while m == 0xDB and p < len(body):
+            q[body[p] & 15] = body[p + 1:p + 65]
+            p += 65
+        while m == 0xC4 and p < len(body):
+            n = sum(body[p + 1:p + 17])
+            h[(body[p] >> 4, body[p] & 15)] = body[p + 1:p + 17 + n]
+            p += 17 + n
+    return q, h
+
+
+def encode_tiff_ojpeg(ycc, hs: int = 2, vs: int = 2, rows_per_strip=None,
+                      layout: str = "tables", quality: int = 75, photometric: int = 6,
+                      **kw) -> bytes:
+    """An old-style JPEG TIFF (compression 6) of ``ycc`` (H, W, 3): one
+    baseline JPEG of the image (padded by edge rows to whole strips), one
+    restart interval a strip, its entropy data cut at the restart markers
+    into the strips. ``layout``: "tables" (JPEGQTables, JPEGDCTables,
+    JPEGACTables, JPEGProc 1, JPEGRestartInterval, the subsampling tag),
+    "jif" (JPEGInterchangeFormat: the stream up to its SOS) or "jif_whole"
+    (the whole stream there, the strips after it as well); ``kw``'s tags
+    replace the ones of the same number."""
+    ycc = np.asarray(ycc)
+    H, W = ycc.shape[:2]
+    rps = rows_per_strip or H
+    total = -(-H // rps) * rps
+    full = np.pad(ycc, ((0, total - H), (0, 0), (0, 0)), mode="edge")
+    if layout != "tables":
+        full = full[:H]
+    restart = -(-W // (8 * hs)) * (rps // (8 * vs)) if rps < H else 0
+    stream = encode_jpeg([full[..., i] for i in range(3)], sampling=[(hs, vs), (1, 1), (1, 1)],
+                         ids=[0, 1, 2], quality=quality, restart=restart, markers=b"")
+    segs, rest = jpeg_parts(stream)
+    strips = split_restarts(rest)
+    override = list(kw.pop("tags", ()))
+    tags = []
+    if layout == "tables":
+        q, h = _dht_tables(stream)
+        blob, at = b"", []
+        for part in (q[0], q[1], h[(0, 0)], h[(0, 1)], h[(1, 0)], h[(1, 1)]):
+            at.append(8 + len(blob))
+            blob += part + b"\0" * (len(part) & 1)
+        tags += [(512, 3, [1]), (519, 4, [at[0], at[1], at[1]]), (520, 4, [at[2], at[3], at[3]]),
+                 (521, 4, [at[4], at[5], at[5]]), (515, 3, [restart]), (530, 3, [hs, vs])]
+    else:
+        blob = stream if layout == "jif_whole" else stream[:len(stream) - len(rest)]
+        tags += [(513, 4, [8]), (514, 4, [len(blob)])]
+    tags = [t for t in tags if t[0] not in {o[0] for o in override}] + override
+    it = iter(strips)
+    return encode_tiff(ycc, photometric=photometric, compression=6, rows_per_strip=rps,
+                       codec=lambda blk: next(it), prefix=blob, tags=tags, **kw)
+
+
+# ------------------------------------------------------------- CCITT fax
+# T.4's run codes as (bits, length), by run: terminating 0-63, make-up
+# 64-1728 by 64, the extended make-up 1792-2560 of both colours
+_FAX_WHITE = ["00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111", "10011",
+              "10100", "00111", "01000", "001000", "000011", "110100", "110101", "101010",
+              "101011", "0100111", "0001100", "0001000", "0010111", "0000011", "0000100",
+              "0101000", "0101011", "0010011", "0100100", "0011000", "00000010", "00000011",
+              "00011010", "00011011", "00010010", "00010011", "00010100", "00010101",
+              "00010110", "00010111", "00101000", "00101001", "00101010", "00101011",
+              "00101100", "00101101", "00000100", "00000101", "00001010", "00001011",
+              "01010010", "01010011", "01010100", "01010101", "00100100", "00100101",
+              "01011000", "01011001", "01011010", "01011011", "01001010", "01001011",
+              "00110010", "00110011", "00110100"]
+_FAX_WHITE_MAKEUP = ["11011", "10010", "010111", "0110111", "00110110", "00110111",
+                     "01100100", "01100101", "01101000", "01100111", "011001100", "011001101",
+                     "011010010", "011010011", "011010100", "011010101", "011010110",
+                     "011010111", "011011000", "011011001", "011011010", "011011011",
+                     "010011000", "010011001", "010011010", "011000", "010011011"]
+_FAX_BLACK = ["0000110111", "010", "11", "10", "011", "0011", "0010", "00011", "000101",
+              "000100", "0000100", "0000101", "0000111", "00000100", "00000111", "000011000",
+              "0000010111", "0000011000", "0000001000", "00001100111", "00001101000",
+              "00001101100", "00000110111", "00000101000", "00000010111", "00000011000",
+              "000011001010", "000011001011", "000011001100", "000011001101", "000001101000",
+              "000001101001", "000001101010", "000001101011", "000011010010", "000011010011",
+              "000011010100", "000011010101", "000011010110", "000011010111", "000001101100",
+              "000001101101", "000011011010", "000011011011", "000001010100", "000001010101",
+              "000001010110", "000001010111", "000001100100", "000001100101", "000001010010",
+              "000001010011", "000000100100", "000000110111", "000000111000", "000000100111",
+              "000000101000", "000001011000", "000001011001", "000000101011", "000000101100",
+              "000001011010", "000001100110", "000001100111"]
+_FAX_BLACK_MAKEUP = ["0000001111", "000011001000", "000011001001", "000001011011",
+                     "000000110011", "000000110100", "000000110101", "0000001101100",
+                     "0000001101101", "0000001001010", "0000001001011", "0000001001100",
+                     "0000001001101", "0000001110010", "0000001110011", "0000001110100",
+                     "0000001110101", "0000001110110", "0000001110111", "0000001010010",
+                     "0000001010011", "0000001010100", "0000001010101", "0000001011010",
+                     "0000001011011", "0000001100100", "0000001100101"]
+_FAX_EXT_MAKEUP = ["00000001000", "00000001100", "00000001101", "000000010010",
+                   "000000010011", "000000010100", "000000010101", "000000010110",
+                   "000000010111", "000000011100", "000000011101", "000000011110",
+                   "000000011111"]
+_FAX_EOL = "000000000001"
+_FAX_MODES = {"P": "0001", "H": "001", 0: "1", 1: "011", 2: "000011", 3: "0000011",
+              -1: "010", -2: "000010", -3: "0000010"}
+
+
+def _fax_run(run: int, black: bool) -> str:
+    term, makeup = (_FAX_BLACK, _FAX_BLACK_MAKEUP) if black else (_FAX_WHITE, _FAX_WHITE_MAKEUP)
+    out = ""
+    while run >= 2560 + 64:
+        out += _FAX_EXT_MAKEUP[-1]
+        run -= 2560
+    if run >= 64:
+        m = run // 64 * 64
+        out += makeup[m // 64 - 1] if m <= 1728 else _FAX_EXT_MAKEUP[(m - 1792) // 64]
+        run -= m
+    return out + term[run]
+
+
+def _fax_changes(row) -> list:
+    """Positions where the colour changes (from white, 0, at -1), then the
+    row's width twice (T.4's a1 / b1 past the end)."""
+    row = np.asarray(row, np.int64)
+    prev = np.concatenate([[0], row[:-1]])
+    ch = list(np.nonzero(row != prev)[0])
+    return ch + [len(row), len(row)]
+
+
+def _fax_1d(row) -> str:
+    out, colour, x = "", 0, 0
+    for c in _fax_changes(row)[:-2] + [len(row)]:
+        out += _fax_run(c - x, bool(colour))
+        colour ^= 1
+        x = c
+    return out
+
+
+def _fax_2d(row, ref) -> str:
+    """T.4 / T.6 two-dimensional coding of ``row`` against ``ref``."""
+    W = len(row)
+    cur, refc = _fax_changes(row)[:-2], _fax_changes(ref)[:-2]
+    out, a0, colour = [], -1, 0
+    while a0 < W:
+        i = bisect.bisect_right(cur, a0)  # a1: the next change right of a0
+        a1 = cur[i] if i < len(cur) else W
+        a2 = cur[i + 1] if i + 1 < len(cur) else W
+        j = bisect.bisect_right(refc, a0)  # b1: the next opposite-colour change above
+        if j < len(refc) and j % 2 != colour:
+            j += 1
+        b1 = refc[j] if j < len(refc) else W
+        b2 = refc[j + 1] if j + 1 < len(refc) else W
+        if b2 < a1:  # pass
+            out.append(_FAX_MODES["P"])
+            a0 = b2
+        elif abs(a1 - b1) <= 3:  # vertical
+            out.append(_FAX_MODES[a1 - b1])
+            a0 = a1
+            colour ^= 1
+        else:  # horizontal
+            out.append(_FAX_MODES["H"] + _fax_run(a1 - max(a0, 0), bool(colour))
+                       + _fax_run(a2 - a1, not colour))
+            a0 = a2
+    return "".join(out)
+
+
+def pil_dither(u8) -> np.ndarray:
+    """PIL's ``convert("1")`` of an 8-bit gray image (Convert.c's
+    Floyd-Steinberg ``tobilevel``, integer errors in sixteenths), as
+    (H, W) bool (True: white), without PIL."""
+    u8 = np.asarray(u8, np.int64)
+    H, W = u8.shape
+    out = np.zeros((H, W), bool)
+    errors = [0] * (W + 1)
+    for y in range(H):
+        row = u8[y].tolist()
+        o = [False] * W
+        l = l0 = l1 = 0
+        for x in range(W):
+            v = row[x] + (l + errors[x + 1]) // 16 if l + errors[x + 1] >= 0 \
+                else row[x] - (-(l + errors[x + 1]) // 16)
+            v = 0 if v < 0 else 255 if v > 255 else v
+            white = v > 128
+            o[x] = white
+            l = v - (255 if white else 0)
+            l2 = l
+            d2 = l + l
+            l += d2
+            errors[x] = l + l0
+            l += d2
+            l0 = l + l1
+            l1 = l2
+            l += d2
+        errors[W] = l0
+        out[y] = o
+    return out
+
+
+def _bits_to_bytes(bits: str) -> bytes:
+    bits += "0" * (-len(bits) % 8)
+    return int(bits, 2).to_bytes(len(bits) // 8, "big") if bits else b""
+
+
+def fax_encode(bits, compression: int, options: int = 0, rtc: bool = True,
+               two_d_every: int = 2) -> bytes:
+    """CCITT coding of a (rows, cols) 0/1 array (1: a black run), MSB
+    first: 2 (Modified Huffman, rows byte-aligned), 32771 (the same,
+    word-aligned), 3 (Group 3: an EOL before each row; ``options`` bit 0:
+    2D, every ``two_d_every``-th row 1D, the tag bit after each EOL; bit 2:
+    fill bits that end each EOL on a byte boundary; ``rtc``: six EOLs at the
+    end) or 4 (Group 4, an EOFB at the end)."""
+    bits = np.asarray(bits).reshape(len(bits), -1).astype(np.int64)
+    W = bits.shape[1]
+    out, ref = "", np.zeros(W, np.int64)
+    for i, row in enumerate(bits):
+        if compression in (2, 32771):
+            out += _fax_1d(row)
+            align = 8 if compression == 2 else 16
+            out += "0" * (-len(out) % align)
+            continue
+        if compression == 4:
+            out += _fax_2d(row, ref)
+            ref = row
+            continue
+        eol = _FAX_EOL
+        if options & 4:  # fill bits: the EOL ends on a byte boundary
+            extra = 1 if options & 1 else 0
+            out += "0" * ((-(len(out) + len(eol) + extra)) % 8)
+        out += eol
+        if options & 1:
+            one_d = i % two_d_every == 0
+            out += "1" if one_d else "0"
+            out += _fax_1d(row) if one_d else _fax_2d(row, ref)
+        else:
+            out += _fax_1d(row)
+        ref = row
+    if compression == 4:
+        out += _FAX_EOL * 2
+    elif compression == 3 and rtc:
+        out += (_FAX_EOL + ("1" if options & 1 else "")) * 6
+    return _bits_to_bytes(out)
+
+
+def encode_tiff_fax(bits, compression: int = 4, photometric: int = 0, options: int = 0,
+                    rtc: bool = True, corrupt=None, **kw) -> bytes:
+    """A bilevel CCITT TIFF of ``bits`` (1: black-coded runs); ``options``
+    the T4Options (3) or T6Options (4) tag; ``corrupt(data) -> data`` alters
+    each strip's stored bytes; ``kw``: ``encode_tiff``'s layout arguments."""
+    tags = list(kw.pop("tags", ()))
+    if compression in (3, 4) and options:
+        tags.append((292 if compression == 3 else 293, 4, [options]))
+
+    def codec(blk):
+        data = fax_encode(blk[..., 0], compression, options, rtc)
+        return corrupt(data) if corrupt else data
+
+    return encode_tiff(np.asarray(bits, np.int64), bits=1, photometric=photometric,
+                       compression=compression, codec=codec, tags=tags, **kw)
 
 
 # ------------------------------------------------------------------- BMP
@@ -1877,6 +2310,7 @@ def small_files(seed: int) -> dict:
     files["p4.pbm"] = (encode_pnm("P4", bits[:, :61]), "P4 binary bitmap (61 columns)")
     files["p1.pbm"] = (encode_pnm("P1", bits), "P1 plain bitmap")
     files.update(tiff_bmp_pfm_files(seed))
+    files.update(tiff_codec_files(seed))
     files.update(gif_webp_files(seed))
     files.update(unported_files(seed))
     return files
@@ -1993,18 +2427,19 @@ def tiff_bmp_pfm_files(seed: int) -> dict:
                              refused("unknown pixel mode")),
         "tiff_lab.tif": (encode_tiff(rgb2, photometric=8),
                          "TIFF CIELAB (PIL cannot convert LAB to L)", refused("CIELAB")),
-        # TIFF kinds PIL reads through libtiff, not ported
+        # TIFF kinds PIL reads through libtiff
         "tiff_jpeg.tif": (_pil_save(Image.fromarray(rgb2), "TIFF", compression="jpeg"),
-                          "TIFF JPEG compression (PIL, libtiff)", unported("JPEG compression")),
+                          "TIFF RGB, new-style JPEG (PIL, libtiff)"),
         "tiff_ccitt_g4.tif": (_pil_save(Image.fromarray(g > 128), "TIFF", compression="group4"),
-                              "TIFF CCITT group 4 (PIL, libtiff)", unported("CCITT")),
+                              "TIFF CCITT Group 4 (PIL, libtiff)"),
+        # TIFF kinds PIL reads through libtiff, not ported
         "tiff_lzma.tif": (_pil_save(Image.fromarray(g2), "TIFF", compression="lzma"),
                           "TIFF LZMA (PIL, libtiff)", unported("LZMA")),
         "tiff_zstd.tif": (_pil_save(Image.fromarray(g2), "TIFF", compression="zstd"),
                           "TIFF ZSTD (PIL, libtiff)", unported("ZSTD")),
         "tiff_ycbcr_lzw.tif": (encode_tiff(rgb2, photometric=6, compression=5),
-                               "TIFF YCbCr, LZW (PIL: libtiff's RGBA interface)",
-                               unported("compressed YCbCr")),
+                               "TIFF YCbCr, LZW, no subsampling tag (libtiff's RGBA interface "
+                               "reads the chunky samples as 2 × 2 blocks)"),
         # BMP: PIL's writer
         "bmp_1bit.bmp": (_pil_save(Image.fromarray(g > 128), "BMP"), "BMP 1-bit (PIL)"),
         "bmp_gray8.bmp": (_pil_save(Image.fromarray(g), "BMP"), "BMP 8-bit grey palette (PIL)"),
@@ -2065,6 +2500,164 @@ def tiff_bmp_pfm_files(seed: int) -> dict:
     files["pfm_le.pfm"] = (encode_pfm(f32, -1.0), "PFM gray, little-endian")
     files["pfm_be.pfm"] = (encode_pfm(f32[:h2, :w2] * 2, 0.5), "PFM gray, big-endian")
     return files
+
+
+def tiff_codec_files(seed: int) -> dict:
+    """name → (bytes, kind[, manifest extras]) of the TIFFs PIL reads
+    through libtiff's JPEG, old-style JPEG, CCITT and YCbCr paths: PIL's
+    writer where it writes the kind, this file's encoders for the rest, the
+    recovery of libtiff's fax decoder from bad data, and the layouts the
+    port refuses though PIL reads them."""
+    from PIL import Image
+
+    H, W = H_SMALL, W_SMALL
+    rgb = scene(H, W, seed + 40, 3)
+    ycc = rgb_to_ycbcr(rgb)
+    g = rgb[..., 1]
+    bits = (scene(H, W - 3, seed + 41) > 120).astype(np.int64)  # an odd width
+    unported = lambda word: {"refused": True, "refusal": word, "pil_reads": True}  # noqa: E731
+
+    def dither(img):
+        return Image.fromarray(img).convert("1")
+
+
+    def second_strip(change):
+        seen = []
+
+        def corrupt(data):
+            seen.append(1)
+            return change(data) if len(seen) == 2 else data
+        return corrupt
+
+    def bad_code(data):  # zeros where a run's code starts: no white code begins so
+        return data[:6] + b"\x00\x80" + data[8:]
+
+    def tall_last(blk):  # every strip's stream 16 rows tall, the last one too
+        full = np.pad(blk, ((0, 16 - blk.shape[0]), (0, 0), (0, 0)), mode="edge")
+        return encode_jpeg([full[..., i] for i in range(3)], sampling=[(2, 2), (1, 1), (1, 1)],
+                           markers=b"")
+
+    def short(blk):  # each strip's stream 2 rows short
+        return encode_jpeg([blk[:-2, :, i] for i in range(3)], sampling=[(2, 2), (1, 1), (1, 1)],
+                           markers=b"")
+
+    def no_tag(blk):  # YCbCrSubsampling absent: libtiff takes the stream's 1 × 1
+        return encode_jpeg([blk[..., i] for i in range(3)], markers=b"")
+
+    def jpeg12(blk):
+        return encode_jpeg([blk[..., 0]], precision=12, markers=b"")
+
+    return {
+        # new-style JPEG (7)
+        "tiff_jpeg_gray.tif": (_pil_save(Image.fromarray(g), "TIFF", compression="jpeg"),
+                               "TIFF gray, new-style JPEG (PIL, libtiff)"),
+        "tiff_jpeg_ycbcr_pil.tif": (_pil_save(Image.fromarray(rgb).convert("YCbCr"), "TIFF",
+                                              compression="jpeg"),
+                                    "TIFF YCbCr 1 × 1, new-style JPEG (PIL, libtiff)"),
+        "tiff_jpeg_ycc420.tif": (encode_tiff_jpeg(ycc, 6, (2, 2), "all", rows_per_strip=16),
+                                 "TIFF YCbCr 4:2:0, new-style JPEG, 16-row strips, shared "
+                                 "JPEGTables (quantization and Huffman)"),
+        "tiff_jpeg_ycc422_tiles.tif": (encode_tiff_jpeg(ycc, 6, (2, 1), "dqt", restart=2,
+                                                        tile=(32, 16), order=">"),
+                                       "TIFF YCbCr 4:2:2, new-style JPEG, 32×16 tiles, "
+                                       "restart intervals, big-endian"),
+        "tiff_jpeg_rgb_planar.tif": (encode_tiff_jpeg(rgb, 2, tables="dqt", planar=2,
+                                                      rows_per_strip=24),
+                                     "TIFF RGB, new-style JPEG, separate planes"),
+        "tiff_jpeg_ycc_planar.tif": (encode_tiff_jpeg(ycc, 6, (1, 1), "none", planar=2,
+                                                      rows_per_strip=16,
+                                                      tags=[(530, 3, [1, 1])]),
+                                     "TIFF YCbCr, new-style JPEG, separate planes (libtiff's "
+                                     "RGBA interface)"),
+        "tiff_jpeg_orient6.tif": (encode_tiff_jpeg(ycc[:32, :40], 6, (2, 2), "all",
+                                                   rows_per_strip=16, orientation=6),
+                                  "TIFF YCbCr 4:2:0, new-style JPEG, Orientation 6"),
+        "tiff_jpeg_tall_last.tif": (encode_tiff(ycc, photometric=6, compression=7,
+                                                codec=tall_last, rows_per_strip=16,
+                                                tags=[(530, 3, [2, 2])]),
+                                    "TIFF new-style JPEG whose last strip's stream is a whole "
+                                    "strip tall"),
+        "tiff_jpeg_no_subsampling_tag.tif": (encode_tiff(ycc, photometric=6, compression=7,
+                                                         codec=no_tag, rows_per_strip=24),
+                                             "TIFF YCbCr new-style JPEG 1 × 1 without "
+                                             "YCbCrSubsampling (libtiff's fix-up)"),
+        # YCbCr through TIFFRGBAImage
+        "tiff_ycbcr_22_deflate.tif": (encode_tiff_ycbcr(ycc, 2, 2, 8, rows_per_strip=8),
+                                      "TIFF YCbCr 2 × 2, Deflate, 8-row strips"),
+        "tiff_ycbcr_41_packbits_tiles.tif": (encode_tiff_ycbcr(ycc, 4, 1, 32773,
+                                                               tile=(16, 16)),
+                                             "TIFF YCbCr 4 × 1, PackBits, tiles"),
+        "tiff_ycbcr_44_lzw_tiles.tif": (encode_tiff_ycbcr(ycc[:, :40], 4, 4, 5, tile=(32, 16),
+                                                          tags=[(531, 3, [2])]),
+                                        "TIFF YCbCr 4 × 4, LZW, tiles cut by the right edge "
+                                        "(libtiff's 10-byte skip), co-sited"),
+        "tiff_ycbcr_refbw.tif": (encode_tiff_ycbcr(ycc, 2, 1, 5, predictor=2, rows_per_strip=12,
+                                                   order=">",
+                                                   tags=[(532, 5, [16, 1, 235, 1, 128, 1, 240, 1,
+                                                                   128, 1, 240, 1]),
+                                                         (529, 5, [2126, 10000, 7152, 10000,
+                                                                   722, 10000])]),
+                                 "TIFF YCbCr 2 × 1, LZW, predictor 2 (left undone by libtiff: "
+                                 "rows of 4 × 32 bytes), ReferenceBlackWhite, Rec. 709 "
+                                 "coefficients, big-endian"),
+        "tiff_ycbcr_orient3.tif": (encode_tiff_ycbcr(ycc, 1, 2, 5, rows_per_strip=10,
+                                                     orientation=3),
+                                   "TIFF YCbCr 1 × 2, LZW, Orientation 3"),
+        # old-style JPEG (6)
+        "tiff_ojpeg_tables.tif": (encode_tiff_ojpeg(ycc, 2, 2, rows_per_strip=16),
+                                  "TIFF old-style JPEG, JPEGQ/DC/ACTables, 4:2:0, 16-row strips "
+                                  "with restart intervals"),
+        "tiff_ojpeg_jif.tif": (encode_tiff_ojpeg(ycc, 2, 1, layout="jif"),
+                               "TIFF old-style JPEG, JPEGInterchangeFormat header, 4:2:2"),
+        "tiff_ojpeg_jif_whole.tif": (encode_tiff_ojpeg(ycc, 1, 1, rows_per_strip=8,
+                                                       layout="jif_whole"),
+                                     "TIFF old-style JPEG, the whole stream at "
+                                     "JPEGInterchangeFormat, 8-row strips"),
+        # CCITT
+        "tiff_ccitt_mh.tif": (_pil_save(dither(g), "TIFF", compression="tiff_ccitt"),
+                              "TIFF CCITT Modified Huffman (PIL, libtiff)"),
+        "tiff_ccitt_rlew.tif": (_pil_save(dither(g), "TIFF", compression="tiff_raw_16"),
+                                "TIFF CCITT RLEW (PIL, libtiff; libtiff's word alignment "
+                                "misreads PIL's own rows)"),
+        "tiff_ccitt_g3_1d.tif": (_pil_save(dither(g), "TIFF", compression="group3"),
+                                 "TIFF CCITT Group 3 1D (PIL, libtiff)"),
+        "tiff_ccitt_g3_2d_fill.tif": (encode_tiff_fax(bits, 3, 1, 5, rows_per_strip=16),
+                                      "TIFF CCITT Group 3 2D, fill bits, odd width"),
+        "tiff_ccitt_g4_fill2.tif": (encode_tiff_fax(bits, 4, 0, fill_order=2,
+                                                    rows_per_strip=20),
+                                    "TIFF CCITT Group 4, fill order 2, min-is-white"),
+        "tiff_ccitt_g4_tiles.tif": (encode_tiff_fax(bits, 4, 1, tile=(32, 16)),
+                                    "TIFF CCITT Group 4, tiles"),
+        "tiff_ccitt_mh_bad_code.tif": (encode_tiff_fax(bits, 2, 1, rows_per_strip=16,
+                                                       corrupt=second_strip(bad_code)),
+                                       "TIFF CCITT MH, a bad code word in the second strip "
+                                       "(its row ends, the rows after it stay on it)"),
+        "tiff_ccitt_g3_noeol.tif": (encode_tiff_fax(bits, 3, 1, 0, rows_per_strip=16,
+                                                    corrupt=second_strip(
+                                                        lambda d: d[:len(d) // 3])),
+                                    "TIFF CCITT Group 3 1D, the second strip cut short "
+                                    "(libtiff decodes it again without EOLs, and the rest)"),
+        "tiff_ccitt_g4_eofb.tif": (encode_tiff_fax(bits, 4, 1, rows_per_strip=16,
+                                                   corrupt=second_strip(
+                                                       lambda d: fax_encode(bits[16:21], 4))),
+                                   "TIFF CCITT Group 4, an EOFB after 5 rows of the second "
+                                   "strip (its other rows keep the first strip's)"),
+        # layouts PIL reads that the port refuses
+        "tiff_jpeg_12bit.tif": (encode_tiff(g.astype(np.int64) * 16, bits=12, compression=7,
+                                            codec=jpeg12),
+                                "TIFF 12-bit gray, new-style JPEG", unported("12-bit")),
+        "tiff_jpeg_short.tif": (encode_tiff(ycc, photometric=6, compression=7, codec=short,
+                                            rows_per_strip=16, tags=[(530, 3, [2, 2])]),
+                                "TIFF new-style JPEG whose streams are 2 rows short of their "
+                                "strips", unported("smaller")),
+        "tiff_ojpeg_be_strips.tif": (encode_tiff_ojpeg(ycc, 2, 2, rows_per_strip=16, order=">"),
+                                     "TIFF old-style JPEG, big-endian, 16-row strips",
+                                     unported("big-endian")),
+        "tiff_ojpeg_one_restart.tif": (encode_tiff_ojpeg(ycc, 2, 2, rows_per_strip=16,
+                                                         tags=[(515, 3, [1])]),
+                                       "TIFF old-style JPEG whose restart interval is not a "
+                                       "strip's", unported("restart interval")),
+    }
 
 
 def gif_webp_files(seed: int) -> dict:
