@@ -187,13 +187,15 @@ Phases (one JSON line each):
      numpy on the lines path's own pre-merge segments (equal shapes,
      within 1e-9), and ``real_photo.jpg`` decoded to the pinned
      ``REAL_PHOTO_L_SHA256``; ``image_kinds``, every JPEG, netpbm, PFM,
-     TIFF, BMP, GIF and WebP kind the JAX package reads through PIL: the
+     TIFF, BMP, DIB, GIF, WebP, QOI, Sun raster, PCX, SGI, TGA, ICO, CUR
+     and DDS kind the JAX package reads through PIL: the
      committed fixtures of ``tests/fixtures/image_kinds`` on three decode
      routes against PIL's pinned hashes (the kinds PIL refuses, and those
      the port does not read yet, raising ``NotImplementedError``; a lossy
      752×480 WebP pair among them), ``cli_run``'s tree as 16-bit P5,
-     16-bit LZW TIFF and gray GIF (native route) and as plain P2, 8-bit BMP
-     and VP8L WebP (``--no-native``), trajectories and launches equal to
+     16-bit LZW TIFF, gray GIF and RLE TGA (native route) and as plain P2,
+     8-bit BMP, VP8L WebP and RLE SGI (``--no-native``), trajectories and
+     launches equal to
      its PNG runs, and a committed 752×480 progressive stereo sequence
      through ``cli run`` and ``cli serve``, equal to PNG copies of its
      pixels, with K1 (both modes), K2 and K3 launched; decode ms per pair
@@ -259,6 +261,21 @@ Phases (one JSON line each):
      ``native``, ``image_kinds`` and ``cli_photo`` (launch counts null in
      the summary).
 
+Scheduling (the default run, which must end well inside 20 minutes): each
+phase line carries ``t_s``, seconds since the script started. After the
+kernel checks, a pool of ``PRERENDER_WORKERS`` spawned processes renders
+the seeded frames of the later phases (the BA scene, rendered once for
+all its paths, the configurations' raw pairs, the loop sequence, the
+multi-sequence runs) while the card runs the earlier ones. A CLI phase
+starts its processes (``_cli_start``) and runs its in-process half beside
+them: ``cli_run``'s three at once, OIVIO's two beside the other three
+configurations, ``cli_global``'s beside its own in-process run, and
+``cli_photo``, ``cli_synth`` and ``pretrain``, which need nothing of the
+phases before them, from ``end_to_end_loop`` on; each is gated in its own
+place (``_cli_wait``), and every process still running is killed on the
+way out. Wall times of the paths that run beside such processes share the
+host with them; the kernel lines are measured before any starts.
+
 Any failure raises and exits non-zero. The script imports nothing of JAX
 or of the JAX package.
 """
@@ -308,9 +325,12 @@ PHOTO = os.path.join(ROOT, "tests", "fixtures", "real_photo.jpg")
 
 
 CARD = None  # the nvidia-smi name and power limit, which the training phases repeat
+T0 = time.perf_counter()  # the script's start: each phase line's ``t_s`` counts from it
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1086,18 +1106,110 @@ def phase_local_ba_check(profile: bool):
     return out
 
 
-def _scene(cfg, lines: bool, n: int = E2E_FRAMES):
-    """The end-to-end scene's first ``n`` (30) rendered stereo pairs (with
-    12 dark segments on the lines paths), the ground-truth trajectory, and
-    the render time."""
+def _scene_frames(camera, lines: bool):
+    """The end-to-end scene's 30 rendered stereo pairs (with 12 dark
+    segments on the lines paths) through ``camera``."""
     from rspl_slam_tpu_torch.evaluation import synthetic
 
-    t0 = time.perf_counter()
     scene = synthetic.make_scene(num_points=600, num_lines=12 if lines else 0, seed=1,
                                  extent=(6.0, 4.0, 6.0), on_line_frac=0.0)
     traj = synthetic.make_trajectory(E2E_FRAMES, step=0.05)
-    frames = [synthetic.render_images(scene, cfg.camera, traj[i], seed=i) for i in range(n)]
+    return [synthetic.render_images(scene, camera, traj[i], seed=i) for i in range(E2E_FRAMES)]
+
+
+_SCENES = {}  # (camera, lines) → the 30 pairs: each path gets its own copy
+
+
+def _scene(cfg, lines: bool, n: int = E2E_FRAMES):
+    """The end-to-end scene's first ``n`` (30) rendered stereo pairs (with
+    12 dark segments on the lines paths), the ground-truth trajectory, and
+    the seconds this call waited for the frames (rendered once per camera
+    and scene, ahead in the prerender pool where the run started one)."""
+    from rspl_slam_tpu_torch.config import SystemConfig
+    from rspl_slam_tpu_torch.evaluation import synthetic
+
+    t0 = time.perf_counter()
+    key = (repr(cfg.camera), lines)
+    if key not in _SCENES:
+        _SCENES[key] = (_rendered(("scene", lines)) if cfg.camera == SystemConfig().camera
+                        else _scene_frames(cfg.camera, lines))
+    frames = [tuple(im.copy() for im in pair) for pair in _SCENES[key][:n]]
+    traj = synthetic.make_trajectory(E2E_FRAMES, step=0.05)
     return frames, traj, time.perf_counter() - t0
+
+
+# frames of the full run's later phases, rendered in a pool of spawned
+# processes on the host's idle cores while the card runs the earlier ones
+# (the renders are seeded: the same frames as rendered in line)
+PRERENDER_WORKERS = 3
+LOOP_RENDER_CHUNK = 26
+_PRERENDER = {"pool": None, "jobs": {}}
+
+
+def _render(key):
+    """One render job (in a pool worker, or in line): the value
+    :func:`_rendered` returns for ``key``."""
+    from rspl_slam_tpu_torch.config import SystemConfig, load_system_config
+    from rspl_slam_tpu_torch.evaluation import synthetic
+
+    kind = key[0]
+    if kind == "scene":  # ("scene", lines): _scene's pairs
+        return _scene_frames(SystemConfig().camera, key[1])
+    if kind == "config":  # ("config", path): the configuration's raw pairs
+        full = os.path.join(ROOT, key[1])
+        cam = load_system_config(full, full).camera
+        frames, traj, scale = config_scene(cam, E2E_FRAMES)
+        return raw_frames(cam, frames), traj, scale
+    if kind == "loop":  # ("loop", first, end): 8-bit pairs of the loop sequence
+        scene, traj = loop_sequence()
+        cam = SystemConfig().camera
+        return [tuple((np.clip(im, 0, 1) * 255).astype(np.uint8)
+                      for im in synthetic.render_images(scene, cam, traj[i], seed=i))
+                for i in range(key[1], key[2])]
+    if kind == "ms":  # ("ms", s): sequence s of multi_sequence, and its trajectory
+        return _ms_sequence(_ms_cfg(), key[1])
+    raise ValueError(f"no render job {key}")
+
+
+def _loop_keys():
+    return [("loop", lo, min(lo + LOOP_RENDER_CHUNK, LOOP_FRAMES))
+            for lo in range(0, LOOP_FRAMES, LOOP_RENDER_CHUNK)]
+
+
+def start_prerender():
+    """Submit every render of the full run's later phases, in the order the
+    phases need them, to a pool of ``PRERENDER_WORKERS`` spawned processes."""
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing
+
+    pool = ProcessPoolExecutor(max_workers=PRERENDER_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    _PRERENDER["pool"] = pool
+    keys = [("scene", True), ("scene", False), *[("config", path) for _, path in CONFIGS],
+            *_loop_keys(), *[("ms", s) for s in range(MS_SEQUENCES)]]
+    for key in keys:
+        _PRERENDER["jobs"][key] = pool.submit(_render, key)
+
+
+def stop_prerender():
+    """Cancel the renders no phase took and end the pool's processes."""
+    pool = _PRERENDER["pool"]
+    if pool is not None:
+        pool.shutdown(wait=True, cancel_futures=True)
+        _PRERENDER["pool"] = None
+    _PRERENDER["jobs"].clear()
+
+
+def _rendered(key):
+    """The render ``key``: from the pool where it was submitted (once),
+    else rendered here."""
+    job = _PRERENDER["jobs"].pop(key, None)
+    if job is None:
+        return _render(key)
+    out = job.result()
+    if not _PRERENDER["jobs"]:  # the last one: the pool's processes end
+        stop_prerender()
+    return out
 
 
 def scale_camera(cam, f: float):
@@ -1930,8 +2042,7 @@ def phase_config(name: str, path: str, seed: int) -> tuple[dict, dict]:
     cfg = load_system_config(full, full)
     cam = cfg.camera
     t0 = time.perf_counter()
-    frames, traj, scale = config_scene(cam, E2E_FRAMES)
-    raw = raw_frames(cam, frames)
+    raw, traj, scale = _rendered(("config", path))
     render_s = time.perf_counter() - t0
     fe = _frontend(cfg, lines=True)
     pair = np.stack(raw[0])
@@ -2020,13 +2131,12 @@ def phase_config(name: str, path: str, seed: int) -> tuple[dict, dict]:
     return line, counts, (cfg, raw, traj)
 
 
-def phase_config_cli(name: str, path: str, raw, traj) -> dict:
+def start_config_cli(name: str, path: str, raw, traj) -> dict:
     """``cli run --config <file>`` on the configuration's raw frames written
     as a raw-EuRoC PNG tree (the file's own camera section rectifies them):
     by default (the native loader rectifies on the host with the config's
-    maps) and with ``--no-native`` (the card rectifies). Gated on both
-    exits, 30 frames and the two routes' trajectories within
-    ``NATIVE_ROUTE_POS_TOL``."""
+    maps) and with ``--no-native`` (the card rectifies), both processes
+    started at once; :func:`phase_config_cli` gates them."""
     from rspl_slam_tpu_torch.config import load_system_config
     from rspl_slam_tpu_torch.models import rcf, superglue, superpoint
     from rspl_slam_tpu_torch.models.weights import save_npz_pytree
@@ -2047,16 +2157,25 @@ def phase_config_cli(name: str, path: str, raw, traj) -> dict:
               "--sp-weights", os.path.join(work, "sp.npz"),
               "--sg-weights", os.path.join(work, "sg.npz"),
               "--rcf-weights", os.path.join(work, "rcf.npz"), "--gt", tree)
+    routes = {"native": (), "no_native": ("--no-native",)}
+    return {"name": name, "work": work, "frames": len(raw), "routes": routes,
+            "t0": time.perf_counter(),
+            "started": _cli_start(*[("run", *common, "--traj-path",
+                                     os.path.join(work, f"traj_{route}.txt"), *extra)
+                                    for route, extra in routes.items()])}
+
+
+def phase_config_cli(started: dict) -> dict:
+    """:func:`start_config_cli`'s two runs, gated on both exits, 30 frames
+    and the two routes' trajectories within ``NATIVE_ROUTE_POS_TOL``."""
+    name, work = started["name"], started["work"]
     runs = {}
-    for route, extra in (("native", ()), ("no_native", ("--no-native",))):
-        traj_path = os.path.join(work, f"traj_{route}.txt")
-        t0 = time.perf_counter()
-        out = _cli("run", *common, "--traj-path", traj_path, *extra)
+    for route, out in zip(started["routes"], _cli_wait(started["started"])):
         processed = re.search(r"^processed (\d+) frames in ([0-9.]+)s \(([0-9.]+) fps\)$", out,
                               re.M)
-        with open(traj_path) as f:
+        with open(os.path.join(work, f"traj_{route}.txt")) as f:
             text = f.read()
-        runs[route] = {"wall_s": time.perf_counter() - t0,
+        runs[route] = {"wall_s_until_gated": time.perf_counter() - started["t0"],
                        "frames": processed and int(processed.group(1)),
                        "printed_fps": processed and float(processed.group(3)),
                        "native_line": "using native prefetcher + rectification"
@@ -2070,7 +2189,7 @@ def phase_config_cli(name: str, path: str, raw, traj) -> dict:
             "route_pos_tol_m": NATIVE_ROUTE_POS_TOL,
             **{route: {k: v for k, v in r.items() if k != "traj"} for route, r in runs.items()}}
     emit(line)
-    ok = (all(r["frames"] == len(raw) for r in runs.values())
+    ok = (all(r["frames"] == started["frames"] for r in runs.values())
           and runs["native"]["native_line"] and not runs["no_native"]["native_line"]
           and dist["same_keyframes"]
           and dist["max_position_diff_m"] is not None
@@ -2084,18 +2203,19 @@ def phase_config_cli(name: str, path: str, raw, traj) -> dict:
 def phase_configs():
     """The four other shipped configurations (OIVIO, UMA fisheye, RealSense,
     ZED2i), each through ``phase_config``; OIVIO also through ``cli run``
-    (``phase_config_cli``). Returns the launch counts summed over the four
-    runs."""
+    (``start_config_cli``, gated after the four). Returns the launch counts
+    summed over the four runs."""
     import torch
 
-    total = {}
+    total, cli = {}, None
     for i, (name, path) in enumerate(CONFIGS):
         gc.collect()
         torch.cuda.empty_cache()
         _, counts, (cfg, raw, traj) = phase_config(name, path, seed=20 + i)
         total = {k: total.get(k, 0) + c for k, c in counts.items()}
-        if name == "oivio":
-            phase_config_cli(name, path, raw, traj)
+        if name == "oivio":  # its CLI runs beside the other configurations' runs
+            cli = start_config_cli(name, path, raw, traj)
+    phase_config_cli(cli)
     return total
 
 
@@ -2309,17 +2429,15 @@ def phase_end_to_end_loop():
     from torch.profiler import ProfilerActivity, profile
 
     from rspl_slam_tpu_torch.config import PipelineConfig, SystemConfig
-    from rspl_slam_tpu_torch.evaluation import absolute_trajectory_error, synthetic
+    from rspl_slam_tpu_torch.evaluation import absolute_trajectory_error
     from rspl_slam_tpu_torch.pipeline import PipelinedRunner
     from rspl_slam_tpu_torch.slam import INIT_POSE, SLAMSystem
 
     cfg = SystemConfig(pipeline=PipelineConfig(track_local_map=True))
     cam = cfg.camera
-    scene, traj = loop_sequence()
+    _, traj = loop_sequence()
     t0 = time.perf_counter()
-    frames = [tuple((np.clip(im, 0, 1) * 255).astype(np.uint8)
-                    for im in synthetic.render_images(scene, cam, traj[i], seed=i))
-              for i in range(LOOP_FRAMES)]
+    frames = [pair for key in _loop_keys() for pair in _rendered(key)]
     render_s = time.perf_counter() - t0
     gt = np.einsum("ij,njk->nik", INIT_POSE, traj)
     ts = np.arange(LOOP_FRAMES) * 0.05
@@ -2651,20 +2769,24 @@ def _ms_cfg():
         cfg.pipeline, max_map_keyframes=64, max_map_points=16384, max_map_lines=1024))
 
 
-def _ms_sequences(cfg):
-    """The sequences' 8-bit frames and ground-truth trajectories."""
+def _ms_sequence(cfg, s: int):
+    """Sequence ``s``'s 8-bit frames and ground-truth trajectory."""
     from rspl_slam_tpu_torch.evaluation import synthetic
 
-    seqs, trajs = [], []
-    for s in range(MS_SEQUENCES):
-        scene = synthetic.make_scene(num_points=600, num_lines=12, seed=1 + s,
-                                     extent=(6.0, 4.0, 6.0), on_line_frac=0.0)
-        traj = synthetic.make_trajectory(MS_FRAMES, step=0.05, yaw_rate=0.002 * (s + 1))
-        seqs.append([tuple((np.clip(im, 0, 1) * 255).astype(np.uint8)
-                           for im in synthetic.render_images(scene, cfg.camera, traj[i], seed=i))
-                     for i in range(MS_FRAMES)])
-        trajs.append(traj)
-    return seqs, trajs
+    scene = synthetic.make_scene(num_points=600, num_lines=12, seed=1 + s,
+                                 extent=(6.0, 4.0, 6.0), on_line_frac=0.0)
+    traj = synthetic.make_trajectory(MS_FRAMES, step=0.05, yaw_rate=0.002 * (s + 1))
+    return [tuple((np.clip(im, 0, 1) * 255).astype(np.uint8)
+                  for im in synthetic.render_images(scene, cfg.camera, traj[i], seed=i))
+            for i in range(MS_FRAMES)], traj
+
+
+def _ms_sequences(cfg):
+    """The sequences' 8-bit frames and ground-truth trajectories (the
+    prerender pool's, where ``cfg`` has its camera)."""
+    out = [_rendered(("ms", s)) if cfg.camera == _ms_cfg().camera else _ms_sequence(cfg, s)
+           for s in range(MS_SEQUENCES)]
+    return [f for f, _ in out], [t for _, t in out]
 
 
 def _ms_frontends(cfg):
@@ -3326,35 +3448,69 @@ def _hidden_modules_dir() -> str:
     return d
 
 
-def _cli(*argv, timeout: int = 600) -> str:
-    """``python -m rspl_slam_tpu_torch.cli`` in a subprocess from the
-    checkout's root, as a user runs it, with PyYAML, PIL and matplotlib
-    hidden; raises on a non-zero exit."""
-    return _cli_concurrent(argv, timeout=timeout)[0]
-
-
 def _cli_concurrent(*argvs, timeout: int = 600) -> list:
-    """``_cli`` of several argument lists at once, each its own process on
-    the one card; their outputs in order. Raises on a non-zero exit (or a
-    timeout) and kills what still runs when it raises."""
+    """``python -m rspl_slam_tpu_torch.cli`` in subprocesses from the
+    checkout's root, as a user runs it, with PyYAML, PIL and matplotlib
+    hidden: one per argument list, all at once on the one card; their
+    outputs in order. Raises on a non-zero exit (or a timeout) and kills
+    what still runs when it raises."""
+    return _cli_wait(_cli_start(*argvs), timeout=timeout)
+
+
+_STARTED = []  # every CLI process started: main kills what still runs on its way out
+
+
+def _cli_start(*argvs) -> list:
+    """Start :func:`_cli_concurrent`'s processes and return at once: a
+    phase starts them, runs its in-process half beside them and gates them
+    with :func:`_cli_wait`. Each writes to files of its own (no pipe fills
+    while nobody reads it)."""
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([_hidden_modules_dir(), ROOT])}
-    procs = [subprocess.Popen([sys.executable, "-m", "rspl_slam_tpu_torch.cli", *a], cwd=ROOT,
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for a in argvs]
+    logs = os.path.join(WORK, "cli_logs")
+    os.makedirs(logs, exist_ok=True)
+    started = []
+    for a in argvs:
+        n = len(_STARTED)
+        out, err = (open(os.path.join(logs, f"{n}.{k}"), "w+") for k in ("out", "err"))
+        proc = subprocess.Popen([sys.executable, "-m", "rspl_slam_tpu_torch.cli", *a], cwd=ROOT,
+                                env=env, stdout=out, stderr=err, text=True)
+        _STARTED.append(proc)
+        started.append((a, proc, out, err))
+    return started
+
+
+def _cli_wait(started, timeout: int = 600) -> list:
+    """The outputs of :func:`_cli_start`'s processes, in order, each
+    waited for at most ``timeout`` s. Raises on a non-zero exit (or a
+    timeout) and kills what still runs when it raises."""
     outs = []
     try:
-        for argv, proc in zip(argvs, procs):
-            out, err = proc.communicate(timeout=timeout)
+        for argv, proc, out, err in started:
+            proc.wait(timeout=timeout)
+            out.seek(0)
+            err.seek(0)
+            text, etext = out.read(), err.read()
             if proc.returncode != 0:
                 raise AssertionError(f"cli {argv[0]} exited {proc.returncode}:\n"
-                                     f"{out[-4000:]}\n{err[-4000:]}")
-            outs.append(out)
+                                     f"{text[-4000:]}\n{etext[-4000:]}")
+            outs.append(text)
     finally:
-        for proc in procs:
+        for _, proc, out, err in started:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+            out.close()
+            err.close()
     return outs
+
+
+def stop_background():
+    """Kill every CLI process still running and end the prerender pool."""
+    for proc in _STARTED:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stop_prerender()
 
 
 def _camera_yaml(path, cam):
@@ -3493,10 +3649,11 @@ def phase_cli_run():
     run --config configs/euroc.yaml`` (the default main path: lines, async
     BA; the algorithm section equals ``SystemConfig()``) on the BA path's
     30 frames quantized to 8 bits and written as a raw-EuRoC tree, with the
-    smoke's weights as ``.npz`` and an OpenCV camera file, in a subprocess:
-    once by default (the native prefetcher decodes and rectifies on C++
-    threads) and once with ``--no-native`` (``EurocDataset``, rectification
-    on the card). Each is gated on its exit, the frame count, the ATE and
+    smoke's weights as ``.npz`` and an OpenCV camera file, in subprocesses
+    run at once beside this process's own runs: twice by default (the
+    native prefetcher decodes and rectifies on C++ threads) and once with
+    ``--no-native`` (``EurocDataset``, rectification on the card). Each is
+    gated on its exit, the frame count, the ATE and
     its trajectory and launches equal to an in-process run of the same
     route (``_native_fed``; ``PipelinedRunner`` over the dataset); the two
     routes' frames and trajectories are held to each other
@@ -3541,23 +3698,15 @@ def phase_cli_run():
               "--sp-weights", os.path.join(work, "sp.npz"),
               "--sg-weights", os.path.join(work, "sg.npz"),
               "--rcf-weights", os.path.join(work, "rcf.npz"), "--gt", tree)
-    # the first subprocess on the card pays one-time costs the later ones do
-    # not: the native route runs again last, so its frames/s are read warm
-    runs = {}
-    for route, extra in (("native", ("--traj-path", p["traj.txt"], "--save-map", p["map.npz"],
-                                     "--save-map-text", p["map_text"], "--viz-dir", p["viz"])),
-                         ("no_native", ("--traj-path", p["traj_no_native.txt"], "--no-native")),
-                         ("native_again", ("--traj-path", p["traj_again.txt"],))):
-        t0 = time.perf_counter()
-        out = _cli("run", *common, *extra)
-        wall = time.perf_counter() - t0
-        processed = re.search(r"^processed (\d+) frames in ([0-9.]+)s \(([0-9.]+) fps\)$", out,
-                              re.M)
-        runs[route] = {
-            "out": out, "wall": wall, "processed": processed,
-            "native_line": "using native prefetcher + rectification" in out.splitlines(),
-            "ate": json.loads(re.search(r"^ATE: (.*)$", out, re.M).group(1)),
-            "launches": json.loads(re.search(r"^kernel launches: (.*)$", out, re.M).group(1))}
+    # the three CLI processes at once on the card, beside this process's
+    # runs of both routes below: the native route runs twice and must repeat
+    # its trajectory and launches whatever runs beside it
+    routes = {"native": ("--traj-path", p["traj.txt"], "--save-map", p["map.npz"],
+                         "--save-map-text", p["map_text"], "--viz-dir", p["viz"]),
+              "no_native": ("--traj-path", p["traj_no_native.txt"], "--no-native"),
+              "native_again": ("--traj-path", p["traj_again.txt"],)}
+    t_cli = time.perf_counter()
+    started = _cli_start(*[("run", *common, *extra) for extra in routes.values()])
 
     # the same config, weights and files through each route here
     cfg = load_system_config(euroc, cam_yaml)
@@ -3591,6 +3740,16 @@ def phase_cli_run():
     inproc_wall = time.perf_counter() - t0
     inproc_launches = _counters()
     slam.save_trajectory(p["inproc.txt"])
+    runs = {}
+    for route, out in zip(routes, _cli_wait(started)):
+        processed = re.search(r"^processed (\d+) frames in ([0-9.]+)s \(([0-9.]+) fps\)$", out,
+                              re.M)
+        runs[route] = {
+            "out": out, "processed": processed,
+            "native_line": "using native prefetcher + rectification" in out.splitlines(),
+            "ate": json.loads(re.search(r"^ATE: (.*)$", out, re.M).group(1)),
+            "launches": json.loads(re.search(r"^kernel launches: (.*)$", out, re.M).group(1))}
+    cli_wall = time.perf_counter() - t_cli
     text = {}
     for k in ("traj.txt", "traj_no_native.txt", "traj_again.txt", "inproc.txt",
               "inproc_native.txt"):
@@ -3657,8 +3816,7 @@ def phase_cli_run():
             if nn["processed"] else None,
             "cli_fps_printed_native_again": float(again["processed"].group(3))
             if again["processed"] else None,
-            "cli_wall_s": nat["wall"], "cli_wall_s_no_native": nn["wall"],
-            "cli_wall_s_native_again": again["wall"],
+            "cli_wall_s": cli_wall,
             "inproc_frames_per_s": E2E_FRAMES / inproc_wall,
             "inproc_native_frames_per_s": E2E_FRAMES / inproc_native_wall,
             "keyframe_ate_rmse_m": nat["ate"]["rmse"], "ate_n": nat["ate"]["n"],
@@ -3945,6 +4103,41 @@ def _write_gif_or_vp8l(job) -> None:
         f.write(data)
 
 
+# the formats read since QOI that image_kinds writes (the encoders are
+# Python: it runs these in a process pool): (b)'s RLE TGA and RLE SGI trees,
+# and the first pairs of the others for the decode timing
+RASTER_TIMING = ("qoi", "pcx", "sun_rle", "dds_bc1", "dds_bc7")
+RASTER_TIMING_PAIRS = 2
+
+
+def _write_raster(job) -> None:
+    """One frame as an RLE TGA (type 11, bottom-up), an RLE SGI, a QOI (as
+    RGB), an 8-bit PCX with a grey-ramp palette (PIL reads it as L), an RLE
+    Sun raster, or a DDS of BC1 or BC7 (mode 6) blocks of the frame as RGB
+    (lossy: the timing only). TGA, SGI, QOI, PCX and Sun keep every pixel."""
+    path, kind, u8 = job
+    mk = _image_kinds_encoders()
+    rgb = np.dstack([u8] * 3)
+    H, W = u8.shape
+    if kind == "tga_rle":
+        data = mk.encode_tga(u8, 11, 8)
+    elif kind == "sgi_rle":
+        data = mk.encode_sgi(u8, 1, rle=True)
+    elif kind == "qoi":
+        data = mk.encode_qoi(rgb)
+    elif kind == "pcx":
+        data = mk.encode_pcx(u8, 8, 1, palette256=np.stack([np.arange(256)] * 3, 1))
+    elif kind == "sun_rle":
+        data = mk.encode_sun(u8, 8, 2)
+    elif kind == "dds_bc1":
+        data = mk.encode_dds(mk.bc1_blocks(rgb), W, H)
+    else:
+        data = mk.encode_dds(mk.bc7_blocks(np.dstack([rgb, np.full_like(u8, 255)])), W, H,
+                             fourcc=b"DX10", dxgi=98)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
 def _write_bmp(path, u8) -> None:
     """(H, W) uint8 as a bottom-up 8-bit BMP with a grey-ramp palette (PIL
     reads it as mode L, the bytes as grey levels)."""
@@ -3999,9 +4192,9 @@ def _decode_pair_ms(pairs, n_rep: int) -> float:
 
 
 def phase_image_kinds(ctx, cli_line):
-    """Every JPEG, netpbm, PFM, TIFF, BMP, GIF and WebP kind the JAX package
-    reads through PIL, on the card's machine (no PIL there) and through the
-    CLI at full width:
+    """Every JPEG, netpbm, PFM, TIFF, BMP, GIF, WebP, DIB, QOI, Sun raster,
+    PCX, SGI, TGA, ICO, CUR and DDS kind the JAX package reads through PIL,
+    on the card's machine (no PIL there) and through the CLI at full width:
 
     (a) each committed fixture of ``tests/fixtures/image_kinds`` (its
     manifest pins PIL's sha256 of each readable file) through
@@ -4013,9 +4206,10 @@ def phase_image_kinds(ctx, cli_line):
     (b) ``cli_run``'s 752×480 30-frame PNG tree rewritten as 16-bit P5, as
     plain P2, as 16-bit LZW TIFF with predictor 2 and as gray GIF with an
     identity palette (in a process pool: both LZW encoders are Python), as
-    bottom-up 8-bit BMP and as VP8L WebP: ``cli run`` on the P5, TIFF and
-    GIF trees by the native route and on the P2, BMP and VP8L trees with
-    ``--no-native``, the six processes at once, each trajectory and launch
+    bottom-up 8-bit BMP, as VP8L WebP, as RLE TGA and as RLE SGI (the pool
+    again): ``cli run`` on the P5, TIFF, GIF and TGA trees by the native
+    route and on the P2, BMP, VP8L and SGI trees with ``--no-native``, the
+    eight processes at once, each trajectory and launch
     count equal to ``cli_run``'s PNG run of the same route (every value is
     at most 255, so PIL reads the same pixels from all of them: any
     difference is a decode fault);
@@ -4040,8 +4234,9 @@ def phase_image_kinds(ctx, cli_line):
     then decode ms per 752×480 pair, progressive against baseline JPEG,
     16-bit P5 against 8-bit PNG, and TIFF (uncompressed, LZW with predictor
     2, Deflate, 16-bit LZW with predictor 2, the JPEG-in-TIFF and Group 4
-    trees, YCbCr 2×2 LZW and old-style JPEG), 8-bit BMP, GIF, VP8L WebP and
-    the committed lossy WebP pair (quality 90) against 8-bit PNG, in
+    trees, YCbCr 2×2 LZW and old-style JPEG), 8-bit BMP, GIF, VP8L WebP,
+    the committed lossy WebP pair (quality 90), RLE TGA, RLE SGI, QOI, PCX,
+    RLE Sun raster and DDS of BC1 and BC7 blocks against 8-bit PNG, in
     turns."""
     from concurrent.futures import ProcessPoolExecutor
     import multiprocessing
@@ -4097,7 +4292,8 @@ def phase_image_kinds(ctx, cli_line):
     # trajectory bit for bit whatever runs beside it: cli_run's native_again
     # gate)
     trees = {kind: os.path.join(work, f"tree_{kind}")
-             for kind in ("P5", "P2", "TIFF16", "BMP8", "GIF", "VP8L")}
+             for kind in ("P5", "P2", "TIFF16", "BMP8", "GIF", "VP8L", "TGA", "SGI")}
+    raster_timing = {k: os.path.join(work, f"timing_{k}") for k in RASTER_TIMING}
     # (d) the libtiff codecs' trees and their PNG copies, and the first
     # pairs of the timing-only codecs
     codec_trees = {k: os.path.join(work, f"tree_{k}")
@@ -4109,7 +4305,8 @@ def phase_image_kinds(ctx, cli_line):
     names = sorted(os.listdir(os.path.join(ctx["tree"], "mav0", "cam0", "data")))
     timing_stems = {os.path.splitext(nm)[0] for nm in names[:DECODE_TIMING_PAIRS]}
     codec_stems = {os.path.splitext(nm)[0] for nm in names[:TIFF_CODEC_TIMING_PAIRS]}
-    for root in (*timing_trees.values(), *codec_timing.values()):
+    raster_stems = {os.path.splitext(nm)[0] for nm in names[:RASTER_TIMING_PAIRS]}
+    for root in (*timing_trees.values(), *codec_timing.values(), *raster_timing.values()):
         for cam in ("cam0", "cam1"):
             os.makedirs(os.path.join(root, "mav0", cam, "data"))
     t0 = time.perf_counter()
@@ -4120,6 +4317,16 @@ def phase_image_kinds(ctx, cli_line):
 
         def write_gif_or_vp8l(path, u8):
             tiff_jobs.append(pool.submit(_write_gif_or_vp8l, (path, u8)))
+
+        def write_raster(path, u8):  # the TGA and SGI trees, and the raster timing pairs
+            kind = "tga_rle" if path.endswith(".tga") else "sgi_rle"
+            tiff_jobs.append(pool.submit(_write_raster, (path, kind, u8)))
+            stem, cam = os.path.splitext(os.path.basename(path))[0], path.split(os.sep)[-3]
+            if kind == "tga_rle" and stem in raster_stems:
+                for k, root in raster_timing.items():
+                    ext = {"qoi": ".qoi", "pcx": ".pcx", "sun_rle": ".ras"}.get(k, ".dds")
+                    tiff_jobs.append(pool.submit(_write_raster, (
+                        os.path.join(root, "mav0", cam, "data", stem + ext), k, u8)))
 
         def write_tiffs(path, u8):  # in the pool, while this process writes the rest
             tiff_jobs.append(pool.submit(_write_tiff, (path, "tiff_16bit_lzw_pred2", u8)))
@@ -4146,6 +4353,7 @@ def phase_image_kinds(ctx, cli_line):
                for k in ("P5", "P2")},
             trees["TIFF16"]: (".tif", write_tiffs), trees["BMP8"]: (".bmp", _write_bmp),
             trees["GIF"]: (".gif", write_gif_or_vp8l), trees["VP8L"]: (".webp", write_gif_or_vp8l),
+            trees["TGA"]: (".tga", write_raster), trees["SGI"]: (".sgi", write_raster),
             **{root: (".png" if k.endswith("_png") else ".tif", written_in_the_pool)
                for k, root in codec_trees.items()}})
         codec_jobs = [pool.submit(_write_tiff_codec, a) for a in codec_args]
@@ -4154,7 +4362,7 @@ def phase_image_kinds(ctx, cli_line):
             job.result()
         trees_write_s = time.perf_counter() - t0
         routes = {"P5": (), "P2": ("--no-native",), "TIFF16": (), "BMP8": ("--no-native",),
-                  "GIF": (), "VP8L": ("--no-native",)}
+                  "GIF": (), "VP8L": ("--no-native",), "TGA": (), "SGI": ("--no-native",)}
         t0 = time.perf_counter()
         outs = _cli_concurrent(*[("run", "--dataroot", trees[k], "--config", ctx["euroc"],
                                   "--camera-config", ctx["cam_yaml"], *weights, "--gt", trees[k],
@@ -4279,7 +4487,10 @@ def phase_image_kinds(ctx, cli_line):
                "tiff_jpeg_ycc420": tree_pairs(codec_trees["jpeg_ycc420"], DECODE_TIMING_PAIRS),
                "tiff_ccitt_g4": tree_pairs(codec_trees["ccitt_g4"], DECODE_TIMING_PAIRS),
                **{f"tiff_{k}": tree_pairs(root, TIFF_CODEC_TIMING_PAIRS)
-                  for k, root in codec_timing.items()}}
+                  for k, root in codec_timing.items()},
+               "tga_rle": tree_pairs(trees["TGA"], DECODE_TIMING_PAIRS),
+               "sgi_rle": tree_pairs(trees["SGI"], DECODE_TIMING_PAIRS),
+               **{k: tree_pairs(root, RASTER_TIMING_PAIRS) for k, root in raster_timing.items()}}
     tb_timing = {k: [] for k in tb_sets}
     for k in list(tb_sets) + list(tb_sets)[::-1]:
         tb_timing[k].append(_decode_pair_ms(tb_sets[k], 20 if len(tb_sets[k]) == 1 else 2))
@@ -4378,20 +4589,22 @@ def _crop(photo, oy: float, ox: float, H: int, W: int) -> np.ndarray:
             + fy * (1 - fx) * p10 + fy * fx * p11).astype(np.float32)
 
 
-def phase_cli_photo():
+PHOTO_FRAMES = 10
+
+
+def start_cli_photo():
     """The repo's photograph through ``cli run`` on the card, as the JAX
     package's one-command CLI case (``tests/test_real_image.py::
     TestRealImageCLI``) drives it: 10 stereo crops of a fronto-parallel
     plane at Z = 3 m (376×240, bf/Z = 16 px) along 0.6 m of x, written as
     8-bit PNGs, ``--matcher cosine --no-lines`` with random SuperPoint, the
-    native prefetcher; gated as that case gates it (ATE n ≥ 3, rmse <
-    0.3 m)."""
+    native prefetcher; started, for :func:`phase_cli_photo` to gate."""
     from rspl_slam_tpu_torch import png
     from rspl_slam_tpu_torch.datasets import write_tum_trajectory
     from rspl_slam_tpu_torch.slam import INIT_POSE
 
     photo = png.read_gray(PHOTO).astype(np.float32) / 255.0
-    fx, cx, cy, bf, Z, N = 300.0, 188.0, 120.0, 48.0, 3.0, 10
+    fx, cx, cy, bf, Z, N = 300.0, 188.0, 120.0, 48.0, 3.0, PHOTO_FRAMES
     disp = bf / Z
     work = os.path.join(WORK, "cli_photo")
     shutil.rmtree(work, ignore_errors=True)
@@ -4414,17 +4627,24 @@ def phase_cli_photo():
                 "keyframe:\n  max_distance: 0.15\n"
                 f"image_width: 376\nimage_height: 240\nbf: {bf}\ndepth_upper_thr: 20.0\n"
                 f"LEFT.P:\n  data: [{fx}, 0, {cx}, 0, 0, {fx}, {cy}, 0, 0, 0, 1, 0]\n")
-    t0 = time.perf_counter()
-    out = _cli("run", "--dataroot", seq, "--config", cfg_file, "--camera-config", cfg_file,
-               "--matcher", "cosine", "--no-lines", "--traj-path",
-               os.path.join(work, "est.tum"), "--gt", gt_file)
+    return time.perf_counter(), _cli_start(
+        ("run", "--dataroot", seq, "--config", cfg_file, "--camera-config", cfg_file,
+         "--matcher", "cosine", "--no-lines", "--traj-path", os.path.join(work, "est.tum"),
+         "--gt", gt_file))
+
+
+def phase_cli_photo(started=None):
+    """:func:`start_cli_photo`'s run (started here without ``started``),
+    gated as JAX's case gates it (ATE n ≥ 3, rmse < 0.3 m)."""
+    t0, procs = started or start_cli_photo()
+    out, = _cli_wait(procs)
     wall = time.perf_counter() - t0
     ate = json.loads(re.search(r"^ATE: (.*)$", out, re.M).group(1))
     launches = json.loads(re.search(r"^kernel launches: (.*)$", out, re.M).group(1))
     processed = re.search(r"^processed (\d+) frames in ([0-9.]+)s \(([0-9.]+) fps\)$", out, re.M)
-    line = {"phase": "cli_photo", "frames": N, "image": [376, 240],
+    line = {"phase": "cli_photo", "frames": PHOTO_FRAMES, "image": [376, 240],
             "native_prefetcher_printed": "using native prefetcher" in out.splitlines(),
-            "ate": ate, "ate_bound_m": 0.3, "cli_wall_s": wall,
+            "ate": ate, "ate_bound_m": 0.3, "cli_wall_s_until_gated": wall,
             "cli_fps_printed": float(processed.group(3)) if processed else None,
             "launches": launches}
     emit(line)
@@ -4437,11 +4657,17 @@ def phase_cli_photo():
     return line, launches
 
 
-def phase_cli_synth():
-    """``synth --frames 100`` on the card: the oracle frontend on the
-    unfused tracking path (host matching, PnP and pose-only LM on the
+def start_cli_synth():
+    """``synth --frames 100`` on the card, started: the oracle frontend on
+    the unfused tracking path (host matching, PnP and pose-only LM on the
     card, lines, local BA)."""
-    out = _cli("synth", "--frames", str(SYNTH_FRAMES))
+    return _cli_start(("synth", "--frames", str(SYNTH_FRAMES)))
+
+
+def phase_cli_synth(started=None):
+    """:func:`start_cli_synth`'s run (started here without ``started``),
+    gated on its ATE, keyframes and maplines."""
+    out, = _cli_wait(started or start_cli_synth())
     ate = json.loads(re.search(r"^ATE: (.*)$", out, re.M).group(1))
     m = re.search(r"^keyframes=(\d+) mappoints=(\d+) maplines=(\d+)$", out, re.M)
     fps = re.search(r"^\d+ frames in ([0-9.]+)s \(([0-9.]+) fps\)$", out, re.M)
@@ -4460,10 +4686,10 @@ def phase_cli_synth():
 def phase_cli_global(ctx):
     """``cli run --loop-closure --pose-graph --global-ba --track-local-map
     --config configs/euroc.yaml`` on cli_run's tree, in the same kind of
-    subprocess (PyYAML, PIL, matplotlib hidden): exit 0, the JAX CLI's
-    epilogue lines, and the trajectory file equal to an in-process run with
-    the same options (the native-fed runner, then ``run_pose_graph`` and
-    ``run_global_ba``)."""
+    subprocess (PyYAML, PIL, matplotlib hidden), beside an in-process run
+    with the same options (the native-fed runner, then ``run_pose_graph``
+    and ``run_global_ba``): exit 0, the JAX CLI's epilogue lines, and the
+    trajectory file equal to the in-process run's."""
     import torch
 
     from rspl_slam_tpu_torch.frontend.frontends import NeuralFrontend
@@ -4474,12 +4700,9 @@ def phase_cli_global(ctx):
     weights = [a for k in ("sp", "sg", "rcf")
                for a in (f"--{k}-weights", os.path.join(work, f"{k}.npz"))]
     t0 = time.perf_counter()
-    out = _cli("run", "--dataroot", tree, "--config", euroc, "--camera-config", cam_yaml,
-               *weights, "--traj-path", traj, "--loop-closure", "--pose-graph", "--global-ba",
-               "--track-local-map")
-    cli_wall = time.perf_counter() - t0
-    epilogue = re.findall(r"^(?:loop closures accepted|pose graph|global BA):.*$", out, re.M)
-    launches = json.loads(re.search(r"^kernel launches: (.*)$", out, re.M).group(1))
+    started = _cli_start(("run", "--dataroot", tree, "--config", euroc, "--camera-config",
+                          cam_yaml, *weights, "--traj-path", traj, "--loop-closure",
+                          "--pose-graph", "--global-ba", "--track-local-map"))
 
     cfg = ctx["cfg"]
     cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(cfg.pipeline,
@@ -4492,6 +4715,10 @@ def phase_cli_global(ctx):
     torch.cuda.synchronize()
     inproc_launches = _counters()
     slam.save_trajectory(inproc)
+    out, = _cli_wait(started)
+    cli_wall = time.perf_counter() - t0
+    epilogue = re.findall(r"^(?:loop closures accepted|pose graph|global BA):.*$", out, re.M)
+    launches = json.loads(re.search(r"^kernel launches: (.*)$", out, re.M).group(1))
     with open(traj) as f, open(inproc) as g:
         cli_traj, inproc_traj = f.read(), g.read()
     expect = ([f"loop closures accepted: {len(slam.loop_constraints)}"]
@@ -4506,7 +4733,7 @@ def phase_cli_global(ctx):
             "loops": len(slam.loop_constraints), "pose_graph_cost": pg, "global_ba_cost": gba,
             "pose_graph_solves": slam.pose_graph_solves,
             "trajectory_equal_inproc": cli_traj == inproc_traj,
-            "keyframes": len(cli_traj.splitlines()), "cli_wall_s": cli_wall,
+            "keyframes": len(cli_traj.splitlines()), "cli_wall_s_until_gated": cli_wall,
             "launches": launches, "inproc_launches": inproc_launches}
     emit(line)
     if epilogue != expect or gba is None:
@@ -5086,10 +5313,26 @@ def phase_superglue_bank():
     return line, launches
 
 
-def phase_cli_pretrain():
+PRETRAIN_MODELS = ("superpoint", "rcf", "superglue")
+
+
+def _pretrain_npz(model: str) -> str:
+    return os.path.join(WORK, f"pretrain_{model}.npz")
+
+
+def start_cli_pretrain():
+    """``pretrain`` of the three models (:func:`phase_cli_pretrain`),
+    started."""
+    return time.perf_counter(), _cli_start(*[
+        ("pretrain", "--model", m, "--steps", str(PRETRAIN_STEPS), "--output", _pretrain_npz(m))
+        for m in PRETRAIN_MODELS])
+
+
+def phase_cli_pretrain(started=None):
     """``python -m rspl_slam_tpu_torch.cli pretrain --model M --steps 20``
     for the three models, in parallel subprocesses without PyYAML, PIL or
-    matplotlib, otherwise the JAX CLI's defaults; gated on each exit and
+    matplotlib (:func:`start_cli_pretrain`'s, started here without
+    ``started``), otherwise the JAX CLI's defaults; gated on each exit and
     printed line, and on each ``.npz`` loading through
     ``models.weights.load_params`` and running one frame of its module on
     the card: SuperPoint ``extract`` of a 752×480 pair (K1), RCF
@@ -5104,21 +5347,14 @@ def phase_cli_pretrain():
                                                     superglue_from_numpy, superpoint_from_numpy)
     from rspl_slam_tpu_torch.training import superglue_train
 
-    os.makedirs(WORK, exist_ok=True)
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join([_hidden_modules_dir(), ROOT])}
-    out = {m: os.path.join(WORK, f"pretrain_{m}.npz") for m in ("superpoint", "rcf", "superglue")}
-    t0 = time.perf_counter()
-    procs = {m: subprocess.Popen([sys.executable, "-m", "rspl_slam_tpu_torch.cli", "pretrain",
-                                  "--model", m, "--steps", str(PRETRAIN_STEPS), "--output", p],
-                                 cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE, text=True)
-             for m, p in out.items()}
-    results = {m: p.communicate(timeout=600) + (p.returncode,) for m, p in procs.items()}
+    t0, procs = started or start_cli_pretrain()
+    stdouts = dict(zip(PRETRAIN_MODELS, _cli_wait(procs)))
     wall = time.perf_counter() - t0
-    for m, (stdout, stderr, rc) in results.items():
-        if rc != 0 or f"trained {m} → {out[m]}" not in stdout:
-            raise AssertionError(f"cli_pretrain {m} exited {rc}:\n{stdout[-3000:]}\n"
-                                 f"{stderr[-3000:]}")
+    out = {m: _pretrain_npz(m) for m in PRETRAIN_MODELS}
+    for m, stdout in stdouts.items():
+        if f"trained {m} → {out[m]}" not in stdout:
+            raise AssertionError(f"cli_pretrain {m} did not report its weights:\n"
+                                 f"{stdout[-3000:]}")
     _reset_counters()
     frames, _, _ = _scene(SystemConfig(), lines=True, n=1)  # the BA path's first pair
     pair = torch.as_tensor(np.stack(frames[0])).cuda()
@@ -5135,9 +5371,10 @@ def phase_cli_pretrain():
                                compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     launches = _counters()
-    line = {"phase": "cli_pretrain", "card": CARD, "steps": PRETRAIN_STEPS, "wall_s": wall,
-            "last_loss_lines": {m: [ln for ln in r[0].splitlines() if ln.startswith("step")][-1:]
-                                for m, r in results.items()},
+    line = {"phase": "cli_pretrain", "card": CARD, "steps": PRETRAIN_STEPS,
+            "wall_s_until_gated": wall,
+            "last_loss_lines": {m: [ln for ln in r.splitlines() if ln.startswith("step")][-1:]
+                                for m, r in stdouts.items()},
             "keypoints": int(f.valid.sum()), "rcf_stem_channels": int(rp["conv1_1"]["w"].shape[3]),
             "rcf_logits_finite": bool(torch.isfinite(logits).all()),
             "matches": int((res.indices0 >= 0).sum()), "launches": launches}
@@ -5332,9 +5569,10 @@ def phase_summary(lines, by_path, ate_by_path):
     emit({"kernels": kernels, "ate_by_path": ate_by_path})
 
 
-def phase_training(by_path, ate_by_path, ba_line):
-    """Phase 6: the trainers, ``pretrain`` and the trained SuperPoint on the
-    BA path (``ba_line``: the random weights' run of it)."""
+def phase_training(by_path, ate_by_path, ba_line, pretrain=None):
+    """Phase 6: the trainers, ``pretrain`` (``pretrain``: its processes,
+    where they were started earlier) and the trained SuperPoint on the BA
+    path (``ba_line``: the random weights' run of it)."""
     import torch
 
     gc.collect()
@@ -5343,7 +5581,7 @@ def phase_training(by_path, ate_by_path, ba_line):
     _, by_path["train_rcf"] = phase_train_rcf()
     _, by_path["train_superglue"] = phase_train_superglue()
     _, by_path["superglue_bank"] = phase_superglue_bank()
-    _, by_path["cli_pretrain"] = phase_cli_pretrain()
+    _, by_path["cli_pretrain"] = phase_cli_pretrain(pretrain)
     gc.collect()
     torch.cuda.empty_cache()
     line, by_path["end_to_end_trained"] = phase_end_to_end_trained(sp_trained, ba_line)
@@ -5376,9 +5614,16 @@ def main(argv) -> int:
     if argv[:1] == ["--dist-ba-rank"]:
         return _dist_rank(argv[1:])
     sys.path.insert(0, ROOT)
+    phase_device()
+    try:
+        return run_phases(argv)
+    finally:
+        stop_background()
+
+
+def run_phases(argv) -> int:
     import torch
 
-    phase_device()
     phase_build()
     lines = {}
     lines["conv_stem"] = check_conv_stem(side=False)
@@ -5425,6 +5670,7 @@ def main(argv) -> int:
         del run
         phase_training(by_path, ate_by_path, ba_line)
     elif "--kernels" not in argv:
+        start_prerender()  # the host's idle cores render the later phases' frames
         phase_local_ba_check("--profile" in argv)
         repeat, merge_inputs = None, []
         for name, kw in (("end_to_end_ba", dict(lines=True, ba=True)),
@@ -5459,6 +5705,10 @@ def main(argv) -> int:
         _, by_path["large_k"] = phase_large_k()
         gc.collect()
         torch.cuda.empty_cache()
+        # CLI runs that need nothing of the phases before theirs run beside
+        # the loop path and the phases after it, each gated in its place
+        early = {"photo": start_cli_photo(), "synth": start_cli_synth(),
+                 "pretrain": start_cli_pretrain()}
         line, by_path["end_to_end_loop"], frames, gt = phase_end_to_end_loop()
         ate_by_path["end_to_end_loop"] = line["keyframe_ate_after_global_m"]
         line, by_path["reloc"] = phase_reloc(frames, gt)
@@ -5470,11 +5720,11 @@ def main(argv) -> int:
         ate_by_path["cli_run"] = line["keyframe_ate_rmse_m"]
         phase_native(ctx["tree"], merge_inputs)
         _, by_path["image_kinds"] = phase_image_kinds(ctx, line)
-        _, by_path["cli_photo"] = phase_cli_photo()
+        _, by_path["cli_photo"] = phase_cli_photo(early["photo"])
         _, by_path["cli_global"] = phase_cli_global(ctx)
-        phase_cli_synth()
+        phase_cli_synth(early["synth"])
         phase_cli_convert()
-        phase_training(by_path, ate_by_path, ba_line)
+        phase_training(by_path, ate_by_path, ba_line, early["pretrain"])
     shutil.rmtree(WORK, ignore_errors=True)
     phase_summary(lines, by_path, ate_by_path)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,7 @@
-// BMP as PIL 12's BmpImagePlugin reads it ("BM" files), then convert("L"):
+// BMP as PIL 12's BmpImagePlugin reads it, then convert("L"): "BM" files,
+// the headerless DIB (DibImageFile: the header at 0, the pixels after the
+// header, masks and palette) and the entries of ICO and CUR files, all
+// through one port of BmpImageFile._bitmap that starts at a given offset:
 // header sizes 12 (OS/2 1.x, 16-bit sizes, 3-byte palette entries), 40, 52,
 // 56, 64, 108 and 124; depths 1, 4, 8, 16, 24, 32 (PIL has no 2-bit mode);
 // RAW, RLE8, RLE4 and BITFIELDS at the masks PIL maps; a height whose top
@@ -10,7 +13,9 @@
 // palette, and the RLE decoder reads a delta's two bytes and then two more.
 // An RLE bitmap whose codes end before its last row raises, as in PIL
 // ("not enough image data"); rows that an end-of-line or a delta cuts short
-// are filled with index 0.
+// are filled with index 0. The errors are PIL's, in its order: a header cut
+// short raises ("Truncated File Read"), masks cut short or no pixels pass
+// the file on to the next plugin (kPassOn).
 //
 // Included by native_runtime.cpp inside its anonymous namespace, after
 // native_pil.h.
@@ -24,30 +29,38 @@ struct BmpInfo {
   int64_t w = 0, h = 0;
   int bits = 0, compression = 0, direction = -1, padding = 4;
   int64_t colors = 0;
-  size_t offset = 0, pos = 0;  // the pixel data's offset; the file position after the header
+  size_t data = 0;  // where the pixels start
   uint32_t mask[4] = {0, 0, 0, 0};
   bool rle = false;
   PilMode mode = kModeNone;
   std::string raw;
+  uint8_t pal[256 * 3] = {0};  // mode P: the palette as RGB
+  int pal_n = 0;
 };
 
-// BmpImageFile._bitmap up to the palette
-int bmp_header(const uint8_t* d, size_t n, BmpInfo& b) {
-  if (n < 18) return kCorrupt;
-  b.offset = le32(d + 10);
-  const uint32_t hs = le32(d + 14);
-  if (hs != 12 && hs != 40 && hs != 52 && hs != 56 && hs != 64 && hs != 108 && hs != 124)
-    return kBmpHeader;
-  if (n < 14 + (size_t)hs) return kCorrupt;
-  const uint8_t* hd = d + 18;  // the header after its size field
-  size_t pos = 14 + hs;
+// BmpImageFile._bitmap(header=start, offset): the header whose size field
+// is at `start`, its BITFIELDS masks and palette; the pixels start at
+// `offset`, or with 0 right after what was read. "BM" files call it at 14
+// with the file header's offset, DIBs (DibImageFile) at 0 with 0, ICO and
+// CUR entries at the entry's offset with 0. kPassOn where PIL raises one of
+// the errors that pass the file on to the next plugin (a field cut short:
+// struct.error; no pixels: "not identified by this driver"); a header cut
+// short is PIL's "Truncated File Read" (kCorrupt). The checks run in PIL's
+// order, so a file fails on the check PIL fails it on.
+int bmp_bitmap(const uint8_t* d, size_t n, size_t start, size_t offset, BmpInfo& b,
+               bool cur22 = false) {
+  if (start > n || n - start < 4) return kPassOn;
+  const uint32_t hs = le32(d + start);
+  if (hs > 4 && n - start - 4 < hs - 4) return kCorrupt;
+  const uint8_t* hd = d + start + 4;  // the header after its size field
+  size_t pos = start + (hs > 4 ? hs : 4);
   if (hs == 12) {
     b.w = le16(hd);
     b.h = le16(hd + 2);
     b.bits = (int)le16(hd + 6);
     b.compression = 0;
     b.padding = 3;
-  } else {
+  } else if (hs == 40 || hs == 52 || hs == 56 || hs == 64 || hs == 108 || hs == 124) {
     const bool y_flip = hd[7] == 0xFF;
     b.direction = y_flip ? 1 : -1;
     b.w = le32(hd);
@@ -60,15 +73,17 @@ int bmp_header(const uint8_t* d, size_t n, BmpInfo& b) {
       if (hs - 4 >= 48) {
         for (int i = 0; i < (hs - 4 >= 52 ? 4 : 3); ++i) b.mask[i] = le32(hd + 36 + 4 * i);
       } else {
-        if (n < pos + 12) return kCorrupt;
-        for (int i = 0; i < 3; ++i) b.mask[i] = le32(d + pos + 4 * i);
-        pos += 12;
+        for (int i = 0; i < 3; ++i, pos += 4) {
+          if (n - std::min(pos, n) < 4) return kPassOn;  // i32(read(4)): struct.error
+          b.mask[i] = le32(d + pos);
+        }
       }
     }
+  } else {
+    return kBmpHeader;
   }
-  b.pos = pos;
   if (b.colors == 0) b.colors = b.bits < 63 ? (int64_t)1 << b.bits : 0;
-  if (b.offset == 14 + hs && b.bits <= 8) b.offset += 4 * (size_t)b.colors;
+  if (offset == 14 + (size_t)hs && b.bits <= 8) offset += 4 * (size_t)b.colors;
   switch (b.bits) {
     case 1: b.mode = kModeP; b.raw = "P;1"; break;
     case 4: b.mode = kModeP; b.raw = "P;4"; break;
@@ -103,15 +118,68 @@ int bmp_header(const uint8_t* d, size_t n, BmpInfo& b) {
     } else {
       return kBmpBitfields;
     }
+  } else if (b.compression == 0) {
+    if (b.bits == 32 && cur22) {  // a CUR entry at 22, "32-bit .cur offset": BGRA
+      b.raw = "BGRA";
+      b.mode = kModeRGBA;
+    }
   } else if (b.compression == 1 || b.compression == 2) {
     b.rle = true;
-  } else if (b.compression != 0) {
+  } else {
     return kBmpCompression;
   }
-  if (b.w <= 0 || b.h <= 0 || b.w > (1 << 24) || b.h > (1 << 24) ||
-      (uint64_t)(b.w * b.h) > kMaxPixels)
-    return kCorrupt;  // past PIL's decompression-bomb limit too
+  if (b.mode == kModeP) {
+    if (!(b.colors > 0 && b.colors <= 65536)) return kBmpPalette;
+    const size_t want = (size_t)b.padding * (size_t)b.colors;
+    const size_t got = std::min(want, n - std::min(pos, n));
+    const uint8_t* pal = d + pos;
+    pos += got;
+    bool grayscale = true;
+    const int64_t count = b.colors == 2 ? 2 : b.colors;
+    for (int64_t ind = 0; ind < count; ++ind) {
+      const int val = b.colors == 2 ? (ind ? 255 : 0) : (int)(ind & 255);
+      const size_t at = (size_t)ind * b.padding;
+      if (at + 3 > got || pal[at] != val || pal[at + 1] != val || pal[at + 2] != val)
+        grayscale = false;
+    }
+    if (grayscale) {
+      b.mode = b.colors == 2 ? kMode1 : kModeL;
+      b.raw = b.colors == 2 ? "1" : "L";
+    } else {
+      const size_t entries = got / b.padding;
+      if (entries > 256) return kBmpPalette;  // "invalid palette size", at load
+      for (size_t i = 0; i < entries; ++i) {  // BGR(X) → RGB
+        b.pal[3 * i] = pal[i * b.padding + 2];
+        b.pal[3 * i + 1] = pal[i * b.padding + 1];
+        b.pal[3 * i + 2] = pal[i * b.padding];
+      }
+      b.pal_n = (int)entries;
+    }
+  }
+  b.data = offset ? offset : pos;
+  if (b.w <= 0 || b.h <= 0) return kPassOn;  // "not identified by this driver"
   return kOk;
+}
+
+// PIL's Image.open ends with DecompressionBombError past twice
+// MAX_IMAGE_PIXELS; sizes past 2^24 fail here too
+inline bool bmp_too_big(int64_t w, int64_t h) {
+  return w > (1 << 24) || h > (1 << 24) || (uint64_t)(w * h) > kMaxPixels;
+}
+
+// BmpImageFile._open: the file header, then _bitmap at 14
+int bmp_header(const uint8_t* d, size_t n, BmpInfo& b) {
+  if (n < 14) return kPassOn;  // i32(head_data, 10): struct.error
+  const int rc = bmp_bitmap(d, n, 14, le32(d + 10), b);
+  if (rc) return rc;
+  return bmp_too_big(b.w, b.h) ? kCorrupt : kOk;
+}
+
+// DibImageFile._open: _bitmap at 0, the pixels right after the header
+int dib_header(const uint8_t* d, size_t n, BmpInfo& b) {
+  const int rc = bmp_bitmap(d, n, 0, 0, b);
+  if (rc) return rc;
+  return bmp_too_big(b.w, b.h) ? kCorrupt : kOk;
 }
 
 // BmpRleDecoder.decode, step for step, from the pixel offset
@@ -166,61 +234,48 @@ void bmp_rle(const uint8_t* d, size_t n, size_t pos, bool rle4, int64_t xsize, i
   }
 }
 
-int decode_bmp(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, int& h) {
-  BmpInfo b;
-  int rc = bmp_header(d, n, b);
-  if (rc) return rc;
-  w = (int)b.w;
-  h = (int)b.h;
-  PilImage im;
-  size_t pos = b.pos;
+// the pixels of a parsed bitmap at (w, h), which ICO and CUR cut to the
+// top half of the stored height (the XOR image, without the AND mask)
+int bmp_pixels(const uint8_t* d, size_t n, const BmpInfo& b, int64_t w64, int64_t h64,
+               PilImage& im) {
+  const int w = (int)w64, h = (int)h64;
+  im.alloc(b.mode, w, h);
   if (b.mode == kModeP) {
-    if (!(b.colors > 0 && b.colors <= 65536)) return kBmpPalette;
-    const size_t want = (size_t)b.padding * (size_t)b.colors;
-    const size_t got = std::min(want, n - std::min(pos, n));
-    const uint8_t* pal = d + pos;
-    pos += got;
-    bool grayscale = true;
-    const int64_t count = b.colors == 2 ? 2 : b.colors;
-    for (int64_t ind = 0; ind < count; ++ind) {
-      const int val = b.colors == 2 ? (ind ? 255 : 0) : (int)(ind & 255);
-      const size_t at = (size_t)ind * b.padding;
-      if (at + 3 > got || pal[at] != val || pal[at + 1] != val || pal[at + 2] != val)
-        grayscale = false;
-    }
-    if (grayscale) {
-      b.mode = b.colors == 2 ? kMode1 : kModeL;
-      b.raw = b.colors == 2 ? "1" : "L";
-      im.alloc(b.mode, w, h);
-    } else {
-      const size_t entries = got / b.padding;
-      if (entries > 256) return kBmpPalette;  // "invalid palette size"
-      im.alloc(kModeP, w, h);
-      for (size_t i = 0; i < entries; ++i) {  // BGR(X) → RGB
-        im.pal[3 * i] = pal[i * b.padding + 2];
-        im.pal[3 * i + 1] = pal[i * b.padding + 1];
-        im.pal[3 * i + 2] = pal[i * b.padding];
-      }
-      im.pal_n = (int)entries;
-    }
-  } else {
-    im.alloc(b.mode, w, h);
+    std::memcpy(im.pal, b.pal, sizeof(b.pal));
+    im.pal_n = b.pal_n;
   }
-  const size_t start = b.offset ? b.offset : pos;
   if (b.rle) {
     // set_as_raw with rawmode L for mode L, else P
     const UnpackerDef* u = find_unpacker(im.mode, im.mode == kModeL ? "L" : "P");
     if (!u) return kBmpRle;
     std::vector<uint8_t> data;
-    bmp_rle(d, n, start, b.compression == 2, b.w, b.h, data);
-    if (data.size() < (size_t)(b.w * b.h)) return kCorrupt;  // "not enough image data"
-    rc = raw_decode(data.data(), data.size(), 0, im, 0, 0, w, h, *u, 0, b.direction);
-  } else {
-    const UnpackerDef* u = find_unpacker(im.mode, b.raw);
-    if (!u) return kCorrupt;
-    const int64_t stride = ((b.w * b.bits + 31) >> 3) & ~3LL;
-    rc = raw_decode(d, n, start, im, 0, 0, w, h, *u, stride, b.direction);
+    bmp_rle(d, n, b.data, b.compression == 2, w64, h64, data);
+    if (data.size() < (size_t)(w64 * h64)) return kCorrupt;  // "not enough image data"
+    return raw_decode(data.data(), data.size(), 0, im, 0, 0, w, h, *u, 0, b.direction);
   }
+  const UnpackerDef* u = find_unpacker(im.mode, b.raw);
+  if (!u) return kCorrupt;
+  const int64_t stride = ((w64 * b.bits + 31) >> 3) & ~3LL;
+  return raw_decode(d, n, b.data, im, 0, 0, w, h, *u, stride, b.direction);
+}
+
+int decode_bmp_as(int (*header)(const uint8_t*, size_t, BmpInfo&), const uint8_t* d, size_t n,
+                  std::vector<uint8_t>& gray, int& w, int& h) {
+  BmpInfo b;
+  int rc = header(d, n, b);
+  if (rc) return rc;
+  w = (int)b.w;
+  h = (int)b.h;
+  PilImage im;
+  rc = bmp_pixels(d, n, b, b.w, b.h, im);
   if (rc) return rc;
   return pil_to_gray(im, gray);
+}
+
+int decode_bmp(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, int& h) {
+  return decode_bmp_as(bmp_header, d, n, gray, w, h);
+}
+
+int decode_dib(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, int& h) {
+  return decode_bmp_as(dib_header, d, n, gray, w, h);
 }

@@ -26,10 +26,6 @@
 // Included by native_runtime.cpp inside its anonymous namespace, after
 // native_pil.h.
 
-inline bool is_gif(const uint8_t* d, size_t n) {
-  return n >= 6 && (!std::memcmp(d, "GIF87a", 6) || !std::memcmp(d, "GIF89a", 6));
-}
-
 struct GifInfo {
   int w = 0, h = 0;                        // the screen, grown to frame 0's extent
   int x0 = 0, y0 = 0, x1 = 0, y1 = 0;      // frame 0's extent

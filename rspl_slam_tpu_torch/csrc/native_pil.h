@@ -68,7 +68,8 @@ enum Unpack {
   kURGBa16L, kURGBa16B,
   kUCMYK, kUCMYKX, kUCMYKXX, kUCMYK16L, kUCMYK16B,
   kUBand0, kUBand1, kUBand2, kUBand3,
-  kUBGR15, kUBGR16, kUBGR, kUBGRX, kUXBGR, kUBGXR, kUABGR, kUBGRA, kUBGAR
+  kUBGR15, kUBGR16, kUBGR, kUBGRX, kUXBGR, kUBGXR, kUABGR, kUBGRA, kUBGAR,
+  kUBGRA15Z, kUP2L, kUP4L, kURGBL, kUL16B
 };
 
 struct UnpackerDef {
@@ -78,7 +79,7 @@ struct UnpackerDef {
   Unpack op;
 };
 
-// (mode, rawmode) pairs Pillow has, of those the three plugins can ask for;
+// (mode, rawmode) pairs Pillow has, of those the plugins ported here can ask for;
 // a pair not here is Pillow's "unknown raw mode for given image mode"
 const UnpackerDef kUnpackers[] = {
     {kMode1, "1", 1, kU1}, {kMode1, "1;I", 1, kU1I}, {kMode1, "1;R", 1, kU1R},
@@ -122,6 +123,8 @@ const UnpackerDef kUnpackers[] = {
     {kModeCMYK, "CMYK;16N", 64, kUCMYK16L}, {kModeCMYK, "CMYK;16B", 64, kUCMYK16B},
     {kModeCMYK, "C", 8, kUBand0}, {kModeCMYK, "M", 8, kUBand1},
     {kModeCMYK, "Y", 8, kUBand2}, {kModeCMYK, "K", 8, kUBand3},
+    {kModeRGBA, "BGRA;15Z", 16, kUBGRA15Z}, {kModeP, "P;2L", 2, kUP2L},
+    {kModeP, "P;4L", 4, kUP4L}, {kModeRGB, "RGB;L", 24, kURGBL}, {kModeL, "L;16B", 16, kUL16B},
 };
 
 const UnpackerDef* find_unpacker(PilMode mode, const std::string& raw) {
@@ -303,6 +306,33 @@ void unpack(Unpack op, uint8_t* o, const uint8_t* in, int n) {
       }
       return;
     }
+    case kUBGRA15Z:  // 5-5-5 with an inverted alpha bit: the colours of BGR;15
+      for (int i = 0; i < n; ++i) {
+        const int p = in[2 * i] | in[2 * i + 1] << 8;
+        o[4 * i] = (uint8_t)(((p >> 10) & 31) * 255 / 31);
+        o[4 * i + 1] = (uint8_t)(((p >> 5) & 31) * 255 / 31);
+        o[4 * i + 2] = (uint8_t)((p & 31) * 255 / 31);
+        o[4 * i + 3] = (p >> 15) ? 0 : 255;
+      }
+      return;
+    case kUP2L: case kUP4L: {  // bit planes (pixels + 7) / 8 bytes apart, MSB first
+      const int planes = op == kUP2L ? 2 : 4, s = (n + 7) / 8;
+      for (int i = 0; i < n; ++i) {
+        int v = 0;
+        for (int b = 0; b < planes; ++b) v |= ((in[i / 8 + b * s] >> (7 - i % 8)) & 1) << b;
+        o[4 * i] = (uint8_t)v;
+      }
+      return;
+    }
+    case kURGBL:  // R, G and B planes, `pixels` bytes apart
+      for (int i = 0; i < n; ++i) {
+        o[4 * i] = in[i]; o[4 * i + 1] = in[i + n]; o[4 * i + 2] = in[i + 2 * n];
+        o[4 * i + 3] = 255;
+      }
+      return;
+    case kUL16B:
+      for (int i = 0; i < n; ++i) o[4 * i] = in[2 * i];
+      return;
     case kUXBGR: case kUBGXR: case kUABGR: case kUBGRA: case kUBGAR:
       // (R, G, B, A) byte positions of each 32-bit layout
       for (int i = 0; i < n; ++i, in += 4) {

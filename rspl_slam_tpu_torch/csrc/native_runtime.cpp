@@ -9,17 +9,21 @@
 //   C. JPEG as libjpeg-turbo decodes it for PIL: sequential, progressive
 //      and lossless, Huffman or arithmetic coded, gray, YCbCr, RGB, CMYK
 //      and YCCK, any integral sampling; netpbm P1-P6 and PFM as PIL reads
-//      them; TIFF and BMP (native_tiff.h, native_bmp.h, over PIL's image
-//      model in native_pil.h); GIF's frame 0 (native_gif.h); WebP, lossless
-//      and lossy, with alpha, frame 0 of an animation (native_webp.h,
-//      native_vp8.h);
+//      them; TIFF and BMP, and the headerless DIB (native_tiff.h,
+//      native_bmp.h, over PIL's image model in native_pil.h); GIF's frame
+//      0 (native_gif.h); WebP, lossless and lossy, with alpha, frame 0 of an
+//      animation (native_webp.h, native_vp8.h); QOI, Sun raster, PCX, SGI
+//      and TGA (native_raster.h); ICO and CUR (native_ico.h); DDS with the
+//      BCn blocks (native_bcn.h);
 //   D. an ordered stereo prefetcher: decode threads, a bounded reorder
 //      buffer, optional rectification.
 //
-// Formats are told apart by content, as PIL's Image.open tells them, never
-// by the file name. A file of a format PIL identifies by a fixed signature
-// and this reader does not read (JPEG 2000, ICO, CUR, QOI, PSD, DDS, SGI,
-// Sun raster, PCX, AVIF) is refused with a code naming it.
+// Formats are told apart by content, never by the file name, as PIL's
+// Image.open tells them: one table of PIL 12.1's plugins in its order
+// (native_plugins.h holds their accept tests and the open checks of the
+// plugins without one), each either read or refused naming it. A plugin's
+// open that fails the way PIL's passes the file on to the next; a file no
+// plugin takes is kUnknown.
 //
 // Every decoder returns the 8-bit gray that PIL's Image.open(p).convert("L")
 // returns: RGB through PIL's luma (R·19595 + G·38470 + B·7471 + 0x8000) >> 16,
@@ -47,21 +51,30 @@
 namespace {
 
 enum Err {
+  kPassOn = -1,  // inside the table of plugins only: the plugin passes the file on
   kOk = 0, kIO = 1, kCorrupt = 2, kUnknown = 3, kSize = 4,
   // image kinds refused, every code from kPrecision on (native_runtime_error_kind;
   // native.py raises NotImplementedError). PIL refuses the JPEG ones, kTiffMode,
-  // kTiffLab, kTiffRawMode, the BMP, GIF and WebP ones too; it reads the rest,
-  // which the port does not yet. 31 and 32 named GIF and WebP before they were
-  // read.
+  // kTiffLab, kTiffRawMode, the BMP, GIF, WebP, Sun, PCX, SGI, TGA and DDS
+  // ones too; it reads the rest, which the port does not yet. 31, 32, 34-36 and
+  // 38-41 named GIF, WebP, ICO, CUR, QOI, DDS, SGI, Sun raster and PCX before
+  // they were read.
   kPrecision = 5, kHierarchical = 6, kDNL = 7, kFractional = 8, kLosslessColour = 9,
   kArithLossless = 10, kComponents = 11, kMcuSize = 12, kPnmKind = 13,
   kTiffJpeg = 14, kTiffOjpeg = 15, kTiffLzma = 16, kTiffZstd = 17, kTiffWebp = 18,
   kTiffSgiLog = 19, kTiffThunderScan = 20, kTiffMode = 22, kTiffLab = 23,
   kTiffRawMode = 24, kBmpHeader = 25, kBmpDepth = 26, kBmpCompression = 27,
   kBmpBitfields = 28, kBmpPalette = 29, kBmpRle = 30,
-  kJpeg2000 = 33, kIco = 34, kCur = 35, kQoi = 36, kPsd = 37,
-  kDds = 38, kSgi = 39, kSun = 40, kPcx = 41, kAvif = 42,
-  kGifCodeSize = 43, kWebpVp8Frame = 44, kWebpVp8lVersion = 45, kWebpAlpha = 46
+  kJpeg2000 = 33, kPsd = 37, kAvif = 42,
+  kGifCodeSize = 43, kWebpVp8Frame = 44, kWebpVp8lVersion = 45, kWebpAlpha = 46,
+  // the plugins PIL has that the port does not read, each refused by name
+  kBlp = 47, kBufr = 48, kDcx = 49, kEps = 50, kFits = 51, kFli = 52, kFtex = 53,
+  kGbr = 54, kGrib = 55, kHdf5 = 56, kIcns = 57, kMcidas = 58, kMpeg = 59, kMsp = 60,
+  kPixar = 61, kWmf = 62, kXbm = 63, kXpm = 64, kXvThumb = 65, kIm = 66, kImt = 67,
+  kIptc = 68, kPcd = 69, kSpider = 70,
+  // kinds of the formats read since PR 20 that PIL does not read either
+  kSunPalette = 71, kPcxMode = 72, kSgiMode = 73, kSgiCompression = 74, kTgaKind = 75,
+  kTgaMap = 76, kDdsHeader = 77, kDdsFormat = 78
 };
 
 bool read_file(const char* path, std::vector<uint8_t>& buf) {
@@ -2000,6 +2013,10 @@ struct JpegDecoder {
 #include "native_gif.h"
 #include "native_vp8.h"
 #include "native_webp.h"
+#include "native_raster.h"
+#include "native_bcn.h"
+#include "native_ico.h"
+#include "native_plugins.h"
 
 // ================================================ netpbm (P1-P6, Pf)
 // As PIL's PpmImagePlugin reads it, then convert("L"): binary P4/P5/P6 and
@@ -2239,50 +2256,179 @@ int decode_pnm(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, i
   return kOk;
 }
 
-inline bool is_pnm(const uint8_t* d, size_t n) {
-  return n >= 2 && d[0] == 'P' && std::strchr("0123456fy", d[1]) && d[1] != 0;
+// ------------------------------------------------------- probes of sizes
+int probe_png(const uint8_t* d, size_t n, int& w, int& h) {
+  PngHeader hd;
+  const int rc = png_header(d, n, hd);
+  w = hd.w;
+  h = hd.h;
+  return rc;
 }
 
-// The formats PIL identifies by a fixed signature (each plugin's _accept)
-// that this reader does not read: the code refusing each, else kOk
-int unported_format(const uint8_t* d, size_t n) {
-  auto starts = [&](const char* sig, size_t k) { return n >= k && !std::memcmp(d, sig, k); };
-  if (starts("\xff\x4f\xff\x51", 4) || starts("\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", 12))
-    return kJpeg2000;
-  if (starts("\0\0\1\0", 4)) return kIco;
-  if (starts("\0\0\2\0", 4)) return kCur;
-  if (starts("qoif", 4)) return kQoi;
-  if (starts("8BPS", 4)) return kPsd;
-  if (starts("DDS ", 4)) return kDds;
-  if (n >= 2 && (d[0] << 8 | d[1]) == 474) return kSgi;
-  if (starts("\x59\xa6\x6a\x95", 4)) return kSun;
-  if (n >= 2 && d[0] == 10 && (d[1] == 0 || d[1] == 2 || d[1] == 3 || d[1] == 5)) return kPcx;
-  if (n >= 12 && !std::memcmp(d + 4, "ftyp", 4) &&
-      (!std::memcmp(d + 8, "avif", 4) || !std::memcmp(d + 8, "avis", 4) ||
-       !std::memcmp(d + 8, "mif1", 4) || !std::memcmp(d + 8, "msf1", 4)))
-    return kAvif;
-  return kOk;
+int decode_jpeg(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, int& h) {
+  JpegDecoder j(d, n);
+  const int rc = j.decode(gray);
+  w = j.W;
+  h = j.H;
+  return rc;
 }
 
-inline bool is_bmp(const uint8_t* d, size_t n) { return n >= 2 && d[0] == 'B' && d[1] == 'M'; }
+int probe_jpeg(const uint8_t* d, size_t n, int& w, int& h) {
+  size_t p = 2;
+  while (p + 4 <= n) {
+    while (p < n && d[p] != 0xFF) ++p;
+    while (p < n && d[p] == 0xFF) ++p;
+    if (p + 3 > n) break;
+    const int m = d[p++];
+    if (m == 0xD9 || m == 0xDA) break;
+    if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
+    const int len = (d[p] << 8) | d[p + 1];
+    if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
+      if (len < 8 || p + 7 > n) return kCorrupt;
+      h = (d[p + 3] << 8) | d[p + 4];
+      w = (d[p + 5] << 8) | d[p + 6];
+      return kOk;
+    }
+    p += len;
+  }
+  return kCorrupt;
+}
+
+int probe_pnm(const uint8_t* d, size_t n, int& w, int& h) {
+  PnmHeader hd;
+  const int rc = pnm_header(d, n, hd);
+  w = (int)hd.w;
+  h = (int)hd.h;
+  return rc;
+}
+
+int probe_bmp_as(int (*header)(const uint8_t*, size_t, BmpInfo&), const uint8_t* d, size_t n,
+                 int& w, int& h) {
+  BmpInfo b;
+  const int rc = header(d, n, b);
+  w = (int)b.w;
+  h = (int)b.h;
+  return rc;
+}
+int probe_bmp(const uint8_t* d, size_t n, int& w, int& h) {
+  return probe_bmp_as(bmp_header, d, n, w, h);
+}
+int probe_dib(const uint8_t* d, size_t n, int& w, int& h) {
+  return probe_bmp_as(dib_header, d, n, w, h);
+}
+
+int probe_tiff(const uint8_t* d, size_t n, int& w, int& h) {
+  TiffInfo t;
+  const int rc = tiff_setup(d, n, t);
+  w = t.w;
+  h = t.h;
+  return rc;
+}
+
+int probe_gif(const uint8_t* d, size_t n, int& w, int& h) {  // the screen grown to frame 0
+  GifInfo g;
+  const int rc = gif_setup(d, n, g);
+  w = g.w;
+  h = g.h;
+  return rc;
+}
+
+int probe_webp(const uint8_t* d, size_t n, int& w, int& h) {  // the demuxer's canvas
+  WebpInfo info;
+  const int rc = webp_setup(d, n, info);
+  w = info.canvas_w;
+  h = info.canvas_h;
+  return rc;
+}
+
+// ------------------------------------------------- the table of plugins
+// PIL 12.1's Image.open: the preinit plugins (BMP, DIB, GIF, JPEG, PPM,
+// PNG), then every other in the order of Image.ID. A plugin whose accept
+// test fails is skipped; one with none (IM, IMT, IPTC, PCD, SPIDER, TGA) is
+// tried on every file. A reader returns kPassOn where the plugin's open
+// raises an error that passes the file on; any other result ends the
+// search. A plugin the port does not read (no reader) is refused with its
+// code, where `takes` (the plugins without an accept test, and GBR and WMF,
+// whose accept tests QOI, DIB and TGA files can pass) says its open would
+// take the file. No plugin taking the file is kUnknown: PIL opens nothing.
+struct Plugin {
+  const char* name;  // PIL's format name (im.format)
+  bool (*accept)(const uint8_t* prefix, size_t k);
+  int (*decode)(const uint8_t*, size_t, std::vector<uint8_t>&, int&, int&);
+  int (*probe)(const uint8_t*, size_t, int&, int&);
+  int refusal;
+  bool (*takes)(const uint8_t*, size_t);
+};
+
+const Plugin kPlugins[] = {
+    {"BMP", accept_bmp, decode_bmp, probe_bmp, 0, nullptr},
+    {"DIB", accept_dib, decode_dib, probe_dib, 0, nullptr},
+    {"GIF", accept_gif, decode_gif, probe_gif, 0, nullptr},
+    {"JPEG", accept_jpeg, decode_jpeg, probe_jpeg, 0, nullptr},
+    {"PPM", accept_ppm, decode_pnm, probe_pnm, 0, nullptr},
+    {"PNG", accept_png, decode_png, probe_png, 0, nullptr},
+    {"AVIF", accept_avif, nullptr, nullptr, kAvif, nullptr},
+    {"BLP", accept_blp, nullptr, nullptr, kBlp, nullptr},
+    {"BUFR", accept_bufr, nullptr, nullptr, kBufr, nullptr},
+    {"CUR", accept_cur, decode_cur, probe_cur, 0, nullptr},
+    {"PCX", accept_pcx, decode_pcx, probe_pcx, 0, nullptr},
+    {"DCX", accept_dcx, nullptr, nullptr, kDcx, nullptr},
+    {"DDS", accept_dds, decode_dds, probe_dds, 0, nullptr},
+    {"EPS", accept_eps, nullptr, nullptr, kEps, nullptr},
+    {"FITS", accept_fits, nullptr, nullptr, kFits, nullptr},
+    {"FLI", accept_fli, nullptr, nullptr, kFli, nullptr},
+    {"FTEX", accept_ftex, nullptr, nullptr, kFtex, nullptr},
+    {"GBR", accept_gbr, nullptr, nullptr, kGbr, gbr_takes},
+    {"GRIB", accept_grib, nullptr, nullptr, kGrib, nullptr},
+    {"HDF5", accept_hdf5, nullptr, nullptr, kHdf5, nullptr},
+    {"JPEG2000", accept_jpeg2000, nullptr, nullptr, kJpeg2000, nullptr},
+    {"ICNS", accept_icns, nullptr, nullptr, kIcns, nullptr},
+    {"ICO", accept_ico, decode_ico, probe_ico, 0, nullptr},
+    {"IM", nullptr, nullptr, nullptr, kIm, im_takes},
+    {"IMT", nullptr, nullptr, nullptr, kImt, imt_takes},
+    {"IPTC", nullptr, nullptr, nullptr, kIptc, iptc_takes},
+    {"MCIDAS", accept_mcidas, nullptr, nullptr, kMcidas, nullptr},
+    {"MPEG", accept_mpeg, nullptr, nullptr, kMpeg, nullptr},
+    {"TIFF", accept_tiff, decode_tiff, probe_tiff, 0, nullptr},
+    {"MSP", accept_msp, nullptr, nullptr, kMsp, nullptr},
+    {"PCD", nullptr, nullptr, nullptr, kPcd, pcd_takes},
+    {"PIXAR", accept_pixar, nullptr, nullptr, kPixar, nullptr},
+    {"PSD", accept_psd, nullptr, nullptr, kPsd, nullptr},
+    {"QOI", accept_qoi, decode_qoi, probe_qoi, 0, nullptr},
+    {"SGI", accept_sgi, decode_sgi, probe_sgi, 0, nullptr},
+    {"SPIDER", nullptr, nullptr, nullptr, kSpider, spider_takes},
+    {"SUN", accept_sun, decode_sun, probe_sun, 0, nullptr},
+    {"TGA", nullptr, decode_tga, probe_tga, 0, nullptr},
+    {"WEBP", accept_webp, decode_webp, probe_webp, 0, nullptr},
+    {"WMF", accept_wmf, nullptr, nullptr, kWmf, wmf_takes},
+    {"XBM", accept_xbm, nullptr, nullptr, kXbm, nullptr},
+    {"XPM", accept_xpm, nullptr, nullptr, kXpm, nullptr},
+    {"XVThumb", accept_xvthumb, nullptr, nullptr, kXvThumb, nullptr},
+};
+constexpr int kPluginCount = (int)(sizeof(kPlugins) / sizeof(kPlugins[0]));
+
+// The first plugin that takes the file runs `read` (its decoder or its
+// probe) or is refused; `which` receives its index, -1 where none takes it
+template <class Read>
+int by_plugin(const uint8_t* d, size_t n, Read&& read, int* which = nullptr) {
+  const size_t k = std::min<size_t>(n, 16);  // Image.open's prefix
+  if (which) *which = -1;
+  for (int i = 0; i < kPluginCount; ++i) {
+    const Plugin& p = kPlugins[i];
+    if (p.accept && !p.accept(d, k)) continue;
+    int rc;
+    if (p.decode) rc = read(p);
+    else rc = p.takes && !p.takes(d, n) ? kPassOn : p.refusal;
+    if (rc == kPassOn) continue;
+    if (which) *which = i;
+    return rc;
+  }
+  return kUnknown;
+}
 
 int decode_by_signature(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w,
                         int& h) {
-  if (n >= 8 && !std::memcmp(d, kPngSig, 8)) return decode_png(d, n, gray, w, h);
-  if (n >= 3 && d[0] == 0xFF && d[1] == 0xD8 && d[2] == 0xFF) {
-    JpegDecoder j(d, n);
-    const int rc = j.decode(gray);
-    w = j.W;
-    h = j.H;
-    return rc;
-  }
-  if (is_pnm(d, n)) return decode_pnm(d, n, gray, w, h);
-  if (is_bmp(d, n)) return decode_bmp(d, n, gray, w, h);
-  if (is_tiff(d, n)) return decode_tiff(d, n, gray, w, h);
-  if (is_gif(d, n)) return decode_gif(d, n, gray, w, h);
-  if (is_webp(d, n)) return decode_webp(d, n, gray, w, h);
-  const int rc = unported_format(d, n);
-  return rc ? rc : kUnknown;
+  return by_plugin(d, n, [&](const Plugin& p) { return p.decode(d, n, gray, w, h); });
 }
 
 // no exception leaves the library: a header that asks for more memory than
@@ -2296,70 +2442,7 @@ int decode_any(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, i
 }
 
 int probe_by_signature(const uint8_t* d, size_t n, int& w, int& h) {
-  if (n >= 8 && !std::memcmp(d, kPngSig, 8)) {
-    PngHeader hd;
-    const int rc = png_header(d, n, hd);
-    w = hd.w;
-    h = hd.h;
-    return rc;
-  }
-  if (n >= 3 && d[0] == 0xFF && d[1] == 0xD8 && d[2] == 0xFF) {
-    size_t p = 2;
-    while (p + 4 <= n) {
-      while (p < n && d[p] != 0xFF) ++p;
-      while (p < n && d[p] == 0xFF) ++p;
-      if (p + 3 > n) break;
-      const int m = d[p++];
-      if (m == 0xD9 || m == 0xDA) break;
-      if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
-      const int len = (d[p] << 8) | d[p + 1];
-      if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
-        if (len < 8 || p + 7 > n) return kCorrupt;
-        h = (d[p + 3] << 8) | d[p + 4];
-        w = (d[p + 5] << 8) | d[p + 6];
-        return kOk;
-      }
-      p += len;
-    }
-    return kCorrupt;
-  }
-  if (is_pnm(d, n)) {
-    PnmHeader hd;
-    const int rc = pnm_header(d, n, hd);
-    w = (int)hd.w;
-    h = (int)hd.h;
-    return rc;
-  }
-  if (is_bmp(d, n)) {
-    BmpInfo b;
-    const int rc = bmp_header(d, n, b);
-    w = (int)b.w;
-    h = (int)b.h;
-    return rc;
-  }
-  if (is_tiff(d, n)) {
-    TiffInfo t;
-    const int rc = tiff_setup(d, n, t);
-    w = t.w;
-    h = t.h;
-    return rc;
-  }
-  if (is_gif(d, n)) {  // the screen grown to frame 0's extent
-    GifInfo g;
-    const int rc = gif_setup(d, n, g);
-    w = g.w;
-    h = g.h;
-    return rc;
-  }
-  if (is_webp(d, n)) {  // the demuxer's canvas
-    WebpInfo info;
-    const int rc = webp_setup(d, n, info);
-    w = info.canvas_w;
-    h = info.canvas_h;
-    return rc;
-  }
-  const int rc = unported_format(d, n);
-  return rc ? rc : kUnknown;
+  return by_plugin(d, n, [&](const Plugin& p) { return p.probe(d, n, w, h); });
 }
 
 int probe_size(const uint8_t* d, size_t n, int& w, int& h) {
@@ -2476,8 +2559,8 @@ const char* native_runtime_error_string(int code) {
       return "a netpbm kind other than P1-P6 and Pf (Pillow's own P0CMYK and Py kinds): "
              "not read";
     case kUnknown:
-      return "not a PNG, JPEG, netpbm, TIFF, BMP, GIF or WebP file (nor a format PIL "
-             "identifies by a signature)";
+      return "no plugin of PIL's opens it (\"cannot identify image file\"): no format's "
+             "signature matches, or each plugin it matches passes it on";
     case kTiffJpeg:
       return "a TIFF with new-style JPEG compression (7) of 12-bit samples, or whose JPEG "
              "strip or tile is smaller than the TIFF says (libtiff leaves the rest of Pillow's "
@@ -2546,16 +2629,68 @@ const char* native_runtime_error_string(int code) {
       return "a WebP whose ALPH chunk names a compression method above 1, a pre-processing "
              "above 1 or sets its reserved bits: PIL does not read it either (libwebp's "
              "ALPHInit refuses it: \"failed to read next frame\")";
-    case kJpeg2000: return "a JPEG 2000 image (codestream or JP2): PIL reads it; not read yet";
-    case kIco: return "an ICO (Windows icon) image: PIL reads it; not read yet";
-    case kCur: return "a CUR (Windows cursor) image: PIL reads it; not read yet";
-    case kQoi: return "a QOI image: PIL reads it; not read yet";
-    case kPsd: return "a PSD (Photoshop) image: PIL reads it; not read yet";
-    case kDds: return "a DDS (DirectDraw surface) image: PIL reads it; not read yet";
-    case kSgi: return "an SGI image: PIL reads it; not read yet";
-    case kSun: return "a Sun raster image: PIL reads it; not read yet";
-    case kPcx: return "a PCX image: PIL reads it; not read yet";
-    case kAvif: return "an AVIF image: PIL reads it; not read yet";
+    case kJpeg2000:
+      return "a JPEG 2000 image (codestream or JP2): PIL reads it through OpenJPEG; not read";
+    case kPsd: return "a PSD (Photoshop) image: PIL reads it; not read";
+    case kAvif: return "an AVIF image (or a HEIF brand PIL's AVIF plugin tries): PIL reads it "
+                       "through libavif; not read";
+    case kBlp: return "a BLP (Blizzard texture) image: PIL reads it; not read";
+    case kBufr: return "a BUFR file: PIL identifies it but loads it only through a handler "
+                       "an application installs (\"cannot find loader\"); not read";
+    case kDcx: return "a DCX (multi-page PCX) file: PIL reads it; not read";
+    case kEps: return "an EPS file: PIL renders it only through Ghostscript; not read";
+    case kFits: return "a FITS image: PIL reads it; not read";
+    case kFli: return "a FLI/FLC animation: PIL reads it; not read";
+    case kFtex: return "an FTEX (Independence War texture) image: PIL reads it; not read";
+    case kGbr: return "a GBR (GIMP brush) image: PIL reads it; not read";
+    case kGrib: return "a GRIB file: PIL identifies it but loads it only through a handler "
+                       "an application installs (\"cannot find loader\"); not read";
+    case kHdf5: return "an HDF5 file: PIL identifies it but loads it only through a handler "
+                       "an application installs (\"cannot find loader\"); not read";
+    case kIcns: return "an ICNS (Apple icon) image: PIL reads it; not read";
+    case kMcidas: return "a McIDAS area image: PIL reads it; not read";
+    case kMpeg: return "an MPEG stream: PIL identifies it but cannot read it either; not read";
+    case kMsp: return "an MSP (Microsoft Paint) image: PIL reads it; not read";
+    case kPixar: return "a PIXAR raster image: PIL reads it; not read";
+    case kWmf: return "a WMF/EMF metafile: PIL renders it only on Windows; not read";
+    case kXbm: return "an XBM (X11 bitmap) image: PIL reads it; not read";
+    case kXpm: return "an XPM (X11 pixmap) image: PIL reads it; not read";
+    case kXvThumb: return "an XV thumbnail image: PIL reads it; not read";
+    case kIm: return "an IM (IFUNC Image Memory) file, whose text header PIL's IM plugin "
+                     "takes before any later plugin: not read";
+    case kImt: return "an IMT (IM Tools) file, whose text header PIL's IMT plugin takes: not read";
+    case kIptc: return "an IPTC/NAA datastream, which PIL's IPTC plugin takes: not read";
+    case kPcd: return "a Kodak PhotoCD image: PIL reads it; not read";
+    case kSpider: return "a SPIDER image, whose float header PIL's SPIDER plugin takes: not read";
+    case kSunPalette:
+      return "a Sun raster image whose colour map PIL cannot apply (a 1-bit or RGB image with a "
+             "map: \"unrecognized image mode\"; a map of more than 256 colours: \"invalid "
+             "palette size\"): PIL does not read it either";
+    case kPcxMode:
+      return "a PCX image of a depth and plane count PIL has no mode for: PIL does not read it "
+             "either (\"unknown PCX mode\")";
+    case kSgiMode:
+      return "an SGI image of a bytes-per-channel, dimension and channel count PIL has no mode "
+             "for: PIL does not read it either (\"Unsupported SGI image mode\")";
+    case kSgiCompression:
+      return "an SGI image whose compression is neither 0 nor 1: PIL does not read it either "
+             "(\"cannot load this image\")";
+    case kTgaKind:
+      return "a TGA image whose type and depth PIL maps to no raw mode (or a colour-mapped one "
+             "without a map): PIL does not read it either (\"cannot load this image\", "
+             "\"unknown raw mode\")";
+    case kTgaMap:
+      return "a TGA image whose colour map PIL cannot apply (a 32-bit map: \"unrecognized raw "
+             "mode\"; a map on a 1-bit or true-colour image: \"unrecognized image mode\"; more "
+             "than 256 entries: \"invalid palette size\"): PIL does not read it either";
+    case kDdsHeader:
+      return "a DDS file whose header size is not 124: PIL does not read it either "
+             "(\"Unsupported header size\")";
+    case kDdsFormat:
+      return "a DDS pixel format PIL does not read either (a luminance bit count other than 8, "
+             "or 16 with alpha: \"Unsupported bitcount\"; a FourCC or DXGI format PIL has no "
+             "decoder for: \"Unimplemented pixel format\", \"Unimplemented DXGI format\"; no "
+             "format flag: \"Unknown pixel format flags\")";
     default: return "unknown error";
   }
 }
@@ -2588,6 +2723,19 @@ int native_decode_u8(const uint8_t* data, int64_t n, uint8_t* out, int H, int W)
   if (w != W || h != H) return kSize;
   std::memcpy(out, gray.data(), gray.size());
   return kOk;
+}
+
+// The name of the PIL plugin that takes an image in memory (reads or
+// refuses it: PIL's im.format) into out (16 bytes), "" where none does
+int native_identify(const uint8_t* data, int64_t n, char* out) {
+  int which = -1, w = 0, h = 0;
+  try {
+    by_plugin(data, (size_t)n, [&](const Plugin& p) { return p.probe(data, (size_t)n, w, h); },
+              &which);
+  } catch (const std::exception&) {
+  }
+  std::snprintf(out, 16, "%s", which < 0 ? "" : kPlugins[which].name);
+  return which;
 }
 
 // hw = (height, width) of an image in memory, from its header alone

@@ -236,15 +236,6 @@ struct TiffIfd {
   }
 };
 
-inline bool is_tiff(const uint8_t* d, size_t n) {
-  static const char* prefixes[6] = {"MM\x00\x2a", "II\x2a\x00", "MM\x2a\x00",
-                                    "II\x00\x2a", "MM\x00\x2b", "II\x2b\x00"};
-  if (n < 4) return false;
-  for (const char* p : prefixes)
-    if (!std::memcmp(d, p, 4)) return true;
-  return false;
-}
-
 // bytes per value of a TIFF field type PIL knows (0: a type it skips)
 inline int tiff_type_size(int type) {
   switch (type) {

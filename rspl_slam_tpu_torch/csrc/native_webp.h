@@ -36,12 +36,6 @@ const uint8_t kVp8lCodeToPlane[120] = {
     0x51, 0x5f, 0x40, 0x72, 0x7e, 0x61, 0x6f, 0x50, 0x71, 0x7f, 0x60, 0x70,
 };
 
-inline bool is_webp(const uint8_t* d, size_t n) {
-  return n >= 16 && !std::memcmp(d, "RIFF", 4) && !std::memcmp(d + 8, "WEBP", 4) &&
-         (!std::memcmp(d + 12, "VP8 ", 4) || !std::memcmp(d + 12, "VP8L", 4) ||
-          !std::memcmp(d + 12, "VP8X", 4));
-}
-
 inline uint32_t webp_le24(const uint8_t* p) { return p[0] | p[1] << 8 | p[2] << 16; }
 inline uint32_t webp_le32(const uint8_t* p) { return webp_le24(p) | (uint32_t)p[3] << 24; }
 

@@ -2,11 +2,13 @@
 ``csrc/native_runtime.cpp``, host C++ built by ``ops/cuda_build`` with the
 host compiler at first use into ``rspl_slam_tpu_torch/_build/``.
 
-- :func:`decode_gray`: a PNG, JPEG, netpbm, TIFF, BMP, GIF or WebP file → (H, W)
+- :func:`decode_gray`: an image file of any format below → (H, W)
   float32 in [0, 1], the 8-bit gray of PIL's
   ``Image.open(p).convert("L")`` divided by 255 as
   ``datasets.EurocDataset`` divides it;
 - :func:`decode_u8`: the same decode of an encoded image in memory, 8-bit;
+  :func:`image_size` its size from the header; :func:`plugin_of` the PIL
+  plugin that takes it;
 - :func:`remap_bilinear`: ``camera.remap_bilinear``'s border clamp on the
   host;
 - :func:`merge_lines`: the reference's MergeLines (``ops/lines.merge_lines``
@@ -14,43 +16,48 @@ host compiler at first use into ``rspl_slam_tpu_torch/_build/``.
 - :class:`NativeStereoLoader`: decode threads that read, decode and
   optionally rectify stereo pairs ahead of the consumer, in order.
 
-The decoder tells formats apart by content, as PIL does, and reads every
-kind PIL reads from these formats: PNG of every colour type, bit depth
-and interlace; JPEG sequential, progressive (with libjpeg-turbo's block
-smoothing) and lossless, Huffman or arithmetic coded, gray, YCbCr, RGB,
-CMYK and YCCK at any integral sampling; netpbm P1-P6 at any maxval and
-gray PFM ("Pf"); TIFF (``csrc/native_tiff.h``: classic and BigTIFF, both
-byte orders, strips and tiles, planar 1 and 2, fill order 2, no
-compression, PackBits, LZW and Deflate with predictors 2 and 3, every
-mode PIL's ``OPEN_INFO`` maps: bilevel, 2-/4-/8-bit gray, 12-, 16- and
-32-bit integers, 32-bit float, palette, LA, RGB(A/X/a) at 8 and 16 bits,
-CMYK, YCbCr, with PIL's own byte-order and planar quirks; and what
-libtiff hands PIL from its own codecs: new-style JPEG with JPEGTables
-(``native_tiff_jpeg.h``), compressed YCbCr through ``TIFFRGBAImage`` and
-old-style JPEG (``native_tiff_ycbcr.h``), CCITT MH, Group 3, Group 4 and
-RLEW with libtiff's recoveries from bad data (``native_fax3.h``);
-flipped or rotated by the Orientation tag, or with none by the XMP
-packet, as PIL's ``ImageOps.exif_transpose`` does after decoding);
-BMP (``csrc/native_bmp.h``: every header size, 1-32 bits, RLE4, RLE8,
-BITFIELDS, top-down rows); GIF frame 0 (``csrc/native_gif.h``, Pillow's
-LZW decoder as ``ImageFile.load`` feeds it); WebP as libwebp 1.6.0
-decodes it for PIL (``csrc/native_webp.h``: the demuxer, VP8L, ALPH,
-frame 0 of an animation; ``native_vp8.h``: lossy VP8 and libwebp's fancy
-upsampler). Kinds PIL refuses (12-bit, hierarchical, DNL and
-fractional-sampling JPEG, lossless YCbCr; TIFF modes missing from
-``OPEN_INFO``, CIELAB; BMP headers, depths, compressions, masks and
-palettes PIL rejects; GIF code sizes above 12; WebP VP8 frames that are
-not displayable key frames, VP8L versions other than 0, ALPH chunks
-libwebp rejects) and kinds PIL reads that the port does not yet (TIFF's
-LZMA, ZSTD, WebP, SGILog and ThunderScan compressions, 12-bit and
-short-stream new-style JPEG, old-style JPEG in tiles, on separate planes,
-in big-endian strips or with restart intervals off the strips; JPEG
-2000, ICO, CUR, QOI, PSD, DDS, SGI, Sun raster, PCX, AVIF files;
-Pillow's P0CMYK and Py netpbm kinds) raise ``NotImplementedError``
-naming the kind or format. A file with no signature raises
-``ValueError``, and a file that fails to decode (libtiff's own failures
-included) ``IOError``, on every route: the library's
-``native_runtime_error_kind`` decides.
+The decoder tells formats apart as PIL 12.1's ``Image.open`` does: it
+tries PIL's plugins in their order (the preinit BMP, DIB, GIF, JPEG, PPM,
+PNG, then ``Image.ID``), each by its accept test (or, for the plugins with
+none, their open checks), and a plugin whose open fails as PIL's passes
+the file on does so here too. It reads every kind PIL reads from: PNG of
+every colour type, bit depth and interlace; JPEG sequential, progressive
+(with libjpeg-turbo's block smoothing) and lossless, Huffman or
+arithmetic coded, gray, YCbCr, RGB, CMYK and YCCK at any integral
+sampling; netpbm P1-P6 at any maxval and gray PFM ("Pf"); TIFF
+(``csrc/native_tiff.h``: classic and BigTIFF, both byte orders, strips
+and tiles, planar 1 and 2, fill order 2, no compression, PackBits, LZW
+and Deflate with predictors 2 and 3, every mode PIL's ``OPEN_INFO`` maps,
+with PIL's own byte-order and planar quirks; and what libtiff hands PIL
+from its own codecs: new-style JPEG (``native_tiff_jpeg.h``), compressed
+YCbCr and old-style JPEG (``native_tiff_ycbcr.h``), CCITT MH, Group 3,
+Group 4 and RLEW (``native_fax3.h``); oriented as PIL's
+``ImageOps.exif_transpose`` orients it); BMP and the headerless DIB
+(``csrc/native_bmp.h``: every header size, 1-32 bits, RLE4, RLE8,
+BITFIELDS, top-down rows); GIF frame 0 (``csrc/native_gif.h``); WebP as
+libwebp 1.6.0 decodes it (``csrc/native_webp.h``, ``native_vp8.h``);
+QOI, Sun raster (raw and RLE, colour maps), PCX (bit planes, the
+256-colour palette), SGI (raw and RLE, 1 or 2 bytes a sample) and TGA
+(types 1-3 and 9-11, colour maps, both orientation bits) as their
+plugins and Pillow's decoders read them (``csrc/native_raster.h``); ICO
+and CUR (``csrc/native_ico.h``: the entry PIL picks, PNG or DIB); DDS
+(``csrc/native_bcn.h``: bit masks, luminance, palette, BC1-BC5, BC6H
+unsigned and signed, BC7, as Pillow's bcn decoder decodes them). Kinds
+PIL refuses (12-bit, hierarchical, DNL and fractional-sampling JPEG,
+lossless YCbCr; TIFF modes missing from ``OPEN_INFO``, CIELAB; the BMP
+headers, depths, compressions, masks and palettes PIL rejects; GIF code
+sizes above 12; WebP frames libwebp rejects; Sun, TGA colour maps PIL
+cannot apply; PCX and SGI modes PIL has none for; DDS header sizes and
+pixel formats PIL does not decode) and formats and kinds PIL reads that
+the port does not yet (TIFF's LZMA, ZSTD, WebP, SGILog and ThunderScan
+compressions, 12-bit and short-stream new-style JPEG, old-style JPEG in
+tiles, on separate planes, in big-endian strips or with restart
+intervals off the strips; JPEG 2000, AVIF, PSD and every other plugin of
+PIL's the port does not read, each by name; Pillow's P0CMYK and Py
+netpbm kinds) raise ``NotImplementedError`` naming the kind or format. A
+file no plugin of PIL's opens raises ``ValueError``, and a file that fails
+to decode (libtiff's own failures included) ``IOError``, on every route:
+the library's ``native_runtime_error_kind`` decides.
 
 There is no fallback: where the library cannot be built, every entry point
 raises.
@@ -63,7 +70,7 @@ import weakref
 
 import numpy as np
 
-__all__ = ["build", "available", "decode_gray", "decode_u8", "image_size",
+__all__ = ["build", "available", "decode_gray", "decode_u8", "image_size", "plugin_of",
            "remap_bilinear", "merge_lines", "NativeStereoLoader"]
 
 _NAME = "native_runtime"
@@ -112,6 +119,17 @@ def image_size(data: bytes, what: str = "image header") -> tuple[int, int]:
     if rc:
         _raise(rc, what)
     return int(hw[0]), int(hw[1])
+
+
+def plugin_of(data: bytes) -> str:
+    """The name of the PIL plugin that takes an encoded image in memory, as
+    ``Image.open`` tries them (``im.format``: the one the decoder reads it
+    with, or the one it refuses it naming); "" where none does, where
+    :func:`decode_u8` raises ``ValueError``."""
+    buf = np.frombuffer(data, np.uint8) if len(data) else np.zeros(1, np.uint8)
+    out = ctypes.create_string_buffer(16)
+    _lib().native_identify(buf.ctypes.data, len(data), ctypes.addressof(out))
+    return out.value.decode()
 
 
 def decode_u8(data: bytes, what: str = "image") -> np.ndarray:

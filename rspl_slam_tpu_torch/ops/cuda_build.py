@@ -66,6 +66,7 @@ SIGNATURES = {
                        "native_remap_bilinear": "pii" + "pp",
                        "native_decode_u8": "plp" + "ii",
                        "native_image_size": "plp",
+                       "native_identify": "plp",
                        "native_decode_file": "sp" + "ii",
                        "native_loader_create": "ppiiippiip",
                        "native_loader_next": "ppp",

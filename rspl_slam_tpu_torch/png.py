@@ -1,16 +1,19 @@
 """Images without PIL: the port's stand-in for PIL.
 
 :func:`read_gray` returns what ``PIL.Image.open(p).convert("L")`` returns,
-as (H, W) uint8, for PNG (every colour type, bit depth and interlace),
-JPEG (every kind libjpeg-turbo decodes for PIL: sequential, progressive
-and lossless, Huffman or arithmetic coded, gray, YCbCr, RGB, CMYK, YCCK),
-netpbm P1-P6 at any maxval and gray PFM, TIFF (every mode of PIL's
-``OPEN_INFO``, uncompressed, PackBits, LZW or Deflate, with PIL's quirks,
-transposed by its Orientation tag as PIL transposes it),
-BMP (every header, depth, RLE and BITFIELDS kind PIL reads), GIF (frame
-0) and WebP (lossless, lossy, with alpha, frame 0 of an animation). RGB
-becomes gray with PIL's fixed-point luma, ``(R·19595 + G·38470 + B·7471 +
-0x8000) >> 16``; alpha and tRNS are dropped, as PIL drops them.
+as (H, W) uint8, for every file PIL 12.1 reads that the port reads: PNG
+(every colour type, bit depth and interlace), JPEG (every kind
+libjpeg-turbo decodes for PIL: sequential, progressive and lossless,
+Huffman or arithmetic coded, gray, YCbCr, RGB, CMYK, YCCK), netpbm P1-P6
+at any maxval and gray PFM, TIFF (every mode of PIL's ``OPEN_INFO``,
+uncompressed, PackBits, LZW or Deflate with PIL's quirks, and JPEG,
+old-style JPEG, CCITT and compressed YCbCr as libtiff hands them to PIL;
+transposed by its Orientation tag as PIL transposes it), BMP and the
+headerless DIB, GIF (frame 0), WebP (lossless, lossy, with alpha, frame 0
+of an animation), QOI, Sun raster, PCX, SGI, TGA, ICO, CUR and DDS (bit
+masks, luminance, palette, BC1-BC7 with BC6H). RGB becomes gray with
+PIL's fixed-point luma, ``(R·19595 + G·38470 + B·7471 + 0x8000) >> 16``;
+alpha and tRNS are dropped, as PIL drops them.
 
 8-bit non-interlaced PNGs in gray, gray + alpha, RGB and RGBA (what the
 EuRoC-class datasets hold) decode here with zlib and numpy, undoing the
@@ -18,21 +21,15 @@ row filters in numpy and Python (:func:`unfilter_numpy`, Sub and Up
 vectorized) or, with ``compiled``, in the host C++ loop of
 ``csrc/png_unfilter.cu`` (:func:`unfilter_compiled`, built by
 ``ops/cuda_build`` at first use); the two agree bit for bit. Every other
-file goes to the host C++ of ``native.py`` (``csrc/native_runtime.cpp``,
-``native_tiff.h``, ``native_bmp.h``, ``native_gif.h``, ``native_webp.h``,
-``native_vp8.h``), which tells the format by content, as PIL does,
-whatever the extension: every other PNG (palette, 1/2/4/16-bit, Adam7),
-JPEG, netpbm, PFM, TIFF, BMP, GIF and WebP. The kinds PIL refuses
-(12-bit, hierarchical and DNL JPEGs, fractional sampling, lossless YCbCr;
-TIFF modes missing from ``OPEN_INFO``, CIELAB; the BMP headers, depths,
-compressions, masks and palettes PIL rejects; GIF code sizes above 12;
-WebP VP8 frames that are not displayable key frames, VP8L versions other
-than 0, ALPH chunks libwebp rejects) and the kinds PIL reads that the
-port does not yet (TIFF's JPEG, CCITT, LZMA, ZSTD, WebP, SGILog and
-ThunderScan compressions and compressed YCbCr; JPEG 2000, ICO, CUR, QOI,
-PSD, DDS, SGI, Sun raster, PCX and AVIF files; Pillow's own netpbm
-variants) raise ``NotImplementedError``
-naming the kind or format; a file of no known signature ``ValueError``.
+file goes to the host C++ of ``native.py`` (``csrc/native_runtime.cpp``
+and the headers it includes), which tells the format as PIL's
+``Image.open`` does, trying PIL's plugins in their order, whatever the
+extension. The kinds PIL refuses raise ``NotImplementedError`` naming the
+kind with PIL's reason, and so do the formats and kinds PIL reads that the
+port does not yet (TIFF's LZMA, ZSTD, WebP, SGILog and ThunderScan
+compressions; JPEG 2000, AVIF, PSD and every other plugin of PIL's the
+port does not read, each named; Pillow's own netpbm variants); a file no
+plugin of PIL's opens raises ``ValueError``.
 
 :func:`write_png` writes 8-bit PNGs with one fixed filter or, by default,
 the filter per row that minimizes the sum of the filtered bytes read as

@@ -1139,8 +1139,9 @@ def test_loader_threads_decode_every_image_kind_to_its_pinned_hash(cuda_device):
     decode threads read every readable fixture of ``tests/fixtures/
     image_kinds`` (progressive, arithmetic-coded, lossless, CMYK, YCCK,
     RGB, 4:1:1 JPEG; netpbm P1-P6, PFM; TIFF with libtiff's JPEG, CCITT and
-    YCbCr codecs among them, BMP; GIF; WebP lossless, lossy,
-    with alpha, animated) to the PIL sha256 its
+    YCbCr codecs among them, BMP and the headerless DIB; GIF; WebP
+    lossless, lossy, with alpha, animated; QOI, Sun raster, PCX, SGI, TGA,
+    ICO, CUR, DDS with BC1, BC6H and BC7 blocks) to the PIL sha256 its
     manifest pins, and refuse the kinds PIL refuses, and those the port
     does not read yet, with ``NotImplementedError``."""
     import hashlib

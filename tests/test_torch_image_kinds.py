@@ -1,5 +1,6 @@
-"""Every JPEG, netpbm, PFM, TIFF, BMP, GIF and WebP kind that the JAX
-package's reader takes (PIL's ``Image.open(p).convert("L")``,
+"""Every JPEG, netpbm, PFM, TIFF, BMP, GIF, WebP, QOI, Sun raster, PCX,
+SGI, TGA, ICO, CUR, DIB and DDS kind that the JAX package's reader takes
+(PIL's ``Image.open(p).convert("L")``,
 ``rspl_slam_tpu.datasets._load_gray``) through every CPU route of the
 port's reader: ``png.read_gray``, ``native.decode_u8`` / ``decode_gray``
 and the ``NativeStereoLoader`` threads, bit for bit; the kinds PIL
@@ -19,12 +20,14 @@ old-style JPEG, compressed YCbCr, CCITT with libtiff's recoveries, and
 the JPEG layouts the port refuses), BMP (RLE, BITFIELDS, OS/2, top-down), PFM;
 GIF (identity palettes, frame 0 past or inside the screen, interlaced,
 animated) and WebP (lossless, lossy, alpha, animated, libwebp's own
-options) with the kinds of both that PIL refuses; JPEG 2000, ICO, CUR,
-QOI, PSD, DDS, SGI, Sun raster, PCX, AVIF and P0CMYK files the port
-refuses; a 752×480 progressive stereo sequence and a lossy WebP pair of
-its first frames. Random GIFs and WebPs are in ``test_torch_gif_webp.py``,
-random TIFFs of libtiff's codecs in ``test_torch_tiff_codecs.py``. ``manifest.json`` pins each readable file's PIL sha256 and
-each refused file's refusal word.
+options) with the kinds of both that PIL refuses; QOI, Sun raster, PCX,
+SGI, TGA, ICO, CUR, headerless DIB and DDS (BC1, BC6H, BC7) files; JPEG
+2000, PSD, AVIF and P0CMYK files the port refuses; a 752×480 progressive
+stereo sequence and a lossy WebP pair of its first frames. Random GIFs
+and WebPs are in ``test_torch_gif_webp.py``, random TIFFs of libtiff's
+codecs in ``test_torch_tiff_codecs.py``, random files of the formats read
+since QOI in ``test_torch_pillow_formats.py``. ``manifest.json`` pins each
+readable file's PIL sha256 and each refused file's refusal word.
 """
 
 import contextlib
@@ -147,8 +150,7 @@ def test_unported_kind_raises_in_the_port_alone(name):
     """A kind or format PIL reads that the port does not read yet (TIFF's
     LZMA and ZSTD compressions, 12-bit and short-stream new-style JPEG,
     old-style JPEG of big-endian strips or odd restart intervals; JPEG
-    2000, ICO, CUR, QOI, PSD, DDS, SGI, Sun raster, PCX, AVIF; Pillow's
-    P0CMYK):
+    2000, PSD, AVIF; Pillow's P0CMYK):
     PIL (JAX's reader) reads it, and every route of the port raises
     ``NotImplementedError`` naming the kind or format."""
     path = os.path.join(DIR, name)
@@ -476,24 +478,23 @@ def test_pil_boundaries_of_i16_and_f_to_l(tmp_path):
 
 UNPORTED_SIGNATURES = {
     "JPEG 2000": b"\xff\x4f\xff\x51",
-    "JPEG 2000 (JP2)": b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", "ICO": b"\0\0\1\0",
-    "CUR": b"\0\0\2\0", "QOI": b"qoif", "PSD": b"8BPS", "DDS": b"DDS ", "SGI": b"\x01\xda",
-    "Sun raster": b"\x59\xa6\x6a\x95", "PCX": b"\x0a\x05", "AVIF": b"\0\0\0\x1cftypavif"}
+    "JPEG 2000 (JP2)": b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", "PSD": b"8BPS",
+    "AVIF": b"\0\0\0\x1cftypavif"}
 
 
 @pytest.mark.parametrize("fmt", sorted(UNPORTED_SIGNATURES))
 def test_unported_format_raises_naming_it(fmt):
     """A file that starts with the signature PIL identifies a format by, of
     a format the port does not read yet, raises ``NotImplementedError``
-    naming that format on ``decode_u8`` and ``image_size``; a file of no
-    known signature keeps its ``ValueError``."""
+    naming that format on ``decode_u8`` and ``image_size``; a file no plugin
+    of PIL's opens keeps its ``ValueError``."""
     data = UNPORTED_SIGNATURES[fmt] + bytes(64)
     word = fmt.split(" (")[0]
     with pytest.raises(NotImplementedError, match=word):
         native.decode_u8(data)
     with pytest.raises(NotImplementedError, match=word):
         native.image_size(data)
-    with pytest.raises(ValueError, match="not a PNG, JPEG, netpbm, TIFF, BMP, GIF or WebP"):
+    with pytest.raises(ValueError, match="no plugin of PIL's opens it"):
         native.decode_u8(b"hello" + bytes(64))
 
 

@@ -1,5 +1,6 @@
 """Writes ``tests/fixtures/image_kinds/``: one small file of every JPEG,
-netpbm, TIFF, BMP, PFM, GIF and WebP kind that PIL's
+netpbm, TIFF, BMP, PFM, GIF, WebP, QOI, Sun raster, PCX, SGI, TGA, ICO,
+CUR, DIB and DDS kind that PIL's
 ``Image.open(p).convert("L")`` reads (or refuses), one file of each format
 PIL reads by a signature that the port does not read yet, the full-width
 progressive stereo sequence, and ``manifest.json`` (each file's kind and the sha256 of PIL's
@@ -28,7 +29,15 @@ from the small encoders in this file:
   RLEW, Group 3 1D/2D with EOLs and fill bits, and Group 4; PIL's
   Floyd-Steinberg dither of ``convert("1")``;
 - BMP of every header size and depth, RLE4 and RLE8 (deltas, early ends),
-  BITFIELDS, top-down rows; CUR, PSD and Sun raster by hand;
+  BITFIELDS, top-down rows; PSD by hand;
+- numpy-only (the card's machine has no PIL): QOI with every op, Sun
+  raster raw or RLE at each depth with colour maps, PCX of every mode
+  (bit planes, the 256-colour palette), SGI raw or RLE with its tables,
+  TGA of types 1-3 and 9-11 (colour maps of 16 or 24 bits from a first
+  index, literals and runs across rows, both orientation bits),
+  headerless DIBs, ICO and CUR directories of DIB entries with AND masks
+  (or PNG entries), DDS headers (FourCC, DX10, bit masks) with BC1 and
+  BC7 (mode 6) block encoders;
 - GIF with identity palettes (global, local), a local palette over a
   global one, frame 0 past the screen or inside it, LZW code sizes 2-13,
   no End code, early End codes, cut streams, blocks before the image;
@@ -2313,6 +2322,7 @@ def small_files(seed: int) -> dict:
     files.update(tiff_codec_files(seed))
     files.update(gif_webp_files(seed))
     files.update(unported_files(seed))
+    files.update(raster_files(seed))
     return files
 
 
@@ -2777,6 +2787,401 @@ def gif_webp_files(seed: int) -> dict:
     return files
 
 
+# ---------------------------------------------------- QOI, Sun, PCX, SGI, TGA,
+# ICO, CUR, DIB and DDS: numpy encoders (the card's machine has no PIL)
+
+
+def encode_qoi(rgb, channels: int = 3, ops=None) -> bytes:
+    """A QOI file of (H, W, 3) or (H, W, 4) pixels, coded with every op the
+    format has (index, diff, luma, run, RGB, RGBA), as the reference coder
+    chooses them; ``ops`` (bytes) replaces the coded stream."""
+    px = np.asarray(rgb, np.uint8)
+    H, W = px.shape[:2]
+    if px.shape[2] == 3:
+        px = np.dstack([px, np.full((H, W), 255, np.uint8)])
+    out = bytearray(b"qoif" + struct.pack(">IIBB", W, H, channels, 0))
+    if ops is not None:
+        return bytes(out) + bytes(ops)
+    seen = [None] * 64
+    prev = (0, 0, 0, 255)
+    run = 0
+    flat = [tuple(int(v) for v in p) for p in px.reshape(-1, 4)]
+    for i, p in enumerate(flat):
+        if p == prev:
+            run += 1
+            if run == 62 or i == len(flat) - 1:
+                out.append(0xC0 | (run - 1))
+                run = 0
+            continue
+        if run:
+            out.append(0xC0 | (run - 1))
+            run = 0
+        h = (p[0] * 3 + p[1] * 5 + p[2] * 7 + p[3] * 11) % 64
+        if seen[h] == p:
+            out.append(h)
+        elif p[3] == prev[3]:
+            dr, dg, db = ((p[c] - prev[c] + 128) % 256 - 128 for c in range(3))
+            if -2 <= dr <= 1 and -2 <= dg <= 1 and -2 <= db <= 1:
+                out.append(0x40 | (dr + 2) << 4 | (dg + 2) << 2 | (db + 2))
+            elif -32 <= dg <= 31 and -8 <= dr - dg <= 7 and -8 <= db - dg <= 7:
+                out += bytes([0x80 | (dg + 32), (dr - dg + 8) << 4 | (db - dg + 8)])
+            else:
+                out += bytes([0xFE, *p[:3]])
+        else:
+            out += bytes([0xFF, *p])
+        seen[h] = p
+        prev = p
+    return bytes(out) + bytes(7) + b"\x01"
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun's byte RLE: runs of 3 or more (and any 0x80) as 0x80, n - 1, v."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j < len(data) and j - i < 256 and data[j] == data[i]:
+            j += 1
+        n = j - i
+        if n >= 3:
+            out += bytes([0x80, n - 1, data[i]])
+        elif data[i] == 0x80:
+            out += b"\x80\x00" * n
+        else:
+            out += data[i:j]
+        i = j
+    return bytes(out)
+
+
+def encode_sun(pixels, depth: int = 8, ftype: int = 1, palette=None, rle=None) -> bytes:
+    """A Sun raster file: 1-bit (1 = black), 4-, 8-bit gray or indices,
+    24/32-bit BGR(X) (type 3: RGB(X)); rows padded to 16 bits when raw,
+    unpadded under RLE (type 2); ``palette`` (N, 3) written as R, G, B
+    planes; ``rle`` replaces the coded data."""
+    px = np.asarray(pixels)
+    H, W = px.shape[:2]
+    if depth in (1, 4):
+        bits = np.unpackbits(px.astype(np.uint8)[..., None], axis=-1)[..., 8 - depth:]
+        rows = [np.packbits(r.reshape(-1)).tobytes() for r in bits]
+    elif depth == 8:
+        rows = [r.astype(np.uint8).tobytes() for r in px]
+    else:
+        c = px[..., [0, 1, 2] if ftype == 3 else [2, 1, 0]].astype(np.uint8)
+        if depth == 32:
+            c = np.dstack([c, np.zeros((H, W), np.uint8)])
+        rows = [r.tobytes() for r in c]
+    stride = ((W * depth + 15) // 16) * 2
+    if ftype == 2:
+        body = rle if rle is not None else sun_rle(b"".join(rows))
+    else:
+        body = b"".join(r.ljust(stride, b"\0") for r in rows)
+    pal = b"" if palette is None else np.asarray(palette, np.uint8).T.tobytes()
+    return struct.pack(">8I", 0x59A66A95, W, H, depth, len(body), ftype, 1 if pal else 0,
+                       len(pal)) + pal + body
+
+
+def pcx_rle(line: bytes) -> bytes:
+    """PCX run length: runs of up to 63 (and any byte of 0xC0 or more) as
+    0xC0 | n, v; other bytes as themselves."""
+    out, i = bytearray(), 0
+    while i < len(line):
+        j = i
+        while j < len(line) and j - i < 63 and line[j] == line[i]:
+            j += 1
+        if j - i > 1 or line[i] >= 0xC0:
+            out += bytes([0xC0 | (j - i), line[i]])
+        else:
+            out.append(line[i])
+        i = j
+    return bytes(out)
+
+
+def encode_pcx(pixels, bits: int = 8, planes: int = 1, version: int = 5, palette16=None,
+               palette256=None, stride=None, origin=(0, 0), body=None) -> bytes:
+    """A PCX file: 1-bit (1 plane), 1-bit planes (2 or 4, P with the header's
+    16 colours), 8-bit (L, or P with a 256-colour palette after 0x0C) and
+    8-bit RGB planes; each line coded by run length (runs end with the
+    line); ``stride`` the header's bytes per plane line (even if None)."""
+    px = np.asarray(pixels)
+    H, W = px.shape[:2]
+    st = (W * bits + 7) // 8
+    if stride is None:
+        stride = st + st % 2
+    lines = []
+    for y in range(H):
+        if planes == 3:
+            pls = [px[y, :, c].astype(np.uint8).tobytes() for c in range(3)]
+        elif bits == 1:
+            pls = [np.packbits(((px[y].astype(np.int64) >> b) & 1).astype(np.uint8)).tobytes()
+                   for b in range(planes)]
+        else:
+            pls = [px[y].astype(np.uint8).tobytes()]
+        lines.append(b"".join(p[:stride].ljust(stride, b"\0") for p in pls))
+    data = body if body is not None else b"".join(pcx_rle(ln) for ln in lines)
+    hdr = bytearray(128)
+    x0, y0 = origin
+    struct.pack_into("<BBBBHHHHHH", hdr, 0, 10, version, 1, bits, x0, y0, x0 + W - 1, y0 + H - 1,
+                     72, 72)
+    if palette16 is not None:
+        hdr[16:64] = np.asarray(palette16, np.uint8).reshape(-1)[:48].tobytes().ljust(48, b"\0")
+    hdr[65] = planes
+    struct.pack_into("<HH", hdr, 66, stride, 1)
+    tail = b""
+    if palette256 is not None:
+        tail = b"\x0c" + np.asarray(palette256, np.uint8).reshape(-1).tobytes()
+    return bytes(hdr) + data + tail
+
+
+def sgi_rle_row(row: bytes, bpc: int) -> bytes:
+    """One SGI RLE row: runs (count, value) and copies (0x80 | count, values),
+    127 at most, then a 0 code; codes are bpc bytes wide."""
+    vals = [row[i:i + bpc] for i in range(0, len(row), bpc)]
+    out, i = bytearray(), 0
+
+    def code(c):
+        return b"\0" * (bpc - 1) + bytes([c])
+
+    while i < len(vals):
+        j = i
+        while j < len(vals) and j - i < 127 and vals[j] == vals[i]:
+            j += 1
+        if j - i >= 2:
+            out += code(j - i) + vals[i]
+            i = j
+            continue
+        j = i + 1
+        while j < len(vals) and j - i < 127 and not (j + 1 < len(vals) and vals[j] == vals[j + 1]):
+            j += 1
+        out += code(0x80 | (j - i)) + b"".join(vals[i:j])
+        i = j
+    return bytes(out + code(0))
+
+
+def encode_sgi(pixels, bpc: int = 1, rle: bool = True, dimension=None) -> bytes:
+    """An SGI file of (H, W) or (H, W, Z) samples (1 or 2 bytes each, rows
+    bottom-up), verbatim or RLE with its offset and length tables."""
+    px = np.asarray(pixels)
+    if px.ndim == 2:
+        px = px[..., None]
+    H, W, Z = px.shape
+    dim = dimension or (3 if Z > 1 else 2)
+    head = bytearray(512)
+    struct.pack_into(">hBBHHHH", head, 0, 474, 1 if rle else 0, bpc, dim, W, H, Z)
+    struct.pack_into(">ii", head, 12, 0, 255 if bpc == 1 else 65535)
+    dt = np.dtype(">u2") if bpc == 2 else np.uint8
+    planes = [px[::-1, :, c].astype(dt) for c in range(Z)]
+    if not rle:
+        return bytes(head) + b"".join(p.tobytes() for p in planes)
+    starts, lengths, data = [], [], bytearray()
+    base = 512 + 8 * H * Z
+    for c in range(Z):
+        for y in range(H):
+            coded = sgi_rle_row(planes[c][y].tobytes(), bpc)
+            starts.append(base + len(data))
+            lengths.append(len(coded) // bpc)
+            data += coded
+    return (bytes(head) + struct.pack(f">{H * Z}I", *starts) + struct.pack(f">{H * Z}I", *lengths)
+            + bytes(data))
+
+
+def tga_rle(rows, pb: int) -> bytes:
+    """TGA RLE over the rows: runs of 2 to 128 pixels within a row (PIL
+    refuses a run across rows), literals of 1 to 128 that may cross rows."""
+    W = len(rows[0]) // pb
+    px = [r[i:i + pb] for r in rows for i in range(0, len(r), pb)]
+    out, i = bytearray(), 0
+    while i < len(px):
+        j = i
+        while j < len(px) and j - i < 128 and px[j] == px[i] and j // W == i // W:
+            j += 1
+        if j - i >= 2:
+            out += bytes([0x80 | (j - i - 1)]) + px[i]
+            i = j
+            continue
+        j = i + 1
+        while j < len(px) and j - i < 128 and not (
+                j + 1 < len(px) and px[j] == px[j + 1] and (j + 1) // W == j // W):
+            j += 1
+        out += bytes([j - i - 1]) + b"".join(px[i:j])
+        i = j
+    return bytes(out)
+
+
+def encode_tga(pixels, itype: int = 3, depth: int = 8, cmap=None, cmap_depth: int = 24,
+               cmap_start: int = 0, top_down: bool = False, flip: bool = False,
+               ident: bytes = b"", rle=None) -> bytes:
+    """A TGA file: types 1-3 (9-11 RLE, ``rle`` replacing the packets);
+    8-bit indices or gray, 1-bit, 16-bit gray + alpha (H, W, 2) or 5-5-5
+    colour, 24/32-bit BGR(A); a 16- or 24-bit colour map from
+    ``cmap_start``; ``top_down`` sets bit 0x20, ``flip`` bit 0x10 (rows
+    stored right to left)."""
+    px = np.asarray(pixels)
+    H, W = px.shape[:2]
+    if depth == 1:
+        rows = [np.packbits(r.astype(np.uint8)).tobytes() for r in px]
+    elif depth == 8:
+        rows = [r.astype(np.uint8).tobytes() for r in px]
+    elif depth == 16 and (itype & 7) == 3:
+        rows = [r.astype(np.uint8).tobytes() for r in px]
+    elif depth == 16:
+        c = px.astype(np.uint16)
+        v = (c[..., 0] >> 3) << 10 | (c[..., 1] >> 3) << 5 | (c[..., 2] >> 3) | 0x8000
+        rows = [r.astype("<u2").tobytes() for r in v]
+    else:
+        c = px[..., [2, 1, 0] + ([3] if depth == 32 else [])].astype(np.uint8)
+        rows = [r.tobytes() for r in c]
+    pb = max(depth // 8, 1)
+    if flip:
+        rows = [b"".join(r[i:i + pb] for i in range(len(r) - pb, -1, -pb)) for r in rows]
+    if not top_down:
+        rows = rows[::-1]
+    body = rle if rle is not None else (tga_rle(rows, pb) if itype & 8 else b"".join(rows))
+    cm = b""
+    if cmap is not None:
+        c = np.asarray(cmap, np.uint16)
+        if cmap_depth == 16:
+            cm = ((c[:, 0] >> 3) << 10 | (c[:, 1] >> 3) << 5 | (c[:, 2] >> 3)).astype(
+                "<u2").tobytes()
+        else:
+            cm = c[:, [2, 1, 0] + ([3] if cmap_depth == 32 else [])].astype(np.uint8).tobytes()
+    n = len(cmap) if cmap is not None else 0
+    flags = (0x20 if top_down else 0) | (0x10 if flip else 0)
+    return (struct.pack("<BBBHHBHHHHBB", len(ident), 1 if cmap is not None else 0, itype,
+                        cmap_start, n, cmap_depth if cmap is not None else 0, 0, 0, W, H, depth,
+                        flags) + ident + cm + body)
+
+
+def encode_dib(pixels, bits: int = 8, palette=None, header: int = 40, **kw) -> bytes:
+    """A headerless DIB: ``encode_bmp``'s file without its 14-byte header;
+    the pixels follow the header, masks and palette."""
+    return encode_bmp(pixels, bits, header=header, palette=palette, **kw)[14:]
+
+
+def ico_dib(pixels, bits: int = 32, palette=None, mask=None) -> bytes:
+    """An ICO/CUR DIB entry: the XOR bitmap at twice its height (40-byte
+    header), then the AND mask rows (1 bit, 32-bit aligned), bottom-up."""
+    px = np.asarray(pixels)
+    H, W = px.shape[:2]
+    dib = encode_dib(px, bits, palette=palette)
+    hdr = bytearray(dib[:40])
+    struct.pack_into("<i", hdr, 8, 2 * H)
+    m = np.zeros((H, W), np.uint8) if mask is None else np.asarray(mask, np.uint8)
+    rows = np.zeros((H, (W + 31) // 32 * 32), np.uint8)
+    rows[:, :W] = m
+    return bytes(hdr) + dib[40:] + np.packbits(rows[::-1], axis=1).tobytes()
+
+
+def encode_ico(entries, kind: int = 1, dims=None) -> bytes:
+    """An ICO (kind 1) or CUR (kind 2) of entries (the bytes of a PNG or of
+    ``ico_dib``), each with its (width, height, colours, bpp) in the
+    directory (``dims``; the entry's own size, 0 colours and its bits if
+    None)."""
+    out = bytearray(struct.pack("<HHH", 0, kind, len(entries)))
+    offset = 6 + 16 * len(entries)
+    body = bytearray()
+    for i, e in enumerate(entries):
+        if dims is not None:
+            w, h, nc, bpp = dims[i]
+        elif e[:8] == b"\x89PNG\r\n\x1a\n":
+            w, h = struct.unpack(">II", e[16:24])
+            nc, bpp = 0, 32
+        else:
+            w, h = struct.unpack("<ii", e[4:12])
+            h //= 2
+            nc, bpp = 0, struct.unpack("<H", e[14:16])[0]
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, nc, 0, 1, bpp, len(e),
+                           offset + len(body))
+        body += e
+    return bytes(out + body)
+
+
+def encode_dds(data, w: int, h: int, fourcc: bytes = b"DXT1", dxgi=None, pfflags: int = 0x4,
+               bitcount: int = 0, masks=(0, 0, 0, 0)) -> bytes:
+    """A DDS file: the 124-byte header, its pixel format (a FourCC; bit
+    masks with ``pfflags`` 0x40 or 0x41; luminance 0x20000; palette 0x20),
+    a DX10 header where ``dxgi`` is given, then ``data``."""
+    hdr = bytearray(124)
+    struct.pack_into("<IIII", hdr, 0, 124, 0x1007, h, w)
+    struct.pack_into("<I", hdr, 72, 32)
+    struct.pack_into("<I", hdr, 76, pfflags)
+    hdr[80:84] = fourcc if pfflags & 0x4 else b"\0\0\0\0"
+    struct.pack_into("<I", hdr, 84, bitcount)
+    struct.pack_into("<4I", hdr, 88, *masks)
+    struct.pack_into("<I", hdr, 104, 0x1000)
+    out = b"DDS " + bytes(hdr)
+    if dxgi is not None:
+        out += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return out + bytes(data)
+
+
+def _blocks(img, w: int, h: int):
+    """(h / 4, w / 4, 16, C) 4×4 blocks of an (h, w, C) image, its edges
+    repeated to a multiple of 4."""
+    img = np.asarray(img)
+    H4, W4 = (h + 3) // 4 * 4, (w + 3) // 4 * 4
+    pad = np.pad(img, ((0, H4 - h), (0, W4 - w), (0, 0)), mode="edge")
+    return pad.reshape(H4 // 4, 4, W4 // 4, 4, -1).transpose(0, 2, 1, 3, 4).reshape(
+        H4 // 4, W4 // 4, 16, -1)
+
+
+def bc1_blocks(rgb) -> bytes:
+    """BC1 (DXT1) blocks of an (H, W, 3) image: each block's darkest and
+    brightest pixels (by luma) as its 5-6-5 endpoints, four colours."""
+    h, w = rgb.shape[:2]
+    b = _blocks(rgb, w, h).astype(np.int64)
+    luma = b @ np.array([2, 4, 1])
+    lo = np.take_along_axis(b, luma.argmin(-1)[..., None, None], 2)[:, :, 0]
+    hi = np.take_along_axis(b, luma.argmax(-1)[..., None, None], 2)[:, :, 0]
+
+    def c565(c):
+        return (c[..., 0] >> 3) << 11 | (c[..., 1] >> 2) << 5 | (c[..., 2] >> 3)
+
+    c0, c1 = c565(hi), c565(lo)
+    swap = c0 < c1
+    c0, c1 = np.where(swap, c1, c0), np.where(swap, c0, c1)
+    t = (luma - luma.min(-1, keepdims=True)) / np.maximum(np.ptp(luma, -1, keepdims=True), 1)
+    t = np.where(swap[..., None], 1 - t, t)  # 1 at c0's pixel, 0 at c1's
+    idx = np.select([t > 5 / 6, t > 1 / 2, t > 1 / 6], [0, 2, 3], 1)
+    idx = np.where((c0 > c1)[..., None], idx, 0)
+    lut = (idx << (2 * np.arange(16))).sum(-1)
+    out = np.zeros(b.shape[:2] + (8,), np.uint8)
+    out[..., 0], out[..., 1] = c0 & 255, c0 >> 8
+    out[..., 2], out[..., 3] = c1 & 255, c1 >> 8
+    for k in range(4):
+        out[..., 4 + k] = (lut >> (8 * k)) & 255
+    return out.tobytes()
+
+
+def bc7_blocks(rgba) -> bytes:
+    """BC7 mode 6 blocks of an (H, W, 4) image: each block's per-channel
+    minimum and maximum as its 7-bit endpoints (p-bits 0 and 1), 4-bit
+    indices by the nearest weight along the colour sum."""
+    h, w = rgba.shape[:2]
+    b = _blocks(rgba, w, h).astype(np.int64)
+    ex0, ex1 = (b.min(2) >> 1) << 1, (b.max(2) >> 1) << 1 | 1
+    span = np.maximum((ex1 - ex0)[..., :3].sum(-1), 1)
+    t = ((b[..., :3] - ex0[:, :, None, :3]).sum(-1) / span[..., None]).clip(0, 1)
+    weights = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64]) / 64
+    idx = np.abs(t[..., None] - weights).argmin(-1)
+    flip = idx[..., 0] >= 8  # the anchor index has 3 bits: swap the endpoints
+    ex0, ex1 = np.where(flip[..., None], ex1, ex0), np.where(flip[..., None], ex0, ex1)
+    idx = np.where(flip[..., None], 15 - idx, idx)
+    out = bytearray()
+    for by in range(b.shape[0]):
+        for bx in range(b.shape[1]):
+            v, pos = 1 << 6, 7  # mode 6
+            for c in range(4):
+                for e in (ex0[by, bx, c], ex1[by, bx, c]):
+                    v |= int(e >> 1) << pos
+                    pos += 7
+            v |= int(ex0[by, bx, 0] & 1) << pos | int(ex1[by, bx, 0] & 1) << (pos + 1)
+            pos += 2
+            for i in range(16):
+                v |= int(idx[by, bx, i]) << pos
+                pos += 3 if i == 0 else 4
+            out += v.to_bytes(16, "little")
+    return bytes(out)
+
+
 def unported_files(seed: int) -> dict:
     """One small file of each format PIL identifies by a signature and the
     port does not read yet, PIL's writer where it has one; each refused
@@ -2791,30 +3196,76 @@ def unported_files(seed: int) -> dict:
     def un(word):
         return {"refused": True, "refusal": word, "pil_reads": True}
 
+    psd = (b"8BPS" + struct.pack(">H6xHIIHH", 1, 1, h, w, 8, 1) + struct.pack(">III", 0, 0, 0)
+           + struct.pack(">H", 0) + g.tobytes())
+    return {
+        "jp2.jp2": (_pil_save(im, "JPEG2000"), "JPEG 2000, JP2 box (PIL)", un("JPEG 2000")),
+        "j2k.j2k": (_pil_save(im, "JPEG2000", no_jp2=True), "JPEG 2000 codestream (PIL)",
+                    un("JPEG 2000")),
+        "psd.psd": (psd, "PSD, 8-bit grayscale, raw", un("PSD")),
+        "avif.avif": (_pil_save(imc, "AVIF"), "AVIF (PIL)", un("AVIF")),
+        "p0cmyk.pnm": (b"P0CMYK\n%d %d\n255\n" % (w, h)
+                       + np.dstack([rgb, g]).astype(np.uint8).tobytes(),
+                       "netpbm P0CMYK (Pillow's own kind)", un("netpbm")),
+    }
+
+
+def raster_files(seed: int) -> dict:
+    """The QOI, Sun raster, PCX, SGI, TGA, ICO, CUR, DIB and DDS fixtures:
+    the seven files these formats had while the port refused them (the same
+    bytes), and a headerless DIB, TGA files (RLE, colour-mapped, flipped),
+    BC7 and BC6H DDS files, and a CUR and an ICO of DIB entries from the
+    encoders above."""
+    from PIL import Image
+
+    h, w = 24, 32
+    g = scene(h, w, seed + 30)
+    rgb = scene(h, w, seed + 31, 3)
+    im, imc = Image.fromarray(g), Image.fromarray(rgb)
+    rng = np.random.default_rng(seed + 40)
     cur_px = np.dstack([rgb[:16, :16, ::-1], np.full((16, 16, 1), 255, np.uint8)])[::-1]
     cur = (struct.pack("<HHH", 0, 2, 1) + struct.pack("<BBBBHHII", 16, 16, 0, 0, 1, 1,
                                                       40 + 16 * 16 * 4 + 16 * 4, 22)
            + struct.pack("<IiiHHIIiiII", 40, 16, 32, 1, 32, 0, 0, 0, 0, 0, 0)
            + cur_px.tobytes() + bytes(16 * 4))
-    psd = (b"8BPS" + struct.pack(">H6xHIIHH", 1, 1, h, w, 8, 1) + struct.pack(">III", 0, 0, 0)
-           + struct.pack(">H", 0) + g.tobytes())
     sun = struct.pack(">8I", 0x59A66A95, w, h, 8, w * h, 1, 0, 0) + g.tobytes()
+    rgba = np.dstack([rgb, g])
+    pal = rng.integers(0, 256, (16, 3))
+    idx = (g // 16).astype(np.uint8)
+    bc6 = rng.integers(0, 256, (((w + 3) // 4) * ((h + 3) // 4), 16)).astype(np.uint8)
+    bc6[:, 0] = (bc6[:, 0] & 0xE0) | np.array([3, 7, 11, 15, 0, 1, 2])[
+        rng.integers(0, 7, len(bc6))]  # modes 11-14 and three two-region modes
     return {
-        "jp2.jp2": (_pil_save(im, "JPEG2000"), "JPEG 2000, JP2 box (PIL)", un("JPEG 2000")),
-        "j2k.j2k": (_pil_save(im, "JPEG2000", no_jp2=True), "JPEG 2000 codestream (PIL)",
-                    un("JPEG 2000")),
-        "ico.ico": (_pil_save(imc, "ICO", sizes=[(16, 16)]), "ICO (PIL)", un("ICO")),
-        "cur.cur": (cur, "CUR, 16×16 32-bit", un("CUR")),
-        "qoi.qoi": (_pil_save(imc, "QOI"), "QOI (PIL)", un("QOI")),
-        "psd.psd": (psd, "PSD, 8-bit grayscale, raw", un("PSD")),
-        "dds.dds": (_pil_save(imc, "DDS"), "DDS (PIL)", un("DDS")),
-        "sgi.sgi": (_pil_save(im, "SGI"), "SGI (PIL)", un("SGI")),
-        "sun.ras": (sun, "Sun raster, 8-bit", un("Sun raster")),
-        "pcx.pcx": (_pil_save(im, "PCX"), "PCX (PIL)", un("PCX")),
-        "avif.avif": (_pil_save(imc, "AVIF"), "AVIF (PIL)", un("AVIF")),
-        "p0cmyk.pnm": (b"P0CMYK\n%d %d\n255\n" % (w, h)
-                       + np.dstack([rgb, g]).astype(np.uint8).tobytes(),
-                       "netpbm P0CMYK (Pillow's own kind)", un("netpbm")),
+        "ico.ico": (_pil_save(imc, "ICO", sizes=[(16, 16)]), "ICO, a PNG entry (PIL)"),
+        "cur.cur": (cur, "CUR, 16×16 32-bit"),
+        "qoi.qoi": (_pil_save(imc, "QOI"), "QOI (PIL)"),
+        "dds.dds": (_pil_save(imc, "DDS"), "DDS (PIL)"),
+        "sgi.sgi": (_pil_save(im, "SGI"), "SGI (PIL)"),
+        "sun.ras": (sun, "Sun raster, 8-bit"),
+        "pcx.pcx": (_pil_save(im, "PCX"), "PCX (PIL)"),
+        "dib_8bit.dib": (encode_dib(idx, 8, palette=pal), "headerless DIB, 8-bit palette"),
+        "dib_os2_24bit.dib": (encode_dib(rgb[:9, :13], 24, header=12),
+                              "headerless DIB, OS/2 12-byte header, 24-bit"),
+        "tga_rle_gray.tga": (encode_tga(g, 11, 8), "TGA, RLE gray, bottom-up"),
+        "tga_cmap16.tga": (encode_tga(idx + 2, 1, 8, cmap=pal, cmap_depth=16, cmap_start=2,
+                                      ident=b"id"),
+                           "TGA, colour-mapped, 16-bit map from index 2, an ID field"),
+        "tga_rle_rgb_flip.tga": (encode_tga(rgb, 10, 24, top_down=True, flip=True),
+                                 "TGA, RLE 24-bit, top-down, flipped left to right"),
+        "tga_rle_cmap24.tga": (encode_tga(idx, 9, 8, cmap=pal, cmap_depth=24),
+                               "TGA, RLE colour-mapped, 24-bit map"),
+        "dds_bc7.dds": (encode_dds(bc7_blocks(rgba[:h - 1, :w - 3]), w - 3, h - 1,
+                                   fourcc=b"DX10", dxgi=98),
+                        "DDS, BC7 (mode 6), 29×23"),
+        "dds_bc6h.dds": (encode_dds(bc6.tobytes(), w, h, fourcc=b"DX10", dxgi=95),
+                         "DDS, BC6H UF16, random blocks of seven modes"),
+        "dds_bc1.dds": (encode_dds(bc1_blocks(rgb[:h - 2, :w - 1]), w - 1, h - 2),
+                        "DDS, DXT1, 31×22"),
+        "cur_dib8.cur": (encode_ico([ico_dib(idx[:12, :10], 8, palette=pal)], kind=2),
+                         "CUR, an 8-bit palette DIB entry"),
+        "ico_dib.ico": (encode_ico([ico_dib(idx[:8, :8], 4, palette=pal),
+                                    ico_dib(rgb[:12, :12], 24)]),
+                        "ICO, 4-bit and 24-bit DIB entries with AND masks"),
     }
 
 
