@@ -187,15 +187,16 @@ Phases (one JSON line each):
      numpy on the lines path's own pre-merge segments (equal shapes,
      within 1e-9), and ``real_photo.jpg`` decoded to the pinned
      ``REAL_PHOTO_L_SHA256``; ``image_kinds``, every JPEG, netpbm, PFM,
-     TIFF, BMP, DIB, GIF, WebP, QOI, Sun raster, PCX, SGI, TGA, ICO, CUR
-     and DDS kind the JAX package reads through PIL: the
+     TIFF, BMP, DIB, GIF, WebP, QOI, Sun raster, PCX, SGI, TGA, ICO, CUR,
+     DDS, PSD, DCX, BLP, FTEX and ICNS kind the JAX package reads through
+     PIL: the
      committed fixtures of ``tests/fixtures/image_kinds`` on three decode
      routes against PIL's pinned hashes (the kinds PIL refuses, and those
      the port does not read yet, raising ``NotImplementedError``; a lossy
      752×480 WebP pair among them), ``cli_run``'s tree as 16-bit P5,
      16-bit LZW TIFF, gray GIF and RLE TGA (native route) and as plain P2,
-     8-bit BMP, VP8L WebP and RLE SGI (``--no-native``), trajectories and
-     launches equal to
+     8-bit BMP, VP8L WebP, RLE SGI and PackBits PSD (``--no-native``),
+     trajectories and launches equal to
      its PNG runs, and a committed 752×480 progressive stereo sequence
      through ``cli run`` and ``cli serve``, equal to PNG copies of its
      pixels, with K1 (both modes), K2 and K3 launched; decode ms per pair
@@ -4104,22 +4105,37 @@ def _write_gif_or_vp8l(job) -> None:
 
 
 # the formats read since QOI that image_kinds writes (the encoders are
-# Python: it runs these in a process pool): (b)'s RLE TGA and RLE SGI trees,
-# and the first pairs of the others for the decode timing
-RASTER_TIMING = ("qoi", "pcx", "sun_rle", "dds_bc1", "dds_bc7")
+# Python: it runs these in a process pool): (b)'s RLE TGA, RLE SGI and
+# PackBits PSD trees, and the first pairs of the others for the decode
+# timing, each with its file extension (an ICNS RLE icon is at most
+# it32's 128 × 128: its pairs are the frames' top-left corners)
+RASTER_TIMING = {"qoi": ".qoi", "pcx": ".pcx", "sun_rle": ".ras", "dds_bc1": ".dds",
+                 "dds_bc7": ".dds", "psd_raw": ".psd", "blp2_dxt1": ".blp",
+                 "ftex_dxt1": ".ftc", "icns_it32": ".icns"}
 RASTER_TIMING_PAIRS = 2
 
 
 def _write_raster(job) -> None:
     """One frame as an RLE TGA (type 11, bottom-up), an RLE SGI, a QOI (as
     RGB), an 8-bit PCX with a grey-ramp palette (PIL reads it as L), an RLE
-    Sun raster, or a DDS of BC1 or BC7 (mode 6) blocks of the frame as RGB
-    (lossy: the timing only). TGA, SGI, QOI, PCX and Sun keep every pixel."""
+    Sun raster, a DDS of BC1 or BC7 (mode 6) blocks of the frame as RGB, a
+    gray PSD (PackBits or raw), a BLP2 or an FTEX of DXT1 blocks, or an
+    ICNS of the frame's top-left 128 × 128 as an it32 RLE icon (the block
+    formats are lossy: the timing only). TGA, SGI, QOI, PCX, Sun and PSD
+    keep every pixel."""
     path, kind, u8 = job
     mk = _image_kinds_encoders()
     rgb = np.dstack([u8] * 3)
     H, W = u8.shape
-    if kind == "tga_rle":
+    if kind in ("psd_packbits", "psd_raw"):
+        data = mk.encode_psd(u8, 1, compression=int(kind == "psd_packbits"))
+    elif kind == "blp2_dxt1":
+        data = mk.encode_blp(2, W, H, mk.bc1_blocks(rgb), encoding=2, alpha_encoding=0)
+    elif kind == "ftex_dxt1":
+        data = mk.encode_ftex(W, H, mk.bc1_blocks(rgb))
+    elif kind == "icns_it32":
+        data = mk.encode_icns([(b"it32", b"\0\0\0\0" + mk.icns_rgb(rgb[:128, :128]))])
+    elif kind == "tga_rle":
         data = mk.encode_tga(u8, 11, 8)
     elif kind == "sgi_rle":
         data = mk.encode_sgi(u8, 1, rle=True)
@@ -4193,7 +4209,8 @@ def _decode_pair_ms(pairs, n_rep: int) -> float:
 
 def phase_image_kinds(ctx, cli_line):
     """Every JPEG, netpbm, PFM, TIFF, BMP, GIF, WebP, DIB, QOI, Sun raster,
-    PCX, SGI, TGA, ICO, CUR and DDS kind the JAX package reads through PIL,
+    PCX, SGI, TGA, ICO, CUR, DDS, PSD, DCX, BLP, FTEX and ICNS kind the JAX
+    package reads through PIL,
     on the card's machine (no PIL there) and through the CLI at full width:
 
     (a) each committed fixture of ``tests/fixtures/image_kinds`` (its
@@ -4206,10 +4223,10 @@ def phase_image_kinds(ctx, cli_line):
     (b) ``cli_run``'s 752×480 30-frame PNG tree rewritten as 16-bit P5, as
     plain P2, as 16-bit LZW TIFF with predictor 2 and as gray GIF with an
     identity palette (in a process pool: both LZW encoders are Python), as
-    bottom-up 8-bit BMP, as VP8L WebP, as RLE TGA and as RLE SGI (the pool
-    again): ``cli run`` on the P5, TIFF, GIF and TGA trees by the native
-    route and on the P2, BMP, VP8L and SGI trees with ``--no-native``, the
-    eight processes at once, each trajectory and launch
+    bottom-up 8-bit BMP, as VP8L WebP, as RLE TGA, as RLE SGI and as
+    PackBits PSD (the pool again): ``cli run`` on the P5, TIFF, GIF and TGA
+    trees by the native route and on the P2, BMP, VP8L, SGI and PSD trees
+    with ``--no-native``, the nine processes at once, each trajectory and launch
     count equal to ``cli_run``'s PNG run of the same route (every value is
     at most 255, so PIL reads the same pixels from all of them: any
     difference is a decode fault);
@@ -4236,8 +4253,9 @@ def phase_image_kinds(ctx, cli_line):
     2, Deflate, 16-bit LZW with predictor 2, the JPEG-in-TIFF and Group 4
     trees, YCbCr 2×2 LZW and old-style JPEG), 8-bit BMP, GIF, VP8L WebP,
     the committed lossy WebP pair (quality 90), RLE TGA, RLE SGI, QOI, PCX,
-    RLE Sun raster and DDS of BC1 and BC7 blocks against 8-bit PNG, in
-    turns."""
+    RLE Sun raster, DDS of BC1 and BC7 blocks, PackBits and raw PSD, BLP2
+    and FTEX of DXT1 blocks, and 128 × 128 ICNS it32 RLE icons (the largest
+    RLE icon PIL reads) against 8-bit PNG, in turns."""
     from concurrent.futures import ProcessPoolExecutor
     import multiprocessing
 
@@ -4292,7 +4310,7 @@ def phase_image_kinds(ctx, cli_line):
     # trajectory bit for bit whatever runs beside it: cli_run's native_again
     # gate)
     trees = {kind: os.path.join(work, f"tree_{kind}")
-             for kind in ("P5", "P2", "TIFF16", "BMP8", "GIF", "VP8L", "TGA", "SGI")}
+             for kind in ("P5", "P2", "TIFF16", "BMP8", "GIF", "VP8L", "TGA", "SGI", "PSD")}
     raster_timing = {k: os.path.join(work, f"timing_{k}") for k in RASTER_TIMING}
     # (d) the libtiff codecs' trees and their PNG copies, and the first
     # pairs of the timing-only codecs
@@ -4318,15 +4336,14 @@ def phase_image_kinds(ctx, cli_line):
         def write_gif_or_vp8l(path, u8):
             tiff_jobs.append(pool.submit(_write_gif_or_vp8l, (path, u8)))
 
-        def write_raster(path, u8):  # the TGA and SGI trees, and the raster timing pairs
-            kind = "tga_rle" if path.endswith(".tga") else "sgi_rle"
+        def write_raster(path, u8):  # the TGA, SGI and PSD trees, the raster timing pairs
+            kind = {".tga": "tga_rle", ".sgi": "sgi_rle"}.get(path[-4:], "psd_packbits")
             tiff_jobs.append(pool.submit(_write_raster, (path, kind, u8)))
             stem, cam = os.path.splitext(os.path.basename(path))[0], path.split(os.sep)[-3]
             if kind == "tga_rle" and stem in raster_stems:
                 for k, root in raster_timing.items():
-                    ext = {"qoi": ".qoi", "pcx": ".pcx", "sun_rle": ".ras"}.get(k, ".dds")
                     tiff_jobs.append(pool.submit(_write_raster, (
-                        os.path.join(root, "mav0", cam, "data", stem + ext), k, u8)))
+                        os.path.join(root, "mav0", cam, "data", stem + RASTER_TIMING[k]), k, u8)))
 
         def write_tiffs(path, u8):  # in the pool, while this process writes the rest
             tiff_jobs.append(pool.submit(_write_tiff, (path, "tiff_16bit_lzw_pred2", u8)))
@@ -4354,6 +4371,7 @@ def phase_image_kinds(ctx, cli_line):
             trees["TIFF16"]: (".tif", write_tiffs), trees["BMP8"]: (".bmp", _write_bmp),
             trees["GIF"]: (".gif", write_gif_or_vp8l), trees["VP8L"]: (".webp", write_gif_or_vp8l),
             trees["TGA"]: (".tga", write_raster), trees["SGI"]: (".sgi", write_raster),
+            trees["PSD"]: (".psd", write_raster),
             **{root: (".png" if k.endswith("_png") else ".tif", written_in_the_pool)
                for k, root in codec_trees.items()}})
         codec_jobs = [pool.submit(_write_tiff_codec, a) for a in codec_args]
@@ -4362,7 +4380,8 @@ def phase_image_kinds(ctx, cli_line):
             job.result()
         trees_write_s = time.perf_counter() - t0
         routes = {"P5": (), "P2": ("--no-native",), "TIFF16": (), "BMP8": ("--no-native",),
-                  "GIF": (), "VP8L": ("--no-native",), "TGA": (), "SGI": ("--no-native",)}
+                  "GIF": (), "VP8L": ("--no-native",), "TGA": (), "SGI": ("--no-native",),
+                  "PSD": ("--no-native",)}
         t0 = time.perf_counter()
         outs = _cli_concurrent(*[("run", "--dataroot", trees[k], "--config", ctx["euroc"],
                                   "--camera-config", ctx["cam_yaml"], *weights, "--gt", trees[k],
@@ -4490,6 +4509,7 @@ def phase_image_kinds(ctx, cli_line):
                   for k, root in codec_timing.items()},
                "tga_rle": tree_pairs(trees["TGA"], DECODE_TIMING_PAIRS),
                "sgi_rle": tree_pairs(trees["SGI"], DECODE_TIMING_PAIRS),
+               "psd_packbits": tree_pairs(trees["PSD"], DECODE_TIMING_PAIRS),
                **{k: tree_pairs(root, RASTER_TIMING_PAIRS) for k, root in raster_timing.items()}}
     tb_timing = {k: [] for k in tb_sets}
     for k in list(tb_sets) + list(tb_sets)[::-1]:

@@ -10,51 +10,16 @@
 // the image RGBA: the 32-bit entries' alpha bytes, or the AND mask at the
 // end of the entry (offset + size − its bytes); a mask cut short raises.
 // The mask does not change the gray. IcoImageFile's open loads the image,
-// so an error of the entry that passes a file on (a DIB's, or a PNG's open:
-// a chunk cut short, a bad chunk name or checksum, no mode) passes the ICO
-// file on too; a PNG entry that fails later raises.
+// so an error of the entry that passes a file on passes the ICO file on
+// too: a DIB's, or a PNG's (native_png.h: its open's, and its load's
+// errors of the same kinds, kLoadPassOn); its other errors raise.
 //
 // CUR: BmpImageFile._bitmap at the largest entry's offset (the first, unless
 // a later one is wider and taller), half the stored height, no mask; an
 // offset of 22 reads 32-bit pixels as BGRA.
 //
 // Included by native_runtime.cpp inside its anonymous namespace, after
-// native_bmp.h and the PNG reader.
-
-// PngImageFile._open up to the first IDAT: kPassOn where it passes the file
-// on, kCorrupt where it raises another error, kOk where it opens
-int png_open_check(const uint8_t* d, size_t n) {
-  size_t pos = 8;
-  bool mode = false, ihdr = false;
-  int64_t w = 0, h = 0;
-  while (true) {
-    if (n - std::min(pos, n) < 8) return kPassOn;  // i32 or the chunk name of a short read
-    const uint32_t len = be32(d + pos);
-    const uint8_t* cid = d + pos + 4;
-    for (int i = 0; i < 4; ++i)
-      if (!(std::isalnum(cid[i]) || cid[i] == '_') || cid[i] > 127) return kPassOn;  // \w\w\w\w
-    pos += 8;
-    if (!std::memcmp(cid, "IDAT", 4) || !std::memcmp(cid, "IEND", 4)) break;
-    if (len > 0 && n - pos < len) return kCorrupt;  // _safe_read: "Truncated File Read"
-    if (!std::memcmp(cid, "IHDR", 4)) {
-      if (len < 13) return kCorrupt;  // "Truncated IHDR chunk"
-      const uint8_t* s = d + pos;
-      w = be32(s);
-      h = be32(s + 4);
-      const int b = s[8], t = s[9];
-      mode = (t == 0 && (b == 1 || b == 2 || b == 4 || b == 8 || b == 16)) ||
-             (t == 3 && (b == 1 || b == 2 || b == 4 || b == 8)) ||
-             ((t == 2 || t == 4 || t == 6) && (b == 8 || b == 16));
-      ihdr = true;
-      if (s[11]) return kPassOn;  // "unknown filter category"
-    }
-    if (n - pos - len < 4) return kPassOn;  // "incomplete checksum"
-    if (crc32(cid, len + 4) != be32(d + pos + len)) return kPassOn;  // "bad header checksum"
-    pos += len + 4;
-  }
-  if (!ihdr || !mode || w <= 0 || h <= 0) return kPassOn;  // "not identified by this driver"
-  return kOk;
-}
+// native_bmp.h and native_png.h.
 
 // ------------------------------------------------------------------ CUR
 int cur_open(const uint8_t* d, size_t n, BmpInfo& b) {
@@ -149,14 +114,8 @@ int decode_ico(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, i
   const IcoEntry& e = entries[0];
   const size_t off = e.offset;
   if (off < n && n - off >= 8 && !std::memcmp(d + off, kPngSig, 8)) {
-    int rc = png_open_check(d + off, n - off);
-    if (rc) return rc;
-    PngHeader hd;
-    rc = png_header(d + off, n - off, hd);
-    if (rc) return rc;
-    if ((uint64_t)hd.w * hd.h > kMaxPixels) return kCorrupt;
-    rc = decode_png(d + off, n - off, gray, w, h);
-    return rc ? kCorrupt : kOk;
+    const int rc = png_read(d + off, n - off, gray, w, h);
+    return rc == kLoadPassOn ? kPassOn : rc;
   }
   BmpInfo b;
   int rc = bmp_bitmap(d, n, off, 0, b);  // DibImageFile at the entry's offset

@@ -1,4 +1,4 @@
-// QOI, Sun raster, PCX, SGI and TGA as PIL 12.1 reads them, then
+// QOI, Sun raster, PCX (and DCX), SGI and TGA as PIL 12.1 reads them, then
 // convert("L"): each plugin's open (QoiImagePlugin, SunImagePlugin,
 // PcxImagePlugin, SgiImagePlugin, TgaImagePlugin) with the errors that pass
 // a file on to the next plugin returned as kPassOn, and the decoders its
@@ -253,8 +253,14 @@ struct PcxInfo {
   int pal_n = 0;
 };
 
-int pcx_open(const uint8_t* d, size_t n, PcxInfo& p) {
-  if (n < 68) return kPassOn;  // i16(s, 66) of a short header: struct.error
+// the header at `at` (a DCX's frame; the 256-colour palette is still the
+// file's last 769 bytes)
+int pcx_open(const uint8_t* d, size_t n, PcxInfo& p, size_t at = 0) {
+  if (at > n || n - at < 68) return kPassOn;  // _accept or i16(s, 66) of a short read
+  d += at;
+  n -= at;
+  if (d[0] != 10 || (d[1] != 0 && d[1] != 2 && d[1] != 3 && d[1] != 5))
+    return kPassOn;  // "not a PCX file"
   const int x0 = d[4] | d[5] << 8, y0 = d[6] | d[7] << 8;
   const int x1 = (d[8] | d[9] << 8) + 1, y1 = (d[10] | d[11] << 8) + 1;
   if (x1 <= x0 || y1 <= y0) return kPassOn;  // "bad PCX image size"
@@ -274,7 +280,7 @@ int pcx_open(const uint8_t* d, size_t n, PcxInfo& p) {
     p.mode = kModeL;
     p.raw = "L";
     // fp.seek(-769, SEEK_END) on a file: a shorter one fails (EINVAL)
-    if (n < 769) return kCorrupt;
+    if (n + at < 769) return kCorrupt;
     const uint8_t* s = d + n - 769;
     if (s[0] == 12) {
       for (int i = 0; i < 256; ++i)
@@ -310,9 +316,10 @@ int probe_pcx(const uint8_t* d, size_t n, int& w, int& h) {
   return rc;
 }
 
-int decode_pcx(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, int& h) {
+int decode_pcx_at(const uint8_t* d, size_t n, size_t at, std::vector<uint8_t>& gray, int& w,
+                  int& h) {
   PcxInfo p;
-  const int rc = pcx_open(d, n, p);
+  const int rc = pcx_open(d, n, p, at);
   if (rc) return rc;
   w = p.w;
   h = p.h;
@@ -328,7 +335,7 @@ int decode_pcx(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, i
   int64_t x = 0;
   int y = 0;
   bool overrun = false;
-  size_t pos = 128;
+  size_t pos = at + 128;
   while (true) {
     if (pos >= n) return kCorrupt;  // "image file is truncated"
     if ((d[pos] & 0xC0) == 0xC0) {
@@ -367,6 +374,44 @@ int decode_pcx(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, i
   }
   if (overrun) return kCorrupt;  // "buffer overrun when reading image file"
   return pil_to_gray(im, gray);
+}
+
+int decode_pcx(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, int& h) {
+  return decode_pcx_at(d, n, 0, gray, w, h);
+}
+
+// =================================================================== DCX
+// DcxImagePlugin: a table of up to 1024 offsets ended by 0 (an entry cut
+// short passes the file on, as does an empty table: seek(0) raises
+// EOFError); frame 0 is PcxImageFile's open at the first offset.
+int dcx_open(const uint8_t* d, size_t n, size_t& first) {
+  size_t pos = 4;
+  int count = 0;
+  for (int i = 0; i < 1024; ++i) {
+    if (n - pos < 4) return kPassOn;  // i32 of a short read: struct.error
+    const uint32_t off = le32(d + pos);
+    pos += 4;
+    if (!off) break;
+    if (!count++) first = off;
+  }
+  return count ? kOk : kPassOn;
+}
+
+int probe_dcx(const uint8_t* d, size_t n, int& w, int& h) {
+  size_t first = 0;
+  int rc = dcx_open(d, n, first);
+  if (rc) return rc;
+  PcxInfo p;
+  rc = pcx_open(d, n, p, first);
+  w = p.w;
+  h = p.h;
+  return rc;
+}
+
+int decode_dcx(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, int& h) {
+  size_t first = 0;
+  const int rc = dcx_open(d, n, first);
+  return rc ? rc : decode_pcx_at(d, n, first, gray, w, h);
 }
 
 // =================================================================== SGI

@@ -5,16 +5,18 @@
 //   A. merge_lines (MergeLines of the reference's line_processor.cc) and
 //      the bilinear remap with the border clamp of camera.remap_bilinear;
 //   B. PNG: an RFC 1950/1951 inflate, every colour type and bit depth,
-//      Adam7;
+//      Adam7, the chunks walked as PIL's plugin walks them (native_png.h);
 //   C. JPEG as libjpeg-turbo decodes it for PIL: sequential, progressive
 //      and lossless, Huffman or arithmetic coded, gray, YCbCr, RGB, CMYK
-//      and YCCK, any integral sampling; netpbm P1-P6 and PFM as PIL reads
-//      them; TIFF and BMP, and the headerless DIB (native_tiff.h,
-//      native_bmp.h, over PIL's image model in native_pil.h); GIF's frame
-//      0 (native_gif.h); WebP, lossless and lossy, with alpha, frame 0 of an
-//      animation (native_webp.h, native_vp8.h); QOI, Sun raster, PCX, SGI
-//      and TGA (native_raster.h); ICO and CUR (native_ico.h); DDS with the
-//      BCn blocks (native_bcn.h);
+//      and YCCK, any integral sampling; netpbm P1-P6, Pillow's own kinds
+//      and PFM as PIL reads them; TIFF and BMP, and the headerless DIB
+//      (native_tiff.h, native_bmp.h, over PIL's image model in
+//      native_pil.h); GIF's frame 0 (native_gif.h); WebP, lossless and
+//      lossy, with alpha, frame 0 of an animation (native_webp.h,
+//      native_vp8.h); QOI, Sun raster, PCX, DCX, SGI and TGA
+//      (native_raster.h); ICO and CUR (native_ico.h); DDS with the BCn
+//      blocks (native_bcn.h); PSD (native_psd.h); BLP and FTEX
+//      (native_blp.h); ICNS (native_icns.h);
 //   D. an ordered stereo prefetcher: decode threads, a bounded reorder
 //      buffer, optional rectification.
 //
@@ -46,30 +48,34 @@
 #include <mutex>
 #include <string>
 #include <thread>
+#include <tuple>
 #include <vector>
 
 namespace {
 
 enum Err {
   kPassOn = -1,  // inside the table of plugins only: the plugin passes the file on
+  kLoadPassOn = -2,  // inside the PNG reader only: a load error of the pass-on kinds
   kOk = 0, kIO = 1, kCorrupt = 2, kUnknown = 3, kSize = 4,
   // image kinds refused, every code from kPrecision on (native_runtime_error_kind;
   // native.py raises NotImplementedError). PIL refuses the JPEG ones, kTiffMode,
   // kTiffLab, kTiffRawMode, the BMP, GIF, WebP, Sun, PCX, SGI, TGA and DDS
-  // ones too; it reads the rest, which the port does not yet. 31, 32, 34-36 and
-  // 38-41 named GIF, WebP, ICO, CUR, QOI, DDS, SGI, Sun raster and PCX before
-  // they were read.
+  // ones too, and kPsdLab and kBlpFormat; it reads the rest, which the port
+  // does not yet. 31, 32, 34-36 and 38-41 named GIF, WebP, ICO, CUR, QOI,
+  // DDS, SGI, Sun raster and PCX before they were read; 13, 49 and 53
+  // named Pillow's own netpbm kinds, DCX and FTEX.
   kPrecision = 5, kHierarchical = 6, kDNL = 7, kFractional = 8, kLosslessColour = 9,
-  kArithLossless = 10, kComponents = 11, kMcuSize = 12, kPnmKind = 13,
+  kArithLossless = 10, kComponents = 11, kMcuSize = 12,
   kTiffJpeg = 14, kTiffOjpeg = 15, kTiffLzma = 16, kTiffZstd = 17, kTiffWebp = 18,
   kTiffSgiLog = 19, kTiffThunderScan = 20, kTiffMode = 22, kTiffLab = 23,
   kTiffRawMode = 24, kBmpHeader = 25, kBmpDepth = 26, kBmpCompression = 27,
   kBmpBitfields = 28, kBmpPalette = 29, kBmpRle = 30,
-  kJpeg2000 = 33, kPsd = 37, kAvif = 42,
+  kJpeg2000 = 33, kPsdLab = 37, kAvif = 42,
   kGifCodeSize = 43, kWebpVp8Frame = 44, kWebpVp8lVersion = 45, kWebpAlpha = 46,
-  // the plugins PIL has that the port does not read, each refused by name
-  kBlp = 47, kBufr = 48, kDcx = 49, kEps = 50, kFits = 51, kFli = 52, kFtex = 53,
-  kGbr = 54, kGrib = 55, kHdf5 = 56, kIcns = 57, kMcidas = 58, kMpeg = 59, kMsp = 60,
+  // the plugins PIL has that the port does not read, each refused by name,
+  // and the kinds of BLP and ICNS it refuses
+  kBlpFormat = 47, kBufr = 48, kEps = 50, kFits = 51, kFli = 52,
+  kGbr = 54, kGrib = 55, kHdf5 = 56, kIcnsJpeg2000 = 57, kMcidas = 58, kMpeg = 59, kMsp = 60,
   kPixar = 61, kWmf = 62, kXbm = 63, kXpm = 64, kXvThumb = 65, kIm = 66, kImt = 67,
   kIptc = 68, kPcd = 69, kSpider = 70,
   // kinds of the formats read since PR 20 that PIL does not read either
@@ -93,16 +99,24 @@ inline uint8_t pil_luma(int r, int g, int b) {
   return (uint8_t)((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16);
 }
 
-// PIL's CMYK → L: its cmyk2rgb (MULDIV255 of each ink by 255 − K), then luma
-inline uint8_t pil_cmyk_luma(int c, int m, int y, int k) {
+// PIL's CMYK → RGB: its cmyk2rgb (MULDIV255 of each ink by 255 − K)
+inline void pil_cmyk_rgb(int c, int m, int y, int k, int& r, int& g, int& b) {
   auto muldiv255 = [](int a, int b) {
     const int t = a * b + 128;
     return ((t >> 8) + t) >> 8;
   };
   auto clamp = [](int v) { return v < 0 ? 0 : v > 255 ? 255 : v; };
   const int nk = 255 - k;
-  return pil_luma(clamp(nk - muldiv255(c, nk)), clamp(nk - muldiv255(m, nk)),
-                  clamp(nk - muldiv255(y, nk)));
+  r = clamp(nk - muldiv255(c, nk));
+  g = clamp(nk - muldiv255(m, nk));
+  b = clamp(nk - muldiv255(y, nk));
+}
+
+// PIL's CMYK → L: cmyk2rgb, then luma
+inline uint8_t pil_cmyk_luma(int c, int m, int y, int k) {
+  int r, g, b;
+  pil_cmyk_rgb(c, m, y, k, r, g, b);
+  return pil_luma(r, g, b);
 }
 
 inline uint32_t be32(const uint8_t* p) {
@@ -539,44 +553,7 @@ int zlib_inflate(const uint8_t* d, size_t n, std::vector<uint8_t>& out, size_t e
 }
 
 // =============================================================== B. PNG
-
-uint32_t crc_table[256];
-std::once_flag crc_once;
-
-uint32_t crc32(const uint8_t* p, size_t n) {
-  std::call_once(crc_once, [] {
-    for (uint32_t i = 0; i < 256; ++i) {
-      uint32_t c = i;
-      for (int k = 0; k < 8; ++k) c = c & 1 ? 0xEDB88320u ^ (c >> 1) : c >> 1;
-      crc_table[i] = c;
-    }
-  });
-  uint32_t c = 0xFFFFFFFFu;
-  for (size_t i = 0; i < n; ++i) c = crc_table[(c ^ p[i]) & 255] ^ (c >> 8);
-  return c ^ 0xFFFFFFFFu;
-}
-
-const uint8_t kPngSig[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1a, '\n'};
-
-struct PngHeader {
-  int w = 0, h = 0, depth = 0, ctype = 0, interlace = 0;
-};
-
-int png_header(const uint8_t* d, size_t n, PngHeader& hd) {
-  if (n < 33 || std::memcmp(d, kPngSig, 8) || std::memcmp(d + 12, "IHDR", 4)) return kCorrupt;
-  hd.w = (int)be32(d + 16);
-  hd.h = (int)be32(d + 20);
-  hd.depth = d[24];
-  hd.ctype = d[25];
-  hd.interlace = d[28];
-  const int t = hd.ctype, b = hd.depth;
-  const bool valid = (t == 0 && (b == 1 || b == 2 || b == 4 || b == 8 || b == 16)) ||
-                     (t == 3 && (b == 1 || b == 2 || b == 4 || b == 8)) ||
-                     ((t == 2 || t == 4 || t == 6) && (b == 8 || b == 16));
-  if (!valid || hd.w <= 0 || hd.h <= 0 || d[26] != 0 || d[27] != 0 || hd.interlace > 1)
-    return kCorrupt;
-  return kOk;
-}
+// (the plugin's walk over the chunks is native_png.h)
 
 inline uint8_t paeth(int a, int b, int c) {
   const int p = a + b - c;
@@ -610,93 +587,6 @@ bool unfilter(uint8_t* raw, int rows, int stride, int bpp, std::vector<uint8_t>&
     }
   }
   return true;
-}
-
-int decode_png(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, int& h) {
-  PngHeader hd;
-  int rc = png_header(d, n, hd);
-  if (rc) return rc;
-  std::vector<uint8_t> idat;
-  uint8_t pal[256 * 3];
-  int npal = 0;
-  size_t pos = 8;
-  bool end = false;
-  while (pos + 12 <= n && !end) {
-    const uint32_t len = be32(d + pos);
-    if (len > n - pos - 12) return kCorrupt;
-    const uint8_t* kind = d + pos + 4;
-    const uint8_t* body = d + pos + 8;
-    if (crc32(kind, len + 4) != be32(body + len)) return kCorrupt;
-    if (!std::memcmp(kind, "IDAT", 4)) {
-      idat.insert(idat.end(), body, body + len);
-    } else if (!std::memcmp(kind, "PLTE", 4)) {
-      if (len % 3 || len > 768) return kCorrupt;
-      npal = (int)len / 3;
-      std::memcpy(pal, body, len);
-    } else if (!std::memcmp(kind, "IEND", 4)) {
-      end = true;
-    }
-    pos += 12 + len;
-  }
-  if (hd.ctype == 3 && npal == 0) return kCorrupt;
-  // a palette index past PLTE reads the gray ramp PIL's palettes start from
-  for (int i = npal; i < 256; ++i) pal[3 * i] = pal[3 * i + 1] = pal[3 * i + 2] = (uint8_t)i;
-
-  static const int kChannels[7] = {1, 0, 3, 1, 2, 0, 4};
-  const int ch = kChannels[hd.ctype], depth = hd.depth;
-  const int bits_pp = ch * depth, bpp = std::max(1, bits_pp / 8);
-  static const int x0s[7] = {0, 4, 0, 2, 0, 1, 0}, y0s[7] = {0, 0, 4, 0, 2, 0, 1};
-  static const int dxs[7] = {8, 8, 4, 4, 2, 2, 1}, dys[7] = {8, 8, 8, 4, 4, 2, 2};
-  const int npass = hd.interlace ? 7 : 1;
-  w = hd.w;
-  h = hd.h;
-  size_t expect = 0;
-  for (int p = 0; p < npass; ++p) {
-    const int x0 = hd.interlace ? x0s[p] : 0, y0 = hd.interlace ? y0s[p] : 0;
-    const int dx = hd.interlace ? dxs[p] : 1, dy = hd.interlace ? dys[p] : 1;
-    const size_t pw = (size_t)(w - x0 + dx - 1) / dx, ph = (size_t)(h - y0 + dy - 1) / dy;
-    if (pw && ph) expect += ph * ((pw * bits_pp + 7) / 8 + 1);
-  }
-  std::vector<uint8_t> raw, rows;
-  rc = zlib_inflate(idat.data(), idat.size(), raw, expect);
-  if (rc) return rc;
-  if (raw.size() < expect) return kCorrupt;
-  gray.assign((size_t)w * h, 0);
-  size_t off = 0;
-  for (int p = 0; p < npass; ++p) {
-    const int x0 = hd.interlace ? x0s[p] : 0, y0 = hd.interlace ? y0s[p] : 0;
-    const int dx = hd.interlace ? dxs[p] : 1, dy = hd.interlace ? dys[p] : 1;
-    const int pw = (w - x0 + dx - 1) / dx, ph = (h - y0 + dy - 1) / dy;
-    if (pw <= 0 || ph <= 0) continue;
-    const int stride = (int)(((size_t)pw * bits_pp + 7) / 8);
-    if (!unfilter(raw.data() + off, ph, stride, bpp, rows)) return kCorrupt;
-    off += (size_t)ph * (stride + 1);
-    for (int py = 0; py < ph; ++py) {
-      const uint8_t* r = rows.data() + (size_t)py * stride;
-      uint8_t* o = gray.data() + (size_t)(y0 + py * dy) * w;
-      for (int px = 0; px < pw; ++px) {
-        uint8_t v;
-        if (depth < 8) {  // packed gray or palette index, MSB first
-          const int bit = px * depth;
-          const int s = (r[bit >> 3] >> (8 - depth - (bit & 7))) & ((1 << depth) - 1);
-          if (hd.ctype == 3) v = pil_luma(pal[3 * s], pal[3 * s + 1], pal[3 * s + 2]);
-          else v = (uint8_t)(depth == 1 ? s * 255 : depth == 2 ? s * 85 : s * 17);
-        } else if (depth == 8) {
-          const uint8_t* q = r + (size_t)px * ch;
-          if (hd.ctype == 3) v = pil_luma(pal[3 * q[0]], pal[3 * q[0] + 1], pal[3 * q[0] + 2]);
-          else if (ch <= 2) v = q[0];
-          else v = pil_luma(q[0], q[1], q[2]);
-        } else {  // 16 bit, big endian
-          const uint8_t* q = r + (size_t)px * ch * 2;
-          if (hd.ctype == 0) v = (uint8_t)std::min(255, (q[0] << 8) | q[1]);
-          else if (ch == 2) v = q[0];
-          else v = pil_luma(q[0], q[2], q[4]);
-        }
-        o[x0 + px * dx] = v;
-      }
-    }
-  }
-  return kOk;
 }
 
 // ========================================================= C. JPEG
@@ -828,7 +718,41 @@ struct JBits {  // Huffman-coded data
       cnt += 8;
     }
   }
+  // libjpeg-turbo's own reading (jdhuff.c jpeg_fill_bit_buffer, its slow
+  // path): below the bits a code or its extra bits need, it fills its
+  // buffer to 57 bits or to a marker; where the data ends first it
+  // suspends, and Pillow, given no more data, raises "image file is
+  // truncated". (Its fast path, taken while 512 bytes a block remain, fills
+  // otherwise: ROADMAP §3.)
+  size_t lj_pos = pos;
+  int lj_left = 0;
+  bool lj_marker = false, suspended = false;
+  void lj_need(int k) {
+    if (lj_left >= k || suspended) return;
+    while (lj_left < 57 && !lj_marker) {  // MIN_GET_BITS of a 64-bit buffer
+      if (lj_pos >= n) {
+        suspended = true;
+        return;
+      }
+      int c = d[lj_pos++];
+      if (c == 0xFF) {
+        do {
+          if (lj_pos >= n) {
+            suspended = true;
+            return;
+          }
+          c = d[lj_pos++];
+        } while (c == 0xFF);
+        if (c != 0) lj_marker = true;
+        if (c != 0) break;
+      }
+      lj_left += 8;
+    }
+    if (lj_left < k) lj_left = 57;  // past a marker: zeros
+  }
   int get(int k) {  // k in 1..16
+    lj_need(k);
+    lj_left -= k;
     if (cnt < k) fill();
     const int v = (int)(buf >> (64 - k));
     buf <<= k;
@@ -836,23 +760,29 @@ struct JBits {  // Huffman-coded data
     return v;
   }
   int decode(const JHuff& t) {
+    lj_need(8);  // HUFF_LOOKAHEAD
     if (cnt < 16) fill();
     const uint16_t e = t.fast[buf >> (64 - 9)];
+    int l;
+    int v;
     if (e) {
-      const int l = e >> 8;
-      buf <<= l;
-      cnt -= l;
-      return e & 255;
+      l = e >> 8;
+      v = e & 255;
+    } else {
+      l = 10;
+      int code = (int)(buf >> (64 - l));
+      while (l <= 16 && code > t.maxcode[l]) {
+        ++l;
+        code = (int)(buf >> (64 - l));
+      }
+      // no code in 16 bits: jpeg_huff_decode reads a 17th and fakes a 0
+      v = l > 16 ? 0 : t.vals[t.valptr[l] + code];
     }
-    int l = 10;
-    int code = (int)(buf >> (64 - l));
-    while (code > t.maxcode[l]) {
-      if (++l > 16) return -1;
-      code = (int)(buf >> (64 - l));
-    }
+    lj_need(l);
+    lj_left -= l;
     buf <<= l;
     cnt -= l;
-    return t.vals[t.valptr[l] + code];
+    return v;
   }
   // a restart: drop the buffered bits and step over the RSTn marker
   void restart() {
@@ -860,6 +790,10 @@ struct JBits {  // Huffman-coded data
     cnt = 0;
     marker = false;
     pos = skip_restart_marker(d, n, pos);
+    if (pos >= n) suspended = true;  // no marker before the end: libjpeg waits for one
+    lj_pos = pos;
+    lj_left = 0;
+    lj_marker = false;
   }
 };
 
@@ -896,8 +830,11 @@ struct JArith {  // the QM decoder of jdarith.c (ITU T.81 Annex D)
   int ct = -16;  // reads two bytes into C before the first decision
   bool marker = false;  // reached a marker: zero data from here on
 
+  bool suspended = false;  // a byte asked for past the end: libjpeg cannot suspend here
+
   int byte() {
     if (marker || pos >= n) {
+      if (!marker) suspended = true;
       marker = true;
       return 0;
     }
@@ -908,6 +845,7 @@ struct JArith {  // the QM decoder of jdarith.c (ITU T.81 Annex D)
       pos = p + 1;
       return 0xFF;  // a stuffed zero
     }
+    if (p >= n) suspended = true;
     marker = true;
     return 0;
   }
@@ -970,121 +908,65 @@ struct JComp {
   int predictor = 1, point_transform = 0;  // lossless: its scan's Ss and Al
 };
 
-// jidctint.c's jpeg_idct_islow, with its descale and range limit
+// jpeg_idct_islow as libjpeg-turbo runs it for PIL on x86-64: its SIMD
+// version (jidctint-sse2/avx2.asm), equal to jidctint.c wherever nothing
+// overflows, and otherwise in 16-bit lanes: the dequantizing multiply keeps
+// the low 16 bits, in0 ± in4 and the odd part's z3, z4 are 16-bit sums,
+// each pass's descaled output saturates to 16 bits, the last to 8 bits
+// (no range-limit table); a block whose rows 1-7 are zero takes the DC
+// shortcut, a 16-bit shift
 constexpr int kConstBits = 13, kPass1Bits = 2;
-constexpr int64_t F_0_298631336 = 2446, F_0_390180644 = 3196, F_0_541196100 = 4433,
+constexpr int32_t F_0_298631336 = 2446, F_0_390180644 = 3196, F_0_541196100 = 4433,
                   F_0_765366865 = 6270, F_0_899976223 = 7373, F_1_175875602 = 9633,
                   F_1_501321110 = 12299, F_1_847759065 = 15137, F_1_961570560 = 16069,
                   F_2_053119869 = 16819, F_2_562915447 = 20995, F_3_072711026 = 25172;
 
-inline int64_t descale(int64_t x, int n) { return (x + ((int64_t)1 << (n - 1))) >> n; }
+inline int16_t sat16(int32_t x) { return (int16_t)std::min(32767, std::max(-32768, x)); }
 
-// IDCT_range_limit(cinfo)[x & RANGE_MASK] of jdmaster.c's table
-inline uint8_t idct_limit(int64_t x) {
-  const int v = (int)(x & 1023);
-  if (v < 128) return (uint8_t)(v + 128);
-  if (v < 512) return 255;
-  if (v < 896) return 0;
-  return (uint8_t)(v - 896);
+// the 1-D IDCT of eight 16-bit values in the SIMD code's arrangement,
+// descaled by n and saturated to 16 bits
+void idct_1d_simd(const int16_t* x, int step, int n, int16_t* o, int ostep) {
+  const int32_t x0 = x[0], x1 = x[step], x2 = x[2 * step], x3 = x[3 * step];
+  const int32_t x4 = x[4 * step], x5 = x[5 * step], x6 = x[6 * step], x7 = x[7 * step];
+  // even part
+  const int32_t tmp3 = x2 * (F_0_541196100 + F_0_765366865) + x6 * F_0_541196100;
+  const int32_t tmp2 = x2 * F_0_541196100 + x6 * (F_0_541196100 - F_1_847759065);
+  const int32_t tmp0 = (int32_t)(int16_t)(x0 + x4) * (1 << kConstBits);
+  const int32_t tmp1 = (int32_t)(int16_t)(x0 - x4) * (1 << kConstBits);
+  const int32_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+  // odd part
+  const int32_t z3 = (int16_t)(x7 + x3), z4 = (int16_t)(x5 + x1);
+  const int32_t z3p = z3 * (F_1_175875602 - F_1_961570560) + z4 * F_1_175875602;
+  const int32_t z4p = z3 * F_1_175875602 + z4 * (F_1_175875602 - F_0_390180644);
+  const int32_t o0 = x7 * (F_0_298631336 - F_0_899976223) + x1 * -F_0_899976223 + z3p;
+  const int32_t o3 = x7 * -F_0_899976223 + x1 * (F_1_501321110 - F_0_899976223) + z4p;
+  const int32_t o1 = x5 * (F_2_053119869 - F_2_562915447) + x3 * -F_2_562915447 + z4p;
+  const int32_t o2 = x5 * -F_2_562915447 + x3 * (F_3_072711026 - F_2_562915447) + z3p;
+  const int32_t r = 1 << (n - 1);
+  const int32_t v[8] = {t10 + o3, t11 + o2, t12 + o1, t13 + o0,
+                        t13 - o0, t12 - o1, t11 - o2, t10 - o3};
+  for (int k = 0; k < 8; ++k) o[k * ostep] = sat16((int32_t)((uint32_t)v[k] + (uint32_t)r) >> n);
 }
 
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const uint16_t* qp = q + c;
-    auto deq = [&](int r) -> int64_t { return (int64_t)ip[8 * r] * (int64_t)qp[8 * r]; };
-    if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
-      const int dc = (int)(deq(0) * (1 << kPass1Bits));
-      for (int r = 0; r < 8; ++r) ws[8 * r + c] = dc;
-      continue;
-    }
-    int64_t z2 = deq(2), z3 = deq(6);
-    int64_t z1 = (z2 + z3) * F_0_541196100;
-    int64_t tmp2 = z1 + z3 * -F_1_847759065;
-    int64_t tmp3 = z1 + z2 * F_0_765366865;
-    z2 = deq(0);
-    z3 = deq(4);
-    int64_t tmp0 = (z2 + z3) * (1 << kConstBits);
-    int64_t tmp1 = (z2 - z3) * (1 << kConstBits);
-    const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = deq(7);
-    tmp1 = deq(5);
-    tmp2 = deq(3);
-    tmp3 = deq(1);
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    const int64_t z5 = (z3 + z4) * F_1_175875602;
-    tmp0 *= F_0_298631336;
-    tmp1 *= F_2_053119869;
-    tmp2 *= F_3_072711026;
-    tmp3 *= F_1_501321110;
-    z1 *= -F_0_899976223;
-    z2 *= -F_2_562915447;
-    z3 *= -F_1_961570560;
-    z4 *= -F_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = kConstBits - kPass1Bits;
-    ws[8 * 0 + c] = (int)descale(tmp10 + tmp3, sh);
-    ws[8 * 7 + c] = (int)descale(tmp10 - tmp3, sh);
-    ws[8 * 1 + c] = (int)descale(tmp11 + tmp2, sh);
-    ws[8 * 6 + c] = (int)descale(tmp11 - tmp2, sh);
-    ws[8 * 2 + c] = (int)descale(tmp12 + tmp1, sh);
-    ws[8 * 5 + c] = (int)descale(tmp12 - tmp1, sh);
-    ws[8 * 3 + c] = (int)descale(tmp13 + tmp0, sh);
-    ws[8 * 4 + c] = (int)descale(tmp13 - tmp0, sh);
+  int16_t deq[64], ws[64], row[8];
+  bool ac = false;
+  for (int i = 0; i < 64; ++i) {
+    deq[i] = (int16_t)(uint16_t)((uint32_t)(uint16_t)in[i] * q[i]);
+    ac = ac || (i >= 8 && in[i]);
   }
-  const int sh = kConstBits + kPass1Bits + 3;
+  if (!ac) {
+    for (int c = 0; c < 8; ++c) {
+      const int16_t dc = (int16_t)(uint16_t)((uint32_t)(uint16_t)deq[c] << kPass1Bits);
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = dc;
+    }
+  } else {
+    for (int c = 0; c < 8; ++c) idct_1d_simd(deq + c, 8, kConstBits - kPass1Bits, ws + c, 8);
+  }
   for (int r = 0; r < 8; ++r) {
-    const int* w = ws + 8 * r;
+    idct_1d_simd(ws + 8 * r, 1, kConstBits + kPass1Bits + 3, row, 1);
     uint8_t* o = out + (size_t)r * stride;
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * F_0_541196100;
-    int64_t tmp2 = z1 + z3 * -F_1_847759065;
-    int64_t tmp3 = z1 + z2 * F_0_765366865;
-    int64_t tmp0 = ((int64_t)w[0] + w[4]) * (1 << kConstBits);
-    int64_t tmp1 = ((int64_t)w[0] - w[4]) * (1 << kConstBits);
-    const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    const int64_t z5 = (z3 + z4) * F_1_175875602;
-    tmp0 *= F_0_298631336;
-    tmp1 *= F_2_053119869;
-    tmp2 *= F_3_072711026;
-    tmp3 *= F_1_501321110;
-    z1 *= -F_0_899976223;
-    z2 *= -F_2_562915447;
-    z3 *= -F_1_961570560;
-    z4 *= -F_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    o[0] = idct_limit(descale(tmp10 + tmp3, sh));
-    o[7] = idct_limit(descale(tmp10 - tmp3, sh));
-    o[1] = idct_limit(descale(tmp11 + tmp2, sh));
-    o[6] = idct_limit(descale(tmp11 - tmp2, sh));
-    o[2] = idct_limit(descale(tmp12 + tmp1, sh));
-    o[5] = idct_limit(descale(tmp12 - tmp1, sh));
-    o[3] = idct_limit(descale(tmp13 + tmp0, sh));
-    o[4] = idct_limit(descale(tmp13 - tmp0, sh));
+    for (int k = 0; k < 8; ++k) o[k] = (uint8_t)(std::min(127, std::max(-128, (int)row[k])) + 128);
   }
 }
 
@@ -1292,6 +1174,12 @@ struct JpegDecoder {
   // a strip or tile of a TIFF (libtiff's JPEG codecs): any 1-4 components,
   // the colour space the caller's, a wrong precision libtiff's error
   bool tiff = false;
+  // what Pillow's source manager, which suspends where the data ends, makes
+  // of the stream's end (not for TIFF: libtiff ends each strip with an EOI):
+  // libjpeg waited for more data inside a scan (suspended), or, with
+  // several scans, before EOI (it reads the whole file to EOI first)
+  int scans = 0;
+  bool multi = false, eoi = false, suspended = false;
 
   int u16(size_t p) const { return (d[p] << 8) | d[p + 1]; }
 
@@ -1734,6 +1622,8 @@ struct JpegDecoder {
     }
     if (lossless)
       for (JComp* c : sc) c->predictor = ss, c->point_transform = al;
+    if (scans++ == 0) multi = progressive || ns < (int)comps.size();
+    suspended = suspended || (arith ? ar.suspended : bits.suspended);
     // the next marker follows the entropy-coded data
     size_t e = std::max(bits.pos, ar.pos);
     while (e + 1 < n && !(d[e] == 0xFF && d[e + 1] != 0x00 && d[e + 1] != 0xFF &&
@@ -1854,10 +1744,20 @@ struct JpegDecoder {
       while (pos < n && d[pos] == 0xFF) ++pos;  // fill bytes
       if (pos >= n) break;
       const int m = d[pos++];
-      if (m == 0xD9) break;  // EOI
+      if (m == 0xD9) {
+        eoi = true;
+        break;
+      }
       if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
-      if (pos + 2 > n) return kCorrupt;
+      // a marker cut short after a one-scan image: libjpeg's finish suspends,
+      // which Pillow lets pass
+      const bool after_image = !tiff && scans && !multi;
+      if (pos + 2 > n) {
+        if (after_image) break;
+        return kCorrupt;
+      }
       const int len = u16(pos);
+      if (len >= 2 && pos + len > n && after_image) break;
       if (len < 2 || pos + len > n) return kCorrupt;
       const size_t body = pos + 2;
       int rc = kOk;
@@ -1894,6 +1794,7 @@ struct JpegDecoder {
       pos += len;
     }
     if (!frame || !scanned) return kCorrupt;
+    if (!tiff && (suspended || (multi && !eoi))) return kCorrupt;  // "image file is truncated"
     return kOk;
   }
 
@@ -1952,7 +1853,12 @@ struct JpegDecoder {
     }
   }
 
-  int to_gray(std::vector<uint8_t>& gray) {
+  // PIL's convert("RGB") of the decoded image, interleaved: gray
+  // replicated, YCbCr converted, CMYK (YCCK as libjpeg hands it: 255 − RGB,
+  // K as is; or, with `ycck` false, four components taken as CMYK, as the
+  // JPEG mode "CMYK" asks libjpeg) read as "CMYK;I" (inverted), then
+  // cmyk2rgb (MULDIV255)
+  int to_rgb(std::vector<uint8_t>& rgb, bool ycck = true) {
     // the colour space libjpeg-turbo assumes (jdapimin.c default_decompress_parms)
     const size_t nc = comps.size();
     enum { kGray, kYCbCr, kRGB, kCMYK, kYCCK } space = kGray;
@@ -1963,7 +1869,7 @@ struct JpegDecoder {
       else if (rgb_ids || lossless) space = kRGB;  // lossless: "or RGB (lossless)"
       else space = kYCbCr;
     } else if (nc == 4) {
-      space = adobe && adobe_transform != 0 ? kYCCK : kCMYK;
+      space = ycck && adobe && adobe_transform != 0 ? kYCCK : kCMYK;
     }
     // lossless mode converts no colour
     if (lossless && (space == kYCbCr || space == kYCCK)) return kLosslessColour;
@@ -1971,43 +1877,144 @@ struct JpegDecoder {
     std::vector<std::vector<uint8_t>> full;
     full_planes(full);
     const size_t npx = (size_t)W * H;
+    rgb.assign(npx * 3, 0);
+    const uint8_t* P0 = full[0].data();
     if (nc == 1) {
-      gray.swap(full[0]);
+      for (size_t i = 0; i < npx; ++i) rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = P0[i];
       return kOk;
     }
     const YccTable& ycc = ycc_table();
-    auto ycc_rgb = [&](int y, int cb, int cr, int& r, int& g, int& b) { ycc.rgb(y, cb, cr, r, g, b); };
-    gray.assign(npx, 0);
-    const uint8_t *P0 = full[0].data(), *P1 = full[1].data(), *P2 = full[2].data();
-    if (nc == 3) {
-      for (size_t i = 0; i < npx; ++i) {
-        int r = P0[i], g = P1[i], b = P2[i];
-        if (space == kYCbCr) ycc_rgb(P0[i], P1[i], P2[i], r, g, b);
-        gray[i] = pil_luma(r, g, b);
+    const uint8_t *P1 = full[1].data(), *P2 = full[2].data();
+    for (size_t i = 0; i < npx; ++i) {
+      int r = P0[i], g = P1[i], b = P2[i];
+      if (space == kYCbCr || space == kYCCK) ycc.rgb(P0[i], P1[i], P2[i], r, g, b);
+      if (nc == 4) {
+        // libjpeg's CMYK: YCCK becomes 255 − RGB; then the raw mode's inversion
+        const int c = space == kYCCK ? r : 255 - r, m = space == kYCCK ? g : 255 - g;
+        const int y = space == kYCCK ? b : 255 - b;
+        pil_cmyk_rgb(c, m, y, 255 - full[3][i], r, g, b);
       }
+      rgb[3 * i] = (uint8_t)r;
+      rgb[3 * i + 1] = (uint8_t)g;
+      rgb[3 * i + 2] = (uint8_t)b;
+    }
+    return kOk;
+  }
+
+  int to_gray(std::vector<uint8_t>& gray) {
+    if (comps.size() == 1) {
+      std::vector<std::vector<uint8_t>> full;
+      full_planes(full);
+      gray.swap(full[0]);
       return kOk;
     }
-    // four components: libjpeg's CMYK (YCCK converted: 255 − RGB, K as is),
-    // PIL's "CMYK;I" inversion, then its cmyk2rgb (MULDIV255) and luma
-    const uint8_t* P3 = full[3].data();
-    for (size_t i = 0; i < npx; ++i) {
-      int cc, mm, yy;
-      if (space == kYCCK) {
-        ycc_rgb(P0[i], P1[i], P2[i], cc, mm, yy);  // 255 − (255 − x) after the inversion
-      } else {
-        cc = 255 - P0[i];
-        mm = 255 - P1[i];
-        yy = 255 - P2[i];
-      }
-      gray[i] = pil_cmyk_luma(cc, mm, yy, 255 - P3[i]);  // K = 255 − the file's sample
-    }
+    std::vector<uint8_t> rgb;
+    const int rc = to_rgb(rgb);
+    if (rc) return rc;
+    gray.resize(rgb.size() / 3);
+    for (size_t i = 0; i < gray.size(); ++i)
+      gray[i] = pil_luma(rgb[3 * i], rgb[3 * i + 1], rgb[3 * i + 2]);
     return kOk;
   }
 };
 
+// JpegImageFile._open's walk over the markers up to SOS, as far as its
+// errors that pass a file on (SyntaxError, IndexError, struct.error): a
+// start other than FF D8 FF, a marker outside its table, a segment length
+// or an APP0 JFIF / APP14 Adobe / APP13 Photoshop / ICC / SOF / DQT body
+// its handler cannot index, the file ending between markers, no SOF
+// before SOS; a segment cut short raises (kCorrupt). A depth other than 8
+// or a component count other than 1, 3 or 4, and a height of 0, which pass
+// the file on too, are left to the decoder, which refuses them by name.
+int jpeg_open(const uint8_t* d, size_t n) {
+  if (n < 3 || d[0] != 0xFF || d[1] != 0xD8 || d[2] != 0xFF) return kPassOn;  // "not a JPEG file"
+  size_t pos = 3;
+  int s0 = 0xFF;  // s = b"\xff"
+  bool sof = false;
+  std::vector<std::pair<const uint8_t*, size_t>> icc;
+  auto next = [&]() -> bool {  // s = fp.read(1); false: empty
+    if (pos >= n) return false;
+    s0 = d[pos++];
+    return true;
+  };
+  while (true) {
+    if (s0 != 0xFF) {  // junk between markers
+      if (!next()) return kPassOn;  // s[0] of an empty read: IndexError
+      continue;
+    }
+    if (pos >= n) return kPassOn;  // i16 of one byte: struct.error
+    const int m = 0xFF00 | d[pos++];
+    if (m == 0xFFFF) continue;  // a fill byte: s = b"\xff"
+    if (m == 0xFF00) {
+      if (!next()) return kPassOn;
+      continue;
+    }
+    if (m < 0xFFC0) return kPassOn;  // "no marker found"
+    const bool bare = m == 0xFFC8 || (m >= 0xFFD0 && m <= 0xFFD9) || (m >= 0xFFF0 && m <= 0xFFFD);
+    if (!bare) {  // a handler: i16(read(2)) - 2, then _safe_read of that
+      if (n - pos < 2) return kPassOn;
+      const int64_t len = ((d[pos] << 8) | d[pos + 1]) - 2;
+      pos += 2;
+      if (len > 0 && (uint64_t)(n - pos) < (uint64_t)len) return kCorrupt;  // "Truncated File Read"
+      const uint8_t* b = d + pos;
+      const size_t k = len > 0 ? (size_t)len : 0;
+      pos += k;
+      auto starts = [&](const char* t, size_t tl) { return k >= tl && !std::memcmp(b, t, tl); };
+      if ((m == 0xFFE0 && starts("JFIF", 4)) || (m == 0xFFEE && starts("Adobe", 5))) {
+        if (k < 7) return kPassOn;  // i16(s, 5)
+      } else if (m == 0xFFED && starts("Photoshop 3.0\0", 14)) {
+        size_t o = 14;
+        while (o + 4 <= k && !std::memcmp(b + o, "8BIM", 4)) {
+          o += 4;
+          if (o + 2 > k) break;  // i16: struct.error, caught
+          o += 2;
+          if (o >= k) return kPassOn;  // name_len = s[offset]: IndexError
+          o += 1 + b[o];
+          o += o & 1;
+          if (o + 4 > k) break;
+          const uint64_t size = be32(b + o);
+          o += 4;
+          if (size > k) break;  // past the segment: the loop's test fails
+          o += (size_t)size;
+          o += o & 1;
+        }
+      } else if (m == 0xFFE2 && starts("ICC_PROFILE\0", 12)) {
+        icc.emplace_back(b, k);
+      } else if ((m >= 0xFFC0 && m <= 0xFFCF && m != 0xFFC4 && m != 0xFFC8 && m != 0xFFCC) ||
+                 m == 0xFFDE) {  // SOF
+        if (k < 5) return kPassOn;  // i16(s, 3): struct.error
+        if (b[0] != 8) return kOk;  // "cannot handle N-bit layers": the decoder refuses it
+        if (k < 6) return kPassOn;  // s[5]: IndexError
+        if (b[5] != 1 && b[5] != 3 && b[5] != 4) return kOk;  // the decoder refuses it
+        if (!icc.empty()) {  // icclist[0][13] of the sorted fragments
+          std::sort(icc.begin(), icc.end(), [](const auto& x, const auto& y) {
+            return std::lexicographical_compare(x.first, x.first + x.second, y.first,
+                                                y.first + y.second);
+          });
+          if (icc[0].second < 14) return kPassOn;
+          icc.clear();
+        }
+        if ((k - 6) % 3) return kPassOn;  // a component entry cut short: IndexError
+        sof = true;
+      } else if (m == 0xFFDB) {  // DQT: every table whole
+        size_t o = 0;
+        while (o < k) {
+          const size_t ql = 1 + (b[o] / 16 == 0 ? 1 : 2) * 64;
+          if (k - o < ql) return kPassOn;  // "bad quantization table marker"
+          o += ql;
+        }
+      }
+      if (m == 0xFFDA) break;  // SOS
+    }
+    if (!next()) return kPassOn;
+  }
+  return sof ? kOk : kPassOn;  // no mode: "not identified by this driver"
+}
+
 // ===================================== PIL's image model, TIFF and BMP
 
 #include "native_pil.h"
+#include "native_png.h"
 #include "native_tiff.h"
 #include "native_bmp.h"
 #include "native_gif.h"
@@ -2016,6 +2023,9 @@ struct JpegDecoder {
 #include "native_raster.h"
 #include "native_bcn.h"
 #include "native_ico.h"
+#include "native_psd.h"
+#include "native_blp.h"
+#include "native_icns.h"
 #include "native_plugins.h"
 
 // ================================================ netpbm (P1-P6, Pf)
@@ -2027,7 +2037,9 @@ struct JpegDecoder {
 // scale's sign gives the byte order (negative: little-endian), rows run
 // bottom to top, and each float goes to L truncated toward zero and
 // clamped; a scale of zero or not finite is refused as PIL refuses it.
-// Colour PFM ("PF") is not identified by PIL.
+// Colour PFM ("PF") is not identified by PIL. Pillow's own kinds read as
+// P5 reads its samples: P0CMYK and PyCMYK (CMYK, not inverted), PyRGBA,
+// and PyP (P with no palette: all 0); another magic passes the file on.
 
 inline bool pnm_space(int c) {
   return c == ' ' || c == '\t' || c == '\n' || c == '\v' || c == '\f' || c == '\r';
@@ -2125,7 +2137,7 @@ int pnm_token(const uint8_t* d, size_t n, size_t& pos, int64_t& v) {
 }
 
 struct PnmHeader {
-  int kind = 0;  // 1..6, 7 for Pf
+  int kind = 0;  // 1..6, 7 for Pf, 8 P0CMYK and PyCMYK, 9 PyP, 10 PyRGBA
   int64_t w = 0, h = 0, maxval = 1;
   double scale = 0.0;  // Pf
   size_t data = 0;  // offset of the first sample
@@ -2143,14 +2155,17 @@ int pnm_header(const uint8_t* d, size_t n, PnmHeader& hd) {
     hd.kind = magic[1] - '0';
   } else if (magic == "Pf") {
     hd.kind = 7;
-  } else if (magic == "P0CMYK" || magic == "PyP" || magic == "PyRGBA" || magic == "PyCMYK") {
-    return kPnmKind;
+  } else if (magic == "P0CMYK" || magic == "PyCMYK") {
+    hd.kind = 8;
+  } else if (magic == "PyP") {
+    hd.kind = 9;
+  } else if (magic == "PyRGBA") {
+    hd.kind = 10;
   } else {
-    return kCorrupt;
+    return kPassOn;  // MODES[magic]: KeyError, "not a PPM file"
   }
   int rc;
   if ((rc = pnm_token(d, n, pos, hd.w)) || (rc = pnm_token(d, n, pos, hd.h))) return rc;
-  if (hd.w <= 0 || hd.h <= 0 || hd.w > (1 << 24) || hd.h > (1 << 24)) return kCorrupt;
   if (hd.kind == 7) {
     std::string tok;
     if ((rc = pnm_raw_token(d, n, pos, tok))) return rc;
@@ -2160,6 +2175,8 @@ int pnm_header(const uint8_t* d, size_t n, PnmHeader& hd) {
     if ((rc = pnm_token(d, n, pos, hd.maxval))) return rc;
     if (hd.maxval <= 0 || hd.maxval >= 65536) return kCorrupt;
   }
+  if (hd.w <= 0 || hd.h <= 0) return kPassOn;  // after the open: "not identified by this driver"
+  if (hd.w > (1 << 24) || hd.h > (1 << 24)) return kCorrupt;
   hd.data = pos;
   return kOk;
 }
@@ -2186,9 +2203,9 @@ int decode_pnm(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, i
   w = (int)hd.w;
   h = (int)hd.h;
   const size_t npx = (size_t)w * h;
-  const int bands = (hd.kind == 3 || hd.kind == 6) ? 3 : 1;
+  const int bands = (hd.kind == 3 || hd.kind == 6) ? 3 : hd.kind == 8 || hd.kind == 10 ? 4 : 1;
   const int64_t maxval = hd.maxval;
-  const bool mode_i = bands == 1 && maxval > 255 && hd.kind != 1 && hd.kind != 4;
+  const bool mode_i = maxval > 255 && (hd.kind == 2 || hd.kind == 5);
   const double out_max = mode_i ? 65535.0 : 255.0;
   // min(out_max, round(v / maxval · out_max)), then mode "I"'s clip at 255
   auto scale = [&](int64_t v) -> int {
@@ -2214,12 +2231,12 @@ int decode_pnm(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, i
     return kOk;
   }
   std::vector<int> s(npx * bands);
-  if (hd.kind == 5 || hd.kind == 6) {
+  if (hd.kind == 5 || hd.kind == 6 || hd.kind >= 8) {
     const int bytes = maxval < 256 ? 1 : 2;
     if (avail < npx * bands * bytes) return kCorrupt;
     // the raw decoder at maxval 255 (and 65535 gray), else PpmDecoder,
     // which scales and raises on no sample past maxval
-    const bool raw = maxval == 255 || (maxval == 65535 && bands == 1);
+    const bool raw = maxval == 255 || (maxval == 65535 && hd.kind == 5);
     for (size_t i = 0; i < npx * bands; ++i) {
       const int64_t v = bytes == 1 ? p[i] : (p[2 * i] << 8) | p[2 * i + 1];
       s[i] = raw ? (int)std::min<int64_t>(v, 255) : scale(v);
@@ -2251,21 +2268,20 @@ int decode_pnm(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, i
     if (i < want) return kCorrupt;  // "not enough image data"
   }
   gray.resize(npx);
-  for (size_t i = 0; i < npx; ++i)
-    gray[i] = bands == 1 ? (uint8_t)s[i] : pil_luma(s[3 * i], s[3 * i + 1], s[3 * i + 2]);
+  for (size_t i = 0; i < npx; ++i) {
+    const int* v = &s[bands * i];
+    if (hd.kind == 9) gray[i] = 0;  // P without a palette
+    else if (hd.kind == 8) gray[i] = pil_cmyk_luma(v[0], v[1], v[2], v[3]);
+    else if (bands == 1) gray[i] = (uint8_t)v[0];
+    else gray[i] = pil_luma(v[0], v[1], v[2]);
+  }
   return kOk;
 }
 
 // ------------------------------------------------------- probes of sizes
-int probe_png(const uint8_t* d, size_t n, int& w, int& h) {
-  PngHeader hd;
-  const int rc = png_header(d, n, hd);
-  w = hd.w;
-  h = hd.h;
-  return rc;
-}
-
 int decode_jpeg(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, int& h) {
+  const int open = jpeg_open(d, n);
+  if (open) return open;
   JpegDecoder j(d, n);
   const int rc = j.decode(gray);
   w = j.W;
@@ -2274,6 +2290,8 @@ int decode_jpeg(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, 
 }
 
 int probe_jpeg(const uint8_t* d, size_t n, int& w, int& h) {
+  const int open = jpeg_open(d, n);
+  if (open) return open;
   size_t p = 2;
   while (p + 4 <= n) {
     while (p < n && d[p] != 0xFF) ++p;
@@ -2368,21 +2386,21 @@ const Plugin kPlugins[] = {
     {"PPM", accept_ppm, decode_pnm, probe_pnm, 0, nullptr},
     {"PNG", accept_png, decode_png, probe_png, 0, nullptr},
     {"AVIF", accept_avif, nullptr, nullptr, kAvif, nullptr},
-    {"BLP", accept_blp, nullptr, nullptr, kBlp, nullptr},
+    {"BLP", accept_blp, decode_blp, probe_blp, 0, nullptr},
     {"BUFR", accept_bufr, nullptr, nullptr, kBufr, nullptr},
     {"CUR", accept_cur, decode_cur, probe_cur, 0, nullptr},
     {"PCX", accept_pcx, decode_pcx, probe_pcx, 0, nullptr},
-    {"DCX", accept_dcx, nullptr, nullptr, kDcx, nullptr},
+    {"DCX", accept_dcx, decode_dcx, probe_dcx, 0, nullptr},
     {"DDS", accept_dds, decode_dds, probe_dds, 0, nullptr},
     {"EPS", accept_eps, nullptr, nullptr, kEps, nullptr},
     {"FITS", accept_fits, nullptr, nullptr, kFits, nullptr},
     {"FLI", accept_fli, nullptr, nullptr, kFli, nullptr},
-    {"FTEX", accept_ftex, nullptr, nullptr, kFtex, nullptr},
+    {"FTEX", accept_ftex, decode_ftex, probe_ftex, 0, nullptr},
     {"GBR", accept_gbr, nullptr, nullptr, kGbr, gbr_takes},
     {"GRIB", accept_grib, nullptr, nullptr, kGrib, nullptr},
     {"HDF5", accept_hdf5, nullptr, nullptr, kHdf5, nullptr},
     {"JPEG2000", accept_jpeg2000, nullptr, nullptr, kJpeg2000, nullptr},
-    {"ICNS", accept_icns, nullptr, nullptr, kIcns, nullptr},
+    {"ICNS", accept_icns, decode_icns, probe_icns, 0, nullptr},
     {"ICO", accept_ico, decode_ico, probe_ico, 0, nullptr},
     {"IM", nullptr, nullptr, nullptr, kIm, im_takes},
     {"IMT", nullptr, nullptr, nullptr, kImt, imt_takes},
@@ -2393,7 +2411,7 @@ const Plugin kPlugins[] = {
     {"MSP", accept_msp, nullptr, nullptr, kMsp, nullptr},
     {"PCD", nullptr, nullptr, nullptr, kPcd, pcd_takes},
     {"PIXAR", accept_pixar, nullptr, nullptr, kPixar, nullptr},
-    {"PSD", accept_psd, nullptr, nullptr, kPsd, nullptr},
+    {"PSD", accept_psd, decode_psd, probe_psd, 0, nullptr},
     {"QOI", accept_qoi, decode_qoi, probe_qoi, 0, nullptr},
     {"SGI", accept_sgi, decode_sgi, probe_sgi, 0, nullptr},
     {"SPIDER", nullptr, nullptr, nullptr, kSpider, spider_takes},
@@ -2555,9 +2573,6 @@ const char* native_runtime_error_string(int code) {
     case kMcuSize:
       return "a JPEG scan of more than 10 blocks per MCU: PIL does not read it either "
              "(libjpeg-turbo: \"Sampling factors too large for interleaved scan\")";
-    case kPnmKind:
-      return "a netpbm kind other than P1-P6 and Pf (Pillow's own P0CMYK and Py kinds): "
-             "not read";
     case kUnknown:
       return "no plugin of PIL's opens it (\"cannot identify image file\"): no format's "
              "signature matches, or each plugin it matches passes it on";
@@ -2631,23 +2646,29 @@ const char* native_runtime_error_string(int code) {
              "ALPHInit refuses it: \"failed to read next frame\")";
     case kJpeg2000:
       return "a JPEG 2000 image (codestream or JP2): PIL reads it through OpenJPEG; not read";
-    case kPsd: return "a PSD (Photoshop) image: PIL reads it; not read";
+    case kPsdLab:
+      return "a PSD in Lab colour: PIL opens it as mode LAB but does not convert it to L "
+             "either (\"conversion from LAB to RGB not supported\")";
     case kAvif: return "an AVIF image (or a HEIF brand PIL's AVIF plugin tries): PIL reads it "
                        "through libavif; not read";
-    case kBlp: return "a BLP (Blizzard texture) image: PIL reads it; not read";
+    case kBlpFormat:
+      return "a BLP (Blizzard texture) image of a compression, encoding or alpha encoding "
+             "PIL does not read either (BLPFormatError: \"Unsupported BLP compression\", "
+             "\"Unsupported BLP encoding\", \"Unknown BLP encoding\", \"Unsupported alpha "
+             "encoding\")";
     case kBufr: return "a BUFR file: PIL identifies it but loads it only through a handler "
                        "an application installs (\"cannot find loader\"); not read";
-    case kDcx: return "a DCX (multi-page PCX) file: PIL reads it; not read";
     case kEps: return "an EPS file: PIL renders it only through Ghostscript; not read";
     case kFits: return "a FITS image: PIL reads it; not read";
     case kFli: return "a FLI/FLC animation: PIL reads it; not read";
-    case kFtex: return "an FTEX (Independence War texture) image: PIL reads it; not read";
     case kGbr: return "a GBR (GIMP brush) image: PIL reads it; not read";
     case kGrib: return "a GRIB file: PIL identifies it but loads it only through a handler "
                        "an application installs (\"cannot find loader\"); not read";
     case kHdf5: return "an HDF5 file: PIL identifies it but loads it only through a handler "
                        "an application installs (\"cannot find loader\"); not read";
-    case kIcns: return "an ICNS (Apple icon) image: PIL reads it; not read";
+    case kIcnsJpeg2000:
+      return "an ICNS (Apple icon) image whose best size is a JPEG 2000 entry: PIL reads it "
+             "through OpenJPEG; not read";
     case kMcidas: return "a McIDAS area image: PIL reads it; not read";
     case kMpeg: return "an MPEG stream: PIL identifies it but cannot read it either; not read";
     case kMsp: return "an MSP (Microsoft Paint) image: PIL reads it; not read";
@@ -2723,6 +2744,48 @@ int native_decode_u8(const uint8_t* data, int64_t n, uint8_t* out, int H, int W)
   if (w != W || h != H) return kSize;
   std::memcpy(out, gray.data(), gray.size());
   return kOk;
+}
+
+// A PNG as PIL opens it, for png.py's own inflate: out receives (width,
+// height, bit depth, colour type, interlaced, tiled: an APNG frame smaller
+// than the image, reads) and then the start and end of each read of the
+// data run (up to cap of them). Returns the open's code (kPassOn for a
+// file PIL's PNG plugin passes on).
+int native_png_layout(const uint8_t* data, int64_t n, int64_t* out, int64_t cap) {
+  try {
+    PngState st;
+    const int rc = png_open(data, (size_t)n, st);
+    if (rc) return rc;
+    if (!st.tile) return kCorrupt;  // "cannot load this image"
+    std::vector<PngRead> reads;
+    int term;
+    png_reads(data, (size_t)n, st, reads, term);
+    const int64_t head[7] = {st.w, st.h, st.depth, st.ctype, st.interlace ? 1 : 0,
+                             (st.tx0 || st.ty0 || st.tx1 != st.w || st.ty1 != st.h) ? 1 : 0,
+                             (int64_t)reads.size()};
+    std::memcpy(out, head, sizeof(head));
+    for (int64_t i = 0; i < std::min<int64_t>(cap, (int64_t)reads.size()); ++i) {
+      out[7 + 2 * i] = (int64_t)reads[i].a;
+      out[8 + 2 * i] = (int64_t)reads[i].b;
+    }
+    return kOk;
+  } catch (const std::exception&) {
+    return kCorrupt;
+  }
+}
+
+// PIL's load_end after the image was done in read `seg` of the layout
+int native_png_tail(const uint8_t* data, int64_t n, int64_t seg) {
+  PngState st;
+  int rc = png_open(data, (size_t)n, st);
+  if (rc) return rc;
+  std::vector<PngRead> reads;
+  int term;
+  png_reads(data, (size_t)n, st, reads, term);
+  if (seg < 0 || seg >= (int64_t)reads.size()) return kCorrupt;
+  st.seq = reads[seg].seq;
+  rc = png_tail(data, (size_t)n, reads[seg].chunk_end, st);
+  return rc == kLoadPassOn ? kCorrupt : rc;
 }
 
 // The name of the PIL plugin that takes an image in memory (reads or

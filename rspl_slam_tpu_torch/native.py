@@ -21,10 +21,14 @@ tries PIL's plugins in their order (the preinit BMP, DIB, GIF, JPEG, PPM,
 PNG, then ``Image.ID``), each by its accept test (or, for the plugins with
 none, their open checks), and a plugin whose open fails as PIL's passes
 the file on does so here too. It reads every kind PIL reads from: PNG of
-every colour type, bit depth and interlace; JPEG sequential, progressive
+every colour type, bit depth and interlace, its chunks walked as PIL's
+plugin walks them (``csrc/native_png.h``: CRCs checked before the first
+IDAT only, the image data from the first run of IDATs, frame 0 of an
+APNG); JPEG sequential, progressive
 (with libjpeg-turbo's block smoothing) and lossless, Huffman or
 arithmetic coded, gray, YCbCr, RGB, CMYK and YCCK at any integral
-sampling; netpbm P1-P6 at any maxval and gray PFM ("Pf"); TIFF
+sampling; netpbm P1-P6 at any maxval, Pillow's own P0CMYK and Py kinds
+and gray PFM ("Pf"); TIFF
 (``csrc/native_tiff.h``: classic and BigTIFF, both byte orders, strips
 and tiles, planar 1 and 2, fill order 2, no compression, PackBits, LZW
 and Deflate with predictors 2 and 3, every mode PIL's ``OPEN_INFO`` maps,
@@ -42,19 +46,24 @@ QOI, Sun raster (raw and RLE, colour maps), PCX (bit planes, the
 plugins and Pillow's decoders read them (``csrc/native_raster.h``); ICO
 and CUR (``csrc/native_ico.h``: the entry PIL picks, PNG or DIB); DDS
 (``csrc/native_bcn.h``: bit masks, luminance, palette, BC1-BC5, BC6H
-unsigned and signed, BC7, as Pillow's bcn decoder decodes them). Kinds
+unsigned and signed, BC7, as Pillow's bcn decoder decodes them); PSD's
+merged image, raw or PackBits (``csrc/native_psd.h``), DCX (its first
+PCX frame), BLP (JPEG, palettes, the plugin's own DXT1/3/5) and FTEX
+(``csrc/native_blp.h``), ICNS (the best size's PNG or RLE icon,
+``csrc/native_icns.h``). Kinds
 PIL refuses (12-bit, hierarchical, DNL and fractional-sampling JPEG,
 lossless YCbCr; TIFF modes missing from ``OPEN_INFO``, CIELAB; the BMP
 headers, depths, compressions, masks and palettes PIL rejects; GIF code
 sizes above 12; WebP frames libwebp rejects; Sun, TGA colour maps PIL
 cannot apply; PCX and SGI modes PIL has none for; DDS header sizes and
-pixel formats PIL does not decode) and formats and kinds PIL reads that
+pixel formats PIL does not decode; Lab PSD; BLP kinds the plugin's
+BLPFormatError names) and formats and kinds PIL reads that
 the port does not yet (TIFF's LZMA, ZSTD, WebP, SGILog and ThunderScan
 compressions, 12-bit and short-stream new-style JPEG, old-style JPEG in
 tiles, on separate planes, in big-endian strips or with restart
-intervals off the strips; JPEG 2000, AVIF, PSD and every other plugin of
-PIL's the port does not read, each by name; Pillow's P0CMYK and Py
-netpbm kinds) raise ``NotImplementedError`` naming the kind or format. A
+intervals off the strips; JPEG 2000 (an ICNS of a JPEG 2000 best size
+too), AVIF and every other plugin of PIL's the port does not read, each
+by name) raise ``NotImplementedError`` naming the kind or format. A
 file no plugin of PIL's opens raises ``ValueError``, and a file that fails
 to decode (libtiff's own failures included) ``IOError``, on every route:
 the library's ``native_runtime_error_kind`` decides.
@@ -71,7 +80,7 @@ import weakref
 import numpy as np
 
 __all__ = ["build", "available", "decode_gray", "decode_u8", "image_size", "plugin_of",
-           "remap_bilinear", "merge_lines", "NativeStereoLoader"]
+           "png_layout", "png_tail", "remap_bilinear", "merge_lines", "NativeStereoLoader"]
 
 _NAME = "native_runtime"
 
@@ -130,6 +139,37 @@ def plugin_of(data: bytes) -> str:
     out = ctypes.create_string_buffer(16)
     _lib().native_identify(buf.ctypes.data, len(data), ctypes.addressof(out))
     return out.value.decode()
+
+
+def png_layout(data: bytes) -> dict | None:
+    """A PNG as PIL's PNG plugin opens it (``csrc/native_png.h``), for
+    ``png.py``'s own inflate: its size, bit depth, colour type, whether it
+    is interlaced or tiled (an APNG frame smaller than the image), and the
+    (start, end) of each read ``ImageFile.load`` gives the decoder; None
+    where the open fails (``decode_u8`` then raises what PIL's failure maps
+    to)."""
+    buf = np.frombuffer(data, np.uint8) if len(data) else np.zeros(1, np.uint8)
+    cap = 64
+    while True:
+        out = np.zeros(7 + 2 * cap, np.int64)
+        if _lib().native_png_layout(buf.ctypes.data, len(data), out.ctypes.data, cap):
+            return None
+        if out[6] <= cap:
+            break
+        cap = int(out[6])
+    w, h, depth, ctype, interlaced, tiled, n = (int(v) for v in out[:7])
+    return {"size": (h, w), "depth": depth, "ctype": ctype, "interlaced": bool(interlaced),
+            "tiled": bool(tiled), "reads": out[7:7 + 2 * n].reshape(n, 2).tolist()}
+
+
+def png_tail(data: bytes, read: int, what: str = "PNG") -> None:
+    """PIL's ``load_end`` after a PNG's image was done in read ``read`` of
+    :func:`png_layout`: the chunks after the data through their handlers;
+    raises what their failure maps to."""
+    buf = np.frombuffer(data, np.uint8)
+    rc = _lib().native_png_tail(buf.ctypes.data, len(data), read)
+    if rc:
+        _raise(rc, what)
 
 
 def decode_u8(data: bytes, what: str = "image") -> np.ndarray:

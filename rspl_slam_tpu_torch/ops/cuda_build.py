@@ -67,6 +67,8 @@ SIGNATURES = {
                        "native_decode_u8": "plp" + "ii",
                        "native_image_size": "plp",
                        "native_identify": "plp",
+                       "native_png_layout": "plpl",
+                       "native_png_tail": "pll",
                        "native_decode_file": "sp" + "ii",
                        "native_loader_create": "ppiiippiip",
                        "native_loader_next": "ppp",

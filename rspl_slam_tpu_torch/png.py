@@ -5,31 +5,35 @@ as (H, W) uint8, for every file PIL 12.1 reads that the port reads: PNG
 (every colour type, bit depth and interlace), JPEG (every kind
 libjpeg-turbo decodes for PIL: sequential, progressive and lossless,
 Huffman or arithmetic coded, gray, YCbCr, RGB, CMYK, YCCK), netpbm P1-P6
-at any maxval and gray PFM, TIFF (every mode of PIL's ``OPEN_INFO``,
-uncompressed, PackBits, LZW or Deflate with PIL's quirks, and JPEG,
-old-style JPEG, CCITT and compressed YCbCr as libtiff hands them to PIL;
-transposed by its Orientation tag as PIL transposes it), BMP and the
-headerless DIB, GIF (frame 0), WebP (lossless, lossy, with alpha, frame 0
-of an animation), QOI, Sun raster, PCX, SGI, TGA, ICO, CUR and DDS (bit
-masks, luminance, palette, BC1-BC7 with BC6H). RGB becomes gray with
-PIL's fixed-point luma, ``(R·19595 + G·38470 + B·7471 + 0x8000) >> 16``;
-alpha and tRNS are dropped, as PIL drops them.
+at any maxval, Pillow's own P0CMYK and Py kinds and gray PFM, TIFF (every
+mode of PIL's ``OPEN_INFO``, uncompressed, PackBits, LZW or Deflate with
+PIL's quirks, and JPEG, old-style JPEG, CCITT and compressed YCbCr as
+libtiff hands them to PIL; transposed by its Orientation tag as PIL
+transposes it), BMP and the headerless DIB, GIF (frame 0), WebP
+(lossless, lossy, with alpha, frame 0 of an animation), QOI, Sun raster,
+PCX, SGI, TGA, ICO, CUR, DDS (bit masks, luminance, palette, BC1-BC7 with
+BC6H), PSD, DCX, BLP, FTEX and ICNS. RGB becomes gray with PIL's
+fixed-point luma, ``(R·19595 + G·38470 + B·7471 + 0x8000) >> 16``; alpha
+and tRNS are dropped, as PIL drops them.
 
 8-bit non-interlaced PNGs in gray, gray + alpha, RGB and RGBA (what the
-EuRoC-class datasets hold) decode here with zlib and numpy, undoing the
-row filters in numpy and Python (:func:`unfilter_numpy`, Sub and Up
-vectorized) or, with ``compiled``, in the host C++ loop of
-``csrc/png_unfilter.cu`` (:func:`unfilter_compiled`, built by
-``ops/cuda_build`` at first use); the two agree bit for bit. Every other
-file goes to the host C++ of ``native.py`` (``csrc/native_runtime.cpp``
-and the headers it includes), which tells the format as PIL's
-``Image.open`` does, trying PIL's plugins in their order, whatever the
-extension. The kinds PIL refuses raise ``NotImplementedError`` naming the
-kind with PIL's reason, and so do the formats and kinds PIL reads that the
-port does not yet (TIFF's LZMA, ZSTD, WebP, SGILog and ThunderScan
-compressions; JPEG 2000, AVIF, PSD and every other plugin of PIL's the
-port does not read, each named; Pillow's own netpbm variants); a file no
-plugin of PIL's opens raises ``ValueError``.
+EuRoC-class datasets hold) decode here with zlib and numpy: their chunks
+walked as PIL's PNG plugin walks them (``native.png_layout`` and
+``native.png_tail``: CRCs checked before the first IDAT only, the image
+data from the first run of IDATs), zlib fed one row at a time as Pillow
+feeds it, the row filters undone in numpy and Python
+(:func:`unfilter_numpy`, Sub and Up vectorized) or, with ``compiled``, in
+the host C++ loop of ``csrc/png_unfilter.cu`` (:func:`unfilter_compiled`,
+built by ``ops/cuda_build`` at first use); the two agree bit for bit.
+Every other file goes to the host C++ of ``native.py``
+(``csrc/native_runtime.cpp`` and the headers it includes), which tells
+the format as PIL's ``Image.open`` does, trying PIL's plugins in their
+order, whatever the extension. The kinds PIL refuses raise
+``NotImplementedError`` naming the kind with PIL's reason, and so do the
+formats and kinds PIL reads that the port does not yet (TIFF's LZMA,
+ZSTD, WebP, SGILog and ThunderScan compressions; JPEG 2000, AVIF and
+every other plugin of PIL's the port does not read, each named); a file
+no plugin of PIL's opens raises ``ValueError``.
 
 :func:`write_png` writes 8-bit PNGs with one fixed filter or, by default,
 the filter per row that minimizes the sum of the filtered bytes read as
@@ -122,50 +126,75 @@ def unfilter_compiled(raw: bytes, height: int, stride: int, bpp: int) -> np.ndar
 
 
 # ----------------------------------------------------------------- reading
-def _plain_png(data: bytes) -> bool:
-    """An 8-bit non-interlaced PNG that is not a palette image
-    (:func:`read_png` decodes it)."""
-    _, _, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", data[16:29])
-    return depth == 8 and ctype in _SAMPLES and not interlace
+def _inflate(data: bytes, reads: list, rows: int, row_len: int) -> tuple[bytes, int]:
+    """A PNG's image data as Pillow's ZipDecode inflates it: each read of
+    ``reads`` (``native.png_layout``) handed to zlib one row of output (its
+    filter byte first) at a time until the read is used up, done the
+    moment the last row is full (zlib decodes on within that read while no
+    symbol needs output, as in Pillow). Returns the rows and the read that
+    filled the last one; IOError where zlib fails, a row's filter byte is
+    not 0-4, or the reads end first (PIL: "image file is truncated")."""
+    z = zlib.decompressobj()
+    out, left, done = bytearray(), row_len + 1, 0
+    for k, (a, b) in enumerate(reads):
+        tail = data[a:b]
+        while tail:
+            try:
+                got = z.decompress(tail, left)
+            except zlib.error as e:
+                raise IOError(f"broken PNG data stream: {e}") from None
+            tail = z.unconsumed_tail
+            out += got
+            left -= len(got)
+            if left:
+                break
+            if out[done * (row_len + 1)] > 4:
+                raise IOError("unrecognized PNG data stream contents (a filter type above 4)")
+            done += 1
+            if done == rows:
+                return bytes(out), k
+            left = row_len + 1
+    raise IOError("PNG image file is truncated")
+
+
+def _plain(layout: dict) -> bool:
+    """An 8-bit PNG in gray, gray + alpha, RGB or RGBA, not interlaced and
+    not an APNG frame smaller than its image (:func:`read_png` decodes it)."""
+    return (layout["depth"] == 8 and layout["ctype"] in _SAMPLES and not layout["interlaced"]
+            and not layout["tiled"])
+
+
+def _read(data: bytes, layout: dict, compiled: bool) -> np.ndarray:
+    from rspl_slam_tpu_torch import native
+
+    H, W = layout["size"]
+    bpp = _SAMPLES[layout["ctype"]]
+    raw, read = _inflate(data, layout["reads"], H, W * bpp)
+    native.png_tail(data, read)
+    fn = unfilter_compiled if compiled else unfilter_numpy
+    return fn(raw, H, W * bpp, bpp).reshape(H, W, bpp)
 
 
 def read_png(data: bytes, compiled: bool = False) -> np.ndarray:
     """8-bit non-interlaced PNG bytes → (H, W, samples) uint8 (1 gray,
-    2 gray + alpha, 3 RGB, 4 RGBA). ``compiled``: undo the filters with the
+    2 gray + alpha, 3 RGB, 4 RGBA), as PIL reads the file: the chunks as
+    its PNG plugin walks them (``native.png_layout``, ``native.png_tail``),
+    the data through zlib here. ``compiled``: undo the filters with the
     C++ loop rather than numpy."""
-    if data[:8] != _SIG:
-        raise ValueError("not a PNG file")
-    pos, idat, hdr = 8, [], None
-    while pos + 8 <= len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
-        if zlib.crc32(kind + body) != crc:
-            raise ValueError(f"PNG chunk {kind!r}: CRC mismatch")
-        pos += 12 + n
-        if kind == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if hdr is None:
-        raise ValueError("PNG without IHDR")
-    W, H, depth, ctype, _, _, interlace = hdr
-    if ctype == 3:
+    from rspl_slam_tpu_torch import native
+
+    layout = native.png_layout(data) if data[:8] == _SIG else None
+    if layout is None:
+        raise ValueError("not a PNG file PIL opens")
+    if layout["ctype"] == 3:
         _unsupported("a palette PNG")
-    if depth != 8:
-        _unsupported(f"a {depth}-bit PNG")
-    if interlace:
+    if layout["depth"] != 8:
+        _unsupported(f"a {layout['depth']}-bit PNG")
+    if layout["interlaced"]:
         _unsupported("an interlaced PNG")
-    if ctype not in _SAMPLES:
-        raise ValueError(f"invalid PNG colour type {ctype}")
-    bpp = _SAMPLES[ctype]
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) < H * (W * bpp + 1):
-        raise ValueError("truncated PNG image data")
-    fn = unfilter_compiled if compiled else unfilter_numpy
-    return fn(raw, H, W * bpp, bpp).reshape(H, W, bpp)
+    if layout["tiled"]:
+        _unsupported("an APNG frame smaller than its image")
+    return _read(data, layout, compiled)
 
 
 def to_luma(pixels: np.ndarray) -> np.ndarray:
@@ -182,13 +211,14 @@ def read_gray(path: str, compiled: bool = False) -> np.ndarray:
     """An image file → (H, W) uint8 gray, equal to PIL's
     ``Image.open(path).convert("L")`` on the files this module reads.
     ``compiled``: the row-unfilter route of 8-bit PNGs (see the module)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] == _SIG and len(data) >= 29 and _plain_png(data):
-        return to_luma(read_png(data, compiled))
     from rspl_slam_tpu_torch import native
 
-    # the C++ tells the format by its signature (ValueError for none)
+    with open(path, "rb") as f:
+        data = f.read()
+    layout = native.png_layout(data) if data[:8] == _SIG else None
+    if layout is not None and _plain(layout):
+        return to_luma(_read(data, layout, compiled))
+    # the C++ tells the format as Image.open does (ValueError where no plugin opens it)
     return native.decode_u8(data, path)
 
 

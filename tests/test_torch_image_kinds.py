@@ -21,12 +21,16 @@ the JPEG layouts the port refuses), BMP (RLE, BITFIELDS, OS/2, top-down), PFM;
 GIF (identity palettes, frame 0 past or inside the screen, interlaced,
 animated) and WebP (lossless, lossy, alpha, animated, libwebp's own
 options) with the kinds of both that PIL refuses; QOI, Sun raster, PCX,
-SGI, TGA, ICO, CUR, headerless DIB and DDS (BC1, BC6H, BC7) files; JPEG
-2000, PSD, AVIF and P0CMYK files the port refuses; a 752×480 progressive
+SGI, TGA, ICO, CUR, headerless DIB and DDS (BC1, BC6H, BC7) files; PSD
+(raw gray, PackBits RGB), DCX, BLP (JPEG, DXT5), FTEX, ICNS (RLE and PNG
+best sizes) and Pillow's P0CMYK and PyCMYK files; JPEG 2000, AVIF and an
+ICNS of a JPEG 2000 best size, which the port refuses; a 752×480 progressive
 stereo sequence and a lossy WebP pair of its first frames. Random GIFs
 and WebPs are in ``test_torch_gif_webp.py``, random TIFFs of libtiff's
 codecs in ``test_torch_tiff_codecs.py``, random files of the formats read
-since QOI in ``test_torch_pillow_formats.py``. ``manifest.json`` pins each
+since QOI in ``test_torch_pillow_formats.py``, random PSD, DCX, BLP,
+FTEX, ICNS and damaged PNG files in ``test_torch_pillow_containers.py``.
+``manifest.json`` pins each
 readable file's PIL sha256 and each refused file's refusal word.
 """
 
@@ -36,6 +40,7 @@ import io
 import json
 import os
 import shutil
+import struct
 
 import numpy as np
 import pytest
@@ -150,7 +155,7 @@ def test_unported_kind_raises_in_the_port_alone(name):
     """A kind or format PIL reads that the port does not read yet (TIFF's
     LZMA and ZSTD compressions, 12-bit and short-stream new-style JPEG,
     old-style JPEG of big-endian strips or odd restart intervals; JPEG
-    2000, PSD, AVIF; Pillow's P0CMYK):
+    2000, AVIF, an ICNS whose best size is JPEG 2000):
     PIL (JAX's reader) reads it, and every route of the port raises
     ``NotImplementedError`` naming the kind or format."""
     path = os.path.join(DIR, name)
@@ -161,21 +166,20 @@ def test_unported_kind_raises_in_the_port_alone(name):
 
 
 def test_refusals_name_the_format_they_refuse(tmp_path):
-    """No netpbm refusal speaks of JPEG and no JPEG refusal of netpbm: a
-    P0CMYK file (which PIL reads, the port does not) names netpbm, and a
-    PFM file, which the port now reads, equals PIL; a 16-bit P5 at maxval
-    1023 reads (it raised as a refused JPEG kind before); a lossless JPEG
-    that declares YCbCr (JFIF) raises in PIL and names lossless in the
-    port; the GIF and WebP kinds PIL refuses (an LZW code size of 13, a
-    hidden VP8 frame, VP8L version 2, ALPH reserved bits) raise in PIL and
-    name their format and kind in the port."""
+    """No JPEG refusal speaks of netpbm: a P0CMYK file (refused naming
+    netpbm until the port read Pillow's own kinds) now reads as PIL reads
+    it, and a PFM file, which the port now reads, equals PIL; a 16-bit P5
+    at maxval 1023 reads (it raised as a refused JPEG kind before); a
+    lossless JPEG that declares YCbCr (JFIF) raises in PIL and names
+    lossless in the port; the GIF and WebP kinds PIL refuses (an LZW code
+    size of 13, a hidden VP8 frame, VP8L version 2, ALPH reserved bits)
+    raise in PIL and name their format and kind in the port."""
     cmyk = tmp_path / "f.pnm"
     cmyk.write_bytes(b"P0CMYK\n3 2\n255\n" + bytes(range(24)))
-    assert np.asarray(Image.open(cmyk).convert("L")).shape == (2, 3)
-    for call in (lambda: png.read_gray(str(cmyk)), lambda: native.decode_gray(str(cmyk), 2, 3)):
-        with pytest.raises(NotImplementedError, match="netpbm") as e:
-            call()
-        assert "JPEG" not in str(e.value)
+    ref = np.asarray(Image.open(cmyk).convert("L"))
+    assert ref.shape == (2, 3)
+    np.testing.assert_array_equal(png.read_gray(str(cmyk)), ref)
+    np.testing.assert_array_equal(native.decode_gray(str(cmyk), 2, 3), ref / np.float32(255))
     pfm = tmp_path / "f.pfm"
     pfm.write_bytes(b"Pf\n3 2\n-1.0\n" + np.arange(6, dtype="<f4").tobytes() * 40)
     np.testing.assert_array_equal(png.read_gray(str(pfm)), np.asarray(Image.open(pfm).convert("L")))
@@ -478,16 +482,20 @@ def test_pil_boundaries_of_i16_and_f_to_l(tmp_path):
 
 UNPORTED_SIGNATURES = {
     "JPEG 2000": b"\xff\x4f\xff\x51",
-    "JPEG 2000 (JP2)": b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", "PSD": b"8BPS",
+    "JPEG 2000 (JP2)": b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a",
+    # a 2 × 2 Lab PSD: the one PSD kind still refused (PIL cannot convert it)
+    "PSD": b"8BPS" + struct.pack(">H6xHIIHH", 1, 3, 2, 2, 8, 9),
     "AVIF": b"\0\0\0\x1cftypavif"}
 
 
 @pytest.mark.parametrize("fmt", sorted(UNPORTED_SIGNATURES))
 def test_unported_format_raises_naming_it(fmt):
     """A file that starts with the signature PIL identifies a format by, of
-    a format the port does not read yet, raises ``NotImplementedError``
-    naming that format on ``decode_u8`` and ``image_size``; a file no plugin
-    of PIL's opens keeps its ``ValueError``."""
+    a format the port does not read yet (for PSD, which the port reads, a
+    Lab header: PIL does not convert Lab either), raises
+    ``NotImplementedError`` naming that format on ``decode_u8`` and
+    ``image_size``; a file no plugin of PIL's opens keeps its
+    ``ValueError``."""
     data = UNPORTED_SIGNATURES[fmt] + bytes(64)
     word = fmt.split(" (")[0]
     with pytest.raises(NotImplementedError, match=word):

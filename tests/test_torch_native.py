@@ -296,11 +296,14 @@ class TestDecode:
             native.decode_gray(p + ".missing", 48, 64)
 
     def test_corrupt_data_raises(self, png_dir):
-        """A flipped byte in the compressed data fails the chunk CRC; a
-        truncated JPEG runs out of markers."""
+        """A flipped byte in the compressed data breaks the zlib stream
+        (the IDAT's CRC is not checked: PIL raises "broken data stream" on
+        these bytes too); a truncated JPEG runs out of markers."""
         with open(png_dir[0][0], "rb") as f:
             data = bytearray(f.read())
         data[60] ^= 0xFF
+        with pytest.raises(OSError):
+            Image.open(io.BytesIO(bytes(data))).load()
         with pytest.raises(IOError):
             native.decode_u8(bytes(data))
         with open(PHOTO, "rb") as f:

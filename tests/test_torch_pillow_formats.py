@@ -2,7 +2,8 @@
 JPEG, netpbm, TIFF, BMP, GIF and WebP: headerless DIB, QOI, Sun raster,
 PCX, SGI, TGA, ICO, CUR and DDS; and how a file is identified, plugin by
 plugin in ``Image.open``'s order, with a named refusal for every plugin the
-port does not read.
+port does not read (PSD, DCX, BLP, FTEX and ICNS, read since, are in
+``test_torch_pillow_containers.py``).
 
 PIL is the oracle, opened on a path as the JAX package's reader
 (``rspl_slam_tpu.datasets._load_gray``) opens it. Random files of each
@@ -11,9 +12,11 @@ header options) and bit-flipped, truncated and lengthened copies of them
 give the port PIL's pixels, or the exception PIL's failure maps to: PIL
 finding no plugin (``UnidentifiedImageError``) is the port's
 ``ValueError``; any other failure is the port's ``NotImplementedError`` (a
-kind PIL refuses, named) or ``IOError``. A corrupt PNG entry of an ICO is
-left out of the random files: the port's PNG reader checks every chunk's
-CRC and the zlib checksum, PIL only the chunks before IDAT (ROADMAP §3).
+kind PIL refuses, named) or ``IOError``. The random ICO files mix PNG and
+DIB entries, corrupted like the rest: the port's PNG reader checks the
+CRCs of the chunks before IDAT only, as PIL does, and an error of the
+pass-on kinds while the entry loads passes the ICO on
+(``test_torch_pillow_containers.py`` holds PNG chunks to PIL).
 
 Cases are cheap (about 0.1 s each); the seeds make them deterministic.
 """
@@ -276,7 +279,7 @@ def _dds(rng, kinds):
 
 GENERATORS = {
     "qoi": _qoi, "sun": _sun, "pcx": _pcx, "sgi": _sgi, "tga": _tga, "dib": _dib,
-    "cur": _cur, "ico": _ico,
+    "cur": _cur, "ico": lambda rng: _ico(rng, png_entries=True),
     "dds_bc1_3": lambda rng: _dds(rng, (1, 2, 3)), "dds_bc4_5": lambda rng: _dds(rng, (4, 5)),
     "dds_bc6h": lambda rng: _dds(rng, (6,)), "dds_bc7": lambda rng: _dds(rng, (7,)),
     "dds_uncompressed": lambda rng: _dds(rng, (0,)),
@@ -542,22 +545,17 @@ def _wmf():
 # names it by
 REFUSED_PLUGINS = {
     "AVIF": (lambda: _pil_saved("AVIF", "RGB"), "AVIF"),
-    "BLP": (lambda: _pil_saved("BLP", "P"), "BLP"),
     "BUFR": (lambda: b"BUFR" + bytes(40), "BUFR"),
-    "DCX": (lambda: struct.pack("<II", 0x3ADE68B1, 12) + bytes(4) + _pil_saved("PCX"), "DCX"),
     "EPS": (lambda: _pil_saved("EPS"), "EPS"),
     "FITS": (lambda: b"".join(c.ljust(80) for c in (
         b"SIMPLE  = T", b"BITPIX  = 8", b"NAXIS   = 2", b"NAXIS1  = 4", b"NAXIS2  = 3",
         b"END")).ljust(2880) + bytes(2880), "FITS"),
     "FLI": (lambda: struct.pack("<IHHHHHHI", 256, 0xAF11, 1, 4, 3, 8, 0, 5) + bytes(108)
             + struct.pack("<IH", 16, 0xF1FA) + bytes(10), "FLI"),
-    "FTEX": (lambda: b"FTEX" + struct.pack("<IIIII", 0, 4, 4, 1, 1) + bytes(8)
-             + struct.pack("<II", 1, 0) + struct.pack("<II", 0, 64) + bytes(64), "FTEX"),
     "GBR": (lambda: struct.pack(">IIIII", 28, 2, 4, 3, 1) + b"GIMP" + struct.pack(">I", 10)
             + bytes(12), "GBR"),
     "GRIB": (lambda: b"GRIB\0\0\0\x01" + bytes(40), "GRIB"),
     "HDF5": (lambda: b"\x89HDF\r\n\x1a\n" + bytes(40), "HDF5"),
-    "ICNS": (lambda: _pil_saved("ICNS", "RGB", (16, 16)), "ICNS"),
     "IM": (lambda: _pil_saved("IM"), "IM"),
     "IMT": (lambda: b"width 4\nheight 3\npixel n8\n\x0c" + bytes(12), "IMT"),
     "IPTC": (lambda: b"".join(bytes([0x1C, 3, t]) + struct.pack(">H", len(v)) + v
@@ -570,8 +568,6 @@ REFUSED_PLUGINS = {
     "MSP": (lambda: _pil_saved("MSP", "1"), "MSP"),
     "PCD": (lambda: bytes(2048) + b"PCD_" + bytes(1600), "PhotoCD"),
     "PIXAR": (_pixar, "PIXAR"),
-    "PSD": (lambda: b"8BPS" + struct.pack(">H6xHIIHH", 1, 1, 3, 4, 8, 1) + bytes(14)
-            + bytes(12), "PSD"),
     "SPIDER": (lambda: _pil_saved("SPIDER", "F"), "SPIDER"),
     "WMF": (_wmf, "WMF"),
     "XBM": (lambda: _pil_saved("XBM", "1"), "XBM"),

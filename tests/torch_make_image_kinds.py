@@ -2323,6 +2323,7 @@ def small_files(seed: int) -> dict:
     files.update(gif_webp_files(seed))
     files.update(unported_files(seed))
     files.update(raster_files(seed))
+    files.update(container_files(seed))
     return files
 
 
@@ -3182,6 +3183,209 @@ def bc7_blocks(rgba) -> bytes:
     return bytes(out)
 
 
+# ------------------------------------- PSD, DCX, BLP, FTEX, ICNS, P0CMYK, Py
+def packbits(row: bytes) -> bytes:
+    """PackBits (Apple's; PSD's rows): runs of 3 to 128 equal bytes as
+    (257 - n, byte), the bytes between as literals of up to 128 (n - 1,
+    bytes)."""
+    a = np.frombuffer(bytes(row), np.uint8)
+    out, lit = bytearray(), 0  # lit: where the pending literal starts
+
+    def flush(end):
+        for i in range(lit, end, 128):
+            k = min(128, end - i)
+            out.append(k - 1)
+            out.extend(a[i:i + k].tobytes())
+
+    if not len(a):
+        return b""
+    starts = np.flatnonzero(np.r_[True, a[1:] != a[:-1]]).tolist()
+    for s0, s1 in zip(starts, starts[1:] + [len(a)]):
+        if s1 - s0 < 3:
+            continue
+        flush(s0)
+        while s1 - s0 >= 3:
+            k = min(128, s1 - s0)
+            out += bytes([257 - k, int(a[s0])])
+            s0 += k
+        lit = s0
+    flush(len(a))
+    return bytes(out)
+
+
+def psd_resource(rid: int, data: bytes, name: bytes = b"") -> bytes:
+    """One image resource block: 8BIM, its id, a Pascal name padded to an
+    even length, its data padded to an even length."""
+    pname = bytes([len(name)]) + name
+    pname += b"\0" * (len(pname) % 2)
+    return (b"8BIM" + struct.pack(">H", rid) + pname + struct.pack(">I", len(data)) + data
+            + b"\0" * (len(data) % 2))
+
+
+def encode_psd(pixels, mode: int = 1, bits: int = 8, compression: int = 0, channels=None,
+               palette=None, resources: bytes = b"", layers=None, version: int = 1) -> bytes:
+    """A PSD file of one merged image: the header (``mode``: 0 bitmap, 1 gray,
+    2 indexed, 3 RGB, 4 CMYK, 7 multichannel, 8 duotone, 9 Lab; ``channels``
+    in the header, the planes' count if None), the colour mode data (an
+    indexed image's 768-byte planar palette), ``resources`` (the image
+    resource section's blocks), the layer and mask section (``layers``: the
+    layer info's bytes, none if None), then the planes: raw (0) or PackBits
+    (1) with the byte count of every row of every plane first. ``pixels``:
+    (H, W) or (H, W, C) uint8; at 1 bit, 0/1 with 1 white."""
+    px = np.asarray(pixels)
+    planes = [px] if px.ndim == 2 else [px[..., c] for c in range(px.shape[2])]
+    H, W = px.shape[:2]
+    rows = [[(np.packbits(pl[y].astype(np.uint8)) if bits == 1 else pl[y].astype(np.uint8))
+             .tobytes() for y in range(H)] for pl in planes]
+    out = b"8BPS" + struct.pack(">H6xHIIHH", version, len(planes) if channels is None else channels,
+                                H, W, bits, mode)
+    cmd = b"" if palette is None else np.asarray(palette, np.uint8).T.reshape(-1).tobytes()
+    out += struct.pack(">I", len(cmd)) + cmd + struct.pack(">I", len(resources)) + resources
+    if layers is None:
+        out += struct.pack(">I", 0)
+    else:
+        out += struct.pack(">II", 4 + len(layers), len(layers)) + layers
+    out += struct.pack(">H", compression)
+    if compression == 1:
+        packed = [[packbits(r) for r in pl] for pl in rows]
+        out += b"".join(struct.pack(">H", len(r)) for pl in packed for r in pl)
+        return out + b"".join(r for pl in packed for r in pl)
+    return out + b"".join(r for pl in rows for r in pl)
+
+
+def encode_dcx(frames, offsets=None) -> bytes:
+    """A DCX file: the offset table (the frames' own, or ``offsets``) ended
+    by 0, then the PCX frames."""
+    if offsets is None:
+        at, offsets = 4 + 4 * (len(frames) + 1), []
+        for f in frames:
+            offsets.append(at)
+            at += len(f)
+    head = struct.pack("<I", 0x3ADE68B1) + b"".join(struct.pack("<I", o) for o in offsets)
+    return head + struct.pack("<I", 0) + b"".join(frames)
+
+
+def bgra_palette(colours) -> bytes:
+    """256 BGRA entries of an (n, 3) or (n, 4) palette (alpha 255 where
+    absent), zero-filled past n."""
+    c = np.asarray(colours, np.int64)
+    pal = np.zeros((256, 4), np.uint8)
+    pal[:len(c), :3] = c[:, 2::-1][:, :3] if c.shape[1] == 3 else c[:, [2, 1, 0]]
+    pal[:len(c), 3] = 255 if c.shape[1] == 3 else c[:, 3]
+    return pal.tobytes()
+
+
+def encode_blp(version: int, w: int, h: int, data: bytes, compression: int = 1,
+               encoding: int = 1, alpha: int = 0, alpha_encoding: int = 0, palette=None,
+               jpeg_header: bytes = b"", offset=None, length=None) -> bytes:
+    """A BLP1 or BLP2 file of one mipmap: the header (BLP1: compression,
+    alpha flag, size, encoding; BLP2: compression, encoding, alpha depth,
+    alpha encoding), the 16 mipmap offsets and lengths (mipmap 0's own, or
+    ``offset`` and ``length``), then: BLP1 JPEG (compression 0) the JPEG
+    header's length, ``jpeg_header`` and ``data``; a palette kind the 256
+    BGRA entries of ``palette`` and ``data``."""
+    if version == 1:
+        head = b"BLP1" + struct.pack("<iIIIiI", compression, alpha, w, h, encoding, 0)
+    else:
+        head = b"BLP2" + struct.pack("<ibbbBII", compression, encoding, alpha, alpha_encoding, 1,
+                                     w, h)
+    at = len(head) + 128
+    if version == 1 and compression == 0:
+        pre = struct.pack("<I", len(jpeg_header)) + jpeg_header
+    else:
+        pre = bgra_palette(np.zeros((0, 3)) if palette is None else palette)
+    at += len(pre)
+    table = struct.pack("<16I", at if offset is None else offset, *[0] * 15)
+    table += struct.pack("<16I", len(data) if length is None else length, *[0] * 15)
+    return head + table + pre + data
+
+
+def dxt_blocks(rgba, kind: int) -> bytes:
+    """DXT1, DXT3 or DXT5 blocks of an (H, W, 4) image: BC1 colour
+    (``bc1_blocks``), and DXT3's 4-bit alpha or DXT5's alpha endpoints
+    (the block's largest and smallest) with the nearest of their eight
+    levels."""
+    h, w = rgba.shape[:2]
+    colour = np.frombuffer(bc1_blocks(rgba[..., :3]), np.uint8).reshape(-1, 8)
+    if kind == 1:
+        return colour.tobytes()
+    a = _blocks(rgba[..., 3:], w, h).reshape(-1, 16).astype(np.int64)
+    if kind == 3:
+        q = (a + 8) // 17
+        alpha = (q[:, 0::2] | q[:, 1::2] << 4).astype(np.uint8)
+    else:
+        a0, a1 = a.max(1), a.min(1)
+        levels = np.stack([a0, a1] + [((7 - k) * a0 + k * a1) // 7 for k in range(1, 7)], 1)
+        idx = np.abs(a[:, :, None] - levels[:, None, :]).argmin(-1)
+        idx = np.where((a0 > a1)[:, None], idx, 0)
+        bitsv = (idx << (3 * np.arange(16))).sum(-1)
+        alpha = np.zeros((len(a), 8), np.uint8)
+        alpha[:, 0], alpha[:, 1] = a0, a1
+        for k in range(6):
+            alpha[:, 2 + k] = (bitsv >> (8 * k)) & 255
+    return np.concatenate([alpha, colour], 1).tobytes()
+
+
+def encode_ftex(w: int, h: int, data: bytes, fmt: int = 0, where=None, size=None,
+                formats: int = 1) -> bytes:
+    """An FTEX file: the header (size, one mipmap, ``formats`` formats, the
+    format and where its mipmap is), then the mipmap's size and ``data``."""
+    where = 32 if where is None else where
+    head = b"FTEX" + struct.pack("<i2i2i2i", 0, w, h, 1, formats, fmt, where)
+    head = head.ljust(where, b"\0")
+    return head + struct.pack("<i", len(data) if size is None else size) + data
+
+
+def icns_rle(plane: bytes) -> bytes:
+    """One plane of an ICNS RGB icon: runs of 3 to 130 equal bytes as
+    (n + 125, byte), the bytes between as literals of up to 128 (n - 1,
+    bytes)."""
+    a = np.frombuffer(bytes(plane), np.uint8)
+    out = bytearray()
+    starts = np.flatnonzero(np.r_[True, a[1:] != a[:-1]]).tolist() + [len(a)]
+    lit = 0
+    for s0, s1 in zip(starts, starts[1:]):
+        if s1 - s0 < 3:
+            continue
+        for j in range(lit, s0, 128):
+            k = min(128, s0 - j)
+            out += bytes([k - 1]) + a[j:j + k].tobytes()
+        while s1 - s0 >= 3:
+            k = min(130, s1 - s0)
+            out += bytes([k + 125, int(a[s0])])
+            s0 += k
+        lit = s0
+    for j in range(lit, len(a), 128):
+        k = min(128, len(a) - j)
+        out += bytes([k - 1]) + a[j:j + k].tobytes()
+    return bytes(out)
+
+
+def icns_rgb(rgb, rle: bool = True) -> bytes:
+    """An ICNS RGB icon of an (H, W, 3) image: three RLE planes, or the
+    pixels interleaved."""
+    rgb = np.asarray(rgb, np.uint8)
+    if not rle:
+        return rgb.tobytes()
+    return b"".join(icns_rle(rgb[..., c].tobytes()) for c in range(3))
+
+
+def encode_icns(blocks, filesize=None) -> bytes:
+    """An ICNS file of (type, payload) blocks in order."""
+    body = b"".join(t + struct.pack(">I", 8 + len(p)) + p for t, p in blocks)
+    return b"icns" + struct.pack(">I", 8 + len(body) if filesize is None else filesize) + body
+
+
+def encode_pillow_pnm(magic: bytes, samples, maxval: int = 255) -> bytes:
+    """Pillow's own netpbm kinds (P0CMYK, PyCMYK, PyRGBA, PyP): the header,
+    then ``samples`` ((H, W) or (H, W, C), in 0..65535) as bytes, or as
+    big-endian 16-bit words past maxval 255."""
+    px = np.asarray(samples)
+    H, W = px.shape[:2]
+    dt = ">u2" if maxval > 255 else np.uint8
+    return magic + b"\n%d %d\n%d\n" % (W, H, maxval) + np.ascontiguousarray(px, dt).tobytes()
+
+
 def unported_files(seed: int) -> dict:
     """One small file of each format PIL identifies by a signature and the
     port does not read yet, PIL's writer where it has one; each refused
@@ -3196,17 +3400,63 @@ def unported_files(seed: int) -> dict:
     def un(word):
         return {"refused": True, "refusal": word, "pil_reads": True}
 
-    psd = (b"8BPS" + struct.pack(">H6xHIIHH", 1, 1, h, w, 8, 1) + struct.pack(">III", 0, 0, 0)
-           + struct.pack(">H", 0) + g.tobytes())
     return {
         "jp2.jp2": (_pil_save(im, "JPEG2000"), "JPEG 2000, JP2 box (PIL)", un("JPEG 2000")),
         "j2k.j2k": (_pil_save(im, "JPEG2000", no_jp2=True), "JPEG 2000 codestream (PIL)",
                     un("JPEG 2000")),
-        "psd.psd": (psd, "PSD, 8-bit grayscale, raw", un("PSD")),
         "avif.avif": (_pil_save(imc, "AVIF"), "AVIF (PIL)", un("AVIF")),
+    }
+
+
+def container_files(seed: int) -> dict:
+    """The PSD, DCX, BLP, FTEX, ICNS and Pillow netpbm fixtures: the two
+    files these formats had while the port refused them (``psd.psd``,
+    ``p0cmyk.pnm``; the same bytes), a PackBits RGB PSD, a DCX, a BLP1 of
+    PIL's JPEG and a BLP2 of DXT5 blocks, an FTEX of BC1 blocks, ICNS files
+    whose best size is an RLE icon and a PNG, a PyCMYK at maxval 200, and an
+    ICNS whose best size is JPEG 2000 (PIL reads it; the port refuses it)."""
+    from PIL import Image
+
+    h, w = 24, 32
+    g = scene(h, w, seed + 30)
+    rgb = scene(h, w, seed + 31, 3)
+    psd = (b"8BPS" + struct.pack(">H6xHIIHH", 1, 1, h, w, 8, 1) + struct.pack(">III", 0, 0, 0)
+           + struct.pack(">H", 0) + g.tobytes())
+    rgba = np.dstack([rgb, g])
+    jpeg = _pil_save(Image.fromarray(rgb), "JPEG", quality=80)
+    split = jpeg.index(b"\xff\xda")  # the header BLP1 keeps apart: up to the scan
+    icon = scene(16, 16, seed + 32, 3)
+    png32 = _pil_save(Image.fromarray(scene(32, 32, seed + 33, 3)), "PNG")
+    j2k = _pil_save(Image.fromarray(scene(32, 32, seed + 34, 3)), "JPEG2000", no_jp2=True)
+    return {
+        "psd.psd": (psd, "PSD, 8-bit grayscale, raw"),
         "p0cmyk.pnm": (b"P0CMYK\n%d %d\n255\n" % (w, h)
                        + np.dstack([rgb, g]).astype(np.uint8).tobytes(),
-                       "netpbm P0CMYK (Pillow's own kind)", un("netpbm")),
+                       "netpbm P0CMYK (Pillow's own kind)"),
+        "psd_packbits_rgb.psd": (encode_psd(rgb, 3, compression=1,
+                                            resources=psd_resource(1005, bytes(16)),
+                                            layers=bytes(8)),
+                                 "PSD, RGB, PackBits, a resource and an empty layer section"),
+        "dcx.dcx": (encode_dcx([encode_pcx(g, 8, 1), encode_pcx(g[::-1], 8, 1)]),
+                    "DCX of two 8-bit PCX frames"),
+        "blp1_jpeg.blp": (encode_blp(1, w, h, jpeg[split:], compression=0, encoding=1,
+                                     jpeg_header=jpeg[:split]),
+                          "BLP1, PIL's RGB JPEG (red and blue swapped by the plugin)"),
+        "blp2_dxt5.blp": (encode_blp(2, w, h, dxt_blocks(rgba, 5), encoding=2, alpha=8,
+                                     alpha_encoding=7),
+                          "BLP2, DXT5, 8-bit alpha"),
+        "ftex_dxt1.ftc": (encode_ftex(w - 3, h - 2, bc1_blocks(rgb[:h - 2, :w - 3])),
+                          "FTEX, DXT1, 29×22"),
+        "icns_rle.icns": (encode_icns([(b"is32", icns_rgb(icon)),
+                                       (b"s8mk", scene(16, 16, seed + 35).tobytes())]),
+                          "ICNS, a 16×16 RLE icon and its mask"),
+        "icns_png.icns": (encode_icns([(b"is32", icns_rgb(icon)), (b"ic11", png32)]),
+                          "ICNS, a 32×32 PNG (16×16 at scale 2) over a 16×16 RLE icon"),
+        "pycmyk.pnm": (encode_pillow_pnm(b"PyCMYK", rgba.astype(np.int64) * 200 // 255, 200),
+                       "netpbm PyCMYK at maxval 200 (Pillow's own kind)"),
+        "icns_jp2.icns": (encode_icns([(b"is32", icns_rgb(icon)), (b"ic11", j2k)]),
+                          "ICNS whose best size is a JPEG 2000 codestream (PIL)",
+                          {"refused": True, "refusal": "JPEG 2000", "pil_reads": True}),
     }
 
 
