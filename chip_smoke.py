@@ -188,14 +188,17 @@ Phases (one JSON line each):
      within 1e-9), and ``real_photo.jpg`` decoded to the pinned
      ``REAL_PHOTO_L_SHA256``; ``image_kinds``, every JPEG, netpbm, PFM,
      TIFF, BMP, DIB, GIF, WebP, QOI, Sun raster, PCX, SGI, TGA, ICO, CUR,
-     DDS, PSD, DCX, BLP, FTEX and ICNS kind the JAX package reads through
-     PIL: the
-     committed fixtures of ``tests/fixtures/image_kinds`` on three decode
+     DDS, PSD, DCX, BLP, FTEX, ICNS, MSP, XBM, XPM, IM, IMT, IPTC, SPIDER,
+     GBR, McIDAS, PIXAR, XVThumb, FITS, FLI and PCD kind the JAX package
+     reads through PIL: the
+     committed fixtures of ``tests/fixtures/image_kinds`` (and three seeded
+     PhotoCD files) on three decode
      routes against PIL's pinned hashes (the kinds PIL refuses, and those
      the port does not read yet, raising ``NotImplementedError``; a lossy
      752×480 WebP pair among them), ``cli_run``'s tree as 16-bit P5,
-     16-bit LZW TIFF, gray GIF and RLE TGA (native route) and as plain P2,
-     8-bit BMP, VP8L WebP, RLE SGI and PackBits PSD (``--no-native``),
+     16-bit LZW TIFF, gray GIF, RLE TGA and BRUN FLC (native route) and as
+     plain P2, 8-bit BMP, VP8L WebP, RLE SGI and PackBits PSD
+     (``--no-native``),
      trajectories and launches equal to
      its PNG runs, and a committed 752×480 progressive stereo sequence
      through ``cli run`` and ``cli serve``, equal to PNG copies of its
@@ -4105,13 +4108,25 @@ def _write_gif_or_vp8l(job) -> None:
 
 
 # the formats read since QOI that image_kinds writes (the encoders are
-# Python: it runs these in a process pool): (b)'s RLE TGA, RLE SGI and
-# PackBits PSD trees, and the first pairs of the others for the decode
-# timing, each with its file extension (an ICNS RLE icon is at most
+# Python: it runs these in a process pool): (b)'s RLE TGA, RLE SGI,
+# PackBits PSD and BRUN FLC trees, and the first pairs of the others for the
+# decode timing, each with its file extension (an ICNS RLE icon is at most
 # it32's 128 × 128: its pairs are the frames' top-left corners)
 RASTER_TIMING = {"qoi": ".qoi", "pcx": ".pcx", "sun_rle": ".ras", "dds_bc1": ".dds",
                  "dds_bc7": ".dds", "psd_raw": ".psd", "blp2_dxt1": ".blp",
-                 "ftex_dxt1": ".ftc", "icns_it32": ".icns"}
+                 "ftex_dxt1": ".ftc", "icns_it32": ".icns", "fits_8": ".fits",
+                 "fits_gzip": ".fits", "spider": ".spi", "im_l": ".im", "msp_lins": ".msp",
+                 "xpm_2cpp": ".xpm"}
+# PIL's sha256 of convert("L") of the PhotoCD files image_kinds writes
+# (torch_make_image_kinds.pcd_sample(seed, orientation) for the keys; the
+# card's machine has no PIL: tests/test_torch_pillow_raw_layouts.py holds
+# these to PIL)
+PCD_SAMPLES_SHA256 = {
+    (0, 0): "406eb44fc0ace4e3c5bbb69d5a665c13750abdd7a379de8d06a25b07f09ceade",
+    (1, 0): "a3004eac90f31dc34518947dc31cb8184bc8c92d65fb84caf5fc4dd25c133a5f",
+    (2, 3): "d30bafe2ac81e3edc39c2c9e00dfd1969e30c02d05e601255299e6d719c9d242",
+}
+PCD_TIMING_PAIR = ((0, 0), (1, 0))  # two files of one orientation, one size
 RASTER_TIMING_PAIRS = 2
 
 
@@ -4119,15 +4134,33 @@ def _write_raster(job) -> None:
     """One frame as an RLE TGA (type 11, bottom-up), an RLE SGI, a QOI (as
     RGB), an 8-bit PCX with a grey-ramp palette (PIL reads it as L), an RLE
     Sun raster, a DDS of BC1 or BC7 (mode 6) blocks of the frame as RGB, a
-    gray PSD (PackBits or raw), a BLP2 or an FTEX of DXT1 blocks, or an
-    ICNS of the frame's top-left 128 × 128 as an it32 RLE icon (the block
-    formats are lossy: the timing only). TGA, SGI, QOI, PCX, Sun and PSD
-    keep every pixel."""
+    gray PSD (PackBits or raw), a BLP2 or an FTEX of DXT1 blocks, an ICNS of
+    the frame's top-left 128 × 128 as an it32 RLE icon, an FLC of one BRUN
+    chunk under a COLOR_256 grey-ramp palette, a FITS of BITPIX 8 (raw, or a
+    GZIP_1 tile), a SPIDER, an IM of mode L, an MSP LinS of the frame
+    thresholded at 128, or an XPM of 256 grey colours at 2 characters a
+    pixel (the block formats are lossy: the timing only). TGA, SGI, QOI,
+    PCX, Sun, PSD, FLC, FITS, SPIDER, IM and XPM keep every pixel."""
     path, kind, u8 = job
     mk = _image_kinds_encoders()
     rgb = np.dstack([u8] * 3)
     H, W = u8.shape
-    if kind in ("psd_packbits", "psd_raw"):
+    ramp = np.stack([np.arange(256)] * 3, 1)
+    if kind == "flc_brun":
+        data = mk.encode_fli(u8, ramp)
+    elif kind == "fits_8":
+        data = mk.encode_fits(u8[::-1], 8)
+    elif kind == "fits_gzip":
+        data = mk.encode_fits(u8[::-1], 8, gzip_tile=True)
+    elif kind == "spider":
+        data = mk.encode_spider(u8.astype(np.float32))
+    elif kind == "im_l":
+        data = mk.encode_im("Greyscale", (W, H), u8[::-1].tobytes())
+    elif kind == "msp_lins":
+        data = mk.encode_msp(u8 >= 128, b"LinS")
+    elif kind == "xpm_2cpp":
+        data = mk.encode_xpm(u8, [(i, i, i) for i in range(256)], 2)
+    elif kind in ("psd_packbits", "psd_raw"):
         data = mk.encode_psd(u8, 1, compression=int(kind == "psd_packbits"))
     elif kind == "blp2_dxt1":
         data = mk.encode_blp(2, W, H, mk.bc1_blocks(rgb), encoding=2, alpha_encoding=0)
@@ -4209,8 +4242,9 @@ def _decode_pair_ms(pairs, n_rep: int) -> float:
 
 def phase_image_kinds(ctx, cli_line):
     """Every JPEG, netpbm, PFM, TIFF, BMP, GIF, WebP, DIB, QOI, Sun raster,
-    PCX, SGI, TGA, ICO, CUR, DDS, PSD, DCX, BLP, FTEX and ICNS kind the JAX
-    package reads through PIL,
+    PCX, SGI, TGA, ICO, CUR, DDS, PSD, DCX, BLP, FTEX, ICNS, MSP, XBM, XPM,
+    IM, IMT, IPTC, SPIDER, GBR, McIDAS, PIXAR, XVThumb, FITS, FLI and PCD
+    kind the JAX package reads through PIL,
     on the card's machine (no PIL there) and through the CLI at full width:
 
     (a) each committed fixture of ``tests/fixtures/image_kinds`` (its
@@ -4219,14 +4253,17 @@ def phase_image_kinds(ctx, cli_line):
     each hashing to the pinned value; each kind PIL refuses, and each kind
     or format PIL reads that the port does not yet, raising
     ``NotImplementedError`` on all three routes; the GIF and WebP fixtures
-    (a lossy 752×480 pair among them) hash like the rest;
+    (a lossy 752×480 pair among them) hash like the rest, and so do three
+    PhotoCD files written from seeds (``PCD_SAMPLES_SHA256``: 786 KB each,
+    too large to commit);
     (b) ``cli_run``'s 752×480 30-frame PNG tree rewritten as 16-bit P5, as
     plain P2, as 16-bit LZW TIFF with predictor 2 and as gray GIF with an
     identity palette (in a process pool: both LZW encoders are Python), as
-    bottom-up 8-bit BMP, as VP8L WebP, as RLE TGA, as RLE SGI and as
-    PackBits PSD (the pool again): ``cli run`` on the P5, TIFF, GIF and TGA
-    trees by the native route and on the P2, BMP, VP8L, SGI and PSD trees
-    with ``--no-native``, the nine processes at once, each trajectory and launch
+    bottom-up 8-bit BMP, as VP8L WebP, as RLE TGA, as RLE SGI, as PackBits
+    PSD and as FLC frame 0 (one BRUN chunk under a COLOR_256 grey ramp; the
+    pool again): ``cli run`` on the P5, TIFF, GIF, TGA and FLC trees by the
+    native route and on the P2, BMP, VP8L, SGI and PSD trees with
+    ``--no-native``, the ten processes at once, each trajectory and launch
     count equal to ``cli_run``'s PNG run of the same route (every value is
     at most 255, so PIL reads the same pixels from all of them: any
     difference is a decode fault);
@@ -4254,8 +4291,10 @@ def phase_image_kinds(ctx, cli_line):
     trees, YCbCr 2×2 LZW and old-style JPEG), 8-bit BMP, GIF, VP8L WebP,
     the committed lossy WebP pair (quality 90), RLE TGA, RLE SGI, QOI, PCX,
     RLE Sun raster, DDS of BC1 and BC7 blocks, PackBits and raw PSD, BLP2
-    and FTEX of DXT1 blocks, and 128 × 128 ICNS it32 RLE icons (the largest
-    RLE icon PIL reads) against 8-bit PNG, in turns."""
+    and FTEX of DXT1 blocks, 128 × 128 ICNS it32 RLE icons (the largest
+    RLE icon PIL reads), BRUN FLC, FITS of BITPIX 8 (raw and a GZIP_1 tile),
+    SPIDER, IM of mode L, MSP LinS, XPM of 2 characters a pixel and the
+    PhotoCD pair at its own 768 × 512 against 8-bit PNG, in turns."""
     from concurrent.futures import ProcessPoolExecutor
     import multiprocessing
 
@@ -4302,6 +4341,25 @@ def phase_image_kinds(ctx, cli_line):
 
     work = os.path.join(WORK, "image_kinds")
     shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    mk = _image_kinds_encoders()
+    pcd_paths = {}
+    for (seed, orientation), want in sorted(PCD_SAMPLES_SHA256.items()):
+        path = pcd_paths[seed, orientation] = os.path.join(work, f"pcd_{seed}_{orientation}.pcd")
+        with open(path, "wb") as f:
+            f.write(mk.pcd_sample(seed, orientation))
+        with open(path, "rb") as f:
+            data = f.read()
+        H, W = native.image_size(data)
+        with native.NativeStereoLoader([path], [path], H, W) as loader:
+            (_, left, _), = list(loader)
+        got = {"read_gray": png.read_gray(path), "decode_u8": native.decode_u8(data, path),
+               "loader": np.round(left * 255).astype(np.uint8)}
+        wrong = [k for k, v in got.items() if _u8_sha256(v) != want]
+        if wrong:
+            bad.append(f"{os.path.basename(path)}: {wrong} differ from PIL's pinned hash")
+        else:
+            hashes_ok += 1
     cw = ctx["work"]
     weights = ("--sp-weights", os.path.join(cw, "sp.npz"), "--sg-weights",
                os.path.join(cw, "sg.npz"), "--rcf-weights", os.path.join(cw, "rcf.npz"))
@@ -4310,7 +4368,7 @@ def phase_image_kinds(ctx, cli_line):
     # trajectory bit for bit whatever runs beside it: cli_run's native_again
     # gate)
     trees = {kind: os.path.join(work, f"tree_{kind}")
-             for kind in ("P5", "P2", "TIFF16", "BMP8", "GIF", "VP8L", "TGA", "SGI", "PSD")}
+             for kind in ("P5", "P2", "TIFF16", "BMP8", "GIF", "VP8L", "TGA", "SGI", "PSD", "FLC")}
     raster_timing = {k: os.path.join(work, f"timing_{k}") for k in RASTER_TIMING}
     # (d) the libtiff codecs' trees and their PNG copies, and the first
     # pairs of the timing-only codecs
@@ -4336,8 +4394,9 @@ def phase_image_kinds(ctx, cli_line):
         def write_gif_or_vp8l(path, u8):
             tiff_jobs.append(pool.submit(_write_gif_or_vp8l, (path, u8)))
 
-        def write_raster(path, u8):  # the TGA, SGI and PSD trees, the raster timing pairs
-            kind = {".tga": "tga_rle", ".sgi": "sgi_rle"}.get(path[-4:], "psd_packbits")
+        def write_raster(path, u8):  # the TGA, SGI, PSD and FLC trees, the raster timing pairs
+            kind = {".tga": "tga_rle", ".sgi": "sgi_rle", ".flc": "flc_brun"}.get(path[-4:],
+                                                                                  "psd_packbits")
             tiff_jobs.append(pool.submit(_write_raster, (path, kind, u8)))
             stem, cam = os.path.splitext(os.path.basename(path))[0], path.split(os.sep)[-3]
             if kind == "tga_rle" and stem in raster_stems:
@@ -4371,7 +4430,7 @@ def phase_image_kinds(ctx, cli_line):
             trees["TIFF16"]: (".tif", write_tiffs), trees["BMP8"]: (".bmp", _write_bmp),
             trees["GIF"]: (".gif", write_gif_or_vp8l), trees["VP8L"]: (".webp", write_gif_or_vp8l),
             trees["TGA"]: (".tga", write_raster), trees["SGI"]: (".sgi", write_raster),
-            trees["PSD"]: (".psd", write_raster),
+            trees["PSD"]: (".psd", write_raster), trees["FLC"]: (".flc", write_raster),
             **{root: (".png" if k.endswith("_png") else ".tif", written_in_the_pool)
                for k, root in codec_trees.items()}})
         codec_jobs = [pool.submit(_write_tiff_codec, a) for a in codec_args]
@@ -4381,7 +4440,7 @@ def phase_image_kinds(ctx, cli_line):
         trees_write_s = time.perf_counter() - t0
         routes = {"P5": (), "P2": ("--no-native",), "TIFF16": (), "BMP8": ("--no-native",),
                   "GIF": (), "VP8L": ("--no-native",), "TGA": (), "SGI": ("--no-native",),
-                  "PSD": ("--no-native",)}
+                  "PSD": ("--no-native",), "FLC": ()}
         t0 = time.perf_counter()
         outs = _cli_concurrent(*[("run", "--dataroot", trees[k], "--config", ctx["euroc"],
                                   "--camera-config", ctx["cam_yaml"], *weights, "--gt", trees[k],
@@ -4510,13 +4569,17 @@ def phase_image_kinds(ctx, cli_line):
                "tga_rle": tree_pairs(trees["TGA"], DECODE_TIMING_PAIRS),
                "sgi_rle": tree_pairs(trees["SGI"], DECODE_TIMING_PAIRS),
                "psd_packbits": tree_pairs(trees["PSD"], DECODE_TIMING_PAIRS),
-               **{k: tree_pairs(root, RASTER_TIMING_PAIRS) for k, root in raster_timing.items()}}
+               **{k: tree_pairs(root, RASTER_TIMING_PAIRS) for k, root in raster_timing.items()},
+               "flc_brun": tree_pairs(trees["FLC"], DECODE_TIMING_PAIRS),
+               "pcd_768x512": [with_size(pcd_paths[PCD_TIMING_PAIR[0]],
+                                         pcd_paths[PCD_TIMING_PAIR[1]])]}
     tb_timing = {k: [] for k in tb_sets}
     for k in list(tb_sets) + list(tb_sets)[::-1]:
         tb_timing[k].append(_decode_pair_ms(tb_sets[k], 20 if len(tb_sets[k]) == 1 else 2))
 
     jl = runs["jpeg"]["launches"]
-    line = {"phase": "image_kinds", "card": CARD, "fixtures": len(manifest),
+    line = {"phase": "image_kinds", "card": CARD,
+            "fixtures": len(manifest) + len(PCD_SAMPLES_SHA256),
             "fixtures_hash_equal_pil": hashes_ok, "refused_raise": refused_ok,
             "fixture_faults": bad, "trees": tree_runs, "trees_write_s": trees_write_s,
             "trees_cli_wall_s": trees_wall, "libtiff_codec_trees": codec_line,
@@ -4537,7 +4600,7 @@ def phase_image_kinds(ctx, cli_line):
             "decode_order_vs_png": ", ".join(tb_sets) + ", then back",
             "seconds": time.perf_counter() - t_phase}
     emit(line)
-    if bad or hashes_ok + refused_ok != len(manifest):
+    if bad or hashes_ok + refused_ok != len(manifest) + len(PCD_SAMPLES_SHA256):
         raise AssertionError(f"image_kinds: fixtures off PIL's pinned hashes: {bad}")
     for kind, r in tree_runs.items():
         if r["frames"] != E2E_FRAMES or not r["trajectory_equal_png"] or not r["launches_equal_png"]:

@@ -13,7 +13,7 @@ constexpr uint64_t kMaxPixels = 2ull * 89478485;
 
 enum PilMode {
   kMode1, kModeL, kModeP, kModeLA, kModePA, kModeI16, kModeI16B, kModeI, kModeF,
-  kModeRGB, kModeRGBA, kModeCMYK, kModeLAB, kModeNone
+  kModeRGB, kModeRGBA, kModeCMYK, kModeLAB, kModeYCbCr, kModeNone
 };
 
 PilMode pil_mode(const std::string& s) {
@@ -21,7 +21,7 @@ PilMode pil_mode(const std::string& s) {
       {"1", kMode1},     {"L", kModeL},       {"P", kModeP},     {"LA", kModeLA},
       {"PA", kModePA},   {"I;16", kModeI16},  {"I;16B", kModeI16B}, {"I", kModeI},
       {"F", kModeF},     {"RGB", kModeRGB},   {"RGBA", kModeRGBA}, {"CMYK", kModeCMYK},
-      {"LAB", kModeLAB}};
+      {"LAB", kModeLAB}, {"I;16L", kModeI16}, {"YCbCr", kModeYCbCr}};
   for (const auto& m : names)
     if (s == m.first) return m.second;
   return kModeNone;
@@ -31,7 +31,7 @@ PilMode pil_mode(const std::string& s) {
 int pil_bands(PilMode m) {
   switch (m) {
     case kModeLA: case kModePA: return 2;
-    case kModeRGB: case kModeLAB: return 3;
+    case kModeRGB: case kModeLAB: case kModeYCbCr: return 3;
     case kModeRGBA: case kModeCMYK: return 4;
     default: return 1;
   }
@@ -69,7 +69,8 @@ enum Unpack {
   kUCMYK, kUCMYKX, kUCMYKXX, kUCMYK16L, kUCMYK16B,
   kUBand0, kUBand1, kUBand2, kUBand3,
   kUBGR15, kUBGR16, kUBGR, kUBGRX, kUXBGR, kUBGXR, kUABGR, kUBGRA, kUBGAR,
-  kUBGRA15Z, kUP2L, kUP4L, kURGBL, kUL16B
+  kUBGRA15Z, kUP2L, kUP4L, kURGBL, kUL16B,
+  kULAL, kURGBAL, kURGBXL, kUCMYKL, kUYCCL, kUF8, kUF8S, kUF16, kUF16S, kUF32U, kUF32S
 };
 
 struct UnpackerDef {
@@ -125,6 +126,13 @@ const UnpackerDef kUnpackers[] = {
     {kModeCMYK, "Y", 8, kUBand2}, {kModeCMYK, "K", 8, kUBand3},
     {kModeRGBA, "BGRA;15Z", 16, kUBGRA15Z}, {kModeP, "P;2L", 2, kUP2L},
     {kModeP, "P;4L", 4, kUP4L}, {kModeRGB, "RGB;L", 24, kURGBL}, {kModeL, "L;16B", 16, kUL16B},
+    // the IM plugin's line-interleaved ("…;L") and F / I kinds
+    {kModeLA, "LA;L", 16, kULAL}, {kModePA, "PA;L", 16, kULAL}, {kModeRGBA, "RGBA;L", 32, kURGBAL},
+    {kModeRGB, "RGBX;L", 32, kURGBXL}, {kModeCMYK, "CMYK;L", 32, kUCMYKL},
+    {kModeYCbCr, "YCbCr;L", 24, kUYCCL},
+    {kModeF, "F;8", 8, kUF8}, {kModeF, "F;8S", 8, kUF8S}, {kModeF, "F;16", 16, kUF16},
+    {kModeF, "F;16S", 16, kUF16S}, {kModeF, "F;32", 32, kUF32U}, {kModeF, "F;32S", 32, kUF32S},
+    {kModeI, "I;32", 32, kUI32}, {kModeI16, "I;16L", 16, kUI16},
 };
 
 const UnpackerDef* find_unpacker(PilMode mode, const std::string& raw) {
@@ -333,6 +341,35 @@ void unpack(Unpack op, uint8_t* o, const uint8_t* in, int n) {
     case kUL16B:
       for (int i = 0; i < n; ++i) o[4 * i] = in[2 * i];
       return;
+    case kULAL:  // L (or P) and A planes, `pixels` bytes apart
+      for (int i = 0; i < n; ++i) {
+        o[4 * i] = o[4 * i + 1] = o[4 * i + 2] = in[i];
+        o[4 * i + 3] = in[i + n];
+      }
+      return;
+    case kURGBAL: case kURGBXL: case kUCMYKL: case kUYCCL: {  // planes, `pixels` bytes apart
+      const int planes = op == kUYCCL ? 3 : 4;
+      for (int i = 0; i < n; ++i) {
+        for (int c = 0; c < planes; ++c) o[4 * i + c] = in[i + c * n];
+        if (op == kURGBXL) o[4 * i + 3] = 255;
+      }
+      return;
+    }
+    case kUF8: case kUF8S: case kUF16: case kUF16S: case kUF32U: case kUF32S:
+      for (int i = 0; i < n; ++i) {
+        float f;
+        if (op == kUF8) f = (float)in[i];
+        else if (op == kUF8S) f = (float)(int8_t)in[i];
+        else if (op == kUF16) f = (float)(uint16_t)(in[2 * i] | in[2 * i + 1] << 8);
+        else if (op == kUF16S) f = (float)(int16_t)(in[2 * i] | in[2 * i + 1] << 8);
+        else {
+          const uint8_t* q = in + 4 * i;
+          const uint32_t u = q[0] | q[1] << 8 | q[2] << 16 | (uint32_t)q[3] << 24;
+          f = op == kUF32U ? (float)u : (float)(int32_t)u;
+        }
+        std::memcpy(o + 4 * i, &f, 4);
+      }
+      return;
     case kUXBGR: case kUBGXR: case kUABGR: case kUBGRA: case kUBGAR:
       // (R, G, B, A) byte positions of each 32-bit layout
       for (int i = 0; i < n; ++i, in += 4) {
@@ -375,7 +412,7 @@ int pil_to_gray(const PilImage& im, std::vector<uint8_t>& gray) {
   for (size_t i = 0; i < npx; ++i, p += 4) {
     uint8_t v;
     switch (im.mode) {
-      case kMode1: case kModeL: case kModeLA: v = p[0]; break;
+      case kMode1: case kModeL: case kModeLA: case kModeYCbCr: v = p[0]; break;
       case kModeP: case kModePA:
         v = p[0] < im.pal_n ? pil_luma(im.pal[3 * p[0]], im.pal[3 * p[0] + 1], im.pal[3 * p[0] + 2])
                             : 0;

@@ -47,8 +47,10 @@
 #include <memory>
 #include <mutex>
 #include <string>
+#include <string_view>
 #include <thread>
 #include <tuple>
+#include <unordered_map>
 #include <vector>
 
 namespace {
@@ -73,11 +75,12 @@ enum Err {
   kJpeg2000 = 33, kPsdLab = 37, kAvif = 42,
   kGifCodeSize = 43, kWebpVp8Frame = 44, kWebpVp8lVersion = 45, kWebpAlpha = 46,
   // the plugins PIL has that the port does not read, each refused by name,
-  // and the kinds of BLP and ICNS it refuses
-  kBlpFormat = 47, kBufr = 48, kEps = 50, kFits = 51, kFli = 52,
-  kGbr = 54, kGrib = 55, kHdf5 = 56, kIcnsJpeg2000 = 57, kMcidas = 58, kMpeg = 59, kMsp = 60,
-  kPixar = 61, kWmf = 62, kXbm = 63, kXpm = 64, kXvThumb = 65, kIm = 66, kImt = 67,
-  kIptc = 68, kPcd = 69, kSpider = 70,
+  // the kinds of BLP and ICNS it refuses, and an IPTC band it cannot place;
+  // 51, 52, 54, 58, 60, 61, 63-67, 69 and 70 named FITS, FLI, GBR, McIDAS,
+  // MSP, PIXAR, XBM, XPM, XVThumb, IM, IMT, PCD and SPIDER before they were
+  // read
+  kBlpFormat = 47, kBufr = 48, kEps = 50,
+  kGrib = 55, kHdf5 = 56, kIcnsJpeg2000 = 57, kMpeg = 59, kWmf = 62, kIptc = 68,
   // kinds of the formats read since PR 20 that PIL does not read either
   kSunPalette = 71, kPcxMode = 72, kSgiMode = 73, kSgiCompression = 74, kTgaKind = 75,
   kTgaMap = 76, kDdsHeader = 77, kDdsFormat = 78
@@ -476,14 +479,10 @@ uint32_t adler32(const uint8_t* p, size_t n) {
   return (b << 16) | a;
 }
 
-int zlib_inflate(const uint8_t* d, size_t n, std::vector<uint8_t>& out, size_t expect) {
-  if (n < 6) return kCorrupt;
-  const int cmf = d[0], flg = d[1];
-  if ((cmf & 15) != 8 || (cmf >> 4) > 7 || ((cmf << 8) | flg) % 31 != 0 || (flg & 0x20))
-    return kCorrupt;
-  out.clear();
-  out.reserve(expect);
-  InflateIn in{d + 2, n - 2};
+// RFC 1951 blocks appended to out; used: the bytes the stream took, to the
+// end of its final block's last byte
+int raw_inflate(const uint8_t* d, size_t n, std::vector<uint8_t>& out, size_t& used) {
+  InflateIn in{d, n};
   Huffman lit, dist;
   int final = 0;
   do {
@@ -547,8 +546,22 @@ int zlib_inflate(const uint8_t* d, size_t n, std::vector<uint8_t>& out, size_t e
   } while (!final);
   in.align();
   in.unread();
-  if (in.pos + 4 > in.n) return kCorrupt;
-  if (be32(in.d + in.pos) != adler32(out.data(), out.size())) return kCorrupt;
+  used = in.pos;
+  return kOk;
+}
+
+int zlib_inflate(const uint8_t* d, size_t n, std::vector<uint8_t>& out, size_t expect) {
+  if (n < 6) return kCorrupt;
+  const int cmf = d[0], flg = d[1];
+  if ((cmf & 15) != 8 || (cmf >> 4) > 7 || ((cmf << 8) | flg) % 31 != 0 || (flg & 0x20))
+    return kCorrupt;
+  out.clear();
+  out.reserve(expect);
+  size_t used = 0;
+  const int rc = raw_inflate(d + 2, n - 2, out, used);
+  if (rc) return rc;
+  if (2 + used + 4 > n) return kCorrupt;
+  if (be32(d + 2 + used) != adler32(out.data(), out.size())) return kCorrupt;
   return kOk;
 }
 
@@ -594,8 +607,15 @@ bool unfilter(uint8_t* raw, int rows, int stride, int bpp, std::vector<uint8_t>&
 // it decodes it: sequential and progressive Huffman (jdhuff.c, jdphuff.c),
 // sequential and progressive arithmetic coding (jdarith.c), lossless
 // (jdlossls.c, jddiffct.c, jdlhuff.c); 1, 3 or 4 components, any integral
-// sampling ratio, restarts. DCT data fills libjpeg's coefficient buffer,
-// then block smoothing where a progressive file leaves its first
+// sampling ratio, restarts. The input side is libjpeg's own: the markers as
+// jdmarker.c reads them (exact segment lengths, a second SOI or SOF, unknown
+// markers and, after a one-scan image, a second SOS fail), the Huffman bits
+// as jdhuff.c and jdphuff.c read them from the buffer Pillow hands over in
+// 65,536-byte reads (the fast path where 512 bytes a block remain, the slow
+// path's fills, the MCU redone where either suspends or meets a marker), a
+// segment whose data runs out left as zeros from there (insufficient_data),
+// and restarts resynced as jpeg_resync_to_restart does. DCT data fills
+// libjpeg's coefficient buffer, then block smoothing where a progressive file leaves its first
 // coefficients coarse (jdcoefct.c), the islow IDCT (jidctint.c),
 // upsampling (jdsample.c), colour conversion (jdcolor.c); then PIL's own
 // conversions: RGB luma, Adobe CMYK read inverted ("CMYK;I") and CMYK → RGB.
@@ -618,30 +638,30 @@ struct JHuff {
   uint8_t vals[256];
   int32_t maxcode[18];  // largest code of each length, -1 if none
   int32_t valptr[17];   // index of its first symbol minus its first code
-  uint16_t fast[1 << 9];  // (length << 8) | symbol for codes of ≤ 9 bits
+  // jdhuff.c's lookahead: (length << 8) | symbol for codes of ≤ 8 bits, 9 << 8 else
+  uint16_t look8[1 << 8];
 
-  bool build(const uint8_t* counts, const uint8_t* v, int nv) {
+  // a table as DHT stores it; jdhuff.c refuses a bogus one when a scan uses it
+  void build(const uint8_t* counts, const uint8_t* v, int nv) {
+    std::memset(vals, 0, sizeof(vals));
     std::memcpy(vals, v, nv);
     nvals = nv;
-    std::memset(fast, 0, sizeof(fast));
+    for (uint16_t& e : look8) e = 9 << 8;
     bogus = false;
     int code = 0, k = 0;
     for (int l = 1; l <= 16; ++l) {
       valptr[l] = k - code;
       for (int i = 0; i < counts[l - 1]; ++i, ++code, ++k) {
-        if (l <= 9 && code < (1 << l)) {
-          const int sh = 9 - l;
-          for (int f = code << sh; f < ((code + 1) << sh); ++f) fast[f] = (uint16_t)((l << 8) | vals[k]);
-        }
+        if (l <= 8 && code < (1 << l))
+          for (int f = code << (8 - l); f < ((code + 1) << (8 - l)); ++f)
+            look8[f] = (uint16_t)((l << 8) | vals[k]);
       }
       maxcode[l] = counts[l - 1] ? code - 1 : -1;
-      if (code > (1 << l)) return false;
-      if (counts[l - 1] && code >= (1 << l)) bogus = true;
-      code <<= 1;
+      if (counts[l - 1] && code >= (1 << l)) bogus = true;  // all ones, or too many codes
+      code = std::min(code, 1 << 17) << 1;
     }
     maxcode[17] = 0x7fffffff;
     present = true;
-    return true;
   }
   // the table as a DC table of a lossy (lossless) scan: symbols 0-15 (0-16)
   bool dc_ok(bool lossless) const {
@@ -685,118 +705,6 @@ const uint8_t kStdAcSymbols[2][162] = {
      0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
      0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
 
-// steps over the next RSTn marker from pos (bytes before it are dropped)
-inline size_t skip_restart_marker(const uint8_t* d, size_t n, size_t pos) {
-  while (pos + 1 < n && !(d[pos] == 0xFF && d[pos + 1] >= 0xD0 && d[pos + 1] <= 0xD7)) ++pos;
-  return pos + 1 < n ? pos + 2 : pos;
-}
-
-struct JBits {  // Huffman-coded data
-  const uint8_t* d;
-  size_t n, pos;
-  uint64_t buf = 0;
-  int cnt = 0;
-  bool marker = false;  // the entropy data ended at a marker: zeros follow
-
-  void fill() {
-    while (cnt <= 56) {
-      uint64_t b = 0;
-      if (!marker && pos < n) {
-        if (d[pos] == 0xFF) {
-          const uint8_t nx = pos + 1 < n ? d[pos + 1] : 0xD9;
-          if (nx == 0x00) {
-            b = 0xFF;
-            pos += 2;
-          } else {
-            marker = true;
-          }
-        } else {
-          b = d[pos++];
-        }
-      }
-      buf |= b << (56 - cnt);
-      cnt += 8;
-    }
-  }
-  // libjpeg-turbo's own reading (jdhuff.c jpeg_fill_bit_buffer, its slow
-  // path): below the bits a code or its extra bits need, it fills its
-  // buffer to 57 bits or to a marker; where the data ends first it
-  // suspends, and Pillow, given no more data, raises "image file is
-  // truncated". (Its fast path, taken while 512 bytes a block remain, fills
-  // otherwise: ROADMAP §3.)
-  size_t lj_pos = pos;
-  int lj_left = 0;
-  bool lj_marker = false, suspended = false;
-  void lj_need(int k) {
-    if (lj_left >= k || suspended) return;
-    while (lj_left < 57 && !lj_marker) {  // MIN_GET_BITS of a 64-bit buffer
-      if (lj_pos >= n) {
-        suspended = true;
-        return;
-      }
-      int c = d[lj_pos++];
-      if (c == 0xFF) {
-        do {
-          if (lj_pos >= n) {
-            suspended = true;
-            return;
-          }
-          c = d[lj_pos++];
-        } while (c == 0xFF);
-        if (c != 0) lj_marker = true;
-        if (c != 0) break;
-      }
-      lj_left += 8;
-    }
-    if (lj_left < k) lj_left = 57;  // past a marker: zeros
-  }
-  int get(int k) {  // k in 1..16
-    lj_need(k);
-    lj_left -= k;
-    if (cnt < k) fill();
-    const int v = (int)(buf >> (64 - k));
-    buf <<= k;
-    cnt -= k;
-    return v;
-  }
-  int decode(const JHuff& t) {
-    lj_need(8);  // HUFF_LOOKAHEAD
-    if (cnt < 16) fill();
-    const uint16_t e = t.fast[buf >> (64 - 9)];
-    int l;
-    int v;
-    if (e) {
-      l = e >> 8;
-      v = e & 255;
-    } else {
-      l = 10;
-      int code = (int)(buf >> (64 - l));
-      while (l <= 16 && code > t.maxcode[l]) {
-        ++l;
-        code = (int)(buf >> (64 - l));
-      }
-      // no code in 16 bits: jpeg_huff_decode reads a 17th and fakes a 0
-      v = l > 16 ? 0 : t.vals[t.valptr[l] + code];
-    }
-    lj_need(l);
-    lj_left -= l;
-    buf <<= l;
-    cnt -= l;
-    return v;
-  }
-  // a restart: drop the buffered bits and step over the RSTn marker
-  void restart() {
-    buf = 0;
-    cnt = 0;
-    marker = false;
-    pos = skip_restart_marker(d, n, pos);
-    if (pos >= n) suspended = true;  // no marker before the end: libjpeg waits for one
-    lj_pos = pos;
-    lj_left = 0;
-    lj_marker = false;
-  }
-};
-
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
 // jaricom.c's jpeg_aritab, ITU T.81 Table D.2 packed as
@@ -823,75 +731,6 @@ const uint32_t kAritab[114] = {
     0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
     0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
 
-struct JArith {  // the QM decoder of jdarith.c (ITU T.81 Annex D)
-  const uint8_t* d;
-  size_t n, pos;
-  int64_t c = 0, a = 0;
-  int ct = -16;  // reads two bytes into C before the first decision
-  bool marker = false;  // reached a marker: zero data from here on
-
-  bool suspended = false;  // a byte asked for past the end: libjpeg cannot suspend here
-
-  int byte() {
-    if (marker || pos >= n) {
-      if (!marker) suspended = true;
-      marker = true;
-      return 0;
-    }
-    if (d[pos] != 0xFF) return d[pos++];
-    size_t p = pos + 1;
-    while (p < n && d[p] == 0xFF) ++p;  // fill bytes
-    if (p < n && d[p] == 0) {
-      pos = p + 1;
-      return 0xFF;  // a stuffed zero
-    }
-    if (p >= n) suspended = true;
-    marker = true;
-    return 0;
-  }
-  int decode(uint8_t* st) {
-    while (a < 0x8000) {
-      if (--ct < 0) {
-        c = (c << 8) | byte();
-        if ((ct += 8) < 0)
-          if (++ct == 0) a = 0x8000;  // two initial bytes read: A = 0x10000 below
-      }
-      a <<= 1;
-    }
-    int sv = *st;
-    const uint32_t e = kAritab[sv & 0x7F];
-    const int nl = e & 0xFF, nm = (e >> 8) & 0xFF;
-    const int64_t qe = e >> 16;
-    int64_t temp = a - qe;
-    a = temp;
-    temp <<= ct;
-    if (c >= temp) {
-      c -= temp;
-      if (a < qe) {  // conditional exchange: the MPS
-        a = qe;
-        *st = (uint8_t)((sv & 0x80) ^ nm);
-      } else {
-        a = qe;
-        *st = (uint8_t)((sv & 0x80) ^ nl);
-        sv ^= 0x80;
-      }
-    } else if (a < 0x8000) {
-      if (a < qe) {  // conditional exchange: the LPS
-        *st = (uint8_t)((sv & 0x80) ^ nl);
-        sv ^= 0x80;
-      } else {
-        *st = (uint8_t)((sv & 0x80) ^ nm);
-      }
-    }
-    return sv >> 7;
-  }
-  void restart() {
-    pos = skip_restart_marker(d, n, pos);
-    c = a = 0;
-    ct = -16;
-    marker = false;
-  }
-};
 
 struct JComp {
   int id = 0, h = 1, v = 1, tq = 0;
@@ -1174,45 +1013,42 @@ struct JpegDecoder {
   // a strip or tile of a TIFF (libtiff's JPEG codecs): any 1-4 components,
   // the colour space the caller's, a wrong precision libtiff's error
   bool tiff = false;
-  // what Pillow's source manager, which suspends where the data ends, makes
-  // of the stream's end (not for TIFF: libtiff ends each strip with an EOI):
-  // libjpeg waited for more data inside a scan (suspended), or, with
-  // several scans, before EOI (it reads the whole file to EOI first)
+  // TIFF's JPEGTables: DQT and DHT segments to EOI, kept for the strips
+  bool tables_only = false;
+  // the scans read, whether the first made it an image of several scans
+  // (which must reach EOI), and whether EOI was read
   int scans = 0;
-  bool multi = false, eoi = false, suspended = false;
+  bool multi = false, eoi = false;
 
   int u16(size_t p) const { return (d[p] << 8) | d[p + 1]; }
 
-  int read_frame(size_t p, int len, int marker) {
-    // SOF5-7 and SOF13-15: hierarchical (differential) frames
-    if ((marker >= 0xC5 && marker <= 0xC7) || marker >= 0xCD) return kHierarchical;
-    if (len < 8) return kCorrupt;
-    precision = d[p];
+  // the frame (get_sof's fields from f: precision, height, width, the
+  // components), with jdinput.c's initial_setup checks
+  int read_frame(const uint8_t* f, int marker) {
+    precision = f[0];
     progressive = marker == 0xC2 || marker == 0xCA;
     arith = marker >= 0xC9;
     lossless = marker == 0xC3 || marker == 0xCB;
-    H = u16(p + 1);
-    W = u16(p + 3);
-    const int nc = d[p + 5];
-    if (len < 8 + 3 * nc) return kCorrupt;
+    H = f[1] << 8 | f[2];
+    W = f[3] << 8 | f[4];
+    const int nc = f[5];
     // PIL's JpegImagePlugin refuses these at its own SOF: precision
     // other than 8 bits, and other component counts than 1, 3 or 4
     // (libtiff: "Improper JPEG data precision", "component count")
     if (precision != 8) return tiff ? kCorrupt : kPrecision;
     if (tiff ? (nc < 1 || nc > 4) : (nc != 1 && nc != 3 && nc != 4))
       return tiff ? kCorrupt : kComponents;
-    if (H == 0) return kDNL;  // libjpeg-turbo: "Empty JPEG image (DNL not supported)"
-    if (W == 0) return kCorrupt;
+    if (W > 65500 || H > 65500) return kCorrupt;  // JERR_IMAGE_TOO_BIG
     if (lossless && arith) return kArithLossless;
     comps.assign(nc, JComp());
     hmax = vmax = 1;
     for (int i = 0; i < nc; ++i) {
       JComp& c = comps[i];
-      c.id = d[p + 6 + 3 * i];
-      c.h = d[p + 7 + 3 * i] >> 4;
-      c.v = d[p + 7 + 3 * i] & 15;
-      c.tq = d[p + 8 + 3 * i];
-      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) return kCorrupt;
+      c.id = f[6 + 3 * i];
+      c.h = f[7 + 3 * i] >> 4;
+      c.v = f[7 + 3 * i] & 15;
+      c.tq = f[8 + 3 * i];
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) return kCorrupt;  // JERR_BAD_SAMPLING
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
       for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
@@ -1241,167 +1077,90 @@ struct JpegDecoder {
     return kOk;
   }
 
-  int read_dqt(size_t p, int len) {
-    const size_t end = p + len - 2;
-    while (p < end) {
-      const int pq = d[p] >> 4, tq = d[p] & 15;
-      if (tq > 3 || pq > 1 || p + 1 + 64 * (pq + 1) > end) return kCorrupt;
-      for (int k = 0; k < 64; ++k)
-        qt[tq][kZigzag[k]] = pq ? (uint16_t)u16(p + 1 + 2 * k) : d[p + 1 + k];
-      qt_present[tq] = true;
-      p += 1 + 64 * (pq + 1);
-    }
-    return kOk;
-  }
 
-  int read_dht(size_t p, int len) {
-    const size_t end = p + len - 2;
-    while (p < end) {
-      if (p + 17 > end) return kCorrupt;
-      const int tc = d[p] >> 4, th = d[p] & 15;
-      if (tc > 1 || th > 3) return kCorrupt;
-      int nv = 0;
-      for (int k = 0; k < 16; ++k) nv += d[p + 1 + k];
-      if (nv > 256 || p + 17 + nv > end) return kCorrupt;
-      JHuff& t = tc ? ac[th] : dc[th];
-      if (!t.build(d + p + 1, d + p + 17, nv)) return kCorrupt;
-      p += 17 + nv;
-    }
-    return kOk;
-  }
 
-  int read_dac(size_t p, int len) {
-    const size_t end = p + len - 2;
-    for (size_t q = p; q + 2 <= end; q += 2) {
-      const int index = d[q], val = d[q + 1];
-      if (index >= 32) return kCorrupt;
-      if (index >= 16) {
-        if (val < 1 || val > 63) return kCorrupt;
-        arith_K[index - 16] = (uint8_t)val;
-      } else {
-        arith_L[index] = (uint8_t)(val & 15);
-        arith_U[index] = (uint8_t)(val >> 4);
-        if (arith_L[index] > arith_U[index]) return kCorrupt;
-      }
-    }
-    return kOk;
-  }
-
-  // ---------------------------------------------------- Huffman, sequential
-  int huff_block(JBits& bits, JComp& c, int16_t* blk) {
-    const int s = bits.decode(dc[c.td]);
-    if (s < 0 || s > 16) return kCorrupt;
-    const int diff = s ? extend(bits.get(s), s) : 0;
-    c.dc_pred += diff;
-    blk[0] = (int16_t)c.dc_pred;
-    const JHuff& t = ac[c.ta];
-    for (int k = 1; k < 64;) {
-      const int rs = bits.decode(t);
-      if (rs < 0) return kCorrupt;
-      const int r = rs >> 4, sz = rs & 15;
-      if (sz) {
-        k += r;
-        blk[kZigzag[k]] = (int16_t)extend(bits.get(sz), sz);
-        ++k;
-      } else {
-        if (r != 15) break;
-        k += 16;
-      }
-    }
-    return kOk;
-  }
-
-  // --------------------------------------------------- Huffman, progressive
-  int eobrun = 0;
-
-  int huff_dc_first(JBits& bits, JComp& c, int16_t* blk, int al) {
-    const int s = bits.decode(dc[c.td]);
-    if (s < 0 || s > 16) return kCorrupt;
-    c.dc_pred = (int)((unsigned)c.dc_pred + (unsigned)(s ? extend(bits.get(s), s) : 0));
-    blk[0] = (int16_t)((unsigned)c.dc_pred << al);
-    return kOk;
-  }
-  int huff_ac_first(JBits& bits, JComp& c, int16_t* blk, int ss, int se, int al) {
-    if (eobrun > 0) {
-      --eobrun;
-      return kOk;
-    }
-    const JHuff& t = ac[c.ta];
-    for (int k = ss; k <= se; ++k) {
-      const int rs = bits.decode(t);
-      if (rs < 0) return kCorrupt;
-      int r = rs >> 4;
-      const int s = rs & 15;
-      if (s) {
-        k += r;
-        blk[kZigzag[k]] = (int16_t)((unsigned)extend(bits.get(s), s) << al);
-      } else if (r == 15) {
-        k += 15;
-      } else {
-        eobrun = 1 << r;
-        if (r) eobrun += bits.get(r);
-        --eobrun;
-        break;
-      }
-    }
-    return kOk;
-  }
-  int huff_ac_refine(JBits& bits, JComp& c, int16_t* blk, int ss, int se, int al) {
-    const int p1 = 1 << al, m1 = -1 * (1 << al);
-    const JHuff& t = ac[c.ta];
-    int k = ss;
-    auto correct = [&](int16_t* coef) {
-      if (bits.get(1) && (*coef & p1) == 0) *coef = (int16_t)(*coef >= 0 ? *coef + p1 : *coef + m1);
-    };
-    if (eobrun == 0) {
-      for (; k <= se; ++k) {
-        const int rs = bits.decode(t);
-        if (rs < 0) return kCorrupt;
-        int r = rs >> 4, s = rs & 15;
-        if (s) {
-          s = bits.get(1) ? p1 : m1;  // a newly nonzero coefficient's sign
-        } else if (r != 15) {
-          eobrun = 1 << r;
-          if (r) eobrun += bits.get(r);
-          break;  // the rest of this band is the first block of the run
-        }
-        do {
-          int16_t* coef = blk + kZigzag[k];
-          if (*coef != 0) {
-            correct(coef);
-          } else {
-            if (--r < 0) break;  // the zero coefficient that takes the new value
-          }
-          ++k;
-        } while (k <= se);
-        if (s) blk[kZigzag[k]] = (int16_t)s;
-      }
-    }
-    if (eobrun > 0) {
-      for (; k <= se; ++k) {
-        int16_t* coef = blk + kZigzag[k];
-        if (*coef != 0) correct(coef);
-      }
-      --eobrun;
-    }
-    return kOk;
-  }
+  int eobrun = 0;  // a progressive AC scan's run of blocks that end at once
 
   // ------------------------------------------------------------ arithmetic
-  void arith_dc(JArith& ar, JComp& c, int& last) {
+  // jdarith.c's decoder over the same source as the markers: a marker met
+  // supplies zeros (unread_marker), a byte past the file fails (libjpeg's
+  // JERR_CANT_SUSPEND), and a bad code (a magnitude or a spectral overflow)
+  // stops the segment: its later MCUs are left as they are (ct = -1) until
+  // a restart
+  int64_t ar_c = 0, ar_a = 0;
+  int ar_ct = -16;  // -16: two bytes to read into C first; -1: a bad code was met
+  bool ar_eof = false;
+
+  int arith_byte() {
+    const int c = src_byte();
+    if (c < 0) ar_eof = true;
+    return c < 0 ? 0 : c;
+  }
+  int arith_decode(uint8_t* st) {
+    while (ar_a < 0x8000) {
+      if (--ar_ct < 0) {
+        int data = 0;
+        if (!unread_marker) {
+          data = arith_byte();
+          if (data == 0xFF) {  // a stuffed zero or a marker
+            do data = arith_byte();
+            while (data == 0xFF && !ar_eof);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              unread_marker = data;
+              data = 0;
+            }
+          }
+        }
+        ar_c = (ar_c << 8) | data;
+        if ((ar_ct += 8) < 0)
+          if (++ar_ct == 0) ar_a = 0x8000;  // two initial bytes read: A = 0x10000 below
+      }
+      ar_a <<= 1;
+    }
+    int sv = *st;
+    const uint32_t e = kAritab[sv & 0x7F];
+    const int nl = e & 0xFF, nm = (e >> 8) & 0xFF;
+    const int64_t qe = e >> 16;
+    int64_t temp = ar_a - qe;
+    ar_a = temp;
+    temp <<= ar_ct;
+    if (ar_c >= temp) {
+      ar_c -= temp;
+      if (ar_a < qe) {  // conditional exchange: the MPS
+        ar_a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        ar_a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (ar_a < 0x8000) {
+      if (ar_a < qe) {  // conditional exchange: the LPS
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  // a DC difference into last (masked to 16 bits); false at a bad code
+  bool arith_dc(JComp& c, int& last) {
     uint8_t* base = dc_stats[c.td];
     uint8_t* st = base + c.dc_context;
-    if (ar.decode(st) == 0) {
+    if (arith_decode(st) == 0) {
       c.dc_context = 0;
-      return;
+      return true;
     }
-    const int sign = ar.decode(st + 1);
+    const int sign = arith_decode(st + 1);
     st += 2 + sign;
-    int m = ar.decode(st);
+    int m = arith_decode(st);
     if (m != 0) {
       st = base + 20;
-      while (ar.decode(st)) {
-        if ((m <<= 1) == 0x8000) return;  // a corrupt magnitude: libjpeg stops the scan
+      while (arith_decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;  // a magnitude overflow
         ++st;
       }
     }
@@ -1411,44 +1170,49 @@ struct JpegDecoder {
     int v = m;
     st += 14;
     while (m >>= 1)
-      if (ar.decode(st)) v |= m;
+      if (arith_decode(st)) v |= m;
     v += 1;
     if (sign) v = -v;
     last = (last + v) & 0xffff;
+    return true;
   }
-  // one nonzero AC value's sign, magnitude category and bits (st: its S0 + 2)
-  int arith_ac_value(JArith& ar, uint8_t* st, uint8_t* base, int k, int tbl) {
-    const int sign = ar.decode(&fixed_bin);
-    int m = ar.decode(st);
-    if (m != 0 && ar.decode(st)) {
+  // one nonzero AC value's sign, magnitude category and bits (st: its S0 +
+  // 2); false at a bad code
+  bool arith_ac_value(uint8_t* st, uint8_t* base, int k, int tbl, int& v) {
+    const int sign = arith_decode(&fixed_bin);
+    int m = arith_decode(st);
+    if (m != 0 && arith_decode(st)) {
       m <<= 1;
       st = base + (k <= arith_K[tbl] ? 189 : 217);
-      while (ar.decode(st)) {
-        if ((m <<= 1) == 0x8000) return 0;
+      while (arith_decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;  // a magnitude overflow
         ++st;
       }
     }
-    int v = m;
+    v = m;
     st += 14;
     while (m >>= 1)
-      if (ar.decode(st)) v |= m;
+      if (arith_decode(st)) v |= m;
     v += 1;
-    return sign ? -v : v;
+    if (sign) v = -v;
+    return true;
   }
-  void arith_ac_first(JArith& ar, JComp& c, int16_t* blk, int ss, int se, int al) {
+  bool arith_ac_first(JComp& c, int16_t* blk, int ss, int se, int al) {
     uint8_t* base = ac_stats[c.ta];
     for (int k = ss; k <= se; ++k) {
       uint8_t* st = base + 3 * (k - 1);
-      if (ar.decode(st)) break;  // EOB
-      while (ar.decode(st + 1) == 0) {
+      if (arith_decode(st)) break;  // EOB
+      while (arith_decode(st + 1) == 0) {
         st += 3;
-        if (++k > se) return;  // a corrupt spectral overflow
+        if (++k > se) return false;  // a spectral overflow
       }
-      const int v = arith_ac_value(ar, st + 2, base, k, c.ta);
+      int v;
+      if (!arith_ac_value(st + 2, base, k, c.ta, v)) return false;
       blk[kZigzag[k]] = (int16_t)((unsigned)v << al);
     }
+    return true;
   }
-  void arith_ac_refine(JArith& ar, JComp& c, int16_t* blk, int ss, int se, int al) {
+  bool arith_ac_refine(JComp& c, int16_t* blk, int ss, int se, int al) {
     uint8_t* base = ac_stats[c.ta];
     const int p1 = 1 << al, m1 = -1 * (1 << al);
     int kex = se;  // the previous stage's end of block
@@ -1456,48 +1220,731 @@ struct JpegDecoder {
       if (blk[kZigzag[kex]]) break;
     for (int k = ss; k <= se; ++k) {
       uint8_t* st = base + 3 * (k - 1);
-      if (k > kex && ar.decode(st)) break;  // EOB
+      if (k > kex && arith_decode(st)) break;  // EOB
       for (;;) {
         int16_t* coef = blk + kZigzag[k];
         if (*coef) {
-          if (ar.decode(st + 2)) *coef = (int16_t)(*coef < 0 ? *coef + m1 : *coef + p1);
+          if (arith_decode(st + 2)) *coef = (int16_t)(*coef < 0 ? *coef + m1 : *coef + p1);
           break;
         }
-        if (ar.decode(st + 1)) {
-          *coef = (int16_t)(ar.decode(&fixed_bin) ? m1 : p1);
+        if (arith_decode(st + 1)) {
+          *coef = (int16_t)(arith_decode(&fixed_bin) ? m1 : p1);
           break;
         }
         st += 3;
-        if (++k > se) return;
+        if (++k > se) return false;  // a spectral overflow
+      }
+    }
+    return true;
+  }
+  // one MCU of an arithmetic scan: the restart (statistics and predictions
+  // of the scan's kind reset, the coder restarted), then its blocks unless a
+  // bad code stopped the segment (DC refinement decodes regardless)
+  void arith_mcu(int16_t* const* blk, JComp* const* bc, int nblk, const std::vector<JComp*>& sc,
+                 int ss, int se, int ah, int al) {
+    const bool dc_first = !progressive || (ss == 0 && ah == 0);
+    if (restart_interval) {
+      if (restarts_to_go == 0) {
+        if (!read_restart_marker()) ar_eof = true;  // JERR_CANT_SUSPEND
+        for (JComp* c : sc) {
+          if (dc_first) {
+            std::memset(dc_stats[c->td], 0, 64);
+            c->dc_pred = 0;
+            c->dc_context = 0;
+          }
+          if (!progressive || ss) std::memset(ac_stats[c->ta], 0, 256);
+        }
+        ar_c = ar_a = 0;
+        ar_ct = -16;
+        restarts_to_go = restart_interval;
+      }
+      --restarts_to_go;
+    }
+    const bool dc_refine = progressive && ss == 0 && ah != 0;
+    if (ar_ct == -1 && !dc_refine) return;
+    for (int b = 0; b < nblk; ++b) {
+      JComp& c = *bc[b];
+      bool ok = true;
+      if (dc_refine) {
+        if (arith_decode(&fixed_bin)) blk[b][0] = (int16_t)(blk[b][0] | (1 << al));
+      } else if (dc_first) {
+        ok = arith_dc(c, c.dc_pred);
+        if (ok) blk[b][0] = (int16_t)((unsigned)c.dc_pred << (progressive ? al : 0));
+        if (ok && !progressive) ok = arith_ac_first(c, blk[b], 1, 63, 0);
+      } else {
+        ok = ah == 0 ? arith_ac_first(c, blk[b], ss, se, al) : arith_ac_refine(c, blk[b], ss, se, al);
+      }
+      if (!ok) {
+        ar_ct = -1;  // JWRN_ARITH_BAD_CODE
+        return;
       }
     }
   }
 
-  // ------------------------------------------------------------------ scans
-  int read_scan(size_t p, int len, size_t& next) {
-    if (!frame) return kCorrupt;
-    const int ns = d[p];
-    if (ns < 1 || ns > 4 || len < 6 + 2 * ns) return kCorrupt;
-    std::vector<JComp*> sc;
-    for (int i = 0; i < ns; ++i) {
-      const int id = d[p + 1 + 2 * i];
-      JComp* c = nullptr;
-      for (JComp& k : comps)
-        if (k.id == id) c = &k;
-      if (!c) return kCorrupt;
-      for (JComp* o : sc)
-        if (o == c) return kCorrupt;
-      c->td = d[p + 2 + 2 * i] >> 4;
-      c->ta = d[p + 2 + 2 * i] & 15;
-      sc.push_back(c);
+  // ------------------------------------------- libjpeg's input side, byte by byte
+  // Pillow hands libjpeg the file in reads of 65,536 bytes (ImageFile.load):
+  // read_end is the end of what it has read so far. libjpeg suspends where
+  // it needs a byte past it and Pillow reads on; at the file's end a
+  // suspension is final ("image file is truncated"). libtiff instead
+  // answers every read past a strip's end with a fake EOI (FF D9).
+  static constexpr int kSuspend = -3;  // inside parse(): suspended at the data's end
+  size_t read_end = 65536;
+  int fake_eoi = 0;
+  int unread_marker = 0;     // cinfo->unread_marker
+  int next_restart_num = 0;  // the RSTn the entropy decoder expects next
+  bool saw_sof = false;
+
+  // jdarith.c cannot suspend: a byte past Pillow's read fails (it is read
+  // only if the scan needs it, so an arithmetic scan past 65,536 bytes
+  // fails in PIL)
+  bool no_suspend = false;
+
+  // INPUT_BYTE: 0-255, or -1 where libjpeg suspends at the file's end (in
+  // an arithmetic scan, at the end of Pillow's read)
+  int src_byte() {
+    if (pos >= n) {
+      if (!tiff) return -1;
+      return (fake_eoi++ & 1) ? 0xD9 : 0xFF;
     }
-    const size_t q = p + 1 + 2 * ns;
-    const int ss = d[q], se = d[q + 1], ah = d[q + 2] >> 4, al = d[q + 2] & 15;
+    if (pos >= read_end && no_suspend) return -1;
+    while (pos >= read_end) read_end += 65536;
+    return d[pos++];
+  }
+  int src_2bytes() {
+    const int a = src_byte();
+    if (a < 0) return -1;
+    const int b = src_byte();
+    return b < 0 ? -1 : (a << 8 | b);
+  }
+  // Pillow's skip_input_data: past the data a suspension follows (libtiff:
+  // its fake EOI)
+  void src_skip(int64_t k) {
+    if (k <= 0) return;
+    pos = tiff ? std::min(pos + (size_t)k, n) : pos + (size_t)k;
+    if (pos < n) while (pos >= read_end) read_end += 65536;
+  }
+
+  // jdmarker.c's next_marker: garbage skipped to FF, FF fill, a marker code
+  int next_marker() {
+    for (;;) {
+      int c = src_byte();
+      if (c < 0) return kSuspend;
+      while (c != 0xFF) {
+        if ((c = src_byte()) < 0) return kSuspend;
+      }
+      do {
+        if ((c = src_byte()) < 0) return kSuspend;
+      } while (c == 0xFF);
+      if (c != 0) {
+        unread_marker = c;
+        return kOk;
+      }
+    }
+  }
+
+  // skip_variable (COM, DNL, the APPn libjpeg does not examine)
+  int skip_variable() {
+    const int len = src_2bytes();
+    if (len < 0) return kSuspend;
+    src_skip(len - 2);
+    return kOk;
+  }
+
+  // get_interesting_appn: APP0 (JFIF) and APP14 (Adobe), 14 bytes examined
+  int get_appn(int m) {
+    int64_t len = src_2bytes();
+    if (len < 0) return kSuspend;
+    len -= 2;
+    const int k = len >= 14 ? 14 : len > 0 ? (int)len : 0;
+    uint8_t b[14];
+    for (int i = 0; i < k; ++i) {
+      const int c = src_byte();
+      if (c < 0) return kSuspend;
+      b[i] = (uint8_t)c;
+    }
+    len -= k;
+    if (m == 0xE0 && k >= 14 && !std::memcmp(b, "JFIF\0", 5)) jfif = true;
+    if (m == 0xEE && k >= 12 && !std::memcmp(b, "Adobe", 5)) {
+      adobe = true;
+      adobe_transform = b[11];
+    }
+    src_skip(len);
+    return kOk;
+  }
+
+  int get_dri() {
+    const int len = src_2bytes();
+    if (len < 0) return kSuspend;
+    if (len != 4) return kCorrupt;  // JERR_BAD_LENGTH
+    const int ri = src_2bytes();
+    if (ri < 0) return kSuspend;
+    restart_interval = ri;
+    return kOk;
+  }
+
+  // get_dqt: each table reads its 64 entries (16-bit for any nonzero
+  // precision nibble) wherever the segment ends; a length left over fails
+  int get_dqt() {
+    int64_t len = src_2bytes();
+    if (len < 0) return kSuspend;
+    len -= 2;
+    while (len > 0) {
+      const int c = src_byte();
+      if (c < 0) return kSuspend;
+      const int prec = c >> 4, tq = c & 15;
+      if (tq >= 4) return kCorrupt;  // JERR_DQT_INDEX
+      for (int k = 0; k < 64; ++k) {
+        const int v = prec ? src_2bytes() : src_byte();
+        if (v < 0) return kSuspend;
+        qt[tq][kZigzag[k]] = (uint16_t)v;
+      }
+      qt_present[tq] = true;
+      len -= 65;
+      if (prec) len -= 64;
+    }
+    return len ? kCorrupt : kOk;  // JERR_BAD_LENGTH
+  }
+
+  // get_dht: the tables as stored; jdhuff.c checks a table when a scan uses it
+  int get_dht() {
+    int64_t len = src_2bytes();
+    if (len < 0) return kSuspend;
+    len -= 2;
+    while (len > 16) {
+      const int index = src_byte();
+      if (index < 0) return kSuspend;
+      uint8_t counts[16], vals[256];
+      int count = 0;
+      for (int i = 0; i < 16; ++i) {
+        const int c = src_byte();
+        if (c < 0) return kSuspend;
+        counts[i] = (uint8_t)c;
+        count += c;
+      }
+      len -= 17;
+      if (count > 256 || count > len) return kCorrupt;  // JERR_BAD_HUFF_TABLE
+      for (int i = 0; i < count; ++i) {
+        const int c = src_byte();
+        if (c < 0) return kSuspend;
+        vals[i] = (uint8_t)c;
+      }
+      len -= count;
+      const bool is_ac = index & 0x10;
+      const int th = is_ac ? index - 0x10 : index;
+      if (th >= 4) return kCorrupt;  // JERR_DHT_INDEX
+      (is_ac ? ac[th] : dc[th]).build(counts, vals, count);
+    }
+    return len ? kCorrupt : kOk;  // JERR_BAD_LENGTH
+  }
+
+  int get_dac() {
+    int64_t len = src_2bytes();
+    if (len < 0) return kSuspend;
+    len -= 2;
+    while (len > 0) {
+      const int index = src_byte();
+      if (index < 0) return kSuspend;
+      const int val = src_byte();
+      if (val < 0) return kSuspend;
+      len -= 2;
+      if (index >= 32) return kCorrupt;  // JERR_DAC_INDEX
+      if (index >= 16) {
+        if (val < 1 || val > 63) return kCorrupt;
+        arith_K[index - 16] = (uint8_t)val;
+      } else {
+        arith_L[index] = (uint8_t)(val & 15);
+        arith_U[index] = (uint8_t)(val >> 4);
+        if (arith_L[index] > arith_U[index]) return kCorrupt;  // JERR_DAC_VALUE
+      }
+    }
+    return len ? kCorrupt : kOk;
+  }
+
+  // get_sof, then the frame's components (jdinput.c's initial_setup checks
+  // the port makes at the frame)
+  int get_sof(int marker) {
+    if (saw_sof) return kCorrupt;  // JERR_SOF_DUPLICATE
+    const int len = src_2bytes();
+    if (len < 0) return kSuspend;
+    int prec = src_byte(), h = src_2bytes(), w = h < 0 ? -1 : src_2bytes();
+    const int nc = w < 0 ? -1 : src_byte();
+    if (prec < 0 || h < 0 || w < 0 || nc < 0) return kSuspend;
+    if (h == 0 && w > 0 && nc > 0 && len - 8 == nc * 3 && !tiff && prec == 8)
+      return kDNL;  // libjpeg-turbo: "Empty JPEG image (DNL not supported)"
+    if (h <= 0 || w <= 0 || nc <= 0) return kCorrupt;  // JERR_EMPTY_IMAGE
+    if (len - 8 != nc * 3) return kCorrupt;  // JERR_BAD_LENGTH
+    uint8_t f[8 + 3 * 255];
+    f[0] = (uint8_t)prec;
+    f[1] = (uint8_t)(h >> 8);
+    f[2] = (uint8_t)h;
+    f[3] = (uint8_t)(w >> 8);
+    f[4] = (uint8_t)w;
+    f[5] = (uint8_t)nc;
+    for (int i = 0; i < 3 * nc; ++i) {
+      const int c = src_byte();
+      if (c < 0) return kSuspend;
+      f[6 + i] = (uint8_t)c;
+    }
+    saw_sof = true;
+    return read_frame(f, marker);
+  }
+
+  // ------------------------------------ jdhuff.c / jdphuff.c's bit reading
+  // get_buffer / bits_left; a marker met stops the reading (unread_marker)
+  // and zeros are stuffed where bits are wanted past it, once marking the
+  // segment's data insufficient: its later MCUs are then left as they are
+  uint64_t get_buffer = 0;
+  int bits_left = 0;
+  bool insufficient = false;
+  int restarts_to_go = 0;
+
+  // jpeg_fill_bit_buffer: up to 57 bits, a marker, or a suspension (false)
+  bool fill_bits(int nbits) {
+    if (unread_marker == 0) {
+      while (bits_left < 57) {
+        int c = src_byte();
+        if (c < 0) return false;
+        if (c == 0xFF) {
+          do {
+            if ((c = src_byte()) < 0) return false;
+          } while (c == 0xFF);
+          if (c == 0) {
+            c = 0xFF;
+          } else {
+            unread_marker = c;
+            goto no_more_bytes;
+          }
+        }
+        get_buffer = (get_buffer << 8) | (uint64_t)c;
+        bits_left += 8;
+      }
+      return true;
+    }
+  no_more_bytes:
+    if (nbits > bits_left) {
+      insufficient = true;  // JWRN_HIT_MARKER
+      get_buffer <<= 57 - bits_left;
+      bits_left = 57;
+    }
+    return true;
+  }
+  bool check_bits(int nbits) { return bits_left >= nbits || fill_bits(nbits); }
+  int get_bits(int nbits) {
+    bits_left -= nbits;
+    return (int)(get_buffer >> bits_left) & ((1 << nbits) - 1);
+  }
+  // HUFF_DECODE with jpeg_huff_decode: a symbol, or -1 where it suspended
+  int huff_decode(const JHuff& t) {
+    int nb;
+    if (bits_left < 8) {
+      if (!fill_bits(0)) return -1;
+      if (bits_left < 8) {
+        nb = 1;
+        goto slow;
+      }
+    }
+    {
+      const int e = t.look8[(get_buffer >> (bits_left - 8)) & 255];
+      nb = e >> 8;
+      if (nb <= 8) {
+        bits_left -= nb;
+        return e & 255;
+      }
+    }
+  slow:
+    if (!check_bits(nb)) return -1;
+    int32_t code = get_bits(nb);
+    while (code > t.maxcode[nb]) {
+      code <<= 1;
+      if (!check_bits(1)) return -1;
+      code |= get_bits(1);
+      ++nb;
+    }
+    if (nb > 16) return 0;  // JWRN_HUFF_BAD_CODE: a zero
+    return t.vals[code + t.valptr[nb]];
+  }
+
+  // the state an MCU starts from, for decode_mcu_fast's own copy and for a
+  // retry after libjpeg suspended at one of Pillow's read ends
+  struct LjSaved {
+    size_t pos, read_end;
+    uint64_t get_buffer;
+    int bits_left, unread_marker, next_restart_num, restarts_to_go, eobrun, fake_eoi;
+    bool insufficient;
+    int dc_pred[4];
+  };
+  LjSaved lj_save(const std::vector<JComp*>& sc) const {
+    LjSaved s{pos, read_end, get_buffer, bits_left, unread_marker, next_restart_num,
+              restarts_to_go, eobrun, fake_eoi, insufficient, {0, 0, 0, 0}};
+    for (size_t i = 0; i < sc.size(); ++i) s.dc_pred[i] = sc[i]->dc_pred;
+    return s;
+  }
+  void lj_restore(const LjSaved& s, const std::vector<JComp*>& sc) {
+    pos = s.pos;
+    read_end = s.read_end;
+    get_buffer = s.get_buffer;
+    bits_left = s.bits_left;
+    unread_marker = s.unread_marker;
+    next_restart_num = s.next_restart_num;
+    restarts_to_go = s.restarts_to_go;
+    eobrun = s.eobrun;
+    fake_eoi = s.fake_eoi;
+    insufficient = s.insufficient;
+    for (size_t i = 0; i < sc.size(); ++i) sc[i]->dc_pred = s.dc_pred[i];
+  }
+
+  // jpeg_resync_to_restart, the source manager's (Pillow's and libtiff's)
+  int resync_to_restart(int desired) {
+    int marker = unread_marker;
+    for (;;) {
+      int action;
+      if (marker < 0xC0) action = 2;  // an invalid marker
+      else if (marker < 0xD0 || marker > 0xD7) action = 3;  // a valid non-restart marker
+      else if (marker == 0xD0 + ((desired + 1) & 7) || marker == 0xD0 + ((desired + 2) & 7))
+        action = 3;  // one of the next two expected restarts
+      else if (marker == 0xD0 + ((desired - 1) & 7) || marker == 0xD0 + ((desired - 2) & 7))
+        action = 2;  // a prior restart: advance
+      else
+        action = 1;  // the desired restart, or too far away
+      if (action == 1) {
+        unread_marker = 0;
+        return kOk;
+      }
+      if (action == 3) return kOk;  // the next segment is left empty
+      const int rc = next_marker();
+      if (rc) return rc;
+      marker = unread_marker;
+    }
+  }
+
+  // read_restart_marker: the RSTn expected, or a resync; false where it suspended
+  bool read_restart_marker() {
+    if (unread_marker == 0 && next_marker()) return false;
+    if (unread_marker == 0xD0 + next_restart_num) unread_marker = 0;
+    else if (resync_to_restart(next_restart_num)) return false;
+    next_restart_num = (next_restart_num + 1) & 7;
+    return true;
+  }
+
+  // process_restart: the buffered bits dropped, the RSTn read (or resynced),
+  // DC predictions and the EOB run reset
+  bool process_restart(const std::vector<JComp*>& sc) {
+    bits_left = 0;
+    if (!read_restart_marker()) return false;
+    for (JComp* c : sc) c->dc_pred = 0;
+    eobrun = 0;
+    restarts_to_go = restart_interval;
+    if (unread_marker == 0) insufficient = false;
+    return true;
+  }
+
+  // decode_mcu_fast (jdhuff.c): 6 bytes at a time while 16 bits or fewer
+  // remain, no suspension (libjpeg takes it while 512 bytes a block are
+  // left in Pillow's buffer); false where a marker turned up, and the MCU is
+  // decoded again the slow way from its start
+  bool seq_mcu_fast(int16_t* const* blk, JComp* const* bc, int nblk) {
+    uint64_t gb = get_buffer;
+    int bl = bits_left;
+    size_t p = pos;
+    int marker = 0;
+    int dcp[4];
+    JComp* owner[4] = {nullptr, nullptr, nullptr, nullptr};
+    int owners = 0;
+    auto pred = [&](JComp* c) -> int& {
+      for (int i = 0; i < owners; ++i)
+        if (owner[i] == c) return dcp[i];
+      owner[owners] = c;
+      dcp[owners] = c->dc_pred;
+      return dcp[owners++];
+    };
+    auto get_byte = [&]() {
+      const int c0 = d[p++];
+      const int c1 = p < n ? d[p] : 0;
+      gb = (gb << 8) | (uint64_t)c0;
+      bl += 8;
+      if (c0 == 0xFF) {
+        ++p;
+        if (c1 != 0) {
+          marker = c1;
+          p -= 2;
+          gb &= ~(uint64_t)0xFF;
+        }
+      }
+    };
+    auto fill = [&]() {
+      if (bl <= 16)
+        for (int i = 0; i < 6; ++i) get_byte();
+    };
+    auto getb = [&](int k) {
+      bl -= k;
+      return (int)(gb >> bl) & ((1 << k) - 1);
+    };
+    auto decode = [&](const JHuff& t) {
+      fill();
+      int s = t.look8[(gb >> (bl - 8)) & 255];
+      int nb = s >> 8;
+      bl -= nb;
+      s &= 255;
+      if (nb > 8) {
+        s = (int)(gb >> bl) & ((1 << nb) - 1);
+        while (s > t.maxcode[nb]) {
+          s <<= 1;
+          s |= getb(1);
+          ++nb;
+        }
+        s = nb > 16 ? 0 : t.vals[(s + t.valptr[nb]) & 0xFF];
+      }
+      return s;
+    };
+    for (int b = 0; b < nblk; ++b) {
+      JComp& c = *bc[b];
+      int s = decode(dc[c.td]);
+      if (s) {
+        fill();
+        s = extend(getb(s), s);
+      }
+      int& last = pred(&c);
+      last = (int)((unsigned)last + (unsigned)s);
+      blk[b][0] = (int16_t)last;
+      const JHuff& t = ac[c.ta];
+      for (int k = 1; k < 64; ++k) {
+        s = decode(t);
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          k += r;
+          fill();
+          blk[b][kZigzag[k]] = (int16_t)extend(getb(s), s);
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+    }
+    if (marker) return false;  // cinfo->unread_marker is reset to 0
+    pos = p;
+    get_buffer = gb;
+    bits_left = bl;
+    for (int i = 0; i < owners; ++i) owner[i]->dc_pred = dcp[i];
+    return true;
+  }
+
+  // decode_mcu_slow: false where it suspended
+  bool seq_mcu_slow(int16_t* const* blk, JComp* const* bc, int nblk) {
+    for (int b = 0; b < nblk; ++b) {
+      JComp& c = *bc[b];
+      int s = huff_decode(dc[c.td]);
+      if (s < 0) return false;
+      if (s) {
+        if (!check_bits(s)) return false;
+        s = extend(get_bits(s), s);
+      }
+      c.dc_pred = (int)((unsigned)c.dc_pred + (unsigned)s);
+      blk[b][0] = (int16_t)c.dc_pred;
+      const JHuff& t = ac[c.ta];
+      for (int k = 1; k < 64; ++k) {
+        s = huff_decode(t);
+        if (s < 0) return false;
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          k += r;
+          if (!check_bits(s)) return false;
+          blk[b][kZigzag[k]] = (int16_t)extend(get_bits(s), s);
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+    }
+    return true;
+  }
+
+  // decode_mcu_DC_first, _AC_first, _DC_refine, _AC_refine (jdphuff.c)
+  bool prog_mcu(int16_t* const* blk, JComp* const* bc, int nblk, int ss, int se, int ah, int al) {
+    if (ss == 0 && ah == 0) {  // DC first
+      if (insufficient) return true;
+      for (int b = 0; b < nblk; ++b) {
+        int s = huff_decode(dc[bc[b]->td]);
+        if (s < 0) return false;
+        if (s) {
+          if (!check_bits(s)) return false;
+          s = extend(get_bits(s), s);
+        }
+        JComp& c = *bc[b];
+        c.dc_pred = (int)((unsigned)c.dc_pred + (unsigned)s);
+        blk[b][0] = (int16_t)((unsigned)c.dc_pred << al);
+      }
+      return true;
+    }
+    if (ss == 0) {  // DC refine: no check of insufficient data
+      for (int b = 0; b < nblk; ++b) {
+        if (!check_bits(1)) return false;
+        if (get_bits(1)) blk[b][0] = (int16_t)(blk[b][0] | (1 << al));
+      }
+      return true;
+    }
+    if (insufficient) return true;
+    int16_t* block = blk[0];
+    const JHuff& t = ac[bc[0]->ta];
+    if (ah == 0) {  // AC first
+      if (eobrun > 0) {
+        --eobrun;
+        return true;
+      }
+      for (int k = ss; k <= se; ++k) {
+        int s = huff_decode(t);
+        if (s < 0) return false;
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          k += r;
+          if (!check_bits(s)) return false;
+          block[kZigzag[k]] = (int16_t)((unsigned)extend(get_bits(s), s) << al);
+        } else if (r == 15) {
+          k += 15;
+        } else {
+          int run = 1 << r;
+          if (r) {
+            if (!check_bits(r)) return false;
+            run += get_bits(r);
+          }
+          eobrun = run - 1;
+          break;
+        }
+      }
+      return true;
+    }
+    // AC refine
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int k = ss;
+    int newnz[64], num_newnz = 0;
+    auto undo = [&]() {
+      while (num_newnz > 0) block[newnz[--num_newnz]] = 0;
+      return false;
+    };
+    auto correct = [&](int16_t* coef) {
+      if (!check_bits(1)) return false;
+      if (get_bits(1) && (*coef & p1) == 0) *coef = (int16_t)(*coef >= 0 ? *coef + p1 : *coef + m1);
+      return true;
+    };
+    int run = eobrun;
+    if (run == 0) {
+      for (; k <= se; ++k) {
+        int s = huff_decode(t);
+        if (s < 0) return undo();
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          if (!check_bits(1)) return undo();
+          s = get_bits(1) ? p1 : m1;
+        } else if (r != 15) {
+          run = 1 << r;
+          if (r) {
+            if (!check_bits(r)) return undo();
+            run += get_bits(r);
+          }
+          break;
+        }
+        do {
+          int16_t* coef = block + kZigzag[k];
+          if (*coef != 0) {
+            if (!correct(coef)) return undo();
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) {
+          const int at = kZigzag[k];
+          block[at] = (int16_t)s;
+          newnz[num_newnz++] = at;
+        }
+      }
+    }
+    if (run > 0) {
+      for (; k <= se; ++k) {
+        int16_t* coef = block + kZigzag[k];
+        if (*coef != 0 && !correct(coef)) return undo();
+      }
+      --run;
+    }
+    eobrun = run;
+    return true;
+  }
+
+  // decode_mcu of a Huffman DCT scan: the restart first, then (unless the
+  // segment's data ran out) the MCU; false where libjpeg suspended
+  bool huff_mcu(int16_t* const* blk, JComp* const* bc, int nblk, const std::vector<JComp*>& sc,
+                int ss, int se, int ah, int al) {
+    bool usefast = !progressive;
+    if (restart_interval) {
+      if (restarts_to_go == 0 && !process_restart(sc)) return false;
+      usefast = false;
+    }
+    const int64_t in_buffer = (int64_t)std::min(read_end, n) - (int64_t)pos;
+    if (in_buffer < 512 * (int64_t)nblk || unread_marker) usefast = false;
+    bool ok;
+    if (progressive) {
+      ok = prog_mcu(blk, bc, nblk, ss, se, ah, al);
+    } else {
+      ok = insufficient || (usefast && seq_mcu_fast(blk, bc, nblk)) || seq_mcu_slow(blk, bc, nblk);
+    }
+    if (!ok) return false;
+    if (restart_interval) --restarts_to_go;
+    return true;
+  }
+
+  // ------------------------------------------------------------------ scans
+  // get_sos: the scan's components as libjpeg finds them (among the first
+  // four of the frame, each in a slot not yet taken), tables, Ss, Se, Ah, Al
+  int get_sos(std::vector<JComp*>& sc, int& ss, int& se, int& ah, int& al) {
+    if (!saw_sof) return kCorrupt;  // JERR_SOS_NO_SOF
+    const int len = src_2bytes();
+    if (len < 0) return kSuspend;
+    const int ns = src_byte();
+    if (ns < 0) return kSuspend;
+    if (len != ns * 2 + 6 || ns < 1 || ns > 4) return kCorrupt;  // JERR_BAD_LENGTH
+    JComp* slot[4] = {nullptr, nullptr, nullptr, nullptr};
+    for (int i = 0; i < ns; ++i) {
+      const int cc = src_byte();
+      if (cc < 0) return kSuspend;
+      const int t = src_byte();
+      if (t < 0) return kSuspend;
+      JComp* found = nullptr;
+      for (int ci = 0; ci < (int)comps.size() && ci < 4; ++ci)
+        if (cc == comps[ci].id && !slot[ci]) {
+          found = &comps[ci];
+          break;
+        }
+      if (!found) return kCorrupt;  // JERR_BAD_COMPONENT_ID
+      slot[i] = found;
+      found->td = t >> 4;
+      found->ta = t & 15;
+      for (int pi = 0; pi < i; ++pi)
+        if (slot[pi] == found) return kCorrupt;
+    }
+    const int s0 = src_byte(), s1 = s0 < 0 ? -1 : src_byte(), s2 = s1 < 0 ? -1 : src_byte();
+    if (s2 < 0) return kSuspend;
+    ss = s0;
+    se = s1;
+    ah = s2 >> 4;
+    al = s2 & 15;
+    next_restart_num = 0;
+    sc.assign(slot, slot + ns);
+    return kOk;
+  }
+
+  // a scan's data from pos: Huffman DCT scans as jdhuff.c and jdphuff.c read
+  // them (MCU by MCU, again from the MCU's start where libjpeg suspended at
+  // the end of one of Pillow's reads), arithmetic and lossless ones by their
+  // own readers; pos ends where libjpeg looks for the next marker
+  int run_scan(std::vector<JComp*>& sc, int ss, int se, int ah, int al) {
     const bool dc_band = ss == 0;
     if (lossless) {  // Ss: the predictor, Al: the point transform
       if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= precision) return kCorrupt;
     } else if (progressive) {  // jdphuff.c / jdarith.c's progression checks
-      if (dc_band ? se != 0 : (ss > se || se > 63 || ns != 1)) return kCorrupt;
+      if (dc_band ? se != 0 : (ss > se || se > 63 || sc.size() != 1)) return kCorrupt;
       if (ah != 0 && al != ah - 1) return kCorrupt;
       if (al > 13) return kCorrupt;
     }
@@ -1507,17 +1954,23 @@ struct JpegDecoder {
       if (arith) {
         if (c->td > 15 || c->ta > 15) return kCorrupt;
       } else {
-        if (c->td > 3 || c->ta > 3) return kCorrupt;
-        // an undefined table 0 or 1 is the standard one (jdhuff.c)
-        if (!dc[c->td].present && c->td < 2) dc[c->td].build(kStdCounts[c->td], kStdDcSymbols, 12);
-        if (!ac[c->ta].present && c->ta < 2)
+        // only the tables the scan decodes with are looked up
+        const bool dc_used = dc_scan || lossless, ac_used = ac_scan && !lossless;
+        if ((dc_used && c->td > 3) || (ac_used && c->ta > 3))
+          return kCorrupt;  // JERR_NO_HUFF_TABLE
+        // an undefined table 0 or 1 of a sequential DCT scan is the standard
+        // one (jdhuff.c's motion-JPEG default; jdphuff.c and jdlhuff.c have none)
+        const bool defaults = !progressive && !lossless;
+        if (defaults && dc_used && !dc[c->td].present && c->td < 2)
+          dc[c->td].build(kStdCounts[c->td], kStdDcSymbols, 12);
+        if (defaults && ac_used && !ac[c->ta].present && c->ta < 2)
           ac[c->ta].build(kStdCounts[2 + c->ta], kStdAcSymbols[c->ta], 162);
-        if ((dc_scan || lossless) && !(dc[c->td].present && dc[c->td].dc_ok(lossless)))
+        if (dc_used && !(dc[c->td].present && dc[c->td].dc_ok(lossless)))
           return kCorrupt;  // "Bogus Huffman table definition"
-        if (ac_scan && !lossless && !(ac[c->ta].present && !ac[c->ta].bogus)) return kCorrupt;
+        if (ac_used && !(ac[c->ta].present && !ac[c->ta].bogus)) return kCorrupt;
       }
       if (!lossless && !c->latched) {  // jdinput.c's latch_quant_tables
-        if (!qt_present[c->tq]) return kCorrupt;
+        if (c->tq > 3 || !qt_present[c->tq]) return kCorrupt;  // JERR_NO_QUANT_TABLE
         std::memcpy(c->q, qt[c->tq], sizeof(c->q));
         c->latched = true;
       }
@@ -1527,7 +1980,7 @@ struct JpegDecoder {
         for (int k = 0; k < 64; ++k) c->coef_bits[k] = 0;
     }
     // the MCU: one data unit of the component when it is alone, else h × v of each
-    const bool single = ns == 1;
+    const bool single = sc.size() == 1;
     if (!single) {
       int blocks = 0;
       for (JComp* c : sc) blocks += c->h * c->v;
@@ -1548,90 +2001,132 @@ struct JpegDecoder {
         if (ac_scan) std::memset(ac_stats[c->ta], 0, 256);
       }
     }
-    JBits bits{d, n, p + len - 2};
-    JArith ar{d, n, p + len - 2};
-    int todo = restart_interval, rc = kOk;
-    for (int y = 0; y < my; ++y) {
-      for (int x = 0; x < mx; ++x) {
-        if (restart_interval) {
-          if (todo == 0) {
-            if (arith) {
-              ar.restart();
-              for (JComp* c : sc) {
-                if (dc_scan) std::memset(dc_stats[c->td], 0, 64);
-                if (ac_scan) std::memset(ac_stats[c->ta], 0, 256);
+    if (arith) {  // jdarith.c: the coder starts with two bytes to read
+      ar_c = ar_a = 0;
+      ar_ct = -16;
+      ar_eof = false;
+      no_suspend = true;
+      restarts_to_go = restart_interval;
+      std::vector<int16_t*> blk;
+      std::vector<JComp*> bc;
+      for (int y = 0; y < my; ++y) {
+        for (int x = 0; x < mx; ++x) {
+          blk.clear();
+          bc.clear();
+          for (JComp* c : sc) {
+            const int nh = single ? 1 : c->h, nv = single ? 1 : c->v;
+            for (int by = 0; by < nv; ++by)
+              for (int bx = 0; bx < nh; ++bx) {
+                const int row = y * nv + by, col = x * nh + bx;
+                blk.push_back(c->coef.data() + ((size_t)row * c->bw + col) * 64);
+                bc.push_back(c);
               }
-            } else {
-              bits.restart();
-            }
-            for (JComp* c : sc) {
-              c->dc_pred = 0;
-              c->dc_context = 0;
-            }
-            eobrun = 0;
-            if (lossless) {  // the next sample rows predict as the first row
-              for (JComp* c : sc) {
-                const int vs = single ? 1 : c->v;
-                // jddiffct.c resets the predictor of the iMCU row being read
-                const int row = y * vs;
-                c->first_row[(size_t)(row / c->v) * c->v] = 1;
-              }
-            }
-            todo = restart_interval;
           }
-          --todo;
+          arith_mcu(blk.data(), bc.data(), (int)blk.size(), sc, ss, se, ah, al);
         }
+      }
+      no_suspend = false;
+      if (ar_eof) return kCorrupt;  // a byte past Pillow's read: JERR_CANT_SUSPEND
+      if (scans++ == 0) multi = progressive || sc.size() < comps.size();
+      return kOk;
+    }
+    if (!lossless) {
+      bits_left = 0;
+      get_buffer = 0;
+      insufficient = false;
+      restarts_to_go = restart_interval;
+      std::vector<int16_t*> blk;
+      std::vector<JComp*> bc;
+      std::vector<int16_t> snap;
+      for (int y = 0; y < my; ++y) {
+        for (int x = 0; x < mx; ++x) {
+          blk.clear();
+          bc.clear();
+          for (JComp* c : sc) {
+            const int nh = single ? 1 : c->h, nv = single ? 1 : c->v;
+            for (int by = 0; by < nv; ++by)
+              for (int bx = 0; bx < nh; ++bx) {
+                const int row = y * nv + by, col = x * nh + bx;
+                blk.push_back(c->coef.data() + ((size_t)row * c->bw + col) * 64);
+                bc.push_back(c);
+              }
+          }
+          const int nblk = (int)blk.size();
+          if (read_end >= n) {  // the whole file is in Pillow's buffer: no read ends ahead
+            if (!huff_mcu(blk.data(), bc.data(), nblk, sc, ss, se, ah, al)) return kSuspend;
+            continue;
+          }
+          for (;;) {
+            const LjSaved saved = lj_save(sc);
+            snap.resize((size_t)nblk * 64);
+            for (int b = 0; b < nblk; ++b) std::memcpy(&snap[(size_t)b * 64], blk[b], 128);
+            if (!huff_mcu(blk.data(), bc.data(), nblk, sc, ss, se, ah, al)) return kSuspend;
+            if (read_end == saved.read_end) break;
+            // libjpeg suspended where this MCU passed the end of Pillow's read,
+            // and decodes it again once the next read is in the buffer
+            const size_t re = read_end;
+            lj_restore(saved, sc);
+            read_end = re;
+            for (int b = 0; b < nblk; ++b) std::memcpy(blk[b], &snap[(size_t)b * 64], 128);
+          }
+        }
+      }
+      if (scans++ == 0) multi = progressive || sc.size() < comps.size();
+      return kOk;
+    }
+    // lossless scans: jdlhuff.c's decode_mcus, one MCU row at a time as
+    // jddiffct.c calls it; a row that starts after the segment's data ran out
+    // keeps zero differences, and a restart or such a row predicts the iMCU
+    // row being read as a first row
+    bits_left = 0;
+    get_buffer = 0;
+    insufficient = false;
+    int rows_to_go = restart_interval / mx;
+    auto reset_predictor = [&](int y) {
+      for (JComp* c : sc) {
+        const int row = y * (single ? 1 : c->v);
+        c->first_row[(size_t)(row / c->v) * c->v] = 1;
+      }
+    };
+    for (int y = 0; y < my; ++y) {
+      if (restart_interval && rows_to_go == 0) {
+        if (!process_restart(sc)) return kSuspend;
+        reset_predictor(y);
+        rows_to_go = restart_interval / mx;
+      }
+      const bool skip = insufficient;
+      if (skip) reset_predictor(y);
+      for (int x = 0; x < mx; ++x) {
         for (JComp* c : sc) {
           const int nh = single ? 1 : c->h, nv = single ? 1 : c->v;
           for (int by = 0; by < nv; ++by) {
             for (int bx = 0; bx < nh; ++bx) {
-              const int row = y * nv + by, col = x * nh + bx;
-              if (lossless) {
-                const int s = bits.decode(dc[c->td]);
-                if (s < 0 || s > 16) return kCorrupt;
-                c->diff[(size_t)row * c->bw + col] =
-                    s == 16 ? 32768 : s ? extend(bits.get(s), s) : 0;
+              int32_t& diff = c->diff[(size_t)(y * nv + by) * c->bw + x * nh + bx];
+              if (skip) {
+                diff = 0;
                 continue;
               }
-              int16_t* blk = c->coef.data() + ((size_t)row * c->bw + col) * 64;
-              if (arith) {
-                if (dc_scan) {
-                  arith_dc(ar, *c, c->dc_pred);
-                  blk[0] = (int16_t)((unsigned)c->dc_pred << (progressive ? al : 0));
-                } else if (dc_band) {
-                  if (ar.decode(&fixed_bin)) blk[0] = (int16_t)(blk[0] | (1 << al));
-                }
-                if (!progressive) arith_ac_first(ar, *c, blk, 1, 63, 0);
-                else if (!dc_band && ah == 0) arith_ac_first(ar, *c, blk, ss, se, al);
-                else if (!dc_band) arith_ac_refine(ar, *c, blk, ss, se, al);
-              } else if (!progressive) {
-                rc = huff_block(bits, *c, blk);
-              } else if (dc_band) {
-                if (ah == 0) rc = huff_dc_first(bits, *c, blk, al);
-                else if (bits.get(1)) blk[0] = (int16_t)(blk[0] | (1 << al));
-              } else if (ah == 0) {
-                rc = huff_ac_first(bits, *c, blk, ss, se, al);
-              } else {
-                rc = huff_ac_refine(bits, *c, blk, ss, se, al);
+              int s = huff_decode(dc[c->td]);
+              if (s < 0) return kSuspend;
+              if (s == 16) {
+                s = 32768;  // no bits follow
+              } else if (s) {
+                if (!check_bits(s)) return kSuspend;
+                s = extend(get_bits(s), s);
               }
-              if (rc) return rc;
+              diff = s;
             }
           }
         }
       }
+      if (restart_interval) --rows_to_go;
     }
-    if (lossless)
-      for (JComp* c : sc) c->predictor = ss, c->point_transform = al;
-    if (scans++ == 0) multi = progressive || ns < (int)comps.size();
-    suspended = suspended || (arith ? ar.suspended : bits.suspended);
-    // the next marker follows the entropy-coded data
-    size_t e = std::max(bits.pos, ar.pos);
-    while (e + 1 < n && !(d[e] == 0xFF && d[e + 1] != 0x00 && d[e + 1] != 0xFF &&
-                          !(d[e + 1] >= 0xD0 && d[e + 1] <= 0xD7)))
-      ++e;
-    next = e;
+    for (JComp* c : sc) c->predictor = ss, c->point_transform = al;
+    if (scans++ == 0) multi = progressive || sc.size() < comps.size();
     return kOk;
   }
+
+
   // jdlossls.c's undifferencing and jddiffct.c's scaling of one component
   void undifference(const JComp& c, std::vector<uint8_t>& plane) const {
     const int w = c.width_in_blocks;
@@ -1691,27 +2186,9 @@ struct JpegDecoder {
   // JPEGTables, libjpeg's jpeg_read_header(FALSE)): they stay for the
   // stream decoded next, whose own segments replace them
   int load_tables(const uint8_t* t, size_t tn) {
-    if (tn < 4 || t[0] != 0xFF || t[1] != 0xD8) return kCorrupt;
     JpegDecoder tab(t, tn);
-    size_t p = 2;
-    while (true) {
-      while (p < tn && t[p] != 0xFF) ++p;
-      while (p < tn && t[p] == 0xFF) ++p;
-      if (p >= tn) return kCorrupt;  // no EOI: "Bogus JPEGTables field"
-      const int m = t[p++];
-      if (m == 0xD9) break;
-      if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
-      if ((m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) || m == 0xDA)
-        return kCorrupt;  // a frame or scan: not tables only
-      if (p + 2 > tn) return kCorrupt;
-      const int len = (t[p] << 8) | t[p + 1];
-      if (len < 2 || p + len > tn) return kCorrupt;
-      int rc = kOk;
-      if (m == 0xC4) rc = tab.read_dht(p + 2, len);
-      else if (m == 0xDB) rc = tab.read_dqt(p + 2, len);
-      if (rc) return rc;
-      p += len;
-    }
+    tab.tables_only = true;
+    if (tab.parse()) return kCorrupt;  // no EOI, a frame or a scan: "Bogus JPEGTables field"
     for (int i = 0; i < 4; ++i) {
       if (tab.qt_present[i]) {
         std::memcpy(qt[i], tab.qt[i], sizeof(qt[i]));
@@ -1729,74 +2206,79 @@ struct JpegDecoder {
     return to_gray(gray);
   }
 
-  // the markers and scans: every component's coefficients (or differences)
+  // the markers and scans as libjpeg reads them (jdmarker.c's read_markers,
+  // jdinput.c's consume_markers): every component's coefficients (or
+  // differences). A one-scan image is whole once its scan is decoded: what
+  // follows it is read to EOI, where an error still fails and the data's end
+  // (Pillow's finish suspending) does not; an image of several scans must
+  // reach EOI
   int parse() {
-    if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) return kCorrupt;
     for (int i = 0; i < 16; ++i) {
       arith_L[i] = 0;
       arith_U[i] = 1;
       arith_K[i] = 5;
     }
-    pos = 2;
-    bool scanned = false;
+    pos = 0;
+    read_end = tiff ? (SIZE_MAX >> 1) : 65536;
+    const int c0 = src_byte(), c1 = c0 < 0 ? -1 : src_byte();
+    if (c0 != 0xFF || c1 != 0xD8) return kCorrupt;  // JERR_NO_SOI, or suspended
+    unread_marker = 0;
+    bool image_done = false;
+    int rc = kOk;
     while (true) {
-      while (pos < n && d[pos] != 0xFF) ++pos;  // garbage before a marker
-      while (pos < n && d[pos] == 0xFF) ++pos;  // fill bytes
-      if (pos >= n) break;
-      const int m = d[pos++];
+      if (unread_marker == 0 && (rc = next_marker())) break;
+      const int m = unread_marker;
       if (m == 0xD9) {
         eoi = true;
         break;
       }
-      if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
-      // a marker cut short after a one-scan image: libjpeg's finish suspends,
-      // which Pillow lets pass
-      const bool after_image = !tiff && scans && !multi;
-      if (pos + 2 > n) {
-        if (after_image) break;
-        return kCorrupt;
-      }
-      const int len = u16(pos);
-      if (len >= 2 && pos + len > n && after_image) break;
-      if (len < 2 || pos + len > n) return kCorrupt;
-      const size_t body = pos + 2;
-      int rc = kOk;
-      if (m == 0xC4) {
-        rc = read_dht(body, len);
-      } else if (m == 0xDB) {
-        rc = read_dqt(body, len);
-      } else if (m == 0xDD) {
-        if (len < 4) return kCorrupt;
-        restart_interval = u16(body);
+      if (tables_only && (m == 0xDA || (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC)))
+        return kCorrupt;  // a frame or a scan in an abbreviated tables-only stream
+      if (m == 0xD8) return kCorrupt;  // JERR_SOI_DUPLICATE
+      if (m == 0xC8) return kCorrupt;  // JPG: JERR_SOF_UNSUPPORTED
+      // SOF5-7 and SOF13-15: hierarchical (differential) frames
+      if ((m >= 0xC5 && m <= 0xC7) || (m >= 0xCD && m <= 0xCF)) return kHierarchical;
+      if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC) {
+        rc = get_sof(m);
+      } else if (m == 0xDA) {
+        std::vector<JComp*> sc;
+        int ss, se, ah, al;
+        rc = get_sos(sc, ss, se, ah, al);
+        if (!rc && scans && !multi) return kCorrupt;  // a second SOS: JERR_EOI_EXPECTED
+        if (rc) break;
+        unread_marker = 0;  // the SOS processed; the scan may stop at the next marker
+        if ((rc = run_scan(sc, ss, se, ah, al))) break;
+        if (!multi) image_done = true;
+        continue;
       } else if (m == 0xCC) {
-        rc = read_dac(body, len);
+        rc = get_dac();
+      } else if (m == 0xC4) {
+        rc = get_dht();
+      } else if (m == 0xDB) {
+        rc = get_dqt();
+      } else if (m == 0xDD) {
+        rc = get_dri();
+      } else if (m == 0xE0 || m == 0xEE) {
+        rc = get_appn(m);
+      } else if ((m >= 0xE1 && m <= 0xEF) || m == 0xFE || m == 0xDC) {
+        rc = skip_variable();  // APPn, COM, DNL
+      } else if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) {
+        rc = kOk;  // TEM, RSTn: no parameters
       } else if (m == 0xDE) {
         return kHierarchical;  // DHP: libjpeg-turbo has no hierarchical mode
-      } else if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8) {
-        if (frame) return kCorrupt;
-        rc = read_frame(body, len, m);
-      } else if (m == 0xE0) {
-        if (len >= 16 && !std::memcmp(d + body, "JFIF\0", 5)) jfif = true;
-      } else if (m == 0xEE) {
-        if (len >= 14 && !std::memcmp(d + body, "Adobe", 5)) {
-          adobe = true;
-          adobe_transform = d[body + 11];
-        }
-      } else if (m == 0xDA) {
-        size_t next = 0;
-        rc = read_scan(body, len, next);
-        if (rc) return rc;
-        scanned = true;
-        pos = next;
-        continue;
+      } else {
+        return kCorrupt;  // JERR_UNKNOWN_MARKER
       }
-      if (rc) return rc;
-      pos += len;
+      if (rc) break;
+      unread_marker = 0;
     }
-    if (!frame || !scanned) return kCorrupt;
-    if (!tiff && (suspended || (multi && !eoi))) return kCorrupt;  // "image file is truncated"
+    if (rc == kSuspend) return image_done ? kOk : kCorrupt;  // "image file is truncated"
+    if (rc) return rc;
+    if (tables_only) return kOk;
+    if (!frame || !scans) return kCorrupt;
     return kOk;
   }
+
 
   // each component's samples at its own resolution (libjpeg's raw data):
   // the IDCT of every allocated block (smoothed where libjpeg-turbo
@@ -1931,6 +2413,7 @@ int jpeg_open(const uint8_t* d, size_t n) {
   size_t pos = 3;
   int s0 = 0xFF;  // s = b"\xff"
   bool sof = false;
+  int sof_w = 0, sof_h = 0;  // the size the last SOF gave
   std::vector<std::pair<const uint8_t*, size_t>> icc;
   auto next = [&]() -> bool {  // s = fp.read(1); false: empty
     if (pos >= n) return false;
@@ -1983,9 +2466,11 @@ int jpeg_open(const uint8_t* d, size_t n) {
       } else if ((m >= 0xFFC0 && m <= 0xFFCF && m != 0xFFC4 && m != 0xFFC8 && m != 0xFFCC) ||
                  m == 0xFFDE) {  // SOF
         if (k < 5) return kPassOn;  // i16(s, 3): struct.error
-        if (b[0] != 8) return kOk;  // "cannot handle N-bit layers": the decoder refuses it
+        // "cannot handle N-bit layers", "cannot handle N-layer images": kinds
+        // PIL's open refuses, refused here by name
+        if (b[0] != 8) return kPrecision;
         if (k < 6) return kPassOn;  // s[5]: IndexError
-        if (b[5] != 1 && b[5] != 3 && b[5] != 4) return kOk;  // the decoder refuses it
+        if (b[5] != 1 && b[5] != 3 && b[5] != 4) return kComponents;
         if (!icc.empty()) {  // icclist[0][13] of the sorted fragments
           std::sort(icc.begin(), icc.end(), [](const auto& x, const auto& y) {
             return std::lexicographical_compare(x.first, x.first + x.second, y.first,
@@ -1996,6 +2481,8 @@ int jpeg_open(const uint8_t* d, size_t n) {
         }
         if ((k - 6) % 3) return kPassOn;  // a component entry cut short: IndexError
         sof = true;
+        sof_w = b[3] << 8 | b[4];
+        sof_h = b[1] << 8 | b[2];
       } else if (m == 0xFFDB) {  // DQT: every table whole
         size_t o = 0;
         while (o < k) {
@@ -2008,7 +2495,10 @@ int jpeg_open(const uint8_t* d, size_t n) {
     }
     if (!next()) return kPassOn;
   }
-  return sof ? kOk : kPassOn;  // no mode: "not identified by this driver"
+  // no mode, or a width of 0: ImageFile's "not identified"; a height of 0
+  // (one a DNL marker would give) is refused by name
+  if (!sof || sof_w == 0) return kPassOn;
+  return sof_h == 0 ? kDNL : kOk;
 }
 
 // ===================================== PIL's image model, TIFF and BMP
@@ -2289,9 +2779,9 @@ int decode_jpeg(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, 
   return rc;
 }
 
-int probe_jpeg(const uint8_t* d, size_t n, int& w, int& h) {
-  const int open = jpeg_open(d, n);
-  if (open) return open;
+// the first SOF's size and component count, as a walk over the markers
+// finds it (no SOF before SOS or EOI: kCorrupt)
+int jpeg_frame_info(const uint8_t* d, size_t n, int& w, int& h, int& nc) {
   size_t p = 2;
   while (p + 4 <= n) {
     while (p < n && d[p] != 0xFF) ++p;
@@ -2305,11 +2795,19 @@ int probe_jpeg(const uint8_t* d, size_t n, int& w, int& h) {
       if (len < 8 || p + 7 > n) return kCorrupt;
       h = (d[p + 3] << 8) | d[p + 4];
       w = (d[p + 5] << 8) | d[p + 6];
+      nc = p + 8 <= n ? d[p + 7] : 0;
       return kOk;
     }
     p += len;
   }
   return kCorrupt;
+}
+
+int probe_jpeg(const uint8_t* d, size_t n, int& w, int& h) {
+  const int open = jpeg_open(d, n);
+  if (open) return open;
+  int nc;
+  return jpeg_frame_info(d, n, w, h, nc);
 }
 
 int probe_pnm(const uint8_t* d, size_t n, int& w, int& h) {
@@ -2359,6 +2857,9 @@ int probe_webp(const uint8_t* d, size_t n, int& w, int& h) {  // the demuxer's c
   return rc;
 }
 
+#include "native_layouts.h"
+#include "native_fli.h"
+
 // ------------------------------------------------- the table of plugins
 // PIL 12.1's Image.open: the preinit plugins (BMP, DIB, GIF, JPEG, PPM,
 // PNG), then every other in the order of Image.ID. A plugin whose accept
@@ -2393,35 +2894,35 @@ const Plugin kPlugins[] = {
     {"DCX", accept_dcx, decode_dcx, probe_dcx, 0, nullptr},
     {"DDS", accept_dds, decode_dds, probe_dds, 0, nullptr},
     {"EPS", accept_eps, nullptr, nullptr, kEps, nullptr},
-    {"FITS", accept_fits, nullptr, nullptr, kFits, nullptr},
-    {"FLI", accept_fli, nullptr, nullptr, kFli, nullptr},
+    {"FITS", accept_fits, decode_fits, probe_fits, 0, nullptr},
+    {"FLI", accept_fli, decode_fli, probe_fli, 0, nullptr},
     {"FTEX", accept_ftex, decode_ftex, probe_ftex, 0, nullptr},
-    {"GBR", accept_gbr, nullptr, nullptr, kGbr, gbr_takes},
+    {"GBR", accept_gbr, decode_gbr, probe_gbr, 0, nullptr},
     {"GRIB", accept_grib, nullptr, nullptr, kGrib, nullptr},
     {"HDF5", accept_hdf5, nullptr, nullptr, kHdf5, nullptr},
     {"JPEG2000", accept_jpeg2000, nullptr, nullptr, kJpeg2000, nullptr},
     {"ICNS", accept_icns, decode_icns, probe_icns, 0, nullptr},
     {"ICO", accept_ico, decode_ico, probe_ico, 0, nullptr},
-    {"IM", nullptr, nullptr, nullptr, kIm, im_takes},
-    {"IMT", nullptr, nullptr, nullptr, kImt, imt_takes},
-    {"IPTC", nullptr, nullptr, nullptr, kIptc, iptc_takes},
-    {"MCIDAS", accept_mcidas, nullptr, nullptr, kMcidas, nullptr},
+    {"IM", nullptr, decode_im, probe_im, 0, nullptr},
+    {"IMT", nullptr, decode_imt, probe_imt, 0, nullptr},
+    {"IPTC", nullptr, decode_iptc, probe_iptc, 0, nullptr},
+    {"MCIDAS", accept_mcidas, decode_mcidas, probe_mcidas, 0, nullptr},
     {"MPEG", accept_mpeg, nullptr, nullptr, kMpeg, nullptr},
     {"TIFF", accept_tiff, decode_tiff, probe_tiff, 0, nullptr},
-    {"MSP", accept_msp, nullptr, nullptr, kMsp, nullptr},
-    {"PCD", nullptr, nullptr, nullptr, kPcd, pcd_takes},
-    {"PIXAR", accept_pixar, nullptr, nullptr, kPixar, nullptr},
+    {"MSP", accept_msp, decode_msp, probe_msp, 0, nullptr},
+    {"PCD", nullptr, decode_pcd, probe_pcd, 0, nullptr},
+    {"PIXAR", accept_pixar, decode_pixar, probe_pixar, 0, nullptr},
     {"PSD", accept_psd, decode_psd, probe_psd, 0, nullptr},
     {"QOI", accept_qoi, decode_qoi, probe_qoi, 0, nullptr},
     {"SGI", accept_sgi, decode_sgi, probe_sgi, 0, nullptr},
-    {"SPIDER", nullptr, nullptr, nullptr, kSpider, spider_takes},
+    {"SPIDER", nullptr, decode_spider, probe_spider, 0, nullptr},
     {"SUN", accept_sun, decode_sun, probe_sun, 0, nullptr},
     {"TGA", nullptr, decode_tga, probe_tga, 0, nullptr},
     {"WEBP", accept_webp, decode_webp, probe_webp, 0, nullptr},
     {"WMF", accept_wmf, nullptr, nullptr, kWmf, wmf_takes},
-    {"XBM", accept_xbm, nullptr, nullptr, kXbm, nullptr},
-    {"XPM", accept_xpm, nullptr, nullptr, kXpm, nullptr},
-    {"XVThumb", accept_xvthumb, nullptr, nullptr, kXvThumb, nullptr},
+    {"XBM", accept_xbm, decode_xbm, probe_xbm, 0, nullptr},
+    {"XPM", accept_xpm, decode_xpm, probe_xpm, 0, nullptr},
+    {"XVThumb", accept_xvthumb, decode_xvthumb, probe_xvthumb, 0, nullptr},
 };
 constexpr int kPluginCount = (int)(sizeof(kPlugins) / sizeof(kPlugins[0]));
 
@@ -2447,6 +2948,13 @@ int by_plugin(const uint8_t* d, size_t n, Read&& read, int* which = nullptr) {
 int decode_by_signature(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w,
                         int& h) {
   return by_plugin(d, n, [&](const Plugin& p) { return p.decode(d, n, gray, w, h); });
+}
+
+// the name of the plugin that takes a file (its probe run), "" for none
+const char* plugin_name_of(const uint8_t* d, size_t n) {
+  int which = -1, w = 0, h = 0;
+  by_plugin(d, n, [&](const Plugin& p) { return p.probe(d, n, w, h); }, &which);
+  return which < 0 ? "" : kPlugins[which].name;
 }
 
 // no exception leaves the library: a header that asks for more memory than
@@ -2550,8 +3058,8 @@ const char* native_runtime_error_string(int code) {
     case kCorrupt: return "corrupt or unrecognized image data";
     case kSize: return "the image size differs from the expected size";
     case kPrecision:
-      return "a JPEG whose samples are not 8-bit (12- or 16-bit): PIL does not read it either "
-             "(JpegImagePlugin: \"cannot handle N-bit layers\")";
+      return "a JPEG whose samples are not 8-bit (a frame of 12 or 16 bits, or any other depth): "
+             "PIL does not read it either (JpegImagePlugin: \"cannot handle N-bit layers\")";
     case kHierarchical:
       return "a hierarchical JPEG (DHP, SOF5-7, SOF13-15): PIL does not read it either "
              "(libjpeg-turbo has no hierarchical mode)";
@@ -2659,9 +3167,6 @@ const char* native_runtime_error_string(int code) {
     case kBufr: return "a BUFR file: PIL identifies it but loads it only through a handler "
                        "an application installs (\"cannot find loader\"); not read";
     case kEps: return "an EPS file: PIL renders it only through Ghostscript; not read";
-    case kFits: return "a FITS image: PIL reads it; not read";
-    case kFli: return "a FLI/FLC animation: PIL reads it; not read";
-    case kGbr: return "a GBR (GIMP brush) image: PIL reads it; not read";
     case kGrib: return "a GRIB file: PIL identifies it but loads it only through a handler "
                        "an application installs (\"cannot find loader\"); not read";
     case kHdf5: return "an HDF5 file: PIL identifies it but loads it only through a handler "
@@ -2669,20 +3174,13 @@ const char* native_runtime_error_string(int code) {
     case kIcnsJpeg2000:
       return "an ICNS (Apple icon) image whose best size is a JPEG 2000 entry: PIL reads it "
              "through OpenJPEG; not read";
-    case kMcidas: return "a McIDAS area image: PIL reads it; not read";
     case kMpeg: return "an MPEG stream: PIL identifies it but cannot read it either; not read";
-    case kMsp: return "an MSP (Microsoft Paint) image: PIL reads it; not read";
-    case kPixar: return "a PIXAR raster image: PIL reads it; not read";
     case kWmf: return "a WMF/EMF metafile: PIL renders it only on Windows; not read";
-    case kXbm: return "an XBM (X11 bitmap) image: PIL reads it; not read";
-    case kXpm: return "an XPM (X11 pixmap) image: PIL reads it; not read";
-    case kXvThumb: return "an XV thumbnail image: PIL reads it; not read";
-    case kIm: return "an IM (IFUNC Image Memory) file, whose text header PIL's IM plugin "
-                     "takes before any later plugin: not read";
-    case kImt: return "an IMT (IM Tools) file, whose text header PIL's IMT plugin takes: not read";
-    case kIptc: return "an IPTC/NAA datastream, which PIL's IPTC plugin takes: not read";
-    case kPcd: return "a Kodak PhotoCD image: PIL reads it; not read";
-    case kSpider: return "a SPIDER image, whose float header PIL's SPIDER plugin takes: not read";
+    case kIptc:
+      return "an IPTC/NAA file whose image data opens as an image of other than mode L (or of a "
+             "plugin other than JPEG or netpbm, whose mode the port does not tell): PIL's "
+             "convert(\"L\") copies such an image unconverted, and Image.merge refuses it as a "
+             "band; not read";
     case kSunPalette:
       return "a Sun raster image whose colour map PIL cannot apply (a 1-bit or RGB image with a "
              "map: \"unrecognized image mode\"; a map of more than 256 colours: \"invalid "

@@ -50,7 +50,13 @@ unsigned and signed, BC7, as Pillow's bcn decoder decodes them); PSD's
 merged image, raw or PackBits (``csrc/native_psd.h``), DCX (its first
 PCX frame), BLP (JPEG, palettes, the plugin's own DXT1/3/5) and FTEX
 (``csrc/native_blp.h``), ICNS (the best size's PNG or RLE icon,
-``csrc/native_icns.h``). Kinds
+``csrc/native_icns.h``); MSP, XBM, XPM, IM, IMT, IPTC (its data opened
+again through every plugin), SPIDER, GBR, McIDAS, PIXAR, XVThumb and FITS
+(raw, or a GZIP_1 tile) as their plugins read them
+(``csrc/native_layouts.h``), frame 0 of FLI / FLC (``csrc/native_fli.h``)
+and the PhotoCD base image (``csrc/native_raster.h``). JPEG is read as
+libjpeg-turbo reads it behind Pillow's suspending source, markers,
+damaged data and the data's end included. Kinds
 PIL refuses (12-bit, hierarchical, DNL and fractional-sampling JPEG,
 lossless YCbCr; TIFF modes missing from ``OPEN_INFO``, CIELAB; the BMP
 headers, depths, compressions, masks and palettes PIL rejects; GIF code
@@ -63,7 +69,8 @@ compressions, 12-bit and short-stream new-style JPEG, old-style JPEG in
 tiles, on separate planes, in big-endian strips or with restart
 intervals off the strips; JPEG 2000 (an ICNS of a JPEG 2000 best size
 too), AVIF and every other plugin of PIL's the port does not read, each
-by name) raise ``NotImplementedError`` naming the kind or format. A
+by name; an IPTC file whose data is not a JPEG or 8-bit netpbm image of
+mode L) raise ``NotImplementedError`` naming the kind or format. A
 file no plugin of PIL's opens raises ``ValueError``, and a file that fails
 to decode (libtiff's own failures included) ``IOError``, on every route:
 the library's ``native_runtime_error_kind`` decides.

@@ -28,6 +28,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch_jpeg_probe as jp
 import torch_make_image_kinds as mk
 from PIL import Image
 from test_torch_pillow_formats import _agrees, _img, _mutate, _pcx, _pil, _pil_format, _size
@@ -469,7 +470,7 @@ def _jpeg_cases():
     flipped = [bytearray(_pil_jpeg(mk.scene(16, 16, s), quality=q)) for s, q in ((0, 100), (0, 95))]
     flipped[0][437] ^= 1
     flipped[1][353] ^= 1
-    return {
+    cases = {
         "progressive_without_eoi": (prog[:-2], "error"),
         "baseline_cut_in_its_scan": (base[:data + (len(base) - data) // 2], "error"),
         "baseline_eoi_turned_into_rst1": (base[:-1] + b"\xd1", "ok"),
@@ -478,8 +479,48 @@ def _jpeg_cases():
         "baseline_flipped_scan_bit": (bytes(flipped[0]), "ok"),
         "baseline_flipped_scan_bit_2": (bytes(flipped[1]), "ok"),
     }
+    ends = jp.ends_files()
+    for i, counts in PROBE_ENDS.items():
+        for k, want in zip(counts, ("error", "ok")):
+            cases[f"probe_ends_{i}_{k}_bytes"] = (jp.cut(ends[i][1], k), want)
+    mutated = jp.mutated_files()
+    for i, want in PROBE_MUTATED.items():
+        cases[f"probe_mutation_{i}"] = (mutated[i], want)
+    coded = jp.coded_files()
+    for i, want in PROBE_CODED.items():
+        cases[f"probe_coded_{i}_{coded[i][0].replace(' ', '_')}"] = (coded[i][1], want)
+    # an arithmetic scan past Pillow's first 65,536-byte read: jdarith.c
+    # cannot suspend, so PIL fails on it
+    noisy = np.clip(mk.scene(240, 400, 1).astype(np.int64)
+                    + np.random.default_rng(0).integers(-60, 60, (240, 400)), 0, 255)
+    big = mk.encode_jpeg([noisy.astype(np.uint8)], arith=True, quality=97)
+    assert len(big) > 65536
+    cases["arithmetic_past_the_first_read"] = (big, "error")
+    return cases
 
 
+# the files of tests/torch_jpeg_probe.py whose outcome the port did not share
+# with PIL's: three of its "ends" files, each without EOI at the last count
+# of bytes PIL still raises at and the first it reads at (libjpeg's fast
+# path, file 57; its slow path's fills one bit at a time, 25 and 37), and 25
+# of its "mutations" files with PIL's outcome (libjpeg leaving the MCUs of a
+# segment whose data ran out as zeros; its marker reader's errors; Huffman
+# tables looked up only where a scan uses them, and no default ones in a
+# progressive scan; a sample depth PIL's open refuses, "value")
+PROBE_ENDS = {25: (0, 1), 37: (3, 4), 57: (0, 1)}
+PROBE_MUTATED = {
+    36: "ok", 54: "ok", 64: "value", 292: "value", 298: "error", 368: "value", 380: "error",
+    410: "ok", 421: "ok", 454: "error", 510: "ok", 517: "ok", 562: "ok", 670: "ok", 697: "ok",
+    705: "error", 725: "error", 751: "error", 832: "error", 915: "ok", 1002: "error",
+    1012: "error", 1031: "ok", 1039: "ok", 1042: "ok"}
+# and of its "coded" files (JPEGs PIL cannot write): arithmetic scans whose
+# bad codes stop the segment and whose restarts resync as libjpeg does,
+# lossless scans whose rows after the data ran out keep zero differences,
+# and files the marker reader and table rules repaired
+PROBE_CODED = {28: "error", 94: "error", 100: "error", 108: "error", 112: "ok", 168: "ok",
+               181: "ok", 207: "ok", 234: "error", 281: "ok", 289: "ok", 291: "ok",
+               331: "error", 334: "ok", 335: "ok", 391: "ok", 392: "ok", 404: "ok",
+               416: "error"}
 JPEG_CASES = _jpeg_cases()
 
 
@@ -488,9 +529,12 @@ def test_jpeg_data_ends_and_damage_read_as_pil(case, tmp_path):
     """What a BLP1's JPEG (and any JPEG) does where its data ends or is
     damaged: a progressive stream must reach EOI, a one-scan stream must
     not run out inside its scan (libjpeg fills 57 bits ahead, or to a
-    marker); a code no table has decodes as 0; coefficients out of range
-    go through the SIMD IDCT's 16-bit lanes; PIL's pixels or its failure's
-    class, on ``png.read_gray`` and ``native.decode_u8``."""
+    marker, and 6 bytes at a time on its fast path); a code no table has
+    decodes as 0; coefficients out of range go through the SIMD IDCT's
+    16-bit lanes; the probe's files: PIL's outcome first, then PIL's pixels
+    or its failure's class on ``png.read_gray`` and ``native.decode_u8``,
+    and where PIL's open refuses the frame's sample depth (no plugin then:
+    "value") the port's refusal naming it."""
     data, want = JPEG_CASES[case]
     path = tmp_path / "f.jpg"
     path.write_bytes(data)
@@ -501,6 +545,8 @@ def test_jpeg_data_ends_and_damage_read_as_pil(case, tmp_path):
         if want == "ok":
             assert kind == "ok", got
             np.testing.assert_array_equal(got, pil[1])
+        elif want == "value":
+            assert kind == "refused" and "not 8-bit" in str(got), (kind, got)
         else:
             assert kind == "error", got
 

@@ -2324,6 +2324,7 @@ def small_files(seed: int) -> dict:
     files.update(unported_files(seed))
     files.update(raster_files(seed))
     files.update(container_files(seed))
+    files.update(layout_files(seed))
     return files
 
 
@@ -3457,6 +3458,469 @@ def container_files(seed: int) -> dict:
         "icns_jp2.icns": (encode_icns([(b"is32", icns_rgb(icon)), (b"ic11", j2k)]),
                           "ICNS whose best size is a JPEG 2000 codestream (PIL)",
                           {"refused": True, "refusal": "JPEG 2000", "pil_reads": True}),
+    }
+
+
+# ------------------------------------------------- raw-layout plugins
+# numpy-only encoders of the formats PIL reads behind a small header (the
+# card's machine has no PIL): MSP, XBM, XPM, IM, IMT, IPTC, SPIDER, GBR,
+# McIDAS, PIXAR, XVThumb, FITS, FLI / FLC and PCD
+
+
+def msp_rows(bits) -> list:
+    """An MSP LinS image's rows: (H, W) of 0/1 (1 white) packed MSB first,
+    each row coded as runs (0, count, byte) of repeated bytes and literals
+    (count, bytes...)."""
+    packed = np.packbits(np.asarray(bits, np.uint8), axis=1)
+    rows = []
+    for r in packed:
+        out, i = bytearray(), 0
+        while i < len(r):
+            j = i
+            while j < len(r) and r[j] == r[i] and j - i < 255:
+                j += 1
+            if j - i >= 3:
+                out += bytes([0, j - i, r[i]])
+                i = j
+                continue
+            k = i
+            while k < len(r) and k - i < 255 and not (k + 2 < len(r) and r[k] == r[k + 1] == r[k + 2]):
+                k += 1
+            out += bytes([k - i]) + bytes(r[i:k])
+            i = k
+        rows.append(bytes(out))
+    return rows
+
+
+def encode_msp(bits, kind: bytes = b"DanM", rows=None, checksum=None) -> bytes:
+    """(H, W) of 0/1 (1 white) as MSP: "DanM" raw bits at 32, or "LinS" a
+    row map of 16-bit lengths and RLE rows (``msp_rows``, or ``rows``); the
+    header's 16 words XOR to 0 unless ``checksum`` is given."""
+    bits = np.asarray(bits, np.uint8)
+    H, W = bits.shape
+    words = [struct.unpack("<H", kind[:2])[0], struct.unpack("<H", kind[2:4])[0], W, H,
+             1, 1, 1, 1, W, H, 0, 0, 0, 0, 0, 0]
+    x = 0
+    for w in words:
+        x ^= w
+    words[12] = x if checksum is None else checksum
+    head = struct.pack("<16H", *words)
+    if kind == b"DanM":
+        return head + np.packbits(bits, axis=1).tobytes()
+    rows = msp_rows(bits) if rows is None else rows
+    return head + struct.pack(f"<{len(rows)}H", *[len(r) for r in rows]) + b"".join(rows)
+
+
+def encode_xbm(bits, name: bytes = b"im", hotspot=None, per_line: int = 12,
+               sep: bytes = b", ") -> bytes:
+    """(H, W) of 0/1 as X11 bitmap text: LSB first hex bytes, rows padded
+    to a byte (PIL reads a set bit as white)."""
+    bits = np.asarray(bits, np.uint8)
+    H, W = bits.shape
+    packed = np.packbits(bits, axis=1, bitorder="little").reshape(-1)
+    out = b"#define %s_width %d\n#define %s_height %d\n" % (name, W, name, H)
+    if hotspot:
+        out += b"#define %s_x_hot %d\n#define %s_y_hot %d\n" % (name, hotspot[0], name, hotspot[1])
+    out += b"static char %s_bits[] = {\n" % name
+    hexes = [b"0x%02x" % v for v in packed]
+    out += b",\n".join(sep.join(hexes[i:i + per_line]) for i in range(0, len(hexes), per_line))
+    return out + b"};\n"
+
+
+XPM_CHARS = bytes(range(35, 127)).replace(b'"', b"").replace(b"\\", b"")
+
+
+def encode_xpm(indices, colours, cpp: int = 1, keys=None, pixels_comment: bool = True) -> bytes:
+    """(H, W) indices into ``colours`` (an (r, g, b) or None for the
+    transparent colour) as XPM text, ``cpp`` characters a pixel (``keys``:
+    each colour's key, default from ``XPM_CHARS``)."""
+    idx = np.asarray(indices)
+    H, W = idx.shape
+    if keys is None:
+        keys = []
+        for i in range(len(colours)):
+            k, j = b"", i
+            for _ in range(cpp):
+                k += XPM_CHARS[j % len(XPM_CHARS):j % len(XPM_CHARS) + 1]
+                j //= len(XPM_CHARS)
+            keys.append(k)
+    lines = [b"/* XPM */", b"static char *image[] = {", b"/* columns rows colors chars-per-pixel */",
+             b'"%d %d %d %d ",' % (W, H, len(colours), cpp)]
+    for k, c in zip(keys, colours):
+        v = b"None" if c is None else b"#%02x%02x%02x" % tuple(int(x) for x in c)
+        lines.append(b'"%s c %s",' % (k, v))
+    if pixels_comment:
+        lines.append(b"/* pixels */")
+    for r in range(H):
+        lines.append(b'"' + b"".join(keys[int(i)] for i in idx[r]) + b'",')
+    return b"\n".join(lines) + b"\n};\n"
+
+
+def encode_im(image_type: str, size, data: bytes, lut=None, extra=(), block: int = 512) -> bytes:
+    """An IM file: the text header ("Image type", "Image size (x*y)", then
+    ``extra`` lines) padded with zeros to ``block`` - 1 bytes and 0x1A, a
+    768-byte ``lut`` where given, then ``data`` (rows bottom-up, as PIL
+    reads them)."""
+    lines = [f"Image type: {image_type} image", f"Image size (x*y): {size[0]}*{size[1]}",
+             *extra]
+    if lut is not None:
+        lines.append("Lut: 1")
+    head = "".join(f"{ln}\r\n" for ln in lines).encode("latin-1")
+    head += b"\0" * max(0, block - 1 - len(head)) + b"\x1a"
+    return head + (bytes(np.asarray(lut, np.uint8)) if lut is not None else b"") + data
+
+
+def encode_imt(u8, comment: bytes = b"") -> bytes:
+    """(H, W) uint8 as an IM Tools file: width, height and ``pixel n8`` lines,
+    an optional ``*`` comment, form feed, the samples."""
+    H, W = u8.shape
+    return (b"width %d\nheight %d\n" % (W, H) + (b"*" + comment + b"\n" if comment else b"")
+            + b"pixel n8\n\x0c" + np.ascontiguousarray(u8, np.uint8).tobytes())
+
+
+def iptc_field(record: int, tag: int, data: bytes, extended: bool = False) -> bytes:
+    """One IPTC/NAA dataset: 0x1C, record, tag, a 16-bit length (or, with
+    ``extended``, 0x8004 and a 4-byte length), the data."""
+    if extended:
+        return bytes([0x1C, record, tag, 0x80, 0x04]) + struct.pack(">I", len(data)) + data
+    return bytes([0x1C, record, tag]) + struct.pack(">H", len(data)) + data
+
+
+def encode_iptc(w: int, h: int, payload: bytes, layers: int = 1, component: int = 0,
+                band=None, compression: int = 1, chunk: int = 30000) -> bytes:
+    """An IPTC/NAA image: record 3's layers and component (60), width (20),
+    height (30), band (65, 1-based) and compression (120: 1 raw, 5 JPEG),
+    then the (8, 10) data fields ``chunk`` bytes each (raw: the samples
+    without their P5 header; JPEG: the stream)."""
+    out = iptc_field(3, 60, bytes([layers, component])) + iptc_field(3, 20, struct.pack(">H", w))
+    out += iptc_field(3, 30, struct.pack(">H", h))
+    if band is not None:
+        out += iptc_field(3, 65, bytes([band]))
+    out += iptc_field(3, 120, bytes([compression]))
+    for i in range(0, max(1, len(payload)), chunk):
+        out += iptc_field(8, 10, payload[i:i + chunk], extended=chunk > 32767)
+    return out
+
+
+def encode_spider(img, big: bool = True, stack: int = 0) -> bytes:
+    """(H, W) float32 as SPIDER: a header of labrec records of W · 4 bytes
+    (nslice 1, nrow, iform 1, nsam, labrec, labbyt, lenbyt), the samples;
+    with ``stack`` > 0, a stack header (istack, maxim) and the first image's
+    own header before its samples."""
+    img = np.asarray(img, np.float32)
+    H, W = img.shape
+    lenbyt = W * 4
+    labrec = -(-1024 // lenbyt)
+    labbyt = labrec * lenbyt
+    hdr = np.zeros(max(labbyt // 4, 27), np.float64)
+    hdr[0], hdr[1], hdr[2], hdr[4] = 1, H, H, 1
+    hdr[11], hdr[12], hdr[21], hdr[22] = W, labrec, labbyt, lenbyt
+    dt = ">f4" if big else "<f4"
+    if stack:
+        top = hdr.copy()
+        top[23], top[25] = 2, stack  # istack, maxim
+        own = hdr.copy()
+        own[26] = 1  # imgnum
+        return (top.astype(dt).tobytes()[:labbyt] + own.astype(dt).tobytes()[:labbyt]
+                + img.astype(dt).tobytes())
+    return hdr.astype(dt).tobytes()[:labbyt] + img.astype(dt).tobytes()
+
+
+def encode_gbr(pixels, version: int = 2, name: bytes = b"brush", spacing: int = 10) -> bytes:
+    """(H, W) uint8 (depth 1) or (H, W, 4) RGBA (depth 4) as a GIMP brush,
+    version 1 or 2 ("GIMP" magic and spacing), the name NUL-terminated."""
+    px = np.asarray(pixels, np.uint8)
+    H, W = px.shape[:2]
+    depth = 1 if px.ndim == 2 else 4
+    size = (20 if version == 1 else 28) + len(name) + 1
+    head = struct.pack(">IIIII", size, version, W, H, depth)
+    if version == 2:
+        head += b"GIMP" + struct.pack(">I", spacing)
+    return head + name + b"\0" + px.tobytes()
+
+
+def encode_mcidas(pixels, bytes_per: int = 1, prefix: int = 0, bands: int = 1) -> bytes:
+    """(H, W) as a McIDAS area: the 256-byte directory (w[1..64] as PIL
+    numbers them: w[2] 4, w[9] lines, w[10] elements, w[11] bytes per
+    element, w[14] bands, w[15] the row prefix, w[34] the data's offset),
+    then rows of ``prefix`` zero bytes and ``bands`` × W big-endian
+    samples (band 0 holds the pixels)."""
+    px = np.asarray(pixels)
+    H, W = px.shape
+    w = [0] * 65
+    w[2], w[9], w[10], w[11], w[14], w[15], w[34] = 4, H, W, bytes_per, bands, prefix, 256
+    dt = {1: ">u1", 2: ">u2", 4: ">i4"}[bytes_per]
+    rows = b""
+    for r in px:
+        samples = np.zeros((bands, W), dt)
+        samples[0] = r
+        rows += bytes(prefix) + samples.tobytes()
+    return struct.pack(">64i", *w[1:]) + rows
+
+
+def encode_pixar(rgb, channels: int = 14, depth: int = 2) -> bytes:
+    """(H, W, 3) uint8 as a PIXAR raster: the magic, H at 416, W at 418, the
+    channel and depth words (14, 2: RGB), samples from 1024."""
+    rgb = np.asarray(rgb, np.uint8)
+    H, W = rgb.shape[:2]
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\x00\x00"
+    struct.pack_into("<HH", head, 416, H, W)
+    struct.pack_into("<HH", head, 424, channels, depth)
+    return bytes(head) + rgb.tobytes()
+
+
+def encode_xvthumb(indices, comments=(b"#XVVERSION:Version 2.28",)) -> bytes:
+    """(H, W) 3-3-2 palette indices as an XV thumbnail: "P7 332", comment
+    lines to "#END_OF_COMMENTS", "W H 255", the indices."""
+    idx = np.asarray(indices, np.uint8)
+    H, W = idx.shape
+    return (b"P7 332\n" + b"".join(c + b"\n" for c in comments) + b"#END_OF_COMMENTS\n"
+            + b"%d %d 255\n" % (W, H) + idx.tobytes())
+
+
+def fits_cards(cards) -> bytes:
+    """80-byte header cards ("KEY = value" or "END"), padded to 2880 bytes."""
+    out = b""
+    for c in cards:
+        if isinstance(c, tuple):
+            k, v = c
+            out += (k.encode().ljust(8) + b"= " + v.encode().rjust(20)).ljust(80)
+        else:
+            out += c.encode().ljust(80)
+    return out.ljust(-(-len(out) // 2880) * 2880)
+
+
+def encode_fits(img, bitpix: int = 8, naxis: int = 2, gzip_tile: bool = False,
+                gzip_members: int = 1, pad: bool = True) -> bytes:
+    """(H, W) as a FITS primary array (big-endian samples, rows bottom-up as
+    FITS stores them) of BITPIX 8, 16, 32, -32 or -64; ``naxis`` 1 stores
+    one row; without ``pad`` the data is not padded to 2880 bytes. With ``gzip_tile``, a primary header without data and a
+    BINTABLE extension holding ``ZIMAGE``/``ZCMPTYPE 'GZIP_1'`` whose heap is
+    gzip of 4-byte big-endian words (in ``gzip_members`` members)."""
+    import gzip as gz
+
+    a = np.asarray(img)
+    H, W = a.shape
+    dt = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    if not gzip_tile:
+        dims = [("NAXIS", "1"), ("NAXIS1", str(H * W))] if naxis == 1 else \
+            [("NAXIS", "2"), ("NAXIS1", str(W)), ("NAXIS2", str(H))]
+        head = fits_cards([("SIMPLE", "T"), ("BITPIX", str(bitpix)), *dims, "END"])
+        data = a.astype(dt).tobytes()
+        return head + data + (bytes(-len(data) % 2880) if pad else b"")
+    words = a.astype(">i4").tobytes()
+    cut = np.linspace(0, len(words), gzip_members + 1).astype(int)
+    heap = b"".join(gz.compress(words[x:y], mtime=0) for x, y in zip(cut[:-1], cut[1:]))
+    prim = fits_cards([("SIMPLE", "T"), ("BITPIX", "8"), ("NAXIS", "0"), "END"])
+    ext = fits_cards([("XTENSION", "'BINTABLE'"), ("BITPIX", "8"), ("NAXIS", "2"),
+                      ("NAXIS1", "8"), ("NAXIS2", "1"), ("ZIMAGE", "T"),
+                      ("ZCMPTYPE", "'GZIP_1  '"), ("ZBITPIX", str(bitpix)), ("ZNAXIS", "2"),
+                      ("ZNAXIS1", str(W)), ("ZNAXIS2", str(H)), "END"])
+    return prim + ext + bytes(8) + heap
+
+
+def fli_chunk(kind: int, body: bytes) -> bytes:
+    """One FLI subchunk: its size (6 + body), type, body."""
+    return struct.pack("<IH", 6 + len(body), kind) + body
+
+
+def fli_palette(pal, shift: int = 0, packets=None) -> bytes:
+    """COLOR_256 (shift 0) or COLOR_64 (shift 2) body: ``packets`` of (skip,
+    entries), default one packet of all 256 entries (count byte 0)."""
+    pal = np.asarray(pal, np.uint8) >> shift
+    if packets is None:
+        return struct.pack("<HBB", 1, 0, 0) + pal[:256].tobytes()
+    out, i = struct.pack("<H", len(packets)), 0
+    for skip, count in packets:
+        i += skip
+        out += bytes([skip, count % 256]) + pal[i:i + (count or 256)].tobytes()
+        i += count or 256
+    return out
+
+
+def fli_brun(idx) -> bytes:
+    """BRUN body: each line a packet count byte (ignored by PIL), runs of a
+    repeated index (count, value) and literals (-count, values)."""
+    out = bytearray()
+    for r in np.asarray(idx, np.uint8):
+        line, x, W = bytearray(), 0, len(r)
+        packets = 0
+        while x < W:
+            j = x
+            while j < W and r[j] == r[x] and j - x < 127:
+                j += 1
+            if j - x >= 2:
+                line += bytes([j - x, r[x]])
+                x = j
+            else:
+                k = x
+                while k < W and k - x < 128 and not (k + 1 < W and r[k] == r[k + 1]):
+                    k += 1
+                k = max(k, x + 1)
+                line += bytes([256 - (k - x)]) + bytes(r[x:k])
+                x = k
+            packets += 1
+        out += bytes([packets & 255]) + line
+    return bytes(out)
+
+
+def fli_lc(idx, prev) -> bytes:
+    """LC (byte delta) body against ``prev``: the first changed line, the
+    line count, then per line packets of (skip, count, bytes)."""
+    idx, prev = np.asarray(idx, np.uint8), np.asarray(prev, np.uint8)
+    rows = np.nonzero((idx != prev).any(1))[0]
+    if not len(rows):
+        return struct.pack("<HH", 0, 0)
+    y0, y1 = int(rows[0]), int(rows[-1]) + 1
+    out = bytearray(struct.pack("<HH", y0, y1 - y0))
+    for y in range(y0, y1):
+        diff = np.nonzero(idx[y] != prev[y])[0]
+        packets, x = [], 0
+        i = 0
+        while i < len(diff):
+            start = int(diff[i])
+            end = start + 1
+            while i + 1 < len(diff) and diff[i + 1] - end < 4 and diff[i + 1] + 1 - start <= 127:
+                i += 1
+                end = int(diff[i]) + 1
+            while start - x > 255:
+                packets.append(bytes([255, 0]))
+                x += 255
+            packets.append(bytes([start - x, end - start]) + bytes(idx[y, start:end]))
+            x = end
+            i += 1
+        out += bytes([len(packets)]) + b"".join(packets)
+    return bytes(out)
+
+
+def fli_ss2(idx, prev) -> bytes:
+    """SS2 (word delta) body against ``prev`` for an even width: the line
+    count, per line a skip word for unchanged lines before it and a packet
+    count, packets of (skip, word count, words)."""
+    idx, prev = np.asarray(idx, np.uint8), np.asarray(prev, np.uint8)
+    H, W = idx.shape
+    lines, out, skip = 0, bytearray(), 0
+    for y in range(H):
+        if (idx[y] == prev[y]).all():
+            skip += 1
+            continue
+        words = idx[y].reshape(-1, 2)
+        diff = np.nonzero((words != prev[y].reshape(-1, 2)).any(1))[0]
+        packets, x = [], 0
+        for w0 in diff:
+            w0 = int(w0)
+            while 2 * w0 - x > 255:
+                packets.append(bytes([255, 0]))
+                x += 255
+            packets.append(bytes([2 * w0 - x, 1]) + bytes(words[w0]))
+            x = 2 * w0 + 2
+        if skip:
+            out += struct.pack("<H", (65536 - skip) & 0xFFFF)
+            skip = 0
+        out += struct.pack("<H", len(packets)) + b"".join(packets)
+        lines += 1
+    return struct.pack("<H", lines) + bytes(out)
+
+
+def encode_fli(idx, pal, kind: int = 0xAF12, chunks=None, frames: int = 1,
+               prefix: bytes = b"") -> bytes:
+    """(H, W) palette indices as an FLI (0xAF11) or FLC (0xAF12) animation
+    of one frame: ``chunks`` (default a COLOR_256 palette and a BRUN of the
+    indices) inside an 0xF1FA frame at 128, after an optional 0xF100
+    ``prefix`` chunk body (FLC)."""
+    idx = np.asarray(idx, np.uint8)
+    H, W = idx.shape
+    if chunks is None:
+        chunks = [fli_chunk(4, fli_palette(pal)), fli_chunk(15, fli_brun(idx))]
+    body = b"".join(chunks)
+    frame = struct.pack("<IHH8x", 16 + len(body), 0xF1FA, len(chunks)) + body
+    pre = struct.pack("<IH", 6 + len(prefix), 0xF100) + prefix if prefix else b""
+    size = 128 + len(pre) + len(frame)
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHHI", head, 0, size, kind, frames, W, H, 8, 0, 5)
+    return bytes(head) + pre + frame
+
+
+def encode_pcd(y, cb, cr, orientation: int = 0) -> bytes:
+    """A Kodak PhotoCD base image: (512, 768) luma and (256, 384) Cb, Cr as
+    PIL's decoder takes them (at 96 · 2048, chunks of two luma rows and one
+    chroma row each), "PCD_" at 2048 and the orientation in byte 3586's low
+    bits."""
+    y, cb, cr = (np.asarray(a, np.uint8) for a in (y, cb, cr))
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation & 3
+    chunks = np.concatenate([y.reshape(256, 2 * 768), cb, cr], axis=1)
+    return bytes(head) + chunks.tobytes()
+
+
+def pcd_sample(seed: int, orientation: int = 0) -> bytes:
+    """A PhotoCD file from a seed: the scene as luma with noise, chroma
+    uniform in 60..199, in ``orientation``."""
+    rng = np.random.default_rng(seed)
+    y = np.clip(scene(512, 768, seed).astype(np.int64) + rng.integers(-20, 20, (512, 768)), 0, 255)
+    return encode_pcd(y, rng.integers(60, 200, (256, 384)), rng.integers(60, 200, (256, 384)),
+                      orientation)
+
+
+def layout_files(seed: int) -> dict:
+    """The fixtures of the raw-layout plugins (each under 4 KB; PCD's base
+    image is 786 KB, so it has none): an MSP of each kind, an XBM with a hot
+    spot, an XPM of 2 characters a pixel with a transparent colour, an IM of
+    L and one of a colour Lut, an IMT, an IPTC of raw data and one of a
+    JPEG's band, a little-endian SPIDER, a GBR version 2 RGBA brush, a
+    McIDAS of 2-byte samples with a row prefix, a PIXAR, an XV thumbnail,
+    FITS of BITPIX 8, 16 and -32 (their data unpadded) and a GZIP_1 tile
+    (two header blocks: 6.9 KB), an FLC of BRUN and an
+    FLI of COPY then an LC delta."""
+    from PIL import Image
+
+    h, w = 24, 32
+    g = scene(h, w, seed + 50)
+    rgb = scene(h, w, seed + 51, 3)
+    rng = np.random.default_rng(seed + 52)
+    bits = (g > 120).astype(np.uint8)
+    pal = rng.integers(0, 256, (256, 3))
+    idx = (g // 32).astype(np.uint8)
+    colours = [tuple(int(v) for v in c) for c in rng.integers(0, 256, (8, 3))]
+    colours[3] = None  # transparent, and so used by no pixel (PIL: not in the palette)
+    idx_xpm = np.where(idx == 3, 2, idx)
+    jpeg = _pil_save(Image.fromarray(g), "JPEG", quality=85)
+    delta = g.copy()
+    delta[5:11, 7:20] = 255 - delta[5:11, 7:20]
+    ramp = np.stack([np.arange(256)] * 3, 1)
+    return {
+        "msp_danm.msp": (encode_msp(bits), "MSP DanM, raw bits"),
+        "msp_lins.msp": (encode_msp(bits, b"LinS"), "MSP LinS, RLE rows"),
+        "xbm_hotspot.xbm": (encode_xbm(bits, hotspot=(3, 4)), "XBM with a hot spot"),
+        "xpm_2cpp.xpm": (encode_xpm(idx_xpm, colours, 2), "XPM, 2 characters a pixel, None"),
+        "im_l.im": (encode_im("Greyscale", (w, h), g[::-1].tobytes()), "IM, L, bottom-up"),
+        "im_lut.im": (encode_im("Greyscale", (w, h), idx[::-1].tobytes(), lut=rng.integers(
+            0, 256, 768)), "IM, L with a colour Lut (P)"),
+        "imt.imt": (encode_imt(g), "IM Tools, 8-bit"),
+        "iptc_raw.iim": (encode_iptc(w, h, g.tobytes()), "IPTC/NAA, raw L"),
+        "iptc_jpeg_band.iim": (encode_iptc(w, h, jpeg, 3, 1, 2, 5),
+                               "IPTC/NAA, a gray JPEG as band G of RGB"),
+        "spider_le.spi": (encode_spider(g[:, :20].astype(np.float32) * 1.5 - 20, big=False),
+                          "SPIDER, little-endian, 20 wide"),
+        "gbr_rgba.gbr": (encode_gbr(np.dstack([rgb[:16, :16], g[:16, :16]])),
+                         "GBR version 2, RGBA, 16×16"),
+        "mcidas_16.area": (encode_mcidas(g.astype(np.int64) * 2, 2, prefix=4),
+                           "McIDAS area, 2-byte samples, a 4-byte row prefix"),
+        "pixar.pxr": (encode_pixar(rgb[:8, :12]), "PIXAR, RGB, 12×8"),
+        "xvthumb.xv": (encode_xvthumb(g), "XV thumbnail, 3-3-2 palette"),
+        "fits_8.fits": (encode_fits(g[:20, :20], 8, pad=False), "FITS, BITPIX 8"),
+        "fits_16.fits": (encode_fits(g[:16, :16].astype(np.int64) * 3 - 100, 16, pad=False),
+                         "FITS, BITPIX 16 (PIL reads it little-endian)"),
+        "fits_float.fits": (encode_fits(g[:12, :12].astype(np.float64) / 2, -32, pad=False),
+                            "FITS, BITPIX -32"),
+        "fits_gzip.fits": (encode_fits(g.astype(np.int64) * 4, 16, gzip_tile=True),
+                           "FITS, BINTABLE GZIP_1 tile, ZBITPIX 16"),
+        "flc_brun.flc": (encode_fli(g, ramp), "FLC, COLOR_256 grey ramp, BRUN"),
+        "fli_lc.fli": (encode_fli(delta, pal, kind=0xAF11, chunks=[
+            fli_chunk(11, fli_palette(pal, 2)), fli_chunk(16, g.tobytes()),
+            fli_chunk(12, fli_lc(delta, g))]), "FLI, COLOR_64, COPY then an LC delta"),
     }
 
 
