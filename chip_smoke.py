@@ -3992,6 +3992,7 @@ IMAGE_KINDS_SEQ = "seq_prog"  # the 752×480 progressive stereo sequence
 IMAGE_KINDS_SEQ_FRAMES = 6
 IMAGE_KINDS_BASELINE = "seq_baseline"  # its first pair as baseline JPEGs
 IMAGE_KINDS_WEBP = "seq_webp"  # its first pair as lossy WebPs at quality 90
+IMAGE_KINDS_ZSTD = "seq_zstd"  # its first rendered pair as ZSTD TIFFs (libzstd; no zstd here)
 DECODE_TIMING_PAIRS = 10  # pairs of each PGM / PNG / TIFF / BMP tree in the decode timing
 # the sequence's keyframe trigger: fewer matches than this (every frame,
 # at 400 keypoints) makes a keyframe
@@ -4036,18 +4037,31 @@ def _image_kinds_encoders():
 
 
 # the TIFF kinds of image_kinds: (bits, compression, predictor) of a frame
-TIFF_KINDS = {"tiff_16bit_lzw_pred2": (16, 5, 2), "tiff_raw": (8, 1, 1),
-              "tiff_lzw_pred2": (8, 5, 2), "tiff_deflate": (8, 8, 1)}
+TIFF_KINDS = {"tiff_16bit_lzw_pred2": (16, 5, 2), "tiff_lzma_pred2": (8, 34925, 2),
+              "tiff_raw": (8, 1, 1), "tiff_lzw_pred2": (8, 5, 2), "tiff_deflate": (8, 8, 1)}
 
 
 def _write_tiff(job) -> None:
     """One frame as a TIFF of ``TIFF_KINDS[kind]`` in 16-row strips (the
-    LZW encoder is Python: image_kinds runs these in a process pool)."""
+    LZW encoder is Python, LZMA the standard library's ``lzma``:
+    image_kinds runs these in a process pool)."""
     path, kind, u8 = job
     bits, compression, predictor = TIFF_KINDS[kind]
     data = _image_kinds_encoders().encode_tiff(u8.astype(np.int64), bits=bits,
                                                compression=compression, predictor=predictor,
                                                rows_per_strip=16)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def _write_thunderscan(path, u8) -> None:
+    """A frame's top 4 bits as a ThunderScan TIFF (16-row strips), every
+    pixel a raw-pixel code (the fixtures' writer picks among all codes at
+    random in Python, too slow for 752 × 480; this one is numpy)."""
+    mk = _image_kinds_encoders()
+    img4 = (u8 >> 4).astype(np.int64)
+    data = mk.encode_tiff(img4, bits=4, compression=32809, rows_per_strip=16,
+                          codec=lambda blk: (0xC0 | blk[..., 0]).astype(np.uint8).tobytes())
     with open(path, "wb") as f:
         f.write(data)
 
@@ -4260,10 +4274,12 @@ def phase_image_kinds(ctx, cli_line):
     plain P2, as 16-bit LZW TIFF with predictor 2 and as gray GIF with an
     identity palette (in a process pool: both LZW encoders are Python), as
     bottom-up 8-bit BMP, as VP8L WebP, as RLE TGA, as RLE SGI, as PackBits
-    PSD and as FLC frame 0 (one BRUN chunk under a COLOR_256 grey ramp; the
-    pool again): ``cli run`` on the P5, TIFF, GIF, TGA and FLC trees by the
+    PSD, as FLC frame 0 (one BRUN chunk under a COLOR_256 grey ramp; the
+    pool again) and as 8-bit LZMA TIFF with predictor 2 in 16-row strips
+    (the standard library's ``lzma``, in the pool): ``cli run`` on the P5,
+    TIFF, GIF, TGA, FLC and LZMA trees by the
     native route and on the P2, BMP, VP8L, SGI and PSD trees with
-    ``--no-native``, the ten processes at once, each trajectory and launch
+    ``--no-native``, the eleven processes at once, each trajectory and launch
     count equal to ``cli_run``'s PNG run of the same route (every value is
     at most 255, so PIL reads the same pixels from all of them: any
     difference is a decode fault);
@@ -4287,7 +4303,9 @@ def phase_image_kinds(ctx, cli_line):
     four runs beside (c)'s);
     then decode ms per 752×480 pair, progressive against baseline JPEG,
     16-bit P5 against 8-bit PNG, and TIFF (uncompressed, LZW with predictor
-    2, Deflate, 16-bit LZW with predictor 2, the JPEG-in-TIFF and Group 4
+    2, Deflate, 16-bit LZW with predictor 2, LZMA with predictor 2, the
+    committed ZSTD pair with predictor 2, 4-bit ThunderScan of raw-pixel
+    codes, the JPEG-in-TIFF and Group 4
     trees, YCbCr 2×2 LZW and old-style JPEG), 8-bit BMP, GIF, VP8L WebP,
     the committed lossy WebP pair (quality 90), RLE TGA, RLE SGI, QOI, PCX,
     RLE Sun raster, DDS of BC1 and BC7 blocks, PackBits and raw PSD, BLP2
@@ -4368,7 +4386,8 @@ def phase_image_kinds(ctx, cli_line):
     # trajectory bit for bit whatever runs beside it: cli_run's native_again
     # gate)
     trees = {kind: os.path.join(work, f"tree_{kind}")
-             for kind in ("P5", "P2", "TIFF16", "BMP8", "GIF", "VP8L", "TGA", "SGI", "PSD", "FLC")}
+             for kind in ("P5", "P2", "TIFF16", "BMP8", "GIF", "VP8L", "TGA", "SGI", "PSD", "FLC",
+                          "LZMA")}
     raster_timing = {k: os.path.join(work, f"timing_{k}") for k in RASTER_TIMING}
     # (d) the libtiff codecs' trees and their PNG copies, and the first
     # pairs of the timing-only codecs
@@ -4377,7 +4396,7 @@ def phase_image_kinds(ctx, cli_line):
     codec_timing = {k: os.path.join(work, f"timing_{k}") for k in ("ycbcr22_lzw", "ojpeg22")}
     # the other TIFF kinds: the first pairs only, for the decode timing
     timing_trees = {k: os.path.join(work, f"timing_{k}") for k in TIFF_KINDS
-                    if k != "tiff_16bit_lzw_pred2"}
+                    if k not in ("tiff_16bit_lzw_pred2", "tiff_lzma_pred2")}
     names = sorted(os.listdir(os.path.join(ctx["tree"], "mav0", "cam0", "data")))
     timing_stems = {os.path.splitext(nm)[0] for nm in names[:DECODE_TIMING_PAIRS]}
     codec_stems = {os.path.splitext(nm)[0] for nm in names[:TIFF_CODEC_TIMING_PAIRS]}
@@ -4421,6 +4440,9 @@ def phase_image_kinds(ctx, cli_line):
                     codec_args.append((os.path.join(root, "mav0", cam, "data", stem + ".tif"),
                                        k, u8, None))
 
+        def write_lzma(path, u8):  # the standard library's lzma: in the pool too
+            tiff_jobs.append(pool.submit(_write_tiff, (path, "tiff_lzma_pred2", u8)))
+
         def written_in_the_pool(path, u8):
             pass
 
@@ -4431,6 +4453,7 @@ def phase_image_kinds(ctx, cli_line):
             trees["GIF"]: (".gif", write_gif_or_vp8l), trees["VP8L"]: (".webp", write_gif_or_vp8l),
             trees["TGA"]: (".tga", write_raster), trees["SGI"]: (".sgi", write_raster),
             trees["PSD"]: (".psd", write_raster), trees["FLC"]: (".flc", write_raster),
+            trees["LZMA"]: (".tif", write_lzma),
             **{root: (".png" if k.endswith("_png") else ".tif", written_in_the_pool)
                for k, root in codec_trees.items()}})
         codec_jobs = [pool.submit(_write_tiff_codec, a) for a in codec_args]
@@ -4440,7 +4463,7 @@ def phase_image_kinds(ctx, cli_line):
         trees_write_s = time.perf_counter() - t0
         routes = {"P5": (), "P2": ("--no-native",), "TIFF16": (), "BMP8": ("--no-native",),
                   "GIF": (), "VP8L": ("--no-native",), "TGA": (), "SGI": ("--no-native",),
-                  "PSD": ("--no-native",), "FLC": ()}
+                  "PSD": ("--no-native",), "FLC": (), "LZMA": ()}
         t0 = time.perf_counter()
         outs = _cli_concurrent(*[("run", "--dataroot", trees[k], "--config", ctx["euroc"],
                                   "--camera-config", ctx["cam_yaml"], *weights, "--gt", trees[k],
@@ -4542,6 +4565,9 @@ def phase_image_kinds(ctx, cli_line):
         return [with_size(os.path.join(root, "mav0", "cam0", "data", nm),
                           os.path.join(root, "mav0", "cam1", "data", nm)) for nm in names[:n]]
 
+    # ThunderScan pairs of the first frames' top 4 bits (numpy: written here)
+    thunder = os.path.join(work, "timing_thunderscan")
+    _rewrite_tree(ctx["tree"], {thunder: (".tif", _write_thunderscan)})
     prog_pair = tree_pairs(seq, 1)
     base_pair = [with_size(os.path.join(base, "cam0.jpg"), os.path.join(base, "cam1.jpg"))]
 
@@ -4556,6 +4582,11 @@ def phase_image_kinds(ctx, cli_line):
     tb_sets = {"png_8bit": sets["png_8bit"],
                **{k: tree_pairs(root, DECODE_TIMING_PAIRS) for k, root in timing_trees.items()},
                "tiff_16bit_lzw_pred2": tree_pairs(trees["TIFF16"], DECODE_TIMING_PAIRS),
+               "tiff_lzma_pred2": tree_pairs(trees["LZMA"], DECODE_TIMING_PAIRS),
+               "tiff_zstd_pred2": [with_size(os.path.join(IMAGE_KINDS, IMAGE_KINDS_ZSTD, "cam0.tif"),
+                                             os.path.join(IMAGE_KINDS, IMAGE_KINDS_ZSTD,
+                                                          "cam1.tif"))],
+               "tiff_thunderscan_4bit": tree_pairs(thunder, RASTER_TIMING_PAIRS),
                "bmp_8bit": tree_pairs(trees["BMP8"], DECODE_TIMING_PAIRS),
                "gif": tree_pairs(trees["GIF"], DECODE_TIMING_PAIRS),
                "webp_vp8l": tree_pairs(trees["VP8L"], DECODE_TIMING_PAIRS),

@@ -46,6 +46,7 @@
 #include <map>
 #include <memory>
 #include <mutex>
+#include <set>
 #include <string>
 #include <string_view>
 #include <thread>
@@ -65,11 +66,12 @@ enum Err {
   // ones too, and kPsdLab and kBlpFormat; it reads the rest, which the port
   // does not yet. 31, 32, 34-36 and 38-41 named GIF, WebP, ICO, CUR, QOI,
   // DDS, SGI, Sun raster and PCX before they were read; 13, 49 and 53
-  // named Pillow's own netpbm kinds, DCX and FTEX.
+  // named Pillow's own netpbm kinds, DCX and FTEX; 16, 17 and 20 TIFF's
+  // LZMA, ZSTD and ThunderScan.
   kPrecision = 5, kHierarchical = 6, kDNL = 7, kFractional = 8, kLosslessColour = 9,
   kArithLossless = 10, kComponents = 11, kMcuSize = 12,
-  kTiffJpeg = 14, kTiffOjpeg = 15, kTiffLzma = 16, kTiffZstd = 17, kTiffWebp = 18,
-  kTiffSgiLog = 19, kTiffThunderScan = 20, kTiffMode = 22, kTiffLab = 23,
+  kTiffJpeg = 14, kTiffOjpeg = 15, kTiffWebp = 18,
+  kTiffSgiLog = 19, kTiffMode = 22, kTiffLab = 23,
   kTiffRawMode = 24, kBmpHeader = 25, kBmpDepth = 26, kBmpCompression = 27,
   kBmpBitfields = 28, kBmpPalette = 29, kBmpRle = 30,
   kJpeg2000 = 33, kPsdLab = 37, kAvif = 42,
@@ -3096,17 +3098,13 @@ const char* native_runtime_error_string(int code) {
              "than SOF0/SOF1, or of sampling factors "
              "TIFF cannot state (libtiff's OJPEG then upsamples inside libjpeg): PIL reads it "
              "through libtiff; not read";
-    case kTiffLzma:
-      return "a TIFF with LZMA compression (34925): PIL reads it through libtiff; not read";
-    case kTiffZstd:
-      return "a TIFF with ZSTD compression (50000): PIL reads it through libtiff; not read";
     case kTiffWebp:
-      return "a TIFF with WebP compression (50001): PIL reads it through libtiff; not read";
+      return "a TIFF with WebP compression (50001): PIL does not read it either (Pillow's "
+             "libtiff is built without it: \"WEBP compression support is not configured\")";
     case kTiffSgiLog:
-      return "a TIFF with SGILog compression (34676, 34677): PIL reads it through libtiff; "
-             "not read";
-    case kTiffThunderScan:
-      return "a TIFF with ThunderScan compression (32809): PIL reads it through libtiff; not read";
+      return "a TIFF with SGILog compression (34676, 34677) of a photometric other than LogL or "
+             "LogLuv: PIL does not read it either (libtiff: \"Inappropriate photometric "
+             "interpretation\"; LogL and LogLuv are PIL's unknown pixel mode)";
     case kTiffMode:
       return "a TIFF whose (byte order, photometric, sample format, fill order, bits, extra "
              "samples) PIL's OPEN_INFO maps to no mode: PIL does not read it either "
@@ -3118,8 +3116,10 @@ const char* native_runtime_error_string(int code) {
       return "a TIFF whose layout asks PIL for a raw mode it lacks (uncompressed separate "
              "planes of LA, PA, RGBX or RGBa; fill order 2 at 8-bit min-is-white or palette), "
              "which PIL does not read either (\"unknown raw mode for given image mode\"), or a "
-             "compressed palette TIFF with an extra sample on separate planes, which PIL reads "
-             "past the end of its tile buffer: not read";
+             "compressed palette TIFF with an extra sample on separate planes, or compressed "
+             "tiles whose rows are shorter than PIL's raw mode reads (tags written twice), which "
+             "PIL reads past the end of its tile buffer (its pixels differ from read to read): "
+             "not read";
     case kBmpHeader:
       return "a BMP whose header size is not 12, 40, 52, 56, 64, 108 or 124: PIL does not "
              "read it either (\"Unsupported BMP header type\")";

@@ -4,18 +4,28 @@
 // order, bits per sample, extra samples), copied below; a key missing from
 // it is PIL's "unknown pixel mode".
 //
+// A tag written twice has two values: PIL's IFD keeps its last entry, and
+// that view decides the mode, raw mode, size, palette, orientation and the
+// route; libtiff keeps the first (TIFFReadDirectory ignores the later
+// ones), and that view decides all it decodes: codec, predictor, bits,
+// samples, planes, fill order, rows per strip, tiles, offsets, byte counts,
+// JPEG tables, subsampling, T4/T6 options, photometric. Pillow's
+// TiffDecode.c fails where the two meet badly: libtiff's image size other
+// than PIL's, a scanline other than the raw mode's row.
+//
 // Two routes, as PIL takes them:
 //   - uncompressed (1): PIL's own raw decoder over its tile list (strips or
 //     tiles, one layer per plane with PlanarConfiguration 2, each plane's
 //     rawmode the one character rawmode[layer]), reading from each offset on
 //     whatever the byte counts say, fill order 2 by the "R" rawmodes, the
 //     predictor ignored;
-//   - PackBits, LZW, Deflate, JPEG and CCITT: what libtiff hands Pillow's
-//     TiffDecode.c (YCbCr: TiffDecode.c's _decodeAsRGBA, below):
-//     the stored bytes bit-reversed under fill order 2, decompressed,
-//     16/32/64-bit samples of a big-endian file swapped to the (little-endian)
-//     host's order, the predictor undone (2 horizontal, 3 floating point:
-//     LZW and Deflate only, as libtiff's codecs set it up), then unpacked with
+//   - any other compression: what libtiff hands Pillow's TiffDecode.c
+//     (YCbCr: TiffDecode.c's _decodeAsRGBA, below): the stored bytes
+//     bit-reversed under fill order 2, decompressed (none, PackBits, LZW,
+//     Deflate, LZMA, ZSTD, ThunderScan, JPEG, CCITT), 16/32/64-bit samples
+//     of a big-endian file swapped to the (little-endian) host's order, the
+//     predictor undone (2 horizontal, 3 floating point: LZW, Deflate, LZMA
+//     and ZSTD, as libtiff's codecs set it up), then unpacked with
 //     the rawmode of the fill-order-1 key, "I;16" and ";16B"/";16L" read as
 //     native (the other big-endian rawmodes, I;16BS, I;32BS and F;32BF, keep
 //     their byte order and so read libtiff's swapped samples swapped again,
@@ -32,19 +42,21 @@
 // PIL reads it as a number, or by an XMP packet's tiff:Orientation where the
 // tag is absent.
 //
-// libtiff's own codecs, as it hands their output to Pillow: new-style JPEG
+// libtiff's own codecs, as it hands their output to Pillow: LZMA
+// (native_xz.h), ZSTD (native_zstd.h), ThunderScan (below), new-style JPEG
 // (native_tiff_jpeg.h), CCITT (native_fax3.h), and compressed YCbCr and
 // old-style JPEG through TIFFRGBAImage (native_tiff_ycbcr.h).
 //
-// Refused with a code that names the kind: LZMA, ZSTD, WebP, SGILog and
-// ThunderScan compression (PIL reads them through libtiff), the JPEG
+// Refused with a code that names the kind: WebP (Pillow's libtiff is built
+// without it) and SGILog on other photometrics than LogL / LogLuv (libtiff
+// refuses them; LogL and LogLuv are PIL's unknown pixel mode), the JPEG
 // layouts named in those headers, CIELAB (PIL's convert("L") raises),
 // unknown pixel modes and unknown raw modes (PIL raises on both), and
-// compressed palette images with an extra sample on separate planes.
+// layouts PIL reads past the end of its tile buffer.
 //
 // Included by native_runtime.cpp inside its anonymous namespace, after
-// native_pil.h and the JPEG decoder: it uses zlib_inflate, JpegDecoder and
-// the Err codes.
+// native_pil.h, native_png.h and the JPEG decoder: it uses zlib_inflate,
+// crc32, JpegDecoder and the Err codes.
 
 struct OpenInfo {
   char order;  // 'I' or 'M'
@@ -212,11 +224,24 @@ enum TiffTag {
 struct TiffEntry {
   int type = 0;
   uint64_t count = 0, off = 0;
+  uint64_t index = 0;  // its place in the IFD
+  bool past = false;   // its data lies past the file's end
 };
 
 struct TiffIfd {
   bool le = true, big = false;
-  std::map<int, std::vector<uint64_t>> tags;  // integer tags' values (last entry wins)
+  // PIL's view, which decides the mode, size, palette, orientation and the
+  // route: integer tags' values, the last entry of a tag winning
+  std::map<int, std::vector<uint64_t>> tags;
+  // libtiff's view, which decides what it decodes: the first entry of each
+  // tag (TIFFReadDirectory ignores later ones), where PIL could read it
+  std::map<int, std::vector<uint64_t>> first;
+  std::map<int, TiffEntry> first_entries;
+  bool libtiff_fails = false;  // TIFFFetchDirectory cannot read the IFD whole
+  // for EstimateStripByteCounts: the entries, the bytes of their data held
+  // outside the IFD, an entry of a type libtiff has no width for
+  uint64_t ifd_entries = 0, outside_bytes = 0;
+  bool unknown_width = false;
   // ImageOps.exif_transpose's orientation (PIL's load_end applies it): tag
   // 274's value where PIL reads it as a number 2-8, else 0; -1 where it is
   // absent, and then the first tiff:Orientation digit of an XMP packet
@@ -225,6 +250,10 @@ struct TiffIfd {
   int orientation = -1, xmp_orientation = -1;
   bool xmp_text = false;
   std::map<int, TiffEntry> entries;  // every entry PIL keeps, by tag (last wins)
+  // what PIL's value of a tag is in Python: 0 an int, 1 a whole number of
+  // another type (an IFDRational or float, which compares and hashes as
+  // that int), 2 anything else (bytes for BYTE and UNDEFINED, str for ASCII)
+  std::map<int, int> pil_kind;
   bool has(int t) const { return tags.count(t) > 0; }
   uint64_t get(int t, uint64_t dflt) const {
     auto it = tags.find(t);
@@ -287,6 +316,13 @@ int64_t tiff_whole_number(const uint8_t* v, int type, bool le) {
   }
 }
 
+// whether a RATIONAL, SRATIONAL, FLOAT or DOUBLE's first value is zero
+bool tiff_is_zero(const uint8_t* v, int type, bool le) {
+  if (type == 5 || type == 10) return tiff_uint(v, 4, le) == 0 && tiff_uint(v + 4, 4, le) != 0;
+  if (type == 11) return (tiff_uint(v, 4, le) & 0x7FFFFFFFu) == 0;
+  return (tiff_uint(v, 8, le) & 0x7FFFFFFFFFFFFFFFull) == 0;
+}
+
 // the digit of PIL's first match of rb'tiff:Orientation(="|>)([0-9])', or -1
 int xmp_orientation_digit(const uint8_t* p, size_t n) {
   static const char key[] = "tiff:Orientation";
@@ -311,29 +347,92 @@ int tiff_read_ifd(const uint8_t* d, size_t n, TiffIfd& ifd) {
   ifd.le = d[0] == 'I';
   ifd.big = d[2] == 43;
   const size_t head = ifd.big ? 16 : 8;
-  if (n < head) return kCorrupt;
+  if (n < head) return kPassOn;  // the header's offset: struct.error
   uint64_t pos = ifd.big ? tiff_uint(d + 8, 8, ifd.le) : tiff_uint(d + 4, 4, ifd.le);
+  if (pos == 0) return kPassOn;  // "no more images in TIFF file" (EOFError)
+  if (pos >= (uint64_t)1 << 63) return kCorrupt;  // "Unable to seek to frame" (ValueError)
   const int csize = ifd.big ? 8 : 2, esize = ifd.big ? 20 : 12, inline_max = ifd.big ? 8 : 4;
-  if (pos > n || n - pos < (uint64_t)csize) return kCorrupt;
-  const uint64_t count = tiff_uint(d + pos, csize, ifd.le);
+  // an IFD cut short keeps the entries read before the cut (load's OSError
+  // "Corrupt EXIF data" is a warning); none past the file
+  if (pos > n || n - pos < (uint64_t)csize) {
+    ifd.libtiff_fails = true;  // "Can not read TIFF directory count"
+    return kOk;
+  }
+  uint64_t count = tiff_uint(d + pos, csize, ifd.le);
   pos += csize;
-  if (count > (n - pos) / esize) return kCorrupt;
+  // TIFFFetchDirectory: "Sanity check on directory count failed", "Can not
+  // read TIFF directory"
+  ifd.libtiff_fails = count > 4096 || count > (n - pos) / esize;
+  count = std::min<uint64_t>(count, (n - pos) / esize);
+  std::set<int> seen;
+  bool pil_done = false;  // PIL's load ended at an entry whose data lies past the file
+  ifd.ifd_entries = count;
   for (uint64_t k = 0; k < count; ++k, pos += esize) {
     const uint8_t* e = d + pos;
     const int tag = (int)tiff_uint(e, 2, ifd.le), type = (int)tiff_uint(e + 2, 2, ifd.le);
+    const bool first = seen.insert(tag).second;
     const uint64_t cnt = tiff_uint(e + 4, ifd.big ? 8 : 4, ifd.le);
+    {  // TIFFDataWidth
+      const int w = tiff_type_size(type) ? tiff_type_size(type) : type == 17 || type == 18 ? 8 : 0;
+      if (!w || cnt > UINT64_MAX / 8) ifd.unknown_width = true;
+      else if (cnt * w > (uint64_t)inline_max) ifd.outside_bytes += cnt * w;
+    }
     const uint8_t* val = e + (ifd.big ? 12 : 8);
     const int unit = tiff_type_size(type);
-    if (!unit) continue;  // unsupported type: ignored
-    if (cnt == 0 || cnt > (uint64_t)1 << 40) continue;
+    if (!unit || cnt == 0 || cnt > (uint64_t)1 << 40) {
+      // PIL skips a type it does not know and an empty entry; libtiff
+      // cannot read either where it must
+      if (first) {
+        ifd.first[tag] = {};
+        ifd.first_entries[tag] = TiffEntry{type, cnt, 0, k, true};
+      }
+      continue;
+    }
     const uint64_t size = cnt * unit;
     const uint8_t* src = val;
     if (size > (uint64_t)inline_max) {
       const uint64_t off = tiff_uint(val, inline_max, ifd.le);
-      if (off > n || n - off < size) continue;  // "Possibly corrupt EXIF data": skipped
+      if (off > n || n - off < size) {
+        // PIL: "Truncated File Read", and its load ends there (the OSError
+        // a warning); libtiff fails on the entry where it must read it
+        pil_done = true;
+        if (first) {
+          ifd.first[tag] = {};
+          ifd.first_entries[tag] = TiffEntry{type, cnt, off, k, true};
+        }
+        continue;
+      }
       src = d + off;
     }
-    ifd.entries[tag] = TiffEntry{type, cnt, (uint64_t)(src - d)};
+    const TiffEntry entry{type, cnt, (uint64_t)(src - d), k};
+    std::vector<uint64_t> vals;
+    int kind = 2;
+    if (type == 1 || type == 3 || type == 4 || type == 6 || type == 8 || type == 9 ||
+        type == 13 || type == 16) {
+      vals.resize(cnt);
+      for (uint64_t i = 0; i < cnt; ++i) {
+        uint64_t v = tiff_uint(src + i * unit, unit, ifd.le);
+        if (type == 6) v = (uint64_t)(int64_t)(int8_t)v;
+        if (type == 8) v = (uint64_t)(int64_t)(int16_t)v;
+        if (type == 9) v = (uint64_t)(int64_t)(int32_t)v;
+        vals[i] = v;
+      }
+      kind = type == 1 ? 2 : 0;  // BYTE: bytes to PIL, a number to libtiff
+    } else if (type == 5 || type == 10 || type == 11 || type == 12) {
+      const int64_t v = tiff_whole_number(src, type, ifd.le);
+      const bool whole = v != 0 || tiff_is_zero(src, type, ifd.le);
+      vals.assign(1, (uint64_t)v);
+      kind = whole ? 1 : 2;
+    } else {
+      vals.assign(1, 0);  // present, not a number
+    }
+    if (first) {
+      ifd.first[tag] = vals;
+      ifd.first_entries[tag] = entry;
+    }
+    if (pil_done) continue;
+    ifd.entries[tag] = entry;
+    ifd.pil_kind[tag] = kind;
     if (tag == kTagOrientation) {
       const int64_t v = tiff_whole_number(src, type, ifd.le);
       ifd.orientation = v >= 2 && v <= 8 ? (int)v : 0;
@@ -345,23 +444,101 @@ int tiff_read_ifd(const uint8_t* d, size_t n, TiffIfd& ifd) {
       ifd.xmp_text = !bytes && !(cnt == 1 && std::all_of(src, src + size,
                                                        [](uint8_t b) { return b == 0; }));
     }
-    std::vector<uint64_t> vals;
-    if (type == 1 || type == 3 || type == 4 || type == 6 || type == 8 || type == 9 ||
-        type == 13 || type == 16) {
-      vals.resize(cnt);
-      for (uint64_t i = 0; i < cnt; ++i) {
-        uint64_t v = tiff_uint(src + i * unit, unit, ifd.le);
-        if (type == 6) v = (uint64_t)(int64_t)(int8_t)v;
-        if (type == 8) v = (uint64_t)(int64_t)(int16_t)v;
-        if (type == 9) v = (uint64_t)(int64_t)(int32_t)v;
-        vals[i] = v;
-      }
-    } else {
-      vals.assign(1, 0);  // present, not an integer
-    }
     ifd.tags[tag] = std::move(vals);
   }
   return kOk;
+}
+
+// the IFD as libtiff sees it: StripOffsets and TileOffsets set one field
+// (as do the two byte counts), the later entry of the pair in the IFD
+// winning
+TiffIfd tiff_libtiff_ifd(const TiffIfd& f) {
+  TiffIfd g = f;
+  g.tags = f.first;
+  g.entries = f.first_entries;
+  for (auto [a, b] : {std::pair<int, int>{273, 324}, {279, 325}}) {
+    const auto ea = g.entries.find(a), eb = g.entries.find(b);
+    if (ea == g.entries.end() || eb == g.entries.end()) continue;
+    const int win = ea->second.index > eb->second.index ? a : b;
+    g.tags[a] = g.tags[b] = g.tags[win];
+    g.entries[a] = g.entries[b] = g.entries[win];
+  }
+  return g;
+}
+
+// libtiff's TIFFIsTiled: a TileWidth or TileLength tag
+bool tiff_libtiff_tiled(const TiffIfd& f) { return f.has(322) || f.has(323); }
+
+// libtiff's segment layout: tiles of TileWidth × TileLength, a dimension
+// without its tag being what RowsPerStrip set it to (the image's width, the
+// rows a strip); else strips of RowsPerStrip rows (at most the image's).
+// The offsets and byte counts, padded with zeros to the segments' number
+// (TIFFFetchStripThing), or false where libtiff has none.
+// TIFFFetchStripThing: the first `k` values of a strile array entry
+// (TIFFReadDirEntryLong8ArrayWithLimit reads no more than the striles,
+// from where the entry's own count puts them), zeros past a short array;
+// false where the values do not lie in the file or are no integers
+bool tiff_strile_array(const uint8_t* d, size_t n, const TiffIfd& f, int tag, uint64_t k,
+                       std::vector<uint64_t>& out) {
+  const auto it = f.entries.find(tag);
+  const TiffEntry& e = it->second;
+  const int unit = tiff_type_size(e.type);
+  if (!(e.type == 1 || e.type == 3 || e.type == 4 || e.type == 6 || e.type == 8 ||
+        e.type == 9 || e.type == 13 || e.type == 16))
+    return false;
+  const uint64_t have = std::min<uint64_t>(e.count, k);
+  if (e.off > n || (n - e.off) / unit < have) return false;
+  out.assign((size_t)k, 0);
+  for (uint64_t i = 0; i < have; ++i) {
+    uint64_t v = tiff_uint(d + e.off + i * unit, unit, f.le);
+    if (e.type == 6) v = (uint64_t)(int64_t)(int8_t)v;
+    if (e.type == 8) v = (uint64_t)(int64_t)(int16_t)v;
+    if (e.type == 9) v = (uint64_t)(int64_t)(int32_t)v;
+    out[(size_t)i] = v;
+  }
+  return true;
+}
+
+bool tiff_libtiff_layout(const uint8_t* d, size_t n, const TiffIfd& f, int xsize, int ysize,
+                         int64_t& sw, int64_t& sh, std::vector<uint64_t>& offs,
+                         std::vector<uint64_t>& counts, int64_t planes) {
+  if (tiff_libtiff_tiled(f)) {
+    sw = (int64_t)f.get(kTagTileWidth, f.has(kTagRowsPerStrip) ? (uint64_t)xsize : 0);
+    sh = (int64_t)f.get(kTagTileLength, f.get(kTagRowsPerStrip, 0));
+  } else {
+    sw = xsize;
+    sh = (int64_t)std::min<uint64_t>(f.get(kTagRowsPerStrip, 0xFFFFFFFFu), (uint64_t)ysize);
+  }
+  if (sw <= 0 || sh <= 0 || sw > (1 << 24)) return false;
+  if (!f.has(kTagStripOffsets) && !f.has(kTagTileOffsets)) return false;
+  const uint64_t k = (uint64_t)((xsize + sw - 1) / sw * ((ysize + sh - 1) / sh) * planes);
+  const int offs_tag = f.has(kTagStripOffsets) ? kTagStripOffsets : kTagTileOffsets;
+  if (!tiff_strile_array(d, n, f, offs_tag, k, offs)) return false;
+  // EstimateStripByteCounts for a compressed image: the file less its
+  // header, IFD and outside data, a plane's share of it, the last cut at
+  // the file's end
+  auto estimate = [&]() {
+    if (f.get(kTagCompression, 1) == 1 || f.unknown_width) return false;
+    const uint64_t head = f.big ? 16 + 8 + f.ifd_entries * 20 + 8 : 8 + 2 + f.ifd_entries * 12 + 4;
+    const uint64_t used = head + f.outside_bytes;
+    uint64_t space = n < used ? n : n - used;
+    if (planes > 1) space /= (uint64_t)planes;
+    counts.assign((size_t)k, space);
+    const uint64_t last = offs.back();
+    if (last + counts.back() > n) counts.back() = last >= n ? 0 : n - last;
+    return true;
+  };
+  const bool one_strip = !tiff_libtiff_tiled(f) && k == 1;
+  if (!f.has(kTagStripBytes) && !f.has(kTagTileBytes)) {
+    // TIFFReadDirectory estimates them for one strip a plane, else
+    // "MissingRequired"
+    return (int64_t)k == planes && estimate();
+  }
+  const int counts_tag = f.has(kTagStripBytes) ? kTagStripBytes : kTagTileBytes;
+  if (!tiff_strile_array(d, n, f, counts_tag, k, counts)) return one_strip && estimate();
+  // "Bogus StripByteCounts field": one strip of 0 bytes at an offset
+  if (one_strip && counts[0] == 0 && offs[0] != 0) return estimate();
+  return true;
 }
 
 // ---------------------------------------------------------- the setup
@@ -378,25 +555,36 @@ struct TiffInfo {
   PilMode mode = kModeNone;
 };
 
-// TiffImageFile._setup up to the mode: kCorrupt where PIL raises other
-// than for the kind, kTiffMode for "unknown pixel mode"
+// TiffImageFile._setup up to the mode: kPassOn where it raises an error
+// Image.open takes for "not this format" (SyntaxError, TypeError,
+// KeyError, EOFError, struct.error: UnidentifiedImageError, unless a later
+// plugin opens the file), kCorrupt where it raises another, kTiffMode for
+// "unknown pixel mode"
 int tiff_setup(const uint8_t* d, size_t n, TiffInfo& t) {
   int rc = tiff_read_ifd(d, n, t.ifd);
   if (rc) return rc;
   const TiffIfd& f = t.ifd;
   if (f.has(0xBC01)) return kCorrupt;  // "Windows Media Photo files not yet supported"
+  auto kind = [&](int tag) {
+    const auto it = f.pil_kind.find(tag);
+    return it == f.pil_kind.end() ? 0 : it->second;
+  };
   t.compression = (int)f.get(kTagCompression, 1);
   static const int known[] = {1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946, 34676,
                               34677, 34925, 50000, 50001};
-  if (std::find(std::begin(known), std::end(known), t.compression) == std::end(known))
-    return kCorrupt;  // COMPRESSION_INFO has no name for it: KeyError
-  t.planar = (int)f.get(kTagPlanar, 1);
+  if (kind(kTagCompression) == 2 ||
+      std::find(std::begin(known), std::end(known), t.compression) == std::end(known))
+    return kPassOn;  // COMPRESSION_INFO has no name for it: KeyError
+  t.planar = kind(kTagPlanar) == 2 ? 1 : (int)f.get(kTagPlanar, 1);  // bytes: not 2
   t.photo = (int)f.get(kTagPhoto, 0);
   if (t.compression == 6) t.photo = 6;  // old-style JPEG: YCbCr
   t.fill = (int)f.get(kTagFill, 1);
-  if (!f.has(kTagWidth) || !f.has(kTagHeight)) return kCorrupt;
+  if (!f.has(kTagWidth) || !f.has(kTagHeight)) return kPassOn;  // "Missing dimensions"
+  if (kind(kTagWidth) || kind(kTagHeight)) return kCorrupt;  // "Invalid dimensions"
   const uint64_t xs = f.get(kTagWidth, 0), ys = f.get(kTagHeight, 0);
-  if (xs == 0 || ys == 0 || xs > (1 << 24) || ys > (1 << 24) || xs * ys > kMaxPixels)
+  if ((int64_t)xs <= 0 || (int64_t)ys <= 0)
+    return kPassOn;  // ImageFile: "not identified by this driver"
+  if (xs > (1 << 24) || ys > (1 << 24) || xs * ys > kMaxPixels)
     return kCorrupt;  // past PIL's decompression-bomb limit too
   t.xsize = (int)xs;
   t.ysize = (int)ys;
@@ -421,14 +609,98 @@ int tiff_setup(const uint8_t* d, size_t n, TiffInfo& t) {
   t.bps_count += (int)t.extra.size();
   const bool jpeg_colour = t.compression == 6 && (t.photo == 2 || t.photo == 6);
   const uint64_t spp = f.get(kTagSpp, jpeg_colour ? 3 : 1);
-  if (spp > 6) return kCorrupt;  // "Invalid value for samples per pixel"
+  if (kind(kTagSpp) == 2) return kPassOn;  // bytes > int: TypeError
+  if (spp > 6) return kPassOn;  // "Invalid value for samples per pixel" (SyntaxError)
   t.spp = (int)spp;
   if (spp < t.bps.size()) t.bps.resize(spp);
   else if (spp > t.bps.size() && t.bps.size() == 1) t.bps.assign(spp, t.bps[0]);
-  if (t.bps.size() != spp) return kCorrupt;  // "unknown data organization"
+  if (t.bps.size() != spp) return kPassOn;  // "unknown data organization" (SyntaxError)
+  // a value PIL holds as bytes or a str is in no OPEN_INFO key
+  for (int tag : {(int)kTagPhoto, (int)kTagFill, (int)kTagSampleFormat, (int)kTagBps,
+                  (int)kTagExtra})
+    if (kind(tag) == 2 && !(tag == kTagPhoto && t.compression == 6)) return kTiffMode;
   t.key = open_info(t.ifd.le ? 'I' : 'M', t.photo, t.sf, t.fill, t.bps, t.extra);
   if (!t.key) return kTiffMode;
   t.mode = pil_mode(t.key->mode);
+  return kOk;
+}
+
+// the fields libtiff decodes PIL's libtiff route with, from its own view
+// of the IFD (mode, raw mode, size, palette and orientation stay PIL's):
+// kCorrupt where libtiff's TIFFReadDirectory fails on them, or where
+// Pillow's TiffDecode.c finds libtiff's image size other than its own
+int tiff_libtiff_view(const TiffInfo& t, TiffInfo& lt) {
+  if (t.ifd.libtiff_fails) return kCorrupt;
+  lt = t;
+  lt.ifd = tiff_libtiff_ifd(t.ifd);
+  TiffIfd& f = lt.ifd;
+  // TIFFReadDirectory's reads of the tags that size the image: one value
+  // (TIFFReadDirEntryShort / Long) of an integer type within the field's
+  // range, or one a sample where it takes that (Persample), then
+  // _TIFFVSetField's checks; a failure fails the open where the tag is
+  // essential, and drops the tag (its default) where libtiff recovers
+  auto value_of = [&](int tag, uint64_t max, bool per_sample, uint64_t spp,
+                      uint64_t& v) -> bool {
+    const TiffEntry& e = f.entries[tag];
+    const int type = e.type;
+    const bool is_int = type == 1 || type == 3 || type == 4 || type == 6 || type == 8 ||
+                        type == 9 || type == 16;
+    if (!is_int || (e.count != 1 && (!per_sample || e.count < spp)) || e.past) return false;
+    const std::vector<uint64_t>& vals = f.tags[tag];
+    const bool is_signed = type == 6 || type == 8 || type == 9;
+    auto fits = [&](uint64_t x) { return !(is_signed && (int64_t)x < 0) && x <= max; };
+    if (vals.size() == 1) {
+      v = vals[0];
+      return fits(v);
+    }
+    if (!per_sample || vals.size() < spp) return false;
+    for (uint64_t i = 0; i < spp; ++i)
+      if (!fits(vals[i]) || vals[i] != vals[0]) return false;
+    v = vals[0];
+    return true;
+  };
+  uint64_t v = 0, spp_v = 1;
+  if (f.has(kTagSpp)) {
+    if (!value_of(kTagSpp, 0xFFFF, false, 1, spp_v) || spp_v == 0) return kCorrupt;
+  }
+  if (f.has(kTagCompression) && !value_of(kTagCompression, 0xFFFF, true, spp_v, v))
+    return kCorrupt;
+  for (int tag : {(int)kTagWidth, (int)kTagHeight, (int)kTagTileWidth, (int)kTagTileLength,
+                  (int)kTagRowsPerStrip})
+    if (f.has(tag) && (!value_of(tag, 0xFFFFFFFFu, false, 1, v) ||
+                       (tag == kTagRowsPerStrip && v == 0)))
+      return kCorrupt;
+  if (f.has(kTagPlanar) && (!value_of(kTagPlanar, 0xFFFF, false, 1, v) || (v != 1 && v != 2)))
+    return kCorrupt;
+  for (int tag : {(int)kTagBps, (int)kTagSampleFormat})
+    if (f.has(tag) && (!value_of(tag, 0xFFFF, true, spp_v, v) ||
+                       (tag == kTagSampleFormat && (v < 1 || v > 6))))
+      return kCorrupt;
+  if (f.has(kTagExtra)) {  // setExtraSamples: at most a sample each, 0-2 (999 read as 2)
+    const std::vector<uint64_t>& ex = f.tags[kTagExtra];
+    const int type = f.entries[kTagExtra].type;
+    if (!(type == 1 || type == 3 || type == 4 || type == 16) || ex.size() > spp_v) return kCorrupt;
+    for (uint64_t x : ex)
+      if (x > 2 && x != 999) return kCorrupt;
+  }
+  for (int tag : {(int)kTagPhoto, (int)kTagFill, (int)kTagPredictor})
+    if (f.has(tag) && (!value_of(tag, 0xFFFF, false, 1, v) ||
+                       (tag == kTagFill && v != 1 && v != 2))) {
+      f.tags.erase(tag);  // recovered: the default
+      f.entries.erase(tag);
+    }
+  lt.compression = (int)f.get(kTagCompression, 1);
+  lt.planar = (int)f.get(kTagPlanar, 1);
+  lt.photo = (int)f.get(kTagPhoto, 0);
+  if (lt.compression == 6) lt.photo = 6;
+  lt.fill = (int)f.get(kTagFill, 1);
+  if (f.get(kTagWidth, 0) != (uint64_t)t.xsize || f.get(kTagHeight, 0) != (uint64_t)t.ysize)
+    return kCorrupt;
+  const bool jpeg_colour = lt.compression == 6 && (lt.photo == 2 || lt.photo == 6);
+  lt.spp = f.has(kTagSpp) ? (int)spp_v : jpeg_colour ? 3 : 1;
+  lt.bps.assign(lt.spp, f.get(kTagBps, 1));  // one value for every sample
+  lt.sf.assign(lt.spp, f.get(kTagSampleFormat, 1));
+  lt.extra = f.tuple(kTagExtra, {});
   return kOk;
 }
 
@@ -555,8 +827,72 @@ void fp_acc(uint8_t* row, size_t bytes, int bits, int stride, std::vector<uint8_
     for (int b = 0; b < bps; ++b) row[bps * c + b] = tmp[(size_t)(bps - b - 1) * wc + c];
 }
 
+// libtiff's ThunderScan decoder (tif_thunder.c's ThunderDecode, one call
+// a row of `width` 4-bit pixels packed two to a byte): a 2-bit code and 6
+// bits of data a byte: a run of the last pixel, three 2-bit or two 3-bit
+// deltas (code 2 and 4 emit nothing), or a raw pixel. A row must end at
+// exactly `width` pixels: a run past it is "Too much data", the strip's end
+// before it "Not enough data", both fatal.
+bool thunder_decode(const uint8_t* p, size_t n, std::vector<uint8_t>& out, size_t rows,
+                    size_t row_bytes, int width) {
+  static const int two[4] = {0, 1, 0, -1};
+  static const int three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  out.assign(rows * row_bytes, 0);
+  size_t i = 0;
+  for (size_t r = 0; r < rows; ++r) {
+    uint8_t* op = out.data() + r * row_bytes;
+    unsigned last = 0;
+    int64_t npixels = 0;
+    const int64_t maxpixels = width;
+    auto set = [&](unsigned v) {
+      last = v & 0xF;
+      if (npixels < maxpixels) {
+        if (npixels++ & 1) *op++ |= (uint8_t)last;
+        else op[0] = (uint8_t)(last << 4);
+      }
+    };
+    while (i < n && npixels < maxpixels) {
+      int c = p[i++], delta;
+      switch (c & 0xC0) {
+        case 0x00: {  // a run of the last pixel, c & 0x3F long
+          int k = c & 0x3F;
+          if (npixels & 1) {
+            op[0] |= (uint8_t)last;
+            last = *op++;
+            ++npixels;
+            --k;
+          } else {
+            last |= last << 4;
+          }
+          npixels += k;
+          if (npixels <= maxpixels)  // a run may end the row
+            for (; k > 0; k -= 2) *op++ = (uint8_t)last;
+          if (k == -1) *--op &= 0xF0;
+          last &= 0xF;
+          break;
+        }
+        case 0x40:
+          if ((delta = (c >> 4) & 3) != 2) set((unsigned)((int)last + two[delta]));
+          if ((delta = (c >> 2) & 3) != 2) set((unsigned)((int)last + two[delta]));
+          if ((delta = c & 3) != 2) set((unsigned)((int)last + two[delta]));
+          break;
+        case 0x80:
+          if ((delta = (c >> 3) & 7) != 4) set((unsigned)((int)last + three[delta]));
+          if ((delta = c & 7) != 4) set((unsigned)((int)last + three[delta]));
+          break;
+        default:
+          set((unsigned)c);
+      }
+    }
+    if (npixels != maxpixels) return false;
+  }
+  return true;
+}
+
 #include "native_fax3.h"
 #include "native_tiff_jpeg.h"
+#include "native_xz.h"
+#include "native_zstd.h"
 
 // what libtiff's codecs know of the segment they decode
 struct TiffSeg {
@@ -565,6 +901,9 @@ struct TiffSeg {
   bool separate = false;  // one plane of PlanarConfiguration 2
   bool tile = false;      // a tile (libtiff reads it with TIFFReadEncodedTile)
   bool raw = false;       // the predictor left undone (libtiff's own refusal)
+  // TIFFRGBAImage (stoponerr 0) goes on past a codec's failure, with what
+  // the codec left in the strip buffer: what it decoded, then zeros
+  bool tolerant = false;
   FaxCodec* fax = nullptr;  // libtiff's CCITT codec state, kept across segments
 };
 
@@ -572,7 +911,8 @@ struct TiffSeg {
 int tiff_segment(const uint8_t* d, size_t n, const TiffInfo& t, uint64_t off, uint64_t count,
                  size_t rows, size_t row_bytes, int samples_per_row_pixel, int bits,
                  std::vector<uint8_t>& out, const TiffSeg& sg) {
-  if (off > n || n - off < count) return kCorrupt;
+  // TIFFFillStrip / TIFFFillTile: "Invalid strip byte count", "Read error"
+  if (count == 0 || off > n || n - off < count) return kCorrupt;
   if (t.compression == 7)  // libtiff's JPEG codec reverses no bits
     return tiff_jpeg_segment(d, n, t, d + off, (size_t)count, sg.w, sg.h, sg.last, sg.separate,
                              rows, row_bytes, out);
@@ -588,16 +928,32 @@ int tiff_segment(const uint8_t* d, size_t n, const TiffInfo& t, uint64_t off, ui
     return sg.tile ? kOk : rc;
   }
   bool ok;
-  if (t.compression == 32773) {
+  if (t.compression == 1) {  // DumpModeDecode: "Not enough data for scanline"
+    ok = src.size() >= expect;
+    out.assign(src.begin(), src.begin() + (ok ? expect : 0));
+  } else if (t.compression == 32773) {
     ok = packbits_decode(src.data(), src.size(), out, expect);
   } else if (t.compression == 5) {
     ok = lzw_decode(src.data(), src.size(), out, expect);
+  } else if (t.compression == 34925) {
+    ok = xz_decode(src.data(), src.size(), out, expect);
+  } else if (t.compression == 50000) {
+    ok = zstd_decode(src.data(), src.size(), out, expect);
+  } else if (t.compression == 32809) {
+    // ThunderSetupDecode takes 4-bit samples only; no tile decoder
+    ok = bits == 4 && !sg.tile && thunder_decode(src.data(), src.size(), out, rows, row_bytes, sg.w);
   } else {
     ok = zlib_inflate(src.data(), src.size(), out, expect) == kOk && out.size() >= expect;
     if (ok) out.resize(expect);
   }
+  if (!ok && sg.tolerant) {
+    out.resize(expect, 0);
+    return kOk;  // the predictor only runs after a decode that succeeds
+  }
   if (!ok) return kCorrupt;
-  const int predictor = (t.compression == 32773 || sg.raw) ? 1 : (int)t.ifd.get(kTagPredictor, 1);
+  const bool predicts = t.compression != 1 && t.compression != 32773 && t.compression != 32809 &&
+                        !sg.raw;
+  const int predictor = predicts ? (int)t.ifd.get(kTagPredictor, 1) : 1;
   const bool swab = !t.ifd.le && (bits == 16 || bits == 32 || bits == 64) && predictor != 3;
   if (swab) {
     const int bb = bits / 8;
@@ -623,7 +979,7 @@ int tiff_segment(const uint8_t* d, size_t n, const TiffInfo& t, uint64_t off, ui
 // --------------------------------------------------------- the decode
 int tiff_palette(const TiffInfo& t, PilImage& im) {
   auto it = t.ifd.tags.find(kTagColorMap);
-  if (it == t.ifd.tags.end()) return kCorrupt;  // KeyError
+  if (it == t.ifd.tags.end()) return kPassOn;  // self.tag_v2[COLORMAP]: KeyError
   const std::vector<uint64_t>& cm = it->second;
   const size_t entries = cm.size() / 3;
   if (entries > 256) return kCorrupt;  // "invalid palette size"
@@ -647,7 +1003,7 @@ int decode_tiff_raw(const uint8_t* d, size_t n, const TiffInfo& t, PilImage& im)
     w = (int64_t)f.get(kTagTileWidth, 0);
     h = (int64_t)f.get(kTagTileLength, 0);
   } else {
-    return kCorrupt;  // "unknown data organization"
+    return kPassOn;  // "unknown data organization" (SyntaxError)
   }
   if (w <= 0 || h <= 0) return kCorrupt;
   if (w == t.xsize && h == t.ysize && t.planar != 2 && !offsets.empty())
@@ -663,7 +1019,7 @@ int decode_tiff_raw(const uint8_t* d, size_t n, const TiffInfo& t, PilImage& im)
     double stride = x + w > t.xsize ? (double)w * sum_bps / 8 : 0.0;
     std::string tile_raw = raw;
     if (t.planar == 2) {
-      if (layer >= raw.size()) return kCorrupt;  // IndexError
+      if (layer >= raw.size()) return kPassOn;  // rawmode[layer]: IndexError
       tile_raw = std::string(1, raw[layer]);
       stride /= t.bps_count;
     }
@@ -692,13 +1048,17 @@ int decode_tiff_raw(const uint8_t* d, size_t n, const TiffInfo& t, PilImage& im)
   return kOk;
 }
 
-int decode_tiff_codec(const uint8_t* d, size_t n, const TiffInfo& t, PilImage& im) {
-  const TiffIfd& f = t.ifd;
+// PIL's raw mode on its libtiff route (TiffImagePlugin._setup, PIL's view)
+const UnpackerDef* tiff_libtiff_unpacker(const TiffInfo& t, int& rc) {
   // libtiff undoes the fill order itself: PIL takes the fill-order-1 key
   const OpenInfo* key = t.key;
+  rc = kOk;
   if (t.fill == 2) {
     key = open_info(key->order, key->photo, t.sf, 1, t.bps, t.extra);
-    if (!key) return kTiffMode;
+    if (!key) {
+      rc = kTiffMode;
+      return nullptr;
+    }
   }
   std::string raw = key->raw;
   // new-style JPEG YCbCr on one plane: libjpeg converts it to RGB
@@ -708,42 +1068,53 @@ int decode_tiff_codec(const uint8_t* d, size_t n, const TiffInfo& t, PilImage& i
                               raw.compare(raw.size() - 4, 4, ";16L") == 0))
     raw.back() = 'N';
   const UnpackerDef* u = find_unpacker(t.mode, raw);
-  if (!u) return kTiffRawMode;
-  const int bits = (int)t.bps[0];
-  for (uint64_t b : t.bps)
-    if ((int)b != bits) return kCorrupt;
-  const bool tiled = !f.has(kTagStripOffsets) && f.has(kTagTileOffsets);
+  if (!u) rc = kTiffRawMode;
+  return u;
+}
+
+// TiffDecode.c's _decodeStrip / _decodeTile: libtiff decodes by its view
+// (lt), PIL unpacks by its mode and raw mode (t)
+int decode_tiff_codec(const uint8_t* d, size_t n, const TiffInfo& t, const TiffInfo& lt,
+                      PilImage& im) {
+  const TiffIfd& f = lt.ifd;
+  int rc;
+  const UnpackerDef* u = tiff_libtiff_unpacker(t, rc);
+  if (!u) return rc;
+  const int bits = (int)lt.bps[0];
+  const bool tiled = tiff_libtiff_tiled(f);
   // TiffDecode.c reads separate planes band by band only for modes of more
   // than one band; a palette image with an extra plane ("PX") it unpacks as
   // chunky from the first plane, past the end of each tile's rows: refused
-  if (t.planar == 2 && t.spp > 1 && pil_bands(t.mode) == 1) return kTiffRawMode;
-  const bool separate = t.planar == 2 && t.spp > 1;
+  if (lt.planar == 2 && lt.spp > 1 && pil_bands(t.mode) == 1) return kTiffRawMode;
+  const bool separate = lt.planar == 2 && lt.spp > 1;
   if (separate && ((bits != 8 && bits != 16) || (!tiled && u->bits != pil_bands(t.mode) * bits)))
     return kCorrupt;  // TiffDecode.c refuses the layout
   const int planes = separate ? pil_bands(t.mode) : 1;
-  const int spp_plane = t.planar == 2 ? 1 : t.spp;  // samples per pixel in a stored plane
+  const int spp_plane = lt.planar == 2 ? 1 : lt.spp;  // samples per pixel in a stored plane
   std::vector<uint64_t> offs, counts;
   int64_t sw, sh;
-  if (tiled) {
-    offs = f.tuple(kTagTileOffsets, {});
-    counts = f.tuple(kTagTileBytes, {});
-    sw = (int64_t)f.get(kTagTileWidth, 0);
-    sh = (int64_t)f.get(kTagTileLength, 0);
-  } else {
-    offs = f.tuple(kTagStripOffsets, {});
-    counts = f.tuple(kTagStripBytes, {});
-    sw = t.xsize;
-    sh = (int64_t)std::min<uint64_t>(f.get(kTagRowsPerStrip, 0xFFFFFFFFu), (uint64_t)t.ysize);
-  }
-  if (sw <= 0 || sh <= 0 || sw > (1 << 24)) return kCorrupt;
+  const int stored_planes = lt.planar == 2 ? lt.spp : 1;
+  if (!tiff_libtiff_layout(d, n, f, t.xsize, t.ysize, sw, sh, offs, counts, stored_planes))
+    return kCorrupt;
   const int64_t across = (t.xsize + sw - 1) / sw, down = (t.ysize + sh - 1) / sh;
   const int64_t per_plane = across * down;
-  const int stored_planes = t.planar == 2 ? t.spp : 1;
-  if ((int64_t)offs.size() < per_plane * stored_planes ||
-      (int64_t)counts.size() < per_plane * stored_planes)
-    return kCorrupt;
+  // _decodeStrip: TIFFScanlineSize must be the unpacker's row to the byte;
+  // _decodeTile: TIFFTileSize may not pass ((length * bits / planes + 7) /
+  // 8) * width (sic), and an unpacker's row longer than TIFFTileRowSize
+  // reads the next row, and past the tile buffer at a tile's last row
   const size_t row_bytes = ((size_t)sw * spp_plane * bits + 7) / 8;
-  if (!separate && (size_t)u->bits * sw > row_bytes * 8) return kCorrupt;
+  const size_t unpacker_bytes = ((size_t)sw * u->bits / planes + 7) / 8;
+  if (tiled) {
+    if ((size_t)sh * row_bytes > ((size_t)sh * u->bits / planes + 7) / 8 * (size_t)sw)
+      return kCorrupt;
+    if (!separate && unpacker_bytes > row_bytes) return kTiffRawMode;
+  } else {
+    if (!separate && row_bytes != unpacker_bytes) return kCorrupt;
+    // a RowsPerStrip past 2^31 - 1 (but 2^32 - 1, the image's height) is
+    // _decodeStrip's memory error (probed)
+    const uint64_t rps = f.get(kTagRowsPerStrip, 0xFFFFFFFFu);
+    if (rps != 0xFFFFFFFFu && rps > 0x7FFFFFFFu) return kCorrupt;
+  }
   // Pillow's strip or tile buffer: what a segment's decoder leaves unwritten
   // reads as the previous segment left it
   std::vector<std::vector<uint8_t>> seg(planes);
@@ -759,8 +1130,8 @@ int decode_tiff_codec(const uint8_t* d, size_t n, const TiffInfo& t, PilImage& i
     sg.tile = tiled;
     sg.fax = &fax;
     for (int p = 0; p < planes; ++p) {
-      const int rc = tiff_segment(d, n, t, offs[p * per_plane + s], counts[p * per_plane + s],
-                                  rows, row_bytes, spp_plane, bits, seg[p], sg);
+      rc = tiff_segment(d, n, lt, offs[p * per_plane + s], counts[p * per_plane + s], rows,
+                        row_bytes, spp_plane, bits, seg[p], sg);
       if (rc) return rc;
     }
     const int xs = (int)std::min<int64_t>(sw, t.xsize - x0);
@@ -829,34 +1200,48 @@ int decode_tiff(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, 
   w = t.w;
   h = t.h;
   if (t.mode == kModeLAB) return kTiffLab;
-  switch (t.compression) {
-    case 1: case 5: case 8: case 32946: case 32773: break;
-    case 2: case 3: case 4: case 32771: case 6: case 7: break;
-    case 34925: return kTiffLzma;
-    case 50000: return kTiffZstd;
+  PilImage im;
+  if (t.compression == 1) {  // PIL's raw decoder, by PIL's view alone
+    im.alloc(t.mode, t.xsize, t.ysize);  // the stored size (PIL's _tile_size)
+    if (t.mode == kModeP || t.mode == kModePA) {
+      if ((rc = tiff_palette(t, im))) return rc;
+    }
+    if ((rc = decode_tiff_raw(d, n, t, im))) return rc;
+    if (t.xmp_fails) return kCorrupt;  // "cannot use a bytes pattern on a string-like object"
+    tiff_orient(im, t.orientation);
+    return pil_to_gray(im, gray);
+  }
+  TiffInfo lt;
+  if ((rc = tiff_libtiff_view(t, lt))) return rc;
+  switch (lt.compression) {
     case 50001: return kTiffWebp;
     case 34676: case 34677: return kTiffSgiLog;
-    default: return kTiffThunderScan;  // 32809
+    default: break;
   }
   // libtiff's codecs: JPEG of 8-bit samples (12-bit gray has a mode in PIL,
   // whose libtiff hands it 16-bit words), CCITT of 1-bit ones
-  for (uint64_t b : t.bps) {
-    if (t.compression == 7 && b != 8) return b == 12 ? kTiffJpeg : kCorrupt;
-    if (is_ccitt(t.compression) && b != 1) return kCorrupt;  // "Bits/sample must be 1"
+  for (uint64_t b : lt.bps) {
+    if (lt.compression == 7 && b != 8) return b == 12 ? kTiffJpeg : kCorrupt;
+    if (is_ccitt(lt.compression) && b != 1) return kCorrupt;  // "Bits/sample must be 1"
   }
-  if (t.xmp_fails) return kCorrupt;  // "cannot use a bytes pattern on a string-like object"
-  PilImage im;
-  im.alloc(t.mode, t.xsize, t.ysize);  // the stored size (PIL's _tile_size)
+  if (t.xmp_fails) return kCorrupt;
+  im.alloc(t.mode, t.xsize, t.ysize);
   if (t.mode == kModeP || t.mode == kModePA) {
     if ((rc = tiff_palette(t, im))) return rc;
   }
   // TiffDecode.c reads YCbCr through TIFFRGBAImage, but lets libjpeg convert
-  // new-style JPEG on one plane
-  const bool rgba = t.photo == 6 && t.compression != 1 && !(t.compression == 7 && t.planar == 1);
-  if (t.compression == 1) rc = decode_tiff_raw(d, n, t, im);
-  else if (rgba) rc = decode_tiff_rgba(d, n, t, im);
-  else rc = decode_tiff_codec(d, n, t, im);
-  if (rc) return rc;
+  // new-style JPEG on one plane; PIL's raw mode unpacks the RGBA words
+  const bool rgba = lt.photo == 6 && !(lt.compression == 7 && lt.planar == 1);
+  if (rgba) {
+    const UnpackerDef* u = tiff_libtiff_unpacker(t, rc);
+    if (!u) return rc;
+    PilImage words;
+    words.alloc(kModeRGBA, t.xsize, t.ysize);
+    if ((rc = decode_tiff_rgba(d, n, lt, words))) return rc;
+    for (int y = 0; y < t.ysize; ++y) unpack(u->op, im.at(0, y), words.at(0, y), t.xsize);
+  } else if ((rc = decode_tiff_codec(d, n, t, lt, im))) {
+    return rc;
+  }
   tiff_orient(im, t.orientation);
   return pil_to_gray(im, gray);
 }

@@ -326,7 +326,7 @@ int decode_tiff_rgba(const uint8_t* d, size_t n, const TiffInfo& t, PilImage& im
   const TiffIfd& f = t.ifd;
   if (t.spp != 3 || t.bps.size() != 3 || t.bps[0] != 8) return kCorrupt;
   const bool separate = t.planar == 2;
-  const bool tiled = !f.has(kTagStripOffsets) && f.has(kTagTileOffsets);
+  const bool tiled = tiff_libtiff_tiled(f);
   OjpegImage oj;
   int hs, vs;
   if (t.compression == 6) {
@@ -350,26 +350,20 @@ int decode_tiff_rgba(const uint8_t* d, size_t n, const TiffInfo& t, PilImage& im
   if (!tiff_ycc_init(d, f, ycc)) return kCorrupt;
   std::vector<uint64_t> offs, counts;
   int64_t sw, sh;
-  if (tiled) {
-    offs = f.tuple(kTagTileOffsets, {});
-    counts = f.tuple(kTagTileBytes, {});
-    sw = (int64_t)f.get(kTagTileWidth, 0);
-    sh = (int64_t)f.get(kTagTileLength, 0);
-  } else {
-    offs = f.tuple(kTagStripOffsets, {});
-    counts = f.tuple(kTagStripBytes, {});
-    sw = t.xsize;
-    sh = (int64_t)std::min<uint64_t>(f.get(kTagRowsPerStrip, 0xFFFFFFFFu), (uint64_t)t.ysize);
-  }
+  const int nplanes = separate ? 3 : 1;
+  if (!tiff_libtiff_layout(d, n, f, t.xsize, t.ysize, sw, sh, offs, counts, nplanes) &&
+      t.compression != 6)
+    return kCorrupt;
   if (sw <= 0 || sh <= 0 || sw > (1 << 24)) return kCorrupt;
   const int64_t across = (t.xsize + sw - 1) / sw, down = (t.ysize + sh - 1) / sh;
   const int64_t per_plane = across * down;
-  const int nplanes = separate ? 3 : 1;
-  if (t.compression != 6 && ((int64_t)offs.size() < per_plane * nplanes ||
-                             (int64_t)counts.size() < per_plane * nplanes))
-    return kCorrupt;
   const size_t blocks_across = ((size_t)sw + hs - 1) / hs, unit = (size_t)hs * vs + 2;
   std::vector<std::vector<uint8_t>> seg(nplanes);
+  // Pillow asks TIFFRGBAImageGet for a strip, or a row of tiles, at a time;
+  // the read that first fills its buffer may not fail to find its data
+  // (TIFFFillStrip: a byte count of 0, data past the file), later ones keep
+  // the buffer as it was
+  auto filled = [&](uint64_t off, uint64_t count) { return count && off <= n && n - off >= count; };
   for (int64_t s = 0; s < per_plane; ++s) {
     const int x0 = (int)((s % across) * sw), y0 = (int)((s / across) * sh);
     const size_t rows = tiled ? (size_t)sh : (size_t)std::min<int64_t>(sh, t.ysize - y0);
@@ -379,12 +373,19 @@ int decode_tiff_rgba(const uint8_t* d, size_t n, const TiffInfo& t, PilImage& im
     sg.last = !tiled && y0 + (int64_t)rows >= t.ysize;
     sg.separate = separate;
     sg.tile = tiled;
+    sg.tolerant = t.compression != 7 && !is_ccitt(t.compression);
+    const bool call_start = !tiled || s % across == 0;
     if (t.compression == 6) {
       ojpeg_pack(oj, (int)sw, y0, rows, seg[0]);
     } else if (separate) {
       for (int p = 0; p < 3; ++p) {
-        const int rc = tiff_segment(d, n, t, offs[p * per_plane + s], counts[p * per_plane + s],
-                                    rows, (size_t)sw, 1, 8, seg[p], sg);
+        const uint64_t off = offs[p * per_plane + s], count = counts[p * per_plane + s];
+        if (sg.tolerant && !filled(off, count)) {
+          if (p == 0 && call_start) return kCorrupt;
+          seg[p].resize((size_t)rows * sw, 0);
+          continue;
+        }
+        const int rc = tiff_segment(d, n, t, off, count, rows, (size_t)sw, 1, 8, seg[p], sg);
         if (rc) return rc;
       }
     } else {
@@ -393,14 +394,27 @@ int decode_tiff_rgba(const uint8_t* d, size_t n, const TiffInfo& t, PilImage& im
       // apart; where the segment is no whole number of those rows, or a
       // row no multiple of 3 bytes ("occ0%rowsize != 0", "(cc%stride)!=0"),
       // libtiff undoes nothing and TIFFRGBAImage reads the differences
+      // gtStripContig reads TIFFScanlineSize (a block row's bytes over vs,
+      // rounded down) times the strip's rows rounded up to vs: short of the
+      // strip where a block row's bytes do not divide by vs (the rest of its
+      // buffer stays zero); gtTileContig reads the whole tile
       const size_t block_rows = (rows + vs - 1) / vs;
       const size_t bytes = block_rows * blocks_across * unit;
       const size_t prow = tiled ? (size_t)sw * 3 : blocks_across * unit / vs;
-      sg.raw = prow == 0 || bytes % prow != 0 || prow % 3 != 0;
-      const size_t rlen = sg.raw ? bytes : prow;
-      const int rc = tiff_segment(d, n, t, offs[s], counts[s], bytes / rlen, rlen, 3, 8, seg[0],
-                                  sg);
-      if (rc) return rc;
+      const size_t read = tiled ? bytes : block_rows * vs * prow;
+      sg.raw = prow == 0 || read % prow != 0 || prow % 3 != 0;
+      const size_t rlen = sg.raw ? read : prow;
+      if (sg.tolerant && !filled(offs[s], counts[s])) {
+        if (call_start) return kCorrupt;
+        seg[0].resize(bytes, 0);
+      } else if (read == 0) {
+        seg[0].assign(bytes, 0);
+      } else {
+        const int rc = tiff_segment(d, n, t, offs[s], counts[s], read / rlen, rlen, 3, 8, seg[0],
+                                    sg);
+        if (rc) return rc;
+        seg[0].resize(bytes, 0);
+      }
     }
     const int xs = (int)std::min<int64_t>(sw, t.xsize - x0);
     const int ys = (int)std::min<int64_t>((int64_t)rows, t.ysize - y0);

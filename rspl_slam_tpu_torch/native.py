@@ -32,10 +32,12 @@ and gray PFM ("Pf"); TIFF
 (``csrc/native_tiff.h``: classic and BigTIFF, both byte orders, strips
 and tiles, planar 1 and 2, fill order 2, no compression, PackBits, LZW
 and Deflate with predictors 2 and 3, every mode PIL's ``OPEN_INFO`` maps,
-with PIL's own byte-order and planar quirks; and what libtiff hands PIL
-from its own codecs: new-style JPEG (``native_tiff_jpeg.h``), compressed
-YCbCr and old-style JPEG (``native_tiff_ycbcr.h``), CCITT MH, Group 3,
-Group 4 and RLEW (``native_fax3.h``); oriented as PIL's
+with PIL's own byte-order and planar quirks, a tag written twice read by
+its last entry where PIL decides and its first where libtiff decodes; and
+what libtiff hands PIL from its own codecs: LZMA (``native_xz.h``), ZSTD
+(``native_zstd.h``), ThunderScan, new-style JPEG (``native_tiff_jpeg.h``),
+compressed YCbCr and old-style JPEG (``native_tiff_ycbcr.h``), CCITT MH,
+Group 3, Group 4 and RLEW (``native_fax3.h``); oriented as PIL's
 ``ImageOps.exif_transpose`` orients it); BMP and the headerless DIB
 (``csrc/native_bmp.h``: every header size, 1-32 bits, RLE4, RLE8,
 BITFIELDS, top-down rows); GIF frame 0 (``csrc/native_gif.h``); WebP as
@@ -59,13 +61,15 @@ libjpeg-turbo reads it behind Pillow's suspending source, markers,
 damaged data and the data's end included. Kinds
 PIL refuses (12-bit, hierarchical, DNL and fractional-sampling JPEG,
 lossless YCbCr; TIFF modes missing from ``OPEN_INFO``, CIELAB; the BMP
-headers, depths, compressions, masks and palettes PIL rejects; GIF code
+headers, depths, compressions, masks and palettes PIL rejects; TIFF's
+WebP, which Pillow's libtiff lacks, and SGILog, which libtiff refuses on
+the photometrics PIL has modes for; GIF code
 sizes above 12; WebP frames libwebp rejects; Sun, TGA colour maps PIL
 cannot apply; PCX and SGI modes PIL has none for; DDS header sizes and
 pixel formats PIL does not decode; Lab PSD; BLP kinds the plugin's
 BLPFormatError names) and formats and kinds PIL reads that
-the port does not yet (TIFF's LZMA, ZSTD, WebP, SGILog and ThunderScan
-compressions, 12-bit and short-stream new-style JPEG, old-style JPEG in
+the port does not yet (TIFF's 12-bit and short-stream new-style JPEG,
+old-style JPEG in
 tiles, on separate planes, in big-endian strips or with restart
 intervals off the strips; JPEG 2000 (an ICNS of a JPEG 2000 best size
 too), AVIF and every other plugin of PIL's the port does not read, each

@@ -153,7 +153,7 @@ def _raises_on_every_route(path, data, word):
 @pytest.mark.parametrize("name", UNPORTED)
 def test_unported_kind_raises_in_the_port_alone(name):
     """A kind or format PIL reads that the port does not read yet (TIFF's
-    LZMA and ZSTD compressions, 12-bit and short-stream new-style JPEG,
+    12-bit and short-stream new-style JPEG,
     old-style JPEG of big-endian strips or odd restart intervals; JPEG
     2000, AVIF, an ICNS whose best size is JPEG 2000):
     PIL (JAX's reader) reads it, and every route of the port raises
@@ -506,19 +506,25 @@ def test_unported_format_raises_naming_it(fmt):
         native.decode_u8(b"hello" + bytes(64))
 
 
-TIFF_UNPORTED = {34925: "LZMA", 50000: "ZSTD", 50001: "WebP", 34676: "SGILog", 34677: "SGILog",
-                 32809: "ThunderScan"}
+# compressions written as a second Compression entry after the file's own
+# (1): PIL routes the file to libtiff by the last entry, libtiff decodes by
+# the first (uncompressed)
+TIFF_SECOND_COMPRESSION = {34925: "LZMA", 50000: "ZSTD", 50001: "WebP", 34676: "SGILog",
+                           34677: "SGILog", 32809: "ThunderScan"}
 
 
-@pytest.mark.parametrize("compression", sorted(TIFF_UNPORTED))
+@pytest.mark.parametrize("compression", sorted(TIFF_SECOND_COMPRESSION))
 def test_tiff_compression_libtiff_reads_raises_naming_it(compression):
-    """Each compression PIL reads through libtiff and the port does not
-    raises ``NotImplementedError`` naming the compression (an 8-bit gray
-    TIFF that declares it; old-style JPEG, 6, is YCbCr to PIL)."""
+    """An 8-bit gray TIFF stored uncompressed that writes Compression again
+    as this kind: PIL hands it to libtiff by the last entry, libtiff reads
+    the first and decodes no compression, so PIL reads the raw pixels, and
+    so does the port (it once refused these naming the second entry's
+    kind; the compressions themselves are in
+    ``test_torch_tiff_compressions.py``)."""
     g = mk.scene(16, 16, compression)
     data = mk.encode_tiff(g, tags=[(259, 3, [compression])])
-    with pytest.raises(NotImplementedError, match=TIFF_UNPORTED[compression]):
-        native.decode_u8(data)
+    np.testing.assert_array_equal(_pil(data), g)
+    np.testing.assert_array_equal(native.decode_u8(data), g)
 
 
 # a file of each compression the port reads as libtiff decodes it for PIL

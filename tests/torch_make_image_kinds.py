@@ -22,7 +22,12 @@ from the small encoders in this file:
 - netpbm P1-P6 at any maxval, PFM in both byte orders;
 - TIFF of any bits, photometric and sample format, strips or tiles,
   chunky or planar, either byte order, classic or BigTIFF, fill order 2,
-  uncompressed, PackBits, LZW or Deflate, predictors 2 and 3; around
+  uncompressed, PackBits, LZW or Deflate, LZMA (the standard library's
+  ``lzma``, or Pillow's liblzma through ctypes for the ARM64 and RISC-V
+  filters) or ZSTD (Pillow's libzstd through ctypes, or this file's frame
+  writer: raw and RLE blocks, raw, RLE, Huffman and treeless literals, RLE
+  and repeat sequence tables), predictors 2 and 3; ThunderScan over every
+  code; around
   ``encode_jpeg``: new-style JPEG strips and tiles with JPEGTables, and
   old-style JPEG (tables tags or an interchange stream, one restart
   interval a strip); subsampled YCbCr blocks; CCITT Modified Huffman,
@@ -1155,12 +1160,15 @@ def encode_tiff(img, bits: int = 8, photometric: int = 1, sample_format: int = 1
                 extra=(), compression: int = 1, predictor: int = 1, planar: int = 1,
                 tile=None, rows_per_strip=None, order: str = "<", bigtiff: bool = False,
                 fill_order: int = 1, colormap=None, level: int = 6, orientation=None,
-                tags=(), pad: int = 0, codec=None, prefix: bytes = b"") -> bytes:
+                tags=(), pad: int = 0, codec=None, prefix: bytes = b"",
+                squeeze=None) -> bytes:
     """A one-IFD TIFF of ``img`` ((H, W) or (H, W, S) sample values at
     ``bits``): strips of ``rows_per_strip`` rows or ``tile`` (w, h) tiles,
     ``planar`` 1 (chunky) or 2 (one plane per sample), ``order`` "<"
     (II) or ">" (MM), classic or BigTIFF, compression 1, 5 (LZW), 8 /
-    32946 (Deflate) or 32773 (PackBits), predictor 2 (integer) or 3
+    32946 (Deflate), 32773 (PackBits), 34925 (LZMA: ``squeeze(data)``, by
+    default :func:`xz`) or 50000 (ZSTD: ``squeeze(data)``, by default
+    :func:`zstd_compress`), predictor 2 (integer) or 3
     (floating point), fill order 2 (every stored byte bit-reversed),
     ``orientation`` the Orientation tag (274) if given. ``tags``: extra
     (tag, type, values) entries, a rational as its numerator and
@@ -1208,6 +1216,8 @@ def encode_tiff(img, bits: int = 8, photometric: int = 1, sample_format: int = 1
                 data = lzw(b"".join(rows))
             elif compression in (8, 32946):
                 data = zlib.compress(b"".join(rows), level)
+            elif compression in (34925, 50000):
+                data = (squeeze or (xz if compression == 34925 else zstd_compress))(b"".join(rows))
             else:
                 data = b"".join(rows)
             if fill_order == 2:
@@ -1686,6 +1696,490 @@ def encode_tiff_fax(bits, compression: int = 4, photometric: int = 0, options: i
 
     return encode_tiff(np.asarray(bits, np.int64), bits=1, photometric=photometric,
                        compression=compression, codec=codec, tags=tags, **kw)
+
+
+# ------------------------------------- TIFF's LZMA, ZSTD and ThunderScan
+def xz(data: bytes, check: int = None, preset: int = 6, filters=None) -> bytes:
+    """``data`` as one .xz stream (the standard library's ``lzma``; check
+    CRC64 by default, ``filters`` a filter chain in place of ``preset``)."""
+    import lzma
+
+    check = lzma.CHECK_CRC64 if check is None else check
+    if filters is not None:
+        return lzma.compress(data, lzma.FORMAT_XZ, check, filters=filters)
+    return lzma.compress(data, lzma.FORMAT_XZ, check, preset)
+
+
+def _pillow_lib(stem: str):
+    """ctypes handle of one of Pillow's bundled libraries, or None."""
+    import ctypes
+    import glob
+
+    import PIL._imaging  # noqa: F401  (loads the bundled libraries)
+
+    pattern = os.path.join(os.path.dirname(os.path.dirname(PIL._imaging.__file__)),
+                           "pillow.libs", f"{stem}-*.so*")
+    found = sorted(glob.glob(pattern))
+    return ctypes.CDLL(found[0]) if found else None
+
+
+def liblzma_xz(data: bytes, filter_ids, check: int = 4, preset: int = 6) -> bytes:
+    """``data`` as one .xz stream through Pillow's bundled liblzma
+    (``lzma_stream_buffer_encode``): the chain ``filter_ids`` (BCJ ids 4-11,
+    default options) before LZMA2 at ``preset``, for the filters the
+    standard library's ``lzma`` does not name (ARM64 10, RISC-V 11)."""
+    import ctypes
+
+    lib = _pillow_lib("liblzma")
+    opts = ctypes.create_string_buffer(512)
+    assert lib.lzma_lzma_preset(opts, ctypes.c_uint32(preset)) == 0
+
+    class Filter(ctypes.Structure):
+        _fields_ = [("id", ctypes.c_uint64), ("options", ctypes.c_void_p)]
+
+    chain = (Filter * (len(filter_ids) + 2))()
+    for i, fid in enumerate(filter_ids):
+        chain[i] = Filter(fid, None)
+    chain[len(filter_ids)] = Filter(0x21, ctypes.cast(opts, ctypes.c_void_p))
+    chain[len(filter_ids) + 1] = Filter(2**64 - 1, None)
+    out = ctypes.create_string_buffer(len(data) * 2 + 1024)
+    pos = ctypes.c_size_t(0)
+    rc = lib.lzma_stream_buffer_encode(chain, ctypes.c_int(check), None, data,
+                                       ctypes.c_size_t(len(data)), out, ctypes.byref(pos),
+                                       ctypes.c_size_t(len(out)))
+    assert rc == 0, rc
+    return out.raw[:pos.value]
+
+
+def zstd_compress(data: bytes, level: int = 3, checksum: bool = False, window_log: int = 0,
+                  content_size: bool = True) -> bytes:
+    """``data`` as one Zstandard frame through Pillow's bundled libzstd:
+    ``level``, the XXH64 ``checksum``, ``window_log`` (0: libzstd's
+    choice); without ``content_size`` the frame states no size and is
+    written through the streaming API, so the window is not cut to the
+    input."""
+    import ctypes
+
+    lib = _pillow_lib("libzstd")
+    lib.ZSTD_createCCtx.restype = ctypes.c_void_p
+    lib.ZSTD_compressBound.restype = ctypes.c_size_t
+    lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
+    cctx = ctypes.c_void_p(lib.ZSTD_createCCtx())
+    try:
+        for param, value in ((100, level), (201, int(checksum)), (101, window_log),
+                             (200, int(content_size))):
+            rc = lib.ZSTD_CCtx_setParameter(cctx, param, value)
+            assert not lib.ZSTD_isError(ctypes.c_size_t(rc)), (param, value)
+        cap = lib.ZSTD_compressBound(ctypes.c_size_t(len(data))) + 64
+        out = ctypes.create_string_buffer(cap)
+        if content_size:
+            lib.ZSTD_compress2.restype = ctypes.c_size_t
+            n = lib.ZSTD_compress2(cctx, out, ctypes.c_size_t(cap), data,
+                                   ctypes.c_size_t(len(data)))
+            assert not lib.ZSTD_isError(ctypes.c_size_t(n))
+            return out.raw[:n]
+
+        class Buf(ctypes.Structure):
+            _fields_ = [("ptr", ctypes.c_void_p), ("size", ctypes.c_size_t),
+                        ("pos", ctypes.c_size_t)]
+
+        src = ctypes.create_string_buffer(data, len(data))
+        ib, ob = Buf(ctypes.cast(src, ctypes.c_void_p), len(data), 0), \
+            Buf(ctypes.cast(out, ctypes.c_void_p), cap, 0)
+        lib.ZSTD_compressStream2.restype = ctypes.c_size_t
+        for end in (0, 2):  # ZSTD_e_continue with the data, then ZSTD_e_end
+            while True:
+                left = lib.ZSTD_compressStream2(cctx, ctypes.byref(ob), ctypes.byref(ib), end)
+                assert not lib.ZSTD_isError(ctypes.c_size_t(left))
+                if end == 0 or left == 0:
+                    break
+        return out.raw[:ob.pos]
+    finally:
+        lib.ZSTD_freeCCtx(cctx)
+
+
+def xxh64(data: bytes, seed: int = 0) -> int:
+    """XXH64 of ``data`` (Zstandard's content checksum is its low 32 bits)."""
+    M = (1 << 64) - 1
+    P1, P2, P3, P4, P5 = (0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9,
+                          0x85EBCA77C2B2AE63, 0x27D4EB2F165667C5)
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (64 - r))) & M
+
+    def rnd(acc, v):
+        return rotl((acc + v * P2) & M, 31) * P1 & M
+
+    n, i = len(data), 0
+    if n >= 32:
+        v = [(seed + P1 + P2) & M, (seed + P2) & M, seed, (seed - P1) & M]
+        while i + 32 <= n:
+            for k in range(4):
+                v[k] = rnd(v[k], int.from_bytes(data[i + 8 * k:i + 8 * k + 8], "little"))
+            i += 32
+        h = (rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12) + rotl(v[3], 18)) & M
+        for k in range(4):
+            h = ((h ^ rnd(0, v[k])) * P1 + P4) & M
+    else:
+        h = (seed + P5) & M
+    h = (h + n) & M
+    while i + 8 <= n:
+        h = (rotl(h ^ rnd(0, int.from_bytes(data[i:i + 8], "little")), 27) * P1 + P4) & M
+        i += 8
+    if i + 4 <= n:
+        h = (rotl(h ^ (int.from_bytes(data[i:i + 4], "little") * P1 & M), 23) * P2 + P3) & M
+        i += 4
+    while i < n:
+        h = rotl(h ^ (data[i] * P5 & M), 11) * P1 & M
+        i += 1
+    h ^= h >> 33
+    h = h * P2 & M
+    h ^= h >> 29
+    h = h * P3 & M
+    return h ^ (h >> 32)
+
+
+class _BackBits:
+    """A Zstandard backward bitstream: values appended low bits first, the
+    reader taking the last written first; ``bytes`` closes it with the
+    marker bit."""
+
+    def __init__(self):
+        self.acc, self.n = 0, 0
+
+    def add(self, value: int, bits: int):
+        self.acc |= (value & ((1 << bits) - 1)) << self.n
+        self.n += bits
+
+    def bytes(self) -> bytes:
+        acc = self.acc | (1 << self.n)
+        return acc.to_bytes((self.n + 8) // 8, "little")
+
+
+def _lit_header(kind: int, size: int, csize: int = 0, four: bool = False) -> bytes:
+    """A literals section header: raw (0) / RLE (1) of ``size``, or Huffman
+    (2) / treeless (3) of ``size`` regenerated and ``csize`` stored bytes in
+    one or ``four`` streams."""
+    if kind < 2:
+        if size < 32:
+            return bytes([kind | size << 3])
+        if size < 4096:
+            return struct.pack("<H", kind | 1 << 2 | size << 4)
+        return (kind | 3 << 2 | size << 4).to_bytes(3, "little")
+    big = max(size, csize)
+    lhl = (1 if four else 0) if big < 1024 else 2 if big < 16384 else 3
+    width = {0: 10, 1: 10, 2: 14, 3: 18}[lhl]
+    v = kind | lhl << 2 | size << 4 | csize << (4 + width)
+    return v.to_bytes({0: 3, 1: 3, 2: 4, 3: 5}[lhl], "little")
+
+
+def huffman_weights(lits: bytes) -> list:
+    """Zstandard Huffman weights (index: byte value) of ``lits``, at least
+    two symbols, no code past 11 bits."""
+    freq = np.bincount(np.frombuffer(lits, np.uint8), minlength=256)
+    used = np.nonzero(freq)[0]
+    if len(used) < 2:
+        freq[(int(used[0]) + 1) % 128 if len(used) else 0] = 1
+    lengths = huffman_lengths(freq, 11)
+    top = max(lengths)
+    return [top + 1 - L if L else 0 for L in lengths]
+
+
+def _huffman_codes(weights) -> tuple:
+    """(code, length) of each symbol: lower weights first, by symbol."""
+    log = sum(1 << (w - 1) for w in weights if w).bit_length() - 1
+    codes, start = {}, 0
+    for w in range(1, log + 1):
+        for s, ws in enumerate(weights):
+            if ws == w:
+                codes[s] = (start >> (w - 1), log + 1 - w)
+                start += 1 << (w - 1)
+    return codes
+
+
+def _huffman_stream(lits: bytes, codes) -> bytes:
+    bits = _BackBits()
+    for b in reversed(lits):
+        c, n = codes[b]
+        bits.add(c, n)
+    return bits.bytes()
+
+
+def zstd_literals(lits: bytes, mode: str, weights=None) -> bytes:
+    """A literals section of ``lits``: "raw", "rle" (all one byte),
+    "huff1" / "huff4" (a direct weights table: byte values under 128; the
+    table is ``weights`` if given) or "tree1" / "tree4" (treeless: the
+    previous block's ``weights``)."""
+    if mode == "raw":
+        return _lit_header(0, len(lits)) + lits
+    if mode == "rle":
+        return _lit_header(1, len(lits)) + lits[:1]
+    four = mode.endswith("4")
+    codes = _huffman_codes(weights)
+    if four:
+        seg = (len(lits) + 3) // 4
+        streams = [_huffman_stream(lits[k * seg:(k + 1) * seg], codes) for k in range(4)]
+        body = struct.pack("<3H", *(len(x) for x in streams[:3])) + b"".join(streams)
+    else:
+        body = _huffman_stream(lits, codes)
+    if mode.startswith("huff"):
+        last = max(s for s, w in enumerate(weights) if w)
+        assert last < 128
+        ws = list(weights[:last]) + [0] * (last & 1)
+        body = bytes([127 + last]) + bytes(ws[k] << 4 | ws[k + 1] for k in range(0, last, 2)) \
+            + body
+    return _lit_header(2 if mode.startswith("huff") else 3, len(lits), len(body), four) + body
+
+
+def _zstd_code(value: int, base, extra) -> tuple:
+    """The (code, extra bits value) of a literal or match length."""
+    for code in range(len(base) - 1, -1, -1):
+        if value >= base[code]:
+            assert value - base[code] < 1 << extra[code]
+            return code, value - base[code]
+    raise ValueError(value)
+
+
+ZSTD_LL_BASE = [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 18, 20, 22, 24, 28,
+                32, 40, 48, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536]
+ZSTD_LL_BITS = [0] * 16 + [1, 1, 1, 1, 2, 2, 3, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16]
+ZSTD_ML_BASE = list(range(3, 35)) + [35, 37, 39, 41, 43, 47, 51, 59, 67, 83, 99, 131, 259, 515,
+                                     1027, 2051, 4099, 8195, 16387, 32771, 65539]
+ZSTD_ML_BITS = [0] * 32 + [1, 1, 1, 1, 2, 2, 3, 3, 4, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16]
+
+
+def zstd_sequences(seqs, modes=("rle", "rle", "rle")) -> bytes:
+    """A sequences section of ``seqs`` [(literal length, match length,
+    offset value)] (an offset value is the offset + 3, or 1-3 for a repeat
+    offset) with every table in RLE mode (each of the three codes the same
+    in every sequence) or "repeat" mode (the previous block's)."""
+    n = len(seqs)
+    out = bytes([n]) if n < 128 else struct.pack(">H", 0x8000 | n) if n < 0x7F00 else \
+        b"\xff" + struct.pack("<H", n - 0x7F00)
+    if n == 0:
+        return out
+    coded = []
+    for ll, ml, ofv in seqs:
+        llc, llx = _zstd_code(ll, ZSTD_LL_BASE, ZSTD_LL_BITS)
+        mlc, mlx = _zstd_code(ml, ZSTD_ML_BASE, ZSTD_ML_BITS)
+        ofc = ofv.bit_length() - 1
+        coded.append((llc, llx, mlc, mlx, ofc, ofv - (1 << ofc)))
+    mode_bits = {"rle": 1, "repeat": 3}
+    out += bytes([mode_bits[modes[0]] << 6 | mode_bits[modes[1]] << 4 | mode_bits[modes[2]] << 2])
+    for k, m in ((0, modes[0]), (4, modes[1]), (2, modes[2])):
+        codes = {c[k] for c in coded}
+        assert len(codes) == 1, "one code per table in RLE mode"
+        if m == "rle":
+            out += bytes([codes.pop()])
+    bits = _BackBits()
+    for llc, llx, mlc, mlx, ofc, ofx in reversed(coded):
+        bits.add(llx, ZSTD_LL_BITS[llc])
+        bits.add(mlx, ZSTD_ML_BITS[mlc])
+        bits.add(ofx, ofc)
+    return out + bits.bytes()
+
+
+def zstd_block(kind: str, body: bytes, last: bool, rle_size: int = 0) -> bytes:
+    """A block header and body: "raw", "rle" (``body`` one byte repeated
+    ``rle_size`` times) or "compressed"."""
+    t = {"raw": 0, "rle": 1, "compressed": 2}[kind]
+    size = rle_size if kind == "rle" else len(body)
+    return (int(last) | t << 1 | size << 3).to_bytes(3, "little") + body
+
+
+def zstd_frame(blocks: bytes, content: bytes = None, checksum: bool = False,
+               window_log: int = None, dict_id: int = 0) -> bytes:
+    """A Zstandard frame of ``blocks`` (their bytes): single segment where
+    ``window_log`` is None (``content`` the decoded bytes, whose size and
+    XXH64 the header and ``checksum`` state), else a window descriptor and
+    the content size where ``content`` is given."""
+    fhd, tail = int(checksum) << 2, b""
+    if dict_id:
+        fhd |= 3
+        tail += struct.pack("<I", dict_id)
+    if window_log is None:
+        size = len(content)
+        fhd |= 1 << 5
+        fcs = bytes([size]) if size < 256 else struct.pack("<H", size - 256) if size < 65792 \
+            else struct.pack("<I", size)
+        fhd |= (0 if size < 256 else 1 if size < 65792 else 2) << 6
+        head = bytes([fhd]) + tail + fcs
+    else:
+        fcs = b"" if content is None else struct.pack("<I", len(content))
+        fhd |= (2 << 6) if content is not None else 0
+        head = bytes([fhd, (window_log - 10) << 3]) + tail + fcs
+    out = b"\x28\xb5\x2f\xfd" + head + blocks
+    if checksum:
+        out += struct.pack("<I", xxh64(content) & 0xFFFFFFFF)
+    return out
+
+
+def zstd_skippable(payload: bytes, nibble: int = 0) -> bytes:
+    return struct.pack("<II", 0x184D2A50 + nibble, len(payload)) + payload
+
+
+def zstd_writer_frame(rng, size: int, checksum: bool = None) -> tuple:
+    """A frame of blocks of every kind the writer has, chosen by ``rng``,
+    whose content is ``size`` bytes: (frame, content). Blocks: raw, RLE,
+    and compressed ones with raw, RLE, Huffman (1 or 4 streams) or treeless
+    literals, and sequences (literal lengths 16-17, match lengths 35-36; in
+    a block either new offsets of one code or repeat offsets of one code)
+    with RLE tables or the previous block's (repeat mode)."""
+    content = bytearray()
+    blocks, weights, tables = [], None, None
+    reps = [1, 4, 8]
+    while len(content) < size:
+        left = size - len(content)
+        kind = str(rng.choice(["raw", "rle", "compressed", "compressed", "compressed"]))
+        n = int(min(left, rng.integers(1, 400)))
+        if kind == "raw":
+            data = rng.integers(0, 256, n).astype(np.uint8).tobytes()
+            blocks.append(("raw", data, 0))
+            content += data
+            continue
+        if kind == "rle":
+            b = bytes([int(rng.integers(0, 256))])
+            blocks.append(("rle", b, n))
+            content += b * n
+            continue
+        out, seqs, lits, new_reps = bytearray(content), [], bytearray(), list(reps)
+        if len(out) >= 64 and rng.random() < 0.7:
+            how = str(rng.choice(["new", "rep0", "rep12"]))
+            ofc = int(rng.integers(2, 7))
+            while len(out) - len(content) + 60 <= n:
+                ll, ml = int(rng.integers(16, 18)), int(rng.integers(35, 37))
+                lit = rng.integers(0, 100, ll).astype(np.uint8).tobytes()
+                r = new_reps
+                if how == "new":
+                    ofv = (1 << ofc) + int(rng.integers(0, 1 << ofc))
+                    off, cand = ofv - 3, [ofv - 3, r[0], r[1]]
+                elif how == "rep0":
+                    ofv, off, cand = 1, r[0], list(r)
+                else:
+                    ofv = int(rng.integers(2, 4))
+                    off = r[ofv - 1]
+                    cand = [r[1], r[0], r[2]] if ofv == 2 else [r[2], r[0], r[1]]
+                if not 0 < off <= len(out) + ll:
+                    break
+                out += lit
+                for _ in range(ml):
+                    out.append(out[-off])
+                seqs.append((ll, ml, ofv))
+                lits += lit
+                new_reps = cand
+        tail = rng.integers(0, 100, n if not seqs else int(rng.integers(0, 20)))
+        tail = tail.astype(np.uint8).tobytes()
+        if not seqs and rng.random() < 0.2:
+            tail = tail[:1] * len(tail)
+        lits += tail
+        out += tail
+        data_out = bytes(out[len(content):])
+        if not data_out or len(data_out) > left:
+            continue
+        lits = bytes(lits)
+        lmode = str(rng.choice(["raw", "huff1", "huff4", "tree1", "tree4"] +
+                               (["rle"] if lits and len(set(lits)) == 1 else [])))
+        if lmode.startswith("tree") and (weights is None or
+                                         any(weights[b] == 0 for b in set(lits))):
+            lmode = "huff" + lmode[-1]
+        if lmode.endswith("4") and len(lits) < 6 or not lits and lmode != "raw":
+            lmode = "raw"
+        if lmode.startswith("huff"):
+            weights = huffman_weights(lits)
+        section = zstd_literals(lits, lmode, weights)
+        if seqs:
+            ll, ml, ofv = seqs[0]
+            codes = (_zstd_code(ll, ZSTD_LL_BASE, ZSTD_LL_BITS)[0], ofv.bit_length() - 1,
+                     _zstd_code(ml, ZSTD_ML_BASE, ZSTD_ML_BITS)[0])
+            modes = tuple("repeat" if tables == codes and rng.random() < 0.6 else "rle"
+                          for _ in range(3))
+            section += zstd_sequences(seqs, modes)
+            tables = codes
+            reps = new_reps
+        else:
+            section += b"\0"
+        blocks.append(("compressed", section, 0))
+        content += data_out
+    body = b"".join(zstd_block(k, b, i == len(blocks) - 1, r)
+                    for i, (k, b, r) in enumerate(blocks))
+    if checksum is None:
+        checksum = bool(rng.random() < 0.5)
+    # a window of at least the content (a single segment's window is the
+    # content size, which a compressed block may not outgrow)
+    window_log = max(10, (size - 1).bit_length())
+    return zstd_frame(body, bytes(content), checksum, window_log), bytes(content)
+
+
+def thunder_encode(rows, rng=None) -> bytes:
+    """ThunderScan bytes of 4-bit ``rows`` (H, W): each row from pixel 0
+    with the last pixel 0, as runs (1-63), three 2-bit or two 3-bit deltas
+    (mod 16, with their skip codes where ``rng`` inserts them) or raw
+    pixels, ``rng`` choosing among the codes that fit."""
+    rng = rng or np.random.default_rng(0)
+    out = bytearray()
+    two = {0: 0, 1: 1, 15: 3}
+    three = {0: 0, 1: 1, 2: 2, 3: 3, 13: 5, 14: 6, 15: 7}
+    for row in np.asarray(rows, np.int64):
+        last, i, W = 0, 0, len(row)
+        while i < W:
+            opts = ["raw"]
+            run = 0
+            while i + run < W and run < 63 and row[i + run] == last:
+                run += 1
+            if run:
+                opts.append("run")
+            d = [(int(row[i + k]) - prev) % 16 for k, prev in
+                 zip(range(3), [last] + [int(v) for v in row[i:i + 2]]) if i + k < W]
+            if len(d) == 3 and all(x in two for x in d):
+                opts.append("two")
+            if len(d) >= 2 and all(x in three for x in d[:2]):
+                opts.append("three")
+            if len(d) >= 1 and d[0] in two:
+                opts.append("two1")
+            if len(d) >= 1 and d[0] in three:
+                opts.append("three1")
+            pick = opts[int(rng.integers(0, len(opts)))]
+            if pick == "run":
+                k = int(rng.integers(1, run + 1))
+                out.append(k)
+                i += k
+            elif pick == "two":
+                out.append(0x40 | two[d[0]] << 4 | two[d[1]] << 2 | two[d[2]])
+                i += 3
+            elif pick == "three":
+                out.append(0x80 | three[d[0]] << 3 | three[d[1]])
+                i += 2
+            elif pick == "two1":  # one delta among two skip codes
+                slot = int(rng.integers(0, 3))
+                f = [2, 2, 2]
+                f[slot] = two[d[0]]
+                out.append(0x40 | f[0] << 4 | f[1] << 2 | f[2])
+                i += 1
+            elif pick == "three1":
+                f = [4, 4]
+                f[int(rng.integers(0, 2))] = three[d[0]]
+                out.append(0x80 | f[0] << 3 | f[1])
+                i += 1
+            else:
+                out.append(0xC0 | int(row[i]))
+                i += 1
+            last = int(row[i - 1])
+    return bytes(out)
+
+
+def encode_tiff_thunder(img4, photometric: int = 1, rng=None, corrupt=None, **kw) -> bytes:
+    """A ThunderScan TIFF (compression 32809) of 4-bit ``img4`` (H, W);
+    ``corrupt(data) -> data`` alters each strip's stored bytes; ``kw``:
+    ``encode_tiff``'s layout arguments (``bits`` other than 4 declares
+    another depth over the same data)."""
+    bits = kw.pop("bits", 4)
+
+    def codec(blk):
+        data = thunder_encode(blk[..., 0], rng)
+        return corrupt(data) if corrupt else data
+
+    return encode_tiff(np.asarray(img4, np.int64), bits=bits, photometric=photometric,
+                       compression=32809, codec=codec, **kw)
 
 
 # ------------------------------------------------------------------- BMP
@@ -2320,6 +2814,7 @@ def small_files(seed: int) -> dict:
     files["p1.pbm"] = (encode_pnm("P1", bits), "P1 plain bitmap")
     files.update(tiff_bmp_pfm_files(seed))
     files.update(tiff_codec_files(seed))
+    files.update(tiff_compression_files(seed))
     files.update(gif_webp_files(seed))
     files.update(unported_files(seed))
     files.update(raster_files(seed))
@@ -2444,11 +2939,10 @@ def tiff_bmp_pfm_files(seed: int) -> dict:
                           "TIFF RGB, new-style JPEG (PIL, libtiff)"),
         "tiff_ccitt_g4.tif": (_pil_save(Image.fromarray(g > 128), "TIFF", compression="group4"),
                               "TIFF CCITT Group 4 (PIL, libtiff)"),
-        # TIFF kinds PIL reads through libtiff, not ported
         "tiff_lzma.tif": (_pil_save(Image.fromarray(g2), "TIFF", compression="lzma"),
-                          "TIFF LZMA (PIL, libtiff)", unported("LZMA")),
+                          "TIFF LZMA (PIL, libtiff)"),
         "tiff_zstd.tif": (_pil_save(Image.fromarray(g2), "TIFF", compression="zstd"),
-                          "TIFF ZSTD (PIL, libtiff)", unported("ZSTD")),
+                          "TIFF ZSTD (PIL, libtiff)"),
         "tiff_ycbcr_lzw.tif": (encode_tiff(rgb2, photometric=6, compression=5),
                                "TIFF YCbCr, LZW, no subsampling tag (libtiff's RGBA interface "
                                "reads the chunky samples as 2 × 2 blocks)"),
@@ -2669,6 +3163,53 @@ def tiff_codec_files(seed: int) -> dict:
                                                          tags=[(515, 3, [1])]),
                                        "TIFF old-style JPEG whose restart interval is not a "
                                        "strip's", unported("restart interval")),
+    }
+
+
+def tiff_compression_files(seed: int) -> dict:
+    """The fixtures of TIFF's LZMA, ZSTD and ThunderScan compressions (the
+    encoders above), a TIFF that repeats tags (PIL reads the last entry of
+    each, libtiff the first), and the two compressions PIL refuses: WebP
+    (Pillow's libtiff is built without it) and SGILog on a photometric
+    other than LogL or LogLuv."""
+    import lzma
+
+    from PIL import Image
+
+    g = scene(24, 32, seed + 60)
+    rng = np.random.default_rng(seed + 61)
+    g16 = g[:16, :24].astype(np.int64) * 251 + rng.integers(0, 50, (16, 24))
+    f32 = g[:12, :16].astype(np.float32) / 7 - 3
+    thunder = scene(20, 29, seed + 62) // 16
+    webp = _pil_save(Image.fromarray(g[:16, :16]), "WEBP", lossless=True)
+    delta = [{"id": lzma.FILTER_DELTA, "dist": 2}, {"id": lzma.FILTER_LZMA2, "preset": 6}]
+    refused = lambda word: {"refused": True, "refusal": word}  # noqa: E731
+    return {
+        "tiff_lzma_16bit_delta.tif": (
+            encode_tiff(g16, bits=16, compression=34925, predictor=2, rows_per_strip=8,
+                        squeeze=lambda b: xz(b, filters=delta)),
+            "TIFF 16-bit, LZMA with the delta filter, predictor 2"),
+        "tiff_zstd_float_pred3.tif": (
+            encode_tiff(f32, bits=32, sample_format=3, compression=50000, predictor=3,
+                        rows_per_strip=4, squeeze=lambda b: zstd_compress(b, 19, True)),
+            "TIFF 32-bit float, ZSTD level 19 with a checksum, predictor 3"),
+        "tiff_zstd_tiles.tif": (
+            encode_tiff(g, compression=50000, predictor=2, tile=(16, 16),
+                        squeeze=lambda b: zstd_compress(b, 1)),
+            "TIFF 8-bit, ZSTD in 16 × 16 tiles"),
+        "tiff_thunderscan.tif": (encode_tiff_thunder(thunder, rows_per_strip=7, rng=rng),
+                                 "TIFF 4-bit ThunderScan, every code"),
+        "tiff_repeated_tags.tif": (
+            encode_tiff(g, compression=5, rows_per_strip=6,
+                        tags=[(259, 3, [8]), (278, 4, [24])]),
+            "TIFF LZW in 6-row strips, Compression and RowsPerStrip written again "
+            "(Deflate, 24): PIL routes by the last entry, libtiff decodes by the first"),
+        "tiff_webp.tif": (encode_tiff(g[:16, :16], compression=50001, codec=lambda blk: webp),
+                          "TIFF WebP (Pillow's libtiff has no WebP codec)", refused("WebP")),
+        "tiff_sgilog.tif": (encode_tiff(g[:8, :8], compression=34676,
+                                        codec=lambda blk: blk.astype(np.uint8).tobytes()),
+                            "TIFF SGILog on a min-is-black photometric (libtiff refuses it)",
+                            refused("SGILog")),
     }
 
 
@@ -3185,7 +3726,7 @@ def bc7_blocks(rgba) -> bytes:
 
 
 # ------------------------------------- PSD, DCX, BLP, FTEX, ICNS, P0CMYK, Py
-def packbits(row: bytes) -> bytes:
+def psd_packbits(row: bytes) -> bytes:
     """PackBits (Apple's; PSD's rows): runs of 3 to 128 equal bytes as
     (257 - n, byte), the bytes between as literals of up to 128 (n - 1,
     bytes)."""
@@ -3248,7 +3789,7 @@ def encode_psd(pixels, mode: int = 1, bits: int = 8, compression: int = 0, chann
         out += struct.pack(">II", 4 + len(layers), len(layers)) + layers
     out += struct.pack(">H", compression)
     if compression == 1:
-        packed = [[packbits(r) for r in pl] for pl in rows]
+        packed = [[psd_packbits(r) for r in pl] for pl in rows]
         out += b"".join(struct.pack(">H", len(r)) for pl in packed for r in pl)
         return out + b"".join(r for pl in packed for r in pl)
     return out + b"".join(r for pl in rows for r in pl)
@@ -4018,7 +4559,43 @@ SEQ_FRAMES = 6
 SEQ_DIR = "seq_prog"
 BASELINE_DIR = "seq_baseline"  # the sequence's first pair as baseline JPEGs (decode timing)
 WEBP_DIR = "seq_webp"  # the sequence's first pair as lossy WebPs, quality 90 (decode timing)
+ZSTD_DIR = "seq_zstd"  # the sequence's first pair as ZSTD TIFFs (decode timing: no zstd on the card)
 SEQ_NS0 = 1_403_636_579_763_555_584
+
+
+def zstd_pair_files(pair) -> dict:
+    """The sequence's first rendered pair (two 8-bit frames) as ZSTD TIFFs:
+    libzstd level 3, predictor 2, 16-row strips."""
+    return {f"{ZSTD_DIR}/{cam_dir}.tif": (
+        encode_tiff(np.asarray(u8), compression=50000, predictor=2, rows_per_strip=16),
+        "gray, ZSTD level 3 (libzstd), predictor 2, 16-row strips, 752×480")
+        for cam_dir, u8 in zip(("cam0", "cam1"), pair)}
+
+
+def first_pair() -> list:
+    """The sequence's first pair as ``sequence_files`` renders it (uint8)."""
+    world, cam, traj = _sequence_scene()
+    pair = _render_pair(world, cam, traj[0], 0)
+    return pair
+
+
+def _sequence_scene():
+    sys.path.insert(0, os.path.dirname(HERE))
+    from rspl_slam_tpu_torch.config import SystemConfig
+    from rspl_slam_tpu_torch.evaluation import synthetic
+
+    cam = SystemConfig().camera
+    world = synthetic.make_scene(num_points=600, num_lines=12, seed=1, extent=(6.0, 4.0, 6.0),
+                                 on_line_frac=0.0)
+    traj = synthetic.make_trajectory(30, step=0.05)[:SEQ_FRAMES]
+    return world, cam, traj
+
+
+def _render_pair(world, cam, pose, seed: int) -> list:
+    from rspl_slam_tpu_torch.evaluation import synthetic
+
+    return [(np.clip(im, 0, 1) * 255).astype(np.uint8)
+            for im in synthetic.render_images(world, cam, pose, seed=seed)]
 
 
 def sequence_files() -> dict:
@@ -4028,25 +4605,22 @@ def sequence_files() -> dict:
     ``cam0/data.csv`` and the ground truth (``INIT_POSE`` times the
     rendered camera poses, as ``chip_smoke._write_tree`` writes it); and
     the first pair again as baseline JPEGs under ``BASELINE_DIR`` and as
-    lossy WebPs at quality 90 under ``WEBP_DIR``."""
+    lossy WebPs at quality 90 under ``WEBP_DIR`` and as ZSTD TIFFs under
+    ``ZSTD_DIR``."""
     from PIL import Image
 
-    sys.path.insert(0, os.path.dirname(HERE))
-    from rspl_slam_tpu_torch.config import SystemConfig
-    from rspl_slam_tpu_torch.evaluation import synthetic
+    world, cam, traj = _sequence_scene()
     from rspl_slam_tpu_torch.slam import INIT_POSE
 
-    cam = SystemConfig().camera
-    world = synthetic.make_scene(num_points=600, num_lines=12, seed=1, extent=(6.0, 4.0, 6.0),
-                                 on_line_frac=0.0)
-    traj = synthetic.make_trajectory(30, step=0.05)[:SEQ_FRAMES]
     names = [SEQ_NS0 + i * 50_000_000 for i in range(SEQ_FRAMES)]
     seq = f"{SEQ_DIR}/mav0"
     files = {}
     for i, ns in enumerate(names):
-        pair = synthetic.render_images(world, cam, traj[i], seed=i)
+        pair = _render_pair(world, cam, traj[i], i)
+        if i == 0:
+            files.update(zstd_pair_files(pair))
         for cam_dir, im in zip(("cam0", "cam1"), pair):
-            u8 = Image.fromarray((np.clip(im, 0, 1) * 255).astype(np.uint8))
+            u8 = Image.fromarray(im)
             buf = io.BytesIO()
             u8.save(buf, "JPEG", quality=85, progressive=True)
             files[f"{seq}/{cam_dir}/data/{ns}.jpg"] = (buf.getvalue(),
