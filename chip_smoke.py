@@ -3993,6 +3993,8 @@ IMAGE_KINDS_SEQ_FRAMES = 6
 IMAGE_KINDS_BASELINE = "seq_baseline"  # its first pair as baseline JPEGs
 IMAGE_KINDS_WEBP = "seq_webp"  # its first pair as lossy WebPs at quality 90
 IMAGE_KINDS_ZSTD = "seq_zstd"  # its first rendered pair as ZSTD TIFFs (libzstd; no zstd here)
+IMAGE_KINDS_J2K = "seq_j2k"  # the sequence as reversible JPEG 2000 codestreams at rate 20 (PIL)
+IMAGE_KINDS_J2K_LOSSLESS = "seq_j2k_lossless"  # its first pair as lossless codestreams
 DECODE_TIMING_PAIRS = 10  # pairs of each PGM / PNG / TIFF / BMP tree in the decode timing
 # the sequence's keyframe trigger: fewer matches than this (every frame,
 # at 400 keypoints) makes a keyframe
@@ -4230,7 +4232,7 @@ def _rewrite_tree(src_root, outputs) -> None:
     for dst_root, (ext, _) in outputs.items():
         dst = os.path.join(dst_root, "mav0")
         with open(os.path.join(dst, "cam0", "data.csv"), "w") as f:
-            f.write(re.sub(r"\.(png|jpg)$", ext, rows, flags=re.M))
+            f.write(re.sub(r"\.(png|jpg|j2k)$", ext, rows, flags=re.M))
         shutil.copytree(os.path.join(src, "state_groundtruth_estimate0"),
                         os.path.join(dst, "state_groundtruth_estimate0"))
 
@@ -4257,8 +4259,8 @@ def _decode_pair_ms(pairs, n_rep: int) -> float:
 def phase_image_kinds(ctx, cli_line):
     """Every JPEG, netpbm, PFM, TIFF, BMP, GIF, WebP, DIB, QOI, Sun raster,
     PCX, SGI, TGA, ICO, CUR, DDS, PSD, DCX, BLP, FTEX, ICNS, MSP, XBM, XPM,
-    IM, IMT, IPTC, SPIDER, GBR, McIDAS, PIXAR, XVThumb, FITS, FLI and PCD
-    kind the JAX package reads through PIL,
+    IM, IMT, IPTC, SPIDER, GBR, McIDAS, PIXAR, XVThumb, FITS, FLI, PCD and
+    reversible JPEG 2000 kind the JAX package reads through PIL,
     on the card's machine (no PIL there) and through the CLI at full width:
 
     (a) each committed fixture of ``tests/fixtures/image_kinds`` (its
@@ -4293,6 +4295,12 @@ def phase_image_kinds(ctx, cli_line):
     the serve route's frames are the native route's; the algorithm file
     holds the weight paths, which ``serve`` takes from it, and makes every
     frame a keyframe, so the trajectories compared hold every pose);
+    (c') the committed sequence again as reversible JPEG 2000 codestreams
+    at rate 20 (``seq_j2k``, written by PIL: most code-blocks cut short of
+    their lower bit-planes): ``cli run`` native and ``--no-native`` on it
+    and on PNG copies of its decoded pixels, each route's trajectory,
+    keyframes and launches equal to its PNG copies', K1 (both modes), K2
+    and K3 launched (the four runs beside (c)'s);
     (d) the frames as YCbCr 4:2:0 JPEG-in-TIFF (16-row strips, one
     JPEGTables stream) through ``cli run`` (native), and dithered as PIL's
     ``convert("1")`` dithers them as Group 4 TIFF through ``cli run
@@ -4307,7 +4315,8 @@ def phase_image_kinds(ctx, cli_line):
     committed ZSTD pair with predictor 2, 4-bit ThunderScan of raw-pixel
     codes, the JPEG-in-TIFF and Group 4
     trees, YCbCr 2×2 LZW and old-style JPEG), 8-bit BMP, GIF, VP8L WebP,
-    the committed lossy WebP pair (quality 90), RLE TGA, RLE SGI, QOI, PCX,
+    the committed lossy WebP pair (quality 90), the committed JPEG 2000
+    pairs (lossless, and rate 20), RLE TGA, RLE SGI, QOI, PCX,
     RLE Sun raster, DDS of BC1 and BC7 blocks, PackBits and raw PSD, BLP2
     and FTEX of DXT1 blocks, 128 × 128 ICNS it32 RLE icons (the largest
     RLE icon PIL reads), BRUN FLC, FITS of BITPIX 8 (raw and a GZIP_1 tile),
@@ -4505,6 +4514,12 @@ def phase_image_kinds(ctx, cli_line):
     seq = os.path.join(IMAGE_KINDS, IMAGE_KINDS_SEQ)
     copies = os.path.join(work, "seq_png")
     _rewrite_tree(seq, {copies: (".png", png.write_png)})
+    # (c') the JPEG 2000 sequence and its PNG copies
+    seq_j2k = os.path.join(IMAGE_KINDS, IMAGE_KINDS_J2K)
+    copies_j2k = os.path.join(work, "seq_j2k_png")
+    _rewrite_tree(seq_j2k, {copies_j2k: (".png", png.write_png)})
+    j2k_runs = {(k, route): os.path.join(work, f"traj_j2k_{k}_{route}.txt")
+                for k in ("j2k", "png_copies") for route in ("native", "no_native")}
     # serve takes its weights from the algorithm file only: this one is
     # SystemConfig() (= configs/euroc.yaml) with the smoke's weights, and
     # every tracked frame a keyframe, so the trajectory files hold every
@@ -4529,7 +4544,10 @@ def phase_image_kinds(ctx, cli_line):
          "--idle-timeout", "120"),
         *[("run", "--dataroot", codec_trees[k], "--config", ctx["euroc"], "--camera-config",
            ctx["cam_yaml"], *weights, "--gt", codec_trees[k], "--traj-path",
-           os.path.join(work, f"traj_{k}.txt"), *codec_routes[k]) for k in codec_routes])
+           os.path.join(work, f"traj_{k}.txt"), *codec_routes[k]) for k in codec_routes],
+        *[("run", "--dataroot", seq_j2k if k == "j2k" else copies_j2k, "--config", seq_yaml,
+           "--gt", seq_j2k, "--traj-path", path, *(("--no-native",) if route == "no_native" else ()))
+          for (k, route), path in j2k_runs.items()])
     seq_wall = time.perf_counter() - t0
     runs = {}
     for k, out in zip(traj, outs):
@@ -4538,9 +4556,22 @@ def phase_image_kinds(ctx, cli_line):
             runs[k] = {**_cli_result(out), "text": f.read(),
                        "ate": json.loads(ate.group(1)) if ate else None}
     codec_runs = {}
-    for k, out in zip(codec_routes, outs[len(traj):]):
+    for k, out in zip(codec_routes, outs[len(traj):len(traj) + len(codec_routes)]):
         with open(os.path.join(work, f"traj_{k}.txt")) as f:
             codec_runs[k] = {**_cli_result(out), "text": f.read()}
+    j2k_out = {}
+    for key, out in zip(j2k_runs, outs[len(traj) + len(codec_routes):]):
+        with open(j2k_runs[key]) as f:
+            j2k_out[key] = {**_cli_result(out), "text": f.read()}
+    j2k_line = {}
+    for route in ("native", "no_native"):
+        r, c = j2k_out["j2k", route], j2k_out["png_copies", route]
+        j2k_line[route] = {"frames": r["frames"], "keyframes": len(r["text"].splitlines()),
+                           "launches": r["launches"],
+                           "trajectory_equal_png_copies": r["text"] == c["text"],
+                           "keyframes_equal_png_copies":
+                               len(r["text"].splitlines()) == len(c["text"].splitlines()),
+                           "launches_equal_png_copies": r["launches"] == c["launches"]}
     codec_line = {}
     for k in ("jpeg_ycc420", "ccitt_g4"):
         r, c = codec_runs[k], codec_runs[k + "_png"]
@@ -4593,6 +4624,10 @@ def phase_image_kinds(ctx, cli_line):
                "webp_lossy_q90": [with_size(os.path.join(IMAGE_KINDS, IMAGE_KINDS_WEBP, "cam0.webp"),
                                             os.path.join(IMAGE_KINDS, IMAGE_KINDS_WEBP,
                                                          "cam1.webp"))],
+               "j2k_lossless": [with_size(
+                   os.path.join(IMAGE_KINDS, IMAGE_KINDS_J2K_LOSSLESS, "cam0.j2k"),
+                   os.path.join(IMAGE_KINDS, IMAGE_KINDS_J2K_LOSSLESS, "cam1.j2k"))],
+               "j2k_rate20": tree_pairs(seq_j2k, 1),
                "tiff_jpeg_ycc420": tree_pairs(codec_trees["jpeg_ycc420"], DECODE_TIMING_PAIRS),
                "tiff_ccitt_g4": tree_pairs(codec_trees["ccitt_g4"], DECODE_TIMING_PAIRS),
                **{f"tiff_{k}": tree_pairs(root, TIFF_CODEC_TIMING_PAIRS)
@@ -4625,6 +4660,7 @@ def phase_image_kinds(ctx, cli_line):
                          "serve_frames": runs["serve"]["frames"],
                          "serve_trajectory_equal_run": runs["serve"]["text"] == runs["jpeg"]["text"],
                          "serve_launches": runs["serve"]["launches"], "cli_wall_s": seq_wall},
+            "sequence_j2k": j2k_line,
             "decode_ms_per_pair": timing,
             "decode_order": "progressive, baseline, baseline, progressive; P5, PNG, PNG, P5",
             "decode_ms_per_pair_vs_png": tb_timing,
@@ -4657,6 +4693,15 @@ def phase_image_kinds(ctx, cli_line):
     for k in ("conv_stem", "conv_stem_side", "superglue_layer", "sinkhorn"):
         if jl[k] <= 0:
             raise AssertionError(f"image_kinds: kernel {k} never launched on the sequence")
+    for route, r in j2k_line.items():
+        if r["frames"] != IMAGE_KINDS_SEQ_FRAMES or not r["trajectory_equal_png_copies"] \
+                or not r["keyframes_equal_png_copies"] or not r["launches_equal_png_copies"]:
+            raise AssertionError(f"image_kinds: the JPEG 2000 sequence's {route} run differs "
+                                 f"from its PNG copies': {r}")
+        for k in ("conv_stem", "conv_stem_side", "superglue_layer", "sinkhorn"):
+            if r["launches"][k] <= 0:
+                raise AssertionError(f"image_kinds: kernel {k} never launched on the JPEG 2000 "
+                                     f"sequence ({route})")
     if runs["serve"]["frames"] != IMAGE_KINDS_SEQ_FRAMES \
             or not seq_line["serve_trajectory_equal_run"]:
         raise AssertionError(f"image_kinds: serve gave another trajectory:\n"

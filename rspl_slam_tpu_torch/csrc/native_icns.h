@@ -8,8 +8,9 @@
 // block that size has:
 //   - ic07-ic14, icp4-icp6: a PNG (native_png.h, read from the block's
 //     start to the end of the file: any failure raises, the file being
-//     open) or JPEG 2000 (refused, kIcnsJpeg2000: the port has no JPEG
-//     2000 decoder); another signature raises;
+//     open) or JPEG 2000 (native_j2k.h, the block's bytes opened and
+//     converted to RGBA there: any failure raises); another signature
+//     raises;
 //   - it32 (after four zero bytes), ih32, il32, is32: read_32, an RGB icon,
 //     interleaved where the block holds exactly 3 · w · h bytes, else three
 //     planes of PackBits-like runs (a byte n ≥ 128 repeats the next byte
@@ -18,8 +19,9 @@
 //     them (a plane cut short by the end of the file raises);
 //   - t8mk, h8mk, l8mk, s8mk: the 8-bit mask, which must be all there and
 //     does not change the gray.
-// The image is the PNG where there is one (its own mode's gray, its size
-// one that the sizes allow), else the RGB icon.
+// The image is the PNG or JPEG 2000 entry where there is one (its own
+// mode's gray, or its RGBA's; its size one that the sizes allow), else the
+// RGB icon.
 //
 // Included by native_runtime.cpp inside its anonymous namespace, after
 // native_png.h.
@@ -118,6 +120,9 @@ int decode_icns(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, 
   bool have_rgb = false;
   int64_t png = -1;
   PngState st;
+  bool j2k = false;
+  std::vector<uint8_t> j2k_gray;
+  int j2k_w = 0, j2k_h = 0;
   for (const char* t : s.types) {
     if (!t) continue;
     const auto it = f.blocks.find(be32((const uint8_t*)t));
@@ -135,7 +140,12 @@ int decode_icns(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, 
       } else if ((avail >= 4 && (!std::memcmp(sig, "\xff\x4f\xff\x51", 4) ||
                                  !std::memcmp(sig, "\x0d\x0a\x87\x0a", 4))) ||
                  (avail >= 12 && !std::memcmp(sig, "\0\0\0\x0cjP  \x0d\x0a\x87\x0a", 12))) {
-        return kIcnsJpeg2000;
+        // Jpeg2KImageFile over fobj.read(length), then convert("RGBA")
+        const size_t len = (size_t)std::max<int64_t>(0, std::min<int64_t>(length, (int64_t)avail));
+        rc = decode_icns_jpeg2000(sig, len, j2k_gray, j2k_w, j2k_h);
+        if (rc) return rc;
+        j2k = true;
+        png = -1;
       } else {
         return kCorrupt;  // "Unsupported icon subimage format"
       }
@@ -153,10 +163,14 @@ int decode_icns(const uint8_t* d, size_t n, std::vector<uint8_t>& gray, int& w, 
       have_rgb = true;
     }
   }
-  if (png >= 0) {
-    int pw2 = 0, ph2 = 0;
-    rc = png_load(d + png, n - png, st, gray, pw2, ph2);
-    if (rc) return kCorrupt;
+  if (png >= 0 || j2k) {
+    int pw2 = j2k_w, ph2 = j2k_h;
+    if (j2k) {
+      gray = j2k_gray;
+    } else {
+      rc = png_load(d + png, n - png, st, gray, pw2, ph2);
+      if (rc) return kCorrupt;
+    }
     // the size setter: one of the sizes must divide into it
     bool ok = false;
     for (const IcnsSize* z : f.sizes) {

@@ -74,18 +74,20 @@ enum Err {
   kTiffSgiLog = 19, kTiffMode = 22, kTiffLab = 23,
   kTiffRawMode = 24, kBmpHeader = 25, kBmpDepth = 26, kBmpCompression = 27,
   kBmpBitfields = 28, kBmpPalette = 29, kBmpRle = 30,
-  kJpeg2000 = 33, kPsdLab = 37, kAvif = 42,
+  kPsdLab = 37, kAvif = 42,
   kGifCodeSize = 43, kWebpVp8Frame = 44, kWebpVp8lVersion = 45, kWebpAlpha = 46,
   // the plugins PIL has that the port does not read, each refused by name,
   // the kinds of BLP and ICNS it refuses, and an IPTC band it cannot place;
   // 51, 52, 54, 58, 60, 61, 63-67, 69 and 70 named FITS, FLI, GBR, McIDAS,
   // MSP, PIXAR, XBM, XPM, XVThumb, IM, IMT, PCD and SPIDER before they were
-  // read
+  // read; 33 and 57 named JPEG 2000 and ICNS's JPEG 2000 entries
   kBlpFormat = 47, kBufr = 48, kEps = 50,
-  kGrib = 55, kHdf5 = 56, kIcnsJpeg2000 = 57, kMpeg = 59, kWmf = 62, kIptc = 68,
+  kGrib = 55, kHdf5 = 56, kMpeg = 59, kWmf = 62, kIptc = 68,
   // kinds of the formats read since PR 20 that PIL does not read either
   kSunPalette = 71, kPcxMode = 72, kSgiMode = 73, kSgiCompression = 74, kTgaKind = 75,
-  kTgaMap = 76, kDdsHeader = 77, kDdsFormat = 78
+  kTgaMap = 76, kDdsHeader = 77, kDdsFormat = 78,
+  // the parts of JPEG 2000 the port does not read yet (ROADMAP §1)
+  kJ2k97 = 79, kJ2kHt = 80, kJ2kPart2 = 82
 };
 
 bool read_file(const char* path, std::vector<uint8_t>& buf) {
@@ -1015,6 +1017,9 @@ struct JpegDecoder {
   // a strip or tile of a TIFF (libtiff's JPEG codecs): any 1-4 components,
   // the colour space the caller's, a wrong precision libtiff's error
   bool tiff = false;
+  // libtiff's OJPEG reads the rows of its one scan and stops there: nothing
+  // after the scan's data is read as markers
+  bool one_scan = false;
   // TIFF's JPEGTables: DQT and DHT segments to EOI, kept for the strips
   bool tables_only = false;
   // the scans read, whether the first made it an image of several scans
@@ -2251,6 +2256,7 @@ struct JpegDecoder {
         unread_marker = 0;  // the SOS processed; the scan may stop at the next marker
         if ((rc = run_scan(sc, ss, se, ah, al))) break;
         if (!multi) image_done = true;
+        if (image_done && one_scan) return kOk;
         continue;
       } else if (m == 0xCC) {
         rc = get_dac();
@@ -2517,6 +2523,7 @@ int jpeg_open(const uint8_t* d, size_t n) {
 #include "native_ico.h"
 #include "native_psd.h"
 #include "native_blp.h"
+#include "native_j2k.h"
 #include "native_icns.h"
 #include "native_plugins.h"
 
@@ -2902,7 +2909,7 @@ const Plugin kPlugins[] = {
     {"GBR", accept_gbr, decode_gbr, probe_gbr, 0, nullptr},
     {"GRIB", accept_grib, nullptr, nullptr, kGrib, nullptr},
     {"HDF5", accept_hdf5, nullptr, nullptr, kHdf5, nullptr},
-    {"JPEG2000", accept_jpeg2000, nullptr, nullptr, kJpeg2000, nullptr},
+    {"JPEG2000", accept_jpeg2000, decode_jpeg2000, probe_jpeg2000, 0, nullptr},
     {"ICNS", accept_icns, decode_icns, probe_icns, 0, nullptr},
     {"ICO", accept_ico, decode_ico, probe_ico, 0, nullptr},
     {"IM", nullptr, decode_im, probe_im, 0, nullptr},
@@ -3152,8 +3159,16 @@ const char* native_runtime_error_string(int code) {
       return "a WebP whose ALPH chunk names a compression method above 1, a pre-processing "
              "above 1 or sets its reserved bits: PIL does not read it either (libwebp's "
              "ALPHInit refuses it: \"failed to read next frame\")";
-    case kJpeg2000:
-      return "a JPEG 2000 image (codestream or JP2): PIL reads it through OpenJPEG; not read";
+    case kJ2k97:
+      return "a JPEG 2000 image coded with the irreversible 9/7 wavelet (and its ICT colour "
+             "transform): PIL reads it through OpenJPEG; not read yet (ROADMAP §1: JPEG 2000's "
+             "9/7 wavelet and ICT)";
+    case kJ2kHt:
+      return "a JPEG 2000 image of HT (Part 15, High Throughput) code-blocks: PIL reads it "
+             "through OpenJPEG; not read yet (ROADMAP §1: JPEG 2000 HT code-blocks)";
+    case kJ2kPart2:
+      return "a JPEG 2000 codestream of Part 2 markers (MCT, MCC, MCO, CBD): not read yet "
+             "(ROADMAP §1: JPEG 2000 Part 2)";
     case kPsdLab:
       return "a PSD in Lab colour: PIL opens it as mode LAB but does not convert it to L "
              "either (\"conversion from LAB to RGB not supported\")";
@@ -3171,9 +3186,6 @@ const char* native_runtime_error_string(int code) {
                        "an application installs (\"cannot find loader\"); not read";
     case kHdf5: return "an HDF5 file: PIL identifies it but loads it only through a handler "
                        "an application installs (\"cannot find loader\"); not read";
-    case kIcnsJpeg2000:
-      return "an ICNS (Apple icon) image whose best size is a JPEG 2000 entry: PIL reads it "
-             "through OpenJPEG; not read";
     case kMpeg: return "an MPEG stream: PIL identifies it but cannot read it either; not read";
     case kWmf: return "a WMF/EMF metafile: PIL renders it only on Windows; not read";
     case kIptc:

@@ -534,8 +534,12 @@ bool tiff_libtiff_layout(const uint8_t* d, size_t n, const TiffIfd& f, int xsize
     // "MissingRequired"
     return (int64_t)k == planes && estimate();
   }
+  // Pillow opens with "rC", so TIFFReadDirectory fetches both arrays at
+  // once (no deferred strile loading): a byte count array TIFFFetchStripThing
+  // cannot read (a type other than an integer, values past the file) fails
+  // the open before any estimate
   const int counts_tag = f.has(kTagStripBytes) ? kTagStripBytes : kTagTileBytes;
-  if (!tiff_strile_array(d, n, f, counts_tag, k, counts)) return one_strip && estimate();
+  if (!tiff_strile_array(d, n, f, counts_tag, k, counts)) return false;
   // "Bogus StripByteCounts field": one strip of 0 bytes at an offset
   if (one_strip && counts[0] == 0 && offs[0] != 0) return estimate();
   return true;
@@ -584,8 +588,8 @@ int tiff_setup(const uint8_t* d, size_t n, TiffInfo& t) {
   const uint64_t xs = f.get(kTagWidth, 0), ys = f.get(kTagHeight, 0);
   if ((int64_t)xs <= 0 || (int64_t)ys <= 0)
     return kPassOn;  // ImageFile: "not identified by this driver"
-  if (xs > (1 << 24) || ys > (1 << 24) || xs * ys > kMaxPixels)
-    return kCorrupt;  // past PIL's decompression-bomb limit too
+  if (xs > kMaxPixels || ys > kMaxPixels || xs * ys > kMaxPixels)
+    return kCorrupt;  // past PIL's decompression-bomb limit
   t.xsize = (int)xs;
   t.ysize = (int)ys;
   // Image.getexif finds tag 274 in the IFD, else consults the XMP packet
@@ -727,6 +731,132 @@ bool packbits_decode(const uint8_t* p, size_t n, std::vector<uint8_t>& out, size
   return true;
 }
 
+// ZIPDecode: zlib's inflate over the whole strip into a buffer of the
+// strip's size. True once `expect` bytes came out, though the stream goes
+// on or stops short of its end; inflate still reads what follows the last
+// byte up to the next one it would write, so a bad code, block header or
+// Adler-32 met there fails. False where the stream ends, or the input
+// runs out, before `expect` bytes.
+bool tiff_zip_decode(const uint8_t* d, size_t n, std::vector<uint8_t>& out, size_t expect) {
+  out.clear();
+  out.reserve(expect);
+  if (n < 2) return false;
+  const int cmf = d[0], flg = d[1];
+  if ((cmf & 15) != 8 || (cmf >> 4) > 7 || ((cmf << 8) | flg) % 31 != 0 || (flg & 0x20))
+    return false;
+  InflateIn in{d + 2, n - 2};
+  auto full = [&]() { return out.size() >= expect; };
+  // the bits left to read before a code: zlib fails a code it can see
+  // (fixed distance codes 30 and 31 take 5 bits, an incomplete dynamic
+  // code's missing half 1) and waits for input otherwise
+  auto left_bits = [&]() { return (int64_t)(in.n - in.pos) * 8 + in.cnt - (int64_t)in.overrun * 8; };
+  Huffman lit, dist;
+  int final = 0;
+  do {
+    final = (int)in.bits(1);
+    const int type = (int)in.bits(2);
+    if (in.overran()) return full();
+    if (type == 0) {
+      in.align();
+      in.unread();
+      if (in.pos + 4 > in.n) return full();
+      const size_t len = in.d[in.pos] | (in.d[in.pos + 1] << 8);
+      const size_t nlen = in.d[in.pos + 2] | (in.d[in.pos + 3] << 8);
+      if (len != (~nlen & 0xffff)) return false;
+      in.pos += 4;
+      if (len && full()) return true;
+      const size_t take = std::min({len, in.n - in.pos, expect - out.size()});
+      out.insert(out.end(), in.d + in.pos, in.d + in.pos + take);
+      in.pos += take;
+      if (take < len) return full();
+      continue;
+    }
+    bool fixed = type == 1;
+    if (type == 1) {
+      uint8_t l[288 + 30];
+      for (int s = 0; s < 288; ++s) l[s] = s < 144 ? 8 : s < 256 ? 9 : s < 280 ? 7 : 8;
+      for (int s = 0; s < 30; ++s) l[288 + s] = 5;
+      lit.build(l, 288);
+      dist.build(l + 288, 30);
+    } else if (type == 2) {
+      const int nlen = (int)in.bits(5) + 257, ndist = (int)in.bits(5) + 1;
+      const int ncode = (int)in.bits(4) + 4;
+      if (in.overran()) return full();
+      if (nlen > 286 || ndist > 30) return false;
+      static const uint8_t order[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5,
+                                        11, 4, 12, 3, 13, 2, 14, 1, 15};
+      uint8_t lengths[320] = {0};
+      for (int k = 0; k < ncode; ++k) lengths[order[k]] = (uint8_t)in.bits(3);
+      if (in.overran()) return full();
+      Huffman lencode;
+      if (!lencode.build(lengths, 19)) return false;
+      std::memset(lengths, 0, sizeof(lengths));
+      int idx = 0;
+      while (idx < nlen + ndist) {
+        const int64_t avail = left_bits();
+        const int sym = in.decode(lencode);
+        if (sym < 0) return avail > 0 ? false : full();
+        int len = 0, rep = 0;
+        if (sym < 16) {
+          rep = 1;
+          len = sym;
+        } else if (sym == 16) {
+          rep = 3 + (int)in.bits(2);
+        } else if (sym == 17) {
+          rep = 3 + (int)in.bits(3);
+        } else {
+          rep = 11 + (int)in.bits(7);
+        }
+        if (in.overran()) return full();
+        if (sym == 16) {
+          if (idx == 0) return false;
+          len = lengths[idx - 1];
+        }
+        if (idx + rep > nlen + ndist) return false;
+        while (rep--) lengths[idx++] = (uint8_t)len;
+      }
+      if (lengths[256] == 0) return false;
+      if (!lit.build(lengths, nlen) || !dist.build(lengths + nlen, ndist)) return false;
+    } else {
+      return false;
+    }
+    while (true) {
+      int64_t avail = left_bits();
+      const int sym = in.decode(lit);
+      if (sym < 0) return avail > 0 ? false : full();
+      if (in.overran()) return full();
+      if (sym < 256) {
+        if (full()) return true;
+        out.push_back((uint8_t)sym);
+        continue;
+      }
+      if (sym == 256) break;
+      const int li = sym - 257;
+      if (li >= 29) return false;
+      const int length = kLenBase[li] + (int)in.bits(kLenExtra[li]);
+      if (in.overran()) return full();
+      avail = left_bits();
+      const int di = in.decode(dist);
+      if (di < 0) return avail >= (fixed ? 5 : 1) ? false : full();
+      if (in.overran()) return full();
+      if (di >= 30) return false;
+      const size_t dd = (size_t)kDistBase[di] + in.bits(kDistExtra[di]);
+      if (in.overran()) return full();
+      if (full()) return true;
+      if (dd > out.size()) return false;
+      const size_t from = out.size() - dd;
+      const size_t take = std::min<size_t>((size_t)length, expect - out.size());
+      for (size_t k = 0; k < take; ++k) out.push_back(out[from + k]);
+      if (take < (size_t)length) return true;
+    }
+  } while (!final);
+  in.align();
+  in.unread();
+  if (in.pos + 4 > in.n) return full();
+  if (be32(in.d + in.pos) != adler32(out.data(), out.size())) return false;
+  return full();
+}
+
 // TIFF LZW: MSB-first codes of 9 to 12 bits, Clear 256 and EOI 257; the
 // width grows as the next free code reaches 511, 1023 and 2047 (the
 // "early change" libtiff decodes)
@@ -742,6 +872,7 @@ bool lzw_decode(const uint8_t* p, size_t n, std::vector<uint8_t>& out, size_t ex
   }
   uint64_t acc = 0;
   int nacc = 0, width = 9, next = 258, old = -1;
+  bool cleared = false;
   size_t i = 0;
   std::vector<uint8_t> tmp(4096);
   while (out.size() < expect) {
@@ -752,8 +883,12 @@ bool lzw_decode(const uint8_t* p, size_t n, std::vector<uint8_t>& out, size_t ex
     }
     const int code = (int)((acc >> (nacc - width)) & ((1u << width) - 1));
     nacc -= width;
+    // LZWDecode's first code must be Clear: before it the decoder's last
+    // string is no entry, and any other code is "not yet in table"
+    if (!cleared && code != 256) return false;
     if (code == 257) break;
     if (code == 256) {
+      cleared = true;
       width = 9;
       next = 258;
       old = -1;
@@ -942,9 +1077,12 @@ int tiff_segment(const uint8_t* d, size_t n, const TiffInfo& t, uint64_t off, ui
   } else if (t.compression == 32809) {
     // ThunderSetupDecode takes 4-bit samples only; no tile decoder
     ok = bits == 4 && !sg.tile && thunder_decode(src.data(), src.size(), out, rows, row_bytes, sg.w);
+  } else if (t.compression == 8 || t.compression == 32946) {
+    ok = tiff_zip_decode(src.data(), src.size(), out, expect);
   } else {
-    ok = zlib_inflate(src.data(), src.size(), out, expect) == kOk && out.size() >= expect;
-    if (ok) out.resize(expect);
+    // libtiff's own first entry names a scheme it has no codec for:
+    // "Compression scheme N strip decoding is not implemented"
+    return kCorrupt;
   }
   if (!ok && sg.tolerant) {
     out.resize(expect, 0);
@@ -1005,6 +1143,10 @@ int decode_tiff_raw(const uint8_t* d, size_t n, const TiffInfo& t, PilImage& im)
   } else {
     return kPassOn;  // "unknown data organization" (SyntaxError)
   }
+  // offsets PIL holds as IFDRational or float: ImageFile.load's seek raises
+  // TypeError
+  const int offs_type = f.entries.at(f.has(kTagStripOffsets) ? kTagStripOffsets : kTagTileOffsets).type;
+  if (offs_type == 5 || offs_type == 10 || offs_type == 11 || offs_type == 12) return kCorrupt;
   if (w <= 0 || h <= 0) return kCorrupt;
   if (w == t.xsize && h == t.ysize && t.planar != 2 && !offsets.empty())
     offsets = {offsets.back()};  // every tile covers the image: the last offset

@@ -277,6 +277,7 @@ int ojpeg_decode(const uint8_t* d, size_t n, const TiffInfo& t, OjpegImage& img)
   s.push_back(0xD9);
   JpegDecoder dec(s.data(), s.size());
   dec.tiff = true;
+  dec.one_scan = true;
   if (dec.parse() || dec.comps.size() != 3 || dec.lossless) return kCorrupt;
   // OJPEGSubsamplingCorrect: the stream's factors, where TIFF can say them
   const int h = dec.comps[0].h, v = dec.comps[0].v;

@@ -422,7 +422,11 @@ bool zstd_huff_decode(const ZstdHuff& h, bool four, bool x2, const uint8_t* src,
   // the jump table (ilowest); bulk rounds of 5 symbols a stream while the
   // first stream has 7 bytes a round above ilowest and the fourth 5 symbols
   // left; then each stream finished to its segment's end, unchecked, unless
-  // the bulk rounds took it a byte past its own start
+  // the bulk rounds took it a byte past its own start. X2 (double-symbol
+  // tables) as HUF_decompress4X2_usingDTable_internal_fast: rounds of 5
+  // lookups a stream, each one or two symbols, while every stream has 10
+  // bytes a round left; a run of rounds ends once the fourth stream has
+  // written 5 symbols a round planned
   ZstdHuffReader r[4];
   size_t done[4] = {0, 0, 0, 0};
   for (int k = 0; k < 4; ++k) {
@@ -439,6 +443,47 @@ bool zstd_huff_decode(const ZstdHuff& h, bool four, bool x2, const uint8_t* src,
   };
   // ip[k] - ilowest, the byte whose container holds the next bits
   auto ip = [&](int k) { return (int64_t)ends[k] - 8 - ((int64_t)ends[k] * 8 - r[k].left) / 8; };
+  if (x2) {
+    // one X2 lookup: the first code, and the next one where both fit in
+    // the table's log bits (HUF_fillDTableX2's pairs)
+    auto two = [&](int k, bool pair_ok) {
+      const uint32_t v = r[k].peek(dlog);
+      const uint32_t i1 = v >> (dlog - h.log);
+      const int l1 = h.nbits[i1];
+      const uint32_t i2 = ((v << l1) & ((1u << dlog) - 1)) >> (dlog - h.log);
+      const int l2 = h.nbits[i2];
+      out[k * seg + done[k]++] = h.sym[i1];
+      if (l1 + l2 <= dlog && pair_ok) {
+        out[k * seg + done[k]++] = h.sym[i2];
+        r[k].left -= l1 + l2;
+      } else {
+        r[k].left -= l1;
+      }
+    };
+    while (true) {
+      const int64_t i0 = ip(0);
+      size_t iters = i0 > 0 ? (size_t)(i0 / 7) : 0;
+      for (int k = 0; k < 4; ++k) iters = std::min(iters, (outs[k] - done[k]) / 10);
+      if (iters == 0) break;
+      bool crossed = false;
+      for (int k = 1; k < 4; ++k) crossed = crossed || ip(k) < ip(k - 1);
+      if (crossed) break;
+      const size_t olimit = done[3] + iters * 5;
+      do {
+        for (int sy = 0; sy < 5; ++sy)
+          for (int k = 0; k < 4; ++k) two(k, true);
+      } while (done[3] < olimit);
+    }
+    // HUF_decodeStreamX2 to each segment's end: pairs while two bytes are
+    // left, then HUF_decodeLastSymbolX2's one
+    for (int k = 0; k < 4; ++k) {
+      if (ip(k) < (int64_t)starts[k] - 8) return false;
+      r[k].wrap = true;
+      while (done[k] + 2 <= outs[k]) two(k, true);
+      if (done[k] < outs[k]) two(k, false);
+    }
+    return true;
+  }
   while (true) {
     const size_t oiters = (outs[3] - done[3]) / 5;
     const int64_t i0 = ip(0);

@@ -55,8 +55,10 @@ PCX frame), BLP (JPEG, palettes, the plugin's own DXT1/3/5) and FTEX
 ``csrc/native_icns.h``); MSP, XBM, XPM, IM, IMT, IPTC (its data opened
 again through every plugin), SPIDER, GBR, McIDAS, PIXAR, XVThumb and FITS
 (raw, or a GZIP_1 tile) as their plugins read them
-(``csrc/native_layouts.h``), frame 0 of FLI / FLC (``csrc/native_fli.h``)
-and the PhotoCD base image (``csrc/native_raster.h``). JPEG is read as
+(``csrc/native_layouts.h``), frame 0 of FLI / FLC (``csrc/native_fli.h``),
+the PhotoCD base image (``csrc/native_raster.h``) and reversible JPEG 2000
+(``csrc/native_j2k.h``: codestreams, JP2 files and ICNS entries of the 5/3
+wavelet, as OpenJPEG 2.5.4 decodes them for Pillow). JPEG is read as
 libjpeg-turbo reads it behind Pillow's suspending source, markers,
 damaged data and the data's end included. Kinds
 PIL refuses (12-bit, hierarchical, DNL and fractional-sampling JPEG,
@@ -71,9 +73,9 @@ BLPFormatError names) and formats and kinds PIL reads that
 the port does not yet (TIFF's 12-bit and short-stream new-style JPEG,
 old-style JPEG in
 tiles, on separate planes, in big-endian strips or with restart
-intervals off the strips; JPEG 2000 (an ICNS of a JPEG 2000 best size
-too), AVIF and every other plugin of PIL's the port does not read, each
-by name; an IPTC file whose data is not a JPEG or 8-bit netpbm image of
+intervals off the strips; JPEG 2000 of the 9/7 wavelet, HT code-blocks
+or Part 2 markers; AVIF and every other plugin of
+PIL's the port does not read, each by name; an IPTC file whose data is not a JPEG or 8-bit netpbm image of
 mode L) raise ``NotImplementedError`` naming the kind or format. A
 file no plugin of PIL's opens raises ``ValueError``, and a file that fails
 to decode (libtiff's own failures included) ``IOError``, on every route:

@@ -30,10 +30,12 @@ Every other file goes to the host C++ of ``native.py``
 the format as PIL's ``Image.open`` does, trying PIL's plugins in their
 order, whatever the extension. The kinds PIL refuses raise
 ``NotImplementedError`` naming the kind with PIL's reason, and so do the
-formats and kinds PIL reads that the port does not yet (TIFF's LZMA,
-ZSTD, WebP, SGILog and ThunderScan compressions; JPEG 2000, AVIF and
-every other plugin of PIL's the port does not read, each named); a file
-no plugin of PIL's opens raises ``ValueError``.
+formats and kinds PIL reads that the port does not yet (JPEG 2000 of
+the 9/7 wavelet, HT code-blocks or Part 2 markers; AVIF and every other plugin of PIL's the port does not read,
+each named); a file no plugin of PIL's opens raises ``ValueError``.
+(TIFF's LZMA, ZSTD and ThunderScan, and reversible JPEG 2000, read as
+PIL reads them; TIFF's WebP and SGILog are refused as PIL refuses
+them.)
 
 :func:`write_png` writes 8-bit PNGs with one fixed filter or, by default,
 the filter per row that minimizes the sum of the filtered bytes read as

@@ -154,8 +154,7 @@ def _raises_on_every_route(path, data, word):
 def test_unported_kind_raises_in_the_port_alone(name):
     """A kind or format PIL reads that the port does not read yet (TIFF's
     12-bit and short-stream new-style JPEG,
-    old-style JPEG of big-endian strips or odd restart intervals; JPEG
-    2000, AVIF, an ICNS whose best size is JPEG 2000):
+    old-style JPEG of big-endian strips or odd restart intervals; AVIF):
     PIL (JAX's reader) reads it, and every route of the port raises
     ``NotImplementedError`` naming the kind or format."""
     path = os.path.join(DIR, name)
@@ -480,9 +479,18 @@ def test_pil_boundaries_of_i16_and_f_to_l(tmp_path):
         assert _pil(data).tolist() == [want]
 
 
+def _pil_j2k(**kw) -> bytes:
+    buf = io.BytesIO()
+    Image.new("L", (8, 6), 90).save(buf, "JPEG2000", **kw)
+    return buf.getvalue()
+
+
+# a file of each kind the port refuses by name: JPEG 2000 of the
+# irreversible 9/7 wavelet (the port reads the reversible 5/3), a Lab PSD,
+# AVIF; the signature alone where no more is needed
 UNPORTED_SIGNATURES = {
-    "JPEG 2000": b"\xff\x4f\xff\x51",
-    "JPEG 2000 (JP2)": b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a",
+    "JPEG 2000": _pil_j2k(no_jp2=True, irreversible=True),
+    "JPEG 2000 (JP2)": _pil_j2k(irreversible=True),
     # a 2 × 2 Lab PSD: the one PSD kind still refused (PIL cannot convert it)
     "PSD": b"8BPS" + struct.pack(">H6xHIIHH", 1, 3, 2, 2, 8, 9),
     "AVIF": b"\0\0\0\x1cftypavif"}
@@ -491,8 +499,9 @@ UNPORTED_SIGNATURES = {
 @pytest.mark.parametrize("fmt", sorted(UNPORTED_SIGNATURES))
 def test_unported_format_raises_naming_it(fmt):
     """A file that starts with the signature PIL identifies a format by, of
-    a format the port does not read yet (for PSD, which the port reads, a
-    Lab header: PIL does not convert Lab either), raises
+    a format or kind the port does not read yet (for PSD, which the port
+    reads, a Lab header: PIL does not convert Lab either; for JPEG 2000,
+    which the port reads, PIL's file of the 9/7 wavelet), raises
     ``NotImplementedError`` naming that format on ``decode_u8`` and
     ``image_size``; a file no plugin of PIL's opens keeps its
     ``ValueError``."""

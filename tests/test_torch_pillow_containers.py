@@ -409,8 +409,7 @@ def _icns_j2k():
 
 
 # the files the refusal test gave these plugins while the port refused them
-# (the same bytes), and an ICNS whose best size is a JPEG 2000 codestream,
-# which the port refuses
+# (the same bytes), and an ICNS whose best size is a JPEG 2000 codestream
 FORMERLY_REFUSED = {
     "BLP": lambda: _pil_saved("BLP", "P"),
     "DCX": lambda: struct.pack("<II", 0x3ADE68B1, 12) + bytes(4) + _pil_saved("PCX"),
@@ -428,9 +427,8 @@ def test_plugins_refused_before_now_read_as_pil(plugin, tmp_path):
     """A file PIL gives to each of these plugins (PIL's own writer where it
     has one), which the port refused by name until it read them: PIL opens
     it with the plugin, the port names the same plugin and gives PIL's
-    pixels on ``decode_u8``, ``image_size`` and ``png.read_gray``; an ICNS
-    whose best size is JPEG 2000 (which PIL reads through OpenJPEG) stays
-    refused, naming JPEG 2000."""
+    pixels on ``decode_u8``, ``image_size`` and ``png.read_gray`` (an ICNS
+    whose best size is JPEG 2000 too, since the port reads JPEG 2000)."""
     data = FORMERLY_REFUSED[plugin]()
     path = tmp_path / "f"
     path.write_bytes(data)
@@ -439,11 +437,6 @@ def test_plugins_refused_before_now_read_as_pil(plugin, tmp_path):
         assert im.format == name
         ref = np.asarray(im.convert("L"))
     assert native.plugin_of(data) == name
-    if plugin == "ICNS of JPEG 2000":
-        for call in (lambda: native.decode_u8(data), lambda: png.read_gray(str(path))):
-            with pytest.raises(NotImplementedError, match="JPEG 2000"):
-                call()
-        return
     assert native.image_size(data) == ref.shape
     np.testing.assert_array_equal(native.decode_u8(data), ref)
     np.testing.assert_array_equal(png.read_gray(str(path)), ref)

@@ -528,14 +528,15 @@ def _wmf():
 
 # a file each plugin the port does not read takes, and the word its refusal
 # names it by (the plugins read since, FITS through XVThumb, are cases of
-# test_torch_pillow_raw_layouts.py's FORMERLY_REFUSED)
+# test_torch_pillow_raw_layouts.py's FORMERLY_REFUSED; JPEG 2000, read since
+# in its reversible kind, by PIL's file of the irreversible 9/7 wavelet)
 REFUSED_PLUGINS = {
     "AVIF": (lambda: _pil_saved("AVIF", "RGB"), "AVIF"),
     "BUFR": (lambda: b"BUFR" + bytes(40), "BUFR"),
     "EPS": (lambda: _pil_saved("EPS"), "EPS"),
     "GRIB": (lambda: b"GRIB\0\0\0\x01" + bytes(40), "GRIB"),
     "HDF5": (lambda: b"\x89HDF\r\n\x1a\n" + bytes(40), "HDF5"),
-    "JPEG2000": (lambda: _pil_saved("JPEG2000"), "JPEG 2000"),
+    "JPEG2000": (lambda: _pil_saved("JPEG2000", irreversible=True), "JPEG 2000"),
     "MPEG": (lambda: b"\0\0\1\xb3\x00\x40\x30" + bytes(40), "MPEG"),
     "WMF": (_wmf, "WMF"),
 }

@@ -34,6 +34,7 @@ named ``NotImplementedError``).
   each libtiff-read tag it has written a second time with a random value.
 """
 
+import functools
 import io
 import lzma
 import struct
@@ -549,6 +550,102 @@ def test_repeated_tag_cases(row, tmp_path):
         np.testing.assert_array_equal(native.decode_u8(data), g)
 
 
+# libzstd's HUF_selectDecoder: double-symbol (X2) tables where their
+# estimated time is shorter (the port's ``zstd_huff_x2``)
+_HUF_TIMES = [[0, 0, 1, 1], [0, 0, 1, 1], [150, 216, 381, 119], [170, 205, 514, 112],
+              [177, 199, 539, 110], [197, 194, 644, 107], [221, 192, 735, 107],
+              [256, 189, 881, 106], [359, 188, 1167, 109], [582, 187, 1570, 114],
+              [688, 187, 1712, 122], [825, 186, 1965, 136], [976, 185, 2131, 150],
+              [1180, 186, 2070, 175], [1377, 185, 1731, 202], [1412, 185, 1695, 202]]
+
+
+def _huf_x2(dst: int, csrc: int) -> bool:
+    t = _HUF_TIMES[15 if csrc >= dst else csrc * 16 // dst]
+    t1 = t[2] + t[3] * (dst >> 8)
+    return t1 + (t1 >> 5) < t[0] + t[1] * (dst >> 8)
+
+
+def _x2_literals(frame: bytes) -> bool:
+    """Whether a frame (single segment, no dictionary) has a compressed
+    block whose literals are four Huffman streams of at least 2 KiB that
+    libzstd decodes with X2 tables."""
+    fhd = frame[4]
+    single = (fhd >> 5) & 1
+    pos = 5 + (1 - single) + (0, 1, 2, 4)[fhd & 3] + (0, 2, 4, 8)[fhd >> 6] + \
+        (1 if single and not fhd >> 6 else 0)
+    while pos + 3 <= len(frame):
+        bh = int.from_bytes(frame[pos:pos + 3], "little")
+        pos += 3
+        kind, size = (bh >> 1) & 3, bh >> 3
+        b = frame[pos:pos + 5]
+        if kind == 2 and b[0] & 3 == 2 and (b[0] >> 2) & 3:
+            sf, v = (b[0] >> 2) & 3, int.from_bytes(b, "little")
+            regen, comp = ((v >> 4) & 1023, (v >> 14) & 1023) if sf == 1 else \
+                ((v >> 4) & 16383, (v >> 18) & 16383) if sf == 2 else \
+                ((v >> 4) & 262143, (v >> 22) & 262143)
+            if regen >= 2048 and _huf_x2(regen, comp):
+                return True
+        pos += 1 if kind == 1 else size
+        if bh & 1:
+            return False
+    return False
+
+
+@functools.lru_cache(maxsize=None)
+def _x2_corpus(seed: int) -> tuple:
+    """20 one-strip ZSTD TIFFs (libzstd at levels -5 and 1) of skewed random
+    samples whose literals reach libzstd's X2 fast loop, and 40 copies of
+    each with 1-23 bytes overwritten at random before the IFD."""
+    rng = np.random.default_rng(seed)
+    files = []
+    while len(files) < 20:
+        W, H = int(rng.integers(64, 200)), int(rng.integers(40, 160))
+        p, k = float(rng.uniform(0.1, 0.5)), int(rng.integers(6, 60))
+        img = (np.minimum(rng.geometric(p, (H, W)) - 1, k - 1) * int(rng.integers(1, 4))
+               + int(rng.integers(0, 60))).astype(np.uint8)
+        frames = []
+
+        def squeeze(b):
+            frames.append(mk.zstd_compress(b, int(rng.choice([-5, 1])), False))
+            return frames[-1]
+
+        data = mk.encode_tiff(img, compression=50000, squeeze=squeeze)
+        if _x2_literals(frames[-1]):
+            files.append(data)
+    rng = np.random.default_rng(seed + 100)
+    out = []
+    for data in files:
+        end = _ifd_at(data)
+        for _ in range(40):
+            d = bytearray(data)
+            a, n = int(rng.integers(8, end - 4)), int(rng.integers(1, 24))
+            d[a:a + n] = rng.integers(0, 256, len(d[a:a + n])).astype(np.uint8).tobytes()
+            out.append(bytes(d))
+    return tuple(files), tuple(out)
+
+
+@pytest.mark.parametrize("seed", [1, 5])
+def test_zstd_x2_fast_loop_corpus_matches_pil(seed, tmp_path):
+    """ZSTD strips whose literal sections libzstd 1.5.7 decodes with
+    double-symbol tables in its fast loop (``HUF_decompress4X2_usingDTable_
+    internal_fast``: rounds of 5 lookups of one or two symbols while every
+    stream has 10 bytes a round left), and 800 damaged copies: PIL's outcome
+    for all 820."""
+    files, damaged = _x2_corpus(seed)
+    assert _check([(f"{i}", d) for i, d in enumerate(files + damaged)], tmp_path) == 820
+
+
+@pytest.mark.parametrize("seed,index", [(1, 288), (5, 82), (5, 100)])
+def test_zstd_x2_fast_loop_cases_match_pil(seed, index, tmp_path):
+    """The damaged copies of that corpus where a model of X1's fast loop
+    (rounds of 5 single symbols while the fourth stream has 5 left) reads
+    the strip and libzstd's X2 loop fails it: PIL raises, so does the
+    port."""
+    d = _x2_corpus(seed)[1][index]
+    assert _pil(d)[0] == "error"
+    assert _agrees(d, tmp_path / "f.tif") == ""
+
+
 # -------------------------------------------------------- damaged IFDs
 def _patch_entry(data: bytes, tag: int, type_=None, count=None, value=None, new_tag=None):
     """``data`` with the first IFD entry of ``tag`` given another tag,
@@ -601,6 +698,63 @@ def test_damaged_ifd_cases(case, compression, tmp_path):
     g = mk.scene(12, 20, compression)
     data = mk.encode_tiff(g, compression=compression, predictor=2)
     assert _agrees(_patch_entry(data, **DAMAGED_IFD[case]), tmp_path / "f.tif") == ""
+
+
+# the flipped copies of ``torch_tiff_ifd_probe.corpus`` (seed, compression,
+# file, flip) the port read otherwise than PIL before these repairs: a byte
+# count array libtiff cannot fetch (a RATIONAL or DOUBLE type, seed 3's two
+# LZMA files) fails the open, where the port estimated the counts; raw
+# strip or tile offsets PIL holds as IFDRational or float; an image taller
+# than 2^24 rows; an LZW strip whose first code is not Clear; a Deflate
+# strip whose Adler-32 lies past its byte count; a first Compression entry
+# naming a scheme libtiff has no codec for
+IFD_PROBE_CASES = [
+    (0, "raw", 0, 6), (0, "raw", 1, 6), (0, "raw", 3, 1), (0, "raw", 18, 22),
+    (0, "lzw", 19, 37), (0, "deflate", 9, 22), (0, "deflate", 9, 34),
+    (0, "deflate", 14, 21), (0, "deflate", 19, 8),
+    (1, "raw", 6, 15), (1, "lzw", 15, 36), (1, "deflate", 2, 2), (1, "deflate", 7, 7),
+    (1, "deflate", 7, 8), (1, "deflate", 8, 7), (1, "deflate", 13, 13),
+    (1, "deflate", 13, 23), (1, "deflate", 14, 22), (1, "deflate", 19, 27),
+    (2, "raw", 14, 32),
+    (3, "lzma", 10, 23), (3, "lzma", 18, 20), (3, "raw", 11, 8), (3, "raw", 15, 2),
+    (3, "lzw", 8, 39), (3, "deflate", 18, 23),
+    (4, "raw", 3, 18), (4, "raw", 13, 21), (4, "deflate", 4, 30), (4, "deflate", 5, 18),
+    (4, "deflate", 10, 33), (4, "deflate", 19, 18), (4, "deflate", 19, 23),
+    (4, "deflate", 19, 27),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _probe_copies(seed: int) -> dict:
+    import torch_tiff_ifd_probe as probe
+
+    wanted = {(k, i, j) for s, k, i, j in IFD_PROBE_CASES if s == seed}
+    return {(k, i, j): d for k, i, j, _, _, d in probe.corpus(seed) if (k, i, j) in wanted}
+
+
+@pytest.mark.parametrize("case", IFD_PROBE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_ifd_probe_cases_match_pil(case, tmp_path):
+    """Each IFD bit flip of the probe's corpus that the port once read
+    otherwise than PIL (``python tests/torch_tiff_ifd_probe.py --seed N``
+    now reports 0 of 4,800 at seeds 0-4): PIL's outcome."""
+    seed, kind, i, j = case
+    assert _agrees(_probe_copies(seed)[(kind, i, j)], tmp_path / "f.tif") == ""
+
+
+@pytest.mark.parametrize("layout,at", [("jif", 8), ("jif", 60), ("jif", 200), ("jif", 300),
+                                       ("tables", 100), ("jif_whole", 100)])
+def test_ojpeg_strips_read_from_a_later_tile_offsets_entry_match_pil(layout, at, tmp_path):
+    """An old-style JPEG TIFF (32 × 48, one strip) whose IFD also holds a
+    TileOffsets entry: libtiff takes the later entry's offset for the
+    strip, libjpeg decodes whatever bytes lie there (a JPEG header's markers
+    read as entropy data end the scan, zeros then fill it) and libtiff's
+    OJPEG reads nothing after the scan, so PIL reads the file: the port
+    gives its pixels."""
+    ycc = np.stack([mk.scene(32, 48, 1), np.full((32, 48), 128), np.full((32, 48), 120)],
+                   -1).astype(np.uint8)
+    data = mk.encode_tiff_ojpeg(ycc, layout=layout, tags=[(324, 4, [at])])
+    assert _pil(data)[0] == "ok"
+    assert _agrees(data, tmp_path / "f.tif") == ""
 
 
 # ------------------------------------------------------------- refusals

@@ -3,7 +3,7 @@ netpbm, TIFF, BMP, PFM, GIF, WebP, QOI, Sun raster, PCX, SGI, TGA, ICO,
 CUR, DIB and DDS kind that PIL's
 ``Image.open(p).convert("L")`` reads (or refuses), one file of each format
 PIL reads by a signature that the port does not read yet, the full-width
-progressive stereo sequence, and ``manifest.json`` (each file's kind and the sha256 of PIL's
+progressive stereo sequence and its JPEG 2000 copy, and ``manifest.json`` (each file's kind and the sha256 of PIL's
 ``convert("L")`` pixels; for a refused file the word its refusal names it
 by, and ``pil_reads`` where PIL reads what the port refuses).
 
@@ -3929,9 +3929,9 @@ def encode_pillow_pnm(magic: bytes, samples, maxval: int = 255) -> bytes:
 
 
 def unported_files(seed: int) -> dict:
-    """One small file of each format PIL identifies by a signature and the
-    port does not read yet, PIL's writer where it has one; each refused
-    naming its format."""
+    """One small file of each format PIL identifies by a signature that the
+    port did not read at first, PIL's writer where it has one: JPEG 2000
+    (read since), and AVIF, refused naming its format."""
     from PIL import Image
 
     h, w = 24, 32
@@ -3943,9 +3943,8 @@ def unported_files(seed: int) -> dict:
         return {"refused": True, "refusal": word, "pil_reads": True}
 
     return {
-        "jp2.jp2": (_pil_save(im, "JPEG2000"), "JPEG 2000, JP2 box (PIL)", un("JPEG 2000")),
-        "j2k.j2k": (_pil_save(im, "JPEG2000", no_jp2=True), "JPEG 2000 codestream (PIL)",
-                    un("JPEG 2000")),
+        "jp2.jp2": (_pil_save(im, "JPEG2000"), "JPEG 2000, JP2 box (PIL)"),
+        "j2k.j2k": (_pil_save(im, "JPEG2000", no_jp2=True), "JPEG 2000 codestream (PIL)"),
         "avif.avif": (_pil_save(imc, "AVIF"), "AVIF (PIL)", un("AVIF")),
     }
 
@@ -3956,7 +3955,7 @@ def container_files(seed: int) -> dict:
     ``p0cmyk.pnm``; the same bytes), a PackBits RGB PSD, a DCX, a BLP1 of
     PIL's JPEG and a BLP2 of DXT5 blocks, an FTEX of BC1 blocks, ICNS files
     whose best size is an RLE icon and a PNG, a PyCMYK at maxval 200, and an
-    ICNS whose best size is JPEG 2000 (PIL reads it; the port refuses it)."""
+    ICNS whose best size is JPEG 2000."""
     from PIL import Image
 
     h, w = 24, 32
@@ -3997,8 +3996,7 @@ def container_files(seed: int) -> dict:
         "pycmyk.pnm": (encode_pillow_pnm(b"PyCMYK", rgba.astype(np.int64) * 200 // 255, 200),
                        "netpbm PyCMYK at maxval 200 (Pillow's own kind)"),
         "icns_jp2.icns": (encode_icns([(b"is32", icns_rgb(icon)), (b"ic11", j2k)]),
-                          "ICNS whose best size is a JPEG 2000 codestream (PIL)",
-                          {"refused": True, "refusal": "JPEG 2000", "pil_reads": True}),
+                          "ICNS whose best size is a JPEG 2000 codestream (PIL)"),
     }
 
 
@@ -4560,6 +4558,8 @@ SEQ_DIR = "seq_prog"
 BASELINE_DIR = "seq_baseline"  # the sequence's first pair as baseline JPEGs (decode timing)
 WEBP_DIR = "seq_webp"  # the sequence's first pair as lossy WebPs, quality 90 (decode timing)
 ZSTD_DIR = "seq_zstd"  # the sequence's first pair as ZSTD TIFFs (decode timing: no zstd on the card)
+J2K_DIR = "seq_j2k"  # the sequence as reversible JPEG 2000 codestreams at rate 20 (PIL)
+J2K_LOSSLESS_DIR = "seq_j2k_lossless"  # its first pair as lossless codestreams (decode timing)
 SEQ_NS0 = 1_403_636_579_763_555_584
 
 
@@ -4570,6 +4570,28 @@ def zstd_pair_files(pair) -> dict:
         encode_tiff(np.asarray(u8), compression=50000, predictor=2, rows_per_strip=16),
         "gray, ZSTD level 3 (libzstd), predictor 2, 16-row strips, 752×480")
         for cam_dir, u8 in zip(("cam0", "cam1"), pair)}
+
+
+def j2k_frame_files(i: int, ns: int, pair) -> dict:
+    """Frame ``i`` of the sequence (its rendered pair, uint8) as PIL's
+    reversible (5/3) JPEG 2000 codestreams at a rate of 20 (one quality
+    layer: the lower bit-planes of most code-blocks cut), under
+    ``J2K_DIR``; the first pair also lossless under ``J2K_LOSSLESS_DIR``."""
+    from PIL import Image
+
+    files = {}
+    for cam_dir, im in zip(("cam0", "cam1"), pair):
+        buf = io.BytesIO()
+        Image.fromarray(im).save(buf, "JPEG2000", no_jp2=True, quality_mode="rates",
+                                 quality_layers=[20])
+        files[f"{J2K_DIR}/mav0/{cam_dir}/data/{ns}.j2k"] = (
+            buf.getvalue(), "gray JPEG 2000 codestream, 5/3, rate 20 (PIL), 752×480")
+        if i == 0:
+            buf = io.BytesIO()
+            Image.fromarray(im).save(buf, "JPEG2000", no_jp2=True)
+            files[f"{J2K_LOSSLESS_DIR}/{cam_dir}.j2k"] = (
+                buf.getvalue(), "gray JPEG 2000 codestream, 5/3, lossless (PIL), 752×480")
+    return files
 
 
 def first_pair() -> list:
@@ -4606,7 +4628,8 @@ def sequence_files() -> dict:
     rendered camera poses, as ``chip_smoke._write_tree`` writes it); and
     the first pair again as baseline JPEGs under ``BASELINE_DIR`` and as
     lossy WebPs at quality 90 under ``WEBP_DIR`` and as ZSTD TIFFs under
-    ``ZSTD_DIR``."""
+    ``ZSTD_DIR``; and the same pairs as JPEG 2000 codestreams in a tree of
+    their own under ``J2K_DIR`` (``j2k_frame_files``)."""
     from PIL import Image
 
     world, cam, traj = _sequence_scene()
@@ -4619,6 +4642,7 @@ def sequence_files() -> dict:
         pair = _render_pair(world, cam, traj[i], i)
         if i == 0:
             files.update(zstd_pair_files(pair))
+        files.update(j2k_frame_files(i, ns, pair))
         for cam_dir, im in zip(("cam0", "cam1"), pair):
             u8 = Image.fromarray(im)
             buf = io.BytesIO()
@@ -4635,12 +4659,14 @@ def sequence_files() -> dict:
                 files[f"{WEBP_DIR}/{cam_dir}.webp"] = (buf.getvalue(),
                                                         "lossy gray, quality 90 (PIL), 752×480")
     gt = np.einsum("ij,njk->nik", INIT_POSE, traj)
-    text = {f"{seq}/cam0/data.csv": "#timestamp [ns],filename\n"
-            + "".join(f"{ns},{ns}.jpg\n" for ns in names),
-            f"{seq}/state_groundtruth_estimate0/data.csv":
-            "#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m]\n"
-            + "".join(f"{ns},{float(T[0, 3])!r},{float(T[1, 3])!r},{float(T[2, 3])!r}\n"
-                      for ns, T in zip(names, gt))}
+    truth = ("#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m]\n"
+             + "".join(f"{ns},{float(T[0, 3])!r},{float(T[1, 3])!r},{float(T[2, 3])!r}\n"
+                       for ns, T in zip(names, gt)))
+    text = {}
+    for root, ext in ((seq, "jpg"), (f"{J2K_DIR}/mav0", "j2k")):
+        text[f"{root}/cam0/data.csv"] = ("#timestamp [ns],filename\n"
+                                         + "".join(f"{ns},{ns}.{ext}\n" for ns in names))
+        text[f"{root}/state_groundtruth_estimate0/data.csv"] = truth
     return files, text
 
 
